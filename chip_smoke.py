@@ -1,0 +1,737 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failed check raises and the
+script exits non-zero:
+
+1. device and build: the card's name and power limit, the kernels built
+   from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, TF32 off;
+2. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes and at ragged ones, in f32 and bf16; then the reference's
+   converging golden on a small problem, replayed from the reference's
+   own index stream (embedded below);
+3. the main path: ``fw_path`` on the 'kernels' backend at the paper's
+   dense size (p = 4,272,227, m = 800, f32, kappa = 1% of p, uniform
+   sampling), with each kernel's launch count checked against the run;
+4. the first grid points again on the plain 'torch' backend with the
+   same sampler seeds: the vertex sequences must agree up to the first
+   near-tie and the objectives to a stated tolerance;
+5. timing of each kernel, its bound, its plain version and a library
+   call, with CUDA events; and the host's share of a step.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at its 700 W limit
+PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+
+# main path: examples/lasso_fullpath_4m.py --paper-size, dense, with the
+# example's whole 100-point grid; its first 3 points rerun on 'torch'
+P_PAPER, M_PAPER, N_REL = 4_272_227, 800, 300
+N_POINTS, N_COMPARE = 100, 3
+
+# f32 sums of m products, taken in another order than the plain version's:
+# the difference is rounding, a few ulps of the Cauchy-Schwarz scale
+# ||x|| * ||v|| per dot product (worst case m * 2^-24 ~ 5e-5 at m = 800,
+# typically under 1e-6), so 1e-5 of that scale.
+RTOL_SUM = 1e-5
+# the two backends' vertex scores differ by that rounding plus what it
+# accumulates in the state over a run; two sampled coordinates whose
+# |scores| lie within this fraction of ||r|| are a near-tie
+RTOL_TIE = 1e-4
+# objectives of the two backends while their trajectories agree (rounding
+# of the S/F recursions), and after a near-tie sent them apart (two
+# different runs of the same stochastic solver, both stopped at tol 1e-3)
+RTOL_OBJ_SAME, RTOL_OBJ_APART = 1e-5, 1e-3
+
+
+# The reference's converging golden (tests/test_engine.py:89-97) on the
+# small_problem geometry: the index stream of its 25 steps, drawn by
+# jax.random in legacy threefry mode from PRNGKey(42) (int16 little-endian,
+# 25 x 60, base64), and its vertex sequence. tests/test_torch_engine.py
+# checks both against the reference.
+GOLDEN_I_STAR = [272, 54, 192, 260, 70, 54, 244, 248, 248, 193, 297, 260, 248,
+                 287, 193, 248, 272, 169, 204, 272, 105, 287, 68, 260, 242]
+GOLDEN_OBJECTIVE = 751729.4375
+GOLDEN_STREAM = (
+    "vwC/AGIAGAAbAVoAuQDSAF8AqQA2ABcAaQBFANcAkQDDALcAIADaAPYAGQAQATwA5QAxABgAgAC9"
+    "APsAPADeACkBawANACUB3QAFAGYAEwH8ACABHQENAJwAFQAJARgAkwCeAJAA3wBcAJkA0QAcAbIA"
+    "agClAFwAWwB4AMcAIgF0ABIBdQCPAMIAxAC9APQAOgC3ABQAuAAcAGkAggD6AAUBwwAMAVgA0QCh"
+    "AD4AQwBVACIAiQAZAGcAnQAUAP0ALQAXAPgA8AAnAZcAkAAYAK0AuAC9AHUASwArAIQACgEoAF8A"
+    "FwAuAOQANgAAAAoAQgA8APUAfwDaAEwARwAtAFkANwB8AC0ArgAHARgA8QCaAAgAhQDAAIgA/ADx"
+    "ALkAFgC8AGoAFgAwAOgAKwC0AHAACgCkAFMAegC0ALwA7gCeAAEBzQDsAFkA6ABFAB0AbQCTAAEB"
+    "vAAHAcgAdgBEABUBNQDEABoBywBfAF0AkwAVAXEAKQDuAHQA2AAXAGYArwDwAEMAywBMAAYB9wBC"
+    "AL4AIAFCALYAPwCIAA4ABAFTADgAmgBaAGkAWQCHADwANADWAEoA+QAWAR0B9ACuACIA2gC1AOkA"
+    "LgBFAJwAAgAsAGAACQAKACsAnABJAG0A0QCmAJkAOwANAG4AWQASAY4AowCLAMsAMwA5AAYAhwB1"
+    "AO0A7AAEAegAQwBGAIUA4ACCAGoAmAAFAdsAaQAAAdsAqAANAEMAqgBcAJMAPgC2AE8ADwH+AOQA"
+    "HgEcACAAQAAOASoAaAAcAF8AhgD3APQADAH5AAUBswBfAMoA3ACEAEIAIQAqAcAA2QABAA4AXACH"
+    "ADQAHAFHABcA3QDiAL0AwQA2AHUAfADTABgAeAAaAS0ABwDMAFkAAgBfADwACwBEACMB6gDQAJgA"
+    "jgDUACABQQACAWsAlwARAN8A+wDUAKYAqAAVAaoAvwCfANgAXQDLALQAHQFWALkAFwABAWUAbQCD"
+    "ABsADgF1AHcArQASADIAAgFkACMBCADbAG4AWgD/ACoAQQB4AOYA5gC1AI4AOgADASAAEgDeAEsA"
+    "iABhABcBWwAfAHAABgCjAN0AhADrAPQAEgFVACMArQDiAHgAJAAOAW0A+ADmAAEB0wB5AAUBBwHx"
+    "AAoAdgAAAI8AhwBtAL8AEwG0AJwAxAC1AOAAmQDPAB0BAwC1AKAA9wCxAN0ADwHbAH4ADgDpAEcA"
+    "9AB3AIAAegCeAFkA0gAUAfMAiQAQAJgACwB1APMA+gBcAIwARQAyAPEAOACTAI8AnwAqAHoAVwAT"
+    "AOUAswBRAOEA4QAoAUIAqQDjAH8AIgBgALEA+wAfAMEAyAA5AH0AFgERACoAZwBYANoADwFOABoB"
+    "OQDRAA0BLACaAIIAFwCUALsAuABtAAUAPwD6APgAAABPAKYAaAB8ACUAVADbAOkApgDAAIYAngCv"
+    "ACEBLAAgAHcAbQAFAR4BoQAkAVUAKAAaAaQAFAHBAMQADAAxAGsAAgAMAA0B6QCcAAsBpAB1AA0B"
+    "0wCrAEIADAGTAMMAzAB/AHUASgAyAD8A7gBkAPEACAApAJIA3QAVAQ8A3AAYACsADADmALEAqQBN"
+    "AMAA/QDXACkBeQAxAFAA/QBfABYBHQEGAYQAbwByAH0ArwDyAAYBBwG1ALcAXgAcAQgBnwDkANgA"
+    "kwCrADAALQAAAZ4ADwDfAPQAvQBMAC8AegCDAJwAkgAJAbQAngDhAFgAiwBqAGwAEwH8ALkAIAH8"
+    "ANsAnABcAIIA8AAXADIAyQCUAEsA3wDzAPkA0gARARwAEQHjACgBDgEJADsADAAQACAAuQACAQAB"
+    "VAAEARUB7wBfANsArADzAFcAFAFjAFgAnQATAM0AIADTAPsAqAB3AB4BAQEGAP4A1gAoAN4ARABl"
+    "AKMA1gA/AFMAIAE6AAsA2QAhAPEAKwHTAPAA/gAMAT0AKAC/ANkAigDtAOIAjAAfAZMAEwFgAOUA"
+    "hgDaACgAFgEVAAsBCwEdAScA2QA0AP8A0wAuACsBSgCrAMoA4wANAQAAqQCBAGAAVgDoAEwA7AAH"
+    "ABMBzQAfACUBnwC7APgAPAAcAIEAYwA4AG0AJgEjAGIA/QAZAdYACgByABMBVgClALkAtQAkAWoA"
+    "3wD+ALgA2gCNAFkAngClAAwA1gAmASgAuwAfAO0AtAC2AGcAqwAvAH4AfwDwABgAygCXAPsAHgGP"
+    "AKUAIQEIAaEAqwArAbIAHwEGAPUAlwCKAE4ABAArATkAowCpAC0ATwBeAHUA6gB5AC8AYQAyAJIA"
+    "NACfACgAHgBeAFYA/gBKAGIAgQBYACQBHQD9AMEARwC7ANoAQQCzAN0AcQAIAX0AYQB5AIgA9gCR"
+    "AAUBSwBUAJ4AbAB6AHIAPAAdADcAFQHzAB8BGQEIAUIACgDzADIAJgC5AO8ACgCVAGEAKwEHAAEA"
+    "4gDjAPIA6wD4ADIAAwEFANMA7wAkAIkA0wAcACYBmAAAAfYAvAAMAE0AzwCSAKMA0AA6AJsAGQAX"
+    "AJMA5wAPADQAigBLAK4AJgC/ANoAFgCHAHcAyACbAAAAoQARAP4ASAAJAeQA3wCNANgAywAcARwB"
+    "fwCuAAYBYACAAAQASQB2AHUABAE7AGcAGQB7AOEAlACIAMgAzQDXAEoA5wCJAKsABAEQAQgAcwBk"
+    "AA8AHgHsAGkABwEFAF8AzgBtAMAAGgAqAbgABwEFABoBUQAYASUAwAA8AC4ACwGZAMYA6QAhAJcA"
+    "EgBiANMAOgDGANIA0wALAKwAKgAUAZgAsgBuAKkAbgDWAM8AtgDSABUBbABPABQANAD6ADgAFAGt"
+    "ANEAVgAmAe4ASQB1AAwBCADxAH4AugAQAJwApQAHACcB/QCzAN8A+QCOAAEBmwBAAJcA2QAPAZMA"
+    "8QCLAKwAYAC3AP8AxQA+AHEA+gChAOwAEQCTABsArwD9AMQAWwB9AFEA1QBOAFAAAgHnADgA3ADc"
+    "AAIAFwDMAJEAjgDQAEsAkAC/AB0ADwHxAEwAzAAgAOQAGABSALsAeQCMALYAugAkANgApwDsAMsA"
+    "/gBRAPIAIwCWAEwA+wDyAJsANAD9AA8BOABgAC0AVACAAD0AVgDqACsAFgEaAdsA4QAVACABiQBP"
+    "ALoArAD0AFMAYQAYAfYAewDaAAwB6gDVAMMAmQAHAAcBZgC5AMMAswBZAGgA0QDEAOEAIABaABAB"
+    "nABxADEALgCaAOQAZQCTAHEA+wDrAAcAYADFACkASgBxAM4AMACMABIBigCBAAIAdAAmAEMAFQH5"
+    "ABUBOwAvAJYAtwAcAdgADwA9AA4B7QAEAHkAhQCqABcAEgBSAGkAQQAAARUADwEUATEA9QDkAFMA"
+    "uwAaAAEBVgADAFIARAC0AAQBKwATAaEAjAAfAYQAJwGWAAAAIQBxALYAoQCYANcADQAjAAIAGAGH"
+    "AMwATABKAPkAOwDnAMsA/wAgADgA+gBfADMAHABQAEgASACVAPwADACzAG4AzgDxAKoAvQCwAEQA"
+    "xQATAYIAsQDNADwAuQDPAIEAogAbAWAAOACxAHYAHAFsAPcADgBEADEARQCdACwAqwBJANAAxABT"
+    "ALwAmAClAF8ADwEnATEAVgCHABsBDwHdANMABwAFAPUAIgCcAE8AZgCgAHcA0QAuAPYAagAsAE4A"
+    "TAARAWYA+gBMACkA0ACcAPUASACOAMUAfgBPABMA3wBqALMAKQDWAD0AbgASAM4AcAARAFUAqwCr"
+    "APMADwCEAJ4AfwANABYAmwD+AL8ASwASAMwAugAdAQoB/gAkAH0AKQARAAQBTADVACsAEAAWABsA"
+    "GQAiACAAXQBgAJsAvABPAKcAEwEUAWAAxACYAAsBbQCzAB0BIQD1ACMA6gDwAJMAygAVAJ0AWQD0"
+    "AOkAdAAOAHQAFQGtAKEAPQDyAGsASgBrAL0AzgDmAHQAKAAQABYAcwAbAR0ACgHQADkA6AAHAckA"
+    "IgA/AAYAvwB/ANMAtgAEADgA4QDpAAAA/gBeAFgACwF/ALcA"
+)
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true", help="phases 1-2 only")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout that holds src/repro_torch", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    t_start = time.perf_counter()
+    card = phase1_device_and_build(torch)
+    dev = torch.device("cuda")
+
+    from repro_torch.data import make_wide_problem
+
+    t0 = time.perf_counter()
+    Xt, y, coef = make_wide_problem(P_PAPER, M_PAPER, N_REL, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[problem] p={P_PAPER:,} m={M_PAPER} f32 Xt={Xt.numel() * 4 / 1e9:.2f} GB "
+          f"built on the card in {time.perf_counter() - t0:.2f} s")
+
+    errs = phase2_kernels(torch, Xt, y)
+    golden_check(torch, dev)
+    if args.kernels_only:
+        print(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
+        return 0
+    launches, main_run = phase3_main_path(torch, Xt, y, coef)
+    phase4_other_backend(torch, Xt, y, main_run)
+    timing = phase5_timing(torch, Xt, y)
+
+    records = []
+    for name, info in KERNELS.items():
+        t = timing[name]
+        records.append({
+            "name": name, "route": "cuda", "source": info["source"],
+            "replaces": info["replaces"], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+KERNELS = {
+    "colstats": dict(source="src/repro_torch/kernels/csrc/colstats.cu",
+                     replaces="src/repro/kernels/colstats/colstats.py:54"),
+    "sampled_scores": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                           replaces="src/repro/kernels/fw_grad/fw_grad.py:79"),
+    "vertex_argmax": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                          replaces="src/repro/kernels/fw_grad/ops.py:27"),
+    "residual_update": dict(source="src/repro_torch/kernels/csrc/residual_update.cu",
+                            replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+}
+
+
+# --------------------------------------------------------------------------
+# phase 1
+# --------------------------------------------------------------------------
+
+
+def phase1_device_and_build(torch):
+    card = card_line()
+    print(f"[device] {card}")
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build(ptxas_verbose=True)
+    print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {len(logs)} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"[build] {name}: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[build] torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return card
+
+
+# --------------------------------------------------------------------------
+# phase 2
+# --------------------------------------------------------------------------
+
+
+def _scaled_err(torch, got, want, scale):
+    """max |got - want| / scale over the entries, and max |got - want|."""
+    d = (got.float() - want.float()).abs()
+    return float((d / scale).max()), float(d.max())
+
+
+def _top2_margin(torch, mags, idx):
+    """Gap between the two largest |scores| of distinct coordinates."""
+    uniq, inv = torch.unique(idx, return_inverse=True)
+    best = torch.full((uniq.numel(),), -1.0, device=mags.device).scatter_reduce(
+        0, inv, mags.float(), reduce="amax")
+    if best.numel() < 2:
+        return float("inf")
+    top = torch.topk(best, 2).values
+    return float(top[0] - top[1])
+
+
+def _check_vertex(torch, fw, label, Xt, r, blk, bs, p):
+    """fw_vertex (both kernels) vs the plain version: i_star equal unless
+    the plain scores' top-2 are a near-tie within the summation tolerance;
+    g_star within it."""
+    i_k, g_k = fw.fw_vertex(Xt, r, blk, bs, p_valid=p)
+    scores_p = fw.sampled_scores_plain(Xt, r, blk, bs)
+    i_p, g_p = fw.argmax_plain(scores_p, blk, bs, p)
+    scale = float(torch.linalg.vector_norm(r.float())) * float(
+        torch.linalg.vector_norm(Xt.float(), dim=1).max())
+    if int(i_k) != int(i_p):
+        idx = fw.block_indices(blk.long(), bs)
+        valid = idx < p
+        margin = _top2_margin(torch, scores_p.abs()[valid], idx[valid])
+        check(margin <= RTOL_SUM * scale,
+              f"{label}: i_star {int(i_k)} != plain {int(i_p)} and the top-2 margin "
+              f"{margin:.3e} is no near-tie")
+        print(f"[kernels] {label}: i_star differs at a near-tie (margin {margin:.3e})")
+    else:
+        check(abs(float(g_k) - float(g_p)) <= RTOL_SUM * scale,
+              f"{label}: g_star {float(g_k)} vs plain {float(g_p)}")
+
+
+def phase2_kernels(torch, Xt_main, y_main):
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import colstats as cs
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import residual_update as ru
+
+    dev = Xt_main.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    errs = {}
+    print(f"[kernels] tolerance: sums of products within {RTOL_SUM:g} of "
+          f"||x||*||v|| (summation order); argmax and eq. 10 exact")
+
+    # ---- K1 colstats -----------------------------------------------------
+    def k1(label, Xt, y):
+        zty, zn2 = cs.colstats(Xt, y)
+        zty_p, zn2_p = cs.colstats_plain(Xt, y)
+        norms = zn2_p.sqrt() * float(torch.linalg.vector_norm(y.float()))
+        e1, a1 = _scaled_err(torch, zty, zty_p, norms.clamp_min(1e-30))
+        e2, a2 = _scaled_err(torch, zn2, zn2_p, zn2_p.clamp_min(1e-30))
+        print(f"[kernels] colstats {label}: zty err {e1:.2e} (abs {a1:.2e}), "
+              f"znorm2 rel err {e2:.2e} (abs {a2:.2e})")
+        check(e1 <= RTOL_SUM and e2 <= RTOL_SUM, f"colstats {label} disagrees")
+        return max(a1, a2)
+
+    errs["colstats"] = k1("main p=4272227 m=800 f32", Xt_main, y_main)
+    for p, m, dt in ((1000, 803, torch.float32), (1000, 800, torch.bfloat16),
+                     (1000, 803, torch.bfloat16), (77, 20000, torch.float32)):
+        X = torch.randn((p, m), generator=g, device=dev).to(dt)
+        yv = torch.randn(m, generator=g, device=dev).to(dt)
+        k1(f"p={p} m={m} {str(dt)[6:]}", X, yv)
+    buf = torch.randn(100 * 800 + 1, generator=g, device=dev)
+    X_unaligned = buf[1:].view(100, 800)  # rows 4 bytes off a 16-byte boundary
+    k1("p=100 m=800 f32 unaligned rows", X_unaligned, torch.randn(800, generator=g, device=dev))
+
+    # ---- K2 sampled_scores + vertex_argmax --------------------------------
+    p, m = Xt_main.shape
+    kappa = kappa_fraction(p, 0.01)
+    idx = TorchSampler(7, dev).uniform(kappa, p)
+    s_k = fw.sampled_scores(Xt_main, y_main, idx, 1)
+    s_p = fw.sampled_scores_plain(Xt_main, y_main, idx, 1)
+    scale = float(torch.linalg.vector_norm(y_main))  # unit-norm rows
+    e, a = _scaled_err(torch, s_k, s_p, scale)
+    print(f"[kernels] sampled_scores main kappa={kappa} bs=1 f32: err {e:.2e} (abs {a:.2e})")
+    check(e <= RTOL_SUM, "sampled_scores main disagrees")
+    errs["sampled_scores"] = a
+    _check_vertex(torch, fw, "fw_vertex main", Xt_main, y_main, idx, 1, p)
+    i_k, g_k = fw.vertex_argmax(s_k, idx, 1, p)
+    i_p, g_p = fw.argmax_plain(s_k, idx, 1, p)
+    check(int(i_k) == int(i_p) and float(g_k) == float(g_p), "vertex_argmax main disagrees")
+    errs["vertex_argmax"] = abs(float(g_k) - float(g_p))
+
+    for m_r, dt, aligned in ((803, torch.float32, True), (800, torch.float32, True),
+                             (800, torch.bfloat16, True), (803, torch.bfloat16, True),
+                             (800, torch.float32, False)):
+        p_r = 1000  # not a multiple of 32 nor of 128: the last block is a masked tail
+        if aligned:
+            X = torch.randn((p_r, m_r), generator=g, device=dev)
+        else:
+            X = torch.randn(p_r * m_r + 1, generator=g, device=dev)[1:].view(p_r, m_r)
+        X[17] = X[5]
+        X[900] = X[5]
+        X = X.to(dt)
+        r = X[5].clone()  # rows 5, 17, 900 tie exactly for the largest |score|
+        lab = f"p={p_r} m={m_r} {str(dt)[6:]}{'' if aligned else ' unaligned rows'}"
+        for bs, blk, want in (
+            (1, torch.tensor([3, 17, 998, 5, 17, 42, 999, 900], device=dev), 17),
+            (1, torch.randint(0, p_r, (300,), generator=g, device=dev), None),
+            (128, torch.tensor([7, 0, 3], device=dev), 900),
+            (128, torch.tensor([0, 7], device=dev), 5),
+        ):
+            sk = fw.sampled_scores(X, r, blk, bs)
+            sp = fw.sampled_scores_plain(X, r, blk, bs)
+            sc = float(torch.linalg.vector_norm(r.float())) * float(
+                torch.linalg.vector_norm(X.float(), dim=1).max())
+            e, _ = _scaled_err(torch, sk, sp, sc)
+            rows = fw.block_indices(blk, bs)
+            tail = rows >= p_r
+            check(e <= RTOL_SUM, f"sampled_scores {lab} bs={bs} disagrees ({e:.2e})")
+            check(bool((sk[tail] == 0).all()), f"sampled_scores {lab}: tail rows not 0")
+            ik, gk = fw.vertex_argmax(sk, blk, bs, p_r)
+            ip, gp = fw.argmax_plain(sk, blk, bs, p_r)
+            check(int(ik) == int(ip) and float(gk) == float(gp),
+                  f"vertex_argmax {lab} bs={bs}: {int(ik)} vs plain {int(ip)}")
+            if want is not None:
+                check(int(ik) == want, f"vertex_argmax {lab} bs={bs}: tie went to "
+                      f"{int(ik)}, first in sample order is {want}")
+            _check_vertex(torch, fw, f"fw_vertex {lab} bs={bs}", X, r, blk, bs, p_r)
+            print(f"[kernels] sampled_scores/vertex_argmax {lab} bs={bs} nb={blk.numel()}: "
+                  f"err {e:.2e}, tail rows {int(tail.sum())} score 0, i_star {int(ik)}")
+
+    # ---- K3 residual_update -----------------------------------------------
+    def k3(label, m_r, dt):
+        r = torch.randn(m_r, generator=g, device=dev).to(dt)
+        yv = torch.randn(m_r, generator=g, device=dev).to(dt)
+        z = torch.randn(m_r, generator=g, device=dev).to(dt)
+        lam = torch.rand((), generator=g, device=dev)
+        dlt = torch.randn((), generator=g, device=dev) * 50
+        out = ru.residual_update(r, yv, z, lam, dlt)
+        want = ru.residual_update_plain(r, yv, z, lam, dlt)
+        d = float((out.float() - want.float()).abs().max())
+        print(f"[kernels] residual_update {label}: max abs err {d:.2e} (exact expected)")
+        check(d == 0.0 and out.dtype == dt, f"residual_update {label} disagrees")
+        return d
+
+    errs["residual_update"] = k3("main m=800 f32", 800, torch.float32)
+    for m_r, dt in ((803, torch.float32), (800, torch.bfloat16), (1_000_001, torch.float32)):
+        k3(f"m={m_r} {str(dt)[6:]}", m_r, dt)
+    torch.cuda.synchronize()
+    return errs
+
+
+def golden_stream():
+    """The golden's (25, 60) index stream as a numpy array."""
+    import base64
+
+    import numpy as np
+
+    return np.frombuffer(base64.b64decode("".join(GOLDEN_STREAM)), "<i2").reshape(25, 60)
+
+
+def golden_check(torch, dev):
+    """The 'kernels' backend on the card replays the reference's converging
+    golden from the reference's own index stream: 25 iterations, 1500
+    dots, the same 25 vertices, the objective at the goldens' rtol 1e-6."""
+    from repro_torch import convert
+    from repro_torch.core import FWConfig, fw_solve
+    from repro_torch.data import make_regression, standardize
+
+    ds = standardize(make_regression(m=80, p=300, n_informative=10, noise=0.5, seed=0))
+    X, yv = convert.problem_from_numpy(ds.X.T, ds.y, dev)
+    cfg = FWConfig(delta=150.0, kappa=60, max_iters=5000, tol=1e-4, backend="kernels")
+    seq = []
+    res = fw_solve(X, yv, cfg, convert.stream_from_reference(golden_stream(), dev),
+                   device=dev, on_step=lambda s: seq.append(int(s.i_star)))
+    obj = float(res.objective)
+    print(f"[golden] small_problem on the card: iters={res.iterations} n_dots={res.n_dots} "
+          f"converged={bool(res.converged)} objective={obj!r} (reference "
+          f"{GOLDEN_OBJECTIVE!r}), vertex sequence equal: {seq == GOLDEN_I_STAR}")
+    check((res.iterations, res.n_dots, bool(res.converged)) == (25, 1500, True),
+          "golden: iterations / dots / convergence")
+    check(seq == GOLDEN_I_STAR, f"golden: vertex sequence {seq}")
+    check(abs(obj - GOLDEN_OBJECTIVE) <= 1e-6 * GOLDEN_OBJECTIVE, "golden: objective")
+
+
+# --------------------------------------------------------------------------
+# phases 3 and 4
+# --------------------------------------------------------------------------
+
+
+class Recorder:
+    """``fw_path`` step hook keeping, for the first grid points, each
+    step's vertex and residual (device tensors: no sync)."""
+
+    def __init__(self, n_points):
+        self.n_points = n_points
+        self.i_star = [[] for _ in range(n_points)]
+        self.resid = [[] for _ in range(n_points)]
+
+    def __call__(self, g, state):
+        if g < self.n_points:
+            self.i_star[g].append(state.i_star)
+            self.resid[g].append(state.co.resid)
+
+    def sequence(self, g):
+        import torch
+
+        if not self.i_star[g]:
+            return torch.zeros(0, dtype=torch.int64)
+        return torch.stack(self.i_star[g]).cpu()
+
+
+def main_config(p, backend):
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+
+    # the example's paper-size path: kappa = 1% of p, 5000 iterations, tol 1e-3
+    return FWConfig(delta=1.0, kappa=kappa_fraction(p, 0.01), sampling="uniform",
+                    max_iters=5000, tol=1e-3, backend=backend)
+
+
+def phase3_main_path(torch, Xt, y, coef):
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, delta_grid, fw_path
+
+    p, m = Xt.shape
+    cfg = main_config(p, "kernels")
+    delta_max = 0.5 * float(coef.abs().sum())
+    deltas = delta_grid(delta_max, n_points=N_POINTS)
+    rec = Recorder(N_COMPARE)
+    print(f"[main] fw_path backend=kernels p={p:,} m={m} kappa={cfg.kappa:,} "
+          f"sampling=uniform max_iters={cfg.max_iters} tol={cfg.tol} "
+          f"points={N_POINTS} delta_max={delta_max:.6g}")
+    kernels.reset_launch_counts()
+    res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec)
+    launches = kernels.launch_counts()
+    for g, pt in enumerate(res.points):
+        print(f"[main] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
+              f"n_dots={pt.n_dots} objective={pt.objective!r} l1={pt.l1:.6g} "
+              f"l1<=delta={pt.l1 <= pt.reg * (1 + 1e-4)} active={pt.active} "
+              f"seconds={pt.seconds:.4f}")
+        check(math.isfinite(pt.objective), f"point {g}: objective not finite")
+        check(pt.l1 <= pt.reg * (1 + 1e-4), f"point {g}: l1 {pt.l1} > delta {pt.reg}")
+        check(pt.n_dots == pt.iterations * cfg.kappa, f"point {g}: n_dots")
+    print(f"[main] path: {len(res.points)} points, {res.total_iters} iterations, "
+          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
+          f"{1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms/iteration, "
+          f"mean active {res.mean_active:.1f}")
+    print(f"[main] launches during the path: {launches}")
+    check(launches["colstats"] == len(res.points), "colstats launches != points")
+    for name in ("sampled_scores", "vertex_argmax", "residual_update"):
+        check(launches[name] == res.total_iters, f"{name} launches != iterations")
+    # the certified duality gap bounds the last point's suboptimality: it
+    # must be finite and (up to rounding) non-negative
+    last = res.points[-1]
+    alpha = _alpha_from_point(torch, last, p, Xt.device)
+    gap = float(LASSO.gap(Xt, y, alpha, torch.tensor(last.reg, device=Xt.device)))
+    print(f"[main] certified duality gap at the last point: {gap!r} "
+          f"(objective {last.objective!r})")
+    check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), "certified gap")
+    return launches, dict(cfg=cfg, deltas=deltas, res=res, rec=rec)
+
+
+def _alpha_from_point(torch, pt, p, device):
+    alpha = torch.zeros(p, device=device)
+    alpha[torch.as_tensor(pt.alpha_nnz_idx, device=device)] = torch.as_tensor(
+        pt.alpha_nnz_val, device=device)
+    return alpha
+
+
+def phase4_other_backend(torch, Xt, y, main):
+    from repro_torch.core import fw_path
+    from repro_torch.core.path import point_seed
+    from repro_torch.core.vertex import TorchSampler
+
+    p = Xt.shape[0]
+    rec_k = main["rec"]
+    n = rec_k.n_points
+    deltas = main["deltas"][:n]
+    cfg = dataclasses.replace(main["cfg"], backend="torch")
+    rec_t = Recorder(n)
+    res_t = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec_t)
+    print(f"[compare] first {n} points on backend=torch, same sampler seeds; "
+          f"near-tie: top-2 |scores| within {RTOL_TIE:g} * ||r||; objectives "
+          f"within {RTOL_OBJ_SAME:g} while the runs agree, {RTOL_OBJ_APART:g} after")
+    apart = False
+    for g in range(n):
+        pk, pt = main["res"].points[g], res_t.points[g]
+        sk, st = rec_k.sequence(g), rec_t.sequence(g)
+        note = "runs already apart"
+        if not apart:
+            common = min(len(sk), len(st))
+            diff = (sk[:common] != st[:common]).nonzero().view(-1)
+            if diff.numel():
+                t = int(diff[0])
+                if t > 0:
+                    r_pre = rec_t.resid[g][t - 1]
+                elif g == 0:
+                    r_pre = y
+                else:  # the warm start of point g on the torch path
+                    prev = res_t.points[g - 1]
+                    a0 = _alpha_from_point(torch, prev, p, Xt.device) * (float(deltas[g]) / prev.l1)
+                    r_pre = y - a0 @ Xt
+                sampler = TorchSampler(point_seed(0, g), Xt.device)
+                for _ in range(t + 1):
+                    idx = sampler.uniform(cfg.kappa, p)
+                mags = (Xt.index_select(0, idx) @ r_pre).abs()
+                margin = _top2_margin(torch, mags, idx)
+                rnorm = float(torch.linalg.vector_norm(r_pre))
+                check(margin <= RTOL_TIE * rnorm,
+                      f"point {g} step {t}: vertex {int(sk[t])} (kernels) vs {int(st[t])} "
+                      f"(torch) with top-2 margin {margin:.3e} = {margin / rnorm:.2e} ||r||: "
+                      "no near-tie")
+                note = (f"same vertices for {t} steps, then a near-tie (margin "
+                        f"{margin / rnorm:.2e} ||r||)")
+                apart = True
+            elif len(sk) != len(st):
+                note = f"same vertices for {common} steps, the stopping test differed"
+                apart = True
+            else:
+                note = f"identical vertex sequence ({common} steps)"
+        rtol = RTOL_OBJ_APART if apart else RTOL_OBJ_SAME
+        rel = abs(pk.objective - pt.objective) / abs(pt.objective)
+        print(f"[compare] point {g} iters {pk.iterations}/{pt.iterations} objective "
+              f"{pk.objective!r}/{pt.objective!r} rel diff {rel:.2e} (rtol {rtol:g}): {note}")
+        check(rel <= rtol, f"point {g}: objectives differ by {rel:.2e}")
+
+
+# --------------------------------------------------------------------------
+# phase 5
+# --------------------------------------------------------------------------
+
+
+def _time_queued(torch, fn, reps):
+    """Device ms per call: the calls are enqueued behind a spin kernel, so
+    the events time the calls back to back, not the host's launch rate
+    (reps * launches per call stays under the ~1000-entry launch queue)."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_cold(torch, fn, reps, flush):
+    """Device ms per call, the L2 cache flushed before each."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase5_timing(torch, Xt, y):
+    from repro_torch.core import engine, fw_lasso
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import colstats as cs
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import residual_update as ru
+
+    p, m = Xt.shape
+    cfg = main_config(p, "kernels")
+    kappa = cfg.kappa
+    dev = Xt.device
+    out = {}
+    flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
+
+    def row(name, ms, plain_ms, library_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        lib = "null" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"[timing] {name}: {ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, "
+              f"library {lib}{note}")
+
+    nb1 = p * m * 4 + m * 4 + 2 * p * 4
+    row("colstats",
+        _time_cold(torch, lambda: cs.colstats(Xt, y), 5, flush),
+        _time_cold(torch, lambda: cs.colstats_plain(Xt, y), 5, flush),
+        _time_cold(torch, lambda: torch.mv(Xt, y), 5, flush),
+        nb1, 4 * p * m, note=" [library: torch.mv for zty alone; L2 flushed]")
+
+    sampler = TorchSampler(11, dev)
+    idxs = [sampler.uniform(kappa, p) for _ in range(32)]  # 32 * 137 MB of rows >> L2
+    r = y.clone()
+    row("sampled_scores",
+        _time_queued(torch, lambda i: fw.sampled_scores(Xt, r, idxs[i % 32], 1), 200),
+        _time_queued(torch, lambda i: fw.sampled_scores_plain(Xt, r, idxs[i % 32], 1), 50),
+        _time_queued(torch, lambda i: torch.mv(Xt.index_select(0, idxs[i % 32]), r), 50),
+        kappa * m * 4 + m * 4 + kappa * 8 + kappa * 4, 2 * kappa * m,
+        note=f" [kappa={kappa}, m={m}; library: torch.mv on Xt.index_select]")
+
+    scores = fw.sampled_scores(Xt, r, idxs[0], 1)
+    row("vertex_argmax",
+        _time_queued(torch, lambda i: fw.vertex_argmax(scores, idxs[0], 1, p), 400),
+        _time_queued(torch, lambda i: fw.argmax_plain(scores, idxs[0], 1, p), 40),
+        None, kappa * 4 + kappa * 8 + 8 + 4, 3 * kappa, note=" [library: none]")
+
+    z = Xt[0].clone()
+    lam = torch.tensor(0.25, device=dev)
+    dt = torch.tensor(-3.0, device=dev)
+    target = y - dt * z
+    row("residual_update",
+        _time_queued(torch, lambda i: ru.residual_update(r, y, z, lam, dt), 400),
+        _time_queued(torch, lambda i: ru.residual_update_plain(r, y, z, lam, dt), 80),
+        _time_queued(torch, lambda i: torch.lerp(r, target, lam), 400),
+        4 * m * 4 + 8, 5 * m, note=f" [m={m}; library: torch.lerp toward y - dt*z]")
+
+    # host share of a step: fixed-length runs of the main path's step
+    kernel_ms = sum(out[k]["ms"] for k in ("sampled_scores", "vertex_argmax", "residual_update"))
+    n_steps = 300
+    for backend in ("kernels", "torch"):
+        bcfg = dataclasses.replace(main_config(p, backend), max_iters=n_steps,
+                                   tol=0.0, patience=10**9)
+        stats = engine.precompute_colstats(Xt, y, bcfg)
+        delta = torch.tensor(50.0, device=dev)
+        state0 = engine.init_state(fw_lasso.LASSO, Xt, y, None, bcfg)
+        engine.run_loop(fw_lasso.LASSO, Xt, y, stats, state0, bcfg, delta, 10**9,
+                        TorchSampler(3, dev))  # warm-up
+        state0 = engine.init_state(fw_lasso.LASSO, Xt, y, None, bcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_loop(fw_lasso.LASSO, Xt, y, stats, state0, bcfg, delta, 10**9,
+                        TorchSampler(5, dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        if backend == "kernels":
+            print(f"[timing] step (kernels): wall {wall_ms:.4f} ms, its three kernels "
+                  f"{kernel_ms:.4f} ms, the rest (host launches, the per-step sync, "
+                  f"small torch ops) {wall_ms - kernel_ms:.4f} ms = "
+                  f"{100 * (wall_ms - kernel_ms) / wall_ms:.1f}% of the step")
+            busy_ms = _device_busy_ms(torch, Xt, y, stats, bcfg, delta, n_steps=50)
+            if busy_ms is None:
+                print("[timing] device busy time per step: not measured (the "
+                      "profiler reported no device time)")
+            else:
+                print(f"[timing] device busy per step (torch.profiler): {busy_ms:.4f} ms "
+                      f"= {100 * busy_ms / wall_ms:.1f}% of the step's wall time")
+        else:
+            print(f"[timing] step (torch backend): wall {wall_ms:.4f} ms")
+    return out
+
+
+def _device_busy_ms(torch, Xt, y, stats, cfg, delta, n_steps):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine, fw_lasso
+    from repro_torch.core.vertex import TorchSampler
+
+    cfg = dataclasses.replace(cfg, max_iters=n_steps)
+    state0 = engine.init_state(fw_lasso.LASSO, Xt, y, None, cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.run_loop(fw_lasso.LASSO, Xt, y, stats, state0, cfg, delta, 10**9,
+                        TorchSampler(9, Xt.device))
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    # device-side rows only (kernels, memcpy, memset): the CPU ops' rows
+    # repeat the time of the kernels they launched
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in rows)
+    if total_us <= 0:
+        return None
+    print(f"[timing]   device work per step: {sum(e.count for e in rows) / n_steps:.1f} "
+          f"kernels and copies, {total_us / n_steps:.2f} us")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[timing]   device {e.key[:60]}: {e.self_device_time_total / n_steps:.2f} us/step, "
+              f"{e.count // n_steps} calls/step")
+    return total_us / 1e3 / n_steps
+
+
+if __name__ == "__main__":
+    sys.exit(main())

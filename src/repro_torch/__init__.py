@@ -1,0 +1,21 @@
+"""PyTorch port of the stochastic Frank-Wolfe lasso (``src/repro`` is the
+JAX reference). The hot loop runs on an NVIDIA Hopper card through the
+hand-written CUDA kernels of ``repro_torch.kernels``; every entry point
+takes ``device=`` (default ``'cuda'``) and runs the kernels' plain PyTorch
+versions when given ``device='cpu'``.
+"""
+from repro_torch.core import (
+    LASSO,
+    FWConfig,
+    StreamSampler,
+    TorchSampler,
+    delta_grid,
+    fw_path,
+    fw_solve,
+    solve,
+)
+
+__all__ = [
+    "FWConfig", "LASSO", "StreamSampler", "TorchSampler", "delta_grid",
+    "fw_path", "fw_solve", "solve",
+]

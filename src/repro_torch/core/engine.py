@@ -1,0 +1,321 @@
+"""The stochastic Frank-Wolfe engine (the reference's ``core/engine.py``,
+per-step single-device part).
+
+The engine owns the iteration skeleton: the sampled-vertex selection
+(``core.vertex``), the scaled-iterate ``beta``/``scale`` update with
+underflow renormalization, the ||alpha^{k+1}-alpha^k||_inf stopping
+statistic with patience, and the loop. A problem oracle supplies the
+objective-specific pieces through the reference's protocol
+(``init_co``, ``cograd``, ``score_extra``, ``line_search``,
+``update_co``, ``objective``, ``gap``); ``core.fw_lasso`` holds the
+lasso's.
+
+The loop is a Python ``while`` over ``step``, eager on the device. Every
+scalar the step computes stays a 0-d device tensor, and every gather
+(``beta[i_star]``, the selected column) is an index op with a device
+index, so a step enqueues its work without waiting for the device, with
+one exception: the stopping test ``stall < patience`` reads ``stall`` on
+the host once per step. The iteration count ``k`` and the dot count
+``n_dots`` are host integers: neither depends on the data.
+
+Not ported yet, and refused by ``check_ported``: the fused K-step chunk
+(``fuse_steps > 1``, ROADMAP.md Queue 1 item 5), step rules other than
+'classic' (item 9), telemetry (item 11), batched lanes (item 6).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import vertex
+from repro_torch.core.solver_config import FWConfig
+from repro_torch.kernels.colstats import colstats as _colstats_kernel
+
+
+class ColStats(NamedTuple):
+    """Per-column statistics precomputed once before the iterations (§4.2)."""
+
+    zty: torch.Tensor  # (p,)  z_i^T y
+    znorm2: torch.Tensor  # (p,)  ||z_i||^2
+    yty: torch.Tensor  # ()    y^T y
+
+
+class EngineState(NamedTuple):
+    """Loop state shared by every oracle. ``alpha = scale * beta``; ``co``
+    is the oracle's co-state. ``step`` updates ``beta`` in place (an O(p)
+    copy per step would cost more than the step's sampled work), so a
+    state's ``beta`` is only valid until the next step from it."""
+
+    beta: torch.Tensor  # (p,) unscaled coefficients
+    scale: torch.Tensor  # ()  multiplicative scale
+    co: Any  # oracle co-state (NamedTuple of tensors)
+    maxabs: torch.Tensor  # ()  running upper bound on ||alpha||_inf
+    step_inf: torch.Tensor  # ()  ||alpha^{k+1} - alpha^k||_inf (bound)
+    stall: torch.Tensor  # ()  int32, consecutive sub-tolerance steps
+    n_dots: int  # length-m dot products consumed so far (exact)
+    k: int  # iteration counter
+    i_star: torch.Tensor  # ()  int64, the last step's vertex (-1 before any)
+
+
+class SolveResult(NamedTuple):
+    alpha: torch.Tensor
+    objective: torch.Tensor
+    iterations: int
+    n_dots: int
+    active: torch.Tensor  # () number of nonzero coefficients
+    converged: torch.Tensor
+    # certified FW duality gap at alpha (cfg.report_gap; None otherwise)
+    gap: Optional[torch.Tensor] = None
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; 'cuda' needs a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "solver's plain versions on the CPU"
+        )
+    return dev
+
+
+def check_ported(cfg: FWConfig) -> None:
+    """Refuse the reference's options that this port does not run yet."""
+    if cfg.fuse_steps > 1:
+        raise NotImplementedError(
+            "fuse_steps > 1 (the fused K-step chunk) is not ported yet: "
+            "ROADMAP.md Queue 1 item 5"
+        )
+    if cfg.step_rule != "classic":
+        raise NotImplementedError(
+            f"step_rule={cfg.step_rule!r} is not ported yet: ROADMAP.md "
+            "Queue 1 item 9"
+        )
+    if cfg.telemetry is not None:
+        raise NotImplementedError(
+            "telemetry is not ported yet: ROADMAP.md Queue 1 item 11"
+        )
+
+
+def _all_finite(a: torch.Tensor) -> bool:
+    # in 64M-element chunks: isfinite materializes a bool per element
+    flat = a.reshape(-1)
+    if flat.numel() == 0:
+        return True
+    return bool(torch.stack([torch.isfinite(c).all() for c in flat.split(1 << 26)]).all())
+
+
+def validate_inputs(Xt: torch.Tensor, y: torch.Tensor) -> None:
+    """Raise ``ValueError`` on NaN/Inf in the design or the targets: a
+    poisoned matrix otherwise burns a silent max_iters run."""
+    for name, a in (("X", Xt), ("y", y)):
+        if not _all_finite(a):
+            raise ValueError(
+                f"{name} has {int(torch.isnan(a).sum())} NaN and "
+                f"{int(torch.isinf(a).sum())} Inf entries; the solver needs "
+                "finite inputs"
+            )
+
+
+def prepare_inputs(Xt, y, cfg: FWConfig, device):
+    """Check the config and the operands once per entry call and place the
+    operands on ``device`` (no copy when they are already there)."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    vertex.check_matrix_backend(Xt, cfg)
+    Xt = torch.as_tensor(Xt, device=dev).contiguous()
+    y = torch.as_tensor(y, device=dev).contiguous()
+    if Xt.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(
+            f"the solver runs in float32, got Xt {Xt.dtype} and y {y.dtype}"
+        )
+    if y.shape != (Xt.shape[1],):
+        raise ValueError(f"y must be (m,) = ({Xt.shape[1]},), got {tuple(y.shape)}")
+    validate_inputs(Xt, y)
+    return Xt, y
+
+
+def precompute_colstats(Xt, y: torch.Tensor, cfg: Optional[FWConfig] = None) -> ColStats:
+    """One full pass over X: z_i^T y and ||z_i||^2 for every column (§4.2),
+    through K1 on the 'kernels' backend."""
+    if cfg is not None and cfg.backend == "kernels":
+        zty, znorm2 = _colstats_kernel(Xt, y)
+    else:
+        zty = Xt @ y
+        znorm2 = torch.einsum("pm,pm->p", Xt, Xt)
+    return ColStats(zty=zty, znorm2=znorm2, yty=torch.dot(y, y))
+
+
+def _patience(cfg: FWConfig) -> int:
+    return cfg.patience if cfg.sampling != "full" else 1
+
+
+def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
+    """Start from the null solution, or warm-start from ``alpha0`` (copied)."""
+    p = Xt.shape[0]
+    dtype, dev = Xt.dtype, Xt.device
+    if alpha0 is None:
+        beta = torch.zeros(p, dtype=dtype, device=dev)
+        v = None
+        maxabs = torch.zeros((), dtype=dtype, device=dev)
+    else:
+        beta = torch.as_tensor(alpha0).to(device=dev, dtype=dtype, copy=True)
+        v = vertex.matvec(Xt, beta, cfg)  # X alpha
+        maxabs = torch.max(torch.abs(beta))
+    co = oracle.init_co(y, v, beta, dtype, cfg)
+    return EngineState(
+        beta=beta,
+        scale=torch.ones((), dtype=dtype, device=dev),
+        co=co,
+        maxabs=maxabs,
+        step_inf=torch.full((), float("inf"), dtype=dtype, device=dev),
+        stall=torch.zeros((), dtype=torch.int32, device=dev),
+        n_dots=0,
+        k=0,
+        i_star=torch.full((), -1, dtype=torch.int64, device=dev),
+    )
+
+
+def apply_coeff_update(beta, scale, maxabs, stall, a_star, i_star, lam,
+                       delta_t, no_progress, cfg: FWConfig):
+    """Step 5 + stopping statistics of the FW iteration: the scaled-iterate
+    coefficient update with underflow renorm (``beta`` in place), and the
+    ||alpha^{k+1}-alpha^k||_inf bound / stall bookkeeping (§Stopping).
+    Returns ``(beta, scale, maxabs, step_inf, stall)``."""
+    one_m = 1.0 - lam
+    new_scale = scale * one_m
+    # renormalize when the scale underflows: a device-side select, not a
+    # host branch, so the step never waits on it. Without a renorm beta is
+    # multiplied by exactly 1, which leaves it unchanged.
+    need_renorm = new_scale < cfg.renorm_threshold
+    beta.mul_(torch.where(need_renorm, new_scale, 1.0))
+    scale = torch.where(need_renorm, 1.0, new_scale)
+    coef = delta_t * lam / torch.clamp_min(scale, cfg.eps_den)
+    beta.index_add_(0, i_star.view(1), coef.view(1))
+    # stopping statistic: ||alpha_{k+1} - alpha_k||_inf upper bound
+    alpha_istar_new = scale * vertex.take(beta, i_star)
+    step_inf = lam * torch.maximum(maxabs, torch.abs(delta_t - a_star))
+    maxabs = torch.maximum(one_m * maxabs, torch.abs(alpha_istar_new))
+    stall = torch.where((step_inf <= cfg.tol) | no_progress, stall + 1, 0)
+    return beta, scale, maxabs, step_inf, stall
+
+
+def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler) -> EngineState:
+    """One randomized Frank-Wolfe step (paper Algorithm 2, any oracle).
+    ``delta`` is a 0-d device tensor, so one path reuses every launch."""
+    p = state.beta.shape[0]
+
+    # -- step 2: score the sampled coordinates against the co-gradient ------
+    w = oracle.cograd(state.co, y)
+    extra_fn = oracle.score_extra(state.beta, state.scale)
+    i_star, g_raw, g_sel, n_scored = vertex.sample_vertex(Xt, w, sampler, p, cfg, extra_fn)
+
+    # -- step 3: FW vertex sign (eq. 6) -------------------------------------
+    delta_t = -delta * torch.sign(g_sel)  # delta-tilde
+
+    # -- step 4: oracle line search (closed-form eq. 8) ---------------------
+    a_star = state.scale * vertex.take(state.beta, i_star)
+    lam, no_progress, aux = oracle.line_search(
+        Xt, y, stats, state.co, i_star, g_raw, g_sel, a_star, delta_t, cfg
+    )
+
+    # -- step 5 + §Stopping statistics --------------------------------------
+    beta, scale, maxabs, step_inf, stall = apply_coeff_update(
+        state.beta, state.scale, state.maxabs, state.stall, a_star, i_star,
+        lam, delta_t, no_progress, cfg,
+    )
+
+    # -- step 6: oracle state recursions (eq. 10 + S/F + refresh) ----------
+    co = oracle.update_co(
+        Xt, y, stats, state.co, beta, scale, i_star, a_star, lam, delta_t,
+        state.k, cfg, aux,
+    )
+    return EngineState(
+        beta=beta,
+        scale=scale,
+        co=co,
+        maxabs=maxabs,
+        step_inf=step_inf,
+        stall=stall,
+        n_dots=state.n_dots + n_scored + oracle.extra_dots,
+        k=state.k + 1,
+        i_star=i_star,
+    )
+
+
+def certified_gap(oracle, Xt, y, co, beta, scale, delta, cfg=None) -> torch.Tensor:
+    """Exact FW duality gap g(alpha) = alpha^T grad + delta*||grad||_inf
+    from a live co-state: one full-gradient O(p*m) pass, certification
+    only, never the hot loop."""
+    p = beta.shape[0]
+    w = oracle.cograd(co, y)
+    grad = vertex.grad_full(Xt, w, cfg)[:p]
+    extra_fn = oracle.score_extra(beta, scale)
+    if extra_fn is not None:
+        grad = grad + extra_fn(torch.arange(p, device=grad.device))
+    alpha = scale * beta
+    return torch.dot(alpha, grad) + delta * torch.max(torch.abs(grad))
+
+
+def oracle_gap(oracle, Xt, y, alpha, delta, cfg=None) -> torch.Tensor:
+    """Certified duality gap at a bare coefficient vector: rebuild the
+    oracle co-state from X alpha, then ``certified_gap``."""
+    v = vertex.matvec(Xt, alpha, cfg)
+    co = oracle.init_co(y, v, alpha, alpha.dtype, cfg)
+    one = torch.ones((), dtype=alpha.dtype, device=alpha.device)
+    return certified_gap(oracle, Xt, y, co, alpha, one, delta, cfg)
+
+
+def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step=None):
+    """Step until the §Stopping rule fires or max_iters. ``on_step(state)``,
+    when given, sees every new state (the parity tests read ``i_star``)."""
+    state = state0
+    # `stall < patience` is read on the host: the one device sync per step,
+    # the first thing a CUDA graph or the fused K-step chunk removes
+    while state.k < cfg.max_iters and bool(state.stall < patience):
+        state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        if on_step is not None:
+            on_step(state)
+    return state
+
+
+def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta) -> SolveResult:
+    alpha = final.scale * final.beta
+    gap = None
+    if cfg.report_gap:
+        gap = certified_gap(oracle, Xt, y, final.co, final.beta, final.scale, delta, cfg)
+    return SolveResult(
+        alpha=alpha,
+        objective=oracle.objective(y, stats, final.co, cfg),
+        iterations=final.k,
+        n_dots=final.n_dots,
+        active=torch.sum(alpha != 0.0),
+        converged=final.stall >= patience,
+        gap=gap,
+    )
+
+
+def solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None,
+                   on_step=None) -> SolveResult:
+    """``solve`` on operands that ``prepare_inputs`` already placed and
+    checked (the path driver checks once, not per grid point)."""
+    delta = torch.tensor(float(cfg.delta if delta is None else delta),
+                         dtype=torch.float32, device=Xt.device)
+    stats = precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
+    state0 = init_state(oracle, Xt, y, alpha0, cfg)
+    patience = _patience(cfg)
+    final = run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step)
+    return _result(oracle, Xt, y, stats, final, patience, cfg, delta)
+
+
+def solve(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
+          device="cuda", on_step=None) -> SolveResult:
+    """Run the oracle's Algorithm-2 analogue until
+    ||alpha_{k+1}-alpha_k||_inf <= tol for ``patience`` consecutive
+    iterations, or max_iters. ``sampler`` draws each step's sampling set
+    (``vertex.TorchSampler`` or ``vertex.StreamSampler``, on ``device``);
+    ``delta`` overrides cfg.delta. Runs on the card unless ``device``
+    says otherwise."""
+    Xt, y = prepare_inputs(Xt, y, cfg, device)
+    return solve_prepared(oracle, Xt, y, cfg, sampler, alpha0, delta, on_step)

@@ -1,0 +1,136 @@
+"""Lasso problem oracle for the stochastic FW engine (paper Algorithm 2),
+the reference's ``core/fw_lasso.py``:
+
+    min_alpha f(alpha) = 1/2 ||X alpha - y||^2   s.t.  ||alpha||_1 <= delta
+
+  * method of residuals (eq. 7): sampled gradient coords are -z_i^T R,
+  * closed-form exact line search (eq. 8) with the S/F scalar recursions,
+  * residual update (eq. 10),
+  * per-iteration cost O(kappa * m), independent of p.
+
+The scalar algebra keeps the reference's operation order, so that the two
+packages round alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import engine, vertex
+from repro_torch.core.solver_config import FWConfig
+
+
+class LassoCo(NamedTuple):
+    """Lasso co-state: the residual and the paper's scalar recursions."""
+
+    resid: torch.Tensor  # (m,) R = y - X alpha
+    s_quad: torch.Tensor  # ()  S^k = ||X alpha||^2
+    f_lin: torch.Tensor  # ()  F^k = (X alpha)^T y
+
+
+def ls_closed_form(s_quad, f_lin, g_sel, g_lin, delta_t, zn2_i, eps_den, gap_rtol):
+    """The closed-form exact line search (eq. 8) as scalar algebra.
+    Returns ``(lam, no_progress, num)``; ``num`` is the sampled duality gap."""
+    num = s_quad - delta_t * g_sel - f_lin
+    den = s_quad - 2.0 * delta_t * g_lin + delta_t**2 * zn2_i
+    lam = torch.clamp(num / torch.clamp_min(den, eps_den), 0.0, 1.0)
+    gap_scale = s_quad + torch.abs(f_lin) + torch.abs(delta_t * g_sel)
+    no_progress = num <= gap_rtol * gap_scale
+    return lam, no_progress, num
+
+
+def sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i):
+    """The O(1) S/F scalar recursions (paper, below eq. 8)."""
+    one_m = 1.0 - lam
+    s_quad = (
+        one_m**2 * s_quad
+        + 2.0 * delta_t * lam * one_m * g_lin
+        + delta_t**2 * lam**2 * zn2_i
+    )
+    f_lin = one_m * f_lin + delta_t * lam * zty_i
+    return s_quad, f_lin
+
+
+def sf_update(stats, s_quad, f_lin, resid, y, i_star, lam, delta_t, g_lin, k: int, cfg):
+    """S/F recursions + the periodic exact O(m) refresh from the residual
+    (fp32 drift control). ``k`` is the host iteration count, so the
+    refresh is a host branch that needs no sync. Returns
+    ``(s_quad, f_lin, refresh)``."""
+    s_quad, f_lin = sf_recursion(
+        s_quad, f_lin, g_lin, lam, delta_t,
+        vertex.take(stats.zty, i_star), vertex.take(stats.znorm2, i_star),
+    )
+    refresh = (k % cfg.refresh_every) == (cfg.refresh_every - 1)
+    if refresh:
+        v = y - resid
+        s_quad = vertex.mdot(v, v, cfg)
+        f_lin = vertex.mdot(v, y, cfg)
+    return s_quad, f_lin, refresh
+
+
+@dataclasses.dataclass(frozen=True)
+class LassoOracle:
+    """Problem oracle: 1/2 ||X alpha - y||^2 over the l1 ball."""
+
+    needs_stats = True
+    extra_dots = 0
+
+    def init_co(self, y, v, beta, dtype, cfg=None) -> LassoCo:
+        if v is None:
+            zero = torch.zeros((), dtype=dtype, device=y.device)
+            return LassoCo(resid=y.to(dtype), s_quad=zero, f_lin=zero)
+        return LassoCo(
+            resid=y - v,
+            s_quad=vertex.mdot(v, v, cfg),
+            f_lin=vertex.mdot(v, y, cfg),
+        )
+
+    def cograd(self, co: LassoCo, y):
+        """Sampled scores are -z_i^T R (method of residuals, eq. 7)."""
+        return co.resid
+
+    def score_extra(self, beta, scale):
+        return None
+
+    def line_search(self, Xt, y, stats, co: LassoCo, i_star, g_raw, g_sel, a_star, delta_t, cfg):
+        """Closed-form exact line search (eq. 8). ``num`` is the sampled FW
+        duality gap; a step whose gap is below the fp32 rounding floor of
+        its own terms counts as a stall (``gap_rtol``)."""
+        g_lin = g_raw + vertex.take(stats.zty, i_star)  # G_{i*} = z_{i*}^T (X alpha)
+        lam, no_progress, _ = ls_closed_form(
+            co.s_quad, co.f_lin, g_sel, g_lin, delta_t,
+            vertex.take(stats.znorm2, i_star), cfg.eps_den, cfg.gap_rtol,
+        )
+        return lam, no_progress, g_lin
+
+    def update_co(self, Xt, y, stats, co: LassoCo, beta, scale, i_star, a_star, lam,
+                  delta_t, k, cfg, aux) -> LassoCo:
+        # residual update (eq. 10), backend-dispatched
+        resid = vertex.apply_column_update(Xt, co.resid, y, i_star, lam, delta_t, cfg)
+        s_quad, f_lin, _ = sf_update(
+            stats, co.s_quad, co.f_lin, resid, y, i_star, lam, delta_t, aux, k, cfg,
+        )
+        return LassoCo(resid=resid, s_quad=s_quad, f_lin=f_lin)
+
+    def objective(self, y, stats, co: LassoCo, cfg=None):
+        """f(alpha^k) = 1/2 y^T y + 1/2 S^k - F^k (paper eq. 8 block)."""
+        return 0.5 * stats.yty + 0.5 * co.s_quad - co.f_lin
+
+    def gap(self, Xt, y, alpha, delta, cfg=None):
+        """Certified FW duality gap alpha^T grad + delta*||grad||_inf with
+        grad = -X^T (y - X alpha): one O(p*m) pass."""
+        return engine.oracle_gap(self, Xt, y, alpha, delta, cfg)
+
+
+LASSO = LassoOracle()
+
+
+def fw_solve(Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
+             device="cuda", on_step=None) -> engine.SolveResult:
+    """Run Algorithm 2 until ||alpha_{k+1}-alpha_k||_inf <= tol for
+    ``patience`` consecutive iterations, or max_iters (``engine.solve``
+    with the lasso oracle)."""
+    return engine.solve(LASSO, Xt, y, cfg, sampler, alpha0, delta,
+                        device=device, on_step=on_step)

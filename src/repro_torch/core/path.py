@@ -1,0 +1,118 @@
+"""The sequential regularization path (paper §5 protocol), the reference's
+``core/path.py``: a log-spaced delta grid swept from sparse to dense, each
+point warm-started from the previous solution rescaled so that its l1 norm
+equals the next delta (the paper's heuristic).
+
+Each grid point draws from its own sampler: by default a ``TorchSampler``
+seeded from ``(seed, point index)``, so a point's stream does not depend on
+how many steps the points before it took; ``sampler_fn(point_index)``
+replaces it (the parity tests replay the reference's per-point streams).
+"""
+from __future__ import annotations
+
+import functools
+import time
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine, fw_lasso
+from repro_torch.core.solver_config import FWConfig
+from repro_torch.core.vertex import TorchSampler
+
+
+class PathPoint(NamedTuple):
+    reg: float  # lam or delta
+    objective: float  # the oracle's objective at this grid point
+    l1: float
+    active: int
+    iterations: int
+    n_dots: int
+    seconds: float
+    alpha_nnz_idx: np.ndarray
+    alpha_nnz_val: np.ndarray
+    # certified FW duality gap (FWConfig.report_gap); NaN off
+    gap: float = float("nan")
+
+
+class PathResult(NamedTuple):
+    points: List[PathPoint]
+    total_seconds: float
+    total_dots: int
+    total_iters: int
+    # lane-iterations pruned by a batched driver (0 for the sequential one)
+    saved_iters: int = 0
+
+    @property
+    def mean_active(self) -> float:
+        return float(np.mean([pt.active for pt in self.points]))
+
+
+def lambda_grid(Xt, y, n_points: int = 100, ratio: float = 100.0) -> np.ndarray:
+    """Glmnet-style grid: lam_max = ||X^T y||_inf, descending log scale."""
+    lam_max = float(torch.max(torch.abs(Xt @ y)))
+    return np.geomspace(lam_max, lam_max / ratio, n_points)
+
+
+def delta_grid(delta_max: float, n_points: int = 100, ratio: float = 100.0) -> np.ndarray:
+    """Constrained-form grid: delta_min -> delta_max, ascending log scale."""
+    return np.geomspace(delta_max / ratio, delta_max, n_points)
+
+
+def point_seed(seed: int, point_index: int) -> int:
+    """The default sampler seed of one grid point."""
+    return int(np.random.SeedSequence([seed, point_index]).generate_state(1)[0])
+
+
+def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
+            device="cuda", sampler_fn=None, on_step=None,
+            checkpoint_dir=None, resume_from=None) -> PathResult:
+    """Stochastic-FW path with the paper's l1-rescaling warm start.
+
+    ``on_step(point_index, state)``, when given, sees every engine state.
+    Runs on the card unless ``device`` says otherwise.
+    """
+    if checkpoint_dir is not None or resume_from is not None:
+        raise NotImplementedError(
+            "path checkpoint/resume is not ported yet: ROADMAP.md Queue 1 item 12"
+        )
+    oracle = fw_lasso.LASSO if oracle is None else oracle
+    Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
+    if sampler_fn is None:
+        sampler_fn = lambda g: TorchSampler(point_seed(seed, g), Xt.device)  # noqa: E731
+    alpha = None
+    points = []
+    t_total = time.perf_counter()
+    for g, d in enumerate(deltas):
+        if alpha is not None:
+            l1 = float(torch.sum(torch.abs(alpha)))
+            if l1 > 1e-12:
+                alpha = alpha * (float(d) / l1)  # paper's rescaling heuristic
+        hook = None if on_step is None else functools.partial(on_step, g)
+        t0 = time.perf_counter()
+        res = engine.solve_prepared(oracle, Xt, y, base_cfg, sampler_fn(g), alpha, float(d), hook)
+        objective = float(res.objective)  # waits for the solve to finish
+        dt = time.perf_counter() - t0
+        alpha = res.alpha
+        idx = torch.nonzero(alpha).view(-1)
+        points.append(
+            PathPoint(
+                reg=float(d),
+                objective=objective,
+                l1=float(torch.sum(torch.abs(alpha))),
+                active=int(res.active),
+                iterations=res.iterations,
+                n_dots=res.n_dots,
+                seconds=dt,
+                alpha_nnz_idx=idx.cpu().numpy(),
+                alpha_nnz_val=alpha[idx].cpu().numpy(),
+                gap=float("nan") if res.gap is None else float(res.gap),
+            )
+        )
+    return PathResult(
+        points,
+        time.perf_counter() - t_total,
+        sum(pt.n_dots for pt in points),
+        sum(pt.iterations for pt in points),
+    )

@@ -1,0 +1,80 @@
+"""Frozen solver configs (the reference's ``core/solver_config.py``)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class DistSpec:
+    """Sharding vocabulary of the distributed backend, kept as the type of
+    ``FWConfig.dist``. The distributed backend is not ported yet
+    (ROADMAP.md Queue 1 item 13)."""
+
+    n_data: int = 1
+    n_model: int = 1
+    data_axis: str = "data"
+    model_axis: str = "model"
+
+
+# 'torch' (plain PyTorch ops) pairs with the reference's 'xla'; 'kernels'
+# (the hand-written Hopper kernels) pairs with 'pallas'
+VALID_BACKENDS = ("torch", "kernels", "sparse", "distributed")
+VALID_STEP_RULES = ("classic", "away", "pairwise", "partan", "lazy")
+
+
+@dataclass(frozen=True)
+class FWConfig:
+    """Configuration of the stochastic Frank-Wolfe Lasso solver.
+
+    The fields, defaults and validation are the reference's, with these
+    differences:
+
+      backend: 'kernels' (default) runs the hot loop through the Hopper
+        kernels of ``repro_torch.kernels`` (their plain versions when the
+        tensors lie on the CPU); 'torch' runs plain PyTorch ops. 'sparse'
+        and 'distributed' are valid words that the solver does not run yet.
+      m_tile, interpret, sparse_kernel, gather_mode: TPU knobs of the
+        reference, kept so configs carry across; the port reads none.
+      telemetry: any spec object; a solve raises NotImplementedError when
+        it is set (ROADMAP.md Queue 1 item 11).
+
+    Also not ported yet, and refused by the solver: ``fuse_steps > 1``
+    (Queue 1 item 5) and ``step_rule != 'classic'`` (item 9).
+    """
+
+    delta: float
+    kappa: int = 194  # paper's top-2%/98% confidence default
+    sampling: str = "uniform"
+    block_size: int = 128
+    max_iters: int = 50_000
+    tol: float = 1e-3
+    patience: int = 20  # consecutive sub-tol steps before stopping (stochastic)
+    refresh_every: int = 64  # recompute S/F from residuals (fp32 drift control)
+    eps_den: float = 1e-12
+    renorm_threshold: float = 1e-6
+    gap_rtol: float = 1e-6
+    backend: str = "kernels"
+    fuse_steps: int = 1
+    sparse_kernel: Optional[bool] = None
+    gather_mode: str = "auto"
+    report_gap: bool = False
+    m_tile: int = 512
+    interpret: Optional[bool] = None
+    dist: Optional[DistSpec] = None
+    step_rule: str = "classic"
+    active_set_size: int = 32
+    lazy_cache: int = 16
+    telemetry: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.backend not in VALID_BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; valid choices: "
+                f"{', '.join(VALID_BACKENDS)}"
+            )
+        if self.step_rule not in VALID_STEP_RULES:
+            raise ValueError(
+                f"unknown step_rule {self.step_rule!r}; valid choices: "
+                f"{', '.join(VALID_STEP_RULES)}"
+            )

@@ -1,0 +1,229 @@
+"""Sampled-vertex dispatch (the reference's ``core/vertex.py``, dense
+single-device part).
+
+This module owns everything between "the oracle handed us an (m,)
+co-gradient vector" and "here is the winning FW vertex": drawing the
+sampling set S (paper §4.1/§4.5), scoring the sampled coordinates on the
+selected backend ('torch' | 'kernels'), and reducing to the argmax. Every
+score is the linear form ``raw_i = -z_i^T w``. Also here: the O(m) column
+recursion of eq. 10, and the full matvecs behind warm starts and the
+certified gap.
+
+The reference draws S with ``jax.random`` from a key. The port draws it
+from a *sampler* instead, so that parity with the reference never
+depends on two random number generators agreeing: ``TorchSampler`` draws
+with its own ``torch.Generator``, ``StreamSampler`` replays a stream
+given to it (for instance the reference's, see ``repro_torch.convert``).
+
+The reference zero-pads Xt's tail rows once per solve for its block
+kernels (``pad_backend_matrix``). The port never copies Xt: the
+'kernels' backend's score kernel scores a row index past p as 0 without
+reading it, and the 'torch' backend wraps the tail block modulo p, as the
+reference's 'xla' backend does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.solver_config import FWConfig
+from repro_torch.kernels import fw_grad
+from repro_torch.kernels.residual_update import residual_update
+
+
+class TorchSampler:
+    """Draws each step's sampling set with its own ``torch.Generator`` on
+    ``device``: 'uniform' draws kappa indices with replacement, 'block'
+    draws block starts without replacement."""
+
+    def __init__(self, seed: int, device="cuda"):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def uniform(self, kappa: int, p: int) -> torch.Tensor:
+        return torch.randint(0, p, (kappa,), generator=self.generator, device=self.device)
+
+    def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
+        perm = torch.randperm(nblocks, generator=self.generator, device=self.device)
+        return perm[:nb]
+
+
+class StreamSampler:
+    """Replays a given ``(n_steps, k)`` integer tensor: row t is step t's
+    kappa indices ('uniform') or its block starts ('block'). Raises when
+    the stream runs out or a row has the wrong width."""
+
+    def __init__(self, draws: torch.Tensor):
+        if draws.dim() != 2:
+            raise ValueError(f"a stream is (n_steps, k), got shape {tuple(draws.shape)}")
+        self.draws = draws.long()
+        self.t = 0
+        self._bound_checked: Optional[int] = None
+
+    def _next(self, k: int, bound: int) -> torch.Tensor:
+        if self.t >= self.draws.shape[0]:
+            raise RuntimeError(f"the sampling stream ran out after {self.t} steps")
+        if self.draws.shape[1] != k:
+            raise ValueError(f"stream rows hold {self.draws.shape[1]} draws, the step needs {k}")
+        if self._bound_checked != bound:  # once per stream, not per step
+            if bool((self.draws < 0).any() | (self.draws >= bound).any()):
+                raise ValueError(f"stream values must lie in [0, {bound})")
+            self._bound_checked = bound
+        row = self.draws[self.t]
+        self.t += 1
+        return row
+
+    def uniform(self, kappa: int, p: int) -> torch.Tensor:
+        return self._next(kappa, p)
+
+    def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
+        return self._next(nb, nblocks)
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d device index, as a 0-d tensor, without a host sync."""
+    return x.index_select(0, i.view(1)).view(())
+
+
+def mdot(a: torch.Tensor, b: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """Sample-axis dot product. Oracles reduce over the m axis only through
+    this and ``msum``, where the distributed backend (ROADMAP.md Queue 1
+    item 13) will complete the sum across shards."""
+    return torch.dot(a, b)
+
+
+def msum(x: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """Sample-axis sum, the ``mdot`` analogue for elementwise losses."""
+    return torch.sum(x)
+
+
+def check_matrix_backend(Xt, cfg: FWConfig) -> None:
+    """The matrix layout and the backend must agree; unported backends raise."""
+    if cfg.backend == "sparse":
+        raise NotImplementedError(
+            "backend='sparse' (block-ELL design) is not ported yet: "
+            "ROADMAP.md Queue 1 item 7"
+        )
+    if cfg.backend == "distributed":
+        raise NotImplementedError(
+            "backend='distributed' is not ported yet: ROADMAP.md Queue 1 item 13"
+        )
+    if getattr(Xt, "ndim", None) != 2:
+        raise ValueError("the 'torch' and 'kernels' backends need a dense feature-major Xt (p, m)")
+
+
+# --------------------------------------------------------------------------
+# Sampling-set draws (paper §4.1 / §4.5)
+# --------------------------------------------------------------------------
+
+
+def sample_blocks(sampler, nblocks: int, block_size: int, cfg: FWConfig) -> torch.Tensor:
+    """kappa // block_size aligned blocks without replacement, clamped to
+    the blocks that exist."""
+    nb = min(max(cfg.kappa // block_size, 1), nblocks)
+    return sampler.blocks(nb, nblocks)
+
+
+def sample_block_starts(sampler, p: int, cfg: FWConfig) -> torch.Tensor:
+    """Aligned block starts for 'block' sampling over a feature axis of size p."""
+    return sample_blocks(sampler, -(-p // cfg.block_size), cfg.block_size, cfg)
+
+
+def sample_indices(sampler, p: int, cfg: FWConfig, device) -> torch.Tensor:
+    """Draw the sampling set S (paper §4.1 / §4.5).
+
+    'uniform': kappa i.i.d. uniform draws (with replacement).
+    'block':   kappa/block aligned blocks without replacement; the tail
+               block wraps modulo p (as the reference's 'xla' backend).
+    'full':    deterministic FW (S = {0..p-1}); no draw.
+    """
+    if cfg.sampling == "full":
+        return torch.arange(p, device=device)
+    if cfg.sampling == "uniform":
+        return sampler.uniform(cfg.kappa, p)
+    if cfg.sampling == "block":
+        starts = sample_block_starts(sampler, p, cfg)
+        return fw_grad.block_indices(starts, cfg.block_size) % p
+    raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
+
+
+# --------------------------------------------------------------------------
+# Backend-dispatched vertex selection
+# --------------------------------------------------------------------------
+
+
+def _torch_vertex(Xt, w, sampler, p, cfg):
+    idx = sample_indices(sampler, p, cfg, Xt.device)
+    raw = -(Xt.index_select(0, idx) @ w)  # (|S|,) linear scores
+    j = torch.argmax(torch.abs(raw))
+    return take(idx, j), take(raw, j), idx.shape[0]
+
+
+def _kernel_vertex(Xt, w, sampler, p, cfg):
+    """The sampled vertex through K2. 'uniform' scores width-1 blocks (the
+    same index stream as the 'torch' backend); 'block' and 'full' score
+    block_size-wide aligned blocks, whose rows past p score 0 and are
+    masked out of the argmax."""
+    if cfg.sampling == "uniform":
+        blk = sampler.uniform(cfg.kappa, p)
+        bs = 1
+    elif cfg.sampling == "block":
+        blk = sample_block_starts(sampler, p, cfg)
+        bs = cfg.block_size
+    elif cfg.sampling == "full":
+        bs = cfg.block_size
+        blk = torch.arange(-(-p // bs), device=Xt.device)
+    else:
+        raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
+    # dot-product accounting as the reference: 'full' scores every real
+    # coordinate once; 'block' counts nb*bs, tail included
+    n_scored = p if cfg.sampling == "full" else blk.shape[0] * bs
+    i_star, g_star = fw_grad.fw_vertex(Xt, w, blk, bs, p_valid=p)
+    return i_star, g_star, n_scored
+
+
+def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=None):
+    """Draw S and return the winning vertex on the configured backend.
+
+    Returns ``(i_star, g_raw, g_sel, n_scored)``: the selected coordinate
+    and its linear score ``-z^T w`` as 0-d device tensors (the selected
+    score is the linear one: no ported oracle shifts its scores), and how
+    many length-m dot products were consumed, a host int.
+    """
+    if extra_fn is not None:
+        raise NotImplementedError(
+            "per-coordinate score shifts arrive with the elastic-net oracle: "
+            "ROADMAP.md Queue 1 item 8"
+        )
+    if cfg.backend == "kernels":
+        i_star, g, n = _kernel_vertex(Xt, w, sampler, p, cfg)
+    else:
+        i_star, g, n = _torch_vertex(Xt, w, sampler, p, cfg)
+    return i_star, g, g, n
+
+
+# --------------------------------------------------------------------------
+# O(m) column recursion and full matvecs
+# --------------------------------------------------------------------------
+
+
+def apply_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg: FWConfig):
+    """v <- (1-lam) v + lam (y_vec - delta_t * z_star) (eq. 10 with v = R,
+    y_vec = y). The column is gathered on the device, without a sync."""
+    z_star = Xt.index_select(0, i_star.view(1)).view(-1)
+    if cfg.backend == "kernels":
+        return residual_update(v, y_vec, z_star, lam, delta_t)
+    return (1.0 - lam) * v + lam * (y_vec - delta_t * z_star)
+
+
+def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """X @ alpha for warm-start initialization."""
+    return beta @ Xt
+
+
+def grad_full(Xt, w: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """Full linear gradient -X^T w over every feature: the O(p*m)
+    certification pass behind ``gap()``, never the hot loop."""
+    return -(Xt @ w)

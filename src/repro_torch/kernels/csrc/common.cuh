@@ -1,0 +1,111 @@
+// Shared device helpers for the port's Hopper kernels.
+//
+// Every kernel takes its element type as a template (f32 or bf16 inputs,
+// f32 accumulation, as in the Pallas kernels) and is launched through a
+// plain C entry point that returns cudaGetLastError(), so the ctypes
+// wrapper in kernels/*.py can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// dtype codes shared with kernels/_build.py (DTYPE_CODES)
+enum { DT_F32 = 0, DT_BF16 = 1 };
+
+// A vector that fits in this many bytes is staged in shared memory; above
+// it the kernels read it through L1/L2 (no opt-in attribute is needed up
+// to 48 KB of dynamic shared memory).
+#define STAGE_LIMIT_BYTES (48 * 1024)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One 16-byte load of T, unpacked to floats: 4 f32 or 8 bf16.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      out[2 * k] = f.x;
+      out[2 * k + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Copy an f32 vector into shared memory (whole block takes part).
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int m) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+}
+
+// One warp's partial sums over a contiguous row x[0:m] against the f32
+// vector v: dot += x.v and, when SQ, sq += x.x. Lanes stride the row so the
+// warp's loads are coalesced. VEC: 16-byte loads of x and float4 reads of v
+// (needs x 16-byte aligned, m a multiple of Vec16<T>::N, v in shared memory).
+template <typename T, bool SQ>
+__device__ __forceinline__ void row_dot(const T* __restrict__ x, const float* __restrict__ v,
+                                        int m, bool vec, int lane, float& dot, float& sq) {
+  if (vec) {
+    constexpr int N = Vec16<T>::N;
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    const int nv = m / N;
+    for (int c = lane; c < nv; c += 32) {
+      float xs[N];
+      Vec16<T>::load(x + (size_t)c * N, xs);
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 w = v4[c * (N / 4) + q];
+        dot = fmaf(xs[4 * q + 0], w.x, dot);
+        dot = fmaf(xs[4 * q + 1], w.y, dot);
+        dot = fmaf(xs[4 * q + 2], w.z, dot);
+        dot = fmaf(xs[4 * q + 3], w.w, dot);
+        if (SQ) {
+          sq = fmaf(xs[4 * q + 0], xs[4 * q + 0], sq);
+          sq = fmaf(xs[4 * q + 1], xs[4 * q + 1], sq);
+          sq = fmaf(xs[4 * q + 2], xs[4 * q + 2], sq);
+          sq = fmaf(xs[4 * q + 3], xs[4 * q + 3], sq);
+        }
+      }
+    }
+  } else {
+    for (int i = lane; i < m; i += 32) {
+      const float xi = to_f32(x[i]);
+      dot = fmaf(xi, v[i], dot);
+      if (SQ) sq = fmaf(xi, xi, sq);
+    }
+  }
+}
+
+// True when rows of T[m] starting at base are all 16-byte aligned.
+template <typename T>
+inline bool rows_vectorizable(const void* base, int m) {
+  return (reinterpret_cast<uintptr_t>(base) % 16 == 0) && (m % Vec16<T>::N == 0);
+}
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -9,6 +9,12 @@ import jax.numpy as jnp
 from repro.data import make_regression, standardize
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def small_problem():
     """Standardized regression problem, feature-major design matrix."""

@@ -1,0 +1,103 @@
+"""Package rules of the port (``src/repro_torch``):
+
+  * neither the package nor chip_smoke.py (nor the card-only tests)
+    imports JAX or the reference;
+  * the entry points run on the card by default, and raise without one;
+  * the reference's options that the port does not run yet raise
+    NotImplementedError naming their ROADMAP.md item.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import FWConfig, StreamSampler, TorchSampler, engine, fw_path, fw_solve
+from repro_torch.core.fw_lasso import LASSO
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    assert len(files) > 10
+    bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+
+
+def _problem():
+    rng = np.random.default_rng(0)
+    return rng.standard_normal((40, 12)).astype(np.float32), rng.standard_normal(12).astype(np.float32)
+
+
+def test_entry_points_need_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: the default device is usable")
+    Xt, y = _problem()
+    cfg = FWConfig(delta=1.0, kappa=5, max_iters=3)
+    sampler = TorchSampler(0, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fw_solve(Xt, y, cfg, sampler)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.solve(LASSO, Xt, y, cfg, sampler)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fw_path(Xt, y, [0.5, 1.0], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.problem_from_numpy(Xt, y)
+    res = fw_solve(Xt, y, cfg, sampler, device="cpu")
+    assert res.iterations == 3 and res.alpha.device.type == "cpu"
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(fuse_steps=8), "item 5"),
+    (dict(step_rule="away"), "item 9"),
+    (dict(telemetry=object()), "item 11"),
+    (dict(backend="sparse"), "item 7"),
+    (dict(backend="distributed"), "item 13"),
+])
+def test_unported_options_raise(change, item):
+    Xt, y = _problem()
+    cfg = dataclasses.replace(FWConfig(delta=1.0, kappa=5, max_iters=3), **change)
+    with pytest.raises(NotImplementedError, match=item):
+        fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        fw_path(Xt, y, [1.0], cfg, device="cpu")
+
+
+def test_config_validates_and_defaults_to_the_kernels():
+    assert FWConfig(delta=1.0).backend == "kernels"
+    with pytest.raises(ValueError, match="unknown backend"):
+        FWConfig(delta=1.0, backend="xla")
+    with pytest.raises(ValueError, match="unknown step_rule"):
+        FWConfig(delta=1.0, step_rule="greedy")
+    assert convert.config_from_reference({"delta": 2.0, "backend": "xla"}).backend == "torch"
+    assert convert.config_from_reference({"delta": 2.0, "backend": "pallas"}).backend == "kernels"
+    with pytest.raises(ValueError, match="carry across"):
+        convert.config_from_reference({"delta": 2.0, "backend": "sparse"})
+
+
+def test_stream_sampler_checks_its_stream():
+    draws = torch.tensor([[0, 3], [1, 2]])
+    s = StreamSampler(draws)
+    assert s.uniform(2, 4).tolist() == [0, 3] and s.uniform(2, 4).tolist() == [1, 2]
+    with pytest.raises(RuntimeError, match="ran out"):
+        s.uniform(2, 4)
+    with pytest.raises(ValueError, match="lie in"):
+        StreamSampler(draws).uniform(2, 3)
+    with pytest.raises(ValueError, match="hold 2 draws"):
+        StreamSampler(draws).uniform(5, 4)
