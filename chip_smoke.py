@@ -11,17 +11,25 @@ script exits non-zero:
 1. device and build: the card's name and power limit, the kernels built
    from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, TF32 off;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at ragged ones, in f32 and bf16; then the reference's
-   converging golden on a small problem, replayed from the reference's
-   own index stream (embedded below);
+   path's shapes and at ragged ones, in f32 and bf16 (the fused chunk K4
+   and its replay in f32, the replay bit for bit through a renorm); then
+   the reference's converging golden on a small problem, replayed from
+   the reference's own index stream (embedded below);
 3. the main path: ``fw_path`` on the 'kernels' backend at the paper's
    dense size (p = 4,272,227, m = 800, f32, kappa = 1% of p, uniform
-   sampling), with each kernel's launch count checked against the run;
+   sampling), one step per dispatch, with each kernel's launch count
+   checked against the run; then the same path with ``fuse_steps=8``
+   (K4 and the replay once per chunk, K2/K3 never);
 4. the first grid points again on the plain 'torch' backend with the
-   same sampler seeds: the vertex sequences must agree up to the first
-   near-tie and the objectives to a stated tolerance;
+   same sampler seeds, and the fused path's first points against the
+   unfused one: the vertex sequences must agree up to the first near-tie
+   (a fused stop may overshoot by at most 7 steps) and the objectives to
+   a stated tolerance;
 5. timing of each kernel, its bound, its plain version and a library
-   call, with CUDA events; and the host's share of a step.
+   call, with CUDA events; and the host's share of a step, one step per
+   dispatch and fused at K = 8 and K = 32.
+
+About 6 minutes on an H100, the builds included.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -45,6 +53,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 # example's whole 100-point grid; its first 3 points rerun on 'torch'
 P_PAPER, M_PAPER, N_REL = 4_272_227, 800, 300
 N_POINTS, N_COMPARE = 100, 3
+FUSE = 8  # the fused path's K, the value the reference's tests pin
 
 # f32 sums of m products, taken in another order than the plain version's:
 # the difference is rounding, a few ulps of the Cauchy-Schwarz scale
@@ -171,12 +180,17 @@ def main(argv=None):
           f"built on the card in {time.perf_counter() - t0:.2f} s")
 
     errs = phase2_kernels(torch, Xt, y)
+    errs.update(phase2_fused(torch, Xt, y))
     golden_check(torch, dev)
     if args.kernels_only:
         print(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return 0
     launches, main_run = phase3_main_path(torch, Xt, y, coef)
+    fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
+    for name in ("dense_fused_chunk", "fused_replay"):
+        launches[name] = fused_launches[name]
     phase4_other_backend(torch, Xt, y, main_run)
+    phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
     timing = phase5_timing(torch, Xt, y)
 
     records = []
@@ -207,6 +221,10 @@ KERNELS = {
                           replaces="src/repro/kernels/fw_grad/ops.py:27"),
     "residual_update": dict(source="src/repro_torch/kernels/csrc/residual_update.cu",
                             replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "dense_fused_chunk": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                              replaces="src/repro/kernels/fused_step/fused_step.py:259"),
+    "fused_replay": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                         replaces="src/repro/core/engine.py:387"),
 }
 
 
@@ -222,6 +240,11 @@ def phase1_device_and_build(torch):
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from repro_torch.kernels import _build
 
+    nvcc_version = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                                  text=True, timeout=60).stdout.strip().splitlines()[-1]
+    print(f"[build] {nvcc_version}; the cooperative grid sync of fused_step.cu "
+          "(cooperative_groups::this_grid().sync()) needs no flag beyond these "
+          "(no -rdc) on CUDA >= 11")
     t0 = time.perf_counter()
     logs = _build.build(ptxas_verbose=True)
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {len(logs)} sources in "
@@ -395,6 +418,133 @@ def phase2_kernels(torch, Xt_main, y_main):
     return errs
 
 
+def _fused_kw(max_iters, refresh_every=64):
+    from repro_torch.core import LASSO
+
+    return dict(oracle=LASSO, eps_den=1e-12, gap_rtol=1e-6, refresh_every=refresh_every,
+                max_iters=max_iters)
+
+
+def _check_chunk(torch, fs, label, Xt, y, resid, idx, k0, delta, kw):
+    """dense_fused_chunk vs its plain version from the same chunk start:
+    i_star and no_progress equal up to the first step whose plain scores'
+    top-2 are a near-tie (RTOL_SUM of ||x|| * ||r||); up to there lam and
+    delta_t within RTOL_SUM (lam lies in [0, 1], |delta_t| = delta), and
+    when no step differs the residual within RTOL_SUM of ||y|| and (S, F)
+    within RTOL_SUM of |S| + |F| + ||y||^2. Returns the largest abs error."""
+    p = Xt.shape[0]
+    zero = torch.zeros((), device=y.device)
+    scal = (zero, zero, zero)  # a cold start: R = y, S = F = 0
+    zty, zn2 = Xt @ y, (Xt * Xt).sum(dim=1)
+    args = (Xt, y, resid, scal, idx, zty[idx], zn2[idx], k0, delta)
+    got = fs.dense_fused_chunk(*args, **kw)
+    want = fs.dense_fused_chunk_plain(*args, **kw)
+    i_k, i_p = got[0].cpu(), want[0].cpu()
+    diff = (i_k != i_p).nonzero().view(-1)
+    t = int(diff[0]) if diff.numel() else idx.shape[0]
+    if t < idx.shape[0]:  # the plain residual before step t, then its scores there
+        r_t = fs.dense_fused_chunk_plain(Xt, y, resid, scal, idx[:t], zty[idx[:t]],
+                                         zn2[idx[:t]], k0, delta, **kw)[4] if t else resid
+        mags = (Xt.index_select(0, idx[t]) @ r_t).abs()
+        scale = float(torch.linalg.vector_norm(r_t)) * float(
+            torch.linalg.vector_norm(Xt, dim=1).max())
+        margin = _top2_margin(torch, mags, idx[t])
+        check(margin <= RTOL_SUM * scale, f"fused chunk {label}: i_star {int(i_k[t])} != "
+              f"plain {int(i_p[t])} at step {t}, top-2 margin {margin:.3e}: no near-tie")
+    check(torch.equal(got[3][:t].cpu(), want[3][:t].cpu()), f"fused chunk {label}: no_progress")
+    e_lam = float((got[1][:t] - want[1][:t]).abs().max()) if t else 0.0
+    e_dt = float((got[2][:t] - want[2][:t]).abs().max()) if t else 0.0
+    check(e_lam <= RTOL_SUM and e_dt <= RTOL_SUM * float(delta),
+          f"fused chunk {label}: lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
+    errs = [e_lam, e_dt]
+    note = f"step {t} differs at a near-tie" if t < idx.shape[0] else "all steps equal"
+    if t == idx.shape[0]:
+        e_r, a_r = _scaled_err(torch, got[4], want[4], float(torch.linalg.vector_norm(y)))
+        sf_scale = (abs(float(want[5][0])) + abs(float(want[5][1]))
+                    + float(torch.dot(y, y)))
+        e_sf = max(abs(float(a) - float(b)) for a, b in zip(got[5], want[5]))
+        check(e_r <= RTOL_SUM and e_sf <= RTOL_SUM * sf_scale,
+              f"fused chunk {label}: residual err {e_r:.2e}, S/F err {e_sf:.3e}")
+        errs += [a_r, e_sf]
+        note += f", residual err {e_r:.2e} of ||y||, S/F err {e_sf / sf_scale:.2e} of scale"
+    print(f"[kernels] dense_fused_chunk {label}: i_star {i_k.tolist()}, {note}, "
+          f"lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
+    return max(errs), i_k
+
+
+def phase2_fused(torch, Xt_main, y_main):
+    """K4 and the replay against their plain versions on the card."""
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+
+    dev = Xt_main.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    p, m = Xt_main.shape
+    kappa = kappa_fraction(p, 0.01)
+    delta = torch.tensor(50.0, device=dev)
+    blocks = fs._blocks(dev, m)
+    print(f"[kernels] dense_fused_chunk: cooperative grid of {blocks} blocks x "
+          f"512 threads at m={m}")
+
+    # ---- K4 at the main shapes: K = 8, kappa = 1% of p, m = 800 ------------
+    idx = TorchSampler(13, dev).uniform_chunk(FUSE, kappa, p)
+    err, _ = _check_chunk(torch, fs, f"main K={FUSE} kappa={kappa} m={m}", Xt_main, y_main,
+                          y_main, idx, 0, delta, _fused_kw(10**6))
+    # a refresh (k = 63) and max_iters (66) inside the chunk
+    _check_chunk(torch, fs, "main k0=60 refresh at s=3 max_iters=66", Xt_main, y_main,
+                 y_main, idx, 60, delta, _fused_kw(66))
+
+    # ---- ragged: m = 803, kappa not a multiple of the blocks' share,
+    # duplicate draws, a three-way exact tie, masking and refresh inside ----
+    p_r, m_r = 1000, 803
+    X = torch.randn((p_r, m_r), generator=g, device=dev)
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    X[17] = X[5]
+    X[900] = X[5]
+    # rows 5, 17, 900 are equal, so they tie exactly, and lead the first step's
+    # |scores|; the noise keeps the residual from vanishing within the chunk
+    noise = torch.randn(m_r, generator=g, device=dev)
+    yv = X[5] * 3.0 + 0.3 * noise / torch.linalg.vector_norm(noise)
+    idx_r = torch.randint(0, p_r, (FUSE, 301), generator=g, device=dev)
+    idx_r[0, :8] = torch.tensor([3, 17, 998, 5, 17, 42, 900, 5], device=dev)
+    _, i_k = _check_chunk(torch, fs, f"p={p_r} m={m_r} kappa=301 tie+duplicates", X, yv,
+                          yv, idx_r, 0, delta, _fused_kw(10**6))
+    check(int(i_k[0]) == 17, f"fused chunk tie went to {int(i_k[0])}, first in order is 17")
+    _check_chunk(torch, fs, f"p={p_r} m={m_r} kappa=301 k0=5 refresh_every=4 max_iters=11",
+                 X, yv, yv, idx_r, 5, delta, _fused_kw(11, refresh_every=4))
+    idx_big = torch.randint(0, p_r, (3, 5003), generator=g, device=dev)
+    _check_chunk(torch, fs, f"p={p_r} m={m_r} K=3 kappa=5003", X, yv, yv, idx_big, 0, delta,
+                 _fused_kw(10**6))
+
+    # ---- the replay, bit for bit, a renorm inside the chunk ----------------
+    cfg = FWConfig(delta=50.0, max_iters=1000)
+    beta0 = torch.randn(p, generator=g, device=dev)
+    i_stars = torch.randint(0, p, (FUSE,), generator=g, device=dev)
+    i_stars[3] = i_stars[1]  # a coordinate hit twice
+    lams = torch.rand(FUSE, generator=g, device=dev) * 0.5
+    lams[4] = 0.75  # 3e-6 * prod(1 - lam) falls below renorm_threshold by here
+    dts = torch.where(torch.rand(FUSE, generator=g, device=dev) < 0.5, -50.0, 50.0)
+    nps = torch.rand(FUSE, generator=g, device=dev) < 0.3
+    start = (torch.tensor(3e-6, device=dev), torch.tensor(0.4, device=dev),
+             torch.tensor(0.1, device=dev), torch.tensor(2, dtype=torch.int32, device=dev))
+    for k0, label in ((0, "K=8"), (cfg.max_iters - 6, "K=8, the last 2 records masked")):
+        b_k, b_p = beta0.clone(), beta0.clone()
+        out_k = fs.fused_replay(b_k, *start[:3], start[3], i_stars, lams, dts, nps, k0, cfg)
+        out_p = fs.fused_replay_plain(b_p, *start[:3], start[3], i_stars, lams, dts, nps, k0, cfg)
+        same = torch.equal(out_k[0], out_p[0]) and all(
+            torch.equal(a.reshape(()), b.reshape(())) for a, b in zip(out_k[1:], out_p[1:]))
+        print(f"[kernels] fused_replay p={p} {label}: scale {float(out_k[1])!r} "
+              f"(plain {float(out_p[1])!r}), stall {int(out_k[4])}, bit-exact: {same}")
+        check(same, f"fused_replay {label} disagrees with its plain version")
+        # without a renorm the scale could only shrink from 3e-6
+        check(float(out_k[1]) > 3e-6, "fused_replay: no renorm happened in the chunk")
+    torch.cuda.synchronize()
+    return {"dense_fused_chunk": err, "fused_replay": 0.0}
+
+
 def golden_stream():
     """The golden's (25, 60) index stream as a numpy array."""
     import base64
@@ -452,16 +602,17 @@ class Recorder:
 
         if not self.i_star[g]:
             return torch.zeros(0, dtype=torch.int64)
-        return torch.stack(self.i_star[g]).cpu()
+        # a fused chunk's state holds the chunk's vertices
+        return torch.cat([t.view(-1) for t in self.i_star[g]]).cpu()
 
 
-def main_config(p, backend):
+def main_config(p, backend, fuse_steps=1):
     from repro_torch.core import FWConfig
     from repro_torch.core.sampling import kappa_fraction
 
     # the example's paper-size path: kappa = 1% of p, 5000 iterations, tol 1e-3
     return FWConfig(delta=1.0, kappa=kappa_fraction(p, 0.01), sampling="uniform",
-                    max_iters=5000, tol=1e-3, backend=backend)
+                    max_iters=5000, tol=1e-3, backend=backend, fuse_steps=fuse_steps)
 
 
 def phase3_main_path(torch, Xt, y, coef):
@@ -513,62 +664,153 @@ def _alpha_from_point(torch, pt, p, device):
     return alpha
 
 
-def phase4_other_backend(torch, Xt, y, main):
-    from repro_torch.core import fw_path
+def phase3_fused_path(torch, Xt, y, main):
+    """The main path again with fuse_steps = FUSE: every chunk through K4
+    and the replay, K2 and K3 never launched."""
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, fw_path
+
+    p = Xt.shape[0]
+    cfg = dataclasses.replace(main["cfg"], fuse_steps=FUSE)
+    deltas = main["deltas"]
+    rec = Recorder(N_COMPARE)
+    print(f"[fused] fw_path backend=kernels fuse_steps={FUSE}, the main path's grid and "
+          "sampler seeds")
+    kernels.reset_launch_counts()
+    res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec)
+    launches = kernels.launch_counts()
+    for g, pt in enumerate(res.points):
+        print(f"[fused] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
+              f"objective={pt.objective!r} l1={pt.l1:.6g} active={pt.active} "
+              f"seconds={pt.seconds:.4f}")
+        check(math.isfinite(pt.objective), f"fused point {g}: objective not finite")
+        check(pt.l1 <= pt.reg * (1 + 1e-4), f"fused point {g}: l1 {pt.l1} > delta {pt.reg}")
+        check(pt.n_dots == pt.iterations * cfg.kappa, f"fused point {g}: n_dots")
+    unfused = main["res"]
+    print(f"[fused] path: {len(res.points)} points, {res.total_iters} iterations, "
+          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
+          f"{1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms/iteration "
+          f"(one step per dispatch: {unfused.total_seconds:.3f} s, "
+          f"{1e3 * unfused.total_seconds / max(unfused.total_iters, 1):.4f} ms/iteration, "
+          f"{unfused.total_iters} iterations)")
+    print(f"[fused] launches during the path: {launches}")
+    chunks = sum(-(-pt.iterations // FUSE) for pt in res.points)
+    check(launches["dense_fused_chunk"] == chunks == launches["fused_replay"],
+          f"fused launches {launches['dense_fused_chunk']}/{launches['fused_replay']} != "
+          f"chunks {chunks}")
+    check(launches["colstats"] == len(res.points), "fused path: colstats launches != points")
+    for name in ("sampled_scores", "vertex_argmax", "residual_update"):
+        check(launches[name] == 0, f"fused path launched {name}")
+    last = res.points[-1]
+    alpha = _alpha_from_point(torch, last, p, Xt.device)
+    gap = float(LASSO.gap(Xt, y, alpha, torch.tensor(last.reg, device=Xt.device)))
+    print(f"[fused] certified duality gap at the last point: {gap!r} "
+          f"(objective {last.objective!r})")
+    check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), "fused certified gap")
+    return launches, dict(cfg=cfg, res=res, rec=rec)
+
+
+def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot):
+    """Run ``a`` against run ``b`` (which recorded every step's residual)
+    over their first points, from the same sampler seeds: vertex sequences
+    equal up to the first difference, which must be a near-tie on b's
+    residual; a stop of ``a`` at most ``max_overshoot`` steps after ``b``'s
+    while the runs agree; objectives within RTOL_OBJ_SAME while they agree,
+    and after, within RTOL_OBJ_APART or within the larger of the two
+    points' certified duality gaps."""
+    from repro_torch.core import LASSO
     from repro_torch.core.path import point_seed
     from repro_torch.core.vertex import TorchSampler
 
     p = Xt.shape[0]
-    rec_k = main["rec"]
-    n = rec_k.n_points
-    deltas = main["deltas"][:n]
-    cfg = dataclasses.replace(main["cfg"], backend="torch")
-    rec_t = Recorder(n)
-    res_t = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec_t)
-    print(f"[compare] first {n} points on backend=torch, same sampler seeds; "
-          f"near-tie: top-2 |scores| within {RTOL_TIE:g} * ||r||; objectives "
-          f"within {RTOL_OBJ_SAME:g} while the runs agree, {RTOL_OBJ_APART:g} after")
+    la, lb = a["label"], b["label"]
+    print(f"[compare] {la} vs {lb}: first {a['rec'].n_points} points, same sampler seeds; "
+          f"near-tie: top-2 |scores| within {RTOL_TIE:g} * ||r||; objectives within "
+          f"{RTOL_OBJ_SAME:g} while the runs agree, {RTOL_OBJ_APART:g} after")
     apart = False
-    for g in range(n):
-        pk, pt = main["res"].points[g], res_t.points[g]
-        sk, st = rec_k.sequence(g), rec_t.sequence(g)
+    for g in range(a["rec"].n_points):
+        pa, pb = a["res"].points[g], b["res"].points[g]
+        sa, sb = a["rec"].sequence(g), b["rec"].sequence(g)
         note = "runs already apart"
         if not apart:
-            common = min(len(sk), len(st))
-            diff = (sk[:common] != st[:common]).nonzero().view(-1)
+            common = min(len(sa), len(sb))
+            diff = (sa[:common] != sb[:common]).nonzero().view(-1)
             if diff.numel():
                 t = int(diff[0])
                 if t > 0:
-                    r_pre = rec_t.resid[g][t - 1]
+                    r_pre = b["rec"].resid[g][t - 1]
                 elif g == 0:
                     r_pre = y
-                else:  # the warm start of point g on the torch path
-                    prev = res_t.points[g - 1]
+                else:  # the warm start of point g on run b
+                    prev = b["res"].points[g - 1]
                     a0 = _alpha_from_point(torch, prev, p, Xt.device) * (float(deltas[g]) / prev.l1)
                     r_pre = y - a0 @ Xt
                 sampler = TorchSampler(point_seed(0, g), Xt.device)
                 for _ in range(t + 1):
-                    idx = sampler.uniform(cfg.kappa, p)
+                    idx = sampler.uniform(kappa, p)
                 mags = (Xt.index_select(0, idx) @ r_pre).abs()
                 margin = _top2_margin(torch, mags, idx)
                 rnorm = float(torch.linalg.vector_norm(r_pre))
                 check(margin <= RTOL_TIE * rnorm,
-                      f"point {g} step {t}: vertex {int(sk[t])} (kernels) vs {int(st[t])} "
-                      f"(torch) with top-2 margin {margin:.3e} = {margin / rnorm:.2e} ||r||: "
+                      f"point {g} step {t}: vertex {int(sa[t])} ({la}) vs {int(sb[t])} "
+                      f"({lb}) with top-2 margin {margin:.3e} = {margin / rnorm:.2e} ||r||: "
                       "no near-tie")
                 note = (f"same vertices for {t} steps, then a near-tie (margin "
                         f"{margin / rnorm:.2e} ||r||)")
                 apart = True
-            elif len(sk) != len(st):
-                note = f"same vertices for {common} steps, the stopping test differed"
+            elif len(sa) != len(sb):
+                over = len(sa) - len(sb)
+                if max_overshoot:
+                    check(0 <= over <= max_overshoot,
+                          f"point {g}: {la} stopped {over} steps after {lb}, the same "
+                          f"trajectory (at most {max_overshoot})")
+                note = (f"same vertices for {common} steps, {la} stopped {over} steps "
+                        f"after {lb}")
                 apart = True
             else:
                 note = f"identical vertex sequence ({common} steps)"
         rtol = RTOL_OBJ_APART if apart else RTOL_OBJ_SAME
-        rel = abs(pk.objective - pt.objective) / abs(pt.objective)
-        print(f"[compare] point {g} iters {pk.iterations}/{pt.iterations} objective "
-              f"{pk.objective!r}/{pt.objective!r} rel diff {rel:.2e} (rtol {rtol:g}): {note}")
-        check(rel <= rtol, f"point {g}: objectives differ by {rel:.2e}")
+        rel = abs(pa.objective - pb.objective) / abs(pb.objective)
+        print(f"[compare] point {g} iters {pa.iterations}/{pb.iterations} objective "
+              f"{pa.objective!r}/{pb.objective!r} rel diff {rel:.2e} (rtol {rtol:g}): {note}")
+        if apart and rel > rtol:
+            # two different runs, each stopped by the stall rule: each one's
+            # certified duality gap bounds its distance to the optimum, so
+            # the two objectives lie within the larger gap of each other
+            d = torch.tensor(float(deltas[g]), device=Xt.device)
+            gaps = [float(LASSO.gap(Xt, y, _alpha_from_point(torch, pt, p, Xt.device), d))
+                    for pt in (pa, pb)]
+            diff_f = abs(pa.objective - pb.objective)
+            print(f"[compare] point {g}: |objective diff| {diff_f:.6g} against the certified "
+                  f"gaps {gaps[0]:.6g} ({la}) and {gaps[1]:.6g} ({lb})")
+            check(diff_f <= max(gaps), f"point {g}: objectives differ by {diff_f:.6g}, more "
+                  "than either run's certified gap")
+        else:
+            check(rel <= rtol, f"point {g}: objectives differ by {rel:.2e}")
+
+
+def phase4_other_backend(torch, Xt, y, main):
+    from repro_torch.core import fw_path
+
+    n = main["rec"].n_points
+    deltas = main["deltas"][:n]
+    cfg = dataclasses.replace(main["cfg"], backend="torch")
+    rec_t = Recorder(n)
+    res_t = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec_t)
+    _compare_paths(torch, Xt, y, deltas, cfg.kappa,
+                   dict(label="kernels", res=main["res"], rec=main["rec"]),
+                   dict(label="torch", res=res_t, rec=rec_t), max_overshoot=0)
+
+
+def phase4_fused_vs_unfused(torch, Xt, y, main, fused):
+    """The fused path's first points against the unfused 'kernels' path's.
+    Both score through the same per-row dot; the refresh's dot products are
+    summed in another order (the kernel's fixed order, cuBLAS), so the runs
+    agree to rounding."""
+    _compare_paths(torch, Xt, y, main["deltas"], main["cfg"].kappa,
+                   dict(label=f"fused K={FUSE}", res=fused["res"], rec=fused["rec"]),
+                   dict(label="unfused", res=main["res"], rec=main["rec"]),
+                   max_overshoot=FUSE - 1)
 
 
 # --------------------------------------------------------------------------
@@ -669,14 +911,53 @@ def phase5_timing(torch, Xt, y):
         _time_queued(torch, lambda i: torch.lerp(r, target, lam), 400),
         4 * m * 4 + 8, 5 * m, note=f" [m={m}; library: torch.lerp toward y - dt*z]")
 
-    # host share of a step: fixed-length runs of the main path's step
+    # ---- K4 and the replay at the main path's shapes ----------------------
+    from repro_torch.kernels import fused_step as fs
+
+    stats = engine.precompute_colstats(Xt, y, cfg)
+    delta = torch.tensor(50.0, device=dev)
+    chunks = []  # distinct index sets: a chunk reads 8 x 137 MB of rows, far beyond L2
+    for _ in range(4):
+        idx = sampler.uniform_chunk(FUSE, kappa, p)
+        chunks.append((idx, stats.zty[idx], stats.znorm2[idx]))
+    zero = torch.zeros((), device=dev)
+    kw = _fused_kw(10**6)
+
+    def chunk(i, fn=fs.dense_fused_chunk):
+        idx, zty_s, zn2_s = chunks[i % 4]
+        return fn(Xt, y, y, (zero, zero, zero), idx, zty_s, zn2_s, 0, delta, **kw)
+
+    step_bytes = kappa * m * 4 + kappa * 16 + 3 * m * 4
+    row("dense_fused_chunk",
+        _time_queued(torch, chunk, 20),
+        _time_queued(torch, lambda i: chunk(i, fs.dense_fused_chunk_plain), 2),
+        None, FUSE * step_bytes, FUSE * 2 * kappa * m,
+        note=f" [one chunk of K={FUSE} steps, kappa={kappa}, m={m}; library: none]")
+    print(f"[timing] dense_fused_chunk per step: {out['dense_fused_chunk']['ms'] / FUSE:.6f} ms, "
+          f"bound {out['dense_fused_chunk']['bound_ms'] / FUSE:.6f} ms")
+
+    i_stars, _, dts, nps = chunk(0)[:4]
+    lams = torch.linspace(0.05, 0.4, FUSE, device=dev)  # no renorm: a cold chunk's lam may be 1
+    rcfg = main_config(p, "kernels", FUSE)
+    beta = torch.zeros(p, device=dev)
+    one, zero_i = torch.ones((), device=dev), torch.zeros((), dtype=torch.int32, device=dev)
+
+    def replay(i, fn=fs.fused_replay):
+        return fn(beta, one, zero, zero, zero_i, i_stars, lams, dts, nps, 0, rcfg)
+
+    row("fused_replay",
+        _time_queued(torch, replay, 200),
+        _time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 8),
+        None, FUSE * (8 + 4 + 4 + 1 + 4 + 4) + 4 * 4 + 4 * 4, FUSE * 12,
+        note=f" [K={FUSE} records, no renorm; library: none]")
+
+    # host share of a step: fixed-length runs of the main path's step, one
+    # step per dispatch and fused
     kernel_ms = sum(out[k]["ms"] for k in ("sampled_scores", "vertex_argmax", "residual_update"))
-    n_steps = 300
-    for backend in ("kernels", "torch"):
-        bcfg = dataclasses.replace(main_config(p, backend), max_iters=n_steps,
+    for backend, fuse, n_steps in (("kernels", 1, 300), ("torch", 1, 300),
+                                   ("kernels", FUSE, 320), ("kernels", 32, 320)):
+        bcfg = dataclasses.replace(main_config(p, backend, fuse), max_iters=n_steps,
                                    tol=0.0, patience=10**9)
-        stats = engine.precompute_colstats(Xt, y, bcfg)
-        delta = torch.tensor(50.0, device=dev)
         state0 = engine.init_state(fw_lasso.LASSO, Xt, y, None, bcfg)
         engine.run_loop(fw_lasso.LASSO, Xt, y, stats, state0, bcfg, delta, 10**9,
                         TorchSampler(3, dev))  # warm-up
@@ -687,20 +968,25 @@ def phase5_timing(torch, Xt, y):
                         TorchSampler(5, dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        if backend == "kernels":
+        if backend == "torch":
+            print(f"[timing] step (torch backend): wall {wall_ms:.4f} ms")
+            continue
+        if fuse == 1:
             print(f"[timing] step (kernels): wall {wall_ms:.4f} ms, its three kernels "
                   f"{kernel_ms:.4f} ms, the rest (host launches, the per-step sync, "
                   f"small torch ops) {wall_ms - kernel_ms:.4f} ms = "
                   f"{100 * (wall_ms - kernel_ms) / wall_ms:.1f}% of the step")
-            busy_ms = _device_busy_ms(torch, Xt, y, stats, bcfg, delta, n_steps=50)
-            if busy_ms is None:
-                print("[timing] device busy time per step: not measured (the "
-                      "profiler reported no device time)")
-            else:
-                print(f"[timing] device busy per step (torch.profiler): {busy_ms:.4f} ms "
-                      f"= {100 * busy_ms / wall_ms:.1f}% of the step's wall time")
         else:
-            print(f"[timing] step (torch backend): wall {wall_ms:.4f} ms")
+            print(f"[timing] step (kernels, fuse_steps={fuse}): wall {wall_ms:.4f} ms per "
+                  f"iteration, {wall_ms * fuse:.4f} ms per chunk")
+        busy_ms = _device_busy_ms(torch, Xt, y, stats, bcfg, delta, n_steps=64 if fuse > 1 else 50)
+        if busy_ms is None:
+            print("[timing] device busy time per step: not measured (the "
+                  "profiler reported no device time)")
+        else:
+            print(f"[timing] device busy per step (torch.profiler, fuse_steps={fuse}): "
+                  f"{busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.1f}% of the step's wall "
+                  f"time, idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     return out
 
 
@@ -729,7 +1015,7 @@ def _device_busy_ms(torch, Xt, y, stats, cfg, delta, n_steps):
           f"kernels and copies, {total_us / n_steps:.2f} us")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[timing]   device {e.key[:60]}: {e.self_device_time_total / n_steps:.2f} us/step, "
-              f"{e.count // n_steps} calls/step")
+              f"{e.count / n_steps:.3g} calls/step")
     return total_us / 1e3 / n_steps
 
 

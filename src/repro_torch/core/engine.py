@@ -18,9 +18,21 @@ one exception: the stopping test ``stall < patience`` reads ``stall`` on
 the host once per step. The iteration count ``k`` and the dot count
 ``n_dots`` are host integers: neither depends on the data.
 
-Not ported yet, and refused by ``check_ported``: the fused K-step chunk
-(``fuse_steps > 1``, ROADMAP.md Queue 1 item 5), step rules other than
-'classic' (item 9), telemetry (item 11), batched lanes (item 6).
+With ``FWConfig.fuse_steps = K > 1`` each turn of the loop advances K
+iterations (``fused_chunk``), through the ``kernels/fused_step`` kernel on
+the 'kernels' backend (the co-state and the scalar recursions stay on the
+device across the K steps) or K unfused steps on 'torch', and the
+stopping test is read on the host once per chunk: a stop lands on the
+first chunk boundary where the stall count has reached patience (K-1
+steps after the unfused stop at most, while the stall streak lasts to
+that boundary), and max_iters stays exact (trailing chunk steps are
+masked). The kernel emits per-step
+records that ``_fused_replay`` turns into the O(p) coefficient updates
+with the unfused op sequence (``apply_coeff_update``).
+
+Not ported yet, and refused by ``check_ported``: step rules other than
+'classic' (ROADMAP.md Queue 1 item 9), telemetry (item 11), batched lanes
+(item 6).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 
 from repro_torch.core import vertex
 from repro_torch.core.solver_config import FWConfig
+from repro_torch.kernels import fused_step as _fused_step
 from repro_torch.kernels.colstats import colstats as _colstats_kernel
 
 
@@ -55,7 +68,9 @@ class EngineState(NamedTuple):
     stall: torch.Tensor  # ()  int32, consecutive sub-tolerance steps
     n_dots: int  # length-m dot products consumed so far (exact)
     k: int  # iteration counter
-    i_star: torch.Tensor  # ()  int64, the last step's vertex (-1 before any)
+    # int64: () the last step's vertex (-1 before any); after a fused chunk
+    # (n_active,) the vertices of the chunk's live steps
+    i_star: torch.Tensor
 
 
 class SolveResult(NamedTuple):
@@ -67,6 +82,9 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor
     # certified FW duality gap at alpha (cfg.report_gap; None otherwise)
     gap: Optional[torch.Tensor] = None
+    # iterations advanced per dispatch: cfg.fuse_steps when the fused chunk
+    # engaged (``vertex.fused_supported``), else 1
+    effective_fuse_steps: int = 1
 
 
 def resolve_device(device) -> torch.device:
@@ -82,11 +100,6 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(cfg: FWConfig) -> None:
     """Refuse the reference's options that this port does not run yet."""
-    if cfg.fuse_steps > 1:
-        raise NotImplementedError(
-            "fuse_steps > 1 (the fused K-step chunk) is not ported yet: "
-            "ROADMAP.md Queue 1 item 5"
-        )
     if cfg.step_rule != "classic":
         raise NotImplementedError(
             f"step_rule={cfg.step_rule!r} is not ported yet: ROADMAP.md "
@@ -267,14 +280,99 @@ def oracle_gap(oracle, Xt, y, alpha, delta, cfg=None) -> torch.Tensor:
     return certified_gap(oracle, Xt, y, co, alpha, one, delta, cfg)
 
 
+# --------------------------------------------------------------------------
+# Fused multi-step chunks (FWConfig.fuse_steps > 1)
+# --------------------------------------------------------------------------
+
+
+def _fused_streams(stats, cfg: FWConfig, p: int, sampler):
+    """The chunk's K x kappa uniform index stream (the unfused steps' draws,
+    trailing masked steps included, as the reference draws them) and the
+    column statistics pregathered at it."""
+    idx = sampler.uniform_chunk(cfg.fuse_steps, cfg.kappa, p)
+    flat = idx.view(-1)
+    zty_s = stats.zty.index_select(0, flat).view(idx.shape)
+    zn2_s = stats.znorm2.index_select(0, flat).view(idx.shape)
+    return idx, zty_s, zn2_s
+
+
+def _fused_replay(state: EngineState, cfg: FWConfig, i_stars, lams, delta_ts, no_progs):
+    """Replay the chunk's per-step records into the O(p) coefficient updates
+    and the stopping statistics, with ``apply_coeff_update``'s op sequence
+    (``kernels/fused_step.fused_replay``: one launch per chunk on the card,
+    that loop itself on the CPU). Steps at k >= max_iters are skipped.
+    Returns ``(beta, scale, maxabs, step_inf, stall)``."""
+    return _fused_step.fused_replay(
+        state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
+        i_stars, lams, delta_ts, no_progs, state.k, cfg,
+    )
+
+
+def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
+                        sampler) -> EngineState:
+    """One K-step chunk through the fused kernel: draw and pregather the
+    streams, run the K iterations with the co-state on the device, then
+    replay the step records into the coefficient and stopping state."""
+    p = state.beta.shape[0]
+    idx, zty_s, zn2_s = _fused_streams(stats, cfg, p, sampler)
+    resid0, scal0 = oracle.fused_pack_co(state.co)
+    i_stars, lams, delta_ts, no_progs, resid_out, scal_out = vertex.run_fused_kernel(
+        oracle, Xt, y, resid0, scal0, idx, zty_s, zn2_s, state.k, delta, cfg
+    )
+    beta, scale, maxabs, step_inf, stall = _fused_replay(
+        state, cfg, i_stars, lams, delta_ts, no_progs
+    )
+    n_active = min(cfg.fuse_steps, cfg.max_iters - state.k)
+    return EngineState(
+        beta=beta,
+        scale=scale,
+        co=oracle.fused_unpack_co(resid_out, scal_out),
+        maxabs=maxabs,
+        step_inf=step_inf,
+        stall=stall,
+        n_dots=state.n_dots + n_active * (cfg.kappa + oracle.extra_dots),
+        k=state.k + n_active,
+        i_star=i_stars[:n_active],
+    )
+
+
+def _fused_ref_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
+                     sampler) -> EngineState:
+    """The 'torch' chunk executor: K unfused engine steps (bit-exact against
+    fuse_steps=1 by construction), skipping the steps past max_iters; the
+    stopping test is the caller's, between chunks."""
+    seq = []
+    for _ in range(min(cfg.fuse_steps, cfg.max_iters - state.k)):
+        state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        seq.append(state.i_star)
+    return state._replace(i_star=torch.stack(seq))
+
+
+def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
+                sampler) -> EngineState:
+    """Advance K = cfg.fuse_steps iterations in one turn of the loop (the
+    fused kernel on 'kernels', K unfused steps on 'torch')."""
+    if vertex.use_fused_kernel(cfg):
+        return _fused_kernel_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
+    return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
+
+
 def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step=None):
     """Step until the §Stopping rule fires or max_iters. ``on_step(state)``,
-    when given, sees every new state (the parity tests read ``i_star``)."""
+    when given, sees every new state (the parity tests read ``i_star``).
+
+    With ``cfg.fuse_steps = K > 1`` (and ``vertex.fused_supported``) each
+    turn advances a K-step chunk, ``on_step`` sees the state after each
+    chunk, whose ``i_star`` holds the chunk's vertices, and the stopping
+    rule is read between chunks (a stop lands on a chunk boundary;
+    max_iters stays exact).
+    """
+    advance = fused_chunk if vertex.fused_supported(oracle, cfg) else step
     state = state0
     # `stall < patience` is read on the host: the one device sync per step,
-    # the first thing a CUDA graph or the fused K-step chunk removes
+    # or per chunk on the fused path
     while state.k < cfg.max_iters and bool(state.stall < patience):
-        state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        state = advance(oracle, Xt, y, stats, state, cfg, delta, sampler)
         if on_step is not None:
             on_step(state)
     return state
@@ -293,6 +391,7 @@ def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta)
         active=torch.sum(alpha != 0.0),
         converged=final.stall >= patience,
         gap=gap,
+        effective_fuse_steps=cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1,
     )
 
 

@@ -76,6 +76,11 @@ class LassoOracle:
 
     needs_stats = True
     extra_dots = 0
+    # fused K-step chunk protocol: the closed-form line search makes the
+    # chunk kernel-composable, and the lasso's scores need no live alpha
+    # values inside it
+    fused_kind = "lasso"
+    fused_needs_alpha = False
 
     def init_co(self, y, v, beta, dtype, cfg=None) -> LassoCo:
         if v is None:
@@ -113,6 +118,38 @@ class LassoOracle:
             stats, co.s_quad, co.f_lin, resid, y, i_star, lam, delta_t, aux, k, cfg,
         )
         return LassoCo(resid=resid, s_quad=s_quad, f_lin=f_lin)
+
+    # ---- fused K-step chunk protocol --------------------------------------
+    # The chunk (kernels/fused_step) carries the co-state as (resid, (S, F,
+    # Q)), Q unused by the lasso. The scalar algebra is ``ls_closed_form`` /
+    # ``sf_recursion``, the same the unfused step runs, and the CUDA kernel
+    # repeats its op order.
+
+    def fused_score_shift(self, alpha_i):
+        """Per-coordinate selected-score shift from the live alpha value
+        (None: lasso scores are purely linear)."""
+        return None
+
+    def fused_line_search(self, scal, g_raw, g_sel, a_star, delta_t, zty_i, zn2_i,
+                          eps_den, gap_rtol):
+        s_quad, f_lin, _ = scal
+        g_lin = g_raw + zty_i
+        lam, no_progress, _ = ls_closed_form(
+            s_quad, f_lin, g_sel, g_lin, delta_t, zn2_i, eps_den, gap_rtol
+        )
+        return lam, no_progress, g_lin
+
+    def fused_scalar_update(self, scal, g_lin, a_star, lam, delta_t, zty_i, zn2_i):
+        """Pre-refresh recursions on the (S, F, Q) triple; the chunk applies
+        the periodic exact S/F refresh on the unfused cadence."""
+        s_quad, f_lin = sf_recursion(scal[0], scal[1], g_lin, lam, delta_t, zty_i, zn2_i)
+        return (s_quad, f_lin, scal[2])
+
+    def fused_pack_co(self, co: LassoCo):
+        return co.resid, (co.s_quad, co.f_lin, torch.zeros_like(co.s_quad))
+
+    def fused_unpack_co(self, resid, scal) -> LassoCo:
+        return LassoCo(resid=resid, s_quad=scal[0], f_lin=scal[1])
 
     def objective(self, y, stats, co: LassoCo, cfg=None):
         """f(alpha^k) = 1/2 y^T y + 1/2 S^k - F^k (paper eq. 8 block)."""

@@ -38,9 +38,22 @@ class FWConfig:
         reference, kept so configs carry across; the port reads none.
       telemetry: any spec object; a solve raises NotImplementedError when
         it is set (ROADMAP.md Queue 1 item 11).
+      fuse_steps: K consecutive FW iterations per dispatch. 1 (default) is
+        the one-step-per-dispatch loop. K > 1 makes ``engine.run_loop``
+        advance K-step chunks: the co-state and the scalar recursions stay
+        on the device across K steps (the ``kernels/fused_step`` kernel on
+        the 'kernels' backend, K unfused engine steps on 'torch') and the
+        §Stopping rule is checked on the host BETWEEN chunks, so a
+        stall/patience stop lands on a chunk boundary, K-1 iterations after
+        the unfused stop at most while the stall streak lasts to it
+        (max_iters is still exact: trailing chunk steps are masked).
+        Fusion engages for the lasso oracle under 'uniform' sampling, where
+        the K x kappa index stream can be drawn ahead of the chunk; the
+        other sampling modes fall back to fuse_steps=1 semantics
+        (``SolveResult.effective_fuse_steps`` says what ran).
 
-    Also not ported yet, and refused by the solver: ``fuse_steps > 1``
-    (Queue 1 item 5) and ``step_rule != 'classic'`` (item 9).
+    Also not ported yet, and refused by the solver: ``step_rule !=
+    'classic'`` (item 9).
     """
 
     delta: float

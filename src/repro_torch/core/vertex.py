@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.solver_config import FWConfig
-from repro_torch.kernels import fw_grad
+from repro_torch.kernels import fused_step, fw_grad
 from repro_torch.kernels.residual_update import residual_update
 
 
@@ -44,6 +44,11 @@ class TorchSampler:
 
     def uniform(self, kappa: int, p: int) -> torch.Tensor:
         return torch.randint(0, p, (kappa,), generator=self.generator, device=self.device)
+
+    def uniform_chunk(self, n_steps: int, kappa: int, p: int) -> torch.Tensor:
+        """``(n_steps, kappa)``: the next ``n_steps`` uniform draws, stacked,
+        so a chunked solve sees the unfused solve's stream."""
+        return torch.stack([self.uniform(kappa, p) for _ in range(n_steps)])
 
     def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
         perm = torch.randperm(nblocks, generator=self.generator, device=self.device)
@@ -62,24 +67,31 @@ class StreamSampler:
         self.t = 0
         self._bound_checked: Optional[int] = None
 
-    def _next(self, k: int, bound: int) -> torch.Tensor:
-        if self.t >= self.draws.shape[0]:
-            raise RuntimeError(f"the sampling stream ran out after {self.t} steps")
+    def _next(self, k: int, bound: int, n_steps: int = 1) -> torch.Tensor:
+        if self.t + n_steps > self.draws.shape[0]:
+            raise RuntimeError(
+                f"the sampling stream ran out after {self.t} steps "
+                f"({n_steps} more asked, {self.draws.shape[0]} in all)"
+            )
         if self.draws.shape[1] != k:
             raise ValueError(f"stream rows hold {self.draws.shape[1]} draws, the step needs {k}")
         if self._bound_checked != bound:  # once per stream, not per step
             if bool((self.draws < 0).any() | (self.draws >= bound).any()):
                 raise ValueError(f"stream values must lie in [0, {bound})")
             self._bound_checked = bound
-        row = self.draws[self.t]
-        self.t += 1
-        return row
+        rows = self.draws[self.t:self.t + n_steps]
+        self.t += n_steps
+        return rows
 
     def uniform(self, kappa: int, p: int) -> torch.Tensor:
-        return self._next(kappa, p)
+        return self._next(kappa, p)[0]
+
+    def uniform_chunk(self, n_steps: int, kappa: int, p: int) -> torch.Tensor:
+        """The next ``n_steps`` rows in one slice."""
+        return self._next(kappa, p, n_steps)
 
     def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
-        return self._next(nb, nblocks)
+        return self._next(nb, nblocks)[0]
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -202,6 +214,52 @@ def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=
     else:
         i_star, g, n = _torch_vertex(Xt, w, sampler, p, cfg)
     return i_star, g, g, n
+
+
+# --------------------------------------------------------------------------
+# Fused K-step chunk dispatch (kernels/fused_step)
+# --------------------------------------------------------------------------
+
+
+def fused_supported(oracle, cfg: FWConfig) -> bool:
+    """Whether ``run_loop`` advances K-step chunks: ``cfg.fuse_steps > 1``,
+    'uniform' sampling (the K x kappa index stream can be drawn ahead of
+    the chunk), an oracle with the ``fused_*`` protocol, a single-device
+    backend and the classic step rule. Anything else runs the per-step
+    loop (fuse_steps=1 semantics), as the reference does."""
+    ok = (
+        cfg.fuse_steps > 1
+        and cfg.sampling == "uniform"
+        and getattr(oracle, "fused_kind", None) is not None
+        and cfg.backend != "distributed"
+        and cfg.step_rule == "classic"
+    )
+    if ok and oracle.fused_needs_alpha:
+        raise NotImplementedError(
+            "a fused chunk for an oracle whose scores read live alpha values "
+            "(the elastic-net's alpha ledger and Q reconcile) is not ported "
+            "yet: ROADMAP.md Queue 1 item 8"
+        )
+    return ok
+
+
+def use_fused_kernel(cfg: FWConfig) -> bool:
+    """Chunk executor choice: the fused kernel drives the 'kernels' backend
+    (as the Pallas megakernel drives 'pallas'); 'torch' chunks through K
+    unfused engine steps."""
+    return cfg.backend == "kernels"
+
+
+def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
+                     cfg: FWConfig):
+    """The fused chunk on the dense layout. Returns ``(i_star, lam,
+    delta_t, no_progress, resid_out, (S, F, Q))``: the per-step records the
+    engine replays into beta and the stopping state."""
+    return fused_step.dense_fused_chunk(
+        Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, oracle=oracle,
+        eps_den=cfg.eps_den, gap_rtol=cfg.gap_rtol,
+        refresh_every=cfg.refresh_every, max_iters=cfg.max_iters,
+    )
 
 
 # --------------------------------------------------------------------------

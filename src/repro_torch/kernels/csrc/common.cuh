@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 // dtype codes shared with kernels/_build.py (DTYPE_CODES)
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -96,6 +98,45 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ x, const float* __
       const float xi = to_f32(x[i]);
       dot = fmaf(xi, v[i], dot);
       if (SQ) sq = fmaf(xi, xi, sq);
+    }
+  }
+}
+
+// The sampled score -x.v of row `row` of X (p, m), summed by one warp in
+// row_dot's order and returned to every lane. A row outside [0, p) scores
+// exactly 0 (-0.0f, as the reference's zero-padded rows do) without
+// touching memory. K2 and the fused chunk (K4) both score through this, so
+// they round alike.
+template <typename T>
+__device__ __forceinline__ float warp_row_score(const T* __restrict__ X, long long row,
+                                                long long p, int m,
+                                                const float* __restrict__ v, bool vec,
+                                                int lane) {
+  float dot = 0.f, unused = 0.f;
+  if (row >= 0 && row < p) row_dot<T, false>(X + row * m, v, m, vec, lane, dot, unused);
+  return -warp_sum(dot);
+}
+
+// jnp.argmax / torch.argmax order: NaN counts as the largest value, and of
+// equal values the first in sample order wins.
+__device__ __forceinline__ bool better(float a, long long ja, float b, long long jb) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return na && (!nb || ja < jb);
+  return a > b || (a == b && ja < jb);
+}
+
+// Warp-wide first max of (best, bj) under `better`; every lane ends with
+// the winner and its payload `val`.
+__device__ __forceinline__ void warp_best(float& best, long long& bj, float& val) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const long long oj = __shfl_xor_sync(0xffffffffu, bj, o);
+    const float ov = __shfl_xor_sync(0xffffffffu, val, o);
+    if (better(ob, oj, best, bj)) {
+      best = ob;
+      bj = oj;
+      val = ov;
     }
   }
 }

@@ -2,13 +2,10 @@
 // Pallas kernel at src/repro/kernels/fw_grad/fw_grad.py:79; vertex_argmax
 // replaces the XLA argmax of fw_vertex (src/repro/kernels/fw_grad/ops.py:27).
 // See kernels/fw_grad.py for the bound and the design.
-#include <climits>
-
 #include "common.cuh"
 
 // scores[j] = -Xt[row_j] . r, row_j = blk[j / bs] * bs + j % bs, one warp per
-// sampled row. A row index outside [0, p) scores exactly 0 (-0.0f, as the
-// reference's zero-padded rows do) without touching memory.
+// sampled row (warp_row_score: a row outside [0, p) scores 0).
 template <typename T>
 __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __restrict__ r,
                                       const long long* __restrict__ blk,
@@ -24,30 +21,8 @@ __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __re
   const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (j >= n) return;
   const long long row = blk[j / bs] * bs + j % bs;
-  float dot = 0.f, unused = 0.f;
-  if (row >= 0 && row < p) row_dot<T, false>(X + row * m, v, m, vec, lane, dot, unused);
-  dot = warp_sum(dot);
-  if (lane == 0) scores[j] = -dot;
-}
-
-// jnp.argmax / torch.argmax order: NaN counts as the largest value, and of
-// equal values the first in sample order wins.
-__device__ __forceinline__ bool better(float a, long long ja, float b, long long jb) {
-  const bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return na && (!nb || ja < jb);
-  return a > b || (a == b && ja < jb);
-}
-
-__device__ __forceinline__ void warp_best(float& best, long long& bj) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const long long oj = __shfl_xor_sync(0xffffffffu, bj, o);
-    if (better(ob, oj, best, bj)) {
-      best = ob;
-      bj = oj;
-    }
-  }
+  const float score = warp_row_score<T>(X, row, p, m, v, vec, lane);
+  if (lane == 0) scores[j] = score;
 }
 
 // One block: i_star = the global index of the first max of |scores|, with
@@ -68,7 +43,8 @@ __global__ void vertex_argmax_kernel(const float* __restrict__ scores,
       bj = j;
     }
   }
-  warp_best(best, bj);
+  float unused = 0.f;
+  warp_best(best, bj, unused);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
     sb[warp] = best;
@@ -79,7 +55,7 @@ __global__ void vertex_argmax_kernel(const float* __restrict__ scores,
     const int nw = blockDim.x >> 5;
     best = lane < nw ? sb[lane] : -INFINITY;
     bj = lane < nw ? sj[lane] : LLONG_MAX;
-    warp_best(best, bj);
+    warp_best(best, bj, unused);
     if (lane == 0) {
       *i_star = blk[bj / bs] * bs + bj % bs;
       *g_star = scores[bj];

@@ -4,7 +4,8 @@
     imports JAX or the reference;
   * the entry points run on the card by default, and raise without one;
   * the reference's options that the port does not run yet raise
-    NotImplementedError naming their ROADMAP.md item.
+    NotImplementedError naming their ROADMAP.md item;
+  * the fused K-step chunk runs, and says so, where the reference's does.
 """
 import ast
 import dataclasses
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import FWConfig, StreamSampler, TorchSampler, engine, fw_path, fw_solve
-from repro_torch.core.fw_lasso import LASSO
+from repro_torch.core.fw_lasso import LASSO, LassoOracle
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -64,7 +65,6 @@ def test_entry_points_need_a_card_unless_told_cpu():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(fuse_steps=8), "item 5"),
     (dict(step_rule="away"), "item 9"),
     (dict(telemetry=object()), "item 11"),
     (dict(backend="sparse"), "item 7"),
@@ -77,6 +77,42 @@ def test_unported_options_raise(change, item):
         fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         fw_path(Xt, y, [1.0], cfg, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernels"])
+def test_fused_chunk_runs_and_reports_its_width(backend):
+    Xt, y = _problem()
+    cfg = FWConfig(delta=1.0, kappa=5, max_iters=21, tol=0.0, patience=10**9,
+                   backend=backend, fuse_steps=8)
+    res = fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    assert (res.iterations, res.effective_fuse_steps) == (21, 8)
+    pts = fw_path(Xt, y, [0.5, 1.0], cfg, device="cpu").points
+    assert [pt.iterations for pt in pts] == [21, 21]
+
+
+@pytest.mark.parametrize("change", [dict(sampling="block", block_size=8),
+                                    dict(sampling="full")])
+def test_fused_chunk_falls_back_where_the_stream_cannot_be_drawn_ahead(change):
+    Xt, y = _problem()
+    cfg = FWConfig(delta=1.0, kappa=8, max_iters=5, fuse_steps=8, **change)
+    res = fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    assert res.effective_fuse_steps == 1 and res.iterations <= 5
+
+
+def test_fused_chunk_with_live_alpha_scores_is_not_ported():
+    """An oracle whose chunk needs live alpha values (the elastic-net's
+    alpha ledger) waits for its item."""
+
+    class AlphaOracle(LassoOracle):
+        fused_needs_alpha = True
+
+    Xt, y = _problem()
+    cfg = FWConfig(delta=1.0, kappa=5, max_iters=3, fuse_steps=8)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        engine.solve(AlphaOracle(), Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    res = engine.solve(AlphaOracle(), Xt, y, dataclasses.replace(cfg, fuse_steps=1),
+                       TorchSampler(0, "cpu"), device="cpu")
+    assert res.iterations == 3
 
 
 def test_config_validates_and_defaults_to_the_kernels():
@@ -97,7 +133,17 @@ def test_stream_sampler_checks_its_stream():
     assert s.uniform(2, 4).tolist() == [0, 3] and s.uniform(2, 4).tolist() == [1, 2]
     with pytest.raises(RuntimeError, match="ran out"):
         s.uniform(2, 4)
+    assert StreamSampler(draws).uniform_chunk(2, 2, 4).tolist() == [[0, 3], [1, 2]]
+    with pytest.raises(RuntimeError, match="ran out"):
+        StreamSampler(draws).uniform_chunk(3, 2, 4)
     with pytest.raises(ValueError, match="lie in"):
         StreamSampler(draws).uniform(2, 3)
     with pytest.raises(ValueError, match="hold 2 draws"):
         StreamSampler(draws).uniform(5, 4)
+
+
+def test_torch_sampler_chunk_is_its_unfused_stream():
+    a, b = TorchSampler(3, "cpu"), TorchSampler(3, "cpu")
+    chunk = a.uniform_chunk(4, 6, 50)
+    assert chunk.shape == (4, 6)
+    assert torch.equal(chunk, torch.stack([b.uniform(6, 50) for _ in range(4)]))
