@@ -5,31 +5,40 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failed check raises and the
-script exits non-zero:
+Two paths run in turn, the dense one and then the sparse one, each
+through phases 2-5; any failed check raises and the script exits non-zero:
 
 1. device and build: the card's name and power limit, the kernels built
    from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, TF32 off;
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at ragged ones, in f32 and bf16 (the fused chunk K4
-   and its replay in f32, the replay bit for bit through a renorm); then
-   the reference's converging golden on a small problem, replayed from
-   the reference's own index stream (embedded below);
-3. the main path: ``fw_path`` on the 'kernels' backend at the paper's
-   dense size (p = 4,272,227, m = 800, f32, kappa = 1% of p, uniform
-   sampling), one step per dispatch, with each kernel's launch count
-   checked against the run; then the same path with ``fuse_steps=8``
-   (K4 and the replay once per chunk, K2/K3 never);
-4. the first grid points again on the plain 'torch' backend with the
-   same sampler seeds, and the fused path's first points against the
-   unfused one: the vertex sequences must agree up to the first near-tie
-   (a fused stop may overshoot by at most 7 steps) and the objectives to
-   a stated tolerance;
+2. each kernel against its plain PyTorch version on the card, at its
+   path's shapes and at ragged ones, in f32 and bf16 (the fused chunks K4
+   and K7 and the replay in f32, the replay bit for bit through a renorm);
+   then the reference's converging golden on a small problem, replayed
+   from the reference's own index stream (embedded below), on the
+   'kernels' backend and on 'sparse' (unfused and fused);
+3. the paths, each kernel's launch count checked against the run:
+   - dense: ``fw_path`` on 'kernels' at the paper's dense size (p =
+     4,272,227, m = 800, f32, kappa = 1% of p, uniform sampling), one
+     step per dispatch, then the same 100-point grid with ``fuse_steps=8`` (K4 and the replay once
+     per chunk, K2/K3 never);
+   - sparse: the E2006-log1p proxy at its published size (m = 16,087,
+     p = 4,272,227, column density 0.002, block-ELL, built on the card),
+     the 100-point grid on 'sparse' with ``fuse_steps=8`` (K6 per point,
+     K7 and the replay per chunk, K5 never), its first 3 points one step
+     per dispatch (K5 and the argmax per step), and one point with
+     'block' sampling (K5 at width 256);
+4. the first grid points of each path against other routes, from the
+   same sampler seeds: the plain ops ('torch'; 'sparse' with
+   ``sparse_kernel=False``), fused against unfused, and the sparse
+   backend against the dense one on a small proxy. The vertex sequences
+   must agree up to the first near-tie (a fused stop may overshoot by at
+   most 7 steps) and the objectives to a stated tolerance;
 5. timing of each kernel, its bound, its plain version and a library
    call, with CUDA events; and the host's share of a step, one step per
-   dispatch and fused at K = 8 and K = 32.
+   dispatch and fused at K = 8 and K = 32, on each path.
 
-About 6 minutes on an H100, the builds included.
+About 7 minutes on an H100, the builds included. ``--kernels-only`` stops
+each path after its phase 2 (and prints no JSON lines).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -54,6 +63,12 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 P_PAPER, M_PAPER, N_REL = 4_272_227, 800, 300
 N_POINTS, N_COMPARE = 100, 3
 FUSE = 8  # the fused path's K, the value the reference's tests pin
+# sparse path: examples/lasso_fullpath_4m.py --paper-size --backend sparse
+# at E2006-log1p's published size (src/repro/data/proxies.py:47-52), blocks
+# of 256 as the example; the proxy of the sparse-vs-dense check is the same
+# dataset at scale 0.01 (m = 160, p = 42,722)
+M_E2006, COL_DENSITY, SPARSE_BLOCK = 16_087, 0.002, 256
+N_BLOCK_STEPS = 300  # the 'block'-sampling point's fixed length
 
 # f32 sums of m products, taken in another order than the plain version's:
 # the difference is rounding, a few ulps of the Cauchy-Schwarz scale
@@ -170,28 +185,14 @@ def main(argv=None):
     t_start = time.perf_counter()
     card = phase1_device_and_build(torch)
     dev = torch.device("cuda")
-
-    from repro_torch.data import make_wide_problem
-
-    t0 = time.perf_counter()
-    Xt, y, coef = make_wide_problem(P_PAPER, M_PAPER, N_REL, seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"[problem] p={P_PAPER:,} m={M_PAPER} f32 Xt={Xt.numel() * 4 / 1e9:.2f} GB "
-          f"built on the card in {time.perf_counter() - t0:.2f} s")
-
-    errs = phase2_kernels(torch, Xt, y)
-    errs.update(phase2_fused(torch, Xt, y))
-    golden_check(torch, dev)
+    errs, launches, timing = {}, {}, {}
+    for name, path in (("dense", dense_path), ("sparse", sparse_path)):
+        t0 = time.perf_counter()
+        path(torch, dev, args.kernels_only, errs, launches, timing)
+        print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     if args.kernels_only:
         print(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return 0
-    launches, main_run = phase3_main_path(torch, Xt, y, coef)
-    fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
-    for name in ("dense_fused_chunk", "fused_replay"):
-        launches[name] = fused_launches[name]
-    phase4_other_backend(torch, Xt, y, main_run)
-    phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
-    timing = phase5_timing(torch, Xt, y)
 
     records = []
     for name, info in KERNELS.items():
@@ -212,6 +213,68 @@ def main(argv=None):
     return 0
 
 
+def dense_path(torch, dev, kernels_only, errs, launches, timing):
+    """Phases 2-5 on the dense paper-size problem; the design is freed after."""
+    from repro_torch.data import make_wide_problem
+
+    t0 = time.perf_counter()
+    Xt, y, coef = make_wide_problem(P_PAPER, M_PAPER, N_REL, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[problem] p={P_PAPER:,} m={M_PAPER} f32 Xt={Xt.numel() * 4 / 1e9:.2f} GB "
+          f"built on the card in {time.perf_counter() - t0:.2f} s")
+
+    errs.update(phase2_kernels(torch, Xt, y))
+    errs.update(phase2_fused(torch, Xt, y))
+    golden_check(torch, dev)
+    if not kernels_only:
+        main_launches, main_run = phase3_main_path(torch, Xt, y, coef)
+        fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
+        launches.update(main_launches)
+        for name in ("dense_fused_chunk", "fused_replay"):
+            launches[name] = fused_launches[name]
+        phase4_other_backend(torch, Xt, y, main_run)
+        phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
+        timing.update(phase5_timing(torch, Xt, y))
+    del Xt
+    torch.cuda.empty_cache()
+
+
+def sparse_path(torch, dev, kernels_only, errs, launches, timing):
+    """Phases 2-5 on the E2006-log1p proxy at its published size."""
+    from repro_torch.data import PROXY_SPECS, make_sparse_wide_problem
+
+    spec = PROXY_SPECS["e2006-log1p"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat, y, coef = make_sparse_wide_problem(spec.m, spec.p, spec.col_density, spec.n_relevant,
+                                            seed=0, device=dev, block_size=SPARSE_BLOCK)
+    torch.cuda.synchronize()
+    nnz = int(torch.count_nonzero(mat.values))
+    print(f"[sparse-problem] E2006-log1p proxy m={mat.m:,} p={mat.p:,} col_density="
+          f"{spec.col_density} block_size={mat.block_size}: {nnz:,} stored nonzeros, "
+          f"nnz_max={mat.nnz_max}, values+rows {mat.nbytes / 1e9:.3f} GB "
+          f"({mat.nbytes:,} bytes), built on the card in {time.perf_counter() - t0:.2f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    errs.update(phase2_sparse_kernels(torch, mat, y))
+    sparse_golden_check(torch, dev)
+    if kernels_only:
+        return
+    fused_launches, fused_run = phase3_sparse_fused_path(torch, mat, y, coef)
+    unfused_launches, unfused_run = phase3_sparse_unfused_points(torch, mat, y, fused_run)
+    block_launches = phase3_sparse_block_point(torch, mat, y, fused_run)
+    launches["sparse_colstats"] = fused_launches["sparse_colstats"]
+    launches["sparse_fused_chunk"] = fused_launches["sparse_fused_chunk"]
+    launches["sparse_sampled_scores"] = unfused_launches["sparse_sampled_scores"]
+    print(f"[sparse] K5 launches: {unfused_launches['sparse_sampled_scores']} at width 1 "
+          f"(unfused points), {block_launches['sparse_sampled_scores']} at width "
+          f"{SPARSE_BLOCK} (the block point)")
+    phase4_sparse_routes(torch, mat, y, fused_run, unfused_run)
+    phase4_sparse_vs_dense(torch, dev)
+    timing.update(phase5_sparse_timing(torch, mat, y))
+
+
 KERNELS = {
     "colstats": dict(source="src/repro_torch/kernels/csrc/colstats.cu",
                      replaces="src/repro/kernels/colstats/colstats.py:54"),
@@ -225,6 +288,13 @@ KERNELS = {
                               replaces="src/repro/kernels/fused_step/fused_step.py:259"),
     "fused_replay": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
                          replaces="src/repro/core/engine.py:387"),
+    "sparse_sampled_scores": dict(source="src/repro_torch/kernels/csrc/sparse_grad.cu",
+                                  replaces="src/repro/kernels/sparse_grad/sparse_grad.py:87"),
+    "sparse_colstats": dict(
+        source="src/repro_torch/kernels/csrc/sparse_colstats.cu",
+        replaces="src/repro/kernels/sparse_colstats/sparse_colstats.py:55"),
+    "sparse_fused_chunk": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                               replaces="src/repro/kernels/fused_step/fused_step.py:259"),
 }
 
 
@@ -425,37 +495,61 @@ def _fused_kw(max_iters, refresh_every=64):
                 max_iters=max_iters)
 
 
-def _check_chunk(torch, fs, label, Xt, y, resid, idx, k0, delta, kw):
-    """dense_fused_chunk vs its plain version from the same chunk start:
-    i_star and no_progress equal up to the first step whose plain scores'
-    top-2 are a near-tie (RTOL_SUM of ||x|| * ||r||); up to there lam and
-    delta_t within RTOL_SUM (lam lies in [0, 1], |delta_t| = delta), and
-    when no step differs the residual within RTOL_SUM of ||y|| and (S, F)
-    within RTOL_SUM of |S| + |F| + ||y||^2. Returns the largest abs error."""
-    p = Xt.shape[0]
+def _is_sparse(mat):
+    from repro_torch.sparse import SparseBlockMatrix
+
+    return isinstance(mat, SparseBlockMatrix)
+
+
+def _scores(torch, mat, idx, r):
+    """The plain scores -z_i . r of features ``idx`` of a dense ``Xt`` or a
+    ``SparseBlockMatrix``: the near-tie checks' yardstick."""
+    if _is_sparse(mat):
+        from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
+
+        return sparse_sampled_scores_plain(mat.values, mat.rows, r, idx, 1)
+    return -(mat.index_select(0, idx) @ r)
+
+
+def _check_chunk(torch, fs, label, mat, y, resid, idx, k0, delta, kw):
+    """A fused chunk (K4 on a dense ``Xt``, K7 on a ``SparseBlockMatrix``) vs
+    its plain version from the same chunk start: i_star and no_progress
+    equal up to the first step whose plain scores' top-2 are a near-tie
+    (RTOL_SUM of ||z|| * ||r||); up to there lam and delta_t within RTOL_SUM
+    (lam lies in [0, 1], |delta_t| = delta), and when no step differs the
+    residual within RTOL_SUM of ||y|| and (S, F) within RTOL_SUM of |S| +
+    |F| + ||y||^2. Returns the largest abs error and the kernel's i_star."""
     zero = torch.zeros((), device=y.device)
     scal = (zero, zero, zero)  # a cold start: R = y, S = F = 0
-    zty, zn2 = Xt @ y, (Xt * Xt).sum(dim=1)
-    args = (Xt, y, resid, scal, idx, zty[idx], zn2[idx], k0, delta)
-    got = fs.dense_fused_chunk(*args, **kw)
-    want = fs.dense_fused_chunk_plain(*args, **kw)
+    if _is_sparse(mat):
+        from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
+
+        name, head = "sparse_fused_chunk", (mat.values, mat.rows)
+        kernel, plain = fs.sparse_fused_chunk, fs.sparse_fused_chunk_plain
+        zty, zn2 = sparse_colstats_plain(mat.values, mat.rows, y, mat.p)
+    else:
+        name, head = "dense_fused_chunk", (mat,)
+        kernel, plain = fs.dense_fused_chunk, fs.dense_fused_chunk_plain
+        zty, zn2 = mat @ y, (mat * mat).sum(dim=1)
+    args = (*head, y, resid, scal, idx, zty[idx], zn2[idx], k0, delta)
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
     i_k, i_p = got[0].cpu(), want[0].cpu()
     diff = (i_k != i_p).nonzero().view(-1)
     t = int(diff[0]) if diff.numel() else idx.shape[0]
     if t < idx.shape[0]:  # the plain residual before step t, then its scores there
-        r_t = fs.dense_fused_chunk_plain(Xt, y, resid, scal, idx[:t], zty[idx[:t]],
-                                         zn2[idx[:t]], k0, delta, **kw)[4] if t else resid
-        mags = (Xt.index_select(0, idx[t]) @ r_t).abs()
-        scale = float(torch.linalg.vector_norm(r_t)) * float(
-            torch.linalg.vector_norm(Xt, dim=1).max())
+        r_t = plain(*head, y, resid, scal, idx[:t], zty[idx[:t]], zn2[idx[:t]], k0, delta,
+                    **kw)[4] if t else resid
+        mags = _scores(torch, mat, idx[t], r_t).abs()
+        scale = float(torch.linalg.vector_norm(r_t)) * float(zn2.max().sqrt())
         margin = _top2_margin(torch, mags, idx[t])
-        check(margin <= RTOL_SUM * scale, f"fused chunk {label}: i_star {int(i_k[t])} != "
+        check(margin <= RTOL_SUM * scale, f"{name} {label}: i_star {int(i_k[t])} != "
               f"plain {int(i_p[t])} at step {t}, top-2 margin {margin:.3e}: no near-tie")
-    check(torch.equal(got[3][:t].cpu(), want[3][:t].cpu()), f"fused chunk {label}: no_progress")
+    check(torch.equal(got[3][:t].cpu(), want[3][:t].cpu()), f"{name} {label}: no_progress")
     e_lam = float((got[1][:t] - want[1][:t]).abs().max()) if t else 0.0
     e_dt = float((got[2][:t] - want[2][:t]).abs().max()) if t else 0.0
     check(e_lam <= RTOL_SUM and e_dt <= RTOL_SUM * float(delta),
-          f"fused chunk {label}: lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
+          f"{name} {label}: lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
     errs = [e_lam, e_dt]
     note = f"step {t} differs at a near-tie" if t < idx.shape[0] else "all steps equal"
     if t == idx.shape[0]:
@@ -464,10 +558,10 @@ def _check_chunk(torch, fs, label, Xt, y, resid, idx, k0, delta, kw):
                     + float(torch.dot(y, y)))
         e_sf = max(abs(float(a) - float(b)) for a, b in zip(got[5], want[5]))
         check(e_r <= RTOL_SUM and e_sf <= RTOL_SUM * sf_scale,
-              f"fused chunk {label}: residual err {e_r:.2e}, S/F err {e_sf:.3e}")
+              f"{name} {label}: residual err {e_r:.2e}, S/F err {e_sf:.3e}")
         errs += [a_r, e_sf]
         note += f", residual err {e_r:.2e} of ||y||, S/F err {e_sf / sf_scale:.2e} of scale"
-    print(f"[kernels] dense_fused_chunk {label}: i_star {i_k.tolist()}, {note}, "
+    print(f"[kernels] {name} {label}: i_star {i_k.tolist()}, {note}, "
           f"lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
     return max(errs), i_k
 
@@ -485,7 +579,7 @@ def phase2_fused(torch, Xt_main, y_main):
     p, m = Xt_main.shape
     kappa = kappa_fraction(p, 0.01)
     delta = torch.tensor(50.0, device=dev)
-    blocks = fs._blocks(dev, m)
+    blocks = fs._blocks("dense", dev, m)
     print(f"[kernels] dense_fused_chunk: cooperative grid of {blocks} blocks x "
           f"512 threads at m={m}")
 
@@ -630,18 +724,7 @@ def phase3_main_path(torch, Xt, y, coef):
     kernels.reset_launch_counts()
     res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec)
     launches = kernels.launch_counts()
-    for g, pt in enumerate(res.points):
-        print(f"[main] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
-              f"n_dots={pt.n_dots} objective={pt.objective!r} l1={pt.l1:.6g} "
-              f"l1<=delta={pt.l1 <= pt.reg * (1 + 1e-4)} active={pt.active} "
-              f"seconds={pt.seconds:.4f}")
-        check(math.isfinite(pt.objective), f"point {g}: objective not finite")
-        check(pt.l1 <= pt.reg * (1 + 1e-4), f"point {g}: l1 {pt.l1} > delta {pt.reg}")
-        check(pt.n_dots == pt.iterations * cfg.kappa, f"point {g}: n_dots")
-    print(f"[main] path: {len(res.points)} points, {res.total_iters} iterations, "
-          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
-          f"{1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms/iteration, "
-          f"mean active {res.mean_active:.1f}")
+    _print_points("main", res, cfg)
     print(f"[main] launches during the path: {launches}")
     check(launches["colstats"] == len(res.points), "colstats launches != points")
     for name in ("sampled_scores", "vertex_argmax", "residual_update"):
@@ -679,20 +762,11 @@ def phase3_fused_path(torch, Xt, y, main):
     kernels.reset_launch_counts()
     res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, on_step=rec)
     launches = kernels.launch_counts()
-    for g, pt in enumerate(res.points):
-        print(f"[fused] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
-              f"objective={pt.objective!r} l1={pt.l1:.6g} active={pt.active} "
-              f"seconds={pt.seconds:.4f}")
-        check(math.isfinite(pt.objective), f"fused point {g}: objective not finite")
-        check(pt.l1 <= pt.reg * (1 + 1e-4), f"fused point {g}: l1 {pt.l1} > delta {pt.reg}")
-        check(pt.n_dots == pt.iterations * cfg.kappa, f"fused point {g}: n_dots")
+    _print_points("fused", res, cfg)
     unfused = main["res"]
-    print(f"[fused] path: {len(res.points)} points, {res.total_iters} iterations, "
-          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
-          f"{1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms/iteration "
-          f"(one step per dispatch: {unfused.total_seconds:.3f} s, "
+    print(f"[fused] one step per dispatch: {unfused.total_seconds:.3f} s, "
           f"{1e3 * unfused.total_seconds / max(unfused.total_iters, 1):.4f} ms/iteration, "
-          f"{unfused.total_iters} iterations)")
+          f"{unfused.total_iters} iterations")
     print(f"[fused] launches during the path: {launches}")
     chunks = sum(-(-pt.iterations // FUSE) for pt in res.points)
     check(launches["dense_fused_chunk"] == chunks == launches["fused_replay"],
@@ -710,17 +784,19 @@ def phase3_fused_path(torch, Xt, y, main):
     return launches, dict(cfg=cfg, res=res, rec=rec)
 
 
-def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot):
+def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot, obj_scale=0.0):
     """Run ``a`` against run ``b`` (which recorded every step's residual)
+    on ``Xt`` (dense, or a ``SparseBlockMatrix``)
     over their first points, from the same sampler seeds: vertex sequences
     equal up to the first difference, which must be a near-tie on b's
     residual; a stop of ``a`` at most ``max_overshoot`` steps after ``b``'s
     while the runs agree; objectives within RTOL_OBJ_SAME while they agree,
     and after, within RTOL_OBJ_APART or within the larger of the two
-    points' certified duality gaps."""
+    points' certified duality gaps. The objectives' differences are
+    relative to the larger of b's objective and ``obj_scale``."""
     from repro_torch.core import LASSO
     from repro_torch.core.path import point_seed
-    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.core.vertex import TorchSampler, matvec
 
     p = Xt.shape[0]
     la, lb = a["label"], b["label"]
@@ -744,11 +820,11 @@ def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot):
                 else:  # the warm start of point g on run b
                     prev = b["res"].points[g - 1]
                     a0 = _alpha_from_point(torch, prev, p, Xt.device) * (float(deltas[g]) / prev.l1)
-                    r_pre = y - a0 @ Xt
+                    r_pre = y - matvec(Xt, a0)
                 sampler = TorchSampler(point_seed(0, g), Xt.device)
                 for _ in range(t + 1):
                     idx = sampler.uniform(kappa, p)
-                mags = (Xt.index_select(0, idx) @ r_pre).abs()
+                mags = _scores(torch, Xt, idx, r_pre).abs()
                 margin = _top2_margin(torch, mags, idx)
                 rnorm = float(torch.linalg.vector_norm(r_pre))
                 check(margin <= RTOL_TIE * rnorm,
@@ -770,7 +846,7 @@ def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot):
             else:
                 note = f"identical vertex sequence ({common} steps)"
         rtol = RTOL_OBJ_APART if apart else RTOL_OBJ_SAME
-        rel = abs(pa.objective - pb.objective) / abs(pb.objective)
+        rel = abs(pa.objective - pb.objective) / max(abs(pb.objective), obj_scale)
         print(f"[compare] point {g} iters {pa.iterations}/{pb.iterations} objective "
               f"{pa.objective!r}/{pb.objective!r} rel diff {rel:.2e} (rtol {rtol:g}): {note}")
         if apart and rel > rtol:
@@ -1017,6 +1093,502 @@ def _device_busy_ms(torch, Xt, y, stats, cfg, delta, n_steps):
         print(f"[timing]   device {e.key[:60]}: {e.self_device_time_total / n_steps:.2f} us/step, "
               f"{e.count / n_steps:.3g} calls/step")
     return total_us / 1e3 / n_steps
+
+
+# --------------------------------------------------------------------------
+# the sparse path (E2006-log1p, block-ELL): phases 2-5
+# --------------------------------------------------------------------------
+
+
+def _ragged_sparse(torch, g, dev, dtype=None):
+    """A ragged block-ELL matrix: p = 1000 over blocks of 256 (a partial
+    tail block of 232 real features), m = 803, each feature 1-13 nonzeros
+    so nnz_max = 13 with padded slots, unit norms; features 5, 17 and 900
+    equal, so with r = z_5 they tie exactly for the largest |score|."""
+    from repro_torch.sparse import SparseBlockMatrix
+
+    dtype = torch.float32 if dtype is None else dtype
+    p, m = 1000, 803
+    X = torch.zeros((p, m), device=dev)
+    nnz = torch.randint(1, 14, (p,), generator=g, device=dev)
+    nnz[0] = nnz[5] = 13
+    for f in range(p):
+        rows = torch.randperm(m, generator=g, device=dev)[: int(nnz[f])]
+        X[f, rows] = torch.randn(rows.numel(), generator=g, device=dev)
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    X[17] = X[5]
+    X[900] = X[5]
+    X = X.to(dtype).float()  # values exactly representable in the storage type
+    mat = SparseBlockMatrix.from_dense(X.cpu(), block_size=SPARSE_BLOCK).to(dev)
+    check(mat.nnz_max == 13 and mat.p_padded == 1024, "ragged sparse geometry")
+    return mat.astype(dtype), X
+
+
+def phase2_sparse_kernels(torch, mat, y):
+    """K5, K6 and K7 against their plain versions on the card, at the
+    sparse path's shapes and at ragged ones."""
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_colstats as sc
+    from repro_torch.kernels import sparse_grad as sg
+
+    dev = mat.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    errs = {}
+    print(f"[kernels] sparse tolerance: sums of slot products within {RTOL_SUM:g} of "
+          f"||z||*||r|| (summation order); argmax exact")
+    p, nnz = mat.p, mat.nnz_max
+    kappa = kappa_fraction(p, 0.01)
+    ynorm = float(torch.linalg.vector_norm(y))  # unit-norm features: the scale ||z|| ||y||
+
+    # ---- K5 at the main shapes: width 1 (uniform) and width 256 (block) ----
+    def k5(label, m_, r, blk, bs, p_, scale, want=None):
+        sk = sg.sparse_sampled_scores(m_.values, m_.rows, r, blk, bs)
+        sp = sg.sparse_sampled_scores_plain(m_.values, m_.rows, r, blk, bs)
+        e, a = _scaled_err(torch, sk, sp, scale)
+        feats = fw.block_indices(blk.long(), bs)
+        tail = feats >= p_
+        check(e <= RTOL_SUM, f"sparse_sampled_scores {label} disagrees ({e:.2e})")
+        check(bool((sk[tail] == 0).all()), f"sparse_sampled_scores {label}: tail not 0")
+        ik, gk = fw.vertex_argmax(sk, blk, bs, p_)
+        ip, gp = fw.argmax_plain(sp, blk, bs, p_)
+        if int(ik) != int(ip):
+            margin = _top2_margin(torch, sp.abs()[~tail], feats[~tail])
+            check(margin <= RTOL_SUM * scale, f"sparse vertex {label}: {int(ik)} vs plain "
+                  f"{int(ip)}, top-2 margin {margin:.3e}: no near-tie")
+        ia, _ = fw.argmax_plain(sk, blk, bs, p_)
+        check(int(ia) == int(ik), f"vertex_argmax {label}: {int(ik)} vs plain {int(ia)}")
+        if want is not None:
+            check(int(ik) == want, f"sparse vertex {label}: tie went to {int(ik)}, first in "
+                  f"sample order is {want}")
+        print(f"[kernels] sparse_sampled_scores {label} width={bs} n={sk.numel()}: err "
+              f"{e:.2e} (abs {a:.2e}), tail features {int(tail.sum())} score 0, i_star "
+              f"{int(ik)} (plain {int(ip)})")
+        return a
+
+    idx = TorchSampler(7, dev).uniform(kappa, p)
+    errs["sparse_sampled_scores"] = k5(f"main kappa={kappa} nnz_max={nnz} f32", mat, y, idx, 1,
+                                       p, ynorm)
+    nb = kappa // SPARSE_BLOCK
+    blk = torch.cat([torch.tensor([mat.nblocks - 1], device=dev),
+                     torch.randperm(mat.nblocks - 1, generator=g, device=dev)[: nb - 1]])
+    errs["sparse_sampled_scores"] = max(errs["sparse_sampled_scores"], k5(
+        f"main nb={nb} blocks (the tail block first) f32", mat, y, blk, SPARSE_BLOCK, p, ynorm))
+
+    for dt in (torch.float32, torch.bfloat16):
+        rag, X = _ragged_sparse(torch, g, dev, dt)
+        r = X[5].clone()
+        lab = f"p=1000 m=803 nnz_max=13 {str(dt)[6:]}"
+        for bs, b, want in (
+            (1, torch.tensor([3, 17, 998, 5, 17, 42, 999, 900], device=dev), 17),
+            (1, torch.randint(0, 1000, (300,), generator=g, device=dev), None),
+            (SPARSE_BLOCK, torch.tensor([3, 0], device=dev), 900),
+            (SPARSE_BLOCK, torch.tensor([0, 3], device=dev), 5),
+        ):
+            k5(lab + (" tie" if want is not None else " random draws"), rag, r, b, bs, 1000,
+               1.0, want)
+
+    # ---- K6 ------------------------------------------------------------------
+    def k6(label, m_, yv):
+        zty, zn2 = sc.sparse_colstats(m_.values, m_.rows, yv, m_.p)
+        zty_p, zn2_p = sc.sparse_colstats_plain(m_.values, m_.rows, yv, m_.p)
+        norms = zn2_p.sqrt() * float(torch.linalg.vector_norm(yv.float()))
+        e1, a1 = _scaled_err(torch, zty, zty_p, norms.clamp_min(1e-30))
+        e2, a2 = _scaled_err(torch, zn2, zn2_p, zn2_p.clamp_min(1e-30))
+        print(f"[kernels] sparse_colstats {label}: zty err {e1:.2e} (abs {a1:.2e}), "
+              f"znorm2 rel err {e2:.2e} (abs {a2:.2e})")
+        check(e1 <= RTOL_SUM and e2 <= RTOL_SUM and zty.shape == (m_.p,),
+              f"sparse_colstats {label} disagrees")
+        return max(a1, a2)
+
+    errs["sparse_colstats"] = k6(f"main p={p} nnz_max={nnz} f32", mat, y)
+    for dt in (torch.float32, torch.bfloat16):
+        rag, _ = _ragged_sparse(torch, g, dev, dt)
+        k6(f"p=1000 m=803 nnz_max=13 {str(dt)[6:]}", rag, torch.randn(803, generator=g,
+                                                                      device=dev))
+
+    # ---- K7 at the main shapes, then ragged -----------------------------------
+    blocks = fs._blocks("sparse", dev, mat.m)
+    print(f"[kernels] sparse_fused_chunk: cooperative grid of {blocks} blocks x 512 threads "
+          f"at m={mat.m} ({mat.m * 4} bytes of shared memory a block)")
+    delta = torch.tensor(50.0, device=dev)
+    idx = TorchSampler(13, dev).uniform_chunk(FUSE, kappa, p)
+    err, _ = _check_chunk(torch, fs, f"main K={FUSE} kappa={kappa} m={mat.m}", mat, y, y, idx,
+                          0, delta, _fused_kw(10**6))
+    _check_chunk(torch, fs, "main k0=60 refresh at s=3 max_iters=66", mat, y, y, idx, 60, delta,
+                 _fused_kw(66))
+    errs["sparse_fused_chunk"] = err
+    rag, X = _ragged_sparse(torch, g, dev)
+    noise = torch.randn(803, generator=g, device=dev)
+    yv = X[5] * 3.0 + 0.3 * noise / torch.linalg.vector_norm(noise)
+    idx_r = torch.randint(0, 1000, (FUSE, 301), generator=g, device=dev)
+    idx_r[0, :8] = torch.tensor([3, 17, 998, 5, 17, 42, 900, 5], device=dev)
+    _, i_k = _check_chunk(torch, fs, "p=1000 m=803 nnz_max=13 kappa=301 tie+duplicates", rag,
+                          yv, yv, idx_r, 0, delta, _fused_kw(10**6))
+    check(int(i_k[0]) == 17, f"sparse fused chunk tie went to {int(i_k[0])}, first is 17")
+    _check_chunk(torch, fs, "p=1000 m=803 kappa=301 k0=5 refresh_every=4 max_iters=11", rag,
+                 yv, yv, idx_r, 5, delta, _fused_kw(11, refresh_every=4))
+    _check_chunk(torch, fs, "p=1000 m=803 K=3 kappa=5003", rag, yv, yv,
+                 torch.randint(0, 1000, (3, 5003), generator=g, device=dev), 0, delta,
+                 _fused_kw(10**6))
+    torch.cuda.synchronize()
+    return errs
+
+
+def sparse_golden_check(torch, dev):
+    """The reference's converging golden through backend='sparse' on its
+    block-ELL copy (64-wide blocks): unfused, 25 iterations, 1500 dots, the
+    25 vertices; fused at K = 8, the same 25 vertices and a stop at most 7
+    steps later (the stream is the golden's 25 rows, tiled: the steps past
+    the unfused stop are the chunk's overshoot)."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import FWConfig, fw_solve
+    from repro_torch.data import make_regression, standardize
+    from repro_torch.sparse import SparseBlockMatrix
+
+    ds = standardize(make_regression(m=80, p=300, n_informative=10, noise=0.5, seed=0))
+    mat = SparseBlockMatrix.from_dense(ds.X.T, block_size=64).to(dev)
+    yv = convert.problem_from_numpy(ds.X.T, ds.y, dev)[1]
+    for fuse in (1, FUSE):
+        cfg = FWConfig(delta=150.0, kappa=60, max_iters=5000, tol=1e-4, backend="sparse",
+                       fuse_steps=fuse)
+        seq = []
+        stream = np.tile(golden_stream(), (8, 1))
+        res = fw_solve(mat, yv, cfg, convert.stream_from_reference(stream, dev), device=dev,
+                       on_step=lambda s: seq.extend(s.i_star.view(-1).tolist()))
+        obj = float(res.objective)
+        print(f"[golden] sparse fuse_steps={fuse} on the card: iters={res.iterations} "
+              f"n_dots={res.n_dots} converged={bool(res.converged)} objective={obj!r} "
+              f"(reference {GOLDEN_OBJECTIVE!r}), first 25 vertices equal: "
+              f"{seq[:25] == GOLDEN_I_STAR}")
+        check(seq[:25] == GOLDEN_I_STAR, f"sparse golden fuse={fuse}: vertex sequence {seq}")
+        check(bool(res.converged) and abs(obj - GOLDEN_OBJECTIVE) <= 1e-6 * GOLDEN_OBJECTIVE,
+              f"sparse golden fuse={fuse}: convergence / objective")
+        if fuse == 1:
+            check((res.iterations, res.n_dots) == (25, 1500), "sparse golden: iterations")
+        else:
+            check(25 <= res.iterations <= 25 + FUSE - 1, "sparse golden: fused overshoot")
+
+
+def sparse_config(p, fuse_steps=FUSE, **kw):
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+
+    # examples/lasso_fullpath_4m.py --paper-size --backend sparse
+    return FWConfig(delta=1.0, kappa=kappa_fraction(p, 0.01), sampling="uniform",
+                    max_iters=5000, tol=1e-3, backend="sparse", fuse_steps=fuse_steps, **kw)
+
+
+def _print_points(tag, res, cfg):
+    """Each point of a path, checked: a finite objective, l1 <= delta, and
+    (uniform sampling) kappa dots a step; then the path's totals."""
+    for g, pt in enumerate(res.points):
+        print(f"[{tag}] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
+              f"n_dots={pt.n_dots} objective={pt.objective!r} l1={pt.l1:.6g} "
+              f"active={pt.active} seconds={pt.seconds:.4f}")
+        check(math.isfinite(pt.objective), f"{tag} point {g}: objective not finite")
+        check(pt.l1 <= pt.reg * (1 + 1e-4), f"{tag} point {g}: l1 {pt.l1} > delta {pt.reg}")
+        check(pt.n_dots == pt.iterations * cfg.kappa or cfg.sampling != "uniform",
+              f"{tag} point {g}: n_dots")
+    print(f"[{tag}] path: {len(res.points)} points, {res.total_iters} iterations, "
+          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
+          f"{1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms/iteration, "
+          f"mean active {res.mean_active:.1f}")
+
+
+def phase3_sparse_fused_path(torch, mat, y, coef):
+    """The 100-point grid on 'sparse' with fuse_steps = 8: K6 once per
+    point, K7 and the replay once per chunk, K5 and the argmax never."""
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, delta_grid, fw_path
+
+    cfg = sparse_config(mat.p)
+    delta_max = 0.5 * float(coef.abs().sum())
+    deltas = delta_grid(delta_max, n_points=N_POINTS)
+    rec = Recorder(N_COMPARE)
+    print(f"[sparse] fw_path backend=sparse fuse_steps={FUSE} p={mat.p:,} m={mat.m:,} "
+          f"kappa={cfg.kappa:,} sampling=uniform max_iters={cfg.max_iters} tol={cfg.tol} "
+          f"points={N_POINTS} delta_max={delta_max:.6g}")
+    kernels.reset_launch_counts()
+    res = fw_path(mat, y, deltas, cfg, seed=0, device=mat.device, on_step=rec)
+    launches = kernels.launch_counts()
+    _print_points("sparse", res, cfg)
+    print(f"[sparse] launches during the path: {launches}")
+    chunks = sum(-(-pt.iterations // FUSE) for pt in res.points)
+    check(launches["sparse_fused_chunk"] == chunks == launches["fused_replay"],
+          f"sparse fused launches {launches['sparse_fused_chunk']}/{launches['fused_replay']} "
+          f"!= chunks {chunks}")
+    check(launches["sparse_colstats"] == len(res.points), "sparse_colstats launches != points")
+    for name in ("sparse_sampled_scores", "vertex_argmax", "colstats", "sampled_scores",
+                 "residual_update", "dense_fused_chunk"):
+        check(launches[name] == 0, f"the fused sparse path launched {name}")
+    last = res.points[-1]
+    alpha = _alpha_from_point(torch, last, mat.p, mat.device)
+    gap = float(LASSO.gap(mat, y, alpha, torch.tensor(last.reg, device=mat.device)))
+    print(f"[sparse] certified duality gap at the densest point: {gap!r} "
+          f"(objective {last.objective!r})")
+    check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), "sparse certified gap")
+    return launches, dict(cfg=cfg, deltas=deltas, res=res, rec=rec)
+
+
+def phase3_sparse_unfused_points(torch, mat, y, fused):
+    """The grid's first points one step per dispatch: K5 at width 1 and
+    K2's argmax once per step, K6 once per point."""
+    from repro_torch import kernels
+    from repro_torch.core import fw_path
+
+    cfg = dataclasses.replace(fused["cfg"], fuse_steps=1)
+    rec = Recorder(N_COMPARE)
+    kernels.reset_launch_counts()
+    res = fw_path(mat, y, fused["deltas"][:N_COMPARE], cfg, seed=0, device=mat.device,
+                  on_step=rec)
+    launches = kernels.launch_counts()
+    _print_points("sparse-unfused", res, cfg)
+    print(f"[sparse-unfused] launches: {launches}")
+    check(launches["sparse_sampled_scores"] == launches["vertex_argmax"] == res.total_iters,
+          "unfused sparse: K5 / argmax launches != iterations")
+    check(launches["sparse_colstats"] == N_COMPARE, "unfused sparse: K6 launches != points")
+    check(launches["sparse_fused_chunk"] == 0 == launches["fused_replay"],
+          "unfused sparse path launched the fused chunk")
+    return launches, dict(cfg=cfg, res=res, rec=rec)
+
+
+def phase3_sparse_block_point(torch, mat, y, fused):
+    """One grid point with 'block' sampling, a fixed N_BLOCK_STEPS steps:
+    K5 at width 256 once per step."""
+    from repro_torch import kernels
+    from repro_torch.core import fw_solve
+    from repro_torch.core.vertex import TorchSampler
+
+    cfg = dataclasses.replace(fused["cfg"], sampling="block", fuse_steps=1,
+                              max_iters=N_BLOCK_STEPS, tol=0.0, patience=10**9)
+    delta = float(fused["deltas"][N_POINTS // 2])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fw_solve(mat, y, cfg, TorchSampler(21, mat.device), delta=delta, device=mat.device)
+    obj = float(res.objective)
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    nb = cfg.kappa // mat.block_size
+    print(f"[sparse-block] delta={delta:.6g} sampling=block {nb} blocks of {mat.block_size} "
+          f"a step: iters={res.iterations} n_dots={res.n_dots} objective={obj!r} "
+          f"{dt:.3f} s ({1e3 * dt / res.iterations:.4f} ms/iteration); launches {launches}")
+    check(math.isfinite(obj) and res.iterations == N_BLOCK_STEPS, "block point")
+    check(res.n_dots == N_BLOCK_STEPS * nb * mat.block_size, "block point: n_dots")
+    check(launches["sparse_sampled_scores"] == N_BLOCK_STEPS == launches["vertex_argmax"],
+          "block point: K5 launches != steps")
+    return launches
+
+
+def phase4_sparse_routes(torch, mat, y, fused, unfused):
+    """The sparse path's first points: fused against unfused, and the
+    kernels against the plain ops (sparse_kernel=False) on the card."""
+    from repro_torch.core import fw_path
+
+    deltas = fused["deltas"]
+    kappa = fused["cfg"].kappa
+    _compare_paths(torch, mat, y, deltas, kappa,
+                   dict(label=f"sparse fused K={FUSE}", res=fused["res"], rec=fused["rec"]),
+                   dict(label="sparse unfused", res=unfused["res"], rec=unfused["rec"]),
+                   max_overshoot=FUSE - 1)
+    cfg = dataclasses.replace(unfused["cfg"], sparse_kernel=False)
+    rec = Recorder(N_COMPARE)
+    res = fw_path(mat, y, deltas[:N_COMPARE], cfg, seed=0, device=mat.device, on_step=rec)
+    _print_points("sparse-plain", res, cfg)
+    _compare_paths(torch, mat, y, deltas, kappa,
+                   dict(label="sparse kernels", res=unfused["res"], rec=unfused["rec"]),
+                   dict(label="sparse plain ops", res=res, rec=rec), max_overshoot=0)
+
+
+def phase4_sparse_vs_dense(torch, dev):
+    """The sparse backend against the dense 'kernels' backend on the
+    E2006-log1p proxy at scale 0.01 (m = 160, p = 42,722), the same sampler
+    seeds, one step per dispatch: the same vertices up to a near-tie."""
+    from repro_torch.core import FWConfig, delta_grid, fw_path
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.data import make_sparse_proxy
+
+    ds = make_sparse_proxy("e2006-log1p", scale=0.01, seed=0, block_size=SPARSE_BLOCK)
+    mat = ds.mat.to(dev)
+    y = torch.from_numpy(ds.y).to(dev)
+    Xt = mat.to_dense()
+    deltas = delta_grid(0.5 * float(abs(ds.coef).sum()), n_points=N_COMPARE)
+    kw = dict(delta=1.0, kappa=kappa_fraction(mat.p, 0.01), max_iters=5000, tol=1e-3)
+    print(f"[sparse-vs-dense] {ds.name}: m={mat.m} p={mat.p} nnz_max={mat.nnz_max}, "
+          f"kappa={kw['kappa']}")
+    runs = {}
+    for backend, X in (("sparse", mat), ("kernels", Xt)):
+        rec = Recorder(N_COMPARE)
+        res = fw_path(X, y, deltas, FWConfig(backend=backend, **kw), seed=0, device=dev,
+                      on_step=rec)
+        _print_points(f"sparse-vs-dense {backend}", res, FWConfig(**kw))
+        runs[backend] = dict(label=backend, res=res, rec=rec)
+    # the two backends sum each score and the S/F refresh in other orders
+    # (a feature's slots against its dense row), so their objectives
+    # 0.5 y.y + 0.5 S - F agree to rounding of those terms, ||y||^2 / 2 in
+    # scale: near the densest point the objective itself is 200x smaller
+    _compare_paths(torch, Xt, y, deltas, kw["kappa"], runs["sparse"], runs["kernels"],
+                   max_overshoot=0, obj_scale=0.5 * float(torch.dot(y, y)))
+
+
+def phase5_sparse_timing(torch, mat, y):
+    """CUDA-event times of K5 (widths 1 and 256), K6 (L2 flushed) and K7 per
+    chunk with their bounds, plain versions and library yardsticks; then
+    the sparse path's step wall time and device busy share, unfused and
+    fused at K = 8 and 32."""
+    from repro_torch.core import engine, fw_lasso
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import sparse_colstats as sc
+    from repro_torch.kernels import sparse_grad as sg
+
+    p, m, nnz = mat.p, mat.m, mat.nnz_max
+    cfg = sparse_config(p, fuse_steps=1)
+    kappa = cfg.kappa
+    dev = mat.device
+    out = {}
+    flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
+    vals, rows = mat.values, mat.rows
+
+    def row(name, ms, plain_ms, library_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        lib = "null" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"[timing] {name}: {ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, "
+              f"library {lib}{note}")
+
+    # The bounds count what the data needs: every value slot of a read
+    # feature (4 bytes; a kernel must read the padding to find it), but a
+    # row index and two operations only for each slot that holds a nonzero.
+    slots = vals.view(-1, nnz)
+
+    def stored(feats):  # mean stored nonzeros over the timed feature sets
+        return sum(int(torch.count_nonzero(slots[f.reshape(-1).long()])) for f in feats) / len(feats)
+
+    sampler = TorchSampler(11, dev)
+    idxs = [sampler.uniform(kappa, p) for _ in range(32)]  # 32 * 22 MB of slots >> L2
+    r = y.clone()
+    nz = stored(idxs)
+    row("sparse_sampled_scores",
+        _time_queued(torch, lambda i: sg.sparse_sampled_scores(vals, rows, r, idxs[i % 32], 1),
+                     200),
+        _time_queued(torch, lambda i: sg.sparse_sampled_scores_plain(vals, rows, r,
+                                                                     idxs[i % 32], 1), 50),
+        None, kappa * nnz * 4 + nz * 4 + kappa * 4 + kappa * 8 + m * 4, 2 * nz,
+        note=f" [width 1, kappa={kappa}, nnz_max={nnz}, m={m}; library: none, no one call "
+             "gathers and scores sampled block-ELL features]")
+    nb = kappa // SPARSE_BLOCK
+    blks = [torch.randperm(mat.nblocks, generator=sampler.generator, device=dev)[:nb]
+            for _ in range(32)]
+    n = nb * SPARSE_BLOCK
+    t_k = _time_queued(torch, lambda i: sg.sparse_sampled_scores(vals, rows, r, blks[i % 32],
+                                                                 SPARSE_BLOCK), 200)
+    t_p = _time_queued(torch, lambda i: sg.sparse_sampled_scores_plain(vals, rows, r,
+                                                                       blks[i % 32],
+                                                                       SPARSE_BLOCK), 50)
+    nz = stored([(b[:, None] * SPARSE_BLOCK + torch.arange(SPARSE_BLOCK, device=dev))
+                 for b in blks])
+    b_ms, b_by = _bound(n * nnz * 4 + nz * 4 + n * 4 + nb * 8 + m * 4, 2 * nz)
+    print(f"[timing] sparse_sampled_scores width {SPARSE_BLOCK} ({nb} blocks): {t_k:.6f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / t_k:.1f}% of bound), plain {t_p:.6f} ms")
+
+    # K6, with cuSPARSE's CSR matrix-vector product as zty's yardstick
+    nz = int(torch.count_nonzero(slots[:p]))
+    csr = None
+    try:
+        mask = vals.view(-1, nnz)[:p] != 0
+        counts = mask.sum(dim=1)
+        crow = torch.zeros(p + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(counts, 0)
+        csr = torch.sparse_csr_tensor(crow, rows.view(-1, nnz)[:p][mask].long(),
+                                      vals.view(-1, nnz)[:p][mask], size=(p, m),
+                                      check_invariants=False)
+        del mask
+        lib_ms = _time_cold(torch, lambda: torch.mv(csr, y), 5, flush)
+        lib_note = " [library: torch.mv on a CSR copy of Xt (cuSPARSE SpMV), zty alone]"
+    except (RuntimeError, NotImplementedError) as e:  # the yardstick only
+        lib_ms, lib_note = None, f" [library: none, the CSR copy failed: {e}]"
+    del csr
+    row("sparse_colstats",
+        _time_cold(torch, lambda: sc.sparse_colstats(vals, rows, y, p), 5, flush),
+        _time_cold(torch, lambda: sc.sparse_colstats_plain(vals, rows, y, p), 3, flush),
+        lib_ms, p * nnz * 4 + nz * 4 + 2 * p * 4 + m * 4, 4 * nz,
+        note=lib_note + f" L2 flushed, {nz:,} stored nonzeros")
+
+    stats = engine.precompute_colstats(mat, y, cfg)
+    delta = torch.tensor(50.0, device=dev)
+    chunks = []
+    for _ in range(4):
+        idx = sampler.uniform_chunk(FUSE, kappa, p)
+        chunks.append((idx, stats.zty[idx], stats.znorm2[idx]))
+    zero = torch.zeros((), device=dev)
+    kw = _fused_kw(10**6)
+
+    def chunk(i, fn=fs.sparse_fused_chunk):
+        idx, zty_s, zn2_s = chunks[i % 4]
+        return fn(vals, rows, y, y, (zero, zero, zero), idx, zty_s, zn2_s, 0, delta, **kw)
+
+    nz = stored([idx for idx, _, _ in chunks])  # a chunk's K steps of kappa features
+    row("sparse_fused_chunk",
+        _time_queued(torch, chunk, 20),
+        _time_queued(torch, lambda i: chunk(i, fs.sparse_fused_chunk_plain), 2),
+        None, FUSE * (kappa * nnz * 4 + kappa * 16 + 3 * m * 4) + nz * 4, 2 * nz,
+        note=f" [one chunk of K={FUSE} steps, kappa={kappa}, nnz_max={nnz}, m={m}; "
+             "library: none]")
+    print(f"[timing] sparse_fused_chunk per step: {out['sparse_fused_chunk']['ms'] / FUSE:.6f} "
+          f"ms, bound {out['sparse_fused_chunk']['bound_ms'] / FUSE:.6f} ms")
+    # a step's fixed cost: kappa = 1 leaves the grid barrier, the cross-block
+    # reduction and the scalar algebra, plus each block's O(m) residual pass
+    # unless the steps are masked (k0 = max_iters: no update, no refresh)
+    one = [(idx[:, :1].contiguous(), zty_s[:, :1].contiguous(), zn2_s[:, :1].contiguous())
+           for idx, zty_s, zn2_s in chunks]
+    fixed = {}
+    for label, k0 in (("with the O(m) update", 0), ("masked, no update", 10**6)):
+        fixed[label] = _time_queued(torch, lambda i: fs.sparse_fused_chunk(
+            vals, rows, y, y, (zero, zero, zero), *one[i % 4], k0, delta, **kw), 20) / FUSE
+    t_step = out["sparse_fused_chunk"]["ms"] / FUSE
+    t_upd, t_bar = fixed["with the O(m) update"], fixed["masked, no update"]
+    print(f"[timing] sparse_fused_chunk fixed cost per step (kappa=1): {t_upd:.6f} ms with the "
+          f"O(m) update, {t_bar:.6f} ms masked (barrier, reduction, scalars); of the "
+          f"{t_step:.6f} ms step: barrier+reduction {100 * t_bar / t_step:.1f}%, O(m) update "
+          f"{100 * (t_upd - t_bar) / t_step:.1f}%, scoring the rest "
+          f"{100 * (t_step - t_upd) / t_step:.1f}%")
+
+    k1 = out["sparse_sampled_scores"]["ms"]
+    for fuse, n_steps in ((1, 300), (FUSE, 320), (32, 320)):
+        bcfg = dataclasses.replace(sparse_config(p, fuse), max_iters=n_steps, tol=0.0,
+                                   patience=10**9)
+        state0 = engine.init_state(fw_lasso.LASSO, mat, y, None, bcfg)
+        engine.run_loop(fw_lasso.LASSO, mat, y, stats, state0, bcfg, delta, 10**9,
+                        TorchSampler(3, dev))  # warm-up
+        state0 = engine.init_state(fw_lasso.LASSO, mat, y, None, bcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_loop(fw_lasso.LASSO, mat, y, stats, state0, bcfg, delta, 10**9,
+                        TorchSampler(5, dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        note = (f", K5 {k1:.4f} ms of it" if fuse == 1
+                else f", {wall_ms * fuse:.4f} ms per chunk")
+        print(f"[timing] sparse step (fuse_steps={fuse}): wall {wall_ms:.4f} ms per "
+              f"iteration{note}")
+        busy_ms = _device_busy_ms(torch, mat, y, stats, bcfg, delta,
+                                  n_steps=64 if fuse > 1 else 50)
+        if busy_ms is None:
+            print("[timing] device busy time per step: not measured (the profiler reported "
+                  "no device time)")
+        else:
+            print(f"[timing] sparse device busy per step (torch.profiler, fuse_steps={fuse}): "
+                  f"{busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.1f}% of the step's wall "
+                  f"time, idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+    return out
 
 
 if __name__ == "__main__":

@@ -17,9 +17,10 @@ from repro_torch.core.engine import EngineState, resolve_device
 from repro_torch.core.fw_lasso import LassoCo
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.core.vertex import StreamSampler
+from repro_torch.sparse.matrix import SparseBlockMatrix
 
 # the reference's backend words and their counterparts in the port
-_BACKENDS = {"xla": "torch", "pallas": "kernels"}
+_BACKENDS = {"xla": "torch", "pallas": "kernels", "sparse": "sparse"}
 
 
 def problem_from_numpy(Xt, y, device="cuda"):
@@ -30,16 +31,32 @@ def problem_from_numpy(Xt, y, device="cuda"):
     return Xt, y
 
 
+def sparse_from_reference(values, rows, p: int, m: int, block_size: int, nnz_max: int,
+                          device="cuda") -> SparseBlockMatrix:
+    """The port's ``SparseBlockMatrix`` from the reference matrix's arrays
+    (``np.asarray(mat.values)``, ``np.asarray(mat.rows)``) and its sizes."""
+    dev = resolve_device(device)
+    values = torch.tensor(np.asarray(values), device=dev)
+    rows = torch.tensor(np.asarray(rows, dtype=np.int32), device=dev)
+    if values.shape != rows.shape or values.shape[1:] != (block_size, nnz_max):
+        raise ValueError(
+            f"values and rows must be (nblocks, {block_size}, {nnz_max}), got "
+            f"{tuple(values.shape)} and {tuple(rows.shape)}"
+        )
+    return SparseBlockMatrix(values=values, rows=rows, p=int(p), m=int(m),
+                             block_size=int(block_size), nnz_max=int(nnz_max))
+
+
 def config_from_reference(fields: dict) -> FWConfig:
     """An ``FWConfig`` from the reference config's fields (for instance
-    ``dataclasses.asdict(cfg)``): 'xla' becomes 'torch' and 'pallas'
-    becomes 'kernels'; other backends raise."""
+    ``dataclasses.asdict(cfg)``): 'xla' becomes 'torch', 'pallas' becomes
+    'kernels' and 'sparse' keeps its name; 'distributed' raises."""
     fields = dict(fields)
     backend = fields.get("backend", "xla")
     if backend not in _BACKENDS:
         raise ValueError(
-            f"only 'xla' and 'pallas' configs carry across, got {backend!r} "
-            "('sparse' and 'distributed' are ROADMAP.md Queue 1 items 7 and 13)"
+            f"the 'xla', 'pallas' and 'sparse' configs carry across, got {backend!r} "
+            "('distributed' is ROADMAP.md Queue 1 item 13)"
         )
     fields["backend"] = _BACKENDS[backend]
     unknown = set(fields) - {f.name for f in dataclasses.fields(FWConfig)}

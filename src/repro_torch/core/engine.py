@@ -20,13 +20,13 @@ the host once per step. The iteration count ``k`` and the dot count
 
 With ``FWConfig.fuse_steps = K > 1`` each turn of the loop advances K
 iterations (``fused_chunk``), through the ``kernels/fused_step`` kernel on
-the 'kernels' backend (the co-state and the scalar recursions stay on the
-device across the K steps) or K unfused steps on 'torch', and the
-stopping test is read on the host once per chunk: a stop lands on the
-first chunk boundary where the stall count has reached patience (K-1
-steps after the unfused stop at most, while the stall streak lasts to
-that boundary), and max_iters stays exact (trailing chunk steps are
-masked). The kernel emits per-step
+the 'kernels' backend and on 'sparse' with its kernels on (the co-state
+and the scalar recursions stay on the device across the K steps) or K
+unfused steps otherwise, and the stopping test is read on the host once
+per chunk: a stop lands on the first chunk boundary where the stall
+count has reached patience (K-1 steps after the unfused stop at most,
+while the stall streak lasts to that boundary), and max_iters stays
+exact (trailing chunk steps are masked). The kernel emits per-step
 records that ``_fused_replay`` turns into the O(p) coefficient updates
 with the unfused op sequence (``apply_coeff_update``).
 
@@ -44,6 +44,8 @@ from repro_torch.core import vertex
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step as _fused_step
 from repro_torch.kernels.colstats import colstats as _colstats_kernel
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.matrix import SparseBlockMatrix
 
 
 class ColStats(NamedTuple):
@@ -119,10 +121,12 @@ def _all_finite(a: torch.Tensor) -> bool:
     return bool(torch.stack([torch.isfinite(c).all() for c in flat.split(1 << 26)]).all())
 
 
-def validate_inputs(Xt: torch.Tensor, y: torch.Tensor) -> None:
-    """Raise ``ValueError`` on NaN/Inf in the design or the targets: a
-    poisoned matrix otherwise burns a silent max_iters run."""
-    for name, a in (("X", Xt), ("y", y)):
+def validate_inputs(Xt, y: torch.Tensor) -> None:
+    """Raise ``ValueError`` on NaN/Inf in the design (a sparse design's
+    stored values) or the targets: a poisoned matrix otherwise burns a
+    silent max_iters run."""
+    X = Xt.values if isinstance(Xt, SparseBlockMatrix) else Xt
+    for name, a in (("X", X), ("y", y)):
         if not _all_finite(a):
             raise ValueError(
                 f"{name} has {int(torch.isnan(a).sum())} NaN and "
@@ -137,7 +141,12 @@ def prepare_inputs(Xt, y, cfg: FWConfig, device):
     dev = resolve_device(device)
     check_ported(cfg)
     vertex.check_matrix_backend(Xt, cfg)
-    Xt = torch.as_tensor(Xt, device=dev).contiguous()
+    if isinstance(Xt, SparseBlockMatrix):
+        Xt = Xt.to(dev)
+        if Xt.rows.dtype != torch.int32:
+            raise TypeError(f"a SparseBlockMatrix's rows are int32, got {Xt.rows.dtype}")
+    else:
+        Xt = torch.as_tensor(Xt, device=dev).contiguous()
     y = torch.as_tensor(y, device=dev).contiguous()
     if Xt.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(
@@ -151,7 +160,13 @@ def prepare_inputs(Xt, y, cfg: FWConfig, device):
 
 def precompute_colstats(Xt, y: torch.Tensor, cfg: Optional[FWConfig] = None) -> ColStats:
     """One full pass over X: z_i^T y and ||z_i||^2 for every column (§4.2),
-    through K1 on the 'kernels' backend."""
+    through K1 on the 'kernels' backend. A ``SparseBlockMatrix`` sweeps its
+    stored slots only, through K6 unless ``cfg.sparse_kernel`` is False
+    (without a cfg, the plain ops, as the reference)."""
+    if isinstance(Xt, SparseBlockMatrix):
+        use_kernel = cfg is not None and vertex.use_sparse_kernel(cfg)
+        zty, znorm2 = sparse_ops.sparse_colstats(Xt, y, use_kernel=use_kernel)
+        return ColStats(zty=zty, znorm2=znorm2, yty=torch.dot(y, y))
     if cfg is not None and cfg.backend == "kernels":
         zty, znorm2 = _colstats_kernel(Xt, y)
     else:
@@ -165,7 +180,9 @@ def _patience(cfg: FWConfig) -> int:
 
 
 def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
-    """Start from the null solution, or warm-start from ``alpha0`` (copied)."""
+    """Start from the null solution, or warm-start from ``alpha0`` (copied).
+    ``p``, the dtype and the device are read off the matrix, dense or
+    sparse."""
     p = Xt.shape[0]
     dtype, dev = Xt.dtype, Xt.device
     if alpha0 is None:
@@ -338,9 +355,10 @@ def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig,
 
 def _fused_ref_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
                      sampler) -> EngineState:
-    """The 'torch' chunk executor: K unfused engine steps (bit-exact against
-    fuse_steps=1 by construction), skipping the steps past max_iters; the
-    stopping test is the caller's, between chunks."""
+    """The chunk executor of 'torch' and of the plain sparse ops: K unfused
+    engine steps (bit-exact against fuse_steps=1 by construction), skipping
+    the steps past max_iters; the stopping test is the caller's, between
+    chunks."""
     seq = []
     for _ in range(min(cfg.fuse_steps, cfg.max_iters - state.k)):
         state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
@@ -351,7 +369,8 @@ def _fused_ref_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, de
 def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
                 sampler) -> EngineState:
     """Advance K = cfg.fuse_steps iterations in one turn of the loop (the
-    fused kernel on 'kernels', K unfused steps on 'torch')."""
+    fused kernel where ``vertex.use_fused_kernel``, K unfused steps
+    otherwise)."""
     if vertex.use_fused_kernel(cfg):
         return _fused_kernel_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
     return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)

@@ -20,6 +20,8 @@ import torch
 from repro_torch.core import engine, fw_lasso
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.core.vertex import TorchSampler
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.matrix import SparseBlockMatrix
 
 
 class PathPoint(NamedTuple):
@@ -50,8 +52,13 @@ class PathResult(NamedTuple):
 
 
 def lambda_grid(Xt, y, n_points: int = 100, ratio: float = 100.0) -> np.ndarray:
-    """Glmnet-style grid: lam_max = ||X^T y||_inf, descending log scale."""
-    lam_max = float(torch.max(torch.abs(Xt @ y)))
+    """Glmnet-style grid: lam_max = ||X^T y||_inf, descending log scale
+    (``Xt`` dense feature-major or a ``SparseBlockMatrix``)."""
+    if isinstance(Xt, SparseBlockMatrix):
+        zty = sparse_ops.sparse_transpose_matvec(Xt, y)
+    else:
+        zty = Xt @ y
+    lam_max = float(torch.max(torch.abs(zty)))
     return np.geomspace(lam_max, lam_max / ratio, n_points)
 
 
@@ -68,7 +75,8 @@ def point_seed(seed: int, point_index: int) -> int:
 def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
             device="cuda", sampler_fn=None, on_step=None,
             checkpoint_dir=None, resume_from=None) -> PathResult:
-    """Stochastic-FW path with the paper's l1-rescaling warm start.
+    """Stochastic-FW path with the paper's l1-rescaling warm start, on a
+    dense ``Xt (p, m)`` or a ``SparseBlockMatrix`` (``backend='sparse'``).
 
     ``on_step(point_index, state)``, when given, sees every engine state.
     Runs on the card unless ``device`` says otherwise.

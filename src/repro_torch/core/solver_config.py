@@ -32,21 +32,29 @@ class FWConfig:
 
       backend: 'kernels' (default) runs the hot loop through the Hopper
         kernels of ``repro_torch.kernels`` (their plain versions when the
-        tensors lie on the CPU); 'torch' runs plain PyTorch ops. 'sparse'
-        and 'distributed' are valid words that the solver does not run yet.
-      m_tile, interpret, sparse_kernel, gather_mode: TPU knobs of the
-        reference, kept so configs carry across; the port reads none.
+        tensors lie on the CPU); 'torch' runs plain PyTorch ops; 'sparse'
+        runs on a ``repro_torch.sparse.SparseBlockMatrix`` (block-ELL)
+        through the sparse kernels K5-K7. 'distributed' is a valid word
+        that the solver does not run yet (ROADMAP.md Queue 1 item 13).
+      sparse_kernel: on 'sparse', None (default) and True run the Hopper
+        kernels (their plain versions on CPU tensors), False the plain
+        PyTorch ops on any device (the reference's XLA-gather path). The
+        reference's None means "the kernel on a TPU only".
+      m_tile, interpret, gather_mode: TPU knobs of the reference, kept so
+        configs carry across; the port reads none ('onehot' is a TPU
+        lowering fallback).
       telemetry: any spec object; a solve raises NotImplementedError when
         it is set (ROADMAP.md Queue 1 item 11).
       fuse_steps: K consecutive FW iterations per dispatch. 1 (default) is
         the one-step-per-dispatch loop. K > 1 makes ``engine.run_loop``
         advance K-step chunks: the co-state and the scalar recursions stay
         on the device across K steps (the ``kernels/fused_step`` kernel on
-        the 'kernels' backend, K unfused engine steps on 'torch') and the
-        §Stopping rule is checked on the host BETWEEN chunks, so a
-        stall/patience stop lands on a chunk boundary, K-1 iterations after
-        the unfused stop at most while the stall streak lasts to it
-        (max_iters is still exact: trailing chunk steps are masked).
+        'kernels' and on 'sparse' with its kernels on, K unfused engine
+        steps otherwise) and the §Stopping rule is checked on the host
+        BETWEEN chunks, so a stall/patience stop lands on a chunk boundary,
+        K-1 iterations after the unfused stop at most while the stall
+        streak lasts to it (max_iters is still exact: trailing chunk steps
+        are masked).
         Fusion engages for the lasso oracle under 'uniform' sampling, where
         the K x kappa index stream can be drawn ahead of the chunk; the
         other sampling modes fall back to fuse_steps=1 semantics

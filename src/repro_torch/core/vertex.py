@@ -1,13 +1,13 @@
-"""Sampled-vertex dispatch (the reference's ``core/vertex.py``, dense
+"""Sampled-vertex dispatch (the reference's ``core/vertex.py``,
 single-device part).
 
 This module owns everything between "the oracle handed us an (m,)
 co-gradient vector" and "here is the winning FW vertex": drawing the
 sampling set S (paper §4.1/§4.5), scoring the sampled coordinates on the
-selected backend ('torch' | 'kernels'), and reducing to the argmax. Every
-score is the linear form ``raw_i = -z_i^T w``. Also here: the O(m) column
-recursion of eq. 10, and the full matvecs behind warm starts and the
-certified gap.
+selected backend ('torch' | 'kernels' | 'sparse'), and reducing to the
+argmax. Every score is the linear form ``raw_i = -z_i^T w``. Also here:
+the O(m) column recursion of eq. 10, and the full matvecs behind warm
+starts and the certified gap.
 
 The reference draws S with ``jax.random`` from a key. The port draws it
 from a *sampler* instead, so that parity with the reference never
@@ -19,7 +19,9 @@ The reference zero-pads Xt's tail rows once per solve for its block
 kernels (``pad_backend_matrix``). The port never copies Xt: the
 'kernels' backend's score kernel scores a row index past p as 0 without
 reading it, and the 'torch' backend wraps the tail block modulo p, as the
-reference's 'xla' backend does.
+reference's 'xla' backend does. The 'sparse' backend runs on a
+``SparseBlockMatrix`` (block-ELL, padded at construction): its scores go
+through K5 (``kernels/sparse_grad``), at width 1 for 'uniform' sampling.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import torch
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step, fw_grad
 from repro_torch.kernels.residual_update import residual_update
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.matrix import SparseBlockMatrix
 
 
 class TorchSampler:
@@ -111,18 +115,34 @@ def msum(x: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
     return torch.sum(x)
 
 
+def use_sparse_kernel(cfg: FWConfig) -> bool:
+    """'sparse' backend: the Hopper kernels K5-K7 unless ``cfg.sparse_kernel``
+    is False (None, the default, and True mean the kernels, whose plain
+    versions run when the tensors lie on the CPU, as 'kernels' does). False
+    runs the plain PyTorch ops on any device, the counterpart of the
+    reference's XLA-gather sparse path."""
+    return cfg.sparse_kernel is not False
+
+
 def check_matrix_backend(Xt, cfg: FWConfig) -> None:
     """The matrix layout and the backend must agree; unported backends raise."""
-    if cfg.backend == "sparse":
-        raise NotImplementedError(
-            "backend='sparse' (block-ELL design) is not ported yet: "
-            "ROADMAP.md Queue 1 item 7"
-        )
     if cfg.backend == "distributed":
         raise NotImplementedError(
             "backend='distributed' is not ported yet: ROADMAP.md Queue 1 item 13"
         )
-    if getattr(Xt, "ndim", None) != 2:
+    is_sparse = isinstance(Xt, SparseBlockMatrix)
+    if is_sparse and cfg.backend != "sparse":
+        raise ValueError(
+            f"Xt is a SparseBlockMatrix but cfg.backend={cfg.backend!r}; "
+            "use FWConfig(backend='sparse')"
+        )
+    if cfg.backend == "sparse" and not is_sparse:
+        raise ValueError(
+            "cfg.backend='sparse' needs a repro_torch.sparse.SparseBlockMatrix "
+            "design matrix (build one with SparseBlockMatrix.from_dense / from_coo "
+            "or repro_torch.data.make_sparse_proxy)"
+        )
+    if not is_sparse and getattr(Xt, "ndim", None) != 2:
         raise ValueError("the 'torch' and 'kernels' backends need a dense feature-major Xt (p, m)")
 
 
@@ -141,6 +161,13 @@ def sample_blocks(sampler, nblocks: int, block_size: int, cfg: FWConfig) -> torc
 def sample_block_starts(sampler, p: int, cfg: FWConfig) -> torch.Tensor:
     """Aligned block starts for 'block' sampling over a feature axis of size p."""
     return sample_blocks(sampler, -(-p // cfg.block_size), cfg.block_size, cfg)
+
+
+def sample_sparse_blocks(sampler, mat: SparseBlockMatrix, cfg: FWConfig) -> torch.Tensor:
+    """Aligned block ids for the sparse backend. The geometry comes from the
+    matrix (cfg.block_size is a dense knob), and the tail block is padded at
+    construction, so no modulo wrap."""
+    return sample_blocks(sampler, mat.nblocks, mat.block_size, cfg)
 
 
 def sample_indices(sampler, p: int, cfg: FWConfig, device) -> torch.Tensor:
@@ -196,6 +223,30 @@ def _kernel_vertex(Xt, w, sampler, p, cfg):
     return i_star, g_star, n_scored
 
 
+def _sparse_vertex(mat: SparseBlockMatrix, w, sampler, cfg):
+    """The sampled vertex over the block-ELL matrix. 'uniform' scores the
+    kappa drawn features (K5 at width 1, the dense path's index stream);
+    'block' and 'full' score whole aligned blocks (K5 at the matrix's block
+    width). Dot counts as the reference: uniform kappa, block
+    nb * mat.block_size, full mat.p."""
+    use_kernel = use_sparse_kernel(cfg)
+    if cfg.sampling == "uniform":
+        idx = sampler.uniform(cfg.kappa, mat.p)
+        i_star, g, _ = sparse_ops.sparse_gather_vertex_general(mat, w, idx,
+                                                               use_kernel=use_kernel)
+        return i_star, g, idx.shape[0]
+    if cfg.sampling == "block":
+        blk = sample_sparse_blocks(sampler, mat, cfg)
+        n_scored = blk.shape[0] * mat.block_size
+    elif cfg.sampling == "full":
+        blk = torch.arange(mat.nblocks, device=mat.device)
+        n_scored = mat.p
+    else:
+        raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
+    i_star, g, _ = sparse_ops.sparse_fw_vertex_general(mat, w, blk, use_kernel=use_kernel)
+    return i_star, g, n_scored
+
+
 def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=None):
     """Draw S and return the winning vertex on the configured backend.
 
@@ -209,7 +260,9 @@ def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=
             "per-coordinate score shifts arrive with the elastic-net oracle: "
             "ROADMAP.md Queue 1 item 8"
         )
-    if cfg.backend == "kernels":
+    if cfg.backend == "sparse":
+        i_star, g, n = _sparse_vertex(Xt, w, sampler, cfg)
+    elif cfg.backend == "kernels":
         i_star, g, n = _kernel_vertex(Xt, w, sampler, p, cfg)
     else:
         i_star, g, n = _torch_vertex(Xt, w, sampler, p, cfg)
@@ -245,21 +298,26 @@ def fused_supported(oracle, cfg: FWConfig) -> bool:
 
 def use_fused_kernel(cfg: FWConfig) -> bool:
     """Chunk executor choice: the fused kernel drives the 'kernels' backend
-    (as the Pallas megakernel drives 'pallas'); 'torch' chunks through K
-    unfused engine steps."""
-    return cfg.backend == "kernels"
+    (K4) and the 'sparse' backend with its kernels on (K7), as the Pallas
+    megakernel drives 'pallas' and the kernel-dispatched 'sparse'; 'torch'
+    and the plain sparse ops chunk through K unfused engine steps."""
+    if cfg.backend == "kernels":
+        return True
+    return cfg.backend == "sparse" and use_sparse_kernel(cfg)
 
 
 def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
                      cfg: FWConfig):
-    """The fused chunk on the dense layout. Returns ``(i_star, lam,
+    """The fused chunk on the matrix's layout: K7 for a
+    ``SparseBlockMatrix``, K4 for a dense ``Xt``. Returns ``(i_star, lam,
     delta_t, no_progress, resid_out, (S, F, Q))``: the per-step records the
     engine replays into beta and the stopping state."""
-    return fused_step.dense_fused_chunk(
-        Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, oracle=oracle,
-        eps_den=cfg.eps_den, gap_rtol=cfg.gap_rtol,
-        refresh_every=cfg.refresh_every, max_iters=cfg.max_iters,
-    )
+    kw = dict(oracle=oracle, eps_den=cfg.eps_den, gap_rtol=cfg.gap_rtol,
+              refresh_every=cfg.refresh_every, max_iters=cfg.max_iters)
+    if isinstance(Xt, SparseBlockMatrix):
+        return fused_step.sparse_fused_chunk(Xt.values, Xt.rows, y, resid, scal, idx, zty_s,
+                                             zn2_s, k0, delta, **kw)
+    return fused_step.dense_fused_chunk(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -269,7 +327,11 @@ def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, del
 
 def apply_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg: FWConfig):
     """v <- (1-lam) v + lam (y_vec - delta_t * z_star) (eq. 10 with v = R,
-    y_vec = y). The column is gathered on the device, without a sync."""
+    y_vec = y). The column is gathered on the device, without a sync; a
+    sparse column adds its ELL slots (``sparse_ops.sparse_residual_update``)."""
+    if cfg.backend == "sparse":
+        col_vals, col_rows = sparse_ops.sparse_column(Xt, i_star)
+        return sparse_ops.sparse_residual_update(v, y_vec, col_vals, col_rows, lam, delta_t)
     z_star = Xt.index_select(0, i_star.view(1)).view(-1)
     if cfg.backend == "kernels":
         return residual_update(v, y_vec, z_star, lam, delta_t)
@@ -277,11 +339,16 @@ def apply_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg: FWConfig):
 
 
 def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
-    """X @ alpha for warm-start initialization."""
+    """X @ alpha for warm-start initialization, either matrix layout."""
+    if isinstance(Xt, SparseBlockMatrix):
+        return sparse_ops.sparse_matvec(Xt, beta)
     return beta @ Xt
 
 
 def grad_full(Xt, w: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
-    """Full linear gradient -X^T w over every feature: the O(p*m)
+    """Full linear gradient -X^T w over every feature: the O(nnz) / O(p*m)
     certification pass behind ``gap()``, never the hot loop."""
+    if isinstance(Xt, SparseBlockMatrix):
+        use = cfg is None or use_sparse_kernel(cfg)
+        return -sparse_ops.sparse_transpose_matvec(Xt, w, use_kernel=use)
     return -(Xt @ w)

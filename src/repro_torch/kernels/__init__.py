@@ -4,12 +4,22 @@ version (the code path for CPU tensors) and a launch counter.
 colstats:         K1, fused z^T y and ||z||^2 setup pass
 fw_grad:          K2, sampled row scores + masked first-max argmax
 residual_update:  K3, fused R <- (1-lam) R + lam (y - dt z)
-fused_step:       K4, K fused FW iterations per launch (a cooperative grid),
-                  and the one-block replay of its records into beta
+fused_step:       K4 and K7, K fused FW iterations per launch on the dense
+                  and the block-ELL layout (one cooperative grid skeleton),
+                  and the one-block replay of their records into beta
+sparse_grad:      K5, sampled scores over the block-ELL layout
+sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
 
 The CUDA sources are in ``csrc/`` and build on first use (``_build``).
 """
-from repro_torch.kernels import colstats, fused_step, fw_grad, residual_update
+from repro_torch.kernels import (
+    colstats,
+    fused_step,
+    fw_grad,
+    residual_update,
+    sparse_colstats,
+    sparse_grad,
+)
 
 _WRAPPERS = {
     "colstats": colstats.colstats,
@@ -18,6 +28,9 @@ _WRAPPERS = {
     "residual_update": residual_update.residual_update,
     "dense_fused_chunk": fused_step.dense_fused_chunk,
     "fused_replay": fused_step.fused_replay,
+    "sparse_sampled_scores": sparse_grad.sparse_sampled_scores,
+    "sparse_colstats": sparse_colstats.sparse_colstats,
+    "sparse_fused_chunk": fused_step.sparse_fused_chunk,
 }
 
 

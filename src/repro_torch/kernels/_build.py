@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("colstats", "fw_grad", "residual_update", "fused_step")
+SOURCES = ("colstats", "fw_grad", "residual_update", "fused_step", "sparse_grad",
+           "sparse_colstats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

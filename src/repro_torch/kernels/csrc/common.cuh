@@ -117,6 +117,87 @@ __device__ __forceinline__ float warp_row_score(const T* __restrict__ X, long lo
   return -warp_sum(dot);
 }
 
+// The block-ELL layout (sparse/matrix.py) keeps feature f's nonzeros in the
+// nnz_max contiguous slots values[f * nnz_max + k], rows[f * nnz_max + k];
+// a padded slot holds value 0 at row 0. One warp's partial sums over those
+// slots against the f32 vector v: dot += x * v[row] and, when SQ,
+// sq += x * x. Lanes stride the slots, so the warp reads them coalesced;
+// the gather of v is random (v is meant to lie in shared memory).
+template <typename T, bool SQ>
+__device__ __forceinline__ void slot_dot(const T* __restrict__ values,
+                                         const int* __restrict__ rows, long long f,
+                                         int nnz_max, const float* __restrict__ v, int lane,
+                                         float& dot, float& sq) {
+  const long long base = f * nnz_max;
+  for (int k = lane; k < nnz_max; k += 32) {
+    const float x = to_f32(values[base + k]);
+    dot = fmaf(x, v[rows[base + k]], dot);
+    if (SQ) sq = fmaf(x, x, sq);
+  }
+}
+
+// The sampled score -z_f . v of feature f in the block-ELL layout, summed
+// by one warp in slot_dot's order and returned to every lane. A feature
+// outside [0, n_feat) scores exactly 0 (-0.0f) without touching memory.
+// K5 and the sparse fused chunk (K7) both score through this, so they
+// round alike.
+template <typename T>
+__device__ __forceinline__ float warp_slot_score(const T* __restrict__ values,
+                                                 const int* __restrict__ rows, long long f,
+                                                 long long n_feat, int nnz_max,
+                                                 const float* __restrict__ v, int lane) {
+  float dot = 0.f, unused = 0.f;
+  if (f >= 0 && f < n_feat) slot_dot<T, false>(values, rows, f, nnz_max, v, lane, dot, unused);
+  return -warp_sum(dot);
+}
+
+// The most dynamic shared memory a block may opt in to on Hopper (227 KB),
+// less a margin for the kernels' static shared memory.
+#define OPTIN_SMEM_BYTES (224 * 1024)
+
+// resident_grid's answers for one kernel, one entry per device: the
+// shared-memory limit is a per-device attribute, so a device must set it
+// before its own first launch. A device past the table is asked every time.
+#define GRID_CACHE_DEVICES 64
+struct GridCache {
+  size_t smem_plus1[GRID_CACHE_DEVICES];  // 0: not asked yet
+  int blocks[GRID_CACHE_DEVICES];
+};
+
+// A persistent grid for `kernel` on the current device: as many blocks of
+// `threads` with `smem` bytes of dynamic shared memory as can be resident
+// at once (each stages a vector once and then strides over the work), and
+// no more than `needed`. Raises the kernel's dynamic shared memory limit to
+// OPTIN_SMEM_BYTES first (a limit set to one call's need would refuse a
+// later, larger one). The answer is cached per device for the last smem.
+template <typename K>
+inline cudaError_t resident_grid(K kernel, int threads, size_t smem, long long needed,
+                                 GridCache* cache, int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < GRID_CACHE_DEVICES;
+  if (!cached || cache->smem_plus1[dev] != smem + 1) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 OPTIN_SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err != cudaSuccess) return err;
+    if (!cached) {
+      *blocks = (int)(needed < sms * per_sm ? needed : sms * per_sm);
+      return cudaSuccess;
+    }
+    cache->smem_plus1[dev] = smem + 1;
+    cache->blocks[dev] = sms * per_sm;
+  }
+  *blocks = (int)(needed < cache->blocks[dev] ? needed : cache->blocks[dev]);
+  return cudaSuccess;
+}
+
 // jnp.argmax / torch.argmax order: NaN counts as the largest value, and of
 // equal values the first in sample order wins.
 __device__ __forceinline__ bool better(float a, long long ja, float b, long long jb) {

@@ -1,15 +1,18 @@
-// K4: K fused FW iterations per launch on the dense layout (replaces the
-// Pallas kernel at src/repro/kernels/fused_step/fused_step.py:259, entry
-// dense_fused_chunk at :310), and the replay of its step records into the
+// K4 and K7: K fused FW iterations per launch, on the dense layout (K4,
+// replaces the Pallas kernel at src/repro/kernels/fused_step/fused_step.py:259
+// through its entry dense_fused_chunk at :310) and on the block-ELL layout
+// (K7, the same kernel through sparse_fused_chunk at :376), one cooperative
+// grid skeleton for both; and the replay of their step records into the
 // O(p) coefficient state (replaces the XLA fori_loop of
 // src/repro/core/engine.py:387, _fused_replay). See kernels/fused_step.py
 // for the bounds and the design.
 //
 // Scalar algebra: every op is a separate _rn intrinsic in the op order of
 // core/fw_lasso.py (ls_closed_form, sf_recursion) and core/engine.py
-// (apply_coeff_update), so nvcc cannot contract into FMAs. The scores go
-// through warp_row_score, K2's per-row dot, and the residual update is
-// K3's op sequence.
+// (apply_coeff_update), so nvcc cannot contract into FMAs. The dense scores
+// go through warp_row_score, K2's per-row dot, and its residual update is
+// K3's op sequence; the sparse scores go through warp_slot_score, K5's
+// slot dot.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -73,29 +76,91 @@ __device__ __forceinline__ void block_best(float& mag, long long& j, float& raw,
   __syncthreads();  // smag/sj/sraw free again
 }
 
-// One persistent cooperative grid runs the K steps. Per step: every warp
-// scores its share of the kappa sampled rows against its block's copy of
-// the residual; each block writes its first max to partials[s % 2]; one
-// grid sync; every block reduces all partials in the same order, computes
-// the line search and the S/F recursions redundantly (identical scalars
-// everywhere), and updates its own shared-memory residual with the
-// winner's row. Block 0 writes the records, the final residual and (S, F, Q).
+// The two layouts the chunk runs on. Each gives the per-row score of a
+// sampled coordinate against the block's residual copy (one warp) and the
+// eq. 10 update of that copy by the step's winner (the whole block).
+
+// Dense Xt (p, m) (K4): K2's row dot; K3's op order for eq. 10; y staged
+// in shared memory beside the residual.
+struct DenseRows {
+  static constexpr bool kStageY = true;
+  const float* X;
+  long long p;
+  int m;
+  int vec;
+
+  __device__ __forceinline__ float score(long long row, const float* rs, int lane) const {
+    return warp_row_score<float>(X, row, p, m, rs, vec, lane);
+  }
+  __device__ __forceinline__ void update(float* rs, const float* yv, long long i, float lam,
+                                         float dt) const {
+    const float one_m = __fsub_rn(1.f, lam);
+    const float* z = X + i * (long long)m;
+    for (int k = threadIdx.x; k < m; k += FC_THREADS) {
+      const float a = __fmul_rn(one_m, rs[k]);
+      const float b = __fmul_rn(lam, __fsub_rn(yv[k], __fmul_rn(dt, z[k])));
+      rs[k] = __fadd_rn(a, b);
+    }
+  }
+};
+
+// Block-ELL slots (K7): K5's slot dot; the op order of
+// sparse.ops.sparse_residual_update, out = (1 - lam) r + lam y over m and
+// then out[rows] += (-lam * dt) * vals over the winner's slots. A
+// feature's real rows are distinct, so the slots' adds are independent;
+// a padded slot (value 0) adds nothing and is skipped, so the shared
+// row 0 of the padding sees no race. y is read through L2, which leaves
+// shared memory to the residual alone (m <= 57,344).
+struct SparseSlots {
+  static constexpr bool kStageY = false;
+  const float* values;
+  const int* rows;
+  long long n_feat;  // padded features in the arrays
+  int m;
+  int nnz_max;
+
+  __device__ __forceinline__ float score(long long f, const float* rs, int lane) const {
+    return warp_slot_score<float>(values, rows, f, n_feat, nnz_max, rs, lane);
+  }
+  __device__ __forceinline__ void update(float* rs, const float* yv, long long i, float lam,
+                                         float dt) const {
+    const float one_m = __fsub_rn(1.f, lam);
+    for (int k = threadIdx.x; k < m; k += FC_THREADS)
+      rs[k] = __fadd_rn(__fmul_rn(one_m, rs[k]), __fmul_rn(lam, __ldg(yv + k)));
+    __syncthreads();
+    const float c = __fmul_rn(-lam, dt);
+    const long long base = i * nnz_max;
+    for (int k = threadIdx.x; k < nnz_max; k += FC_THREADS) {
+      const float v = values[base + k];
+      if (v != 0.f) atomicAdd(rs + rows[base + k], __fmul_rn(c, v));
+    }
+  }
+};
+
+// One persistent cooperative grid runs the K steps, the same skeleton for
+// both layouts. Per step: every warp scores its share of the kappa sampled
+// coordinates against its block's copy of the residual; each block writes
+// its first max to partials[s % 2]; one grid sync; every block reduces all
+// partials in the same order, computes the line search and the S/F
+// recursions redundantly (identical scalars everywhere), and updates its
+// own shared-memory residual with the winner (Layout::update). Block 0
+// writes the records, the final residual and (S, F, Q).
+template <class Layout>
 __global__ void __launch_bounds__(FC_THREADS, 2)
-dense_fused_chunk_kernel(const float* __restrict__ X, const float* __restrict__ y,
-                         const float* __restrict__ r0, const float* __restrict__ s0,
-                         const float* __restrict__ f0, const float* __restrict__ q0,
-                         const float* __restrict__ delta_p, const long long* __restrict__ idx,
-                         const float* __restrict__ zty_s, const float* __restrict__ zn2_s,
-                         long long p, int m, int K, long long kappa, long long k0,
-                         long long max_iters, int refresh_every, float eps_den,
-                         float gap_rtol, int vec, long long* __restrict__ i_star_out,
-                         float* __restrict__ recs, unsigned char* __restrict__ no_prog_out,
-                         float* __restrict__ r_out, float* __restrict__ s_out,
-                         Partial* __restrict__ partials) {
+fused_chunk_kernel(Layout L, const float* __restrict__ y, const float* __restrict__ r0,
+                   const float* __restrict__ s0, const float* __restrict__ f0,
+                   const float* __restrict__ q0, const float* __restrict__ delta_p,
+                   const long long* __restrict__ idx, const float* __restrict__ zty_s,
+                   const float* __restrict__ zn2_s, int m, int K, long long kappa, long long k0,
+                   long long max_iters, int refresh_every, float eps_den, float gap_rtol,
+                   long long* __restrict__ i_star_out, float* __restrict__ recs,
+                   unsigned char* __restrict__ no_prog_out, float* __restrict__ r_out,
+                   float* __restrict__ s_out, Partial* __restrict__ partials) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   float* rs = smem;                   // this block's live residual (m)
-  float* ys = smem + ((m + 3) & ~3);  // y (m)
+  float* ys = smem + ((m + 3) & ~3);  // y (m), when the layout stages it
+  const float* yv = Layout::kStageY ? ys : y;
   __shared__ float smag[FC_WARPS], sraw[FC_WARPS], sv[2][FC_WARPS];
   __shared__ long long sj[FC_WARPS];
   __shared__ float sh_lam, sh_dt;
@@ -105,7 +170,7 @@ dense_fused_chunk_kernel(const float* __restrict__ X, const float* __restrict__ 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < m; i += FC_THREADS) {
     rs[i] = r0[i];
-    ys[i] = y[i];
+    if (Layout::kStageY) ys[i] = y[i];
   }
   // the scalar state lives in thread 0 of every block
   float S = *s0, F = *f0;
@@ -120,7 +185,7 @@ dense_fused_chunk_kernel(const float* __restrict__ X, const float* __restrict__ 
     float mag = -INFINITY, raw = 0.f;
     long long j = LLONG_MAX;
     for (long long c = gwarp; c < kappa; c += nwarps) {
-      const float sc = warp_row_score<float>(X, ids[c], p, m, rs, vec, lane);
+      const float sc = L.score(ids[c], rs, lane);
       if (better(fabsf(sc), c, mag, j)) {
         mag = fabsf(sc);
         j = c;
@@ -191,22 +256,17 @@ dense_fused_chunk_kernel(const float* __restrict__ X, const float* __restrict__ 
     }
     __syncthreads();
 
-    // ---- eq. 10 on this block's residual (K3's op order) + the refresh ---
+    // ---- eq. 10 on this block's residual + the refresh --------------------
     if (sh_active) {
-      const float lam = sh_lam, dt = sh_dt, one_m = __fsub_rn(1.f, lam);
-      const float* z = X + sh_i * (long long)m;
-      for (int i = tid; i < m; i += FC_THREADS) {
-        const float a = __fmul_rn(one_m, rs[i]);
-        const float b = __fmul_rn(lam, __fsub_rn(ys[i], __fmul_rn(dt, z[i])));
-        rs[i] = __fadd_rn(a, b);
-      }
+      L.update(rs, yv, sh_i, sh_lam, sh_dt);
       __syncthreads();
       if (sh_refresh) {  // exact S = ||v||^2, F = v.y with v = y - R, fixed order
         float vv = 0.f, vy = 0.f;
         for (int i = tid; i < m; i += FC_THREADS) {
-          const float v = __fsub_rn(ys[i], rs[i]);
+          const float yi = yv[i];
+          const float v = __fsub_rn(yi, rs[i]);
           vv = fmaf(v, v, vv);
-          vy = fmaf(v, ys[i], vy);
+          vy = fmaf(v, yi, vy);
         }
         vv = warp_sum(vv);
         vy = warp_sum(vy);
@@ -295,51 +355,91 @@ __global__ void fused_replay_kernel(float* __restrict__ beta, long long p,
   }
 }
 
-static size_t chunk_smem_bytes(int m) { return (size_t)(((m + 3) & ~3) + m) * sizeof(float); }
+// Dynamic shared memory of a block: the residual, and y beside it when the
+// layout stages y.
+template <class Layout>
+static size_t chunk_smem_bytes(int m) {
+  return (size_t)(((m + 3) & ~3) + (Layout::kStageY ? m : 0)) * sizeof(float);
+}
 
-// The cooperative grid for a given m on the current device: every SM's
-// worth of resident blocks, as the occupancy calculator allows.
-extern "C" int dense_fused_chunk_blocks(int m, int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+// The cooperative grid for a layout and m on the current device: every
+// SM's worth of resident blocks, as the occupancy calculator allows
+// (resident_grid, which also raises the shared-memory limit on the device).
+template <class Layout>
+static int chunk_blocks(int m, int* blocks) {
+  static GridCache cache;
+  int dev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = chunk_smem_bytes(m);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dense_fused_chunk_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_fused_chunk_kernel,
-                                                        FC_THREADS, smem);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-  *blocks = sms * per_sm;
+    err = resident_grid(fused_chunk_kernel<Layout>, FC_THREADS, chunk_smem_bytes<Layout>(m),
+                        LLONG_MAX, &cache, blocks);
   return (int)err;
 }
 
-extern "C" int dense_fused_chunk_launch(const float* X, const float* y, const float* r0,
-                                        const float* s0, const float* f0, const float* q0,
-                                        const float* delta, const long long* idx,
-                                        const float* zty_s, const float* zn2_s, long long p,
-                                        int m, int K, long long kappa, long long k0,
-                                        long long max_iters, int refresh_every, float eps_den,
-                                        float gap_rtol, long long* i_star, float* recs,
-                                        unsigned char* no_prog, float* r_out, float* s_out,
-                                        void* partials, int blocks, void* stream) {
-  int vec = rows_vectorizable<float>(X, m);
+template <class Layout>
+static int chunk_launch(Layout L, const float* y, const float* r0, const float* s0,
+                        const float* f0, const float* q0, const float* delta,
+                        const long long* idx, const float* zty_s, const float* zn2_s, int m,
+                        int K, long long kappa, long long k0, long long max_iters,
+                        int refresh_every, float eps_den, float gap_rtol, long long* i_star,
+                        float* recs, unsigned char* no_prog, float* r_out, float* s_out,
+                        void* partials, int blocks, void* stream) {
   Partial* part = static_cast<Partial*>(partials);
-  void* args[] = {&X,     &y,         &r0,          &s0,      &f0,      &q0,      &delta,
-                  &idx,   &zty_s,     &zn2_s,       &p,       &m,       &K,       &kappa,
-                  &k0,    &max_iters, &refresh_every, &eps_den, &gap_rtol, &vec, &i_star,
-                  &recs,  &no_prog,   &r_out,       &s_out,   &part};
+  void* args[] = {&L,         &y,      &r0,        &s0,      &f0,       &q0,
+                  &delta,     &idx,    &zty_s,     &zn2_s,   &m,        &K,
+                  &kappa,     &k0,     &max_iters, &refresh_every, &eps_den, &gap_rtol,
+                  &i_star,    &recs,   &no_prog,   &r_out,   &s_out,    &part};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)dense_fused_chunk_kernel, dim3(blocks), dim3(FC_THREADS), args,
-      chunk_smem_bytes(m), static_cast<cudaStream_t>(stream));
+      (const void*)fused_chunk_kernel<Layout>, dim3(blocks), dim3(FC_THREADS), args,
+      chunk_smem_bytes<Layout>(m), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it again
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int dense_fused_chunk_blocks(int m, int* blocks) {
+  return chunk_blocks<DenseRows>(m, blocks);
+}
+
+extern "C" int sparse_fused_chunk_blocks(int m, int* blocks) {
+  return chunk_blocks<SparseSlots>(m, blocks);
+}
+
+extern "C" int dense_fused_chunk_launch(const float* X, long long p, const float* y,
+                                        const float* r0, const float* s0, const float* f0,
+                                        const float* q0, const float* delta,
+                                        const long long* idx, const float* zty_s,
+                                        const float* zn2_s, int m, int K, long long kappa,
+                                        long long k0,
+                                        long long max_iters, int refresh_every, float eps_den,
+                                        float gap_rtol, long long* i_star, float* recs,
+                                        unsigned char* no_prog, float* r_out, float* s_out,
+                                        void* partials, int blocks, void* stream) {
+  const DenseRows L{X, p, m, rows_vectorizable<float>(X, m)};
+  return chunk_launch(L, y, r0, s0, f0, q0, delta, idx, zty_s, zn2_s, m, K, kappa, k0,
+                      max_iters, refresh_every, eps_den, gap_rtol, i_star, recs, no_prog,
+                      r_out, s_out, partials, blocks, stream);
+}
+
+extern "C" int sparse_fused_chunk_launch(const float* values, const int* rows,
+                                         long long n_feat, int nnz_max, const float* y,
+                                         const float* r0, const float* s0, const float* f0,
+                                         const float* q0, const float* delta,
+                                         const long long* idx, const float* zty_s,
+                                         const float* zn2_s, int m, int K, long long kappa,
+                                         long long k0,
+                                         long long max_iters, int refresh_every, float eps_den,
+                                         float gap_rtol, long long* i_star, float* recs,
+                                         unsigned char* no_prog, float* r_out, float* s_out,
+                                         void* partials, int blocks, void* stream) {
+  const SparseSlots L{values, rows, n_feat, m, nnz_max};
+  return chunk_launch(L, y, r0, s0, f0, q0, delta, idx, zty_s, zn2_s, m, K, kappa, k0,
+                      max_iters, refresh_every, eps_den, gap_rtol, i_star, recs, no_prog,
+                      r_out, s_out, partials, blocks, stream);
 }
 
 extern "C" int fused_replay_launch(float* beta, long long p, const float* scale,

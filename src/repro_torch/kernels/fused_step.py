@@ -1,48 +1,64 @@
-"""K4: K fused FW iterations per launch on the dense layout, and the replay
-of its step records into the coefficient state.
+"""K4 and K7: K fused FW iterations per launch, on the dense and on the
+block-ELL layout, and the replay of their step records into the
+coefficient state.
 
-``dense_fused_chunk`` runs K = ``idx.shape[0]`` lasso FW iterations: each
-scores its kappa pregathered rows of ``Xt`` against the live residual,
+``dense_fused_chunk`` and ``sparse_fused_chunk`` run K = ``idx.shape[0]``
+lasso FW iterations: each scores its kappa pregathered coordinates (rows
+of ``Xt``; or the features' block-ELL slots) against the live residual,
 takes the first max of ``|score|`` in sample order, runs the closed-form
 line search (eq. 8), updates the residual (eq. 10) and the S/F recursions
-with the exact refresh every ``refresh_every`` steps; steps at
-``k0 + s >= max_iters`` write their record but change no state. It
-returns ``(i_star (K,), lam (K,), delta_t (K,), no_progress (K,),
-resid_out (m,), (S, F, Q))``. ``fused_replay`` then applies the records to
-``beta`` and the stopping statistics with ``engine.apply_coeff_update``'s
-op sequence.
+with the exact refresh every ``refresh_every`` steps; steps at ``k0 + s >=
+max_iters`` write their record but change no state. Each returns
+``(i_star (K,), lam (K,), delta_t (K,), no_progress (K,), resid_out (m,),
+(S, F, Q))``. ``fused_replay`` then applies the records to ``beta`` and
+the stopping statistics with ``engine.apply_coeff_update``'s op sequence.
 
 Replaces the Pallas kernel ``_fused_kernel`` at
-``src/repro/kernels/fused_step/fused_step.py:259`` (entry
-``dense_fused_chunk`` at :310), in its lasso form: the elastic-net's
-alpha ledger (:137-139, :158-162, :226-230) waits for ROADMAP.md Queue 1
-item 8. ``fused_replay`` replaces the reference's XLA ``fori_loop``
-``_fused_replay`` (``src/repro/core/engine.py:387``).
+``src/repro/kernels/fused_step/fused_step.py:259``, through its entries
+``dense_fused_chunk`` (:310, ``layout='dense'``) and ``sparse_fused_chunk``
+(:376, ``layout='sparse'``, with ``scatter_vmem`` at :83), in its lasso
+form: the elastic-net's alpha ledger (:137-139, :158-162, :226-230) waits
+for ROADMAP.md Queue 1 item 8. ``fused_replay`` replaces the reference's
+XLA ``fori_loop`` ``_fused_replay`` (``src/repro/core/engine.py:387``).
 
-Bound on an H100: bytes. A step reads its kappa rows once, their indices
-and pregathered statistics, and y, the residual and the winner's row:
-kappa*m*4 + kappa*16 + 3*m*4 bytes, 137.4 MB at the paper size (kappa =
-42,723, m = 800), 41.0 us at 3.35 TB/s; a chunk of K = 8 about 0.33 ms,
-plus one grid barrier per step. The replay moves a few bytes per record
-(and 2*p*4 on the rare renorm), so it is bound by its launch.
+Bounds on an H100: bytes. A dense step reads its kappa rows once, their
+indices and pregathered statistics, and y, the residual and the winner's
+row: kappa*m*4 + kappa*16 + 3*m*4 bytes, 137.4 MB at the paper size (kappa
+= 42,723, m = 800), 41.0 us at 3.35 TB/s; a chunk of K = 8 about 0.33 ms.
+A sparse step reads kappa features' nnz_max value slots and the rows of
+their nnz stored nonzeros instead of rows: kappa*nnz_max*4 + nnz*4 +
+kappa*16 + 3*m*4 bytes, about 17.7 MB at the E2006-log1p size (kappa =
+42,723, nnz_max 66, about 32 nonzeros a feature, m = 16,087), 5.3 us; a
+chunk of 8 about 42 us. Each step adds one grid barrier. The replay moves
+a few bytes per record (and 2*p*4 on the rare renorm), so it is bound by
+its launch.
 
 Design. The TPU runs the (K, kappa) grid in order on one core and carries
 the winner and the residual in VMEM. Hopper blocks run in no order and
-carry nothing, and one block cannot read 137 MB a step. So the kernel is
-one persistent cooperative grid (every block resident, sized by the
-occupancy calculator, launched with ``cudaLaunchCooperativeKernel``) with
-one grid sync per step: each block scores its share of the rows (one warp
-per row, K2's ``warp_row_score``) against its own shared-memory copy of
-the residual, keeps a first-max carry (K2's comparator: NaN largest, ties
-to the first in sample order) and writes it to a partial buffer indexed by
-step parity; after the sync every block reduces all partials in the same
-order, so every block holds the same winner, computes the line search and
-the S/F recursions redundantly with ``_rn`` intrinsics in the op order of
-``core/fw_lasso.py`` (identical scalars everywhere), reads the winner's
-row and updates its own residual (K3's op order). The double-buffered
-partials need no second sync. Block 0 writes the records, the final
-residual and (S, F, Q). ``m`` is capped by shared memory (two (m,) f32
-vectors a block): ``M_MAX``.
+carry nothing, and one block cannot read a step's bytes alone. So the
+kernel is one persistent cooperative grid (every block resident, sized by
+the occupancy calculator, launched with ``cudaLaunchCooperativeKernel``)
+with one grid sync per step, and the same skeleton serves both layouts
+(``csrc/fused_step.cu``, templated on the layout): each block scores its
+share of the coordinates, one warp each, against its own shared-memory
+copy of the residual (dense: K2's ``warp_row_score``; sparse: K5's
+``warp_slot_score``), keeps a first-max carry (K2's comparator: NaN
+largest, ties to the first in sample order) and writes it to a partial
+buffer indexed by step parity; after the sync every block reduces all
+partials in the same order, so every block holds the same winner, computes
+the line search and the S/F recursions redundantly with ``_rn`` intrinsics
+in the op order of ``core/fw_lasso.py`` (identical scalars everywhere), and
+updates its own residual with the winner read from device memory: dense,
+K3's op order over the winner's row; sparse, ``out = (1-lam) r + lam y``
+over m, then the winner's nonzero slots added as ``out[rows] += (-lam *
+delta_t) * vals`` (``sparse.ops.sparse_residual_update``'s op order). The
+double-buffered partials need no second sync. Block 0 writes the records,
+the final residual and (S, F, Q).
+
+``m`` is capped by shared memory: the dense layout keeps y beside the
+residual (two (m,) f32 vectors a block, ``M_MAX``); the sparse layout
+reads y through L2 and keeps the residual alone (``M_MAX_SPARSE``; at
+m = 16,087 that is 64.3 KB a block).
 
 ``fused_replay`` is one block launched once per chunk: thread 0 walks the
 K records in order with ``_rn`` intrinsics, and the whole block multiplies
@@ -61,23 +77,28 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fw_grad import sampled_scores_plain
 from repro_torch.kernels.residual_update import residual_update_plain
+from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
 
 M_MAX = 24_576  # two (m,) f32 vectors in a block's shared memory: 192 KB
+M_MAX_SPARSE = 57_344  # one (m,) f32 vector: 224 KB
 REC = 8  # record row: lam, delta_t, raw, sel, stall flag, 0, 0, 0
 PARTIAL_BYTES = 16  # one block's (|score|, score, position) per step parity
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# (X, y, r0, s0, f0, q0, delta, idx, zty_s, zn2_s, p, m, K, kappa, k0, max_iters,
-#  refresh_every, eps_den, gap_rtol, i_star, recs, no_prog, r_out, s_out, partials,
-#  blocks, stream)
-_CHUNK_ARGTYPES = ([_PTR] * 10 + [_I64, _I32, _I32, _I64, _I64, _I64, _I32, _F32, _F32]
-                   + [_PTR] * 6 + [_I32, _PTR])
+# the arguments both chunk entry points end with: (y, r0, s0, f0, q0, delta, idx,
+# zty_s, zn2_s, m, K, kappa, k0, max_iters, refresh_every, eps_den, gap_rtol, i_star,
+# recs, no_prog, r_out, s_out, partials, blocks, stream)
+_CHUNK_TAIL = ([_PTR] * 9 + [_I32, _I32, _I64, _I64, _I64, _I32, _F32, _F32]
+               + [_PTR] * 6 + [_I32, _PTR])
+# the matrix's arguments first: (X, p), or (values, rows, n_feat, nnz_max)
+_DENSE_ARGTYPES = [_PTR, _I64] + _CHUNK_TAIL
+_SPARSE_ARGTYPES = [_PTR, _PTR, _I64, _I32] + _CHUNK_TAIL
 # (beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride,
 #  no_prog, K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, stream)
 _REPLAY_ARGTYPES = ([_PTR, _I64] + [_PTR] * 6 + [_I64, _PTR, _I64, _PTR, _I32, _I64, _I64]
                     + [_F32] * 3 + [_PTR] * 3)
 
-_grid_blocks: Dict[Tuple[int, int], int] = {}
+_grid_blocks: Dict[Tuple[str, int, int], int] = {}
 
 
 def _f32(x: float) -> float:
@@ -93,11 +114,10 @@ def _check_lasso(oracle) -> None:
         )
 
 
-def _check_chunk(Xt, y, resid, idx, zty_s, zn2_s):
-    if Xt.dim() != 2 or y.shape != (Xt.shape[1],) or resid.shape != y.shape:
+def _check_chunk(m, y, resid, idx, zty_s, zn2_s):
+    if y.shape != (m,) or resid.shape != y.shape:
         raise ValueError(
-            f"need Xt (p, m), y (m,), resid (m,), got {tuple(Xt.shape)}, "
-            f"{tuple(y.shape)}, {tuple(resid.shape)}"
+            f"need y (m,), resid (m,) with m = {m}, got {tuple(y.shape)}, {tuple(resid.shape)}"
         )
     if idx.dim() != 2 or idx.numel() == 0 or zty_s.shape != idx.shape or zn2_s.shape != idx.shape:
         raise ValueError(
@@ -106,12 +126,14 @@ def _check_chunk(Xt, y, resid, idx, zty_s, zn2_s):
         )
 
 
-def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta, *,
-                            oracle, eps_den, gap_rtol, refresh_every: int, max_iters: int):
-    """The plain PyTorch version (reference ``kernels/fused_step/ref.py``):
-    the same per-step ops as the unfused step on the 'kernels' backend
-    (its scores, its argmax, the oracle's scalar algebra, eq. 10), so a
-    chunk on CPU tensors replays fuse_steps=1 bit for bit."""
+def _chunk_plain(score, update, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta, *,
+                 oracle, eps_den, gap_rtol, refresh_every: int, max_iters: int):
+    """The chunk's plain version on either layout (reference
+    ``kernels/fused_step/ref.py``): ``score(ids, resid)`` gives a step's
+    scores, ``update(resid, y, i_star, lam, delta_t)`` its eq. 10. With the
+    unfused step's own score and update functions it runs that step's ops
+    in its order, so a chunk on CPU tensors replays fuse_steps=1 bit for
+    bit."""
     K = idx.shape[0]
     y = y.float()
     resid = resid.float()
@@ -120,7 +142,7 @@ def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delt
     recs = []
     for s in range(K):
         ids = idx[s]
-        raw = sampled_scores_plain(Xt, resid, ids, 1)
+        raw = score(ids, resid)
         j = torch.argmax(raw.abs()).view(1)
         i_star = ids.index_select(0, j).view(())
         g = raw.index_select(0, j).view(())
@@ -133,8 +155,7 @@ def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delt
         recs.append((i_star, lam, delta_t, no_progress))
         k = k0 + s
         if k < max_iters:
-            z = Xt.index_select(0, i_star.view(1)).view(-1)
-            resid = residual_update_plain(resid, y, z, lam, delta_t)
+            resid = update(resid, y, i_star, lam, delta_t)
             s_quad, f_lin, q = oracle.fused_scalar_update(
                 scal3, g_lin, None, lam, delta_t, zty_i, zn2_i
             )
@@ -146,16 +167,83 @@ def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delt
     return i_stars, lams, delta_ts, no_progs, resid, scal3
 
 
-def _blocks(dev: torch.device, m: int) -> int:
-    key = (dev.index, m)
+def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta, **kw):
+    """The plain version of K4: the unfused 'kernels' step's scores (K2's
+    plain version) and eq. 10 (K3's)."""
+
+    def update(r, yv, i_star, lam, delta_t):
+        return residual_update_plain(r, yv, Xt.index_select(0, i_star.view(1)).view(-1),
+                                     lam, delta_t)
+
+    return _chunk_plain(lambda ids, r: sampled_scores_plain(Xt, r, ids, 1), update,
+                        y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+
+
+def sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
+                             **kw):
+    """The plain version of K7: the unfused sparse step's scores (K5's plain
+    version at width 1) and eq. 10 (``sparse.ops.sparse_residual_update``)."""
+    from repro_torch.sparse import ops as sparse_ops  # sparse.ops imports kernels
+
+    nnz = values.shape[-1]
+
+    def update(r, yv, i_star, lam, delta_t):
+        col_vals = values.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
+        col_rows = rows.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
+        return sparse_ops.sparse_residual_update(r, yv, col_vals, col_rows, lam, delta_t)
+
+    return _chunk_plain(lambda ids, r: sparse_sampled_scores_plain(values, rows, r, ids, 1),
+                        update, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+
+
+def _blocks(layout: str, dev: torch.device, m: int) -> int:
+    """The cooperative grid of a layout ('dense' or 'sparse') at m."""
+    key = (layout, dev.index, m)
     if key not in _grid_blocks:
-        fn = _build.function("fused_step", "dense_fused_chunk_blocks", [_I32, _PTR])
+        fn = _build.function("fused_step", f"{layout}_fused_chunk_blocks", [_I32, _PTR])
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
             err = fn(m, ctypes.addressof(out))
-        _build.check("fused_step", err, "dense_fused_chunk occupancy query")
+        _build.check("fused_step", err, f"{layout}_fused_chunk occupancy query")
         _grid_blocks[key] = out.value
     return _grid_blocks[key]
+
+
+def _launch_chunk(layout: str, head: tuple, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
+                  *, eps_den, gap_rtol, refresh_every: int, max_iters: int):
+    """Launch the cooperative chunk kernel of ``layout`` with its leading
+    arguments ``head`` (the matrix's pointers and sizes). Returns the
+    chunk's records and final state."""
+    m = y.shape[0]
+    K, kappa = idx.shape
+    dev = y.device
+    s0, f0, q0 = (torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in scal)
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=dev).reshape(())
+    idx = idx.long()
+    _build.require_cuda(y, resid, s0, f0, q0, delta, idx, zty_s, zn2_s)
+    blocks = _blocks(layout, dev, m)
+    i_star = torch.empty(K, dtype=torch.int64, device=dev)
+    recs = torch.empty((K, REC), dtype=torch.float32, device=dev)
+    no_prog = torch.empty(K, dtype=torch.bool, device=dev)
+    r_out = torch.empty(m, dtype=torch.float32, device=dev)
+    s_out = torch.empty(3, dtype=torch.float32, device=dev)
+    partials = torch.empty(2 * blocks * PARTIAL_BYTES, dtype=torch.uint8, device=dev)
+    argtypes = _DENSE_ARGTYPES if layout == "dense" else _SPARSE_ARGTYPES
+    fn = _build.function("fused_step", f"{layout}_fused_chunk_launch", argtypes)
+    with torch.cuda.device(dev):
+        err = fn(*head, y.data_ptr(), resid.data_ptr(), s0.data_ptr(), f0.data_ptr(),
+                 q0.data_ptr(), delta.data_ptr(), idx.data_ptr(), zty_s.data_ptr(),
+                 zn2_s.data_ptr(), m, K, kappa, int(k0), int(max_iters), int(refresh_every),
+                 _f32(eps_den), _f32(gap_rtol), i_star.data_ptr(), recs.data_ptr(),
+                 no_prog.data_ptr(), r_out.data_ptr(), s_out.data_ptr(), partials.data_ptr(),
+                 blocks, _build.stream(dev))
+    _build.check("fused_step", err, f"{layout}_fused_chunk (cooperative)")
+    return i_star, recs[:, 0], recs[:, 1], no_prog, r_out, (s_out[0], s_out[1], s_out[2])
+
+
+def _check_f32(*tensors):
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the fused chunk runs in float32")
 
 
 def dense_fused_chunk(Xt: torch.Tensor, y: torch.Tensor, resid: torch.Tensor, scal,
@@ -166,44 +254,65 @@ def dense_fused_chunk(Xt: torch.Tensor, y: torch.Tensor, resid: torch.Tensor, sc
     takes the plain version; a CUDA tensor launches the kernel (or raises).
     ``scal`` is the chunk-start (S, F, Q) as 0-d tensors, ``delta`` a 0-d
     tensor, ``k0`` the global iteration count at the chunk start."""
-    _check_chunk(Xt, y, resid, idx, zty_s, zn2_s)
+    if Xt.dim() != 2:
+        raise ValueError(f"need Xt (p, m), got {tuple(Xt.shape)}")
+    _check_chunk(Xt.shape[1], y, resid, idx, zty_s, zn2_s)
     _check_lasso(oracle)
-    kw = dict(oracle=oracle, eps_den=eps_den, gap_rtol=gap_rtol,
-              refresh_every=refresh_every, max_iters=max_iters)
+    kw = dict(eps_den=eps_den, gap_rtol=gap_rtol, refresh_every=refresh_every,
+              max_iters=max_iters)
     if Xt.device.type == "cpu":
-        return dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+        return dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta,
+                                       oracle=oracle, **kw)
     p, m = Xt.shape
-    K, kappa = idx.shape
     if m > M_MAX:
         raise ValueError(
-            f"the fused chunk keeps two (m,) f32 vectors in shared memory: m <= {M_MAX}, "
-            f"got {m}"
+            f"the dense fused chunk keeps two (m,) f32 vectors in shared memory: "
+            f"m <= {M_MAX}, got {m}"
         )
-    if any(t.dtype != torch.float32 for t in (Xt, y, resid, zty_s, zn2_s)):
-        raise TypeError("the fused chunk runs in float32")
-    dev = Xt.device
-    s0, f0, q0 = (torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in scal)
-    delta = torch.as_tensor(delta, dtype=torch.float32, device=dev).reshape(())
-    idx = idx.long()
-    _build.require_cuda(Xt, y, resid, s0, f0, q0, delta, idx, zty_s, zn2_s)
-    blocks = _blocks(dev, m)
-    i_star = torch.empty(K, dtype=torch.int64, device=dev)
-    recs = torch.empty((K, REC), dtype=torch.float32, device=dev)
-    no_prog = torch.empty(K, dtype=torch.bool, device=dev)
-    r_out = torch.empty(m, dtype=torch.float32, device=dev)
-    s_out = torch.empty(3, dtype=torch.float32, device=dev)
-    partials = torch.empty(2 * blocks * PARTIAL_BYTES, dtype=torch.uint8, device=dev)
-    fn = _build.function("fused_step", "dense_fused_chunk_launch", _CHUNK_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(Xt.data_ptr(), y.data_ptr(), resid.data_ptr(), s0.data_ptr(), f0.data_ptr(),
-                 q0.data_ptr(), delta.data_ptr(), idx.data_ptr(), zty_s.data_ptr(),
-                 zn2_s.data_ptr(), p, m, K, kappa, int(k0), int(max_iters),
-                 int(refresh_every), _f32(eps_den), _f32(gap_rtol), i_star.data_ptr(),
-                 recs.data_ptr(), no_prog.data_ptr(), r_out.data_ptr(), s_out.data_ptr(),
-                 partials.data_ptr(), blocks, _build.stream(dev))
-        dense_fused_chunk.launches += 1
-    _build.check("fused_step", err, "dense_fused_chunk (cooperative)")
-    return i_star, recs[:, 0], recs[:, 1], no_prog, r_out, (s_out[0], s_out[1], s_out[2])
+    _check_f32(Xt, y, resid, zty_s, zn2_s)
+    _build.require_cuda(Xt, y)
+    out = _launch_chunk("dense", (Xt.data_ptr(), p), y, resid, scal, idx, zty_s, zn2_s, k0,
+                        delta, **kw)
+    dense_fused_chunk.launches += 1
+    return out
+
+
+def sparse_fused_chunk(values: torch.Tensor, rows: torch.Tensor, y: torch.Tensor,
+                       resid: torch.Tensor, scal, idx: torch.Tensor, zty_s: torch.Tensor,
+                       zn2_s: torch.Tensor, k0: int, delta, *, oracle, eps_den: float,
+                       gap_rtol: float, refresh_every: int, max_iters: int):
+    """K fused FW steps over the block-ELL ``values``/``rows`` ``(nblocks,
+    bs, nnz_max)``; ``idx`` holds feature ids (< p, drawn by the engine; a
+    padded feature scores 0). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (or raises). The other arguments and the
+    returns are ``dense_fused_chunk``'s."""
+    if values.dim() != 3 or rows.shape != values.shape:
+        raise ValueError(
+            f"need values and rows (nblocks, bs, nnz_max), got {tuple(values.shape)}, "
+            f"{tuple(rows.shape)}"
+        )
+    _check_chunk(y.shape[0], y, resid, idx, zty_s, zn2_s)
+    _check_lasso(oracle)
+    kw = dict(eps_den=eps_den, gap_rtol=gap_rtol, refresh_every=refresh_every,
+              max_iters=max_iters)
+    if values.device.type == "cpu":
+        return sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0,
+                                        delta, oracle=oracle, **kw)
+    m = y.shape[0]
+    if m > M_MAX_SPARSE:
+        raise ValueError(
+            f"the sparse fused chunk keeps the (m,) f32 residual in shared memory: "
+            f"m <= {M_MAX_SPARSE}, got {m}"
+        )
+    _check_f32(values, y, resid, zty_s, zn2_s)
+    if rows.dtype != torch.int32:
+        raise TypeError(f"the row slots must be int32, got {rows.dtype}")
+    _build.require_cuda(values, rows, y)
+    nblocks, bs, nnz = values.shape
+    out = _launch_chunk("sparse", (values.data_ptr(), rows.data_ptr(), nblocks * bs, nnz),
+                        y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+    sparse_fused_chunk.launches += 1
+    return out
 
 
 def fused_replay_plain(beta, scale, maxabs, step_inf, stall, i_stars, lams, delta_ts,
@@ -262,4 +371,5 @@ def fused_replay(beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
 
 
 dense_fused_chunk.launches = 0
+sparse_fused_chunk.launches = 0
 fused_replay.launches = 0

@@ -8,11 +8,13 @@ conftest (which builds JAX fixtures):
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: dot products summed in another order than the plain version
-(cuBLAS) differ by rounding, within RTOL_SUM of their Cauchy-Schwarz
-scale; the argmax, the residual update and the fused chunk's replay are
-bit-exact. The fused chunk's records: vertices and stall flags exact (the
-inputs have no near-ties), lam within RTOL_SUM, the residual within
-RTOL_SUM of ||y||.
+(cuBLAS, or torch's reduction over a sparse feature's slots) differ by
+rounding, within RTOL_SUM of their Cauchy-Schwarz scale; the argmax, the
+residual update and the fused chunk's replay are bit-exact. The fused
+chunks' records (K4 and K7): vertices and stall flags exact (the inputs
+have no near-ties), lam within RTOL_SUM, the residual within RTOL_SUM of
+||y||. A sparse solve on the kernels against one on the plain ops:
+objectives within RTOL_SUM.
 """
 import pytest
 import torch
@@ -80,3 +82,139 @@ def test_kernel_matches_plain_on_the_card(kernel):
         assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want))
     launched = {k: n - before[k] for k, n in launch_counts().items()}
     assert sum(launched.values()) >= 1  # the kernel ran, not the plain version
+
+
+def _sparse_problem(p=1000, m=803, density=0.02, block_size=128):
+    """A ragged block-ELL matrix on the card: p not a multiple of the block
+    size, odd m, unit-norm features."""
+    from repro_torch.sparse import SparseBlockMatrix
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(1)
+    X = torch.randn((p, m), generator=g)
+    X[torch.rand((p, m), generator=g) > density] = 0.0
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True).clamp_min(1e-12)
+    y = torch.randn(m, generator=g)
+    return SparseBlockMatrix.from_dense(X, block_size=block_size).to("cuda"), y.cuda(), X.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sparse_sampled_scores", "sparse_colstats",
+                                    "sparse_fused_chunk", "sparse_solve",
+                                    "sparse_transpose_matvec"])
+def test_sparse_kernel_matches_plain_on_the_card(kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import fw_solve
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import sparse_colstats as sc
+    from repro_torch.kernels import sparse_grad as sg
+
+    before = launch_counts()
+    mat, y, X = _sparse_problem()
+    scale = float(torch.linalg.vector_norm(y))  # unit-norm features
+    if kernel == "sparse_sampled_scores":
+        for dt in (torch.float32, torch.bfloat16):
+            vals = mat.values.to(dt)
+            for blk, bs in ((torch.tensor([7, 0, 7], device="cuda"), 128),
+                            (torch.randint(0, 1000, (300,), device="cuda"), 1)):
+                got = sg.sparse_sampled_scores(vals, mat.rows, y, blk, bs)
+                want = sg.sparse_sampled_scores_plain(vals, mat.rows, y, blk, bs)
+                assert float((got - want).abs().max()) <= RTOL_SUM * scale
+                feats = fw.block_indices(blk, bs)
+                assert bool((got[feats >= 1000] == 0).all())
+    elif kernel == "sparse_colstats":
+        got = sc.sparse_colstats(mat.values, mat.rows, y, mat.p)
+        want = sc.sparse_colstats_plain(mat.values, mat.rows, y, mat.p)
+        assert float((got[0] - want[0]).abs().max()) <= RTOL_SUM * scale
+        assert float((got[1] - want[1]).abs().max()) <= RTOL_SUM
+    elif kernel == "sparse_transpose_matvec":  # K6's sweep against the plain products
+        from repro_torch.sparse import ops
+
+        got = ops.sparse_transpose_matvec(mat, y)
+        want = ops.sparse_transpose_matvec(mat, y, use_kernel=False)
+        assert float((got - want).abs().max()) <= RTOL_SUM * scale
+    elif kernel == "sparse_fused_chunk":
+        idx = torch.randint(0, 1000, (8, 300), device="cuda")
+        zero = torch.zeros((), device="cuda")
+        args = (mat.values, mat.rows, y, y, (zero, zero, zero), idx, (X @ y)[idx],
+                (X * X).sum(1)[idx], 60, torch.tensor(20.0, device="cuda"))
+        kw = dict(oracle=LASSO, eps_den=1e-12, gap_rtol=1e-6, refresh_every=64, max_iters=66)
+        got, want = fs.sparse_fused_chunk(*args, **kw), fs.sparse_fused_chunk_plain(*args, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+        assert float((got[1] - want[1]).abs().max()) <= RTOL_SUM
+        assert float((got[4] - want[4]).abs().max()) <= RTOL_SUM * scale
+    else:  # a fused and an unfused sparse solve, kernels against plain ops
+        for fuse in (1, 8):
+            res = [fw_solve(mat, y, FWConfig(delta=5.0, kappa=100, max_iters=40, tol=0.0,
+                                             patience=10**9, backend="sparse",
+                                             fuse_steps=fuse, sparse_kernel=sk),
+                            TorchSampler(3, "cuda"), device="cuda")
+                   for sk in (None, False)]
+            assert res[0].iterations == res[1].iterations == 40
+            assert abs(float(res[0].objective) - float(res[1].objective)) <= RTOL_SUM * abs(
+                float(res[1].objective))
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    assert launched.get(kernel, 1) >= 1 and sum(launched.values()) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_fused_chunk_launches_at_a_larger_m_after_a_smaller_one(layout):
+    """The chunk's grid is cached per m; a query at a small m must not lower
+    the kernel's shared memory limit below a later launch at a larger,
+    already cached m (it did: "too many blocks in cooperative launch")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.sparse import SparseBlockMatrix
+
+    kw = dict(oracle=LASSO, eps_den=1e-12, gap_rtol=1e-6, refresh_every=64, max_iters=10**6)
+    zero = torch.zeros((), device="cuda")
+    for m in (12_000, 80, 12_000):
+        g = torch.Generator(device="cpu")
+        g.manual_seed(m)
+        X = torch.randn((300, m), generator=g)
+        X[torch.rand((300, m), generator=g) > 50 / m] = 0.0
+        X = (X / torch.linalg.vector_norm(X, dim=1, keepdim=True).clamp_min(1e-12)).cuda()
+        y = torch.randn(m, generator=g).cuda()
+        idx = torch.randint(0, 300, (2, 64), generator=g).cuda()
+        stats = ((X @ y)[idx], (X * X).sum(1)[idx])
+        if layout == "dense":
+            head, fn = (X,), fs.dense_fused_chunk
+        else:
+            mat = SparseBlockMatrix.from_dense(X.cpu()).to("cuda")
+            head, fn = (mat.values, mat.rows), fs.sparse_fused_chunk
+        out = fn(*head, y, y, (zero, zero, zero), idx, *stats, 0,
+                 torch.tensor(5.0, device="cuda"), **kw)
+        assert out[0].shape == (2,) and bool(torch.isfinite(out[4]).all())
+
+
+@pytest.mark.gpu
+def test_sparse_kernels_launch_on_a_second_card():
+    """K5, K6 and K7 at an m whose shared-memory residual needs the opt-in
+    limit launch on a second card after the first: each device sets the
+    limit for itself (a cache shared across devices left the second
+    without it)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.kernels import sparse_colstats as sc
+    from repro_torch.kernels import sparse_grad as sg
+
+    mat0, y0, X0 = _sparse_problem(p=300, m=16_087, density=0.002)
+    scale = float(torch.linalg.vector_norm(y0))
+    zero = torch.zeros(())
+    kw = dict(oracle=LASSO, eps_den=1e-12, gap_rtol=1e-6, refresh_every=64, max_iters=10**6)
+    for dev in ("cuda:0", "cuda:1"):
+        mat, y, X = mat0.to(dev), y0.to(dev), X0.to(dev)
+        blk = torch.arange(300, device=dev)
+        got = sg.sparse_sampled_scores(mat.values, mat.rows, y, blk, 1)
+        want = sg.sparse_sampled_scores_plain(mat.values, mat.rows, y, blk, 1)
+        assert float((got - want).abs().max()) <= RTOL_SUM * scale
+        got = sc.sparse_colstats(mat.values, mat.rows, y, mat.p)[0]
+        want = sc.sparse_colstats_plain(mat.values, mat.rows, y, mat.p)[0]
+        assert float((got - want).abs().max()) <= RTOL_SUM * scale
+        idx = blk.view(2, 150)
+        z = zero.to(dev)
+        out = fs.sparse_fused_chunk(mat.values, mat.rows, y, y, (z, z, z), idx, (X @ y)[idx],
+                                    (X * X).sum(1)[idx], 0, torch.tensor(5.0, device=dev), **kw)
+        assert out[0].device == torch.device(dev) and bool(torch.isfinite(out[4]).all())

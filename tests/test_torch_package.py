@@ -4,7 +4,9 @@
     imports JAX or the reference;
   * the entry points run on the card by default, and raise without one;
   * the reference's options that the port does not run yet raise
-    NotImplementedError naming their ROADMAP.md item;
+    NotImplementedError naming their ROADMAP.md item; the 'sparse' backend
+    runs, on a SparseBlockMatrix only, and the sparse reader/writer
+    (``sparse/io.py``) is still absent;
   * the fused K-step chunk runs, and says so, where the reference's does.
 """
 import ast
@@ -18,6 +20,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import FWConfig, StreamSampler, TorchSampler, engine, fw_path, fw_solve
 from repro_torch.core.fw_lasso import LASSO, LassoOracle
+from repro_torch.sparse import SparseBlockMatrix
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -37,6 +40,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
+    assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 
@@ -60,6 +64,12 @@ def test_entry_points_need_a_card_unless_told_cpu():
         fw_path(Xt, y, [0.5, 1.0], cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.problem_from_numpy(Xt, y)
+    mat = SparseBlockMatrix.from_dense(Xt, block_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.sparse_from_reference(mat.values.numpy(), mat.rows.numpy(), 40, 12, 16,
+                                      mat.nnz_max)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fw_solve(mat, y, dataclasses.replace(cfg, backend="sparse"), sampler)
     res = fw_solve(Xt, y, cfg, sampler, device="cpu")
     assert res.iterations == 3 and res.alpha.device.type == "cpu"
 
@@ -67,7 +77,6 @@ def test_entry_points_need_a_card_unless_told_cpu():
 @pytest.mark.parametrize("change,item", [
     (dict(step_rule="away"), "item 9"),
     (dict(telemetry=object()), "item 11"),
-    (dict(backend="sparse"), "item 7"),
     (dict(backend="distributed"), "item 13"),
 ])
 def test_unported_options_raise(change, item):
@@ -79,11 +88,47 @@ def test_unported_options_raise(change, item):
         fw_path(Xt, y, [1.0], cfg, device="cpu")
 
 
-@pytest.mark.parametrize("backend", ["torch", "kernels"])
+def test_sparse_io_is_not_ported_yet():
+    import repro_torch.sparse as sparse
+
+    assert not (ROOT / "src" / "repro_torch" / "sparse" / "io.py").exists()
+    assert not hasattr(sparse, "load_svmlight")
+    assert "item 7a" in sparse.__doc__
+
+
+@pytest.mark.parametrize("sparse_kernel", [None, True, False])
+def test_sparse_backend_runs_on_a_sparse_matrix(sparse_kernel):
+    Xt, y = _problem()
+    mat = SparseBlockMatrix.from_dense(Xt, block_size=16)
+    cfg = FWConfig(delta=1.0, kappa=5, max_iters=3, backend="sparse",
+                   sparse_kernel=sparse_kernel)
+    res = fw_solve(mat, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    assert res.iterations == 3 and res.alpha.shape == (40,)
+    assert len(fw_path(mat, y, [0.5, 1.0], cfg, device="cpu").points) == 2
+
+
+@pytest.mark.parametrize("matrix,backend,msg", [
+    ("sparse", "kernels", "use FWConfig"),
+    ("sparse", "torch", "use FWConfig"),
+    ("dense", "sparse", "needs a repro_torch.sparse.SparseBlockMatrix"),
+])
+def test_matrix_and_backend_must_agree(matrix, backend, msg):
+    Xt, y = _problem()
+    X = SparseBlockMatrix.from_dense(Xt, block_size=16) if matrix == "sparse" else Xt
+    cfg = FWConfig(delta=1.0, kappa=5, max_iters=3, backend=backend)
+    with pytest.raises(ValueError, match=msg):
+        fw_solve(X, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        fw_path(X, y, [1.0], cfg, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernels", "sparse"])
 def test_fused_chunk_runs_and_reports_its_width(backend):
     Xt, y = _problem()
     cfg = FWConfig(delta=1.0, kappa=5, max_iters=21, tol=0.0, patience=10**9,
                    backend=backend, fuse_steps=8)
+    if backend == "sparse":
+        Xt = SparseBlockMatrix.from_dense(Xt, block_size=16)
     res = fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
     assert (res.iterations, res.effective_fuse_steps) == (21, 8)
     pts = fw_path(Xt, y, [0.5, 1.0], cfg, device="cpu").points
@@ -123,8 +168,9 @@ def test_config_validates_and_defaults_to_the_kernels():
         FWConfig(delta=1.0, step_rule="greedy")
     assert convert.config_from_reference({"delta": 2.0, "backend": "xla"}).backend == "torch"
     assert convert.config_from_reference({"delta": 2.0, "backend": "pallas"}).backend == "kernels"
-    with pytest.raises(ValueError, match="carry across"):
-        convert.config_from_reference({"delta": 2.0, "backend": "sparse"})
+    assert convert.config_from_reference({"delta": 2.0, "backend": "sparse"}).backend == "sparse"
+    with pytest.raises(ValueError, match="carry across.*item 13"):
+        convert.config_from_reference({"delta": 2.0, "backend": "distributed"})
 
 
 def test_stream_sampler_checks_its_stream():
