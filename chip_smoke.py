@@ -13,6 +13,10 @@ through phases 2-5; any failed check raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at its
    path's shapes and at ragged ones, in f32 and bf16 (the fused chunks K4
    and K7 and the replay in f32, the replay bit for bit through a renorm);
+   K2's argmax bit-exact at n on either side of a block's share of scores
+   and at n = p, on a tie across blocks, NaN and every index masked; K6 on
+   explicit stored zeros, nnz_max 1, 13 and 67, f32 and bf16, many tiles
+   a block and y too long to stage, two launches bitwise equal;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -20,7 +24,8 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    - dense: ``fw_path`` on 'kernels' at the paper's dense size (p =
      4,272,227, m = 800, f32, kappa = 1% of p, uniform sampling), one
      step per dispatch, then the same 100-point grid with ``fuse_steps=8`` (K4 and the replay once
-     per chunk, K2/K3 never);
+     per chunk, K2/K3 never), then one point with 'full' sampling (deterministic
+     FW, 50 steps, K2 over all p coordinates a step) against the 'torch' backend;
    - sparse: the E2006-log1p proxy at its published size (m = 16,087,
      p = 4,272,227, column density 0.002, block-ELL, built on the card),
      the 100-point grid on 'sparse' with ``fuse_steps=8`` (K6 per point,
@@ -34,8 +39,9 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    must agree up to the first near-tie (a fused stop may overshoot by at
    most 7 steps) and the objectives to a stated tolerance;
 5. timing of each kernel, its bound, its plain version and a library
-   call, with CUDA events; and the host's share of a step, one step per
-   dispatch and fused at K = 8 and K = 32, on each path.
+   call, with CUDA events (K2's argmax also at n = p); and the host's
+   share of a step, one step per dispatch and fused at K = 8 and K = 32,
+   on each path.
 
 About 7 minutes on an H100, the builds included. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
@@ -69,6 +75,7 @@ FUSE = 8  # the fused path's K, the value the reference's tests pin
 # dataset at scale 0.01 (m = 160, p = 42,722)
 M_E2006, COL_DENSITY, SPARSE_BLOCK = 16_087, 0.002, 256
 N_BLOCK_STEPS = 300  # the 'block'-sampling point's fixed length
+N_FULL_STEPS = 50  # the dense 'full'-sampling point's, each step reading all of Xt
 
 # f32 sums of m products, taken in another order than the plain version's:
 # the difference is rounding, a few ulps of the Cauchy-Schwarz scale
@@ -229,6 +236,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     if not kernels_only:
         main_launches, main_run = phase3_main_path(torch, Xt, y, coef)
         fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
+        phase3_full_point(torch, Xt, y, main_run)
         launches.update(main_launches)
         for name in ("dense_fused_chunk", "fused_replay"):
             launches[name] = fused_launches[name]
@@ -375,6 +383,54 @@ def _check_vertex(torch, fw, label, Xt, r, blk, bs, p):
               f"{label}: g_star {float(g_k)} vs plain {float(g_p)}")
 
 
+def argmax_edge_cases(torch, fw, dev, g):
+    """vertex_argmax bit-exact against argmax_plain, one launch a call: at n
+    on either side of one block's share of scores, at n = p under 'full'
+    sampling (blocks of 128, every block in order), on a tie across two
+    blocks of the grid, on NaN scores and with every index masked."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    share = fw.ARGMAX_THREADS * fw.ARGMAX_PER_THREAD
+    n_full = -(-P_PAPER // 128) * 128
+    for n, bs in ((1, 1), (31, 1), (1025, 1), (share - 1, 1), (share, 1), (share + 1, 1),
+                  (n_full, 128)):
+        nb = n // bs
+        if bs == 1:  # distinct random ids, the 5 largest masked
+            blk = torch.randperm(4 * n + 8, generator=g, device=dev)[:nb]
+            p_valid = int(blk.max()) - 4
+        else:
+            blk = torch.arange(nb, device=dev)
+            p_valid = P_PAPER
+        ok = fw.block_indices(blk, bs) < p_valid
+        valid = ok.nonzero().view(-1)
+        blocks, chunk = fw.argmax_grid(n, sms)
+        a, b = (chunk - 1, chunk) if blocks > 1 else (n // 3, n - 1)
+        for kind in ("random", "tie across blocks", "nan", "all masked"):
+            s = torch.randn(n, generator=g, device=dev)
+            pv, want = p_valid, None
+            if kind == "tie across blocks" and a != b and bool(ok[a]) and bool(ok[b]):
+                s[a], s[b] = 50.0, -50.0
+                want = a
+            elif kind == "nan" and valid.numel():
+                want = int(valid[valid.numel() // 2])
+                s[want] = float("nan")
+                s[int(valid[-1])] = float("nan")
+            elif kind == "all masked":
+                pv, want = 0, 0
+            before = fw.vertex_argmax.launches
+            i, v = fw.vertex_argmax(s, blk, bs, pv)
+            i_p, v_p = fw.argmax_plain(s, blk, bs, pv)
+            check(fw.vertex_argmax.launches == before + 1, "vertex_argmax: one launch a call")
+            vk, vp = float(v), float(v_p)
+            check(int(i) == int(i_p) and (vk == vp or (math.isnan(vk) and math.isnan(vp))),
+                  f"vertex_argmax n={n} bs={bs} {kind}: ({int(i)}, {vk}) vs plain "
+                  f"({int(i_p)}, {vp})")
+            if want is not None:
+                check(int(i) == int(fw.block_indices(blk, bs)[want]),
+                      f"vertex_argmax n={n} bs={bs} {kind}: the winner is not position {want}")
+        print(f"[kernels] vertex_argmax n={n} bs={bs}, {blocks} blocks of {chunk} scores: "
+              "random, a tie across blocks, NaN, all masked: bit-exact with the plain version")
+
+
 def phase2_kernels(torch, Xt_main, y_main):
     from repro_torch.core.sampling import kappa_fraction
     from repro_torch.core.vertex import TorchSampler
@@ -466,6 +522,8 @@ def phase2_kernels(torch, Xt_main, y_main):
             _check_vertex(torch, fw, f"fw_vertex {lab} bs={bs}", X, r, blk, bs, p_r)
             print(f"[kernels] sampled_scores/vertex_argmax {lab} bs={bs} nb={blk.numel()}: "
                   f"err {e:.2e}, tail rows {int(tail.sum())} score 0, i_star {int(ik)}")
+
+    argmax_edge_cases(torch, fw, dev, g)
 
     # ---- K3 residual_update -----------------------------------------------
     def k3(label, m_r, dt):
@@ -784,6 +842,63 @@ def phase3_fused_path(torch, Xt, y, main):
     return launches, dict(cfg=cfg, res=res, rec=rec)
 
 
+def phase3_full_point(torch, Xt, y, main):
+    """One grid point with 'full' sampling (deterministic FW: every
+    coordinate scored each step, blocks of 128), a fixed N_FULL_STEPS
+    steps: K2's scores and argmax once a step at n = p. Its vertices
+    against the 'torch' backend's, the same up to a near-tie."""
+    from repro_torch import kernels
+    from repro_torch.core import fw_solve
+    from repro_torch.core.vertex import TorchSampler
+
+    p = Xt.shape[0]
+    delta = float(main["deltas"][N_POINTS // 2])
+    runs = {}
+    for backend in ("kernels", "torch"):
+        cfg = dataclasses.replace(main["cfg"], backend=backend, sampling="full",
+                                  max_iters=N_FULL_STEPS, tol=0.0, patience=10**9)
+        seq, resid = [], []
+
+        def hook(state):
+            seq.append(state.i_star)
+            resid.append(state.co.resid)
+
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fw_solve(Xt, y, cfg, TorchSampler(0, Xt.device), delta=delta, device=Xt.device,
+                       on_step=hook)
+        obj = float(res.objective)
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        print(f"[full] delta={delta:.6g} backend={backend} sampling=full blocks of "
+              f"{cfg.block_size}: iters={res.iterations} n_dots={res.n_dots} objective={obj!r} "
+              f"{dt:.3f} s ({1e3 * dt / res.iterations:.4f} ms/iteration); launches {launches}")
+        check(math.isfinite(obj) and res.iterations == N_FULL_STEPS, f"full point {backend}")
+        check(res.n_dots == N_FULL_STEPS * p, f"full point {backend}: n_dots")
+        if backend == "kernels":
+            check(launches["sampled_scores"] == launches["vertex_argmax"] == N_FULL_STEPS
+                  == launches["residual_update"], "full point: K2 / K3 launches != steps")
+        runs[backend] = (torch.stack(seq).cpu(), resid, obj)
+    (sk, _, ok), (st, rt, ot) = runs["kernels"], runs["torch"]
+    diff = (sk != st).nonzero().view(-1)
+    if diff.numel():
+        t = int(diff[0])
+        r_pre = rt[t - 1] if t > 0 else y
+        top = torch.topk((Xt @ r_pre).abs(), 2).values
+        margin = float(top[0] - top[1])
+        rnorm = float(torch.linalg.vector_norm(r_pre))
+        check(margin <= RTOL_TIE * rnorm, f"full point step {t}: vertex {int(sk[t])} (kernels) "
+              f"vs {int(st[t])} (torch), top-2 margin {margin / rnorm:.2e} ||r||: no near-tie")
+        print(f"[full] the same vertices for {t} steps, then a near-tie (margin "
+              f"{margin / rnorm:.2e} ||r||)")
+    else:
+        rel = abs(ok - ot) / abs(ot)
+        print(f"[full] identical vertex sequences ({N_FULL_STEPS} steps), objectives "
+              f"{ok!r}/{ot!r}, rel diff {rel:.2e} (rtol {RTOL_OBJ_SAME:g})")
+        check(rel <= RTOL_OBJ_SAME, "full point: objectives differ")
+
+
 def _compare_paths(torch, Xt, y, deltas, kappa, a, b, max_overshoot, obj_scale=0.0):
     """Run ``a`` against run ``b`` (which recorded every step's residual)
     on ``Xt`` (dense, or a ``SparseBlockMatrix``)
@@ -931,6 +1046,49 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def vertex_argmax_times(torch, fw, scores, blk, bs, p, reps=400, plain_reps=40):
+    """Device ms of ``fw.vertex_argmax`` and its plain version on these
+    inputs, queued back to back, and the bytes and operations its bound
+    counts: every score and sampled block id read once, 12 bytes out."""
+    n = scores.numel()
+    return dict(
+        ms=_time_queued(torch, lambda i: fw.vertex_argmax(scores, blk, bs, p), reps),
+        plain_ms=_time_queued(torch, lambda i: fw.argmax_plain(scores, blk, bs, p), plain_reps),
+        nbytes=n * 4 + blk.numel() * 8 + 12, flops=3 * n)
+
+
+def sparse_colstats_times(torch, sc, mat, y, flush, reps=5):
+    """K6 (``sc.sparse_colstats``) over the whole block-ELL matrix with the
+    L2 flushed before each launch: its device ms, its plain version's,
+    cuSPARSE's CSR SpMV on a copy (zty alone; None if the copy fails), and
+    the bytes and operations its bound counts: every value slot of the p
+    features (the padding is found only by reading it), a row only for a
+    stored nonzero, y once, two floats out a feature."""
+    p, m, nnz = mat.p, mat.m, mat.nnz_max
+    vals, rows = mat.values, mat.rows
+    nz = int(torch.count_nonzero(vals.view(-1, nnz)[:p]))
+    csr = None
+    try:
+        mask = vals.view(-1, nnz)[:p] != 0
+        crow = torch.zeros(p + 1, dtype=torch.int64, device=vals.device)
+        crow[1:] = torch.cumsum(mask.sum(dim=1), 0)
+        csr = torch.sparse_csr_tensor(crow, rows.view(-1, nnz)[:p][mask].long(),
+                                      vals.view(-1, nnz)[:p][mask], size=(p, m),
+                                      check_invariants=False)
+        del mask
+        lib_ms = _time_cold(torch, lambda: torch.mv(csr, y), reps, flush)
+        note = " [library: torch.mv on a CSR copy of Xt (cuSPARSE SpMV), zty alone]"
+    except (RuntimeError, NotImplementedError) as e:  # the yardstick only
+        lib_ms, note = None, f" [library: none, the CSR copy failed: {e}]"
+    del csr
+    return dict(
+        ms=_time_cold(torch, lambda: sc.sparse_colstats(vals, rows, y, p), reps, flush),
+        plain_ms=_time_cold(torch, lambda: sc.sparse_colstats_plain(vals, rows, y, p), 3,
+                            flush),
+        library_ms=lib_ms, nbytes=p * nnz * vals.element_size() + nz * 4 + 2 * p * 4 + m * 4,
+        flops=4 * nz, nz=nz, note=note + f" L2 flushed, {nz:,} stored nonzeros")
+
+
 def phase5_timing(torch, Xt, y):
     from repro_torch.core import engine, fw_lasso
     from repro_torch.core.vertex import TorchSampler
@@ -972,10 +1130,17 @@ def phase5_timing(torch, Xt, y):
         note=f" [kappa={kappa}, m={m}; library: torch.mv on Xt.index_select]")
 
     scores = fw.sampled_scores(Xt, r, idxs[0], 1)
-    row("vertex_argmax",
-        _time_queued(torch, lambda i: fw.vertex_argmax(scores, idxs[0], 1, p), 400),
-        _time_queued(torch, lambda i: fw.argmax_plain(scores, idxs[0], 1, p), 40),
-        None, kappa * 4 + kappa * 8 + 8 + 4, 3 * kappa, note=" [library: none]")
+    t = vertex_argmax_times(torch, fw, scores, idxs[0], 1, p)
+    row("vertex_argmax", t["ms"], t["plain_ms"], None, t["nbytes"], t["flops"],
+        note=f" [n = kappa = {kappa}, width 1; library: none]")
+    blk = torch.arange(-(-p // 128), device=dev)  # 'full' sampling: every block of 128
+    scores = fw.sampled_scores(Xt, r, blk, 128)
+    t = vertex_argmax_times(torch, fw, scores, blk, 128, p, reps=200)
+    b_ms, b_by = _bound(t["nbytes"], t["flops"])
+    print(f"[timing] vertex_argmax at n = {scores.numel()} ('full' sampling, {blk.numel()} blocks "
+          f"of 128): {t['ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / t['ms']:.1f}% "
+          f"of bound), plain {t['plain_ms']:.6f} ms")
+    del scores
 
     z = Xt[0].clone()
     lam = torch.tensor(0.25, device=dev)
@@ -1124,6 +1289,23 @@ def _ragged_sparse(torch, g, dev, dtype=None):
     return mat.astype(dtype), X
 
 
+def _ell_with_zeros(torch, g, p, m, nnz_max, dtype, block_size=128):
+    """Block-ELL arrays on the card: feature f holds 0-nnz_max stored slots
+    first, padding (value 0 at row 0) after, the tail features past p all
+    padding; about one stored slot in ten holds an explicit 0 at its row."""
+    dev = g.device
+    pp = -(-p // block_size) * block_size
+    count = torch.randint(0, nnz_max + 1, (pp, 1), generator=g, device=dev)
+    stored = torch.arange(nnz_max, device=dev)[None, :] < count
+    stored[p:] = False
+    vals = torch.randn((pp, nnz_max), generator=g, device=dev) * stored
+    vals[(torch.rand((pp, nnz_max), generator=g, device=dev) < 0.1) & stored] = 0.0
+    rows = torch.randint(0, m, (pp, nnz_max), generator=g, device=dev,
+                         dtype=torch.int32) * stored
+    shape = (pp // block_size, block_size, nnz_max)
+    return vals.to(dtype).view(shape), rows.view(shape)
+
+
 def phase2_sparse_kernels(torch, mat, y):
     """K5, K6 and K7 against their plain versions on the card, at the
     sparse path's shapes and at ragged ones."""
@@ -1192,23 +1374,36 @@ def phase2_sparse_kernels(torch, mat, y):
                1.0, want)
 
     # ---- K6 ------------------------------------------------------------------
-    def k6(label, m_, yv):
-        zty, zn2 = sc.sparse_colstats(m_.values, m_.rows, yv, m_.p)
-        zty_p, zn2_p = sc.sparse_colstats_plain(m_.values, m_.rows, yv, m_.p)
+    def k6(label, vals, rows, p_, yv):
+        zty, zn2 = sc.sparse_colstats(vals, rows, yv, p_)
+        again = sc.sparse_colstats(vals, rows, yv, p_)
+        zty_p, zn2_p = sc.sparse_colstats_plain(vals, rows, yv, p_)
         norms = zn2_p.sqrt() * float(torch.linalg.vector_norm(yv.float()))
         e1, a1 = _scaled_err(torch, zty, zty_p, norms.clamp_min(1e-30))
         e2, a2 = _scaled_err(torch, zn2, zn2_p, zn2_p.clamp_min(1e-30))
-        print(f"[kernels] sparse_colstats {label}: zty err {e1:.2e} (abs {a1:.2e}), "
-              f"znorm2 rel err {e2:.2e} (abs {a2:.2e})")
-        check(e1 <= RTOL_SUM and e2 <= RTOL_SUM and zty.shape == (m_.p,),
+        same = torch.equal(zty, again[0]) and torch.equal(zn2, again[1])
+        pl = sc.plan(yv.numel(), vals.shape[2], vals.element_size())
+        print(f"[kernels] sparse_colstats {label} ({pl}): zty err {e1:.2e} (abs {a1:.2e}), "
+              f"znorm2 rel err {e2:.2e} (abs {a2:.2e}), two launches bitwise equal: {same}")
+        check(e1 <= RTOL_SUM and e2 <= RTOL_SUM and zty.shape == (p_,) and same,
               f"sparse_colstats {label} disagrees")
         return max(a1, a2)
 
-    errs["sparse_colstats"] = k6(f"main p={p} nnz_max={nnz} f32", mat, y)
+    errs["sparse_colstats"] = k6(f"main p={p} nnz_max={nnz} f32", mat.values, mat.rows, p, y)
     for dt in (torch.float32, torch.bfloat16):
         rag, _ = _ragged_sparse(torch, g, dev, dt)
-        k6(f"p=1000 m=803 nnz_max=13 {str(dt)[6:]}", rag, torch.randn(803, generator=g,
-                                                                      device=dev))
+        k6(f"p=1000 m=803 nnz_max=13 {str(dt)[6:]}", rag.values, rag.rows, rag.p,
+           torch.randn(803, generator=g, device=dev))
+    # explicit stored zeros, nnz_max 1 / 13 / 67 (a ragged tail past the last
+    # tile), many tiles a block (the ring wraps), y past the staging budget
+    for nnz_max, m_, p_, dts in ((1, 803, 1000, "f32 bf16"), (13, 803, 1000, "f32 bf16"),
+                                 (67, 803, 1000, "f32 bf16"), (67, 803, 300_001, "f32 bf16"),
+                                 (13, 60_000, 20_000, "f32 bf16")):
+        for dt in dts.split():
+            vals, rows = _ell_with_zeros(torch, g, p_, m_, nnz_max,
+                                         torch.float32 if dt == "f32" else torch.bfloat16)
+            k6(f"p={p_} m={m_} nnz_max={nnz_max} {dt} stored zeros", vals, rows, p_,
+               torch.randn(m_, generator=g, device=dev))
 
     # ---- K7 at the main shapes, then ragged -----------------------------------
     blocks = fs._blocks("sparse", dev, mat.m)
@@ -1499,28 +1694,9 @@ def phase5_sparse_timing(torch, mat, y):
     print(f"[timing] sparse_sampled_scores width {SPARSE_BLOCK} ({nb} blocks): {t_k:.6f} ms, "
           f"bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / t_k:.1f}% of bound), plain {t_p:.6f} ms")
 
-    # K6, with cuSPARSE's CSR matrix-vector product as zty's yardstick
-    nz = int(torch.count_nonzero(slots[:p]))
-    csr = None
-    try:
-        mask = vals.view(-1, nnz)[:p] != 0
-        counts = mask.sum(dim=1)
-        crow = torch.zeros(p + 1, dtype=torch.int64, device=dev)
-        crow[1:] = torch.cumsum(counts, 0)
-        csr = torch.sparse_csr_tensor(crow, rows.view(-1, nnz)[:p][mask].long(),
-                                      vals.view(-1, nnz)[:p][mask], size=(p, m),
-                                      check_invariants=False)
-        del mask
-        lib_ms = _time_cold(torch, lambda: torch.mv(csr, y), 5, flush)
-        lib_note = " [library: torch.mv on a CSR copy of Xt (cuSPARSE SpMV), zty alone]"
-    except (RuntimeError, NotImplementedError) as e:  # the yardstick only
-        lib_ms, lib_note = None, f" [library: none, the CSR copy failed: {e}]"
-    del csr
-    row("sparse_colstats",
-        _time_cold(torch, lambda: sc.sparse_colstats(vals, rows, y, p), 5, flush),
-        _time_cold(torch, lambda: sc.sparse_colstats_plain(vals, rows, y, p), 3, flush),
-        lib_ms, p * nnz * 4 + nz * 4 + 2 * p * 4 + m * 4, 4 * nz,
-        note=lib_note + f" L2 flushed, {nz:,} stored nonzeros")
+    k6 = sparse_colstats_times(torch, sc, mat, y, flush)
+    row("sparse_colstats", k6["ms"], k6["plain_ms"], k6["library_ms"], k6["nbytes"],
+        k6["flops"], note=k6["note"])
 
     stats = engine.precompute_colstats(mat, y, cfg)
     delta = torch.tensor(50.0, device=dev)

@@ -25,24 +25,14 @@ __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __re
   if (lane == 0) scores[j] = score;
 }
 
-// One block: i_star = the global index of the first max of |scores|, with
-// indices >= p_valid masked to -1; g_star = its score.
-__global__ void vertex_argmax_kernel(const float* __restrict__ scores,
-                                     const long long* __restrict__ blk, long long n, int bs,
-                                     long long p_valid, long long* __restrict__ i_star,
-                                     float* __restrict__ g_star) {
-  __shared__ float sb[32];
-  __shared__ long long sj[32];
-  float best = -INFINITY;
-  long long bj = LLONG_MAX;
-  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
-    const long long idx = blk[j / bs] * bs + j % bs;
-    const float mag = idx < p_valid ? fabsf(scores[j]) : -1.0f;
-    if (better(mag, j, best, bj)) {
-      best = mag;
-      bj = j;
-    }
-  }
+constexpr int AM_THREADS = 256;
+constexpr int AM_WARPS = AM_THREADS / 32;
+
+// The block-wide first max of (best, bj) under `better`, returned to
+// thread 0 (the block's threads all take part).
+__device__ __forceinline__ void block_best(float& best, long long& bj) {
+  __shared__ float sb[AM_WARPS];
+  __shared__ long long sj[AM_WARPS];
   float unused = 0.f;
   warp_best(best, bj, unused);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -52,14 +42,97 @@ __global__ void vertex_argmax_kernel(const float* __restrict__ scores,
   }
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    best = lane < nw ? sb[lane] : -INFINITY;
-    bj = lane < nw ? sj[lane] : LLONG_MAX;
+    best = lane < AM_WARPS ? sb[lane] : -INFINITY;
+    bj = lane < AM_WARPS ? sj[lane] : LLONG_MAX;
     warp_best(best, bj, unused);
-    if (lane == 0) {
-      *i_star = blk[bj / bs] * bs + bj % bs;
-      *g_star = scores[bj];
+  }
+  __syncthreads();  // sb, sj free for the next call
+}
+
+// i_star = the global index of the first max of |scores| (indices >=
+// p_valid masked to -1), g_star = its score. Block b reduces the scores
+// [b * chunk, (b + 1) * chunk) (chunk a multiple of 4) in quads of 4, 16
+// bytes a load when `vec`; each thread walks the sampled blocks
+// (sampled block q, offset r) by a fixed stride, with no division in the
+// loop. The block's first max goes to part_best/part_j; the last block
+// to finish (a ticket from `done`) reduces the partials under `better` and
+// resets `done` to 0 for the next launch. `better` is a total order on
+// (value, position), so the result does not depend on which block is last.
+__global__ void __launch_bounds__(AM_THREADS)
+vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restrict__ blk,
+                     long long n, int bs, long long p_valid, long long chunk, int vec,
+                     float* part_best, long long* part_j, unsigned int* done,
+                     long long* __restrict__ i_star, float* __restrict__ g_star) {
+  __shared__ bool last;
+  const long long j0 = blockIdx.x * chunk;
+  const long long j1 = j0 + chunk < n ? j0 + chunk : n;
+  constexpr long long STRIDE = 4 * AM_THREADS;
+  const long long step_q = STRIDE / bs;
+  const int step_r = (int)(STRIDE % bs);
+  long long j = j0 + 4 * threadIdx.x;
+  long long q = j / bs;  // the sampled block of score j, and j's offset in it
+  int r = (int)(j % bs);
+  float best = -INFINITY;
+  long long bj = LLONG_MAX;
+  for (; j < j1; j += STRIDE) {
+    float s[4];
+    if (vec && j + 4 <= j1) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(scores + j));
+      s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = j + c < j1 ? __ldg(scores + j + c) : 0.f;
     }
+    long long qc = q;
+    int rc = r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (rc == bs) {
+        rc = 0;
+        ++qc;
+      }
+      if (j + c < j1) {
+        const long long idx = __ldg(blk + qc) * bs + rc;
+        const float mag = idx < p_valid ? fabsf(s[c]) : -1.0f;
+        if (better(mag, j + c, best, bj)) {
+          best = mag;
+          bj = j + c;
+        }
+      }
+      ++rc;
+    }
+    q += step_q;
+    r += step_r;
+    if (r >= bs) {
+      r -= bs;
+      ++q;
+    }
+  }
+  block_best(best, bj);
+  if (threadIdx.x == 0) {
+    part_best[blockIdx.x] = best;
+    part_j[blockIdx.x] = bj;
+    __threadfence();
+    last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  best = -INFINITY;
+  bj = LLONG_MAX;
+  for (int b = threadIdx.x; b < gridDim.x; b += AM_THREADS) {
+    const float ob = __ldcg(part_best + b);
+    const long long oj = __ldcg(part_j + b);
+    if (better(ob, oj, best, bj)) {
+      best = ob;
+      bj = oj;
+    }
+  }
+  block_best(best, bj);
+  if (threadIdx.x == 0) {
+    *i_star = blk[bj / bs] * bs + bj % bs;
+    *g_star = scores[bj];
+    *done = 0;
   }
 }
 
@@ -87,9 +160,18 @@ extern "C" int sampled_scores_launch(const void* X, const float* r, const long l
 }
 
 extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, long long n,
-                                    int bs, long long p_valid, long long* i_star, float* g_star,
+                                    int bs, long long p_valid, int blocks, long long chunk,
+                                    void* scratch, long long* i_star, float* g_star,
                                     void* stream) {
-  vertex_argmax_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      scores, blk, n, bs, p_valid, i_star, g_star);
+  // scratch: the ticket counter (u32, 0 between launches) in its own 16
+  // bytes, then the partials' positions (int64) and values (f32)
+  if (blocks < 1 || chunk % 4 != 0 || (blocks - 1) * chunk >= n || blocks * chunk < n)
+    return (int)cudaErrorInvalidValue;
+  unsigned int* done = static_cast<unsigned int*>(scratch);
+  long long* part_j = reinterpret_cast<long long*>(static_cast<char*>(scratch) + 16);
+  float* part_best = reinterpret_cast<float*>(part_j + blocks);
+  const int vec = reinterpret_cast<uintptr_t>(scores) % 16 == 0;
+  vertex_argmax_kernel<<<blocks, AM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star);
   return (int)cudaGetLastError();
 }

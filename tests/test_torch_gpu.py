@@ -218,3 +218,105 @@ def test_sparse_kernels_launch_on_a_second_card():
         out = fs.sparse_fused_chunk(mat.values, mat.rows, y, y, (z, z, z), idx, (X @ y)[idx],
                                     (X * X).sum(1)[idx], 0, torch.tensor(5.0, device=dev), **kw)
         assert out[0].device == torch.device(dev) and bool(torch.isfinite(out[4]).all())
+
+
+def _ell(p, m, nnz_max, dtype, seed, block_size=128):
+    """Block-ELL arrays on the card: feature f holds 0-nnz_max stored slots
+    first, padding (value 0 at row 0) after, the tail features past p all
+    padding; about one stored slot in ten holds an explicit 0 at its row."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pp = -(-p // block_size) * block_size
+    count = torch.randint(0, nnz_max + 1, (pp, 1), generator=g, device="cuda")
+    stored = torch.arange(nnz_max, device="cuda")[None, :] < count
+    stored[p:] = False
+    vals = torch.randn((pp, nnz_max), generator=g, device="cuda") * stored
+    vals[(torch.rand((pp, nnz_max), generator=g, device="cuda") < 0.1) & stored] = 0.0
+    rows = torch.randint(0, m, (pp, nnz_max), generator=g, device="cuda",
+                         dtype=torch.int32) * stored
+    shape = (pp // block_size, block_size, nnz_max)
+    return vals.to(dtype).view(shape), rows.view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nnz_max,m,p", [
+    (1, 803, 1000), (13, 803, 1000), (67, 803, 1000),  # a ragged tail past the last tile
+    (67, 803, 300_001),  # many tiles a block: the ring wraps many times
+    (13, 60_000, 20_000),  # y past the staging budget, read through L2
+])
+def test_sparse_colstats_edge_cases_on_the_card(nnz_max, m, p, dtype):
+    """K6 against its plain version on stored zeros, odd nnz_max, f32 and
+    bf16 and an unstaged y; two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import sparse_colstats as sc
+
+    vals, rows = _ell(p, m, nnz_max, getattr(torch, dtype), seed=nnz_max + m)
+    y = torch.randn(m, device="cuda")
+    before = sc.sparse_colstats.launches
+    zty, zn2 = sc.sparse_colstats(vals, rows, y, p)
+    again = sc.sparse_colstats(vals, rows, y, p)
+    want_z, want_n = sc.sparse_colstats_plain(vals, rows, y, p)
+    assert sc.sparse_colstats.launches == before + 2
+    assert torch.equal(zty, again[0]) and torch.equal(zn2, again[1])
+    norms = want_n.sqrt() * float(torch.linalg.vector_norm(y))
+    assert bool(((zty - want_z).abs() <= RTOL_SUM * norms).all())
+    assert bool(((zn2 - want_n).abs() <= RTOL_SUM * want_n).all())
+
+
+def _argmax_case(n, bs, kind, sms):
+    """Scores of n sampled coordinates on the card, their sampled block
+    ids, p_valid, and the expected winner's position (None: the plain
+    version decides). Width 1: distinct random ids, the 5 largest masked;
+    wider: every block in order ('full' sampling), the last 29 masked."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n + bs)
+    nb = n // bs
+    if bs == 1:
+        blk = torch.randperm(max(nb, 40_000), generator=g, device="cuda")[:nb]
+        p_valid = int(blk.max()) - 4
+    else:
+        blk = torch.arange(nb, device="cuda")
+        p_valid = n - 29
+    scores = torch.randn(n, generator=g, device="cuda")
+    ok = fw.block_indices(blk, bs) < p_valid
+    valid = ok.nonzero().view(-1)
+    want = None
+    if kind == "tie across blocks":  # block 0's last score and block 1's first
+        blocks, chunk = fw.argmax_grid(n, sms)
+        a, b = (chunk - 1, chunk) if blocks > 1 else (n // 3, n - 1)
+        scores[a], scores[b] = 50.0, -50.0
+        want = a if bool(ok[a]) and bool(ok[b]) and a != b else None
+    elif kind == "nan" and valid.numel():
+        want = int(valid[valid.numel() // 2])
+        scores[want] = float("nan")
+        scores[int(valid[-1])] = float("nan")
+    elif kind == "all masked":
+        p_valid = 0
+        want = 0
+    return scores, blk, p_valid, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "tie across blocks", "nan", "all masked"])
+@pytest.mark.parametrize("n,bs", [(1, 1), (31, 1), (1025, 1), (2047, 1), (2049, 1),
+                                  (42_723, 1), (4_272_256, 128)])
+def test_vertex_argmax_edge_cases_on_the_card(n, bs, kind):
+    """The grid-wide argmax is bit-exact against its plain version, one
+    launch a call, at n on either side of one block's share of scores
+    (256 threads x 8) and at n = p under 'full' sampling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scores, blk, p_valid, want = _argmax_case(n, bs, kind, sms)
+    before = fw.vertex_argmax.launches
+    i, v = fw.vertex_argmax(scores, blk, bs, p_valid)
+    i_p, v_p = fw.argmax_plain(scores, blk, bs, p_valid)
+    assert fw.vertex_argmax.launches == before + 1
+    assert int(i) == int(i_p)
+    assert torch.equal(v.view(1), v_p.view(1)) or (bool(v.isnan()) and bool(v_p.isnan()))
+    if want is not None:
+        assert int(i) == int(fw.block_indices(blk, bs)[want])
+    i2, v2 = fw.vertex_argmax(scores, blk, bs, p_valid)  # the counter was reset
+    assert int(i2) == int(i)

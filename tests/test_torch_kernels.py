@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st  # skips @given tests when hypothesis is missing
 
 from repro.kernels import colstats as ref_colstats
 from repro.kernels import fw_vertex as ref_fw_vertex
@@ -124,6 +125,69 @@ def test_vertex_argmax_masks_indices_past_p_valid():
     scores = torch.tensor([1.0, -2.0, 3.0, -9.0])
     i, g = fw.vertex_argmax(scores, torch.tensor([0, 1]), 2, p_valid=3)
     assert (int(i), float(g)) == (2, 3.0)
+
+
+def _jnp_vertex(scores, blk, bs, p_valid):
+    """The reference's argmax over sampled scores (``fw_vertex``'s tail,
+    src/repro/kernels/fw_grad/ops.py:40-45): indices >= p_valid masked to
+    -1, ``jnp.argmax`` (NaN largest, the first of equals)."""
+    idx = (jnp.asarray(blk)[:, None] * bs + jnp.arange(bs)[None, :]).reshape(-1)
+    mag = jnp.where(idx < p_valid, jnp.abs(jnp.asarray(scores)), -1.0)
+    j = jnp.argmax(mag)
+    return int(idx[j]), float(jnp.asarray(scores)[j])
+
+
+def _same_vertex(scores, blk, bs, p_valid):
+    i, g = fw.argmax_plain(torch.from_numpy(scores), torch.from_numpy(blk), bs, p_valid)
+    i_r, g_r = _jnp_vertex(scores, blk, bs, p_valid)
+    assert int(i) == i_r
+    assert float(g) == g_r or (np.isnan(float(g)) and np.isnan(g_r))
+
+
+@pytest.mark.parametrize("kind", ["ties", "nan", "nan only where masked", "all masked"])
+@pytest.mark.parametrize("n,bs", [(1, 1), (7, 1), (300, 1), (64, 4), (2049, 1)])
+def test_argmax_plain_matches_jnp_argmax(n, bs, kind):
+    """argmax_plain, vertex_argmax's CPU path and the card's yardstick,
+    against jnp.argmax on exact ties, NaN and fully masked inputs."""
+    rng = np.random.default_rng(n * 10 + bs)
+    scores = rng.choice(np.array([-2.0, -1.0, 0.0, 1.0, 2.0], np.float32), n)
+    blk = rng.permutation(4 * (n // bs) + 3)[: n // bs].astype(np.int64)
+    p_valid = int(blk.max()) * bs + bs - 2 if n > 1 else 0
+    idx = (blk[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+    if kind == "nan":
+        scores[rng.choice(n, max(1, n // 10))] = np.nan
+    elif kind == "nan only where masked":
+        scores[idx >= p_valid] = np.nan
+    elif kind == "all masked":
+        p_valid = 0
+    _same_vertex(scores, blk, bs, p_valid)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.sampled_from([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0, float("nan")]),
+                min_size=1, max_size=64),
+       st.sampled_from([1, 2, 4]), st.integers(0, 300))
+def test_argmax_plain_matches_jnp_argmax_property(values, bs, p_valid):
+    scores = np.asarray(values, np.float32)
+    scores = scores[: len(scores) // bs * bs] if len(scores) >= bs else np.resize(scores, bs)
+    blk = np.random.default_rng(len(scores)).permutation(80)[: len(scores) // bs]
+    _same_vertex(scores, blk.astype(np.int64), bs, p_valid)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [1, 31, 1025, 2047, 2048, 2049, 42_723, 4_272_256, 10**8])
+def test_argmax_grid_covers_the_scores(n, sms):
+    """Every block of the argmax's grid takes a multiple-of-4 share, none
+    is empty, and the grid stays within two blocks an SM: 21 blocks at
+    kappa = 42,723, 2 per SM at n = p."""
+    blocks, chunk = fw.argmax_grid(n, sms)
+    assert chunk % 4 == 0 and 1 <= blocks <= fw.ARGMAX_BLOCKS_PER_SM * sms
+    assert (blocks - 1) * chunk < n <= blocks * chunk
+    assert chunk <= max(4, fw.ARGMAX_THREADS * fw.ARGMAX_PER_THREAD) or blocks == 2 * sms
+    if n == 42_723:
+        assert blocks == 21
+    if n >= 4_272_256:
+        assert blocks == 2 * sms
 
 
 @pytest.mark.parametrize("m,dt", [(803, "f32"), (4096, "f32"), (800, "bf16")])

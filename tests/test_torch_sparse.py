@@ -286,6 +286,77 @@ def test_colstats_match_reference_kernel(p, m, bs, density):
     assert torch.equal(zty, k6.sparse_colstats(mat.values, mat.rows, torch.from_numpy(y), p)[0])
 
 
+def _rows_as_k6_reads(values, rows):
+    """The row slots as the CUDA K6 reads them: a chunk of 4 slots whose
+    values are all 0 is never fetched and reads as row 0."""
+    chunks = rows.reshape(-1, 4).clone()
+    chunks[(values.reshape(-1, 4) == 0).all(dim=1)] = 0
+    return chunks.view(rows.shape)
+
+
+@pytest.mark.parametrize("p,m,bs,density", SHAPES)
+def test_colstats_with_stored_zeros_match_reference(p, m, bs, density):
+    """K6's plain version on a matrix that stores explicit zeros among a
+    feature's slots (feature 3 starts with a run of 8), on its own row
+    slots and on them as the kernel reads them, against the reference's
+    Pallas kernel (interpret mode) and XLA branch on the same COO input."""
+    rng = np.random.default_rng(p + 7)
+    Xt = rng.standard_normal((p, m)).astype(np.float32)
+    Xt[rng.random((p, m)) > density] = 0.0
+    Xt[3, 1:9] = 0.0
+    feat, row = np.nonzero(Xt)
+    zf, zr = np.nonzero(Xt[:, 1:] == 0)  # explicit zeros, never at row 0
+    pick = rng.random(zf.size) < 0.3 * density
+    run = np.arange(1, 9)  # feature 3: 8 stored zeros, then its nonzeros
+    rows_ = np.concatenate([run, row, zr[pick] + 1])
+    feats = np.concatenate([np.full(8, 3), feat, zf[pick]])
+    vals = np.concatenate([np.zeros(8, np.float32), Xt[feat, row], np.zeros(pick.sum(), np.float32)])
+    keep = np.ones(rows_.size, bool)
+    keep[8:][(feats[8:] == 3) & (rows_[8:] < 9)] = False  # no duplicate of the run
+    order = rng.permutation(rows_.size - 8) + 8  # zeros interleaved with the nonzeros
+    order = np.concatenate([np.arange(8), order])
+    rows_, feats, vals = rows_[order], feats[order], vals[order]
+    keep = keep[order]
+    rows_, feats, vals = rows_[keep], feats[keep], vals[keep]
+    ref = RefMatrix.from_coo(rows_, feats, vals, (m, p), block_size=bs)
+    mat = SparseBlockMatrix.from_coo(rows_, feats, vals, (m, p), block_size=bs)
+    _same_arrays(mat, ref)
+    read = _rows_as_k6_reads(mat.values, mat.rows)
+    assert not torch.equal(read, mat.rows)  # some zero-valued slots had rows
+    y = rng.standard_normal(m).astype(np.float32)
+    pz, pn = sparse_colstats_fused(ref.values, ref.rows, jnp.asarray(y), interpret=True)
+    xz, xn = ref_ops.sparse_colstats(ref, jnp.asarray(y))
+    got = k6.sparse_colstats(mat.values, mat.rows, torch.from_numpy(y), p)
+    got_read = k6.sparse_colstats(mat.values, read, torch.from_numpy(y), p)
+    n2 = (Xt.astype(np.float64) ** 2).sum(axis=1) + 1e-30
+    for wz, wn in ((np.asarray(pz)[:p], np.asarray(pn)[:p]), (xz, xn)):
+        for zty, zn2 in (got, got_read):
+            assert np.all(np.abs(zty.numpy() - np.asarray(wz)) <= RTOL_SUM * _scale(Xt, y))
+            assert np.all(np.abs(zn2.numpy() - np.asarray(wn)) <= RTOL_SUM * n2)
+    assert torch.equal(got[0], got_read[0]) and torch.equal(got[1], got_read[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [80, 16_087, 57_344, 60_000])
+@pytest.mark.parametrize("nnz_max", [1, 13, 66, 67])
+def test_k6_plan_fits_shared_memory(nnz_max, m, dtype):
+    """The CUDA K6's tiling: tiles of 32 or 64 features (whole 16-byte
+    units of values and of rows), at least one value tile in flight beside
+    the one summed and the rows' lag (1 or 2 tiles), y staged up to the
+    E2006-log1p m and read through L2 past it, and all of it (the 8 static
+    mbarriers too) within the 227 KB of shared memory a block may take on
+    an H100."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    pl = k6.plan(m, nnz_max, elem)
+    assert pl.tile_feats in (32, 64)
+    assert (pl.tile_feats * nnz_max * elem) % 16 == 0 and (pl.tile_feats * nnz_max * 4) % 16 == 0
+    assert pl.lag in (1, 2) and pl.lag + 2 <= pl.stages <= k6.MAX_STAGES
+    assert pl.smem_bytes(nnz_max, elem) <= k6.SMEM_BYTES
+    assert pl.smem_bytes(nnz_max, elem) + 8 * k6.MAX_STAGES <= 227 * 1024
+    assert (pl.y_bytes >= 4 * m and pl.y_bytes % 128 == 0) if pl.y_bytes else True
+    assert (pl.y_bytes > 0) == (m <= 16_087)
+
+
 def test_columns_and_residual_update_match_reference():
     Xt, ref, mat, r = _pair(300, 80, 0.06, seed=15, block_size=128)
     rng = np.random.default_rng(2)
