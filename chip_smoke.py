@@ -12,7 +12,13 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, TF32 off;
 2. each kernel against its plain PyTorch version on the card, at its
    path's shapes and at ragged ones, in f32 and bf16 (the fused chunks K4
-   and K7 and the replay in f32, the replay bit for bit through a renorm);
+   and K7 and the replay in f32, the replay bit for bit through a renorm,
+   two launches of a chunk bitwise equal); K7 at its ring's edges (odd and
+   even ids, repeats within and across steps, ids past the arrays,
+   nnz_max 1, 13, 66 and 300, pieces of 32 slots, no ring at m =
+   M_MAX_SPARSE, K = 1, kappa below the grid's warps); the replay with a
+   coordinate winning 3 times, renorms at the first and the last record, a
+   masked tail and 40 records;
    K2's argmax bit-exact at n on either side of a block's share of scores
    and at n = p, on a tie across blocks, NaN and every index masked; K6 on
    explicit stored zeros, nnz_max 1, 13 and 67, f32 and bf16, many tiles
@@ -39,7 +45,8 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    must agree up to the first near-tie (a fused stop may overshoot by at
    most 7 steps) and the objectives to a stated tolerance;
 5. timing of each kernel, its bound, its plain version and a library
-   call, with CUDA events (K2's argmax also at n = p); and the host's
+   call, with CUDA events (K2's argmax also at n = p), beside the launch
+   floor (an empty kernel, back to back); and the host's
    share of a step, one step per dispatch and fused at K = 8 and K = 32,
    on each path.
 
@@ -569,36 +576,45 @@ def _scores(torch, mat, idx, r):
     return -(mat.index_select(0, idx) @ r)
 
 
-def _check_chunk(torch, fs, label, mat, y, resid, idx, k0, delta, kw):
+def _check_chunk(torch, fs, label, mat, y, resid, idx, k0, delta, kw, plain_mat=None):
     """A fused chunk (K4 on a dense ``Xt``, K7 on a ``SparseBlockMatrix``) vs
-    its plain version from the same chunk start: i_star and no_progress
-    equal up to the first step whose plain scores' top-2 are a near-tie
-    (RTOL_SUM of ||z|| * ||r||); up to there lam and delta_t within RTOL_SUM
-    (lam lies in [0, 1], |delta_t| = delta), and when no step differs the
-    residual within RTOL_SUM of ||y|| and (S, F) within RTOL_SUM of |S| +
-    |F| + ||y||^2. Returns the largest abs error and the kernel's i_star."""
+    its plain version from the same chunk start: two launches give the same
+    bits; i_star and no_progress equal up to the first step whose plain
+    scores' top-2 are a near-tie (RTOL_SUM of ||z|| * ||r||); up to there
+    lam and delta_t within RTOL_SUM (lam lies in [0, 1], |delta_t| =
+    delta), and when no step differs the residual within RTOL_SUM of ||y||
+    and (S, F) within RTOL_SUM of |S| + |F| + ||y||^2. ``plain_mat``
+    (sparse): ``mat`` with padding features appended, on which the plain
+    version and the column statistics run, so that ids past ``mat``'s
+    features (which the kernel scores 0 without a read) have slots there.
+    Returns the largest abs error and the kernel's i_star."""
     zero = torch.zeros((), device=y.device)
     scal = (zero, zero, zero)  # a cold start: R = y, S = F = 0
+    ref = mat if plain_mat is None else plain_mat
     if _is_sparse(mat):
         from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
 
-        name, head = "sparse_fused_chunk", (mat.values, mat.rows)
+        name, head, plain_head = ("sparse_fused_chunk", (mat.values, mat.rows),
+                                  (ref.values, ref.rows))
         kernel, plain = fs.sparse_fused_chunk, fs.sparse_fused_chunk_plain
-        zty, zn2 = sparse_colstats_plain(mat.values, mat.rows, y, mat.p)
+        zty, zn2 = sparse_colstats_plain(ref.values, ref.rows, y, ref.p)
     else:
-        name, head = "dense_fused_chunk", (mat,)
+        name, head, plain_head = "dense_fused_chunk", (mat,), (mat,)
         kernel, plain = fs.dense_fused_chunk, fs.dense_fused_chunk_plain
         zty, zn2 = mat @ y, (mat * mat).sum(dim=1)
-    args = (*head, y, resid, scal, idx, zty[idx], zn2[idx], k0, delta)
-    got = kernel(*args, **kw)
-    want = plain(*args, **kw)
+    tail = (y, resid, scal, idx, zty[idx], zn2[idx], k0, delta)
+    got = kernel(*head, *tail, **kw)
+    again = kernel(*head, *tail, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got[:5] + got[5], again[:5] + again[5])),
+          f"{name} {label}: two launches differ")
+    want = plain(*plain_head, *tail, **kw)
     i_k, i_p = got[0].cpu(), want[0].cpu()
     diff = (i_k != i_p).nonzero().view(-1)
     t = int(diff[0]) if diff.numel() else idx.shape[0]
     if t < idx.shape[0]:  # the plain residual before step t, then its scores there
-        r_t = plain(*head, y, resid, scal, idx[:t], zty[idx[:t]], zn2[idx[:t]], k0, delta,
+        r_t = plain(*plain_head, y, resid, scal, idx[:t], zty[idx[:t]], zn2[idx[:t]], k0, delta,
                     **kw)[4] if t else resid
-        mags = _scores(torch, mat, idx[t], r_t).abs()
+        mags = _scores(torch, ref, idx[t], r_t).abs()
         scale = float(torch.linalg.vector_norm(r_t)) * float(zn2.max().sqrt())
         margin = _top2_margin(torch, mags, idx[t])
         check(margin <= RTOL_SUM * scale, f"{name} {label}: i_star {int(i_k[t])} != "
@@ -619,9 +635,69 @@ def _check_chunk(torch, fs, label, mat, y, resid, idx, k0, delta, kw):
               f"{name} {label}: residual err {e_r:.2e}, S/F err {e_sf:.3e}")
         errs += [a_r, e_sf]
         note += f", residual err {e_r:.2e} of ||y||, S/F err {e_sf / sf_scale:.2e} of scale"
-    print(f"[kernels] {name} {label}: i_star {i_k.tolist()}, {note}, "
-          f"lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
+    i_list = i_k.tolist()
+    shown = i_list if len(i_list) <= 8 else i_list[:8] + ["..."]
+    print(f"[kernels] {name} {label}: i_star {shown}, {note}, lam err {e_lam:.2e}, "
+          f"delta_t err {e_dt:.2e}, two launches bitwise equal")
     return max(errs), i_k
+
+
+def _check_replay(torch, fs, label, beta0, start, recs, k0, cfg):
+    """The replay against its plain version, bit for bit (beta and the
+    statistics). Returns the kernel's outputs."""
+    out_k = fs.fused_replay(beta0.clone(), *start, *recs, k0, cfg)
+    out_p = fs.fused_replay_plain(beta0.clone(), *start, *recs, k0, cfg)
+    same = torch.equal(out_k[0], out_p[0]) and all(
+        torch.equal(a.reshape(()), b.reshape(())) for a, b in zip(out_k[1:], out_p[1:]))
+    print(f"[kernels] fused_replay p={beta0.numel()} {label}: scale {float(out_k[1])!r} "
+          f"(plain {float(out_p[1])!r}), stall {int(out_k[4])}, bit-exact: {same}")
+    check(same, f"fused_replay {label} disagrees with its plain version")
+    return out_k
+
+
+def replay_edge_cases(torch, fs, g):
+    """The replay bit for bit against its plain version where its walk has
+    edges: a coordinate that wins 3 times in one chunk (forwarded in
+    registers); a renorm at the first and at the last record, with a
+    coordinate winning on both sides of each; a masked tail (k0 near
+    max_iters); 40 records (two batches of 32), a coordinate repeated
+    across them and a renorm in the second."""
+    from repro_torch.core import FWConfig
+
+    dev = g.device
+    cfg = FWConfig(delta=50.0, max_iters=1000)
+    p = 100_000
+    beta0 = torch.randn(p, generator=g, device=dev)
+    start1 = (torch.tensor(1.0, device=dev), torch.tensor(0.4, device=dev),
+              torch.tensor(0.1, device=dev), torch.tensor(2, dtype=torch.int32, device=dev))
+    start_low = (torch.tensor(3e-6, device=dev),) + start1[1:]
+
+    def records(K, lo=0.05, hi=0.4):
+        i_stars = torch.randint(0, p, (K,), generator=g, device=dev)
+        lams = lo + (hi - lo) * torch.rand(K, generator=g, device=dev)
+        dts = torch.where(torch.rand(K, generator=g, device=dev) < 0.5, -50.0, 50.0)
+        nps = torch.rand(K, generator=g, device=dev) < 0.3
+        return i_stars, lams, dts, nps
+
+    i_stars, lams, dts, nps = records(FUSE)
+    i_stars[4] = i_stars[6] = i_stars[1]
+    _check_replay(torch, fs, "K=8, one coordinate wins 3 times", beta0, start1,
+                  (i_stars, lams, dts, nps), 0, cfg)
+    i_stars, lams, dts, nps = records(FUSE, 0.05, 0.15)
+    i_stars[3] = i_stars[7] = i_stars[0]
+    lams[0] = 0.75  # 3e-6 * 0.25 < renorm_threshold: a renorm at the first record
+    lams[7] = 0.9999999  # and, from a scale near 0.5, at the last
+    out = _check_replay(torch, fs, "K=8, renorm at the first and the last record", beta0,
+                        start_low, (i_stars, lams, dts, nps), 0, cfg)
+    check(float(out[1]) == 1.0, "fused_replay: no renorm at the last record")
+    out = _check_replay(torch, fs, "K=8, the same records, the last 3 masked", beta0, start_low,
+                        (i_stars, lams, dts, nps), cfg.max_iters - 5, cfg)
+    check(float(out[1]) != 1.0, "fused_replay: a masked record renormalized")
+    i_stars, lams, dts, nps = records(40, 0.01, 0.1)
+    i_stars[35] = i_stars[39] = i_stars[3]
+    lams[36] = 0.9999995
+    _check_replay(torch, fs, "K=40 (two batches), repeats across them, a renorm in the second",
+                  beta0, start1, (i_stars, lams, dts, nps), 0, cfg)
 
 
 def phase2_fused(torch, Xt_main, y_main):
@@ -683,16 +759,11 @@ def phase2_fused(torch, Xt_main, y_main):
     start = (torch.tensor(3e-6, device=dev), torch.tensor(0.4, device=dev),
              torch.tensor(0.1, device=dev), torch.tensor(2, dtype=torch.int32, device=dev))
     for k0, label in ((0, "K=8"), (cfg.max_iters - 6, "K=8, the last 2 records masked")):
-        b_k, b_p = beta0.clone(), beta0.clone()
-        out_k = fs.fused_replay(b_k, *start[:3], start[3], i_stars, lams, dts, nps, k0, cfg)
-        out_p = fs.fused_replay_plain(b_p, *start[:3], start[3], i_stars, lams, dts, nps, k0, cfg)
-        same = torch.equal(out_k[0], out_p[0]) and all(
-            torch.equal(a.reshape(()), b.reshape(())) for a, b in zip(out_k[1:], out_p[1:]))
-        print(f"[kernels] fused_replay p={p} {label}: scale {float(out_k[1])!r} "
-              f"(plain {float(out_p[1])!r}), stall {int(out_k[4])}, bit-exact: {same}")
-        check(same, f"fused_replay {label} disagrees with its plain version")
+        out_k = _check_replay(torch, fs, label, beta0, start, (i_stars, lams, dts, nps), k0,
+                              cfg)
         # without a renorm the scale could only shrink from 3e-6
         check(float(out_k[1]) > 3e-6, "fused_replay: no renorm happened in the chunk")
+    replay_edge_cases(torch, fs, g)
     torch.cuda.synchronize()
     return {"dense_fused_chunk": err, "fused_replay": 0.0}
 
@@ -1192,6 +1263,11 @@ def phase5_timing(torch, Xt, y):
         None, FUSE * (8 + 4 + 4 + 1 + 4 + 4) + 4 * 4 + 4 * 4, FUSE * 12,
         note=f" [K={FUSE} records, no renorm; library: none]")
 
+    floor = launch_floor_ms(torch, dev)
+    print(f"[timing] launch floor: an empty kernel, queued back to back: {floor:.6f} ms a "
+          f"launch; residual_update takes {out['residual_update']['ms'] / floor:.2f}x and "
+          f"fused_replay {out['fused_replay']['ms'] / floor:.2f}x of it")
+
     # host share of a step: fixed-length runs of the main path's step, one
     # step per dispatch and fused
     kernel_ms = sum(out[k]["ms"] for k in ("sampled_scores", "vertex_argmax", "residual_update"))
@@ -1229,6 +1305,24 @@ def phase5_timing(torch, Xt, y):
                   f"{busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.1f}% of the step's wall "
                   f"time, idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     return out
+
+
+def launch_floor_ms(torch, dev, reps=400):
+    """Device ms a launch of a kernel that does nothing (``empty_launch`` in
+    the fused_step library), queued back to back: what any launch of the
+    port's kernels takes at the least, the yardstick of the kernels whose
+    bytes take far less (K3, the replay)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("fused_step", "empty_launch", [ctypes.c_void_p])
+    stream = _build.stream(dev)
+
+    def launch(i):
+        _build.check("fused_step", fn(stream), "empty_kernel")
+
+    return _time_queued(torch, launch, reps)
 
 
 def _device_busy_ms(torch, Xt, y, stats, cfg, delta, n_steps):
@@ -1405,10 +1499,12 @@ def phase2_sparse_kernels(torch, mat, y):
             k6(f"p={p_} m={m_} nnz_max={nnz_max} {dt} stored zeros", vals, rows, p_,
                torch.randn(m_, generator=g, device=dev))
 
-    # ---- K7 at the main shapes, then ragged -----------------------------------
-    blocks = fs._blocks("sparse", dev, mat.m)
-    print(f"[kernels] sparse_fused_chunk: cooperative grid of {blocks} blocks x 512 threads "
-          f"at m={mat.m} ({mat.m * 4} bytes of shared memory a block)")
+    # ---- K7 at the main shapes, then ragged, then the ring's edges -----------
+    pl = fs.plan(mat.m, nnz)
+    blocks = fs._blocks("sparse", dev, mat.m, (nnz, *pl))
+    print(f"[kernels] sparse_fused_chunk: cooperative grid of {blocks} blocks x {pl.threads} "
+          f"threads at m={mat.m}, nnz_max={nnz}: {pl} ({pl.smem_bytes(mat.m)} bytes of shared "
+          f"memory a block)")
     delta = torch.tensor(50.0, device=dev)
     idx = TorchSampler(13, dev).uniform_chunk(FUSE, kappa, p)
     err, _ = _check_chunk(torch, fs, f"main K={FUSE} kappa={kappa} m={mat.m}", mat, y, y, idx,
@@ -1429,8 +1525,77 @@ def phase2_sparse_kernels(torch, mat, y):
     _check_chunk(torch, fs, "p=1000 m=803 K=3 kappa=5003", rag, yv, yv,
                  torch.randint(0, 1000, (3, 5003), generator=g, device=dev), 0, delta,
                  _fused_kw(10**6))
+    sparse_chunk_edge_cases(torch, fs, g)
     torch.cuda.synchronize()
     return errs
+
+
+def _unit_ell(torch, g, p, m, nnz_max, extra_blocks=0, block_size=128):
+    """A ``SparseBlockMatrix`` laid out as ``_ell_with_zeros`` lays its slots
+    out (0-nnz_max stored slots first, about one in ten an explicit 0, then
+    padding), with distinct rows within a feature (as ``from_coo`` makes
+    them: the winner's slots are scatter-added without a collision) and
+    unit-norm features; and the same arrays with ``extra_blocks`` blocks of
+    padding features appended."""
+    from repro_torch.sparse import SparseBlockMatrix
+
+    dev = g.device
+    pp = -(-p // block_size) * block_size
+    count = torch.randint(0, nnz_max + 1, (pp, 1), generator=g, device=dev)
+    stored = torch.arange(nnz_max, device=dev)[None, :] < count
+    stored[p:] = False
+    vals = torch.randn((pp, nnz_max), generator=g, device=dev) * stored
+    vals[(torch.rand((pp, nnz_max), generator=g, device=dev) < 0.1) & stored] = 0.0
+    vals /= torch.linalg.vector_norm(vals, dim=1, keepdim=True).clamp_min(1e-30)
+    rows = torch.rand((pp, m), generator=g, device=dev).topk(nnz_max, dim=1).indices.int()
+    shape = (pp // block_size, block_size, nnz_max)
+    vals, rows = vals.view(shape), (rows * stored).view(shape)
+    mat = SparseBlockMatrix(vals, rows, p, m, block_size, nnz_max)
+    pad = torch.zeros((extra_blocks, block_size, nnz_max), device=dev)
+    ext = SparseBlockMatrix(torch.cat([vals, pad]), torch.cat([rows, pad.int()]),
+                            (pp // block_size + extra_blocks) * block_size, m, block_size,
+                            nnz_max)
+    return mat, ext
+
+
+def sparse_chunk_edge_cases(torch, fs, g):
+    """K7 against its plain version, two launches bitwise equal, where its
+    ring has edges: odd and even ids (a feature's slots start 16-byte
+    aligned only for some), a feature drawn twice in one step and again in
+    the next, ids in the padded tail and past the arrays (>= n_feat: scored
+    0 without a read; the plain side reads appended padding), nnz_max 1, 13,
+    66 and 300 (a feature in 4 pieces of 96 slots), 66 in pieces of 32 (m
+    = 30,000, the smallest pieces, beside a large residual) and no ring (m
+    = M_MAX_SPARSE), K = 1, and kappa smaller than the grid's warps."""
+    dev = g.device
+    delta = torch.tensor(20.0, device=dev)
+    kw = _fused_kw(10**6)
+
+    def case(label, p, m, nnz_max, K, kappa, edit=None, extra_blocks=0):
+        mat, ext = _unit_ell(torch, g, p, m, nnz_max, extra_blocks)
+        idx = torch.randint(0, p, (K, kappa), generator=g, device=dev)
+        if edit is not None:
+            edit(idx, mat.values.shape[0] * mat.values.shape[1])
+        noise = torch.randn(m, generator=g, device=dev)
+        yv = noise / torch.linalg.vector_norm(noise) * 3.0
+        pl = fs.plan(m, nnz_max)
+        _check_chunk(torch, fs, f"{label} (p={p} m={m} nnz_max={nnz_max} K={K} kappa={kappa}, "
+                     f"{pl})", mat, yv, yv, idx, 0, delta, kw, plain_mat=ext)
+
+    def ids(idx, n_feat):
+        idx[0, :10] = torch.tensor([3, 4, 7, 7, 10, 4, n_feat + 5, 1001, n_feat + 200, 1023],
+                                   device=dev)
+        idx[1, :4] = torch.tensor([7, 4, n_feat + 5, 1002], device=dev)
+        idx[2, -3:] = torch.tensor([7, 7, n_feat + 127], device=dev)
+
+    case("odd/even ids, repeats within and across steps, padded ids", 1000, 803, 66, FUSE,
+         301, ids, extra_blocks=2)
+    for nnz_max in (1, 13, 300):
+        case(f"nnz_max={nnz_max}", 1000, 803, nnz_max, FUSE, 301)
+    case("pieces of 32 slots", 1000, 30_000, 66, FUSE, 301)
+    case("no ring: m = M_MAX_SPARSE", 1000, fs.M_MAX_SPARSE, 66, FUSE, 301)
+    case("K=1", 1000, 803, 66, 1, 301)
+    case("kappa below the grid's warps", 1000, 803, 66, FUSE, 7)
 
 
 def sparse_golden_check(torch, dev):

@@ -1,10 +1,23 @@
 #!/usr/bin/env python3
-"""Time two kernels of the PyTorch port on one CUDA card, for the
-``repro_torch`` package found under ``--src``: K2's ``vertex_argmax`` at
-kappa = 1% of p (uniform sampling) and at n = p (the 'full' sampling of a
-paper-size dense point, blocks of 128), and K6's ``sparse_colstats`` over
-the E2006-log1p proxy at its published size with the L2 flushed, beside
-cuSPARSE's CSR SpMV on a copy. The timing helpers are ``chip_smoke.py``'s.
+"""Time kernels of the PyTorch port on one CUDA card, for the
+``repro_torch`` package found under ``--src``:
+
+- K2's ``vertex_argmax`` at kappa = 1% of p (uniform sampling) and at
+  n = p (the 'full' sampling of a paper-size dense point, blocks of 128);
+- K6's ``sparse_colstats`` over the E2006-log1p proxy at its published
+  size with the L2 flushed, beside cuSPARSE's CSR SpMV on a copy;
+- K7's ``sparse_fused_chunk`` per chunk of K = 8 steps on that proxy, on
+  four index sets drawn as ``chip_smoke.py``'s phase 5 draws them;
+- the ``fused_replay`` of 8 fixed records over p = 4,272,227
+  coefficients: without a renorm and with distinct coordinates; and with
+  a renorm at the first record and a coordinate that wins 3 times;
+- K4's ``dense_fused_chunk`` per chunk of K = 8 steps at the paper's
+  dense size (p = 4,272,227, m = 800), as phase 5 draws it.
+
+For K7, the replay and K4 it also prints a sha256 digest of every output
+byte (records, final residual and (S, F, Q); or beta and the statistics),
+so two versions that agree bit for bit print the same digests. The
+timing helpers are ``chip_smoke.py``'s.
 
 To compare two versions on one card, run it once per checkout in one
 command, in turns (A, B, B, A), each in its own process:
@@ -13,17 +26,33 @@ command, in turns (A, B, B, A), each in its own process:
     python3 scripts/port_kernel_ab.py --src /path/to/other/checkout/src --tag parent
 
 Prints the card's name and power limit, then one JSON line: the tag and,
-per kernel, its ms, plain ms, library ms, bound ms and bound's kind. Needs
-a card; imports nothing of JAX.
+per kernel, its ms, plain ms, library ms, bound ms, bound's kind and
+(where taken) digest. Needs a card; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def digest(outs) -> str:
+    """sha256 of the bytes of every tensor in ``outs`` (nested tuples)."""
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, (tuple, list)):
+            for v in x:
+                add(v)
+        else:
+            h.update(x.detach().reshape(-1).cpu().numpy().tobytes())
+
+    add(outs)
+    return h.hexdigest()
 
 
 def main(argv=None):
@@ -41,15 +70,17 @@ def main(argv=None):
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
+    from repro_torch.core import FWConfig, engine
     from repro_torch.core.sampling import kappa_fraction
     from repro_torch.core.vertex import TorchSampler
-    from repro_torch.data import PROXY_SPECS, make_sparse_wide_problem
+    from repro_torch.data import PROXY_SPECS, make_sparse_wide_problem, make_wide_problem
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import fw_grad as fw
     from repro_torch.kernels import sparse_colstats as sc
 
     card = cs.card_line()
-    _build.build(("fw_grad", "sparse_colstats"))
+    _build.build()
     dev = torch.device("cuda")
     out = {"tag": args.tag, "src": str(Path(fw.__file__).resolve().parents[2])}
 
@@ -57,8 +88,11 @@ def main(argv=None):
         bound_ms, bound_by = cs._bound(t["nbytes"], t["flops"])
         out[name] = dict(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t.get("library_ms"),
                          bound_ms=bound_ms, bound_by=bound_by)
+        if "digest" in t:
+            out[name]["digest"] = t["digest"]
         print(f"[{args.tag}] {name}: {t['ms']:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
-              f"plain {t['plain_ms']:.6f} ms, library {t.get('library_ms')}{note}")
+              f"plain {t['plain_ms']:.6f} ms, library {t.get('library_ms')}"
+              f"{', sha256 ' + t['digest'][:16] if 'digest' in t else ''}{note}")
 
     p = cs.P_PAPER
     g = torch.Generator(device=dev)
@@ -75,12 +109,93 @@ def main(argv=None):
            f" [n = {scores.numel()}, {blk.numel()} blocks of {bs}, p_valid = {p}]")
     del scores
 
+    # ---- the replay: 8 fixed records over p coefficients ----------------------
+    cfg = FWConfig(delta=50.0, max_iters=10**6)
+    K = cs.FUSE
+    beta0 = torch.randn(p, generator=g, device=dev)
+    cases = {}
+    i_stars = torch.randint(0, p, (K,), generator=g, device=dev)
+    cases["fused_replay"] = (i_stars, torch.linspace(0.05, 0.4, K, device=dev),
+                             torch.tensor(1.0, device=dev), "no renorm, distinct coordinates")
+    rep = i_stars.clone()
+    rep[2] = rep[5] = rep[7] = rep[0]
+    lams = torch.linspace(0.05, 0.4, K, device=dev)
+    lams[0] = 0.75  # 3e-6 * 0.25 < renorm_threshold 1e-6: a renorm at the first record
+    cases["fused_replay_renorm"] = (rep, lams, torch.tensor(3e-6, device=dev),
+                                    "a renorm at the first record, one coordinate 4 times")
+    dts = torch.where(torch.rand(K, generator=g, device=dev) < 0.5, -50.0, 50.0)
+    nps = torch.rand(K, generator=g, device=dev) < 0.3
+    zero, zero_i = torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev)
+    for name, (ist, lm, scale, what) in cases.items():
+        beta = beta0.clone()
+
+        def replay(i, fn=fs.fused_replay):
+            return fn(beta, scale, zero, zero, zero_i, ist, lm, dts, nps, 0, cfg)
+
+        first = fs.fused_replay(beta0.clone(), scale, zero, zero, zero_i, ist, lm, dts, nps, 0,
+                                cfg)
+        t = dict(ms=cs._time_queued(torch, replay, 200),
+                 plain_ms=cs._time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 8),
+                 nbytes=K * (8 + 4 + 4 + 1 + 4 + 4) + 4 * 4 + 4 * 4, flops=K * 12,
+                 digest=digest(first))
+        record(name, t, f" [K={K} records, p={p}: {what}]")
+        del beta
+    del beta0
+
+    # ---- K6 and K7 on the E2006-log1p proxy -----------------------------------
     spec = PROXY_SPECS["e2006-log1p"]
     mat, y, _ = make_sparse_wide_problem(spec.m, spec.p, spec.col_density, spec.n_relevant,
                                          seed=0, device=dev, block_size=cs.SPARSE_BLOCK)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     t = cs.sparse_colstats_times(torch, sc, mat, y, flush)
     record("sparse_colstats", t, t["note"])
+    del flush
+
+    def chunk_times(name, fn, plain, head, mat_y, stats, sampler, m, step_bytes, step_flops,
+                    note):
+        chunks = []
+        for _ in range(4):
+            ix = sampler.uniform_chunk(K, kappa, p)
+            chunks.append((ix, stats.zty[ix], stats.znorm2[ix]))
+        kw = cs._fused_kw(10**6)
+        delta = torch.tensor(50.0, device=dev)
+
+        def chunk(i, f=fn):
+            ix, zty_s, zn2_s = chunks[i % 4]
+            return f(*head, mat_y, mat_y, (zero, zero, zero), ix, zty_s, zn2_s, 0, delta, **kw)
+
+        outs = [chunk(i) for i in range(4)]
+        t = dict(ms=cs._time_queued(torch, chunk, 20),
+                 plain_ms=cs._time_queued(torch, lambda i: chunk(i, plain), 2),
+                 nbytes=K * step_bytes(chunks), flops=K * step_flops(chunks),
+                 digest=digest(outs))
+        record(name, t, note)
+        print(f"[{args.tag}] {name} per step: {t['ms'] / K:.6f} ms")
+
+    nnz = mat.nnz_max
+    slots = mat.values.view(-1, nnz)
+
+    def stored(chunks):  # mean stored nonzeros a step over the index sets
+        return sum(int(torch.count_nonzero(slots[ix.reshape(-1)])) for ix, _, _ in chunks) / (
+            len(chunks) * K)
+
+    stats = engine.precompute_colstats(mat, y, cs.sparse_config(p, fuse_steps=1))
+    chunk_times("sparse_fused_chunk", fs.sparse_fused_chunk, fs.sparse_fused_chunk_plain,
+                (mat.values, mat.rows), y, stats, TorchSampler(11, dev), mat.m,
+                lambda c: kappa * nnz * 4 + stored(c) * 4 + kappa * 16 + 3 * mat.m * 4,
+                lambda c: 2 * stored(c),
+                f" [one chunk of K={K} steps, kappa={kappa}, nnz_max={nnz}, m={mat.m}]")
+    del mat, y, stats, slots
+
+    # ---- K4 at the paper's dense size -------------------------------------------
+    Xt, y, _ = make_wide_problem(p, cs.M_PAPER, cs.N_REL, seed=0, device=dev)
+    m = cs.M_PAPER
+    stats = engine.precompute_colstats(Xt, y, cs.main_config(p, "kernels"))
+    chunk_times("dense_fused_chunk", fs.dense_fused_chunk, fs.dense_fused_chunk_plain, (Xt,), y,
+                stats, TorchSampler(11, dev), m,
+                lambda c: kappa * m * 4 + kappa * 16 + 3 * m * 4, lambda c: 2 * kappa * m,
+                f" [one chunk of K={K} steps, kappa={kappa}, m={m}]")
+    del Xt
     print(card)
     print(json.dumps(out))
     return 0

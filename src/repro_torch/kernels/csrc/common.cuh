@@ -275,10 +275,16 @@ __device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, 
       : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fetch) {
+// The 16-byte copy of the first `bytes` (0-16) of src, the rest of the
+// 16 bytes zero-filled.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(fetch ? 16 : 0)
+               "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fetch) {
+  cp_async16_n(dst, src, fetch ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

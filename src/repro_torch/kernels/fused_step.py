@@ -35,41 +35,69 @@ its launch.
 
 Design. The TPU runs the (K, kappa) grid in order on one core and carries
 the winner and the residual in VMEM. Hopper blocks run in no order and
-carry nothing, and one block cannot read a step's bytes alone. So the
-kernel is one persistent cooperative grid (every block resident, sized by
+carry nothing, and one block cannot read a step's bytes alone. So each
+chunk is one persistent cooperative grid (every block resident, sized by
 the occupancy calculator, launched with ``cudaLaunchCooperativeKernel``)
-with one grid sync per step, and the same skeleton serves both layouts
-(``csrc/fused_step.cu``, templated on the layout): each block scores its
-share of the coordinates, one warp each, against its own shared-memory
-copy of the residual (dense: K2's ``warp_row_score``; sparse: K5's
-``warp_slot_score``), keeps a first-max carry (K2's comparator: NaN
-largest, ties to the first in sample order) and writes it to a partial
-buffer indexed by step parity; after the sync every block reduces all
-partials in the same order, so every block holds the same winner, computes
-the line search and the S/F recursions redundantly with ``_rn`` intrinsics
-in the op order of ``core/fw_lasso.py`` (identical scalars everywhere), and
-updates its own residual with the winner read from device memory: dense,
-K3's op order over the winner's row; sparse, ``out = (1-lam) r + lam y``
-over m, then the winner's nonzero slots added as ``out[rows] += (-lam *
-delta_t) * vals`` (``sparse.ops.sparse_residual_update``'s op order). The
-double-buffered partials need no second sync. Block 0 writes the records,
-the final residual and (S, F, Q).
+with one grid sync per step (``csrc/fused_step.cu``): each block scores
+its share of the coordinates, one warp a coordinate, against its own
+shared-memory copy of the residual, keeps a first-max carry (K2's
+comparator: NaN largest, ties to the first in sample order) and writes it
+to a partial buffer indexed by step parity; after the sync every block
+reduces all partials in the same order, so every block holds the same
+winner, computes the line search and the S/F recursions redundantly with
+``_rn`` intrinsics in the op order of ``core/fw_lasso.py`` (identical
+scalars everywhere), and updates its own residual with the winner read
+from device memory: dense, K3's op order over the winner's row; sparse,
+``out = (1-lam) r + lam y`` over m, then the winner's nonzero slots added
+as ``out[rows] += (-lam * delta_t) * vals``
+(``sparse.ops.sparse_residual_update``'s op order). The double-buffered
+partials need no second sync. Block 0 writes the records, the final
+residual and (S, F, Q). Both layouts share that end of a step.
+
+K4 scores with K2's ``warp_row_score``, a row at a time from device
+memory. K7 scores ~10 features a warp a step, each a few hundred bytes
+at a random place: fetched one after the other, each feature is a chain
+of memory latencies (its id, then its slots, then the gather), and the
+warp's bookkeeping per feature costs as much again. So K7
+(``sparse_ring_chunk_kernel``, one block of 1024 threads an SM) gives
+every warp a contiguous run of each step's positions and streams its
+features, two at a time, through a ring of ``RING_DEPTH`` stages of its
+own in shared memory: the ids are loaded 32 at a time and handed out by
+shuffles; a feature's value slots arrive by 16-byte ``cp.async`` (a
+feature starts at byte 4*nnz_max*f, 16-byte aligned only for some f, so a
+stage holds the chunks that cover it and where in them it starts), four
+ticks ahead, and its row slots two ticks ahead, a chunk of 4 rows only
+where one of its 4 values is nonzero (zero-filled otherwise, as K6 does),
+so the rows of padding (about half of the 66 slots at the E2006-log1p
+size) are not read. Half h of the warp scores feature h of the pair: lane
+q sums ``slot_dot``'s lane-q and lane-(q+16) partials in order, adds them
+and finishes ``warp_sum``'s butterfly in the half, the same additions of
+the same operands, so the scores keep their bits. The ring runs on across
+the step boundary: the first pairs of step s+1 are in flight during step
+s's grid sync, reduction and O(m) residual pass. ``plan`` sizes the ring
+beside the residual (a feature in pieces of 96, 64 or 32 slots where a
+whole one does not fit); where none fits (m near ``M_MAX_SPARSE``), K7
+scores from device memory as K4 does, with K5's ``warp_slot_score``.
 
 ``m`` is capped by shared memory: the dense layout keeps y beside the
 residual (two (m,) f32 vectors a block, ``M_MAX``); the sparse layout
 reads y through L2 and keeps the residual alone (``M_MAX_SPARSE``; at
 m = 16,087 that is 64.3 KB a block).
 
-``fused_replay`` is one block launched once per chunk: thread 0 walks the
-K records in order with ``_rn`` intrinsics, and the whole block multiplies
-``beta`` only when the scale underflows (the unfused step multiplies it by
-exactly 1 on every other step). It matches its plain version, the loop
-over ``apply_coeff_update``, bit for bit.
+``fused_replay`` is one block launched once per chunk. Its first warp
+loads the records in one parallel round (a lane a record, then the
+record's ``beta`` in a second), walks them in registers with ``_rn``
+intrinsics (a coordinate that wins twice in the chunk is forwarded from
+lane to lane) and writes each distinct coordinate once; the whole block
+multiplies ``beta`` only when the scale underflows (the unfused step
+multiplies it by exactly 1 on every other step), the walk waiting at that
+record. It matches its plain version, the loop over
+``apply_coeff_update``, bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -90,15 +118,57 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 # recs, no_prog, r_out, s_out, partials, blocks, stream)
 _CHUNK_TAIL = ([_PTR] * 9 + [_I32, _I32, _I64, _I64, _I64, _I32, _F32, _F32]
                + [_PTR] * 6 + [_I32, _PTR])
-# the matrix's arguments first: (X, p), or (values, rows, n_feat, nnz_max)
+# the matrix's arguments first: (X, p), or (values, rows, n_feat, nnz_max, threads, depth,
+# slots, stride)
 _DENSE_ARGTYPES = [_PTR, _I64] + _CHUNK_TAIL
-_SPARSE_ARGTYPES = [_PTR, _PTR, _I64, _I32] + _CHUNK_TAIL
+_SPARSE_ARGTYPES = [_PTR, _PTR, _I64] + [_I32] * 5 + _CHUNK_TAIL
 # (beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride,
 #  no_prog, K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, stream)
 _REPLAY_ARGTYPES = ([_PTR, _I64] + [_PTR] * 6 + [_I64, _PTR, _I64, _PTR, _I32, _I64, _I64]
                     + [_F32] * 3 + [_PTR] * 3)
 
-_grid_blocks: Dict[Tuple[str, int, int], int] = {}
+_grid_blocks: Dict[tuple, int] = {}
+
+# K7's ring (csrc/fused_step.cu, sparse_ring_chunk_kernel), sized by `plan`
+SMEM_BYTES = 224 * 1024  # OPTIN_SMEM_BYTES of csrc/common.cuh: a block's dynamic shared memory
+RING_DEPTH = 4  # ring stages a warp (RING_DEPTH of csrc/fused_step.cu)
+WHOLE_MAX = 124  # the most slots a piece holds whole: 32 chunks of 16 bytes from any offset
+PIECE_SLOTS = (96, 64, 32)  # a piece's slots when a feature takes several, larger first
+META_BYTES = 16  # a piece's Meta
+
+
+class RingPlan(NamedTuple):
+    threads: int  # the block: 1024 with a ring (one an SM), 512 without (as many as fit)
+    depth: int  # ring stages a warp (RING_DEPTH); 0: no ring, features scored from device memory
+    slots: int  # slots of a piece: nnz_max (up to WHOLE_MAX), or one of PIECE_SLOTS below it
+    stride: int  # floats a piece's values (and its rows) take: slots + 3, whole 16-byte chunks
+
+    def smem_bytes(self, m: int) -> int:
+        """Dynamic shared memory a block takes: the residual (m floats,
+        rounded up to 16 bytes), then each warp's stages of two pieces (a
+        pair of features) and their Metas."""
+        return (4 * (-(-m // 4) * 4)
+                + self.threads // 32 * self.depth * 2 * (2 * self.stride * 4 + META_BYTES))
+
+
+def plan(m: int, nnz_max: int) -> RingPlan:
+    """K7's ring for a residual of ``m`` and ``nnz_max`` slots a feature:
+    one 1024-thread block an SM, each warp with ``RING_DEPTH`` stages of a
+    pair's pieces beside the residual, a piece the whole feature (up to
+    ``WHOLE_MAX`` slots) or else the largest of ``PIECE_SLOTS`` that fits.
+    Where none fits, ``RingPlan(512, 0, 0, 0)``: 512-thread blocks score
+    the features from device memory. Raises past ``M_MAX_SPARSE``."""
+    if m > M_MAX_SPARSE:
+        raise ValueError(
+            f"the sparse fused chunk keeps the (m,) f32 residual in shared memory: "
+            f"m <= {M_MAX_SPARSE}, got {m}"
+        )
+    whole = (nnz_max,) if 1 <= nnz_max <= WHOLE_MAX else ()
+    for slots in whole + tuple(x for x in PIECE_SLOTS if x < nnz_max):
+        pl = RingPlan(1024, RING_DEPTH, slots, -(-(slots + 3) // 4) * 4)
+        if pl.smem_bytes(m) <= SMEM_BYTES:
+            return pl
+    return RingPlan(512, 0, 0, 0)
 
 
 def _f32(x: float) -> float:
@@ -196,24 +266,26 @@ def sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0
                         update, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
 
 
-def _blocks(layout: str, dev: torch.device, m: int) -> int:
-    """The cooperative grid of a layout ('dense' or 'sparse') at m."""
-    key = (layout, dev.index, m)
+def _blocks(layout: str, dev: torch.device, m: int, shape: tuple = ()) -> int:
+    """The cooperative grid of a layout ('dense' or 'sparse') at m; for
+    'sparse', ``shape`` is ``(nnz_max, *plan(m, nnz_max))``."""
+    key = (layout, dev.index, m, shape)
     if key not in _grid_blocks:
-        fn = _build.function("fused_step", f"{layout}_fused_chunk_blocks", [_I32, _PTR])
+        fn = _build.function("fused_step", f"{layout}_fused_chunk_blocks",
+                             [_I32] * (1 + len(shape)) + [_PTR])
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            err = fn(m, ctypes.addressof(out))
+            err = fn(m, *shape, ctypes.addressof(out))
         _build.check("fused_step", err, f"{layout}_fused_chunk occupancy query")
         _grid_blocks[key] = out.value
     return _grid_blocks[key]
 
 
-def _launch_chunk(layout: str, head: tuple, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
-                  *, eps_den, gap_rtol, refresh_every: int, max_iters: int):
+def _launch_chunk(layout: str, head: tuple, shape: tuple, y, resid, scal, idx, zty_s, zn2_s,
+                  k0: int, delta, *, eps_den, gap_rtol, refresh_every: int, max_iters: int):
     """Launch the cooperative chunk kernel of ``layout`` with its leading
-    arguments ``head`` (the matrix's pointers and sizes). Returns the
-    chunk's records and final state."""
+    arguments ``head + shape`` (the matrix's pointers and sizes, then what
+    ``_blocks`` takes). Returns the chunk's records and final state."""
     m = y.shape[0]
     K, kappa = idx.shape
     dev = y.device
@@ -221,7 +293,7 @@ def _launch_chunk(layout: str, head: tuple, y, resid, scal, idx, zty_s, zn2_s, k
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev).reshape(())
     idx = idx.long()
     _build.require_cuda(y, resid, s0, f0, q0, delta, idx, zty_s, zn2_s)
-    blocks = _blocks(layout, dev, m)
+    blocks = _blocks(layout, dev, m, shape)
     i_star = torch.empty(K, dtype=torch.int64, device=dev)
     recs = torch.empty((K, REC), dtype=torch.float32, device=dev)
     no_prog = torch.empty(K, dtype=torch.bool, device=dev)
@@ -231,7 +303,7 @@ def _launch_chunk(layout: str, head: tuple, y, resid, scal, idx, zty_s, zn2_s, k
     argtypes = _DENSE_ARGTYPES if layout == "dense" else _SPARSE_ARGTYPES
     fn = _build.function("fused_step", f"{layout}_fused_chunk_launch", argtypes)
     with torch.cuda.device(dev):
-        err = fn(*head, y.data_ptr(), resid.data_ptr(), s0.data_ptr(), f0.data_ptr(),
+        err = fn(*head, *shape, y.data_ptr(), resid.data_ptr(), s0.data_ptr(), f0.data_ptr(),
                  q0.data_ptr(), delta.data_ptr(), idx.data_ptr(), zty_s.data_ptr(),
                  zn2_s.data_ptr(), m, K, kappa, int(k0), int(max_iters), int(refresh_every),
                  _f32(eps_den), _f32(gap_rtol), i_star.data_ptr(), recs.data_ptr(),
@@ -271,7 +343,7 @@ def dense_fused_chunk(Xt: torch.Tensor, y: torch.Tensor, resid: torch.Tensor, sc
         )
     _check_f32(Xt, y, resid, zty_s, zn2_s)
     _build.require_cuda(Xt, y)
-    out = _launch_chunk("dense", (Xt.data_ptr(), p), y, resid, scal, idx, zty_s, zn2_s, k0,
+    out = _launch_chunk("dense", (Xt.data_ptr(), p), (), y, resid, scal, idx, zty_s, zn2_s, k0,
                         delta, **kw)
     dense_fused_chunk.launches += 1
     return out
@@ -284,8 +356,9 @@ def sparse_fused_chunk(values: torch.Tensor, rows: torch.Tensor, y: torch.Tensor
     """K fused FW steps over the block-ELL ``values``/``rows`` ``(nblocks,
     bs, nnz_max)``; ``idx`` holds feature ids (< p, drawn by the engine; a
     padded feature scores 0). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (or raises). The other arguments and the
-    returns are ``dense_fused_chunk``'s."""
+    tensor launches the kernel (or raises: ``values`` and ``rows`` must
+    start on 16-byte boundaries, as every array the port allocates does).
+    The other arguments and the returns are ``dense_fused_chunk``'s."""
     if values.dim() != 3 or rows.shape != values.shape:
         raise ValueError(
             f"need values and rows (nblocks, bs, nnz_max), got {tuple(values.shape)}, "
@@ -299,18 +372,16 @@ def sparse_fused_chunk(values: torch.Tensor, rows: torch.Tensor, y: torch.Tensor
         return sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0,
                                         delta, oracle=oracle, **kw)
     m = y.shape[0]
-    if m > M_MAX_SPARSE:
-        raise ValueError(
-            f"the sparse fused chunk keeps the (m,) f32 residual in shared memory: "
-            f"m <= {M_MAX_SPARSE}, got {m}"
-        )
+    nblocks, bs, nnz = values.shape
+    pl = plan(m, nnz)
     _check_f32(values, y, resid, zty_s, zn2_s)
     if rows.dtype != torch.int32:
         raise TypeError(f"the row slots must be int32, got {rows.dtype}")
     _build.require_cuda(values, rows, y)
-    nblocks, bs, nnz = values.shape
-    out = _launch_chunk("sparse", (values.data_ptr(), rows.data_ptr(), nblocks * bs, nnz),
-                        y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+    if pl.depth and (values.data_ptr() % 16 or rows.data_ptr() % 16):
+        raise ValueError("sparse_fused_chunk needs values and rows on 16-byte boundaries")
+    out = _launch_chunk("sparse", (values.data_ptr(), rows.data_ptr(), nblocks * bs),
+                        (nnz, *pl), y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
     sparse_fused_chunk.launches += 1
     return out
 

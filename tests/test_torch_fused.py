@@ -215,15 +215,18 @@ def _records(p, seed):
     return i_stars, lams, dts, nps
 
 
-@pytest.mark.parametrize("k0", [0, 295])
-def test_replay_matches_step_loop_and_reference(k0):
-    """A renorm inside the chunk; k0 = 295 masks the last 3 records."""
+def _replay_against_loop_and_reference(recs_np, scale0, k0):
+    """The replay of ``recs_np`` (i_stars, lams, dts, nps) from ``scale0``
+    over p = 300: bit for bit the per-step loop the unfused engine runs,
+    and the reference's ``_fused_replay`` at rtol 1e-6. Returns the
+    replay's outputs."""
     p = 300
     cfg = FWConfig(delta=DELTA, max_iters=300)
     rng = np.random.default_rng(1)
     beta0 = rng.standard_normal(p).astype(np.float32)
-    i_stars, lams, dts, nps = _records(p, 2)
-    start = dict(scale=np.float32(3e-6), maxabs=np.float32(0.4), step_inf=np.float32(0.1),
+    i_stars, lams, dts, nps = recs_np
+    n = i_stars.shape[0]
+    start = dict(scale=np.float32(scale0), maxabs=np.float32(0.4), step_inf=np.float32(0.1),
                  stall=np.int32(2))
     t = {k: torch.tensor(v) for k, v in start.items()}
     recs = (torch.from_numpy(i_stars), torch.from_numpy(lams), torch.from_numpy(dts),
@@ -233,16 +236,15 @@ def test_replay_matches_step_loop_and_reference(k0):
     # the per-step loop the unfused engine runs
     beta, scale, maxabs, step_inf, stall = (torch.from_numpy(beta0.copy()), t["scale"],
                                             t["maxabs"], t["step_inf"], t["stall"])
-    for s in range(min(K, cfg.max_iters - k0)):
+    for s in range(min(n, cfg.max_iters - k0)):
         i = recs[0][s]
         a_star = scale * beta[i]
         beta, scale, maxabs, step_inf, stall = engine.apply_coeff_update(
             beta, scale, maxabs, stall, a_star, i, recs[1][s], recs[2][s], recs[3][s], cfg)
     for g, w in zip(got, (beta, scale, maxabs, step_inf, stall)):
         assert torch.equal(g, w)
-    assert float(got[1]) > 3e-6  # a renorm happened: without one the scale only shrinks
     # the reference's replay of the same records
-    ref_cfg = RefConfig(delta=DELTA, max_iters=300, fuse_steps=K)
+    ref_cfg = RefConfig(delta=DELTA, max_iters=300, fuse_steps=n)
     s0 = ref_engine.init_state(REF_LASSO, jnp.zeros((p, 4)), jnp.zeros(4),
                                jax.random.PRNGKey(0), None, ref_cfg)
     s0 = s0._replace(beta=jnp.asarray(beta0), scale=jnp.float32(start["scale"]),
@@ -252,10 +254,45 @@ def test_replay_matches_step_loop_and_reference(k0):
     rb, rs, rm, ri, rst, rk, _ = ref_engine._fused_replay(
         REF_LASSO, s0, ref_cfg, jnp.asarray(i_stars, jnp.int32), jnp.asarray(lams),
         jnp.asarray(dts), jnp.asarray(nps))
-    assert int(rk) == min(k0 + K, 300) and int(rst) == int(got[4])
+    assert int(rk) == min(k0 + n, 300) and int(rst) == int(got[4])
     np.testing.assert_allclose(got[0].numpy(), np.asarray(rb), rtol=1e-6)
     for g, w in ((got[1], rs), (got[2], rm), (got[3], ri)):
         np.testing.assert_allclose(float(g), float(w), rtol=1e-6)
+    return got
+
+
+@pytest.mark.parametrize("k0", [0, 295])
+def test_replay_matches_step_loop_and_reference(k0):
+    """A renorm inside the chunk; k0 = 295 masks the last 3 records."""
+    got = _replay_against_loop_and_reference(_records(300, 2), 3e-6, k0)
+    assert float(got[1]) > 3e-6  # a renorm happened: without one the scale only shrinks
+
+
+@pytest.mark.parametrize("wins,renorms", [((1, 6), (3,)), ((0, 3, 7), (0, 7))])
+def test_replay_of_a_repeated_coordinate_across_renorms(wins, renorms):
+    """One coordinate wins at each of ``wins`` and the scale renormalizes
+    exactly at each of ``renorms`` (a renorm between two wins; and a third
+    win, with renorms at the first and the last record): a later win must
+    see the earlier win's coefficient, renormalized with the rest of beta
+    (the CUDA replay forwards it in registers)."""
+    rng = np.random.default_rng(3)
+    i_stars = rng.permutation(300)[:K]
+    i_stars[list(wins)] = i_stars[wins[0]]
+    lams = (0.01 + 0.04 * rng.random(K)).astype(np.float32)
+    for t in renorms:  # from a scale in [3e-6 * 0.95^7, 1]: under 1e-6 exactly here
+        lams[t] = np.float32(0.9) if t == renorms[0] else np.float32(0.9999999)
+    dts = np.where(rng.random(K) < 0.5, -DELTA, DELTA).astype(np.float32)
+    nps = rng.random(K) < 0.3
+    got = _replay_against_loop_and_reference((i_stars, lams, dts, nps), 3e-6, 0)
+    scale = np.float32(3e-6)
+    seen = []
+    for t in range(K):  # the renorms happen at exactly these records
+        new = np.float32(scale * np.float32(np.float32(1.0) - lams[t]))
+        if new < np.float32(1e-6):
+            seen.append(t)
+            new = np.float32(1.0)
+        scale = new
+    assert tuple(seen) == renorms and float(got[1]) == float(scale)
 
 
 # --------------------------------------------------------------------------

@@ -320,3 +320,129 @@ def test_vertex_argmax_edge_cases_on_the_card(n, bs, kind):
         assert int(i) == int(fw.block_indices(blk, bs)[want])
     i2, v2 = fw.vertex_argmax(scores, blk, bs, p_valid)  # the counter was reset
     assert int(i2) == int(i)
+
+
+def _distinct_ell(p, m, nnz_max, seed, extra_blocks=0, block_size=128):
+    """A unit-norm ``SparseBlockMatrix`` on the card laid out as ``_ell``'s
+    slots (stored zeros, padding), with distinct rows within a feature (as
+    ``from_coo`` makes them); and the same arrays with ``extra_blocks``
+    blocks of padding features appended."""
+    from repro_torch.sparse import SparseBlockMatrix
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pp = -(-p // block_size) * block_size
+    count = torch.randint(0, nnz_max + 1, (pp, 1), generator=g, device="cuda")
+    stored = torch.arange(nnz_max, device="cuda")[None, :] < count
+    stored[p:] = False
+    vals = torch.randn((pp, nnz_max), generator=g, device="cuda") * stored
+    vals[(torch.rand((pp, nnz_max), generator=g, device="cuda") < 0.1) & stored] = 0.0
+    vals /= torch.linalg.vector_norm(vals, dim=1, keepdim=True).clamp_min(1e-30)
+    rows = torch.rand((pp, m), generator=g, device="cuda").topk(nnz_max, dim=1).indices.int()
+    shape = (pp // block_size, block_size, nnz_max)
+    vals, rows = vals.view(shape), (rows * stored).view(shape)
+    pad = torch.zeros((extra_blocks, block_size, nnz_max), device="cuda")
+    ext = SparseBlockMatrix(torch.cat([vals, pad]), torch.cat([rows, pad.int()]),
+                            (pp // block_size + extra_blocks) * block_size, m, block_size,
+                            nnz_max)
+    return SparseBlockMatrix(vals, rows, p, m, block_size, nnz_max), ext
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,nnz_max,m,K,kappa", [
+    ("odd/even ids, repeats, padded ids", 66, 803, 8, 301),
+    ("nnz_max=1", 1, 803, 8, 301),
+    ("nnz_max=13", 13, 803, 8, 301),
+    ("a feature in 4 pieces", 300, 803, 8, 301),
+    ("pieces of 32 slots", 66, 30_000, 8, 301),
+    ("no ring: m = M_MAX_SPARSE", 66, 57_344, 8, 301),
+    ("K=1", 66, 803, 1, 301),
+    ("kappa below the grid's warps", 66, 803, 8, 7),
+])
+def test_sparse_fused_chunk_edge_cases_on_the_card(case, nnz_max, m, K, kappa):
+    """K7 at its ring's edges (chip_smoke.py's sparse_chunk_edge_cases): two
+    launches bitwise equal; against its plain version (run on a copy with
+    padding appended, so that ids past the arrays, which the kernel scores 0
+    without a read, have slots there), vertices and flags exact, lam within
+    RTOL_SUM, the residual within RTOL_SUM of ||y||."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import sparse_colstats as sc
+
+    p = 1000
+    mat, ext = _distinct_ell(p, m, nnz_max, seed=nnz_max + m + K + kappa, extra_blocks=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(kappa)
+    idx = torch.randint(0, p, (K, kappa), generator=g, device="cuda")
+    if case.startswith("odd/even"):
+        n_feat = 1024
+        idx[0, :10] = torch.tensor([3, 4, 7, 7, 10, 4, n_feat + 5, 1001, n_feat + 200, 1023],
+                                   device="cuda")
+        idx[1, :4] = torch.tensor([7, 4, n_feat + 5, 1002], device="cuda")
+        idx[2, -3:] = torch.tensor([7, 7, n_feat + 127], device="cuda")
+    y = torch.randn(m, generator=g, device="cuda")
+    y *= 3.0 / torch.linalg.vector_norm(y)
+    zty, zn2 = sc.sparse_colstats_plain(ext.values, ext.rows, y, ext.p)
+    zero = torch.zeros((), device="cuda")
+    tail = (y, y, (zero, zero, zero), idx, zty[idx], zn2[idx], 0, torch.tensor(20.0,
+                                                                               device="cuda"))
+    kw = dict(oracle=LASSO, eps_den=1e-12, gap_rtol=1e-6, refresh_every=64, max_iters=10**6)
+    before = fs.sparse_fused_chunk.launches
+    got = fs.sparse_fused_chunk(mat.values, mat.rows, *tail, **kw)
+    again = fs.sparse_fused_chunk(mat.values, mat.rows, *tail, **kw)
+    assert fs.sparse_fused_chunk.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got[:5] + got[5], again[:5] + again[5]))
+    want = fs.sparse_fused_chunk_plain(ext.values, ext.rows, *tail, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert float((got[1] - want[1]).abs().max()) <= RTOL_SUM
+    assert float((got[4] - want[4]).abs().max()) <= RTOL_SUM * 3.0
+
+
+def _replay_case(case):
+    """Records and a chunk start for the replay's edges (chip_smoke.py's
+    replay_edge_cases): the start, (i_stars, lams, dts, nps), k0 and the
+    final scale expected to be 1 (a renorm at the last live record) or not."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(len(case))
+    p = 100_000
+    K = 40 if case == "K=40" else 8
+    i_stars = torch.randint(0, p, (K,), generator=g, device="cuda")
+    lo, hi = (0.01, 0.1) if K == 40 else (0.05, 0.15)
+    lams = lo + (hi - lo) * torch.rand(K, generator=g, device="cuda")
+    dts = torch.where(torch.rand(K, generator=g, device="cuda") < 0.5, -50.0, 50.0)
+    nps = torch.rand(K, generator=g, device="cuda") < 0.3
+    scale, k0, renorm_last = 1.0, 0, False
+    if case == "3 wins":
+        i_stars[4] = i_stars[6] = i_stars[1]
+    elif case == "K=40":
+        i_stars[35] = i_stars[39] = i_stars[3]
+        lams[36] = 0.9999995  # a renorm in the second batch of 32
+    else:  # renorms at the first and the last record; masked: the last 3 skipped
+        i_stars[3] = i_stars[7] = i_stars[0]
+        lams[0], lams[7], scale = 0.75, 0.9999999, 3e-6
+        k0, renorm_last = (995, False) if case == "masked tail" else (0, True)
+    start = (torch.tensor(scale, device="cuda"), torch.tensor(0.4, device="cuda"),
+             torch.tensor(0.1, device="cuda"), torch.tensor(2, dtype=torch.int32, device="cuda"))
+    return p, start, (i_stars, lams, dts, nps), k0, renorm_last
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["3 wins", "renorm first and last", "masked tail", "K=40"])
+def test_fused_replay_edge_cases_on_the_card(case):
+    """The replay bit for bit against its plain version, one launch: a
+    coordinate that wins 3 times (forwarded in registers), renorms at the
+    first and the last record, a masked tail (k0 near max_iters), and 40
+    records (two batches) with repeats across them and a renorm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    cfg = FWConfig(delta=50.0, max_iters=1000)
+    p, start, recs, k0, renorm_last = _replay_case(case)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    beta = torch.randn(p, generator=g, device="cuda")
+    before = fs.fused_replay.launches
+    got = fs.fused_replay(beta.clone(), *start, *recs, k0, cfg)
+    want = fs.fused_replay_plain(beta.clone(), *start, *recs, k0, cfg)
+    assert fs.fused_replay.launches == before + 1
+    assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want))
+    assert (float(got[1]) == 1.0) == renorm_last

@@ -240,6 +240,49 @@ def test_sparse_inputs_are_checked(sparse):
 # --------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("m", [80, 803, 16_087, 24_000, 38_000, 57_344])
+def test_k7_plan_fits_shared_memory_and_keeps_the_grid_resident(m):
+    """The CUDA K7's ring for every nnz_max from 1 to 1,000: the residual
+    and every warp's stages (with their Metas) within the 224 KB of dynamic
+    shared memory a block may take, so one block of 1024 threads an SM
+    stays resident (with the runtime's 1 KB and the kernel's static
+    scratch, within an SM's 228 KB); 4 stages a warp, each the pieces of a
+    pair of features; a piece is a whole feature (up to 124 slots: 32
+    16-byte chunks from any offset) or 96, 64 or 32 of its slots (lane k
+    keeps slots k, k + 32, ... in order across pieces), in whole chunks
+    from any of the 4 offsets a chunk may start it at. Up to the
+    E2006-log1p m every nnz_max gets a ring, whole features at its nnz_max
+    of 66; at m = M_MAX_SPARSE none fits and the residual alone fills
+    512-thread blocks."""
+    assert fs.M_MAX_SPARSE == 57_344
+    for nnz_max in range(1, 1001):
+        pl = fs.plan(m, nnz_max)
+        smem = pl.smem_bytes(m)
+        assert smem <= fs.SMEM_BYTES == 224 * 1024 and smem >= 4 * m
+        assert smem + 1024 + 1024 <= 228 * 1024  # static scratch < 1 KB, the runtime's 1 KB
+        if pl.depth:
+            assert pl.threads == 1024 and pl.depth == fs.RING_DEPTH == 4
+            assert (pl.slots == nnz_max <= 124
+                    or (pl.slots in (96, 64, 32) and pl.slots < nnz_max))
+            assert pl.stride % 4 == 0 and pl.slots + 3 <= pl.stride < pl.slots + 7
+            assert -(-(3 + pl.slots) // 4) <= 32  # two 16-byte chunks a lane of a half-warp
+            assert smem == 4 * (-(-m // 4) * 4) + 32 * 4 * 2 * (8 * pl.stride + 16)
+        else:
+            assert pl == fs.RingPlan(512, 0, 0, 0)
+            assert smem == 4 * (-(-m // 4) * 4)
+        if m <= 16_087:
+            assert pl.depth == 4
+    if m == 16_087:
+        assert fs.plan(m, 66) == fs.RingPlan(1024, 4, 66, 72)
+    if m == fs.M_MAX_SPARSE:
+        assert fs.plan(m, 66).depth == 0
+
+
+def test_k7_plan_refuses_m_past_shared_memory():
+    with pytest.raises(ValueError, match="m <= 57344"):
+        fs.plan(fs.M_MAX_SPARSE + 1, 66)
+
+
 @pytest.mark.parametrize("reference", ["pallas_interpret", "xla_mirror"])
 @pytest.mark.parametrize("k0,max_iters", [(0, 10**6), (60, 66)])
 def test_chunk_matches_reference_kernel(sparse, reference, k0, max_iters):
