@@ -13,7 +13,15 @@ through phases 2-5; any failed check raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at its
    path's shapes and at ragged ones, in f32 and bf16 (the fused chunks K4
    and K7 and the replay in f32, the replay bit for bit through a renorm,
-   two launches of a chunk bitwise equal); K7 at its ring's edges (odd and
+   two launches of a chunk bitwise equal); the unfused step's one-launch
+   tail bit for bit on both layouts and dtypes (lam clamped at 0 and 1, no
+   progress, a renorm at lam = 1 and with the scale just under the
+   threshold, a NaN score, one coordinate twice in a row, a sparse winner
+   with a stored row 0 and padding, m = 1; two launches equal); K5's
+   scores bitwise equal to the warp-per-feature K5's (``K5_SHA256``); a
+   fused solve one past each layout's shared-memory cap (K unfused steps)
+   bitwise equal to the unfused one; bf16 designs solved on 'kernels' and
+   'sparse', unfused and fused; K7 at its ring's edges (odd and
    even ids, repeats within and across steps, ids past the arrays,
    nnz_max 1, 13, 66 and 300, pieces of 32 slots, no ring at m =
    M_MAX_SPARSE, K = 1, kappa below the grid's warps); the replay with a
@@ -29,15 +37,19 @@ through phases 2-5; any failed check raises and the script exits non-zero:
 3. the paths, each kernel's launch count checked against the run:
    - dense: ``fw_path`` on 'kernels' at the paper's dense size (p =
      4,272,227, m = 800, f32, kappa = 1% of p, uniform sampling), one
-     step per dispatch, then the same 100-point grid with ``fuse_steps=8`` (K4 and the replay once
-     per chunk, K2/K3 never), then one point with 'full' sampling (deterministic
-     FW, 50 steps, K2 over all p coordinates a step) against the 'torch' backend;
+     step per dispatch (K2's scores, its argmax and the tail once a step),
+     then the same 100-point grid with ``fuse_steps=8`` (K4 and the replay
+     once per chunk, K2 and the tail never), then one point with 'full'
+     sampling (deterministic FW, 50 steps, K2 over all p coordinates a
+     step) against the 'torch' backend;
    - sparse: the E2006-log1p proxy at its published size (m = 16,087,
      p = 4,272,227, column density 0.002, block-ELL, built on the card),
      the 100-point grid on 'sparse' with ``fuse_steps=8`` (K6 per point,
-     K7 and the replay per chunk, K5 never), its first 3 points one step
-     per dispatch (K5 and the argmax per step), and one point with
-     'block' sampling (K5 at width 256);
+     K7 and the replay per chunk, K5 never), the warm start at its densest
+     point twice (equal bits), its first 3 points one step per dispatch
+     (K5, the argmax and the tail per step), and one point with 'block'
+     sampling (K5 at width 256);
+   every unfused path launches the tail once a step and K3 never;
 4. the first grid points of each path against other routes, from the
    same sampler seeds: the plain ops ('torch'; 'sparse' with
    ``sparse_kernel=False``), fused against unfused, and the sparse
@@ -83,6 +95,11 @@ FUSE = 8  # the fused path's K, the value the reference's tests pin
 M_E2006, COL_DENSITY, SPARSE_BLOCK = 16_087, 0.002, 256
 N_BLOCK_STEPS = 300  # the 'block'-sampling point's fixed length
 N_FULL_STEPS = 50  # the dense 'full'-sampling point's, each step reading all of Xt
+# sha256 of K5's scores on ``k5_digest_inputs`` (the E2006-log1p proxy, r =
+# y) as the warp-per-feature K5 (the kernel before the ring) computed them
+# on an H100: the ring kernel must keep their bits at both widths
+K5_SHA256 = {1: "6589658b956296f21bc41e62f507ca70e36379b48b1db9dc43ff1a27b8620953",
+             SPARSE_BLOCK: "ce694e17cce6ce06de85c55cf3cebb3993270522d082e77447e807e50affa7e1"}
 
 # f32 sums of m products, taken in another order than the plain version's:
 # the difference is rounding, a few ulps of the Cauchy-Schwarz scale
@@ -214,7 +231,8 @@ def main(argv=None):
         records.append({
             "name": name, "route": "cuda", "source": info["source"],
             "replaces": info["replaces"], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": max(errs[name], errs.get(f"{name}_sparse", 0.0)),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
@@ -240,6 +258,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_kernels(torch, Xt, y))
     errs.update(phase2_fused(torch, Xt, y))
     golden_check(torch, dev)
+    bf16_solves(torch, dev, "kernels")
     if not kernels_only:
         main_launches, main_run = phase3_main_path(torch, Xt, y, coef)
         fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
@@ -274,9 +293,11 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
 
     errs.update(phase2_sparse_kernels(torch, mat, y))
     sparse_golden_check(torch, dev)
+    bf16_solves(torch, dev, "sparse")
     if kernels_only:
         return
     fused_launches, fused_run = phase3_sparse_fused_path(torch, mat, y, coef)
+    phase3_warm_start_bits(torch, mat, fused_run)
     unfused_launches, unfused_run = phase3_sparse_unfused_points(torch, mat, y, fused_run)
     block_launches = phase3_sparse_block_point(torch, mat, y, fused_run)
     launches["sparse_colstats"] = fused_launches["sparse_colstats"]
@@ -299,6 +320,8 @@ KERNELS = {
                           replaces="src/repro/kernels/fw_grad/ops.py:27"),
     "residual_update": dict(source="src/repro_torch/kernels/csrc/residual_update.cu",
                             replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                      replaces="src/repro/kernels/residual_update/residual_update.py:45"),
     "dense_fused_chunk": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
                               replaces="src/repro/kernels/fused_step/fused_step.py:259"),
     "fused_replay": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
@@ -549,8 +572,222 @@ def phase2_kernels(torch, Xt_main, y_main):
     errs["residual_update"] = k3("main m=800 f32", 800, torch.float32)
     for m_r, dt in ((803, torch.float32), (800, torch.bfloat16), (1_000_001, torch.float32)):
         k3(f"m={m_r} {str(dt)[6:]}", m_r, dt)
+
+    # ---- the unfused step's tail, dense: bit for bit -------------------------
+    from repro_torch.kernels import step_tail as st
+
+    print("[kernels] step_tail: every output bit for bit against step_tail_plain (NaN at the "
+          "same places)")
+    tail_errs = [tail_edge_cases(torch, st, f"dense main p={p} m={m}", Xt_main, p, m,
+                                 torch.float32, g, int(idx[0]))]
+    for dt in (torch.float32, torch.bfloat16):
+        X = torch.randn((1000, 803), generator=g, device=dev).to(dt)
+        tail_errs.append(tail_edge_cases(torch, st, "dense p=1000 m=803", X, 1000, 803, dt, g,
+                                         17))
+        X1 = torch.randn((300, 1), generator=g, device=dev).to(dt)
+        tail_errs.append(tail_edge_cases(torch, st, "dense p=300 m=1", X1, 300, 1, dt, g, 42))
+    errs["step_tail"] = max(tail_errs)
+    phase2_fused_past_cap(torch, dev, g, "dense")
     torch.cuda.synchronize()
     return errs
+
+
+def phase2_fused_past_cap(torch, dev, g, layout):
+    """F2: a fused solve (fuse_steps = 8) at m one past its layout's
+    shared-memory cap (M_MAX dense, M_MAX_SPARSE sparse) runs, through K
+    unfused steps on the kernels (no chunk launch; a tail launch a step),
+    and equals the unfused solve bit for bit (40 steps each, no stop)."""
+    from repro_torch import kernels
+    from repro_torch.core import FWConfig, fw_solve
+    from repro_torch.core.vertex import TorchSampler, use_fused_kernel
+    from repro_torch.kernels import fused_step as fs
+
+    n_steps = 40
+    if layout == "dense":
+        m = fs.M_MAX + 1
+        X = torch.randn((4096, m), generator=g, device=dev)
+        X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+        backend = "kernels"
+    else:
+        m = fs.M_MAX_SPARSE + 1
+        X, _ = _unit_ell(torch, g, 4000, m, 40)
+        backend = "sparse"
+    y = torch.randn(m, generator=g, device=dev) * 3.0
+    runs = {}
+    for fuse in (1, FUSE):
+        cfg = FWConfig(delta=20.0, kappa=64, max_iters=n_steps, tol=0.0, patience=10**9,
+                       backend=backend, fuse_steps=fuse)
+        kernels.reset_launch_counts()
+        res = fw_solve(X, y, cfg, TorchSampler(4, dev), device=dev)
+        launches = kernels.launch_counts()
+        check(res.iterations == n_steps and launches["step_tail"] == n_steps,
+              f"{layout} m={m} fuse_steps={fuse}: iterations / step_tail launches")
+        check(launches["dense_fused_chunk"] == launches["sparse_fused_chunk"] ==
+              launches["fused_replay"] == 0, f"{layout} m={m}: a chunk kernel launched")
+        runs[fuse] = res
+    check(not use_fused_kernel(cfg, X), f"{layout} m={m}: the fused kernel was chosen")
+    a, b = runs[1], runs[FUSE]
+    same = _same_bits(torch, a.alpha, b.alpha) and _same_bits(torch, a.objective, b.objective)
+    print(f"[kernels] F2 {layout} m={m} (cap + 1): fuse_steps={FUSE} ran {b.iterations} steps as "
+          f"K unfused steps (effective_fuse_steps {b.effective_fuse_steps}, {n_steps} tail "
+          f"launches, no chunk launch), objective {float(b.objective)!r}, bitwise equal to the "
+          f"unfused solve: {same}")
+    check(same, f"F2 {layout} m={m}: the fused solve differs from the unfused one")
+
+
+# --------------------------------------------------------------------------
+# the unfused step's tail (kernels/step_tail), phase 2
+# --------------------------------------------------------------------------
+
+TAIL_OUT = ("beta", "scale", "maxabs", "step_inf", "stall", "resid", "S", "F")
+
+
+def _same_bits(torch, a, b):
+    """Equal dtype, shape and bits, NaN at the same places (a NaN's payload
+    is not compared)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(a.view(iv)[~na], b.view(iv)[~nb])
+
+
+def _tail_args(torch, g, p, m, dtype, i_star, *, scale=1.0, s_quad=30.0, f_lin=10.0,
+               g_star=-7.5, zty_i=None, zn2_i=None, delta=5.0):
+    """A state for the tail: beta (p,), then step_tail's arguments from
+    ``scale`` to ``delta`` (the winner ``i_star``, its score ``g_star``;
+    ``zty_i``/``zn2_i`` set the winner's column statistics)."""
+    dev = g.device
+    zty = torch.randn(p, generator=g, device=dev)
+    zn2 = torch.rand(p, generator=g, device=dev) + 0.5
+    if zty_i is not None:
+        zty[i_star] = zty_i
+    if zn2_i is not None:
+        zn2[i_star] = zn2_i
+
+    def t(v):
+        return torch.tensor(v, device=dev)
+
+    beta = torch.randn(p, generator=g, device=dev).to(dtype)
+    args = (t(scale).to(dtype), t(2.0).to(dtype), torch.tensor(3, dtype=torch.int32, device=dev),
+            torch.randn(m, generator=g, device=dev).to(dtype), t(s_quad).to(dtype),
+            t(f_lin).to(dtype), torch.randn(m, generator=g, device=dev).to(dtype),
+            zty.to(dtype), zn2.to(dtype), torch.tensor(i_star, device=dev), t(g_star), t(delta))
+    return beta, args
+
+
+def _max_abs_diff(torch, outs_a, outs_b):
+    """max |a - b| over every output's entries that are NaN in neither."""
+    err = 0.0
+    for a, b in zip(outs_a, outs_b):
+        a, b = a.reshape(-1).double(), b.reshape(-1).double()
+        ok = ~(torch.isnan(a) | torch.isnan(b))
+        if bool(ok.any()):
+            err = max(err, float((a[ok] - b[ok]).abs().max()))
+    return err
+
+
+def _check_tail(torch, st, label, mat, beta, args, cfg):
+    """The tail kernel against ``step_tail_plain`` from the same state:
+    every output bit for bit (NaN at the same places), two launches
+    bitwise equal, one launch a call. Returns the kernel's outputs and
+    their max |kernel - plain| (0 when the bits agree)."""
+    before = st.step_tail.launches
+    out_k = st.step_tail(mat, beta.clone(), *args, cfg)
+    again = st.step_tail(mat, beta.clone(), *args, cfg)
+    out_p = st.step_tail_plain(mat, beta.clone(), *args, cfg)
+    check(st.step_tail.launches == before + 2, "step_tail: one launch a call")
+    check(all(_same_bits(torch, a, b) for a, b in zip(out_k, again)),
+          f"step_tail {label}: two launches differ")
+    differ = [n for n, a, b in zip(TAIL_OUT, out_k, out_p) if not _same_bits(torch, a, b)]
+    check(not differ, f"step_tail {label}: {differ} differ from the plain version")
+    print(f"[kernels] step_tail {label}: scale {float(out_k[1])!r}, stall {int(out_k[4])}, "
+          f"S {float(out_k[6])!r}: bit-exact with the plain version, two launches equal")
+    return out_k, _max_abs_diff(torch, out_k, out_p)
+
+
+def _tail_lam(torch, args):
+    """The line search's lam on ``args`` (fw_lasso.ls_closed_form in f32,
+    the tail's op order)."""
+    from repro_torch.core.fw_lasso import ls_closed_form
+
+    scale, _, _, _, s_quad, f_lin, _, zty, zn2, i, g, delta = args
+    gf = g.float()
+    dt = -delta * torch.sign(gf)
+    lam, _, _ = ls_closed_form(s_quad.float(), f_lin.float(), gf, gf + zty[i].float(), dt,
+                               zn2[i].float(), 1e-12, 1e-6)
+    return float(lam)
+
+
+def tail_edge_cases(torch, st, label, mat, p, m, dtype, g, i_star):
+    """step_tail bit for bit against its plain version on one layout and
+    dtype: a random state; lam clamped at 1 (S = F = 0, the winner's
+    z.y = -g and a small ||z||^2), which renormalizes (scale * 0); lam
+    clamped at 0 with no progress (F past S + delta |g|); a scale just
+    under the renorm threshold after the step, and just over it; a NaN
+    score; and the same coordinate winning two steps in a row (the second
+    from the first's outputs). Returns the max |kernel - plain| over the
+    cases."""
+    from repro_torch.core import FWConfig
+
+    cfg = FWConfig(delta=5.0)
+    lab = f"{label} {str(dtype)[6:]}"
+    errs = []
+
+    def run(what, mat_, beta, args):
+        out, err = _check_tail(torch, st, f"{lab} {what}", mat_, beta, args, cfg)
+        errs.append(err)
+        return out
+
+    run("random", mat, *_tail_args(torch, g, p, m, dtype, i_star))
+    out = run("lam clamped at 1", mat,
+              *_tail_args(torch, g, p, m, dtype, i_star, s_quad=0.0, f_lin=0.0, zty_i=7.5,
+                          zn2_i=1e-3))
+    check(float(out[1]) == 1.0, f"step_tail {lab}: lam = 1 did not renormalize")
+    out = run("lam clamped at 0, no progress", mat,
+              *_tail_args(torch, g, p, m, dtype, i_star, f_lin=77.5))
+    check(int(out[4]) == 4, f"step_tail {lab}: no_progress did not count a stall")
+    margin = 0.01 if dtype == torch.float32 else 0.04  # bf16 rounds the scale by up to 0.4%
+    for side, f in (("under", 1 - margin), ("over", 1 + margin)):
+        beta, args = _tail_args(torch, g, p, m, dtype, i_star)
+        scale = cfg.renorm_threshold / (1.0 - _tail_lam(torch, args)) * f
+        args = (torch.tensor(scale, device=g.device).to(dtype),) + args[1:]
+        out = run(f"the scale {100 * margin:g}% {side} the renorm threshold after the step",
+                  mat, beta, args)
+        check((float(out[1]) == 1.0) == (side == "under"), f"step_tail {lab}: renorm {side}")
+    run("NaN score", mat, *_tail_args(torch, g, p, m, dtype, i_star, g_star=float("nan")))
+    beta, args = _tail_args(torch, g, p, m, dtype, i_star)
+    out = run("the same coordinate twice, step 1", mat, beta, args)
+    b, scale, maxabs, _, stall, resid, s_quad, f_lin = out
+    run("the same coordinate twice, step 2", mat, b,
+        (scale, maxabs, stall, resid, s_quad, f_lin) + args[6:])
+    return max(errs)
+
+
+def _tail_ell(torch, g, p, m, nnz_max, dtype, winner, winner_rows, block_size=128):
+    """Block-ELL (values, rows) of p features: 0 to min(nnz_max, m) stored
+    slots a feature at distinct rows, then padding (value 0 at row 0); the
+    winner's stored slots are at ``winner_rows`` (row 0 among them)."""
+    dev = g.device
+    pp = -(-p // block_size) * block_size
+    count = torch.randint(0, min(nnz_max, m) + 1, (pp, 1), generator=g, device=dev)
+    stored = torch.arange(nnz_max, device=dev)[None, :] < count
+    stored[p:] = False
+    perm = torch.rand((pp, m), generator=g, device=dev).argsort(dim=1)[:, :nnz_max]
+    rows = torch.zeros((pp, nnz_max), dtype=torch.int32, device=dev)
+    rows[:, :perm.shape[1]] = perm.int()
+    rows *= stored
+    vals = torch.randn((pp, nnz_max), generator=g, device=dev) * stored
+    k = len(winner_rows)
+    vals[winner] = 0.0
+    rows[winner] = 0
+    vals[winner, :k] = torch.randn(k, generator=g, device=dev)
+    rows[winner, :k] = torch.tensor(winner_rows, dtype=torch.int32, device=dev)
+    shape = (pp // block_size, block_size, nnz_max)
+    return vals.to(dtype).view(shape), rows.view(shape)
 
 
 def _fused_kw(max_iters, refresh_every=64):
@@ -768,6 +1005,52 @@ def phase2_fused(torch, Xt_main, y_main):
     return {"dense_fused_chunk": err, "fused_replay": 0.0}
 
 
+def bf16_solves(torch, dev, backend):
+    """F1: the golden's problem stored in bf16 solves on the card through
+    ``backend`` ('kernels' on the dense design, 'sparse' on its block-ELL
+    copy), one step per dispatch and with fuse_steps = 8 (K unfused steps:
+    K4/K7 run f32 only), to the reference's bars (a finite objective,
+    ||alpha||_1 <= delta * (1 + 5e-2)) and with its true objective, 0.5
+    ||y - X alpha||^2 in float64, within 1e-2 of the f32 golden's; a tail
+    launch a step and no chunk launch."""
+    import numpy as np
+
+    from repro_torch import convert, kernels
+    from repro_torch.core import FWConfig, fw_solve
+    from repro_torch.data import make_regression, standardize
+    from repro_torch.sparse import SparseBlockMatrix
+
+    ds = standardize(make_regression(m=80, p=300, n_informative=10, noise=0.5, seed=0))
+    X, yv = convert.problem_from_numpy(ds.X.T, ds.y, dev)
+    design = (X.to(torch.bfloat16) if backend == "kernels"
+              else SparseBlockMatrix.from_dense(ds.X.T, block_size=64).to(dev).astype(
+                  torch.bfloat16))
+    X64, y64 = ds.X.T.astype(np.float64), ds.y.astype(np.float64)
+    for fuse in (1, FUSE):
+        cfg = FWConfig(delta=150.0, kappa=60, max_iters=5000, tol=1e-4, backend=backend,
+                       fuse_steps=fuse)
+        stream = np.tile(golden_stream(), (200, 1))
+        kernels.reset_launch_counts()
+        res = fw_solve(design, yv.to(torch.bfloat16), cfg,
+                       convert.stream_from_reference(stream, dev), device=dev)
+        launches = kernels.launch_counts()
+        alpha = res.alpha.float().cpu().numpy().astype(np.float64)
+        r = y64 - alpha @ X64
+        true_obj, l1 = 0.5 * float(r @ r), float(np.abs(alpha).sum())
+        print(f"[bf16] {backend} fuse_steps={fuse}: iters={res.iterations} objective "
+              f"{float(res.objective)!r} (bf16), true objective {true_obj!r} (f32 golden "
+              f"{GOLDEN_OBJECTIVE!r}), l1 {l1:.6g} (delta 150), tail launches "
+              f"{launches['step_tail']}")
+        check(res.alpha.dtype == torch.bfloat16 and math.isfinite(float(res.objective)),
+              f"bf16 {backend}: objective")
+        check(l1 <= 150.0 * (1 + 5e-2), f"bf16 {backend}: l1 {l1} past delta * (1 + 5e-2)")
+        check(abs(true_obj - GOLDEN_OBJECTIVE) <= 1e-2 * GOLDEN_OBJECTIVE,
+              f"bf16 {backend}: true objective {true_obj}")
+        check(launches["step_tail"] == res.iterations and launches["dense_fused_chunk"] ==
+              launches["sparse_fused_chunk"] == launches["fused_replay"] == 0,
+              f"bf16 {backend} fuse_steps={fuse}: launches {launches}")
+
+
 def golden_stream():
     """The golden's (25, 60) index stream as a numpy array."""
     import base64
@@ -856,8 +1139,9 @@ def phase3_main_path(torch, Xt, y, coef):
     _print_points("main", res, cfg)
     print(f"[main] launches during the path: {launches}")
     check(launches["colstats"] == len(res.points), "colstats launches != points")
-    for name in ("sampled_scores", "vertex_argmax", "residual_update"):
+    for name in ("sampled_scores", "vertex_argmax", "step_tail"):
         check(launches[name] == res.total_iters, f"{name} launches != iterations")
+    check(launches["residual_update"] == 0, "the unfused path launched K3 beside the tail")
     # the certified duality gap bounds the last point's suboptimality: it
     # must be finite and (up to rounding) non-negative
     last = res.points[-1]
@@ -902,7 +1186,7 @@ def phase3_fused_path(torch, Xt, y, main):
           f"fused launches {launches['dense_fused_chunk']}/{launches['fused_replay']} != "
           f"chunks {chunks}")
     check(launches["colstats"] == len(res.points), "fused path: colstats launches != points")
-    for name in ("sampled_scores", "vertex_argmax", "residual_update"):
+    for name in ("sampled_scores", "vertex_argmax", "residual_update", "step_tail"):
         check(launches[name] == 0, f"fused path launched {name}")
     last = res.points[-1]
     alpha = _alpha_from_point(torch, last, p, Xt.device)
@@ -949,7 +1233,8 @@ def phase3_full_point(torch, Xt, y, main):
         check(res.n_dots == N_FULL_STEPS * p, f"full point {backend}: n_dots")
         if backend == "kernels":
             check(launches["sampled_scores"] == launches["vertex_argmax"] == N_FULL_STEPS
-                  == launches["residual_update"], "full point: K2 / K3 launches != steps")
+                  == launches["step_tail"], "full point: K2 / tail launches != steps")
+            check(launches["residual_update"] == 0, "full point: K3 launched")
         runs[backend] = (torch.stack(seq).cpu(), resid, obj)
     (sk, _, ok), (st, rt, ot) = runs["kernels"], runs["torch"]
     diff = (sk != st).nonzero().view(-1)
@@ -1160,6 +1445,48 @@ def sparse_colstats_times(torch, sc, mat, y, flush, reps=5):
         flops=4 * nz, nz=nz, note=note + f" L2 flushed, {nz:,} stored nonzeros")
 
 
+def k5_digest_inputs(torch, mat):
+    """K5's inputs for the bitwise check against the warp-per-feature K5's
+    scores (``K5_SHA256``): kappa = 1%
+    of p features drawn as phase 2 draws them (width 1), and 166 blocks of
+    256 from a fixed permutation (width 256)."""
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+
+    kappa = kappa_fraction(mat.p, 0.01)
+    g = torch.Generator(device=mat.device)
+    g.manual_seed(17)
+    blk = torch.randperm(mat.nblocks, generator=g, device=mat.device)[:kappa // SPARSE_BLOCK]
+    return {1: TorchSampler(7, mat.device).uniform(kappa, mat.p), SPARSE_BLOCK: blk}
+
+
+def k5_digests(torch, sg, mat, y):
+    """sha256 of K5's f32 score bytes at each width of ``k5_digest_inputs``."""
+    import hashlib
+
+    return {bs: hashlib.sha256(sg.sparse_sampled_scores(mat.values, mat.rows, y, ids, bs)
+                               .cpu().numpy().tobytes()).hexdigest()
+            for bs, ids in k5_digest_inputs(torch, mat).items()}
+
+
+def unfused_step_wall_ms(torch, X, y, stats, cfg, delta, n_steps=300):
+    """Host-clock ms per iteration of a fixed run of ``n_steps`` steps
+    (``cfg`` with tol 0, so no stop), after a warm-up run, from the cold
+    start; both runs end in a device sync."""
+    from repro_torch.core import engine, fw_lasso
+    from repro_torch.core.vertex import TorchSampler
+
+    cfg = dataclasses.replace(cfg, max_iters=n_steps, tol=0.0, patience=10**9)
+    for seed in (3, 5):  # a warm-up, then the timed run
+        state0 = engine.init_state(fw_lasso.LASSO, X, y, None, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_loop(fw_lasso.LASSO, X, y, stats, state0, cfg, delta, 10**9,
+                        TorchSampler(seed, X.device))
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps
+
+
 def phase5_timing(torch, Xt, y):
     from repro_torch.core import engine, fw_lasso
     from repro_torch.core.vertex import TorchSampler
@@ -1223,6 +1550,26 @@ def phase5_timing(torch, Xt, y):
         _time_queued(torch, lambda i: torch.lerp(r, target, lam), 400),
         4 * m * 4 + 8, 5 * m, note=f" [m={m}; library: torch.lerp toward y - dt*z]")
 
+    # ---- the unfused step's tail at the main path's shapes ------------------
+    from repro_torch.core import FWConfig
+    from repro_torch.kernels import step_tail as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    tcfg = FWConfig(delta=5.0)
+    beta_t, targs = _tail_args(torch, gen, p, m, torch.float32, int(idxs[0][0]))
+    row("step_tail",
+        _time_queued(torch, lambda i: st.step_tail(Xt, beta_t, *targs, tcfg), 400),
+        # ~75 launches a call: 10 calls keep the queue under its ~1000 entries
+        _time_queued(torch, lambda i: st.step_tail_plain(Xt, beta_t, *targs, tcfg), 10),
+        None, 4 * m * 4 + 64, 5 * m,
+        note=f" [dense, m={m}, no renorm; bytes: resid, y, the winner's row, the new resid, "
+             "and the scalars; library: none, no one call runs the step's tail]")
+    low = (torch.tensor(3e-7, device=dev),) + targs[1:]  # every step renormalizes
+    t_renorm = _time_queued(torch, lambda i: st.step_tail(Xt, beta_t, *low, tcfg), 40)
+    print(f"[timing] step_tail on a renorm step (beta *= scale over p={p:,}): {t_renorm:.6f} ms, "
+          f"bound {_bound(4 * m * 4 + 64 + 2 * p * 4, 5 * m + p)[0]:.6f} ms")
+
     # ---- K4 and the replay at the main path's shapes ----------------------
     from repro_torch.kernels import fused_step as fs
 
@@ -1259,18 +1606,20 @@ def phase5_timing(torch, Xt, y):
 
     row("fused_replay",
         _time_queued(torch, replay, 200),
-        _time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 8),
+        # ~25 launches a record, K records a call: 4 calls stay under the launch queue
+        _time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 4),
         None, FUSE * (8 + 4 + 4 + 1 + 4 + 4) + 4 * 4 + 4 * 4, FUSE * 12,
         note=f" [K={FUSE} records, no renorm; library: none]")
 
     floor = launch_floor_ms(torch, dev)
     print(f"[timing] launch floor: an empty kernel, queued back to back: {floor:.6f} ms a "
-          f"launch; residual_update takes {out['residual_update']['ms'] / floor:.2f}x and "
+          f"launch; residual_update takes {out['residual_update']['ms'] / floor:.2f}x, "
+          f"step_tail {out['step_tail']['ms'] / floor:.2f}x and "
           f"fused_replay {out['fused_replay']['ms'] / floor:.2f}x of it")
 
     # host share of a step: fixed-length runs of the main path's step, one
     # step per dispatch and fused
-    kernel_ms = sum(out[k]["ms"] for k in ("sampled_scores", "vertex_argmax", "residual_update"))
+    kernel_ms = sum(out[k]["ms"] for k in ("sampled_scores", "vertex_argmax", "step_tail"))
     for backend, fuse, n_steps in (("kernels", 1, 300), ("torch", 1, 300),
                                    ("kernels", FUSE, 320), ("kernels", 32, 320)):
         bcfg = dataclasses.replace(main_config(p, backend, fuse), max_iters=n_steps,
@@ -1289,9 +1638,9 @@ def phase5_timing(torch, Xt, y):
             print(f"[timing] step (torch backend): wall {wall_ms:.4f} ms")
             continue
         if fuse == 1:
-            print(f"[timing] step (kernels): wall {wall_ms:.4f} ms, its three kernels "
-                  f"{kernel_ms:.4f} ms, the rest (host launches, the per-step sync, "
-                  f"small torch ops) {wall_ms - kernel_ms:.4f} ms = "
+            print(f"[timing] step (kernels): wall {wall_ms:.4f} ms, its kernels (K2's scores "
+                  f"and argmax, the tail) {kernel_ms:.4f} ms, the rest (host launches, the "
+                  f"per-step sync, the draw) {wall_ms - kernel_ms:.4f} ms = "
                   f"{100 * (wall_ms - kernel_ms) / wall_ms:.1f}% of the step")
         else:
             print(f"[timing] step (kernels, fuse_steps={fuse}): wall {wall_ms:.4f} ms per "
@@ -1526,6 +1875,34 @@ def phase2_sparse_kernels(torch, mat, y):
                  torch.randint(0, 1000, (3, 5003), generator=g, device=dev), 0, delta,
                  _fused_kw(10**6))
     sparse_chunk_edge_cases(torch, fs, g)
+
+    # ---- K5's scores keep the warp-per-feature kernel's bits ------------------
+    got = k5_digests(torch, sg, mat, y)
+    for bs, want in K5_SHA256.items():
+        print(f"[kernels] sparse_sampled_scores width {bs} on k5_digest_inputs: sha256 "
+              f"{got[bs][:16]}... (recorded {want[:16]}...): equal {got[bs] == want}")
+        check(got[bs] == want, f"sparse_sampled_scores width {bs}: the scores' bits changed")
+
+    # ---- the unfused step's tail, block-ELL: bit for bit ---------------------
+    from repro_torch.kernels import step_tail as st
+
+    # a drawn feature, its slots past its stored nonzeros padding
+    i_pad = int(TorchSampler(7, dev).uniform(kappa, p)[0])
+    check(int(torch.count_nonzero(mat.values.view(-1, nnz)[i_pad])) < nnz,
+          "the sparse tail's main winner has no padding")
+    tail_errs = [tail_edge_cases(torch, st, f"sparse main m={mat.m} nnz_max={nnz} (winner "
+                                 "with padding)", (mat.values, mat.rows), p, mat.m,
+                                 torch.float32, g, i_pad)]
+    for dt in (torch.float32, torch.bfloat16):
+        ell = _tail_ell(torch, g, 1000, 803, 13, dt, 5, [400, 0, 17, 802, 3])
+        tail_errs.append(tail_edge_cases(
+            torch, st, "sparse p=1000 m=803 nnz_max=13 (the winner's stored rows include row "
+            "0, then padding)", ell, 1000, 803, dt, g, 5))
+        ell = _tail_ell(torch, g, 300, 1, 3, dt, 42, [0])
+        tail_errs.append(tail_edge_cases(torch, st, "sparse p=300 m=1 nnz_max=3", ell, 300, 1,
+                                         dt, g, 42))
+    errs["step_tail_sparse"] = max(tail_errs)
+    phase2_fused_past_cap(torch, dev, g, "sparse")
     torch.cuda.synchronize()
     return errs
 
@@ -1685,7 +2062,7 @@ def phase3_sparse_fused_path(torch, mat, y, coef):
           f"!= chunks {chunks}")
     check(launches["sparse_colstats"] == len(res.points), "sparse_colstats launches != points")
     for name in ("sparse_sampled_scores", "vertex_argmax", "colstats", "sampled_scores",
-                 "residual_update", "dense_fused_chunk"):
+                 "residual_update", "dense_fused_chunk", "step_tail"):
         check(launches[name] == 0, f"the fused sparse path launched {name}")
     last = res.points[-1]
     alpha = _alpha_from_point(torch, last, mat.p, mat.device)
@@ -1694,6 +2071,60 @@ def phase3_sparse_fused_path(torch, mat, y, coef):
           f"(objective {last.objective!r})")
     check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), "sparse certified gap")
     return launches, dict(cfg=cfg, deltas=deltas, res=res, rec=rec)
+
+
+def phase3_warm_start_bits(torch, mat, fused):
+    """F3: the warm start's X @ alpha (``sparse_ops.sparse_matvec``) twice,
+    at the densest point's alpha and at a large active set (100,000
+    features drawn from a seed): equal bits (its fixed-order sum), and its
+    time, and the bits of the host's sequential scatter-add. Beside it,
+    for the record only, the same sum as one CUDA ``index_add_`` (the
+    route before: colliding rows added by atomics), twice."""
+    last = fused["res"].points[-1]
+    _warm_start_case(torch, mat, _alpha_from_point(torch, last, mat.p, mat.device),
+                     "at the densest point")
+    g = torch.Generator(device=mat.device)
+    g.manual_seed(11)
+    alpha = torch.zeros(mat.p, device=mat.device)
+    alpha[torch.randperm(mat.p, generator=g, device=mat.device)[:100_000]] = torch.randn(
+        100_000, generator=g, device=mat.device)
+    _warm_start_case(torch, mat, alpha, "at a large active set")
+
+
+def _warm_start_case(torch, mat, alpha, label):
+    from repro_torch.sparse import ops as sparse_ops
+
+    times = []
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sparse_ops.sparse_matvec(mat, alpha))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    a, b = outs
+    nz = torch.nonzero(alpha).view(-1)
+    vals = mat.values.reshape(-1, mat.nnz_max).index_select(0, nz)
+    rows = mat.rows.reshape(-1, mat.nnz_max).index_select(0, nz).view(-1)
+    contrib = (vals * alpha.index_select(0, nz)[:, None]).view(-1)
+    seq = torch.zeros(mat.m).index_add_(0, rows.long().cpu(), contrib.cpu())  # sequential
+
+    def index_add_route():
+        out = torch.zeros(mat.m, device=mat.device)
+        return out.index_add_(0, rows, contrib)
+
+    c, d = index_add_route(), index_add_route()
+    same = _same_bits(torch, a, b)
+    as_host = _same_bits(torch, a.cpu(), seq)
+    print(f"[sparse] F3 warm start {label} ({nz.numel():,} nonzero coefficients, "
+          f"{int(torch.count_nonzero(vals)):,} stored contributions): sparse_matvec twice, "
+          f"bitwise equal: {same} ({times[0]:.3f} ms, then {times[1]:.3f} ms a call, host "
+          f"clock); the card's bits are the host's sequential scatter-add's: "
+          f"{as_host}, max |diff| {float((a.cpu() - seq).abs().max()):.3e}"
+          f"; the one-index_add_ route twice, bitwise equal: {_same_bits(torch, c, d)}, max "
+          f"|diff| {float((c - d).abs().max()):.3e}")
+    check(same, f"F3: two warm starts {label} differ in their bits")
+    check(as_host, f"F3: the warm start {label} is not the sequential sum's bits")
 
 
 def phase3_sparse_unfused_points(torch, mat, y, fused):
@@ -1710,8 +2141,9 @@ def phase3_sparse_unfused_points(torch, mat, y, fused):
     launches = kernels.launch_counts()
     _print_points("sparse-unfused", res, cfg)
     print(f"[sparse-unfused] launches: {launches}")
-    check(launches["sparse_sampled_scores"] == launches["vertex_argmax"] == res.total_iters,
-          "unfused sparse: K5 / argmax launches != iterations")
+    check(launches["sparse_sampled_scores"] == launches["vertex_argmax"] == res.total_iters
+          == launches["step_tail"], "unfused sparse: K5 / argmax / tail launches != iterations")
+    check(launches["residual_update"] == 0, "unfused sparse: K3 launched")
     check(launches["sparse_colstats"] == N_COMPARE, "unfused sparse: K6 launches != points")
     check(launches["sparse_fused_chunk"] == 0 == launches["fused_replay"],
           "unfused sparse path launched the fused chunk")
@@ -1740,8 +2172,8 @@ def phase3_sparse_block_point(torch, mat, y, fused):
           f"{dt:.3f} s ({1e3 * dt / res.iterations:.4f} ms/iteration); launches {launches}")
     check(math.isfinite(obj) and res.iterations == N_BLOCK_STEPS, "block point")
     check(res.n_dots == N_BLOCK_STEPS * nb * mat.block_size, "block point: n_dots")
-    check(launches["sparse_sampled_scores"] == N_BLOCK_STEPS == launches["vertex_argmax"],
-          "block point: K5 launches != steps")
+    check(launches["sparse_sampled_scores"] == N_BLOCK_STEPS == launches["vertex_argmax"]
+          == launches["step_tail"], "block point: K5 / argmax / tail launches != steps")
     return launches
 
 
@@ -1859,6 +2291,23 @@ def phase5_sparse_timing(torch, mat, y):
     print(f"[timing] sparse_sampled_scores width {SPARSE_BLOCK} ({nb} blocks): {t_k:.6f} ms, "
           f"bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / t_k:.1f}% of bound), plain {t_p:.6f} ms")
 
+    from repro_torch.core import FWConfig
+    from repro_torch.kernels import step_tail as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    tcfg = FWConfig(delta=5.0)
+    i_t = int(idxs[0][0])
+    beta_t, targs = _tail_args(torch, gen, p, m, torch.float32, i_t)
+    t_k = _time_queued(torch, lambda i: st.step_tail((vals, rows), beta_t, *targs, tcfg), 400)
+    t_p = _time_queued(torch, lambda i: st.step_tail_plain((vals, rows), beta_t, *targs, tcfg),
+                       10)  # ~75 launches a call, so 10 calls stay under the launch queue
+    b_ms, b_by = _bound(3 * m * 4 + nnz * 8 + 64, 4 * m + 2 * nnz)
+    out["step_tail_sparse"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+    print(f"[timing] step_tail sparse (m={m}, nnz_max={nnz}, no renorm): {t_k:.6f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}, {100 * b_ms / t_k:.1f}% of bound), plain {t_p:.6f} ms, "
+          "library null")
+
     k6 = sparse_colstats_times(torch, sc, mat, y, flush)
     row("sparse_colstats", k6["ms"], k6["plain_ms"], k6["library_ms"], k6["nbytes"],
         k6["flops"], note=k6["note"])
@@ -1916,8 +2365,8 @@ def phase5_sparse_timing(torch, mat, y):
                         TorchSampler(5, dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        note = (f", K5 {k1:.4f} ms of it" if fuse == 1
-                else f", {wall_ms * fuse:.4f} ms per chunk")
+        note = (f", K5 {k1:.4f} ms and the tail {out['step_tail_sparse']['ms']:.4f} ms of it"
+                if fuse == 1 else f", {wall_ms * fuse:.4f} ms per chunk")
         print(f"[timing] sparse step (fuse_steps={fuse}): wall {wall_ms:.4f} ms per "
               f"iteration{note}")
         busy_ms = _device_busy_ms(torch, mat, y, stats, bcfg, delta,

@@ -6,15 +6,21 @@
   n = p (the 'full' sampling of a paper-size dense point, blocks of 128);
 - K6's ``sparse_colstats`` over the E2006-log1p proxy at its published
   size with the L2 flushed, beside cuSPARSE's CSR SpMV on a copy;
+- K5's ``sparse_sampled_scores`` on that proxy at width 1 (kappa = 1% of
+  p) and width 256 (166 blocks), on 32 index sets drawn as phase 5 draws
+  them, with sha256 digests of the scores on ``chip_smoke.k5_digest_inputs``;
 - K7's ``sparse_fused_chunk`` per chunk of K = 8 steps on that proxy, on
   four index sets drawn as ``chip_smoke.py``'s phase 5 draws them;
+- the unfused step (``fuse_steps = 1``): host-clock ms per iteration of a
+  fixed run of 300 steps, on the proxy ('sparse') and at the paper's dense
+  size ('kernels');
 - the ``fused_replay`` of 8 fixed records over p = 4,272,227
   coefficients: without a renorm and with distinct coordinates; and with
   a renorm at the first record and a coordinate that wins 3 times;
 - K4's ``dense_fused_chunk`` per chunk of K = 8 steps at the paper's
   dense size (p = 4,272,227, m = 800), as phase 5 draws it.
 
-For K7, the replay and K4 it also prints a sha256 digest of every output
+For K5, K7, the replay and K4 it also prints a sha256 digest of every output
 byte (records, final residual and (S, F, Q); or beta and the statistics),
 so two versions that agree bit for bit print the same digests. The
 timing helpers are ``chip_smoke.py``'s.
@@ -78,6 +84,7 @@ def main(argv=None):
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import fw_grad as fw
     from repro_torch.kernels import sparse_colstats as sc
+    from repro_torch.kernels import sparse_grad as sg
 
     card = cs.card_line()
     _build.build()
@@ -135,7 +142,8 @@ def main(argv=None):
         first = fs.fused_replay(beta0.clone(), scale, zero, zero, zero_i, ist, lm, dts, nps, 0,
                                 cfg)
         t = dict(ms=cs._time_queued(torch, replay, 200),
-                 plain_ms=cs._time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 8),
+                 # ~25 launches a record: 4 calls stay under the ~1000-entry launch queue
+                 plain_ms=cs._time_queued(torch, lambda i: replay(i, fs.fused_replay_plain), 4),
                  nbytes=K * (8 + 4 + 4 + 1 + 4 + 4) + 4 * 4 + 4 * 4, flops=K * 12,
                  digest=digest(first))
         record(name, t, f" [K={K} records, p={p}: {what}]")
@@ -150,6 +158,32 @@ def main(argv=None):
     t = cs.sparse_colstats_times(torch, sc, mat, y, flush)
     record("sparse_colstats", t, t["note"])
     del flush
+
+    nnz = mat.nnz_max
+    slots = mat.values.view(-1, nnz)
+    sampler = TorchSampler(11, dev)
+    nb = kappa // cs.SPARSE_BLOCK
+    sets = {1: [sampler.uniform(kappa, p) for _ in range(32)],
+            cs.SPARSE_BLOCK: [torch.randperm(mat.nblocks, generator=sampler.generator,
+                                             device=dev)[:nb] for _ in range(32)]}
+    digests = cs.k5_digests(torch, sg, mat, y)
+    for bs, ids in sets.items():
+        n = ids[0].numel() * bs
+        feats = [(b.long()[:, None] * bs + torch.arange(bs, device=dev)).reshape(-1) for b in ids]
+        nz = sum(int(torch.count_nonzero(slots[f])) for f in feats) / len(feats)
+        t = dict(ms=cs._time_queued(torch, lambda i: sg.sparse_sampled_scores(
+                     mat.values, mat.rows, y, ids[i % 32], bs), 200),
+                 plain_ms=cs._time_queued(torch, lambda i: sg.sparse_sampled_scores_plain(
+                     mat.values, mat.rows, y, ids[i % 32], bs), 50),
+                 nbytes=n * nnz * 4 + nz * 4 + n * 4 + ids[0].numel() * 8 + mat.m * 4,
+                 flops=2 * nz, digest=digests[bs])
+        record(f"sparse_sampled_scores_w{bs}", t, f" [width {bs}, n={n}, nnz_max={nnz}]")
+    delta = torch.tensor(50.0, device=dev)
+    ucfg = cs.sparse_config(p, fuse_steps=1)
+    out["sparse_unfused_step_wall_ms"] = cs.unfused_step_wall_ms(
+        torch, mat, y, engine.precompute_colstats(mat, y, ucfg), ucfg, delta)
+    print(f"[{args.tag}] sparse unfused step: {out['sparse_unfused_step_wall_ms']:.4f} ms "
+          "wall per iteration (300 steps)")
 
     def chunk_times(name, fn, plain, head, mat_y, stats, sampler, m, step_bytes, step_flops,
                     note):
@@ -172,9 +206,6 @@ def main(argv=None):
         record(name, t, note)
         print(f"[{args.tag}] {name} per step: {t['ms'] / K:.6f} ms")
 
-    nnz = mat.nnz_max
-    slots = mat.values.view(-1, nnz)
-
     def stored(chunks):  # mean stored nonzeros a step over the index sets
         return sum(int(torch.count_nonzero(slots[ix.reshape(-1)])) for ix, _, _ in chunks) / (
             len(chunks) * K)
@@ -195,6 +226,11 @@ def main(argv=None):
                 stats, TorchSampler(11, dev), m,
                 lambda c: kappa * m * 4 + kappa * 16 + 3 * m * 4, lambda c: 2 * kappa * m,
                 f" [one chunk of K={K} steps, kappa={kappa}, m={m}]")
+    dcfg = cs.main_config(p, "kernels")
+    out["dense_unfused_step_wall_ms"] = cs.unfused_step_wall_ms(
+        torch, Xt, y, stats, dcfg, torch.tensor(50.0, device=dev))
+    print(f"[{args.tag}] dense unfused step: {out['dense_unfused_step_wall_ms']:.4f} ms wall "
+          "per iteration (300 steps)")
     del Xt
     print(card)
     print(json.dumps(out))

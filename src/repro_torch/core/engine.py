@@ -6,9 +6,11 @@ The engine owns the iteration skeleton: the sampled-vertex selection
 underflow renormalization, the ||alpha^{k+1}-alpha^k||_inf stopping
 statistic with patience, and the loop. A problem oracle supplies the
 objective-specific pieces through the reference's protocol
-(``init_co``, ``cograd``, ``score_extra``, ``line_search``,
-``update_co``, ``objective``, ``gap``); ``core.fw_lasso`` holds the
-lasso's.
+(``init_co``, ``cograd``, ``score_extra``, ``objective``, ``gap``),
+whose ``line_search`` and ``update_co`` the port joins, with the
+coefficient update between them (``apply_coeff_update``), into one
+``tail``, so that the lasso's can run as one launch; ``core.fw_lasso``
+holds the lasso's.
 
 The loop is a Python ``while`` over ``step``, eager on the device. Every
 scalar the step computes stays a 0-d device tensor, and every gather
@@ -16,13 +18,20 @@ scalar the step computes stays a 0-d device tensor, and every gather
 index, so a step enqueues its work without waiting for the device, with
 one exception: the stopping test ``stall < patience`` reads ``stall`` on
 the host once per step. The iteration count ``k`` and the dot count
-``n_dots`` are host integers: neither depends on the data.
+``n_dots`` are host integers: neither depends on the data. For the lasso
+on the kernels' backends a step is four launches: the draw, the scores,
+the argmax and ``kernels/step_tail`` (all that follows the argmax).
+
+The design and y are float32 or bfloat16; the state (``beta``, its
+scalars, the co-state) keeps that dtype, and each step computes its
+scalars in float32, rounding each stored value once.
 
 With ``FWConfig.fuse_steps = K > 1`` each turn of the loop advances K
 iterations (``fused_chunk``), through the ``kernels/fused_step`` kernel on
 the 'kernels' backend and on 'sparse' with its kernels on (the co-state
-and the scalar recursions stay on the device across the K steps) or K
-unfused steps otherwise, and the stopping test is read on the host once
+and the scalar recursions stay on the device across the K steps; a
+float32 design whose m fits the kernel's shared memory) or K unfused
+steps otherwise, and the stopping test is read on the host once
 per chunk: a stop lands on the first chunk boundary where the stall
 count has reached patience (K-1 steps after the unfused stop at most,
 while the stall streak lasts to that boundary), and max_iters stays
@@ -44,6 +53,7 @@ from repro_torch.core import vertex
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step as _fused_step
 from repro_torch.kernels.colstats import colstats as _colstats_kernel
+from repro_torch.kernels.step_tail import apply_coeff_update  # noqa: F401 (step 5, re-exported)
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -137,7 +147,10 @@ def validate_inputs(Xt, y: torch.Tensor) -> None:
 
 def prepare_inputs(Xt, y, cfg: FWConfig, device):
     """Check the config and the operands once per entry call and place the
-    operands on ``device`` (no copy when they are already there)."""
+    operands on ``device`` (no copy when they are already there). The
+    design and y share one dtype, float32 or bfloat16; the solver's state
+    lives in it (``init_state``) and each step computes its scalars in
+    float32."""
     dev = resolve_device(device)
     check_ported(cfg)
     vertex.check_matrix_backend(Xt, cfg)
@@ -148,9 +161,10 @@ def prepare_inputs(Xt, y, cfg: FWConfig, device):
     else:
         Xt = torch.as_tensor(Xt, device=dev).contiguous()
     y = torch.as_tensor(y, device=dev).contiguous()
-    if Xt.dtype != torch.float32 or y.dtype != torch.float32:
+    if Xt.dtype not in (torch.float32, torch.bfloat16) or y.dtype != Xt.dtype:
         raise TypeError(
-            f"the solver runs in float32, got Xt {Xt.dtype} and y {y.dtype}"
+            f"the solver needs Xt and y of one dtype, float32 or bfloat16, got Xt "
+            f"{Xt.dtype} and y {y.dtype}"
         )
     if y.shape != (Xt.shape[1],):
         raise ValueError(f"y must be (m,) = ({Xt.shape[1]},), got {tuple(y.shape)}")
@@ -168,7 +182,7 @@ def precompute_colstats(Xt, y: torch.Tensor, cfg: Optional[FWConfig] = None) -> 
         zty, znorm2 = sparse_ops.sparse_colstats(Xt, y, use_kernel=use_kernel)
         return ColStats(zty=zty, znorm2=znorm2, yty=torch.dot(y, y))
     if cfg is not None and cfg.backend == "kernels":
-        zty, znorm2 = _colstats_kernel(Xt, y)
+        zty, znorm2 = (s.to(Xt.dtype) for s in _colstats_kernel(Xt, y))  # f32 sums
     else:
         zty = Xt @ y
         znorm2 = torch.einsum("pm,pm->p", Xt, Xt)
@@ -207,30 +221,6 @@ def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
     )
 
 
-def apply_coeff_update(beta, scale, maxabs, stall, a_star, i_star, lam,
-                       delta_t, no_progress, cfg: FWConfig):
-    """Step 5 + stopping statistics of the FW iteration: the scaled-iterate
-    coefficient update with underflow renorm (``beta`` in place), and the
-    ||alpha^{k+1}-alpha^k||_inf bound / stall bookkeeping (§Stopping).
-    Returns ``(beta, scale, maxabs, step_inf, stall)``."""
-    one_m = 1.0 - lam
-    new_scale = scale * one_m
-    # renormalize when the scale underflows: a device-side select, not a
-    # host branch, so the step never waits on it. Without a renorm beta is
-    # multiplied by exactly 1, which leaves it unchanged.
-    need_renorm = new_scale < cfg.renorm_threshold
-    beta.mul_(torch.where(need_renorm, new_scale, 1.0))
-    scale = torch.where(need_renorm, 1.0, new_scale)
-    coef = delta_t * lam / torch.clamp_min(scale, cfg.eps_den)
-    beta.index_add_(0, i_star.view(1), coef.view(1))
-    # stopping statistic: ||alpha_{k+1} - alpha_k||_inf upper bound
-    alpha_istar_new = scale * vertex.take(beta, i_star)
-    step_inf = lam * torch.maximum(maxabs, torch.abs(delta_t - a_star))
-    maxabs = torch.maximum(one_m * maxabs, torch.abs(alpha_istar_new))
-    stall = torch.where((step_inf <= cfg.tol) | no_progress, stall + 1, 0)
-    return beta, scale, maxabs, step_inf, stall
-
-
 def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler) -> EngineState:
     """One randomized Frank-Wolfe step (paper Algorithm 2, any oracle).
     ``delta`` is a 0-d device tensor, so one path reuses every launch."""
@@ -241,26 +231,10 @@ def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler
     extra_fn = oracle.score_extra(state.beta, state.scale)
     i_star, g_raw, g_sel, n_scored = vertex.sample_vertex(Xt, w, sampler, p, cfg, extra_fn)
 
-    # -- step 3: FW vertex sign (eq. 6) -------------------------------------
-    delta_t = -delta * torch.sign(g_sel)  # delta-tilde
-
-    # -- step 4: oracle line search (closed-form eq. 8) ---------------------
-    a_star = state.scale * vertex.take(state.beta, i_star)
-    lam, no_progress, aux = oracle.line_search(
-        Xt, y, stats, state.co, i_star, g_raw, g_sel, a_star, delta_t, cfg
-    )
-
-    # -- step 5 + §Stopping statistics --------------------------------------
-    beta, scale, maxabs, step_inf, stall = apply_coeff_update(
-        state.beta, state.scale, state.maxabs, state.stall, a_star, i_star,
-        lam, delta_t, no_progress, cfg,
-    )
-
-    # -- step 6: oracle state recursions (eq. 10 + S/F + refresh) ----------
-    co = oracle.update_co(
-        Xt, y, stats, state.co, beta, scale, i_star, a_star, lam, delta_t,
-        state.k, cfg, aux,
-    )
+    # -- steps 3-6: eq. 6's sign, the line search, the coefficient update
+    # (``apply_coeff_update``) and the co-state recursions ----------------
+    beta, scale, maxabs, step_inf, stall, co = oracle.tail(
+        Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg)
     return EngineState(
         beta=beta,
         scale=scale,
@@ -370,8 +344,9 @@ def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
                 sampler) -> EngineState:
     """Advance K = cfg.fuse_steps iterations in one turn of the loop (the
     fused kernel where ``vertex.use_fused_kernel``, K unfused steps
-    otherwise)."""
-    if vertex.use_fused_kernel(cfg):
+    otherwise: a bf16 design, or m past the fused kernels' shared-memory
+    caps)."""
+    if vertex.use_fused_kernel(cfg, Xt):
         return _fused_kernel_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
     return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
 
@@ -388,9 +363,9 @@ def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_ste
     """
     advance = fused_chunk if vertex.fused_supported(oracle, cfg) else step
     state = state0
-    # `stall < patience` is read on the host: the one device sync per step,
-    # or per chunk on the fused path
-    while state.k < cfg.max_iters and bool(state.stall < patience):
+    # `stall` is read on the host: the one device sync per step, or per
+    # chunk on the fused path (a copy, and no comparison kernel)
+    while state.k < cfg.max_iters and int(state.stall) < patience:
         state = advance(oracle, Xt, y, stats, state, cfg, delta, sampler)
         if on_step is not None:
             on_step(state)

@@ -8,7 +8,8 @@ the reference's ``core/fw_lasso.py``:
   * residual update (eq. 10),
   * per-iteration cost O(kappa * m), independent of p.
 
-The scalar algebra keeps the reference's operation order, so that the two
+The scalar algebra (``kernels/step_tail``'s ``ls_closed_form`` and
+``sf_recursion``) keeps the reference's operation order, so that the two
 packages round alike.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core import engine, vertex
 from repro_torch.core.solver_config import FWConfig
+from repro_torch.kernels.step_tail import ls_closed_form, sf_recursion
 
 
 class LassoCo(NamedTuple):
@@ -30,44 +32,16 @@ class LassoCo(NamedTuple):
     f_lin: torch.Tensor  # ()  F^k = (X alpha)^T y
 
 
-def ls_closed_form(s_quad, f_lin, g_sel, g_lin, delta_t, zn2_i, eps_den, gap_rtol):
-    """The closed-form exact line search (eq. 8) as scalar algebra.
-    Returns ``(lam, no_progress, num)``; ``num`` is the sampled duality gap."""
-    num = s_quad - delta_t * g_sel - f_lin
-    den = s_quad - 2.0 * delta_t * g_lin + delta_t**2 * zn2_i
-    lam = torch.clamp(num / torch.clamp_min(den, eps_den), 0.0, 1.0)
-    gap_scale = s_quad + torch.abs(f_lin) + torch.abs(delta_t * g_sel)
-    no_progress = num <= gap_rtol * gap_scale
-    return lam, no_progress, num
-
-
-def sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i):
-    """The O(1) S/F scalar recursions (paper, below eq. 8)."""
-    one_m = 1.0 - lam
-    s_quad = (
-        one_m**2 * s_quad
-        + 2.0 * delta_t * lam * one_m * g_lin
-        + delta_t**2 * lam**2 * zn2_i
-    )
-    f_lin = one_m * f_lin + delta_t * lam * zty_i
-    return s_quad, f_lin
-
-
-def sf_update(stats, s_quad, f_lin, resid, y, i_star, lam, delta_t, g_lin, k: int, cfg):
-    """S/F recursions + the periodic exact O(m) refresh from the residual
-    (fp32 drift control). ``k`` is the host iteration count, so the
-    refresh is a host branch that needs no sync. Returns
-    ``(s_quad, f_lin, refresh)``."""
-    s_quad, f_lin = sf_recursion(
-        s_quad, f_lin, g_lin, lam, delta_t,
-        vertex.take(stats.zty, i_star), vertex.take(stats.znorm2, i_star),
-    )
-    refresh = (k % cfg.refresh_every) == (cfg.refresh_every - 1)
-    if refresh:
+def sf_refresh(s_quad, f_lin, resid, y, k: int, cfg):
+    """The periodic exact O(m) refresh of S and F from the residual (fp32
+    drift control) at iteration ``k``, the host iteration count, so the
+    refresh is a host branch that needs no sync. Returns ``(s_quad,
+    f_lin)``."""
+    if (k % cfg.refresh_every) == (cfg.refresh_every - 1):
         v = y - resid
         s_quad = vertex.mdot(v, v, cfg)
         f_lin = vertex.mdot(v, y, cfg)
-    return s_quad, f_lin, refresh
+    return s_quad, f_lin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,25 +73,21 @@ class LassoOracle:
     def score_extra(self, beta, scale):
         return None
 
-    def line_search(self, Xt, y, stats, co: LassoCo, i_star, g_raw, g_sel, a_star, delta_t, cfg):
-        """Closed-form exact line search (eq. 8). ``num`` is the sampled FW
-        duality gap; a step whose gap is below the fp32 rounding floor of
-        its own terms counts as a stall (``gap_rtol``)."""
-        g_lin = g_raw + vertex.take(stats.zty, i_star)  # G_{i*} = z_{i*}^T (X alpha)
-        lam, no_progress, _ = ls_closed_form(
-            co.s_quad, co.f_lin, g_sel, g_lin, delta_t,
-            vertex.take(stats.znorm2, i_star), cfg.eps_den, cfg.gap_rtol,
+    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg):
+        """Steps 3-6 after the vertex: eq. 6's sign, the closed-form line
+        search (eq. 8), the coefficient update, eq. 10 and the S/F
+        recursions (``vertex.step_tail``: one launch on the kernels'
+        backends), then the periodic exact S/F refresh. The lasso's scores
+        have no extra term, so ``g_raw`` is ``g_sel``. Returns ``(beta,
+        scale, maxabs, step_inf, stall, co)``, the scalars in the state's
+        dtype."""
+        co = state.co
+        beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin = vertex.step_tail(
+            Xt, y, stats, state.beta, state.scale, state.maxabs, state.stall, co.resid,
+            co.s_quad, co.f_lin, i_star, g_sel, delta, cfg,
         )
-        return lam, no_progress, g_lin
-
-    def update_co(self, Xt, y, stats, co: LassoCo, beta, scale, i_star, a_star, lam,
-                  delta_t, k, cfg, aux) -> LassoCo:
-        # residual update (eq. 10), backend-dispatched
-        resid = vertex.apply_column_update(Xt, co.resid, y, i_star, lam, delta_t, cfg)
-        s_quad, f_lin, _ = sf_update(
-            stats, co.s_quad, co.f_lin, resid, y, i_star, lam, delta_t, aux, k, cfg,
-        )
-        return LassoCo(resid=resid, s_quad=s_quad, f_lin=f_lin)
+        s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, state.k, cfg)
+        return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
 
     # ---- fused K-step chunk protocol --------------------------------------
     # The chunk (kernels/fused_step) carries the co-state as (resid, (S, F,

@@ -6,8 +6,10 @@ co-gradient vector" and "here is the winning FW vertex": drawing the
 sampling set S (paper §4.1/§4.5), scoring the sampled coordinates on the
 selected backend ('torch' | 'kernels' | 'sparse'), and reducing to the
 argmax. Every score is the linear form ``raw_i = -z_i^T w``. Also here:
-the O(m) column recursion of eq. 10, and the full matvecs behind warm
-starts and the certified gap.
+the lasso step's tail after the argmax on the matrix's layout
+(``step_tail``, with eq. 10), the fused chunk's routing
+(``use_fused_kernel``), and the full matvecs behind warm starts and the
+certified gap.
 
 The reference draws S with ``jax.random`` from a key. The port draws it
 from a *sampler* instead, so that parity with the reference never
@@ -31,7 +33,7 @@ import torch
 
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step, fw_grad
-from repro_torch.kernels.residual_update import residual_update
+from repro_torch.kernels import step_tail as _step_tail
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -296,14 +298,49 @@ def fused_supported(oracle, cfg: FWConfig) -> bool:
     return ok
 
 
-def use_fused_kernel(cfg: FWConfig) -> bool:
-    """Chunk executor choice: the fused kernel drives the 'kernels' backend
-    (K4) and the 'sparse' backend with its kernels on (K7), as the Pallas
-    megakernel drives 'pallas' and the kernel-dispatched 'sparse'; 'torch'
-    and the plain sparse ops chunk through K unfused engine steps."""
+def use_kernels(cfg: FWConfig) -> bool:
+    """Whether the backend runs the port's kernels: 'kernels', and 'sparse'
+    with its kernels on ('torch' and the plain sparse ops run eager ops, as
+    the reference's 'xla' path does)."""
     if cfg.backend == "kernels":
         return True
     return cfg.backend == "sparse" and use_sparse_kernel(cfg)
+
+
+def fused_kernel_fits(sparse: bool, m: int, dtype: torch.dtype) -> bool:
+    """Whether the fused chunk kernels take a design of ``m`` samples in
+    ``dtype``: K4 (dense) and K7 (sparse) run in float32 only, and keep the
+    residual (and dense y) in a block's shared memory, so m is at most
+    ``M_MAX`` (dense) or ``M_MAX_SPARSE`` (sparse)."""
+    cap = fused_step.M_MAX_SPARSE if sparse else fused_step.M_MAX
+    return dtype == torch.float32 and m <= cap
+
+
+def use_fused_kernel(cfg: FWConfig, Xt) -> bool:
+    """Chunk executor choice: the fused kernel drives the 'kernels' backend
+    (K4) and the 'sparse' backend with its kernels on (K7), as the Pallas
+    megakernel drives 'pallas' and the kernel-dispatched 'sparse'; 'torch'
+    and the plain sparse ops chunk through K unfused engine steps. Two
+    routes are chosen from the design (``fused_kernel_fits``): a bf16
+    design, or m past the kernels' shared-memory cap, chunks through K
+    unfused steps on the same backend's kernels (ROADMAP.md Queue 2 lists
+    K4/K7 in bf16 and with the residual in device memory as later work)."""
+    return use_kernels(cfg) and fused_kernel_fits(
+        isinstance(Xt, SparseBlockMatrix), Xt.shape[1], Xt.dtype)
+
+
+def step_tail(Xt, y, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g,
+              delta, cfg: FWConfig):
+    """The lasso step's tail after the argmax on the matrix's layout (the
+    winner's row of a dense ``Xt``, or its ELL slots of a
+    ``SparseBlockMatrix``): ``kernels/step_tail``, one launch, where the
+    backend runs the kernels (``use_kernels``); its plain version, the same
+    ops, on 'torch' and the plain sparse ops, as the reference's 'xla'
+    path."""
+    mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
+    tail = _step_tail.step_tail if use_kernels(cfg) else _step_tail.step_tail_plain
+    return tail(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, stats.zty,
+                stats.znorm2, i_star, g, delta, cfg)
 
 
 def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
@@ -323,19 +360,6 @@ def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, del
 # --------------------------------------------------------------------------
 # O(m) column recursion and full matvecs
 # --------------------------------------------------------------------------
-
-
-def apply_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg: FWConfig):
-    """v <- (1-lam) v + lam (y_vec - delta_t * z_star) (eq. 10 with v = R,
-    y_vec = y). The column is gathered on the device, without a sync; a
-    sparse column adds its ELL slots (``sparse_ops.sparse_residual_update``)."""
-    if cfg.backend == "sparse":
-        col_vals, col_rows = sparse_ops.sparse_column(Xt, i_star)
-        return sparse_ops.sparse_residual_update(v, y_vec, col_vals, col_rows, lam, delta_t)
-    z_star = Xt.index_select(0, i_star.view(1)).view(-1)
-    if cfg.backend == "kernels":
-        return residual_update(v, y_vec, z_star, lam, delta_t)
-    return (1.0 - lam) * v + lam * (y_vec - delta_t * z_star)
 
 
 def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:

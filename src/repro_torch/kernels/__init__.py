@@ -4,6 +4,9 @@ version (the code path for CPU tensors) and a launch counter.
 colstats:         K1, fused z^T y and ||z||^2 setup pass
 fw_grad:          K2, sampled row scores + masked first-max argmax
 residual_update:  K3, fused R <- (1-lam) R + lam (y - dt z)
+step_tail:        the unfused lasso step after its argmax in one launch
+                  (eq. 6, 8, the coefficient update, eq. 10 and the S/F
+                  recursions): K3's counterpart on the path
 fused_step:       K4 and K7, K fused FW iterations per launch on the dense
                   and the block-ELL layout (one cooperative grid skeleton),
                   and the one-block replay of their records into beta
@@ -19,6 +22,7 @@ from repro_torch.kernels import (
     residual_update,
     sparse_colstats,
     sparse_grad,
+    step_tail,
 )
 
 _WRAPPERS = {
@@ -26,6 +30,7 @@ _WRAPPERS = {
     "sampled_scores": fw_grad.sampled_scores,
     "vertex_argmax": fw_grad.vertex_argmax,
     "residual_update": residual_update.residual_update,
+    "step_tail": step_tail.step_tail,
     "dense_fused_chunk": fused_step.dense_fused_chunk,
     "fused_replay": fused_step.fused_replay,
     "sparse_sampled_scores": sparse_grad.sparse_sampled_scores,

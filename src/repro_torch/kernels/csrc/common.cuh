@@ -151,6 +151,82 @@ __device__ __forceinline__ float warp_slot_score(const T* __restrict__ values,
   return -warp_sum(dot);
 }
 
+// ---- the lasso step's scalar algebra ---------------------------------------
+//
+// One copy for every kernel that runs it: the fused chunks' end of a step
+// (end_step), the fused replay and the unfused step's tail (step_tail.cu).
+// Every op is a separate _rn intrinsic in the op order of
+// kernels/step_tail.py (ls_closed_form, sf_recursion, apply_coeff_update),
+// so nvcc cannot contract into FMAs and the bits are the eager ops'.
+
+// torch's NaN rules: maximum/clamp propagate NaN, sign(NaN) = 0
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float clamp_min_nan(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp01(float x) {
+  return isnan(x) ? x : fminf(fmaxf(x, 0.f), 1.f);
+}
+__device__ __forceinline__ float sign_of(float g) {
+  return (float)((0.f < g) - (g < 0.f));
+}
+
+// Eq. 6's vertex sign and the closed-form line search (eq. 8) of a step
+// whose selected score is g (the lasso's is its linear score).
+struct LineSearch {
+  float dt;     // delta_t = -delta * sign(g)
+  float g_lin;  // g + z.y
+  float lam;
+  bool no_prog;
+};
+
+__device__ __forceinline__ LineSearch lasso_line_search(float g, float delta, float S, float F,
+                                                        float zty, float zn2, float eps_den,
+                                                        float gap_rtol) {
+  LineSearch o;
+  o.dt = __fmul_rn(-delta, sign_of(g));
+  o.g_lin = __fadd_rn(g, zty);
+  const float dtg = __fmul_rn(o.dt, g);
+  const float num = __fsub_rn(__fsub_rn(S, dtg), F);
+  const float den = __fadd_rn(__fsub_rn(S, __fmul_rn(__fmul_rn(2.f, o.dt), o.g_lin)),
+                              __fmul_rn(__fmul_rn(o.dt, o.dt), zn2));
+  o.lam = clamp01(__fdiv_rn(num, clamp_min_nan(den, eps_den)));
+  const float gap_scale = __fadd_rn(__fadd_rn(S, fabsf(F)), fabsf(dtg));
+  o.no_prog = num <= __fmul_rn(gap_rtol, gap_scale);
+  return o;
+}
+
+// The S/F scalar recursions (sf_recursion), in place.
+__device__ __forceinline__ void sf_recursion(float& S, float& F, float g_lin, float lam, float dt,
+                                             float zty, float zn2) {
+  const float one_m = __fsub_rn(1.f, lam);
+  const float sa = __fmul_rn(__fmul_rn(one_m, one_m), S);
+  const float sb = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(2.f, dt), lam), one_m), g_lin);
+  const float sc = __fmul_rn(__fmul_rn(__fmul_rn(dt, dt), __fmul_rn(lam, lam)), zn2);
+  S = __fadd_rn(__fadd_rn(sa, sb), sc);
+  F = __fadd_rn(__fmul_rn(one_m, F), __fmul_rn(__fmul_rn(dt, lam), zty));
+}
+
+// apply_coeff_update's increment of beta[i_star]: delta_t * lam / scale,
+// the scale after any renorm.
+__device__ __forceinline__ float coeff_increment(float dt, float lam, float scale, float eps_den) {
+  return __fdiv_rn(__fmul_rn(dt, lam), clamp_min_nan(scale, eps_den));
+}
+
+// apply_coeff_update's stopping statistics, in place: the
+// ||alpha^{k+1} - alpha^k||_inf bound, the running max |alpha| and the
+// stall count, from the step's a_star = scale * beta[i_star] before it
+// and alpha_new = scale * beta[i_star] after it.
+__device__ __forceinline__ void stop_stats(float lam, float one_m, float dt, float a_star,
+                                           float alpha_new, bool no_prog, float tol,
+                                           float& maxabs, float& step_inf, int& stall) {
+  step_inf = __fmul_rn(lam, nan_max(maxabs, fabsf(__fsub_rn(dt, a_star))));
+  maxabs = nan_max(__fmul_rn(one_m, maxabs), fabsf(alpha_new));
+  stall = (step_inf <= tol || no_prog) ? stall + 1 : 0;
+}
+
 // The most dynamic shared memory a block may opt in to on Hopper (227 KB),
 // less a margin for the kernels' static shared memory.
 #define OPTIN_SMEM_BYTES (224 * 1024)
@@ -296,6 +372,218 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
+
+// ---- a warp's ring of block-ELL features (K5 and K7) -----------------------
+//
+// One block of 1024 threads an SM; each warp scores its own sequence of
+// features, two at a time, against the block's shared-memory residual rs:
+// half h of the warp (lanes 16 h .. 16 h + 15) scores feature 2 pi + h of
+// pair pi. A feature comes in pieces of `slots` (nnz_max up to 124, or a
+// multiple of 32: kernels/sparse_grad.py's ring_plan); the pairs' pieces
+// stream through the warp's ring of RING_DEPTH stages, a pair's piece a
+// tick:
+//
+//  - ids: lane l holds the id of feature 32 w + l of the warp's sequence
+//    (Ids(f): the sequence's feature f) for the window w of the pair
+//    fetched next and the window after it (one load a lane per 32
+//    features, handed out by shuffles);
+//  - tick u reads stage u % D and then starts the row slots of tick
+//    u + D/2's pieces (whose values have landed) and the value slots of
+//    tick u + D's into the stage just read, one cp.async group a tick, so
+//    waiting until at most D/2 - 1 groups pend brings both;
+//  - a stage holds, for each half, the 16-byte chunks that cover its
+//    piece (a feature's slots start at 4 * nnz_max * f bytes, 16-byte
+//    aligned only for some f): lane q of the half copies value chunks q
+//    and q + 16 and, beside them, the same row chunks, but only where one
+//    of the chunk's 4 values is nonzero (sign bit ignored): a zero-filled
+//    row chunk makes a padded slot or a stored zero gather rs[0] * 0, an
+//    exact 0 for a finite residual, as the plain dot's rs[row] * 0 does.
+//    Lane q = 0 writes the piece's place and slots (0 for an id outside
+//    [0, n_feat), which scores -0 without a read) to its Meta;
+//  - lane q sums slot_dot's lane-q and lane-(q + 16) partials (slots
+//    q + 32 t and q + 16 + 32 t, in order, across the pieces), adds them
+//    and finishes warp_sum's butterfly in the half (xor 8, 4, 2, 1): the
+//    same additions of the same operands as warp_slot_score, so the same
+//    bits.
+//
+// The sequence is K rounds of n features (K7: a step's run of positions;
+// K5: one round), and the stream runs on across the rounds.
+constexpr int RING_DEPTH = 4;
+constexpr int RING_WARPS = 32;  // the ring kernels' blocks: 1024 threads
+
+struct Meta {
+  long long at;  // the first chunk's first float in the arrays
+  int sh;        // where the piece starts in its first chunk (0-3)
+  int cnt;       // the piece's slots; 0: nothing to read
+};
+
+// Dynamic shared memory of a ring kernel: the residual (m floats, rounded
+// up to 16 bytes), then each warp's RING_DEPTH stages of two pieces'
+// `stride` value and `stride` row slots, then their Metas
+// (kernels/sparse_grad.py's RingPlan.smem_bytes).
+inline size_t ring_smem_bytes(int m, int stride) {
+  return ((size_t)((m + 3) & ~3) + (size_t)RING_WARPS * RING_DEPTH * 4 * stride) * sizeof(float) +
+         (size_t)RING_WARPS * RING_DEPTH * 2 * sizeof(Meta);
+}
+
+// Whether a ring of `slots`-slot pieces a `stride` apart serves nnz_max
+// (kernels/sparse_grad.py's ring_plan makes such plans).
+inline bool ring_plan_ok(int nnz_max, int slots, int stride) {
+  return nnz_max >= 1 && (slots == nnz_max ? slots <= 124 : slots % 32 == 0 && slots < nnz_max) &&
+         slots <= 128 && stride % 4 == 0 && stride >= slots + 3;
+}
+
+// The ring of one warp. Ids: the sequence's feature ids, `long long
+// operator()(int f)` for f < K * n. NT: slots a lane of a half reads a
+// piece, ceil(slots / 32).
+template <int NT, class Ids>
+struct SlotRing {
+  static constexpr int D = RING_DEPTH, HALF = D / 2;
+  const float* values;
+  const int* rows;
+  long long n_feat;  // features in the arrays
+  long long total;   // floats in each array
+  int nnz, ps, pieces, stride;
+  float* ring;  // this warp's stages
+  Meta* meta;   // this warp's Metas
+  int lane, h, q;
+  Ids ids;
+  int n, npairs, K, total_q;
+  long long win, win_next;  // the id windows
+  int wcur;
+  // the value cursor: round vs, pair vpi (its first feature vqa in the
+  // sequence), piece vp; vfirst: this half's feature's first slot (or -1)
+  long long vfirst;
+  int vs, vpi, vqa, vp;
+  int cs;  // the stage read next; its rows went out D/2 ticks before
+
+  // `area`: the block's shared memory past the residual
+  __device__ __forceinline__ SlotRing(const float* values_, const int* rows_, long long n_feat_,
+                                      int nnz_max, int stride_, float* area, Ids ids_, int n_,
+                                      int K_)
+      : values(values_), rows(rows_), n_feat(n_feat_), total(n_feat_ * nnz_max), nnz(nnz_max),
+        stride(stride_), ids(ids_), n(n_), K(K_) {
+    const int warp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    h = lane >> 4;
+    q = lane & 15;
+    ps = nnz <= 32 * NT ? nnz : 32 * NT;
+    pieces = (nnz + ps - 1) / ps;
+    ring = area + (size_t)warp * D * 4 * stride;
+    meta = reinterpret_cast<Meta*>(area + (size_t)RING_WARPS * D * 4 * stride) + warp * D * 2;
+    npairs = (n + 1) / 2;
+    total_q = n * K;
+    win = window(0);
+    win_next = window(1);
+    wcur = 0;
+    vfirst = -1;
+    vs = vpi = vqa = vp = 0;
+    cs = 0;
+  }
+
+  __device__ __forceinline__ float* half_stage(int st) { return ring + (st * 4 + 2 * h) * stride; }
+
+  __device__ __forceinline__ long long window(int w) {  // the id of feature 32 w + lane
+    const int f = 32 * w + lane;
+    return f >= total_q ? -1 : ids(f);
+  }
+
+  __device__ __forceinline__ int clamp(long long at) { return (int)min(16LL, 4 * (total - at)); }
+
+  __device__ __forceinline__ void fetch_values(int st) {  // the next tick's value chunks
+    Meta mm{0, 0, 0};
+    if (vs < K) {
+      if (vp == 0) {
+        const int f = vqa + h;
+        const long long f0 = __shfl_sync(0xffffffffu, win, f & 31);
+        const long long f1 = __shfl_sync(0xffffffffu, win_next, f & 31);
+        const long long id = (f >> 5) == wcur ? f0 : f1;
+        vfirst = 2 * vpi + h < n && id >= 0 && id < n_feat ? id * nnz : -1;
+      }
+      if (vfirst >= 0) {
+        const long long g0 = vfirst + (long long)ps * vp;
+        mm.sh = (int)(g0 & 3);
+        mm.at = g0 - mm.sh;
+        mm.cnt = min(ps, nnz - ps * vp);
+      }
+      if (++vp == pieces) {
+        vp = 0;
+        if (++vpi == npairs) {
+          vpi = 0;
+          vqa = ++vs * n;
+        } else {
+          vqa += 2;
+        }
+        if ((vqa >> 5) > wcur) {  // a pair moves on by at most 2 features
+          win = win_next;
+          win_next = window(++wcur + 1);
+        }
+      }
+    }
+    if (q == 0) meta[st * 2 + h] = mm;
+    const int nch = (mm.sh + mm.cnt + 3) >> 2;
+    float* vdst = half_stage(st);
+#pragma unroll
+    for (int c = q; c < 32; c += 16)
+      if (c < nch) cp_async16_n(vdst + 4 * c, values + mm.at + 4 * c, clamp(mm.at + 4 * c));
+  }
+
+  __device__ __forceinline__ void fetch_rows(int st) {  // stage st's row chunks
+    const Meta mm = meta[st * 2 + h];
+    const int nch = (mm.sh + mm.cnt + 3) >> 2;
+    float* vsrc = half_stage(st);
+#pragma unroll
+    for (int c = q; c < 32; c += 16) {
+      if (c < nch) {  // value chunk c came by this lane's own copy
+        const uint4 w = *reinterpret_cast<const uint4*>(vsrc + 4 * c);
+        const bool stored = ((w.x | w.y | w.z | w.w) & 0x7fffffffu) != 0;
+        cp_async16_n(vsrc + stride + 4 * c, rows + mm.at + 4 * c,
+                     stored ? clamp(mm.at + 4 * c) : 0);
+      }
+    }
+  }
+
+  // groups: the values of ticks 0 .. D-1, then the rows of 0 .. D/2-1
+  __device__ __forceinline__ void prologue() {
+    for (int t = 0; t < D; ++t) {
+      fetch_values(t);
+      cp_async_commit();
+    }
+    for (int t = 0; t < HALF; ++t) {
+      cp_async_wait<D - 1>();  // tick t's values (this lane's chunks)
+      __syncwarp();            // its Metas
+      fetch_rows(t);
+      cp_async_commit();
+    }
+  }
+
+  // The next pair: this half's feature's -z . rs, on every lane of the half.
+  __device__ __forceinline__ float score_pair(const float* rs) {
+    float dot0 = 0.f, dot1 = 0.f;  // slot_dot's lane-q and lane-(q + 16) partials
+    for (int pc = 0; pc < pieces; ++pc) {
+      cp_async_wait<HALF - 1>();
+      __syncwarp();  // every lane's chunks of stage cs, and its Metas
+      const Meta mm = meta[cs * 2 + h];
+      const float* sv = half_stage(cs) + mm.sh;
+      const int* rw = reinterpret_cast<const int*>(sv + stride);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int k = q + 32 * t;
+        if (k < mm.cnt) dot0 = fmaf(sv[k], rs[rw[k]], dot0);
+        if (k + 16 < mm.cnt) dot1 = fmaf(sv[k + 16], rs[rw[k + 16]], dot1);
+      }
+      __syncwarp();  // stage cs read by every lane before it is refilled
+      fetch_rows((cs + HALF) & (D - 1));
+      fetch_values(cs);
+      cp_async_commit();
+      cs = (cs + 1) & (D - 1);
+    }
+    float v = dot0 + dot1;  // warp_sum's xor-16 level, then the rest in the half
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return -v;
+  }
+};
 
 // True when rows of T[m] starting at base are all 16-byte aligned.
 template <typename T>

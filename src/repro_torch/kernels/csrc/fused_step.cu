@@ -12,9 +12,10 @@
 // its features' slots through a ring in shared memory for each warp, or,
 // where no ring fits beside the residual, in fused_chunk_kernel too.
 //
-// Scalar algebra: every op is a separate _rn intrinsic in the op order of
-// core/fw_lasso.py (ls_closed_form, sf_recursion) and core/engine.py
-// (apply_coeff_update), so nvcc cannot contract into FMAs. The dense scores
+// Scalar algebra: common.cuh's lasso_line_search, sf_recursion,
+// coeff_increment and stop_stats, the op order of core/fw_lasso.py and
+// core/engine.py in _rn intrinsics (one copy, shared with the unfused
+// step's tail in step_tail.cu). The dense scores
 // go through warp_row_score, K2's per-row dot, and its residual update is
 // K3's op sequence; the sparse scores go through warp_slot_score, K5's
 // slot dot, or the ring's copy of its order.
@@ -44,20 +45,6 @@ __device__ __forceinline__ Partial load_partial(const Partial* q) {
   } u;
   u.v = __ldcg(reinterpret_cast<const float4*>(q));
   return u.q;
-}
-
-// torch's NaN rules: maximum/clamp propagate NaN, sign(NaN) = 0
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float clamp_min_nan(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp01(float x) {
-  return isnan(x) ? x : fminf(fmaxf(x, 0.f), 1.f);
-}
-__device__ __forceinline__ float sign_of(float g) {
-  return (float)((0.f < g) - (g < 0.f));
 }
 
 // Block-wide first max of each thread's (mag, j, raw); thread 0 ends with
@@ -113,7 +100,7 @@ struct DenseRows {
 };
 
 // Block-ELL slots (K7): K5's slot dot; the op order of
-// sparse.ops.sparse_residual_update, out = (1 - lam) r + lam y over m and
+// step_tail.py's sparse_residual_update, out = (1 - lam) r + lam y over m and
 // then out[rows] += (-lam * dt) * vals over the winner's slots. A
 // feature's real rows are distinct, so the slots' adds are independent;
 // a padded slot (value 0) adds nothing and is skipped, so the shared
@@ -222,27 +209,12 @@ __device__ __forceinline__ void end_step(const Layout& L, const ChunkArgs& a,
     const long long i_star = a.idx[flat];
     const float zty = a.zty_s[flat], zn2 = a.zn2_s[flat];
     const float g = raw;  // lasso: the selected score is the linear one
-    const float dt = __fmul_rn(-delta, sign_of(g));
-    const float g_lin = __fadd_rn(g, zty);
-    // ls_closed_form (eq. 8)
-    const float dtg = __fmul_rn(dt, g);
-    const float num = __fsub_rn(__fsub_rn(S, dtg), F);
-    const float den = __fadd_rn(__fsub_rn(S, __fmul_rn(__fmul_rn(2.f, dt), g_lin)),
-                                __fmul_rn(__fmul_rn(dt, dt), zn2));
-    const float lam = clamp01(__fdiv_rn(num, clamp_min_nan(den, a.eps_den)));
-    const float gap_scale = __fadd_rn(__fadd_rn(S, fabsf(F)), fabsf(dtg));
-    const bool no_prog = num <= __fmul_rn(a.gap_rtol, gap_scale);
+    const LineSearch ls = lasso_line_search(g, delta, S, F, zty, zn2, a.eps_den, a.gap_rtol);
+    const float lam = ls.lam, dt = ls.dt;
+    const bool no_prog = ls.no_prog;
     const long long kg = a.k0 + s;
     const bool active = kg < a.max_iters;
-    if (active) {
-      // sf_recursion
-      const float one_m = __fsub_rn(1.f, lam);
-      const float sa = __fmul_rn(__fmul_rn(one_m, one_m), S);
-      const float sb = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(2.f, dt), lam), one_m), g_lin);
-      const float sc = __fmul_rn(__fmul_rn(__fmul_rn(dt, dt), __fmul_rn(lam, lam)), zn2);
-      S = __fadd_rn(__fadd_rn(sa, sb), sc);
-      F = __fadd_rn(__fmul_rn(one_m, F), __fmul_rn(__fmul_rn(dt, lam), zty));
-    }
+    if (active) sf_recursion(S, F, ls.g_lin, lam, dt, zty, zn2);
     sh.lam = lam;
     sh.dt = dt;
     sh.i = i_star;
@@ -351,66 +323,33 @@ fused_chunk_kernel(Layout L, ChunkArgs a) {
 }
 
 // K7 where a ring fits beside the residual: one block of 1024 threads a
-// SM, each warp with a ring of RING_DEPTH stages of its own in shared
-// memory. Every step splits its kappa positions into one contiguous run
-// per warp of the grid, [lo, lo + n), taken two features at a time: half
-// h of the warp (lanes 16 h .. 16 h + 15) scores feature 2 pi + h of pair
-// pi. A feature comes in pieces of `slots` (nnz_max up to 124, or a
-// multiple of 32: kernels/fused_step.py's plan); the pairs' pieces stream,
-// without a break at the step boundaries, through the warp's ring, a
-// pair's piece a tick:
-//
-//  - ids: lane l holds the id of feature 32 w + l of the warp's sequence
-//    (step q / n, position lo + q % n) for the window w of the pair
-//    fetched next and the window after it (one load a lane per 32
-//    features, handed out by shuffles);
-//  - tick u reads stage u % D and then starts the row slots of tick
-//    u + D/2's pieces (whose values have landed) and the value slots of
-//    tick u + D's into the stage just read, one cp.async group a tick, so
-//    waiting until at most D/2 - 1 groups pend brings both;
-//  - a stage holds, for each half, the 16-byte chunks that cover its
-//    piece (a feature's slots start at 4 * nnz_max * f bytes, 16-byte
-//    aligned only for some f): lane q of the half copies value chunks q
-//    and q + 16 and, beside them, the same row chunks, but only where one
-//    of the chunk's 4 values is nonzero (sign bit ignored): a zero-filled
-//    row chunk makes a padded slot or a stored zero gather rs[0] * 0, an
-//    exact 0 for a finite residual, as the plain dot's rs[row] * 0 does.
-//    Lane q = 0 writes the piece's place and slots (0 for an id outside
-//    [0, n_feat), which scores -0 without a read) to its Meta;
-//  - lane q sums slot_dot's lane-q and lane-(q + 16) partials (slots
-//    q + 32 t and q + 16 + 32 t, in order, across the pieces), adds them
-//    and finishes warp_sum's butterfly in the half (xor 8, 4, 2, 1): the
-//    same additions of the same operands as warp_slot_score, so the same
-//    bits.
-//
-// So the last ticks of step s have already started the first pieces of
-// step s + 1, which land during the step's grid sync, reduction and O(m)
-// residual pass; only their gathers wait for it.
-constexpr int RING_DEPTH = 4;
-
-struct Meta {
-  long long at;  // the first chunk's first float in the arrays
-  int sh;        // where the piece starts in its first chunk (0-3)
-  int cnt;       // the piece's slots; 0: nothing to read
+// SM, each warp streaming its features through a ring of its own in
+// shared memory (common.cuh's SlotRing, K5's scoring too). Every step
+// splits its kappa positions into one contiguous run per warp of the grid,
+// [lo, lo + n); the warp's sequence is the K steps' runs, one after the
+// other, so the last ticks of step s have already started the first pieces
+// of step s + 1, which land during the step's grid sync, reduction and
+// O(m) residual pass; only their gathers wait for it.
+struct ChunkIds {  // feature f of a warp's sequence: step f / n, position lo + f % n
+  const long long* idx;
+  long long kappa, lo;
+  int n;
+  __device__ __forceinline__ long long operator()(int f) const {
+    const int s = f / n;
+    return idx[s * kappa + lo + (f - s * n)];
+  }
 };
 
 template <int NT>
 __global__ void __launch_bounds__(1024, 1)
 sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
-  constexpr int THREADS = 1024, WARPS = THREADS / 32, D = RING_DEPTH, HALF = D / 2;
+  constexpr int THREADS = 1024, WARPS = THREADS / 32;
+  static_assert(WARPS == RING_WARPS, "the ring's layout assumes 1024-thread blocks");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   __shared__ StepShared<WARPS> sh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, h = lane >> 4, q = lane & 15;
-  const int nnz = L.nnz_max;
-  const int ps = nnz <= 32 * NT ? nnz : 32 * NT;  // slots a piece
-  const int pieces = (nnz + ps - 1) / ps;
-  const long long total = L.n_feat * nnz;  // floats in each array
+  const int tid = threadIdx.x, warp = tid >> 5;
   float* rs = smem;  // this block's live residual (m)
-  float* ring = smem + ((a.m + 3) & ~3) + (size_t)warp * D * 4 * stride;
-  Meta* meta = reinterpret_cast<Meta*>(smem + ((a.m + 3) & ~3) + (size_t)WARPS * D * 4 * stride) +
-               warp * D * 2;
-  auto half_stage = [&](int st) { return ring + (st * 4 + 2 * h) * stride; };  // values, rows
   for (int i = tid; i < a.m; i += THREADS) rs[i] = a.r0[i];
   float S = *a.s0, F = *a.f0;
   const float delta = *a.delta;
@@ -418,117 +357,19 @@ sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
   // the warp's sequence has K * n < 2^31 features (sparse_fused_chunk_launch)
   const long long nw = (long long)gridDim.x * WARPS, gw = (long long)blockIdx.x * WARPS + warp;
   const long long lo = gw * a.kappa / nw;
-  const int n = (int)((gw + 1) * a.kappa / nw - lo), npairs = (n + 1) / 2, total_q = n * a.K;
-  auto window = [&](int w) -> long long {  // the id of feature 32 w + lane
-    const int f = 32 * w + lane;
-    if (f >= total_q) return -1;
-    const int s = f / n;
-    return a.idx[s * a.kappa + lo + (f - s * n)];
-  };
-  long long win = window(0), win_next = window(1);
-  int wcur = 0;
-  // the value cursor: step vs, pair vpi (its first feature vqa in the
-  // sequence), piece vp; vfirst: this half's feature's first slot (or -1)
-  long long vfirst = -1;
-  int vs = 0, vpi = 0, vqa = 0, vp = 0;
-
-  auto clamp = [&](long long at) { return (int)min(16LL, 4 * (total - at)); };
-  auto fetch_values = [&](int st) {  // the next tick's value chunks into stage st
-    Meta mm{0, 0, 0};
-    if (vs < a.K) {
-      if (vp == 0) {
-        const int f = vqa + h;
-        const long long f0 = __shfl_sync(0xffffffffu, win, f & 31);
-        const long long f1 = __shfl_sync(0xffffffffu, win_next, f & 31);
-        const long long id = (f >> 5) == wcur ? f0 : f1;
-        vfirst = 2 * vpi + h < n && id >= 0 && id < L.n_feat ? id * nnz : -1;
-      }
-      if (vfirst >= 0) {
-        const long long g0 = vfirst + (long long)ps * vp;
-        mm.sh = (int)(g0 & 3);
-        mm.at = g0 - mm.sh;
-        mm.cnt = min(ps, nnz - ps * vp);
-      }
-      if (++vp == pieces) {
-        vp = 0;
-        if (++vpi == npairs) {
-          vpi = 0;
-          vqa = ++vs * n;
-        } else {
-          vqa += 2;
-        }
-        if ((vqa >> 5) > wcur) {  // a pair moves on by at most 2 features
-          win = win_next;
-          win_next = window(++wcur + 1);
-        }
-      }
-    }
-    if (q == 0) meta[st * 2 + h] = mm;
-    const int nch = (mm.sh + mm.cnt + 3) >> 2;
-    float* vdst = half_stage(st);
-#pragma unroll
-    for (int c = q; c < 32; c += 16)
-      if (c < nch) cp_async16_n(vdst + 4 * c, L.values + mm.at + 4 * c, clamp(mm.at + 4 * c));
-  };
-  auto fetch_rows = [&](int st) {  // stage st's row chunks, beside its stored values
-    const Meta mm = meta[st * 2 + h];
-    const int nch = (mm.sh + mm.cnt + 3) >> 2;
-    float* vsrc = half_stage(st);
-#pragma unroll
-    for (int c = q; c < 32; c += 16) {
-      if (c < nch) {  // value chunk c came by this lane's own copy
-        const uint4 w = *reinterpret_cast<const uint4*>(vsrc + 4 * c);
-        const bool stored = ((w.x | w.y | w.z | w.w) & 0x7fffffffu) != 0;
-        cp_async16_n(vsrc + stride + 4 * c, L.rows + mm.at + 4 * c,
-                     stored ? clamp(mm.at + 4 * c) : 0);
-      }
-    }
-  };
-
-  // groups: the values of ticks 0 .. D-1, then the rows of 0 .. D/2-1,
-  // then one a tick
-  for (int t = 0; t < D; ++t) {
-    fetch_values(t);
-    cp_async_commit();
-  }
-  for (int t = 0; t < HALF; ++t) {
-    cp_async_wait<D - 1>();  // tick t's values (this lane's chunks)
-    __syncwarp();            // its Metas
-    fetch_rows(t);
-    cp_async_commit();
-  }
+  const int n = (int)((gw + 1) * a.kappa / nw - lo);
+  SlotRing<NT, ChunkIds> ring(L.values, L.rows, L.n_feat, L.nnz_max, stride,
+                              smem + ((a.m + 3) & ~3), ChunkIds{a.idx, a.kappa, lo, n}, n, a.K);
+  ring.prologue();
   __syncthreads();  // the residual
 
-  int cs = 0;  // the stage read next; its rows went out D/2 ticks before
   for (int s = 0; s < a.K; ++s) {
     float mag = -INFINITY, raw = 0.f;
     long long j = LLONG_MAX;
-    for (int pi = 0; pi < npairs; ++pi) {
-      float dot0 = 0.f, dot1 = 0.f;  // slot_dot's lane-q and lane-(q + 16) partials
-      for (int pc = 0; pc < pieces; ++pc) {
-        cp_async_wait<HALF - 1>();
-        __syncwarp();  // every lane's chunks of stage cs, and its Metas
-        const Meta mm = meta[cs * 2 + h];
-        const float* vs_ = half_stage(cs) + mm.sh;
-        const int* rw = reinterpret_cast<const int*>(vs_ + stride);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int k = q + 32 * t;
-          if (k < mm.cnt) dot0 = fmaf(vs_[k], rs[rw[k]], dot0);
-          if (k + 16 < mm.cnt) dot1 = fmaf(vs_[k + 16], rs[rw[k + 16]], dot1);
-        }
-        __syncwarp();  // stage cs read by every lane before it is refilled
-        fetch_rows((cs + HALF) & (D - 1));
-        fetch_values(cs);
-        cp_async_commit();
-        cs = (cs + 1) & (D - 1);
-      }
-      float v = dot0 + dot1;  // warp_sum's xor-16 level, then the rest in the half
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      const float sc = -v;
-      const long long c = lo + 2 * pi + h;
-      if (2 * pi + h < n && better(fabsf(sc), c, mag, j)) {
+    for (int pi = 0; pi < ring.npairs; ++pi) {
+      const float sc = ring.score_pair(rs);
+      const long long c = lo + 2 * pi + ring.h;
+      if (2 * pi + ring.h < n && better(fabsf(sc), c, mag, j)) {
         mag = fabsf(sc);
         j = c;
         raw = sc;
@@ -615,13 +456,10 @@ fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restri
         } else {
           scale = new_scale;
         }
-        const float coef = __fdiv_rn(__fmul_rn(dt_t, lam_t), clamp_min_nan(scale, eps_den));
-        const float bi = __fadd_rn(b_t, coef);
+        const float bi = __fadd_rn(b_t, coeff_increment(dt_t, lam_t, scale, eps_den));
         if (ri == i_t) rb = bi;
-        const float alpha_new = __fmul_rn(scale, bi);
-        step_inf = __fmul_rn(lam_t, nan_max(maxabs, fabsf(__fsub_rn(dt_t, a_star))));
-        maxabs = nan_max(__fmul_rn(one_m, maxabs), fabsf(alpha_new));
-        stall = (step_inf <= tol || np_t) ? stall + 1 : 0;
+        stop_stats(lam_t, one_m, dt_t, a_star, __fmul_rn(scale, bi), np_t, tol, maxabs, step_inf,
+                   stall);
         if (l == 31 || t + 1 == live) {  // the batch's coordinates, once each
           const unsigned same = __match_any_sync(0xffffffffu, ri);
           if (ri >= 0 && lane == 31 - __clz(same)) beta[ri] = rb;
@@ -653,15 +491,6 @@ static size_t chunk_smem_bytes(int m) {
   return (size_t)(((m + 3) & ~3) + (Layout::kStageY ? m : 0)) * sizeof(float);
 }
 
-// Dynamic shared memory of sparse_ring_chunk_kernel: the residual, then
-// each warp's RING_DEPTH stages of two pieces' `stride` value and `stride`
-// row slots, then their Metas (kernels/fused_step.py's
-// RingPlan.smem_bytes).
-static size_t ring_smem_bytes(int m, int stride) {
-  return ((size_t)((m + 3) & ~3) + (size_t)32 * RING_DEPTH * 4 * stride) * sizeof(float) +
-         (size_t)32 * RING_DEPTH * 2 * sizeof(Meta);
-}
-
 // K7's kernel for a plan: depth 0, fused_chunk_kernel (512 threads);
 // otherwise the ring kernel (1024 threads) of ceil(slots / 32) slots a
 // lane.
@@ -680,10 +509,8 @@ static cudaError_t sparse_choice(int m, int nnz_max, int threads, int depth, int
     *out = {(const void*)fused_chunk_kernel<SparseSlots>, FC_THREADS,
             chunk_smem_bytes<SparseSlots>(m), &caches[0]};
   } else {
-    const bool ok = nnz_max >= 1 && threads == 1024 && depth == RING_DEPTH &&
-                    (slots == nnz_max ? slots <= 124 : slots % 32 == 0 && slots < nnz_max) &&
-                    slots <= 128 && stride % 4 == 0 && stride >= slots + 3;
-    if (!ok) return cudaErrorInvalidValue;
+    if (threads != 1024 || depth != RING_DEPTH || !ring_plan_ok(nnz_max, slots, stride))
+      return cudaErrorInvalidValue;
     const void* kernels[] = {(const void*)sparse_ring_chunk_kernel<1>,
                              (const void*)sparse_ring_chunk_kernel<2>,
                              (const void*)sparse_ring_chunk_kernel<3>,

@@ -6,9 +6,17 @@
 
 constexpr int SG_THREADS = 512;
 
-// scores[j] = -z_f . r with f = blk[j / bs] * bs + j % bs, one warp per
-// sampled feature (warp_slot_score: a feature outside [0, n_feat) scores
-// 0). A persistent grid: each block stages r once, then its warps stride
+// The sampled feature of score position j: blk[j / bs] * bs + j % bs
+// (width 1: blk[j]).
+__device__ __forceinline__ long long sampled_feature(const long long* __restrict__ blk,
+                                                     long long j, int bs) {
+  return bs == 1 ? blk[j] : blk[j / bs] * bs + j % bs;
+}
+
+// Where no ring fits (bf16 values, or a residual too long for shared
+// memory beside the ring): one warp per sampled feature
+// (warp_slot_score: a feature outside [0, n_feat) scores 0). A persistent
+// grid: each block stages r once (when it fits), then its warps stride
 // over the sampled features.
 template <typename T>
 __global__ void __launch_bounds__(SG_THREADS)
@@ -26,16 +34,60 @@ sparse_sampled_scores_kernel(const T* __restrict__ values, const int* __restrict
   const long long nwarps = (long long)gridDim.x * (SG_THREADS / 32);
   for (long long j = (long long)blockIdx.x * (SG_THREADS / 32) + (threadIdx.x >> 5); j < n;
        j += nwarps) {
-    const long long f = blk[j / bs] * bs + j % bs;
+    const long long f = sampled_feature(blk, j, bs);
     const float score = warp_slot_score<T>(values, rows, f, n_feat, nnz_max, v, lane);
     if (lane == 0) scores[j] = score;
   }
 }
 
+// f32 values where a ring fits: one block of 1024 threads an SM; each warp
+// takes a contiguous run [lo, lo + n) of the n_total score positions and
+// streams its features, two at a time, through its ring (common.cuh's
+// SlotRing, K7's scoring), the first pieces in flight while the residual
+// is staged. Lane 0 of each half writes its feature's score.
+struct SampledIds {  // feature f of a warp's run: the sampled feature of position lo + f
+  const long long* blk;
+  long long lo;
+  int bs;
+  __device__ __forceinline__ long long operator()(int f) const {
+    return sampled_feature(blk, lo + f, bs);
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(1024, 1)
+sparse_ring_scores_kernel(const float* __restrict__ values, const int* __restrict__ rows,
+                          const float* __restrict__ r, const long long* __restrict__ blk,
+                          float* __restrict__ scores, long long n_total, int bs, int nnz_max,
+                          long long n_feat, int m, int stride) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const long long nw = (long long)gridDim.x * RING_WARPS;
+  const long long gw = (long long)blockIdx.x * RING_WARPS + warp;
+  const long long lo = gw * n_total / nw;
+  const int n = (int)((gw + 1) * n_total / nw - lo);
+  // the residual by 16-byte cp.async, one group committed before the ring's
+  // (the prologue's first wait completes it); zero-filled past m
+  float* rs = smem;
+  for (int c = tid; c < (m + 3) / 4; c += 1024)
+    cp_async16_n(rs + 4 * c, r + 4 * c, 4 * min(4, m - 4 * c));
+  cp_async_commit();
+  SlotRing<NT, SampledIds> ring(values, rows, n_feat, nnz_max, stride, smem + ((m + 3) & ~3),
+                                SampledIds{blk, lo, bs}, n, 1);
+  ring.prologue();
+  __syncthreads();  // every thread's share of the residual
+  for (int pi = 0; pi < ring.npairs; ++pi) {
+    const float sc = ring.score_pair(rs);
+    const int f = 2 * pi + ring.h;
+    if (ring.q == 0 && f < n) scores[lo + f] = sc;
+  }
+  cp_async_wait<0>();
+}
+
 template <typename T>
-static int launch(const void* values, const int* rows, const float* r, const long long* blk,
-                  float* scores, long long n, int bs, int nnz_max, long long n_feat, int m,
-                  cudaStream_t s) {
+static int launch_warps(const void* values, const int* rows, const float* r,
+                        const long long* blk, float* scores, long long n, int bs, int nnz_max,
+                        long long n_feat, int m, cudaStream_t s) {
   static GridCache cache;
   const int staged = (size_t)m * sizeof(float) <= OPTIN_SMEM_BYTES;
   const size_t smem = staged ? (size_t)m * sizeof(float) : 0;
@@ -49,14 +101,52 @@ static int launch(const void* values, const int* rows, const float* r, const lon
   return (int)cudaGetLastError();
 }
 
+// About 8 features a warp at the least: a block stages the whole residual,
+// which is not worth it for fewer.
+constexpr long long RING_FEATURES_PER_BLOCK = RING_WARPS * 8;
+
+static int launch_ring(const float* values, const int* rows, const float* r,
+                       const long long* blk, float* scores, long long n, int bs, int nnz_max,
+                       long long n_feat, int m, int slots, int stride, cudaStream_t s) {
+  static GridCache caches[4];
+  if (!ring_plan_ok(nnz_max, slots, stride)) return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_smem_bytes(m, stride);
+  if (smem > OPTIN_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  const int nt = (slots + 31) / 32;
+  const void* kernels[] = {(const void*)sparse_ring_scores_kernel<1>,
+                           (const void*)sparse_ring_scores_kernel<2>,
+                           (const void*)sparse_ring_scores_kernel<3>,
+                           (const void*)sparse_ring_scores_kernel<4>};
+  const long long needed = (n + RING_FEATURES_PER_BLOCK - 1) / RING_FEATURES_PER_BLOCK;
+  int blocks = 0;
+  cudaError_t err = resident_grid(kernels[nt - 1], 1024, smem, needed, &caches[nt - 1], &blocks);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&values, &rows, &r, &blk, &scores, &n, &bs, &nnz_max, &n_feat, &m, &stride};
+  err = cudaLaunchKernel(kernels[nt - 1], dim3(blocks), dim3(1024), args, smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it again
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// depth 0: the warp-per-feature kernel; otherwise the ring kernel of
+// `slots`-slot pieces a `stride` apart (f32 values only).
 extern "C" int sparse_sampled_scores_launch(const void* values, const int* rows, const float* r,
                                             const long long* blk, float* scores, long long n,
                                             int bs, int nnz_max, long long n_feat, int m,
-                                            int dtype, void* stream) {
+                                            int depth, int slots, int stride, int dtype,
+                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (depth != 0) {
+    if (depth != RING_DEPTH || dtype != DT_F32 || n > INT_MAX) return (int)cudaErrorInvalidValue;
+    return launch_ring(static_cast<const float*>(values), rows, r, blk, scores, n, bs, nnz_max,
+                       n_feat, m, slots, stride, s);
+  }
   if (dtype == DT_F32)
-    return launch<float>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, s);
+    return launch_warps<float>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, s);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, s);
+    return launch_warps<__nv_bfloat16>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,7 @@ with the exact refresh every ``refresh_every`` steps; steps at ``k0 + s >=
 max_iters`` write their record but change no state. Each returns
 ``(i_star (K,), lam (K,), delta_t (K,), no_progress (K,), resid_out (m,),
 (S, F, Q))``. ``fused_replay`` then applies the records to ``beta`` and
-the stopping statistics with ``engine.apply_coeff_update``'s op sequence.
+the stopping statistics with ``step_tail.apply_coeff_update``'s op sequence.
 
 Replaces the Pallas kernel ``_fused_kernel`` at
 ``src/repro/kernels/fused_step/fused_step.py:259``, through its entries
@@ -50,7 +50,7 @@ scalars everywhere), and updates its own residual with the winner read
 from device memory: dense, K3's op order over the winner's row; sparse,
 ``out = (1-lam) r + lam y`` over m, then the winner's nonzero slots added
 as ``out[rows] += (-lam * delta_t) * vals``
-(``sparse.ops.sparse_residual_update``'s op order). The double-buffered
+(``step_tail.sparse_residual_update``'s op order). The double-buffered
 partials need no second sync. Block 0 writes the records, the final
 residual and (S, F, Q). Both layouts share that end of a step.
 
@@ -62,7 +62,8 @@ warp's bookkeeping per feature costs as much again. So K7
 (``sparse_ring_chunk_kernel``, one block of 1024 threads an SM) gives
 every warp a contiguous run of each step's positions and streams its
 features, two at a time, through a ring of ``RING_DEPTH`` stages of its
-own in shared memory: the ids are loaded 32 at a time and handed out by
+own in shared memory (``csrc/common.cuh``'s ``SlotRing``, through which
+K5 scores too): the ids are loaded 32 at a time and handed out by
 shuffles; a feature's value slots arrive by 16-byte ``cp.async`` (a
 feature starts at byte 4*nnz_max*f, 16-byte aligned only for some f, so a
 stage holds the chunks that cover it and where in them it starts), four
@@ -82,7 +83,9 @@ scores from device memory as K4 does, with K5's ``warp_slot_score``.
 ``m`` is capped by shared memory: the dense layout keeps y beside the
 residual (two (m,) f32 vectors a block, ``M_MAX``); the sparse layout
 reads y through L2 and keeps the residual alone (``M_MAX_SPARSE``; at
-m = 16,087 that is 64.3 KB a block).
+m = 16,087 that is 64.3 KB a block). Both chunks run in f32. The engine
+routes a bf16 design, or m past its layout's cap, to K unfused steps
+instead (``core.vertex.use_fused_kernel``).
 
 ``fused_replay`` is one block launched once per chunk. Its first warp
 loads the records in one parallel round (a lane a record, then the
@@ -97,7 +100,7 @@ record. It matches its plain version, the loop over
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -105,7 +108,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fw_grad import sampled_scores_plain
 from repro_torch.kernels.residual_update import residual_update_plain
-from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
+from repro_torch.kernels.step_tail import apply_coeff_update, sparse_residual_update
+from repro_torch.kernels.sparse_grad import (  # noqa: F401 (K7's ring, re-exported)
+    RING_DEPTH,
+    SMEM_BYTES,
+    RingPlan,
+    ring_plan,
+    sparse_sampled_scores_plain,
+)
 
 M_MAX = 24_576  # two (m,) f32 vectors in a block's shared memory: 192 KB
 M_MAX_SPARSE = 57_344  # one (m,) f32 vector: 224 KB
@@ -129,46 +139,17 @@ _REPLAY_ARGTYPES = ([_PTR, _I64] + [_PTR] * 6 + [_I64, _PTR, _I64, _PTR, _I32, _
 
 _grid_blocks: Dict[tuple, int] = {}
 
-# K7's ring (csrc/fused_step.cu, sparse_ring_chunk_kernel), sized by `plan`
-SMEM_BYTES = 224 * 1024  # OPTIN_SMEM_BYTES of csrc/common.cuh: a block's dynamic shared memory
-RING_DEPTH = 4  # ring stages a warp (RING_DEPTH of csrc/fused_step.cu)
-WHOLE_MAX = 124  # the most slots a piece holds whole: 32 chunks of 16 bytes from any offset
-PIECE_SLOTS = (96, 64, 32)  # a piece's slots when a feature takes several, larger first
-META_BYTES = 16  # a piece's Meta
-
-
-class RingPlan(NamedTuple):
-    threads: int  # the block: 1024 with a ring (one an SM), 512 without (as many as fit)
-    depth: int  # ring stages a warp (RING_DEPTH); 0: no ring, features scored from device memory
-    slots: int  # slots of a piece: nnz_max (up to WHOLE_MAX), or one of PIECE_SLOTS below it
-    stride: int  # floats a piece's values (and its rows) take: slots + 3, whole 16-byte chunks
-
-    def smem_bytes(self, m: int) -> int:
-        """Dynamic shared memory a block takes: the residual (m floats,
-        rounded up to 16 bytes), then each warp's stages of two pieces (a
-        pair of features) and their Metas."""
-        return (4 * (-(-m // 4) * 4)
-                + self.threads // 32 * self.depth * 2 * (2 * self.stride * 4 + META_BYTES))
-
-
 def plan(m: int, nnz_max: int) -> RingPlan:
-    """K7's ring for a residual of ``m`` and ``nnz_max`` slots a feature:
-    one 1024-thread block an SM, each warp with ``RING_DEPTH`` stages of a
-    pair's pieces beside the residual, a piece the whole feature (up to
-    ``WHOLE_MAX`` slots) or else the largest of ``PIECE_SLOTS`` that fits.
-    Where none fits, ``RingPlan(512, 0, 0, 0)``: 512-thread blocks score
-    the features from device memory. Raises past ``M_MAX_SPARSE``."""
+    """K7's ring (``sparse_grad.ring_plan``, the ring K5 scores through) for
+    a residual of ``m`` and ``nnz_max`` slots a feature; where none fits,
+    ``RingPlan(512, 0, 0, 0)``: 512-thread blocks score the features from
+    device memory. Raises past ``M_MAX_SPARSE``."""
     if m > M_MAX_SPARSE:
         raise ValueError(
             f"the sparse fused chunk keeps the (m,) f32 residual in shared memory: "
             f"m <= {M_MAX_SPARSE}, got {m}"
         )
-    whole = (nnz_max,) if 1 <= nnz_max <= WHOLE_MAX else ()
-    for slots in whole + tuple(x for x in PIECE_SLOTS if x < nnz_max):
-        pl = RingPlan(1024, RING_DEPTH, slots, -(-(slots + 3) // 4) * 4)
-        if pl.smem_bytes(m) <= SMEM_BYTES:
-            return pl
-    return RingPlan(512, 0, 0, 0)
+    return ring_plan(m, nnz_max)
 
 
 def _f32(x: float) -> float:
@@ -252,15 +233,13 @@ def dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delt
 def sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
                              **kw):
     """The plain version of K7: the unfused sparse step's scores (K5's plain
-    version at width 1) and eq. 10 (``sparse.ops.sparse_residual_update``)."""
-    from repro_torch.sparse import ops as sparse_ops  # sparse.ops imports kernels
-
+    version at width 1) and eq. 10 (``step_tail.sparse_residual_update``)."""
     nnz = values.shape[-1]
 
     def update(r, yv, i_star, lam, delta_t):
         col_vals = values.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
         col_rows = rows.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
-        return sparse_ops.sparse_residual_update(r, yv, col_vals, col_rows, lam, delta_t)
+        return sparse_residual_update(r, yv, col_vals, col_rows, lam, delta_t)
 
     return _chunk_plain(lambda ids, r: sparse_sampled_scores_plain(values, rows, r, ids, 1),
                         update, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
@@ -391,8 +370,6 @@ def fused_replay_plain(beta, scale, maxabs, step_inf, stall, i_stars, lams, delt
     """The plain version: the unfused step's own ``apply_coeff_update``,
     record by record, skipping records at k >= cfg.max_iters. Updates
     ``beta`` in place; returns ``(beta, scale, maxabs, step_inf, stall)``."""
-    from repro_torch.core.engine import apply_coeff_update  # core imports kernels
-
     for t in range(min(i_stars.shape[0], cfg.max_iters - k0)):
         i_star = i_stars[t]
         a_star = scale * beta.index_select(0, i_star.view(1)).view(())

@@ -7,7 +7,11 @@ tensors read by the kernel from device memory, never host floats, so the
 step needs no sync to launch it.
 
 Replaces the Pallas kernel ``residual_update`` at
-``src/repro/kernels/residual_update/residual_update.py:45`` (entry at :30).
+``src/repro/kernels/residual_update/residual_update.py:45`` (entry at :30),
+one to one. The solver's paths no longer launch it: the lasso's unfused
+step runs eq. 10 inside ``kernels/step_tail``, with the rest of the step
+after its argmax, and the fused chunks inside K4/K7. Its plain version is
+the dense eq. 10 of both of their plain versions.
 
 Bound on an H100: bytes, 4*m*4 + 8 of them (read r, y, z, write the
 result), 12.8 KB at m = 800: a few nanoseconds at 3.35 TB/s, so the

@@ -28,17 +28,38 @@ for the nnz nonzeros of the n scored features. At the E2006-log1p size
 (kappa = 42,723 uniform, nnz_max 66, about 32 nonzeros a feature,
 m = 16,087) that is about 17.4 MB, about 5.2 us at 3.35 TB/s.
 
-Design: one warp per sampled feature. Its ``nnz_max`` value and row slots
-are contiguous, so the lanes read them coalesced; the residual is gathered
-from a shared-memory copy (64.3 KB at m = 16,087; above 224 KB it is read
-through L1/L2). The grid is persistent (as many blocks of 512 threads as
-the occupancy calculator lets reside), so each block stages the residual
-once and its warps stride over the sampled features. Sums in f32 from f32
-or bf16 storage; a feature past the padded arrays scores 0 without a read.
+Design: K7's scoring (``csrc/common.cuh``'s ``SlotRing``) without
+the chunk's grid barrier and step machinery. One warp per feature makes
+each feature a chain of memory latencies (its id, its slots, then the
+gather), so instead one block of 1024 threads an SM gives every warp a
+contiguous run of the score positions and streams its features, two at a
+time, through a ring of ``RING_DEPTH`` stages of its own in shared memory:
+ids loaded 32 at a time and handed out by shuffles; a feature's value
+slots by 16-byte ``cp.async`` four ticks ahead, its row slots two ticks
+ahead and only beside a stored nonzero (zero-filled otherwise, so the
+padding's rows are not read); half h of the warp scores feature h of the
+pair, lane q summing ``slot_dot``'s lane-q and lane-(q+16) partials and
+finishing ``warp_sum``'s butterfly in the half: the same additions of the
+same operands as the warp-per-feature score, so the scores keep their
+bits. The residual is staged once a block by 16-byte ``cp.async``, in
+flight with the ring's first pieces. ``ring_plan`` sizes the ring beside
+the residual (a feature in pieces of 96, 64 or 32 slots where a whole one
+does not fit). The two
+widths run the same kernel: width 1 at arbitrary ids ('uniform'), width
+``bs`` over whole aligned blocks ('block', 'full'), where a warp's run is
+a stretch of contiguous features.
+
+Two routes are chosen from the inputs: bf16 values, or a residual that
+leaves no room for a ring (m past about 37,000 at nnz_max 66), run the
+warp-per-feature kernel, each block staging the residual once (through
+L1/L2 above 224 KB) and its warps striding over the features. Sums in f32
+from f32 or bf16 storage; a feature past the padded arrays scores 0
+without a read.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -46,8 +67,55 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fw_grad import block_indices
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, dtype, stream)
-_ARGTYPES = [_PTR] * 5 + [_I64, _I32, _I32, _I64, _I32, _I32, _PTR]
+# (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, depth, slots, stride, dtype,
+#  stream)
+_ARGTYPES = [_PTR] * 5 + [_I64, _I32, _I32, _I64] + [_I32] * 5 + [_PTR]
+
+# The ring of K5 and K7 (csrc/common.cuh, SlotRing), sized by `ring_plan`
+SMEM_BYTES = 224 * 1024  # OPTIN_SMEM_BYTES of csrc/common.cuh: a block's dynamic shared memory
+RING_DEPTH = 4  # ring stages a warp (RING_DEPTH of csrc/common.cuh)
+WHOLE_MAX = 124  # the most slots a piece holds whole: 32 chunks of 16 bytes from any offset
+PIECE_SLOTS = (96, 64, 32)  # a piece's slots when a feature takes several, larger first
+META_BYTES = 16  # a piece's Meta
+
+
+class RingPlan(NamedTuple):
+    threads: int  # the block: 1024 with a ring (one an SM), 512 without (as many as fit)
+    depth: int  # ring stages a warp (RING_DEPTH); 0: no ring, features scored from device memory
+    slots: int  # slots of a piece: nnz_max (up to WHOLE_MAX), or one of PIECE_SLOTS below it
+    stride: int  # floats a piece's values (and its rows) take: slots + 3, whole 16-byte chunks
+
+    def smem_bytes(self, m: int) -> int:
+        """Dynamic shared memory a block takes: the residual (m floats,
+        rounded up to 16 bytes), then each warp's stages of two pieces (a
+        pair of features) and their Metas."""
+        return (4 * (-(-m // 4) * 4)
+                + self.threads // 32 * self.depth * 2 * (2 * self.stride * 4 + META_BYTES))
+
+
+NO_RING = RingPlan(512, 0, 0, 0)
+
+
+def ring_plan(m: int, nnz_max: int) -> RingPlan:
+    """The ring for a residual of ``m`` and ``nnz_max`` slots a feature:
+    one 1024-thread block an SM, each warp with ``RING_DEPTH`` stages of a
+    pair's pieces beside the residual, a piece the whole feature (up to
+    ``WHOLE_MAX`` slots) or else the largest of ``PIECE_SLOTS`` that fits.
+    Where none fits, ``NO_RING``: 512-thread blocks score the features
+    from device memory."""
+    whole = (nnz_max,) if 1 <= nnz_max <= WHOLE_MAX else ()
+    for slots in whole + tuple(x for x in PIECE_SLOTS if x < nnz_max):
+        pl = RingPlan(1024, RING_DEPTH, slots, -(-(slots + 3) // 4) * 4)
+        if pl.smem_bytes(m) <= SMEM_BYTES:
+            return pl
+    return NO_RING
+
+
+def scores_plan(dtype: torch.dtype, m: int, nnz_max: int) -> RingPlan:
+    """K5's route on the card: the ring (``ring_plan``) for f32 values where
+    one fits beside the residual, else ``NO_RING``, the warp-per-feature
+    kernel (bf16 values, or m past about 37,000 at nnz_max 66)."""
+    return ring_plan(m, nnz_max) if dtype == torch.float32 else NO_RING
 
 
 def sparse_sampled_scores_plain(values, rows, r, blk, block_size: int):
@@ -72,7 +140,9 @@ def _check(values, rows, r, blk):
 def sparse_sampled_scores(values: torch.Tensor, rows: torch.Tensor, r: torch.Tensor,
                           blk: torch.Tensor, block_size: int) -> torch.Tensor:
     """Scores ``(nb * block_size,)`` f32 of the sampled features. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    tensor takes the plain version; a CUDA tensor launches the kernel (or
+    raises: with a ring, ``values`` and ``rows`` must start on 16-byte
+    boundaries, as every array the port allocates does)."""
     _check(values, rows, r, blk)
     if values.device.type == "cpu":
         return sparse_sampled_scores_plain(values, rows, r, blk, block_size)
@@ -83,12 +153,17 @@ def sparse_sampled_scores(values: torch.Tensor, rows: torch.Tensor, r: torch.Ten
     dev = _build.require_cuda(values, rows, rf, blk)
     nblocks, bs0, nnz = values.shape
     n = blk.numel() * block_size
+    pl = scores_plan(values.dtype, rf.numel(), nnz)
+    if pl.depth and (values.data_ptr() % 16 or rows.data_ptr() % 16):
+        raise ValueError("sparse_sampled_scores needs values and rows on 16-byte boundaries")
+    if pl.depth and rf.data_ptr() % 16:  # the ring stages r by 16-byte copies
+        rf = rf.clone()
     scores = torch.empty(n, dtype=torch.float32, device=dev)
     fn = _build.function("sparse_grad", "sparse_sampled_scores_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), rows.data_ptr(), rf.data_ptr(), blk.data_ptr(),
-                 scores.data_ptr(), n, block_size, nnz, nblocks * bs0, rf.numel(),
-                 _build.dtype_code(values), _build.stream(dev))
+                 scores.data_ptr(), n, block_size, nnz, nblocks * bs0, rf.numel(), pl.depth,
+                 pl.slots, pl.stride, _build.dtype_code(values), _build.stream(dev))
         sparse_sampled_scores.launches += 1
     _build.check("sparse_grad", err, "sparse_sampled_scores")
     return scores

@@ -1,0 +1,251 @@
+"""The unfused lasso step's tail in one launch: everything a step does
+after its argmax.
+
+From the winner ``i_star`` and its score ``g``, ``step_tail`` computes, in
+the op order of its plain version ``step_tail_plain``, which this module
+builds from the lasso's step algebra (the plain ops that every backend's
+tail runs, and that ``core.engine`` and ``core.fw_lasso`` import from
+here):
+
+- eq. 6, ``delta_t = -delta * sign(g)``, and ``a_star = scale * beta[i_star]``;
+- eq. 8, ``ls_closed_form``: ``lam`` and ``no_progress``;
+- ``apply_coeff_update``: ``beta`` in place (the renorm only when the
+  scale underflows), the new scale, ``maxabs``, ``step_inf``, ``stall``;
+- eq. 10 into a new residual: on a dense ``Xt``, K3's op order over the
+  row ``Xt[i_star]``; on the block-ELL layout, ``(1 - lam) r + lam y`` over
+  m and then ``(-lam * delta_t) * value`` added at the winner's slots
+  (``sparse_residual_update``);
+- ``sf_recursion``, the S/F recursions before the periodic exact refresh,
+  which stays the caller's host branch (``fw_lasso.LassoOracle.tail``).
+
+Every scalar is computed in f32; the state (``beta``, its scalars, the
+residual) keeps its storage dtype, f32 or bf16, each value rounded once
+when it is stored.
+
+Replaces, on the unfused path, the Pallas kernel ``residual_update`` at
+``src/repro/kernels/residual_update/residual_update.py:45`` (eq. 10 alone;
+``kernels/residual_update.py`` keeps its one-to-one port) together with the
+~75 eager ops around it that each were a launch of their own.
+
+Bound on an H100: bytes. Dense: read the residual, y and the winner's row
+and write the new residual, 4*m*4 bytes (12.8 KB at m = 800, 4 ns at 3.35
+TB/s), and a few scalars. Sparse: 3*m*4 + nnz_max*8 bytes (193 KB at m =
+16,087). A renorm step adds p*2*4 (read and write ``beta``). So the
+kernel is bound by its launch, as K3 was: its gain is the launches it
+removes from the step.
+
+Design: blocks of 1024 threads, each owning 4,096 rows of the residual
+(one block at m = 800, four at m = 16,087), so no block reads what another
+writes. Every thread issues all its loads first (its 4 rows of the
+residual, y and, dense, the winner's row; sparse, one slot of the winner
+and its row's inputs); meanwhile each block's thread 0 reads the scalars
+and runs the line search (common.cuh's ``lasso_line_search``, shared with
+the fused chunks' ``end_step`` and the replay: ``_rn`` intrinsics, no FMA
+contraction). One barrier hands the block lam and delta_t; then it writes
+its rows of the new residual. On the rare renorm step (the scale below
+``renorm_threshold``) the grid also multiplies all of ``beta`` but
+``beta[i_star]``, which the eager ops did on every step by a factor of
+exactly 1. Sparse: after a second barrier each slot of the winner rewrites
+its row, in the block that owns it, from the row's f32 value plus its term
+(a feature's rows are distinct); the row-0 slots (the padding, and a
+stored row 0) sum their terms in block 0's shared memory, of which at most
+one is nonzero, so the result has the bits of the plain version's adds in
+slot order. Block 0's thread 0 updates ``beta[i_star]`` (from its value
+before the step, renormalized if need be), the stopping statistics and S,
+F, into fresh outputs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.residual_update import residual_update_plain
+
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# (X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid, y, zty, zn2,
+#  i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol, tol, r_out, s_out, stall_out,
+#  dtype, stream)
+_ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 12 + [_I32] + [_F32] * 4
+             + [_PTR] * 3 + [_I32, _PTR])
+
+
+def _f32(x: float) -> float:
+    """A config constant as the f32 that torch's f32 ops compare with."""
+    return float(np.float32(x))
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d device index, as a 0-d tensor, without a host sync."""
+    return x.index_select(0, i.view(1)).view(())
+
+
+def ls_closed_form(s_quad, f_lin, g_sel, g_lin, delta_t, zn2_i, eps_den, gap_rtol):
+    """The closed-form exact line search (eq. 8) as scalar algebra.
+    Returns ``(lam, no_progress, num)``; ``num`` is the sampled duality gap,
+    and a step whose gap is below the fp32 rounding floor of its own terms
+    counts as a stall (``gap_rtol``)."""
+    num = s_quad - delta_t * g_sel - f_lin
+    den = s_quad - 2.0 * delta_t * g_lin + delta_t**2 * zn2_i
+    lam = torch.clamp(num / torch.clamp_min(den, eps_den), 0.0, 1.0)
+    gap_scale = s_quad + torch.abs(f_lin) + torch.abs(delta_t * g_sel)
+    no_progress = num <= gap_rtol * gap_scale
+    return lam, no_progress, num
+
+
+def sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i):
+    """The O(1) S/F scalar recursions (paper, below eq. 8)."""
+    one_m = 1.0 - lam
+    s_quad = (
+        one_m**2 * s_quad
+        + 2.0 * delta_t * lam * one_m * g_lin
+        + delta_t**2 * lam**2 * zn2_i
+    )
+    f_lin = one_m * f_lin + delta_t * lam * zty_i
+    return s_quad, f_lin
+
+
+def apply_coeff_update(beta, scale, maxabs, stall, a_star, i_star, lam,
+                       delta_t, no_progress, cfg):
+    """Step 5 + stopping statistics of the FW iteration: the scaled-iterate
+    coefficient update with underflow renorm (``beta`` in place), and the
+    ||alpha^{k+1}-alpha^k||_inf bound / stall bookkeeping (§Stopping).
+    The scalars are computed in f32 (a bf16 state's are read in f32);
+    ``beta`` keeps its dtype, each update an f32 op rounded once. Returns
+    ``(beta, scale, maxabs, step_inf, stall)``, the scalars in f32."""
+    scale, maxabs = scale.float(), maxabs.float()
+    one_m = 1.0 - lam
+    new_scale = scale * one_m
+    # renormalize when the scale underflows: a device-side select, not a
+    # host branch, so the step never waits on it. Without a renorm beta is
+    # multiplied by exactly 1, which leaves it unchanged.
+    need_renorm = new_scale < cfg.renorm_threshold
+    factor = torch.where(need_renorm, new_scale, 1.0)
+    scale = torch.where(need_renorm, 1.0, new_scale)
+    coef = delta_t * lam / torch.clamp_min(scale, cfg.eps_den)
+    if beta.dtype == torch.float32:
+        beta.mul_(factor)
+        beta.index_add_(0, i_star.view(1), coef.view(1))
+    else:
+        beta.copy_(beta.float().mul_(factor))
+        new_bi = _take(beta, i_star).float() + coef
+        beta.index_copy_(0, i_star.view(1), new_bi.to(beta.dtype).view(1))
+    # stopping statistic: ||alpha_{k+1} - alpha_k||_inf upper bound
+    alpha_istar_new = scale * _take(beta, i_star).float()
+    step_inf = lam * torch.maximum(maxabs, torch.abs(delta_t - a_star))
+    maxabs = torch.maximum(one_m * maxabs, torch.abs(alpha_istar_new))
+    stall = torch.where((step_inf <= cfg.tol) | no_progress, stall + 1, 0)
+    return beta, scale, maxabs, step_inf, stall
+
+
+def sparse_residual_update(resid: torch.Tensor, y: torch.Tensor, col_vals: torch.Tensor,
+                           col_rows: torch.Tensor, lam, delta_t) -> torch.Tensor:
+    """Eq. 10 with a sparse z_star, R <- (1-lam) R + lam (y - delta_t
+    z_star): the O(m) part as two vector ops, then the z_star term added at
+    its ``nnz_max`` slots (a feature's rows are distinct; padded slots add
+    0.0 at row 0). Computed in f32, stored in the residual's dtype."""
+    out = (1.0 - lam) * resid.float() + lam * y.float()
+    out.index_add_(0, col_rows, (-lam * delta_t) * col_vals.float())
+    return out.to(resid.dtype)
+
+
+def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                    i_star, g, delta, cfg):
+    """The plain version, the lasso step's eager ops after its argmax in
+    their order, with the scalars in f32: the tail of 'torch' and of the
+    plain sparse ops on any device, and of the kernels' backends on the
+    CPU. Arguments and returns are ``step_tail``'s."""
+    dtype = beta.dtype
+    g = g.float()
+    delta_t = -delta * torch.sign(g)  # eq. 6
+    a_star = scale.float() * _take(beta, i_star).float()
+    zty_i, zn2_i = _take(zty, i_star).float(), _take(znorm2, i_star).float()
+    g_lin = g + zty_i  # G_{i*} = z_{i*}^T (X alpha)
+    s_quad, f_lin = s_quad.float(), f_lin.float()
+    lam, no_progress, _ = ls_closed_form(s_quad, f_lin, g, g_lin, delta_t, zn2_i, cfg.eps_den,
+                                         cfg.gap_rtol)
+    beta, scale, maxabs, step_inf, stall = apply_coeff_update(
+        beta, scale, maxabs, stall, a_star, i_star, lam, delta_t, no_progress, cfg)
+    if isinstance(mat, tuple):
+        values, rows = mat
+        nnz = values.shape[-1]
+        col_vals = values.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
+        col_rows = rows.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
+        resid = sparse_residual_update(resid, y, col_vals, col_rows, lam, delta_t)
+    else:
+        resid = residual_update_plain(resid, y, mat.index_select(0, i_star.view(1)).view(-1),
+                                      lam, delta_t)
+    s_quad, f_lin = sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i)
+    return (beta, scale.to(dtype), maxabs.to(dtype), step_inf.to(dtype), stall, resid,
+            s_quad.to(dtype), f_lin.to(dtype))
+
+
+def _check(mat, beta, resid, y, zty, znorm2):
+    if isinstance(mat, tuple):
+        values, rows = mat
+        if values.dim() != 3 or rows.shape != values.shape:
+            raise ValueError(f"need values and rows (nblocks, bs, nnz_max), got "
+                             f"{tuple(values.shape)}, {tuple(rows.shape)}")
+    elif mat.dim() != 2 or mat.shape[1] != y.shape[0]:
+        raise ValueError(f"need Xt (p, m) with m = {y.shape[0]}, got {tuple(mat.shape)}")
+    if resid.shape != y.shape or y.dim() != 1:
+        raise ValueError(f"need resid and y (m,), got {tuple(resid.shape)}, {tuple(y.shape)}")
+    p = beta.shape[0]
+    if beta.dim() != 1 or zty.shape != (p,) or znorm2.shape != (p,):
+        raise ValueError(f"need beta, zty, znorm2 (p,), got {tuple(beta.shape)}, "
+                         f"{tuple(zty.shape)}, {tuple(znorm2.shape)}")
+
+
+def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
+              stall: torch.Tensor, resid: torch.Tensor, s_quad: torch.Tensor,
+              f_lin: torch.Tensor, y: torch.Tensor, zty: torch.Tensor, znorm2: torch.Tensor,
+              i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg):
+    """The step's tail from its winner ``i_star`` (0-d int64) and score ``g``
+    (0-d). ``mat`` is the dense ``Xt (p, m)`` or the block-ELL ``(values,
+    rows)`` pair; ``beta`` (updated in place), the scalars ``scale``,
+    ``maxabs``, ``s_quad``, ``f_lin``, the residual, ``y`` and the column
+    statistics share one dtype (f32 or bf16), ``stall`` is int32 and
+    ``delta`` a 0-d f32; ``cfg`` gives renorm_threshold, eps_den, gap_rtol
+    and tol. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (or raises). Returns ``(beta, scale, maxabs, step_inf,
+    stall, resid, s_quad, f_lin)``, S and F before the periodic refresh."""
+    _check(mat, beta, resid, y, zty, znorm2)
+    if beta.device.type == "cpu":
+        return step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                               znorm2, i_star, g, delta, cfg)
+    sparse = isinstance(mat, tuple)
+    X, rows = mat if sparse else (mat, None)
+    dtype = beta.dtype
+    if any(t.dtype != dtype for t in (X, scale, maxabs, s_quad, f_lin, resid, y, zty, znorm2)):
+        raise TypeError("step_tail needs the matrix, beta, its scalars, the residual, y and "
+                        "the column statistics in one dtype")
+    if stall.dtype != torch.int32 or i_star.dtype != torch.int64 or delta.dtype != torch.float32:
+        raise TypeError("step_tail needs stall int32, i_star int64 and delta float32")
+    if sparse and rows.dtype != torch.int32:
+        raise TypeError(f"the row slots must be int32, got {rows.dtype}")
+    g = g.float()
+    dev = _build.require_cuda(X, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                              znorm2, i_star, g, delta, *(() if rows is None else (rows,)))
+    m = y.shape[0]
+    r_out = torch.empty(m, dtype=dtype, device=dev)
+    s_out = torch.empty(5, dtype=dtype, device=dev)
+    stall_out = torch.empty((), dtype=torch.int32, device=dev)
+    fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
+                 X.shape[-1] if sparse else 0, beta.data_ptr(), beta.shape[0],
+                 scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
+                 f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
+                 znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
+                 _f32(cfg.renorm_threshold), _f32(cfg.eps_den), _f32(cfg.gap_rtol),
+                 _f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(),
+                 _build.dtype_code(beta), _build.stream(dev))
+        step_tail.launches += 1
+    _build.check("step_tail", err, "step_tail")
+    new_scale, new_maxabs, step_inf, new_s, new_f = s_out.unbind()
+    return beta, new_scale, new_maxabs, step_inf, stall_out, r_out, new_s, new_f
+
+
+step_tail.launches = 0

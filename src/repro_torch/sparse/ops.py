@@ -29,6 +29,7 @@ from repro_torch.kernels.sparse_colstats import sparse_colstats as _colstats_ker
 from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores as _scores_kernel
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
+from repro_torch.kernels.step_tail import sparse_residual_update  # noqa: F401 (eq. 10)
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
 ExtraFn = Callable[[torch.Tensor], torch.Tensor]
@@ -128,27 +129,32 @@ def sparse_column_dense(mat: SparseBlockMatrix, i) -> torch.Tensor:
     return torch.zeros(mat.m, dtype=mat.dtype, device=mat.device).index_add_(0, rows, vals)
 
 
-def sparse_residual_update(resid: torch.Tensor, y: torch.Tensor, col_vals: torch.Tensor,
-                           col_rows: torch.Tensor, lam, delta_t) -> torch.Tensor:
-    """R <- (1-lam) R + lam (y - delta_t z_star) with z_star sparse: the
-    O(m) part as two vector ops, then the z_star term added at its
-    ``nnz_max`` slots (a feature's rows are distinct; padded slots add 0.0
-    at row 0)."""
-    out = (1.0 - lam) * resid + lam * y
-    return out.index_add_(0, col_rows, (-lam * delta_t) * col_vals.to(resid.dtype))
-
-
 def sparse_matvec(mat: SparseBlockMatrix, beta: torch.Tensor) -> torch.Tensor:
     """X @ alpha for a coefficient vector of length p (warm starts). Only
     the features with a nonzero coefficient are read (a zero coefficient
     adds exact zeros), so the sums equal the reference's full sweep; finding
-    them reads ``beta`` on the host once."""
+    them reads ``beta`` on the host once.
+
+    The sums run in one fixed order on every device (a CUDA ``index_add_``
+    adds colliding rows with atomics in no fixed order): the stored
+    contributions are sorted stably by row, so each row's come in feature
+    order, and one ``segment_reduce`` adds each row's run from 0, one
+    after the other: the bits of a sequential scatter-add, on the CPU and
+    on the card. (Given as one column along axis 0, the card reduces
+    each segment in a loop of one thread; a 1-D input takes a reduction
+    tree per row, whose bits differ from the CPU's.) The memory is
+    O(stored contributions) and the launches a handful, whatever the
+    active set. Slots holding a zero are left out: an exact 0 added to a
+    sum that starts at +0 changes no bit."""
     nz = torch.nonzero(beta).view(-1)
     vals = mat.values.reshape(-1, mat.nnz_max).index_select(0, nz).float()
-    rows = mat.rows.reshape(-1, mat.nnz_max).index_select(0, nz).view(-1)
-    contrib = vals * beta.float().index_select(0, nz)[:, None]
-    out = torch.zeros(mat.m, dtype=torch.float32, device=mat.device)
-    return out.index_add_(0, rows, contrib.view(-1)).to(beta.dtype)
+    rows = mat.rows.reshape(-1, mat.nnz_max).index_select(0, nz)
+    stored = vals != 0
+    contrib = (vals * beta.float().index_select(0, nz)[:, None])[stored]
+    rows, order = torch.sort(rows[stored].long(), stable=True)
+    lengths = torch.bincount(rows, minlength=mat.m)
+    out = torch.segment_reduce(contrib[order, None], "sum", lengths=lengths, axis=0)
+    return out.view(-1).to(beta.dtype)
 
 
 def sparse_transpose_matvec(mat: SparseBlockMatrix, r: torch.Tensor, *,

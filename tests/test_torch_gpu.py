@@ -446,3 +446,175 @@ def test_fused_replay_edge_cases_on_the_card(case):
     assert fs.fused_replay.launches == before + 1
     assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want))
     assert (float(got[1]) == 1.0) == renorm_last
+
+
+def _bits_equal(a, b):
+    """Equal bits, NaN at the same places (a NaN's payload not compared)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(a.view(iv)[~na], b.view(iv)[~nb])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "lam clamped at 1", "lam clamped at 0",
+                                  "renorm", "nan score"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_step_tail_matches_plain_on_the_card(layout, dtype, case):
+    """The step's one-launch tail against step_tail_plain, bit for bit (the
+    sparse winner's stored rows include row 0, then padding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    p, m, i = 1000, 803, 5
+    if layout == "dense":
+        mat = torch.randn((p, m), generator=g, device="cuda").to(dt)
+    else:
+        sp, _, _ = _sparse_problem()
+        vals, rows = sp.values.view(-1, sp.nnz_max).clone(), sp.rows.view(-1, sp.nnz_max).clone()
+        vals[i], rows[i] = 0.0, 0
+        vals[i, :3] = torch.tensor([1.5, -0.5, 2.0], device="cuda")
+        rows[i, :3] = torch.tensor([17, 0, 400], dtype=torch.int32, device="cuda")
+        mat = (vals.view(sp.values.shape).to(dt), rows.view(sp.rows.shape))
+    kw = dict(scale=1.0, s_quad=30.0, f_lin=10.0, g=-7.5, zty=None, zn2=None)
+    kw.update({"lam clamped at 1": dict(s_quad=0.0, f_lin=0.0, zty=7.5, zn2=1e-3),
+               "lam clamped at 0": dict(f_lin=77.5), "renorm": dict(scale=1.2e-6),
+               "nan score": dict(g=float("nan"))}.get(case, {}))
+    zty = torch.randn(p, generator=g, device="cuda")
+    zn2 = torch.rand(p, generator=g, device="cuda") + 0.5
+    if kw["zty"] is not None:
+        zty[i], zn2[i] = kw["zty"], kw["zn2"]
+
+    def t(v):
+        return torch.tensor(v, device="cuda").to(dt)
+
+    beta = torch.randn(p, generator=g, device="cuda").to(dt)
+    args = (t(kw["scale"]), t(2.0), torch.tensor(3, dtype=torch.int32, device="cuda"),
+            torch.randn(m, generator=g, device="cuda").to(dt), t(kw["s_quad"]), t(kw["f_lin"]),
+            torch.randn(m, generator=g, device="cuda").to(dt), zty.to(dt), zn2.to(dt),
+            torch.tensor(i, device="cuda"), torch.tensor(kw["g"], device="cuda"),
+            torch.tensor(5.0, device="cuda"), FWConfig(delta=5.0))
+    before = st.step_tail.launches
+    got = st.step_tail(mat, beta.clone(), *args)
+    again = st.step_tail(mat, beta.clone(), *args)
+    want = st.step_tail_plain(mat, beta.clone(), *args)
+    assert st.step_tail.launches == before + 2
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert all(_bits_equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_fused_solve_past_the_cap_on_the_card(layout):
+    """F2: fuse_steps = 8 at m = cap + 1 runs as K unfused steps on the
+    kernels (a tail launch a step, no chunk launch), bit for bit the
+    unfused solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import fw_solve
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.sparse import SparseBlockMatrix
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    if layout == "dense":
+        m, backend = fs.M_MAX + 1, "kernels"
+        X = torch.randn((2048, m), generator=g, device="cuda")
+    else:
+        m, backend = fs.M_MAX_SPARSE + 1, "sparse"
+        nnz = 24
+        rows = torch.randint(0, m, (2048, nnz), generator=g, device="cuda", dtype=torch.int32)
+        rows = torch.sort(rows, dim=1).values  # a feature's rows distinct (duplicates zeroed)
+        keep = torch.ones_like(rows, dtype=torch.bool)
+        keep[:, 1:] = rows[:, 1:] != rows[:, :-1]
+        vals = torch.randn((2048, nnz), generator=g, device="cuda") * keep
+        X = SparseBlockMatrix(vals.view(16, 128, nnz), (rows * keep).view(16, 128, nnz), 2048, m,
+                              128, nnz)
+    y = torch.randn(m, generator=g, device="cuda")
+    res = {}
+    for fuse in (1, 8):
+        before = launch_counts()
+        res[fuse] = fw_solve(X, y, FWConfig(delta=20.0, kappa=64, max_iters=40, tol=0.0,
+                                            patience=10**9, backend=backend, fuse_steps=fuse),
+                             TorchSampler(2, "cuda"), device="cuda")
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        assert launched["step_tail"] == 40
+        assert launched["dense_fused_chunk"] == launched["sparse_fused_chunk"] == 0
+    assert res[8].effective_fuse_steps == 8
+    assert _bits_equal(res[1].alpha, res[8].alpha)
+
+
+@pytest.mark.gpu
+def test_sparse_matvec_is_deterministic_on_the_card():
+    """F3: the warm start's X @ alpha, with many features sharing rows,
+    gives equal bits on two calls, and the CPU's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.sparse import ops
+
+    mat, _, _ = _sparse_problem(p=20_000, m=97, density=0.2)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(8)
+    beta = torch.randn(mat.p, generator=g) * (torch.rand(mat.p, generator=g) < 0.5)
+    a = ops.sparse_matvec(mat, beta.cuda())
+    b = ops.sparse_matvec(mat, beta.cuda())
+    assert _bits_equal(a, b)
+    assert _bits_equal(a.cpu(), ops.sparse_matvec(mat.to("cpu"), beta))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [1, 8])
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_bf16_solves_on_the_card(backend, fuse):
+    """F1: a bf16 design solves on the card's kernels (fused: K unfused
+    steps), feasible within the reference's 5e-2, its objective finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import fw_solve
+    from repro_torch.core.vertex import TorchSampler
+
+    mat, y, X = _sparse_problem()
+    design = X.to(torch.bfloat16) if backend == "kernels" else mat.astype(torch.bfloat16)
+    before = launch_counts()
+    res = fw_solve(design, y.to(torch.bfloat16),
+                   FWConfig(delta=5.0, kappa=100, max_iters=200, tol=1e-4, backend=backend,
+                            fuse_steps=fuse), TorchSampler(1, "cuda"), device="cuda")
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    assert res.alpha.dtype == torch.bfloat16 and torch.isfinite(res.objective)
+    assert float(res.alpha.float().abs().sum()) <= 5.0 * (1 + 5e-2)
+    assert launched["step_tail"] == res.iterations
+    assert launched["dense_fused_chunk"] == launched["sparse_fused_chunk"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [1, 128])
+def test_sparse_scores_ring_keeps_the_warp_kernels_bits(bs):
+    """K5's ring kernel (f32) gives the bits of the warp-per-feature kernel
+    (the bf16 route), on the same f32 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sparse_grad as sg
+
+    mat, y, _ = _sparse_problem()
+    assert sg.scores_plan(torch.float32, mat.m, mat.nnz_max).depth > 0
+    blk = torch.randint(0, 1000 if bs == 1 else mat.nblocks, (300 if bs == 1 else 6,),
+                        device="cuda")
+    got = sg.sparse_sampled_scores(mat.values, mat.rows, y, blk, bs)
+    n = blk.numel() * bs
+    warp = torch.empty(n, device="cuda")
+    fn = _build.function("sparse_grad", "sparse_sampled_scores_launch", sg._ARGTYPES)
+    err = fn(mat.values.data_ptr(), mat.rows.data_ptr(), y.data_ptr(), blk.data_ptr(),
+             warp.data_ptr(), n, bs, mat.nnz_max, mat.p_padded, mat.m, 0, 0, 0, 0,
+             _build.stream(torch.device("cuda")))
+    _build.check("sparse_grad", err, "sparse_sampled_scores (warps)")
+    assert _bits_equal(got, warp)

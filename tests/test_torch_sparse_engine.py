@@ -226,7 +226,12 @@ def test_sparse_inputs_are_checked(sparse):
     cfg = FWConfig(delta=DELTA, kappa=KAPPA, max_iters=3, backend="sparse")
     with pytest.raises(ValueError, match=r"y must be \(m,\)"):
         fw_solve(mat, torch.zeros(79), cfg, None, device="cpu")
-    with pytest.raises(TypeError, match="float32"):
+    # a bf16 design solves (its state in bf16, its scalars in f32); its y
+    # must share its dtype
+    res = fw_solve(mat.astype(torch.bfloat16), torch.from_numpy(y).to(torch.bfloat16), cfg,
+                   convert.stream_from_reference(_uniform(Xt.shape[0], 3), "cpu"), device="cpu")
+    assert res.alpha.dtype == torch.bfloat16 and np.isfinite(float(res.objective))
+    with pytest.raises(TypeError, match="one dtype"):
         fw_solve(mat.astype(torch.bfloat16), torch.from_numpy(y), cfg, None, device="cpu")
     values = mat.values.clone()
     values[1, 2, 0] = float("nan")
