@@ -31,6 +31,12 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    and at n = p, on a tie across blocks, NaN and every index masked; K6 on
    explicit stored zeros, nnz_max 1, 13 and 67, f32 and bf16, many tiles
    a block and y too long to stage, two launches bitwise equal;
+   the lane-axis kernels of the batched lanes (K2's scores and argmax,
+   the tail, K5) at L = 1, 3 and 13 at each path's shapes, each running
+   lane bitwise its one-lane launch, a frozen lane among active ones and
+   every lane frozen (winners (-1, 0), outputs equal to inputs), two
+   argmax launches equal (the tickets back at 0), the renorm in one lane
+   only, bf16 and K5's warp-per-feature route at L = 3;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -50,19 +56,30 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      (K5, the argmax and the tail per step), and one point with 'block'
      sampling (K5 at width 256);
    every unfused path launches the tail once a step and K3 never;
+   - batched: the example's default driver (``--driver batched``),
+     ``fw_path_batched`` in lanes of 13 over the same 100-point grid on
+     each layout, unfused: the lane scores, argmax and tail once a
+     batched step, K1 or K6 once a chunk, the fused chunks and the
+     one-lane kernels never;
 4. the first grid points of each path against other routes, from the
    same sampler seeds: the plain ops ('torch'; 'sparse' with
    ``sparse_kernel=False``), fused against unfused, and the sparse
    backend against the dense one on a small proxy. The vertex sequences
    must agree up to the first near-tie (a fused stop may overshoot by at
-   most 7 steps) and the objectives to a stated tolerance;
+   most 7 steps) and the objectives to a stated tolerance; and one chunk
+   of 4 batched lanes (p = 200,000, m = 800, 400 steps, one lane freezing
+   early) on both layouts, unfused and fused, each lane's alpha bits,
+   iterations, n_dots and vertex sequence equal to a sequential solve
+   replaying the rows it drew;
 5. timing of each kernel, its bound, its plain version and a library
    call, with CUDA events (K2's argmax also at n = p), beside the launch
    floor (an empty kernel, back to back); and the host's
    share of a step, one step per dispatch and fused at K = 8 and K = 32,
-   on each path.
+   on each path; the lane kernels at L = 13 and the batched step at 13
+   lanes and at 1 on each path; ``solve_with_history`` on a small
+   problem, its history bit for bit the per-step objectives.
 
-About 7 minutes on an H100, the builds included. ``--kernels-only`` stops
+About 2.5 minutes on an H100, the builds included. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -257,6 +274,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
 
     errs.update(phase2_kernels(torch, Xt, y))
     errs.update(phase2_fused(torch, Xt, y))
+    errs.update(phase2_lane_kernels(torch, Xt, y))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -266,9 +284,15 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         launches.update(main_launches)
         for name in ("dense_fused_chunk", "fused_replay"):
             launches[name] = fused_launches[name]
+        batched_launches, _ = phase3_batched_path(torch, Xt, y, coef, "dense")
+        for name in ("sampled_scores_lanes", "vertex_argmax_lanes", "step_tail_lanes"):
+            launches[name] = batched_launches[name]
         phase4_other_backend(torch, Xt, y, main_run)
         phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
+        phase4_lanes_vs_sequential(torch, dev)
         timing.update(phase5_timing(torch, Xt, y))
+        timing.update(phase5_lane_timing(torch, Xt, y, "dense"))
+        history_check(torch, dev)
     del Xt
     torch.cuda.empty_cache()
 
@@ -292,6 +316,7 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     errs.update(phase2_sparse_kernels(torch, mat, y))
+    errs.update(phase2_sparse_lane_kernels(torch, mat, y))
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
@@ -306,9 +331,14 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     print(f"[sparse] K5 launches: {unfused_launches['sparse_sampled_scores']} at width 1 "
           f"(unfused points), {block_launches['sparse_sampled_scores']} at width "
           f"{SPARSE_BLOCK} (the block point)")
+    batched_launches, _ = phase3_batched_path(torch, mat, y, coef, "sparse")
+    launches["sparse_sampled_scores_lanes"] = batched_launches["sparse_sampled_scores_lanes"]
+    for name in ("vertex_argmax_lanes", "step_tail_lanes"):  # both batched paths
+        launches[name] += batched_launches[name]
     phase4_sparse_routes(torch, mat, y, fused_run, unfused_run)
     phase4_sparse_vs_dense(torch, dev)
     timing.update(phase5_sparse_timing(torch, mat, y))
+    timing.update(phase5_lane_timing(torch, mat, y, "sparse"))
 
 
 KERNELS = {
@@ -333,6 +363,17 @@ KERNELS = {
         replaces="src/repro/kernels/sparse_colstats/sparse_colstats.py:55"),
     "sparse_fused_chunk": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
                                replaces="src/repro/kernels/fused_step/fused_step.py:259"),
+    # the lane axis of K2, the tail and K5: the reference's vmapped pallas_calls
+    # under jax.vmap of its step (src/repro/core/engine.py:721-736)
+    "sampled_scores_lanes": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                 replaces="src/repro/kernels/fw_grad/fw_grad.py:79"),
+    "vertex_argmax_lanes": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                replaces="src/repro/kernels/fw_grad/ops.py:27"),
+    "step_tail_lanes": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                            replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "sparse_sampled_scores_lanes": dict(
+        source="src/repro_torch/kernels/csrc/sparse_grad.cu",
+        replaces="src/repro/kernels/sparse_grad/sparse_grad.py:87"),
 }
 
 
@@ -2379,6 +2420,516 @@ def phase5_sparse_timing(torch, mat, y):
                   f"{busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.1f}% of the step's wall "
                   f"time, idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     return out
+
+
+
+# --------------------------------------------------------------------------
+# batched delta lanes (engine.solve_batched, path.fw_path_batched): the
+# lane-axis kernels in phase 2, the example's batched driver in phase 3,
+# lanes against sequential replays in phase 4, timing in phase 5
+# --------------------------------------------------------------------------
+
+LANE_WIDTH = 13  # the example's lane width at 100 points: -(-100 // 8)
+LANE_COUNTS = (1, 3, 13)
+P_LANES = 200_000  # phase 4: recorded streams of 4 lanes x 400 steps fit
+
+
+def _lane_sets(L):
+    """The lanes that run: all; all but lane 1 (a frozen lane among active
+    ones); none (every lane frozen)."""
+    sets = [list(range(L))]
+    if L > 1:
+        sets.append([lane for lane in range(L) if lane != 1])
+    return sets + [[]]
+
+
+def _lane_scores_check(torch, fw, label, lanes_fn, one_fn, plain_fn, blk, bs, p, L, scale):
+    """A lane scores kernel (``lanes_fn(ids)``) and K2's lane argmax on its
+    scores, for each set of running lanes: every running lane's scores and
+    winner bitwise the one-lane launches' on its own inputs (``one_fn``), a
+    frozen lane's winner (-1, 0), two argmax launches bitwise equal (each
+    lane's ticket back at 0), the winners bitwise the plain argmax's on the
+    same scores, the scores within RTOL_SUM * scale of the plain version's.
+    Returns max |kernel - plain| over the scores."""
+    dev = blk.device
+    err = 0.0
+    for run in _lane_sets(L):
+        ids = torch.tensor(run, dtype=torch.int32, device=dev)
+        got = lanes_fn(ids)
+        i1, g1 = fw.vertex_argmax_lanes(got, blk, bs, p, ids)
+        i2, g2 = fw.vertex_argmax_lanes(got, blk, bs, p, ids)
+        check(_same_bits(torch, i1, i2) and _same_bits(torch, g1, g2),
+              f"{label} L={L} lanes {run}: two argmax launches differ")
+        if run:
+            plain = plain_fn(ids)
+            rel, d = _scaled_err(torch, got[run], plain[run], scale)
+            check(rel <= RTOL_SUM, f"{label} L={L}: scores off the plain version by {rel:.2e}")
+            err = max(err, d)
+            ip, gp = fw.argmax_lanes_plain(got, blk, bs, p, ids)
+            check(_same_bits(torch, i1, ip) and _same_bits(torch, g1, gp),
+                  f"{label} L={L}: the lane argmax differs from its plain version")
+        i_host, g_host = i1.tolist(), g1.tolist()
+        for lane in range(L):
+            if lane not in run:
+                check(i_host[lane] == -1 and g_host[lane] == 0.0,
+                      f"{label} L={L}: frozen lane {lane} got ({i_host[lane]}, {g_host[lane]})")
+                continue
+            bl = fw.lane_blk(blk, lane)
+            one = one_fn(lane, bl)
+            check(_same_bits(torch, got[lane], one),
+                  f"{label} L={L}: lane {lane}'s scores differ from a one-lane launch")
+            io, go = fw.vertex_argmax(one, bl, bs, p)
+            check(i_host[lane] == int(io) and _same_bits(torch, g1[lane], go),
+                  f"{label} L={L}: lane {lane}'s winner differs from a one-lane launch")
+    print(f"[lanes] {label} L={L}: every running lane bitwise its one-lane launch (scores and "
+          f"winner), frozen lanes (-1, 0), two argmax launches equal; max |kernel - plain| "
+          f"{err:.3e}")
+    return err
+
+
+def _lane_tail_state(torch, g, p, m, dtype, L):
+    """A lane-stacked state for the lane tail: beta (L, p), then
+    step_tail_lanes' arguments from ``scale`` to ``delta``; lane 0's scale
+    is just above the renorm threshold, so its step renormalizes (lam past
+    1%) and no other lane's does."""
+    dev = g.device
+    scale = torch.full((L,), 0.9, device=dev)
+    scale[0] = 1.01e-6
+    gs = torch.randn(L, generator=g, device=dev) * 5
+    gs[0] = 50.0  # lam near 0.4 in lane 0
+    beta = torch.randn((L, p), generator=g, device=dev).to(dtype)
+    args = (scale.to(dtype), (torch.rand(L, generator=g, device=dev) + 1).to(dtype),
+            torch.rand(L, generator=g, device=dev).to(dtype),
+            torch.arange(L, dtype=torch.int32, device=dev),
+            torch.randn((L, m), generator=g, device=dev).to(dtype),
+            (torch.rand(L, generator=g, device=dev) * 30 + 10).to(dtype),
+            (torch.rand(L, generator=g, device=dev) * 10).to(dtype),
+            torch.randn(m, generator=g, device=dev).to(dtype),
+            torch.randn(p, generator=g, device=dev).to(dtype),
+            (torch.rand(p, generator=g, device=dev) + 0.5).to(dtype),
+            torch.randint(0, p, (L,), generator=g, device=dev), gs,
+            torch.full((L,), 20.0, device=dev))
+    return beta, args
+
+
+def _lane_tail_check(torch, st, label, mat, beta, args, L, cfg):
+    """The lane tail for each set of running lanes: every output bitwise its
+    plain version's; every running lane bitwise a one-lane launch on its
+    row and scalars; a frozen lane's outputs its inputs, its beta row
+    untouched; only lane 0 renormalizes. Returns max |kernel - plain|."""
+    dev = beta.device
+    scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty, zn2, i_star, gs, delta = args
+    for run in _lane_sets(L):
+        ids = torch.tensor(run, dtype=torch.int32, device=dev)
+        b_k, b_p = beta.clone(), beta.clone()
+        got = st.step_tail_lanes(mat, b_k, *args, ids, cfg)
+        want = st.step_tail_lanes_plain(mat, b_p, *args, ids, cfg)
+        differ = [n for n, a, b in zip(TAIL_OUT, got, want) if not _same_bits(torch, a, b)]
+        check(not differ, f"step_tail_lanes {label} L={L} lanes {run}: {differ} differ from the "
+                          "plain version")
+        for lane in range(L):
+            if lane not in run:
+                check(_same_bits(torch, b_k[lane], beta[lane]), f"{label}: frozen beta moved")
+                for n, out, inp in zip(TAIL_OUT[1:], got[1:], args[:7]):
+                    check(_same_bits(torch, out[lane], inp[lane]),
+                          f"step_tail_lanes {label}: frozen lane {lane}'s {n} changed")
+                continue
+            b1 = beta[lane].clone()
+            one = st.step_tail(mat, b1, scale[lane].clone(), maxabs[lane].clone(),
+                               stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
+                               f_lin[lane].clone(), y, zty, zn2, i_star[lane].clone(),
+                               gs[lane].clone(), delta[lane].clone(), cfg)
+            check(_same_bits(torch, b_k[lane], b1) and all(
+                _same_bits(torch, out[lane], o) for out, o in zip(got[1:], one[1:])),
+                f"step_tail_lanes {label} L={L}: lane {lane} differs from a one-lane launch")
+        if run:
+            renormed = [lane for lane in run if float(got[1][lane]) == 1.0]
+            check(renormed == [0] if 0 in run else not renormed,
+                  f"step_tail_lanes {label}: lanes {renormed} renormalized, lane 0 alone should")
+    print(f"[lanes] step_tail_lanes {label} L={L}: bit for bit its plain version and each lane's "
+          "one-lane launch, frozen lanes untouched, the renorm in lane 0 only")
+    return 0.0
+
+
+def phase2_lane_kernels(torch, Xt, y):
+    """The dense lane-axis kernels at the main path's shapes (kappa = 1% of
+    p, width 1; the tail at p = 4,272,227, m = 800) and 'full' sampling (n
+    = p, the block ids shared) for L = 1, 3 and 13, and in bf16 at L = 3."""
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import step_tail as st
+
+    p, m = Xt.shape
+    dev = Xt.device
+    kappa = kappa_fraction(p, 0.01)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    row_scale = float(torch.linalg.vector_norm(Xt[:100000], dim=1).max())
+    errs = {"sampled_scores_lanes": 0.0, "vertex_argmax_lanes": 0.0, "step_tail_lanes": 0.0}
+    for L in LANE_COUNTS:
+        r = torch.randn((L, m), generator=g, device=dev)
+        blk = torch.randint(0, p, (L, kappa), generator=g, device=dev)
+        scale = float(torch.linalg.vector_norm(r, dim=1).max()) * row_scale
+        errs["sampled_scores_lanes"] = max(errs["sampled_scores_lanes"], _lane_scores_check(
+            torch, fw, f"sampled_scores_lanes kappa={kappa}", 
+            lambda ids: fw.sampled_scores_lanes(Xt, r, blk, 1, ids),
+            lambda lane, bl: fw.sampled_scores(Xt, r[lane].clone(), bl, 1),
+            lambda ids: fw.sampled_scores_lanes_plain(Xt, r, blk, 1, ids), blk, 1, p, L, scale))
+        beta, args = _lane_tail_state(torch, g, p, m, torch.float32, L)
+        _lane_tail_check(torch, st, f"dense p={p} m={m}", Xt, beta, args, L, FWConfig(delta=20.0))
+        del beta, args
+    # 'full' sampling: n = p, one block-id vector shared by the lanes
+    L = 3
+    r = torch.randn((L, m), generator=g, device=dev)
+    blk = torch.arange(-(-p // 128), device=dev)
+    scale = float(torch.linalg.vector_norm(r, dim=1).max()) * row_scale
+    _lane_scores_check(torch, fw, "sampled_scores_lanes 'full' n=p",
+                       lambda ids: fw.sampled_scores_lanes(Xt, r, blk, 128, ids),
+                       lambda lane, bl: fw.sampled_scores(Xt, r[lane].clone(), bl, 128),
+                       lambda ids: fw.sampled_scores_lanes_plain(Xt, r, blk, 128, ids),
+                       blk, 128, p, L, scale)
+    # bf16 designs, L = 3
+    Xb = torch.randn((1000, 803), generator=g, device=dev).to(torch.bfloat16)
+    rb = torch.randn((L, 803), generator=g, device=dev)
+    blk = torch.randint(0, 1000, (L, 700), generator=g, device=dev)
+    _lane_scores_check(torch, fw, "sampled_scores_lanes bf16 p=1000 m=803",
+                       lambda ids: fw.sampled_scores_lanes(Xb, rb, blk, 1, ids),
+                       lambda lane, bl: fw.sampled_scores(Xb, rb[lane].clone(), bl, 1),
+                       lambda ids: fw.sampled_scores_lanes_plain(Xb, rb, blk, 1, ids),
+                       blk, 1, 1000, L, 803 * 40.0)
+    beta, args = _lane_tail_state(torch, g, 1000, 803, torch.bfloat16, L)
+    _lane_tail_check(torch, st, "dense bf16 p=1000 m=803", Xb, beta, args, L,
+                     FWConfig(delta=20.0))
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase2_sparse_lane_kernels(torch, mat, y):
+    """K5's lane scores at E2006-log1p's shapes (width 1 at kappa = 1% of p,
+    width 256 over 166 blocks; m = 16,087, odd, so lanes past 0 stage an
+    unaligned residual) and the sparse lane tail, for L = 1, 3 and 13; K5's
+    warp-per-feature route (bf16) and the bf16 tail at L = 3."""
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+
+    p, m = mat.p, mat.m
+    dev = mat.device
+    kappa = kappa_fraction(p, 0.01)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    vals, rows = mat.values, mat.rows
+    col_scale = float(torch.linalg.vector_norm(vals.float().view(-1, mat.nnz_max)[:200000],
+                                               dim=1).max())
+    errs = {"sparse_sampled_scores_lanes": 0.0, "step_tail_lanes_sparse": 0.0}
+    for L in LANE_COUNTS:
+        r = torch.randn((L, m), generator=g, device=dev)
+        scale = float(torch.linalg.vector_norm(r, dim=1).max()) * col_scale
+        for bs, blk in ((1, torch.randint(0, p, (L, kappa), generator=g, device=dev)),
+                        (SPARSE_BLOCK, torch.stack([
+                            torch.randperm(mat.nblocks, generator=g, device=dev)[
+                                :max(1, kappa // SPARSE_BLOCK)] for _ in range(L)]))):
+            errs["sparse_sampled_scores_lanes"] = max(
+                errs["sparse_sampled_scores_lanes"], _lane_scores_check(
+                    torch, fw, f"sparse_sampled_scores_lanes width {bs}",
+                    lambda ids: sg.sparse_sampled_scores_lanes(vals, rows, r, blk, bs, ids),
+                    lambda lane, bl: sg.sparse_sampled_scores(vals, rows, r[lane].clone(), bl, bs),
+                    lambda ids: sg.sparse_sampled_scores_lanes_plain(vals, rows, r, blk, bs, ids),
+                    blk, bs, p, L, scale))
+        beta, args = _lane_tail_state(torch, g, p, m, torch.float32, L)
+        _lane_tail_check(torch, st, f"sparse p={p} m={m}", (vals, rows), beta, args, L,
+                         FWConfig(delta=20.0))
+        del beta, args
+    L = 3
+    small, _ = _ragged_sparse(torch, g, dev, torch.bfloat16)
+    rb = torch.randn((L, small.m), generator=g, device=dev)
+    blk = torch.randint(0, small.p, (L, 300), generator=g, device=dev)
+    check(sg.scores_plan(small.dtype, small.m, small.nnz_max).depth == 0, "bf16 K5: no ring")
+    _lane_scores_check(torch, fw, "sparse_sampled_scores_lanes bf16 (warp per feature)",
+                       lambda ids: sg.sparse_sampled_scores_lanes(small.values, small.rows, rb,
+                                                                  blk, 1, ids),
+                       lambda lane, bl: sg.sparse_sampled_scores(small.values, small.rows,
+                                                                 rb[lane].clone(), bl, 1),
+                       lambda ids: sg.sparse_sampled_scores_lanes_plain(
+                           small.values, small.rows, rb, blk, 1, ids),
+                       blk, 1, small.p, L, small.m * 40.0)
+    beta, args = _lane_tail_state(torch, g, small.p, small.m, torch.bfloat16, L)
+    _lane_tail_check(torch, st, "sparse bf16", (small.values, small.rows), beta, args, L,
+                     FWConfig(delta=20.0))
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase3_batched_path(torch, design, y, coef, layout):
+    """The example's default driver (``--driver batched``): the 100-point
+    grid through ``fw_path_batched`` in lanes of 13, unfused, on 'kernels'
+    (dense) or 'sparse'. Per batched step one launch each of the lane
+    scores (K2 or K5), the lane argmax and the lane tail; K1 or K6 once a
+    chunk; the fused chunks and the one-lane kernels never."""
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, delta_grid, engine, fw_path_batched
+
+    sparse = layout == "sparse"
+    p = design.shape[0]
+    cfg = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    delta_max = 0.5 * float(coef.abs().sum())
+    deltas = delta_grid(delta_max, n_points=N_POINTS)
+    tag = f"batched-{layout}"
+    steps = [0]
+
+    def count(state, active):
+        steps[0] += 1
+
+    def solve_counted(*args):
+        return engine.solve_batched_prepared(*args, on_step=count)
+
+    print(f"[{tag}] fw_path_batched backend={cfg.backend} lane_width={LANE_WIDTH} p={p:,} "
+          f"kappa={cfg.kappa:,} sampling=uniform max_iters={cfg.max_iters} tol={cfg.tol} "
+          f"points={N_POINTS} delta_max={delta_max:.6g}")
+    kernels.reset_launch_counts()
+    res = fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=LANE_WIDTH,
+                          device=design.device, solve_batched_fn=solve_counted)
+    launches = kernels.launch_counts()
+    _print_points(tag, res, cfg)
+    n_chunks = -(-N_POINTS // LANE_WIDTH)
+    print(f"[{tag}] {res.total_seconds:.3f} s, {res.total_iters} lane-iterations of the "
+          f"{N_POINTS} points, {steps[0]} batched steps in {n_chunks} chunks, saved_iters "
+          f"{res.saved_iters}; {1e3 * res.total_seconds / max(res.total_iters, 1):.4f} ms per "
+          f"lane-iteration, {1e3 * res.total_seconds / max(steps[0], 1):.4f} ms per batched step")
+    print(f"[{tag}] launches during the path: {launches}")
+    scores = "sparse_sampled_scores_lanes" if sparse else "sampled_scores_lanes"
+    for name in (scores, "vertex_argmax_lanes", "step_tail_lanes"):
+        check(launches[name] == steps[0], f"{tag}: {name} launches {launches[name]} != "
+                                          f"batched steps {steps[0]}")
+    colstats = "sparse_colstats" if sparse else "colstats"
+    check(launches[colstats] == n_chunks, f"{tag}: {colstats} launches != chunks")
+    for name in ("dense_fused_chunk", "sparse_fused_chunk", "fused_replay", "sampled_scores",
+                 "sparse_sampled_scores", "vertex_argmax", "step_tail", "residual_update"):
+        check(launches[name] == 0, f"{tag}: launched {name}")
+    last = res.points[-1]
+    alpha = _alpha_from_point(torch, last, p, design.device)
+    gap = float(LASSO.gap(design, y, alpha, torch.tensor(last.reg, device=design.device)))
+    print(f"[{tag}] densest point: objective {last.objective!r}, certified duality gap "
+          f"{gap!r}")
+    check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), f"{tag}: certified gap")
+    return launches, dict(res=res, steps=steps[0])
+
+
+class LaneRecorder:
+    """A lane sampler that hands on another's draws and keeps, for each lane,
+    the rows it drew while active (the stream a sequential replay takes)."""
+
+    def __init__(self, inner, lanes):
+        self.inner = inner
+        self.rows = [[] for _ in range(lanes)]
+
+    def uniform_lanes(self, kappa, p, active):
+        rows = self.inner.uniform_lanes(kappa, p, active)
+        for lane, a in enumerate(active):
+            if a:
+                self.rows[lane].append(rows[lane])
+        return rows
+
+
+def phase4_lanes_vs_sequential(torch, dev):
+    """One chunk of 4 lanes at p = 200,000, m = 800, kappa = 1% of p and 400
+    steps on both layouts, unfused and with fuse_steps = 8, the first lane's
+    delta small enough that it freezes early: each lane's alpha bits,
+    iterations, n_dots and vertex sequence equal a sequential solve
+    replaying the rows that lane drew (with fuse_steps = 8, the sequential
+    chunk of K unfused steps, run_loop's per_step route)."""
+    from repro_torch.core import LASSO, FWConfig, LaneSampler, StreamSampler, engine
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.data import make_sparse_wide_problem, make_wide_problem
+
+    kappa = kappa_fraction(P_LANES, 0.01)
+    for layout in ("dense", "sparse"):
+        if layout == "dense":
+            X, y, coef = make_wide_problem(P_LANES, M_PAPER, N_REL, seed=1, device=dev)
+        else:
+            X, y, coef = make_sparse_wide_problem(M_PAPER, P_LANES, 0.02, N_REL, seed=1,
+                                                  device=dev, block_size=SPARSE_BLOCK)
+        delta_max = 0.5 * float(coef.abs().sum())
+        deltas = [delta_max / 1000, delta_max / 30, delta_max / 3, delta_max]
+        for fuse in (1, FUSE):
+            cfg = FWConfig(delta=1.0, kappa=kappa, max_iters=400, tol=1e-3, fuse_steps=fuse,
+                           backend="sparse" if layout == "sparse" else "kernels")
+            rec = LaneRecorder(LaneSampler(4, len(deltas), dev), len(deltas))
+            trace = []
+            res, saved = engine.solve_batched(
+                LASSO, X, y, cfg, rec, None, deltas, device=dev,
+                on_step=lambda state, active: trace.append((state.i_star.clone(), active)))
+            iters = res.iterations
+            check(min(iters) < max(iters) and saved > 0,
+                  f"lanes {layout} fuse={fuse}: no lane froze early ({iters})")
+            for lane, d in enumerate(deltas):
+                seq = []
+                one = engine.solve(LASSO, X, y, cfg, StreamSampler(torch.stack(rec.rows[lane])),
+                                   None, d, device=dev, per_step=lambda s: seq.append(s.i_star))
+                lane_seq = torch.stack([i[lane] for i, act in trace if act[lane]]).cpu()
+                check(one.iterations == iters[lane] and one.n_dots == res.n_dots[lane],
+                      f"lanes {layout} fuse={fuse} lane {lane}: iterations/n_dots")
+                check(torch.equal(torch.stack(seq).cpu(), lane_seq),
+                      f"lanes {layout} fuse={fuse} lane {lane}: vertex sequences differ")
+                check(_same_bits(torch, one.alpha, res.alpha[lane]),
+                      f"lanes {layout} fuse={fuse} lane {lane}: alpha bits differ")
+            print(f"[lanes] {layout} fuse_steps={fuse}: 4 lanes, iterations {iters}, saved "
+                  f"{saved}: each lane's alpha bits, iterations, n_dots and vertex sequence "
+                  "equal its sequential replay")
+        del X, y, coef
+        torch.cuda.empty_cache()
+
+
+def _batched_run(torch, design, y, stats, cfg, L, n_steps, seed):
+    from repro_torch.core import LASSO, LaneSampler, engine
+
+    states0 = engine.stack_states([engine.init_state(LASSO, design, y, None, cfg)
+                                   for _ in range(L)])
+    deltas = torch.full((L,), 50.0, device=design.device)
+    bcfg = dataclasses.replace(cfg, max_iters=n_steps, tol=0.0, patience=10**9)
+    return lambda: engine.batched_loop(LASSO, design, y, stats, states0, bcfg, deltas, 10**9,
+                                       LaneSampler(seed, L, design.device))
+
+
+def batched_step_ms(torch, design, y, stats, cfg, L, n_steps=200):
+    """The batched step's host-clock ms (a fixed run of ``n_steps`` batched
+    steps of L lanes after a warm-up, each run ending in a device sync) and
+    its device busy ms per step (``torch.profiler`` over 50 more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for seed in (3, 5):
+        run = _batched_run(torch, design, y, stats, cfg, L, n_steps, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    run = _batched_run(torch, design, y, stats, cfg, L, 50, 9)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in rows)
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 50:.2f} us"
+                    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:5])
+    return wall, (total_us / 1e3 / 50 if total_us > 0 else None), top
+
+
+def phase5_lane_timing(torch, design, y, layout):
+    """The lane kernels at L = 13 (CUDA events, queued back to back) beside
+    their bounds, plain versions and library yardsticks, and the batched
+    step's wall and device ms and idle share at 13 lanes and at 1."""
+    from repro_torch.core import FWConfig, LaneSampler, engine
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+
+    sparse = layout == "sparse"
+    p, m = design.shape[0], design.shape[1]
+    cfg = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    kappa, L, dev = cfg.kappa, LANE_WIDTH, design.device
+    out = {}
+
+    def row(name, ms, plain_ms, library_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        lib = "null" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"[timing] {name} ({layout}, L={L}): {ms:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, "
+              f"library {lib}{note}")
+
+    sampler = LaneSampler(13, L, dev)
+    every = [True] * L
+    ids = torch.arange(L, dtype=torch.int32, device=dev)
+    draws = [sampler.uniform_lanes(kappa, p, every) for _ in range(4)]  # 4 x L x kappa rows
+    r = y.float().expand(L, m).contiguous()
+    if sparse:
+        vals, rows = design.values, design.rows
+        nnz = design.nnz_max
+        slots = vals.view(-1, nnz)
+        nz = sum(int(torch.count_nonzero(slots[d.reshape(-1)])) for d in draws) / len(draws)
+        row("sparse_sampled_scores_lanes",
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_lanes(
+                vals, rows, r, draws[i % 4], 1, ids), 100),
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_lanes_plain(
+                vals, rows, r, draws[i % 4], 1, ids), 5),
+            None, L * (kappa * nnz * 4 + kappa * 4 + kappa * 8 + m * 4) + nz * 4, 2 * nz,
+            note=f" [width 1, kappa={kappa}, {nz:.0f} stored nonzeros in the {L} lanes' "
+                 "features; library: none]")
+        scores = sg.sparse_sampled_scores_lanes(vals, rows, r, draws[0], 1, ids)
+        mat = (vals, rows)
+        tail_bytes = L * (3 * m * 4 + nnz * 8 + 64)
+    else:
+        row("sampled_scores_lanes",
+            _time_queued(torch, lambda i: fw.sampled_scores_lanes(design, r, draws[i % 4], 1,
+                                                                  ids), 40),
+            _time_queued(torch, lambda i: fw.sampled_scores_lanes_plain(design, r, draws[i % 4],
+                                                                        1, ids), 5),
+            _time_queued(torch, lambda i: torch.bmm(
+                design.index_select(0, draws[i % 4].view(-1)).view(L, kappa, m),
+                r.view(L, m, 1)), 5),
+            L * (kappa * m * 4 + m * 4 + kappa * 12), 2 * L * kappa * m,
+            note=f" [kappa={kappa}, m={m}; library: torch.bmm on Xt.index_select]")
+        scores = fw.sampled_scores_lanes(design, r, draws[0], 1, ids)
+        mat = design
+        tail_bytes = L * (4 * m * 4 + 64)
+    row("vertex_argmax_lanes" if not sparse else "vertex_argmax_lanes_sparse",
+        _time_queued(torch, lambda i: fw.vertex_argmax_lanes(scores, draws[0], 1, p, ids), 400),
+        _time_queued(torch, lambda i: fw.argmax_lanes_plain(scores, draws[0], 1, p, ids), 5),
+        None, L * (kappa * 4 + kappa * 8 + 12), 3 * L * kappa,
+        note=f" [n = kappa = {kappa} a lane; library: none]")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    beta, args = _lane_tail_state(torch, g, p, m, torch.float32, L)
+    args = (torch.full((L,), 0.9, device=dev),) + args[1:]  # no renorm
+    tcfg = FWConfig(delta=20.0)
+    row("step_tail_lanes" if not sparse else "step_tail_lanes_sparse",
+        _time_queued(torch, lambda i: st.step_tail_lanes(mat, beta, *args, ids, tcfg), 400),
+        # ~75 launches a lane: one call of 13 lanes fills the launch queue
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(mat, beta, *args, ids, tcfg), 1),
+        None, tail_bytes, L * 5 * m, note=f" [m={m}, no renorm; library: none]")
+    del beta, args
+
+    stats = engine.precompute_colstats(design, y, cfg)
+    for lanes in (L, 1):
+        wall, busy, top = batched_step_ms(torch, design, y, stats, cfg, lanes)
+        busy_txt = ("device busy not measured (the profiler reported no device time)"
+                    if busy is None else
+                    f"device busy {busy:.4f} ms ({top}), idle {100 * (1 - busy / wall):.1f}%")
+        print(f"[timing] batched step ({layout}, {lanes} lanes): wall {wall:.4f} ms, "
+              f"{wall / lanes:.4f} ms per lane-iteration; {busy_txt}")
+    return out
+
+
+def history_check(torch, dev):
+    """solve_with_history on a small problem on the card (p = 2,000, m =
+    100, 200 steps), unfused and with fuse_steps = 8: the history is the
+    objective a per-step hook sees in the same run, bit for bit."""
+    from repro_torch.core import LASSO, FWConfig, TorchSampler, engine
+    from repro_torch.data import make_wide_problem
+
+    X, y, coef = make_wide_problem(2000, 100, 20, seed=2, device=dev)
+    stats = engine.precompute_colstats(X, y, FWConfig(delta=1.0, backend="kernels"))
+    for fuse in (1, FUSE):
+        cfg = FWConfig(delta=0.5 * float(coef.abs().sum()), kappa=50, backend="kernels",
+                       fuse_steps=fuse)
+        res, hist = engine.solve_with_history(LASSO, X, y, cfg, TorchSampler(1, dev), 200,
+                                              device=dev)
+        seen = []
+        hcfg = dataclasses.replace(cfg, max_iters=200, patience=engine.history_patience(200))
+        engine.solve(LASSO, X, y, hcfg, TorchSampler(1, dev), device=dev,
+                     per_step=lambda s: seen.append(LASSO.objective(y, stats, s.co)))
+        check(hist.shape == (200,) and res.iterations == 200, "history: length")
+        check(_same_bits(torch, hist, torch.stack(seen)), f"history fuse={fuse}: differs from "
+                                                           "the per-step objectives")
+        print(f"[history] solve_with_history p=2000 m=100 fuse_steps={fuse}: 200 values, "
+              f"{float(hist[0])!r} -> {float(hist[-1])!r}, bit for bit the per-step objectives")
 
 
 if __name__ == "__main__":

@@ -18,11 +18,16 @@
   coefficients: without a renorm and with distinct coordinates; and with
   a renorm at the first record and a coordinate that wins 3 times;
 - K4's ``dense_fused_chunk`` per chunk of K = 8 steps at the paper's
-  dense size (p = 4,272,227, m = 800), as phase 5 draws it.
+  dense size (p = 4,272,227, m = 800), as phase 5 draws it;
+- the one-lane launches that the batched lanes share their kernels with:
+  K2's ``sampled_scores`` at the paper's dense size (kappa = 1% of p,
+  width 1), the argmax above, and the step's ``step_tail`` on both
+  layouts (no renorm), beside K5 above.
 
-For K5, K7, the replay and K4 it also prints a sha256 digest of every output
-byte (records, final residual and (S, F, Q); or beta and the statistics),
-so two versions that agree bit for bit print the same digests. The
+For K2's scores, the argmax, the tail, K5, K7, the replay and K4 it also
+prints a sha256 digest of every output byte (records, final residual and
+(S, F, Q); or beta and the statistics), so two versions that agree bit for
+bit print the same digests. The
 timing helpers are ``chip_smoke.py``'s.
 
 To compare two versions on one card, run it once per checkout in one
@@ -107,8 +112,9 @@ def main(argv=None):
     kappa = kappa_fraction(p, 0.01)
     idx = TorchSampler(11, dev).uniform(kappa, p)
     scores = torch.randn(kappa, generator=g, device=dev)
-    record("vertex_argmax_kappa", cs.vertex_argmax_times(torch, fw, scores, idx, 1, p),
-           f" [n = kappa = {kappa}, width 1]")
+    t = cs.vertex_argmax_times(torch, fw, scores, idx, 1, p)
+    t["digest"] = digest(fw.vertex_argmax(scores, idx, 1, p))
+    record("vertex_argmax_kappa", t, f" [n = kappa = {kappa}, width 1]")
     bs = 128
     blk = torch.arange(-(-p // bs), device=dev)
     scores = torch.randn(blk.numel() * bs, generator=g, device=dev)
@@ -150,6 +156,22 @@ def main(argv=None):
         del beta
     del beta0
 
+    def tail_times(name, mat, p, m, nbytes, note):
+        """The step's tail, one lane, from chip_smoke's fixed state."""
+        from repro_torch.kernels import step_tail as st
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        tcfg = FWConfig(delta=5.0)
+        beta, targs = cs._tail_args(torch, gen, p, m, torch.float32, int(idx[0]))
+        first = st.step_tail(mat, beta.clone(), *targs, tcfg)
+        t = dict(ms=cs._time_queued(torch, lambda i: st.step_tail(mat, beta, *targs, tcfg), 400),
+                 # ~75 launches a call: 10 calls keep the queue under its ~1000 entries
+                 plain_ms=cs._time_queued(torch, lambda i: st.step_tail_plain(
+                     mat, beta, *targs, tcfg), 10),
+                 nbytes=nbytes, flops=5 * m, digest=digest(first))
+        record(name, t, note)
+
     # ---- K6 and K7 on the E2006-log1p proxy -----------------------------------
     spec = PROXY_SPECS["e2006-log1p"]
     mat, y, _ = make_sparse_wide_problem(spec.m, spec.p, spec.col_density, spec.n_relevant,
@@ -178,6 +200,8 @@ def main(argv=None):
                  nbytes=n * nnz * 4 + nz * 4 + n * 4 + ids[0].numel() * 8 + mat.m * 4,
                  flops=2 * nz, digest=digests[bs])
         record(f"sparse_sampled_scores_w{bs}", t, f" [width {bs}, n={n}, nnz_max={nnz}]")
+    tail_times("step_tail_sparse", (mat.values, mat.rows), p, mat.m,
+               3 * mat.m * 4 + nnz * 8 + 64, f" [sparse, m={mat.m}, nnz_max={nnz}, no renorm]")
     delta = torch.tensor(50.0, device=dev)
     ucfg = cs.sparse_config(p, fuse_steps=1)
     out["sparse_unfused_step_wall_ms"] = cs.unfused_step_wall_ms(
@@ -221,6 +245,19 @@ def main(argv=None):
     # ---- K4 at the paper's dense size -------------------------------------------
     Xt, y, _ = make_wide_problem(p, cs.M_PAPER, cs.N_REL, seed=0, device=dev)
     m = cs.M_PAPER
+    idxs = [TorchSampler(11, dev).uniform(kappa, p)] + [
+        TorchSampler(12 + k, dev).uniform(kappa, p) for k in range(31)]  # 32 sets >> L2
+    r = y.clone()
+    t = dict(ms=cs._time_queued(torch, lambda i: fw.sampled_scores(Xt, r, idxs[i % 32], 1), 200),
+             plain_ms=cs._time_queued(torch, lambda i: fw.sampled_scores_plain(
+                 Xt, r, idxs[i % 32], 1), 50),
+             library_ms=cs._time_queued(torch, lambda i: torch.mv(
+                 Xt.index_select(0, idxs[i % 32]), r), 50),
+             nbytes=kappa * m * 4 + m * 4 + kappa * 12, flops=2 * kappa * m,
+             digest=digest(fw.sampled_scores(Xt, r, idxs[0], 1)))
+    record("sampled_scores", t, f" [kappa={kappa}, m={m}, width 1; library: torch.mv on "
+                                "Xt.index_select]")
+    tail_times("step_tail_dense", Xt, p, m, 4 * m * 4 + 64, f" [dense, m={m}, no renorm]")
     stats = engine.precompute_colstats(Xt, y, cs.main_config(p, "kernels"))
     chunk_times("dense_fused_chunk", fs.dense_fused_chunk, fs.dense_fused_chunk_plain, (Xt,), y,
                 stats, TorchSampler(11, dev), m,

@@ -7,15 +7,18 @@ versions when given ``device='cpu'``.
 from repro_torch.core import (
     LASSO,
     FWConfig,
+    LaneSampler,
     StreamSampler,
     TorchSampler,
     delta_grid,
     fw_path,
+    fw_path_batched,
     fw_solve,
+    fw_solve_with_history,
     solve,
 )
 
 __all__ = [
-    "FWConfig", "LASSO", "StreamSampler", "TorchSampler", "delta_grid",
-    "fw_path", "fw_solve", "solve",
+    "FWConfig", "LASSO", "LaneSampler", "StreamSampler", "TorchSampler", "delta_grid",
+    "fw_path", "fw_path_batched", "fw_solve", "fw_solve_with_history", "solve",
 ]

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core.engine import EngineState, resolve_device
 from repro_torch.core.fw_lasso import LassoCo
 from repro_torch.core.solver_config import FWConfig
-from repro_torch.core.vertex import StreamSampler
+from repro_torch.core.vertex import LaneStreamSampler, StreamSampler
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
 # the reference's backend words and their counterparts in the port
@@ -92,3 +92,12 @@ def stream_from_reference(np_draws, device="cuda") -> StreamSampler:
     (indices for 'uniform', block starts for 'block')."""
     dev = resolve_device(device)
     return StreamSampler(torch.tensor(np.asarray(np_draws), dtype=torch.int64, device=dev))
+
+
+def lane_streams_from_reference(np_draws, device="cuda") -> LaneStreamSampler:
+    """A ``LaneStreamSampler`` replaying the reference's per-lane draws: one
+    ``(n_steps, k)`` array a lane (the scan of each lane's key, split off the
+    chunk's key), in lane order."""
+    dev = resolve_device(device)
+    return LaneStreamSampler([torch.tensor(np.asarray(d), dtype=torch.int64, device=dev)
+                              for d in np_draws])

@@ -1,14 +1,21 @@
 """The port's solver core: config, engine, lasso oracle, path driver."""
 from repro_torch.core import engine, path, vertex
-from repro_torch.core.engine import ColStats, EngineState, SolveResult, solve
-from repro_torch.core.fw_lasso import LASSO, LassoCo, LassoOracle, fw_solve
-from repro_torch.core.path import PathPoint, PathResult, delta_grid, fw_path, lambda_grid
+from repro_torch.core.engine import (ColStats, EngineState, SolveResult, history_patience,
+                                     precompute_colstats, solve, solve_batched,
+                                     solve_with_history)
+from repro_torch.core.fw_lasso import (LASSO, FWState, LassoCo, LassoOracle, duality_gap,
+                                       fw_solve, fw_solve_with_history, fw_step, init_state,
+                                       objective)
+from repro_torch.core.path import (PathPoint, PathResult, delta_grid, fw_path,
+                                   fw_path_batched, lambda_grid)
 from repro_torch.core.solver_config import DistSpec, FWConfig
-from repro_torch.core.vertex import StreamSampler, TorchSampler
+from repro_torch.core.vertex import LaneSampler, LaneStreamSampler, StreamSampler, TorchSampler
 
 __all__ = [
-    "ColStats", "DistSpec", "EngineState", "FWConfig", "LASSO", "LassoCo",
-    "LassoOracle", "PathPoint", "PathResult", "SolveResult", "StreamSampler",
-    "TorchSampler", "delta_grid", "engine", "fw_path", "fw_solve",
-    "lambda_grid", "path", "solve", "vertex",
+    "ColStats", "DistSpec", "EngineState", "FWConfig", "FWState", "LASSO", "LaneSampler",
+    "LaneStreamSampler", "LassoCo", "LassoOracle", "PathPoint", "PathResult", "SolveResult",
+    "StreamSampler", "TorchSampler", "delta_grid", "duality_gap", "engine", "fw_path",
+    "fw_path_batched", "fw_solve", "fw_solve_with_history", "fw_step", "history_patience",
+    "init_state", "lambda_grid", "objective", "path", "precompute_colstats", "solve", "solve_batched",
+    "solve_with_history", "vertex",
 ]

@@ -39,12 +39,28 @@ exact (trailing chunk steps are masked). The kernel emits per-step
 records that ``_fused_replay`` turns into the O(p) coefficient updates
 with the unfused op sequence (``apply_coeff_update``).
 
+``solve_with_history`` runs a fixed number of steps and records the
+objective after each (the reference builds it on the telemetry ring; the
+port records through ``run_loop``'s per-step hook, which chunks through K
+unfused steps, as the reference's ``record_objective`` routing does).
+
+Batched lanes (``solve_batched``, ``batched_loop``): L delta lanes, each
+with its own warm start and sampling stream, share one loop with early
+exit per lane, the reference's ``solve_batched``. The lane state is
+``EngineState`` with a leading lane axis on the device fields and a host
+int a lane for ``k`` and ``n_dots``; a batched step is one draw for all
+the lanes, one launch each of the lane-axis scores, argmax and tail on
+the kernels' backends, and one host read of the ``(L,)`` stall vector per
+step (per K-step chunk under ``fuse_steps = K``). A frozen lane keeps its
+state bit for bit, and each lane's trajectory is the sequential solve's
+on the same stream, bit for bit.
+
 Not ported yet, and refused by ``check_ported``: step rules other than
-'classic' (ROADMAP.md Queue 1 item 9), telemetry (item 11), batched lanes
-(item 6).
+'classic' (ROADMAP.md Queue 1 item 9), telemetry (item 11).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -81,7 +97,8 @@ class EngineState(NamedTuple):
     n_dots: int  # length-m dot products consumed so far (exact)
     k: int  # iteration counter
     # int64: () the last step's vertex (-1 before any); after a fused chunk
-    # (n_active,) the vertices of the chunk's live steps
+    # (n_active,) the vertices of the chunk's live steps; lanes: (L,) the
+    # last batched step's, -1 for a lane frozen in it
     i_star: torch.Tensor
 
 
@@ -328,14 +345,16 @@ def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig,
 
 
 def _fused_ref_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
-                     sampler) -> EngineState:
+                     sampler, per_step=None) -> EngineState:
     """The chunk executor of 'torch' and of the plain sparse ops: K unfused
     engine steps (bit-exact against fuse_steps=1 by construction), skipping
     the steps past max_iters; the stopping test is the caller's, between
-    chunks."""
+    chunks. ``per_step(state)``, when given, sees the state after each step."""
     seq = []
     for _ in range(min(cfg.fuse_steps, cfg.max_iters - state.k)):
         state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        if per_step is not None:
+            per_step(state)
         seq.append(state.i_star)
     return state._replace(i_star=torch.stack(seq))
 
@@ -351,7 +370,8 @@ def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
     return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
 
 
-def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step=None):
+def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step=None,
+             per_step=None):
     """Step until the §Stopping rule fires or max_iters. ``on_step(state)``,
     when given, sees every new state (the parity tests read ``i_star``).
 
@@ -360,13 +380,26 @@ def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_ste
     chunk, whose ``i_star`` holds the chunk's vertices, and the stopping
     rule is read between chunks (a stop lands on a chunk boundary;
     max_iters stays exact).
+
+    ``per_step(state)``, when given, sees the state after every step, inside
+    chunks too: a chunk then runs as K unfused steps (``_fused_ref_chunk``,
+    the steps of the unfused solve bit for bit, the stops still on chunk
+    boundaries), as the reference routes a chunk whose every step is
+    recorded (``record_objective``).
     """
-    advance = fused_chunk if vertex.fused_supported(oracle, cfg) else step
+    fused = vertex.fused_supported(oracle, cfg)
     state = state0
     # `stall` is read on the host: the one device sync per step, or per
     # chunk on the fused path (a copy, and no comparison kernel)
     while state.k < cfg.max_iters and int(state.stall) < patience:
-        state = advance(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        if not fused:
+            state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+            if per_step is not None:
+                per_step(state)
+        elif per_step is None:
+            state = fused_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
+        else:
+            state = _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler, per_step)
         if on_step is not None:
             on_step(state)
     return state
@@ -390,25 +423,239 @@ def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta)
 
 
 def solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None,
-                   on_step=None) -> SolveResult:
+                   on_step=None, per_step=None) -> SolveResult:
     """``solve`` on operands that ``prepare_inputs`` already placed and
-    checked (the path driver checks once, not per grid point)."""
+    checked (the path driver checks once, not per grid point);
+    ``per_step`` as ``run_loop``'s."""
     delta = torch.tensor(float(cfg.delta if delta is None else delta),
                          dtype=torch.float32, device=Xt.device)
     stats = precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
     state0 = init_state(oracle, Xt, y, alpha0, cfg)
     patience = _patience(cfg)
-    final = run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step)
+    final = run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step,
+                     per_step)
     return _result(oracle, Xt, y, stats, final, patience, cfg, delta)
 
 
 def solve(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
-          device="cuda", on_step=None) -> SolveResult:
+          device="cuda", on_step=None, per_step=None) -> SolveResult:
     """Run the oracle's Algorithm-2 analogue until
     ||alpha_{k+1}-alpha_k||_inf <= tol for ``patience`` consecutive
     iterations, or max_iters. ``sampler`` draws each step's sampling set
     (``vertex.TorchSampler`` or ``vertex.StreamSampler``, on ``device``);
-    ``delta`` overrides cfg.delta. Runs on the card unless ``device``
-    says otherwise."""
+    ``delta`` overrides cfg.delta; ``on_step`` and ``per_step`` as
+    ``run_loop``'s. Runs on the card unless ``device`` says otherwise."""
     Xt, y = prepare_inputs(Xt, y, cfg, device)
-    return solve_prepared(oracle, Xt, y, cfg, sampler, alpha0, delta, on_step)
+    return solve_prepared(oracle, Xt, y, cfg, sampler, alpha0, delta, on_step, per_step)
+
+
+# --------------------------------------------------------------------------
+# The history solve (fixed length, the objective after every step)
+# --------------------------------------------------------------------------
+
+
+def history_patience(n_iters: int) -> int:
+    """The patience ``solve_with_history`` runs the loop with: stall reaches
+    at most n_iters, so n_iters + 1 never stops the run early, which takes
+    exactly n_iters steps through the one shared ``run_loop``."""
+    return int(n_iters) + 1
+
+
+def solve_with_history(oracle, Xt, y, cfg: FWConfig, sampler, n_iters: int, alpha0=None, *,
+                       device="cuda"):
+    """Run exactly ``n_iters`` steps at ``cfg.delta``, recording f(alpha^k)
+    after each (convergence plots). Returns ``(SolveResult,
+    objective_history)``, the history an ``(n_iters,)`` tensor on the
+    device: each value stays a 0-d device tensor until one ``stack`` at the
+    end, so the steps keep their one host read each. With ``fuse_steps = K
+    > 1`` the chunks run as K unfused steps (``run_loop``'s ``per_step``),
+    the unfused solve's steps bit for bit. ``converged`` is read against
+    the config's own patience, as the reference's is."""
+    hcfg = dataclasses.replace(cfg, max_iters=int(n_iters))
+    Xt, y = prepare_inputs(Xt, y, hcfg, device)
+    delta = torch.tensor(float(cfg.delta), dtype=torch.float32, device=Xt.device)
+    stats = precompute_colstats(Xt, y, hcfg) if oracle.needs_stats else None
+    state0 = init_state(oracle, Xt, y, alpha0, hcfg)
+    hist = []
+    final = run_loop(oracle, Xt, y, stats, state0, hcfg, delta, history_patience(n_iters),
+                     sampler, per_step=lambda s: hist.append(oracle.objective(y, stats, s.co,
+                                                                              hcfg)))
+    res = _result(oracle, Xt, y, stats, final, _patience(cfg), hcfg, delta)
+    if not hist:
+        return res, torch.zeros(0, dtype=Xt.dtype, device=Xt.device)
+    return res, torch.stack(hist)
+
+
+# --------------------------------------------------------------------------
+# Batched delta lanes (the reference's solve_batched)
+# --------------------------------------------------------------------------
+
+
+class _LaneIds:
+    """The ids of the lanes that step, as the int32 device tensor the lane
+    kernels take; made anew only when the host's list changes (a lane
+    freezing), so a step copies nothing to the device."""
+
+    def __init__(self, device):
+        self.device = device
+        self.active = None
+        self.ids = None
+
+    def __call__(self, active) -> torch.Tensor:
+        if active != self.active:
+            self.active = list(active)
+            self.ids = torch.tensor([i for i, a in enumerate(active) if a], dtype=torch.int32,
+                                    device=self.device)
+        return self.ids
+
+
+def _check_lane_oracle(oracle) -> None:
+    if not hasattr(oracle, "tail_lanes"):
+        raise NotImplementedError(
+            f"batched lanes for {type(oracle).__name__} are not ported yet: only the "
+            "lasso's are (the elastic-net and logistic lanes are ROADMAP.md Queue 1 item 8)"
+        )
+
+
+def stack_states(states) -> EngineState:
+    """One lane-stacked ``EngineState`` from one state a lane."""
+    def stack(ts):
+        return torch.stack(list(ts))
+
+    co = type(states[0].co)(*(stack(f) for f in zip(*(s.co for s in states))))
+    return EngineState(
+        beta=stack(s.beta for s in states),
+        scale=stack(s.scale for s in states),
+        co=co,
+        maxabs=stack(s.maxabs for s in states),
+        step_inf=stack(s.step_inf for s in states),
+        stall=stack(s.stall for s in states),
+        n_dots=[s.n_dots for s in states],
+        k=[s.k for s in states],
+        i_star=stack(s.i_star for s in states),
+    )
+
+
+def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas, sampler,
+                 active, lanes: torch.Tensor) -> EngineState:
+    """One step of every lane in ``active`` (a host list of bools; ``lanes``
+    the same as int32 device ids) from the lane-stacked ``state``: one draw,
+    one scores launch, one argmax launch and one tail launch for all the
+    lanes on the kernels' backends. Lanes not active keep their state bit
+    for bit (the tail copies it; ``k`` and ``n_dots`` stay), and their
+    ``i_star`` is -1."""
+    p = state.beta.shape[1]
+    w = oracle.cograd(state.co, y)
+    i_star, g, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active, lanes)
+    beta, scale, maxabs, step_inf, stall, co = oracle.tail_lanes(
+        Xt, y, stats, state, i_star, g, deltas, cfg, active, lanes)
+    return EngineState(
+        beta=beta,
+        scale=scale,
+        co=co,
+        maxabs=maxabs,
+        step_inf=step_inf,
+        stall=stall,
+        n_dots=[n + (n_scored + oracle.extra_dots if a else 0)
+                for n, a in zip(state.n_dots, active)],
+        k=[k + 1 if a else k for k, a in zip(state.k, active)],
+        i_star=i_star,
+    )
+
+
+def batched_loop(oracle, Xt, y, stats, states0: EngineState, cfg: FWConfig, deltas, patience,
+                 sampler, on_step=None):
+    """The lane-pruned loop of ``solve_batched`` (the reference's
+    ``batched_loop``): a lane steps while ``k < max_iters`` and ``stall <
+    patience``; the host reads the ``(L,)`` stall vector once per turn. A
+    turn is one batched step, or under ``cfg.fuse_steps = K > 1`` (with
+    ``vertex.fused_supported``) K batched steps, each lane active at the
+    turn's start stepping until its max_iters, as the reference's chunk of
+    K unfused steps; so a lane's stops land where the sequential fused
+    solve's do. ``on_step(state, active)``, when given, sees the state
+    after every batched step and which lanes took it. Returns ``(final
+    state, saved)``, ``saved`` the lane-iterations not run: the frozen
+    lanes times the turn's length, summed over the turns."""
+    chunk_len = cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1
+    L = len(states0.k)
+    lane_ids = _LaneIds(states0.beta.device)
+    state, saved = states0, 0
+    while True:
+        stall = state.stall.tolist()  # the one host read a turn
+        active = [k < cfg.max_iters and s < patience for k, s in zip(state.k, stall)]
+        if not any(active):
+            return state, saved
+        for _ in range(chunk_len):
+            act = [a and k < cfg.max_iters for a, k in zip(active, state.k)]
+            if not any(act):
+                break
+            state = batched_step(oracle, Xt, y, stats, state, cfg, deltas, sampler, act,
+                                 lane_ids(act))
+            if on_step is not None:
+                on_step(state, act)
+        saved += (L - sum(active)) * chunk_len
+
+
+def batched_result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg: FWConfig,
+                   deltas) -> SolveResult:
+    """The lane-stacked ``SolveResult``: ``alpha (L, p)``, objective, active
+    and converged ``(L,)``, iterations and n_dots a host int a lane, and
+    under ``cfg.report_gap`` each lane's certified gap (one full pass a
+    lane)."""
+    alpha = final.scale[:, None] * final.beta
+    gap = None
+    if cfg.report_gap:
+        gap = torch.stack([
+            certified_gap(oracle, Xt, y, type(final.co)(*(f[lane] for f in final.co)),
+                          final.beta[lane], final.scale[lane], deltas[lane], cfg)
+            for lane in range(alpha.shape[0])
+        ])
+    return SolveResult(
+        alpha=alpha,
+        objective=oracle.objective(y, stats, final.co, cfg),
+        iterations=list(final.k),
+        n_dots=list(final.n_dots),
+        active=torch.sum(alpha != 0.0, dim=1),
+        converged=final.stall >= patience,
+        gap=gap,
+        effective_fuse_steps=cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1,
+    )
+
+
+def solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas,
+                           on_step=None):
+    """``solve_batched`` on operands that ``prepare_inputs`` already placed
+    and checked; ``on_step`` as ``batched_loop``'s."""
+    _check_lane_oracle(oracle)
+    deltas = torch.as_tensor(deltas).to(device=Xt.device, dtype=torch.float32).reshape(-1)
+    L = deltas.shape[0]
+    if alpha0s is not None and tuple(alpha0s.shape) != (L, Xt.shape[0]):
+        raise ValueError(f"alpha0s must be (lanes, p) = ({L}, {Xt.shape[0]}), got "
+                         f"{tuple(alpha0s.shape)}")
+    stats = precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
+    states0 = stack_states([
+        init_state(oracle, Xt, y, None if alpha0s is None else alpha0s[lane], cfg)
+        for lane in range(L)
+    ])
+    patience = _patience(cfg)
+    final, saved = batched_loop(oracle, Xt, y, stats, states0, cfg, deltas, patience, sampler,
+                                on_step)
+    return batched_result(oracle, Xt, y, stats, final, patience, cfg, deltas), saved
+
+
+def solve_batched(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas, *, device="cuda",
+                  on_step=None):
+    """Solve a batch of lanes (one delta, warm start and sampling stream
+    each) in one loop with early exit per lane (the reference's
+    ``solve_batched``). ``sampler`` is a lane sampler
+    (``vertex.LaneSampler`` or ``vertex.LaneStreamSampler``), ``alpha0s``
+    the ``(L, p)`` warm starts (None: all from zero), ``deltas`` the ``(L,)``
+    deltas. Column statistics are computed once, then each lane is
+    initialized from its warm start. Each lane's trajectory is the
+    sequential ``solve`` on the same stream, bit for bit. Returns
+    ``(SolveResult with lane-stacked fields, saved)``. Runs on the card
+    unless ``device`` says otherwise."""
+    Xt, y = prepare_inputs(Xt, y, cfg, device)
+    if alpha0s is not None:
+        alpha0s = torch.as_tensor(alpha0s, device=Xt.device)
+    return solve_batched_prepared(oracle, Xt, y, cfg, sampler, alpha0s, deltas, on_step)

@@ -11,11 +11,14 @@ the reference's ``core/fw_lasso.py``:
 The scalar algebra (``kernels/step_tail``'s ``ls_closed_form`` and
 ``sf_recursion``) keeps the reference's operation order, so that the two
 packages round alike.
+
+Also the reference's flat lasso surface (``FWState``, ``init_state``,
+``fw_step``, ``objective``, ``duality_gap``) and ``fw_solve_with_history``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -89,6 +92,26 @@ class LassoOracle:
         s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, state.k, cfg)
         return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
 
+    def tail_lanes(self, Xt, y, stats, state, i_star, g, deltas, cfg, active, lanes):
+        """``tail`` for the batched engine's lanes (a lane-stacked ``state``;
+        ``active`` the host's list of the lanes that step, ``lanes`` their
+        int32 device ids): ``vertex.step_tail_lanes`` (one launch on the
+        kernels' backends), then each active lane's periodic exact S/F
+        refresh at its own k, from a residual row of its own, as ``tail``
+        takes it."""
+        co = state.co
+        beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin = vertex.step_tail_lanes(
+            Xt, y, stats, state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
+            co.resid, co.s_quad, co.f_lin, i_star, g, deltas, cfg, lanes,
+        )
+        for lane, a in enumerate(active):
+            k = state.k[lane]
+            if a and (k % cfg.refresh_every) == (cfg.refresh_every - 1):
+                s, f = sf_refresh(s_quad[lane], f_lin[lane], resid[lane], y, k, cfg)
+                s_quad[lane] = s
+                f_lin[lane] = f
+        return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
+
     # ---- fused K-step chunk protocol --------------------------------------
     # The chunk (kernels/fused_step) carries the co-state as (resid, (S, F,
     # Q)), Q unused by the lasso. The scalar algebra is ``ls_closed_form`` /
@@ -141,3 +164,93 @@ def fw_solve(Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
     with the lasso oracle)."""
     return engine.solve(LASSO, Xt, y, cfg, sampler, alpha0, delta,
                         device=device, on_step=on_step)
+
+
+def fw_solve_with_history(Xt, y, cfg: FWConfig, sampler, n_iters: int, alpha0=None, *,
+                          device="cuda"):
+    """Run exactly ``n_iters`` steps recording f(alpha^k) after each
+    (convergence plots; ``engine.solve_with_history`` with the lasso
+    oracle). Returns ``(SolveResult, objective_history (n_iters,))``."""
+    return engine.solve_with_history(LASSO, Xt, y, cfg, sampler, n_iters, alpha0,
+                                     device=device)
+
+
+# --------------------------------------------------------------------------
+# The reference's flat lasso state surface (tests drive fw_step directly)
+# --------------------------------------------------------------------------
+
+
+class FWState(NamedTuple):
+    """Flat lasso loop state, the reference's fields without its PRNG key
+    (the port's samplers stand in for it). ``alpha = scale * beta``."""
+
+    beta: torch.Tensor
+    scale: torch.Tensor
+    resid: torch.Tensor
+    s_quad: torch.Tensor
+    f_lin: torch.Tensor
+    maxabs: torch.Tensor
+    step_inf: torch.Tensor
+    stall: torch.Tensor
+    n_dots: int
+    k: int
+
+
+def _to_engine(state: FWState) -> engine.EngineState:
+    return engine.EngineState(
+        beta=state.beta,
+        scale=state.scale,
+        co=LassoCo(resid=state.resid, s_quad=state.s_quad, f_lin=state.f_lin),
+        maxabs=state.maxabs,
+        step_inf=state.step_inf,
+        stall=state.stall,
+        n_dots=state.n_dots,
+        k=state.k,
+        i_star=torch.full((), -1, dtype=torch.int64, device=state.beta.device),
+    )
+
+
+def _from_engine(es: engine.EngineState) -> FWState:
+    return FWState(
+        beta=es.beta,
+        scale=es.scale,
+        resid=es.co.resid,
+        s_quad=es.co.s_quad,
+        f_lin=es.co.f_lin,
+        maxabs=es.maxabs,
+        step_inf=es.step_inf,
+        stall=es.stall,
+        n_dots=es.n_dots,
+        k=es.k,
+    )
+
+
+def init_state(Xt, y, alpha0=None, cfg: Optional[FWConfig] = None) -> FWState:
+    """Start from the null solution, or warm-start from ``alpha0``, on the
+    device and in the dtype of ``Xt`` (dense, or a ``SparseBlockMatrix``)."""
+    return _from_engine(engine.init_state(LASSO, Xt, y, alpha0, cfg))
+
+
+def fw_step(Xt, y, stats: engine.ColStats, state: FWState, cfg: FWConfig, sampler,
+            delta=None) -> FWState:
+    """One randomized Frank-Wolfe step (paper Algorithm 2): the engine step
+    under the lasso oracle, drawing its sampling set from ``sampler``.
+    ``state.beta`` is updated in place, as the engine's step does."""
+    delta = torch.tensor(float(cfg.delta if delta is None else delta), dtype=torch.float32,
+                         device=state.beta.device)
+    return _from_engine(engine.step(LASSO, Xt, y, stats, _to_engine(state), cfg, delta,
+                                    sampler))
+
+
+def objective(stats: engine.ColStats, state) -> torch.Tensor:
+    """f(alpha^k) = 1/2 y^T y + 1/2 S^k - F^k (paper eq. 8 block)."""
+    return 0.5 * stats.yty + 0.5 * state.s_quad - state.f_lin
+
+
+def duality_gap(Xt, state, delta: float, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """Exact FW duality gap g(alpha) = alpha^T grad + delta*||grad||_inf, the
+    gradient read off the state's live residual (``vertex.grad_full``): one
+    O(p*m) (O(nnz) sparse) pass, for certification and tests."""
+    alpha = state.scale * state.beta
+    grad = vertex.grad_full(Xt, state.resid, cfg)[:alpha.shape[0]]
+    return torch.dot(alpha, grad) + delta * torch.max(torch.abs(grad))

@@ -16,6 +16,12 @@ from a *sampler* instead, so that parity with the reference never
 depends on two random number generators agreeing: ``TorchSampler`` draws
 with its own ``torch.Generator``, ``StreamSampler`` replays a stream
 given to it (for instance the reference's, see ``repro_torch.convert``).
+The batched engine's L delta lanes draw from a *lane sampler*:
+``LaneSampler`` draws every lane's set in one call, ``LaneStreamSampler``
+replays one stream a lane. ``sample_vertex_lanes`` and ``step_tail_lanes``
+are the lane-axis counterparts of ``sample_vertex`` and ``step_tail``:
+one launch of each kernel for all the lanes on the kernels' backends, the
+one-lane plain ops once per lane elsewhere.
 
 The reference zero-pads Xt's tail rows once per solve for its block
 kernels (``pad_backend_matrix``). The port never copies Xt: the
@@ -98,6 +104,58 @@ class StreamSampler:
 
     def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
         return self._next(nb, nblocks)[0]
+
+
+class LaneSampler:
+    """Draws the sampling sets of ``lanes`` delta lanes with one
+    ``torch.Generator`` on ``device``: each step's ``(L, kappa)`` uniform
+    indices in one ``torch.randint``, a frozen lane's row drawn and
+    discarded; 'block' draws a lane's block starts at a time. A lane's
+    stream is its own, not a ``TorchSampler``'s. (The reference's lanes
+    split keys of their own, a frozen lane's key standing still; a
+    ``LaneStreamSampler`` replays such streams.)"""
+
+    def __init__(self, seed: int, lanes: int, device="cuda"):
+        self.lanes = int(lanes)
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def uniform_lanes(self, kappa: int, p: int, active) -> torch.Tensor:
+        return torch.randint(0, p, (self.lanes, kappa), generator=self.generator,
+                             device=self.device)
+
+    def blocks_lanes(self, nb: int, nblocks: int, active) -> torch.Tensor:
+        return torch.stack([
+            torch.randperm(nblocks, generator=self.generator, device=self.device)[:nb]
+            for _ in range(self.lanes)
+        ])
+
+
+class LaneStreamSampler:
+    """Replays one ``(n_steps, k)`` stream a lane (a ``StreamSampler``
+    each): an active lane takes its stream's next row, a frozen lane's
+    cursor stays and its row is a placeholder of zeros. So lane l sees
+    exactly the rows a sequential solve replaying its stream sees."""
+
+    def __init__(self, draws):
+        self.lanes = [StreamSampler(d) for d in draws]
+        if not self.lanes:
+            raise ValueError("a lane stream sampler needs one stream a lane")
+
+    def _rows(self, take, k: int, active) -> torch.Tensor:
+        if len(active) != len(self.lanes):
+            raise ValueError(f"{len(active)} lanes asked, {len(self.lanes)} streams")
+        dev = self.lanes[0].draws.device
+        rows = [take(s) if a else torch.zeros(k, dtype=torch.int64, device=dev)
+                for s, a in zip(self.lanes, active)]
+        return torch.stack(rows)
+
+    def uniform_lanes(self, kappa: int, p: int, active) -> torch.Tensor:
+        return self._rows(lambda s: s.uniform(kappa, p), kappa, active)
+
+    def blocks_lanes(self, nb: int, nblocks: int, active) -> torch.Tensor:
+        return self._rows(lambda s: s.blocks(nb, nblocks), nb, active)
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -269,6 +327,104 @@ def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=
     else:
         i_star, g, n = _torch_vertex(Xt, w, sampler, p, cfg)
     return i_star, g, g, n
+
+
+# --------------------------------------------------------------------------
+# Batched delta lanes (the reference's jax.vmap of the step)
+# --------------------------------------------------------------------------
+
+
+def _lane_ids(active) -> list:
+    return [lane for lane, a in enumerate(active) if a]
+
+
+def _lane_draws(sampler, p: int, block_size: int, cfg: FWConfig, active, device):
+    """Every lane's sampled ids, as ``sample_vertex`` draws one lane's:
+    'uniform' ``(L, kappa)`` indices (width 1), 'block' ``(L, nb)`` ids of
+    ``block_size``-wide blocks, 'full' every block's id, one ``(nblocks,)``
+    shared by the lanes. Returns the ids and their width."""
+    n_blocks = -(-p // block_size)
+    if cfg.sampling == "uniform":
+        return sampler.uniform_lanes(cfg.kappa, p, active), 1
+    if cfg.sampling == "block":
+        nb = min(max(cfg.kappa // block_size, 1), n_blocks)
+        return sampler.blocks_lanes(nb, n_blocks, active), block_size
+    if cfg.sampling == "full":
+        return torch.arange(n_blocks, device=device), block_size
+    raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
+
+
+def _plain_vertex_lanes(vertex_fn, L: int, active, device, dtype):
+    """``(i_star (L,), g (L,))`` from ``vertex_fn(lane)`` for each active
+    lane; a frozen lane gets ``(-1, 0)``, as the kernels give it."""
+    i_star = torch.full((L,), -1, dtype=torch.int64, device=device)
+    g = torch.zeros(L, dtype=dtype, device=device)
+    for lane in _lane_ids(active):
+        i, gl = vertex_fn(lane)
+        i_star[lane] = i
+        g[lane] = gl
+    return i_star, g
+
+
+def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, active,
+                        lanes: torch.Tensor):
+    """Draw every lane's S and return each active lane's winning vertex:
+    ``(i_star (L,), g (L,), n_scored)``, a frozen lane's ``(-1, 0)``;
+    ``n_scored`` is an active lane's dot products (a host int). ``w`` is the
+    lanes' co-gradients ``(L, m)``, ``active`` the host's list of which lanes
+    step and ``lanes`` the same as an int32 device tensor of their ids. On
+    the kernels' backends it is one scores launch and one argmax launch for
+    all the lanes (``*_lanes``); on 'torch' and the plain sparse ops, the
+    one-lane ops once per lane. Lane l's winner is ``sample_vertex``'s on
+    the same draw, bit for bit."""
+    L = w.shape[0]
+    if cfg.backend == "sparse":
+        mat = Xt
+        blk, width = _lane_draws(sampler, mat.p, mat.block_size, cfg, active, mat.device)
+        n_scored = mat.p if cfg.sampling == "full" else blk.shape[-1] * width
+        if use_sparse_kernel(cfg):
+            scores = sparse_ops.sparse_scores_lanes(mat, w, blk, width, lanes)
+            i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, width, mat.p, lanes)
+            return i_star, g.to(mat.dtype), n_scored
+        fn = (sparse_ops.sparse_gather_vertex_general if cfg.sampling == "uniform"
+              else sparse_ops.sparse_fw_vertex_general)
+        i_star, g = _plain_vertex_lanes(
+            lambda lane: fn(mat, w[lane].clone(), fw_grad.lane_blk(blk, lane),
+                            use_kernel=False)[:2], L, active, mat.device, mat.dtype)
+        return i_star, g, n_scored
+    blk, bs = _lane_draws(sampler, p, cfg.block_size, cfg, active, Xt.device)
+    n_scored = p if cfg.sampling == "full" else blk.shape[-1] * bs
+    if cfg.backend == "kernels":
+        scores = fw_grad.sampled_scores_lanes(Xt, w, blk, bs, lanes)
+        i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, bs, p, lanes)
+        return i_star, g, n_scored
+
+    def torch_vertex(lane):
+        b = fw_grad.lane_blk(blk, lane)
+        if cfg.sampling == "full":
+            idx = torch.arange(p, device=Xt.device)
+        else:
+            idx = b if bs == 1 else fw_grad.block_indices(b, bs) % p
+        raw = -(Xt.index_select(0, idx) @ w[lane].clone())
+        j = torch.argmax(torch.abs(raw))
+        return take(idx, j), take(raw, j)
+
+    i_star, g = _plain_vertex_lanes(torch_vertex, L, active, Xt.device, Xt.dtype)
+    return i_star, g, n_scored
+
+
+def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
+                    i_star, g, deltas, cfg: FWConfig, lanes: torch.Tensor):
+    """``step_tail`` for L lanes (``beta (L, p)`` in place, ``resid (L, m)``,
+    ``(L,)`` scalars, winners, scores and deltas): one launch of
+    ``kernels/step_tail``'s lane kernel where the backend runs the kernels,
+    its plain version (the one-lane plain tail once per lane) otherwise.
+    Lanes not in ``lanes`` keep their state. Returns ``(beta, scale,
+    maxabs, step_inf, stall, resid, s_quad, f_lin)``, lane-stacked."""
+    mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
+    tail = _step_tail.step_tail_lanes if use_kernels(cfg) else _step_tail.step_tail_lanes_plain
+    return tail(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, stats.zty,
+                stats.znorm2, i_star, g, deltas, lanes, cfg)
 
 
 # --------------------------------------------------------------------------

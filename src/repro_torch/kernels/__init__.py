@@ -13,6 +13,9 @@ fused_step:       K4 and K7, K fused FW iterations per launch on the dense
 sparse_grad:      K5, sampled scores over the block-ELL layout
 sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
 
+K2's scores and argmax, the step's tail and K5 also take L delta lanes in
+one launch (``*_lanes``, the batched engine's), each with a count of its own.
+
 The CUDA sources are in ``csrc/`` and build on first use (``_build``).
 """
 from repro_torch.kernels import (
@@ -36,6 +39,10 @@ _WRAPPERS = {
     "sparse_sampled_scores": sparse_grad.sparse_sampled_scores,
     "sparse_colstats": sparse_colstats.sparse_colstats,
     "sparse_fused_chunk": fused_step.sparse_fused_chunk,
+    "sampled_scores_lanes": fw_grad.sampled_scores_lanes,
+    "vertex_argmax_lanes": fw_grad.vertex_argmax_lanes,
+    "step_tail_lanes": step_tail.step_tail_lanes,
+    "sparse_sampled_scores_lanes": sparse_grad.sparse_sampled_scores_lanes,
 }
 
 

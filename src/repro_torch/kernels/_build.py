@@ -134,5 +134,21 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+_no_lanes: Dict[int, torch.Tensor] = {}  # device index -> a 1-entry int32 buffer
+
+
+def lane_ids_arg(lanes: torch.Tensor):
+    """``(pointer, count)`` of the lane ids a lane kernel takes. No lane (every
+    lane frozen) still passes a valid pointer, with count 0: a null pointer
+    means a one-lane launch to the C entry points."""
+    if lanes.numel():
+        return lanes.data_ptr(), lanes.numel()
+    buf = _no_lanes.get(lanes.device.index)
+    if buf is None:
+        buf = _no_lanes[lanes.device.index] = torch.zeros(1, dtype=torch.int32,
+                                                          device=lanes.device)
+    return buf.data_ptr(), 0
+
+
 def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream

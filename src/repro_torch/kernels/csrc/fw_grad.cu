@@ -2,16 +2,32 @@
 // Pallas kernel at src/repro/kernels/fw_grad/fw_grad.py:79; vertex_argmax
 // replaces the XLA argmax of fw_vertex (src/repro/kernels/fw_grad/ops.py:27).
 // See kernels/fw_grad.py for the bound and the design.
+//
+// Both kernels carry a lane axis (batched delta lanes, the counterpart of
+// the reference's vmapped pallas_call) in their LANES instantiation:
+// blockIdx.y runs lane lane_ids[blockIdx.y], whose operands lie a stride of
+// elements past lane 0's (a stride of 0 shares an operand among the
+// lanes). A lane's blocks compute exactly what a one-lane launch on that
+// lane's operands computes, so each lane's result has its bits. The
+// one-lane instantiation compiles none of the lane code.
 #include "common.cuh"
 
 // scores[j] = -Xt[row_j] . r, row_j = blk[j / bs] * bs + j % bs, one warp per
 // sampled row (warp_row_score: a row outside [0, p) scores 0).
-template <typename T>
+template <typename T, bool LANES>
 __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __restrict__ r,
                                       const long long* __restrict__ blk,
                                       float* __restrict__ scores, long long p, int m,
-                                      long long n, int bs, int staged, int vec) {
+                                      long long n, int bs, int staged, int vec,
+                                      const int* __restrict__ lane_ids, long long r_stride,
+                                      long long blk_stride, long long sc_stride) {
   extern __shared__ __align__(16) float rs[];
+  if constexpr (LANES) {
+    const long long ln = lane_ids[blockIdx.y];
+    r += ln * r_stride;
+    blk += ln * blk_stride;
+    scores += ln * sc_stride;
+  }
   const float* v = r;
   if (staged) {
     stage(rs, r, m);
@@ -49,6 +65,13 @@ __device__ __forceinline__ void block_best(float& best, long long& bj) {
   __syncthreads();  // sb, sj free for the next call
 }
 
+// Whether lane l is one of the n listed lane ids.
+__device__ __forceinline__ bool lane_listed(const int* __restrict__ lane_ids, int n, int l) {
+  for (int k = 0; k < n; ++k)
+    if (lane_ids[k] == l) return true;
+  return false;
+}
+
 // i_star = the global index of the first max of |scores| (indices >=
 // p_valid masked to -1), g_star = its score. Block b reduces the scores
 // [b * chunk, (b + 1) * chunk) (chunk a multiple of 4) in quads of 4, 16
@@ -58,12 +81,39 @@ __device__ __forceinline__ void block_best(float& best, long long& bj) {
 // to finish (a ticket from `done`) reduces the partials under `better` and
 // resets `done` to 0 for the next launch. `better` is a total order on
 // (value, position), so the result does not depend on which block is last.
+// With lanes, row y < n_run of the grid reduces lane lane_ids[y] with its
+// own ticket done[y] and partials; block (0, 0) also writes i_star = -1
+// and g_star = 0 for each of the n_lanes lanes that is not listed (a
+// frozen lane, whose blocks are not launched; n_run 0: a grid of one block
+// that only does that).
+template <bool LANES>
 __global__ void __launch_bounds__(AM_THREADS)
 vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restrict__ blk,
                      long long n, int bs, long long p_valid, long long chunk, int vec,
                      float* part_best, long long* part_j, unsigned int* done,
-                     long long* __restrict__ i_star, float* __restrict__ g_star) {
+                     long long* __restrict__ i_star, float* __restrict__ g_star,
+                     const int* __restrict__ lane_ids, int n_run, int n_lanes,
+                     long long sc_stride, long long blk_stride) {
   __shared__ bool last;
+  if constexpr (LANES) {
+    if (blockIdx.x == 0 && blockIdx.y == 0) {
+      for (int l = threadIdx.x; l < n_lanes; l += AM_THREADS) {
+        if (!lane_listed(lane_ids, n_run, l)) {
+          i_star[l] = -1;
+          g_star[l] = 0.f;
+        }
+      }
+    }
+    if ((int)blockIdx.y >= n_run) return;
+    const long long ln = lane_ids[blockIdx.y];
+    scores += ln * sc_stride;
+    blk += ln * blk_stride;
+    part_best += (size_t)blockIdx.y * gridDim.x;
+    part_j += (size_t)blockIdx.y * gridDim.x;
+    done += blockIdx.y;
+    i_star += ln;
+    g_star += ln;
+  }
   const long long j0 = blockIdx.x * chunk;
   const long long j1 = j0 + chunk < n ? j0 + chunk : n;
   constexpr long long STRIDE = 4 * AM_THREADS;
@@ -136,42 +186,83 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
   }
 }
 
+template <typename T>
+static void launch_scores(const void* X, const float* r, const long long* blk, float* scores,
+                          long long p, int m, long long n, int bs, int staged,
+                          const int* lane_ids, long long r_stride, long long blk_stride,
+                          long long sc_stride, dim3 grid, int threads, size_t smem,
+                          cudaStream_t s) {
+  const int vec = staged && rows_vectorizable<T>(X, m);
+  if (lane_ids == nullptr)
+    sampled_scores_kernel<T, false><<<grid, threads, smem, s>>>(
+        static_cast<const T*>(X), r, blk, scores, p, m, n, bs, staged, vec, nullptr, 0, 0, 0);
+  else
+    sampled_scores_kernel<T, true><<<grid, threads, smem, s>>>(
+        static_cast<const T*>(X), r, blk, scores, p, m, n, bs, staged, vec, lane_ids, r_stride,
+        blk_stride, sc_stride);
+}
+
+// lane_ids == nullptr: one lane (the strides unused); otherwise n_run
+// lanes, row y of the grid scoring lane lane_ids[y] of r (a row every
+// r_stride floats), blk (every blk_stride ids; 0: shared) and scores
+// (every sc_stride floats).
 extern "C" int sampled_scores_launch(const void* X, const float* r, const long long* blk,
                                      float* scores, long long p, int m, long long n, int bs,
-                                     int dtype, void* stream) {
+                                     const int* lane_ids, int n_run, long long r_stride,
+                                     long long blk_stride, long long sc_stride, int dtype,
+                                     void* stream) {
   const int threads = 256;
   const int rows_per_block = threads / 32;
   const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (n_run < 0 || n_run > 65535 || (lane_ids == nullptr && n_run != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n_run == 0) return (int)cudaSuccess;  // every lane frozen: nothing to score
+  const dim3 grid((unsigned)blocks, (unsigned)n_run);
   const int staged = (size_t)m * sizeof(float) <= STAGE_LIMIT_BYTES;
   const size_t smem = staged ? (size_t)m * sizeof(float) : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) {
-    const int vec = staged && rows_vectorizable<float>(X, m);
-    sampled_scores_kernel<float><<<(unsigned)blocks, threads, smem, s>>>(
-        static_cast<const float*>(X), r, blk, scores, p, m, n, bs, staged, vec);
+    launch_scores<float>(X, r, blk, scores, p, m, n, bs, staged, lane_ids, r_stride, blk_stride,
+                         sc_stride, grid, threads, smem, s);
   } else if (dtype == DT_BF16) {
-    const int vec = staged && rows_vectorizable<__nv_bfloat16>(X, m);
-    sampled_scores_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(X), r, blk, scores, p, m, n, bs, staged, vec);
+    launch_scores<__nv_bfloat16>(X, r, blk, scores, p, m, n, bs, staged, lane_ids, r_stride,
+                                 blk_stride, sc_stride, grid, threads, smem, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// scratch: the ticket counters (u32, 0 between launches), one a lane for
+// lane_cap lanes, in whole 16-byte units; then lane_cap * blocks partial
+// positions (int64) and as many partial values (f32). lane_ids ==
+// nullptr: one lane (n_run 1, the strides unused); otherwise row y of the
+// grid reduces lane lane_ids[y] of the n_lanes (scores every sc_stride
+// floats, a multiple of 4; blk every blk_stride ids, 0: shared).
 extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, long long n,
                                     int bs, long long p_valid, int blocks, long long chunk,
-                                    void* scratch, long long* i_star, float* g_star,
-                                    void* stream) {
-  // scratch: the ticket counter (u32, 0 between launches) in its own 16
-  // bytes, then the partials' positions (int64) and values (f32)
+                                    void* scratch, int lane_cap, long long* i_star,
+                                    float* g_star, const int* lane_ids, int n_run, int n_lanes,
+                                    long long sc_stride, long long blk_stride, void* stream) {
   if (blocks < 1 || chunk % 4 != 0 || (blocks - 1) * chunk >= n || blocks * chunk < n)
     return (int)cudaErrorInvalidValue;
+  if (n_run < 0 || n_run > lane_cap || n_run > 65535 || (lane_ids == nullptr && n_run != 1) ||
+      (lane_ids != nullptr && (n_lanes < n_run || sc_stride % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
   unsigned int* done = static_cast<unsigned int*>(scratch);
-  long long* part_j = reinterpret_cast<long long*>(static_cast<char*>(scratch) + 16);
-  float* part_best = reinterpret_cast<float*>(part_j + blocks);
+  long long* part_j =
+      reinterpret_cast<long long*>(static_cast<char*>(scratch) + 16 * ((lane_cap + 3) / 4));
+  float* part_best = reinterpret_cast<float*>(part_j + (size_t)lane_cap * blocks);
   const int vec = reinterpret_cast<uintptr_t>(scores) % 16 == 0;
-  vertex_argmax_kernel<<<blocks, AM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star);
+  const dim3 grid(n_run > 0 ? blocks : 1, n_run > 0 ? n_run : 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_ids == nullptr)
+    vertex_argmax_kernel<false><<<grid, AM_THREADS, 0, s>>>(
+        scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star,
+        nullptr, 1, 1, 0, 0);
+  else
+    vertex_argmax_kernel<true><<<grid, AM_THREADS, 0, s>>>(
+        scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star,
+        lane_ids, n_run, n_lanes, sc_stride, blk_stride);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,27 @@
 // kernel at src/repro/kernels/sparse_grad/sparse_grad.py:87, entry
 // sparse_sampled_scores at :64). See kernels/sparse_grad.py for the bound
 // and the design.
+//
+// Both kernels carry a lane axis (batched delta lanes) in their LANES
+// instantiation: row y of the grid scores lane lane_ids[y], whose
+// residual, ids and scores lie a stride past lane 0's; the values and rows
+// are shared. A feature's score does not depend on which warp or block
+// computes it, so each lane's scores have the bits of a one-lane launch on
+// its inputs. The one-lane instantiation compiles none of the lane code.
 #include "common.cuh"
+
+// The lanes of a launch: the ids of the lanes that run and their operands'
+// strides (unused by a one-lane launch).
+struct LaneArgs {
+  const int* lane_ids;
+  long long r_stride, blk_stride, sc_stride;
+};
+
+// One 4-byte asynchronous copy (sm_80's cp.async), for a source that is
+// not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
 
 constexpr int SG_THREADS = 512;
 
@@ -18,13 +38,19 @@ __device__ __forceinline__ long long sampled_feature(const long long* __restrict
 // (warp_slot_score: a feature outside [0, n_feat) scores 0). A persistent
 // grid: each block stages r once (when it fits), then its warps stride
 // over the sampled features.
-template <typename T>
+template <typename T, bool LANES>
 __global__ void __launch_bounds__(SG_THREADS)
 sparse_sampled_scores_kernel(const T* __restrict__ values, const int* __restrict__ rows,
                              const float* __restrict__ r, const long long* __restrict__ blk,
                              float* __restrict__ scores, long long n, int bs, int nnz_max,
-                             long long n_feat, int m, int staged) {
+                             long long n_feat, int m, int staged, LaneArgs lanes) {
   extern __shared__ __align__(16) float rs[];
+  if constexpr (LANES) {  // this block's lane's operands
+    const long long l = lanes.lane_ids[blockIdx.y];
+    r += l * lanes.r_stride;
+    blk += l * lanes.blk_stride;
+    scores += l * lanes.sc_stride;
+  }
   const float* v = r;
   if (staged) {
     stage(rs, r, m);
@@ -54,23 +80,35 @@ struct SampledIds {  // feature f of a warp's run: the sampled feature of positi
   }
 };
 
-template <int NT>
+template <int NT, bool LANES>
 __global__ void __launch_bounds__(1024, 1)
 sparse_ring_scores_kernel(const float* __restrict__ values, const int* __restrict__ rows,
                           const float* __restrict__ r, const long long* __restrict__ blk,
                           float* __restrict__ scores, long long n_total, int bs, int nnz_max,
-                          long long n_feat, int m, int stride) {
+                          long long n_feat, int m, int stride, LaneArgs lanes) {
   extern __shared__ __align__(16) float smem[];
+  if constexpr (LANES) {  // this block's lane's operands
+    const long long l = lanes.lane_ids[blockIdx.y];
+    r += l * lanes.r_stride;
+    blk += l * lanes.blk_stride;
+    scores += l * lanes.sc_stride;
+  }
   const int tid = threadIdx.x, warp = tid >> 5;
   const long long nw = (long long)gridDim.x * RING_WARPS;
   const long long gw = (long long)blockIdx.x * RING_WARPS + warp;
   const long long lo = gw * n_total / nw;
   const int n = (int)((gw + 1) * n_total / nw - lo);
   // the residual by 16-byte cp.async, one group committed before the ring's
-  // (the prologue's first wait completes it); zero-filled past m
+  // (the prologue's first wait completes it); zero-filled past m. A lane's
+  // residual past lane 0 may not start on 16 bytes (m odd): 4-byte copies.
   float* rs = smem;
-  for (int c = tid; c < (m + 3) / 4; c += 1024)
-    cp_async16_n(rs + 4 * c, r + 4 * c, 4 * min(4, m - 4 * c));
+  if (!LANES || reinterpret_cast<uintptr_t>(r) % 16 == 0) {
+    for (int c = tid; c < (m + 3) / 4; c += 1024)
+      cp_async16_n(rs + 4 * c, r + 4 * c, 4 * min(4, m - 4 * c));
+  } else {
+    for (int k = tid; k < m; k += 1024) cp_async4(rs + k, r + k);
+    if (tid < ((m + 3) & ~3) - m) rs[m + tid] = 0.f;
+  }
   cp_async_commit();
   SlotRing<NT, SampledIds> ring(values, rows, n_feat, nnz_max, stride, smem + ((m + 3) & ~3),
                                 SampledIds{blk, lo, bs}, n, 1);
@@ -84,20 +122,30 @@ sparse_ring_scores_kernel(const float* __restrict__ values, const int* __restric
   cp_async_wait<0>();
 }
 
-template <typename T>
+// A lane's blocks when n_run lanes share a resident grid of `resident`
+// blocks: an equal share of it, at least one, and no more than the
+// `needed` of one lane (one lane: min(needed, resident), as before).
+static int lane_share(int resident, long long needed, int n_run) {
+  const int share = resident / n_run < 1 ? 1 : resident / n_run;
+  return (int)(needed < share ? needed : share);
+}
+
+template <typename T, bool LANES>
 static int launch_warps(const void* values, const int* rows, const float* r,
                         const long long* blk, float* scores, long long n, int bs, int nnz_max,
-                        long long n_feat, int m, cudaStream_t s) {
+                        long long n_feat, int m, LaneArgs lanes, int n_run, cudaStream_t s) {
   static GridCache cache;
   const int staged = (size_t)m * sizeof(float) <= OPTIN_SMEM_BYTES;
   const size_t smem = staged ? (size_t)m * sizeof(float) : 0;
   const long long needed = (n + SG_THREADS / 32 - 1) / (SG_THREADS / 32);
   int blocks = 0;
-  cudaError_t err = resident_grid(sparse_sampled_scores_kernel<T>, SG_THREADS, smem, needed,
-                                  &cache, &blocks);
+  cudaError_t err = resident_grid(sparse_sampled_scores_kernel<T, LANES>, SG_THREADS, smem,
+                                  LLONG_MAX, &cache, &blocks);
   if (err != cudaSuccess) return (int)err;
-  sparse_sampled_scores_kernel<T><<<blocks, SG_THREADS, smem, s>>>(
-      static_cast<const T*>(values), rows, r, blk, scores, n, bs, nnz_max, n_feat, m, staged);
+  blocks = lane_share(blocks, needed, n_run);
+  sparse_sampled_scores_kernel<T, LANES><<<dim3(blocks, n_run), SG_THREADS, smem, s>>>(
+      static_cast<const T*>(values), rows, r, blk, scores, n, bs, nnz_max, n_feat, m, staged,
+      lanes);
   return (int)cudaGetLastError();
 }
 
@@ -105,24 +153,29 @@ static int launch_warps(const void* values, const int* rows, const float* r,
 // which is not worth it for fewer.
 constexpr long long RING_FEATURES_PER_BLOCK = RING_WARPS * 8;
 
+template <bool LANES>
 static int launch_ring(const float* values, const int* rows, const float* r,
                        const long long* blk, float* scores, long long n, int bs, int nnz_max,
-                       long long n_feat, int m, int slots, int stride, cudaStream_t s) {
+                       long long n_feat, int m, int slots, int stride, LaneArgs lanes,
+                       int n_run, cudaStream_t s) {
   static GridCache caches[4];
   if (!ring_plan_ok(nnz_max, slots, stride)) return (int)cudaErrorInvalidValue;
   const size_t smem = ring_smem_bytes(m, stride);
   if (smem > OPTIN_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const int nt = (slots + 31) / 32;
-  const void* kernels[] = {(const void*)sparse_ring_scores_kernel<1>,
-                           (const void*)sparse_ring_scores_kernel<2>,
-                           (const void*)sparse_ring_scores_kernel<3>,
-                           (const void*)sparse_ring_scores_kernel<4>};
+  const void* kernels[] = {(const void*)sparse_ring_scores_kernel<1, LANES>,
+                           (const void*)sparse_ring_scores_kernel<2, LANES>,
+                           (const void*)sparse_ring_scores_kernel<3, LANES>,
+                           (const void*)sparse_ring_scores_kernel<4, LANES>};
   const long long needed = (n + RING_FEATURES_PER_BLOCK - 1) / RING_FEATURES_PER_BLOCK;
   int blocks = 0;
-  cudaError_t err = resident_grid(kernels[nt - 1], 1024, smem, needed, &caches[nt - 1], &blocks);
+  cudaError_t err =
+      resident_grid(kernels[nt - 1], 1024, smem, LLONG_MAX, &caches[nt - 1], &blocks);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&values, &rows, &r, &blk, &scores, &n, &bs, &nnz_max, &n_feat, &m, &stride};
-  err = cudaLaunchKernel(kernels[nt - 1], dim3(blocks), dim3(1024), args, smem, s);
+  blocks = lane_share(blocks, needed, n_run);
+  void* args[] = {&values, &rows, &r,      &blk,    &scores, &n,    &bs,
+                  &nnz_max, &n_feat, &m, &stride, &lanes};
+  err = cudaLaunchKernel(kernels[nt - 1], dim3(blocks, n_run), dim3(1024), args, smem, s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it again
     return (int)err;
@@ -131,22 +184,42 @@ static int launch_ring(const float* values, const int* rows, const float* r,
 }
 
 // depth 0: the warp-per-feature kernel; otherwise the ring kernel of
-// `slots`-slot pieces a `stride` apart (f32 values only).
+// `slots`-slot pieces a `stride` apart (f32 values only). lane_ids ==
+// nullptr: one lane (n_run 1, the strides unused); otherwise row y of the
+// grid scores lane lane_ids[y]: r every r_stride floats, blk every
+// blk_stride ids (0: shared), scores every sc_stride floats.
 extern "C" int sparse_sampled_scores_launch(const void* values, const int* rows, const float* r,
                                             const long long* blk, float* scores, long long n,
                                             int bs, int nnz_max, long long n_feat, int m,
-                                            int depth, int slots, int stride, int dtype,
+                                            int depth, int slots, int stride,
+                                            const int* lane_ids, int n_run, long long r_stride,
+                                            long long blk_stride, long long sc_stride, int dtype,
                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_run < 0 || n_run > 65535 || (lane_ids == nullptr && n_run != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n_run == 0) return (int)cudaSuccess;  // every lane frozen: nothing to score
+  const LaneArgs lanes{lane_ids, r_stride, blk_stride, sc_stride};
   if (depth != 0) {
     if (depth != RING_DEPTH || dtype != DT_F32 || n > INT_MAX) return (int)cudaErrorInvalidValue;
-    return launch_ring(static_cast<const float*>(values), rows, r, blk, scores, n, bs, nnz_max,
-                       n_feat, m, slots, stride, s);
+    const float* v = static_cast<const float*>(values);
+    return lane_ids == nullptr
+               ? launch_ring<false>(v, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, slots,
+                                    stride, lanes, n_run, s)
+               : launch_ring<true>(v, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, slots,
+                                   stride, lanes, n_run, s);
   }
   if (dtype == DT_F32)
-    return launch_warps<float>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, s);
+    return lane_ids == nullptr
+               ? launch_warps<float, false>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat,
+                                            m, lanes, n_run, s)
+               : launch_warps<float, true>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat,
+                                           m, lanes, n_run, s);
   if (dtype == DT_BF16)
-    return launch_warps<__nv_bfloat16>(values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m,
-                                       s);
+    return lane_ids == nullptr
+               ? launch_warps<__nv_bfloat16, false>(values, rows, r, blk, scores, n, bs, nnz_max,
+                                                    n_feat, m, lanes, n_run, s)
+               : launch_warps<__nv_bfloat16, true>(values, rows, r, blk, scores, n, bs, nnz_max,
+                                                   n_feat, m, lanes, n_run, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,14 @@
 // on the path (replaces the Pallas kernel at
 // src/repro/kernels/residual_update/residual_update.py:45 there). See
 // kernels/step_tail.py for the bound and the design.
+//
+// A lane axis (batched delta lanes, the LANES instantiation): blockIdx.y
+// is the lane, whose beta, residual, output residual and scalars lie a
+// stride past lane 0's (X, y and the column statistics are shared). A
+// lane listed in lane_ids runs the step exactly as a one-lane launch on
+// its operands; any other lane (frozen) copies its residual and scalars to
+// the outputs and leaves beta alone, so its state is kept bit for bit. The
+// one-lane instantiation compiles none of the lane code.
 #include "common.cuh"
 
 constexpr int ST_THREADS = 1024;
@@ -36,7 +44,49 @@ struct TailArgs {
   T* __restrict__ r_out;         // (m,) the new residual
   T* __restrict__ s_out;         // (5,) scale, maxabs, step_inf, S, F
   int* __restrict__ stall_out;
+  // lanes: null for one lane; else the n_run lanes that step. Lane l's
+  // beta, resid and r_out start l * p, l * m and l * m elements in, its
+  // scalars, i_star, g and delta are entry l of (L,) arrays, and its
+  // outputs s_out[f * L + l] (field f) and stall_out[l].
+  const int* __restrict__ lane_ids;
+  int n_run;
+  const T* __restrict__ step_inf;  // (L,) a frozen lane's step_inf, copied out
 };
+
+// Point `a` at lane l's operands.
+template <typename T>
+__device__ __forceinline__ void select_lane(TailArgs<T>& a, int l) {
+  a.beta += (long long)l * a.p;
+  a.scale += l;
+  a.maxabs += l;
+  a.stall += l;
+  a.s_quad += l;
+  a.f_lin += l;
+  a.resid += (long long)l * a.m;
+  a.i_star += l;
+  a.g += l;
+  a.delta += l;
+  a.r_out += (long long)l * a.m;
+  a.s_out += l;
+  a.stall_out += l;
+  a.step_inf += l;
+}
+
+// A frozen lane: its residual rows of this block and (block 0) its scalars
+// copied to the outputs unchanged.
+template <typename T>
+__device__ void frozen_lane(const TailArgs<T>& a, int lo, int hi) {
+  for (int k = lo + threadIdx.x; k < hi; k += ST_THREADS) a.r_out[k] = a.resid[k];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int L = gridDim.y;
+    a.s_out[0] = *a.scale;
+    a.s_out[L] = *a.maxabs;
+    a.s_out[2 * L] = *a.step_inf;
+    a.s_out[3 * L] = *a.s_quad;
+    a.s_out[4 * L] = *a.f_lin;
+    *a.stall_out = *a.stall;
+  }
+}
 
 // thread 0's scalars, handed to its block
 struct TailShared {
@@ -49,12 +99,23 @@ struct TailShared {
 // thread 0 computes the same scalars from the inputs; block 0 alone writes
 // the coefficient, the statistics and S, F. Every load a thread needs is
 // issued before the barrier that hands it the scalars.
-template <typename T, bool SPARSE>
+template <typename T, bool SPARSE, bool LANES>
 __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   __shared__ TailShared sh;
   const int tid = threadIdx.x;
-  const long long i = *a.i_star;
   const int lo = blockIdx.x * ST_ROWS, hi = min(a.m, lo + ST_ROWS);
+  const int L = LANES ? gridDim.y : 1;  // s_out's field stride
+  if constexpr (LANES) {
+    const int l = blockIdx.y;
+    bool listed = false;
+    for (int k = 0; k < a.n_run; ++k) listed |= a.lane_ids[k] == l;
+    select_lane(a, l);
+    if (!listed) {
+      frozen_lane(a, lo, hi);
+      return;
+    }
+  }
+  const long long i = *a.i_star;
 
   // ---- loads: this thread's rows of the residual and y (and the winner's
   // row), and, sparse, one slot of the winner with its row's inputs --------
@@ -174,10 +235,10 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
                step_inf, stall);
     sf_recursion(S, F, ls.g_lin, lam, dt, zty, zn2);
     a.s_out[0] = from_f32<T>(sc);
-    a.s_out[1] = from_f32<T>(maxabs);
-    a.s_out[2] = from_f32<T>(step_inf);
-    a.s_out[3] = from_f32<T>(S);
-    a.s_out[4] = from_f32<T>(F);
+    a.s_out[L] = from_f32<T>(maxabs);
+    a.s_out[2 * L] = from_f32<T>(step_inf);
+    a.s_out[3 * L] = from_f32<T>(S);
+    a.s_out[4 * L] = from_f32<T>(F);
     *a.stall_out = stall;
   }
   if (SPARSE && blockIdx.x == 0) {
@@ -196,7 +257,8 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                   const void* f_lin, const void* resid, const void* y, const void* zty,
                   const void* zn2, const long long* i_star, const float* g, const float* delta,
                   int m, float renorm_threshold, float eps_den, float gap_rtol, float tol,
-                  void* r_out, void* s_out, int* stall_out, cudaStream_t s) {
+                  void* r_out, void* s_out, int* stall_out, const int* lane_ids, int n_run,
+                  int n_lanes, const void* step_inf, cudaStream_t s) {
   TailArgs<T> a{static_cast<const T*>(X),      rows,
                 nnz_max,                       static_cast<T*>(beta),
                 p,                             static_cast<const T*>(scale),
@@ -209,18 +271,31 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                 renorm_threshold,              eps_den,
                 gap_rtol,                      tol,
                 static_cast<T*>(r_out),        static_cast<T*>(s_out),
-                stall_out};
+                stall_out,                     lane_ids,
+                n_run,                         static_cast<const T*>(step_inf)};
   if (m < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (m + ST_ROWS - 1) / ST_ROWS;
-  if (rows != nullptr)
-    step_tail_kernel<T, true><<<blocks, ST_THREADS, 0, s>>>(a);
-  else
-    step_tail_kernel<T, false><<<blocks, ST_THREADS, 0, s>>>(a);
+  if (lane_ids == nullptr ? n_lanes != 1
+                          : n_lanes < 1 || n_lanes > 65535 || n_run < 0 || n_run > n_lanes ||
+                                step_inf == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + ST_ROWS - 1) / ST_ROWS, n_lanes);
+  if (lane_ids == nullptr) {
+    if (rows != nullptr)
+      step_tail_kernel<T, true, false><<<grid, ST_THREADS, 0, s>>>(a);
+    else
+      step_tail_kernel<T, false, false><<<grid, ST_THREADS, 0, s>>>(a);
+  } else if (rows != nullptr) {
+    step_tail_kernel<T, true, true><<<grid, ST_THREADS, 0, s>>>(a);
+  } else {
+    step_tail_kernel<T, false, true><<<grid, ST_THREADS, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
 // rows == nullptr: the dense layout (X is Xt (p, m)); otherwise X and rows
-// are the block-ELL arrays, nnz_max slots a feature.
+// are the block-ELL arrays, nnz_max slots a feature. lane_ids == nullptr:
+// one lane (n_lanes 1; n_run and step_inf unused); otherwise n_lanes lanes
+// of which the n_run listed ones step (see TailArgs).
 extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, void* beta,
                                 long long p, const void* scale, const void* maxabs,
                                 const int* stall, const void* s_quad, const void* f_lin,
@@ -228,15 +303,17 @@ extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, voi
                                 const void* zn2, const long long* i_star, const float* g,
                                 const float* delta, int m, float renorm_threshold,
                                 float eps_den, float gap_rtol, float tol, void* r_out,
-                                void* s_out, int* stall_out, int dtype, void* stream) {
+                                void* s_out, int* stall_out, const int* lane_ids, int n_run,
+                                int n_lanes, const void* step_inf, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
     return launch<float>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid,
                          y, zty, zn2, i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol,
-                         tol, r_out, s_out, stall_out, s);
+                         tol, r_out, s_out, stall_out, lane_ids, n_run, n_lanes, step_inf, s);
   if (dtype == DT_BF16)
     return launch<__nv_bfloat16>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin,
                                  resid, y, zty, zn2, i_star, g, delta, m, renorm_threshold,
-                                 eps_den, gap_rtol, tol, r_out, s_out, stall_out, s);
+                                 eps_den, gap_rtol, tol, r_out, s_out, stall_out, lane_ids, n_run,
+                                 n_lanes, step_inf, s);
   return (int)cudaErrorInvalidValue;
 }

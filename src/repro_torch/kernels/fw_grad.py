@@ -43,6 +43,24 @@ The result stays in device memory. The partials and the counter live in
 a scratch buffer allocated once per device and reused by every launch in
 stream order: two streams must not run ``vertex_argmax`` on one device
 at once.
+
+Lanes (``sampled_scores_lanes``, ``vertex_argmax_lanes``): L delta lanes
+of the batched engine in one launch each, the counterpart of the
+reference's vmapped ``pallas_call`` under ``jax.vmap`` of its step
+(``src/repro/core/engine.py:721-736``). The grid gains a second axis,
+one row of blocks for each lane in ``lanes`` (an int32 list of the lanes
+that step; a frozen lane launches no block). A lane's blocks run exactly
+the one-lane launch on its operands: the scores stage their lane's
+residual and read its sampled ids (``blk (L, nb)``, or one ``(nb,)``
+shared by the lanes, 'full' sampling), the argmax has a ticket and
+partials of its own for each lane in the scratch buffer. So each lane's
+scores and winner have the bits of the one-lane launch. A lane not in
+``lanes`` gets ``i_star = -1`` and ``g_star = 0``; its scores are not
+written. The scores of the lanes are one ``(L, n4)`` buffer, n rounded
+up to 4 so that every lane's row starts on 16 bytes, returned as the
+``(L, n)`` view. Bound: L_active * n * m * itemsize + L * m * 4 + L * n *
+12 bytes for the scores (13 lanes at the paper's size: 1.777 GB, 0.53 ms
+at 3.35 TB/s); L times the one-lane bytes for the argmax.
 """
 from __future__ import annotations
 
@@ -54,14 +72,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.padding import pad_rows
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (X, r, blk, scores, p, m, n, bs, dtype, stream)
-_SCORES_ARGTYPES = [_PTR] * 4 + [_I64, _I32, _I64, _I32, _I32, _PTR]
-# (scores, blk, n, bs, p_valid, blocks, chunk, scratch, i_star, g_star, stream)
-_ARGMAX_ARGTYPES = [_PTR, _PTR, _I64, _I32, _I64, _I32, _I64, _PTR, _PTR, _PTR, _PTR]
+# (X, r, blk, scores, p, m, n, bs, lane_ids, n_run, r_stride, blk_stride, sc_stride, dtype,
+#  stream)
+_SCORES_ARGTYPES = [_PTR] * 4 + [_I64, _I32, _I64, _I32, _PTR, _I32] + [_I64] * 3 + [_I32, _PTR]
+# (scores, blk, n, bs, p_valid, blocks, chunk, scratch, lane_cap, i_star, g_star, lane_ids,
+#  n_run, n_lanes, sc_stride, blk_stride, stream)
+_ARGMAX_ARGTYPES = ([_PTR, _PTR, _I64, _I32, _I64, _I32, _I64, _PTR, _I32, _PTR, _PTR, _PTR]
+                    + [_I32, _I32, _I64, _I64, _PTR])
 ARGMAX_THREADS = 256  # AM_THREADS of csrc/fw_grad.cu
 ARGMAX_PER_THREAD = 8  # scores a thread, below the cap
 ARGMAX_BLOCKS_PER_SM = 2
-_scratch = {}  # device index -> (the argmax's scratch buffer, SM count)
+_scratch = {}  # device index -> (the argmax's scratch buffer, SM count, lanes it holds)
 
 
 def argmax_grid(n: int, sms: int):
@@ -75,15 +96,24 @@ def argmax_grid(n: int, sms: int):
     return -(-n // chunk), chunk
 
 
-def _argmax_scratch(dev: torch.device):
-    """The device's scratch buffer (16 bytes for the ticket counter, zero
-    between launches, then room for the partials of the largest grid) and
-    its SM count."""
+def argmax_scratch_bytes(lanes: int, sms: int) -> int:
+    """The argmax's scratch for ``lanes`` lanes on a card of ``sms`` SMs: a
+    ticket counter a lane (u32, zero between launches) in whole 16-byte
+    units, then each lane's partials (int64 position, f32 value) for the
+    largest grid."""
+    return 16 * -(-lanes // 4) + 12 * lanes * ARGMAX_BLOCKS_PER_SM * sms
+
+
+def _argmax_scratch(dev: torch.device, lanes: int = 1):
+    """The device's scratch buffer for at least ``lanes`` lanes, its SM count
+    and the lanes it holds. A larger lane count replaces the buffer with a
+    zeroed one (stream-ordered, as every launch that used the old one)."""
     got = _scratch.get(dev.index)
-    if got is None:
+    if got is None or got[2] < lanes:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        buf = torch.zeros(16 + 12 * ARGMAX_BLOCKS_PER_SM * sms, dtype=torch.uint8, device=dev)
-        got = _scratch[dev.index] = (buf, sms)
+        cap = max(lanes, 1)
+        buf = torch.zeros(argmax_scratch_bytes(cap, sms), dtype=torch.uint8, device=dev)
+        got = _scratch[dev.index] = (buf, sms, cap)
     return got
 
 
@@ -132,7 +162,8 @@ def sampled_scores(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor, block_s
     fn = _build.function("fw_grad", "sampled_scores_launch", _SCORES_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(Xt.data_ptr(), rf.data_ptr(), blk.data_ptr(), scores.data_ptr(),
-                 p, m, n, block_size, _build.dtype_code(Xt), _build.stream(dev))
+                 p, m, n, block_size, None, 1, 0, 0, 0, _build.dtype_code(Xt),
+                 _build.stream(dev))
         sampled_scores.launches += 1
     _build.check("fw_grad", err, "sampled_scores")
     return scores
@@ -149,13 +180,13 @@ def vertex_argmax(scores: torch.Tensor, blk: torch.Tensor, block_size: int, p_va
     dev = _build.require_cuda(scores, blk)
     i_star = torch.empty((), dtype=torch.int64, device=dev)
     g_star = torch.empty((), dtype=torch.float32, device=dev)
-    scratch, sms = _argmax_scratch(dev)
+    scratch, sms, cap = _argmax_scratch(dev)
     blocks, chunk = argmax_grid(scores.numel(), sms)
     fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(scores.data_ptr(), blk.data_ptr(), scores.numel(), block_size, p_valid,
-                 blocks, chunk, scratch.data_ptr(), i_star.data_ptr(), g_star.data_ptr(),
-                 _build.stream(dev))
+                 blocks, chunk, scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
+                 None, 1, 1, 0, 0, _build.stream(dev))
         vertex_argmax.launches += 1
     _build.check("fw_grad", err, "vertex_argmax")
     return i_star, g_star
@@ -168,5 +199,121 @@ def fw_vertex(Xt, r, blk, block_size: int = 1, p_valid: int | None = None):
     return vertex_argmax(scores, blk, block_size, p_valid)
 
 
+# --------------------------------------------------------------------------
+# Lanes: one launch for L delta lanes
+# --------------------------------------------------------------------------
+
+
+def lane_list(lanes) -> list:
+    """The lanes to run, as host ints (a tensor or a sequence)."""
+    return lanes.tolist() if isinstance(lanes, torch.Tensor) else [int(x) for x in lanes]
+
+
+def lane_blk(blk: torch.Tensor, lane: int) -> torch.Tensor:
+    """Lane ``lane``'s sampled ids: its row of ``(L, nb)``, or the shared
+    ``(nb,)``."""
+    return blk if blk.dim() == 1 else blk[lane]
+
+
+def check_lanes(r, blk, lanes):
+    if r.dim() != 2 or blk.dim() not in (1, 2) or blk.shape[-1] == 0 or (
+            blk.dim() == 2 and blk.shape[0] != r.shape[0]):
+        raise ValueError(
+            f"need r (L, m) and blk (L, nb >= 1) or (nb >= 1,), got {tuple(r.shape)}, "
+            f"{tuple(blk.shape)}"
+        )
+    if lanes.dim() != 1 or lanes.dtype != torch.int32:
+        raise ValueError(f"need lanes, the int32 ids of the lanes that run, got {lanes}")
+
+
+def sampled_scores_lanes_plain(Xt, r, blk, block_size: int, lanes):
+    """The plain version: ``sampled_scores_plain`` once per listed lane, on
+    a copy of its residual row (an operand of its own, as the one-lane call
+    gets). Rows of lanes not listed are zero."""
+    n = blk.shape[-1] * block_size
+    scores = torch.zeros((r.shape[0], n), dtype=torch.float32, device=r.device)
+    for lane in lane_list(lanes):
+        scores[lane] = sampled_scores_plain(Xt, r[lane].clone(), lane_blk(blk, lane), block_size)
+    return scores
+
+
+def argmax_lanes_plain(scores, blk, block_size: int, p_valid: int, lanes):
+    """The plain version: ``argmax_plain`` once per listed lane; a lane not
+    listed gets ``(-1, 0)``."""
+    L = scores.shape[0]
+    i_star = torch.full((L,), -1, dtype=torch.int64, device=scores.device)
+    g_star = torch.zeros(L, dtype=torch.float32, device=scores.device)
+    for lane in lane_list(lanes):
+        i, g = argmax_plain(scores[lane], lane_blk(blk, lane), block_size, p_valid)
+        i_star[lane] = i
+        g_star[lane] = g
+    return i_star, g_star
+
+
+def sampled_scores_lanes(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
+                         block_size: int, lanes: torch.Tensor) -> torch.Tensor:
+    """Scores ``(L, nb * block_size)`` f32 of each listed lane's sampled
+    coordinates against its residual row ``r[lane]``, in one launch (rows
+    of lanes not listed are not written; no lane listed, no launch). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    _check(Xt, r[0], lane_blk(blk, 0))
+    check_lanes(r, blk, lanes)
+    if Xt.device.type == "cpu":
+        return sampled_scores_lanes_plain(Xt, r, blk, block_size, lanes)
+    rf = r.float().contiguous()
+    blk = blk.long().contiguous()
+    dev = _build.require_cuda(Xt, rf, blk, lanes)
+    L, m = rf.shape
+    p = Xt.shape[0]
+    n = blk.shape[-1] * block_size
+    n4 = -(-n // 4) * 4
+    scores = torch.empty((L, n4), dtype=torch.float32, device=dev)
+    if lanes.numel() == 0:
+        return scores[:, :n]
+    fn = _build.function("fw_grad", "sampled_scores_launch", _SCORES_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(Xt.data_ptr(), rf.data_ptr(), blk.data_ptr(), scores.data_ptr(), p, m, n,
+                 block_size, *_build.lane_ids_arg(lanes), m,
+                 blk.shape[1] if blk.dim() == 2 else 0, n4, _build.dtype_code(Xt),
+                 _build.stream(dev))
+        sampled_scores_lanes.launches += 1
+    _build.check("fw_grad", err, "sampled_scores_lanes")
+    return scores[:, :n]
+
+
+def vertex_argmax_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
+                        p_valid: int, lanes: torch.Tensor):
+    """``(i_star (L,), g_star (L,))`` (int64, f32) of each listed lane's
+    scores row in one launch; a lane not listed gets ``(-1, 0)``. A CPU
+    tensor takes the plain version."""
+    check_lanes(scores, blk, lanes)
+    if scores.device.type == "cpu":
+        return argmax_lanes_plain(scores, blk, block_size, p_valid, lanes)
+    blk = blk.long().contiguous()
+    L, n = scores.shape
+    if (scores.dtype != torch.float32 or n != blk.shape[-1] * block_size or scores.stride(1) != 1
+            or scores.stride(0) % 4 or scores.data_ptr() % 16):
+        raise ValueError("vertex_argmax_lanes needs f32 scores (L, nb * block_size) whose rows "
+                         "start on 16 bytes (as sampled_scores_lanes returns them)")
+    dev = _build.require_cuda(blk, lanes)
+    if scores.device != dev:
+        raise ValueError(f"kernel operands must share one CUDA device, got {scores.device}")
+    i_star = torch.empty(L, dtype=torch.int64, device=dev)
+    g_star = torch.empty(L, dtype=torch.float32, device=dev)
+    scratch, sms, cap = _argmax_scratch(dev, max(lanes.numel(), 1))
+    blocks, chunk = argmax_grid(n, sms)
+    fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid, blocks, chunk,
+                 scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
+                 *_build.lane_ids_arg(lanes), L, scores.stride(0),
+                 blk.shape[1] if blk.dim() == 2 else 0, _build.stream(dev))
+        vertex_argmax_lanes.launches += 1
+    _build.check("fw_grad", err, "vertex_argmax_lanes")
+    return i_star, g_star
+
+
 sampled_scores.launches = 0
 vertex_argmax.launches = 0
+sampled_scores_lanes.launches = 0
+vertex_argmax_lanes.launches = 0

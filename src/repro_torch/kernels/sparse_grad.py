@@ -55,6 +55,20 @@ warp-per-feature kernel, each block staging the residual once (through
 L1/L2 above 224 KB) and its warps striding over the features. Sums in f32
 from f32 or bf16 storage; a feature past the padded arrays scores 0
 without a read.
+
+Lanes (``sparse_sampled_scores_lanes``): L delta lanes of the batched
+engine in one launch, on either route. The grid gains a row of blocks for
+each lane in ``lanes`` (int32; a frozen lane launches none), each row an
+equal share of the persistent grid (one lane: the whole grid, as before),
+each block staging its own lane's residual (64 KB at m = 16,087; a lane's
+row that does not start on 16 bytes, m odd, is staged by 4-byte copies).
+A feature's score does not depend on which warp or block computes it, so
+each lane's scores have the bits of the one-lane launch. Scores are one
+``(L, n4)`` buffer, n rounded up to 4, returned as the ``(L, n)`` view.
+The ring was the route to extend rather than to replace: the change is
+the lane's offsets and its share of the grid, and the ring itself, whose
+bits ``K5_SHA256`` pins, is untouched. Bound: L_active times the one-lane
+bytes.
 """
 from __future__ import annotations
 
@@ -64,12 +78,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fw_grad import block_indices
+from repro_torch.kernels.fw_grad import check_lanes, block_indices, lane_blk, lane_list
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, depth, slots, stride, dtype,
-#  stream)
-_ARGTYPES = [_PTR] * 5 + [_I64, _I32, _I32, _I64] + [_I32] * 5 + [_PTR]
+# (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, depth, slots, stride, lane_ids,
+#  n_run, r_stride, blk_stride, sc_stride, dtype, stream)
+_ARGTYPES = ([_PTR] * 5 + [_I64, _I32, _I32, _I64] + [_I32] * 4 + [_PTR, _I32] + [_I64] * 3
+             + [_I32, _PTR])
 
 # The ring of K5 and K7 (csrc/common.cuh, SlotRing), sized by `ring_plan`
 SMEM_BYTES = 224 * 1024  # OPTIN_SMEM_BYTES of csrc/common.cuh: a block's dynamic shared memory
@@ -163,10 +178,63 @@ def sparse_sampled_scores(values: torch.Tensor, rows: torch.Tensor, r: torch.Ten
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), rows.data_ptr(), rf.data_ptr(), blk.data_ptr(),
                  scores.data_ptr(), n, block_size, nnz, nblocks * bs0, rf.numel(), pl.depth,
-                 pl.slots, pl.stride, _build.dtype_code(values), _build.stream(dev))
+                 pl.slots, pl.stride, None, 1, 0, 0, 0, _build.dtype_code(values),
+                 _build.stream(dev))
         sparse_sampled_scores.launches += 1
     _build.check("sparse_grad", err, "sparse_sampled_scores")
     return scores
 
 
+def sparse_sampled_scores_lanes_plain(values, rows, r, blk, block_size: int, lanes):
+    """The plain version: ``sparse_sampled_scores_plain`` once per listed
+    lane, on a copy of its residual row. Rows of lanes not listed are zero."""
+    n = blk.shape[-1] * block_size
+    scores = torch.zeros((r.shape[0], n), dtype=torch.float32, device=r.device)
+    for lane in lane_list(lanes):
+        scores[lane] = sparse_sampled_scores_plain(values, rows, r[lane].clone(),
+                                                   lane_blk(blk, lane), block_size)
+    return scores
+
+
+def sparse_sampled_scores_lanes(values: torch.Tensor, rows: torch.Tensor, r: torch.Tensor,
+                                blk: torch.Tensor, block_size: int,
+                                lanes: torch.Tensor) -> torch.Tensor:
+    """Scores ``(L, nb * block_size)`` f32 of each listed lane's sampled
+    features (``blk (L, nb)``, or ``(nb,)`` shared) against its residual row
+    ``r[lane]``, in one launch; rows of lanes not listed are not written. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (or raises)."""
+    _check(values, rows, r[0], lane_blk(blk, 0))
+    check_lanes(r, blk, lanes)
+    if values.device.type == "cpu":
+        return sparse_sampled_scores_lanes_plain(values, rows, r, blk, block_size, lanes)
+    if rows.dtype != torch.int32:
+        raise TypeError(f"the row slots must be int32, got {rows.dtype}")
+    rf = r.float().contiguous()
+    blk = blk.long().contiguous()
+    dev = _build.require_cuda(values, rows, rf, blk, lanes)
+    nblocks, bs0, nnz = values.shape
+    L, m = rf.shape
+    n = blk.shape[-1] * block_size
+    n4 = -(-n // 4) * 4
+    pl = scores_plan(values.dtype, m, nnz)
+    if pl.depth and (values.data_ptr() % 16 or rows.data_ptr() % 16 or rf.data_ptr() % 16):
+        raise ValueError("sparse_sampled_scores_lanes needs values, rows and r on 16-byte "
+                         "boundaries")
+    scores = torch.empty((L, n4), dtype=torch.float32, device=dev)
+    if lanes.numel() == 0:  # every lane frozen: nothing to score, no launch
+        return scores[:, :n]
+    fn = _build.function("sparse_grad", "sparse_sampled_scores_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(values.data_ptr(), rows.data_ptr(), rf.data_ptr(), blk.data_ptr(),
+                 scores.data_ptr(), n, block_size, nnz, nblocks * bs0, m, pl.depth, pl.slots,
+                 pl.stride, *_build.lane_ids_arg(lanes), m,
+                 blk.shape[1] if blk.dim() == 2 else 0, n4, _build.dtype_code(values),
+                 _build.stream(dev))
+        sparse_sampled_scores_lanes.launches += 1
+    _build.check("sparse_grad", err, "sparse_sampled_scores_lanes")
+    return scores[:, :n]
+
+
 sparse_sampled_scores.launches = 0
+sparse_sampled_scores_lanes.launches = 0

@@ -53,6 +53,16 @@ one is nonzero, so the result has the bits of the plain version's adds in
 slot order. Block 0's thread 0 updates ``beta[i_star]`` (from its value
 before the step, renormalized if need be), the stopping statistics and S,
 F, into fresh outputs.
+
+Lanes (``step_tail_lanes``): the tail of L delta lanes of the batched
+engine in one launch, a row of blocks a lane. A lane listed in ``lanes``
+runs exactly the one-lane launch on its row of ``beta`` and of the
+residual, its scalars, winner, score and delta (the renorm's share of
+``beta`` stays in the lane's row; the sparse row-0 sum is a block's, so
+a lane's); a lane not listed (frozen) copies its residual and scalars to
+the outputs and leaves ``beta`` alone, so that the engine's swap of the
+buffers keeps its state bit for bit. Bound: L times the one-lane bytes
+(the copies of the frozen lanes included).
 """
 from __future__ import annotations
 
@@ -67,9 +77,9 @@ from repro_torch.kernels.residual_update import residual_update_plain
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid, y, zty, zn2,
 #  i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol, tol, r_out, s_out, stall_out,
-#  dtype, stream)
+#  lane_ids, n_run, n_lanes, step_inf, dtype, stream)
 _ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 12 + [_I32] + [_F32] * 4
-             + [_PTR] * 3 + [_I32, _PTR])
+             + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR])
 
 
 def _f32(x: float) -> float:
@@ -241,11 +251,101 @@ def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor
                  znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
                  _f32(cfg.renorm_threshold), _f32(cfg.eps_den), _f32(cfg.gap_rtol),
                  _f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(),
-                 _build.dtype_code(beta), _build.stream(dev))
+                 None, 1, 1, None, _build.dtype_code(beta), _build.stream(dev))
         step_tail.launches += 1
     _build.check("step_tail", err, "step_tail")
     new_scale, new_maxabs, step_inf, new_s, new_f = s_out.unbind()
     return beta, new_scale, new_maxabs, step_inf, stall_out, r_out, new_s, new_f
 
 
+# --------------------------------------------------------------------------
+# Lanes: one launch for L delta lanes
+# --------------------------------------------------------------------------
+
+
+def step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                          zty, znorm2, i_star, g, delta, lanes, cfg):
+    """The plain version: ``step_tail_plain`` once per listed lane, on its row
+    of ``beta`` (in place) and copies of its residual row and scalars; a
+    lane not listed keeps its residual and scalars. Arguments and returns
+    are ``step_tail_lanes``'s."""
+    outs = [list(t.unbind(0)) for t in (scale, maxabs, step_inf, stall, resid, s_quad, f_lin)]
+    outs = [[t.clone() for t in ts] for ts in outs]
+    run = set(lanes.tolist() if isinstance(lanes, torch.Tensor) else lanes)
+    for lane in sorted(run):
+        got = step_tail_plain(mat, beta[lane], scale[lane].clone(), maxabs[lane].clone(),
+                              stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
+                              f_lin[lane].clone(), y, zty, znorm2, i_star[lane].clone(),
+                              g[lane].clone(), delta[lane].clone(), cfg)
+        for ts, t in zip(outs, got[1:]):
+            ts[lane] = t
+    scale, maxabs, step_inf, stall, resid, s_quad, f_lin = (torch.stack(ts) for ts in outs)
+    return beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin
+
+
+def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
+                    step_inf: torch.Tensor, stall: torch.Tensor, resid: torch.Tensor,
+                    s_quad: torch.Tensor, f_lin: torch.Tensor, y: torch.Tensor,
+                    zty: torch.Tensor, znorm2: torch.Tensor, i_star: torch.Tensor,
+                    g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg):
+    """The step's tail for L lanes in one launch: ``beta (L, p)`` (updated
+    in place), ``resid (L, m)``, the scalars ``scale``, ``maxabs``,
+    ``step_inf``, ``stall``, ``s_quad``, ``f_lin``, the winners ``i_star``,
+    their scores ``g`` and the deltas ``delta``, each ``(L,)``; ``mat``,
+    ``y`` and the column statistics are shared, and the dtypes are
+    ``step_tail``'s. ``lanes`` (int32) lists the lanes that step; the others
+    are frozen (outputs equal to their inputs). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (or raises). Returns
+    ``(beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin)``, each
+    lane-stacked, S and F before the periodic refresh."""
+    if beta.dim() != 2 or resid.dim() != 2 or resid.shape[0] != beta.shape[0]:
+        raise ValueError(f"need beta (L, p) and resid (L, m), got {tuple(beta.shape)}, "
+                         f"{tuple(resid.shape)}")
+    L = beta.shape[0]
+    if any(t.shape != (L,) for t in (scale, maxabs, step_inf, stall, s_quad, f_lin, i_star, g,
+                                     delta)):
+        raise ValueError(f"need the lanes' scalars, winners, scores and deltas as ({L},)")
+    if lanes.dim() != 1 or lanes.dtype != torch.int32:
+        raise ValueError(f"need lanes, the int32 ids of the lanes that step, got {lanes}")
+    _check(mat, beta[0], resid[0], y, zty, znorm2)
+    if beta.device.type == "cpu":
+        return step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                                     f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg)
+    sparse = isinstance(mat, tuple)
+    X, rows = mat if sparse else (mat, None)
+    dtype = beta.dtype
+    if any(t.dtype != dtype for t in (X, scale, maxabs, step_inf, s_quad, f_lin, resid, y, zty,
+                                      znorm2)):
+        raise TypeError("step_tail_lanes needs the matrix, beta, its scalars, the residual, y "
+                        "and the column statistics in one dtype")
+    if stall.dtype != torch.int32 or i_star.dtype != torch.int64 or delta.dtype != torch.float32:
+        raise TypeError("step_tail_lanes needs stall int32, i_star int64 and delta float32")
+    if sparse and rows.dtype != torch.int32:
+        raise TypeError(f"the row slots must be int32, got {rows.dtype}")
+    g = g.float()
+    dev = _build.require_cuda(X, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                              zty, znorm2, i_star, g, delta, lanes,
+                              *(() if rows is None else (rows,)))
+    m = y.shape[0]
+    r_out = torch.empty((L, m), dtype=dtype, device=dev)
+    s_out = torch.empty((5, L), dtype=dtype, device=dev)
+    stall_out = torch.empty(L, dtype=torch.int32, device=dev)
+    fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
+                 X.shape[-1] if sparse else 0, beta.data_ptr(), beta.shape[1],
+                 scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
+                 f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
+                 znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
+                 _f32(cfg.renorm_threshold), _f32(cfg.eps_den), _f32(cfg.gap_rtol),
+                 _f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(),
+                 *_build.lane_ids_arg(lanes), L, step_inf.data_ptr(),
+                 _build.dtype_code(beta), _build.stream(dev))
+        step_tail_lanes.launches += 1
+    _build.check("step_tail", err, "step_tail_lanes")
+    new_scale, new_maxabs, new_step_inf, new_s, new_f = s_out.unbind()
+    return beta, new_scale, new_maxabs, new_step_inf, stall_out, r_out, new_s, new_f
+
+
 step_tail.launches = 0
+step_tail_lanes.launches = 0

@@ -28,6 +28,7 @@ from repro_torch.kernels.fw_grad import argmax_plain, block_indices, vertex_argm
 from repro_torch.kernels.sparse_colstats import sparse_colstats as _colstats_kernel
 from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores as _scores_kernel
+from repro_torch.kernels.sparse_grad import sparse_sampled_scores_lanes
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
 from repro_torch.kernels.step_tail import sparse_residual_update  # noqa: F401 (eq. 10)
 from repro_torch.sparse.matrix import SparseBlockMatrix
@@ -65,6 +66,14 @@ def sparse_block_scores(mat: SparseBlockMatrix, resid: torch.Tensor, blk: torch.
     """FW scores ``-z_i^T R`` (f32) of the features of the sampled blocks
     ``blk``, through K5 at width ``mat.block_size`` or its plain version."""
     return _scores(mat, resid, blk, mat.block_size, use_kernel)
+
+
+def sparse_scores_lanes(mat: SparseBlockMatrix, w: torch.Tensor, blk: torch.Tensor, width: int,
+                        lanes: torch.Tensor) -> torch.Tensor:
+    """Scores ``(L, nb * width)`` (f32) of the batched lanes' sampled ids
+    ``blk`` against their co-gradients ``w (L, m)``: K5's lane kernel, one
+    launch for the lanes listed in ``lanes`` (its plain version on the CPU)."""
+    return sparse_sampled_scores_lanes(mat.values, mat.rows, w, blk, width, lanes)
 
 
 def sparse_fw_vertex_general(mat: SparseBlockMatrix, w: torch.Tensor, blk: torch.Tensor, *,

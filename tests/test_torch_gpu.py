@@ -614,7 +614,205 @@ def test_sparse_scores_ring_keeps_the_warp_kernels_bits(bs):
     warp = torch.empty(n, device="cuda")
     fn = _build.function("sparse_grad", "sparse_sampled_scores_launch", sg._ARGTYPES)
     err = fn(mat.values.data_ptr(), mat.rows.data_ptr(), y.data_ptr(), blk.data_ptr(),
-             warp.data_ptr(), n, bs, mat.nnz_max, mat.p_padded, mat.m, 0, 0, 0, 0,
-             _build.stream(torch.device("cuda")))
+             warp.data_ptr(), n, bs, mat.nnz_max, mat.p_padded, mat.m, 0, 0, 0, None, 1, 0, 0,
+             0, 0, _build.stream(torch.device("cuda")))
     _build.check("sparse_grad", err, "sparse_sampled_scores (warps)")
     assert _bits_equal(got, warp)
+
+
+# --------------------------------------------------------------------------
+# the lane-axis kernels (batched delta lanes)
+# --------------------------------------------------------------------------
+
+
+def _lane_ids(L, frozen):
+    return torch.tensor([lane for lane in range(L) if lane not in frozen], dtype=torch.int32,
+                        device="cuda")
+
+
+def _frozen_sets(L):
+    """No lane frozen, lane 1 frozen among active ones (L > 1), every lane frozen."""
+    return [set(), {1} if L > 1 else {0}, set(range(L))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 13])
+@pytest.mark.parametrize("case", ["dense f32", "dense bf16", "dense full", "sparse ring",
+                                  "sparse warps bf16", "sparse block"])
+def test_lane_scores_and_argmax_equal_one_lane_launches(case, L):
+    """K2's lane scores and argmax and K5's lane scores: each listed lane
+    bitwise equal to the one-lane launch on its inputs; a frozen lane gets
+    (-1, 0) and no launch of its own; the tickets are back at 0 (a second
+    launch gives the same bits); against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import sparse_grad as sg
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(L)
+    sparse = case.startswith("sparse")
+    if sparse:
+        mat, _, _ = _sparse_problem(m=803 if "ring" in case else 801)
+        if "bf16" in case:
+            mat = mat.astype(torch.bfloat16)
+        m, p = mat.m, mat.p
+        bs = mat.block_size if "block" in case else 1
+        n_ids = 3 if bs > 1 else 500
+        blk = torch.randint(0, mat.nblocks if bs > 1 else p, (L, n_ids), generator=g,
+                            device="cuda")
+        r = torch.randn((L, m), generator=g, device="cuda")
+
+        def scores_one(rl, bl):
+            return sg.sparse_sampled_scores(mat.values, mat.rows, rl, bl, bs)
+
+        def scores_lanes(ids):
+            return sg.sparse_sampled_scores_lanes(mat.values, mat.rows, r, blk, bs, ids)
+
+        def scores_plain(ids):
+            return sg.sparse_sampled_scores_lanes_plain(mat.values, mat.rows, r, blk, bs, ids)
+    else:
+        p, m = 1000, 803
+        dtype = torch.bfloat16 if "bf16" in case else torch.float32
+        X = torch.randn((p, m), generator=g, device="cuda").to(dtype)
+        bs = 128 if "full" in case else 1
+        blk = (torch.arange(-(-p // bs), device="cuda") if "full" in case
+               else torch.randint(0, p, (L, 700), generator=g, device="cuda"))
+        r = torch.randn((L, m), generator=g, device="cuda")
+
+        def scores_one(rl, bl):
+            return fw.sampled_scores(X, rl, bl, bs)
+
+        def scores_lanes(ids):
+            return fw.sampled_scores_lanes(X, r, blk, bs, ids)
+
+        def scores_plain(ids):
+            return fw.sampled_scores_lanes_plain(X, r, blk, bs, ids)
+    scale = float(torch.linalg.vector_norm(r, dim=1).max()) * 40.0
+    for frozen in _frozen_sets(L):
+        ids = _lane_ids(L, frozen)
+        got = scores_lanes(ids)
+        i_star, g_star = fw.vertex_argmax_lanes(got, blk, bs, p, ids)
+        i_again, g_again = fw.vertex_argmax_lanes(got, blk, bs, p, ids)
+        assert _bits_equal(i_star, i_again) and _bits_equal(g_star, g_again)
+        plain = scores_plain(ids)
+        for lane in range(L):
+            bl = fw.lane_blk(blk, lane)
+            if lane in frozen:
+                assert int(i_star[lane]) == -1 and float(g_star[lane]) == 0.0
+                continue
+            one = scores_one(r[lane].clone(), bl)
+            assert _bits_equal(got[lane], one), (case, L, lane)
+            assert float((got[lane] - plain[lane]).abs().max()) <= RTOL_SUM * scale
+            i1, g1 = fw.vertex_argmax(one, bl, bs, p)
+            assert int(i_star[lane]) == int(i1) and _bits_equal(g_star[lane], g1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 13])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_lane_tail_equals_one_lane_launches(layout, dtype, L):
+    """The step's lane tail: each listed lane bitwise equal to the one-lane
+    launch on its row of beta and of the residual and its scalars (a renorm
+    in lane 0 only); a frozen lane's outputs are its inputs and its beta row
+    is untouched; against the plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11 + L)
+    if layout == "dense":
+        p, m = 1000, 803
+        mat = torch.randn((p, m), generator=g, device="cuda").to(dt)
+    else:
+        sp, _, _ = _sparse_problem(m=5003)
+        sp = sp.astype(dt)
+        p, m = sp.p, sp.m
+        mat = (sp.values, sp.rows)
+    cfg = FWConfig(delta=20.0)
+    y = torch.randn(m, generator=g, device="cuda").to(dt)
+    zty = torch.randn(p, generator=g, device="cuda").to(dt)
+    zn2 = (torch.rand(p, generator=g, device="cuda") + 0.5).to(dt)
+    beta = torch.randn((L, p), generator=g, device="cuda").to(dt)
+    scale = torch.full((L,), 0.9, device="cuda").to(dt)
+    scale[0] = 1.01e-6  # lane 0's step renormalizes (lam above 1%)
+    maxabs = (torch.rand(L, generator=g, device="cuda") + 1).to(dt)
+    step_inf = torch.rand(L, generator=g, device="cuda").to(dt)
+    stall = torch.arange(L, dtype=torch.int32, device="cuda")
+    resid = torch.randn((L, m), generator=g, device="cuda").to(dt)
+    s_quad = (torch.rand(L, generator=g, device="cuda") * 30 + 10).to(dt)
+    f_lin = (torch.rand(L, generator=g, device="cuda") * 10).to(dt)
+    i_star = torch.randint(0, p, (L,), generator=g, device="cuda")
+    gs = torch.randn(L, generator=g, device="cuda") * 5
+    delta = torch.full((L,), 20.0, device="cuda")
+    for frozen in _frozen_sets(L):
+        ids = _lane_ids(L, frozen)
+        b_k, b_p = beta.clone(), beta.clone()
+        args = (scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty, zn2, i_star, gs,
+                delta, ids, cfg)
+        got = st.step_tail_lanes(mat, b_k, *args)
+        want = st.step_tail_lanes_plain(mat, b_p, *args)
+        for a, b in zip(got, want):
+            assert _bits_equal(a, b), (layout, dtype, L, frozen)
+        for lane in range(L):
+            if lane in frozen:
+                assert _bits_equal(b_k[lane], beta[lane])
+                for out, inp in zip(got[1:], (scale, maxabs, step_inf, stall, resid, s_quad,
+                                              f_lin)):
+                    assert _bits_equal(out[lane], inp[lane])
+                continue
+            b1 = beta[lane].clone()
+            one = st.step_tail(mat, b1, scale[lane].clone(), maxabs[lane].clone(),
+                               stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
+                               f_lin[lane].clone(), y, zty, zn2, i_star[lane].clone(),
+                               gs[lane].clone(), delta[lane].clone(), cfg)
+            assert _bits_equal(b_k[lane], b1)
+            for out, o1 in zip(got[1:], one[1:]):
+                assert _bits_equal(out[lane], o1), (layout, dtype, L, lane)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [1, 8])
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_batched_lanes_equal_sequential_solves_on_the_card(backend, fuse):
+    """solve_batched on the card: each lane bitwise the sequential solve
+    replaying its stream (alpha, iterations, n_dots, the vertex sequence),
+    one lane frozen early; one launch of each lane kernel a batched step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import LASSO, LaneStreamSampler, StreamSampler, engine
+
+    mat, y, X = _sparse_problem()
+    design = mat if backend == "sparse" else X
+    cfg = FWConfig(delta=1.0, kappa=100, max_iters=300, tol=1e-4, backend=backend,
+                   fuse_steps=fuse)
+    deltas = [0.5, 5.0, 20.0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    draws = [torch.randint(0, mat.p, (300, 100), generator=g, device="cuda") for _ in deltas]
+    seqs, steps = [[] for _ in deltas], [0]
+
+    def on_step(state, active):
+        steps[0] += 1
+        for lane, a in enumerate(active):
+            if a:
+                seqs[lane].append(int(state.i_star[lane]))
+
+    before = launch_counts()
+    res, saved = engine.solve_batched(LASSO, design, y, cfg, LaneStreamSampler(draws), None,
+                                      deltas, device="cuda", on_step=on_step)
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    scores = "sparse_sampled_scores_lanes" if backend == "sparse" else "sampled_scores_lanes"
+    assert launched[scores] == launched["vertex_argmax_lanes"] == steps[0]
+    assert launched["step_tail_lanes"] == steps[0]
+    assert launched["sampled_scores"] == launched["sparse_sampled_scores"] == 0
+    assert min(res.iterations) < max(res.iterations) and saved > 0
+    for lane, d in enumerate(deltas):
+        seq = []
+        one = engine.solve(LASSO, design, y, cfg, StreamSampler(draws[lane]), None, d,
+                           device="cuda", per_step=lambda s: seq.append(int(s.i_star)))
+        assert one.iterations == res.iterations[lane] and one.n_dots == res.n_dots[lane]
+        assert seq == seqs[lane]
+        assert _bits_equal(one.alpha, res.alpha[lane])
