@@ -37,6 +37,15 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    every lane frozen (winners (-1, 0), outputs equal to inputs), two
    argmax launches equal (the tickets back at 0), the renorm in one lane
    only, bf16 and K5's warp-per-feature route at L = 3;
+   the elastic-net's instantiations at each path's shapes: K2's argmax
+   with the score shift (n = kappa with f32 and bf16 beta, n = p, a shift
+   that turns the winner, raw scores all zero, a padded index whose
+   shifted score would win; L = 1, 3, 13, each lane bitwise its one-lane
+   launch), bit for bit; the EN tail in f32 and bf16 (a renorm, lam near
+   1, the same coordinate twice; 13 lanes), bit for bit; K4 or K7 with
+   the alpha ledger against the plain chunk (K = 8 at kappa = 1% of p, and
+   a chunk where one coordinate wins in steps 0 and 2, so two ledger slots
+   add), two launches bitwise equal;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -61,6 +70,15 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      each layout, unfused: the lane scores, argmax and tail once a
      batched step, K1 or K6 once a chunk, the fused chunks and the
      one-lane kernels never;
+   - the extension oracles (paper §6, the reference's family section): the
+     elastic-net (``ENOracle(l2=1.0)``) over the same 100-point grid on
+     each layout, fused at K = 8 (K4 or K7 with the ledger, once a chunk),
+     its first 3 points one step per dispatch (the shifted argmax and the
+     EN tail once a step) and batched in lanes of 13; the logistic oracle
+     (labels sign(y) + (y == 0), max_iters 2000, tol 1e-4) over a 10-point
+     grid, all 10 points sequential and in lanes of 4 on the sparse layout,
+     the first 3 on the dense one; each path's launches, l1 <= delta and
+     its densest point's certified gap with the oracle's own gradient;
 4. the first grid points of each path against other routes, from the
    same sampler seeds: the plain ops ('torch'; 'sparse' with
    ``sparse_kernel=False``), fused against unfused, and the sparse
@@ -70,16 +88,21 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    of 4 batched lanes (p = 200,000, m = 800, 400 steps, one lane freezing
    early) on both layouts, unfused and fused, each lane's alpha bits,
    iterations, n_dots and vertex sequence equal to a sequential solve
-   replaying the rows it drew;
+   replaying the rows it drew; the elastic-net's fused path against its
+   unfused points, and each extension oracle's kernels against the plain
+   route on its first 2 points, under the same near-tie rule (on the
+   oracle's selected scores, from the state rebuilt by a replay);
 5. timing of each kernel, its bound, its plain version and a library
    call, with CUDA events (K2's argmax also at n = p), beside the launch
    floor (an empty kernel, back to back); and the host's
    share of a step, one step per dispatch and fused at K = 8 and K = 32,
    on each path; the lane kernels at L = 13 and the batched step at 13
-   lanes and at 1 on each path; ``solve_with_history`` on a small
-   problem, its history bit for bit the per-step objectives.
+   lanes and at 1 on each path; the elastic-net's instantiations and the
+   elastic-net and logistic steps' wall, device time and idle share on
+   each path; ``solve_with_history`` on a small problem, its history bit
+   for bit the per-step objectives.
 
-About 2.5 minutes on an H100, the builds included. ``--kernels-only`` stops
+About 6 minutes on an H100, the builds included. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -131,6 +154,11 @@ RTOL_TIE = 1e-4
 # of the S/F recursions), and after a near-tie sent them apart (two
 # different runs of the same stochastic solver, both stopped at tol 1e-3)
 RTOL_OBJ_SAME, RTOL_OBJ_APART = 1e-5, 1e-3
+# a stall test that two runs matching to rounding may decide apart: its
+# margin (num - gap_rtol * gap_scale, or step_inf - tol) within this
+# fraction of its scale, about the f32 drift of the S/F/Q recursions over a
+# refresh period (64 steps of a few ulps, 2^-24 each)
+RTOL_STALL = 1e-5
 
 
 # The reference's converging golden (tests/test_engine.py:89-97) on the
@@ -275,6 +303,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_kernels(torch, Xt, y))
     errs.update(phase2_fused(torch, Xt, y))
     errs.update(phase2_lane_kernels(torch, Xt, y))
+    errs.update(phase2_en_kernels(torch, Xt, y, "dense"))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -290,8 +319,13 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         phase4_other_backend(torch, Xt, y, main_run)
         phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
         phase4_lanes_vs_sequential(torch, dev)
+        en_launches, en_runs = phase3_en_paths(torch, Xt, y, coef, "dense")
+        launches.update(en_launches)
+        log_runs = phase3_logistic_paths(torch, Xt, y, coef, "dense")
+        phase4_extensions(torch, Xt, y, en_runs, log_runs, "dense")
         timing.update(phase5_timing(torch, Xt, y))
         timing.update(phase5_lane_timing(torch, Xt, y, "dense"))
+        timing.update(phase5_ext_timing(torch, Xt, y, "dense"))
         history_check(torch, dev)
     del Xt
     torch.cuda.empty_cache()
@@ -317,6 +351,9 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
 
     errs.update(phase2_sparse_kernels(torch, mat, y))
     errs.update(phase2_sparse_lane_kernels(torch, mat, y))
+    en_errs = phase2_en_kernels(torch, mat, y, "sparse")
+    errs["sparse_fused_chunk_en"] = en_errs.pop("sparse_fused_chunk_en")
+    errs.update({f"{k}_sparse": v for k, v in en_errs.items()})
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
@@ -337,8 +374,14 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
         launches[name] += batched_launches[name]
     phase4_sparse_routes(torch, mat, y, fused_run, unfused_run)
     phase4_sparse_vs_dense(torch, dev)
+    en_launches, en_runs = phase3_en_paths(torch, mat, y, coef, "sparse")
+    for name, n in en_launches.items():  # the shifted argmax, the EN tail: both paths
+        launches[name] = launches.get(name, 0) + n
+    log_runs = phase3_logistic_paths(torch, mat, y, coef, "sparse")
+    phase4_extensions(torch, mat, y, en_runs, log_runs, "sparse")
     timing.update(phase5_sparse_timing(torch, mat, y))
     timing.update(phase5_lane_timing(torch, mat, y, "sparse"))
+    timing.update(phase5_ext_timing(torch, mat, y, "sparse"))
 
 
 KERNELS = {
@@ -374,6 +417,22 @@ KERNELS = {
     "sparse_sampled_scores_lanes": dict(
         source="src/repro_torch/kernels/csrc/sparse_grad.cu",
         replaces="src/repro/kernels/sparse_grad/sparse_grad.py:87"),
+    # the elastic-net's instantiations: the score shift the reference runs in
+    # XLA beside K2's argmax (src/repro/core/vertex.py:243-249), its tail (the
+    # residual update's kernel on the path) and K4/K7's alpha ledger
+    # (src/repro/kernels/fused_step/fused_step.py:137-139, 158-162, 226-230)
+    "vertex_argmax_shifted": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                  replaces="src/repro/kernels/fw_grad/ops.py:27"),
+    "vertex_argmax_shifted_lanes": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                        replaces="src/repro/kernels/fw_grad/ops.py:27"),
+    "step_tail_en": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                         replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_lanes": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                               replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "dense_fused_chunk_en": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                                 replaces="src/repro/kernels/fused_step/fused_step.py:259"),
+    "sparse_fused_chunk_en": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                                  replaces="src/repro/kernels/fused_step/fused_step.py:259"),
 }
 
 
@@ -2062,16 +2121,17 @@ def sparse_config(p, fuse_steps=FUSE, **kw):
                     max_iters=5000, tol=1e-3, backend="sparse", fuse_steps=fuse_steps, **kw)
 
 
-def _print_points(tag, res, cfg):
+def _print_points(tag, res, cfg, extra_dots=0):
     """Each point of a path, checked: a finite objective, l1 <= delta, and
-    (uniform sampling) kappa dots a step; then the path's totals."""
+    (uniform sampling) kappa dots a step, plus the oracle's ``extra_dots``;
+    then the path's totals."""
     for g, pt in enumerate(res.points):
         print(f"[{tag}] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
               f"n_dots={pt.n_dots} objective={pt.objective!r} l1={pt.l1:.6g} "
               f"active={pt.active} seconds={pt.seconds:.4f}")
         check(math.isfinite(pt.objective), f"{tag} point {g}: objective not finite")
         check(pt.l1 <= pt.reg * (1 + 1e-4), f"{tag} point {g}: l1 {pt.l1} > delta {pt.reg}")
-        check(pt.n_dots == pt.iterations * cfg.kappa or cfg.sampling != "uniform",
+        check(pt.n_dots == pt.iterations * (cfg.kappa + extra_dots) or cfg.sampling != "uniform",
               f"{tag} point {g}: n_dots")
     print(f"[{tag}] path: {len(res.points)} points, {res.total_iters} iterations, "
           f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, "
@@ -2931,6 +2991,956 @@ def history_check(torch, dev):
         print(f"[history] solve_with_history p=2000 m=100 fuse_steps={fuse}: 200 values, "
               f"{float(hist[0])!r} -> {float(hist[-1])!r}, bit for bit the per-step objectives")
 
+
+# --------------------------------------------------------------------------
+# the extension oracles (paper §6): the elastic-net's kernel instantiations
+# in phase 2, the elastic-net and logistic paths at full width in phase 3,
+# their routes against each other in phase 4, their kernels' and steps'
+# times in phase 5
+# --------------------------------------------------------------------------
+
+# the reference's family section (benchmarks/table5_fw.py:174-230):
+# ENOracle(l2=1.0) and the logistic labels sign(y) + (y == 0) on the same
+# data, kappa = 1% of p, the lasso path's delta_max; the logistic solves
+# with max_iters 2000 and tol 1e-4, and its sparse path runs max(4, 40 // 4)
+# = 10 points, sequential and in lanes of 4
+EN_L2 = 1.0
+EN_UNFUSED = 3  # the EN path's first points, also one step per dispatch
+LEDGER_K = 72  # phase 2's long EN chunk, a ledger of 72 slots
+LOG_MAX_ITERS, LOG_TOL = 2000, 1e-4
+LOG_POINTS, LOG_LANES, LOG_POINTS_DENSE = 10, 4, 3
+N_EXT_COMPARE = 2  # points of each extension path held against the plain route
+EN_KERNELS = ("vertex_argmax_shifted", "vertex_argmax_shifted_lanes", "step_tail_en",
+              "step_tail_en_lanes", "dense_fused_chunk_en", "sparse_fused_chunk_en")
+EN_OUT = TAIL_OUT + ("Q",)
+
+
+def logistic_labels(torch, y):
+    """The reference family's logistic labels: sign(y), 0 made +1."""
+    return torch.sign(y) + (y == 0).to(y.dtype)
+
+
+def _check_shifted(torch, fw, label, scores, blk, bs, p, shift):
+    """K2's shifted argmax against its plain version: (i_star, g_raw, g_sel)
+    bit for bit, two launches equal, one launch a call, a real index."""
+    before = fw.vertex_argmax_shifted.launches
+    got = fw.vertex_argmax_shifted(scores, blk, bs, p, shift)
+    again = fw.vertex_argmax_shifted(scores, blk, bs, p, shift)
+    want = fw.argmax_shifted_plain(scores, blk, bs, p, shift)
+    check(fw.vertex_argmax_shifted.launches == before + 2, f"shifted argmax {label}: launches")
+    check(all(_same_bits(torch, a, b) for a, b in zip(got, again)),
+          f"shifted argmax {label}: two launches differ")
+    check(all(_same_bits(torch, a, b) for a, b in zip(got, want)),
+          f"shifted argmax {label}: differs from its plain version")
+    check(int(got[0]) < p, f"shifted argmax {label}: a padded index won")
+    print(f"[en] vertex_argmax_shifted {label}: i_star {int(got[0])}, g_raw {float(got[1])!r}, "
+          f"g_sel {float(got[2])!r}: bit-exact with the plain version, two launches equal")
+    return got
+
+
+def shifted_argmax_cases(torch, fw, scores, idx, p, g):
+    """The shifted argmax at the path's shapes (n = kappa, width 1; beta
+    with 300 nonzero coefficients, f32 and bf16) and at n = p (blocks of
+    128, as 'full' sampling reads it), and its edge cases: a shift that
+    turns the winner; raw scores all zero with a nonzero shift; a padded
+    index (past p, in the last block) whose shifted score would win."""
+    dev = scores.device
+    beta = torch.zeros(p, device=dev)
+    beta[idx[:300]] = torch.randn(idx[:300].numel(), generator=g, device=dev) * 5
+    scale = torch.tensor(0.8, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_shifted(torch, fw, f"n=kappa={idx.numel()} beta {str(dtype)[6:]}", scores, idx,
+                       1, p, fw.ScoreShift(beta.to(dtype), scale.to(dtype), EN_L2))
+    shift = fw.ScoreShift(beta, scale, EN_L2)
+    blk = torch.arange(-(-p // 128), device=dev)
+    full = torch.randn(blk.numel() * 128, generator=g, device=dev)
+    _check_shifted(torch, fw, f"n=p={full.numel()} ('full', blocks of 128)", full, blk, 128, p,
+                   shift)
+    turned = torch.full_like(scores, 0.1)
+    turned[3] = 1.0  # the raw winner, at position 3
+    j = min(600, idx.numel() - 1)
+    b2 = torch.zeros_like(beta)
+    b2[idx[j]] = 10.0  # the shift of position j turns it
+    got = _check_shifted(torch, fw, "a shift that turns the winner", turned, idx, 1, p,
+                         fw.ScoreShift(b2, scale, EN_L2))
+    check(int(got[0]) == int(idx[j]), "shifted argmax: the shift did not turn the winner")
+    _check_shifted(torch, fw, "raw scores all zero", torch.zeros_like(scores), idx, 1, p, shift)
+    last = blk[-1:]  # the last block of 128 holds indices past p
+    pad = torch.randn(128, generator=g, device=dev) * 0.01
+    pad[127] = 100.0  # index 128 * nblocks - 1 >= p
+    b3 = beta.clone()
+    b3[p - 1] = 1e3  # its clipped shift is the largest too
+    _check_shifted(torch, fw, "a padded index whose shifted score would win", pad, last, 128, p,
+                   fw.ScoreShift(b3, scale, EN_L2))
+
+
+def shifted_lanes_check(torch, fw, label, scores_fn, blk, p, g, L):
+    """K2's lane argmax with the shift, for each set of running lanes:
+    bitwise its plain version, each running lane bitwise its one-lane
+    shifted launch, a frozen lane (-1, 0, 0)."""
+    dev = blk.device
+    shift = fw.ScoreShift(torch.randn((L, p), generator=g, device=dev),
+                          torch.rand(L, generator=g, device=dev) + 0.5, EN_L2)
+    for run in _lane_sets(L):
+        ids = torch.tensor(run, dtype=torch.int32, device=dev)
+        scores = scores_fn(ids)
+        got = fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids, shift)
+        want = fw.argmax_shifted_lanes_plain(scores, blk, 1, p, ids, shift)
+        check(all(_same_bits(torch, a, b) for a, b in zip(got, want)),
+              f"{label} L={L} lanes {run}: differs from its plain version")
+        for lane in range(L):
+            if lane not in run:
+                check(int(got[0][lane]) == -1 and float(got[2][lane]) == 0.0,
+                      f"{label}: frozen lane {lane}")
+                continue
+            one = fw.vertex_argmax_shifted(scores[lane].contiguous(), fw.lane_blk(blk, lane), 1,
+                                           p, shift.lane(lane))
+            check(all(_same_bits(torch, a[lane], b) for a, b in zip(got, one)),
+                  f"{label} L={L}: lane {lane} differs from a one-lane launch")
+    print(f"[en] {label} L={L}: bit for bit its plain version and each lane's one-lane launch, "
+          "frozen lanes (-1, 0, 0)")
+
+
+def _check_en_tail(torch, st, label, mat, beta, args, en, cfg):
+    """The EN tail against ``step_tail_plain`` with ``en``: every output bit
+    for bit (Q included), two launches equal, one launch a call."""
+    before = st.step_tail_en.launches
+    out_k = st.step_tail_en(mat, beta.clone(), *args, cfg, en=en)
+    again = st.step_tail_en(mat, beta.clone(), *args, cfg, en=en)
+    out_p = st.step_tail_plain(mat, beta.clone(), *args, cfg, en=en)
+    check(st.step_tail_en.launches == before + 2, f"step_tail_en {label}: launches")
+    check(all(_same_bits(torch, a, b) for a, b in zip(out_k, again)),
+          f"step_tail_en {label}: two launches differ")
+    differ = [n for n, a, b in zip(EN_OUT, out_k, out_p) if not _same_bits(torch, a, b)]
+    check(not differ, f"step_tail_en {label}: {differ} differ from the plain version")
+    print(f"[en] step_tail_en {label}: scale {float(out_k[1])!r}, stall {int(out_k[4])}, "
+          f"Q {float(out_k[8])!r}: bit-exact with the plain version, two launches equal")
+    return out_k
+
+
+def en_tail_cases(torch, st, label, mat, p, m, dtype, g, i_star):
+    """The EN tail on one layout and dtype: a random state, a renorm step,
+    lam clamped at 1 and the same coordinate twice in a row."""
+    from repro_torch.core import FWConfig
+
+    cfg = FWConfig(delta=5.0)
+    lab = f"{label} {str(dtype)[6:]}"
+
+    def en_for(args, g_sel=-3.25):
+        return st.ENTail(torch.tensor(g_sel, device=g.device),
+                         torch.tensor(40.0, device=g.device).to(dtype), EN_L2)
+
+    beta, args = _tail_args(torch, g, p, m, dtype, i_star)
+    out = _check_en_tail(torch, st, f"{lab} random", mat, beta, args, en_for(args), cfg)
+    b, scale, maxabs, _, stall, resid, s_quad, f_lin, q = out
+    _check_en_tail(torch, st, f"{lab} the same coordinate again", mat, b,
+                   (scale, maxabs, stall, resid, s_quad, f_lin) + args[6:],
+                   st.ENTail(torch.tensor(-2.0, device=g.device), q, EN_L2), cfg)
+    beta, args = _tail_args(torch, g, p, m, dtype, i_star, scale=1.2e-6)
+    out = _check_en_tail(torch, st, f"{lab} renorm", mat, beta, args, en_for(args), cfg)
+    check(float(out[1]) == 1.0, f"step_tail_en {lab}: no renorm")
+    beta, args = _tail_args(torch, g, p, m, dtype, i_star, s_quad=0.0, f_lin=0.0, zty_i=7.5,
+                            zn2_i=1e-3)
+    _check_en_tail(torch, st, f"{lab} lam near 1", mat, beta, args, en_for(args, -7.5), cfg)
+
+
+def en_tail_lanes_check(torch, st, label, mat, beta, args, L, cfg):
+    """The EN lane tail for each set of running lanes: bit for bit its plain
+    version, each running lane bitwise its one-lane EN launch, frozen lanes
+    keep their outputs (Q included)."""
+    dev = beta.device
+    scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty, zn2, i_star, gs, delta = args
+    en = st.ENTail(gs + 0.5, torch.full((L,), 40.0, device=dev), EN_L2)
+    for run in _lane_sets(L):
+        ids = torch.tensor(run, dtype=torch.int32, device=dev)
+        b_k, b_p = beta.clone(), beta.clone()
+        before = st.step_tail_en_lanes.launches
+        got = st.step_tail_en_lanes(mat, b_k, *args, ids, cfg, en=en)
+        want = st.step_tail_lanes_plain(mat, b_p, *args, ids, cfg, en=en)
+        check(st.step_tail_en_lanes.launches == before + 1, f"step_tail_en_lanes {label}: launches")
+        differ = [n for n, a, b in zip(EN_OUT, got, want) if not _same_bits(torch, a, b)]
+        check(not differ, f"step_tail_en_lanes {label} L={L} lanes {run}: {differ} differ from "
+                          "the plain version")
+        for lane in range(L):
+            if lane not in run:
+                check(_same_bits(torch, got[8][lane], en.q_norm[lane]), f"{label}: frozen Q")
+                continue
+            b1 = beta[lane].clone()
+            one = st.step_tail_en(mat, b1, scale[lane].clone(), maxabs[lane].clone(),
+                                  stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
+                                  f_lin[lane].clone(), y, zty, zn2, i_star[lane].clone(),
+                                  gs[lane].clone(), delta[lane].clone(), cfg,
+                                  en=st.ENTail(en.g_sel[lane].clone(), en.q_norm[lane].clone(),
+                                               EN_L2))
+            check(_same_bits(torch, b_k[lane], b1) and all(
+                _same_bits(torch, out[lane], o) for out, o in zip(got[1:], one[1:])),
+                f"step_tail_en_lanes {label} L={L}: lane {lane} differs from a one-lane launch")
+    print(f"[en] step_tail_en_lanes {label} L={L}: bit for bit its plain version and each lane's "
+          "one-lane launch, frozen lanes untouched")
+
+
+def _en_sel_at(torch, raw, ids, alpha_t, recs, t, l2):
+    """The plain chunk's selected scores at step t, from its records of the
+    steps before (the alpha ledger: P = prod(1 - lam), slot s = lam_s dt_s
+    rescaled by every later step)."""
+    i_stars, lams, dts = (r[:t].double().cpu() for r in recs)
+    P, slots = 1.0, []
+    for s in range(t):
+        one_m = 1.0 - float(lams[s])
+        P *= one_m
+        slots = [(i, c * one_m) for i, c in slots] + [(int(i_stars[s]), float(lams[s] * dts[s]))]
+    a = P * alpha_t.double().cpu()
+    for i, c in slots:
+        a = a + c * (ids.cpu() == i).double()
+    return raw.double().cpu() + l2 * a
+
+
+def _check_en_chunk(torch, fs, label, mat, y, idx, alpha_s, k0, delta, kw, q0=0.7):
+    """K4 or K7 with the alpha ledger against the plain chunk from the same
+    chunk start: two launches bitwise equal; i_star and no_progress equal
+    up to the first step whose plain selected scores' top-2 are a near-tie;
+    up to there lam and delta_t within RTOL_SUM; with no step apart, the
+    residual within RTOL_SUM of ||y|| and (S, F, Q) within RTOL_SUM of
+    their scale. Returns the largest abs error and the kernel's i_star."""
+    from repro_torch.core import ENOracle
+
+    dev = y.device
+    scal = tuple(torch.tensor(v, device=dev) for v in (3.0, 1.5, q0))
+    if _is_sparse(mat):
+        from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
+
+        name, head, kernel, plain = ("sparse_fused_chunk_en", (mat.values, mat.rows),
+                                     fs.sparse_fused_chunk_en, fs.sparse_fused_chunk_plain)
+        zty, zn2 = sparse_colstats_plain(mat.values, mat.rows, y, mat.p)
+    else:
+        name, head, kernel, plain = ("dense_fused_chunk_en", (mat,), fs.dense_fused_chunk_en,
+                                     fs.dense_fused_chunk_plain)
+        zty, zn2 = mat @ y, (mat * mat).sum(dim=1)
+    kw = dict(kw, oracle=ENOracle(l2=EN_L2), alpha_s=alpha_s)
+    tail = (y, y, scal, idx, zty[idx], zn2[idx], k0, delta)
+    before = kernel.launches
+    got = kernel(*head, *tail, **kw)
+    again = kernel(*head, *tail, **kw)
+    check(kernel.launches == before + 2, f"{name} {label}: launches")
+    check(all(torch.equal(a, b) for a, b in zip(got[:5] + got[5], again[:5] + again[5])),
+          f"{name} {label}: two launches differ")
+    want = plain(*head, *tail, **kw)
+    i_k, i_p = got[0].cpu(), want[0].cpu()
+    diff = (i_k != i_p).nonzero().view(-1)
+    K = idx.shape[0]
+    t = int(diff[0]) if diff.numel() else K
+    if t < K:
+        r_t = plain(*head, y, y, scal, idx[:t], zty[idx[:t]], zn2[idx[:t]], k0, delta,
+                    **dict(kw, alpha_s=alpha_s[:t]))[4] if t else y
+        sel = _en_sel_at(torch, _scores(torch, mat, idx[t], r_t), idx[t], alpha_s[t],
+                         (want[0], want[1], want[2]), t, EN_L2)
+        scale = float(torch.linalg.vector_norm(r_t)) * float(zn2.max().sqrt())
+        margin = _top2_margin(torch, sel.abs().float(), idx[t].cpu())
+        check(margin <= RTOL_SUM * scale, f"{name} {label}: i_star {int(i_k[t])} != plain "
+              f"{int(i_p[t])} at step {t}, top-2 margin {margin:.3e}: no near-tie")
+    check(torch.equal(got[3][:t].cpu(), want[3][:t].cpu()), f"{name} {label}: no_progress")
+    e_lam = float((got[1][:t] - want[1][:t]).abs().max()) if t else 0.0
+    e_dt = float((got[2][:t] - want[2][:t]).abs().max()) if t else 0.0
+    check(e_lam <= RTOL_SUM and e_dt <= RTOL_SUM * float(delta),
+          f"{name} {label}: lam err {e_lam:.2e}, delta_t err {e_dt:.2e}")
+    errs = [e_lam, e_dt]
+    note = f"step {t} differs at a near-tie" if t < K else "all steps equal"
+    if t == K:
+        e_r, a_r = _scaled_err(torch, got[4], want[4], float(torch.linalg.vector_norm(y)))
+        sfq_scale = sum(abs(float(x)) for x in want[5]) + float(torch.dot(y, y))
+        e_sfq = max(abs(float(a) - float(b)) for a, b in zip(got[5], want[5]))
+        check(e_r <= RTOL_SUM and e_sfq <= RTOL_SUM * sfq_scale,
+              f"{name} {label}: residual err {e_r:.2e}, S/F/Q err {e_sfq:.3e}")
+        errs += [a_r, e_sfq]
+        note += f", residual err {e_r:.2e} of ||y||, S/F/Q err {e_sfq / sfq_scale:.2e} of scale"
+    i_list = i_k.tolist()
+    shown = i_list if len(i_list) <= 8 else i_list[:8] + ["..."]
+    print(f"[en] {name} {label}: i_star {shown}, {note}, lam err {e_lam:.2e}, two launches "
+          "bitwise equal")
+    return max(errs), i_k
+
+
+def phase2_en_kernels(torch, design, y, layout):
+    """The elastic-net's instantiations on the card against their plain
+    versions, at the path's shapes (kappa = 1% of p; m = 800 dense, 16,087
+    sparse) and at edge cases: the shifted argmax (one lane, and 1, 3, 13
+    lanes each bitwise its one-lane launch), bit for bit; the EN tail in
+    f32 and bf16 (a renorm, lam near 1, the same coordinate twice), one lane
+    and 13, bit for bit; K4 or K7 with the ledger against the plain chunk at
+    K = 8, at a chunk where one coordinate wins twice and at K = LEDGER_K,
+    two launches bitwise equal."""
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+
+    sparse = layout == "sparse"
+    dev = design.device
+    p, m = design.shape[0], design.shape[1]
+    kappa = kappa_fraction(p, 0.01)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    idx = TorchSampler(31, dev).uniform(kappa, p)
+    r = y.float()
+    if sparse:
+        scores = sg.sparse_sampled_scores(design.values, design.rows, r, idx, 1)
+    else:
+        scores = fw.sampled_scores(design, r, idx, 1)
+    shifted_argmax_cases(torch, fw, scores, idx, p, g)
+    for L in LANE_COUNTS:
+        rl = torch.randn((L, m), generator=g, device=dev)
+        blk = torch.randint(0, p, (L, kappa), generator=g, device=dev)
+        if sparse:
+            scores_fn = lambda ids: sg.sparse_sampled_scores_lanes(  # noqa: E731
+                design.values, design.rows, rl, blk, 1, ids)
+        else:
+            scores_fn = lambda ids: fw.sampled_scores_lanes(design, rl, blk, 1, ids)  # noqa: E731
+        shifted_lanes_check(torch, fw, f"vertex_argmax_shifted_lanes {layout} kappa={kappa}",
+                            scores_fn, blk, p, g, L)
+
+    # ---- the EN tail: the path's layout in f32, a small one in bf16 -------
+    win = int(idx[0])
+    mat = (design.values, design.rows) if sparse else design
+    en_tail_cases(torch, st, f"{layout} p={p} m={m}", mat, p, m, torch.float32, g, win)
+    if sparse:
+        vals, rows = _tail_ell(torch, g, 5000, m, 66, torch.bfloat16, 7, [3, 0, m - 7, 11])
+        en_tail_cases(torch, st, f"sparse p=5000 m={m}", (vals, rows), 5000, m, torch.bfloat16,
+                      g, 7)
+    else:
+        Xb = torch.randn((5000, m), generator=g, device=dev).to(torch.bfloat16)
+        en_tail_cases(torch, st, f"dense p=5000 m={m}", Xb, 5000, m, torch.bfloat16, g, 7)
+    beta, args = _lane_tail_state(torch, g, p, m, torch.float32, LANE_WIDTH)
+    en_tail_lanes_check(torch, st, f"{layout} p={p} m={m}", mat, beta, args, LANE_WIDTH,
+                        FWConfig(delta=20.0))
+    del beta, args
+
+    # ---- K4 / K7 with the alpha ledger ------------------------------------
+    delta = torch.tensor(50.0, device=dev)
+    chunk_idx = TorchSampler(37, dev).uniform_chunk(FUSE, kappa, p)
+    alpha_s = torch.randn((FUSE, kappa), generator=g, device=dev) * 0.05
+    err, _ = _check_en_chunk(torch, fs, f"main K={FUSE} kappa={kappa} m={m}", design, y,
+                             chunk_idx, alpha_s, 0, delta, _fused_kw(10**6))
+    rep = chunk_idx.clone()
+    star = int(rep[0, 0])
+    rep[[0, 2]] = star  # one coordinate alone in steps 0 and 2, first in the others
+    rep[:, 0] = star
+    alpha_r = alpha_s.clone()
+    alpha_r[:, 0] = 0.02
+    alpha_r[[0, 2]] = 0.02
+    err2, i_k = _check_en_chunk(torch, fs, "one coordinate wins in steps 0 and 2", design, y,
+                                rep, alpha_r, 60, delta, _fused_kw(10**6))
+    check(int((i_k == star).sum()) >= 2, "EN chunk: the repeated coordinate won once")
+    # a long chunk: its ledger's LEDGER_K slots sized from K in dynamic shared memory
+    long_idx = TorchSampler(41, dev).uniform_chunk(LEDGER_K, kappa, p)
+    alpha_l = torch.randn((LEDGER_K, kappa), generator=g, device=dev) * 0.05
+    err3, _ = _check_en_chunk(torch, fs, f"K={LEDGER_K}, {fs.ledger_bytes(LEDGER_K)} ledger "
+                              "bytes", design, y, long_idx, alpha_l, 0, delta,
+                              _fused_kw(10**6))
+    name = "sparse_fused_chunk_en" if sparse else "dense_fused_chunk_en"
+    torch.cuda.synchronize()
+    return {name: max(err, err2, err3), "vertex_argmax_shifted": 0.0,
+            "vertex_argmax_shifted_lanes": 0.0, "step_tail_en": 0.0, "step_tail_en_lanes": 0.0}
+
+
+class StarRecorder:
+    """``fw_path`` step hook keeping, for the first grid points, each step's
+    vertex (a device tensor: no sync)."""
+
+    def __init__(self, n_points):
+        self.n_points = n_points
+        self.i_star = [[] for _ in range(n_points)]
+
+    def __call__(self, g, state):
+        if g < self.n_points:
+            self.i_star[g].append(state.i_star)
+
+    sequence = Recorder.sequence
+
+
+def _ext_gap(torch, oracle, design, y, pt):
+    """The certified duality gap of a path point, with the oracle's own
+    gradient (``oracle.gap``: one full pass)."""
+    alpha = _alpha_from_point(torch, pt, design.shape[0], design.device)
+    return float(oracle.gap(design, y, alpha, torch.tensor(pt.reg, device=design.device)))
+
+
+def _check_launches(tag, launches, equal, zero):
+    for names, n in equal:
+        for name in names:
+            check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    for name in zero:
+        check(launches[name] == 0, f"{tag}: launched {name} {launches[name]} times")
+
+
+def _ext_path(torch, tag, design, y, deltas, cfg, oracle, n_rec, batched=0):
+    """One path through ``fw_path`` (or, with ``batched`` lanes,
+    ``fw_path_batched``), its points printed and checked, the launches
+    counted; returns (launches, run). The densest point's certified gap,
+    with the oracle's own gradient, must be finite."""
+    from repro_torch import kernels
+    from repro_torch.core import engine, fw_path, fw_path_batched
+
+    rec = StarRecorder(n_rec)
+    steps = [0]
+
+    def count(state, active):
+        steps[0] += 1
+
+    kernels.reset_launch_counts()
+    if batched:
+        res = fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=batched, oracle=oracle,
+                              device=design.device, solve_batched_fn=lambda *a: (
+                                  engine.solve_batched_prepared(*a, on_step=count)))
+    else:
+        res = fw_path(design, y, deltas, cfg, seed=0, oracle=oracle, device=design.device,
+                      on_step=rec)
+    launches = kernels.launch_counts()
+    _print_points(tag, res, cfg, oracle.extra_dots)
+    extra = f", {steps[0]} batched steps, saved_iters {res.saved_iters}" if batched else ""
+    print(f"[{tag}] {res.total_seconds:.3f} s for {len(res.points)} points{extra}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    gap = _ext_gap(torch, oracle, design, y, res.points[-1])
+    print(f"[{tag}] densest point: objective {res.points[-1].objective!r}, certified duality "
+          f"gap {gap!r}")
+    check(math.isfinite(gap) and gap >= -1e-4 * max(abs(res.points[-1].objective), 1.0),
+          f"{tag}: certified gap")
+    return launches, dict(res=res, rec=rec, cfg=cfg, deltas=deltas, steps=steps[0],
+                          label=tag)
+
+
+def phase3_en_paths(torch, design, y, coef, layout):
+    """The elastic-net path (ENOracle(l2=1.0)) at full width over the lasso
+    path's 100-point grid: fused at K = 8 (K4 or K7 with the ledger and the
+    replay once a chunk; K1 or K6 once a point), its first 3 points one step
+    per dispatch (the scores, the shifted argmax and the EN tail once a
+    step), and through ``fw_path_batched`` in lanes of 13 (the lane scores,
+    the shifted lane argmax and the EN lane tail once a batched step)."""
+    from repro_torch.core import ENOracle, delta_grid
+
+    sparse = layout == "sparse"
+    p = design.shape[0]
+    oracle = ENOracle(l2=EN_L2)
+    fused_cfg = sparse_config(p) if sparse else main_config(p, "kernels", FUSE)
+    cfg1 = dataclasses.replace(fused_cfg, fuse_steps=1)
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)
+    print(f"[en-{layout}] ENOracle(l2={EN_L2}) p={p:,} kappa={fused_cfg.kappa:,} "
+          f"max_iters={fused_cfg.max_iters} tol={fused_cfg.tol} points={N_POINTS} "
+          f"delta_max={deltas[-1]:.6g}")
+    colstats = "sparse_colstats" if sparse else "colstats"
+    scores = "sparse_sampled_scores" if sparse else "sampled_scores"
+    chunk = "sparse_fused_chunk_en" if sparse else "dense_fused_chunk_en"
+    lasso_only = ("dense_fused_chunk", "sparse_fused_chunk", "vertex_argmax", "step_tail",
+                  "vertex_argmax_lanes", "step_tail_lanes", "residual_update")
+    out = {}
+
+    l_f, fused = _ext_path(torch, f"en-{layout}-fused", design, y, deltas, fused_cfg, oracle,
+                           EN_UNFUSED)
+    chunks = sum(-(-pt.iterations // FUSE) for pt in fused["res"].points)
+    _check_launches(f"en-{layout}-fused", l_f, [((chunk, "fused_replay"), chunks),
+                                               ((colstats,), N_POINTS)],
+                    lasso_only + (scores, "vertex_argmax_shifted", "step_tail_en"))
+    out[chunk] = l_f[chunk]
+
+    l_1, unfused = _ext_path(torch, f"en-{layout}-unfused", design, y, deltas[:EN_UNFUSED],
+                             cfg1, oracle, EN_UNFUSED)
+    _check_launches(f"en-{layout}-unfused", l_1,
+                    [((scores, "vertex_argmax_shifted", "step_tail_en"),
+                      unfused["res"].total_iters), ((colstats,), EN_UNFUSED)],
+                    lasso_only + (chunk, "fused_replay"))
+    out["vertex_argmax_shifted"] = l_1["vertex_argmax_shifted"]
+    out["step_tail_en"] = l_1["step_tail_en"]
+
+    l_b, batched = _ext_path(torch, f"en-{layout}-batched", design, y, deltas, cfg1, oracle, 0,
+                             batched=LANE_WIDTH)
+    lane_scores = "sparse_sampled_scores_lanes" if sparse else "sampled_scores_lanes"
+    _check_launches(f"en-{layout}-batched", l_b,
+                    [((lane_scores, "vertex_argmax_shifted_lanes", "step_tail_en_lanes"),
+                      batched["steps"]), ((colstats,), -(-N_POINTS // LANE_WIDTH))],
+                    lasso_only + (chunk, scores, "vertex_argmax_shifted", "step_tail_en"))
+    out["vertex_argmax_shifted_lanes"] = l_b["vertex_argmax_shifted_lanes"]
+    out["step_tail_en_lanes"] = l_b["step_tail_en_lanes"]
+    f, b = fused["res"], batched["res"]
+    print(f"[en-{layout}] fused K={FUSE}: {f.total_seconds:.3f} s, {f.total_iters} iterations; "
+          f"batched in lanes of {LANE_WIDTH}: {b.total_seconds:.3f} s, {b.total_iters} "
+          f"lane-iterations; densest objectives {f.points[-1].objective!r} / "
+          f"{b.points[-1].objective!r}")
+    return out, dict(fused=fused, unfused=unfused, batched=batched, oracle=oracle)
+
+
+def phase3_logistic_paths(torch, design, y, coef, layout):
+    """The logistic path (labels sign(y) + (y == 0), max_iters 2000, tol
+    1e-4) at full width over a 10-point grid to the lasso's delta_max: on
+    the sparse layout all 10 points, sequential and in lanes of 4 (the
+    reference family's batched logistic path); on the dense one its first
+    3. Per step the scores (K2 or K5) and the lasso's argmax on the card,
+    the bisection tail in plain PyTorch (no tail kernel, no column
+    statistics)."""
+    from repro_torch.core import LOGISTIC, delta_grid
+
+    sparse = layout == "sparse"
+    p = design.shape[0]
+    yl = logistic_labels(torch, y)
+    base = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    cfg = dataclasses.replace(base, max_iters=LOG_MAX_ITERS, tol=LOG_TOL)
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=LOG_POINTS)
+    deltas = deltas if sparse else deltas[:LOG_POINTS_DENSE]
+    print(f"[log-{layout}] LOGISTIC p={p:,} kappa={cfg.kappa:,} max_iters={cfg.max_iters} "
+          f"tol={cfg.tol} points={len(deltas)} of a {LOG_POINTS}-point grid to "
+          f"{float(deltas[-1]):.6g}; labels +1 {int((yl > 0).sum())}, -1 {int((yl < 0).sum())}")
+    scores = "sparse_sampled_scores" if sparse else "sampled_scores"
+    never = ("colstats", "sparse_colstats", "step_tail", "step_tail_en", "step_tail_lanes",
+             "step_tail_en_lanes", "dense_fused_chunk", "sparse_fused_chunk",
+             "dense_fused_chunk_en", "sparse_fused_chunk_en", "fused_replay",
+             "vertex_argmax_shifted", "vertex_argmax_shifted_lanes", "residual_update")
+    l_s, seq = _ext_path(torch, f"log-{layout}", design, yl, deltas, cfg, LOGISTIC,
+                         N_EXT_COMPARE)
+    _check_launches(f"log-{layout}", l_s, [((scores, "vertex_argmax"), seq["res"].total_iters)],
+                    never)
+    runs = dict(seq=seq, y=yl)
+    if sparse:
+        l_b, bat = _ext_path(torch, f"log-{layout}-batched", design, yl, deltas, cfg, LOGISTIC,
+                             0, batched=LOG_LANES)
+        _check_launches(f"log-{layout}-batched", l_b,
+                        [(("sparse_sampled_scores_lanes", "vertex_argmax_lanes"), bat["steps"])],
+                        never + (scores, "vertex_argmax"))
+        runs["batched"] = bat
+    return runs
+
+
+def _point_start(torch, design, deltas, run, g):
+    """Point g's start in ``run``: its warm start (from the run's point g -
+    1, scaled to delta_g; None at g = 0) and its sampler seed."""
+    from repro_torch.core.path import point_seed
+
+    a0 = None
+    if g > 0:
+        prev = run["res"].points[g - 1]
+        a0 = _alpha_from_point(torch, prev, design.shape[0], design.device) * (
+            float(deltas[g]) / prev.l1)
+    return a0, point_seed(0, g)
+
+
+def _replay_state(torch, oracle, design, y, cfg, deltas, run, g, t):
+    """Run ``run``'s point g again up to its step t (its sampler seed, its
+    warm start from its point g - 1, one step per dispatch): the state
+    before step t, and the sampled indices of step t."""
+    from repro_torch.core import engine
+    from repro_torch.core.vertex import TorchSampler
+
+    p, dev = design.shape[0], design.device
+    a0, seed = _point_start(torch, design, deltas, run, g)
+    state = [engine.init_state(oracle, design, y, a0, cfg)]
+    if t:
+        engine.solve_prepared(oracle, design, y, dataclasses.replace(
+            cfg, max_iters=t, tol=0.0, patience=10**9), TorchSampler(seed, dev), a0,
+            float(deltas[g]), on_step=lambda s: state.__setitem__(0, s))
+    sampler = TorchSampler(seed, dev)
+    for _ in range(t + 1):
+        idx = sampler.uniform(cfg.kappa, p)
+    return state[0], idx
+
+
+# a step's stall test, as a row of its trace: the sampled gap num, its
+# gap_scale, Q before the step, the gap flag num <= gap_rtol * gap_scale,
+# the stall flag (the step's stall counter > 0: the gap flag or step_inf <=
+# tol) and step_inf
+STALL_COLS = ("num", "gap_scale", "Q", "gap_flag", "stall_flag", "step_inf")
+
+
+def _stall_trace_unfused(torch, oracle, design, y, cfg, delta, a0, seed):
+    """An EN point one step per dispatch, each step's stall test read at
+    its tail: num and gap_scale from the tail's inputs in its kernel's op
+    order (``en_ls_closed_form``'s; the kernel matches it bit for bit), the
+    stall flag and step_inf from its outputs. Returns (iterations, the
+    (steps, 6) trace)."""
+    from repro_torch.core import engine, vertex
+    from repro_torch.core.vertex import TorchSampler
+
+    rows, real = [], vertex.step_tail
+    rtol = torch.tensor(cfg.gap_rtol, dtype=torch.float32, device=design.device)
+
+    def tail(Xt, yy, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g, dlt,
+             cfg_, en=None):
+        a_star = scale.float() * beta.index_select(0, i_star.view(1)).view(()).float()
+        dt = -dlt * torch.sign(en.g_sel.float())
+        s, f, q, gx, l2 = s_quad.float(), f_lin.float(), en.q_norm.float(), g.float(), en.l2
+        num = s - dt * gx - f + l2 * (q - dt * a_star)
+        gs = s + torch.abs(f) + torch.abs(dt * gx) + l2 * (q + torch.abs(dt * a_star))
+        out = real(Xt, yy, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g,
+                   dlt, cfg_, en)
+        rows.append(torch.stack([num, gs, q, (num <= rtol * gs).float(),
+                                 (out[4] > 0).float(), out[3].float()]))
+        return out
+
+    vertex.step_tail = tail
+    try:
+        res = engine.solve_prepared(oracle, design, y, cfg, TorchSampler(seed, design.device),
+                                    a0, delta)
+    finally:
+        vertex.step_tail = real
+    return res.iterations, torch.stack(rows).double().cpu()
+
+
+def _stall_trace_fused(torch, oracle, design, y, cfg, delta, a0, seed):
+    """An EN point in K-step chunks through K4 or K7, each step's stall
+    test read from the chunk's record (the kernel's num, gap_scale, Q and
+    gap flag) and its stall flag and step_inf from the replay run again
+    one record at a time on a copy of the state (which must end on the
+    whole chunk's replay, bit for bit). Returns (iterations, the trace)."""
+    from repro_torch.core import engine, vertex
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+
+    rows, pending = [], []
+    real_chunk, real_replay = vertex.run_fused_kernel, engine._fused_replay
+
+    def chunk(*args):
+        out = real_chunk(*args)
+        lam = out[1]  # column 0 of the chunk's (K, REC) record rows
+        pending.append(lam.as_strided((lam.shape[0], fs.REC), (fs.REC, 1)))
+        return out
+
+    def replay(state, cfg_, i_stars, lams, delta_ts, no_progs):
+        recs = pending.pop()
+        st = (state.beta.clone(), state.scale, state.maxabs, state.step_inf, state.stall)
+        for t in range(min(i_stars.shape[0], cfg_.max_iters - state.k)):
+            one = slice(t, t + 1)
+            st = fs.fused_replay(*st, i_stars[one], lams[one], delta_ts[one], no_progs[one],
+                                 state.k + t, cfg_)
+            rows.append(torch.stack([recs[t, 5], recs[t, 6], recs[t, 7], recs[t, 4],
+                                     (st[4] > 0).float(), st[3].float()]))
+        out = real_replay(state, cfg_, i_stars, lams, delta_ts, no_progs)
+        check(all(_same_bits(torch, a, b) for a, b in zip(out, st)),
+              "the fused replay one record at a time differs from the chunk's")
+        return out
+
+    vertex.run_fused_kernel, engine._fused_replay = chunk, replay
+    try:
+        res = engine.solve_prepared(oracle, design, y, cfg, TorchSampler(seed, design.device),
+                                    a0, delta)
+    finally:
+        vertex.run_fused_kernel, engine._fused_replay = real_chunk, real_replay
+    return res.iterations, torch.stack(rows).double().cpu()
+
+
+def _stall_split(torch, oracle, design, y, a, b, g, n):
+    """Why fused run ``a`` stopped more than K - 1 steps after unfused run
+    ``b`` at point g, on the same n vertices: run both again with their
+    stall tests traced. Every step of the n whose stall flag differs must
+    sit within RTOL_STALL of its threshold in both runs (rounding that the
+    two runs' differences can cross): a gap flag within RTOL_STALL *
+    gap_scale of gap_rtol * gap_scale, or step_inf within RTOL_STALL * tol
+    of tol. With no such step, a's streak must break after step n inside
+    the chunk that b's stop fell in. Prints each such step with both runs'
+    readings and Q's share of the gap's difference; returns a note."""
+    cfg_a, cfg_b, deltas = a["cfg"], b["cfg"], b["deltas"]
+    a0, seed = _point_start(torch, design, deltas, b, g)
+    delta = float(deltas[g])
+    it_a, ta = _stall_trace_fused(torch, oracle, design, y, cfg_a, delta, a0, seed)
+    it_b, tb = _stall_trace_unfused(torch, oracle, design, y, cfg_b, delta, a0, seed)
+    check(it_a == a["res"].points[g].iterations and it_b == b["res"].points[g].iterations,
+          f"point {g}: the traced runs took {it_a}/{it_b} iterations, the paths "
+          f"{a['res'].points[g].iterations}/{b['res'].points[g].iterations}")
+    rtol = torch.tensor(cfg_a.gap_rtol, dtype=torch.float32)
+    gap_a = (ta[:, 0].float() <= rtol * ta[:, 1].float()).double()
+    check(torch.equal(gap_a, ta[:, 3]), f"point {g}: a fused record's gap flag is not num <= "
+          "gap_rtol * gap_scale")
+    check(bool((tb[:, 4] >= tb[:, 3]).all()), f"point {g}: an unfused step with its gap flag "
+          "kept no stall")
+    differ = (ta[:n, 4] != tb[:n, 4]).nonzero().view(-1).tolist()
+    tol = cfg_a.tol
+    print(f"[stall] point {g}: {n} shared steps, stall flags differ at steps {differ} "
+          f"(fused {it_a} steps, unfused {it_b}; gap_rtol {cfg_a.gap_rtol:g}, tol {tol:g})")
+    worst = 0.0
+    for t in differ:
+        ra, rb = ta[t].tolist(), tb[t].tolist()
+        da, db = dict(zip(STALL_COLS, ra)), dict(zip(STALL_COLS, rb))
+        if da["gap_flag"] != db["gap_flag"]:
+            marg = [(d["num"] - cfg_a.gap_rtol * d["gap_scale"]) / d["gap_scale"]
+                    for d in (da, db)]
+            dnum = da["num"] - db["num"]
+            dq = EN_L2 * (da["Q"] - db["Q"])
+            print(f"[stall] step {t}: gap flag fused {int(da['gap_flag'])} unfused "
+                  f"{int(db['gap_flag'])}; num {da['num']!r} / {db['num']!r}, gap_scale "
+                  f"{da['gap_scale']!r} / {db['gap_scale']!r}, margin/gap_scale {marg[0]:.3e} / "
+                  f"{marg[1]:.3e}; num diff {dnum:.4g} ({dnum / db['gap_scale']:.3e} of "
+                  f"gap_scale), of it l2 * (Q diff) {dq:.4g} (Q {da['Q']!r} / {db['Q']!r})")
+            kind, m_ab = "gap", max(abs(x) for x in marg)
+        elif (da["step_inf"] <= tol) != (db["step_inf"] <= tol):
+            marg = [(d["step_inf"] - tol) / tol for d in (da, db)]
+            print(f"[stall] step {t}: step_inf fused {da['step_inf']!r} unfused "
+                  f"{db['step_inf']!r} against tol {tol:g}: margin/tol {marg[0]:.3e} / "
+                  f"{marg[1]:.3e}")
+            kind, m_ab = "step_inf", max(abs(x) for x in marg)
+        else:
+            check(False, f"point {g} step {t}: stall flags differ, neither test does")
+        check(m_ab <= RTOL_STALL, f"point {g} step {t}: the {kind} test's flags differ "
+              f"{m_ab:.3e} of its scale from its threshold (more than rounding, {RTOL_STALL:g})")
+        worst = max(worst, m_ab)
+    if differ:
+        return (f"same vertices for {n} steps; the stall flags differ at {len(differ)} of them, "
+                f"each within {worst:.2e} of its threshold (rounding)")
+    K = cfg_a.fuse_steps
+    end = min(-(-n // K) * K, it_a)
+    breaks = [t for t in range(n, end) if ta[t, 4] == 0]
+    check(bool(breaks), f"point {g}: equal stall flags over {n} steps and no break of the "
+          f"fused streak in steps {n}..{end - 1}")
+    return (f"same vertices and stall flags for {n} steps; the fused streak broke at step "
+            f"{breaks[0]}, inside the chunk of the unfused stop")
+
+
+def _compare_ext(torch, design, y, oracle, a, b, max_overshoot, split=None):
+    """Run ``a`` against run ``b`` (one step per dispatch) over their first
+    points, from the same sampler seeds: vertex sequences equal up to the
+    first difference, which must be a near-tie of the oracle's selected
+    scores on b's state before that step (rebuilt by replaying b); a stop
+    of ``a`` at most ``max_overshoot`` steps after ``b``'s while they agree,
+    or later where ``split`` (``_stall_split``) shows why; objectives within
+    RTOL_OBJ_SAME while they agree, and after within RTOL_OBJ_APART or
+    within the larger of the two points' certified gaps."""
+    la, lb, deltas = a["label"], b["label"], b["deltas"]
+    apart = False
+    for g in range(min(a["rec"].n_points, b["rec"].n_points)):
+        pa, pb = a["res"].points[g], b["res"].points[g]
+        sa, sb = a["rec"].sequence(g), b["rec"].sequence(g)
+        note = "runs already apart"
+        if not apart:
+            common = min(len(sa), len(sb))
+            diff = (sa[:common] != sb[:common]).nonzero().view(-1)
+            if diff.numel():
+                t = int(diff[0])
+                state, idx = _replay_state(torch, oracle, design, y, b["cfg"], deltas, b, g, t)
+                w = oracle.cograd(state.co, y)
+                sel = _scores(torch, design, idx, w.float())
+                shift = oracle.score_extra(state.beta, state.scale)
+                if shift is not None:
+                    sel = sel + shift(idx)
+                margin = _top2_margin(torch, sel.abs(), idx)
+                wnorm = float(torch.linalg.vector_norm(w.float()))
+                check(margin <= RTOL_TIE * wnorm,
+                      f"point {g} step {t}: vertex {int(sa[t])} ({la}) vs {int(sb[t])} ({lb}) "
+                      f"with top-2 margin {margin:.3e} = {margin / wnorm:.2e} ||w||: no near-tie")
+                note = (f"same vertices for {t} steps, then a near-tie (margin "
+                        f"{margin / wnorm:.2e} ||w||)")
+                apart = True
+            elif len(sa) != len(sb):
+                over = len(sa) - len(sb)
+                check(0 <= over and (over <= max_overshoot or split is not None),
+                      f"point {g}: {la} stopped {over} steps after {lb}, the same trajectory "
+                      f"(at most {max_overshoot})")
+                note = f"same vertices for {common} steps, {la} stopped {over} steps after {lb}"
+                if over > max_overshoot:
+                    note = split(torch, oracle, design, y, a, b, g, common)
+                apart = True
+            else:
+                note = f"identical vertex sequence ({common} steps)"
+        rtol = RTOL_OBJ_APART if apart else RTOL_OBJ_SAME
+        rel = abs(pa.objective - pb.objective) / max(abs(pb.objective), 1e-30)
+        print(f"[compare] {la} vs {lb} point {g}: iters {pa.iterations}/{pb.iterations} "
+              f"objective {pa.objective!r}/{pb.objective!r} rel diff {rel:.2e} (rtol {rtol:g}): "
+              f"{note}")
+        if apart and rel > rtol:
+            gaps = [_ext_gap(torch, oracle, design, y, pt) for pt in (pa, pb)]
+            diff_f = abs(pa.objective - pb.objective)
+            print(f"[compare] point {g}: |objective diff| {diff_f:.6g} against the certified "
+                  f"gaps {gaps[0]:.6g} ({la}) and {gaps[1]:.6g} ({lb})")
+            check(diff_f <= max(gaps), f"point {g}: objectives differ by {diff_f:.6g}, more "
+                  "than either run's certified gap")
+        else:
+            check(rel <= rtol, f"{la} vs {lb} point {g}: objectives differ by {rel:.2e}")
+
+
+def phase4_extensions(torch, design, y, en, log, layout):
+    """The elastic-net's fused path against its unfused first points, and
+    each oracle's kernels against the plain route ('torch' dense, the plain
+    sparse ops) on the first points, with the near-tie rule. The fused EN
+    chunk matches the unfused steps to rounding (the ledger reassociates
+    scale * beta, src/repro/kernels/fused_step/fused_step.py:48-56), which
+    can move a stall test: a stop more than K - 1 steps after the unfused
+    one is traced (``_stall_split``) and splits the runs, whose objectives
+    and certified gaps are then compared."""
+    sparse = layout == "sparse"
+    plain = dict(sparse_kernel=False) if sparse else dict(backend="torch")
+    _compare_ext(torch, design, y, en["oracle"], dict(en["fused"], label=f"en-{layout}-fused"),
+                 en["unfused"], FUSE - 1, _stall_split)
+    for label, oracle, run, yy in (("en", en["oracle"], en["unfused"], y),
+                                   ("log", None, log["seq"], log["y"])):
+        from repro_torch.core import LOGISTIC
+
+        oracle = LOGISTIC if oracle is None else oracle
+        cfg = dataclasses.replace(run["cfg"], **plain)
+        _, ref = _ext_path(torch, f"{label}-{layout}-plain", design, yy,
+                           run["deltas"][:N_EXT_COMPARE], cfg, oracle, N_EXT_COMPARE)
+        _compare_ext(torch, design, yy, oracle, run, ref, 0)
+
+
+def _oracle_step_ms(torch, oracle, design, y, stats, cfg, delta, n_steps=200):
+    """The host-clock ms of one step (a fixed run of ``n_steps`` after a
+    warm-up, each run ending in a device sync) and its device busy ms
+    (``torch.profiler`` over 50 more; None when it reports no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.core.vertex import TorchSampler
+
+    def run(n, seed):
+        c = dataclasses.replace(cfg, max_iters=n, tol=0.0, patience=10**9)
+        state0 = engine.init_state(oracle, design, y, None, c)
+        engine.run_loop(oracle, design, y, stats, state0, c, delta, 10**9,
+                        TorchSampler(seed, design.device))
+
+    run(n_steps, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n_steps, 5)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(50, 9)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in rows)
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 50:.2f} us"
+                    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:4])
+    launches = sum(e.count for e in rows) / 50
+    return wall, (total_us / 1e3 / 50 if total_us > 0 else None), top, launches
+
+
+def phase5_ext_timing(torch, design, y, layout):
+    """The elastic-net's instantiations at the path's shapes (CUDA events,
+    queued back to back) beside their bounds and plain versions, and the
+    elastic-net and logistic steps' wall and device ms and idle share (one
+    step per dispatch, and the EN step at K = 8)."""
+    from repro_torch.core import LOGISTIC, ENOracle, FWConfig, LaneSampler, engine
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+
+    sparse = layout == "sparse"
+    dev = design.device
+    p, m = design.shape[0], design.shape[1]
+    cfg = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    kappa, L = cfg.kappa, LANE_WIDTH
+    suffix = "_sparse" if sparse else ""
+    out = {}
+
+    def row(name, ms, plain_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        print(f"[timing] {name}: {ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, library "
+              f"null{note}")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    sampler = TorchSampler(43, dev)
+    idxs = [sampler.uniform(kappa, p) for _ in range(4)]
+    beta = torch.zeros(p, device=dev)
+    beta[idxs[0][:300]] = torch.randn(idxs[0][:300].numel(), generator=g, device=dev)
+    shift = fw.ScoreShift(beta, torch.tensor(0.8, device=dev), EN_L2)
+    r = y.float()
+    if sparse:
+        scores = sg.sparse_sampled_scores(design.values, design.rows, r, idxs[0], 1)
+    else:
+        scores = fw.sampled_scores(design, r, idxs[0], 1)
+    row("vertex_argmax_shifted" + suffix,
+        _time_queued(torch, lambda i: fw.vertex_argmax_shifted(scores, idxs[0], 1, p, shift), 400),
+        _time_queued(torch, lambda i: fw.argmax_shifted_plain(scores, idxs[0], 1, p, shift), 40),
+        kappa * 4 + kappa * 8 + kappa * 4 + 4 + 16, 5 * kappa,
+        note=f" [n = kappa = {kappa}; bytes: the scores, their ids, beta at them, the scale]")
+    ids = torch.arange(L, dtype=torch.int32, device=dev)
+    blk = torch.stack([sampler.uniform(kappa, p) for _ in range(L)])
+    rl = y.float().expand(L, m).contiguous()
+    if sparse:
+        lscores = sg.sparse_sampled_scores_lanes(design.values, design.rows, rl, blk, 1, ids)
+    else:
+        lscores = fw.sampled_scores_lanes(design, rl, blk, 1, ids)
+    nzi = idxs[0][:300].unique()
+    lshift = fw.ScoreShift(torch.zeros((L, p), device=dev).index_copy_(
+        1, nzi, torch.randn((L, nzi.numel()), generator=g, device=dev)),
+        torch.full((L,), 0.8, device=dev), EN_L2)
+    row("vertex_argmax_shifted_lanes" + suffix,
+        _time_queued(torch, lambda i: fw.vertex_argmax_shifted_lanes(lscores, blk, 1, p, ids, lshift), 400),
+        _time_queued(torch, lambda i: fw.argmax_shifted_lanes_plain(lscores, blk, 1, p, ids,
+                                                                    lshift), 2),
+        L * (kappa * 16 + 4 + 16), 5 * L * kappa, note=f" [{L} lanes, n = kappa a lane]")
+    del lshift
+
+    tcfg = FWConfig(delta=5.0)
+    mat = (design.values, design.rows) if sparse else design
+    beta_t, targs = _tail_args(torch, g, p, m, torch.float32, int(idxs[0][0]))
+    en = st.ENTail(torch.tensor(-3.25, device=dev), torch.tensor(40.0, device=dev), EN_L2)
+    nnz = design.nnz_max if sparse else 0
+    tail_bytes = (3 * m * 4 + nnz * 8 if sparse else 4 * m * 4) + 72
+    row("step_tail_en" + suffix,
+        _time_queued(torch, lambda i: st.step_tail_en(mat, beta_t, *targs, tcfg, en=en), 400),
+        _time_queued(torch, lambda i: st.step_tail_plain(mat, beta_t, *targs, tcfg, en=en), 10),
+        tail_bytes, 5 * m, note=f" [m={m}, no renorm]")
+    lbeta, largs = _lane_tail_state(torch, g, p, m, torch.float32, L)
+    largs = (torch.full((L,), 0.9, device=dev),) + largs[1:]
+    len_ = st.ENTail(largs[11] + 0.5, torch.full((L,), 40.0, device=dev), EN_L2)
+    row("step_tail_en_lanes" + suffix,
+        _time_queued(torch, lambda i: st.step_tail_en_lanes(mat, lbeta, *largs, ids, tcfg,
+                                                            en=len_), 400),
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(mat, lbeta, *largs, ids, tcfg,
+                                                               en=len_), 1),
+        L * tail_bytes, L * 5 * m, note=f" [{L} lanes, m={m}, no renorm]")
+    del lbeta, largs, beta_t, targs
+
+    stats = engine.precompute_colstats(design, y, cfg)
+    delta = torch.tensor(50.0, device=dev)
+    chunks = []
+    for _ in range(4):
+        cidx = sampler.uniform_chunk(FUSE, kappa, p)
+        chunks.append((cidx, stats.zty[cidx], stats.znorm2[cidx],
+                       torch.randn((FUSE, kappa), generator=g, device=dev) * 0.01))
+    zero = torch.zeros((), device=dev)
+    kw = dict(_fused_kw(10**6), oracle=ENOracle(l2=EN_L2))
+    name = "sparse_fused_chunk_en" if sparse else "dense_fused_chunk_en"
+    head = (design.values, design.rows) if sparse else (design,)
+    fn, plain = ((fs.sparse_fused_chunk_en, fs.sparse_fused_chunk_plain) if sparse
+                 else (fs.dense_fused_chunk_en, fs.dense_fused_chunk_plain))
+
+    def chunk(i, f=fn):
+        cidx, zty_s, zn2_s, alpha_s = chunks[i % 4]
+        return f(*head, y, y, (zero, zero, zero), cidx, zty_s, zn2_s, 0, delta,
+                 alpha_s=alpha_s, **kw)
+
+    if sparse:
+        nz = sum(int(torch.count_nonzero(design.values.view(-1, nnz)[c[0].reshape(-1)]))
+                 for c in chunks) / len(chunks)
+        step_bytes = kappa * nnz * 4 + kappa * 20 + 3 * m * 4
+        chunk_bytes, chunk_flops = FUSE * step_bytes + nz * 4, 2 * nz
+    else:
+        step_bytes = kappa * m * 4 + kappa * 20 + 3 * m * 4
+        chunk_bytes, chunk_flops = FUSE * step_bytes, FUSE * 2 * kappa * m
+    row(name, _time_queued(torch, chunk, 20), _time_queued(torch, lambda i: chunk(i, plain), 2),
+        chunk_bytes, chunk_flops, note=f" [one chunk of K={FUSE}, kappa={kappa}, m={m}]")
+    print(f"[timing] {name} per step: {out[name]['ms'] / FUSE:.6f} ms, bound "
+          f"{out[name]['bound_ms'] / FUSE:.6f} ms")
+
+    # the steps: wall, device busy, idle share
+    yl = logistic_labels(torch, y)
+    for label, oracle, yy, fuse in (("elastic-net", ENOracle(l2=EN_L2), y, 1),
+                                    (f"elastic-net K={FUSE}", ENOracle(l2=EN_L2), y, FUSE),
+                                    ("logistic", LOGISTIC, yl, 1)):
+        scfg = dataclasses.replace(cfg, fuse_steps=fuse)
+        sstats = stats if oracle.needs_stats else None
+        wall, busy, top, n_launch = _oracle_step_ms(torch, oracle, design, yy, sstats, scfg,
+                                                    delta, n_steps=160 if fuse > 1 else 200)
+        busy_txt = ("device busy not measured (the profiler reported no device time)"
+                    if busy is None else
+                    f"device busy {busy:.4f} ms ({n_launch:.1f} kernels and copies a step; "
+                    f"{top}), idle {100 * (1 - busy / wall):.1f}%")
+        print(f"[timing] {label} step ({layout}): wall {wall:.4f} ms per iteration; {busy_txt}")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

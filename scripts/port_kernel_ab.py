@@ -22,9 +22,16 @@
 - the one-lane launches that the batched lanes share their kernels with:
   K2's ``sampled_scores`` at the paper's dense size (kappa = 1% of p,
   width 1), the argmax above, and the step's ``step_tail`` on both
-  layouts (no renorm), beside K5 above.
+  layouts (no renorm), beside K5 above;
+- the lasso's lane launches of the argmax and the tail at 13 lanes, at the
+  paper's dense size (kappa = 1% of p a lane; m = 800, no renorm).
 
-For K2's scores, the argmax, the tail, K5, K7, the replay and K4 it also
+The argmax, the tail, K4 and K7 also have elastic-net instantiations (the
+score shift, the EN line search, the alpha ledger); every launch timed
+here is the lasso's, whose bits and time those must leave alone.
+
+For K2's scores, the argmax, the tail, K5, K7, the replay, K4 and the lane
+argmax and tail it also
 prints a sha256 digest of every output byte (records, final residual and
 (S, F, Q); or beta and the statistics), so two versions that agree bit for
 bit print the same digests. The
@@ -90,6 +97,7 @@ def main(argv=None):
     from repro_torch.kernels import fw_grad as fw
     from repro_torch.kernels import sparse_colstats as sc
     from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
 
     card = cs.card_line()
     _build.build()
@@ -158,8 +166,6 @@ def main(argv=None):
 
     def tail_times(name, mat, p, m, nbytes, note):
         """The step's tail, one lane, from chip_smoke's fixed state."""
-        from repro_torch.kernels import step_tail as st
-
         gen = torch.Generator(device=dev)
         gen.manual_seed(6)
         tcfg = FWConfig(delta=5.0)
@@ -258,6 +264,33 @@ def main(argv=None):
     record("sampled_scores", t, f" [kappa={kappa}, m={m}, width 1; library: torch.mv on "
                                 "Xt.index_select]")
     tail_times("step_tail_dense", Xt, p, m, 4 * m * 4 + 64, f" [dense, m={m}, no renorm]")
+
+    # ---- the lasso's lane argmax and lane tail, 13 lanes ------------------------
+    L = cs.LANE_WIDTH
+    ids = torch.arange(L, dtype=torch.int32, device=dev)
+    lblk = torch.stack([TorchSampler(50 + k, dev).uniform(kappa, p) for k in range(L)])
+    lscores = fw.sampled_scores_lanes(Xt, y.float().expand(L, m).contiguous(), lblk, 1, ids)
+    t = dict(ms=cs._time_queued(torch, lambda i: fw.vertex_argmax_lanes(lscores, lblk, 1, p, ids),
+                                400),
+             plain_ms=cs._time_queued(torch, lambda i: fw.argmax_lanes_plain(lscores, lblk, 1, p,
+                                                                             ids), 5),
+             nbytes=L * (kappa * 12 + 12), flops=3 * L * kappa,
+             digest=digest(fw.vertex_argmax_lanes(lscores, lblk, 1, p, ids)))
+    record("vertex_argmax_lanes", t, f" [{L} lanes, n = kappa = {kappa} a lane]")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    lbeta, largs = cs._lane_tail_state(torch, gen, p, m, torch.float32, L)
+    largs = (torch.full((L,), 0.9, device=dev),) + largs[1:]  # no renorm
+    tcfg = FWConfig(delta=20.0)
+    first = digest(st.step_tail_lanes(Xt, lbeta.clone(), *largs, ids, tcfg))
+    t = dict(ms=cs._time_queued(torch, lambda i: st.step_tail_lanes(Xt, lbeta, *largs, ids, tcfg),
+                                400),
+             # ~75 launches a lane: one call of 13 lanes fills the launch queue
+             plain_ms=cs._time_queued(torch, lambda i: st.step_tail_lanes_plain(
+                 Xt, lbeta, *largs, ids, tcfg), 1),
+             nbytes=L * (4 * m * 4 + 64), flops=5 * L * m, digest=first)
+    record("step_tail_lanes_dense", t, f" [{L} lanes, m={m}, no renorm]")
+    del lbeta, largs, lscores
     stats = engine.precompute_colstats(Xt, y, cs.main_config(p, "kernels"))
     chunk_times("dense_fused_chunk", fs.dense_fused_chunk, fs.dense_fused_chunk_plain, (Xt,), y,
                 stats, TorchSampler(11, dev), m,

@@ -6,19 +6,25 @@ versions when given ``device='cpu'``.
 """
 from repro_torch.core import (
     LASSO,
+    LOGISTIC,
+    ENOracle,
     FWConfig,
     LaneSampler,
+    LogisticOracle,
     StreamSampler,
     TorchSampler,
     delta_grid,
+    en_solve,
     fw_path,
     fw_path_batched,
     fw_solve,
     fw_solve_with_history,
+    logistic_solve,
     solve,
 )
 
 __all__ = [
-    "FWConfig", "LASSO", "LaneSampler", "StreamSampler", "TorchSampler", "delta_grid",
-    "fw_path", "fw_path_batched", "fw_solve", "fw_solve_with_history", "solve",
+    "ENOracle", "FWConfig", "LASSO", "LOGISTIC", "LaneSampler", "LogisticOracle",
+    "StreamSampler", "TorchSampler", "delta_grid", "en_solve", "fw_path", "fw_path_batched",
+    "fw_solve", "fw_solve_with_history", "logistic_solve", "solve",
 ]

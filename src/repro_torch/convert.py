@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import EngineState, resolve_device
+from repro_torch.core.fw_elasticnet import ENCo
 from repro_torch.core.fw_lasso import LassoCo
+from repro_torch.core.fw_logistic import LogisticCo
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.core.vertex import LaneStreamSampler, StreamSampler
 from repro_torch.sparse.matrix import SparseBlockMatrix
@@ -66,18 +68,28 @@ def config_from_reference(fields: dict) -> FWConfig:
 
 
 def state_from_reference(arrays: dict, device="cuda") -> EngineState:
-    """A lasso ``EngineState`` from the reference state's arrays, keyed by
-    their names there: 'beta', 'scale', 'co.resid', 'co.s_quad',
-    'co.f_lin', 'maxabs', 'step_inf', 'stall', 'n_dots', 'k'."""
+    """An ``EngineState`` from the reference state's arrays, keyed by their
+    names there: 'beta', 'scale', the co-state's fields, 'maxabs',
+    'step_inf', 'stall', 'n_dots', 'k'. The co-state's keys say its oracle:
+    'co.margin' the logistic's ``LogisticCo``; 'co.resid', 'co.s_quad',
+    'co.f_lin' the lasso's ``LassoCo``, and with 'co.q_norm' the
+    elastic-net's ``ENCo``."""
     dev = resolve_device(device)
 
     def t(name, dtype=torch.float32):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=dev)
 
+    if "co.margin" in arrays:
+        co = LogisticCo(margin=t("co.margin"))
+    elif "co.q_norm" in arrays:
+        co = ENCo(resid=t("co.resid"), s_quad=t("co.s_quad"), f_lin=t("co.f_lin"),
+                  q_norm=t("co.q_norm"))
+    else:
+        co = LassoCo(resid=t("co.resid"), s_quad=t("co.s_quad"), f_lin=t("co.f_lin"))
     return EngineState(
         beta=t("beta"),
         scale=t("scale"),
-        co=LassoCo(resid=t("co.resid"), s_quad=t("co.s_quad"), f_lin=t("co.f_lin")),
+        co=co,
         maxabs=t("maxabs"),
         step_inf=t("step_inf"),
         stall=t("stall", torch.int32),

@@ -9,8 +9,9 @@ objective-specific pieces through the reference's protocol
 (``init_co``, ``cograd``, ``score_extra``, ``objective``, ``gap``),
 whose ``line_search`` and ``update_co`` the port joins, with the
 coefficient update between them (``apply_coeff_update``), into one
-``tail``, so that the lasso's can run as one launch; ``core.fw_lasso``
-holds the lasso's.
+``tail``, so that the lasso's and the elastic-net's can run as one launch;
+``core.fw_lasso``, ``core.fw_elasticnet`` and ``core.fw_logistic`` hold
+the three oracles.
 
 The loop is a Python ``while`` over ``step``, eager on the device. Every
 scalar the step computes stays a 0-d device tensor, and every gather
@@ -37,7 +38,11 @@ count has reached patience (K-1 steps after the unfused stop at most,
 while the stall streak lasts to that boundary), and max_iters stays
 exact (trailing chunk steps are masked). The kernel emits per-step
 records that ``_fused_replay`` turns into the O(p) coefficient updates
-with the unfused op sequence (``apply_coeff_update``).
+with the unfused op sequence (``apply_coeff_update``). An elastic-net chunk
+also takes the chunk-start alpha values at its samples (``_fused_streams``)
+and, after the replay, reconciles Q with its exact value when the chunk
+crossed a refresh step. The logistic oracle has no fused form: its chunks
+run as unfused steps, bit for bit.
 
 ``solve_with_history`` runs a fixed number of steps and records the
 objective after each (the reference builds it on the telemetry ring; the
@@ -293,15 +298,26 @@ def oracle_gap(oracle, Xt, y, alpha, delta, cfg=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _fused_streams(stats, cfg: FWConfig, p: int, sampler):
+def _fused_streams(oracle, stats, state: EngineState, cfg: FWConfig, p: int, sampler):
     """The chunk's K x kappa uniform index stream (the unfused steps' draws,
-    trailing masked steps included, as the reference draws them) and the
-    column statistics pregathered at it."""
+    trailing masked steps included, as the reference draws them), the
+    column statistics pregathered at it and, for an oracle whose scores
+    read live alpha values (the elastic-net), the chunk-start alpha at it
+    in f32 (None else)."""
     idx = sampler.uniform_chunk(cfg.fuse_steps, cfg.kappa, p)
     flat = idx.view(-1)
     zty_s = stats.zty.index_select(0, flat).view(idx.shape)
     zn2_s = stats.znorm2.index_select(0, flat).view(idx.shape)
-    return idx, zty_s, zn2_s
+    alpha_s = None
+    if oracle.fused_needs_alpha:
+        alpha_s = (state.scale * state.beta.index_select(0, flat)).float().view(idx.shape)
+    return idx, zty_s, zn2_s, alpha_s
+
+
+def q_exact(beta: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Q = ||alpha||^2 from the scaled iterate, the exact refresh of the
+    elastic-net's recursion: ``dot(beta, beta) * scale**2``."""
+    return torch.dot(beta, beta) * scale**2
 
 
 def _fused_replay(state: EngineState, cfg: FWConfig, i_stars, lams, delta_ts, no_progs):
@@ -322,19 +338,26 @@ def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig,
     streams, run the K iterations with the co-state on the device, then
     replay the step records into the coefficient and stopping state."""
     p = state.beta.shape[0]
-    idx, zty_s, zn2_s = _fused_streams(stats, cfg, p, sampler)
+    idx, zty_s, zn2_s, alpha_s = _fused_streams(oracle, stats, state, cfg, p, sampler)
     resid0, scal0 = oracle.fused_pack_co(state.co)
     i_stars, lams, delta_ts, no_progs, resid_out, scal_out = vertex.run_fused_kernel(
-        oracle, Xt, y, resid0, scal0, idx, zty_s, zn2_s, state.k, delta, cfg
+        oracle, Xt, y, resid0, scal0, idx, zty_s, zn2_s, alpha_s, state.k, delta, cfg
     )
     beta, scale, maxabs, step_inf, stall = _fused_replay(
         state, cfg, i_stars, lams, delta_ts, no_progs
     )
     n_active = min(cfg.fuse_steps, cfg.max_iters - state.k)
+    co = oracle.fused_unpack_co(resid_out, scal_out)
+    re = cfg.refresh_every
+    if oracle.fused_needs_alpha and any(k % re == re - 1
+                                        for k in range(state.k, state.k + n_active)):
+        # the chunk has no beta for Q's exact refresh: reconcile Q at chunk
+        # granularity when a live step of the chunk was a refresh step
+        co = co._replace(q_norm=q_exact(beta, scale).to(co.q_norm.dtype))
     return EngineState(
         beta=beta,
         scale=scale,
-        co=oracle.fused_unpack_co(resid_out, scal_out),
+        co=co,
         maxabs=maxabs,
         step_inf=step_inf,
         stall=stall,
@@ -363,9 +386,9 @@ def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
                 sampler) -> EngineState:
     """Advance K = cfg.fuse_steps iterations in one turn of the loop (the
     fused kernel where ``vertex.use_fused_kernel``, K unfused steps
-    otherwise: a bf16 design, or m past the fused kernels' shared-memory
-    caps)."""
-    if vertex.use_fused_kernel(cfg, Xt):
+    otherwise: a bf16 design, or a state past the fused kernels' shared
+    memory)."""
+    if vertex.use_fused_kernel(cfg, Xt, oracle):
         return _fused_kernel_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
     return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
 
@@ -510,10 +533,11 @@ class _LaneIds:
 
 
 def _check_lane_oracle(oracle) -> None:
+    """The lanes run an oracle's ``tail_lanes`` (the lasso's, the
+    elastic-net's and the logistic's have one)."""
     if not hasattr(oracle, "tail_lanes"):
         raise NotImplementedError(
-            f"batched lanes for {type(oracle).__name__} are not ported yet: only the "
-            "lasso's are (the elastic-net and logistic lanes are ROADMAP.md Queue 1 item 8)"
+            f"batched lanes need the oracle's tail_lanes; {type(oracle).__name__} has none"
         )
 
 
@@ -546,9 +570,11 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
     ``i_star`` is -1."""
     p = state.beta.shape[1]
     w = oracle.cograd(state.co, y)
-    i_star, g, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active, lanes)
+    extra = oracle.score_extra(state.beta, state.scale)  # lane-stacked
+    i_star, g_raw, g_sel, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active,
+                                                                lanes, extra)
     beta, scale, maxabs, step_inf, stall, co = oracle.tail_lanes(
-        Xt, y, stats, state, i_star, g, deltas, cfg, active, lanes)
+        Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes)
     return EngineState(
         beta=beta,
         scale=scale,

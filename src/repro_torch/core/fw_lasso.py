@@ -47,6 +47,20 @@ def sf_refresh(s_quad, f_lin, resid, y, k: int, cfg):
     return s_quad, f_lin
 
 
+def refresh_lanes(s_quad, f_lin, resid, y, ks, active, cfg):
+    """Each active lane's periodic exact S/F refresh at its own k, from a
+    residual row of its own, as ``sf_refresh`` takes it (in place on the
+    ``(L,)`` scalars). Returns the lanes refreshed."""
+    done = []
+    for lane, a in enumerate(active):
+        k = ks[lane]
+        if a and (k % cfg.refresh_every) == (cfg.refresh_every - 1):
+            s_quad[lane], f_lin[lane] = sf_refresh(s_quad[lane], f_lin[lane], resid[lane], y, k,
+                                                   cfg)
+            done.append(lane)
+    return done
+
+
 @dataclasses.dataclass(frozen=True)
 class LassoOracle:
     """Problem oracle: 1/2 ||X alpha - y||^2 over the l1 ball."""
@@ -92,24 +106,18 @@ class LassoOracle:
         s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, state.k, cfg)
         return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
 
-    def tail_lanes(self, Xt, y, stats, state, i_star, g, deltas, cfg, active, lanes):
+    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes):
         """``tail`` for the batched engine's lanes (a lane-stacked ``state``;
         ``active`` the host's list of the lanes that step, ``lanes`` their
         int32 device ids): ``vertex.step_tail_lanes`` (one launch on the
         kernels' backends), then each active lane's periodic exact S/F
-        refresh at its own k, from a residual row of its own, as ``tail``
-        takes it."""
+        refresh at its own k (``refresh_lanes``)."""
         co = state.co
         beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin = vertex.step_tail_lanes(
             Xt, y, stats, state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
-            co.resid, co.s_quad, co.f_lin, i_star, g, deltas, cfg, lanes,
+            co.resid, co.s_quad, co.f_lin, i_star, g_sel, deltas, cfg, lanes,
         )
-        for lane, a in enumerate(active):
-            k = state.k[lane]
-            if a and (k % cfg.refresh_every) == (cfg.refresh_every - 1):
-                s, f = sf_refresh(s_quad[lane], f_lin[lane], resid[lane], y, k, cfg)
-                s_quad[lane] = s
-                f_lin[lane] = f
+        refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg)
         return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
 
     # ---- fused K-step chunk protocol --------------------------------------

@@ -55,10 +55,11 @@ class FWConfig:
         K-1 iterations after the unfused stop at most while the stall
         streak lasts to it (max_iters is still exact: trailing chunk steps
         are masked).
-        Fusion engages for the lasso oracle under 'uniform' sampling, where
-        the K x kappa index stream can be drawn ahead of the chunk; the
-        other sampling modes fall back to fuse_steps=1 semantics
-        (``SolveResult.effective_fuse_steps`` says what ran).
+        Fusion engages for the lasso and the elastic-net oracles under
+        'uniform' sampling, where the K x kappa index stream can be drawn
+        ahead of the chunk; the other sampling modes, and the logistic
+        oracle (no closed-form line search), fall back to fuse_steps=1
+        semantics (``SolveResult.effective_fuse_steps`` says what ran).
 
     Also not ported yet, and refused by the solver: ``step_rule !=
     'classic'`` (item 9).

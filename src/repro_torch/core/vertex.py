@@ -5,7 +5,10 @@ This module owns everything between "the oracle handed us an (m,)
 co-gradient vector" and "here is the winning FW vertex": drawing the
 sampling set S (paper §4.1/§4.5), scoring the sampled coordinates on the
 selected backend ('torch' | 'kernels' | 'sparse'), and reducing to the
-argmax. Every score is the linear form ``raw_i = -z_i^T w``. Also here:
+argmax. Every score is the linear form ``raw_i = -z_i^T w``; an oracle
+may shift the selected scores per coordinate (the elastic-net's
+``ScoreShift``, ``sel = raw + l2 * (scale * beta[idx])``), which the
+kernels' backends apply inside K2's argmax launch. Also here:
 the lasso step's tail after the argmax on the matrix's layout
 (``step_tail``, with eq. 10), the fused chunk's routing
 (``use_fused_kernel``), and the full matvecs behind warm starts and the
@@ -40,6 +43,7 @@ import torch
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step, fw_grad
 from repro_torch.kernels import step_tail as _step_tail
+from repro_torch.kernels.fw_grad import ScoreShift  # noqa: F401 (the oracles' shift)
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -253,18 +257,23 @@ def sample_indices(sampler, p: int, cfg: FWConfig, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _torch_vertex(Xt, w, sampler, p, cfg):
+def _torch_vertex(Xt, w, sampler, p, cfg, extra_fn):
     idx = sample_indices(sampler, p, cfg, Xt.device)
     raw = -(Xt.index_select(0, idx) @ w)  # (|S|,) linear scores
-    j = torch.argmax(torch.abs(raw))
-    return take(idx, j), take(raw, j), idx.shape[0]
+    if extra_fn is None:
+        j = torch.argmax(torch.abs(raw))
+        g = take(raw, j)
+        return take(idx, j), g, g, idx.shape[0]
+    sel = raw.float() + extra_fn(idx)
+    j = torch.argmax(torch.abs(sel))
+    return take(idx, j), take(raw, j), take(sel, j), idx.shape[0]
 
 
-def _kernel_vertex(Xt, w, sampler, p, cfg):
+def _kernel_vertex(Xt, w, sampler, p, cfg, extra_fn):
     """The sampled vertex through K2. 'uniform' scores width-1 blocks (the
     same index stream as the 'torch' backend); 'block' and 'full' score
     block_size-wide aligned blocks, whose rows past p score 0 and are
-    masked out of the argmax."""
+    masked out of the argmax. A score shift runs in the argmax's launch."""
     if cfg.sampling == "uniform":
         blk = sampler.uniform(cfg.kappa, p)
         bs = 1
@@ -279,11 +288,14 @@ def _kernel_vertex(Xt, w, sampler, p, cfg):
     # dot-product accounting as the reference: 'full' scores every real
     # coordinate once; 'block' counts nb*bs, tail included
     n_scored = p if cfg.sampling == "full" else blk.shape[0] * bs
-    i_star, g_star = fw_grad.fw_vertex(Xt, w, blk, bs, p_valid=p)
-    return i_star, g_star, n_scored
+    if extra_fn is None:
+        i_star, g_star = fw_grad.fw_vertex(Xt, w, blk, bs, p_valid=p)
+        return i_star, g_star, g_star, n_scored
+    scores = fw_grad.sampled_scores(Xt, w, blk, bs)
+    return (*fw_grad.argmax_shifted(scores, blk, bs, p, extra_fn), n_scored)
 
 
-def _sparse_vertex(mat: SparseBlockMatrix, w, sampler, cfg):
+def _sparse_vertex(mat: SparseBlockMatrix, w, sampler, cfg, extra_fn):
     """The sampled vertex over the block-ELL matrix. 'uniform' scores the
     kappa drawn features (K5 at width 1, the dense path's index stream);
     'block' and 'full' score whole aligned blocks (K5 at the matrix's block
@@ -292,9 +304,9 @@ def _sparse_vertex(mat: SparseBlockMatrix, w, sampler, cfg):
     use_kernel = use_sparse_kernel(cfg)
     if cfg.sampling == "uniform":
         idx = sampler.uniform(cfg.kappa, mat.p)
-        i_star, g, _ = sparse_ops.sparse_gather_vertex_general(mat, w, idx,
-                                                               use_kernel=use_kernel)
-        return i_star, g, idx.shape[0]
+        i_star, g_raw, g_sel = sparse_ops.sparse_gather_vertex_general(
+            mat, w, idx, extra_fn=extra_fn, use_kernel=use_kernel)
+        return i_star, g_raw, g_sel, idx.shape[0]
     if cfg.sampling == "block":
         blk = sample_sparse_blocks(sampler, mat, cfg)
         n_scored = blk.shape[0] * mat.block_size
@@ -303,30 +315,25 @@ def _sparse_vertex(mat: SparseBlockMatrix, w, sampler, cfg):
         n_scored = mat.p
     else:
         raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
-    i_star, g, _ = sparse_ops.sparse_fw_vertex_general(mat, w, blk, use_kernel=use_kernel)
-    return i_star, g, n_scored
+    i_star, g_raw, g_sel = sparse_ops.sparse_fw_vertex_general(mat, w, blk, use_kernel=use_kernel,
+                                                               extra_fn=extra_fn)
+    return i_star, g_raw, g_sel, n_scored
 
 
 def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=None):
     """Draw S and return the winning vertex on the configured backend.
 
-    Returns ``(i_star, g_raw, g_sel, n_scored)``: the selected coordinate
-    and its linear score ``-z^T w`` as 0-d device tensors (the selected
-    score is the linear one: no ported oracle shifts its scores), and how
-    many length-m dot products were consumed, a host int.
+    Returns ``(i_star, g_raw, g_sel, n_scored)``: the selected coordinate,
+    its linear score ``-z^T w`` and its selected score (shifted by
+    ``extra_fn(idx)``, the oracle's ``score_extra``; without one, the same
+    tensor) as 0-d device tensors, and how many length-m dot products were
+    consumed, a host int.
     """
-    if extra_fn is not None:
-        raise NotImplementedError(
-            "per-coordinate score shifts arrive with the elastic-net oracle: "
-            "ROADMAP.md Queue 1 item 8"
-        )
     if cfg.backend == "sparse":
-        i_star, g, n = _sparse_vertex(Xt, w, sampler, cfg)
-    elif cfg.backend == "kernels":
-        i_star, g, n = _kernel_vertex(Xt, w, sampler, p, cfg)
-    else:
-        i_star, g, n = _torch_vertex(Xt, w, sampler, p, cfg)
-    return i_star, g, g, n
+        return _sparse_vertex(Xt, w, sampler, cfg, extra_fn)
+    if cfg.backend == "kernels":
+        return _kernel_vertex(Xt, w, sampler, p, cfg, extra_fn)
+    return _torch_vertex(Xt, w, sampler, p, cfg, extra_fn)
 
 
 # --------------------------------------------------------------------------
@@ -354,29 +361,30 @@ def _lane_draws(sampler, p: int, block_size: int, cfg: FWConfig, active, device)
     raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
 
 
-def _plain_vertex_lanes(vertex_fn, L: int, active, device, dtype):
-    """``(i_star (L,), g (L,))`` from ``vertex_fn(lane)`` for each active
-    lane; a frozen lane gets ``(-1, 0)``, as the kernels give it."""
+def _plain_vertex_lanes(vertex_fn, L: int, active, device, dtype, sel_dtype):
+    """``(i_star (L,), g_raw (L,), g_sel (L,))`` from ``vertex_fn(lane)`` for
+    each active lane; a frozen lane gets ``(-1, 0, 0)``, as the kernels give
+    it."""
     i_star = torch.full((L,), -1, dtype=torch.int64, device=device)
-    g = torch.zeros(L, dtype=dtype, device=device)
+    g_raw = torch.zeros(L, dtype=dtype, device=device)
+    g_sel = torch.zeros(L, dtype=sel_dtype, device=device)
     for lane in _lane_ids(active):
-        i, gl = vertex_fn(lane)
-        i_star[lane] = i
-        g[lane] = gl
-    return i_star, g
+        i_star[lane], g_raw[lane], g_sel[lane] = vertex_fn(lane)
+    return i_star, g_raw, g_sel
 
 
 def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, active,
-                        lanes: torch.Tensor):
+                        lanes: torch.Tensor, extra=None):
     """Draw every lane's S and return each active lane's winning vertex:
-    ``(i_star (L,), g (L,), n_scored)``, a frozen lane's ``(-1, 0)``;
-    ``n_scored`` is an active lane's dot products (a host int). ``w`` is the
-    lanes' co-gradients ``(L, m)``, ``active`` the host's list of which lanes
-    step and ``lanes`` the same as an int32 device tensor of their ids. On
-    the kernels' backends it is one scores launch and one argmax launch for
-    all the lanes (``*_lanes``); on 'torch' and the plain sparse ops, the
-    one-lane ops once per lane. Lane l's winner is ``sample_vertex``'s on
-    the same draw, bit for bit."""
+    ``(i_star (L,), g_raw (L,), g_sel (L,), n_scored)``, a frozen lane's
+    ``(-1, 0, 0)``; ``n_scored`` is an active lane's dot products (a host
+    int). ``w`` is the lanes' co-gradients ``(L, m)``, ``active`` the host's
+    list of which lanes step and ``lanes`` the same as an int32 device
+    tensor of their ids; ``extra`` the lanes' score shift (a lane-stacked
+    ``ScoreShift``, or None). On the kernels' backends it is one scores
+    launch and one argmax launch for all the lanes (``*_lanes``); on
+    'torch' and the plain sparse ops, the one-lane ops once per lane. Lane
+    l's winner is ``sample_vertex``'s on the same draw, bit for bit."""
     L = w.shape[0]
     if cfg.backend == "sparse":
         mat = Xt
@@ -384,20 +392,28 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
         n_scored = mat.p if cfg.sampling == "full" else blk.shape[-1] * width
         if use_sparse_kernel(cfg):
             scores = sparse_ops.sparse_scores_lanes(mat, w, blk, width, lanes)
-            i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, width, mat.p, lanes)
-            return i_star, g.to(mat.dtype), n_scored
+            if extra is None:
+                i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, width, mat.p, lanes)
+                g = g.to(mat.dtype)
+                return i_star, g, g, n_scored
+            i_star, g_raw, g_sel = fw_grad.vertex_argmax_shifted_lanes(scores, blk, width, mat.p,
+                                                                       lanes, extra)
+            return i_star, g_raw.to(mat.dtype), g_sel.to(mat.dtype), n_scored
         fn = (sparse_ops.sparse_gather_vertex_general if cfg.sampling == "uniform"
               else sparse_ops.sparse_fw_vertex_general)
-        i_star, g = _plain_vertex_lanes(
-            lambda lane: fn(mat, w[lane].clone(), fw_grad.lane_blk(blk, lane),
-                            use_kernel=False)[:2], L, active, mat.device, mat.dtype)
-        return i_star, g, n_scored
+        i_star, g_raw, g_sel = _plain_vertex_lanes(
+            lambda lane: fn(mat, w[lane].clone(), fw_grad.lane_blk(blk, lane), use_kernel=False,
+                            extra_fn=None if extra is None else extra.lane(lane)),
+            L, active, mat.device, mat.dtype, mat.dtype)
+        return i_star, g_raw, g_sel, n_scored
     blk, bs = _lane_draws(sampler, p, cfg.block_size, cfg, active, Xt.device)
     n_scored = p if cfg.sampling == "full" else blk.shape[-1] * bs
     if cfg.backend == "kernels":
         scores = fw_grad.sampled_scores_lanes(Xt, w, blk, bs, lanes)
-        i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, bs, p, lanes)
-        return i_star, g, n_scored
+        if extra is None:
+            i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, bs, p, lanes)
+            return i_star, g, g, n_scored
+        return (*fw_grad.vertex_argmax_shifted_lanes(scores, blk, bs, p, lanes, extra), n_scored)
 
     def torch_vertex(lane):
         b = fw_grad.lane_blk(blk, lane)
@@ -406,25 +422,35 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
         else:
             idx = b if bs == 1 else fw_grad.block_indices(b, bs) % p
         raw = -(Xt.index_select(0, idx) @ w[lane].clone())
-        j = torch.argmax(torch.abs(raw))
-        return take(idx, j), take(raw, j)
+        if extra is None:
+            j = torch.argmax(torch.abs(raw))
+            return take(idx, j), take(raw, j), take(raw, j)
+        sel = raw.float() + extra.lane(lane)(idx)
+        j = torch.argmax(torch.abs(sel))
+        return take(idx, j), take(raw, j), take(sel, j)
 
-    i_star, g = _plain_vertex_lanes(torch_vertex, L, active, Xt.device, Xt.dtype)
-    return i_star, g, n_scored
+    i_star, g_raw, g_sel = _plain_vertex_lanes(torch_vertex, L, active, Xt.device, Xt.dtype,
+                                               Xt.dtype if extra is None else torch.float32)
+    return i_star, g_raw, g_sel, n_scored
 
 
 def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
-                    i_star, g, deltas, cfg: FWConfig, lanes: torch.Tensor):
+                    i_star, g, deltas, cfg: FWConfig, lanes: torch.Tensor, en=None):
     """``step_tail`` for L lanes (``beta (L, p)`` in place, ``resid (L, m)``,
     ``(L,)`` scalars, winners, scores and deltas): one launch of
     ``kernels/step_tail``'s lane kernel where the backend runs the kernels,
     its plain version (the one-lane plain tail once per lane) otherwise.
     Lanes not in ``lanes`` keep their state. Returns ``(beta, scale,
-    maxabs, step_inf, stall, resid, s_quad, f_lin)``, lane-stacked."""
+    maxabs, step_inf, stall, resid, s_quad, f_lin)``, lane-stacked, and with
+    ``en`` (the elastic-net's ``ENTail``) Q after them."""
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
-    tail = _step_tail.step_tail_lanes if use_kernels(cfg) else _step_tail.step_tail_lanes_plain
-    return tail(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, stats.zty,
-                stats.znorm2, i_star, g, deltas, lanes, cfg)
+    args = (mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, stats.zty,
+            stats.znorm2, i_star, g, deltas, lanes, cfg)
+    if not use_kernels(cfg):
+        return _step_tail.step_tail_lanes_plain(*args, en)
+    if en is None:
+        return _step_tail.step_tail_lanes(*args)
+    return _step_tail.step_tail_en_lanes(*args, en)
 
 
 # --------------------------------------------------------------------------
@@ -435,23 +461,17 @@ def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s
 def fused_supported(oracle, cfg: FWConfig) -> bool:
     """Whether ``run_loop`` advances K-step chunks: ``cfg.fuse_steps > 1``,
     'uniform' sampling (the K x kappa index stream can be drawn ahead of
-    the chunk), an oracle with the ``fused_*`` protocol, a single-device
-    backend and the classic step rule. Anything else runs the per-step
-    loop (fuse_steps=1 semantics), as the reference does."""
-    ok = (
+    the chunk), an oracle with the ``fused_*`` protocol (the lasso and the
+    elastic-net; the logistic bisection has none), a single-device backend
+    and the classic step rule. Anything else runs the per-step loop
+    (fuse_steps=1 semantics), as the reference does."""
+    return (
         cfg.fuse_steps > 1
         and cfg.sampling == "uniform"
         and getattr(oracle, "fused_kind", None) is not None
         and cfg.backend != "distributed"
         and cfg.step_rule == "classic"
     )
-    if ok and oracle.fused_needs_alpha:
-        raise NotImplementedError(
-            "a fused chunk for an oracle whose scores read live alpha values "
-            "(the elastic-net's alpha ledger and Q reconcile) is not ported "
-            "yet: ROADMAP.md Queue 1 item 8"
-        )
-    return ok
 
 
 def use_kernels(cfg: FWConfig) -> bool:
@@ -463,59 +483,92 @@ def use_kernels(cfg: FWConfig) -> bool:
     return cfg.backend == "sparse" and use_sparse_kernel(cfg)
 
 
-def fused_kernel_fits(sparse: bool, m: int, dtype: torch.dtype) -> bool:
+def fused_kernel_fits(sparse: bool, m: int, dtype: torch.dtype, ledger: int = 0) -> bool:
     """Whether the fused chunk kernels take a design of ``m`` samples in
     ``dtype``: K4 (dense) and K7 (sparse) run in float32 only, and keep the
     residual (and dense y) in a block's shared memory, so m is at most
-    ``M_MAX`` (dense) or ``M_MAX_SPARSE`` (sparse)."""
-    cap = fused_step.M_MAX_SPARSE if sparse else fused_step.M_MAX
-    return dtype == torch.float32 and m <= cap
+    ``M_MAX`` (dense) or ``M_MAX_SPARSE`` (sparse), with the elastic-net's
+    ``ledger`` bytes beside it (``fused_step.chunk_fits``)."""
+    return dtype == torch.float32 and fused_step.chunk_fits(sparse, m, ledger)
 
 
-def use_fused_kernel(cfg: FWConfig, Xt) -> bool:
+def use_fused_kernel(cfg: FWConfig, Xt, oracle=None) -> bool:
     """Chunk executor choice: the fused kernel drives the 'kernels' backend
     (K4) and the 'sparse' backend with its kernels on (K7), as the Pallas
     megakernel drives 'pallas' and the kernel-dispatched 'sparse'; 'torch'
     and the plain sparse ops chunk through K unfused engine steps. Two
     routes are chosen from the design (``fused_kernel_fits``): a bf16
-    design, or m past the kernels' shared-memory cap, chunks through K
-    unfused steps on the same backend's kernels (ROADMAP.md Queue 2 lists
-    K4/K7 in bf16 and with the residual in device memory as later work)."""
+    design, or a state past the kernels' shared memory (m past the caps,
+    or with an elastic-net ``oracle`` its K-slot ledger beside the
+    residual), chunks through K unfused steps on the same backend's kernels
+    (ROADMAP.md Queue 2 lists K4/K7 in bf16 and with the residual in device
+    memory as later work)."""
+    ledger = 0
+    if oracle is not None and oracle.fused_needs_alpha:
+        ledger = fused_step.ledger_bytes(cfg.fuse_steps)
     return use_kernels(cfg) and fused_kernel_fits(
-        isinstance(Xt, SparseBlockMatrix), Xt.shape[1], Xt.dtype)
+        isinstance(Xt, SparseBlockMatrix), Xt.shape[1], Xt.dtype, ledger)
 
 
 def step_tail(Xt, y, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g,
-              delta, cfg: FWConfig):
-    """The lasso step's tail after the argmax on the matrix's layout (the
+              delta, cfg: FWConfig, en=None):
+    """The step's tail after the argmax on the matrix's layout (the
     winner's row of a dense ``Xt``, or its ELL slots of a
     ``SparseBlockMatrix``): ``kernels/step_tail``, one launch, where the
     backend runs the kernels (``use_kernels``); its plain version, the same
     ops, on 'torch' and the plain sparse ops, as the reference's 'xla'
-    path."""
+    path. The lasso's, or with ``en`` (an ``ENTail``) the elastic-net's."""
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
-    tail = _step_tail.step_tail if use_kernels(cfg) else _step_tail.step_tail_plain
-    return tail(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, stats.zty,
-                stats.znorm2, i_star, g, delta, cfg)
+    args = (mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, stats.zty, stats.znorm2,
+            i_star, g, delta, cfg)
+    if not use_kernels(cfg):
+        return _step_tail.step_tail_plain(*args, en)
+    if en is None:
+        return _step_tail.step_tail(*args)
+    return _step_tail.step_tail_en(*args, en)
 
 
-def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta,
+def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, alpha_s, k0: int, delta,
                      cfg: FWConfig):
     """The fused chunk on the matrix's layout: K7 for a
-    ``SparseBlockMatrix``, K4 for a dense ``Xt``. Returns ``(i_star, lam,
-    delta_t, no_progress, resid_out, (S, F, Q))``: the per-step records the
-    engine replays into beta and the stopping state."""
+    ``SparseBlockMatrix``, K4 for a dense ``Xt``; ``alpha_s`` the chunk-start
+    alpha values at ``idx`` for an oracle that needs them (None else).
+    Returns ``(i_star, lam, delta_t, no_progress, resid_out, (S, F, Q))``:
+    the per-step records the engine replays into beta and the stopping
+    state."""
     kw = dict(oracle=oracle, eps_den=cfg.eps_den, gap_rtol=cfg.gap_rtol,
               refresh_every=cfg.refresh_every, max_iters=cfg.max_iters)
+    if alpha_s is not None:
+        kw["alpha_s"] = alpha_s
     if isinstance(Xt, SparseBlockMatrix):
-        return fused_step.sparse_fused_chunk(Xt.values, Xt.rows, y, resid, scal, idx, zty_s,
-                                             zn2_s, k0, delta, **kw)
-    return fused_step.dense_fused_chunk(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+        fn = fused_step.sparse_fused_chunk if alpha_s is None else fused_step.sparse_fused_chunk_en
+        return fn(Xt.values, Xt.rows, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
+    fn = fused_step.dense_fused_chunk if alpha_s is None else fused_step.dense_fused_chunk_en
+    return fn(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
 
 
 # --------------------------------------------------------------------------
 # O(m) column recursion and full matvecs
 # --------------------------------------------------------------------------
+
+
+def columns_dense(Xt, i_stars: torch.Tensor) -> torch.Tensor:
+    """The dense columns ``z_i (A, m)`` of the features ``i_stars (A,)``: rows
+    of a dense ``Xt``, or each feature's ELL slots scatter-added into zeros
+    (``sparse_ops.sparse_column_dense``'s adds, row by row)."""
+    if not isinstance(Xt, SparseBlockMatrix):
+        return Xt.index_select(0, i_stars)
+    vals = Xt.values.reshape(-1, Xt.nnz_max).index_select(0, i_stars)
+    rows = Xt.rows.reshape(-1, Xt.nnz_max).index_select(0, i_stars).long()
+    rows = rows + Xt.m * torch.arange(i_stars.shape[0], device=rows.device)[:, None]
+    out = torch.zeros(i_stars.shape[0] * Xt.m, dtype=Xt.dtype, device=Xt.device)
+    return out.index_add_(0, rows.view(-1), vals.reshape(-1)).view(-1, Xt.m)
+
+
+def column_dense(Xt, i_star: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """The dense (m,) column z_i of feature ``i_star`` (a 0-d device index),
+    either layout: the logistic oracle's line-search direction."""
+    return columns_dense(Xt, i_star.view(1)).view(-1)
 
 
 def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:

@@ -15,6 +15,10 @@ sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
 
 K2's scores and argmax, the step's tail and K5 also take L delta lanes in
 one launch (``*_lanes``, the batched engine's), each with a count of its own.
+The elastic-net's instantiations (the argmax with its score shift, the tail
+with its line search and Q, K4 and K7 with the alpha ledger) have wrappers
+of their own (``*_shifted``, ``*_en``). Every wrapper counts the launches of
+its kernel in its ``launches`` attribute.
 
 The CUDA sources are in ``csrc/`` and build on first use (``_build``).
 """
@@ -43,6 +47,12 @@ _WRAPPERS = {
     "vertex_argmax_lanes": fw_grad.vertex_argmax_lanes,
     "step_tail_lanes": step_tail.step_tail_lanes,
     "sparse_sampled_scores_lanes": sparse_grad.sparse_sampled_scores_lanes,
+    "vertex_argmax_shifted": fw_grad.vertex_argmax_shifted,
+    "vertex_argmax_shifted_lanes": fw_grad.vertex_argmax_shifted_lanes,
+    "step_tail_en": step_tail.step_tail_en,
+    "step_tail_en_lanes": step_tail.step_tail_en_lanes,
+    "dense_fused_chunk_en": fused_step.dense_fused_chunk_en,
+    "sparse_fused_chunk_en": fused_step.sparse_fused_chunk_en,
 }
 
 

@@ -19,6 +19,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -109,6 +110,12 @@ def check(lib_name: str, err: int, what: str) -> None:
     if err != 0:
         msg = _libraries[lib_name].repro_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def f32(x: float) -> float:
+    """A constant as the f32 that torch's f32 ops compute with (a kernel's
+    float argument)."""
+    return float(np.float32(x))
 
 
 def dtype_code(t: torch.Tensor) -> int:

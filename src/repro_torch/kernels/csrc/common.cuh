@@ -179,7 +179,9 @@ struct LineSearch {
   float dt;     // delta_t = -delta * sign(g)
   float g_lin;  // g + z.y
   float lam;
-  bool no_prog;
+  bool no_prog;    // num <= gap_rtol * gap_scale
+  float num;       // the sampled duality gap
+  float gap_scale; // the magnitude of its terms
 };
 
 __device__ __forceinline__ LineSearch lasso_line_search(float g, float delta, float S, float F,
@@ -195,6 +197,8 @@ __device__ __forceinline__ LineSearch lasso_line_search(float g, float delta, fl
   o.lam = clamp01(__fdiv_rn(num, clamp_min_nan(den, eps_den)));
   const float gap_scale = __fadd_rn(__fadd_rn(S, fabsf(F)), fabsf(dtg));
   o.no_prog = num <= __fmul_rn(gap_rtol, gap_scale);
+  o.num = num;
+  o.gap_scale = gap_scale;
   return o;
 }
 
@@ -207,6 +211,48 @@ __device__ __forceinline__ void sf_recursion(float& S, float& F, float g_lin, fl
   const float sc = __fmul_rn(__fmul_rn(__fmul_rn(dt, dt), __fmul_rn(lam, lam)), zn2);
   S = __fadd_rn(__fadd_rn(sa, sb), sc);
   F = __fadd_rn(__fmul_rn(one_m, F), __fmul_rn(__fmul_rn(dt, lam), zty));
+}
+
+// ---- the elastic-net's scalar algebra ---------------------------------------
+//
+// The op order of kernels/step_tail.py's en_ls_closed_form and q_recursion
+// (the reference's core/fw_elasticnet.py:45-74), for the unfused tail's EN
+// instantiation and the fused chunks' (end_step with the alpha ledger).
+
+// Eq. 6's sign from the shifted score g_sel and the elastic-net's
+// closed-form line search of a step whose winner has linear score g_raw and
+// alpha value a; Q = ||alpha||^2.
+__device__ __forceinline__ LineSearch en_line_search(float g_raw, float g_sel, float a,
+                                                     float delta, float S, float F, float Q,
+                                                     float zty, float zn2, float l2,
+                                                     float eps_den, float gap_rtol) {
+  LineSearch o;
+  o.dt = __fmul_rn(-delta, sign_of(g_sel));
+  o.g_lin = __fadd_rn(g_raw, zty);
+  const float dtg = __fmul_rn(o.dt, g_raw);
+  const float dta = __fmul_rn(o.dt, a);
+  const float num = __fadd_rn(__fsub_rn(__fsub_rn(S, dtg), F), __fmul_rn(l2, __fsub_rn(Q, dta)));
+  const float two_dt = __fmul_rn(2.f, o.dt);
+  const float dt2 = __fmul_rn(o.dt, o.dt);
+  const float den_x = __fadd_rn(__fsub_rn(S, __fmul_rn(two_dt, o.g_lin)), __fmul_rn(dt2, zn2));
+  const float den_q = __fadd_rn(__fsub_rn(Q, __fmul_rn(two_dt, a)), dt2);
+  const float den = __fadd_rn(den_x, __fmul_rn(l2, den_q));
+  o.lam = clamp01(__fdiv_rn(num, clamp_min_nan(den, eps_den)));
+  const float gap_scale = __fadd_rn(__fadd_rn(__fadd_rn(S, fabsf(F)), fabsf(dtg)),
+                                    __fmul_rn(l2, __fadd_rn(Q, fabsf(dta))));
+  o.no_prog = num <= __fmul_rn(gap_rtol, gap_scale);
+  o.num = num;
+  o.gap_scale = gap_scale;
+  return o;
+}
+
+// The Q = ||alpha||^2 recursion: (1-lam)^2 Q + 2 lam (1-lam) dt a + lam^2 dt^2.
+__device__ __forceinline__ float q_recursion(float Q, float lam, float dt, float a) {
+  const float one_m = __fsub_rn(1.f, lam);
+  const float qa = __fmul_rn(__fmul_rn(one_m, one_m), Q);
+  const float qb = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(2.f, lam), one_m), dt), a);
+  const float qc = __fmul_rn(__fmul_rn(lam, lam), __fmul_rn(dt, dt));
+  return __fadd_rn(__fadd_rn(qa, qb), qc);
 }
 
 // apply_coeff_update's increment of beta[i_star]: delta_t * lam / scale,

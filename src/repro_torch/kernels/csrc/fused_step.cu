@@ -15,7 +15,23 @@
 // Scalar algebra: common.cuh's lasso_line_search, sf_recursion,
 // coeff_increment and stop_stats, the op order of core/fw_lasso.py and
 // core/engine.py in _rn intrinsics (one copy, shared with the unfused
-// step's tail in step_tail.cu). The dense scores
+// step's tail in step_tail.cu); the elastic-net's en_line_search and
+// q_recursion in its chunks.
+//
+// The elastic-net's chunk (each kernel's EN instantiation; the lasso's
+// compile none of it) is the reference's alpha ledger
+// (src/repro/kernels/fused_step/fused_step.py:137-139, 158-162, 226-230):
+// every block keeps, at the front of its dynamic shared memory (K slots,
+// ledger_bytes(K)), the running product P of
+// (1 - lam) and one slot (i*_t, c_t) a step, every slot rescaled by
+// (1 - lam) each step and slot s set to lam_s * delta_t_s. A scored
+// coordinate i selects on sel = raw + l2 * a_i, a_i = P * alpha_s + the
+// slots of i (added in slot order); the partials carry (|sel|, raw,
+// position) and thread 0 recomputes the winner's a_i and sel from the
+// same ledger (the same bits), then runs the EN line search and Q's
+// recursion; Q's exact refresh is the engine's, after the replay. Its
+// records also carry the step's sampled gap, gap scale and Q (the inputs of
+// the stall test), where the lasso's write zeros. The dense scores
 // go through warp_row_score, K2's per-row dot, and its residual update is
 // K3's op sequence; the sparse scores go through warp_slot_score, K5's
 // slot dot, or the ring's copy of its order.
@@ -27,7 +43,9 @@ namespace cg = cooperative_groups;
 
 constexpr int FC_THREADS = 512;  // fused_chunk_kernel's block
 constexpr int FC_WARPS = FC_THREADS / 32;
-constexpr int REC = 8;  // record row: lam, delta_t, raw, sel, stall flag, 0, 0, 0
+// record row: lam, delta_t, raw, sel, stall flag, then the EN chunk's gap,
+// gap scale and Q before the step (the lasso's: 0, 0, 0)
+constexpr int REC = 8;
 constexpr int RP_THREADS = 1024;  // the replay's block, all of it for a renorm
 
 struct __align__(16) Partial {
@@ -158,7 +176,39 @@ struct ChunkArgs {
   float* r_out;
   float* s_out;
   Partial* partials;  // 2 x gridDim.x, indexed by step parity
+  const float* alpha_s;  // (K, kappa) chunk-start alpha at idx; the EN chunk's
+  float l2;
 };
+
+// The elastic-net's alpha ledger, one copy a block at the front of its
+// dynamic shared memory, written by thread 0: K slot ids, K slot values,
+// then P (ledger_bytes(K), kernels/fused_step.py's).
+struct Ledger {
+  long long* idx;  // slot t: i*_t
+  float* add;      // slot t: c_t, rescaled by every later step
+  float* P;        // prod(1 - lam) over the chunk's live steps
+};
+
+__host__ __device__ __forceinline__ size_t ledger_bytes(int K) {
+  return ((size_t)12 * K + 4 + 15) & ~(size_t)15;
+}
+
+// a_i of coordinate id at step s: P * alpha0 + its slots among the first s.
+__device__ __forceinline__ float ledger_alpha(const Ledger& led, long long id, float alpha0,
+                                              int s) {
+  float corr = 0.f;
+  for (int t = 0; t < s; ++t)
+    if (led.idx[t] == id) corr = __fadd_rn(corr, led.add[t]);
+  return __fadd_rn(__fmul_rn(*led.P, alpha0), corr);
+}
+
+// The magnitude an EN chunk's scored coordinate (id `id` at step s,
+// chunk-start alpha `alpha0`, loaded before its score so that the load
+// overlaps it; raw score `raw`) competes with: |raw + l2 * a_i|.
+__device__ __forceinline__ float select_mag(const ChunkArgs& a, const Ledger& led, int s,
+                                            long long id, float alpha0, float raw) {
+  return fabsf(__fadd_rn(raw, __fmul_rn(a.l2, ledger_alpha(led, id, alpha0, s))));
+}
 
 // A block's scratch for the end of a step, and the scalars its thread 0
 // hands the block.
@@ -178,12 +228,12 @@ struct StepShared {
 // (identical scalars everywhere; S and F live there), block 0 writes the
 // records, and every block updates its own shared-memory residual with the
 // winner (Layout::update) and, on the refresh cadence, recomputes S and F.
-template <int THREADS, class Layout>
+template <int THREADS, class Layout, bool EN>
 __device__ __forceinline__ void end_step(const Layout& L, const ChunkArgs& a,
                                          cg::grid_group& grid, StepShared<THREADS / 32>& sh,
-                                         float* rs, const float* yv, int s, float mag,
-                                         long long j, float raw, float delta, float& S,
-                                         float& F) {
+                                         const Ledger& led, float* rs, const float* yv, int s,
+                                         float mag, long long j, float raw, float delta, float& S,
+                                         float& F, float& Q) {
   constexpr int WARPS = THREADS / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   block_best<WARPS>(mag, j, raw, sh.smag, sh.sj, sh.sraw);
@@ -208,13 +258,32 @@ __device__ __forceinline__ void end_step(const Layout& L, const ChunkArgs& a,
     const long long flat = (long long)s * a.kappa + j;
     const long long i_star = a.idx[flat];
     const float zty = a.zty_s[flat], zn2 = a.zn2_s[flat];
-    const float g = raw;  // lasso: the selected score is the linear one
-    const LineSearch ls = lasso_line_search(g, delta, S, F, zty, zn2, a.eps_den, a.gap_rtol);
+    float g_sel = raw, a_star = 0.f;  // lasso: the selected score is the linear one
+    const float q_in = Q;
+    LineSearch ls;
+    if constexpr (EN) {
+      a_star = ledger_alpha(led, i_star, a.alpha_s[flat], s);
+      g_sel = __fadd_rn(raw, __fmul_rn(a.l2, a_star));
+      ls = en_line_search(raw, g_sel, a_star, delta, S, F, Q, zty, zn2, a.l2, a.eps_den,
+                          a.gap_rtol);
+    } else {
+      ls = lasso_line_search(raw, delta, S, F, zty, zn2, a.eps_den, a.gap_rtol);
+    }
     const float lam = ls.lam, dt = ls.dt;
     const bool no_prog = ls.no_prog;
     const long long kg = a.k0 + s;
     const bool active = kg < a.max_iters;
-    if (active) sf_recursion(S, F, ls.g_lin, lam, dt, zty, zn2);
+    if (active) {
+      sf_recursion(S, F, ls.g_lin, lam, dt, zty, zn2);
+      if constexpr (EN) {  // Q, then the ledger (this block's copy)
+        Q = q_recursion(Q, lam, dt, a_star);
+        const float one_m = __fsub_rn(1.f, lam);
+        *led.P = __fmul_rn(*led.P, one_m);
+        for (int t = 0; t < s; ++t) led.add[t] = __fmul_rn(led.add[t], one_m);
+        led.add[s] = __fmul_rn(lam, dt);
+        led.idx[s] = i_star;
+      }
+    }
     sh.lam = lam;
     sh.dt = dt;
     sh.i = i_star;
@@ -224,10 +293,16 @@ __device__ __forceinline__ void end_step(const Layout& L, const ChunkArgs& a,
       float* rec = a.recs + (long long)s * REC;
       rec[0] = lam;
       rec[1] = dt;
-      rec[2] = g;
-      rec[3] = g;
+      rec[2] = raw;
+      rec[3] = g_sel;
       rec[4] = no_prog ? 1.f : 0.f;
-      rec[5] = rec[6] = rec[7] = 0.f;
+      if constexpr (EN) {
+        rec[5] = ls.num;
+        rec[6] = ls.gap_scale;
+        rec[7] = q_in;
+      } else {
+        rec[5] = rec[6] = rec[7] = 0.f;
+      }
       a.i_star_out[s] = i_star;
       a.no_prog_out[s] = no_prog;
     }
@@ -266,16 +341,41 @@ __device__ __forceinline__ void end_step(const Layout& L, const ChunkArgs& a,
   __syncthreads();
 }
 
-// Block 0 writes the final residual and (S, F, Q).
-template <int THREADS>
+// Block 0 writes the final residual and (S, F, Q) (the lasso's Q: q0).
+template <int THREADS, bool EN>
 __device__ __forceinline__ void end_chunk(const ChunkArgs& a, const float* rs, float S,
-                                          float F) {
+                                          float F, float Q) {
   if (blockIdx.x != 0) return;
   for (int i = threadIdx.x; i < a.m; i += THREADS) a.r_out[i] = rs[i];
   if (threadIdx.x == 0) {
     a.s_out[0] = S;
     a.s_out[1] = F;
-    a.s_out[2] = *a.q0;
+    a.s_out[2] = EN ? Q : *a.q0;
+  }
+}
+
+// The block's ledger at the front of its dynamic shared memory: EN chunks
+// start it at P = 1 (a slot is written before it is read; a barrier
+// follows before any read); the lasso's chunk has none (null pointers).
+template <bool EN>
+__device__ __forceinline__ Ledger chunk_ledger(float* smem, int K) {
+  if constexpr (EN) {
+    Ledger led{reinterpret_cast<long long*>(smem), smem + 2 * K, smem + 3 * K};
+    if (threadIdx.x == 0) *led.P = 1.f;
+    return led;
+  } else {
+    return Ledger{nullptr, nullptr, nullptr};
+  }
+}
+
+// Where the rest of a block's dynamic shared memory starts: past the EN
+// ledger, at the front for the lasso's chunk.
+template <bool EN>
+__device__ __forceinline__ float* past_ledger(float* smem, int K) {
+  if constexpr (EN) {
+    return smem + ledger_bytes(K) / sizeof(float);
+  } else {
+    return smem;
   }
 }
 
@@ -283,13 +383,14 @@ __device__ __forceinline__ void end_chunk(const ChunkArgs& a, const float* rs, f
 // c = its grid-wide warp index + multiples of the grid's warps straight
 // from device memory, one coordinate at a time, against its block's copy
 // of the residual.
-template <class Layout>
+template <class Layout, bool EN>
 __global__ void __launch_bounds__(FC_THREADS, 2)
 fused_chunk_kernel(Layout L, ChunkArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  float* rs = smem;                     // this block's live residual (m)
-  float* ys = smem + ((a.m + 3) & ~3);  // y (m), when the layout stages it
+  const Ledger led = chunk_ledger<EN>(smem, a.K);
+  float* rs = past_ledger<EN>(smem, a.K);  // this block's live residual (m)
+  float* ys = rs + ((a.m + 3) & ~3);       // y (m), when the layout stages it
   const float* yv = Layout::kStageY ? ys : a.y;
   __shared__ StepShared<FC_WARPS> sh;
 
@@ -299,7 +400,7 @@ fused_chunk_kernel(Layout L, ChunkArgs a) {
     if (Layout::kStageY) ys[i] = a.y[i];
   }
   // the scalar state lives in thread 0 of every block
-  float S = *a.s0, F = *a.f0;
+  float S = *a.s0, F = *a.f0, Q = EN ? *a.q0 : 0.f;
   const float delta = *a.delta;
   __syncthreads();
 
@@ -310,16 +411,29 @@ fused_chunk_kernel(Layout L, ChunkArgs a) {
     float mag = -INFINITY, raw = 0.f;
     long long j = LLONG_MAX;
     for (long long c = gwarp; c < a.kappa; c += nwarps) {
-      const float sc = L.score(ids[c], rs, lane);
-      if (better(fabsf(sc), c, mag, j)) {
-        mag = fabsf(sc);
-        j = c;
-        raw = sc;
+      if constexpr (EN) {
+        const long long id = ids[c];
+        const float alpha0 = a.alpha_s[(long long)s * a.kappa + c];  // overlaps the score
+        const float sc = L.score(id, rs, lane);
+        const float sm = select_mag(a, led, s, id, alpha0, sc);
+        if (better(sm, c, mag, j)) {
+          mag = sm;
+          j = c;
+          raw = sc;
+        }
+      } else {
+        const float sc = L.score(ids[c], rs, lane);
+        if (better(fabsf(sc), c, mag, j)) {
+          mag = fabsf(sc);
+          j = c;
+          raw = sc;
+        }
       }
     }
-    end_step<FC_THREADS>(L, a, grid, sh, rs, yv, s, mag, j, raw, delta, S, F);
+    end_step<FC_THREADS, Layout, EN>(L, a, grid, sh, led, rs, yv, s, mag, j, raw, delta, S, F,
+                                     Q);
   }
-  end_chunk<FC_THREADS>(a, rs, S, F);
+  end_chunk<FC_THREADS, EN>(a, rs, S, F, Q);
 }
 
 // K7 where a ring fits beside the residual: one block of 1024 threads a
@@ -340,7 +454,7 @@ struct ChunkIds {  // feature f of a warp's sequence: step f / n, position lo + 
   }
 };
 
-template <int NT>
+template <int NT, bool EN>
 __global__ void __launch_bounds__(1024, 1)
 sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
   constexpr int THREADS = 1024, WARPS = THREADS / 32;
@@ -348,10 +462,11 @@ sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   __shared__ StepShared<WARPS> sh;
+  const Ledger led = chunk_ledger<EN>(smem, a.K);
   const int tid = threadIdx.x, warp = tid >> 5;
-  float* rs = smem;  // this block's live residual (m)
+  float* rs = past_ledger<EN>(smem, a.K);  // this block's live residual (m)
   for (int i = tid; i < a.m; i += THREADS) rs[i] = a.r0[i];
-  float S = *a.s0, F = *a.f0;
+  float S = *a.s0, F = *a.f0, Q = EN ? *a.q0 : 0.f;
   const float delta = *a.delta;
 
   // the warp's sequence has K * n < 2^31 features (sparse_fused_chunk_launch)
@@ -359,7 +474,7 @@ sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
   const long long lo = gw * a.kappa / nw;
   const int n = (int)((gw + 1) * a.kappa / nw - lo);
   SlotRing<NT, ChunkIds> ring(L.values, L.rows, L.n_feat, L.nnz_max, stride,
-                              smem + ((a.m + 3) & ~3), ChunkIds{a.idx, a.kappa, lo, n}, n, a.K);
+                              rs + ((a.m + 3) & ~3), ChunkIds{a.idx, a.kappa, lo, n}, n, a.K);
   ring.prologue();
   __syncthreads();  // the residual
 
@@ -367,18 +482,37 @@ sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
     float mag = -INFINITY, raw = 0.f;
     long long j = LLONG_MAX;
     for (int pi = 0; pi < ring.npairs; ++pi) {
-      const float sc = ring.score_pair(rs);
-      const long long c = lo + 2 * pi + ring.h;
-      if (2 * pi + ring.h < n && better(fabsf(sc), c, mag, j)) {
-        mag = fabsf(sc);
-        j = c;
-        raw = sc;
+      if constexpr (EN) {
+        const long long c = lo + 2 * pi + ring.h;
+        const bool real = 2 * pi + ring.h < n;
+        long long id = 0;  // the feature's id and chunk-start alpha, in flight
+        float alpha0 = 0.f;  // while its pair is scored
+        if (real) {
+          id = __ldg(a.idx + (long long)s * a.kappa + c);
+          alpha0 = __ldg(a.alpha_s + (long long)s * a.kappa + c);
+        }
+        const float sc = ring.score_pair(rs);
+        const float sm = select_mag(a, led, s, id, alpha0, sc);
+        if (real && better(sm, c, mag, j)) {
+          mag = sm;
+          j = c;
+          raw = sc;
+        }
+      } else {
+        const float sc = ring.score_pair(rs);
+        const long long c = lo + 2 * pi + ring.h;
+        if (2 * pi + ring.h < n && better(fabsf(sc), c, mag, j)) {
+          mag = fabsf(sc);
+          j = c;
+          raw = sc;
+        }
       }
     }
-    end_step<THREADS>(L, a, grid, sh, rs, a.y, s, mag, j, raw, delta, S, F);
+    end_step<THREADS, SparseSlots, EN>(L, a, grid, sh, led, rs, a.y, s, mag, j, raw, delta, S,
+                                       F, Q);
   }
   cp_async_wait<0>();
-  end_chunk<THREADS>(a, rs, S, F);
+  end_chunk<THREADS, EN>(a, rs, S, F, Q);
 }
 
 // The replay: warp 0 walks the K records in order with apply_coeff_update's
@@ -484,16 +618,19 @@ fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restri
 
 // ---- host side --------------------------------------------------------------
 
-// Dynamic shared memory of fused_chunk_kernel: the residual, and y beside
-// it when the layout stages y.
+// Dynamic shared memory of fused_chunk_kernel: the EN chunk's ledger of
+// `slots` = K slots (none: 0), the residual, and y beside it when the
+// layout stages y.
 template <class Layout>
-static size_t chunk_smem_bytes(int m) {
-  return (size_t)(((m + 3) & ~3) + (Layout::kStageY ? m : 0)) * sizeof(float);
+static size_t chunk_smem_bytes(int m, int slots) {
+  return (slots ? ledger_bytes(slots) : 0) +
+         (size_t)(((m + 3) & ~3) + (Layout::kStageY ? m : 0)) * sizeof(float);
 }
 
 // K7's kernel for a plan: depth 0, fused_chunk_kernel (512 threads);
 // otherwise the ring kernel (1024 threads) of ceil(slots / 32) slots a
-// lane.
+// lane; the lasso's (ledger 0) or the elastic-net's instantiation with a
+// ledger of `ledger` = K slots.
 struct SparseChoice {
   const void* kernel;
   int threads;
@@ -502,23 +639,35 @@ struct SparseChoice {
 };
 
 static cudaError_t sparse_choice(int m, int nnz_max, int threads, int depth, int slots,
-                                 int stride, SparseChoice* out) {
-  static GridCache caches[5];
+                                 int stride, int ledger, SparseChoice* out) {
+  static GridCache caches[2][5];
+  const int en = ledger > 0;
   if (depth == 0) {
     if (threads != FC_THREADS || slots != 0 || stride != 0) return cudaErrorInvalidValue;
-    *out = {(const void*)fused_chunk_kernel<SparseSlots>, FC_THREADS,
-            chunk_smem_bytes<SparseSlots>(m), &caches[0]};
+    *out = {en ? (const void*)fused_chunk_kernel<SparseSlots, true>
+               : (const void*)fused_chunk_kernel<SparseSlots, false>,
+            FC_THREADS, chunk_smem_bytes<SparseSlots>(m, ledger), &caches[en][0]};
   } else {
     if (threads != 1024 || depth != RING_DEPTH || !ring_plan_ok(nnz_max, slots, stride))
       return cudaErrorInvalidValue;
-    const void* kernels[] = {(const void*)sparse_ring_chunk_kernel<1>,
-                             (const void*)sparse_ring_chunk_kernel<2>,
-                             (const void*)sparse_ring_chunk_kernel<3>,
-                             (const void*)sparse_ring_chunk_kernel<4>};
+    const void* kernels[2][4] = {{(const void*)sparse_ring_chunk_kernel<1, false>,
+                                  (const void*)sparse_ring_chunk_kernel<2, false>,
+                                  (const void*)sparse_ring_chunk_kernel<3, false>,
+                                  (const void*)sparse_ring_chunk_kernel<4, false>},
+                                 {(const void*)sparse_ring_chunk_kernel<1, true>,
+                                  (const void*)sparse_ring_chunk_kernel<2, true>,
+                                  (const void*)sparse_ring_chunk_kernel<3, true>,
+                                  (const void*)sparse_ring_chunk_kernel<4, true>}};
     const int nt = (slots + 31) / 32;
-    *out = {kernels[nt - 1], 1024, ring_smem_bytes(m, stride), &caches[nt]};
+    *out = {kernels[en][nt - 1], 1024,
+            (en ? ledger_bytes(ledger) : 0) + ring_smem_bytes(m, stride), &caches[en][nt]};
   }
   return out->smem > OPTIN_SMEM_BYTES ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+static const void* dense_kernel(int en) {
+  return en ? (const void*)fused_chunk_kernel<DenseRows, true>
+            : (const void*)fused_chunk_kernel<DenseRows, false>;
 }
 
 // The cooperative grid of a kernel on the current device: every SM's worth
@@ -551,27 +700,33 @@ static ChunkArgs chunk_args(const float* y, const float* r0, const float* s0, co
                             long long kappa, long long k0, long long max_iters,
                             int refresh_every, float eps_den, float gap_rtol,
                             long long* i_star, float* recs, unsigned char* no_prog,
-                            float* r_out, float* s_out, void* partials) {
+                            float* r_out, float* s_out, void* partials, const float* alpha_s,
+                            float l2) {
   return ChunkArgs{y,         r0,      s0,         f0,       q0,      delta,
                    idx,       zty_s,   zn2_s,      m,        K,       kappa,
                    k0,        max_iters, refresh_every, eps_den, gap_rtol, i_star,
-                   recs,      no_prog, r_out,      s_out,    static_cast<Partial*>(partials)};
+                   recs,      no_prog, r_out,      s_out,    static_cast<Partial*>(partials),
+                   alpha_s,   l2};
 }
 
-extern "C" int dense_fused_chunk_blocks(int m, int* blocks) {
-  static GridCache cache;
-  return coop_blocks((const void*)fused_chunk_kernel<DenseRows>, FC_THREADS,
-                     chunk_smem_bytes<DenseRows>(m), &cache, blocks);
+// `ledger`: 0, the lasso's chunk; K, the elastic-net's with its K-slot ledger.
+extern "C" int dense_fused_chunk_blocks(int m, int ledger, int* blocks) {
+  static GridCache caches[2];
+  const size_t smem = chunk_smem_bytes<DenseRows>(m, ledger);
+  if (smem > OPTIN_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  return coop_blocks(dense_kernel(ledger > 0), FC_THREADS, smem, &caches[ledger > 0], blocks);
 }
 
 extern "C" int sparse_fused_chunk_blocks(int m, int nnz_max, int threads, int depth, int slots,
-                                         int stride, int* blocks) {
+                                         int stride, int ledger, int* blocks) {
   SparseChoice c;
-  cudaError_t err = sparse_choice(m, nnz_max, threads, depth, slots, stride, &c);
+  cudaError_t err = sparse_choice(m, nnz_max, threads, depth, slots, stride, ledger, &c);
   if (err != cudaSuccess) return (int)err;
   return coop_blocks(c.kernel, c.threads, c.smem, c.cache, blocks);
 }
 
+// alpha_s == nullptr: the lasso's chunk; otherwise the elastic-net's, with
+// its (K, kappa) chunk-start alpha values and l2, and a K-slot ledger.
 extern "C" int dense_fused_chunk_launch(const float* X, long long p, const float* y,
                                         const float* r0, const float* s0, const float* f0,
                                         const float* q0, const float* delta,
@@ -581,14 +736,17 @@ extern "C" int dense_fused_chunk_launch(const float* X, long long p, const float
                                         long long max_iters, int refresh_every, float eps_den,
                                         float gap_rtol, long long* i_star, float* recs,
                                         unsigned char* no_prog, float* r_out, float* s_out,
-                                        void* partials, int blocks, void* stream) {
+                                        void* partials, int blocks, const float* alpha_s,
+                                        float l2, void* stream) {
+  const int en = alpha_s != nullptr;
+  const size_t smem = chunk_smem_bytes<DenseRows>(m, en ? K : 0);
+  if (smem > OPTIN_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   DenseRows L{X, p, m, rows_vectorizable<float>(X, m)};
   ChunkArgs a = chunk_args(y, r0, s0, f0, q0, delta, idx, zty_s, zn2_s, m, K, kappa, k0,
                            max_iters, refresh_every, eps_den, gap_rtol, i_star, recs, no_prog,
-                           r_out, s_out, partials);
+                           r_out, s_out, partials, alpha_s, l2);
   void* args[] = {&L, &a};
-  return coop_launch((const void*)fused_chunk_kernel<DenseRows>, FC_THREADS,
-                     chunk_smem_bytes<DenseRows>(m), args, blocks, stream);
+  return coop_launch(dense_kernel(en), FC_THREADS, smem, args, blocks, stream);
 }
 
 extern "C" int sparse_fused_chunk_launch(const float* values, const int* rows,
@@ -602,16 +760,18 @@ extern "C" int sparse_fused_chunk_launch(const float* values, const int* rows,
                                          long long max_iters, int refresh_every, float eps_den,
                                          float gap_rtol, long long* i_star, float* recs,
                                          unsigned char* no_prog, float* r_out, float* s_out,
-                                         void* partials, int blocks, void* stream) {
+                                         void* partials, int blocks, const float* alpha_s,
+                                         float l2, void* stream) {
+  const int en = alpha_s != nullptr;
   SparseChoice c;
-  cudaError_t err = sparse_choice(m, nnz_max, threads, depth, slots, stride, &c);
+  cudaError_t err = sparse_choice(m, nnz_max, threads, depth, slots, stride, en ? K : 0, &c);
   if (err != cudaSuccess) return (int)err;
   // the ring kernel counts a warp's features (K * ceil(kappa / its warps)) in 32 bits
   if (depth && (long long)K * (kappa / (32LL * blocks) + 1) > INT_MAX) return (int)cudaErrorInvalidValue;
   SparseSlots L{values, rows, n_feat, m, nnz_max};
   ChunkArgs a = chunk_args(y, r0, s0, f0, q0, delta, idx, zty_s, zn2_s, m, K, kappa, k0,
                            max_iters, refresh_every, eps_den, gap_rtol, i_star, recs, no_prog,
-                           r_out, s_out, partials);
+                           r_out, s_out, partials, alpha_s, l2);
   void* direct[] = {&L, &a};
   void* ring[] = {&L, &a, &stride};
   return coop_launch(c.kernel, c.threads, c.smem, depth ? ring : direct, blocks, stream);

@@ -72,6 +72,14 @@ __device__ __forceinline__ bool lane_listed(const int* __restrict__ lane_ids, in
   return false;
 }
 
+// The elastic-net's shifted score of index idx (< p_valid): raw +
+// l2 * (scale * beta[idx]), in the reference's op order.
+template <typename BT>
+__device__ __forceinline__ float shifted(float raw, const BT* __restrict__ beta, long long idx,
+                                         float scale, float l2) {
+  return __fadd_rn(raw, __fmul_rn(l2, __fmul_rn(scale, to_f32(__ldg(beta + idx)))));
+}
+
 // i_star = the global index of the first max of |scores| (indices >=
 // p_valid masked to -1), g_star = its score. Block b reduces the scores
 // [b * chunk, (b + 1) * chunk) (chunk a multiple of 4) in quads of 4, 16
@@ -85,15 +93,25 @@ __device__ __forceinline__ bool lane_listed(const int* __restrict__ lane_ids, in
 // own ticket done[y] and partials; block (0, 0) also writes i_star = -1
 // and g_star = 0 for each of the n_lanes lanes that is not listed (a
 // frozen lane, whose blocks are not launched; n_run 0: a grid of one block
-// that only does that).
-template <bool LANES>
+// that only does that). With a shift (BT not void), the magnitude compared
+// is |sel| (a masked index reads no beta), g_star is the winner's raw
+// score and g_sel its sel, recomputed by the last block (the same bits;
+// an index past p_valid, when every index is masked, reads beta[p_valid -
+// 1] as the reference's clipped gather does); lane l's beta starts l *
+// beta_stride elements in, its scale is scale[l].
+template <bool LANES, typename BT>
 __global__ void __launch_bounds__(AM_THREADS)
 vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restrict__ blk,
                      long long n, int bs, long long p_valid, long long chunk, int vec,
                      float* part_best, long long* part_j, unsigned int* done,
                      long long* __restrict__ i_star, float* __restrict__ g_star,
                      const int* __restrict__ lane_ids, int n_run, int n_lanes,
-                     long long sc_stride, long long blk_stride) {
+                     long long sc_stride, long long blk_stride, const void* beta_v,
+                     long long beta_stride, const float* __restrict__ scale_p, float l2,
+                     float* __restrict__ g_sel) {
+  constexpr bool SHIFT = !std::is_void<BT>::value;
+  using B = typename std::conditional<SHIFT, BT, float>::type;
+  const B* beta = static_cast<const B*>(beta_v);
   __shared__ bool last;
   if constexpr (LANES) {
     if (blockIdx.x == 0 && blockIdx.y == 0) {
@@ -101,6 +119,7 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
         if (!lane_listed(lane_ids, n_run, l)) {
           i_star[l] = -1;
           g_star[l] = 0.f;
+          if constexpr (SHIFT) g_sel[l] = 0.f;
         }
       }
     }
@@ -113,7 +132,14 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
     done += blockIdx.y;
     i_star += ln;
     g_star += ln;
+    if constexpr (SHIFT) {
+      beta += ln * beta_stride;
+      scale_p += ln;
+      g_sel += ln;
+    }
   }
+  float scale = 0.f;
+  if constexpr (SHIFT) scale = *scale_p;
   const long long j0 = blockIdx.x * chunk;
   const long long j1 = j0 + chunk < n ? j0 + chunk : n;
   constexpr long long STRIDE = 4 * AM_THREADS;
@@ -143,7 +169,13 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
       }
       if (j + c < j1) {
         const long long idx = __ldg(blk + qc) * bs + rc;
-        const float mag = idx < p_valid ? fabsf(s[c]) : -1.0f;
+        float mag = -1.0f;
+        if (idx < p_valid) {
+          if constexpr (SHIFT)
+            mag = fabsf(shifted(s[c], beta, idx, scale, l2));
+          else
+            mag = fabsf(s[c]);
+        }
         if (better(mag, j + c, best, bj)) {
           best = mag;
           bj = j + c;
@@ -180,8 +212,11 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
   }
   block_best(best, bj);
   if (threadIdx.x == 0) {
-    *i_star = blk[bj / bs] * bs + bj % bs;
+    const long long idx = blk[bj / bs] * bs + bj % bs;
+    *i_star = idx;
     *g_star = scores[bj];
+    if constexpr (SHIFT)
+      *g_sel = shifted(scores[bj], beta, idx < p_valid ? idx : p_valid - 1, scale, l2);
     *done = 0;
   }
 }
@@ -233,21 +268,42 @@ extern "C" int sampled_scores_launch(const void* X, const float* r, const long l
   return (int)cudaGetLastError();
 }
 
+template <bool LANES, typename BT>
+static void launch_argmax(dim3 grid, cudaStream_t s, const float* scores, const long long* blk,
+                          long long n, int bs, long long p_valid, long long chunk, int vec,
+                          float* part_best, long long* part_j, unsigned int* done,
+                          long long* i_star, float* g_star, const int* lane_ids, int n_run,
+                          int n_lanes, long long sc_stride, long long blk_stride,
+                          const void* beta, long long beta_stride, const float* scale, float l2,
+                          float* g_sel) {
+  vertex_argmax_kernel<LANES, BT><<<grid, AM_THREADS, 0, s>>>(
+      scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star,
+      lane_ids, n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride, scale, l2, g_sel);
+}
+
 // scratch: the ticket counters (u32, 0 between launches), one a lane for
 // lane_cap lanes, in whole 16-byte units; then lane_cap * blocks partial
 // positions (int64) and as many partial values (f32). lane_ids ==
 // nullptr: one lane (n_run 1, the strides unused); otherwise row y of the
 // grid reduces lane lane_ids[y] of the n_lanes (scores every sc_stride
-// floats, a multiple of 4; blk every blk_stride ids, 0: shared).
+// floats, a multiple of 4; blk every blk_stride ids, 0: shared). beta ==
+// nullptr: no shift; otherwise the elastic-net's shift with beta (of
+// dtype beta_dtype, a row every beta_stride elements for lanes), the f32
+// scale (one a lane) and l2, and the winners' selected scores in g_sel.
 extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, long long n,
                                     int bs, long long p_valid, int blocks, long long chunk,
                                     void* scratch, int lane_cap, long long* i_star,
                                     float* g_star, const int* lane_ids, int n_run, int n_lanes,
-                                    long long sc_stride, long long blk_stride, void* stream) {
+                                    long long sc_stride, long long blk_stride, const void* beta,
+                                    long long beta_stride, int beta_dtype, const float* scale,
+                                    float l2, float* g_sel, void* stream) {
   if (blocks < 1 || chunk % 4 != 0 || (blocks - 1) * chunk >= n || blocks * chunk < n)
     return (int)cudaErrorInvalidValue;
   if (n_run < 0 || n_run > lane_cap || n_run > 65535 || (lane_ids == nullptr && n_run != 1) ||
       (lane_ids != nullptr && (n_lanes < n_run || sc_stride % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (beta != nullptr && (scale == nullptr || g_sel == nullptr || p_valid < 1 ||
+                          (beta_dtype != DT_F32 && beta_dtype != DT_BF16)))
     return (int)cudaErrorInvalidValue;
   unsigned int* done = static_cast<unsigned int*>(scratch);
   long long* part_j =
@@ -256,13 +312,28 @@ extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, l
   const int vec = reinterpret_cast<uintptr_t>(scores) % 16 == 0;
   const dim3 grid(n_run > 0 ? blocks : 1, n_run > 0 ? n_run : 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane_ids == nullptr)
-    vertex_argmax_kernel<false><<<grid, AM_THREADS, 0, s>>>(
-        scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star,
-        nullptr, 1, 1, 0, 0);
-  else
-    vertex_argmax_kernel<true><<<grid, AM_THREADS, 0, s>>>(
-        scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, done, i_star, g_star,
-        lane_ids, n_run, n_lanes, sc_stride, blk_stride);
+  const bool lanes = lane_ids != nullptr;
+  const int n_l = lanes ? n_lanes : 1, n_r = lanes ? n_run : 1;
+  const long long scs = lanes ? sc_stride : 0, bls = lanes ? blk_stride : 0;
+#define REPRO_ARGMAX(L, BT)                                                                  \
+  launch_argmax<L, BT>(grid, s, scores, blk, n, bs, p_valid, chunk, vec, part_best, part_j, \
+                       done, i_star, g_star, lane_ids, n_r, n_l, scs, bls, beta, beta_stride, \
+                       scale, l2, g_sel)
+  if (beta == nullptr) {
+    if (lanes)
+      REPRO_ARGMAX(true, void);
+    else
+      REPRO_ARGMAX(false, void);
+  } else if (beta_dtype == DT_F32) {
+    if (lanes)
+      REPRO_ARGMAX(true, float);
+    else
+      REPRO_ARGMAX(false, float);
+  } else if (lanes) {
+    REPRO_ARGMAX(true, __nv_bfloat16);
+  } else {
+    REPRO_ARGMAX(false, __nv_bfloat16);
+  }
+#undef REPRO_ARGMAX
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,12 @@
 // its operands; any other lane (frozen) copies its residual and scalars to
 // the outputs and leaves beta alone, so its state is kept bit for bit. The
 // one-lane instantiation compiles none of the lane code.
+//
+// The elastic-net's tail (the EN instantiations): eq. 6's sign from the
+// winner's shifted score g_sel, the EN line search (common.cuh's
+// en_line_search, which reads a_star = scale * beta[i_star] in every
+// block) and Q's recursion beside S and F, written as s_out's sixth field.
+// The lasso's instantiations compile none of it.
 #include "common.cuh"
 
 constexpr int ST_THREADS = 1024;
@@ -51,11 +57,20 @@ struct TailArgs {
   const int* __restrict__ lane_ids;
   int n_run;
   const T* __restrict__ step_inf;  // (L,) a frozen lane's step_inf, copied out
+  // the elastic-net's: the winner's shifted score (g is then its linear
+  // score), Q (output s_out field 5) and l2; g_sel null for the lasso
+  const float* __restrict__ g_sel;
+  const T* __restrict__ q_norm;
+  float l2;
 };
 
 // Point `a` at lane l's operands.
-template <typename T>
+template <typename T, bool EN>
 __device__ __forceinline__ void select_lane(TailArgs<T>& a, int l) {
+  if constexpr (EN) {
+    a.g_sel += l;
+    a.q_norm += l;
+  }
   a.beta += (long long)l * a.p;
   a.scale += l;
   a.maxabs += l;
@@ -74,7 +89,7 @@ __device__ __forceinline__ void select_lane(TailArgs<T>& a, int l) {
 
 // A frozen lane: its residual rows of this block and (block 0) its scalars
 // copied to the outputs unchanged.
-template <typename T>
+template <typename T, bool EN>
 __device__ void frozen_lane(const TailArgs<T>& a, int lo, int hi) {
   for (int k = lo + threadIdx.x; k < hi; k += ST_THREADS) a.r_out[k] = a.resid[k];
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -84,6 +99,7 @@ __device__ void frozen_lane(const TailArgs<T>& a, int lo, int hi) {
     a.s_out[2 * L] = *a.step_inf;
     a.s_out[3 * L] = *a.s_quad;
     a.s_out[4 * L] = *a.f_lin;
+    if constexpr (EN) a.s_out[5 * L] = *a.q_norm;
     *a.stall_out = *a.stall;
   }
 }
@@ -99,7 +115,7 @@ struct TailShared {
 // thread 0 computes the same scalars from the inputs; block 0 alone writes
 // the coefficient, the statistics and S, F. Every load a thread needs is
 // issued before the barrier that hands it the scalars.
-template <typename T, bool SPARSE, bool LANES>
+template <typename T, bool SPARSE, bool LANES, bool EN>
 __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   __shared__ TailShared sh;
   const int tid = threadIdx.x;
@@ -109,9 +125,9 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     const int l = blockIdx.y;
     bool listed = false;
     for (int k = 0; k < a.n_run; ++k) listed |= a.lane_ids[k] == l;
-    select_lane(a, l);
+    select_lane<T, EN>(a, l);
     if (!listed) {
-      frozen_lane(a, lo, hi);
+      frozen_lane<T, EN>(a, lo, hi);
       return;
     }
   }
@@ -145,7 +161,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
       sy = to_f32(a.y[r]);
     }
   }
-  float S = 0.f, F = 0.f, zty = 0.f, zn2 = 0.f, scale = 0.f, b0 = 0.f;
+  float S = 0.f, F = 0.f, Q = 0.f, zty = 0.f, zn2 = 0.f, scale = 0.f, b0 = 0.f;
   LineSearch ls;
   if (tid == 0) {
     scale = to_f32(*a.scale);
@@ -153,8 +169,14 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     F = to_f32(*a.f_lin);
     zty = to_f32(a.zty[i]);
     zn2 = to_f32(a.zn2[i]);
-    if (blockIdx.x == 0) b0 = to_f32(a.beta[i]);
-    ls = lasso_line_search(*a.g, *a.delta, S, F, zty, zn2, a.eps_den, a.gap_rtol);
+    if (EN || blockIdx.x == 0) b0 = to_f32(a.beta[i]);
+    if constexpr (EN) {
+      Q = to_f32(*a.q_norm);
+      ls = en_line_search(*a.g, *a.g_sel, __fmul_rn(scale, b0), *a.delta, S, F, Q, zty, zn2,
+                          a.l2, a.eps_den, a.gap_rtol);
+    } else {
+      ls = lasso_line_search(*a.g, *a.delta, S, F, zty, zn2, a.eps_den, a.gap_rtol);
+    }
     sh.lam = ls.lam;
     sh.dt = ls.dt;
     sh.one_m = __fsub_rn(1.f, ls.lam);
@@ -239,6 +261,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     a.s_out[2 * L] = from_f32<T>(step_inf);
     a.s_out[3 * L] = from_f32<T>(S);
     a.s_out[4 * L] = from_f32<T>(F);
+    if constexpr (EN) a.s_out[5 * L] = from_f32<T>(q_recursion(Q, lam, dt, a_star));
     *a.stall_out = stall;
   }
   if (SPARSE && blockIdx.x == 0) {
@@ -251,6 +274,14 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   }
 }
 
+template <typename T, bool SPARSE, bool LANES>
+static void launch_tail(const TailArgs<T>& a, dim3 grid, cudaStream_t s) {
+  if (a.g_sel != nullptr)
+    step_tail_kernel<T, SPARSE, LANES, true><<<grid, ST_THREADS, 0, s>>>(a);
+  else
+    step_tail_kernel<T, SPARSE, LANES, false><<<grid, ST_THREADS, 0, s>>>(a);
+}
+
 template <typename T>
 static int launch(const void* X, const int* rows, int nnz_max, void* beta, long long p,
                   const void* scale, const void* maxabs, const int* stall, const void* s_quad,
@@ -258,7 +289,8 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                   const void* zn2, const long long* i_star, const float* g, const float* delta,
                   int m, float renorm_threshold, float eps_den, float gap_rtol, float tol,
                   void* r_out, void* s_out, int* stall_out, const int* lane_ids, int n_run,
-                  int n_lanes, const void* step_inf, cudaStream_t s) {
+                  int n_lanes, const void* step_inf, const float* g_sel, const void* q_norm,
+                  float l2, cudaStream_t s) {
   TailArgs<T> a{static_cast<const T*>(X),      rows,
                 nnz_max,                       static_cast<T*>(beta),
                 p,                             static_cast<const T*>(scale),
@@ -272,22 +304,25 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                 gap_rtol,                      tol,
                 static_cast<T*>(r_out),        static_cast<T*>(s_out),
                 stall_out,                     lane_ids,
-                n_run,                         static_cast<const T*>(step_inf)};
+                n_run,                         static_cast<const T*>(step_inf),
+                g_sel,                         static_cast<const T*>(q_norm),
+                l2};
   if (m < 1) return (int)cudaErrorInvalidValue;
   if (lane_ids == nullptr ? n_lanes != 1
                           : n_lanes < 1 || n_lanes > 65535 || n_run < 0 || n_run > n_lanes ||
                                 step_inf == nullptr)
     return (int)cudaErrorInvalidValue;
+  if ((g_sel == nullptr) != (q_norm == nullptr)) return (int)cudaErrorInvalidValue;
   const dim3 grid((m + ST_ROWS - 1) / ST_ROWS, n_lanes);
   if (lane_ids == nullptr) {
     if (rows != nullptr)
-      step_tail_kernel<T, true, false><<<grid, ST_THREADS, 0, s>>>(a);
+      launch_tail<T, true, false>(a, grid, s);
     else
-      step_tail_kernel<T, false, false><<<grid, ST_THREADS, 0, s>>>(a);
+      launch_tail<T, false, false>(a, grid, s);
   } else if (rows != nullptr) {
-    step_tail_kernel<T, true, true><<<grid, ST_THREADS, 0, s>>>(a);
+    launch_tail<T, true, true>(a, grid, s);
   } else {
-    step_tail_kernel<T, false, true><<<grid, ST_THREADS, 0, s>>>(a);
+    launch_tail<T, false, true>(a, grid, s);
   }
   return (int)cudaGetLastError();
 }
@@ -295,7 +330,9 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
 // rows == nullptr: the dense layout (X is Xt (p, m)); otherwise X and rows
 // are the block-ELL arrays, nnz_max slots a feature. lane_ids == nullptr:
 // one lane (n_lanes 1; n_run and step_inf unused); otherwise n_lanes lanes
-// of which the n_run listed ones step (see TailArgs).
+// of which the n_run listed ones step (see TailArgs). g_sel == nullptr:
+// the lasso's tail; otherwise the elastic-net's, with q_norm (in the
+// state's dtype) and l2, and s_out holds 6 fields.
 extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, void* beta,
                                 long long p, const void* scale, const void* maxabs,
                                 const int* stall, const void* s_quad, const void* f_lin,
@@ -304,16 +341,18 @@ extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, voi
                                 const float* delta, int m, float renorm_threshold,
                                 float eps_den, float gap_rtol, float tol, void* r_out,
                                 void* s_out, int* stall_out, const int* lane_ids, int n_run,
-                                int n_lanes, const void* step_inf, int dtype, void* stream) {
+                                int n_lanes, const void* step_inf, int dtype, const float* g_sel,
+                                const void* q_norm, float l2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
     return launch<float>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid,
                          y, zty, zn2, i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol,
-                         tol, r_out, s_out, stall_out, lane_ids, n_run, n_lanes, step_inf, s);
+                         tol, r_out, s_out, stall_out, lane_ids, n_run, n_lanes, step_inf, g_sel,
+                         q_norm, l2, s);
   if (dtype == DT_BF16)
     return launch<__nv_bfloat16>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin,
                                  resid, y, zty, zn2, i_star, g, delta, m, renorm_threshold,
                                  eps_den, gap_rtol, tol, r_out, s_out, stall_out, lane_ids, n_run,
-                                 n_lanes, step_inf, s);
+                                 n_lanes, step_inf, g_sel, q_norm, l2, s);
   return (int)cudaErrorInvalidValue;
 }

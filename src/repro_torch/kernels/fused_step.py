@@ -13,13 +13,24 @@ max_iters`` write their record but change no state. Each returns
 (S, F, Q))``. ``fused_replay`` then applies the records to ``beta`` and
 the stopping statistics with ``step_tail.apply_coeff_update``'s op sequence.
 
+The elastic-net's chunk (an oracle with ``fused_kind = 'en'``, given
+``alpha_s``, the chunk-start alpha values ``scale * beta[idx]`` in f32)
+selects on the shifted score ``sel = raw + l2 * a_i``. Beta stays outside
+the chunk, so ``a_i`` comes from the alpha ledger: the running product P of
+``(1 - lam)`` and K slots ``(i*_t, c_t)``, each slot rescaled by ``(1 - lam)``
+every step and slot t set to ``lam_t * delta_t``, so that ``a_i = P *
+alpha_s + (the slots with i*_t == i)``. The winner's ``a_i`` then feeds the
+EN line search and the Q = ||alpha||^2 recursion; Q's exact refresh needs
+beta and is the engine's, after the replay. The ledger reassociates the
+unfused ``scale * beta`` products, so an EN chunk matches the unfused EN
+steps to rounding, not bit for bit (as the reference's does).
+
 Replaces the Pallas kernel ``_fused_kernel`` at
 ``src/repro/kernels/fused_step/fused_step.py:259``, through its entries
 ``dense_fused_chunk`` (:310, ``layout='dense'``) and ``sparse_fused_chunk``
-(:376, ``layout='sparse'``, with ``scatter_vmem`` at :83), in its lasso
-form: the elastic-net's alpha ledger (:137-139, :158-162, :226-230) waits
-for ROADMAP.md Queue 1 item 8. ``fused_replay`` replaces the reference's
-XLA ``fori_loop`` ``_fused_replay`` (``src/repro/core/engine.py:387``).
+(:376, ``layout='sparse'``, with ``scatter_vmem`` at :83), the alpha ledger
+(:137-139, :158-162, :226-230) included. ``fused_replay`` replaces the
+reference's XLA ``fori_loop`` ``_fused_replay`` (``src/repro/core/engine.py:387``).
 
 Bounds on an H100: bytes. A dense step reads its kappa rows once, their
 indices and pregathered statistics, and y, the residual and the winner's
@@ -80,12 +91,27 @@ beside the residual (a feature in pieces of 96, 64 or 32 slots where a
 whole one does not fit); where none fits (m near ``M_MAX_SPARSE``), K7
 scores from device memory as K4 does, with K5's ``warp_slot_score``.
 
+The ledger lives at the front of each block's dynamic shared memory, K
+slots (``ledger_bytes(K)``, 12 bytes a slot), so a chunk takes any K whose
+ledger fits beside the residual (``chunk_fits``); each block updates its
+copy on thread 0 with the step's scalars, which every block computes
+alike. A scoring warp adds the ledger's slots of its coordinate
+in slot order to ``P * alpha_s``; the partials carry only ``(|sel|, raw,
+position)``, and thread 0 recomputes the winner's ``a_i`` and ``sel`` from
+the same ledger, the same bits. The EN code is a template flag of each
+chunk kernel, so the lasso's instantiations compile none of it. Each
+instantiation has its own wrapper (``dense_fused_chunk[_en]``,
+``sparse_fused_chunk[_en]``), whose ``launches`` attribute counts it. An
+EN record also carries the step's sampled gap, its gap scale and Q, the
+inputs of its stall test.
+
 ``m`` is capped by shared memory: the dense layout keeps y beside the
 residual (two (m,) f32 vectors a block, ``M_MAX``); the sparse layout
 reads y through L2 and keeps the residual alone (``M_MAX_SPARSE``; at
-m = 16,087 that is 64.3 KB a block). Both chunks run in f32. The engine
-routes a bf16 design, or m past its layout's cap, to K unfused steps
-instead (``core.vertex.use_fused_kernel``).
+m = 16,087 that is 64.3 KB a block); the EN ledger adds its bytes. Both
+chunks run in f32. The engine routes a bf16 design, or a state past its
+layout's shared memory (``chunk_fits``), to K unfused steps instead
+(``core.vertex.use_fused_kernel``).
 
 ``fused_replay`` is one block launched once per chunk. Its first warp
 loads the records in one parallel round (a lane a record, then the
@@ -102,7 +128,6 @@ from __future__ import annotations
 import ctypes
 from typing import Dict
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -119,15 +144,18 @@ from repro_torch.kernels.sparse_grad import (  # noqa: F401 (K7's ring, re-expor
 
 M_MAX = 24_576  # two (m,) f32 vectors in a block's shared memory: 192 KB
 M_MAX_SPARSE = 57_344  # one (m,) f32 vector: 224 KB
-REC = 8  # record row: lam, delta_t, raw, sel, stall flag, 0, 0, 0
+# record row: lam, delta_t, raw, sel, stall flag, then the elastic-net's
+# sampled gap, its gap_scale and Q before the step (0, 0, 0 for the lasso)
+REC = 8
 PARTIAL_BYTES = 16  # one block's (|score|, score, position) per step parity
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the arguments both chunk entry points end with: (y, r0, s0, f0, q0, delta, idx,
 # zty_s, zn2_s, m, K, kappa, k0, max_iters, refresh_every, eps_den, gap_rtol, i_star,
-# recs, no_prog, r_out, s_out, partials, blocks, stream)
+# recs, no_prog, r_out, s_out, partials, blocks, alpha_s, l2, stream); alpha_s null:
+# the lasso's chunk
 _CHUNK_TAIL = ([_PTR] * 9 + [_I32, _I32, _I64, _I64, _I64, _I32, _F32, _F32]
-               + [_PTR] * 6 + [_I32, _PTR])
+               + [_PTR] * 6 + [_I32, _PTR, _F32, _PTR])
 # the matrix's arguments first: (X, p), or (values, rows, n_feat, nnz_max, threads, depth,
 # slots, stride)
 _DENSE_ARGTYPES = [_PTR, _I64] + _CHUNK_TAIL
@@ -139,30 +167,55 @@ _REPLAY_ARGTYPES = ([_PTR, _I64] + [_PTR] * 6 + [_I64, _PTR, _I64, _PTR, _I32, _
 
 _grid_blocks: Dict[tuple, int] = {}
 
-def plan(m: int, nnz_max: int) -> RingPlan:
+def ledger_bytes(K: int) -> int:
+    """The elastic-net chunk's alpha ledger at the front of a block's
+    dynamic shared memory: K slot ids (int64), K slot values and P (f32),
+    rounded up to 16 bytes (``ledger_bytes`` of ``csrc/fused_step.cu``)."""
+    return -(-(12 * K + 4) // 16) * 16
+
+
+def _vec_bytes(m: int) -> int:
+    return 4 * (-(-m // 4) * 4)  # an (m,) f32 vector, rounded up to 16 bytes
+
+
+def chunk_fits(sparse: bool, m: int, ledger: int = 0) -> bool:
+    """Whether a chunk's shared memory holds its state at m: the residual
+    (and, dense, y beside it) up to ``M_MAX_SPARSE`` (``M_MAX``), plus
+    ``ledger`` bytes (``ledger_bytes(K)`` for the elastic-net's chunk),
+    within ``SMEM_BYTES``."""
+    if sparse:
+        return m <= M_MAX_SPARSE and _vec_bytes(m) + ledger <= SMEM_BYTES
+    return m <= M_MAX and _vec_bytes(m) + 4 * m + ledger <= SMEM_BYTES
+
+
+def plan(m: int, nnz_max: int, ledger: int = 0) -> RingPlan:
     """K7's ring (``sparse_grad.ring_plan``, the ring K5 scores through) for
-    a residual of ``m`` and ``nnz_max`` slots a feature; where none fits,
-    ``RingPlan(512, 0, 0, 0)``: 512-thread blocks score the features from
-    device memory. Raises past ``M_MAX_SPARSE``."""
-    if m > M_MAX_SPARSE:
+    a residual of ``m`` and ``nnz_max`` slots a feature, beside ``ledger``
+    bytes of the elastic-net's ledger; where none fits, ``RingPlan(512, 0,
+    0, 0)``: 512-thread blocks score the features from device memory.
+    Raises where the residual and the ledger do not fit (``chunk_fits``)."""
+    if not chunk_fits(True, m, ledger):
         raise ValueError(
-            f"the sparse fused chunk keeps the (m,) f32 residual in shared memory: "
-            f"m <= {M_MAX_SPARSE}, got {m}"
+            f"the sparse fused chunk keeps the (m,) f32 residual and {ledger} ledger bytes in "
+            f"shared memory: m <= {M_MAX_SPARSE} and {SMEM_BYTES} bytes, got m = {m}"
         )
-    return ring_plan(m, nnz_max)
+    return ring_plan(m, nnz_max, ledger)
 
 
-def _f32(x: float) -> float:
-    """A config constant as the f32 that torch's f32 ops compare with."""
-    return float(np.float32(x))
 
-
-def _check_lasso(oracle) -> None:
-    if getattr(oracle, "fused_kind", None) != "lasso" or oracle.fused_needs_alpha:
+def _check_oracle(oracle, kind: str, idx, alpha_s):
+    """The chunk runs ``kind``'s algebra ('lasso', or 'en' with its
+    ``alpha_s``); another oracle raises."""
+    got = getattr(oracle, "fused_kind", None)
+    if got != kind or oracle.fused_needs_alpha != (kind == "en"):
         raise NotImplementedError(
-            "the fused chunk runs the lasso's algebra only; the elastic-net's "
-            "alpha ledger is ROADMAP.md Queue 1 item 8"
+            f"the fused chunks run the lasso's and the elastic-net's algebra; this one "
+            f"fused_kind={kind!r}, not fused_kind={got!r} with fused_needs_alpha="
+            f"{getattr(oracle, 'fused_needs_alpha', None)}"
         )
+    if kind == "en" and (alpha_s is None or alpha_s.shape != idx.shape):
+        raise ValueError(f"the elastic-net's chunk needs alpha_s of idx's shape "
+                         f"{tuple(idx.shape)}")
 
 
 def _check_chunk(m, y, resid, idx, zty_s, zn2_s):
@@ -178,42 +231,63 @@ def _check_chunk(m, y, resid, idx, zty_s, zn2_s):
 
 
 def _chunk_plain(score, update, y, resid, scal, idx, zty_s, zn2_s, k0: int, delta, *,
-                 oracle, eps_den, gap_rtol, refresh_every: int, max_iters: int):
+                 oracle, eps_den, gap_rtol, refresh_every: int, max_iters: int, alpha_s=None):
     """The chunk's plain version on either layout (reference
-    ``kernels/fused_step/ref.py``): ``score(ids, resid)`` gives a step's
-    scores, ``update(resid, y, i_star, lam, delta_t)`` its eq. 10. With the
-    unfused step's own score and update functions it runs that step's ops
-    in its order, so a chunk on CPU tensors replays fuse_steps=1 bit for
-    bit."""
+    ``kernels/fused_step/ref.py:21-98``): ``score(ids, resid)`` gives a
+    step's scores, ``update(resid, y, i_star, lam, delta_t)`` its eq. 10.
+    With the unfused step's own score and update functions it runs that
+    step's ops in its order, so a lasso chunk on CPU tensors replays
+    fuse_steps=1 bit for bit. An oracle that needs alpha (the elastic-net)
+    selects on the shifted score from the alpha ledger, ``alpha_s`` its
+    chunk-start alpha values."""
     K = idx.shape[0]
     y = y.float()
     resid = resid.float()
     delta = torch.as_tensor(delta, dtype=torch.float32, device=y.device)
     scal3 = tuple(scal)
+    needs_alpha = oracle.fused_needs_alpha
+    if needs_alpha:  # the ledger: P = prod(1 - lam), slots (i*_t, c_t)
+        P = torch.ones((), dtype=torch.float32, device=y.device)
+        ladd = torch.zeros(K, dtype=torch.float32, device=y.device)
+        lidx = torch.full((K,), -1, dtype=idx.dtype, device=y.device)
     recs = []
     for s in range(K):
         ids = idx[s]
         raw = score(ids, resid)
-        j = torch.argmax(raw.abs()).view(1)
+        if needs_alpha:
+            corr = torch.where(lidx[None, :] == ids[:, None], ladd[None, :], 0.0).sum(dim=1)
+            a = P * alpha_s[s] + corr
+            sel = raw + oracle.fused_score_shift(a)
+        else:
+            sel = raw
+        j = torch.argmax(sel.abs()).view(1)
         i_star = ids.index_select(0, j).view(())
-        g = raw.index_select(0, j).view(())
+        g_raw = raw.index_select(0, j).view(())
+        g_sel = sel.index_select(0, j).view(())
+        a_star = a.index_select(0, j).view(()) if needs_alpha else None
         zty_i = zty_s[s].index_select(0, j).view(())
         zn2_i = zn2_s[s].index_select(0, j).view(())
-        delta_t = -delta * torch.sign(g)
+        delta_t = -delta * torch.sign(g_sel)
         lam, no_progress, g_lin = oracle.fused_line_search(
-            scal3, g, g, None, delta_t, zty_i, zn2_i, eps_den, gap_rtol
+            scal3, g_raw, g_sel, a_star, delta_t, zty_i, zn2_i, eps_den, gap_rtol
         )
         recs.append((i_star, lam, delta_t, no_progress))
         k = k0 + s
         if k < max_iters:
             resid = update(resid, y, i_star, lam, delta_t)
             s_quad, f_lin, q = oracle.fused_scalar_update(
-                scal3, g_lin, None, lam, delta_t, zty_i, zn2_i
+                scal3, g_lin, a_star, lam, delta_t, zty_i, zn2_i
             )
             if k % refresh_every == refresh_every - 1:  # exact S/F refresh
                 v = y - resid
                 s_quad, f_lin = torch.dot(v, v), torch.dot(v, y)
             scal3 = (s_quad, f_lin, q)
+            if needs_alpha:
+                one_m = 1.0 - lam
+                P = P * one_m
+                ladd = ladd * one_m
+                ladd[s] = lam * delta_t
+                lidx[s] = i_star
     i_stars, lams, delta_ts, no_progs = (torch.stack(c) for c in zip(*recs))
     return i_stars, lams, delta_ts, no_progs, resid, scal3
 
@@ -245,34 +319,39 @@ def sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0
                         update, y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
 
 
-def _blocks(layout: str, dev: torch.device, m: int, shape: tuple = ()) -> int:
-    """The cooperative grid of a layout ('dense' or 'sparse') at m; for
-    'sparse', ``shape`` is ``(nnz_max, *plan(m, nnz_max))``."""
-    key = (layout, dev.index, m, shape)
+def _blocks(layout: str, dev: torch.device, m: int, shape: tuple = (), slots: int = 0) -> int:
+    """The cooperative grid of a layout ('dense' or 'sparse') at m, of the
+    lasso's instantiation (``slots`` 0) or the elastic-net's with a ledger
+    of ``slots`` = K slots; for 'sparse', ``shape`` is ``(nnz_max, *plan)``."""
+    key = (layout, dev.index, m, shape, slots)
     if key not in _grid_blocks:
         fn = _build.function("fused_step", f"{layout}_fused_chunk_blocks",
-                             [_I32] * (1 + len(shape)) + [_PTR])
+                             [_I32] * (2 + len(shape)) + [_PTR])
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            err = fn(m, *shape, ctypes.addressof(out))
+            err = fn(m, *shape, slots, ctypes.addressof(out))
         _build.check("fused_step", err, f"{layout}_fused_chunk occupancy query")
         _grid_blocks[key] = out.value
     return _grid_blocks[key]
 
 
 def _launch_chunk(layout: str, head: tuple, shape: tuple, y, resid, scal, idx, zty_s, zn2_s,
-                  k0: int, delta, *, eps_den, gap_rtol, refresh_every: int, max_iters: int):
+                  k0: int, delta, *, eps_den, gap_rtol, refresh_every: int, max_iters: int,
+                  alpha_s=None, l2: float = 0.0):
     """Launch the cooperative chunk kernel of ``layout`` with its leading
     arguments ``head + shape`` (the matrix's pointers and sizes, then what
-    ``_blocks`` takes). Returns the chunk's records and final state."""
+    ``_blocks`` takes); ``alpha_s`` given, the elastic-net's instantiation
+    with ``l2``. Returns the chunk's records and final state."""
     m = y.shape[0]
     K, kappa = idx.shape
     dev = y.device
     s0, f0, q0 = (torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in scal)
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev).reshape(())
     idx = idx.long()
-    _build.require_cuda(y, resid, s0, f0, q0, delta, idx, zty_s, zn2_s)
-    blocks = _blocks(layout, dev, m, shape)
+    en = alpha_s is not None
+    _build.require_cuda(y, resid, s0, f0, q0, delta, idx, zty_s, zn2_s,
+                        *((alpha_s,) if en else ()))
+    blocks = _blocks(layout, dev, m, shape, K if en else 0)
     i_star = torch.empty(K, dtype=torch.int64, device=dev)
     recs = torch.empty((K, REC), dtype=torch.float32, device=dev)
     no_prog = torch.empty(K, dtype=torch.bool, device=dev)
@@ -285,9 +364,9 @@ def _launch_chunk(layout: str, head: tuple, shape: tuple, y, resid, scal, idx, z
         err = fn(*head, *shape, y.data_ptr(), resid.data_ptr(), s0.data_ptr(), f0.data_ptr(),
                  q0.data_ptr(), delta.data_ptr(), idx.data_ptr(), zty_s.data_ptr(),
                  zn2_s.data_ptr(), m, K, kappa, int(k0), int(max_iters), int(refresh_every),
-                 _f32(eps_den), _f32(gap_rtol), i_star.data_ptr(), recs.data_ptr(),
+                 _build.f32(eps_den), _build.f32(gap_rtol), i_star.data_ptr(), recs.data_ptr(),
                  no_prog.data_ptr(), r_out.data_ptr(), s_out.data_ptr(), partials.data_ptr(),
-                 blocks, _build.stream(dev))
+                 blocks, alpha_s.data_ptr() if en else None, _build.f32(l2), _build.stream(dev))
     _build.check("fused_step", err, f"{layout}_fused_chunk (cooperative)")
     return i_star, recs[:, 0], recs[:, 1], no_prog, r_out, (s_out[0], s_out[1], s_out[2])
 
@@ -301,30 +380,53 @@ def dense_fused_chunk(Xt: torch.Tensor, y: torch.Tensor, resid: torch.Tensor, sc
                       idx: torch.Tensor, zty_s: torch.Tensor, zn2_s: torch.Tensor, k0: int,
                       delta, *, oracle, eps_den: float, gap_rtol: float, refresh_every: int,
                       max_iters: int):
-    """K fused FW steps over the dense feature-major ``Xt``. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (or raises).
-    ``scal`` is the chunk-start (S, F, Q) as 0-d tensors, ``delta`` a 0-d
-    tensor, ``k0`` the global iteration count at the chunk start."""
+    """K fused lasso FW steps over the dense feature-major ``Xt``. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (or
+    raises). ``scal`` is the chunk-start (S, F, Q) as 0-d tensors, ``delta``
+    a 0-d tensor, ``k0`` the global iteration count at the chunk start,
+    ``oracle`` one with ``fused_kind = 'lasso'``."""
+    return _dense_chunk(dense_fused_chunk, "lasso", Xt, y, resid, scal, idx, zty_s, zn2_s, k0,
+                        delta, None, oracle=oracle, eps_den=eps_den, gap_rtol=gap_rtol,
+                        refresh_every=refresh_every, max_iters=max_iters)
+
+
+def dense_fused_chunk_en(Xt: torch.Tensor, y: torch.Tensor, resid: torch.Tensor, scal,
+                         idx: torch.Tensor, zty_s: torch.Tensor, zn2_s: torch.Tensor, k0: int,
+                         delta, *, alpha_s: torch.Tensor, oracle, eps_den: float,
+                         gap_rtol: float, refresh_every: int, max_iters: int):
+    """K fused elastic-net FW steps over the dense ``Xt``, in K4's EN
+    instantiation (the alpha ledger): ``dense_fused_chunk``'s arguments, an
+    ``oracle`` with ``fused_kind = 'en'``, and ``alpha_s``, the chunk-start
+    alpha values at ``idx`` in f32."""
+    return _dense_chunk(dense_fused_chunk_en, "en", Xt, y, resid, scal, idx, zty_s, zn2_s, k0,
+                        delta, alpha_s, oracle=oracle, eps_den=eps_den, gap_rtol=gap_rtol,
+                        refresh_every=refresh_every, max_iters=max_iters)
+
+
+def _dense_chunk(wrapper, kind, Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta, alpha_s, *,
+                 oracle, **kw):
+    """``dense_fused_chunk`` or (kind 'en') ``dense_fused_chunk_en``: the
+    plain version on a CPU tensor, else one launch, counted on ``wrapper``."""
     if Xt.dim() != 2:
         raise ValueError(f"need Xt (p, m), got {tuple(Xt.shape)}")
     _check_chunk(Xt.shape[1], y, resid, idx, zty_s, zn2_s)
-    _check_lasso(oracle)
-    kw = dict(eps_den=eps_den, gap_rtol=gap_rtol, refresh_every=refresh_every,
-              max_iters=max_iters)
+    _check_oracle(oracle, kind, idx, alpha_s)
     if Xt.device.type == "cpu":
         return dense_fused_chunk_plain(Xt, y, resid, scal, idx, zty_s, zn2_s, k0, delta,
-                                       oracle=oracle, **kw)
+                                       oracle=oracle, alpha_s=alpha_s, **kw)
     p, m = Xt.shape
-    if m > M_MAX:
+    ledger = ledger_bytes(idx.shape[0]) if alpha_s is not None else 0
+    if not chunk_fits(False, m, ledger):
         raise ValueError(
-            f"the dense fused chunk keeps two (m,) f32 vectors in shared memory: "
-            f"m <= {M_MAX}, got {m}"
+            f"the dense fused chunk keeps two (m,) f32 vectors and {ledger} ledger bytes in "
+            f"shared memory: m <= {M_MAX} and {SMEM_BYTES} bytes, got m = {m}"
         )
-    _check_f32(Xt, y, resid, zty_s, zn2_s)
+    _check_f32(Xt, y, resid, zty_s, zn2_s, *(() if alpha_s is None else (alpha_s,)))
     _build.require_cuda(Xt, y)
     out = _launch_chunk("dense", (Xt.data_ptr(), p), (), y, resid, scal, idx, zty_s, zn2_s, k0,
-                        delta, **kw)
-    dense_fused_chunk.launches += 1
+                        delta, alpha_s=alpha_s, l2=oracle.l2 if alpha_s is not None else 0.0,
+                        **kw)
+    wrapper.launches += 1
     return out
 
 
@@ -332,36 +434,57 @@ def sparse_fused_chunk(values: torch.Tensor, rows: torch.Tensor, y: torch.Tensor
                        resid: torch.Tensor, scal, idx: torch.Tensor, zty_s: torch.Tensor,
                        zn2_s: torch.Tensor, k0: int, delta, *, oracle, eps_den: float,
                        gap_rtol: float, refresh_every: int, max_iters: int):
-    """K fused FW steps over the block-ELL ``values``/``rows`` ``(nblocks,
-    bs, nnz_max)``; ``idx`` holds feature ids (< p, drawn by the engine; a
-    padded feature scores 0). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (or raises: ``values`` and ``rows`` must
-    start on 16-byte boundaries, as every array the port allocates does).
-    The other arguments and the returns are ``dense_fused_chunk``'s."""
+    """K fused lasso FW steps over the block-ELL ``values``/``rows``
+    ``(nblocks, bs, nnz_max)``; ``idx`` holds feature ids (< p, drawn by the
+    engine; a padded feature scores 0). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (or raises: ``values`` and
+    ``rows`` must start on 16-byte boundaries, as every array the port
+    allocates does). The other arguments and the returns are
+    ``dense_fused_chunk``'s."""
+    return _sparse_chunk(sparse_fused_chunk, "lasso", values, rows, y, resid, scal, idx, zty_s,
+                         zn2_s, k0, delta, None, oracle=oracle, eps_den=eps_den,
+                         gap_rtol=gap_rtol, refresh_every=refresh_every, max_iters=max_iters)
+
+
+def sparse_fused_chunk_en(values: torch.Tensor, rows: torch.Tensor, y: torch.Tensor,
+                          resid: torch.Tensor, scal, idx: torch.Tensor, zty_s: torch.Tensor,
+                          zn2_s: torch.Tensor, k0: int, delta, *, alpha_s: torch.Tensor, oracle,
+                          eps_den: float, gap_rtol: float, refresh_every: int, max_iters: int):
+    """K fused elastic-net FW steps over the block-ELL layout, in K7's EN
+    instantiation (the alpha ledger): ``sparse_fused_chunk``'s arguments
+    and ``dense_fused_chunk_en``'s ``oracle`` and ``alpha_s``."""
+    return _sparse_chunk(sparse_fused_chunk_en, "en", values, rows, y, resid, scal, idx, zty_s,
+                         zn2_s, k0, delta, alpha_s, oracle=oracle, eps_den=eps_den,
+                         gap_rtol=gap_rtol, refresh_every=refresh_every, max_iters=max_iters)
+
+
+def _sparse_chunk(wrapper, kind, values, rows, y, resid, scal, idx, zty_s, zn2_s, k0, delta,
+                  alpha_s, *, oracle, **kw):
+    """``sparse_fused_chunk`` or (kind 'en') ``sparse_fused_chunk_en``: the
+    plain version on a CPU tensor, else one launch, counted on ``wrapper``."""
     if values.dim() != 3 or rows.shape != values.shape:
         raise ValueError(
             f"need values and rows (nblocks, bs, nnz_max), got {tuple(values.shape)}, "
             f"{tuple(rows.shape)}"
         )
     _check_chunk(y.shape[0], y, resid, idx, zty_s, zn2_s)
-    _check_lasso(oracle)
-    kw = dict(eps_den=eps_den, gap_rtol=gap_rtol, refresh_every=refresh_every,
-              max_iters=max_iters)
+    _check_oracle(oracle, kind, idx, alpha_s)
     if values.device.type == "cpu":
         return sparse_fused_chunk_plain(values, rows, y, resid, scal, idx, zty_s, zn2_s, k0,
-                                        delta, oracle=oracle, **kw)
+                                        delta, oracle=oracle, alpha_s=alpha_s, **kw)
     m = y.shape[0]
     nblocks, bs, nnz = values.shape
-    pl = plan(m, nnz)
-    _check_f32(values, y, resid, zty_s, zn2_s)
+    pl = plan(m, nnz, ledger_bytes(idx.shape[0]) if alpha_s is not None else 0)
+    _check_f32(values, y, resid, zty_s, zn2_s, *(() if alpha_s is None else (alpha_s,)))
     if rows.dtype != torch.int32:
         raise TypeError(f"the row slots must be int32, got {rows.dtype}")
     _build.require_cuda(values, rows, y)
     if pl.depth and (values.data_ptr() % 16 or rows.data_ptr() % 16):
-        raise ValueError("sparse_fused_chunk needs values and rows on 16-byte boundaries")
+        raise ValueError(f"{wrapper.__name__} needs values and rows on 16-byte boundaries")
     out = _launch_chunk("sparse", (values.data_ptr(), rows.data_ptr(), nblocks * bs),
-                        (nnz, *pl), y, resid, scal, idx, zty_s, zn2_s, k0, delta, **kw)
-    sparse_fused_chunk.launches += 1
+                        (nnz, *pl), y, resid, scal, idx, zty_s, zn2_s, k0, delta,
+                        alpha_s=alpha_s, l2=oracle.l2 if alpha_s is not None else 0.0, **kw)
+    wrapper.launches += 1
     return out
 
 
@@ -411,13 +534,15 @@ def fused_replay(beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
         err = fn(beta.data_ptr(), beta.shape[0], scale.data_ptr(), maxabs.data_ptr(),
                  step_inf.data_ptr(), stall.data_ptr(), i_stars.data_ptr(), lams.data_ptr(),
                  lams.stride(0), delta_ts.data_ptr(), delta_ts.stride(0), no_progs.data_ptr(),
-                 K, int(k0), int(cfg.max_iters), _f32(cfg.renorm_threshold), _f32(cfg.eps_den),
-                 _f32(cfg.tol), f_out.data_ptr(), stall_out.data_ptr(), _build.stream(dev))
+                 K, int(k0), int(cfg.max_iters), _build.f32(cfg.renorm_threshold),
+                 _build.f32(cfg.eps_den), _build.f32(cfg.tol), f_out.data_ptr(), stall_out.data_ptr(), _build.stream(dev))
         fused_replay.launches += 1
     _build.check("fused_step", err, "fused_replay")
     return beta, f_out[0], f_out[1], f_out[2], stall_out
 
 
 dense_fused_chunk.launches = 0
+dense_fused_chunk_en.launches = 0
 sparse_fused_chunk.launches = 0
+sparse_fused_chunk_en.launches = 0
 fused_replay.launches = 0

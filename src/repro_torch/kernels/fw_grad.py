@@ -44,6 +44,19 @@ a scratch buffer allocated once per device and reused by every launch in
 stream order: two streams must not run ``vertex_argmax`` on one device
 at once.
 
+The elastic-net's shifted argmax (``vertex_argmax_shifted``): the argmax
+of the selected scores ``sel = raw + l2 * (scale * beta[idx])`` (a
+``ScoreShift``), which the reference runs in XLA after K2's scores
+(``src/repro/core/vertex.py:243-249``; ``src/repro/sparse/ops.py:56-88``).
+The same launch, in an instantiation of its own: each thread gathers
+``beta[idx]`` beside each score it reads and forms ``sel`` with ``_rn``
+intrinsics in the reference's order; the first max of ``|sel|`` under the
+same total order wins (an index ``>= p_valid`` never wins, its shift read
+at ``p_valid - 1``, as the reference's clipped gather). It returns
+``(i_star, g_raw, g_sel)``, so an elastic-net step stays four launches.
+Bound: the one-lane bytes plus n*4 of ``beta`` gathers (n*2 bf16), 0.33 us
+at kappa = 42,723.
+
 Lanes (``sampled_scores_lanes``, ``vertex_argmax_lanes``): L delta lanes
 of the batched engine in one launch each, the counterpart of the
 reference's vmapped ``pallas_call`` under ``jax.vmap`` of its step
@@ -60,11 +73,16 @@ written. The scores of the lanes are one ``(L, n4)`` buffer, n rounded
 up to 4 so that every lane's row starts on 16 bytes, returned as the
 ``(L, n)`` view. Bound: L_active * n * m * itemsize + L * m * 4 + L * n *
 12 bytes for the scores (13 lanes at the paper's size: 1.777 GB, 0.53 ms
-at 3.35 TB/s); L times the one-lane bytes for the argmax.
+at 3.35 TB/s); L times the one-lane bytes for the argmax. The shifted
+argmax has a lane wrapper of its own, ``vertex_argmax_shifted_lanes``.
+
+Each instantiation has its own wrapper, whose ``launches`` attribute
+counts the launches of its kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -75,10 +93,13 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (X, r, blk, scores, p, m, n, bs, lane_ids, n_run, r_stride, blk_stride, sc_stride, dtype,
 #  stream)
 _SCORES_ARGTYPES = [_PTR] * 4 + [_I64, _I32, _I64, _I32, _PTR, _I32] + [_I64] * 3 + [_I32, _PTR]
+_F32 = ctypes.c_float
 # (scores, blk, n, bs, p_valid, blocks, chunk, scratch, lane_cap, i_star, g_star, lane_ids,
-#  n_run, n_lanes, sc_stride, blk_stride, stream)
+#  n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride, beta_dtype, scale, l2, g_sel,
+#  stream)
 _ARGMAX_ARGTYPES = ([_PTR, _PTR, _I64, _I32, _I64, _I32, _I64, _PTR, _I32, _PTR, _PTR, _PTR]
-                    + [_I32, _I32, _I64, _I64, _PTR])
+                    + [_I32, _I32, _I64, _I64, _PTR, _I64, _I32, _PTR, _F32, _PTR, _PTR])
+_NO_SHIFT = (None, 0, 0, None, 0.0, None)
 ARGMAX_THREADS = 256  # AM_THREADS of csrc/fw_grad.cu
 ARGMAX_PER_THREAD = 8  # scores a thread, below the cap
 ARGMAX_BLOCKS_PER_SM = 2
@@ -117,6 +138,26 @@ def _argmax_scratch(dev: torch.device, lanes: int = 1):
     return got
 
 
+class ScoreShift(NamedTuple):
+    """The elastic-net's per-coordinate shift of the selected scores,
+    ``l2 * (scale * beta[idx])`` (the reference's ``score_extra``):
+    ``beta (p,)`` and ``scale ()`` in the state's dtype, or ``(L, p)`` and
+    ``(L,)`` for lanes. Called with indices (< p) it gives the f32 addend,
+    so it serves as the reference's ``extra_fn``; the kernels read its
+    fields."""
+
+    beta: torch.Tensor
+    scale: torch.Tensor
+    l2: float
+
+    def __call__(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.l2 * (self.scale.float() * self.beta.index_select(0, idx).float())
+
+    def lane(self, lane: int) -> "ScoreShift":
+        """Lane ``lane``'s shift, from a lane-stacked one."""
+        return ScoreShift(self.beta[lane], self.scale[lane], self.l2)
+
+
 def block_indices(blk: torch.Tensor, block_size: int) -> torch.Tensor:
     """Global row index of every sampled coordinate, in sample order."""
     offs = torch.arange(block_size, device=blk.device, dtype=blk.dtype)
@@ -137,6 +178,36 @@ def argmax_plain(scores, blk, block_size: int, p_valid: int):
     mag = torch.where(idx < p_valid, scores.abs(), -1.0)
     j = torch.argmax(mag).view(1)
     return idx.index_select(0, j).view(()), scores.index_select(0, j).view(())
+
+
+def argmax_shifted_plain(scores, blk, block_size: int, p_valid: int, shift):
+    """The plain version of ``vertex_argmax_shifted``, the reference's ops:
+    ``sel = scores + shift(idx)`` (an index past p gathered at p - 1, as
+    ``jnp.take`` clips), the first max of ``|sel|`` with indices ``>=
+    p_valid`` masked to -1. ``shift`` is a ``ScoreShift`` (or any callable
+    of the indices giving the f32 addend). Returns ``(i_star, g_raw, g_sel)``."""
+    idx = block_indices(blk.long(), block_size)
+    sel = scores + shift(idx.clamp_max(p_valid - 1))
+    mag = torch.where(idx < p_valid, sel.abs(), -1.0)
+    j = torch.argmax(mag).view(1)
+    return (idx.index_select(0, j).view(()), scores.index_select(0, j).view(()),
+            sel.index_select(0, j).view(()))
+
+
+def _shift_args(shift: ScoreShift, p_valid: int, lanes: bool):
+    """The shift's arguments of ``vertex_argmax_launch``: (beta, its row
+    stride, its dtype code, scale as f32, l2); ``beta`` must hold p_valid
+    coefficients a row."""
+    if not isinstance(shift, ScoreShift):
+        raise TypeError(f"the shifted argmax kernel reads a ScoreShift, got {type(shift)}")
+    beta = shift.beta
+    if beta.dim() != (2 if lanes else 1) or beta.shape[-1] != p_valid:
+        raise ValueError(f"the shift's beta must be ({'L, ' if lanes else ''}p_valid = "
+                         f"{p_valid}), got {tuple(beta.shape)}")
+    scale = shift.scale.float().contiguous()
+    return (beta, beta.shape[-1] if lanes else 0, _build.dtype_code(beta), scale,
+            _build.f32(shift.l2))
+
 
 
 def _check(Xt, r, blk):
@@ -186,10 +257,41 @@ def vertex_argmax(scores: torch.Tensor, blk: torch.Tensor, block_size: int, p_va
     with torch.cuda.device(dev):
         err = fn(scores.data_ptr(), blk.data_ptr(), scores.numel(), block_size, p_valid,
                  blocks, chunk, scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
-                 None, 1, 1, 0, 0, _build.stream(dev))
+                 None, 1, 1, 0, 0, *_NO_SHIFT, _build.stream(dev))
         vertex_argmax.launches += 1
     _build.check("fw_grad", err, "vertex_argmax")
     return i_star, g_star
+
+
+def vertex_argmax_shifted(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
+                          p_valid: int, shift: ScoreShift):
+    """``(i_star, g_raw, g_sel)`` as 0-d device tensors (int64, f32, f32):
+    the first max of ``|scores + shift(idx)|`` (``ScoreShift``'s ``beta (p_valid,)``
+    and ``scale ()``). A CPU tensor takes the plain version; a CUDA tensor
+    launches the shifted instantiation of the argmax kernel (or raises)."""
+    if scores.device.type == "cpu":
+        return argmax_shifted_plain(scores, blk, block_size, p_valid, shift)
+    blk = blk.long().contiguous()
+    if (scores.dtype != torch.float32 or scores.numel() != blk.numel() * block_size
+            or blk.numel() == 0):
+        raise ValueError("vertex_argmax_shifted needs f32 scores of length nb * block_size, "
+                         "nb >= 1")
+    beta, beta_stride, beta_code, scale, l2 = _shift_args(shift, p_valid, lanes=False)
+    dev = _build.require_cuda(scores, blk, beta, scale)
+    i_star = torch.empty((), dtype=torch.int64, device=dev)
+    g_raw = torch.empty((), dtype=torch.float32, device=dev)
+    g_sel = torch.empty((), dtype=torch.float32, device=dev)
+    scratch, sms, cap = _argmax_scratch(dev)
+    blocks, chunk = argmax_grid(scores.numel(), sms)
+    fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(scores.data_ptr(), blk.data_ptr(), scores.numel(), block_size, p_valid,
+                 blocks, chunk, scratch.data_ptr(), cap, i_star.data_ptr(), g_raw.data_ptr(),
+                 None, 1, 1, 0, 0, beta.data_ptr(), beta_stride, beta_code, scale.data_ptr(),
+                 l2, g_sel.data_ptr(), _build.stream(dev))
+        vertex_argmax_shifted.launches += 1
+    _build.check("fw_grad", err, "vertex_argmax_shifted")
+    return i_star, g_raw, g_sel
 
 
 def fw_vertex(Xt, r, blk, block_size: int = 1, p_valid: int | None = None):
@@ -226,6 +328,15 @@ def check_lanes(r, blk, lanes):
         raise ValueError(f"need lanes, the int32 ids of the lanes that run, got {lanes}")
 
 
+def argmax_shifted(scores, blk, block_size: int, p_valid: int, shift: ScoreShift,
+                   use_kernel: bool = True):
+    """``(i_star, g_raw, g_sel)``, the argmax of the shifted scores:
+    ``vertex_argmax_shifted`` with ``use_kernel`` (the kernel on a CUDA
+    tensor), the plain version otherwise."""
+    fn = vertex_argmax_shifted if use_kernel else argmax_shifted_plain
+    return fn(scores, blk, block_size, p_valid, shift)
+
+
 def sampled_scores_lanes_plain(Xt, r, blk, block_size: int, lanes):
     """The plain version: ``sampled_scores_plain`` once per listed lane, on
     a copy of its residual row (an operand of its own, as the one-lane call
@@ -248,6 +359,23 @@ def argmax_lanes_plain(scores, blk, block_size: int, p_valid: int, lanes):
         i_star[lane] = i
         g_star[lane] = g
     return i_star, g_star
+
+
+def argmax_shifted_lanes_plain(scores, blk, block_size: int, p_valid: int, lanes,
+                               shift: ScoreShift):
+    """The plain version: ``argmax_shifted_plain`` once per listed lane with
+    its row of the shift; a lane not listed gets ``(-1, 0, 0)``."""
+    L = scores.shape[0]
+    i_star = torch.full((L,), -1, dtype=torch.int64, device=scores.device)
+    g_raw = torch.zeros(L, dtype=torch.float32, device=scores.device)
+    g_sel = torch.zeros(L, dtype=torch.float32, device=scores.device)
+    for lane in lane_list(lanes):
+        i, gr, gs = argmax_shifted_plain(scores[lane], lane_blk(blk, lane), block_size, p_valid,
+                                         shift.lane(lane))
+        i_star[lane] = i
+        g_raw[lane] = gr
+        g_sel[lane] = gs
+    return i_star, g_raw, g_sel
 
 
 def sampled_scores_lanes(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
@@ -281,6 +409,44 @@ def sampled_scores_lanes(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
     return scores[:, :n]
 
 
+def _argmax_lanes_launch(name, scores, blk, block_size: int, p_valid: int, lanes, shift):
+    """Launch the lane argmax (``shift`` None) or its shifted instantiation
+    on CUDA tensors; returns the kernel's outputs ``(i_star, g_star)`` or
+    ``(i_star, g_raw, g_sel)``."""
+    blk = blk.long().contiguous()
+    L, n = scores.shape
+    if (scores.dtype != torch.float32 or n != blk.shape[-1] * block_size or scores.stride(1) != 1
+            or scores.stride(0) % 4 or scores.data_ptr() % 16):
+        raise ValueError(f"{name} needs f32 scores (L, nb * block_size) whose rows start on 16 "
+                         "bytes (as sampled_scores_lanes returns them)")
+    dev = _build.require_cuda(blk, lanes)
+    if scores.device != dev:
+        raise ValueError(f"kernel operands must share one CUDA device, got {scores.device}")
+    i_star = torch.empty(L, dtype=torch.int64, device=dev)
+    g_star = torch.empty(L, dtype=torch.float32, device=dev)
+    shift_args, g_sel = _NO_SHIFT, None
+    if shift is not None:
+        beta, beta_stride, beta_code, scale, l2 = _shift_args(shift, p_valid, lanes=True)
+        if beta.shape[0] != L or scale.shape != (L,):
+            raise ValueError(f"the shift's beta and scale must hold the {L} lanes")
+        _build.require_cuda(beta, scale)
+        g_sel = torch.empty(L, dtype=torch.float32, device=dev)
+        shift_args = (beta.data_ptr(), beta_stride, beta_code, scale.data_ptr(), l2,
+                      g_sel.data_ptr())
+    scratch, sms, cap = _argmax_scratch(dev, max(lanes.numel(), 1))
+    blocks, chunk = argmax_grid(n, sms)
+    fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
+    wrapper = vertex_argmax_lanes if shift is None else vertex_argmax_shifted_lanes
+    with torch.cuda.device(dev):
+        err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid, blocks, chunk,
+                 scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
+                 *_build.lane_ids_arg(lanes), L, scores.stride(0),
+                 blk.shape[1] if blk.dim() == 2 else 0, *shift_args, _build.stream(dev))
+        wrapper.launches += 1
+    _build.check("fw_grad", err, name)
+    return (i_star, g_star) if shift is None else (i_star, g_star, g_sel)
+
+
 def vertex_argmax_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
                         p_valid: int, lanes: torch.Tensor):
     """``(i_star (L,), g_star (L,))`` (int64, f32) of each listed lane's
@@ -289,31 +455,27 @@ def vertex_argmax_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int
     check_lanes(scores, blk, lanes)
     if scores.device.type == "cpu":
         return argmax_lanes_plain(scores, blk, block_size, p_valid, lanes)
-    blk = blk.long().contiguous()
-    L, n = scores.shape
-    if (scores.dtype != torch.float32 or n != blk.shape[-1] * block_size or scores.stride(1) != 1
-            or scores.stride(0) % 4 or scores.data_ptr() % 16):
-        raise ValueError("vertex_argmax_lanes needs f32 scores (L, nb * block_size) whose rows "
-                         "start on 16 bytes (as sampled_scores_lanes returns them)")
-    dev = _build.require_cuda(blk, lanes)
-    if scores.device != dev:
-        raise ValueError(f"kernel operands must share one CUDA device, got {scores.device}")
-    i_star = torch.empty(L, dtype=torch.int64, device=dev)
-    g_star = torch.empty(L, dtype=torch.float32, device=dev)
-    scratch, sms, cap = _argmax_scratch(dev, max(lanes.numel(), 1))
-    blocks, chunk = argmax_grid(n, sms)
-    fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid, blocks, chunk,
-                 scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
-                 *_build.lane_ids_arg(lanes), L, scores.stride(0),
-                 blk.shape[1] if blk.dim() == 2 else 0, _build.stream(dev))
-        vertex_argmax_lanes.launches += 1
-    _build.check("fw_grad", err, "vertex_argmax_lanes")
-    return i_star, g_star
+    return _argmax_lanes_launch("vertex_argmax_lanes", scores, blk, block_size, p_valid, lanes,
+                                None)
+
+
+def vertex_argmax_shifted_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
+                                p_valid: int, lanes: torch.Tensor, shift: ScoreShift):
+    """``(i_star, g_raw, g_sel)``, each ``(L,)``: each listed lane's
+    ``vertex_argmax_shifted`` on its scores row and its row of the
+    lane-stacked ``shift`` (``beta (L, p_valid)``, ``scale (L,)``), in one
+    launch of the shifted lane instantiation; a lane not listed gets ``(-1,
+    0, 0)``. A CPU tensor takes the plain version."""
+    check_lanes(scores, blk, lanes)
+    if scores.device.type == "cpu":
+        return argmax_shifted_lanes_plain(scores, blk, block_size, p_valid, lanes, shift)
+    return _argmax_lanes_launch("vertex_argmax_shifted_lanes", scores, blk, block_size, p_valid,
+                                lanes, shift)
 
 
 sampled_scores.launches = 0
 vertex_argmax.launches = 0
 sampled_scores_lanes.launches = 0
 vertex_argmax_lanes.launches = 0
+vertex_argmax_shifted.launches = 0
+vertex_argmax_shifted_lanes.launches = 0

@@ -111,17 +111,18 @@ class RingPlan(NamedTuple):
 NO_RING = RingPlan(512, 0, 0, 0)
 
 
-def ring_plan(m: int, nnz_max: int) -> RingPlan:
+def ring_plan(m: int, nnz_max: int, extra: int = 0) -> RingPlan:
     """The ring for a residual of ``m`` and ``nnz_max`` slots a feature:
     one 1024-thread block an SM, each warp with ``RING_DEPTH`` stages of a
     pair's pieces beside the residual, a piece the whole feature (up to
-    ``WHOLE_MAX`` slots) or else the largest of ``PIECE_SLOTS`` that fits.
-    Where none fits, ``NO_RING``: 512-thread blocks score the features
-    from device memory."""
+    ``WHOLE_MAX`` slots) or else the largest of ``PIECE_SLOTS`` that fits
+    with ``extra`` bytes beside it (K7's elastic-net ledger). Where none
+    fits, ``NO_RING``: 512-thread blocks score the features from device
+    memory."""
     whole = (nnz_max,) if 1 <= nnz_max <= WHOLE_MAX else ()
     for slots in whole + tuple(x for x in PIECE_SLOTS if x < nnz_max):
         pl = RingPlan(1024, RING_DEPTH, slots, -(-(slots + 3) // 4) * 4)
-        if pl.smem_bytes(m) <= SMEM_BYTES:
+        if pl.smem_bytes(m) + extra <= SMEM_BYTES:
             return pl
     return NO_RING
 

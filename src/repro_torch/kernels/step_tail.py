@@ -18,6 +18,17 @@ here):
 - ``sf_recursion``, the S/F recursions before the periodic exact refresh,
   which stays the caller's host branch (``fw_lasso.LassoOracle.tail``).
 
+The elastic-net's tail (``step_tail_en`` with ``ENTail(g_sel, q_norm, l2)``, the reference's
+``ENOracle.line_search`` and ``update_co``, ``src/repro/core/fw_elasticnet.py:
+113-143``) is the same step with the shifted score ``g_sel`` setting eq. 6's
+sign, ``en_ls_closed_form`` in place of eq. 8 (``g`` is then the linear part
+``g_raw``) and the Q = ||alpha||^2 recursion ``q_recursion`` beside S and F;
+Q's exact refresh is the caller's host branch too
+(``fw_elasticnet.ENOracle.tail``). Its kernel is an instantiation of its
+own (``EN``), so a lasso launch compiles none of it. Each instantiation has
+its own wrapper (``step_tail``, ``step_tail_en``, ``step_tail_lanes``,
+``step_tail_en_lanes``), whose ``launches`` attribute counts its launches.
+
 Every scalar is computed in f32; the state (``beta``, its scalars, the
 residual) keeps its storage dtype, f32 or bf16, each value rounded once
 when it is stored.
@@ -68,8 +79,9 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
+
+from typing import NamedTuple
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.residual_update import residual_update_plain
@@ -77,14 +89,20 @@ from repro_torch.kernels.residual_update import residual_update_plain
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid, y, zty, zn2,
 #  i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol, tol, r_out, s_out, stall_out,
-#  lane_ids, n_run, n_lanes, step_inf, dtype, stream)
+#  lane_ids, n_run, n_lanes, step_inf, dtype, g_sel, q_norm, l2, stream)
 _ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 12 + [_I32] + [_F32] * 4
-             + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR])
+             + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR, _PTR, _F32, _PTR])
 
 
-def _f32(x: float) -> float:
-    """A config constant as the f32 that torch's f32 ops compare with."""
-    return float(np.float32(x))
+class ENTail(NamedTuple):
+    """The elastic-net's operands of the tail: the winner's shifted score
+    ``g_sel`` (0-d, or ``(L,)`` for lanes), Q = ||alpha||^2 in the state's
+    dtype, and the l2 strength."""
+
+    g_sel: torch.Tensor
+    q_norm: torch.Tensor
+    l2: float
+
 
 
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -115,6 +133,37 @@ def sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i):
     )
     f_lin = one_m * f_lin + delta_t * lam * zty_i
     return s_quad, f_lin
+
+
+def en_ls_closed_form(l2, s_quad, f_lin, q_norm, g_x, g_lin, a_star, delta_t, zn2_i, eps_den,
+                      gap_rtol):
+    """The elastic-net's closed-form line search (reference
+    ``core/fw_elasticnet.py:45-63``) as scalar algebra, in its op order.
+    ``g_x`` is the winner's linear score, ``a_star`` its alpha value.
+    Returns ``(lam, no_progress)``; ``num`` is the sampled EN duality gap."""
+    num = s_quad - delta_t * g_x - f_lin + l2 * (q_norm - delta_t * a_star)
+    den = (
+        s_quad - 2.0 * delta_t * g_lin + delta_t**2 * zn2_i
+        + l2 * (q_norm - 2.0 * delta_t * a_star + delta_t**2)
+    )
+    lam = torch.clamp(num / torch.clamp_min(den, eps_den), 0.0, 1.0)
+    gap_scale = (
+        s_quad + torch.abs(f_lin) + torch.abs(delta_t * g_x)
+        + l2 * (q_norm + torch.abs(delta_t * a_star))
+    )
+    no_progress = num <= gap_rtol * gap_scale
+    return lam, no_progress
+
+
+def q_recursion(q_norm, lam, delta_t, a_star):
+    """The O(1) recursion of Q = ||alpha||^2 (reference
+    ``core/fw_elasticnet.py:66-74``)."""
+    one_m = 1.0 - lam
+    return (
+        one_m**2 * q_norm
+        + 2.0 * lam * one_m * delta_t * a_star
+        + lam**2 * delta_t**2
+    )
 
 
 def apply_coeff_update(beta, scale, maxabs, stall, a_star, i_star, lam,
@@ -162,20 +211,27 @@ def sparse_residual_update(resid: torch.Tensor, y: torch.Tensor, col_vals: torch
 
 
 def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
-                    i_star, g, delta, cfg):
+                    i_star, g, delta, cfg, en=None):
     """The plain version, the lasso step's eager ops after its argmax in
-    their order, with the scalars in f32: the tail of 'torch' and of the
-    plain sparse ops on any device, and of the kernels' backends on the
-    CPU. Arguments and returns are ``step_tail``'s."""
+    their order (with ``en``, the elastic-net's), with the scalars in f32:
+    the tail of 'torch' and of the plain sparse ops on any device, and of
+    the kernels' backends on the CPU. Arguments and returns are
+    ``step_tail``'s."""
     dtype = beta.dtype
     g = g.float()
-    delta_t = -delta * torch.sign(g)  # eq. 6
+    g_sel = g if en is None else en.g_sel.float()
+    delta_t = -delta * torch.sign(g_sel)  # eq. 6
     a_star = scale.float() * _take(beta, i_star).float()
     zty_i, zn2_i = _take(zty, i_star).float(), _take(znorm2, i_star).float()
     g_lin = g + zty_i  # G_{i*} = z_{i*}^T (X alpha)
     s_quad, f_lin = s_quad.float(), f_lin.float()
-    lam, no_progress, _ = ls_closed_form(s_quad, f_lin, g, g_lin, delta_t, zn2_i, cfg.eps_den,
-                                         cfg.gap_rtol)
+    if en is None:
+        lam, no_progress, _ = ls_closed_form(s_quad, f_lin, g, g_lin, delta_t, zn2_i,
+                                             cfg.eps_den, cfg.gap_rtol)
+    else:
+        q_norm = en.q_norm.float()
+        lam, no_progress = en_ls_closed_form(en.l2, s_quad, f_lin, q_norm, g, g_lin, a_star,
+                                             delta_t, zn2_i, cfg.eps_den, cfg.gap_rtol)
     beta, scale, maxabs, step_inf, stall = apply_coeff_update(
         beta, scale, maxabs, stall, a_star, i_star, lam, delta_t, no_progress, cfg)
     if isinstance(mat, tuple):
@@ -188,8 +244,11 @@ def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zt
         resid = residual_update_plain(resid, y, mat.index_select(0, i_star.view(1)).view(-1),
                                       lam, delta_t)
     s_quad, f_lin = sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i)
-    return (beta, scale.to(dtype), maxabs.to(dtype), step_inf.to(dtype), stall, resid,
-            s_quad.to(dtype), f_lin.to(dtype))
+    out = (beta, scale.to(dtype), maxabs.to(dtype), step_inf.to(dtype), stall, resid,
+           s_quad.to(dtype), f_lin.to(dtype))
+    if en is None:
+        return out
+    return out + (q_recursion(q_norm, lam, delta_t, a_star).to(dtype),)
 
 
 def _check(mat, beta, resid, y, zty, znorm2):
@@ -221,26 +280,50 @@ def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor
     and tol. A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel (or raises). Returns ``(beta, scale, maxabs, step_inf,
     stall, resid, s_quad, f_lin)``, S and F before the periodic refresh."""
+    return _tail(step_tail, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                 znorm2, i_star, g, delta, cfg, None)
+
+
+def step_tail_en(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
+                 stall: torch.Tensor, resid: torch.Tensor, s_quad: torch.Tensor,
+                 f_lin: torch.Tensor, y: torch.Tensor, zty: torch.Tensor, znorm2: torch.Tensor,
+                 i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg, en):
+    """The elastic-net's tail, in the tail kernel's EN instantiation:
+    ``step_tail``'s arguments, ``g`` the winner's linear score, and ``en``
+    (an ``ENTail``: its selected score, Q in the state's dtype and l2).
+    Returns ``step_tail``'s, then Q before its refresh."""
+    return _tail(step_tail_en, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                 znorm2, i_star, g, delta, cfg, en)
+
+
+def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+          i_star, g, delta, cfg, en):
+    """``step_tail`` (``en`` None) or ``step_tail_en``: the plain version on
+    a CPU tensor, else one launch, counted on ``wrapper``."""
     _check(mat, beta, resid, y, zty, znorm2)
     if beta.device.type == "cpu":
         return step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
-                               znorm2, i_star, g, delta, cfg)
+                               znorm2, i_star, g, delta, cfg, en)
     sparse = isinstance(mat, tuple)
     X, rows = mat if sparse else (mat, None)
     dtype = beta.dtype
-    if any(t.dtype != dtype for t in (X, scale, maxabs, s_quad, f_lin, resid, y, zty, znorm2)):
-        raise TypeError("step_tail needs the matrix, beta, its scalars, the residual, y and "
-                        "the column statistics in one dtype")
+    q_norm = None if en is None else en.q_norm
+    if any(t.dtype != dtype for t in (X, scale, maxabs, s_quad, f_lin, resid, y, zty, znorm2)
+           + (() if en is None else (q_norm,))):
+        raise TypeError(f"{wrapper.__name__} needs the matrix, beta, its scalars, the "
+                        "residual, y and the column statistics in one dtype")
     if stall.dtype != torch.int32 or i_star.dtype != torch.int64 or delta.dtype != torch.float32:
-        raise TypeError("step_tail needs stall int32, i_star int64 and delta float32")
+        raise TypeError(f"{wrapper.__name__} needs stall int32, i_star int64 and delta float32")
     if sparse and rows.dtype != torch.int32:
         raise TypeError(f"the row slots must be int32, got {rows.dtype}")
     g = g.float()
+    g_sel = None if en is None else en.g_sel.float()
     dev = _build.require_cuda(X, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
-                              znorm2, i_star, g, delta, *(() if rows is None else (rows,)))
+                              znorm2, i_star, g, delta, *(() if rows is None else (rows,)),
+                              *(() if en is None else (g_sel, q_norm)))
     m = y.shape[0]
     r_out = torch.empty(m, dtype=dtype, device=dev)
-    s_out = torch.empty(5, dtype=dtype, device=dev)
+    s_out = torch.empty(5 if en is None else 6, dtype=dtype, device=dev)
     stall_out = torch.empty((), dtype=torch.int32, device=dev)
     fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
     with torch.cuda.device(dev):
@@ -249,13 +332,29 @@ def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor
                  scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
                  f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
                  znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
-                 _f32(cfg.renorm_threshold), _f32(cfg.eps_den), _f32(cfg.gap_rtol),
-                 _f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(),
-                 None, 1, 1, None, _build.dtype_code(beta), _build.stream(dev))
-        step_tail.launches += 1
-    _build.check("step_tail", err, "step_tail")
-    new_scale, new_maxabs, step_inf, new_s, new_f = s_out.unbind()
-    return beta, new_scale, new_maxabs, step_inf, stall_out, r_out, new_s, new_f
+                 _build.f32(cfg.renorm_threshold), _build.f32(cfg.eps_den),
+                 _build.f32(cfg.gap_rtol), _build.f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(),
+                 stall_out.data_ptr(),
+                 None, 1, 1, None, _build.dtype_code(beta),
+                 *_en_args(en, g_sel, q_norm), _build.stream(dev))
+        wrapper.launches += 1
+    _build.check("step_tail", err, wrapper.__name__)
+    return (beta, *_outs(s_out, stall_out, r_out))
+
+
+def _en_args(en, g_sel, q_norm):
+    """The elastic-net's trailing arguments of ``step_tail_launch`` (null
+    pointers: the lasso's tail)."""
+    if en is None:
+        return None, None, 0.0
+    return g_sel.data_ptr(), q_norm.data_ptr(), _build.f32(en.l2)
+
+
+def _outs(s_out, stall_out, r_out):
+    """``(scale, maxabs, step_inf, stall, resid, s_quad, f_lin[, q_norm])``
+    from the kernel's outputs (``s_out``'s fields along its first axis)."""
+    new_scale, new_maxabs, step_inf, new_s, new_f, *q = s_out.unbind()
+    return (new_scale, new_maxabs, step_inf, stall_out, r_out, new_s, new_f, *q)
 
 
 # --------------------------------------------------------------------------
@@ -264,23 +363,26 @@ def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor
 
 
 def step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
-                          zty, znorm2, i_star, g, delta, lanes, cfg):
+                          zty, znorm2, i_star, g, delta, lanes, cfg, en=None):
     """The plain version: ``step_tail_plain`` once per listed lane, on its row
     of ``beta`` (in place) and copies of its residual row and scalars; a
     lane not listed keeps its residual and scalars. Arguments and returns
     are ``step_tail_lanes``'s."""
-    outs = [list(t.unbind(0)) for t in (scale, maxabs, step_inf, stall, resid, s_quad, f_lin)]
-    outs = [[t.clone() for t in ts] for ts in outs]
+    fields = (scale, maxabs, step_inf, stall, resid, s_quad, f_lin)
+    if en is not None:
+        fields += (en.q_norm,)
+    outs = [[t.clone() for t in f.unbind(0)] for f in fields]
     run = set(lanes.tolist() if isinstance(lanes, torch.Tensor) else lanes)
     for lane in sorted(run):
+        en_l = None if en is None else ENTail(en.g_sel[lane].clone(), en.q_norm[lane].clone(),
+                                              en.l2)
         got = step_tail_plain(mat, beta[lane], scale[lane].clone(), maxabs[lane].clone(),
                               stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
                               f_lin[lane].clone(), y, zty, znorm2, i_star[lane].clone(),
-                              g[lane].clone(), delta[lane].clone(), cfg)
+                              g[lane].clone(), delta[lane].clone(), cfg, en_l)
         for ts, t in zip(outs, got[1:]):
             ts[lane] = t
-    scale, maxabs, step_inf, stall, resid, s_quad, f_lin = (torch.stack(ts) for ts in outs)
-    return beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin
+    return (beta, *(torch.stack(ts) for ts in outs))
 
 
 def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
@@ -298,6 +400,27 @@ def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.
     version; a CUDA tensor launches the kernel (or raises). Returns
     ``(beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin)``, each
     lane-stacked, S and F before the periodic refresh."""
+    return _tail_lanes(step_tail_lanes, mat, beta, scale, maxabs, step_inf, stall, resid,
+                       s_quad, f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, None)
+
+
+def step_tail_en_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
+                       step_inf: torch.Tensor, stall: torch.Tensor, resid: torch.Tensor,
+                       s_quad: torch.Tensor, f_lin: torch.Tensor, y: torch.Tensor,
+                       zty: torch.Tensor, znorm2: torch.Tensor, i_star: torch.Tensor,
+                       g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg, en):
+    """The elastic-net's tail for L lanes in one launch of the tail kernel's
+    EN lane instantiation: ``step_tail_lanes``' arguments and ``en`` (an
+    ``ENTail`` of ``(L,)`` selected scores and Q). Returns
+    ``step_tail_lanes``', then the lanes' Q."""
+    return _tail_lanes(step_tail_en_lanes, mat, beta, scale, maxabs, step_inf, stall, resid,
+                       s_quad, f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en)
+
+
+def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                zty, znorm2, i_star, g, delta, lanes, cfg, en):
+    """``step_tail_lanes`` (``en`` None) or ``step_tail_en_lanes``: the
+    plain version on a CPU tensor, else one launch, counted on ``wrapper``."""
     if beta.dim() != 2 or resid.dim() != 2 or resid.shape[0] != beta.shape[0]:
         raise ValueError(f"need beta (L, p) and resid (L, m), got {tuple(beta.shape)}, "
                          f"{tuple(resid.shape)}")
@@ -310,25 +433,30 @@ def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.
     _check(mat, beta[0], resid[0], y, zty, znorm2)
     if beta.device.type == "cpu":
         return step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
-                                     f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg)
+                                     f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en)
     sparse = isinstance(mat, tuple)
     X, rows = mat if sparse else (mat, None)
     dtype = beta.dtype
+    q_norm = None if en is None else en.q_norm
+    if en is not None and (q_norm.shape != (L,) or en.g_sel.shape != (L,)):
+        raise ValueError(f"need the lanes' shifted scores and Q as ({L},)")
     if any(t.dtype != dtype for t in (X, scale, maxabs, step_inf, s_quad, f_lin, resid, y, zty,
-                                      znorm2)):
-        raise TypeError("step_tail_lanes needs the matrix, beta, its scalars, the residual, y "
-                        "and the column statistics in one dtype")
+                                      znorm2) + (() if en is None else (q_norm,))):
+        raise TypeError(f"{wrapper.__name__} needs the matrix, beta, its scalars, the "
+                        "residual, y and the column statistics in one dtype")
     if stall.dtype != torch.int32 or i_star.dtype != torch.int64 or delta.dtype != torch.float32:
-        raise TypeError("step_tail_lanes needs stall int32, i_star int64 and delta float32")
+        raise TypeError(f"{wrapper.__name__} needs stall int32, i_star int64 and delta float32")
     if sparse and rows.dtype != torch.int32:
         raise TypeError(f"the row slots must be int32, got {rows.dtype}")
     g = g.float()
+    g_sel = None if en is None else en.g_sel.float()
     dev = _build.require_cuda(X, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
                               zty, znorm2, i_star, g, delta, lanes,
-                              *(() if rows is None else (rows,)))
+                              *(() if rows is None else (rows,)),
+                              *(() if en is None else (g_sel, q_norm)))
     m = y.shape[0]
     r_out = torch.empty((L, m), dtype=dtype, device=dev)
-    s_out = torch.empty((5, L), dtype=dtype, device=dev)
+    s_out = torch.empty((5 if en is None else 6, L), dtype=dtype, device=dev)
     stall_out = torch.empty(L, dtype=torch.int32, device=dev)
     fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
     with torch.cuda.device(dev):
@@ -337,15 +465,17 @@ def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.
                  scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
                  f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
                  znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
-                 _f32(cfg.renorm_threshold), _f32(cfg.eps_den), _f32(cfg.gap_rtol),
-                 _f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(),
+                 _build.f32(cfg.renorm_threshold), _build.f32(cfg.eps_den),
+                 _build.f32(cfg.gap_rtol), _build.f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(),
+                 stall_out.data_ptr(),
                  *_build.lane_ids_arg(lanes), L, step_inf.data_ptr(),
-                 _build.dtype_code(beta), _build.stream(dev))
-        step_tail_lanes.launches += 1
-    _build.check("step_tail", err, "step_tail_lanes")
-    new_scale, new_maxabs, new_step_inf, new_s, new_f = s_out.unbind()
-    return beta, new_scale, new_maxabs, new_step_inf, stall_out, r_out, new_s, new_f
+                 _build.dtype_code(beta), *_en_args(en, g_sel, q_norm), _build.stream(dev))
+        wrapper.launches += 1
+    _build.check("step_tail", err, wrapper.__name__)
+    return (beta, *_outs(s_out, stall_out, r_out))
 
 
 step_tail.launches = 0
+step_tail_en.launches = 0
 step_tail_lanes.launches = 0
+step_tail_en_lanes.launches = 0

@@ -24,7 +24,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels.fw_grad import argmax_plain, block_indices, vertex_argmax
+from repro_torch.kernels.fw_grad import argmax_plain, argmax_shifted, vertex_argmax
 from repro_torch.kernels.sparse_colstats import sparse_colstats as _colstats_kernel
 from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores as _scores_kernel
@@ -36,10 +36,6 @@ from repro_torch.sparse.matrix import SparseBlockMatrix
 ExtraFn = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _take(x: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    return x.index_select(0, j.view(1)).view(())
-
-
 def _scores(mat: SparseBlockMatrix, w, blk, width: int, use_kernel: bool):
     fn = _scores_kernel if use_kernel else sparse_sampled_scores_plain
     return fn(mat.values, mat.rows, w, blk, width)
@@ -49,16 +45,14 @@ def _vertex(mat: SparseBlockMatrix, scores, blk, width: int, use_kernel: bool,
             extra_fn: Optional[ExtraFn]):
     """(i_star, g_raw, g_sel) over the scored features, indices >= p masked
     out and ties to the first in sample order: K2's argmax (or its plain
-    version) when no score shift applies, else the shifted plain argmax."""
+    version), with a score shift (a ``ScoreShift``) its shifted
+    instantiation (or the shifted plain argmax)."""
     if extra_fn is None:
         i_star, g = (vertex_argmax if use_kernel else argmax_plain)(scores, blk, width, mat.p)
         g = g.to(mat.dtype)
         return i_star, g, g
-    idx = block_indices(blk.long(), width)
-    sel = scores + extra_fn(idx)
-    mag = torch.where(idx < mat.p, torch.abs(sel), -1.0)
-    j = torch.argmax(mag)
-    return _take(idx, j), _take(scores, j).to(mat.dtype), _take(sel, j).to(mat.dtype)
+    i_star, g_raw, g_sel = argmax_shifted(scores, blk, width, mat.p, extra_fn, use_kernel)
+    return i_star, g_raw.to(mat.dtype), g_sel.to(mat.dtype)
 
 
 def sparse_block_scores(mat: SparseBlockMatrix, resid: torch.Tensor, blk: torch.Tensor, *,

@@ -31,8 +31,8 @@ from repro.core import path as ref_path
 from repro.sparse import SparseBlockMatrix as RefMatrix
 
 from repro_torch import convert
-from repro_torch.core import (LASSO, FWConfig, LaneSampler, LaneStreamSampler, StreamSampler,
-                              engine, path)
+from repro_torch.core import (LASSO, LOGISTIC, ENOracle, FWConfig, LaneSampler,
+                              LaneStreamSampler, StreamSampler, engine, path)
 from repro_torch.kernels import launch_counts
 
 KAPPA, MAX_ITERS, SEED, DELTA_MAX = 60, 2000, 0, 150.0
@@ -273,9 +273,15 @@ def test_unported_lane_options_raise(prob):
     class OtherOracle:
         needs_stats = True
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the lasso, elastic-net and logistic oracles all have lanes now; an
+    # oracle without ``tail_lanes`` is still refused
+    with pytest.raises(NotImplementedError, match="tail_lanes"):
         engine.solve_batched(OtherOracle(), Xt, y, cfg, LaneSampler(0, 1, "cpu"), None, [1.0],
                              device="cpu")
+    for oracle in (ENOracle(l2=1.0), LOGISTIC):
+        res, _ = engine.solve_batched(oracle, Xt, y, cfg, LaneSampler(0, 1, "cpu"), None, [1.0],
+                                      device="cpu")
+        assert res.iterations[0] > 0
     with pytest.raises(NotImplementedError, match="item 9"):
         engine.solve_batched(LASSO, Xt, y, FWConfig(delta=1.0, step_rule="away"),
                              LaneSampler(0, 1, "cpu"), None, [1.0], device="cpu")

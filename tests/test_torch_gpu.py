@@ -816,3 +816,342 @@ def test_batched_lanes_equal_sequential_solves_on_the_card(backend, fuse):
         assert one.iterations == res.iterations[lane] and one.n_dots == res.n_dots[lane]
         assert seq == seqs[lane]
         assert _bits_equal(one.alpha, res.alpha[lane])
+
+
+# --------------------------------------------------------------------------
+# the elastic-net's instantiations: the shifted argmax, the EN tail, K4/K7
+# with the alpha ledger; the elastic-net and logistic solves on the card
+# --------------------------------------------------------------------------
+
+
+def _shift_case(case, dtype, g, p=1000):
+    """(scores, blk, bs, ScoreShift) of a shifted-argmax case."""
+    n_blk, bs = 700, 1
+    scores = torch.randn(n_blk, generator=g, device="cuda")
+    blk = torch.randint(0, p, (n_blk,), generator=g, device="cuda")
+    beta = torch.randn(p, generator=g, device="cuda")
+    if case == "shift turns the winner":
+        scores.fill_(0.1)
+        scores[3] = 1.0
+        beta[blk[600]] = 10.0
+    elif case == "raw all zero":
+        scores.zero_()
+    elif case == "padded index would win":
+        bs = 128
+        blk = torch.tensor([2, 7], device="cuda")  # block 7 holds 896..1023: 1000.. padding
+        scores = torch.randn(256, generator=g, device="cuda") * 0.01
+        scores[200] = 100.0  # index 1000 >= p
+        beta[p - 1] = 1e3
+    elif case == "full":
+        bs = 128
+        blk = torch.arange(-(-p // bs), device="cuda")
+        scores = torch.randn(blk.numel() * bs, generator=g, device="cuda")
+    shift = fw.ScoreShift(beta.to(getattr(torch, dtype)), torch.tensor(0.7, device="cuda"), 1.0)
+    return scores, blk, bs, shift
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "shift turns the winner", "raw all zero",
+                                  "padded index would win", "full"])
+def test_shifted_argmax_matches_plain_on_the_card(case, dtype):
+    """K2's argmax with the elastic-net's shift against its plain version,
+    bit for bit (i_star, g_raw, g_sel); a padded index never wins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    scores, blk, bs, shift = _shift_case(case, dtype, g)
+    before = fw.vertex_argmax_shifted.launches
+    got = fw.vertex_argmax_shifted(scores, blk, bs, 1000, shift)
+    again = fw.vertex_argmax_shifted(scores, blk, bs, 1000, shift)
+    want = fw.argmax_shifted_plain(scores, blk, bs, 1000, shift)
+    assert fw.vertex_argmax_shifted.launches == before + 2
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert all(_bits_equal(a, b) for a, b in zip(got, again))
+    assert int(got[0]) < 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 13])
+def test_shifted_argmax_lanes_equal_one_lane_launches(L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(L)
+    p, n = 1000, 700
+    scores = torch.empty((L, -(-n // 4) * 4), device="cuda")[:, :n]
+    scores.copy_(torch.randn((L, n), generator=g, device="cuda"))
+    blk = torch.randint(0, p, (L, n), generator=g, device="cuda")
+    shift = fw.ScoreShift(torch.randn((L, p), generator=g, device="cuda"),
+                          torch.rand(L, generator=g, device="cuda") + 0.5, 2.0)
+    for frozen in _frozen_sets(L):
+        ids = _lane_ids(L, frozen)
+        got = fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids, shift)
+        want = fw.argmax_shifted_lanes_plain(scores, blk, 1, p, ids, shift)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+        for lane in set(range(L)) - frozen:
+            one = fw.vertex_argmax_shifted(scores[lane].contiguous(), blk[lane], 1, p,
+                                           shift.lane(lane))
+            assert all(_bits_equal(a[lane], b) for a, b in zip(got, one))
+
+
+def _en_tail_args(layout, dtype, renorm, g, p=1000, m=803, i=5):
+    dt = getattr(torch, dtype)
+    if layout == "dense":
+        mat = torch.randn((p, m), generator=g, device="cuda").to(dt)
+    else:
+        sp, _, _ = _sparse_problem()
+        mat = (sp.values.to(dt), sp.rows)
+
+    def t(v):
+        return torch.tensor(v, device="cuda").to(dt)
+
+    beta = torch.randn(p, generator=g, device="cuda").to(dt)
+    args = (t(1.2e-6 if renorm else 0.8), t(2.0), torch.tensor(3, dtype=torch.int32, device="cuda"),
+            torch.randn(m, generator=g, device="cuda").to(dt), t(30.0), t(10.0),
+            torch.randn(m, generator=g, device="cuda").to(dt),
+            torch.randn(p, generator=g, device="cuda").to(dt),
+            (torch.rand(p, generator=g, device="cuda") + 0.5).to(dt),
+            torch.tensor(i, device="cuda"), torch.tensor(-7.5, device="cuda"),
+            torch.tensor(5.0, device="cuda"), FWConfig(delta=5.0))
+    return mat, beta, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("renorm", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_en_tail_matches_plain_on_the_card(layout, dtype, renorm):
+    """The elastic-net's tail against step_tail_plain with ``en``, bit for
+    bit, Q included; two launches equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    mat, beta, args = _en_tail_args(layout, dtype, renorm, g)
+    en = st.ENTail(torch.tensor(-3.25, device="cuda"),
+                   torch.tensor(40.0, device="cuda").to(getattr(torch, dtype)), 1.0)
+    before = st.step_tail_en.launches
+    got = st.step_tail_en(mat, beta.clone(), *args, en=en)
+    again = st.step_tail_en(mat, beta.clone(), *args, en=en)
+    want = st.step_tail_plain(mat, beta.clone(), *args, en=en)
+    assert st.step_tail_en.launches == before + 2 and len(got) == 9
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert all(_bits_equal(a, b) for a, b in zip(got, again))
+    assert (float(got[1]) == 1.0) == renorm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 13])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_en_tail_lanes_equal_one_lane_launches(layout, L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(L)
+    mat, beta, args = _en_tail_args(layout, "float32", False, g)
+    (scale, maxabs, stall, resid, s_quad, f_lin, y, zty, zn2, i, gr, delta, cfg) = args
+    lanes = [torch.stack([x.clone() for _ in range(L)]) for x in (scale, maxabs)]
+    state = dict(scale=lanes[0], maxabs=lanes[1], step_inf=torch.rand(L, device="cuda"),
+                 stall=torch.full((L,), 2, dtype=torch.int32, device="cuda"),
+                 resid=torch.randn((L, resid.numel()), generator=g, device="cuda"),
+                 s_quad=torch.full((L,), 30.0, device="cuda"),
+                 f_lin=torch.full((L,), 10.0, device="cuda"),
+                 i_star=torch.randint(0, 1000, (L,), generator=g, device="cuda"),
+                 g=torch.randn(L, generator=g, device="cuda") * 5,
+                 delta=torch.full((L,), 5.0, device="cuda"))
+    state["scale"][0] = 1.2e-6  # a renorm in lane 0 only
+    en = st.ENTail(state["g"] + 0.5, torch.full((L,), 40.0, device="cuda"), 1.0)
+    betas = torch.randn((L, 1000), generator=g, device="cuda")
+    order = ("scale", "maxabs", "step_inf", "stall", "resid", "s_quad", "f_lin")
+    for frozen in _frozen_sets(L):
+        ids = _lane_ids(L, frozen)
+        b_k, b_p = betas.clone(), betas.clone()
+        lane_args = [state[k] for k in order] + [y, zty, zn2, state["i_star"], state["g"],
+                                                 state["delta"]]
+        got = st.step_tail_en_lanes(mat, b_k, *lane_args, ids, cfg, en=en)
+        want = st.step_tail_lanes_plain(mat, b_p, *lane_args, ids, cfg, en=en)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+        for lane in set(range(L)) - frozen:
+            b1 = betas[lane].clone()
+            one = st.step_tail_en(mat, b1, state["scale"][lane].clone(),
+                                  state["maxabs"][lane].clone(), state["stall"][lane].clone(),
+                                  state["resid"][lane].clone(), state["s_quad"][lane].clone(),
+                                  state["f_lin"][lane].clone(), y, zty, zn2,
+                                  state["i_star"][lane].clone(), state["g"][lane].clone(),
+                                  state["delta"][lane].clone(), cfg,
+                                  en=st.ENTail(en.g_sel[lane].clone(), en.q_norm[lane].clone(),
+                                               1.0))
+            assert _bits_equal(got[0][lane], one[0])
+            assert all(_bits_equal(a[lane], b) for a, b in zip(got[1:], one[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_en_fused_chunk_matches_plain_on_the_card(layout, repeat):
+    """K4/K7 with the alpha ledger against the plain chunk: vertices and
+    stall flags exact, lam within RTOL_SUM, the residual within RTOL_SUM of
+    ||y||, Q within RTOL_SUM of its scale; two launches bitwise equal;
+    ``repeat`` makes one coordinate win in steps 0 and 2 (two ledger slots
+    add when it is scored again)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    p, m, K, kappa = 1000, 803, 8, 300
+    if layout == "dense":
+        X = torch.randn((p, m), generator=g, device="cuda")
+        X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+        head, chunk, plain = (X,), fs.dense_fused_chunk_en, fs.dense_fused_chunk_plain
+        zn2_all = (X * X).sum(1)
+    else:
+        from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
+
+        sp, _, _ = _sparse_problem()
+        head = (sp.values, sp.rows)
+        chunk, plain = fs.sparse_fused_chunk_en, fs.sparse_fused_chunk_plain
+        m = sp.m
+        zn2_all = sparse_colstats_plain(sp.values, sp.rows, torch.zeros(m, device="cuda"), sp.p)[1]
+    y = torch.randn(m, generator=g, device="cuda")
+    idx = torch.randint(0, p, (K, kappa), generator=g, device="cuda")
+    alpha_s = torch.randn((K, kappa), generator=g, device="cuda") * 0.1
+    if repeat:
+        idx[[0, 2]] = 17
+        idx[:, 0] = 17
+        alpha_s[:, 0] = 0.05
+        alpha_s[[0, 2]] = 0.05
+    zty = torch.randn(p, generator=g, device="cuda")
+    scal = tuple(torch.tensor(v, device="cuda") for v in (3.0, 1.5, 0.7))
+    args = (*head, y, y, scal, idx, zty[idx], zn2_all[idx], 0, torch.tensor(20.0, device="cuda"))
+    kw = dict(oracle=ENOracle(l2=1.0), eps_den=1e-12, gap_rtol=1e-6, refresh_every=64,
+              max_iters=10**6, alpha_s=alpha_s)
+    got, again = chunk(*args, **kw), chunk(*args, **kw)
+    want = plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got[:5] + got[5], again[:5] + again[5]))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert float((got[1] - want[1]).abs().max()) <= RTOL_SUM
+    assert float((got[4] - want[4]).abs().max()) <= RTOL_SUM * float(torch.linalg.vector_norm(y))
+    scale = sum(abs(float(x)) for x in want[5]) + float(y @ y)
+    assert max(abs(float(a) - float(b)) for a, b in zip(got[5], want[5])) <= RTOL_SUM * scale
+    if repeat:
+        assert int((got[0] == 17).sum()) >= 2
+
+
+@pytest.mark.gpu
+def test_en_fused_chunk_sizes_its_ledger_from_k_on_the_card():
+    """K4 with a 70-slot ledger (its dynamic shared memory sized from K)
+    against the plain chunk: vertices and stall flags exact, lam within
+    RTOL_SUM; its records carry each step's gap, gap scale and Q, whose
+    stall test is the record's flag, and Q before step 0 is the chunk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    p, m, K, kappa = 1000, 803, 70, 200
+    X = torch.randn((p, m), generator=g, device="cuda")
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    y = torch.randn(m, generator=g, device="cuda")
+    idx = torch.randint(0, p, (K, kappa), generator=g, device="cuda")
+    alpha_s = torch.randn((K, kappa), generator=g, device="cuda") * 0.1
+    zty, zn2 = X @ y, (X * X).sum(1)
+    scal = tuple(torch.tensor(v, device="cuda") for v in (3.0, 1.5, 0.7))
+    args = (X, y, y, scal, idx, zty[idx], zn2[idx], 0, torch.tensor(20.0, device="cuda"))
+    kw = dict(oracle=ENOracle(l2=1.0), eps_den=1e-12, gap_rtol=1e-6, refresh_every=64,
+              max_iters=10**6, alpha_s=alpha_s)
+    got = fs.dense_fused_chunk_en(*args, **kw)
+    want = fs.dense_fused_chunk_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert float((got[1] - want[1]).abs().max()) <= RTOL_SUM
+    recs = got[1].as_strided((K, fs.REC), (fs.REC, 1)).cpu()
+    rtol = torch.tensor(1e-6, dtype=torch.float32)
+    assert torch.equal(recs[:, 4] == 1.0, recs[:, 5] <= rtol * recs[:, 6])
+    assert float(recs[0, 7]) == float(scal[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [1, 8])
+@pytest.mark.parametrize("oracle", ["elasticnet", "logistic"])
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_extension_solves_on_the_card(backend, oracle, fuse):
+    """An elastic-net or logistic solve on the kernels against the plain
+    route ('torch', or the plain sparse ops) from the same stream: the same
+    iterations, objectives within RTOL_SUM (1e-3 relative for a fused EN
+    chunk: the ledger reassociates); the launches of the oracle's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle, LOGISTIC, StreamSampler, engine
+    from repro_torch.sparse import SparseBlockMatrix
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    p, m = 2000, 500
+    X = torch.randn((p, m), generator=g, device="cuda")
+    X[torch.rand((p, m), generator=g, device="cuda") < 0.7] = 0.0
+    w = torch.zeros(p, device="cuda")
+    w[:10] = torch.randn(10, generator=g, device="cuda")
+    y = w @ X + 0.1 * torch.randn(m, generator=g, device="cuda")
+    orc = ENOracle(l2=1.0) if oracle == "elasticnet" else LOGISTIC
+    if oracle == "logistic":
+        y = torch.sign(y) + (y == 0).float()
+    design = (SparseBlockMatrix.from_dense(X.cpu(), block_size=128).to("cuda")
+              if backend == "sparse" else X)
+    draws = torch.randint(0, p, (400, 100), generator=g, device="cuda")
+    kw = dict(delta=5.0, kappa=100, max_iters=400, tol=0.0, patience=10**9, fuse_steps=fuse)
+    before = launch_counts()
+    res = engine.solve(orc, design, y, FWConfig(backend=backend, **kw), StreamSampler(draws))
+    after = launch_counts()
+    plain_cfg = FWConfig(backend="sparse", sparse_kernel=False, **kw) if backend == "sparse" \
+        else FWConfig(backend="torch", **kw)
+    ref = engine.solve(orc, design, y, plain_cfg, StreamSampler(draws))
+    assert res.iterations == ref.iterations == 400
+    tol = 1e-3 if (oracle == "elasticnet" and fuse > 1) else RTOL_SUM
+    assert abs(float(res.objective) - float(ref.objective)) <= tol * abs(float(ref.objective))
+    used = {k for k in after if after[k] > before[k]}
+    if oracle == "elasticnet" and fuse > 1:
+        assert ("dense_fused_chunk_en" if backend == "kernels" else "sparse_fused_chunk_en") in used
+    elif oracle == "elasticnet":
+        assert {"vertex_argmax_shifted", "step_tail_en"} <= used
+    else:
+        assert "vertex_argmax" in used and not {"step_tail", "step_tail_en"} & used
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("oracle", ["elasticnet", "logistic"])
+def test_extension_lanes_equal_sequential_solves_on_the_card(oracle):
+    """Batched elastic-net lanes are their sequential replays bit for bit on
+    the card (the lane kernels); logistic lanes to RTOL_SUM (the card's
+    reductions over a stack of rows may round otherwise than over one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle, LOGISTIC, LaneStreamSampler, StreamSampler, engine
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    p, m = 2000, 500
+    X = torch.randn((p, m), generator=g, device="cuda")
+    y = X[:5].sum(0) + 0.1 * torch.randn(m, generator=g, device="cuda")
+    orc = ENOracle(l2=1.0) if oracle == "elasticnet" else LOGISTIC
+    if oracle == "logistic":
+        y = torch.sign(y) + (y == 0).float()
+    cfg = FWConfig(delta=1.0, kappa=100, max_iters=200, tol=1e-4)
+    draws = [torch.randint(0, p, (200, 100), generator=g, device="cuda") for _ in range(3)]
+    deltas = [1.0, 5.0, 20.0]
+    res, _ = engine.solve_batched(orc, X, y, cfg, LaneStreamSampler(draws), None, deltas)
+    for lane, d in enumerate(deltas):
+        one = engine.solve(orc, X, y, cfg, StreamSampler(draws[lane]), None, d)
+        assert one.iterations == res.iterations[lane]
+        if oracle == "elasticnet":
+            assert _bits_equal(one.alpha, res.alpha[lane])
+        else:
+            assert abs(float(one.objective) - float(res.objective[lane])) <= RTOL_SUM * abs(
+                float(one.objective))

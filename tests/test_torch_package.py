@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import FWConfig, StreamSampler, TorchSampler, engine, fw_path, fw_solve
+from repro_torch.core import (ENOracle, FWConfig, StreamSampler, TorchSampler, en_solve, engine,
+                              fw_path, fw_solve, logistic_solve)
 from repro_torch.core.fw_lasso import LASSO, LassoOracle
 from repro_torch.sparse import SparseBlockMatrix
 
@@ -38,7 +39,8 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+        ROOT / "scripts" / "port_kernel_ab.py"]
     assert len(files) > 10
     assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
@@ -62,6 +64,10 @@ def test_entry_points_need_a_card_unless_told_cpu():
         engine.solve(LASSO, Xt, y, cfg, sampler)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fw_path(Xt, y, [0.5, 1.0], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        en_solve(Xt, y, cfg, 1.0, sampler)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        logistic_solve(Xt, np.sign(y), cfg, sampler)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.problem_from_numpy(Xt, y)
     mat = SparseBlockMatrix.from_dense(Xt, block_size=16)
@@ -145,15 +151,19 @@ def test_fused_chunk_falls_back_where_the_stream_cannot_be_drawn_ahead(change):
 
 
 def test_fused_chunk_with_live_alpha_scores_is_not_ported():
-    """An oracle whose chunk needs live alpha values (the elastic-net's
-    alpha ledger) waits for its item."""
+    """An oracle whose chunk needs live alpha values: the elastic-net's now
+    chunks through K4 with the alpha ledger (its plain version on the CPU),
+    K steps a turn; an oracle whose fused algebra is neither the lasso's nor
+    the elastic-net's is refused by the chunk itself."""
 
     class AlphaOracle(LassoOracle):
         fused_needs_alpha = True
 
     Xt, y = _problem()
     cfg = FWConfig(delta=1.0, kappa=5, max_iters=3, fuse_steps=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    res = engine.solve(ENOracle(l2=1.0), Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
+    assert (res.iterations, res.effective_fuse_steps) == (3, 8)
+    with pytest.raises(NotImplementedError, match="lasso's and the elastic-net's"):
         engine.solve(AlphaOracle(), Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
     res = engine.solve(AlphaOracle(), Xt, y, dataclasses.replace(cfg, fuse_steps=1),
                        TorchSampler(0, "cpu"), device="cpu")
