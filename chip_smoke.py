@@ -46,6 +46,14 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    the alpha ledger against the plain chunk (K = 8 at kappa = 1% of p, and
    a chunk where one coordinate wins in steps 0 and 2, so two ledger slots
    add), two launches bitwise equal;
+   the step rules' direction tail (``dir_tail``, ``dir_tail_en``) against
+   its plain version on an away step, a pairwise step, a drop step (the
+   away coordinate exactly 0), i_f == i_a, an empty buffer, zero-weight
+   atoms, a renorm, a refresh step and a full buffer taking a new atom
+   (dense and sparse, f32 at the path's shapes and at m = 9,000, bf16;
+   vertices, stall, the buffer and the drop's zero exact, the rest to the
+   dots' rounding; two launches bitwise equal), and K2/K5 at width 1 on 32
+   and 16 caller indices with -1 slots;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -79,6 +87,16 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      grid, all 10 points sequential and in lanes of 4 on the sparse layout,
      the first 3 on the dense one; each path's launches, l1 <= delta and
      its densest point's certified gap with the oracle's own gradient;
+   - the step rules: the first 3 points of each path's grid under each
+     of away, pairwise, PARTAN and lazy, the elastic-net under away and,
+     sparse, the logistic's first point under away; five launches a step
+     for away and pairwise (the draw, the scores, the argmax, the buffer's
+     scores, the direction tail), the classic kernels for PARTAN, the
+     cache's scores every step and a miss's draw for lazy; each point's
+     objective from its recursions beside the one from its alpha, flagged
+     past the point's certified gap (ROADMAP.md R5), and a flagged away or
+     pairwise path run again up to that point with every direction tail
+     replayed through its plain version (``TailShadow``);
 4. the first grid points of each path against other routes, from the
    same sampler seeds: the plain ops ('torch'; 'sparse' with
    ``sparse_kernel=False``), fused against unfused, and the sparse
@@ -91,7 +109,14 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    replaying the rows it drew; the elastic-net's fused path against its
    unfused points, and each extension oracle's kernels against the plain
    route on its first 2 points, under the same near-tie rule (on the
-   oracle's selected scores, from the state rebuilt by a replay);
+   oracle's selected scores, from the state rebuilt by a replay); each
+   rule's first point on the kernels against the plain route, every
+   step's vertex, n_dots, stall and support size up to the first near-tie
+   of any of the rules' decisions (``RuleTieProbe``) and its objective
+   while those agree, each direction tail of the kernels' route replayed
+   through its plain version on the same inputs (``TailShadow``), and
+   the reference's acceptance design (``tests/test_step_rules.py:42-61``)
+   on 'kernels' and 'sparse', its bars printed as a finding;
 5. timing of each kernel, its bound, its plain version and a library
    call, with CUDA events (K2's argmax also at n = p), beside the launch
    floor (an empty kernel, back to back); and the host's
@@ -100,9 +125,13 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    lanes and at 1 on each path; the elastic-net's instantiations and the
    elastic-net and logistic steps' wall, device time and idle share on
    each path; ``solve_with_history`` on a small problem, its history bit
-   for bit the per-step objectives.
+   for bit the per-step objectives; the direction tail beside its bound
+   and plain version, K2/K5 at width 1 on the buffer, and the rules'
+   steps (away and pairwise, PARTAN, lazy on a hit and on a miss, the
+   EN's and the logistic's away step): wall, device busy, launches and
+   idle share.
 
-About 6 minutes on an H100, the builds included. ``--kernels-only`` stops
+About 8 minutes on an H100, the builds included. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -112,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import subprocess
@@ -304,6 +334,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_fused(torch, Xt, y))
     errs.update(phase2_lane_kernels(torch, Xt, y))
     errs.update(phase2_en_kernels(torch, Xt, y, "dense"))
+    errs.update(phase2_rule_kernels(torch, Xt, y, "dense"))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -326,6 +357,12 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         timing.update(phase5_timing(torch, Xt, y))
         timing.update(phase5_lane_timing(torch, Xt, y, "dense"))
         timing.update(phase5_ext_timing(torch, Xt, y, "dense"))
+        rule_launches, _ = phase3_rule_paths(torch, Xt, y, coef, "dense")
+        for name in ("dir_tail", "dir_tail_en"):
+            launches[name] = rule_launches[name]
+        phase4_rule_routes(torch, Xt, y, coef, "dense")
+        phase4_rule_acceptance(torch, dev)
+        timing.update(phase5_rule_timing(torch, Xt, y, "dense"))
         history_check(torch, dev)
     del Xt
     torch.cuda.empty_cache()
@@ -354,6 +391,7 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     en_errs = phase2_en_kernels(torch, mat, y, "sparse")
     errs["sparse_fused_chunk_en"] = en_errs.pop("sparse_fused_chunk_en")
     errs.update({f"{k}_sparse": v for k, v in en_errs.items()})
+    errs.update(phase2_rule_kernels(torch, mat, y, "sparse"))
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
@@ -382,6 +420,11 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     timing.update(phase5_sparse_timing(torch, mat, y))
     timing.update(phase5_lane_timing(torch, mat, y, "sparse"))
     timing.update(phase5_ext_timing(torch, mat, y, "sparse"))
+    rule_launches, _ = phase3_rule_paths(torch, mat, y, coef, "sparse")
+    for name in ("dir_tail", "dir_tail_en"):
+        launches[name] += rule_launches[name]
+    phase4_rule_routes(torch, mat, y, coef, "sparse")
+    timing.update(phase5_rule_timing(torch, mat, y, "sparse"))
 
 
 KERNELS = {
@@ -433,6 +476,14 @@ KERNELS = {
                                  replaces="src/repro/kernels/fused_step/fused_step.py:259"),
     "sparse_fused_chunk_en": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
                                   replaces="src/repro/kernels/fused_step/fused_step.py:259"),
+    # the away and pairwise rules' direction tail: the port's own kernel for
+    # what the reference runs as XLA ops after its Pallas scores
+    # (src/repro/core/step_rule.py:117-153 and 248-318, the oracles'
+    # dir_line_search/dir_update_co at src/repro/core/fw_lasso.py:188-226)
+    "dir_tail": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                     replaces="src/repro/core/step_rule.py:117"),
+    "dir_tail_en": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                        replaces="src/repro/core/step_rule.py:117"),
 }
 
 
@@ -3941,6 +3992,946 @@ def phase5_ext_timing(torch, design, y, layout):
                     f"{top}), idle {100 * (1 - busy / wall):.1f}%")
         print(f"[timing] {label} step ({layout}): wall {wall:.4f} ms per iteration; {busy_txt}")
     return out
+
+
+# --------------------------------------------------------------------------
+# the step rules (core/step_rule): the direction tail and K2/K5 at width 1
+# in phase 2, the rule paths at full width in phase 3, their routes and the
+# reference's acceptance design in phase 4, their steps in phase 5
+# --------------------------------------------------------------------------
+
+RULES = ("away", "pairwise", "partan", "lazy")
+RULE_POINTS = 3  # the first points of the 100-point grid each rule path runs
+DIR_CASES = ("away", "pairwise", "drop", "same", "empty", "zero weights", "renorm", "refresh",
+             "full")
+DIR_OUT = ("scale", "maxabs", "step_inf", "S", "F", "Q", "g")
+
+
+def _ell_of(mat):
+    return (mat.values, mat.rows) if _is_sparse(mat) else mat
+
+
+def _plain_scores(torch, mat, idx, r):
+    """K2's or K5's plain scores at width 1 of ``idx`` (clipped by the
+    caller) against ``r``."""
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+
+    if _is_sparse(mat):
+        return sg.sparse_sampled_scores_plain(mat.values, mat.rows, r, idx, 1)
+    return fw.sampled_scores_plain(mat, r, idx, 1)
+
+
+def _kernel_scores(torch, mat, idx, r):
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+
+    if _is_sparse(mat):
+        return sg.sparse_sampled_scores(mat.values, mat.rows, r, idx, 1)
+    return fw.sampled_scores(mat, r, idx, 1)
+
+
+def _col_norm_max(torch, mat, ids):
+    from repro_torch.kernels.step_tail import dense_columns
+
+    cols = dense_columns(_ell_of(mat), ids, mat.shape[1]).float()
+    return float(torch.linalg.vector_norm(cols, dim=1).max())
+
+
+def dir_tail_case(torch, mat, y_noise, case, g, en_l2=None, dtype=None, cap=32, tries=64):
+    """A state for the direction tail, of the lasso or (``en_l2``) the
+    elastic-net, that the plain version classifies as ``case`` (one of
+    DIR_CASES), tried with new draws until the case holds: y = X a_true +
+    ``y_noise``, alpha = 2 a_true on a random support (so that leaving an
+    atom pays: its gradient is about a_true), the residual, S, F and Q from
+    alpha, delta = 10 ||alpha||_1 + 1, the buffer, its scores and a FW
+    vertex (the best of 64 random features off the support). A drop state
+    has one light atom (alpha 1e-3) whose true weight is -500; a renorm
+    state a scale of 1.01e-6 (just over the threshold), alpha = a_true /
+    100, delta = ||a_true||_1 / 2, no buffer and its FW vertex on the
+    support (a classic step that goes most of the way). Returns ``(beta,
+    kwargs of dir_tail, en or None, plain output)``."""
+    from repro_torch.core.vertex import matvec
+    from repro_torch.kernels import step_tail as st
+
+    dev = y_noise.device
+    p, m = mat.shape
+    dtype = y_noise.dtype if dtype is None else dtype
+    cfg = _dir_cfg()
+    for _ in range(tries):
+        n_sup = cap if case == "full" else 6
+        sup = torch.randperm(p, generator=g, device=dev)[:n_sup]
+        a_true = torch.zeros(p, device=dev)
+        a_true[sup] = torch.randn(n_sup, generator=g, device=dev)
+        alpha = 2.0 * a_true
+        scale = float(torch.rand((), generator=g, device=dev)) + 0.5
+        if case == "drop":
+            a_true[sup[0]], alpha[sup[0]] = -500.0, 1e-3
+        if case == "renorm":
+            alpha, scale = a_true / 100, 1.01e-6
+        delta = (0.5 * float(a_true.abs().sum()) if case == "renorm"
+                 else 10.0 * float(alpha.abs().sum()) + 1.0)
+        y = (matvec(mat, a_true.to(dtype)).float() + 0.01 * y_noise.float()).to(dtype)
+        beta = (alpha / scale).to(dtype)
+        a = scale * beta.float()
+        v = matvec(mat, a.to(dtype)).float()
+        yf = y.float()
+        resid = (yf - v).to(dtype)
+        S, F, Q = float(v @ v), float(v @ yf), float(a @ a)
+        if case in ("empty", "renorm"):
+            buf = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+        elif case == "zero weights":
+            zeros = torch.nonzero(a == 0).view(-1)[:4]
+            buf = torch.cat([zeros, torch.full((cap - 4,), -1, dtype=torch.int64, device=dev)])
+        else:
+            buf = torch.cat([sup, torch.full((cap - n_sup,), -1, dtype=torch.int64,
+                                             device=dev)])[:cap]
+            buf = buf[torch.randperm(cap, generator=g, device=dev)]
+        safe = buf.clamp(0, p - 1)
+        raw_b = _plain_scores(torch, mat, safe, resid)
+        sample = torch.randint(0, p, (64,), generator=g, device=dev)
+        # a renorm step heads for a support atom; the others for a new one
+        sample = sup if case == "renorm" else sample[~torch.isin(sample, sup)]
+        sc = _plain_scores(torch, mat, sample, resid)
+        if en_l2 is not None:
+            sc = sc + en_l2 * a[sample]
+        j = int(torch.argmax(sc.abs()))
+        i_f, sel_f = sample[j], sc[j]
+        scale_t = torch.tensor(scale, device=dev).to(dtype)
+        en = None if en_l2 is None else st.DirEN(en_l2, torch.tensor(Q, device=dev).to(dtype))
+        if case == "same":  # the FW vertex is the away vertex
+            sel_b = raw_b + (0.0 if en is None else en_l2 * a[safe])
+            i_f = st.away_vertex(sel_b, buf, beta, scale_t, p)[0]
+            sel_f = sel_b[int(torch.nonzero(buf == i_f)[0])]
+        kw = dict(scale=scale_t, maxabs=a.abs().max().to(dtype),
+                  stall=torch.tensor(3, dtype=torch.int32, device=dev), resid=resid,
+                  s_quad=torch.tensor(S, device=dev).to(dtype),
+                  f_lin=torch.tensor(F, device=dev).to(dtype), y=y, buf=buf, raw_b=raw_b,
+                  i_f=i_f.clone(), sel_f=sel_f.float().clone(),
+                  delta=torch.tensor(delta, dtype=torch.float32, device=dev),
+                  refresh=case == "refresh", pairwise=case in ("pairwise", "same", "full"))
+        out = st.dir_tail_plain(_ell_of(mat), beta.clone(), *_dir_args(kw), cfg, en)
+        use_alt = int(out.i_star) == int(out.i_a) != int(i_f)
+        dropped = use_alt and float(out.beta[out.i_a]) == 0.0 and float(beta[out.i_a]) != 0.0
+        ok = {"away": use_alt and not dropped, "refresh": use_alt, "drop": dropped,
+              "pairwise": use_alt, "same": int(out.i_a) == int(i_f) and float(out.g) > 0,
+              "empty": True, "zero weights": not use_alt,
+              "renorm": float(out.scale) == 1.0 and float(out.g) > 0,
+              "full": not torch.equal(out.buf, buf)}[case]
+        if ok:
+            return beta, kw, en, out
+    raise CheckFailed(f"dir_tail: no state for the case {case!r} in {tries} draws")
+
+
+def _dir_cfg():
+    from repro_torch.core import FWConfig
+
+    return FWConfig(delta=1.0)
+
+
+def _dir_args(kw):
+    return (kw["scale"], kw["maxabs"], kw["stall"], kw["resid"], kw["s_quad"], kw["f_lin"],
+            kw["y"], kw["buf"], kw["raw_b"], kw["i_f"], kw["sel_f"], kw["delta"], kw["refresh"],
+            kw["pairwise"])
+
+
+def _dir_floats(out):
+    return [out.scale, out.maxabs, out.step_inf, out.s_quad, out.f_lin,
+            out.q_norm if out.q_norm is not None else out.s_quad, out.g]
+
+
+def check_dir_tail(torch, label, mat, beta, kw, en, want=None):
+    """The direction tail's kernel (``dir_tail`` or, with ``en``,
+    ``dir_tail_en``) against ``dir_tail_plain`` from the same state: the
+    vertices, stall, the buffer and a drop's zero exact; beta, the residual
+    and the scalars within RTOL_SUM of their scale (the three dots sum in
+    another order); two launches bitwise equal, one launch a call. Returns
+    max |kernel - plain| over the scalars and the residual."""
+    from repro_torch.kernels import step_tail as st
+
+    cfg = _dir_cfg()
+    fn = st.dir_tail if en is None else st.dir_tail_en
+    name = fn.__name__
+    ell = _ell_of(mat)
+    before = fn.launches
+    extra = () if en is None else (en,)
+    out_k = fn(ell, beta.clone(), *_dir_args(kw), cfg, *extra)
+    again = fn(ell, beta.clone(), *_dir_args(kw), cfg, *extra)
+    out_p = st.dir_tail_plain(ell, beta.clone(), *_dir_args(kw), cfg, en) if want is None else want
+    if beta.is_cuda:
+        check(fn.launches == before + 2, f"{name}: one launch a call")
+    for a, b in zip(out_k, again):
+        if a is not None:
+            check(_same_bits(torch, a, b), f"{name} {label}: two launches differ")
+    for f in ("stall", "buf", "i_star", "i_a"):
+        check(torch.equal(getattr(out_k, f), getattr(out_p, f)),
+              f"{name} {label}: {f} {getattr(out_k, f).tolist()} != plain "
+              f"{getattr(out_p, f).tolist()}")
+    i_a = int(out_p.i_a)
+    check((float(out_k.beta[i_a]) == 0.0) == (float(out_p.beta[i_a]) == 0.0),
+          f"{name} {label}: the away coordinate's zero")
+    ids = torch.stack([kw["i_f"], out_p.i_a])
+    u_scale = float(kw["delta"]) * 2 * _col_norm_max(torch, mat, ids)
+    rn = float(torch.linalg.vector_norm(kw["resid"].float()))
+    yn = float(torch.linalg.vector_norm(kw["y"].float()))
+    dot_scale = (rn + yn + u_scale) ** 2
+    err = 0.0
+    for n, a, b in zip(DIR_OUT, _dir_floats(out_k), _dir_floats(out_p)):
+        d = abs(float(a) - float(b))
+        tol = RTOL_SUM * (abs(float(b)) + (dot_scale if n in ("S", "F", "Q") else 1e-30))
+        if kw["resid"].dtype == torch.bfloat16:
+            tol = max(tol, abs(float(b)) * 2 ** -7)  # one bf16 rounding of the stored scalar
+        check(d <= tol, f"{name} {label}: {n} {float(a)!r} vs plain {float(b)!r}")
+        err = max(err, d)
+    r_scale = (kw["resid"].float().abs().max() + kw["y"].float().abs().max()
+               ).item() + u_scale
+    rd = float((out_k.resid.float() - out_p.resid.float()).abs().max())
+    r_tol = RTOL_SUM * r_scale * max(1.0, float(out_p.g))
+    if kw["resid"].dtype == torch.bfloat16:
+        r_tol += float(out_p.resid.float().abs().max()) * 2 ** -7
+    check(rd <= r_tol, f"{name} {label}: residual max |diff| {rd:.3e} > {r_tol:.3e}")
+    bd = float((out_k.beta.float() - out_p.beta.float()).abs().max())
+    b_tol = RTOL_SUM * (float(out_p.beta.float().abs().max()) + u_scale)
+    check(bd <= b_tol, f"{name} {label}: beta max |diff| {bd:.3e} > {b_tol:.3e}")
+    moved = "kept" if torch.equal(out_k.buf, kw["buf"]) else "moved"
+    print(f"[kernels] {name} {label}: i* {int(out_k.i_star)} (i_a {i_a}), g {float(out_k.g)!r}, "
+          f"stall {int(out_k.stall)}, buffer {moved}: as the plain version (scalars within "
+          f"{err:.2e}, residual {rd:.2e}), two launches equal")
+    return max(err, rd)
+
+
+def phase2_rule_kernels(torch, design, y, layout):
+    """The direction tail (``dir_tail``, ``dir_tail_en``) against its plain
+    version on every DIR_CASES case, at the path's shapes in f32 and on a
+    small design in bf16 (and a dense f32 one of m = 9,000, three blocks of
+    the grid); K2 or K5 at width 1 at 32 and 16 caller indices with -1
+    slots against their plain versions."""
+    dev = y.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    errs = {"dir_tail": 0.0, "dir_tail_en": 0.0}
+    p = design.shape[0]
+    r = torch.randn(design.shape[1], generator=g, device=dev)
+    for n in (32, 16):
+        idx = torch.randint(0, p, (n,), generator=g, device=dev)
+        idx[::5] = -1
+        safe = idx.clamp(0, p - 1)
+        got, want = _kernel_scores(torch, design, safe, r), _plain_scores(torch, design, safe, r)
+        cs = float(torch.linalg.vector_norm(r)) * _col_norm_max(torch, design, safe)
+        d = float((got - want).abs().max())
+        check(d <= RTOL_SUM * cs, f"{layout} scores at width 1 on {n} caller indices")
+        print(f"[kernels] {'K5' if layout == 'sparse' else 'K2'} at width 1 on {n} caller "
+              f"indices with -1 slots: max |kernel - plain| {d:.3e} (scale {cs:.3e})")
+    small_m = 9_000
+    if layout == "sparse":
+        from repro_torch.data import make_sparse_wide_problem
+
+        small, _, _ = make_sparse_wide_problem(small_m, 20_000, 0.01, 50, seed=1, device=dev,
+                                               block_size=SPARSE_BLOCK)
+    else:
+        small = torch.randn((20_000, small_m), generator=g, device=dev)
+        small /= torch.linalg.vector_norm(small, dim=1, keepdim=True)
+    ys = torch.randn(small_m, generator=g, device=dev)
+    designs = [(f"{layout} f32 at the path's shapes", design, y, torch.float32),
+               (f"{layout} f32 m={small_m}", small, ys, torch.float32),
+               (f"{layout} bf16 m={small_m}", small if layout == "dense" else small.astype(
+                   torch.bfloat16), ys, torch.bfloat16)]
+    for label, mat, yy, dtype in designs:
+        if dtype == torch.bfloat16 and layout == "dense":
+            mat = mat.to(torch.bfloat16)
+        for en_l2 in (None, EN_L2):
+            key = "dir_tail" if en_l2 is None else "dir_tail_en"
+            for case in DIR_CASES:
+                beta, kw, en, want = dir_tail_case(torch, mat, yy, case, g, en_l2, dtype)
+                errs[key] = max(errs[key], check_dir_tail(torch, f"{label}, {case}", mat, beta,
+                                                          kw, en, want))
+    return errs if layout == "dense" else {f"{k}_sparse": v for k, v in errs.items()}
+
+
+class RuleStepLog:
+    """``fw_path`` step hook of a rule path: each step's vertex (a device
+    tensor, no sync) for the first points, and every step's n_dots
+    increment (host ints), which tell a lazy step's hit (the cache's dots
+    only) from its miss."""
+
+    def __init__(self, n_points):
+        self.n_points = n_points
+        self.i_star = [[] for _ in range(n_points)]
+        self.dots = []
+        self.last = 0
+
+    def __call__(self, g, state):
+        if g < self.n_points:
+            self.i_star[g].append(state.i_star)
+        if state.k == 1:
+            self.last = 0
+        self.dots.append(state.n_dots - self.last)
+        self.last = state.n_dots
+
+    sequence = Recorder.sequence
+
+
+def _rule_path(torch, tag, design, y, deltas, cfg, oracle, n_rec):
+    """One rule path through ``fw_path``: points printed, launches counted,
+    l1 <= delta and a finite certified gap at the densest point (the
+    oracle's own gradient). Returns (launches, run)."""
+    from repro_torch import kernels
+    from repro_torch.core import fw_path
+
+    log = RuleStepLog(n_rec)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fw_path(design, y, deltas, cfg, seed=0, oracle=oracle, device=design.device,
+                  on_step=log)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    from repro_torch.core import step_rule
+
+    per_step = {"away": cfg.kappa + cfg.active_set_size + step_rule.DIR_EXTRA_DOTS,
+                "pairwise": cfg.kappa + cfg.active_set_size + step_rule.DIR_EXTRA_DOTS,
+                "classic": cfg.kappa}.get(cfg.step_rule)
+    from repro_torch.core.engine import ColStats
+    from repro_torch.core.vertex import matvec
+
+    stats = ColStats(zty=None, znorm2=None, yty=torch.dot(y, y))
+    flagged = []
+    for g, pt in enumerate(res.points):
+        # the objective from alpha itself beside the one the co-state's
+        # recursions report: how far those drifted over the point's steps,
+        # flagged past the point's certified gap and their rounding
+        # (RTOL_OBJ_SAME; ROADMAP.md R5)
+        alpha = _alpha_from_point(torch, pt, design.shape[0], design.device)
+        co = oracle.init_co(y, matvec(design, alpha), alpha, alpha.dtype)
+        true_obj = float(oracle.objective(y, stats, co))
+        pt_gap = _ext_gap(torch, oracle, design, y, pt)
+        drift = abs(pt.objective - true_obj)
+        print(f"[{tag}] point {g:3d} delta={pt.reg:.6g} iters={pt.iterations} "
+              f"n_dots={pt.n_dots} objective={pt.objective!r} (from alpha {true_obj!r}) "
+              f"certified gap {pt_gap!r} l1={pt.l1:.6g} active={pt.active} "
+              f"seconds={pt.seconds:.4f}")
+        if drift > max(pt_gap, RTOL_OBJ_SAME * abs(true_obj)):
+            flagged.append(g)
+            print(f"[flag] {tag} point {g}: the recursions' objective is {drift!r} off alpha's, "
+                  f"past the certified gap {pt_gap!r} (ROADMAP.md R5)")
+        check(math.isfinite(pt.objective), f"{tag} point {g}: objective not finite")
+        check(pt.l1 <= pt.reg * (1 + 1e-4), f"{tag} point {g}: l1 {pt.l1} > delta {pt.reg}")
+        check(per_step is None or pt.n_dots == pt.iterations * (per_step + oracle.extra_dots),
+              f"{tag} point {g}: n_dots")
+    gap = _ext_gap(torch, oracle, design, y, res.points[-1])
+    print(f"[{tag}] {wall:.3f} s, {res.total_iters} iterations, {res.total_dots:,} dots; "
+          f"launches { {k: v for k, v in launches.items() if v} }; densest point: objective "
+          f"{res.points[-1].objective!r}, certified gap {gap!r}")
+    check(math.isfinite(gap), f"{tag}: certified gap")
+    return launches, dict(res=res, log=log, cfg=cfg, deltas=deltas, label=tag, seconds=wall,
+                          gap=gap, flagged=flagged)
+
+
+def _replay_flagged(torch, tag, design, y, run, oracle):
+    """The path of a flagged direction-rule run (``_rule_path``) again, up to
+    its first flagged point, with every direction tail replayed through its
+    plain version (``TailShadow``): the same points, bit for bit (the
+    kernels' launches are deterministic), and each step's kernel output the
+    plain algebra's on the same inputs, so the drift is the algebra's."""
+    from repro_torch.core import fw_path
+
+    g = run["flagged"][0]
+    first = run["res"].points[g]
+    with TailShadow(torch, design) as shadow:
+        res = fw_path(design, y, run["deltas"][:g + 1], run["cfg"], seed=0, oracle=oracle,
+                      device=design.device)
+    again = res.points[g]
+    check((again.iterations, again.objective) == (first.iterations, first.objective),
+          f"{tag}: the replayed point {g} ran {again.iterations} steps to {again.objective!r}, "
+          f"the first run {first.iterations} to {first.objective!r}")
+    print(f"[flag] {tag} point {g} replayed: {shadow.summary()}")
+
+
+def phase3_rule_paths(torch, design, y, coef, layout):
+    """The rules at full width: the first RULE_POINTS points of the lasso
+    path's 100-point warm-started grid through ``fw_path`` on the kernels'
+    backend, under each rule; the elastic-net (l2 = 1) under 'away'; on the
+    sparse layout the logistic under 'away' on its grid's first point. The
+    launches a step: away and pairwise the scores twice (the draw, the
+    buffer), the argmax and the direction tail once (five with the draw);
+    PARTAN the classic step's kernels; lazy the tail and the cache's
+    scores every step, the draw's scores and the argmax on a miss."""
+    from repro_torch.core import LASSO, LOGISTIC, ENOracle, delta_grid
+
+    sparse = layout == "sparse"
+    p = design.shape[0]
+    base = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[:RULE_POINTS]
+    scores = "sparse_sampled_scores" if sparse else "sampled_scores"
+    colstats = "sparse_colstats" if sparse else "colstats"
+    runs, launches = {}, {}
+    cases = [(rule, LASSO) for rule in RULES] + [("away", ENOracle(l2=EN_L2))]
+    for rule, oracle in cases:
+        en = oracle is not LASSO
+        cfg = dataclasses.replace(base, step_rule=rule)
+        tag = f"{rule}-{'en' if en else 'lasso'}-{layout}"
+        lc, run = _rule_path(torch, tag, design, y, deltas, cfg, oracle, RULE_POINTS)
+        it = run["res"].total_iters
+        argmax = "vertex_argmax_shifted" if en else "vertex_argmax"
+        tail = "step_tail_en" if en else "step_tail"
+        dtail = "dir_tail_en" if en else "dir_tail"
+        quiet = ("residual_update", "dense_fused_chunk", "sparse_fused_chunk", "fused_replay",
+                 "dense_fused_chunk_en", "sparse_fused_chunk_en")
+        if rule in ("away", "pairwise"):
+            _check_launches(tag, lc, [((scores,), 2 * it), ((argmax, dtail), it),
+                                      ((colstats,), RULE_POINTS)], quiet + (tail,))
+            print(f"[{tag}] {(lc[scores] + lc[argmax] + lc[dtail]) / it + 1:.3g} launches a "
+                  "step (the draw, the scores, the argmax, the buffer's scores, the tail)")
+        elif rule == "partan":
+            _check_launches(tag, lc, [((scores, argmax, tail), it), ((colstats,), RULE_POINTS)],
+                            quiet + (dtail,))
+        else:
+            cap = cfg.lazy_cache
+            hits = sum(1 for d in run["log"].dots if d == cap + 1 + oracle.extra_dots)
+            misses = it - hits
+            run["hit_share"] = hits / it
+            print(f"[{tag}] lazy hits {hits} of {it} steps ({100 * hits / it:.1f}%)")
+            # the scores: the cache's peek every step, the draw's on a miss
+            _check_launches(tag, lc, [((tail,), it), ((argmax,), misses),
+                                      ((scores,), misses + it), ((colstats,), RULE_POINTS)],
+                            quiet + (dtail,))
+        for name in (scores, argmax, tail, dtail):
+            launches[name] = launches.get(name, 0) + lc[name]
+        if run["flagged"] and rule in ("away", "pairwise"):
+            _replay_flagged(torch, tag, design, y, run, oracle)
+        runs[tag] = run
+    if sparse:
+        yl = logistic_labels(torch, y)
+        cfg = dataclasses.replace(base, max_iters=LOG_MAX_ITERS, tol=LOG_TOL, step_rule="away")
+        ldeltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=LOG_POINTS)[:1]
+        lc, run = _rule_path(torch, f"away-log-{layout}", design, yl, ldeltas, cfg, LOGISTIC, 1)
+        it = run["res"].total_iters
+        _check_launches(f"away-log-{layout}", lc, [((scores,), 2 * it), (("vertex_argmax",), it)],
+                        ("dir_tail", "dir_tail_en", "step_tail", "colstats", "sparse_colstats"))
+        runs["away-log"] = run
+    return launches, runs
+
+
+class RuleTieProbe:
+    """Records, while a run of the plain route goes, the first step of each
+    grid point where one of the rules' decisions is a near-tie (within
+    RTOL_TIE of its Cauchy-Schwarz scale): the draw's top-2 |scores|, the
+    buffer's top-2 leave scores, away against FW, the pairwise test, the
+    drop test, PARTAN's l1 test and odometer, the lazy cache's top-2 gaps,
+    its hit test and phi update. Used as a context manager around the run;
+    ``sampler`` wraps a sampler so the probe sees each draw."""
+
+    def __init__(self, torch, design):
+        self.torch = torch
+        self.first = {}
+        self.point = 0
+        self.step = 0
+        self.cs = 0.0
+        self.row = None
+        self.zmax = _col_norm_max(torch, design, torch.arange(design.shape[0],
+                                                              device=design.device)[:4096])
+
+    def sampler(self, inner):
+        probe = self
+
+        class Seen:
+            def uniform(self, kappa, p):
+                probe.row = inner.uniform(kappa, p)
+                return probe.row
+
+            def skip(self):
+                inner.skip()
+
+        return Seen()
+
+    def tie(self, margin, scale, what):
+        key = self.point
+        if key not in self.first and abs(float(margin)) <= RTOL_TIE * float(scale):
+            self.first[key] = (self.step, what)
+
+    def on_step(self, g, state):
+        if g != self.point:
+            self.point, self.step = g, 0
+        self.step += 1
+
+    def __enter__(self):
+        import numpy as np
+
+        from repro_torch.core import step_rule, vertex
+        from repro_torch.kernels import step_tail
+
+        torch = self.torch
+        f = lambda t: t.detach().float().cpu().numpy() if torch.is_tensor(t) else t  # noqa: E731
+        self.saved = []
+
+        def patch(obj, name, new):
+            # the attribute itself (a class's staticmethod object, not the
+            # function it unwraps to), so that __exit__ puts back the same
+            self.saved.append((obj, name, inspect.getattr_static(obj, name)))
+            setattr(obj, name, new)
+
+        def top2(ids, vals):
+            best = {}
+            for i, v in zip(ids.tolist(), vals.tolist()):
+                best[i] = max(v, best.get(i, -np.inf))
+            top = sorted(best.values(), reverse=True)
+            return top[0] - top[1] if len(top) > 1 and np.isfinite(top[1]) else np.inf
+
+        orig_sample = vertex.sample_vertex
+
+        def sample_vertex(Xt, w, sampler, p, cfg, extra_fn=None):
+            out = orig_sample(Xt, w, sampler, p, cfg, extra_fn)
+            if self.row is not None:
+                _, sel = vertex.score_indices(Xt, w, self.row, p, cfg, extra_fn)
+                mags = np.abs(f(sel))
+                self.cs = self.zmax * float(torch.linalg.vector_norm(w.float())) + mags.max()
+                self.tie(top2(f(self.row), mags), self.cs, "the draw's top-2 |scores|")
+            return out
+
+        orig_away, orig_choice = step_tail.away_vertex, step_tail.dir_choice
+        orig_apply = step_tail.apply_dir_update
+
+        def away_vertex(sel_b, buf, beta, scale, p):
+            a_b = f(scale) * f(beta[buf.clamp(0, p - 1)])
+            valid = (f(buf) >= 0) & (a_b != 0)
+            if valid.sum() >= 2:
+                self.tie(top2(f(buf)[valid], (np.sign(a_b) * f(sel_b))[valid]), self.cs,
+                         "the buffer's top-2 leave scores")
+            return orig_away(sel_b, buf, beta, scale, p)
+
+        def dir_choice(sel_f, a_f, i_f, away, delta, ga, pairwise, eps_den):
+            if bool(away[4]):
+                sf, sa, sig, d = f(sel_f), f(away[1]), f(away[3]), f(delta)
+                if pairwise:
+                    self.tie(abs(sf) + sig * sa, self.cs, "the pairwise test")
+                else:
+                    gg = f(ga)
+                    self.tie((sig * d * sa - gg) - (gg + d * abs(sf)), abs(gg) + 2 * d * self.cs,
+                             "away against FW")
+            return orig_choice(sel_f, a_f, i_f, away, delta, ga, pairwise, eps_den)
+
+        def apply_dir_update(beta, scale, maxabs, stall, ds, g, no_progress, cfg):
+            if float(ds.da) != 0.0:
+                self.tie(f(g) - f(ds.g_max), f(ds.g_max), "the drop test")
+            return orig_apply(beta, scale, maxabs, stall, ds, g, no_progress, cfg)
+
+        patch(vertex, "sample_vertex", sample_vertex)
+        for mod in (step_tail, step_rule):
+            patch(mod, "away_vertex", away_vertex)
+            patch(mod, "dir_choice", dir_choice)
+            patch(mod, "apply_dir_update", apply_dir_update)
+        orig_mu = step_rule.PartanRule.choose_mu
+        orig_odo = step_rule.PartanRule.odometer
+        orig_peek, orig_phi = step_rule.LazyRule._peek, step_rule.LazyRule.phi_update
+
+        def choose_mu(mu_opt, mu_cons, l1_try, delta):
+            d = f(delta)
+            self.tie(f(l1_try) - d * (1.0 + 1e-6), d, "PARTAN's l1 test")
+            return orig_mu(mu_opt, mu_cons, l1_try, delta)
+
+        def odometer(drift, mu):
+            out = orig_odo(drift, mu)
+            self.tie(f(out) - step_rule.PARTAN_DRIFT_LIMIT, step_rule.PARTAN_DRIFT_LIMIT,
+                     "PARTAN's odometer")
+            return out
+
+        def peek(oracle, Xt, y, stats, beta, scale, co, cache, phi, delta, p, cfg):
+            out = orig_peek(oracle, Xt, y, stats, beta, scale, co, cache, phi, delta, p, cfg)
+            valid = f(cache) >= 0
+            if valid.any():
+                gap = f(out.ga) + f(delta) * np.abs(f(out.sel_c))
+                sc = abs(f(out.ga)) + f(delta) * (
+                    self.zmax * float(torch.linalg.vector_norm(out.w.float()))
+                    + np.abs(f(out.sel_c)).max())
+                self.tie(top2(f(cache)[valid], gap[valid]), sc, "the cache's top-2 gaps")
+                if np.isfinite(f(phi)):
+                    self.tie(gap[valid].max() - f(phi), sc, "the lazy hit test")
+            return out
+
+        def phi_update(phi, gap):
+            if np.isfinite(f(phi)):
+                self.tie(f(gap) - f(phi), abs(f(phi)), "the phi update")
+            return orig_phi(phi, gap)
+
+        patch(step_rule.PartanRule, "choose_mu", staticmethod(choose_mu))
+        patch(step_rule.PartanRule, "odometer", staticmethod(odometer))
+        patch(step_rule.LazyRule, "_peek", staticmethod(peek))
+        patch(step_rule.LazyRule, "phi_update", staticmethod(phi_update))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in reversed(self.saved):
+            setattr(obj, name, old)
+        return False
+
+
+class TailShadow:
+    """While a run on the kernels' backend goes inside it, each direction
+    tail (``vertex.dir_tail``) is replayed through ``dir_tail_plain`` on
+    copies of the kernel's inputs, twice: as it is, and with the kernel's
+    step size g forced into its line search. The first holds the kernel's
+    decisions before g (the vertex, the away vertex) and g itself, within
+    RTOL_SUM of the line search's rounding scale (|g| + (gap scale + |g| x
+    the denominator's terms) / the denominator); the second the decisions
+    after g (stall, the buffer, the away coordinate's zero) and the values:
+    scale, maxabs and step_inf within RTOL_SUM of themselves, beta within
+    RTOL_SUM of its largest entry, the residual within RTOL_SUM of its
+    scale times 1 + g, and S, F and Q within RTOL_SUM of their recursions'
+    terms, which carry the amplification 1 + g of an away step. A decision
+    may differ only where the replay's own RuleTieProbe finds a near-tie.
+    Counts the steps, those splits, the worst deviation over its tolerance
+    and the steps whose g reached the 1e3 clip of g_max."""
+
+    def __init__(self, torch, design, tail=None):
+        self.torch, self.design, self.tail = torch, design, tail
+        self.probe = RuleTieProbe(torch, design)
+        self.steps, self.splits, self.worst, self.max_g, self.clipped = 0, 0, 0.0, 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.core import vertex
+
+        self.vertex, self.saved = vertex, vertex.dir_tail
+        # the tail under check: the route's own, unless one is given
+        self.orig = self.tail if self.tail is not None else self.saved
+        vertex.dir_tail = self.shadow
+        return self
+
+    def __exit__(self, *exc):
+        self.vertex.dir_tail = self.saved
+        return False
+
+    def summary(self):
+        return (f"{self.steps} steps replayed through dir_tail_plain, {self.splits} split at "
+                f"near-ties, the worst deviation {self.worst:.3g} of its tolerance, g up to "
+                f"{self.max_g:.6g} ({self.clipped} steps at the 1e3 clip)")
+
+    def shadow(self, Xt, y, beta, scale, maxabs, stall, resid, s_quad, f_lin, buf, raw_b, i_f,
+               sel_f, delta, refresh, pairwise, cfg, en=None):
+        from repro_torch.kernels import step_tail as st
+
+        torch = self.torch
+        beta0 = beta.clone()
+        args = (scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f, sel_f, delta,
+                refresh, pairwise, cfg, en)
+        out_k = self.orig(Xt, y, beta, *args[:6], *args[7:])
+        if not self.vertex.use_kernels(cfg):
+            return out_k
+        mat, rec = _ell_of(Xt), {}
+        orig_ls = st.dir_ls_closed_form
+
+        def ls(ds, s, f, vu, uu, eps_den, gap_rtol, en_=None):
+            g, no_progress = orig_ls(ds, s, f, vu, uu, eps_den, gap_rtol, en_)
+            rec.setdefault("free", (ds, s, f, vu, uu, en_, g))
+            return rec.get("force", g), no_progress
+
+        probe = self.probe
+        probe.first = {}
+        probe.cs = (probe.zmax * float(torch.linalg.vector_norm(resid.float()))
+                    + abs(float(sel_f)))
+        st.dir_ls_closed_form = ls
+        try:
+            with probe:
+                out_p = st.dir_tail_plain(mat, beta0.clone(), *args)
+                rec["force"] = out_k.g
+                out_f = st.dir_tail_plain(mat, beta0, *args)
+        finally:
+            st.dir_ls_closed_form = orig_ls
+        tie = probe.first.get(probe.point)
+        self.steps += 1
+        gk = float(out_k.g)
+        self.max_g = max(self.max_g, gk)
+        self.clipped += gk >= 1e3 * (1 - 1e-6)
+        if (int(out_k.i_star), int(out_k.i_a)) != (int(out_p.i_star), int(out_p.i_a)):
+            check(tie is not None, f"[shadow] step {self.steps}: vertices {int(out_k.i_star)}, "
+                  f"{int(out_k.i_a)} (kernel) against {int(out_p.i_star)}, {int(out_p.i_a)} "
+                  "(plain), with no near-tie")
+            self.splits += 1
+            return out_k
+        # g's rounding scale: num = -(t ga + df sel_f + da sel_a) and den = t^2 S +
+        # 2 t vu + uu (+ l2 ||d||^2 >= 0 on the EN, left out: a looser bound)
+        ds, s0, f0, vu0, uu0, en_, g0 = rec["free"]
+        t, s, f, vu, uu, gp = (float(v) for v in (ds.t, s0, f0, vu0, uu0, g0))
+        q = 0.0 if en_ is None else en_.l2 * abs(float(en_.q_norm))
+        gap_scale = (abs(t) * (abs(s) + abs(f) + q) + abs(float(ds.df * ds.sel_f))
+                     + abs(float(ds.da * ds.sel_a)))
+        den_terms = t * t * abs(s) + 2.0 * abs(t * vu) + abs(uu)
+        den_lin = t * t * s + 2.0 * t * vu + uu
+        tol_g = RTOL_SUM * (abs(gp) + (gap_scale + abs(gp) * den_terms)
+                            / max(den_lin, cfg.eps_den))
+        devs = {"g": abs(gk - gp) / max(tol_g, 1e-30)}
+        after_k = (int(out_k.stall), out_k.buf.tolist(), float(out_k.beta[out_k.i_a]) == 0.0)
+        after_f = (int(out_f.stall), out_f.buf.tolist(), float(out_f.beta[out_f.i_a]) == 0.0)
+        if after_k != after_f or devs["g"] > 1.0:
+            check(tie is not None, f"[shadow] step {self.steps}: stall, buffer, zero {after_k} "
+                  f"(kernel) against {after_f} (plain, the kernel's g); g {gk!r} against "
+                  f"{gp!r} (tolerance {tol_g:.3g}), with no near-tie")
+            self.splits += 1
+            return out_k
+        # the recursions' terms: S' = (1+gt)^2 S + 2 (1+gt) g vu + g^2 uu and
+        # F' = (1+gt) F + g uy (||v|| = ||X alpha||, ||u|| <= 2 delta max ||z||),
+        # Q' alike in ||alpha|| and 2 delta; a refresh step's S and F are the
+        # new residual's dots, at phase 2's dot scale times 1 + g
+        amp = 1.0 + gk
+        ids = torch.stack([i_f, out_f.i_a])
+        u_scale = float(delta) * 2 * _col_norm_max(torch, self.design, ids)
+        rn = float(torch.linalg.vector_norm(resid.float()))
+        yn = float(torch.linalg.vector_norm(y.float()))
+        vn = float(torch.linalg.vector_norm(y.float() - resid.float()))
+        terms = amp * vn + gk * u_scale
+        qn = 0.0 if en is None else amp * abs(float(en.q_norm)) ** 0.5 + gk * 2 * float(delta)
+        dot_scale = amp * (rn + yn + u_scale) ** 2
+        scales = {"S": dot_scale if refresh else terms * terms,
+                  "F": dot_scale if refresh else terms * yn, "Q": qn * qn}
+        for n, a, b in zip(DIR_OUT, _dir_floats(out_k), _dir_floats(out_f)):
+            if n == "g" or (n == "Q" and en is None):
+                continue
+            scale_n = scales.get(n, abs(float(b)))
+            devs[n] = abs(float(a) - float(b)) / max(RTOL_SUM * scale_n, 1e-30)
+        r_scale = float(resid.float().abs().max() + y.float().abs().max()) + u_scale
+        devs["resid"] = float((out_k.resid.float() - out_f.resid.float()).abs().max()) / (
+            RTOL_SUM * amp * r_scale)
+        devs["beta"] = float((out_k.beta.float() - out_f.beta.float()).abs().max()) / max(
+            RTOL_SUM * float(out_f.beta.float().abs().max()), 1e-30)
+        worst = max(devs, key=devs.get)
+        check(devs[worst] <= 1.0, f"[shadow] step {self.steps}: {worst} off the plain replay by "
+              f"{devs[worst]:.3g} of its tolerance (g {gk!r})")
+        self.worst = max(self.worst, devs[worst])
+        return out_k
+
+
+def _rule_routes(torch, tag, design, y, delta, cfg_a, cfg_b, oracle):
+    """The first point under a rule on route a (the kernels, each direction
+    tail replayed through its plain version by ``TailShadow``) and route b
+    (the plain ops, probed): every step's vertex, n_dots, stall and support
+    size equal up to b's first near-tie, and each step's objective within
+    RTOL_OBJ_SAME while those agree (PARTAN's up to the near-tie); the final
+    objectives within RTOL_OBJ_SAME when the runs agree throughout, else
+    within RTOL_OBJ_APART or the larger certified gap. Prints the steps
+    each comparison covered."""
+    from repro_torch.core import engine
+    from repro_torch.core.path import point_seed
+    from repro_torch.core.vertex import TorchSampler
+
+    stats = engine.precompute_colstats(design, y, cfg_b) if oracle.needs_stats else None
+    logs, res = {}, {}
+    shadow = TailShadow(torch, design)
+    for name, cfg in (("a", cfg_a), ("b", cfg_b)):
+        log = []
+        probe = RuleTieProbe(torch, design) if name == "b" else None
+        sampler = TorchSampler(point_seed(0, 0), design.device)
+
+        def on_step(state, probe=probe, log=log):
+            log.append((state.i_star, state.n_dots, state.stall, torch.count_nonzero(state.beta),
+                        oracle.objective(y, stats, state.co)))
+            if probe is not None:
+                probe.on_step(0, state)
+
+        with probe if probe is not None else shadow:
+            res[name] = engine.solve(oracle, design, y, cfg,
+                                     probe.sampler(sampler) if probe is not None else sampler,
+                                     None, delta, device=design.device, on_step=on_step)
+        tie = probe.first.get(0) if probe is not None else None
+        logs[name] = log
+    la, lb = logs["a"], logs["b"]
+
+    def facts(row):
+        return (int(row[0]), row[1], int(row[2]), int(row[3]))
+
+    common = min(len(la), len(lb))
+    t = next((i for i in range(common) if facts(la[i]) != facts(lb[i])), None)
+    if t is not None:
+        check(tie is not None and t >= tie[0],
+              f"[{tag}] step {t}: vertex, n_dots, stall, support size {facts(la[t])} against "
+              f"{facts(lb[t])} before the plain route's first near-tie ({tie})")
+    # the objectives while the facts agree; PARTAN's only up to its first
+    # near-tie, where its l1 test may pick the other mu with the same vertex
+    end = common if t is None else t
+    if cfg_a.step_rule == "partan" and tie:
+        end = min(end, tie[0])
+    for i in range(end):
+        oa, ob = float(la[i][4]), float(lb[i][4])
+        check(abs(oa - ob) <= RTOL_OBJ_SAME * abs(ob),
+              f"[{tag}] step {i}: objective {oa!r} against {ob!r}, the same facts so far")
+    ra, rb = res["a"], res["b"]
+    rel = abs(float(ra.objective) - float(rb.objective)) / abs(float(rb.objective))
+    agree = t is None and len(la) == len(lb)
+    note = (f"identical facts at all {common} steps" if agree else
+            f"the same facts for {common if t is None else t} steps, the plain route's first "
+            f"near-tie at step {tie[0]} ({tie[1]})" if tie else "apart")
+    print(f"[compare] {tag}: iterations {ra.iterations}/{rb.iterations}, objective "
+          f"{float(ra.objective)!r}/{float(rb.objective)!r} rel diff {rel:.2e}: {note}; "
+          f"{end} steps compared in full (vertex, n_dots, stall, support size, objective)"
+          + (f"; the kernels' route: {shadow.summary()}" if shadow.steps else ""))
+    if agree or rel <= RTOL_OBJ_APART:
+        check(rel <= (RTOL_OBJ_SAME if agree else RTOL_OBJ_APART), f"{tag}: objectives")
+    else:
+        d = torch.tensor(float(delta), device=design.device)
+        gaps = [float(oracle.gap(design, y, r.alpha, d)) for r in (ra, rb)]
+        check(abs(float(ra.objective) - float(rb.objective)) <= max(gaps),
+              f"{tag}: objectives differ by more than either run's certified gap {gaps}")
+
+
+def phase4_rule_routes(torch, design, y, coef, layout):
+    """Each rule's first grid point on the kernels against the plain route
+    ('torch' on the dense layout, the plain sparse ops on the sparse one),
+    from the same sampler seed, up to the plain route's first near-tie."""
+    from repro_torch.core import LASSO, delta_grid
+
+    sparse = layout == "sparse"
+    p = design.shape[0]
+    base = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    plain = (dataclasses.replace(base, sparse_kernel=False) if sparse
+             else dataclasses.replace(base, backend="torch"))
+    delta = float(delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[0])
+    for rule in RULES:
+        _rule_routes(torch, f"{rule}-{layout} kernels vs plain", design, y, delta,
+                     dataclasses.replace(base, step_rule=rule),
+                     dataclasses.replace(plain, step_rule=rule), LASSO)
+
+
+def phase4_rule_acceptance(torch, dev):
+    """The reference's acceptance design (``tests/test_step_rules.py:42-61``,
+    m = 300, p = 120, delta 40, kappa 48, max_iters 1500, tol 1e-4) on the
+    card, on 'kernels' and 'sparse', one ``TorchSampler(1)`` stream recorded
+    and replayed to each rule. Its bars (away and pairwise at most classic's
+    iterations; away converged in under a quarter of them; each certified
+    gap at most 1e-4 of its objective) are printed as a finding: on the
+    port's stream they are a statistical property of the rules."""
+    from repro_torch.core import LASSO, FWConfig, StreamSampler, TorchSampler, engine
+    from repro_torch.sparse.matrix import SparseBlockMatrix
+
+    g = __import__("numpy").random.default_rng(11)
+    np = __import__("numpy")
+    m, p, rho = 300, 120, 0.6
+    Z = g.standard_normal((m, p)).astype(np.float32)
+    X = np.empty_like(Z)
+    X[:, 0] = Z[:, 0]
+    for j in range(1, p):
+        X[:, j] = rho * X[:, j - 1] + np.sqrt(1 - rho**2) * Z[:, j]
+    coef = np.zeros(p, np.float32)
+    coef[g.choice(p, 10, replace=False)] = g.standard_normal(10).astype(np.float32) * 50.0
+    yy = X @ coef + 1.0 * g.standard_normal(m).astype(np.float32)
+    Xt = torch.from_numpy(X.T.copy()).to(dev)
+    y = torch.from_numpy(yy.astype(np.float32)).to(dev)
+    src = TorchSampler(1, dev)
+    draws = torch.stack([src.uniform(48, p) for _ in range(1500)])
+    for backend in ("kernels", "sparse"):
+        design = (SparseBlockMatrix.from_dense(Xt.cpu(), block_size=32).to(dev)
+                  if backend == "sparse" else Xt)
+        out = {}
+        for rule in ("classic",) + RULES:
+            cfg = FWConfig(delta=40.0, kappa=48, sampling="uniform", max_iters=1500, tol=1e-4,
+                           patience=20, step_rule=rule, backend=backend)
+            r = engine.solve(LASSO, design, y, cfg, StreamSampler(draws), device=dev)
+            gap = float(LASSO.gap(design, y, r.alpha, torch.tensor(40.0, device=dev), cfg))
+            out[rule] = (r.iterations, bool(r.converged), gap, float(r.objective))
+        it_c = out["classic"][0]
+        bars = {
+            "away <= classic iterations": out["away"][0] <= it_c,
+            "pairwise <= classic iterations": out["pairwise"][0] <= it_c,
+            "away converged": out["away"][1],
+            "away * 4 < classic": out["away"][0] * 4 < it_c,
+            **{f"{r} gap <= 1e-4 objective": out[r][2] <= 1e-4 * out[r][3] for r in out},
+        }
+        print(f"[acceptance] {backend}: " + ", ".join(
+            f"{r} {it} iterations{' (converged)' if c else ''} gap {gp:.4g} objective {ob!r}"
+            for r, (it, c, gp, ob) in out.items()))
+        print(f"[acceptance] {backend} bars (a finding, not a check): " + ", ".join(
+            f"{k} {'met' if v else 'MISSED'}" for k, v in bars.items()))
+
+
+def _rule_step_ms(torch, oracle, design, y, stats, cfg, delta, n_steps=200):
+    """``_oracle_step_ms`` under ``cfg.step_rule``, and for the lazy rule the
+    host-clock ms of its hit steps and of its miss steps (the hook reads the
+    stall count, which the loop reads next anyway, so a step's wall is the
+    time between two hooks)."""
+    from repro_torch.core import engine
+    from repro_torch.core.vertex import TorchSampler
+
+    wall, busy, top, n_launch = _oracle_step_ms(torch, oracle, design, y, stats, cfg, delta,
+                                                n_steps)
+    split = None
+    if cfg.step_rule == "lazy":
+        c = dataclasses.replace(cfg, max_iters=n_steps, tol=0.0, patience=10**9)
+        state0 = engine.init_state(oracle, design, y, None, c)
+        marks, dots = [time.perf_counter()], [0]
+
+        def hook(state):
+            int(state.stall)
+            marks.append(time.perf_counter())
+            dots.append(state.n_dots)
+
+        engine.run_loop(oracle, design, y, stats, state0, c, delta, 10**9,
+                        TorchSampler(7, design.device), on_step=hook)
+        hit_ms, miss_ms = [], []
+        for t in range(1, len(marks)):
+            (hit_ms if dots[t] - dots[t - 1] == cfg.lazy_cache + 1 + oracle.extra_dots
+             else miss_ms).append((marks[t] - marks[t - 1]) * 1e3)
+        med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa: E731
+        split = (med(hit_ms), len(hit_ms), med(miss_ms), len(miss_ms))
+    return wall, busy, top, n_launch, split
+
+
+def phase5_rule_timing(torch, design, y, layout):
+    """The direction tail (f32, lasso and EN) at the path's shapes beside its
+    bound and plain version, K2 or K5 at width 1 on the buffer's 32 slots,
+    and the rules' steps: wall, device busy, launches and idle share."""
+    from repro_torch.core import LASSO, LOGISTIC, ENOracle, engine
+    from repro_torch.kernels import step_tail as st
+
+    sparse = layout == "sparse"
+    dev = y.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    m = design.shape[1]
+    out = {}
+    for key, l2 in (("dir_tail", None), ("dir_tail_en", EN_L2)):
+        beta, kw, en, _ = dir_tail_case(torch, design, y, "away", g, l2, torch.float32)
+        fn = st.dir_tail if en is None else st.dir_tail_en
+        extra = () if en is None else (en,)
+        ell = _ell_of(design)
+        cfg = _dir_cfg()
+        # 100 calls: the wrapper's host work (its checks and seven outputs)
+        # must stay inside the spin kernel that _time_queued queues them behind
+        ms = _time_queued(torch, lambda i: fn(ell, beta, *_dir_args(kw), cfg, *extra), 100)
+        plain_ms = _time_queued(torch, lambda i: st.dir_tail_plain(ell, beta, *_dir_args(kw), cfg,
+                                                                     en), 20)
+        n_buf = kw["buf"].numel()
+        nbytes = (3 * m * 4 + 2 * design.nnz_max * 8 if sparse else 5 * m * 4) + 2 * n_buf * 4 + 64
+        nbytes += 0 if en is None else 8
+        bound, by = _bound(nbytes, 10 * m)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+        print(f"[timing] {key} ({layout}, m={m:,}): {ms:.6f} ms, bound {bound:.6f} ms ({by}, "
+              f"{nbytes:,} bytes), {100 * bound / ms:.1f}% of bound, plain {plain_ms:.6f} ms")
+        safe = kw["buf"].clamp(0, design.shape[0] - 1)
+        k_ms = _time_queued(torch, lambda i: _kernel_scores(torch, design, safe, kw["resid"]), 400)
+        p_ms = _time_queued(torch, lambda i: _plain_scores(torch, design, safe, kw["resid"]), 100)
+        if key == "dir_tail":
+            print(f"[timing] {'K5' if sparse else 'K2'} at width 1 on the buffer's {n_buf} slots "
+                  f"({layout}): {k_ms:.6f} ms, plain {p_ms:.6f} ms")
+    cfg = (sparse_config(design.shape[0], fuse_steps=1) if sparse
+           else main_config(design.shape[0], "kernels"))
+    stats = engine.precompute_colstats(design, y, cfg)
+    delta = torch.tensor(50.0, device=dev)
+    yl = logistic_labels(torch, y)
+    cases = [("away", LASSO, y, stats), ("away", ENOracle(l2=EN_L2), y, stats),
+             ("classic", LASSO, y, stats), ("pairwise", LASSO, y, stats),
+             ("partan", LASSO, y, stats), ("lazy", LASSO, y, stats),
+             ("away", LOGISTIC, yl, None)]
+    for rule, oracle, yy, sts in cases:
+        scfg = dataclasses.replace(cfg, step_rule=rule)
+        n = 60 if oracle is LOGISTIC else 200
+        wall, busy, top, n_launch, split = _rule_step_ms(torch, oracle, design, yy, sts, scfg,
+                                                         delta, n)
+        name = type(oracle).__name__.replace("Oracle", "").lower()
+        busy_txt = ("device busy not measured (the profiler reported no device time)"
+                    if busy is None else
+                    f"device busy {busy:.4f} ms ({n_launch:.1f} kernels and copies a step; "
+                    f"{top}), idle {100 * (1 - busy / wall):.1f}%")
+        print(f"[timing] {rule} {name} step ({layout}): wall {wall:.4f} ms; {busy_txt}")
+        if split is not None:
+            print(f"[timing] lazy {name} step ({layout}): a hit {split[0]:.4f} ms (median of "
+                  f"{split[1]}), a miss {split[2]:.4f} ms (median of {split[3]})")
+    return out if not sparse else {f"{k}_sparse": v for k, v in out.items()}
 
 if __name__ == "__main__":
     sys.exit(main())

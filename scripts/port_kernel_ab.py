@@ -22,13 +22,16 @@
 - the one-lane launches that the batched lanes share their kernels with:
   K2's ``sampled_scores`` at the paper's dense size (kappa = 1% of p,
   width 1), the argmax above, and the step's ``step_tail`` on both
-  layouts (no renorm), beside K5 above;
+  layouts (no renorm), beside K5 above, each tail also in its
+  elastic-net instantiation (``step_tail_en``) on the same state;
 - the lasso's lane launches of the argmax and the tail at 13 lanes, at the
   paper's dense size (kappa = 1% of p a lane; m = 800, no renorm).
 
 The argmax, the tail, K4 and K7 also have elastic-net instantiations (the
 score shift, the EN line search, the alpha ledger); every launch timed
-here is the lasso's, whose bits and time those must leave alone.
+here is the lasso's, whose bits and time those must leave alone, but the
+EN tail's, which shares its source with the tail (and with the step
+rules' direction tail).
 
 For K2's scores, the argmax, the tail, K5, K7, the replay, K4 and the lane
 argmax and tail it also
@@ -177,6 +180,16 @@ def main(argv=None):
                      mat, beta, *targs, tcfg), 10),
                  nbytes=nbytes, flops=5 * m, digest=digest(first))
         record(name, t, note)
+        # the elastic-net's instantiation on the same state (l2 = 1, Q = 2,
+        # the selected score the linear one plus 0.25)
+        en = st.ENTail(targs[10].float() + 0.25, torch.tensor(2.0, device=dev), 1.0)
+        first = st.step_tail_en(mat, beta.clone(), *targs, tcfg, en)
+        t = dict(ms=cs._time_queued(torch, lambda i: st.step_tail_en(mat, beta, *targs, tcfg, en),
+                                    400),
+                 plain_ms=cs._time_queued(torch, lambda i: st.step_tail_plain(
+                     mat, beta, *targs, tcfg, en), 10),
+                 nbytes=nbytes + 8, flops=7 * m, digest=digest(first))
+        record(f"{name}_en", t, note)
 
     # ---- K6 and K7 on the E2006-log1p proxy -----------------------------------
     spec = PROXY_SPECS["e2006-log1p"]

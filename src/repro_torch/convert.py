@@ -73,11 +73,23 @@ def state_from_reference(arrays: dict, device="cuda") -> EngineState:
     'step_inf', 'stall', 'n_dots', 'k'. The co-state's keys say its oracle:
     'co.margin' the logistic's ``LogisticCo``; 'co.resid', 'co.s_quad',
     'co.f_lin' the lasso's ``LassoCo``, and with 'co.q_norm' the
-    elastic-net's ``ENCo``."""
+    elastic-net's ``ENCo``. The step rule's state (``EngineState.rule``),
+    where the reference state has one: 'rule.buffer' the away and pairwise
+    rules' int32 active set (int64 in the port), 'rule.a_prev',
+    'rule.v_prev', 'rule.drift' PARTAN's, 'rule.cache', 'rule.phi' the lazy
+    rule's."""
     dev = resolve_device(device)
 
     def t(name, dtype=torch.float32):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=dev)
+
+    rule = ()
+    if "rule.buffer" in arrays:
+        rule = t("rule.buffer", torch.int64)
+    elif "rule.a_prev" in arrays:
+        rule = (t("rule.a_prev"), t("rule.v_prev"), t("rule.drift"))
+    elif "rule.cache" in arrays:
+        rule = (t("rule.cache", torch.int64), t("rule.phi"))
 
     if "co.margin" in arrays:
         co = LogisticCo(margin=t("co.margin"))
@@ -96,6 +108,7 @@ def state_from_reference(arrays: dict, device="cuda") -> EngineState:
         n_dots=int(np.asarray(arrays["n_dots"])),
         k=int(np.asarray(arrays["k"])),
         i_star=torch.full((), -1, dtype=torch.int64, device=dev),
+        rule=rule,
     )
 
 

@@ -1,6 +1,6 @@
-"""The port's solver core: config, engine, the lasso, elastic-net and
-logistic oracles, path drivers."""
-from repro_torch.core import engine, path, vertex
+"""The port's solver core: config, engine, the step rules, the lasso,
+elastic-net and logistic oracles, path drivers."""
+from repro_torch.core import engine, path, step_rule, vertex
 from repro_torch.core.engine import (ColStats, EngineState, SolveResult, history_patience,
                                      precompute_colstats, solve, solve_batched,
                                      solve_with_history)
@@ -12,14 +12,16 @@ from repro_torch.core.fw_logistic import LOGISTIC, LogisticCo, LogisticOracle, l
 from repro_torch.core.path import (PathPoint, PathResult, delta_grid, fw_path,
                                    fw_path_batched, lambda_grid)
 from repro_torch.core.solver_config import DistSpec, FWConfig
+from repro_torch.core.step_rule import DirStep, get_rule
 from repro_torch.core.vertex import LaneSampler, LaneStreamSampler, StreamSampler, TorchSampler
 
 __all__ = [
-    "ColStats", "DistSpec", "ENCo", "ENOracle", "EngineState", "FWConfig", "FWState", "LASSO",
+    "ColStats", "DirStep", "DistSpec", "ENCo", "ENOracle", "EngineState", "FWConfig", "FWState",
+    "LASSO",
     "LOGISTIC", "LaneSampler", "LaneStreamSampler", "LassoCo", "LassoOracle", "LogisticCo",
     "LogisticOracle", "PathPoint", "PathResult", "SolveResult", "StreamSampler", "TorchSampler",
     "delta_grid", "duality_gap", "en_solve", "engine", "fw_path", "fw_path_batched", "fw_solve",
-    "fw_solve_with_history", "fw_step", "history_patience", "init_state", "lambda_grid",
+    "fw_solve_with_history", "fw_step", "get_rule", "history_patience", "init_state", "lambda_grid",
     "logistic_solve", "objective", "path", "precompute_colstats", "solve", "solve_batched",
-    "solve_with_history", "vertex",
+    "solve_with_history", "step_rule", "vertex",
 ]

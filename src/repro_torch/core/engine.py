@@ -60,8 +60,17 @@ step (per K-step chunk under ``fuse_steps = K``). A frozen lane keeps its
 state bit for bit, and each lane's trajectory is the sequential solve's
 on the same stream, bit for bit.
 
-Not ported yet, and refused by ``check_ported``: step rules other than
-'classic' (ROADMAP.md Queue 1 item 9), telemetry (item 11).
+Step rules (``FWConfig.step_rule``): ``run_loop`` steps through
+``rule_step``, which is ``step`` itself for 'classic' (its launches and bits
+unchanged) and ``core.step_rule``'s rule otherwise ('away', 'pairwise',
+'partan', 'lazy'); the rule's state rides on ``EngineState.rule``. A rule
+that needs a fact on the host reads it there: PARTAN its drift refresh with
+the stall count in the step's one host read, handing the count to the loop
+(``EngineState.stall_host``), the lazy rule its cache hit before the draw.
+The rules do not fuse (the per-step loop runs, with a warning) and have no
+lanes yet (``solve_batched`` refuses them: ROADMAP.md Queue 1 item 9a).
+
+Not ported yet, and refused by ``check_ported``: telemetry (item 11).
 """
 from __future__ import annotations
 
@@ -105,6 +114,10 @@ class EngineState(NamedTuple):
     # (n_active,) the vertices of the chunk's live steps; lanes: (L,) the
     # last batched step's, -1 for a lane frozen in it
     i_star: torch.Tensor
+    rule: Any = ()  # the step rule's state (core.step_rule); () for 'classic'
+    # the stall count as the step's own host read gave it (a rule with a host
+    # fact to read); None: ``run_loop`` reads ``stall`` itself
+    stall_host: Optional[int] = None
 
 
 class SolveResult(NamedTuple):
@@ -134,11 +147,6 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(cfg: FWConfig) -> None:
     """Refuse the reference's options that this port does not run yet."""
-    if cfg.step_rule != "classic":
-        raise NotImplementedError(
-            f"step_rule={cfg.step_rule!r} is not ported yet: ROADMAP.md "
-            "Queue 1 item 9"
-        )
     if cfg.telemetry is not None:
         raise NotImplementedError(
             "telemetry is not ported yet: ROADMAP.md Queue 1 item 11"
@@ -230,6 +238,12 @@ def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
         v = vertex.matvec(Xt, beta, cfg)  # X alpha
         maxabs = torch.max(torch.abs(beta))
     co = oracle.init_co(y, v, beta, dtype, cfg)
+    rule = ()
+    if cfg is not None and cfg.step_rule != "classic":
+        # lazy import: the rules layer on top of the engine
+        from repro_torch.core import step_rule
+
+        rule = step_rule.get_rule(cfg).init_state(oracle, cfg, beta, co, y)
     return EngineState(
         beta=beta,
         scale=torch.ones((), dtype=dtype, device=dev),
@@ -240,6 +254,7 @@ def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
         n_dots=0,
         k=0,
         i_star=torch.full((), -1, dtype=torch.int64, device=dev),
+        rule=rule,
     )
 
 
@@ -267,7 +282,28 @@ def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler
         n_dots=state.n_dots + n_scored + oracle.extra_dots,
         k=state.k + 1,
         i_star=i_star,
+        rule=state.rule,
     )
+
+
+def rule_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
+              sampler) -> EngineState:
+    """One iteration under ``cfg.step_rule`` (the reference's
+    ``core/engine.py:344-360``): 'classic' is ``step`` itself, so its
+    trajectory keeps its bits; the other rules dispatch through
+    ``core.step_rule`` (a lazy import: the rules layer on top of the
+    engine)."""
+    if cfg is None or cfg.step_rule == "classic":
+        return step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+    from repro_torch.core import step_rule
+
+    return step_rule.get_rule(cfg).step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+
+
+def _host_stall(state: EngineState) -> int:
+    """The stall count on the host: the step's own read where it made one,
+    else one read now."""
+    return state.stall_host if state.stall_host is not None else int(state.stall)
 
 
 def certified_gap(oracle, Xt, y, co, beta, scale, delta, cfg=None) -> torch.Tensor:
@@ -414,9 +450,9 @@ def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_ste
     state = state0
     # `stall` is read on the host: the one device sync per step, or per
     # chunk on the fused path (a copy, and no comparison kernel)
-    while state.k < cfg.max_iters and int(state.stall) < patience:
+    while state.k < cfg.max_iters and _host_stall(state) < patience:
         if not fused:
-            state = step(oracle, Xt, y, stats, state, cfg, delta, sampler)
+            state = rule_step(oracle, Xt, y, stats, state, cfg, delta, sampler)
             if per_step is not None:
                 per_step(state)
         elif per_step is None:
@@ -652,6 +688,10 @@ def solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, delta
                            on_step=None):
     """``solve_batched`` on operands that ``prepare_inputs`` already placed
     and checked; ``on_step`` as ``batched_loop``'s."""
+    if cfg.step_rule != "classic":
+        raise NotImplementedError(
+            f"step_rule={cfg.step_rule!r} has no batched lanes yet: ROADMAP.md Queue 1 item 9a"
+        )
     _check_lane_oracle(oracle)
     deltas = torch.as_tensor(deltas).to(device=Xt.device, dtype=torch.float32).reshape(-1)
     L = deltas.shape[0]

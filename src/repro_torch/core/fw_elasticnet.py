@@ -30,9 +30,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import engine, vertex
-from repro_torch.core.fw_lasso import refresh_lanes, sf_refresh
+from repro_torch.core.fw_lasso import refresh_lanes, refresh_step, sf_refresh
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import (  # noqa: F401 (the EN algebra, re-exported)
+    DirEN,
     ENTail,
     en_ls_closed_form,
     q_recursion,
@@ -55,7 +56,7 @@ def q_refresh(q_norm, beta, scale, k: int, cfg):
     """Q's periodic exact refresh from the scaled iterate at iteration
     ``k`` (the host's count, so a host branch, on the S/F refresh's
     cadence)."""
-    if (k % cfg.refresh_every) == (cfg.refresh_every - 1):
+    if refresh_step(k, cfg):
         return engine.q_exact(beta, scale).to(q_norm.dtype)
     return q_norm
 
@@ -124,6 +125,45 @@ class ENOracle:
         for lane in refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg):
             q_norm[lane] = engine.q_exact(beta[lane], scale[lane]).to(q_norm.dtype)
         return beta, scale, maxabs, step_inf, stall, ENCo(resid, s_quad, f_lin, q_norm)
+
+    # ---- the step rules' protocol (core/step_rule) -------------------------
+    # The lasso's (``fw_lasso``) with the l2 terms: <grad, alpha> gains
+    # +l2*Q, and the direction tail's line search its denominator
+    # l2*||d||^2 (scalar algebra in Q and the atoms' alpha values on the
+    # DirStep) and Q its generalized recursion (``kernels/step_tail``'s
+    # ``DirEN`` terms); the selected scores already carry the +l2*a_i shift.
+
+    def co_linpred(self, co: ENCo, y):
+        return y - co.resid
+
+    def grad_dot_alpha(self, co: ENCo, stats, y, beta, scale, cfg):
+        return co.s_quad - co.f_lin + self.l2 * co.q_norm
+
+    def partan_mu(self, y, stats, co: ENCo, u_m, a_mid, dp, mu_max, cfg):
+        """mu* = (<R, u> - l2 <a_mid, dp>) / (||u||^2 + l2 ||dp||^2) on [0,
+        mu_max]."""
+        num = vertex.mdot(co.resid, u_m, cfg) - self.l2 * torch.dot(a_mid, dp)
+        den = vertex.mdot(u_m, u_m, cfg) + self.l2 * torch.dot(dp, dp)
+        return torch.clamp_min(num / torch.clamp_min(den, cfg.eps_den), 0.0).clamp_max(mu_max)
+
+    def partan_update_co(self, y, stats, co: ENCo, a_new, mu, u_m, cfg) -> ENCo:
+        resid = co.resid - mu * u_m
+        v = y - resid
+        return ENCo(resid=resid, s_quad=vertex.mdot(v, v, cfg), f_lin=vertex.mdot(v, y, cfg),
+                    q_norm=torch.dot(a_new, a_new))
+
+    def dir_tail(self, Xt, y, stats, state, buf, raw_b, i_f, sel_f, delta, pairwise, cfg):
+        """The away and pairwise rules' step after the FW vertex (``sel_f``
+        its shifted score) and the buffer's linear scores: ``vertex.dir_tail``
+        with the EN's terms (one launch on the kernels' backends), then Q's
+        periodic exact refresh, a host branch. Returns ``(out, co)``."""
+        co = state.co
+        out = vertex.dir_tail(Xt, y, state.beta, state.scale, state.maxabs, state.stall,
+                              co.resid, co.s_quad, co.f_lin, buf, raw_b, i_f, sel_f, delta,
+                              refresh_step(state.k, cfg), pairwise, cfg,
+                              en=DirEN(self.l2, co.q_norm))
+        q_norm = q_refresh(out.q_norm, out.beta, out.scale, state.k, cfg)
+        return out, ENCo(out.resid, out.s_quad, out.f_lin, q_norm)
 
     # ---- fused K-step chunk protocol --------------------------------------
 

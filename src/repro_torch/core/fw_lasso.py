@@ -35,12 +35,18 @@ class LassoCo(NamedTuple):
     f_lin: torch.Tensor  # ()  F^k = (X alpha)^T y
 
 
+def refresh_step(k: int, cfg) -> bool:
+    """Whether iteration ``k`` (the host's count) refreshes the scalar
+    recursions exactly."""
+    return (k % cfg.refresh_every) == (cfg.refresh_every - 1)
+
+
 def sf_refresh(s_quad, f_lin, resid, y, k: int, cfg):
     """The periodic exact O(m) refresh of S and F from the residual (fp32
     drift control) at iteration ``k``, the host iteration count, so the
     refresh is a host branch that needs no sync. Returns ``(s_quad,
     f_lin)``."""
-    if (k % cfg.refresh_every) == (cfg.refresh_every - 1):
+    if refresh_step(k, cfg):
         v = y - resid
         s_quad = vertex.mdot(v, v, cfg)
         f_lin = vertex.mdot(v, y, cfg)
@@ -119,6 +125,46 @@ class LassoOracle:
         )
         refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg)
         return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
+
+    # ---- the step rules' protocol (core/step_rule) -------------------------
+    # The away and pairwise rules move along d = t*alpha + df*e_f + da*e_a;
+    # with u = df*z_f + da*z_a the direction's image is X d = t*(X alpha) +
+    # u, so the closed-form line search needs only S, F and O(m) dots on u:
+    # ``kernels/step_tail``'s direction algebra (``dir_line_search``,
+    # ``dir_update_co``, the reference's op order), all of it inside
+    # ``dir_tail``.
+
+    def co_linpred(self, co: LassoCo, y):
+        """X alpha from the co-state (O(m), no matvec)."""
+        return y - co.resid
+
+    def grad_dot_alpha(self, co: LassoCo, stats, y, beta, scale, cfg):
+        """<grad, alpha> = S - F for grad = -X^T R."""
+        return co.s_quad - co.f_lin
+
+    def partan_mu(self, y, stats, co: LassoCo, u_m, a_mid, dp, mu_max, cfg):
+        """The PARTAN extrapolation step, minimizing 1/2 ||mu u - R_mid||^2
+        (u = X dp) over mu in [0, mu_max]."""
+        num = vertex.mdot(co.resid, u_m, cfg)
+        den = vertex.mdot(u_m, u_m, cfg)
+        return torch.clamp_min(num / torch.clamp_min(den, cfg.eps_den), 0.0).clamp_max(mu_max)
+
+    def partan_update_co(self, y, stats, co: LassoCo, a_new, mu, u_m, cfg) -> LassoCo:
+        """R' = R_mid - mu u, S and F recomputed exactly (two O(m) dots)."""
+        resid = co.resid - mu * u_m
+        v = y - resid
+        return LassoCo(resid=resid, s_quad=vertex.mdot(v, v, cfg), f_lin=vertex.mdot(v, y, cfg))
+
+    def dir_tail(self, Xt, y, stats, state, buf, raw_b, i_f, sel_f, delta, pairwise, cfg):
+        """The away and pairwise rules' step after the FW vertex and the
+        buffer's linear scores (``vertex.dir_tail``: one launch on the
+        kernels' backends), the periodic refresh inside it. Returns ``(out,
+        co)``, ``out`` a ``DirTailOut``."""
+        co = state.co
+        out = vertex.dir_tail(Xt, y, state.beta, state.scale, state.maxabs, state.stall,
+                              co.resid, co.s_quad, co.f_lin, buf, raw_b, i_f, sel_f, delta,
+                              refresh_step(state.k, cfg), pairwise, cfg)
+        return out, LassoCo(out.resid, out.s_quad, out.f_lin)
 
     # ---- fused K-step chunk protocol --------------------------------------
     # The chunk (kernels/fused_step) carries the co-state as (resid, (S, F,

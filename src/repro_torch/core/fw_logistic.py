@@ -100,32 +100,44 @@ class LogisticOracle:
     def score_extra(self, beta, scale):
         return None
 
+    def _bisect_interval(self, ny, margin, dm, hi):
+        """The bisection of A stacked rays (``margin``, ``dm (A, m)``, ``ny =
+        -y``, rows padded on the CPU): the minimizer of the loss along
+        ``margin + s dm`` for s in [0, hi] (``hi (A,)``), phi'(s) increasing
+        (convexity), with the endpoint tests. Returns ``(A,)``."""
+
+        def phi_prime(s):
+            mg = margin + s[:, None] * dm
+            return _row_dots(ny * torch.sigmoid(ny * mg), dm)
+
+        zeros = torch.zeros_like(hi)
+        a, b = zeros, hi
+        for _ in range(self.n_bisect):
+            mid = 0.5 * (a + b)
+            going_up = phi_prime(mid) > 0
+            a, b = torch.where(going_up, a, mid), torch.where(going_up, mid, b)
+        s = 0.5 * (a + b)
+        # phi'(hi) <= 0: the minimizer is hi; phi'(0) >= 0: it is 0
+        s = torch.where(phi_prime(hi) <= 0, hi, s)
+        return torch.where(phi_prime(zeros) >= 0, 0.0, s)
+
+    def _padded(self, y, *rows):
+        """``-y`` and the ``(A, m)`` stacks ``rows``, padded on the CPU (see
+        ``_ROW_ALIGN``)."""
+        ts = (-y, *rows)
+        if rows[0].device.type == "cpu":
+            mp = -(-rows[0].shape[1] // _ROW_ALIGN) * _ROW_ALIGN
+            ts = tuple(_pad_rows(t, mp) for t in ts)
+        return ts
+
     def _bisect(self, y, margin, dm, delta_t, g_sel, cfg):
         """The line search of A stacked steps (``margin``, ``dm (A, m)``;
         ``delta_t``, ``g_sel (A,)``): the bisection of phi'(l) on [0, 1]
         with the endpoint tests, and the sampled-gap stall. Returns ``(lam,
         no_progress)``, each ``(A,)``."""
-        ny = -y
-        if margin.device.type == "cpu":
-            mp = -(-margin.shape[1] // _ROW_ALIGN) * _ROW_ALIGN
-            ny, margin, dm = (_pad_rows(t, mp) for t in (ny, margin, dm))
-
-        def phi_prime(lam):
-            mg = margin + lam[:, None] * dm
-            return _row_dots(ny * torch.sigmoid(ny * mg), dm)
-
-        A = margin.shape[0]
-        zeros = torch.zeros(A, dtype=torch.float32, device=margin.device)
-        ones = torch.ones(A, dtype=torch.float32, device=margin.device)
-        a, b = zeros, ones
-        for _ in range(self.n_bisect):  # phi' increases (convexity)
-            mid = 0.5 * (a + b)
-            going_up = phi_prime(mid) > 0
-            a, b = torch.where(going_up, a, mid), torch.where(going_up, mid, b)
-        lam = 0.5 * (a + b)
-        # phi'(1) <= 0: the minimizer is lam = 1; phi'(0) >= 0: it is 0
-        lam = torch.where(phi_prime(ones) <= 0, 1.0, lam)
-        lam = torch.where(phi_prime(zeros) >= 0, 0.0, lam)
+        ny, margin, dm = self._padded(y, margin, dm)
+        ones = torch.ones(margin.shape[0], dtype=torch.float32, device=margin.device)
+        lam = self._bisect_interval(ny, margin, dm, ones)
         # the sampled FW duality gap alpha^T grad + delta |grad_i*|, with
         # alpha^T grad_alpha = margin^T grad_margin: O(m), and below the
         # fp32 floor of its own terms a stall (gap_rtol)
@@ -189,6 +201,52 @@ class LogisticOracle:
         margin = (margin + lam[:, None] * dm).to(dtype)
         return (beta, [t.to(dtype) for t in scale], [t.to(dtype) for t in maxabs],
                 [t.to(dtype) for t in step_inf], stall, margin)
+
+    # ---- the step rules' protocol (core/step_rule) -------------------------
+    # Along d = t*alpha + df*e_f + da*e_a the margin moves on the ray m + g u,
+    # u = t*m + df*z_f + da*z_a, so the classic step's bisection runs on
+    # [0, g_max] (``_bisect_ray``). Plain PyTorch, on the device with no host
+    # read, as the reference's XLA ops (a one-launch form is ROADMAP.md Queue
+    # 2 item G).
+
+    def co_linpred(self, co: LogisticCo, y):
+        return co.margin
+
+    def grad_dot_alpha(self, co: LogisticCo, stats, y, beta, scale, cfg):
+        """alpha^T grad_alpha = margin^T grad_margin: one O(m) dot."""
+        grad_m = -y * torch.sigmoid(-y * co.margin)
+        return vertex.mdot(co.margin, grad_m, cfg)
+
+    def _bisect_ray(self, y, m0, u, g_max, cfg):
+        """argmin over g in [0, g_max] of the loss at ``m0 + g u`` (the
+        reference's ``core/fw_logistic.py:147-166``): ``_bisect``'s body on one
+        ray. Returns a 0-d f32."""
+        ny, m0, u = self._padded(y, m0[None], u[None])
+        hi = torch.as_tensor(g_max, dtype=torch.float32, device=m0.device).reshape(1)
+        return self._bisect_interval(ny, m0, u, hi).view(())
+
+    def dir_line_search(self, y, stats, co: LogisticCo, ds, u_lin, cfg):
+        """The bisection along u = t*m + u_lin on [0, g_max]; ``num`` is the
+        directional FW gap -<grad_m, u> at g = 0, below the f32 floor of its
+        own terms a stall. Returns ``(g, no_progress, u)``."""
+        u = ds.t * co.margin + u_lin
+        g = self._bisect_ray(y, co.margin, u, ds.g_max, cfg)
+        grad_m = -y * torch.sigmoid(-y * co.margin)
+        num = -vertex.mdot(grad_m, u, cfg)
+        a_grad = vertex.mdot(co.margin, grad_m, cfg)
+        gap_scale = (torch.abs(ds.t) * torch.abs(a_grad) + torch.abs(ds.df * ds.sel_f)
+                     + torch.abs(ds.da * ds.sel_a))
+        return g, num <= cfg.gap_rtol * gap_scale, u
+
+    def dir_update_co(self, Xt, y, stats, co: LogisticCo, beta, scale, ds, g, u_lin, k, cfg,
+                      aux) -> LogisticCo:
+        return LogisticCo(margin=(co.margin + g * aux).to(co.margin.dtype))
+
+    def partan_mu(self, y, stats, co: LogisticCo, u_m, a_mid, dp, mu_max, cfg):
+        return self._bisect_ray(y, co.margin, u_m, mu_max, cfg)
+
+    def partan_update_co(self, y, stats, co: LogisticCo, a_new, mu, u_m, cfg) -> LogisticCo:
+        return LogisticCo(margin=(co.margin + mu * u_m).to(co.margin.dtype))
 
     def objective(self, y, stats, co: LogisticCo, cfg=None):
         """The loss at the margin; lanes: one loss a lane, each summed as

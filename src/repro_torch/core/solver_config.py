@@ -60,9 +60,17 @@ class FWConfig:
         ahead of the chunk; the other sampling modes, and the logistic
         oracle (no closed-form line search), fall back to fuse_steps=1
         semantics (``SolveResult.effective_fuse_steps`` says what ran).
-
-    Also not ported yet, and refused by the solver: ``step_rule !=
-    'classic'`` (item 9).
+      step_rule: the FW step variant, run on every backend and oracle
+        (``core.step_rule``): 'classic' (default, the paper's Algorithm-2
+        step), 'away' (away steps over a tracked active set), 'pairwise'
+        (mass moved from the away atom onto the FW atom), 'partan' (each FW
+        step extrapolated against the previous iterate) and 'lazy' (a cache
+        of recent winners re-scored before a fresh draw). A rule other than
+        'classic' runs the per-step loop under ``fuse_steps > 1`` (with a
+        warning) and has no batched lanes yet (ROADMAP.md Queue 1 item 9a).
+      active_set_size: the 'away'/'pairwise' buffer's capacity (the
+        weakest-|beta| slot is evicted when a new FW atom enters a full one).
+      lazy_cache: the 'lazy' rule's winner-cache capacity.
     """
 
     delta: float

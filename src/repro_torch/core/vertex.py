@@ -36,6 +36,7 @@ through K5 (``kernels/sparse_grad``), at width 1 for 'uniform' sampling.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -69,6 +70,12 @@ class TorchSampler:
     def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
         perm = torch.randperm(nblocks, generator=self.generator, device=self.device)
         return perm[:nb]
+
+    def skip(self) -> None:
+        """A step that draws no set (a lazy rule's cache hit) draws nothing
+        here. The reference splits its key on every step, hit or miss; this
+        generator's stream is the port's own, so it has no key to keep in
+        step with."""
 
 
 class StreamSampler:
@@ -108,6 +115,14 @@ class StreamSampler:
 
     def blocks(self, nb: int, nblocks: int) -> torch.Tensor:
         return self._next(nb, nblocks)[0]
+
+    def skip(self) -> None:
+        """Pass over the next row unused: a step that draws no set (a lazy
+        rule's cache hit) still takes its row, as the reference splits its
+        key on every step, hit or miss."""
+        if self.t >= self.draws.shape[0]:
+            raise RuntimeError(f"the sampling stream ran out after {self.t} steps")
+        self.t += 1
 
 
 class LaneSampler:
@@ -336,6 +351,47 @@ def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=
     return _torch_vertex(Xt, w, sampler, p, cfg, extra_fn)
 
 
+def score_indices(Xt, w: torch.Tensor, idx: torch.Tensor, p: int, cfg: FWConfig, extra_fn=None):
+    """Linear scores ``raw_i = -z_i^T w`` at caller-chosen coordinates
+    ``idx`` (the reference's ``core/vertex.py:286-318``): the step rules'
+    re-scoring of the away rules' active set and the lazy rule's winner
+    cache, with no draw and no argmax. ``idx`` is clipped to [0, p-1]
+    (-1 marks an empty slot; its score is row 0's, which the caller masks),
+    then scored on the backend: a row gather and a product ('torch'), K2 at
+    width 1 ('kernels'), K5 at width 1 ('sparse', the plain ops with its
+    kernels off), the sparse scores cast to the design's dtype as the
+    reference's. Returns ``(raw, sel)``, ``sel = raw + extra_fn(safe)`` (the
+    same tensor without a shift)."""
+    safe = idx.clamp(0, p - 1)
+    if cfg.backend == "sparse":
+        raw = sparse_ops.sparse_gather_scores(Xt, w, safe,
+                                              use_kernel=use_sparse_kernel(cfg)).to(Xt.dtype)
+    elif cfg.backend == "kernels":
+        raw = fw_grad.sampled_scores(Xt, w, safe, 1)
+    else:
+        raw = -(Xt.index_select(0, safe) @ w)
+    sel = raw if extra_fn is None else raw.float() + extra_fn(safe)
+    return raw, sel
+
+
+def dir_tail(Xt, y, beta, scale, maxabs, stall, resid, s_quad, f_lin, buf, raw_b, i_f, sel_f,
+             delta, refresh: bool, pairwise: bool, cfg: FWConfig, en=None):
+    """The away and pairwise rules' step after the FW vertex and the
+    buffer's linear scores, on the matrix's layout: ``kernels/step_tail``'s
+    direction tail, one launch, where the backend runs the kernels
+    (``use_kernels``); its plain version on 'torch' and the plain sparse
+    ops. The lasso's, or with ``en`` (a ``DirEN``) the elastic-net's.
+    Returns a ``DirTailOut``."""
+    mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
+    args = (mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f, sel_f,
+            delta, refresh, pairwise, cfg)
+    if not use_kernels(cfg):
+        return _step_tail.dir_tail_plain(*args, en)
+    if en is None:
+        return _step_tail.dir_tail(*args)
+    return _step_tail.dir_tail_en(*args, en)
+
+
 # --------------------------------------------------------------------------
 # Batched delta lanes (the reference's jax.vmap of the step)
 # --------------------------------------------------------------------------
@@ -458,20 +514,38 @@ def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s
 # --------------------------------------------------------------------------
 
 
+# the step rules already warned about, once per process, as the reference's
+_warned_unfused_rules: set = set()
+
+
 def fused_supported(oracle, cfg: FWConfig) -> bool:
     """Whether ``run_loop`` advances K-step chunks: ``cfg.fuse_steps > 1``,
     'uniform' sampling (the K x kappa index stream can be drawn ahead of
     the chunk), an oracle with the ``fused_*`` protocol (the lasso and the
     elastic-net; the logistic bisection has none), a single-device backend
     and the classic step rule. Anything else runs the per-step loop
-    (fuse_steps=1 semantics), as the reference does."""
-    return (
+    (fuse_steps=1 semantics), as the reference does; a rule other than
+    'classic' that would otherwise fuse says so in a warning, once per rule
+    (the reference's ``core/vertex.py:355-398``)."""
+    base = (
         cfg.fuse_steps > 1
         and cfg.sampling == "uniform"
         and getattr(oracle, "fused_kind", None) is not None
         and cfg.backend != "distributed"
-        and cfg.step_rule == "classic"
     )
+    if not base:
+        return False
+    if cfg.step_rule != "classic":
+        if cfg.step_rule not in _warned_unfused_rules:
+            _warned_unfused_rules.add(cfg.step_rule)
+            warnings.warn(
+                f"step_rule={cfg.step_rule!r} does not compose with the fused multi-step "
+                f"chunk (fuse_steps={cfg.fuse_steps}); falling back to per-step execution "
+                "(fuse_steps=1 semantics)",
+                stacklevel=2,
+            )
+        return False
+    return True
 
 
 def use_kernels(cfg: FWConfig) -> bool:
@@ -556,13 +630,8 @@ def columns_dense(Xt, i_stars: torch.Tensor) -> torch.Tensor:
     """The dense columns ``z_i (A, m)`` of the features ``i_stars (A,)``: rows
     of a dense ``Xt``, or each feature's ELL slots scatter-added into zeros
     (``sparse_ops.sparse_column_dense``'s adds, row by row)."""
-    if not isinstance(Xt, SparseBlockMatrix):
-        return Xt.index_select(0, i_stars)
-    vals = Xt.values.reshape(-1, Xt.nnz_max).index_select(0, i_stars)
-    rows = Xt.rows.reshape(-1, Xt.nnz_max).index_select(0, i_stars).long()
-    rows = rows + Xt.m * torch.arange(i_stars.shape[0], device=rows.device)[:, None]
-    out = torch.zeros(i_stars.shape[0] * Xt.m, dtype=Xt.dtype, device=Xt.device)
-    return out.index_add_(0, rows.view(-1), vals.reshape(-1)).view(-1, Xt.m)
+    mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
+    return _step_tail.dense_columns(mat, i_stars, Xt.shape[1])
 
 
 def column_dense(Xt, i_star: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:

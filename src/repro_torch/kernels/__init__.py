@@ -6,7 +6,9 @@ fw_grad:          K2, sampled row scores + masked first-max argmax
 residual_update:  K3, fused R <- (1-lam) R + lam (y - dt z)
 step_tail:        the unfused lasso step after its argmax in one launch
                   (eq. 6, 8, the coefficient update, eq. 10 and the S/F
-                  recursions): K3's counterpart on the path
+                  recursions): K3's counterpart on the path; and the away
+                  and pairwise rules' direction tail (``dir_tail``, the
+                  port's own: XLA in the reference)
 fused_step:       K4 and K7, K fused FW iterations per launch on the dense
                   and the block-ELL layout (one cooperative grid skeleton),
                   and the one-block replay of their records into beta
@@ -53,6 +55,8 @@ _WRAPPERS = {
     "step_tail_en_lanes": step_tail.step_tail_en_lanes,
     "dense_fused_chunk_en": fused_step.dense_fused_chunk_en,
     "sparse_fused_chunk_en": fused_step.sparse_fused_chunk_en,
+    "dir_tail": step_tail.dir_tail,
+    "dir_tail_en": step_tail.dir_tail_en,
 }
 
 

@@ -282,7 +282,7 @@ def test_unported_lane_options_raise(prob):
         res, _ = engine.solve_batched(oracle, Xt, y, cfg, LaneSampler(0, 1, "cpu"), None, [1.0],
                                       device="cpu")
         assert res.iterations[0] > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9a"):
         engine.solve_batched(LASSO, Xt, y, FWConfig(delta=1.0, step_rule="away"),
                              LaneSampler(0, 1, "cpu"), None, [1.0], device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):

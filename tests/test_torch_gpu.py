@@ -1155,3 +1155,43 @@ def test_extension_lanes_equal_sequential_solves_on_the_card(oracle):
         else:
             assert abs(float(one.objective) - float(res.objective[lane])) <= RTOL_SUM * abs(
                 float(one.objective))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oracle", ["lasso", "en"])
+def test_dir_tail_edge_cases_on_the_card(layout, dtype, oracle):
+    """The away and pairwise rules' direction tail (``dir_tail``,
+    ``dir_tail_en``) against ``dir_tail_plain`` on chip_smoke.py's phase-2
+    cases (an away step, a pairwise one, a drop, i_f == i_a, an empty
+    buffer, zero-weight atoms, a renorm, a refresh, a full buffer taking a
+    new atom), on three blocks of the grid (m = 9,000): vertices, stall, the
+    buffer and a drop's zero exact, the rest within RTOL_SUM of its scale,
+    two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.data import make_sparse_wide_problem
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    m = 9_000
+    if layout == "sparse":
+        mat, _, _ = make_sparse_wide_problem(m, 20_000, 0.01, 50, seed=1, device="cuda",
+                                             block_size=256)
+    else:
+        mat = torch.randn((20_000, m), generator=g, device="cuda")
+        mat /= torch.linalg.vector_norm(mat, dim=1, keepdim=True)
+    dt = getattr(torch, dtype)
+    if dt == torch.bfloat16:
+        mat = mat.astype(dt) if layout == "sparse" else mat.to(dt)
+    y = torch.randn(m, generator=g, device="cuda")
+    for case in chip_smoke.DIR_CASES:
+        beta, kw, en, want = chip_smoke.dir_tail_case(torch, mat, y, case, g,
+                                                      None if oracle == "lasso" else 1.0, dt)
+        chip_smoke.check_dir_tail(torch, case, mat, beta, kw, en, want)

@@ -40,9 +40,10 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
-        ROOT / "scripts" / "port_kernel_ab.py"]
+        ROOT / "scripts" / "port_kernel_ab.py", ROOT / "scripts" / "rule_step_ab.py"]
     assert len(files) > 10
     assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
+    assert "step_rule.py" in {f.name for f in files if f.parent.name == "core"}
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 
@@ -81,7 +82,6 @@ def test_entry_points_need_a_card_unless_told_cpu():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(step_rule="away"), "item 9"),
     (dict(telemetry=object()), "item 11"),
     (dict(backend="distributed"), "item 13"),
 ])
