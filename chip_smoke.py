@@ -54,6 +54,14 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    vertices, stall, the buffer and the drop's zero exact, the rest to the
    dots' rounding; two launches bitwise equal), and K2/K5 at width 1 on 32
    and 16 caller indices with -1 slots;
+   the baselines' CD sweep (``cd_sweep``, dense path only) against its
+   plain loop: cyclic and stochastic orders (a row repeated inside the
+   ring's window and back to back), m = 74, 186, 800 (the residual in
+   registers), 20,000 (in shared memory) and 60,000 (past the on-chip
+   cap, in device memory), lam = 0, lam above lam_max (nothing moves: R
+   keeps its bits), a warm start thresholded on the way, a zero column,
+   f32 and bf16; alpha and R within TOL_CD, the support up to named
+   near-ties, two launches bitwise equal;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -87,6 +95,19 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      grid, all 10 points sequential and in lanes of 4 on the sparse layout,
      the first 3 on the dense one; each path's launches, l1 <= delta and
      its densest point's certified gap with the oracle's own gradient;
+   - the baselines (dense path): constrained FISTA (500 iterations, tol
+     1e-3) at the main path's densest delta, whose FW objective minus
+     FISTA's must lie within FW's certified gap; and on Pyrim at its
+     published size (m = 74, p = 201,376, built by ``make_proxy``) the
+     first 10 points of a 100-point lambda grid under cyclic CD (200
+     sweeps, tol 1e-3), the first 3 under stochastic CD, the 10 under
+     penalized FISTA (500 iterations) and the FW path at the CD points'
+     l1 norms (paper §2.1): one ``cd_sweep`` launch a sweep, finite
+     objectives, CD's penalized objective within rtol 1e-3 of FISTA's at
+     every point (the points where FISTA hit max_iters named), and one
+     warm sweep at full p (point 8's alpha at point 9's lam, where
+     coordinates move) through the kernel and the plain loop, held as
+     phase 2 holds its cases;
    - the step rules: the first 3 points of each path's grid under each
      of away, pairwise, PARTAN and lazy, the elastic-net under away and,
      sparse, the logistic's first point under away; five launches a step
@@ -129,9 +150,15 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    and plain version, K2/K5 at width 1 on the buffer, and the rules'
    steps (away and pairwise, PARTAN, lazy on a hit and on a miss, the
    EN's and the logistic's away step): wall, device busy, launches and
-   idle share.
+   idle share; the CD sweep on Pyrim (L2 flushed) beside its byte bound,
+   its chain's floor (p dependent warp sums) and its plain loop (the warm
+   sweep above), and a FISTA iteration (the difference of a 250- and a
+   50-iteration solve, each run to its length) beside its two ``torch.mv``
+   calls.
 
-About 8 minutes on an H100, the builds included. ``--kernels-only`` stops
+About 10 to 13 minutes on an H100, the builds included, as fast as the
+host (aim: 600 s, limit 1200 s); the baselines' phases print their
+seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -335,10 +362,12 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_lane_kernels(torch, Xt, y))
     errs.update(phase2_en_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_rule_kernels(torch, Xt, y, "dense"))
+    errs.update(phase2_cd_sweep(torch, dev))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
         main_launches, main_run = phase3_main_path(torch, Xt, y, coef)
+        phase3_fista_paper_width(torch, Xt, y, main_run)
         fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
         phase3_full_point(torch, Xt, y, main_run)
         launches.update(main_launches)
@@ -364,6 +393,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         phase4_rule_acceptance(torch, dev)
         timing.update(phase5_rule_timing(torch, Xt, y, "dense"))
         history_check(torch, dev)
+        timing.update(phase3_baselines(torch, dev, launches, errs))
     del Xt
     torch.cuda.empty_cache()
 
@@ -484,6 +514,10 @@ KERNELS = {
                      replaces="src/repro/core/step_rule.py:117"),
     "dir_tail_en": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
                         replaces="src/repro/core/step_rule.py:117"),
+    # one sweep of the baselines' coordinate descent: the port's own kernel
+    # for the reference's XLA fori_loop of coord_update (no pallas_call)
+    "cd_sweep": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
+                     replaces="src/repro/core/baselines.py:70"),
 }
 
 
@@ -4932,6 +4966,325 @@ def phase5_rule_timing(torch, design, y, layout):
             print(f"[timing] lazy {name} step ({layout}): a hit {split[0]:.4f} ms (median of "
                   f"{split[1]}), a miss {split[2]:.4f} ms (median of {split[3]})")
     return out if not sparse else {f"{k}_sparse": v for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# the baselines: the CD sweep kernel (phase 2), the Pyrim CD, FISTA
+# and FW paths and FISTA at the paper's dense width (phase 3), their timing
+# (phase 5)
+# --------------------------------------------------------------------------
+
+# Pyrim at its published size (paper Table 1: m = 74, p = 201,376, dense; a
+# design the paper runs CD on), the first points of lambda_grid(n_points=100):
+# 10 under cyclic CD, FISTA and FW, 3 under stochastic CD
+PYRIM_POINTS, PYRIM_STOCH_POINTS = 10, 3
+# table4_baselines.py's settings
+CD_SWEEPS, BASELINE_TOL, FISTA_ITERS = 200, 1e-3, 500
+# a sweep's residual widths: Pyrim's, Triazines', the paper's dense m, one
+# staged in shared memory past the registers and one past the on-chip cap
+# (57,344 floats), where R lives in device memory
+CD_M_CASES, CD_M_SMEM, CD_M_PAST_CAP = (74, 186, 800), 20_000, 60_000
+# a sweep chains p dots, each rounding within RTOL_SUM of its Cauchy-Schwarz
+# scale in another order than the plain loop's, and a coordinate's
+# difference reaches the later ones through R: alpha within TOL_CD of
+# ||alpha||_inf, R within TOL_CD of ||y||, max |d| within TOL_CD of
+# ||alpha||_inf; a coordinate in one support only is a near-tie (|rho| within
+# rounding of lam), its |alpha_j| under TOL_CD of ||alpha||_inf on both routes
+TOL_CD = 1e-4
+# FISTA's iteration is timed as the difference of two solves of these
+# lengths (tol 0, so each runs to its length), which cancels the power
+# iteration and the final residual
+FISTA_TIMED_ITERS = (50, 250)
+
+
+def _cd_case(torch, g, dev, m, p, dtype, kind):
+    """One phase-2 sweep's inputs: unit-norm rows in ``dtype``, a 10-sparse
+    signal, the start alpha0 and its residual, lam and the order."""
+    from repro_torch.kernels import colstats as cs
+
+    X = torch.randn((p, m), generator=g, device=dev)
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    coef = torch.zeros(p, device=dev)
+    coef[:10] = 5 * torch.randn(10, generator=g, device=dev)
+    y = coef @ X + 0.1 * torch.randn(m, generator=g, device=dev)
+    alpha0 = torch.zeros(p, device=dev)
+    if kind == "zero_column":
+        X[5] = 0.0
+        alpha0[5] = 2.5  # the 1e-12 floor: a_new = 0, d = -2.5, R untouched
+    X = X.to(dtype).contiguous()
+    _, zn2 = cs.colstats(X, y)
+    lam_max = float((X.float() @ y).abs().max())
+    lam, order = lam_max / 5, None
+    if kind == "stochastic":  # repeats inside the ring's 15-column window, and back to back
+        order = torch.randint(0, p, (p,), generator=g, device=dev)
+        order[0] = torch.argmax((X.float() @ y).abs())  # a row that moves, whatever the draw
+        order[3:6] = order[2]
+        order[20] = order[10]
+    elif kind == "lam_zero":
+        lam = 0.0
+    elif kind == "above_lam_max":
+        lam = 1.01 * lam_max
+    elif kind == "warm":  # a warm start, a third of it thresholded to 0 on the way
+        alpha0 = torch.randn(p, generator=g, device=dev)
+        alpha0[::3] = 0.0
+        lam = lam_max / 2
+    R0 = y - torch.mv(X.float().t(), alpha0)
+    return X, zn2, alpha0, R0, lam, order, float(torch.linalg.vector_norm(y))
+
+
+def check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm, nothing_moves=False):
+    """The kernel twice (equal bits) and the plain loop from the same inputs;
+    with ``nothing_moves`` (lam above lam_max from zero) alpha stays 0, R its
+    bits and max |d| 0. Returns the largest |difference| of alpha and R, the
+    plain loop's seconds and the number of coordinates the kernel moved."""
+    from repro_torch.kernels import cd_sweep as cds
+
+    runs = []
+    for _ in range(2):
+        a, r = alpha0.clone(), R0.clone()
+        md = cds.cd_sweep(X, a, r, zn2, lam, order)
+        runs.append((a, r, md))
+    torch.cuda.synchronize()
+    check(all(_same_bits(torch, u, v) for u, v in zip(*runs)), f"{label}: two sweeps differ")
+    a_k, r_k, md_k = runs[0]
+    a_p, r_p = alpha0.clone(), R0.clone()
+    t0 = time.perf_counter()
+    md_p = cds.cd_sweep_plain(X, a_p, r_p, zn2, lam, order)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    moved = int(torch.count_nonzero(a_k != alpha0))
+    a_scale = max(float(a_p.abs().max()), float(a_k.abs().max()))
+    d_a, d_r = float((a_k - a_p).abs().max()), float((r_k - r_p).abs().max())
+    d_md = abs(float(md_k) - float(md_p))
+    only = torch.nonzero((a_k != 0) != (a_p != 0)).view(-1)
+    ties = [(int(j), float(a_k[j]), float(a_p[j])) for j in only[:8].tolist()]
+    print(f"[cd_sweep] {label}: alpha {d_a:.3g} ({d_a / max(a_scale, 1e-30):.3g} of "
+          f"||alpha||_inf {a_scale:.4g}), R {d_r:.3g} ({d_r / y_norm:.3g} of ||y||), max|d| "
+          f"{float(md_k)!r} vs {float(md_p)!r}, active {int(torch.count_nonzero(a_k))} vs "
+          f"{int(torch.count_nonzero(a_p))}, {moved} coordinates moved, near-ties in one "
+          f"support only: {only.numel()} {ties}; twice: equal bits")
+    check(d_a <= TOL_CD * a_scale and d_r <= TOL_CD * y_norm and d_md <= TOL_CD * a_scale,
+          f"{label}: kernel and plain sweep differ past TOL_CD")
+    check(bool(torch.all((a_k[only].abs() <= TOL_CD * a_scale)
+                         & (a_p[only].abs() <= TOL_CD * a_scale))),
+          f"{label}: a support difference that is not a near-tie: {ties}")
+    if nothing_moves:
+        check(not bool(torch.any(a_k != 0)) and _same_bits(torch, r_k, R0)
+              and float(md_k) == 0.0, f"{label}: something moved above lam_max")
+    return max(d_a, d_r), plain_s, moved
+
+
+def phase2_cd_sweep(torch, dev):
+    """``cd_sweep`` against ``cd_sweep_plain`` on the card: cyclic and
+    stochastic orders (repeats inside the ring's window and back to back), m
+    = 74, 186, 800, 20,000 (R in shared memory) and 60,000 (past the on-chip
+    cap), lam = 0, lam > lam_max, a warm start, a zero column, f32 and bf16."""
+    from repro_torch.kernels import cd_sweep as cds
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    err = 0.0
+    cases = [(m, dt, kind) for m in CD_M_CASES for dt in (torch.float32, torch.bfloat16)
+             for kind in ("cyclic", "stochastic")]
+    cases += [(800, torch.float32, kind) for kind in ("lam_zero", "above_lam_max", "warm",
+                                                      "zero_column")]
+    cases += [(74, torch.bfloat16, "warm"), (CD_M_SMEM, torch.float32, "stochastic"),
+              (CD_M_PAST_CAP, torch.float32, "cyclic"), (CD_M_PAST_CAP, torch.bfloat16,
+                                                         "stochastic")]
+    for m, dt, kind in cases:
+        p = 1000 if m <= 800 else 300
+        X, zn2, alpha0, R0, lam, order, y_norm = _cd_case(torch, g, dev, m, p, dt, kind)
+        pl = cds.sweep_plan(m, dt)
+        label = (f"m={m} p={p} {str(dt).replace('torch.', '')} {kind} ({pl.route}, "
+                 f"{pl.threads} threads, {pl.slots} stages, R "
+                 f"{'on chip' if pl.residual_on_chip else 'in device memory'})")
+        err = max(err, check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm,
+                                      nothing_moves=kind == "above_lam_max")[0])
+    print(f"[cd_sweep] phase 2: {len(cases)} cases in {time.perf_counter() - t0:.1f} s")
+    return {"cd_sweep": err}
+
+
+def _penalized(pt):
+    return pt.objective + pt.reg * pt.l1
+
+
+def _print_baseline_points(tag, res, unit):
+    for g, pt in enumerate(res.points):
+        print(f"[{tag}] point {g:2d} reg={pt.reg:.6g} {unit}={pt.iterations} n_dots={pt.n_dots} "
+              f"objective={pt.objective!r} l1={pt.l1:.6g} active={pt.active} "
+              f"seconds={pt.seconds:.4f}")
+        check(math.isfinite(pt.objective) and math.isfinite(pt.l1),
+              f"{tag} point {g}: objective not finite")
+    print(f"[{tag}] path: {len(res.points)} points, {res.total_iters} {unit}, "
+          f"{res.total_dots:,} dots, {res.total_seconds:.3f} s, mean active "
+          f"{res.mean_active:.1f}")
+
+
+def phase3_baselines(torch, dev, launches, errs):
+    """The paper's comparison on the card, on Pyrim at its published size:
+    cyclic CD on the first PYRIM_POINTS points of a 100-point lambda grid,
+    stochastic CD on the first PYRIM_STOCH_POINTS, penalized FISTA on the
+    same points as cyclic CD, and the FW path at the CD points' l1 norms
+    (paper §2.1); one warm sweep at full p through the kernel and the plain
+    loop; then (phase 5) the sweep's and a FISTA iteration's times. Returns
+    the sweep's timing row; the warm sweep's error joins ``errs``."""
+    from repro_torch import kernels
+    from repro_torch.core import (CDConfig, FISTAConfig, baselines, cd_path, fista_path,
+                                  fw_path, lambda_grid)
+    from repro_torch.data import PROXY_SPECS, make_proxy
+    from repro_torch.kernels import cd_sweep as cds
+    from repro_torch.kernels import colstats as cs
+
+    t_phase = time.perf_counter()
+    spec = PROXY_SPECS["pyrim"]
+    t0 = time.perf_counter()
+    ds = make_proxy("pyrim", scale=1.0, seed=0)
+    Xt = torch.from_numpy(ds.X.T.copy()).to(dev)
+    y = torch.from_numpy(ds.y).to(dev)
+    p, m = Xt.shape
+    check((m, p) == (spec.m, spec.p), "the Pyrim proxy's size")
+    print(f"[pyrim] make_proxy('pyrim', scale=1.0): m={m} p={p:,} dense f32 Xt "
+          f"{Xt.numel() * 4 / 1e6:.1f} MB, built on the host in {time.perf_counter() - t0:.1f} s")
+    lams = lambda_grid(Xt, y, n_points=100)
+    pl = cds.sweep_plan(m, Xt.dtype)
+    print(f"[pyrim] lambda_grid(n_points=100): lam_max {lams[0]:.6g}; points 0-"
+          f"{PYRIM_POINTS - 1} down to {lams[PYRIM_POINTS - 1]:.6g}; cd_sweep route {pl.route}, "
+          f"{pl.threads} threads, {pl.slots} stages")
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    cd = cd_path(Xt, y, lams[:PYRIM_POINTS], CDConfig(lam=0.0, max_sweeps=CD_SWEEPS,
+                                                       tol=BASELINE_TOL), seed=0)
+    n_cyc = kernels.launch_counts()["cd_sweep"]
+    _print_baseline_points("cd", cd, "sweeps")
+    check(n_cyc == cd.total_iters, f"cd_sweep launches {n_cyc} != sweeps {cd.total_iters}")
+    kernels.reset_launch_counts()
+    scd = cd_path(Xt, y, lams[:PYRIM_STOCH_POINTS],
+                  CDConfig(lam=0.0, max_sweeps=CD_SWEEPS, tol=BASELINE_TOL, stochastic=True),
+                  seed=0)
+    n_sto = kernels.launch_counts()["cd_sweep"]
+    _print_baseline_points("scd", scd, "sweeps")
+    check(n_sto == scd.total_iters, f"cd_sweep launches {n_sto} != sweeps {scd.total_iters}")
+    launches["cd_sweep"] = n_cyc + n_sto
+    print(f"[cd] cd_sweep launches: {n_cyc} cyclic + {n_sto} stochastic = sweeps; CD paths "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fi = fista_path(Xt, y, lams[:PYRIM_POINTS], FISTAConfig(max_iters=FISTA_ITERS,
+                                                            tol=BASELINE_TOL), seed=0)
+    _print_baseline_points("fista", fi, "iterations")
+    for g, (a, b) in enumerate(zip(cd.points, fi.points)):
+        rel = abs(_penalized(a) - _penalized(b)) / abs(_penalized(b))
+        hit = b.iterations >= FISTA_ITERS
+        print(f"[cd-vs-fista] point {g}: penalized CD {_penalized(a)!r} FISTA {_penalized(b)!r} "
+              f"rel {rel:.3g}" + (" (FISTA hit max_iters)" if hit else ""))
+        check(rel <= 1e-3, f"point {g}: CD and FISTA apart by {rel:.3g}")
+
+    fw_cfg = main_config(p, "kernels")
+    fw = fw_path(Xt, y, [pt.l1 for pt in cd.points], fw_cfg, seed=0, device=dev)
+    _print_points("pyrim-fw", fw, fw_cfg)
+    for g, (a, b) in enumerate(zip(cd.points, fw.points)):
+        print(f"[cd-vs-fw] point {g}: delta = CD's l1 {a.l1:.6g}: objective CD {a.objective!r} "
+              f"FW {b.objective!r} (ratio {b.objective / a.objective:.6f}); seconds CD "
+              f"{a.seconds:.4f} FW {b.seconds:.4f}; dots CD {a.n_dots:,} FW {b.n_dots:,}")
+    print(f"[pyrim] paths: CD {cd.total_seconds:.3f} s ({cd.total_iters} sweeps, "
+          f"{cd.total_dots:,} dots, mean active {cd.mean_active:.1f}); stochastic CD "
+          f"{scd.total_seconds:.3f} s ({scd.total_iters} sweeps, 3 points); FISTA "
+          f"{fi.total_seconds:.3f} s ({fi.total_iters} iterations, {fi.total_dots:,} dots, mean "
+          f"active {fi.mean_active:.1f}); FW {fw.total_seconds:.3f} s ({fw.total_iters} "
+          f"iterations, kappa {fw_cfg.kappa}, {fw.total_dots:,} dots, mean active "
+          f"{fw.mean_active:.1f}); FISTA and FW {time.perf_counter() - t0:.1f} s")
+
+    # one warm sweep at full p, the kernel against the plain loop on the card:
+    # from the last point but one's alpha and residual at the last point's lam,
+    # where coordinates move (at lams[0] = lam_max none can); the plain loop's
+    # time is the sweep's plain_ms
+    _, zn2 = cs.colstats(Xt, y)
+    lam = float(lams[PYRIM_POINTS - 1])
+    warm = _alpha_from_point(torch, cd.points[-2], p, dev)
+    err, plain_s, moved = check_cd_sweep(
+        torch, f"Pyrim m={m} p={p:,} f32 cyclic, warm from point {PYRIM_POINTS - 2} at point "
+        f"{PYRIM_POINTS - 1}'s lam ({pl.route})", Xt, zn2, warm, y - torch.mv(Xt.t(), warm), lam,
+        None, float(torch.linalg.vector_norm(y)))
+    check(moved > 0, "the warm Pyrim sweep moved no coordinate")
+    errs["cd_sweep"] = max(errs["cd_sweep"], err)
+    plain_ms = 1e3 * plain_s
+
+    # phase 5: a sweep's time on Pyrim, L2 flushed; its bound and floor
+    flush = torch.empty(64 * 2**20, device=dev)
+    alpha, resid = torch.zeros(p, device=dev), y.clone()
+    ms = _time_cold(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam), 5, flush)
+    order = torch.randint(0, p, (p,), device=dev)
+    ms_sto = _time_cold(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam, order), 3, flush)
+    floor_ms = _time_cold(torch, lambda: cds.chain_floor(p, dev), 3, flush)
+    nbytes = cds.sweep_bytes(p, m, Xt.dtype, ordered=False)
+    bound_ms, bound_by = _bound(nbytes, 4 * p * m)
+    print(f"[timing] cd_sweep (Pyrim, m={m}, p={p:,}, cyclic, L2 flushed): {ms:.6f} ms a "
+          f"sweep, bound {bound_ms:.6f} ms ({bound_by}, {nbytes:,} bytes, "
+          f"{100 * bound_ms / ms:.2f}% of bound); stochastic {ms_sto:.6f} ms; the chain's "
+          f"floor, {p:,} dependent warp sums: {floor_ms:.6f} ms ({100 * floor_ms / ms:.1f}% of "
+          f"the sweep); plain {plain_ms:.6f} ms (the warm sweep above, one plain sweep of all "
+          f"{p:,} rows on the host's clock); library none; {1e6 * ms / p:.1f} ns a coordinate")
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+    # a FISTA iteration: the difference of two solves that run to their
+    # lengths, so the power iteration and the final residual cancel; each
+    # length twice, the faster kept
+    walls = {n: float("inf") for n in FISTA_TIMED_ITERS}
+    for n in FISTA_TIMED_ITERS * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = baselines.fista_solve(Xt, y, FISTAConfig(lam=lam, max_iters=n, tol=0.0), seed=0)
+        float(res.objective)
+        walls[n] = min(walls[n], time.perf_counter() - t0)
+        check(res.iterations == n, f"the timed FISTA solve stopped at {res.iterations} of {n}")
+    n0, n1 = FISTA_TIMED_ITERS
+    wall = 1e3 * (walls[n1] - walls[n0]) / (n1 - n0)
+    v = torch.randn(p, device=dev)
+    mv_ms = _time_queued(torch, lambda i: torch.mv(Xt, torch.mv(Xt.t(), v)), 200)
+    print(f"[timing] FISTA iteration (Pyrim, penalized, lam {lam:.6g}, default power "
+          f"iterations): wall {wall:.4f} ms ({n0} and {n1} iterations in {1e3 * walls[n0]:.3f} "
+          f"and {1e3 * walls[n1]:.3f} ms, each run to its length), the two torch.mv calls "
+          f"alone {mv_ms:.4f} ms ({100 * mv_ms / wall:.1f}% of the iteration)")
+    print(f"[pyrim] baselines phases {time.perf_counter() - t_phase:.1f} s")
+    return {"cd_sweep": row}
+
+
+def phase3_fista_paper_width(torch, Xt, y, main):
+    """Constrained FISTA at the main path's densest delta (the point whose
+    certified gap phase 3 checks): a feasible FISTA point cannot lie below
+    the optimum, so f_FW - f_FISTA <= gap_FW, however far FISTA is from
+    converged."""
+    from repro_torch.core import LASSO, FISTAConfig, baselines
+
+    t_phase = time.perf_counter()
+    p = Xt.shape[0]
+    last = main["res"].points[-1]
+    delta = last.reg
+    alpha = _alpha_from_point(torch, last, p, Xt.device)
+    gap = float(LASSO.gap(Xt, y, alpha, torch.tensor(delta, device=Xt.device)))
+    r = y - torch.mv(Xt.t(), alpha)
+    f_fw = 0.5 * float(r @ r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = baselines.fista_solve(Xt, y, FISTAConfig(delta=delta, constrained=True,
+                                                   max_iters=FISTA_ITERS, tol=BASELINE_TOL),
+                                seed=0)
+    f_fi = float(res.objective)
+    dt = time.perf_counter() - t0
+    l1 = float(res.alpha.abs().sum())
+    slack = RTOL_SUM * 0.5 * float(y @ y)
+    print(f"[fista-4m] constrained FISTA p={p:,} m={Xt.shape[1]} delta={delta:.6g}: "
+          f"{res.iterations} iterations ({'converged' if res.converged else 'max_iters'}), "
+          f"{res.n_dots:,} dots, objective {f_fi!r}, l1 {l1:.6g}, active {res.active}, "
+          f"{dt:.3f} s ({1e3 * dt / max(res.iterations, 1):.3f} ms an iteration); FW's "
+          f"objective {f_fw!r}, certified gap {gap!r}: f_FW - f_FISTA = {f_fw - f_fi!r} "
+          f"<= gap + {slack:.4g}")
+    check(l1 <= delta * (1 + 1e-4), "FISTA's iterate outside the l1 ball")
+    check(math.isfinite(f_fi) and f_fw - f_fi <= gap + slack,
+          "FW's certified gap does not cover FISTA's feasible objective")
+    print(f"[fista-4m] phase {time.perf_counter() - t_phase:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,8 +2,8 @@
 the port.
 
 The system has no weights: what a caller carries across is the problem,
-the config, a warm start or a mid-run state, and the sampled index
-stream. Everything arrives as numpy arrays or plain dicts, so this module
+the config, a warm start or a mid-run state (a baseline's result among
+them), and the sampled index stream. Everything arrives as numpy arrays or plain dicts, so this module
 imports nothing of the reference.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import baselines
 from repro_torch.core.engine import EngineState, resolve_device
 from repro_torch.core.fw_elasticnet import ENCo
 from repro_torch.core.fw_lasso import LassoCo
@@ -126,3 +127,25 @@ def lane_streams_from_reference(np_draws, device="cuda") -> LaneStreamSampler:
     dev = resolve_device(device)
     return LaneStreamSampler([torch.tensor(np.asarray(d), dtype=torch.int64, device=dev)
                               for d in np_draws])
+
+
+def baseline_from_reference(arrays: dict, device="cuda") -> baselines.SolveResult:
+    """A baselines ``SolveResult`` from a reference ``cd_solve`` or
+    ``fista_solve`` result's arrays (``{k: np.asarray(v) for k, v in
+    res._asdict().items()}``). Only 'alpha' is required, so a reference warm
+    start alone carries across too: its ``.alpha`` (float32) is the
+    ``alpha0`` the port's solvers take; 'objective', 'iterations', 'n_dots',
+    'active' and 'converged' default to NaN, 0, 0, alpha's support and
+    False. The counts become Python ints."""
+    dev = resolve_device(device)
+    alpha = torch.tensor(np.asarray(arrays["alpha"], dtype=np.float32), device=dev)
+    return baselines.SolveResult(
+        alpha=alpha,
+        objective=torch.tensor(float(np.asarray(arrays.get("objective", np.nan))),
+                               dtype=torch.float32, device=dev),
+        iterations=int(np.asarray(arrays.get("iterations", 0))),
+        n_dots=int(np.asarray(arrays.get("n_dots", 0))),
+        active=int(np.asarray(arrays["active"])) if "active" in arrays
+        else int(torch.count_nonzero(alpha)),
+        converged=bool(np.asarray(arrays.get("converged", False))),
+    )

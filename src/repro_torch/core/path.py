@@ -8,6 +8,14 @@ seeded from ``(seed, point index)``, so a point's stream does not depend on
 how many steps the points before it took; ``sampler_fn(point_index)``
 replaces it (the parity tests replay the reference's per-point streams).
 
+``cd_path`` and ``fista_path`` are the baselines' paths (the reference's
+``_penalized_path``): each point warm-started from the previous point's
+solution as it is. Each point draws its own stream: by default a stochastic
+CD's sweep orders and FISTA's power-iteration start from a
+``torch.Generator`` seeded from ``(seed, point index)``;
+``stream_fn(point_index)`` replaces them (the parity tests replay the
+reference's per-point ``split``).
+
 ``fw_path_batched`` is the reference's lane driver: the grid in chunks of
 ``lane_width`` deltas, each chunk one ``engine.solve_batched`` (lanes
 with early exit per lane), every lane warm-started from the previous
@@ -24,8 +32,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import engine, fw_lasso
-from repro_torch.core.solver_config import FWConfig
+from repro_torch.core import baselines, engine, fw_lasso
+from repro_torch.core.solver_config import CDConfig, FISTAConfig, FWConfig
 from repro_torch.core.vertex import LaneSampler, TorchSampler
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
@@ -218,3 +226,74 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
         sum(pt.iterations for pt in points),
         saved_iters=total_saved,
     )
+
+
+def _penalized_path(solve, Xt, y, regs, stream_fn) -> PathResult:
+    """Solve ``solve(Xt, y, reg, stream, alpha0)`` at each of ``regs`` in
+    turn, each warm-started from the previous solution, ``stream_fn(g)``
+    the point's stream."""
+    alpha = None
+    points = []
+    t_total = time.perf_counter()
+    for g, reg in enumerate(regs):
+        t0 = time.perf_counter()
+        res = solve(Xt, y, float(reg), stream_fn(g), alpha)
+        objective = float(res.objective)  # waits for the solve to finish
+        dt = time.perf_counter() - t0
+        alpha = res.alpha
+        idx = torch.nonzero(alpha).view(-1)
+        points.append(
+            PathPoint(
+                reg=float(reg),
+                objective=objective,
+                l1=float(torch.sum(torch.abs(alpha))),
+                active=res.active,
+                iterations=res.iterations,
+                n_dots=res.n_dots,
+                seconds=dt,
+                alpha_nnz_idx=idx.cpu().numpy(),
+                alpha_nnz_val=alpha[idx].cpu().numpy(),
+            )
+        )
+    return PathResult(
+        points,
+        time.perf_counter() - t_total,
+        sum(pt.n_dots for pt in points),
+        sum(pt.iterations for pt in points),
+    )
+
+
+def cd_path(Xt, y, lams, base_cfg: CDConfig, seed: int = 0, *, device=None,
+            stream_fn=None) -> PathResult:
+    """Coordinate descent along a descending ``lams`` grid (``lambda_grid``).
+    ``stream_fn(g)``: point g's sweep orders (``cd_solve``'s ``order``;
+    None for a cyclic config). Runs on Xt's device (the card for numpy
+    inputs) unless ``device`` says otherwise."""
+    Xt, y = baselines.prepare_dense(Xt, y, device)
+    if stream_fn is None:
+        p = Xt.shape[0]
+        stream_fn = lambda g: (baselines.RandomOrder(p, point_seed(seed, g), Xt.device)  # noqa: E731
+                               if base_cfg.stochastic else None)
+
+    def solve(Xt, y, lam, order, alpha0):
+        return baselines.cd_solve(Xt, y, base_cfg, order, alpha0, lam=lam)
+
+    return _penalized_path(solve, Xt, y, lams, stream_fn)
+
+
+def fista_path(Xt, y, regs, base_cfg: FISTAConfig, seed: int = 0, *, device=None,
+               stream_fn=None) -> PathResult:
+    """FISTA along ``regs``: a descending lam grid (penalized) or an
+    ascending delta grid (``cfg.constrained``). ``stream_fn(g)``: point g's
+    power-iteration start ``v0``. Runs on Xt's device (the card for numpy
+    inputs) unless ``device`` says otherwise."""
+    Xt, y = baselines.prepare_dense(Xt, y, device)
+    if stream_fn is None:
+        p = Xt.shape[0]
+        stream_fn = lambda g: baselines.random_start(p, point_seed(seed, g), Xt.device)  # noqa: E731
+
+    def solve(Xt, y, reg, v0, alpha0):
+        return baselines.fista_solve(Xt, y, base_cfg, v0, alpha0, reg=reg)
+
+    # constrained sweeps ascending (sparse -> dense), penalized descending.
+    return _penalized_path(solve, Xt, y, regs, stream_fn)

@@ -1,4 +1,6 @@
-"""Frozen solver configs (the reference's ``core/solver_config.py``)."""
+"""Frozen solver configs (the reference's ``core/solver_config.py``): the
+FW solver's and the baselines' (``CDConfig``, ``FISTAConfig``, with the
+reference's fields and defaults)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -108,3 +110,25 @@ class FWConfig:
                 f"unknown step_rule {self.step_rule!r}; valid choices: "
                 f"{', '.join(VALID_STEP_RULES)}"
             )
+
+
+@dataclass(frozen=True)
+class CDConfig:
+    """Cyclic / stochastic coordinate descent (penalized form, Glmnet-style)."""
+
+    lam: float
+    max_sweeps: int = 1000
+    tol: float = 1e-3
+    stochastic: bool = False
+
+
+@dataclass(frozen=True)
+class FISTAConfig:
+    """FISTA on the penalized form; 'constrained' switches to l1-ball projection."""
+
+    lam: float = 0.0
+    delta: float = 0.0
+    constrained: bool = False
+    max_iters: int = 2000
+    tol: float = 1e-3
+    power_iters: int = 50  # Lipschitz estimation

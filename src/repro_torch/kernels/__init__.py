@@ -14,6 +14,8 @@ fused_step:       K4 and K7, K fused FW iterations per launch on the dense
                   and the one-block replay of their records into beta
 sparse_grad:      K5, sampled scores over the block-ELL layout
 sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
+cd_sweep:         one sweep of the baselines' coordinate descent in one
+                  launch (the port's own: an XLA fori_loop in the reference)
 
 K2's scores and argmax, the step's tail and K5 also take L delta lanes in
 one launch (``*_lanes``, the batched engine's), each with a count of its own.
@@ -25,6 +27,7 @@ its kernel in its ``launches`` attribute.
 The CUDA sources are in ``csrc/`` and build on first use (``_build``).
 """
 from repro_torch.kernels import (
+    cd_sweep,
     colstats,
     fused_step,
     fw_grad,
@@ -57,6 +60,7 @@ _WRAPPERS = {
     "sparse_fused_chunk_en": fused_step.sparse_fused_chunk_en,
     "dir_tail": step_tail.dir_tail,
     "dir_tail_en": step_tail.dir_tail_en,
+    "cd_sweep": cd_sweep.cd_sweep,
 }
 
 

@@ -1195,3 +1195,98 @@ def test_dir_tail_edge_cases_on_the_card(layout, dtype, oracle):
         beta, kw, en, want = chip_smoke.dir_tail_case(torch, mat, y, case, g,
                                                       None if oracle == "lasso" else 1.0, dt)
         chip_smoke.check_dir_tail(torch, case, mat, beta, kw, en, want)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [74, 186, 800, 20_000, 60_000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["cyclic", "stochastic", "lam_zero", "above_lam_max", "warm",
+                                  "zero_column"])
+def test_cd_sweep_matches_plain_on_the_card(m, dtype, kind):
+    """The baselines' CD sweep (``kernels/cd_sweep``) against its plain loop
+    on chip_smoke.py's phase-2 cases: every route of ``sweep_plan`` (the
+    residual in registers at m = 74, 186, 800, in shared memory at 20,000,
+    in device memory at 60,000), a stochastic order with repeats inside the
+    ring's window and back to back, lam = 0 and above lam_max, a warm start,
+    a zero column; alpha and R within TOL_CD of their scales, the support
+    equal up to named near-ties, two launches bitwise equal. Each sweep
+    counts one launch, and only the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import cd_sweep as cds
+
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m)
+    p = 1000 if m <= 800 else 100
+    X, zn2, alpha0, R0, lam, order, y_norm = cs._cd_case(torch, g, torch.device("cuda"), m, p,
+                                                         getattr(torch, dtype), kind)
+    before = cds.cd_sweep.launches
+    cs.check_cd_sweep(torch, f"m={m} {dtype} {kind}", X, zn2, alpha0, R0, lam, order, y_norm,
+                      nothing_moves=kind == "above_lam_max")
+    assert cds.cd_sweep.launches == before + 2  # the plain loop counts none
+
+
+@pytest.mark.gpu
+def test_cd_sweep_never_falls_back_on_the_card():
+    """A CUDA tensor launches the kernel or raises: a float64 alpha, an int32
+    order and a misaligned bf16 design are refused, not run plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import cd_sweep as cds
+
+    X = torch.randn((64, 74), device="cuda")
+    zn2, R = (X * X).sum(1), torch.randn(74, device="cuda")
+    before = cds.cd_sweep.launches
+    with pytest.raises(TypeError):
+        cds.cd_sweep(X, torch.zeros(64, dtype=torch.float64, device="cuda"), R, zn2, 1.0)
+    with pytest.raises(ValueError):
+        cds.cd_sweep(X, torch.zeros(64, device="cuda"), R, zn2, 1.0,
+                     torch.zeros(64, dtype=torch.int32, device="cuda"))
+    Xb = torch.zeros(64 * 75 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(64, 75)
+    with pytest.raises(ValueError, match="aligned"):
+        cds.cd_sweep(Xb, torch.zeros(64, device="cuda"), torch.zeros(75, device="cuda"), zn2, 1.0)
+    with pytest.raises(ValueError):
+        cds.cd_sweep(X, torch.zeros(64), R, zn2, 1.0)  # a CPU alpha beside CUDA tensors
+    assert cds.cd_sweep.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_cd_solve_on_the_card_matches_the_plain_route(stochastic):
+    """A whole CD solve and a FISTA solve on the card: the sweeps launch the
+    kernel once each, and the plain route on CPU copies of the same inputs
+    (and the same orders) gives the same sweeps, support and objective to
+    rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import CDConfig, FISTAConfig, baselines
+    from repro_torch.kernels import cd_sweep as cds
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    X = torch.randn((2000, 74), generator=g, device="cuda")
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    y = X[:10].sum(0) * 3 + 0.1 * torch.randn(74, generator=g, device="cuda")
+    cfg = CDConfig(lam=float((X @ y).abs().max()) / 10, tol=1e-4, stochastic=stochastic)
+    orders = [torch.randint(0, 2000, (2000,), generator=g, device="cuda") for _ in range(200)]
+    before = cds.cd_sweep.launches
+    gpu = baselines.cd_solve(X, y, cfg, (lambda s: orders[s]) if stochastic else None)
+    assert cds.cd_sweep.launches - before == gpu.iterations
+    cpu = baselines.cd_solve(X.cpu(), y.cpu(), cfg,
+                             (lambda s: orders[s].cpu()) if stochastic else None)
+    assert gpu.iterations == cpu.iterations and gpu.active == cpu.active
+    assert abs(float(gpu.objective) - float(cpu.objective)) <= 1e-5 * float(cpu.objective)
+    fi = baselines.fista_solve(X, y, FISTAConfig(lam=cfg.lam, tol=1e-4), seed=0)
+    pen = lambda r: float(r.objective) + cfg.lam * float(r.alpha.abs().sum())  # noqa: E731
+    assert abs(pen(fi) - pen(gpu)) <= 1e-3 * pen(gpu)

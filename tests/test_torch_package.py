@@ -40,7 +40,8 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
-        ROOT / "scripts" / "port_kernel_ab.py", ROOT / "scripts" / "rule_step_ab.py"]
+        ROOT / "scripts" / "port_kernel_ab.py", ROOT / "scripts" / "rule_step_ab.py",
+        ROOT / "scripts" / "cd_sweep_breakdown.py", ROOT / "scripts" / "s1_partan_replay.py"]
     assert len(files) > 10
     assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
     assert "step_rule.py" in {f.name for f in files if f.parent.name == "core"}
