@@ -156,6 +156,23 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    50-iteration solve, each run to its length) beside its two ``torch.mv``
    calls.
 
+Observability (the telemetry ring, the tracer, the metrics registry), on
+each path: phase 2 holds the TEL instantiations (the ring's record written
+inside the step tail's launch, one-lane and lanes, lasso and EN, and inside
+the replay's) bit for bit against their plain versions, ring words and
+device cursors included (the objective on and off, the wrap from the last
+slot to 0, a renorm, a frozen lane, a masked replay tail, bf16); phase 3
+runs the dense path's first 3 points unfused with a ring of 256 streaming
+to a sink, under a tracer and a registry, against the same points with all
+of it off (the trajectory, launches with the TEL tail in the tail's place,
+every record at the sink once and in order, each point's last objective
+its result's, a valid Chrome trace, the registry's totals), the EN's first
+point and 3 EN lanes, a chunk of 13 lasso lanes each lane's ring bitwise
+its sequential solve's, and on both layouts the first 3 points fused with
+``record_objective=False`` (the TEL replay); phase 5 times the TEL tail and
+replay beside their plain instantiations in turns, and the dense unfused
+step's wall and device time with the ring on and off, alternated.
+
 About 10 to 13 minutes on an H100, the builds included, as fast as the
 host (aim: 600 s, limit 1200 s); the baselines' phases print their
 seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
@@ -363,6 +380,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_en_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_rule_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_cd_sweep(torch, dev))
+    errs.update(phase2_tel_kernels(torch, Xt, y, "dense"))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -393,6 +411,8 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         phase4_rule_acceptance(torch, dev)
         timing.update(phase5_rule_timing(torch, Xt, y, "dense"))
         history_check(torch, dev)
+        launches.update(phase3_obs(torch, Xt, y, coef, "dense"))
+        timing.update(phase5_tel_timing(torch, Xt, y, "dense"))
         timing.update(phase3_baselines(torch, dev, launches, errs))
     del Xt
     torch.cuda.empty_cache()
@@ -422,6 +442,7 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     errs["sparse_fused_chunk_en"] = en_errs.pop("sparse_fused_chunk_en")
     errs.update({f"{k}_sparse": v for k, v in en_errs.items()})
     errs.update(phase2_rule_kernels(torch, mat, y, "sparse"))
+    errs.update(phase2_tel_kernels(torch, mat, y, "sparse"))
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
@@ -455,6 +476,9 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
         launches[name] += rule_launches[name]
     phase4_rule_routes(torch, mat, y, coef, "sparse")
     timing.update(phase5_rule_timing(torch, mat, y, "sparse"))
+    for name, n in phase3_obs(torch, mat, y, coef, "sparse").items():
+        launches[name] += n
+    phase5_tel_timing(torch, mat, y, "sparse")  # printed beside the dense rows
 
 
 KERNELS = {
@@ -518,6 +542,22 @@ KERNELS = {
     # for the reference's XLA fori_loop of coord_update (no pallas_call)
     "cd_sweep": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
                      replaces="src/repro/core/baselines.py:70"),
+    # the telemetry ring's record written inside the tail and the replay
+    # (their TEL instantiations), for the reference's per-step ring writes
+    # beside the residual update's kernel and in its replay
+    # (src/repro/core/engine.py:307-327, 411-417)
+    "step_tail_tel": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                          replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_tel": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                             replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_lanes_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_lanes_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "fused_replay_tel": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
+                             replaces="src/repro/core/engine.py:387"),
 }
 
 
@@ -1327,6 +1367,8 @@ def phase3_main_path(torch, Xt, y, coef):
     for name in ("sampled_scores", "vertex_argmax", "step_tail"):
         check(launches[name] == res.total_iters, f"{name} launches != iterations")
     check(launches["residual_update"] == 0, "the unfused path launched K3 beside the tail")
+    # telemetry off: no ring, so no TEL instantiation runs
+    check(all(launches[n] == 0 for n in TEL_KERNELS), "telemetry off launched a TEL kernel")
     # the certified duality gap bounds the last point's suboptimality: it
     # must be finite and (up to rounding) non-negative
     last = res.points[-1]
@@ -2248,7 +2290,7 @@ def phase3_sparse_fused_path(torch, mat, y, coef):
           f"!= chunks {chunks}")
     check(launches["sparse_colstats"] == len(res.points), "sparse_colstats launches != points")
     for name in ("sparse_sampled_scores", "vertex_argmax", "colstats", "sampled_scores",
-                 "residual_update", "dense_fused_chunk", "step_tail"):
+                 "residual_update", "dense_fused_chunk", "step_tail") + TEL_KERNELS:
         check(launches[name] == 0, f"the fused sparse path launched {name}")
     last = res.points[-1]
     alpha = _alpha_from_point(torch, last, mat.p, mat.device)
@@ -3648,14 +3690,14 @@ def _stall_trace_unfused(torch, oracle, design, y, cfg, delta, a0, seed):
     rtol = torch.tensor(cfg.gap_rtol, dtype=torch.float32, device=design.device)
 
     def tail(Xt, yy, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g, dlt,
-             cfg_, en=None):
+             cfg_, en=None, tel=None):
         a_star = scale.float() * beta.index_select(0, i_star.view(1)).view(()).float()
         dt = -dlt * torch.sign(en.g_sel.float())
         s, f, q, gx, l2 = s_quad.float(), f_lin.float(), en.q_norm.float(), g.float(), en.l2
         num = s - dt * gx - f + l2 * (q - dt * a_star)
         gs = s + torch.abs(f) + torch.abs(dt * gx) + l2 * (q + torch.abs(dt * a_star))
         out = real(Xt, yy, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g,
-                   dlt, cfg_, en)
+                   dlt, cfg_, en, tel=tel)
         rows.append(torch.stack([num, gs, q, (num <= rtol * gs).float(),
                                  (out[4] > 0).float(), out[3].float()]))
         return out
@@ -3688,7 +3730,7 @@ def _stall_trace_fused(torch, oracle, design, y, cfg, delta, a0, seed):
         pending.append(lam.as_strided((lam.shape[0], fs.REC), (fs.REC, 1)))
         return out
 
-    def replay(state, cfg_, i_stars, lams, delta_ts, no_progs):
+    def replay(state, cfg_, i_stars, lams, delta_ts, no_progs, per_step):
         recs = pending.pop()
         st = (state.beta.clone(), state.scale, state.maxabs, state.step_inf, state.stall)
         for t in range(min(i_stars.shape[0], cfg_.max_iters - state.k)):
@@ -3697,7 +3739,7 @@ def _stall_trace_fused(torch, oracle, design, y, cfg, delta, a0, seed):
                                  state.k + t, cfg_)
             rows.append(torch.stack([recs[t, 5], recs[t, 6], recs[t, 7], recs[t, 4],
                                      (st[4] > 0).float(), st[3].float()]))
-        out = real_replay(state, cfg_, i_stars, lams, delta_ts, no_progs)
+        out = real_replay(state, cfg_, i_stars, lams, delta_ts, no_progs, per_step)
         check(all(_same_bits(torch, a, b) for a, b in zip(out, st)),
               "the fused replay one record at a time differs from the chunk's")
         return out
@@ -5285,6 +5327,524 @@ def phase3_fista_paper_width(torch, Xt, y, main):
     check(math.isfinite(f_fi) and f_fw - f_fi <= gap + slack,
           "FW's certified gap does not cover FISTA's feasible objective")
     print(f"[fista-4m] phase {time.perf_counter() - t_phase:.1f} s")
+
+# --------------------------------------------------------------------------
+# observability: the telemetry ring's kernels (the TEL instantiations of the
+# step tail and the replay), a traced, metered, recorded path, and their times
+# --------------------------------------------------------------------------
+
+TEL_CAP = 256  # the ring's slots in phases 2 and 3
+TEL_KERNELS = ("step_tail_tel", "step_tail_en_tel", "step_tail_lanes_tel",
+               "step_tail_en_lanes_tel", "fused_replay_tel")
+TEL_POINTS = 3  # the first grid points phase 3 runs with everything on
+TEL_LANES = 13  # the lanes of phase 3's batched chunk
+TEL_LANE_STEPS = 300  # its max_iters
+TEL_RECORD_BYTES = 40  # a record's bytes: 4 int32, 4 float32, 1 int64
+
+
+def _tel_rings(torch, dev, n, lanes=None, cursors=None):
+    """``n`` empty rings of TEL_CAP slots (lane rings with these cursors)."""
+    from repro_torch.obs import telemetry as tl
+
+    rings = []
+    for _ in range(n):
+        r = tl.init_ring(tl.TelemetrySpec(capacity=TEL_CAP), dev, lanes)
+        if cursors is not None:
+            r = r._replace(cursor=list(cursors),
+                           dev_cursor=torch.tensor(cursors, dtype=torch.int64, device=dev))
+        rings.append(r)
+    return rings
+
+
+def _tel_tail_case(torch, st, label, mat, beta, args, cfg, en, objective, yty):
+    """Two chained steps of the TEL tail (``step_tail`` or ``step_tail_en``
+    with a record) against the plain tail and record: the first writes the
+    ring's last slot, the second (from the first's outputs) slot 0, the
+    wrap. Every output and every ring word bit for bit; a second kernel run
+    bitwise the first."""
+    from repro_torch.kernels.step_tail import TailRecord
+
+    dev = beta.device
+    rings = _tel_rings(torch, dev, 3)
+    fn = st.step_tail_en if en is not None else st.step_tail
+    outs = []
+    for r, route in zip(rings, ("kernel", "kernel", "plain")):
+        b, a, e = beta.clone(), args, en
+        for slot, k, n in ((TEL_CAP - 1, TEL_CAP - 1, 10**9 + 7), (0, TEL_CAP, 10**9 + 9)):
+            rec = TailRecord(r.buf, TEL_CAP, slot, k, n, objective, yty)
+            if route == "plain":
+                got = st.step_tail_plain(mat, b, *a, cfg, e, rec)
+            elif e is not None:
+                got = fn(mat, b, *a, cfg, e, tel=rec)
+            else:
+                got = fn(mat, b, *a, cfg, tel=rec)
+            # the next step from this one's outputs (the winner and score kept)
+            a = (got[1], got[2], got[4], got[5], got[6], got[7]) + a[6:]
+            if e is not None:
+                e = e._replace(q_norm=got[8])
+        outs.append((got, r))
+    (k1, r1), (k2, r2), (pl, rp) = outs
+    differ = [n for n, a, b in zip(TAIL_OUT + ("Q",), k1, pl) if not _same_bits(torch, a, b)]
+    check(not differ, f"{label}: {differ} differ from the plain tail")
+    check(torch.equal(r1.buf, rp.buf), f"{label}: the ring's words differ from the plain record")
+    check(torch.equal(r1.buf, r2.buf) and all(_same_bits(torch, a, b) for a, b in zip(k1, k2)),
+          f"{label}: two launches differ")
+    ks = r1.k.tolist()
+    check(ks[TEL_CAP - 1] == TEL_CAP - 1 and ks[0] == TEL_CAP and ks[1] == -1,
+          f"{label}: the records are not at the ring's last slot and then slot 0")
+    nan = torch.isnan(r1.objective[[0, TEL_CAP - 1]])
+    check(bool(nan.all()) != objective and int(r1.n_dots[0]) == 10**9 + 9,
+          f"{label}: the objective or n_dots fields are wrong")
+
+
+def _tel_lane_case(torch, st, label, mat, beta, args, L, cfg, en, yty):
+    """The lane TEL tail with lane 1 frozen, lane 0's cursor at the ring's
+    last slot: outputs, every lane's ring words and the device cursors
+    bitwise the plain version's; the frozen lane records nothing and keeps
+    its cursor."""
+    from repro_torch.kernels.step_tail import TailRecord
+
+    dev = beta.device
+    run = [lane for lane in range(L) if lane != 1]
+    ids = torch.tensor(run, dtype=torch.int32, device=dev)
+    cursors = [TEL_CAP - 1] + [3 * lane for lane in range(1, L)]
+    outs = []
+    for route in ("kernel", "plain"):
+        (r,) = _tel_rings(torch, dev, 1, L, cursors)
+        rec = TailRecord(r.buf, TEL_CAP, 0, 0, 42_723, True, yty, list(cursors), r.dev_cursor)
+        b = beta.clone()
+        if route == "kernel":
+            got = (st.step_tail_en_lanes(mat, b, *args, ids, cfg, en, tel=rec) if en is not None
+                   else st.step_tail_lanes(mat, b, *args, ids, cfg, tel=rec))
+        else:
+            got = st.step_tail_lanes_plain(mat, b, *args, ids, cfg, en, rec)
+        outs.append((got, r))
+    (kg, kr), (pg, pr) = outs
+    differ = [n for n, a, b in zip(TAIL_OUT + ("Q",), kg, pg) if not _same_bits(torch, a, b)]
+    check(not differ, f"{label} L={L}: {differ} differ from the plain tail")
+    check(torch.equal(kr.buf, pr.buf) and torch.equal(kr.dev_cursor, pr.dev_cursor),
+          f"{label} L={L}: the lane rings or cursors differ from the plain records")
+    want = [c + (lane != 1) for lane, c in enumerate(cursors)]
+    check(kr.dev_cursor.tolist() == want, f"{label} L={L}: device cursors {kr.dev_cursor.tolist()}")
+    check(int((kr.buf[1] != _tel_rings(torch, dev, 1, L)[0].buf[1]).sum()) == 0,
+          f"{label} L={L}: the frozen lane's ring was written")
+    check(int(kr.k[0, 0]) == -1 and int(kr.k[0, TEL_CAP - 1]) == TEL_CAP - 1,
+          f"{label} L={L}: lane 0's record is not at its cursor's slot")
+
+
+def phase2_tel_kernels(torch, design, y, layout):
+    """The TEL instantiations against their plain versions, bit for bit: the
+    tail (f32 at the path's shapes, bf16 on a 20,000-feature design; lasso
+    and EN; the objective on and off; two chained steps across the wrap
+    from the ring's last slot to 0; a renorm), the lane tail at L = 3 and 13
+    (a frozen lane, lane 0 wrapping), the replay at K = 8 (a renorm at the
+    first record, one coordinate winning twice, a masked tail, the ring
+    wrapping inside the chunk); two launches bitwise equal. Returns each
+    kernel's max |kernel - plain| (0: bit for bit)."""
+    from repro_torch.core import FWConfig
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import step_tail as st
+    from repro_torch.kernels.step_tail import ENTail
+
+    t0 = time.perf_counter()
+    dev = y.device
+    sparse = layout == "sparse"
+    p, m = design.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    cfg = FWConfig(delta=5.0)
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.float32:
+            mat, pp = ((design.values, design.rows) if sparse else design), p
+            win = int(torch.randint(0, p, (1,), generator=g, device=dev))
+        else:
+            pp, win = (4_000 if sparse else 20_000), 5
+            mat = (_tail_ell(torch, g, pp, m, 13, dtype, win, [17, 0, 400]) if sparse
+                   else torch.randn((pp, m), generator=g, device=dev).to(dtype))
+        yty = torch.tensor(float(torch.dot(y.float(), y.float())), device=dev).to(dtype)
+        for en_on in (False, True):
+            for objective in (True, False):
+                for scale in (1.0, 1.01e-6):  # the second renormalizes
+                    beta, args = _tail_args(torch, g, pp, m, dtype, win, scale=scale)
+                    en = (ENTail(torch.tensor(-3.25, device=dev), torch.tensor(0.7, device=dev)
+                                 .to(dtype), 1.0) if en_on else None)
+                    label = (f"TEL tail {layout} {str(dtype)[6:]} {'EN' if en_on else 'lasso'} "
+                             f"objective={objective} scale={scale}")
+                    _tel_tail_case(torch, st, label, mat, beta, args, cfg, en, objective, yty)
+                    n_cases += 1
+    mat = (design.values, design.rows) if sparse else design
+    yty = torch.dot(y, y)
+    for L in (3, TEL_LANES):
+        beta, args = _lane_tail_state(torch, g, p, m, torch.float32, L)
+        for en_on in (False, True):
+            en = (ENTail(torch.randn(L, generator=g, device=dev) * 5,
+                         torch.rand(L, generator=g, device=dev) + 0.5, 1.0) if en_on else None)
+            _tel_lane_case(torch, st, f"TEL lane tail {layout} {'EN' if en_on else 'lasso'}",
+                           mat, beta, args, L, cfg, en, yty)
+            n_cases += 1
+        del beta, args
+    if not sparse:
+        _tel_replay_cases(torch, fs, g)
+        n_cases += 2
+    print(f"[tel] phase 2 {layout}: {n_cases} cases of the TEL kernels bit for bit their plain "
+          f"versions, ring words and cursors included, in {time.perf_counter() - t0:.1f} s")
+    return {f"{name}{'_sparse' if sparse else ''}": 0.0 for name in TEL_KERNELS}
+
+
+def _tel_replay_cases(torch, fs, g):
+    """The TEL replay at K = 8 against its plain version: a renorm at the
+    first record and a coordinate that wins twice, the ring's slots
+    TEL_CAP - 3 .. 4 (a wrap inside the chunk); the same records with the
+    last 3 masked (k0 near max_iters: no record written for them)."""
+    from repro_torch.core import FWConfig
+    from repro_torch.kernels.fused_step import ReplayRecord
+
+    dev = g.device
+    cfg = FWConfig(delta=50.0, max_iters=1000)
+    p = 100_000
+    beta0 = torch.randn(p, generator=g, device=dev)
+    start = (torch.tensor(3e-6, device=dev), torch.tensor(0.4, device=dev),
+             torch.tensor(0.1, device=dev), torch.tensor(2, dtype=torch.int32, device=dev))
+    i_stars = torch.randint(0, p, (FUSE,), generator=g, device=dev)
+    i_stars[5] = i_stars[2]
+    lams = 0.05 + 0.1 * torch.rand(FUSE, generator=g, device=dev)
+    lams[0] = 0.75  # 3e-6 * 0.25 < renorm_threshold
+    dts = torch.where(torch.rand(FUSE, generator=g, device=dev) < 0.5, -50.0, 50.0)
+    nps = torch.rand(FUSE, generator=g, device=dev) < 0.3
+    for k0, live in ((10, FUSE), (cfg.max_iters - 5, 5)):
+        outs = []
+        for route in ("kernel", "kernel", "plain"):
+            (r,) = _tel_rings(torch, dev, 1)
+            rec = ReplayRecord(r.buf, TEL_CAP, TEL_CAP - 3, 5_000_000, 42_723)
+            fn = fs.fused_replay if route == "kernel" else fs.fused_replay_plain
+            got = fn(beta0.clone(), *start, i_stars, lams, dts, nps, k0, cfg, rec)
+            outs.append((got, r))
+        (a, ra), (b, rb), (c, rc) = outs
+        same = all(torch.equal(x.reshape(-1), y_.reshape(-1)) for x, y_ in zip(a, c))
+        check(same and torch.equal(ra.buf, rc.buf),
+              f"TEL replay k0={k0}: outputs or ring words differ from the plain replay")
+        check(all(torch.equal(x.reshape(-1), y_.reshape(-1)) for x, y_ in zip(a, b))
+              and torch.equal(ra.buf, rb.buf), f"TEL replay k0={k0}: two launches differ")
+        written = int((ra.k != -1).sum())
+        check(written == live and int(ra.k[TEL_CAP - 3]) == k0 and bool(torch.isnan(
+            ra.objective[TEL_CAP - 3])), f"TEL replay k0={k0}: {written} records, {live} live")
+        check(int(ra.n_dots[(TEL_CAP - 3 + live - 1) % TEL_CAP]) == 5_000_000 + live * 42_723,
+              f"TEL replay k0={k0}: n_dots of the last record")
+    print("[tel] replay K=8: a renorm at the first record, a coordinate winning twice, the ring "
+          "wrapping inside the chunk, a masked tail of 3 records: bit for bit its plain version")
+
+
+def _tel_path_points(torch, design, y, deltas, cfg, on_step=None):
+    from repro_torch.core import fw_path
+
+    return fw_path(design, y, deltas, cfg, seed=0, device=design.device, on_step=on_step)
+
+
+def phase3_obs(torch, design, y, coef, layout):
+    """The first TEL_POINTS points of the path's grid with telemetry,
+    tracing and metrics on, against the same points with all of it off.
+    Dense: unfused on 'kernels' with a ring of TEL_CAP streaming to a sink
+    (the trajectory bit for bit the off one, the kernels' launches those of
+    the off run with the TEL tail in the plain tail's place, every record
+    once and in order at the sink, each point's last objective its
+    result's, a valid Chrome trace with a point span each, the registry's
+    totals the path's), then the elastic-net's first point unfused and a
+    chunk of 3 EN lanes (the EN TEL tails), then one batched chunk of
+    TEL_LANES lasso lanes, each lane's ring bitwise its sequential solve's
+    ring on the rows it drew. Both layouts: the same points fused at K = 8
+    with record_objective=False (the TEL replay: one record a live step,
+    NaN objectives, the cursor the iteration count). Returns the TEL
+    kernels' launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, ENOracle, LaneSampler, StreamSampler, delta_grid, engine
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.obs import (MetricsRegistry, TelemetrySpec, Tracer, register_sink,
+                                 ring_to_records, unregister_sink, use_registry, use_tracer,
+                                 validate_chrome_trace)
+
+    t0 = time.perf_counter()
+    p = design.shape[0]
+    sparse = layout == "sparse"
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[:TEL_POINTS]
+    launches = {name: 0 for name in TEL_KERNELS}
+
+    def add_launches():
+        for name in TEL_KERNELS:
+            launches[name] += kernels.launch_counts()[name]
+
+    if not sparse:
+        cfg = main_config(p, "kernels")
+        off_rec = Recorder(TEL_POINTS)
+        kernels.reset_launch_counts()
+        off = _tel_path_points(torch, design, y, deltas, cfg, off_rec)
+        off_launches = kernels.launch_counts()
+        spec = TelemetrySpec(capacity=TEL_CAP, stream_to="chip-smoke-sink")
+        batches, last = [], {}
+        on_rec = Recorder(TEL_POINTS)
+
+        def hook(g, state):
+            on_rec(g, state)
+            last[g] = state
+
+        tr, reg = Tracer("chip_smoke"), MetricsRegistry()
+        register_sink("chip-smoke-sink", batches.append)
+        kernels.reset_launch_counts()
+        try:
+            with use_tracer(tr), use_registry(reg):
+                on = _tel_path_points(torch, design, y, deltas,
+                                      dataclasses.replace(cfg, telemetry=spec), hook)
+        finally:
+            unregister_sink("chip-smoke-sink")
+        on_launches = kernels.launch_counts()
+        add_launches()
+        for g, (a, b) in enumerate(zip(off.points, on.points)):
+            check((a.iterations, a.n_dots) == (b.iterations, b.n_dots)
+                  and torch.equal(off_rec.sequence(g), on_rec.sequence(g))
+                  and list(a.alpha_nnz_idx) == list(b.alpha_nnz_idx)
+                  and a.alpha_nnz_val.tobytes() == b.alpha_nnz_val.tobytes(),
+                  f"[obs] point {g}: the telemetry-on trajectory differs from the off one")
+        it = on.total_iters
+        want = dict(off_launches, step_tail=0, step_tail_tel=it)
+        check(on_launches == want, f"[obs] launches with telemetry on {on_launches}, want {want}")
+        check(off_launches["step_tail"] == it and off_launches["step_tail_tel"] == 0,
+              "[obs] the telemetry-off run launched a TEL kernel")
+        idx = np.concatenate([b_["record_index"] for b_ in batches])
+        ks = np.concatenate([b_["k"] for b_ in batches])
+        want_idx = np.concatenate([np.arange(pt.iterations) for pt in on.points])
+        check(np.array_equal(idx, want_idx) and np.array_equal(ks, want_idx),
+              "[obs] the sink did not receive every record once, in order")
+        n_flush = sum(len(b_["k"]) == TEL_CAP for b_ in batches)
+        # a full ring is flushed every TEL_CAP records, and each point's rest once
+        want_batches = sum(pt.iterations // TEL_CAP + (pt.iterations % TEL_CAP > 0)
+                           for pt in on.points)
+        check(n_flush == sum(pt.iterations // TEL_CAP for pt in on.points)
+              and len(batches) == want_batches,
+              f"[obs] {len(batches)} sink batches ({n_flush} full), want {want_batches}")
+        for g, pt in enumerate(on.points):
+            rec = ring_to_records(last[g].tel)
+            check(float(rec["objective"][-1]) == pt.objective,
+                  f"[obs] point {g}: the last record's objective {rec['objective'][-1]!r} is not "
+                  f"the result's {pt.objective!r}")
+            check(rec["n_dots"][-1] == pt.n_dots, f"[obs] point {g}: the last record's n_dots")
+        check(validate_chrome_trace(tr.to_chrome()) == [], "[obs] invalid Chrome trace")
+        spans = tr.span_table()
+        check(spans["fw_path/point"]["count"] == TEL_POINTS and spans["fw_path"]["count"] == 1,
+              f"[obs] spans {sorted(spans)}")
+        lbl = dict(entry="solve", backend="kernels", step_rule="classic")
+        check(reg.get("fw_iterations").value(**lbl) == it
+              and reg.get("fw_n_dots").value(**lbl) == on.total_dots
+              and reg.get("fw_path_point_seconds").snapshot(
+                  driver="sequential", backend="kernels")["count"] == TEL_POINTS,
+              "[obs] the registry's totals are not the path's")
+        print(f"[obs] dense first {TEL_POINTS} points unfused, ring {TEL_CAP} streaming, traced "
+              f"and metered: {it} iterations, bit for bit the telemetry-off run; launches "
+              f"sampled_scores {on_launches['sampled_scores']}, vertex_argmax "
+              f"{on_launches['vertex_argmax']}, step_tail_tel {on_launches['step_tail_tel']} "
+              f"(4 a step with the draw); {len(batches)} sink batches ({n_flush} full-ring "
+              f"flushes), records in order; point spans {spans['fw_path/point']['count']}, "
+              f"point seconds {[round(pt.seconds, 4) for pt in on.points]}")
+
+        # the elastic-net's TEL tails: its first point unfused, then 3 lanes
+        en, en_cfg = ENOracle(1.0), dataclasses.replace(cfg, max_iters=TEL_LANE_STEPS)
+        runs = []
+        for tel in (None, TelemetrySpec(capacity=TEL_CAP)):
+            kernels.reset_launch_counts()
+            runs.append(engine.solve(en, design, y, dataclasses.replace(en_cfg, telemetry=tel),
+                                     TorchSampler(5, design.device), None, float(deltas[0]),
+                                     device=design.device))
+            if tel is not None:
+                add_launches()
+        check(_same_bits(torch, runs[0].alpha, runs[1].alpha)
+              and runs[1].telemetry.cursor == runs[1].iterations,
+              "[obs] the EN point with telemetry differs from the off one")
+        for tel in (None, TelemetrySpec(capacity=TEL_CAP)):
+            kernels.reset_launch_counts()
+            res, _ = engine.solve_batched(en, design, y, dataclasses.replace(en_cfg, telemetry=tel),
+                                          LaneSampler(6, 3, design.device), None, deltas,
+                                          device=design.device)
+            runs.append(res)
+            if tel is not None:
+                add_launches()
+        check(_same_bits(torch, runs[2].alpha, runs[3].alpha)
+              and runs[3].telemetry.cursor == runs[3].iterations,
+              "[obs] the EN lanes with telemetry differ from the off ones")
+        print(f"[obs] EN first point ({runs[1].iterations} steps) and 3 EN lanes "
+              f"({runs[3].iterations}): bit for bit telemetry off, cursors = iterations")
+
+        # one batched chunk of TEL_LANES lasso lanes, each lane's ring its
+        # sequential solve's on the rows it drew
+        lcfg = dataclasses.replace(cfg, max_iters=TEL_LANE_STEPS,
+                                   telemetry=TelemetrySpec(capacity=TEL_CAP))
+        ldeltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[:TEL_LANES]
+        rec = LaneRecorder(LaneSampler(8, TEL_LANES, design.device), TEL_LANES)
+        kernels.reset_launch_counts()
+        res, _ = engine.solve_batched(LASSO, design, y, lcfg, rec, None, ldeltas,
+                                      device=design.device)
+        add_launches()
+        for lane, d in enumerate(ldeltas):
+            one = engine.solve(LASSO, design, y, lcfg, StreamSampler(torch.stack(rec.rows[lane])),
+                               None, float(d), device=design.device)
+            check(one.iterations == res.iterations[lane]
+                  and torch.equal(one.telemetry.buf, res.telemetry.buf[lane]),
+                  f"[obs] lane {lane}: its ring differs from its sequential solve's")
+        print(f"[obs] {TEL_LANES} lanes, iterations {res.iterations}: each lane's ring bitwise "
+              "its sequential solve's")
+
+    # the fused route with record_objective off: the TEL replay
+    cfg = (sparse_config(p) if sparse else main_config(p, "kernels", fuse_steps=FUSE))
+    fspec = TelemetrySpec(capacity=TEL_CAP, record_objective=False)
+    last = {}
+    kernels.reset_launch_counts()
+    fused = _tel_path_points(torch, design, y, deltas, dataclasses.replace(cfg, telemetry=fspec),
+                             lambda g, s: last.__setitem__(g, s))
+    fl = kernels.launch_counts()
+    add_launches()
+    chunk = "sparse_fused_chunk" if sparse else "dense_fused_chunk"
+    check(fl["fused_replay_tel"] == fl[chunk] and fl["fused_replay"] == 0,
+          f"[obs] fused launches {fl}")
+    for g, pt in enumerate(fused.points):
+        ring = last[g].tel
+        rec = ring_to_records(ring)
+        check(ring.cursor == pt.iterations and bool(np.all(np.isnan(rec["objective"])))
+              and np.array_equal(rec["k"], np.arange(pt.iterations - len(rec["k"]),
+                                                     pt.iterations)),
+              f"[obs] fused point {g}: cursor {ring.cursor}, iterations {pt.iterations}")
+    print(f"[obs] {layout} first {TEL_POINTS} points fused K={FUSE} with record_objective=False: "
+          f"{fused.total_iters} records (one a live step), NaN objectives, {fl[chunk]} chunks, "
+          f"fused_replay_tel {fl['fused_replay_tel']}; phase 3 {layout} took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase5_tel_timing(torch, design, y, layout):
+    """The TEL tail and the TEL replay beside their plain instantiations,
+    back to back on the same inputs with CUDA events, and (dense) the lane
+    TEL tails at TEL_LANES lanes; then the dense unfused step's wall and
+    device time with the ring on and off, alternated (off, on, three times).
+    Returns the TEL kernels' timing rows (dense; sparse prints its tail)."""
+    from repro_torch.core import FWConfig, engine
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import step_tail as st
+    from repro_torch.kernels.fused_step import ReplayRecord
+    from repro_torch.kernels.step_tail import ENTail, TailRecord
+    from repro_torch.obs import TelemetrySpec
+
+    t0 = time.perf_counter()
+    dev = y.device
+    sparse = layout == "sparse"
+    p, m = design.shape
+    mat = (design.values, design.rows) if sparse else design
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    tcfg = FWConfig(delta=5.0)
+    win = int(torch.randint(0, p, (1,), generator=gen, device=dev))
+    beta, targs = _tail_args(torch, gen, p, m, torch.float32, win)
+    yty = torch.dot(y, y)
+    (ring,) = _tel_rings(torch, dev, 1)
+    rec = TailRecord(ring.buf, TEL_CAP, 7, 7, 1000, True, yty)
+    out = {}
+    nbytes_tail = (3 * m * 4 + (design.nnz_max * 8 if sparse else m * 4)) + 64
+
+    def row(name, ms, plain_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        print(f"[timing] {name} {layout}: {ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, library null{note}")
+
+    # the instantiations back to back, each twice, in turns
+    t_tel, t_off = [], []
+    for _ in range(2):
+        t_off.append(_time_queued(torch, lambda i: st.step_tail(mat, beta, *targs, tcfg), 400))
+        t_tel.append(_time_queued(torch, lambda i: st.step_tail(mat, beta, *targs, tcfg, tel=rec),
+                                  400))
+    plain_tel = _time_queued(torch, lambda i: st.step_tail_plain(mat, beta, *targs, tcfg, None,
+                                                                 rec), 8)
+    print(f"[timing] step_tail {layout} without / with the record, in turns: "
+          f"{[round(t, 6) for t in t_off]} / {[round(t, 6) for t in t_tel]} ms")
+    row("step_tail_tel", min(t_tel), plain_tel, nbytes_tail + TEL_RECORD_BYTES, 5 * m + 16,
+        note=f" [{layout}; the tail's bytes + a {TEL_RECORD_BYTES}-byte record; plain: the "
+             "plain tail and record]")
+    en = ENTail(torch.tensor(-3.25, device=dev), torch.tensor(0.7, device=dev), 1.0)
+    t_en = _time_queued(torch, lambda i: st.step_tail_en(mat, beta, *targs, tcfg, en, tel=rec),
+                        400)
+    t_en_off = _time_queued(torch, lambda i: st.step_tail_en(mat, beta, *targs, tcfg, en), 400)
+    row("step_tail_en_tel", t_en,
+        _time_queued(torch, lambda i: st.step_tail_plain(mat, beta, *targs, tcfg, en, rec), 8),
+        nbytes_tail + 8 + TEL_RECORD_BYTES, 5 * m + 24,
+        note=f" [{layout}; step_tail_en without the record {t_en_off:.6f} ms]")
+    if not sparse:
+        L = TEL_LANES
+        lbeta, largs = _lane_tail_state(torch, gen, p, m, torch.float32, L)
+        # no lane renormalizes (lane 0's scale above the threshold's reach), so
+        # the times are the steady step's, not a renorm's pass over beta
+        largs = (torch.full_like(largs[0], 0.9),) + largs[1:]
+        ids = torch.arange(L, dtype=torch.int32, device=dev)
+        (lring,) = _tel_rings(torch, dev, 1, L)
+        lrec = TailRecord(lring.buf, TEL_CAP, 0, 0, 1000, True, yty, [0] * L, lring.dev_cursor)
+        t_l = _time_queued(torch, lambda i: st.step_tail_lanes(mat, lbeta, *largs, ids, tcfg,
+                                                               tel=lrec), 200)
+        t_l_off = _time_queued(torch, lambda i: st.step_tail_lanes(mat, lbeta, *largs, ids, tcfg),
+                               200)
+        row("step_tail_lanes_tel", t_l,
+            _time_queued(torch, lambda i: st.step_tail_lanes_plain(
+                mat, lbeta, *largs, ids, tcfg, None, lrec._replace(cursors=[0] * L)), 1),
+            L * (4 * m * 4 + 64 + TEL_RECORD_BYTES), L * 5 * m,
+            note=f" [dense, {L} lanes; step_tail_lanes without the records {t_l_off:.6f} ms]")
+        len_ = ENTail(torch.randn(L, generator=gen, device=dev),
+                      torch.rand(L, generator=gen, device=dev) + 0.5, 1.0)
+        t_le = _time_queued(torch, lambda i: st.step_tail_en_lanes(mat, lbeta, *largs, ids, tcfg,
+                                                                   len_, tel=lrec), 200)
+        row("step_tail_en_lanes_tel", t_le,
+            _time_queued(torch, lambda i: st.step_tail_lanes_plain(
+                mat, lbeta, *largs, ids, tcfg, len_, lrec._replace(cursors=[0] * L)), 1),
+            L * (4 * m * 4 + 72 + TEL_RECORD_BYTES), L * 5 * m, note=f" [dense, {L} lanes]")
+        del lbeta, largs
+        # the replay at K = 8, with and without its records, in turns
+        rcfg = FWConfig(delta=50.0, max_iters=10**9)
+        rbeta = torch.randn(p, generator=gen, device=dev)
+        start = (torch.tensor(1.0, device=dev), torch.tensor(0.4, device=dev),
+                 torch.tensor(0.1, device=dev), torch.tensor(2, dtype=torch.int32, device=dev))
+        recs = (torch.randint(0, p, (FUSE,), generator=gen, device=dev),
+                torch.full((FUSE,), 0.01, device=dev), torch.full((FUSE,), -50.0, device=dev),
+                torch.zeros(FUSE, dtype=torch.bool, device=dev))
+        rrec = ReplayRecord(ring.buf, TEL_CAP, 0, 0, 1000)
+        r_tel, r_off = [], []
+        for _ in range(2):
+            r_off.append(_time_queued(torch, lambda i: fs.fused_replay(rbeta, *start, *recs, 0,
+                                                                       rcfg), 400))
+            r_tel.append(_time_queued(torch, lambda i: fs.fused_replay(rbeta, *start, *recs, 0,
+                                                                       rcfg, rrec), 400))
+        print(f"[timing] fused_replay K={FUSE} without / with the records, in turns: "
+              f"{[round(t, 6) for t in r_off]} / {[round(t, 6) for t in r_tel]} ms")
+        row("fused_replay_tel", min(r_tel),
+            _time_queued(torch, lambda i: fs.fused_replay_plain(rbeta, *start, *recs, 0, rcfg,
+                                                                rrec), 4),
+            FUSE * (8 + 4 + 4 + 1 + 2 * 4 + TEL_RECORD_BYTES) + 16, FUSE * 12,
+            note=f" [K={FUSE}, no renorm; bytes: the records, beta at the winners, "
+                 f"{TEL_RECORD_BYTES} bytes a ring record]")
+        del rbeta
+        # the dense unfused step, ring off and on, alternated
+        cfg = main_config(p, "kernels")
+        stats = engine.precompute_colstats(design, y, cfg)
+        delta = torch.tensor(50.0, device=dev)
+        on_cfg = dataclasses.replace(cfg, telemetry=TelemetrySpec(capacity=TEL_CAP))
+        walls = {"off": [], "on": []}
+        for tag, c in (("off", cfg), ("on", on_cfg)) * 3:
+            walls[tag].append(unfused_step_wall_ms(torch, design, y, stats, c, delta))
+        busy = {tag: _device_busy_ms(torch, design, y, stats, dataclasses.replace(
+            c, tol=0.0, patience=10**9), delta, 200) for tag, c in (("off", cfg), ("on", on_cfg))}
+        mean = {tag: sum(v) / len(v) for tag, v in walls.items()}
+        print(f"[timing] dense unfused step wall, ring off / on, alternated: {walls['off']} / "
+              f"{walls['on']} ms, means {mean['off']!r} / {mean['on']!r} (on/off "
+              f"{mean['on'] / mean['off']:.4f}); device busy off {busy['off']} / on {busy['on']} "
+              "ms a step")
+    print(f"[tel] phase 5 {layout} took {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

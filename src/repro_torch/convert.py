@@ -3,7 +3,7 @@ the port.
 
 The system has no weights: what a caller carries across is the problem,
 the config, a warm start or a mid-run state (a baseline's result among
-them), and the sampled index stream. Everything arrives as numpy arrays or plain dicts, so this module
+them), a telemetry ring, and the sampled index stream. Everything arrives as numpy arrays or plain dicts, so this module
 imports nothing of the reference.
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch.core.fw_lasso import LassoCo
 from repro_torch.core.fw_logistic import LogisticCo
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.core.vertex import LaneStreamSampler, StreamSampler
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
 # the reference's backend words and their counterparts in the port
@@ -149,3 +150,28 @@ def baseline_from_reference(arrays: dict, device="cuda") -> baselines.SolveResul
         else int(torch.count_nonzero(alpha)),
         converged=bool(np.asarray(arrays.get("converged", False))),
     )
+
+
+def telemetry_from_reference(arrays: dict, device="cuda") -> obs_telemetry.TelemetryRing:
+    """The port's ``TelemetryRing`` from a reference ring's numpy leaves,
+    keyed by its field names (``{k: np.asarray(v) for k, v in
+    ring._asdict().items()}``): 'cursor', 'flushed' and the record fields
+    of ``obs.telemetry.RECORD_FIELDS``. A leading lane axis (a batched
+    result's ring) gives a lane ring. The reference's float32 ``n_dots``
+    becomes int64 (its empty slots' NaN -1)."""
+    dev = resolve_device(device)
+    cursor = np.asarray(arrays["cursor"])
+    lanes = None if cursor.ndim == 0 else int(cursor.shape[0])
+    capacity = int(np.asarray(arrays["k"]).shape[-1])
+    ring = obs_telemetry.init_ring(obs_telemetry.TelemetrySpec(capacity=capacity), dev, lanes)
+    for name in obs_telemetry.RECORD_FIELDS:
+        value = np.asarray(arrays[name])
+        if name == "n_dots":
+            value = np.where(np.isnan(value), -1, value).astype(np.int64)
+        dst = ring.field(name)
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(dst.dtype))
+    if lanes is None:
+        return ring._replace(cursor=int(cursor), flushed=int(np.asarray(arrays["flushed"])))
+    return ring._replace(cursor=[int(c) for c in cursor],
+                         flushed=[int(f) for f in np.asarray(arrays["flushed"])],
+                         dev_cursor=torch.tensor(cursor.astype(np.int64), device=dev))

@@ -45,9 +45,29 @@ crossed a refresh step. The logistic oracle has no fused form: its chunks
 run as unfused steps, bit for bit.
 
 ``solve_with_history`` runs a fixed number of steps and records the
-objective after each (the reference builds it on the telemetry ring; the
-port records through ``run_loop``'s per-step hook, which chunks through K
-unfused steps, as the reference's ``record_objective`` routing does).
+objective after each, on the telemetry ring as the reference does: a ring
+of capacity ``n_iters`` with the objective on, whose chunks run as K
+unfused steps (the ``record_objective`` routing).
+
+Telemetry (``FWConfig.telemetry``, ``obs.telemetry``): the ring rides on
+``EngineState.tel`` and each step writes one record. The lasso's and the
+elastic-net's tail writes it inside its launch on the kernels' backends
+(the ``kernels/step_tail`` TEL instantiations; a refresh step's objective
+then amended by one plain write), the logistic's tail and the step rules
+write it with plain scalar writes, and a fused kernel chunk's replay
+writes its K records inside its launch (``record_objective=False``; with
+the objective on, a chunk runs as K unfused steps). The cursor is a host
+integer, so no record reads the device; a turn of the loop flushes the
+ring to its sink when it holds ``capacity`` unflushed records, and
+``_result`` flushes the rest. With telemetry off no ring exists and the
+loop launches what it launched before.
+
+Metrics (``obs.metrics``): ``solve``, ``solve_with_history`` and
+``solve_batched`` (and the path drivers' ``solve_prepared`` and
+``solve_batched_prepared``) are ``_MetricsEntry`` wrappers; with a
+registry installed each call waits for the card before it reads the
+clock and folds its totals, latency and gap into the registry, with none
+installed it is a pass-through.
 
 Batched lanes (``solve_batched``, ``batched_loop``): L delta lanes, each
 with its own warm start and sampling stream, share one loop with early
@@ -69,14 +89,14 @@ the stall count in the step's one host read, handing the count to the loop
 (``EngineState.stall_host``), the lazy rule its cache hit before the draw.
 The rules do not fuse (the per-step loop runs, with a warning) and have no
 lanes yet (``solve_batched`` refuses them: ROADMAP.md Queue 1 item 9a).
-
-Not ported yet, and refused by ``check_ported``: telemetry (item 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import vertex
@@ -84,6 +104,9 @@ from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step as _fused_step
 from repro_torch.kernels.colstats import colstats as _colstats_kernel
 from repro_torch.kernels.step_tail import apply_coeff_update  # noqa: F401 (step 5, re-exported)
+from repro_torch.kernels.step_tail import TailRecord
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -118,6 +141,9 @@ class EngineState(NamedTuple):
     # the stall count as the step's own host read gave it (a rule with a host
     # fact to read); None: ``run_loop`` reads ``stall`` itself
     stall_host: Optional[int] = None
+    # the telemetry ring (obs.telemetry.TelemetryRing; lanes: a lane ring);
+    # None when cfg.telemetry is None
+    tel: Any = None
 
 
 class SolveResult(NamedTuple):
@@ -132,6 +158,10 @@ class SolveResult(NamedTuple):
     # iterations advanced per dispatch: cfg.fuse_steps when the fused chunk
     # engaged (``vertex.fused_supported``), else 1
     effective_fuse_steps: int = 1
+    # the final telemetry ring when cfg.telemetry is set (None otherwise);
+    # lanes: a lane ring (``ring.lane(l)``); read with
+    # obs.telemetry.ring_to_records
+    telemetry: Optional[Any] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -146,10 +176,12 @@ def resolve_device(device) -> torch.device:
 
 
 def check_ported(cfg: FWConfig) -> None:
-    """Refuse the reference's options that this port does not run yet."""
-    if cfg.telemetry is not None:
-        raise NotImplementedError(
-            "telemetry is not ported yet: ROADMAP.md Queue 1 item 11"
+    """Refuse a config the port cannot run: a ``telemetry`` that is not an
+    ``obs.TelemetrySpec``."""
+    if cfg.telemetry is not None and not isinstance(cfg.telemetry, obs_telemetry.TelemetrySpec):
+        raise TypeError(
+            f"FWConfig.telemetry takes a repro_torch.obs.TelemetrySpec, got "
+            f"{type(cfg.telemetry).__name__}"
         )
 
 
@@ -244,6 +276,9 @@ def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
         from repro_torch.core import step_rule
 
         rule = step_rule.get_rule(cfg).init_state(oracle, cfg, beta, co, y)
+    tel = None
+    if cfg is not None and cfg.telemetry is not None:
+        tel = obs_telemetry.init_ring(cfg.telemetry, dev)
     return EngineState(
         beta=beta,
         scale=torch.ones((), dtype=dtype, device=dev),
@@ -255,7 +290,20 @@ def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
         k=0,
         i_star=torch.full((), -1, dtype=torch.int64, device=dev),
         rule=rule,
+        tel=tel,
     )
+
+
+def tail_record(state: EngineState, stats, n_dots: int, cfg: FWConfig) -> Optional[TailRecord]:
+    """The ring record the step's tail writes (None with telemetry off): at
+    the cursor's slot, the step's k and the dot count ``n_dots`` after it,
+    with the objective (and y.y) as the spec asks."""
+    tel = state.tel
+    if tel is None:
+        return None
+    objective = cfg.telemetry.record_objective
+    return TailRecord(tel.buf, tel.capacity, tel.cursor % tel.capacity, state.k, n_dots,
+                      objective, stats.yty if objective and stats is not None else None)
 
 
 def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler) -> EngineState:
@@ -269,9 +317,12 @@ def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler
     i_star, g_raw, g_sel, n_scored = vertex.sample_vertex(Xt, w, sampler, p, cfg, extra_fn)
 
     # -- steps 3-6: eq. 6's sign, the line search, the coefficient update
-    # (``apply_coeff_update``) and the co-state recursions ----------------
+    # (``apply_coeff_update``) and the co-state recursions, and the ring's
+    # record ------------------------------------------------------------------
+    n_dots = state.n_dots + n_scored + oracle.extra_dots
+    rec = tail_record(state, stats, n_dots, cfg)
     beta, scale, maxabs, step_inf, stall, co = oracle.tail(
-        Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg)
+        Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=rec)
     return EngineState(
         beta=beta,
         scale=scale,
@@ -279,10 +330,11 @@ def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler
         maxabs=maxabs,
         step_inf=step_inf,
         stall=stall,
-        n_dots=state.n_dots + n_scored + oracle.extra_dots,
+        n_dots=n_dots,
         k=state.k + 1,
         i_star=i_star,
         rule=state.rule,
+        tel=None if rec is None else obs_telemetry.advance(state.tel),
     )
 
 
@@ -356,15 +408,23 @@ def q_exact(beta: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.dot(beta, beta) * scale**2
 
 
-def _fused_replay(state: EngineState, cfg: FWConfig, i_stars, lams, delta_ts, no_progs):
+def _fused_replay(state: EngineState, cfg: FWConfig, i_stars, lams, delta_ts, no_progs,
+                  per_step: int):
     """Replay the chunk's per-step records into the O(p) coefficient updates
     and the stopping statistics, with ``apply_coeff_update``'s op sequence
     (``kernels/fused_step.fused_replay``: one launch per chunk on the card,
-    that loop itself on the CPU). Steps at k >= max_iters are skipped.
-    Returns ``(beta, scale, maxabs, step_inf, stall)``."""
+    that loop itself on the CPU), and with telemetry on write each live
+    step's ring record in the same launch (``per_step`` dots a step). Steps
+    at k >= max_iters are skipped. Returns ``(beta, scale, maxabs,
+    step_inf, stall)``."""
+    tel = state.tel
+    rec = None
+    if tel is not None:
+        rec = _fused_step.ReplayRecord(tel.buf, tel.capacity, tel.cursor % tel.capacity,
+                                       state.n_dots, per_step)
     return _fused_step.fused_replay(
         state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
-        i_stars, lams, delta_ts, no_progs, state.k, cfg,
+        i_stars, lams, delta_ts, no_progs, state.k, cfg, rec,
     )
 
 
@@ -379,8 +439,9 @@ def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig,
     i_stars, lams, delta_ts, no_progs, resid_out, scal_out = vertex.run_fused_kernel(
         oracle, Xt, y, resid0, scal0, idx, zty_s, zn2_s, alpha_s, state.k, delta, cfg
     )
+    per_step = cfg.kappa + oracle.extra_dots
     beta, scale, maxabs, step_inf, stall = _fused_replay(
-        state, cfg, i_stars, lams, delta_ts, no_progs
+        state, cfg, i_stars, lams, delta_ts, no_progs, per_step
     )
     n_active = min(cfg.fuse_steps, cfg.max_iters - state.k)
     co = oracle.fused_unpack_co(resid_out, scal_out)
@@ -397,9 +458,10 @@ def _fused_kernel_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig,
         maxabs=maxabs,
         step_inf=step_inf,
         stall=stall,
-        n_dots=state.n_dots + n_active * (cfg.kappa + oracle.extra_dots),
+        n_dots=state.n_dots + n_active * per_step,
         k=state.k + n_active,
         i_star=i_stars[:n_active],
+        tel=None if state.tel is None else obs_telemetry.advance(state.tel, n_active),
     )
 
 
@@ -422,9 +484,12 @@ def fused_chunk(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta,
                 sampler) -> EngineState:
     """Advance K = cfg.fuse_steps iterations in one turn of the loop (the
     fused kernel where ``vertex.use_fused_kernel``, K unfused steps
-    otherwise: a bf16 design, or a state past the fused kernels' shared
-    memory)."""
-    if vertex.use_fused_kernel(cfg, Xt, oracle):
+    otherwise: a bf16 design, a state past the fused kernels' shared
+    memory, or telemetry that records each step's objective, which the
+    fused kernel does not compute; those steps are the fused solve's, bit
+    for bit)."""
+    per_step_objective = cfg.telemetry is not None and cfg.telemetry.record_objective
+    if vertex.use_fused_kernel(cfg, Xt, oracle) and not per_step_objective:
         return _fused_kernel_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
     return _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
 
@@ -445,8 +510,14 @@ def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_ste
     the steps of the unfused solve bit for bit, the stops still on chunk
     boundaries), as the reference routes a chunk whose every step is
     recorded (``record_objective``).
+
+    With a telemetry sink (``TelemetrySpec(stream_to=...)``) a turn ends
+    with ``stream_flush``, which copies the ring to the host only when it
+    holds ``capacity`` unflushed records.
     """
     fused = vertex.fused_supported(oracle, cfg)
+    spec = cfg.telemetry
+    stream = spec is not None and spec.stream_to is not None
     state = state0
     # `stall` is read on the host: the one device sync per step, or per
     # chunk on the fused path (a copy, and no comparison kernel)
@@ -459,6 +530,8 @@ def run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_ste
             state = fused_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler)
         else:
             state = _fused_ref_chunk(oracle, Xt, y, stats, state, cfg, delta, sampler, per_step)
+        if stream:
+            state = state._replace(tel=obs_telemetry.stream_flush(state.tel, spec, final=False))
         if on_step is not None:
             on_step(state)
     return state
@@ -469,6 +542,10 @@ def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta)
     gap = None
     if cfg.report_gap:
         gap = certified_gap(oracle, Xt, y, final.co, final.beta, final.scale, delta, cfg)
+    tel = final.tel
+    if tel is not None:
+        # drain whatever the loop's flushes have not shipped
+        tel = obs_telemetry.stream_flush(tel, cfg.telemetry, final=True)
     return SolveResult(
         alpha=alpha,
         objective=oracle.objective(y, stats, final.co, cfg),
@@ -478,11 +555,12 @@ def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta)
         converged=final.stall >= patience,
         gap=gap,
         effective_fuse_steps=cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1,
+        telemetry=tel,
     )
 
 
-def solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None,
-                   on_step=None, per_step=None) -> SolveResult:
+def _solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None,
+                    on_step=None, per_step=None) -> SolveResult:
     """``solve`` on operands that ``prepare_inputs`` already placed and
     checked (the path driver checks once, not per grid point);
     ``per_step`` as ``run_loop``'s."""
@@ -496,8 +574,8 @@ def solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=Non
     return _result(oracle, Xt, y, stats, final, patience, cfg, delta)
 
 
-def solve(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
-          device="cuda", on_step=None, per_step=None) -> SolveResult:
+def _solve(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
+           device="cuda", on_step=None, per_step=None) -> SolveResult:
     """Run the oracle's Algorithm-2 analogue until
     ||alpha_{k+1}-alpha_k||_inf <= tol for ``patience`` consecutive
     iterations, or max_iters. ``sampler`` draws each step's sampling set
@@ -505,7 +583,7 @@ def solve(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
     ``delta`` overrides cfg.delta; ``on_step`` and ``per_step`` as
     ``run_loop``'s. Runs on the card unless ``device`` says otherwise."""
     Xt, y = prepare_inputs(Xt, y, cfg, device)
-    return solve_prepared(oracle, Xt, y, cfg, sampler, alpha0, delta, on_step, per_step)
+    return _solve_prepared(oracle, Xt, y, cfg, sampler, alpha0, delta, on_step, per_step)
 
 
 # --------------------------------------------------------------------------
@@ -520,29 +598,31 @@ def history_patience(n_iters: int) -> int:
     return int(n_iters) + 1
 
 
-def solve_with_history(oracle, Xt, y, cfg: FWConfig, sampler, n_iters: int, alpha0=None, *,
-                       device="cuda"):
+def _solve_with_history(oracle, Xt, y, cfg: FWConfig, sampler, n_iters: int, alpha0=None, *,
+                        device="cuda"):
     """Run exactly ``n_iters`` steps at ``cfg.delta``, recording f(alpha^k)
     after each (convergence plots). Returns ``(SolveResult,
     objective_history)``, the history an ``(n_iters,)`` tensor on the
-    device: each value stays a 0-d device tensor until one ``stack`` at the
-    end, so the steps keep their one host read each. With ``fuse_steps = K
-    > 1`` the chunks run as K unfused steps (``run_loop``'s ``per_step``),
-    the unfused solve's steps bit for bit. ``converged`` is read against
-    the config's own patience, as the reference's is."""
-    hcfg = dataclasses.replace(cfg, max_iters=int(n_iters))
+    device in the design's dtype. Built on the telemetry ring, as the
+    reference's: the run is ``run_loop`` with a ring of capacity
+    ``n_iters`` and the objective on (``obs.telemetry.history_spec``; a
+    spec in ``cfg.telemetry`` keeps its sink), so slot t is iteration t,
+    and the history is the ring's objective column; each record is written
+    on the device, so the steps keep their one host read each. With
+    ``fuse_steps = K > 1`` the chunks run as K unfused steps (the
+    ``record_objective`` routing), the unfused solve's steps bit for bit.
+    ``converged`` is read against the config's own patience, as the
+    reference's is; the result carries the ring."""
+    hcfg = dataclasses.replace(cfg, max_iters=int(n_iters),
+                               telemetry=obs_telemetry.history_spec(cfg.telemetry, n_iters))
     Xt, y = prepare_inputs(Xt, y, hcfg, device)
     delta = torch.tensor(float(cfg.delta), dtype=torch.float32, device=Xt.device)
     stats = precompute_colstats(Xt, y, hcfg) if oracle.needs_stats else None
     state0 = init_state(oracle, Xt, y, alpha0, hcfg)
-    hist = []
     final = run_loop(oracle, Xt, y, stats, state0, hcfg, delta, history_patience(n_iters),
-                     sampler, per_step=lambda s: hist.append(oracle.objective(y, stats, s.co,
-                                                                              hcfg)))
+                     sampler)
     res = _result(oracle, Xt, y, stats, final, _patience(cfg), hcfg, delta)
-    if not hist:
-        return res, torch.zeros(0, dtype=Xt.dtype, device=Xt.device)
-    return res, torch.stack(hist)
+    return res, res.telemetry.objective[:int(n_iters)].to(Xt.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -583,6 +663,13 @@ def stack_states(states) -> EngineState:
         return torch.stack(list(ts))
 
     co = type(states[0].co)(*(stack(f) for f in zip(*(s.co for s in states))))
+    tel = None
+    if states[0].tel is not None:
+        rings = [s.tel for s in states]
+        tel = obs_telemetry.TelemetryRing(
+            [r.cursor for r in rings], [r.flushed for r in rings], stack(r.buf for r in rings),
+            torch.tensor([r.cursor for r in rings], dtype=torch.int64,
+                         device=rings[0].buf.device))
     return EngineState(
         beta=stack(s.beta for s in states),
         scale=stack(s.scale for s in states),
@@ -593,6 +680,7 @@ def stack_states(states) -> EngineState:
         n_dots=[s.n_dots for s in states],
         k=[s.k for s in states],
         i_star=stack(s.i_star for s in states),
+        tel=tel,
     )
 
 
@@ -603,14 +691,23 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
     one scores launch, one argmax launch and one tail launch for all the
     lanes on the kernels' backends. Lanes not active keep their state bit
     for bit (the tail copies it; ``k`` and ``n_dots`` stay), and their
-    ``i_star`` is -1."""
+    ``i_star`` is -1. With telemetry on each active lane records its step
+    in the same tail launch (its slot from its cursor on the device; a
+    frozen lane records nothing)."""
     p = state.beta.shape[1]
     w = oracle.cograd(state.co, y)
     extra = oracle.score_extra(state.beta, state.scale)  # lane-stacked
     i_star, g_raw, g_sel, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active,
                                                                 lanes, extra)
+    tel, rec = state.tel, None
+    if tel is not None:
+        objective = cfg.telemetry.record_objective
+        rec = TailRecord(tel.buf, tel.capacity, 0, 0, n_scored + oracle.extra_dots, objective,
+                         stats.yty if objective and stats is not None else None,
+                         tel.cursor, tel.dev_cursor)
+        tel = obs_telemetry.advance(tel, lanes=active)
     beta, scale, maxabs, step_inf, stall, co = oracle.tail_lanes(
-        Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes)
+        Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes, tel=rec)
     return EngineState(
         beta=beta,
         scale=scale,
@@ -622,6 +719,7 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
                 for n, a in zip(state.n_dots, active)],
         k=[k + 1 if a else k for k, a in zip(state.k, active)],
         i_star=i_star,
+        tel=tel,
     )
 
 
@@ -681,11 +779,13 @@ def batched_result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg:
         converged=final.stall >= patience,
         gap=gap,
         effective_fuse_steps=cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1,
+        # the lane ring (a leading lane axis on its storage), kept on the device
+        telemetry=final.tel,
     )
 
 
-def solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas,
-                           on_step=None):
+def _solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas,
+                            on_step=None):
     """``solve_batched`` on operands that ``prepare_inputs`` already placed
     and checked; ``on_step`` as ``batched_loop``'s."""
     if cfg.step_rule != "classic":
@@ -709,8 +809,8 @@ def solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, delta
     return batched_result(oracle, Xt, y, stats, final, patience, cfg, deltas), saved
 
 
-def solve_batched(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas, *, device="cuda",
-                  on_step=None):
+def _solve_batched(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas, *, device="cuda",
+                   on_step=None):
     """Solve a batch of lanes (one delta, warm start and sampling stream
     each) in one loop with early exit per lane (the reference's
     ``solve_batched``). ``sampler`` is a lane sampler
@@ -724,4 +824,131 @@ def solve_batched(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas, *, dev
     Xt, y = prepare_inputs(Xt, y, cfg, device)
     if alpha0s is not None:
         alpha0s = torch.as_tensor(alpha0s, device=Xt.device)
-    return solve_batched_prepared(oracle, Xt, y, cfg, sampler, alpha0s, deltas, on_step)
+    return _solve_batched_prepared(oracle, Xt, y, cfg, sampler, alpha0s, deltas, on_step)
+
+
+# --------------------------------------------------------------------------
+# The metrics plane's host shims (the reference's core/engine.py:813-927)
+# --------------------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    """A result field on the host, as a flat float64 array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float64).reshape(-1)
+
+
+def _observe_solve(reg, entry: str, cfg: FWConfig, res: SolveResult, elapsed_s: float) -> None:
+    """Fold one finished entry-point call into the metrics registry, on the
+    host after the call's device work is done. Batched results count each
+    lane in the totals; latency is per call (what the path driver
+    amortizes). The reference's families, help strings and labels."""
+    labels = dict(entry=entry, backend=cfg.backend, step_rule=cfg.step_rule)
+    names = ("entry", "backend", "step_rule")
+    iters = _host(res.iterations)
+    lanes = iters.size
+    reg.counter(
+        "fw_solves",
+        "solver entry-point completions (batched lanes count individually)",
+        names,
+    ).inc(lanes, **labels)
+    reg.counter(
+        "fw_iterations", "FW iterations consumed across all solves", names
+    ).inc(float(iters.sum()), **labels)
+    reg.counter(
+        "fw_n_dots", "length-m dot products consumed (paper's cost unit)",
+        names,
+    ).inc(float(_host(res.n_dots).sum()), **labels)
+    n_conv = int(_host(res.converged).sum())
+    outcomes = reg.counter(
+        "fw_lane_outcomes",
+        "lane stop reason: §Stopping rule ('converged') vs max_iters",
+        names + ("outcome",),
+    )
+    if n_conv:
+        outcomes.inc(n_conv, outcome="converged", **labels)
+    if lanes - n_conv:
+        outcomes.inc(lanes - n_conv, outcome="max_iters", **labels)
+    reg.histogram(
+        "fw_solve_latency_seconds",
+        "wall time per entry-point dispatch, host-observed to completion",
+        names,
+    ).observe(elapsed_s, **labels)
+    eff = int(res.effective_fuse_steps)
+    if cfg.fuse_steps > 1 and eff == 1:
+        reg.counter(
+            "fw_fused_fallback",
+            "dispatches where fuse_steps>1 fell back to per-step loops "
+            "(non-fusable oracle/sampling/rule)",
+            names,
+        ).inc(lanes, **labels)
+    elif eff > 1:
+        reg.counter(
+            "fw_fused_chunks",
+            "K-step fused chunks dispatched (lane-iterations / "
+            "effective_fuse_steps)",
+            names,
+        ).inc(float(np.ceil(iters / eff).sum()), **labels)
+    if res.gap is not None:
+        gaps = _host(res.gap)
+        gaps = np.abs(gaps[np.isfinite(gaps)])
+        if gaps.size:
+            hist = reg.histogram(
+                "fw_certified_gap",
+                "certified FW duality gap at the returned iterate "
+                "(cfg.report_gap)",
+                names,
+                buckets=obs_metrics.GAP_BUCKETS,
+            )
+            for g in gaps:
+                hist.observe(float(g), **labels)
+
+
+def _sync() -> None:
+    """Wait for the card's queued work (nothing to wait for without one)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class _MetricsEntry:
+    """Host shim over a solver entry point.
+
+    With no registry installed (the default) this is a straight
+    pass-through: the call's launches and host reads are untouched, which
+    keeps the metrics-off contract as strong as the telemetry-off one.
+    With a registry installed it times the call to completion (the card is
+    synchronized before the clock is read on either side, since a call
+    returns with its last launches queued) and folds totals, latency and
+    gap into the registry."""
+
+    def __init__(self, fn, entry: str):
+        self._fn = fn
+        self._entry = entry
+        self.__name__ = fn.__name__.lstrip("_")
+        self.__doc__ = fn.__doc__
+        self.__wrapped__ = fn
+
+    def __call__(self, oracle, Xt, y, cfg, *args, **kwargs):
+        reg = obs_metrics.get_registry()
+        if reg is None:
+            return self._fn(oracle, Xt, y, cfg, *args, **kwargs)
+        _sync()
+        t0 = time.perf_counter()
+        out = self._fn(oracle, Xt, y, cfg, *args, **kwargs)
+        # solve returns a bare SolveResult; the history and batched entries
+        # return (SolveResult, extra), and SolveResult is itself a tuple
+        res = out if isinstance(out, SolveResult) else out[0]
+        _sync()
+        _observe_solve(reg, self._entry, cfg, res, time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+solve = _MetricsEntry(_solve, "solve")
+solve_prepared = _MetricsEntry(_solve_prepared, "solve")
+solve_with_history = _MetricsEntry(_solve_with_history, "solve_with_history")
+solve_batched = _MetricsEntry(_solve_batched, "solve_batched")
+solve_batched_prepared = _MetricsEntry(_solve_batched_prepared, "solve_batched")

@@ -30,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import engine, vertex
-from repro_torch.core.fw_lasso import refresh_lanes, refresh_step, sf_refresh
+from repro_torch.core.fw_lasso import (amend_refreshed, amend_refreshed_lanes, refresh_lanes,
+                                       refresh_step, sf_refresh)
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import (  # noqa: F401 (the EN algebra, re-exported)
     DirEN,
@@ -94,24 +95,28 @@ class ENOracle:
         scale lane-stacked for the batched lanes)."""
         return vertex.ScoreShift(beta, scale, self.l2)
 
-    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg):
+    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=None):
         """Steps 3-6 after the vertex: eq. 6's sign from the shifted score,
         the elastic-net's closed-form line search (``num`` is its sampled
         duality gap, the gap_rtol stall), the coefficient update, eq. 10 and
         the S/F/Q recursions (``vertex.step_tail`` with ``en``: one launch on
         the kernels' backends), then the periodic exact S/F and Q refresh.
-        Returns ``(beta, scale, maxabs, step_inf, stall, co)``."""
+        ``tel`` as the lasso's. Returns ``(beta, scale, maxabs, step_inf,
+        stall, co)``."""
         co = state.co
         beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, q_norm = vertex.step_tail(
             Xt, y, stats, state.beta, state.scale, state.maxabs, state.stall, co.resid,
             co.s_quad, co.f_lin, i_star, g_raw, delta, cfg,
-            en=ENTail(g_sel, co.q_norm, self.l2),
+            en=ENTail(g_sel, co.q_norm, self.l2), tel=tel,
         )
         s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, state.k, cfg)
         q_norm = q_refresh(q_norm, beta, scale, state.k, cfg)
-        return beta, scale, maxabs, step_inf, stall, ENCo(resid, s_quad, f_lin, q_norm)
+        co = ENCo(resid, s_quad, f_lin, q_norm)
+        amend_refreshed(self, tel, y, stats, co, state.k, cfg)
+        return beta, scale, maxabs, step_inf, stall, co
 
-    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes):
+    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes,
+                   tel=None):
         """``tail`` for the batched engine's lanes: ``vertex.step_tail_lanes``
         with ``en`` (one launch on the kernels' backends), then each active
         lane's periodic exact S/F and Q refresh at its own k."""
@@ -120,11 +125,14 @@ class ENOracle:
          q_norm) = vertex.step_tail_lanes(
             Xt, y, stats, state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
             co.resid, co.s_quad, co.f_lin, i_star, g_raw, deltas, cfg, lanes,
-            en=ENTail(g_sel, co.q_norm, self.l2),
+            en=ENTail(g_sel, co.q_norm, self.l2), tel=tel,
         )
-        for lane in refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg):
+        done = refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg)
+        for lane in done:
             q_norm[lane] = engine.q_exact(beta[lane], scale[lane]).to(q_norm.dtype)
-        return beta, scale, maxabs, step_inf, stall, ENCo(resid, s_quad, f_lin, q_norm)
+        co = ENCo(resid, s_quad, f_lin, q_norm)
+        amend_refreshed_lanes(self, tel, y, stats, co, done)
+        return beta, scale, maxabs, step_inf, stall, co
 
     # ---- the step rules' protocol (core/step_rule) -------------------------
     # The lasso's (``fw_lasso``) with the l2 terms: <grad, alpha> gains

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import engine, vertex
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import ls_closed_form, sf_recursion
+from repro_torch.obs.telemetry import write_record
 
 
 class LassoCo(NamedTuple):
@@ -51,6 +52,26 @@ def sf_refresh(s_quad, f_lin, resid, y, k: int, cfg):
         s_quad = vertex.mdot(v, v, cfg)
         f_lin = vertex.mdot(v, y, cfg)
     return s_quad, f_lin
+
+
+def amend_refreshed(oracle, tel, y, stats, co, k: int, cfg) -> None:
+    """A refresh step's ring record, written by the tail before the refresh,
+    gets the objective of the refreshed co-state (the reference records it
+    after ``update_co``, refresh included): one plain write, on refresh
+    steps with the objective on only."""
+    if tel is not None and tel.objective and refresh_step(k, cfg):
+        write_record(tel.buf, tel.capacity, tel.slot, objective=oracle.objective(y, stats, co))
+
+
+def amend_refreshed_lanes(oracle, tel, y, stats, co, lanes_done) -> None:
+    """``amend_refreshed`` for the lanes refreshed in a batched step (each
+    record at its lane's host cursor before the step)."""
+    if tel is None or not tel.objective or not lanes_done:
+        return
+    objective = oracle.objective(y, stats, co)
+    for lane in lanes_done:
+        write_record(tel.buf[lane], tel.capacity, tel.cursors[lane] % tel.capacity,
+                     objective=objective[lane])
 
 
 def refresh_lanes(s_quad, f_lin, resid, y, ks, active, cfg):
@@ -96,35 +117,43 @@ class LassoOracle:
     def score_extra(self, beta, scale):
         return None
 
-    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg):
+    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=None):
         """Steps 3-6 after the vertex: eq. 6's sign, the closed-form line
         search (eq. 8), the coefficient update, eq. 10 and the S/F
         recursions (``vertex.step_tail``: one launch on the kernels'
         backends), then the periodic exact S/F refresh. The lasso's scores
-        have no extra term, so ``g_raw`` is ``g_sel``. Returns ``(beta,
-        scale, maxabs, step_inf, stall, co)``, the scalars in the state's
-        dtype."""
+        have no extra term, so ``g_raw`` is ``g_sel``. ``tel`` (a
+        ``kernels.step_tail.TailRecord``) writes the step's ring record in
+        the same launch, its objective amended on a refresh step. Returns
+        ``(beta, scale, maxabs, step_inf, stall, co)``, the scalars in the
+        state's dtype."""
         co = state.co
         beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin = vertex.step_tail(
             Xt, y, stats, state.beta, state.scale, state.maxabs, state.stall, co.resid,
-            co.s_quad, co.f_lin, i_star, g_sel, delta, cfg,
+            co.s_quad, co.f_lin, i_star, g_sel, delta, cfg, tel=tel,
         )
         s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, state.k, cfg)
-        return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
+        co = LassoCo(resid, s_quad, f_lin)
+        amend_refreshed(self, tel, y, stats, co, state.k, cfg)
+        return beta, scale, maxabs, step_inf, stall, co
 
-    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes):
+    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes,
+                   tel=None):
         """``tail`` for the batched engine's lanes (a lane-stacked ``state``;
         ``active`` the host's list of the lanes that step, ``lanes`` their
         int32 device ids): ``vertex.step_tail_lanes`` (one launch on the
-        kernels' backends), then each active lane's periodic exact S/F
+        kernels' backends; with ``tel``, a lane ``TailRecord``, each stepping
+        lane's ring record in it), then each active lane's periodic exact S/F
         refresh at its own k (``refresh_lanes``)."""
         co = state.co
         beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin = vertex.step_tail_lanes(
             Xt, y, stats, state.beta, state.scale, state.maxabs, state.step_inf, state.stall,
-            co.resid, co.s_quad, co.f_lin, i_star, g_sel, deltas, cfg, lanes,
+            co.resid, co.s_quad, co.f_lin, i_star, g_sel, deltas, cfg, lanes, tel=tel,
         )
-        refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg)
-        return beta, scale, maxabs, step_inf, stall, LassoCo(resid, s_quad, f_lin)
+        done = refresh_lanes(s_quad, f_lin, resid, y, state.k, active, cfg)
+        co = LassoCo(resid, s_quad, f_lin)
+        amend_refreshed_lanes(self, tel, y, stats, co, done)
+        return beta, scale, maxabs, step_inf, stall, co
 
     # ---- the step rules' protocol (core/step_rule) -------------------------
     # The away and pairwise rules move along d = t*alpha + df*e_f + da*e_a;

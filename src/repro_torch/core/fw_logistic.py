@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import engine, vertex
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import apply_coeff_update
+from repro_torch.obs.telemetry import EVENT_FW, write_record
 
 LogisticResult = engine.SolveResult
 
@@ -147,25 +148,36 @@ class LogisticOracle:
         no_progress = a_grad + dg <= cfg.gap_rtol * (torch.abs(a_grad) + dg)
         return lam, no_progress
 
-    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg):
+    def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=None):
         """Steps 3-6 after the vertex: eq. 6's sign, the bisection line
         search along m(l) = m + l (dt z_i* - m), the coefficient update and
-        the margin update; ``tail_lanes``'s code for one lane. Returns
-        ``(beta, scale, maxabs, step_inf, stall, co)``."""
-        beta, scale, maxabs, step_inf, stall, margin = self._tail_stacked(
+        the margin update; ``tail_lanes``'s code for one lane. ``tel`` (a
+        ``kernels.step_tail.TailRecord``) adds the step's ring record, the
+        plain record (with the objective, one O(m) dot for the gap's <grad,
+        alpha> before the step and the loss after it). Returns ``(beta,
+        scale, maxabs, step_inf, stall, co)``."""
+        ga = self._record_ga(tel, y, stats, state.co, cfg)
+        beta, scale, maxabs, step_inf, stall, margin, lam, step_inf32 = self._tail_stacked(
             Xt, y, [state.beta], [state.scale], [state.maxabs], [state.stall],
             state.co.margin[None], i_star.view(1), g_sel.view(1), delta.view(1), cfg)
-        return (beta[0], scale[0], maxabs[0], step_inf[0], stall[0],
-                LogisticCo(margin.view(-1)))
+        co = LogisticCo(margin.view(-1))
+        if tel is not None:
+            self._record(tel, y, stats, co, ga, i_star, g_sel, delta, lam[0], step_inf32[0],
+                         stall[0])
+        return beta[0], scale[0], maxabs[0], step_inf[0], stall[0], co
 
-    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes):
+    def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes,
+                   tel=None):
         """``tail`` for the batched engine's lanes: the bisection stacked over
-        the active lanes; a frozen lane keeps its state."""
+        the active lanes; a frozen lane keeps its state and records nothing
+        (``tel``, a lane ``TailRecord``: each stepping lane's plain record,
+        its device cursor advanced)."""
         run = [lane for lane, a in enumerate(active) if a]
         scale, maxabs, step_inf, stall = (t.clone() for t in (
             state.scale, state.maxabs, state.step_inf, state.stall))
         margin = state.co.margin.clone()
         if run:
+            gas = [self._record_ga(tel, y, stats, LogisticCo(margin[lane]), cfg) for lane in run]
             ids = lanes.long()  # the running lanes' ids, ``run`` on the device
             got = self._tail_stacked(
                 Xt, y, [state.beta[lane] for lane in run], [state.scale[lane] for lane in run],
@@ -176,15 +188,41 @@ class LogisticOracle:
                 scale[lane], maxabs[lane], step_inf[lane], stall[lane] = (
                     t[n] for t in got[1:5])
             margin.index_copy_(0, ids, got[5])
+            if tel is not None:
+                for n, lane in enumerate(run):
+                    self._record(tel.lane(lane), y, stats, LogisticCo(margin[lane]), gas[n],
+                                 i_star[lane], g_sel[lane], deltas[lane], got[6][n], got[7][n],
+                                 stall[lane])
+                    tel.dev_cursor[lane] += 1
         return state.beta, scale, maxabs, step_inf, stall, LogisticCo(margin)
+
+    def _record_ga(self, tel, y, stats, co, cfg):
+        """<grad, alpha> before the step, for the record's gap (None: not
+        recorded)."""
+        if tel is None or not tel.objective:
+            return None
+        return self.grad_dot_alpha(co, stats, y, None, None, cfg)
+
+    def _record(self, tel, y, stats, co, ga, i_star, g_sel, delta, lam, step_inf, stall):
+        """The step's plain ring record: the classic record's gap ``<grad,
+        alpha> - delta_t g_sel`` and the loss after the step when the
+        objective is on, NaN else."""
+        gap = objective = float("nan")
+        if tel.objective:
+            delta_t = -delta * torch.sign(g_sel.float())
+            gap = ga.float() - delta_t * g_sel.float()
+            objective = self.objective(y, stats, co)
+        write_record(tel.buf, tel.capacity, tel.slot, k=tel.k, i_star=i_star, event=EVENT_FW,
+                     stall=stall, lam=lam, gap=gap, objective=objective, step_inf=step_inf,
+                     n_dots=tel.n_dots)
 
     def _tail_stacked(self, Xt, y, betas, scales, maxabss, stalls, margin, i_star, g_sel, delta,
                       cfg):
         """The tail of A steps at once: ``margin (A, m)``, the winners, their
         scores and deltas ``(A,)``, and each step's ``beta`` (updated in
         place) and scalars as lists. Returns ``(betas, scales, maxabss,
-        step_infs, stalls, margin (A, m))``, the scalars in the state's
-        dtype."""
+        step_infs, stalls, margin (A, m), lam (A,), step_infs in f32)``, the
+        scalars in the state's dtype but the last two."""
         dtype = margin.dtype
         delta_t = -delta * torch.sign(g_sel.float())  # eq. 6
         dm = delta_t[:, None] * vertex.columns_dense(Xt, i_star) - margin
@@ -200,7 +238,7 @@ class LogisticOracle:
         beta, scale, maxabs, step_inf, stall = outs
         margin = (margin + lam[:, None] * dm).to(dtype)
         return (beta, [t.to(dtype) for t in scale], [t.to(dtype) for t in maxabs],
-                [t.to(dtype) for t in step_inf], stall, margin)
+                [t.to(dtype) for t in step_inf], stall, margin, lam, step_inf)
 
     # ---- the step rules' protocol (core/step_rule) -------------------------
     # Along d = t*alpha + df*e_f + da*e_a the margin moves on the ray m + g u,

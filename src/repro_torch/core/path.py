@@ -22,6 +22,17 @@ with early exit per lane), every lane warm-started from the previous
 chunk's densest solution. The reference's ``batched_solver_cache_size``
 and ``clear_batched_solver_cache`` count JAX compiles of the lane solver;
 the port compiles nothing per call, so it has no counterpart of them.
+
+Both FW drivers are observed as the reference's are
+(``src/repro/core/path.py:105-130, 172-200, 295-360``): a ``fw_path`` /
+``fw_path_batched`` span on the active tracer around the run, a span a
+grid point or lane chunk that closes after the point's results are read
+back from the card, an EWMA ``StepMonitor`` flagging a straggler point
+(an instant event) or a ``LaneProgressMonitor`` keeping the lanes'
+story, and with a metrics registry installed the point and chunk latency
+histograms, the lane counters, each solve's families (the engine's
+``_MetricsEntry``) and at the end the tracer's spans and counters
+(``tracer_to_registry``).
 """
 from __future__ import annotations
 
@@ -35,6 +46,9 @@ import torch
 from repro_torch.core import baselines, engine, fw_lasso
 from repro_torch.core.solver_config import CDConfig, FISTAConfig, FWConfig
 from repro_torch.core.vertex import LaneSampler, TorchSampler
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import monitor as obs_monitor
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -82,6 +96,26 @@ def delta_grid(delta_max: float, n_points: int = 100, ratio: float = 100.0) -> n
     return np.geomspace(delta_max / ratio, delta_max, n_points)
 
 
+def _observe_point(reg, driver: str, cfg: FWConfig, seconds: float) -> None:
+    """Per-grid-point latency into the metrics plane (no-op when the
+    registry is None, the metrics-off default)."""
+    if reg is None:
+        return
+    reg.histogram(
+        "fw_path_point_seconds",
+        "wall time per regularization-path grid point (batched lanes "
+        "amortize their chunk dispatch)",
+        ("driver", "backend"),
+    ).observe(seconds, driver=driver, backend=cfg.backend)
+
+
+def _finish_path(reg, tracer) -> None:
+    """End-of-path bridge: fold the tracer's spans and counters gathered
+    during this path into the registry."""
+    if reg is not None:
+        obs_metrics.tracer_to_registry(tracer, reg)
+
+
 def point_seed(seed: int, point_index: int) -> int:
     """The default sampler seed of one grid point."""
     return int(np.random.SeedSequence([seed, point_index]).generate_state(1)[0])
@@ -106,33 +140,47 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
         sampler_fn = lambda g: TorchSampler(point_seed(seed, g), Xt.device)  # noqa: E731
     alpha = None
     points = []
+    tracer = obs_trace.get_tracer()
+    reg = obs_metrics.get_registry()
+    mon = obs_monitor.StepMonitor()
     t_total = time.perf_counter()
-    for g, d in enumerate(deltas):
-        if alpha is not None:
-            l1 = float(torch.sum(torch.abs(alpha)))
-            if l1 > 1e-12:
-                alpha = alpha * (float(d) / l1)  # paper's rescaling heuristic
-        hook = None if on_step is None else functools.partial(on_step, g)
-        t0 = time.perf_counter()
-        res = engine.solve_prepared(oracle, Xt, y, base_cfg, sampler_fn(g), alpha, float(d), hook)
-        objective = float(res.objective)  # waits for the solve to finish
-        dt = time.perf_counter() - t0
-        alpha = res.alpha
-        idx = torch.nonzero(alpha).view(-1)
-        points.append(
-            PathPoint(
-                reg=float(d),
-                objective=objective,
-                l1=float(torch.sum(torch.abs(alpha))),
-                active=int(res.active),
-                iterations=res.iterations,
-                n_dots=res.n_dots,
-                seconds=dt,
-                alpha_nnz_idx=idx.cpu().numpy(),
-                alpha_nnz_val=alpha[idx].cpu().numpy(),
-                gap=float("nan") if res.gap is None else float(res.gap),
+    with tracer.span("fw_path", cat="path", n_points=len(deltas), backend=base_cfg.backend,
+                     rule=base_cfg.step_rule):
+        for g, d in enumerate(deltas):
+            if alpha is not None:
+                l1 = float(torch.sum(torch.abs(alpha)))
+                if l1 > 1e-12:
+                    alpha = alpha * (float(d) / l1)  # paper's rescaling heuristic
+            hook = None if on_step is None else functools.partial(on_step, g)
+            mon.begin()
+            t0 = time.perf_counter()
+            with tracer.span("fw_path/point", cat="path", delta=float(d)):
+                res = engine.solve_prepared(oracle, Xt, y, base_cfg, sampler_fn(g), alpha,
+                                            float(d), hook)
+                objective = float(res.objective)  # waits for the solve to finish
+            dt = time.perf_counter() - t0
+            # EWMA straggler detection (the first point seeds the average)
+            if mon.end() and mon.step > 1:
+                tracer.instant("fw_path/straggler_point", cat="path", point=mon.step,
+                               seconds=dt)
+            _observe_point(reg, "sequential", base_cfg, dt)
+            alpha = res.alpha
+            idx = torch.nonzero(alpha).view(-1)
+            points.append(
+                PathPoint(
+                    reg=float(d),
+                    objective=objective,
+                    l1=float(torch.sum(torch.abs(alpha))),
+                    active=int(res.active),
+                    iterations=res.iterations,
+                    n_dots=res.n_dots,
+                    seconds=dt,
+                    alpha_nnz_idx=idx.cpu().numpy(),
+                    alpha_nnz_val=alpha[idx].cpu().numpy(),
+                    gap=float("nan") if res.gap is None else float(res.gap),
+                )
             )
-        )
+    _finish_path(reg, tracer)
     return PathResult(
         points,
         time.perf_counter() - t_total,
@@ -182,43 +230,57 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
     carry = torch.zeros(Xt.shape[0], dtype=Xt.dtype, device=Xt.device)  # densest so far
     points: List[PathPoint] = []
     total_saved = 0
+    tracer = obs_trace.get_tracer()
+    reg = obs_metrics.get_registry()
+    lanes_mon = obs_monitor.LaneProgressMonitor(max_iters=base_cfg.max_iters)
     t_total = time.perf_counter()
-    for c in range(n_chunks):
-        chunk = padded[c * lane_width:(c + 1) * lane_width]
-        d_arr = torch.tensor(chunk, dtype=Xt.dtype, device=Xt.device)
-        l1 = torch.sum(torch.abs(carry))
-        # the paper's rescaling warm start, per lane; carry == 0 stays 0
-        alpha0s = carry[None, :] * (d_arr / torch.clamp_min(l1, 1e-12))[:, None]
-        t0 = time.perf_counter()
-        res, _ = solve_batched_fn(oracle, Xt, y, base_cfg, lane_sampler_fn(c), alpha0s, d_arr)
-        objective = res.objective.tolist()  # waits for the chunk to finish
-        dt = time.perf_counter() - t0
-        carry = res.alpha[-1]
-        real = min(lane_width, n - c * lane_width)
-        iters = np.asarray(res.iterations)
-        # the pruning win of the real lanes only (the engine's own count also
-        # holds the padded lanes)
-        total_saved += int(np.sum(iters.max() - iters[:real]))
-        l1s = torch.sum(torch.abs(res.alpha), dim=1).tolist()
-        active = res.active.tolist()
-        gaps = None if res.gap is None else res.gap.tolist()
-        for i in range(real):
-            alpha = res.alpha[i]
-            idx = torch.nonzero(alpha).view(-1)
-            points.append(
-                PathPoint(
-                    reg=float(chunk[i]),
-                    objective=objective[i],
-                    l1=l1s[i],
-                    active=int(active[i]),
-                    iterations=res.iterations[i],
-                    n_dots=res.n_dots[i],
-                    seconds=dt / real,
-                    alpha_nnz_idx=idx.cpu().numpy(),
-                    alpha_nnz_val=alpha[idx].cpu().numpy(),
-                    gap=float("nan") if gaps is None else gaps[i],
+    with tracer.span("fw_path_batched", cat="path", n_points=n, lane_width=lane_width,
+                     n_chunks=n_chunks, backend=base_cfg.backend):
+        for c in range(n_chunks):
+            chunk = padded[c * lane_width:(c + 1) * lane_width]
+            d_arr = torch.tensor(chunk, dtype=Xt.dtype, device=Xt.device)
+            l1 = torch.sum(torch.abs(carry))
+            # the paper's rescaling warm start, per lane; carry == 0 stays 0
+            alpha0s = carry[None, :] * (d_arr / torch.clamp_min(l1, 1e-12))[:, None]
+            lanes_mon.begin_chunk()
+            t0 = time.perf_counter()
+            with tracer.span("fw_path_batched/chunk", cat="path", chunk=c):
+                res, _ = solve_batched_fn(oracle, Xt, y, base_cfg, lane_sampler_fn(c), alpha0s,
+                                          d_arr)
+                objective = res.objective.tolist()  # waits for the chunk to finish
+            dt = time.perf_counter() - t0
+            carry = res.alpha[-1]
+            real = min(lane_width, n - c * lane_width)
+            iters = np.asarray(res.iterations)
+            # the pruning win of the real lanes only (the engine's own count
+            # also holds the padded lanes)
+            chunk_saved = int(np.sum(iters.max() - iters[:real]))
+            total_saved += chunk_saved
+            conv = np.asarray(res.converged.tolist())[:real]
+            lanes_mon.end_chunk(c, chunk[:real], iters[:real], chunk_saved, conv)
+            if reg is not None:
+                _observe_chunk(reg, base_cfg, real, conv, chunk_saved, dt)
+            l1s = torch.sum(torch.abs(res.alpha), dim=1).tolist()
+            active = res.active.tolist()
+            gaps = None if res.gap is None else res.gap.tolist()
+            for i in range(real):
+                alpha = res.alpha[i]
+                idx = torch.nonzero(alpha).view(-1)
+                points.append(
+                    PathPoint(
+                        reg=float(chunk[i]),
+                        objective=objective[i],
+                        l1=l1s[i],
+                        active=int(active[i]),
+                        iterations=res.iterations[i],
+                        n_dots=res.n_dots[i],
+                        seconds=dt / real,
+                        alpha_nnz_idx=idx.cpu().numpy(),
+                        alpha_nnz_val=alpha[idx].cpu().numpy(),
+                        gap=float("nan") if gaps is None else gaps[i],
+                    )
                 )
-            )
+    _finish_path(reg, tracer)
     return PathResult(
         points,
         time.perf_counter() - t_total,
@@ -226,6 +288,37 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
         sum(pt.iterations for pt in points),
         saved_iters=total_saved,
     )
+
+
+def _observe_chunk(reg, cfg: FWConfig, real: int, conv, chunk_saved: int, dt: float) -> None:
+    """A batched chunk's lane counters and latency into the registry, and one
+    latency sample a real grid point (the chunk's amortized), so the point
+    histogram's counts line up with the sequential driver's."""
+    lbl = dict(backend=cfg.backend)
+    reg.counter(
+        "fw_lanes_admitted",
+        "delta lanes admitted to batched path chunks",
+        ("backend",),
+    ).inc(real, **lbl)
+    reg.counter(
+        "fw_lane_freezes",
+        "lanes frozen by per-lane early exit (converged before "
+        "the chunk's while_loop drained)",
+        ("backend",),
+    ).inc(int(conv.sum()), **lbl)
+    reg.counter(
+        "fw_lane_saved_iterations",
+        "lane-iterations pruned vs running every lane to the "
+        "slowest lane's stop",
+        ("backend",),
+    ).inc(chunk_saved, **lbl)
+    reg.histogram(
+        "fw_path_chunk_seconds",
+        "wall time per batched lane-chunk dispatch",
+        ("backend",),
+    ).observe(dt, **lbl)
+    for _ in range(real):
+        _observe_point(reg, "batched", cfg, dt / real)
 
 
 def _penalized_path(solve, Xt, y, regs, stream_fn) -> PathResult:

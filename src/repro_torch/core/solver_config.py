@@ -4,7 +4,11 @@ reference's fields and defaults)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
+
+# obs.telemetry is import-clean of repro_torch.core, so the spec can live
+# with the config
+from repro_torch.obs.telemetry import TelemetrySpec
 
 
 @dataclass(frozen=True)
@@ -45,8 +49,12 @@ class FWConfig:
       m_tile, interpret, gather_mode: TPU knobs of the reference, kept so
         configs carry across; the port reads none ('onehot' is a TPU
         lowering fallback).
-      telemetry: any spec object; a solve raises NotImplementedError when
-        it is set (ROADMAP.md Queue 1 item 11).
+      telemetry: the per-iteration metric ring's spec
+        (``repro_torch.obs.TelemetrySpec``). None (default) means no ring:
+        the loop launches what it launched before, bit for bit. When set,
+        ``EngineState.tel`` carries the ring, surfaced on
+        ``SolveResult.telemetry``; the trajectory is the telemetry-off one,
+        bit for bit, on every backend, rule, oracle and fused route.
       fuse_steps: K consecutive FW iterations per dispatch. 1 (default) is
         the one-step-per-dispatch loop. K > 1 makes ``engine.run_loop``
         advance K-step chunks: the co-state and the scalar recursions stay
@@ -97,7 +105,7 @@ class FWConfig:
     step_rule: str = "classic"
     active_set_size: int = 32
     lazy_cache: int = 16
-    telemetry: Optional[Any] = None
+    telemetry: Optional[TelemetrySpec] = None
 
     def __post_init__(self):
         if self.backend not in VALID_BACKENDS:

@@ -54,6 +54,17 @@ host facts are read on the host: PARTAN's refresh with the stall count in
 the step's one host read (``EngineState.stall_host``), so its matvec runs
 only when it is due, and the lazy rule's hit before the draw, so a hit
 skips the draw's kernels.
+
+Telemetry (the reference's ``core/step_rule.py:325-352, 457-470,
+573-587``): an away or pairwise step writes its record with the plain
+``record`` after its tail (its event, away, pairwise or drop, from the
+choice recomputed with the plain ops from the state before the step, and
+the classic sampled gap); PARTAN amends the record its classic half-step
+wrote (``amend_last``: the event, the final step_inf, stall and n_dots,
+and the objective), so there is one record an iteration; the lazy rule's
+classic tail writes its record, and a hit amends its event to
+``EVENT_LAZY_HIT``, with the lazy rule's gap ``<grad, alpha> + delta
+|g_sel|``.
 """
 from __future__ import annotations
 
@@ -65,6 +76,7 @@ import torch
 from repro_torch.core import engine, vertex
 from repro_torch.core.engine import EngineState
 from repro_torch.core.solver_config import FWConfig
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.kernels.step_tail import (  # noqa: F401 (the protocol's pieces, re-exported)
     DirStep,
     apply_dir_update,
@@ -155,14 +167,24 @@ class DirRule:
         if hasattr(oracle, "dir_tail"):
             # the lasso and the EN: the buffer's linear scores, then one tail
             raw_b, _ = vertex.score_indices(Xt, w, buf, p, cfg)
+            choice = None
+            if state.tel is not None:
+                sel_b = raw_b if extra_fn is None else raw_b.float() + extra_fn(buf.clamp(0, p - 1))
+                choice = self._choice(oracle, y, stats, state, sel_b, buf, i_f, sel_f, delta, p,
+                                      cfg)
             out, co = oracle.dir_tail(Xt, y, stats, state, buf, raw_b, i_f, sel_f, delta,
                                       self.pairwise, cfg)
             beta, scale, maxabs, step_inf, stall = out[:5]
-            buf, i_star = out.buf, out.i_star
+            buf, i_star, g = out.buf, out.i_star, out.g
         else:
-            beta, scale, maxabs, step_inf, stall, co, buf, i_star = self._protocol_step(
-                oracle, Xt, y, stats, state, w, i_f, sel_f, delta, p, cfg)
+            beta, scale, maxabs, step_inf, stall, co, buf, i_star, g, choice = (
+                self._protocol_step(oracle, Xt, y, stats, state, w, i_f, sel_f, delta, p, cfg))
             scale, maxabs, step_inf = (t.to(dtype) for t in (scale, maxabs, step_inf))
+        n_dots = state.n_dots + n_scored + buf.shape[0] + DIR_EXTRA_DOTS + oracle.extra_dots
+        tel = state.tel
+        if tel is not None:
+            tel = self._record(tel, oracle, y, stats, state, choice, sel_f, delta, co, i_star, g,
+                               step_inf, stall, n_dots, cfg)
         return EngineState(
             beta=beta,
             scale=scale,
@@ -170,25 +192,61 @@ class DirRule:
             maxabs=maxabs,
             step_inf=step_inf,
             stall=stall,
-            n_dots=state.n_dots + n_scored + buf.shape[0] + DIR_EXTRA_DOTS + oracle.extra_dots,
+            n_dots=n_dots,
             k=state.k + 1,
             i_star=i_star,
             rule=buf,
+            tel=tel,
         )
+
+    def _choice(self, oracle, y, stats, state, sel_b, buf, i_f, sel_f, delta, p, cfg):
+        """The away-or-FW choice from the state before the step, with the
+        plain ops (the record's event and gap need it; the direction tail
+        makes the same choice inside its launch). Returns ``(ds, use_alt,
+        ga)``."""
+        away = away_vertex(sel_b, buf, state.beta, state.scale, p)
+        ga = oracle.grad_dot_alpha(state.co, stats, y, state.beta, state.scale, cfg).float()
+        a_f = state.scale.float() * vertex.take(state.beta, i_f).float()
+        ds, use_alt = dir_choice(sel_f.float(), a_f, i_f, away, delta,
+                                 None if self.pairwise else ga, self.pairwise, cfg.eps_den)
+        return ds, use_alt, ga
+
+    def _record(self, tel, oracle, y, stats, state, choice, sel_f, delta, co, i_star, g,
+                step_inf, stall, n_dots, cfg):
+        """The step's plain ring record: a drop step (the away atom at g_max)
+        is ``EVENT_DROP``, another away or pairwise direction ``EVENT_AWAY``
+        or ``EVENT_PAIRWISE``, else ``EVENT_FW``; the gap is the classic
+        sampled FW gap ``<grad, alpha> - delta_t sel_f``, the rules' common
+        yardstick."""
+        ds, use_alt, ga = choice
+        drop = (ds.da != 0.0) & (g >= ds.g_max) & (ds.same == 0.0)
+        alt = obs_telemetry.EVENT_PAIRWISE if self.pairwise else obs_telemetry.EVENT_AWAY
+        event = torch.where(drop, obs_telemetry.EVENT_DROP,
+                            torch.where(use_alt, alt, obs_telemetry.EVENT_FW))
+        gap = objective = float("nan")
+        if cfg.telemetry.record_objective:
+            df_fw = -delta * torch.sign(sel_f.float())
+            gap = ga - df_fw * sel_f.float()
+            objective = oracle.objective(y, stats, co, cfg)
+        return obs_telemetry.record(tel, k=state.k, i_star=i_star, event=event, lam=g, gap=gap,
+                                    objective=objective, step_inf=step_inf, stall=stall,
+                                    n_dots=n_dots)
 
     def _protocol_step(self, oracle, Xt, y, stats, state, w, i_f, sel_f, delta, p, cfg):
         """The step after the FW vertex through the oracle's
         ``dir_line_search`` and ``dir_update_co`` (the reference's op
         sequence, plain PyTorch): an oracle without a ``dir_tail``, the
-        logistic."""
+        logistic. Returns the step's state fields, its step size ``g`` and
+        its choice ``(ds, use_alt, ga)`` (``ga`` None for pairwise without
+        telemetry)."""
         buf = state.rule
         away = _select_away(oracle, Xt, w, buf, state.beta, state.scale, delta, p, cfg)
         ga = None
-        if not self.pairwise:
+        if not self.pairwise or state.tel is not None:
             ga = oracle.grad_dot_alpha(state.co, stats, y, state.beta, state.scale, cfg).float()
         a_f = state.scale.float() * vertex.take(state.beta, i_f).float()
-        ds, use_alt = dir_choice(sel_f.float(), a_f, i_f, away, delta, ga, self.pairwise,
-                                 cfg.eps_den)
+        ds, use_alt = dir_choice(sel_f.float(), a_f, i_f, away, delta,
+                                 None if self.pairwise else ga, self.pairwise, cfg.eps_den)
         # the direction's image X d = t (X alpha) + u_lin, u_lin = df z_f + da z_a
         z = vertex.columns_dense(Xt, torch.stack([i_f, ds.i_a])).float()
         u_lin = ds.df * z[0] + ds.da * z[1]
@@ -201,7 +259,7 @@ class DirRule:
         took_fw = (ds.df != 0.0) & (g > 0.0)
         buf = torch.where(took_fw, insert_active(buf, i_f, beta), buf)
         return (beta, scale, maxabs, step_inf, stall, co, buf,
-                torch.where(use_alt, ds.i_a, i_f))
+                torch.where(use_alt, ds.i_a, i_f), g, (ds, use_alt, ga))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +326,17 @@ class PartanRule:
         # the outer iterate anchors the next step, its image read through the
         # (rebuilt) co-state
         v_new = oracle.co_linpred(co, y)
+        n_dots = mid.n_dots + PARTAN_EXTRA_DOTS + (a_new.shape[0] if refresh_host else 0)
+        tel = mid.tel
+        if tel is not None:
+            # the classic half-step recorded this iteration; amend that record
+            # in place with the extrapolated step's statistics (one record an
+            # iteration); the gap stays the half-step's sampled FW gap
+            fields = dict(event=obs_telemetry.EVENT_PARTAN, step_inf=step_inf, stall=stall,
+                          n_dots=n_dots)
+            if cfg.telemetry.record_objective:
+                fields["objective"] = oracle.objective(y, stats, co, cfg)
+            tel = obs_telemetry.amend_last(tel, **fields)
         return EngineState(
             beta=a_new,
             scale=torch.ones((), dtype=a_new.dtype, device=a_new.device),
@@ -275,11 +344,12 @@ class PartanRule:
             maxabs=torch.max(torch.abs(a_new)),
             step_inf=step_inf,
             stall=stall,
-            n_dots=mid.n_dots + PARTAN_EXTRA_DOTS + (a_new.shape[0] if refresh_host else 0),
+            n_dots=n_dots,
             k=mid.k,
             i_star=mid.i_star,
             rule=(a_new, v_new, drift),
             stall_host=stall_host,
+            tel=tel,
         )
 
 
@@ -340,7 +410,8 @@ class LazyRule:
         cap = cache.shape[0]
         peek = self._peek(oracle, Xt, y, stats, state.beta, state.scale, state.co, cache, phi,
                           delta, p, cfg)
-        if bool(peek.hit):
+        hit = bool(peek.hit)
+        if hit:
             sampler.skip()  # the step's row of the stream goes unused
             i_star = vertex.take(cache.clamp(0, p - 1), peek.j)
             g_raw, g_sel = vertex.take(peek.raw_c, peek.j), vertex.take(peek.sel_c, peek.j)
@@ -352,9 +423,19 @@ class LazyRule:
             cache_new = cache.clone()
             cache_new[state.k % cap] = i_star
             n_scored = cap + ns
-        # the classic tail on the chosen vertex
+        # the classic tail on the chosen vertex, which writes the step's record
+        n_dots = state.n_dots + n_scored + 1 + oracle.extra_dots
+        rec = engine.tail_record(state, stats, n_dots, cfg)
         beta, scale, maxabs, step_inf, stall, co = oracle.tail(
-            Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg)
+            Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=rec)
+        tel = None
+        if rec is not None:
+            # the lazy rule's gap, its acceptance currency (recorded with the
+            # objective on or off, as the reference's), and a hit's event
+            fields = dict(gap=peek.ga.float() + delta * torch.abs(g_sel.float()))
+            if hit:
+                fields["event"] = obs_telemetry.EVENT_LAZY_HIT
+            tel = obs_telemetry.amend_last(obs_telemetry.advance(state.tel), **fields)
         return EngineState(
             beta=beta,
             scale=scale,
@@ -362,10 +443,11 @@ class LazyRule:
             maxabs=maxabs,
             step_inf=step_inf,
             stall=stall,
-            n_dots=state.n_dots + n_scored + 1 + oracle.extra_dots,
+            n_dots=n_dots,
             k=state.k + 1,
             i_star=i_star,
             rule=(cache_new, phi_new),
+            tel=tel,
         )
 
 

@@ -491,22 +491,24 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
 
 
 def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
-                    i_star, g, deltas, cfg: FWConfig, lanes: torch.Tensor, en=None):
+                    i_star, g, deltas, cfg: FWConfig, lanes: torch.Tensor, en=None, tel=None):
     """``step_tail`` for L lanes (``beta (L, p)`` in place, ``resid (L, m)``,
     ``(L,)`` scalars, winners, scores and deltas): one launch of
     ``kernels/step_tail``'s lane kernel where the backend runs the kernels,
     its plain version (the one-lane plain tail once per lane) otherwise.
     Lanes not in ``lanes`` keep their state. Returns ``(beta, scale,
     maxabs, step_inf, stall, resid, s_quad, f_lin)``, lane-stacked, and with
-    ``en`` (the elastic-net's ``ENTail``) Q after them."""
+    ``en`` (the elastic-net's ``ENTail``) Q after them. ``tel`` (a lane
+    ``kernels.step_tail.TailRecord``) adds each stepping lane's ring
+    record."""
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     args = (mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, stats.zty,
             stats.znorm2, i_star, g, deltas, lanes, cfg)
     if not use_kernels(cfg):
-        return _step_tail.step_tail_lanes_plain(*args, en)
+        return _step_tail.step_tail_lanes_plain(*args, en, tel)
     if en is None:
-        return _step_tail.step_tail_lanes(*args)
-    return _step_tail.step_tail_en_lanes(*args, en)
+        return _step_tail.step_tail_lanes(*args, tel)
+    return _step_tail.step_tail_en_lanes(*args, en, tel)
 
 
 # --------------------------------------------------------------------------
@@ -585,21 +587,23 @@ def use_fused_kernel(cfg: FWConfig, Xt, oracle=None) -> bool:
 
 
 def step_tail(Xt, y, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_star, g,
-              delta, cfg: FWConfig, en=None):
+              delta, cfg: FWConfig, en=None, tel=None):
     """The step's tail after the argmax on the matrix's layout (the
     winner's row of a dense ``Xt``, or its ELL slots of a
     ``SparseBlockMatrix``): ``kernels/step_tail``, one launch, where the
     backend runs the kernels (``use_kernels``); its plain version, the same
     ops, on 'torch' and the plain sparse ops, as the reference's 'xla'
-    path. The lasso's, or with ``en`` (an ``ENTail``) the elastic-net's."""
+    path. The lasso's, or with ``en`` (an ``ENTail``) the elastic-net's.
+    ``tel`` (a ``kernels.step_tail.TailRecord``) adds the step's ring
+    record, inside the same launch on the kernels' backends."""
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     args = (mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, stats.zty, stats.znorm2,
             i_star, g, delta, cfg)
     if not use_kernels(cfg):
-        return _step_tail.step_tail_plain(*args, en)
+        return _step_tail.step_tail_plain(*args, en, tel)
     if en is None:
-        return _step_tail.step_tail(*args)
-    return _step_tail.step_tail_en(*args, en)
+        return _step_tail.step_tail(*args, tel)
+    return _step_tail.step_tail_en(*args, en, tel)
 
 
 def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, alpha_s, k0: int, delta,

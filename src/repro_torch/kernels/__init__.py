@@ -21,8 +21,10 @@ K2's scores and argmax, the step's tail and K5 also take L delta lanes in
 one launch (``*_lanes``, the batched engine's), each with a count of its own.
 The elastic-net's instantiations (the argmax with its score shift, the tail
 with its line search and Q, K4 and K7 with the alpha ledger) have wrappers
-of their own (``*_shifted``, ``*_en``). Every wrapper counts the launches of
-its kernel in its ``launches`` attribute.
+of their own (``*_shifted``, ``*_en``), and so have the instantiations that
+write the telemetry ring's record (``*_tel``: the step tail's four and the
+replay's). Every wrapper counts the launches of its kernel in its
+``launches`` attribute.
 
 The CUDA sources are in ``csrc/`` and build on first use (``_build``).
 """
@@ -61,6 +63,11 @@ _WRAPPERS = {
     "dir_tail": step_tail.dir_tail,
     "dir_tail_en": step_tail.dir_tail_en,
     "cd_sweep": cd_sweep.cd_sweep,
+    "step_tail_tel": step_tail.step_tail_tel,
+    "step_tail_en_tel": step_tail.step_tail_en_tel,
+    "step_tail_lanes_tel": step_tail.step_tail_lanes_tel,
+    "step_tail_en_lanes_tel": step_tail.step_tail_en_lanes_tel,
+    "fused_replay_tel": fused_step.fused_replay_tel,
 }
 
 

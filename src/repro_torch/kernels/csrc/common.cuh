@@ -273,6 +273,32 @@ __device__ __forceinline__ void stop_stats(float lam, float one_m, float dt, flo
   stall = (step_inf <= tol || no_prog) ? stall + 1 : 0;
 }
 
+// ---- the telemetry ring's record (obs/telemetry.py's storage) ---------------
+//
+// A ring of capacity C is RING_WORDS * C int32 words: rows of C words for
+// k, i_star, event, stall (int32), lam, gap, objective, step_inf (float32)
+// and then n_dots (int64, two words a record). One thread writes a record.
+constexpr int RING_WORDS = 10;
+
+// torch's float('nan'), the bits an unrecorded gap or objective holds
+__device__ __forceinline__ float ring_nan() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ void ring_write(int* ring, int cap, long long slot, long long k,
+                                           long long i_star, int event, int stall, float lam,
+                                           float gap, float objective, float step_inf,
+                                           long long n_dots) {
+  float* rf = reinterpret_cast<float*>(ring);
+  ring[slot] = (int)k;
+  ring[cap + slot] = (int)i_star;
+  ring[2 * cap + slot] = event;
+  ring[3 * cap + slot] = stall;
+  rf[4 * cap + slot] = lam;
+  rf[5 * cap + slot] = gap;
+  rf[6 * cap + slot] = objective;
+  rf[7 * cap + slot] = step_inf;
+  reinterpret_cast<long long*>(ring + 8 * (long long)cap)[slot] = n_dots;
+}
+
 // The most dynamic shared memory a block may opt in to on Hopper (227 KB),
 // less a margin for the kernels' static shared memory.
 #define OPTIN_SMEM_BYTES (224 * 1024)

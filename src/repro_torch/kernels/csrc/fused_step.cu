@@ -526,6 +526,14 @@ sparse_ring_chunk_kernel(SparseSlots L, ChunkArgs a, int stride) {
 // block multiplies beta by new_scale (__fmul_rn), warp 0 multiplies the
 // values it holds by the same factor, and the walk goes on from there. No
 // block barrier is taken otherwise.
+//
+// The telemetry ring (the TEL instantiation): the walker's lane 0 writes
+// each live record's ring record after its update (common.cuh's
+// ring_write): k = k0 + t at slot (slot0 + t) % C, i_star, EVENT_FW, the
+// stall and step_inf after the record, lam, NaN gap and objective, and
+// n_dots = n_dots0 + (t + 1) * the dots a step. A masked record (k past
+// max_iters) writes nothing. TEL = false compiles none of it.
+template <bool TEL>
 __global__ void __launch_bounds__(RP_THREADS)
 fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restrict__ scale_in,
                     const float* __restrict__ maxabs_in, const float* __restrict__ step_inf_in,
@@ -534,7 +542,9 @@ fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restri
                     const float* __restrict__ dt, long long dt_stride,
                     const unsigned char* __restrict__ no_prog, int K, long long k0,
                     long long max_iters, float renorm_threshold, float eps_den, float tol,
-                    float* __restrict__ f_out, int* __restrict__ stall_out) {
+                    float* __restrict__ f_out, int* __restrict__ stall_out,
+                    int* __restrict__ tel, int tel_cap, long long tel_slot0,
+                    long long tel_ndots0, long long tel_per_step) {
   __shared__ float sh_factor;
   __shared__ int sh_renorm;
   const int lane = threadIdx.x & 31;
@@ -552,6 +562,10 @@ fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restri
   int np_t = 0;
   long long t = 0;
   bool paused = false;  // record t waits for (or has had) its renorm
+  // TEL: the next ring record's slot and its n_dots, advanced a record at a
+  // time (no 64-bit division in the walk)
+  int tel_slot = (int)tel_slot0;
+  long long tel_n = tel_ndots0;
   for (;;) {
     if (walker) {
       for (; t < live; ++t) {
@@ -594,6 +608,13 @@ fused_replay_kernel(float* __restrict__ beta, long long p, const float* __restri
         if (ri == i_t) rb = bi;
         stop_stats(lam_t, one_m, dt_t, a_star, __fmul_rn(scale, bi), np_t, tol, maxabs, step_inf,
                    stall);
+        if constexpr (TEL) {
+          tel_n += tel_per_step;
+          if (lane == 0)
+            ring_write(tel, tel_cap, tel_slot, k0 + t, i_t, 0 /* EVENT_FW */, stall, lam_t,
+                       ring_nan(), ring_nan(), step_inf, tel_n);
+          if (++tel_slot == tel_cap) tel_slot = 0;
+        }
         if (l == 31 || t + 1 == live) {  // the batch's coordinates, once each
           const unsigned same = __match_any_sync(0xffffffffu, ri);
           if (ri >= 0 && lane == 31 - __clz(same)) beta[ri] = rb;
@@ -783,10 +804,21 @@ extern "C" int fused_replay_launch(float* beta, long long p, const float* scale,
                                    long long lam_stride, const float* dt, long long dt_stride,
                                    const unsigned char* no_prog, int K, long long k0,
                                    long long max_iters, float renorm_threshold, float eps_den,
-                                   float tol, float* f_out, int* stall_out, void* stream) {
-  fused_replay_kernel<<<1, RP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride,
-      no_prog, K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out);
+                                   float tol, float* f_out, int* stall_out, int* tel,
+                                   int tel_cap, long long tel_slot0, long long tel_ndots0,
+                                   long long tel_per_step, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tel == nullptr) {
+    fused_replay_kernel<false><<<1, RP_THREADS, 0, s>>>(
+        beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride, no_prog,
+        K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, nullptr, 1, 0, 0, 0);
+  } else {
+    if (tel_cap < 1 || tel_slot0 < 0 || tel_slot0 >= tel_cap) return (int)cudaErrorInvalidValue;
+    fused_replay_kernel<true><<<1, RP_THREADS, 0, s>>>(
+        beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride, no_prog,
+        K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, tel, tel_cap,
+        tel_slot0, tel_ndots0, tel_per_step);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,19 @@
 // en_line_search, which reads a_star = scale * beta[i_star] in every
 // block) and Q's recursion beside S and F, written as s_out's sixth field.
 // The lasso's instantiations compile none of it.
+//
+// The telemetry ring's record (the TEL instantiations): block 0's thread 0,
+// which holds the step's scalars, writes the step's record into the ring
+// (common.cuh's ring_write): k, i_star, EVENT_FW, the new stall, lam, the
+// new step_inf and n_dots; with an objective (yty given), the sampled gap
+// <grad, alpha> - delta_t * g_sel from the step's input scalars and the
+// objective 1/2 y.y + 1/2 S - F (+ l2/2 Q) from its outputs, each op rounded
+// to the state's dtype as the oracle's eager ops round it (NaN without).
+// One lane: the host passes the slot, k and n_dots. Lanes: a listed lane
+// reads its cursor on the device (k = cursor, a lane's records being its
+// steps; n_dots = (cursor + 1) * the dots a step), writes at cursor % C and
+// advances it; a frozen lane writes nothing. The TEL = false
+// instantiations compile none of it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -66,11 +79,31 @@ struct TailArgs {
   const float* __restrict__ g_sel;
   const T* __restrict__ q_norm;
   float l2;
+  // the telemetry ring (TEL): its storage (RING_WORDS * tel_cap words a
+  // lane), the one-lane record's slot, k and n_dots (lanes: tel_ndots is
+  // the dots a step and tel_cursor the lanes' cursors), y.y in the state's
+  // dtype (null: no objective) and l2 / 2 as torch's f32 scalar
+  int* __restrict__ tel;
+  int tel_cap;
+  long long tel_slot, tel_k, tel_ndots;
+  long long* __restrict__ tel_cursor;
+  const T* __restrict__ yty;
+  float half_l2;
 };
 
+// x rounded to the state's dtype and back: one eager op's result
+template <typename T>
+__device__ __forceinline__ float rt(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 // Point `a` at lane l's operands.
-template <typename T, bool EN>
+template <typename T, bool EN, bool TEL>
 __device__ __forceinline__ void select_lane(TailArgs<T>& a, int l) {
+  if constexpr (TEL) {
+    a.tel += (long long)l * RING_WORDS * a.tel_cap;
+    a.tel_cursor += l;
+  }
   if constexpr (EN) {
     a.g_sel += l;
     a.q_norm += l;
@@ -119,7 +152,7 @@ struct TailShared {
 // thread 0 computes the same scalars from the inputs; block 0 alone writes
 // the coefficient, the statistics and S, F. Every load a thread needs is
 // issued before the barrier that hands it the scalars.
-template <typename T, bool SPARSE, bool LANES, bool EN>
+template <typename T, bool SPARSE, bool LANES, bool EN, bool TEL>
 __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   __shared__ TailShared sh;
   const int tid = threadIdx.x;
@@ -129,7 +162,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     const int l = blockIdx.y;
     bool listed = false;
     for (int k = 0; k < a.n_run; ++k) listed |= a.lane_ids[k] == l;
-    select_lane<T, EN>(a, l);
+    select_lane<T, EN, TEL>(a, l);
     if (!listed) {
       frozen_lane<T, EN>(a, lo, hi);
       return;
@@ -259,14 +292,44 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     int stall = *a.stall;
     stop_stats(lam, one_m, dt, a_star, __fmul_rn(sc, to_f32(bi)), ls.no_prog, a.tol, maxabs,
                step_inf, stall);
+    // <grad, alpha> = S - F (+ l2 Q) from the inputs, for the record's gap
+    float ga = 0.f;
+    if constexpr (TEL) {
+      ga = rt<T>(__fsub_rn(S, F));
+      if constexpr (EN) ga = rt<T>(__fadd_rn(ga, rt<T>(__fmul_rn(a.l2, Q))));
+    }
     sf_recursion(S, F, ls.g_lin, lam, dt, zty, zn2);
     a.s_out[0] = from_f32<T>(sc);
     a.s_out[L] = from_f32<T>(maxabs);
     a.s_out[2 * L] = from_f32<T>(step_inf);
     a.s_out[3 * L] = from_f32<T>(S);
     a.s_out[4 * L] = from_f32<T>(F);
-    if constexpr (EN) a.s_out[5 * L] = from_f32<T>(q_recursion(Q, lam, dt, a_star));
+    float Q1 = 0.f;
+    if constexpr (EN) {
+      Q1 = q_recursion(Q, lam, dt, a_star);
+      a.s_out[5 * L] = from_f32<T>(Q1);
+    }
     *a.stall_out = stall;
+    if constexpr (TEL) {
+      float gap = ring_nan(), obj = ring_nan();
+      if (a.yty != nullptr) {
+        gap = __fsub_rn(ga, __fmul_rn(dt, EN ? *a.g_sel : *a.g));
+        // 0.5 * yty + 0.5 * S - F (+ (0.5 * l2) * Q) on the stored outputs
+        obj = rt<T>(__fsub_rn(rt<T>(__fadd_rn(rt<T>(__fmul_rn(0.5f, to_f32(*a.yty))),
+                                              rt<T>(__fmul_rn(0.5f, rt<T>(S))))),
+                              rt<T>(F)));
+        if constexpr (EN) obj = rt<T>(__fadd_rn(obj, rt<T>(__fmul_rn(a.half_l2, rt<T>(Q1)))));
+      }
+      long long slot = a.tel_slot, k = a.tel_k, n = a.tel_ndots;
+      if constexpr (LANES) {
+        k = *a.tel_cursor;
+        slot = k % a.tel_cap;
+        n = (k + 1) * a.tel_ndots;
+        *a.tel_cursor = k + 1;
+      }
+      ring_write(a.tel, a.tel_cap, slot, k, i, 0 /* EVENT_FW */, stall, lam, gap, obj, step_inf,
+                 n);
+    }
   }
   if (SPARSE && blockIdx.x == 0) {
     __syncthreads();  // every row-0 term is in sh.acc0
@@ -278,12 +341,20 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   }
 }
 
+template <typename T, bool SPARSE, bool LANES, bool TEL>
+static void launch_tail_tel(const TailArgs<T>& a, dim3 grid, cudaStream_t s) {
+  if (a.g_sel != nullptr)
+    step_tail_kernel<T, SPARSE, LANES, true, TEL><<<grid, ST_THREADS, 0, s>>>(a);
+  else
+    step_tail_kernel<T, SPARSE, LANES, false, TEL><<<grid, ST_THREADS, 0, s>>>(a);
+}
+
 template <typename T, bool SPARSE, bool LANES>
 static void launch_tail(const TailArgs<T>& a, dim3 grid, cudaStream_t s) {
-  if (a.g_sel != nullptr)
-    step_tail_kernel<T, SPARSE, LANES, true><<<grid, ST_THREADS, 0, s>>>(a);
+  if (a.tel != nullptr)
+    launch_tail_tel<T, SPARSE, LANES, true>(a, grid, s);
   else
-    step_tail_kernel<T, SPARSE, LANES, false><<<grid, ST_THREADS, 0, s>>>(a);
+    launch_tail_tel<T, SPARSE, LANES, false>(a, grid, s);
 }
 
 template <typename T>
@@ -294,7 +365,9 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                   int m, float renorm_threshold, float eps_den, float gap_rtol, float tol,
                   void* r_out, void* s_out, int* stall_out, const int* lane_ids, int n_run,
                   int n_lanes, const void* step_inf, const float* g_sel, const void* q_norm,
-                  float l2, cudaStream_t s) {
+                  float l2, int* tel, int tel_cap, long long tel_slot, long long tel_k,
+                  long long tel_ndots, long long* tel_cursor, const void* yty, float half_l2,
+                  cudaStream_t s) {
   TailArgs<T> a{static_cast<const T*>(X),      rows,
                 nnz_max,                       static_cast<T*>(beta),
                 p,                             static_cast<const T*>(scale),
@@ -310,13 +383,20 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                 stall_out,                     lane_ids,
                 n_run,                         static_cast<const T*>(step_inf),
                 g_sel,                         static_cast<const T*>(q_norm),
-                l2};
+                l2,                            tel,
+                tel_cap,                       tel_slot,
+                tel_k,                         tel_ndots,
+                tel_cursor,                    static_cast<const T*>(yty),
+                half_l2};
   if (m < 1) return (int)cudaErrorInvalidValue;
   if (lane_ids == nullptr ? n_lanes != 1
                           : n_lanes < 1 || n_lanes > 65535 || n_run < 0 || n_run > n_lanes ||
                                 step_inf == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((g_sel == nullptr) != (q_norm == nullptr)) return (int)cudaErrorInvalidValue;
+  if (tel != nullptr && (tel_cap < 1 || (lane_ids != nullptr) != (tel_cursor != nullptr) ||
+                         (lane_ids == nullptr && (tel_slot < 0 || tel_slot >= tel_cap))))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((m + ST_ROWS - 1) / ST_ROWS, n_lanes);
   if (lane_ids == nullptr) {
     if (rows != nullptr)
@@ -336,7 +416,9 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
 // one lane (n_lanes 1; n_run and step_inf unused); otherwise n_lanes lanes
 // of which the n_run listed ones step (see TailArgs). g_sel == nullptr:
 // the lasso's tail; otherwise the elastic-net's, with q_norm (in the
-// state's dtype) and l2, and s_out holds 6 fields.
+// state's dtype) and l2, and s_out holds 6 fields. tel == nullptr: no ring
+// record; otherwise the TEL instantiation writes one a stepping lane (see
+// TailArgs), with the gap and the objective when yty is given.
 extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, void* beta,
                                 long long p, const void* scale, const void* maxabs,
                                 const int* stall, const void* s_quad, const void* f_lin,
@@ -346,18 +428,23 @@ extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, voi
                                 float eps_den, float gap_rtol, float tol, void* r_out,
                                 void* s_out, int* stall_out, const int* lane_ids, int n_run,
                                 int n_lanes, const void* step_inf, int dtype, const float* g_sel,
-                                const void* q_norm, float l2, void* stream) {
+                                const void* q_norm, float l2, int* tel, int tel_cap,
+                                long long tel_slot, long long tel_k, long long tel_ndots,
+                                long long* tel_cursor, const void* yty, float half_l2,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
     return launch<float>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid,
                          y, zty, zn2, i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol,
                          tol, r_out, s_out, stall_out, lane_ids, n_run, n_lanes, step_inf, g_sel,
-                         q_norm, l2, s);
+                         q_norm, l2, tel, tel_cap, tel_slot, tel_k, tel_ndots, tel_cursor, yty,
+                         half_l2, s);
   if (dtype == DT_BF16)
     return launch<__nv_bfloat16>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin,
                                  resid, y, zty, zn2, i_star, g, delta, m, renorm_threshold,
                                  eps_den, gap_rtol, tol, r_out, s_out, stall_out, lane_ids, n_run,
-                                 n_lanes, step_inf, g_sel, q_norm, l2, s);
+                                 n_lanes, step_inf, g_sel, q_norm, l2, tel, tel_cap, tel_slot, tel_k,
+                                 tel_ndots, tel_cursor, yty, half_l2, s);
   return (int)cudaErrorInvalidValue;
 }
 

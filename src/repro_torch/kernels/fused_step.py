@@ -44,6 +44,17 @@ chunk of 8 about 42 us. Each step adds one grid barrier. The replay moves
 a few bytes per record (and 2*p*4 on the rare renorm), so it is bound by
 its launch.
 
+The replay with the telemetry ring (``fused_replay_tel``, the replay
+kernel's TEL instantiation; a ``ReplayRecord`` names the ring): the walker
+writes one ring record a live step, after that step's update (k, i_star,
+``EVENT_FW``, the stall and step_inf after it, lam, NaN gap and objective,
+n_dots = n_dots0 + (t + 1) * the dots a step); a masked step writes
+nothing. The plain version records inside the plain replay's loop. It adds
+40 bytes written a record to the replay's bytes. This is the route of a
+chunk under ``TelemetrySpec(record_objective=False)``: the chunk computes
+no per-step objective, so a spec that asks for one runs the chunk as K
+unfused steps instead.
+
 Design. The TPU runs the (K, kappa) grid in order on one core and carries
 the winner and the residual in VMEM. Hopper blocks run in no order and
 carry nothing, and one block cannot read a step's bytes alone. So each
@@ -126,7 +137,7 @@ record. It matches its plain version, the loop over
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -134,6 +145,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fw_grad import sampled_scores_plain
 from repro_torch.kernels.residual_update import residual_update_plain
 from repro_torch.kernels.step_tail import apply_coeff_update, sparse_residual_update
+from repro_torch.obs.telemetry import EVENT_FW, write_record
 from repro_torch.kernels.sparse_grad import (  # noqa: F401 (K7's ring, re-exported)
     RING_DEPTH,
     SMEM_BYTES,
@@ -161,9 +173,24 @@ _CHUNK_TAIL = ([_PTR] * 9 + [_I32, _I32, _I64, _I64, _I64, _I32, _F32, _F32]
 _DENSE_ARGTYPES = [_PTR, _I64] + _CHUNK_TAIL
 _SPARSE_ARGTYPES = [_PTR, _PTR, _I64] + [_I32] * 5 + _CHUNK_TAIL
 # (beta, p, scale, maxabs, step_inf, stall, i_star, lam, lam_stride, dt, dt_stride,
-#  no_prog, K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, stream)
+#  no_prog, K, k0, max_iters, renorm_threshold, eps_den, tol, f_out, stall_out, tel, tel_cap,
+#  tel_slot0, tel_ndots0, tel_per_step, stream)
 _REPLAY_ARGTYPES = ([_PTR, _I64] + [_PTR] * 6 + [_I64, _PTR, _I64, _PTR, _I32, _I64, _I64]
-                    + [_F32] * 3 + [_PTR] * 3)
+                    + [_F32] * 3 + [_PTR] * 3 + [_I32, _I64, _I64, _I64, _PTR])
+
+
+class ReplayRecord(NamedTuple):
+    """The telemetry ring the replay writes one record a live step into
+    (``obs/telemetry.py``'s storage): ``buf`` one ring's int32 storage of
+    ``capacity`` slots, ``slot0`` the chunk's first record's slot,
+    ``n_dots0`` the dot count before the chunk and ``per_step`` the dots a
+    step."""
+
+    buf: torch.Tensor
+    capacity: int
+    slot0: int
+    n_dots0: int
+    per_step: int
 
 _grid_blocks: Dict[tuple, int] = {}
 
@@ -489,34 +516,43 @@ def _sparse_chunk(wrapper, kind, values, rows, y, resid, scal, idx, zty_s, zn2_s
 
 
 def fused_replay_plain(beta, scale, maxabs, step_inf, stall, i_stars, lams, delta_ts,
-                       no_progs, k0: int, cfg):
+                       no_progs, k0: int, cfg, tel=None):
     """The plain version: the unfused step's own ``apply_coeff_update``,
-    record by record, skipping records at k >= cfg.max_iters. Updates
-    ``beta`` in place; returns ``(beta, scale, maxabs, step_inf, stall)``."""
+    record by record, skipping records at k >= cfg.max_iters, each followed
+    by its plain ring record when ``tel`` (a ``ReplayRecord``) is given.
+    Updates ``beta`` in place; returns ``(beta, scale, maxabs, step_inf,
+    stall)``."""
     for t in range(min(i_stars.shape[0], cfg.max_iters - k0)):
         i_star = i_stars[t]
         a_star = scale * beta.index_select(0, i_star.view(1)).view(())
         beta, scale, maxabs, step_inf, stall = apply_coeff_update(
             beta, scale, maxabs, stall, a_star, i_star, lams[t], delta_ts[t], no_progs[t], cfg
         )
+        if tel is not None:
+            write_record(tel.buf, tel.capacity, (tel.slot0 + t) % tel.capacity, k=k0 + t,
+                         i_star=i_star, event=EVENT_FW, stall=stall, lam=lams[t],
+                         gap=float("nan"), objective=float("nan"), step_inf=step_inf,
+                         n_dots=tel.n_dots0 + (t + 1) * tel.per_step)
     return beta, scale, maxabs, step_inf, stall
 
 
 def fused_replay(beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
                  step_inf: torch.Tensor, stall: torch.Tensor, i_stars: torch.Tensor,
                  lams: torch.Tensor, delta_ts: torch.Tensor, no_progs: torch.Tensor,
-                 k0: int, cfg):
+                 k0: int, cfg, tel=None):
     """Apply a chunk's records to ``beta`` (in place) and the stopping
     statistics; ``cfg`` gives max_iters, renorm_threshold, eps_den and tol.
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel. Returns ``(beta, scale, maxabs, step_inf, stall)``."""
+    ``tel`` (a ``ReplayRecord``) adds one ring record a live step, in the
+    kernel's TEL instantiation (counted on ``fused_replay_tel``). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel.
+    Returns ``(beta, scale, maxabs, step_inf, stall)``."""
     K = i_stars.shape[0]
     if (beta.dim() != 1 or i_stars.dim() != 1 or lams.shape != (K,)
             or delta_ts.shape != (K,) or no_progs.shape != (K,)):
         raise ValueError("need beta (p,) and records i_stars, lams, delta_ts, no_progs (K,)")
     if beta.device.type == "cpu":
         return fused_replay_plain(beta, scale, maxabs, step_inf, stall, i_stars, lams,
-                                  delta_ts, no_progs, k0, cfg)
+                                  delta_ts, no_progs, k0, cfg, tel)
     if beta.dtype != torch.float32 or lams.dtype != torch.float32 or delta_ts.dtype != torch.float32:
         raise TypeError("the replay runs in float32")
     dev = beta.device
@@ -524,7 +560,11 @@ def fused_replay(beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
     stall = stall.to(torch.int32).reshape(())
     i_stars = i_stars.long().contiguous()
     no_progs = no_progs.to(torch.bool).contiguous()
-    _build.require_cuda(beta, scale, maxabs, step_inf, stall, i_stars, no_progs)
+    _build.require_cuda(beta, scale, maxabs, step_inf, stall, i_stars, no_progs,
+                        *(() if tel is None else (tel.buf,)))
+    if tel is not None and (tel.buf.dtype != torch.int32 or tel.buf.dim() != 1
+                            or tel.buf.shape[0] != 10 * tel.capacity):
+        raise ValueError("the ring's storage is one ring's int32 RING_WORDS * capacity words")
     if lams.device != dev or delta_ts.device != dev:
         raise ValueError("the records must lie on beta's device")
     f_out = torch.empty(3, dtype=torch.float32, device=dev)
@@ -535,10 +575,22 @@ def fused_replay(beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
                  step_inf.data_ptr(), stall.data_ptr(), i_stars.data_ptr(), lams.data_ptr(),
                  lams.stride(0), delta_ts.data_ptr(), delta_ts.stride(0), no_progs.data_ptr(),
                  K, int(k0), int(cfg.max_iters), _build.f32(cfg.renorm_threshold),
-                 _build.f32(cfg.eps_den), _build.f32(cfg.tol), f_out.data_ptr(), stall_out.data_ptr(), _build.stream(dev))
-        fused_replay.launches += 1
+                 _build.f32(cfg.eps_den), _build.f32(cfg.tol), f_out.data_ptr(),
+                 stall_out.data_ptr(),
+                 *((None, 1, 0, 0, 0) if tel is None else
+                   (tel.buf.data_ptr(), tel.capacity, tel.slot0, tel.n_dots0, tel.per_step)),
+                 _build.stream(dev))
+        (fused_replay if tel is None else fused_replay_tel).launches += 1
     _build.check("fused_step", err, "fused_replay")
     return beta, f_out[0], f_out[1], f_out[2], stall_out
+
+
+def fused_replay_tel(beta, scale, maxabs, step_inf, stall, i_stars, lams, delta_ts, no_progs,
+                     k0: int, cfg, tel):
+    """``fused_replay`` with the ring records ``tel`` (a ``ReplayRecord``):
+    the replay kernel's TEL instantiation."""
+    return fused_replay(beta, scale, maxabs, step_inf, stall, i_stars, lams, delta_ts, no_progs,
+                        k0, cfg, tel)
 
 
 dense_fused_chunk.launches = 0
@@ -546,3 +598,4 @@ dense_fused_chunk_en.launches = 0
 sparse_fused_chunk.launches = 0
 sparse_fused_chunk_en.launches = 0
 fused_replay.launches = 0
+fused_replay_tel.launches = 0

@@ -113,6 +113,24 @@ a lane's); a lane not listed (frozen) copies its residual and scalars to
 the outputs and leaves ``beta`` alone, so that the engine's swap of the
 buffers keeps its state bit for bit. Bound: L times the one-lane bytes
 (the copies of the frozen lanes included).
+
+The telemetry ring's record (``step_tail_tel`` and its EN and lane
+counterparts, each an instantiation of its own, ``TEL``; a ``TailRecord``
+names the ring): the tail's block 0 thread 0, which holds the step's
+scalars, writes the step's record (``obs/telemetry.py``'s storage) in the
+same launch: k, i_star, ``EVENT_FW``, the new stall, lam, the new
+step_inf, n_dots, and, with the objective on, the sampled gap ``<grad,
+alpha> - delta_t * g_sel`` from the step's input scalars and the objective
+``1/2 y.y + 1/2 S - F`` (``+ l2/2 Q``) from its outputs, each op rounded to
+the state's dtype as the oracle's eager ops round it. The plain version
+is the plain tail followed by the plain record (``write_record``); a
+step whose S and F the caller then refreshes gets its objective amended
+by the caller. Lanes: a stepping lane's slot, k and n_dots come from its
+cursor on the device, which the kernel advances (k = cursor, a lane's
+records being its steps; n_dots = (cursor + 1) * the dots a step), so a
+batched step copies nothing to the card; a frozen lane records nothing.
+Bound: one record adds 40 bytes written (and the 2-4 scalars read) to the
+tail's bytes.
 """
 from __future__ import annotations
 
@@ -124,13 +142,16 @@ from typing import NamedTuple
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.residual_update import residual_update_plain
+from repro_torch.obs.telemetry import EVENT_FW, write_record
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, resid, y, zty, zn2,
 #  i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol, tol, r_out, s_out, stall_out,
-#  lane_ids, n_run, n_lanes, step_inf, dtype, g_sel, q_norm, l2, stream)
+#  lane_ids, n_run, n_lanes, step_inf, dtype, g_sel, q_norm, l2, tel, tel_cap, tel_slot, tel_k,
+#  tel_ndots, tel_cursor, yty, half_l2, stream)
 _ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 12 + [_I32] + [_F32] * 4
-             + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR, _PTR, _F32, _PTR])
+             + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR, _PTR, _F32]
+             + [_PTR, _I32, _I64, _I64, _I64, _PTR, _PTR, _F32, _PTR])
 
 
 class ENTail(NamedTuple):
@@ -142,6 +163,51 @@ class ENTail(NamedTuple):
     q_norm: torch.Tensor
     l2: float
 
+
+class TailRecord(NamedTuple):
+    """The telemetry ring record a tail writes (``obs/telemetry.py``'s
+    storage). One lane: the record's ``slot``, the step's ``k`` and the dot
+    count after it, ``n_dots``. Lanes: ``buf`` is ``(L, RING_WORDS * C)``,
+    ``n_dots`` the dots a step, ``cursors`` the lanes' host cursors (the
+    plain version's slots) and ``dev_cursor`` the same ``(L,)`` int64 on
+    the device, which the kernel reads and advances (slot and k unused).
+    ``objective`` asks for the gap and the objective (the lasso's and the
+    elastic-net's from ``yty``, y.y as a 0-d tensor in the state's dtype);
+    without it they are NaN."""
+
+    buf: torch.Tensor
+    capacity: int
+    slot: int
+    k: int
+    n_dots: int
+    objective: bool = False
+    yty: torch.Tensor | None = None
+    cursors: list | None = None
+    dev_cursor: torch.Tensor | None = None
+
+    def lane(self, lane: int) -> "TailRecord":
+        """Lane ``lane``'s one-lane record of a lane record, at its host
+        cursor (the caller then advances its device cursor)."""
+        c = self.cursors[lane]
+        return TailRecord(self.buf[lane], self.capacity, c % self.capacity, c,
+                          (c + 1) * self.n_dots, self.objective, self.yty)
+
+
+def _tail_gap_objective(tel, s_in, f_in, s_out, f_out, delta_t, g_sel, en, q_out):
+    """The record's sampled gap ``<grad, alpha> - delta_t * g_sel`` (S, F, Q
+    the step's inputs, in the state's dtype) and the objective ``0.5 y.y +
+    0.5 S - F (+ 0.5 l2 Q)`` on its outputs, the oracles' eager ops (f32
+    0-d results); NaN without an objective."""
+    if not tel.objective:
+        return float("nan"), float("nan")
+    ga = s_in - f_in
+    if en is not None:
+        ga = ga + en.l2 * en.q_norm
+    gap = ga.float() - delta_t * g_sel
+    objective = 0.5 * tel.yty + 0.5 * s_out - f_out
+    if en is not None:
+        objective = objective + 0.5 * en.l2 * q_out
+    return gap, objective.float()
 
 
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -250,13 +316,15 @@ def sparse_residual_update(resid: torch.Tensor, y: torch.Tensor, col_vals: torch
 
 
 def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
-                    i_star, g, delta, cfg, en=None):
+                    i_star, g, delta, cfg, en=None, tel=None):
     """The plain version, the lasso step's eager ops after its argmax in
-    their order (with ``en``, the elastic-net's), with the scalars in f32:
-    the tail of 'torch' and of the plain sparse ops on any device, and of
-    the kernels' backends on the CPU. Arguments and returns are
+    their order (with ``en``, the elastic-net's), with the scalars in f32,
+    then with ``tel`` (a one-lane ``TailRecord``) the plain record: the
+    tail of 'torch' and of the plain sparse ops on any device, and of the
+    kernels' backends on the CPU. Arguments and returns are
     ``step_tail``'s."""
     dtype = beta.dtype
+    s_in, f_in = s_quad, f_lin
     g = g.float()
     g_sel = g if en is None else en.g_sel.float()
     delta_t = -delta * torch.sign(g_sel)  # eq. 6
@@ -285,9 +353,15 @@ def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zt
     s_quad, f_lin = sf_recursion(s_quad, f_lin, g_lin, lam, delta_t, zty_i, zn2_i)
     out = (beta, scale.to(dtype), maxabs.to(dtype), step_inf.to(dtype), stall, resid,
            s_quad.to(dtype), f_lin.to(dtype))
-    if en is None:
-        return out
-    return out + (q_recursion(q_norm, lam, delta_t, a_star).to(dtype),)
+    if en is not None:
+        out += (q_recursion(q_norm, lam, delta_t, a_star).to(dtype),)
+    if tel is not None:
+        gap, objective = _tail_gap_objective(tel, s_in, f_in, out[6], out[7], delta_t, g_sel,
+                                             en, out[8] if en is not None else None)
+        write_record(tel.buf, tel.capacity, tel.slot, k=tel.k, i_star=i_star, event=EVENT_FW,
+                     stall=stall, lam=lam, gap=gap, objective=objective, step_inf=step_inf,
+                     n_dots=tel.n_dots)
+    return out
 
 
 def _check(mat, beta, resid, y, zty, znorm2):
@@ -309,7 +383,7 @@ def _check(mat, beta, resid, y, zty, znorm2):
 def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
               stall: torch.Tensor, resid: torch.Tensor, s_quad: torch.Tensor,
               f_lin: torch.Tensor, y: torch.Tensor, zty: torch.Tensor, znorm2: torch.Tensor,
-              i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg):
+              i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg, tel=None):
     """The step's tail from its winner ``i_star`` (0-d int64) and score ``g``
     (0-d). ``mat`` is the dense ``Xt (p, m)`` or the block-ELL ``(values,
     rows)`` pair; ``beta`` (updated in place), the scalars ``scale``,
@@ -318,31 +392,68 @@ def step_tail(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor
     ``delta`` a 0-d f32; ``cfg`` gives renorm_threshold, eps_den, gap_rtol
     and tol. A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel (or raises). Returns ``(beta, scale, maxabs, step_inf,
-    stall, resid, s_quad, f_lin)``, S and F before the periodic refresh."""
-    return _tail(step_tail, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
-                 znorm2, i_star, g, delta, cfg, None)
+    stall, resid, s_quad, f_lin)``, S and F before the periodic refresh.
+    ``tel`` (a ``TailRecord``) adds the step's ring record, in the kernel's
+    TEL instantiation (counted on ``step_tail_tel``)."""
+    return _tail(step_tail if tel is None else step_tail_tel, mat, beta, scale, maxabs, stall,
+                 resid, s_quad, f_lin, y, zty, znorm2, i_star, g, delta, cfg, None, tel)
+
+
+def step_tail_tel(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2, i_star,
+                  g, delta, cfg, tel):
+    """``step_tail`` with the ring record ``tel`` (a ``TailRecord``): the tail
+    kernel's TEL instantiation."""
+    return step_tail(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                     i_star, g, delta, cfg, tel)
 
 
 def step_tail_en(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
                  stall: torch.Tensor, resid: torch.Tensor, s_quad: torch.Tensor,
                  f_lin: torch.Tensor, y: torch.Tensor, zty: torch.Tensor, znorm2: torch.Tensor,
-                 i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg, en):
+                 i_star: torch.Tensor, g: torch.Tensor, delta: torch.Tensor, cfg, en,
+                 tel=None):
     """The elastic-net's tail, in the tail kernel's EN instantiation:
     ``step_tail``'s arguments, ``g`` the winner's linear score, and ``en``
     (an ``ENTail``: its selected score, Q in the state's dtype and l2).
-    Returns ``step_tail``'s, then Q before its refresh."""
-    return _tail(step_tail_en, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
-                 znorm2, i_star, g, delta, cfg, en)
+    Returns ``step_tail``'s, then Q before its refresh. ``tel`` as
+    ``step_tail``'s (counted on ``step_tail_en_tel``)."""
+    return _tail(step_tail_en if tel is None else step_tail_en_tel, mat, beta, scale, maxabs,
+                 stall, resid, s_quad, f_lin, y, zty, znorm2, i_star, g, delta, cfg, en, tel)
+
+
+def step_tail_en_tel(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                     i_star, g, delta, cfg, en, tel):
+    """``step_tail_en`` with the ring record ``tel``: the EN TEL
+    instantiation."""
+    return step_tail_en(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                        i_star, g, delta, cfg, en, tel)
+
+
+def _tel_args(tel, lanes: bool, en, dtype):
+    """The ring's trailing arguments of ``step_tail_launch`` (null pointers:
+    no record)."""
+    if tel is None:
+        return None, 0, 0, 0, 0, None, None, 0.0
+    if tel.buf.dtype != torch.int32 or tel.buf.shape[-1] != 10 * tel.capacity:
+        raise ValueError("the ring's storage is int32, RING_WORDS * capacity words a lane")
+    if tel.objective and (tel.yty is None or tel.yty.dtype != dtype):
+        raise TypeError("a record with the objective needs y.y in the state's dtype")
+    if lanes and (tel.dev_cursor is None or tel.dev_cursor.dtype != torch.int64):
+        raise ValueError("a lane record needs the lanes' int64 cursors on the device")
+    half_l2 = 0.0 if en is None else _build.f32(0.5 * en.l2)
+    return (tel.buf.data_ptr(), tel.capacity, 0 if lanes else tel.slot, 0 if lanes else tel.k,
+            tel.n_dots, tel.dev_cursor.data_ptr() if lanes else None,
+            tel.yty.data_ptr() if tel.objective else None, half_l2)
 
 
 def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
-          i_star, g, delta, cfg, en):
+          i_star, g, delta, cfg, en, tel=None):
     """``step_tail`` (``en`` None) or ``step_tail_en``: the plain version on
     a CPU tensor, else one launch, counted on ``wrapper``."""
     _check(mat, beta, resid, y, zty, znorm2)
     if beta.device.type == "cpu":
         return step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
-                               znorm2, i_star, g, delta, cfg, en)
+                               znorm2, i_star, g, delta, cfg, en, tel)
     sparse = isinstance(mat, tuple)
     X, rows = mat if sparse else (mat, None)
     dtype = beta.dtype
@@ -359,7 +470,8 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
     g_sel = None if en is None else en.g_sel.float()
     dev = _build.require_cuda(X, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
                               znorm2, i_star, g, delta, *(() if rows is None else (rows,)),
-                              *(() if en is None else (g_sel, q_norm)))
+                              *(() if en is None else (g_sel, q_norm)),
+                              *_tel_tensors(tel))
     m = y.shape[0]
     r_out = torch.empty(m, dtype=dtype, device=dev)
     s_out = torch.empty(5 if en is None else 6, dtype=dtype, device=dev)
@@ -375,10 +487,19 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
                  _build.f32(cfg.gap_rtol), _build.f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(),
                  stall_out.data_ptr(),
                  None, 1, 1, None, _build.dtype_code(beta),
-                 *_en_args(en, g_sel, q_norm), _build.stream(dev))
+                 *_en_args(en, g_sel, q_norm), *_tel_args(tel, False, en, dtype),
+                 _build.stream(dev))
         wrapper.launches += 1
     _build.check("step_tail", err, wrapper.__name__)
     return (beta, *_outs(s_out, stall_out, r_out))
+
+
+def _tel_tensors(tel):
+    """The ring's tensors, for the device check."""
+    if tel is None:
+        return ()
+    return tuple(t for t in (tel.buf, tel.yty if tel.objective else None, tel.dev_cursor)
+                 if t is not None)
 
 
 def _en_args(en, g_sel, q_norm):
@@ -402,11 +523,13 @@ def _outs(s_out, stall_out, r_out):
 
 
 def step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
-                          zty, znorm2, i_star, g, delta, lanes, cfg, en=None):
+                          zty, znorm2, i_star, g, delta, lanes, cfg, en=None, tel=None):
     """The plain version: ``step_tail_plain`` once per listed lane, on its row
-    of ``beta`` (in place) and copies of its residual row and scalars; a
-    lane not listed keeps its residual and scalars. Arguments and returns
-    are ``step_tail_lanes``'s."""
+    of ``beta`` (in place) and copies of its residual row and scalars, with
+    ``tel`` (a lane ``TailRecord``) its record at its host cursor and then
+    its device cursor advanced; a lane not listed keeps its residual and
+    scalars and records nothing. Arguments and returns are
+    ``step_tail_lanes``'s."""
     fields = (scale, maxabs, step_inf, stall, resid, s_quad, f_lin)
     if en is not None:
         fields += (en.q_norm,)
@@ -415,12 +538,15 @@ def step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_qu
     for lane in sorted(run):
         en_l = None if en is None else ENTail(en.g_sel[lane].clone(), en.q_norm[lane].clone(),
                                               en.l2)
+        tel_l = None if tel is None else tel.lane(lane)
         got = step_tail_plain(mat, beta[lane], scale[lane].clone(), maxabs[lane].clone(),
                               stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
                               f_lin[lane].clone(), y, zty, znorm2, i_star[lane].clone(),
-                              g[lane].clone(), delta[lane].clone(), cfg, en_l)
+                              g[lane].clone(), delta[lane].clone(), cfg, en_l, tel_l)
         for ts, t in zip(outs, got[1:]):
             ts[lane] = t
+        if tel is not None:
+            tel.dev_cursor[lane] += 1
     return (beta, *(torch.stack(ts) for ts in outs))
 
 
@@ -428,7 +554,7 @@ def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.
                     step_inf: torch.Tensor, stall: torch.Tensor, resid: torch.Tensor,
                     s_quad: torch.Tensor, f_lin: torch.Tensor, y: torch.Tensor,
                     zty: torch.Tensor, znorm2: torch.Tensor, i_star: torch.Tensor,
-                    g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg):
+                    g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg, tel=None):
     """The step's tail for L lanes in one launch: ``beta (L, p)`` (updated
     in place), ``resid (L, m)``, the scalars ``scale``, ``maxabs``,
     ``step_inf``, ``stall``, ``s_quad``, ``f_lin``, the winners ``i_star``,
@@ -438,26 +564,48 @@ def step_tail_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.
     are frozen (outputs equal to their inputs). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (or raises). Returns
     ``(beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin)``, each
-    lane-stacked, S and F before the periodic refresh."""
-    return _tail_lanes(step_tail_lanes, mat, beta, scale, maxabs, step_inf, stall, resid,
-                       s_quad, f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, None)
+    lane-stacked, S and F before the periodic refresh. ``tel`` (a lane
+    ``TailRecord``) adds each stepping lane's ring record, in the lane TEL
+    instantiation (counted on ``step_tail_lanes_tel``)."""
+    return _tail_lanes(step_tail_lanes if tel is None else step_tail_lanes_tel, mat, beta, scale,
+                       maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty, znorm2, i_star, g,
+                       delta, lanes, cfg, None, tel)
+
+
+def step_tail_lanes_tel(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty,
+                        znorm2, i_star, g, delta, lanes, cfg, tel):
+    """``step_tail_lanes`` with the lanes' ring records ``tel``: the lane TEL
+    instantiation."""
+    return step_tail_lanes(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                           zty, znorm2, i_star, g, delta, lanes, cfg, tel)
 
 
 def step_tail_en_lanes(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tensor,
                        step_inf: torch.Tensor, stall: torch.Tensor, resid: torch.Tensor,
                        s_quad: torch.Tensor, f_lin: torch.Tensor, y: torch.Tensor,
                        zty: torch.Tensor, znorm2: torch.Tensor, i_star: torch.Tensor,
-                       g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg, en):
+                       g: torch.Tensor, delta: torch.Tensor, lanes: torch.Tensor, cfg, en,
+                       tel=None):
     """The elastic-net's tail for L lanes in one launch of the tail kernel's
     EN lane instantiation: ``step_tail_lanes``' arguments and ``en`` (an
     ``ENTail`` of ``(L,)`` selected scores and Q). Returns
-    ``step_tail_lanes``', then the lanes' Q."""
-    return _tail_lanes(step_tail_en_lanes, mat, beta, scale, maxabs, step_inf, stall, resid,
-                       s_quad, f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en)
+    ``step_tail_lanes``', then the lanes' Q. ``tel`` as
+    ``step_tail_lanes``' (counted on ``step_tail_en_lanes_tel``)."""
+    return _tail_lanes(step_tail_en_lanes if tel is None else step_tail_en_lanes_tel, mat, beta,
+                       scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                       i_star, g, delta, lanes, cfg, en, tel)
+
+
+def step_tail_en_lanes_tel(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                           zty, znorm2, i_star, g, delta, lanes, cfg, en, tel):
+    """``step_tail_en_lanes`` with the lanes' ring records ``tel``: the EN
+    lane TEL instantiation."""
+    return step_tail_en_lanes(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                              zty, znorm2, i_star, g, delta, lanes, cfg, en, tel)
 
 
 def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
-                zty, znorm2, i_star, g, delta, lanes, cfg, en):
+                zty, znorm2, i_star, g, delta, lanes, cfg, en, tel=None):
     """``step_tail_lanes`` (``en`` None) or ``step_tail_en_lanes``: the
     plain version on a CPU tensor, else one launch, counted on ``wrapper``."""
     if beta.dim() != 2 or resid.dim() != 2 or resid.shape[0] != beta.shape[0]:
@@ -472,7 +620,7 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
     _check(mat, beta[0], resid[0], y, zty, znorm2)
     if beta.device.type == "cpu":
         return step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
-                                     f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en)
+                                     f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en, tel)
     sparse = isinstance(mat, tuple)
     X, rows = mat if sparse else (mat, None)
     dtype = beta.dtype
@@ -492,7 +640,7 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
     dev = _build.require_cuda(X, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
                               zty, znorm2, i_star, g, delta, lanes,
                               *(() if rows is None else (rows,)),
-                              *(() if en is None else (g_sel, q_norm)))
+                              *(() if en is None else (g_sel, q_norm)), *_tel_tensors(tel))
     m = y.shape[0]
     r_out = torch.empty((L, m), dtype=dtype, device=dev)
     s_out = torch.empty((5 if en is None else 6, L), dtype=dtype, device=dev)
@@ -508,7 +656,8 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
                  _build.f32(cfg.gap_rtol), _build.f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(),
                  stall_out.data_ptr(),
                  *_build.lane_ids_arg(lanes), L, step_inf.data_ptr(),
-                 _build.dtype_code(beta), *_en_args(en, g_sel, q_norm), _build.stream(dev))
+                 _build.dtype_code(beta), *_en_args(en, g_sel, q_norm),
+                 *_tel_args(tel, True, en, dtype), _build.stream(dev))
         wrapper.launches += 1
     _build.check("step_tail", err, wrapper.__name__)
     return (beta, *_outs(s_out, stall_out, r_out))
@@ -518,6 +667,10 @@ step_tail.launches = 0
 step_tail_en.launches = 0
 step_tail_lanes.launches = 0
 step_tail_en_lanes.launches = 0
+step_tail_tel.launches = 0
+step_tail_en_tel.launches = 0
+step_tail_lanes_tel.launches = 0
+step_tail_en_lanes_tel.launches = 0
 
 
 # --------------------------------------------------------------------------

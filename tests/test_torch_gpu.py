@@ -16,6 +16,8 @@ have no near-ties), lam within RTOL_SUM, the residual within RTOL_SUM of
 ||y||. A sparse solve on the kernels against one on the plain ops:
 objectives within RTOL_SUM.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -1290,3 +1292,76 @@ def test_cd_solve_on_the_card_matches_the_plain_route(stochastic):
     fi = baselines.fista_solve(X, y, FISTAConfig(lam=cfg.lam, tol=1e-4), seed=0)
     pen = lambda r: float(r.objective) + cfg.lam * float(r.alpha.abs().sum())  # noqa: E731
     assert abs(pen(fi) - pen(gpu)) <= 1e-3 * pen(gpu)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_tel_kernels_match_plain_on_the_card(layout):
+    """The TEL instantiations (the step tail's four, the replay) bit for bit
+    their plain versions, ring words and device cursors included
+    (chip_smoke.py's phase-2 cases at a small size): the tail in f32 and
+    bf16, lasso and EN, the objective on and off, across the ring's wrap;
+    the lane tails at 3 and 13 lanes with a frozen lane; the replay at K = 8
+    with a renorm, a repeated winner and a masked tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+
+    cs = _chip_smoke()
+    mat, y, X = _sparse_problem(p=3000, m=803)
+    before = launch_counts()
+    errs = cs.phase2_tel_kernels(torch, mat if layout == "sparse" else X, y, layout)
+    assert set(errs.values()) == {0.0}
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    assert launched["step_tail_tel"] > 0 and launched["step_tail_en_tel"] > 0
+    assert launched["step_tail_lanes_tel"] > 0 and launched["step_tail_en_lanes_tel"] > 0
+    assert (launched["fused_replay_tel"] > 0) == (layout == "dense")
+    assert st.step_tail_tel.launches >= launched["step_tail_tel"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [1, 8])
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_telemetry_on_is_the_off_trajectory_on_the_card(backend, fuse):
+    """A solve with the ring on: the off solve's alpha bits, iterations and
+    n_dots; one TEL tail launch a step (unfused) or one TEL replay a chunk
+    (fused, record_objective off) and no launch of the plain instantiation;
+    the cursor the iteration count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import engine
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.obs import TelemetrySpec, ring_to_records
+
+    mat, y, X = _sparse_problem()
+    design = mat if backend == "sparse" else X
+    cfg = FWConfig(delta=20.0, kappa=100, max_iters=300, tol=1e-4, backend=backend,
+                   fuse_steps=fuse)
+    off = engine.solve(LASSO, design, y, cfg, TorchSampler(3, "cuda"))
+    before = launch_counts()
+    spec = TelemetrySpec(capacity=64, record_objective=fuse == 1)
+    on = engine.solve(LASSO, design, y, dataclasses.replace(cfg, telemetry=spec),
+                      TorchSampler(3, "cuda"))
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    assert _bits_equal(off.alpha, on.alpha)
+    assert (off.iterations, off.n_dots) == (on.iterations, on.n_dots)
+    assert on.telemetry.cursor == on.iterations
+    if fuse == 1:
+        assert launched["step_tail_tel"] == on.iterations and launched["step_tail"] == 0
+        rec = ring_to_records(on.telemetry)
+        assert float(rec["objective"][-1]) == float(on.objective)
+    else:
+        chunk = "sparse_fused_chunk" if backend == "sparse" else "dense_fused_chunk"
+        assert launched["fused_replay_tel"] == launched[chunk] > 0
+        assert launched["fused_replay"] == 0

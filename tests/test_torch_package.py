@@ -4,7 +4,8 @@
     imports JAX or the reference;
   * the entry points run on the card by default, and raise without one;
   * the reference's options that the port does not run yet raise
-    NotImplementedError naming their ROADMAP.md item; the 'sparse' backend
+    NotImplementedError naming their ROADMAP.md item (a telemetry spec
+    that is not a TelemetrySpec raises TypeError); the 'sparse' backend
     runs, on a SparseBlockMatrix only, and the sparse reader/writer
     (``sparse/io.py``) is still absent;
   * the fused K-step chunk runs, and says so, where the reference's does.
@@ -82,17 +83,34 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert res.iterations == 3 and res.alpha.device.type == "cpu"
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(telemetry=object()), "item 11"),
-    (dict(backend="distributed"), "item 13"),
+@pytest.mark.parametrize("change,error,match", [
+    # telemetry is ported (ROADMAP.md item 11): only a spec of another type is
+    # refused; the case keeps its id
+    pytest.param(dict(telemetry=object()), TypeError, "TelemetrySpec", id="change0-item 11"),
+    pytest.param(dict(backend="distributed"), NotImplementedError, "item 13",
+                 id="change1-item 13"),
 ])
-def test_unported_options_raise(change, item):
+def test_unported_options_raise(change, error, match):
     Xt, y = _problem()
     cfg = dataclasses.replace(FWConfig(delta=1.0, kappa=5, max_iters=3), **change)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         fw_solve(Xt, y, cfg, TorchSampler(0, "cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         fw_path(Xt, y, [1.0], cfg, device="cpu")
+
+
+def test_telemetry_runs_and_the_obs_modules_are_in_the_import_check():
+    """A solve with a TelemetrySpec runs (no refusal); the import check
+    walks the obs and utils packages."""
+    from repro_torch.obs import TelemetrySpec
+
+    Xt, y = _problem()
+    res = fw_solve(Xt, y, FWConfig(delta=1.0, kappa=5, max_iters=3,
+                                   telemetry=TelemetrySpec(capacity=4)),
+                   TorchSampler(0, "cpu"), device="cpu")
+    assert res.telemetry.cursor == 3
+    walked = {f.parent.name for f in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert {"obs", "utils"} <= walked
 
 
 def test_sparse_io_is_not_ported_yet():
