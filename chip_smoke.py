@@ -173,6 +173,24 @@ its sequential solve's, and on both layouts the first 3 points fused with
 replay beside their plain instantiations in turns, and the dense unfused
 step's wall and device time with the ring on and off, alternated.
 
+Resilience (the guarded solve, checkpoints, shards): phase 2 holds
+``health_flags`` bit for bit against its plain version (a clean state and
+NaN, +Inf, -Inf at the first, a middle and the last element of beta and
+the residual and in each scalar; the dense size, E2006's and a ragged one;
+f32 and bf16; twice each); phase 3 runs the dense path's first 3 points
+through the guarded solve, fused and unfused: with no fault bit for bit
+the unguarded path (one ``health_flags`` launch a check), ``co_nan``
+healed at rung 1 and ``beta_nan`` at rung 2 (the counters exact, rung 3
+at 0; the unfused retry bit for bit, the rest to rounding against the
+unfused path), ``fw_path`` killed at point 1 and resumed, and
+``fw_path_batched`` in lanes of 13 killed at chunk 1 and resumed (f32 and
+bf16), bit for bit; on the sparse path the E2006-log1p proxy's 137 M
+triplets go to coo-npz-v1 shards and back through
+``load_shards_as_matrix(device='cuda')`` (the proxy's matrix, a fused
+point on it bit for bit, a corrupted read healed by one retry, each
+pass's GB/s); phase 5 times ``health_flags`` beside its plain version and
+bound, the snapshot, and a guarded fused point against an unguarded one.
+
 About 10 to 13 minutes on an H100, the builds included, as fast as the
 host (aim: 600 s, limit 1200 s); the baselines' phases print their
 seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
@@ -381,6 +399,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_rule_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_cd_sweep(torch, dev))
     errs.update(phase2_tel_kernels(torch, Xt, y, "dense"))
+    errs.update(phase2_health(torch, [(P_PAPER, M_PAPER), HEALTH_RAGGED], "dense"))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -391,11 +410,15 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         launches.update(main_launches)
         for name in ("dense_fused_chunk", "fused_replay"):
             launches[name] = fused_launches[name]
-        batched_launches, _ = phase3_batched_path(torch, Xt, y, coef, "dense")
+        batched_launches, batched_run = phase3_batched_path(torch, Xt, y, coef, "dense")
         for name in ("sampled_scores_lanes", "vertex_argmax_lanes", "step_tail_lanes"):
             launches[name] = batched_launches[name]
         phase4_other_backend(torch, Xt, y, main_run)
         phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
+        launches["health_flags"] = phase3_guarded(torch, Xt, y, main_run,
+                                                  fused_run)["health_flags"]
+        phase3_checkpoints(torch, Xt, y, main_run, fused_run, batched_run)
+        timing.update(phase5_resilience_timing(torch, Xt, y, main_run, fused_run))
         phase4_lanes_vs_sequential(torch, dev)
         en_launches, en_runs = phase3_en_paths(torch, Xt, y, coef, "dense")
         launches.update(en_launches)
@@ -443,11 +466,13 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update({f"{k}_sparse": v for k, v in en_errs.items()})
     errs.update(phase2_rule_kernels(torch, mat, y, "sparse"))
     errs.update(phase2_tel_kernels(torch, mat, y, "sparse"))
+    errs.update(phase2_health(torch, [(mat.p, mat.m)], "sparse"))
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
         return
     fused_launches, fused_run = phase3_sparse_fused_path(torch, mat, y, coef)
+    phase3_shards(torch, mat, y, fused_run)
     phase3_warm_start_bits(torch, mat, fused_run)
     unfused_launches, unfused_run = phase3_sparse_unfused_points(torch, mat, y, fused_run)
     block_launches = phase3_sparse_block_point(torch, mat, y, fused_run)
@@ -558,6 +583,10 @@ KERNELS = {
         replaces="src/repro/kernels/residual_update/residual_update.py:45"),
     "fused_replay_tel": dict(source="src/repro_torch/kernels/csrc/fused_step.cu",
                              replaces="src/repro/core/engine.py:387"),
+    # the guarded solve's health check in one launch: the port's own kernel
+    # for the reference's jitted XLA check between chunks
+    "health_flags": dict(source="src/repro_torch/kernels/csrc/health.cu",
+                         replaces="src/repro/resilience/guards.py:127"),
 }
 
 
@@ -5844,6 +5873,513 @@ def phase5_tel_timing(torch, design, y, layout):
               "ms a step")
     print(f"[tel] phase 5 {layout} took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------
+# resilience: the health check kernel, the guarded solve and its ladder,
+# path checkpoint/resume, and the coo-npz-v1 shards at E2006-log1p's size
+# --------------------------------------------------------------------------
+
+HEALTH_RAGGED = (37, 803)  # a ragged small (p, m) beside each path's own
+RES_POINTS = 3  # the first grid points the guarded and checkpointed paths run
+RES_FAULT_AT = 2  # the fault's occurrence: the path's third guard chunk
+RES_BATCH_POINTS = 2 * LANE_WIDTH  # the batched checkpoint: 13 lanes, 2 chunks
+
+
+def _health_state(torch, g, p, m, dtype):
+    """beta, scale, and a lasso co-state (residual, S, F) on the card."""
+    dev = torch.device("cuda")
+    beta = torch.randn(p, generator=g, device=dev).to(dtype)
+    co = [torch.randn(m, generator=g, device=dev).to(dtype),
+          torch.tensor(30.0, device=dev).to(dtype), torch.tensor(10.0, device=dev).to(dtype)]
+    return beta, torch.tensor(0.5, device=dev).to(dtype), co
+
+
+def phase2_health(torch, sizes, label):
+    """``health_flags`` against its plain version at each (p, m) of
+    ``sizes``, f32 and bf16: a clean state, and NaN, +Inf and -Inf at the
+    first, a middle and the last element of beta and of the residual and in
+    each scalar (scale, S, F); equal flags, twice each, with equal bits."""
+    from repro_torch.kernels import health
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+    stall = torch.tensor(6, dtype=torch.int32, device="cuda")
+    n_cases = 0
+    for p, m in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            beta, scale, co = _health_state(torch, g, p, m, dtype)
+            tensors = [beta, scale] + co
+            cases = [(None, None, 0.0)]
+            for t, arr in enumerate(tensors):
+                places = (0, arr.numel() // 2, arr.numel() - 1) if arr.dim() else (None,)
+                cases += [(t, i, v) for i in places
+                          for v in (float("nan"), float("inf"), float("-inf"))]
+            for t, i, v in cases:
+                old = None
+                if t is not None:
+                    arr = tensors[t]
+                    old = arr.clone() if i is None else arr[i].clone()
+                    if i is None:
+                        arr.fill_(v)
+                    else:
+                        arr[i] = v
+                args = (tensors[0], tensors[1], tensors[2:], stall)
+                want = health.health_flags_plain(*args)
+                got = [health.health_flags(*args) for _ in range(2)]
+                torch.cuda.synchronize()
+                check(_same_bits(torch, got[0], want) and _same_bits(torch, got[1], want),
+                      f"health_flags {label} p={p} m={m} {dtype} case {(t, i, v)}: "
+                      f"{got[0].tolist()}/{got[1].tolist()} against plain {want.tolist()}")
+                if t is not None:
+                    if i is None:
+                        tensors[t].copy_(old)
+                    else:
+                        tensors[t][i] = old
+                n_cases += 1
+            del beta, tensors
+    print(f"[health] {label}: health_flags equal to its plain version (twice each, equal "
+          f"bits) on {n_cases} cases at (p, m) = {sizes}, f32 and bf16 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"health_flags" if label == "dense" else "health_flags_sparse": 0.0}
+
+
+def _guard_path(torch, Xt, y, deltas, cfg, rec, plan=None):
+    """``fw_path`` through the guarded solve (GuardSpec defaults), recording
+    each point's kept turns; with ``plan`` under that fault plan. Returns the
+    path, the registry's guard counters and the launches."""
+    import functools
+
+    from repro_torch import kernels
+    from repro_torch.core import fw_path
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import faults, guards
+
+    calls = [0]
+
+    def solve(oracle, X, yv, c, sampler, a0, d):
+        g = calls[0]
+        calls[0] += 1
+        return guards.solve_resilient(oracle, X, yv, c, sampler, a0, d, device=X.device,
+                                      on_step=functools.partial(rec, g))
+
+    reg = obs_metrics.MetricsRegistry()
+    kernels.reset_launch_counts()
+    with obs_metrics.use_registry(reg):
+        if plan is None:
+            res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, solve_fn=solve)
+        else:
+            with faults.inject(plan):
+                res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, solve_fn=solve)
+    launches = kernels.launch_counts()
+    counters = {}
+    for name in ("fw_guard_checks", "fw_guard_trips", "fw_guard_recoveries",
+                 "fw_guard_unrecovered"):
+        fam = reg.get(name)
+        counters[name] = {} if fam is None else {
+            ",".join(f"{k}={v}" for k, v in key): val for key, val in fam.series()}
+    return res, counters, launches
+
+
+def _points_equal(torch, a, b, n):
+    """The first ``n`` points of two paths: support, values' bits,
+    iterations, n_dots and the objective equal."""
+    import numpy as np
+
+    for g in range(n):
+        pa, pb = a.points[g], b.points[g]
+        if not (np.array_equal(pa.alpha_nnz_idx, pb.alpha_nnz_idx)
+                and pa.alpha_nnz_val.tobytes() == pb.alpha_nnz_val.tobytes()
+                and (pa.iterations, pa.n_dots, pa.objective)
+                == (pb.iterations, pb.n_dots, pb.objective)):
+            return False
+    return True
+
+
+def _sequences_equal(torch, ra, rb, n):
+    return all(torch.equal(ra.sequence(g), rb.sequence(g)) for g in range(n))
+
+
+def phase3_guarded(torch, Xt, y, main, fused):
+    """The guarded solve (``resilience.guards.resilient_solve_fn``,
+    GuardSpec defaults: a check every 8 turns) on the dense path's first
+    RES_POINTS points, fused (K = 8) and unfused: with no fault, bit for bit
+    the unguarded path (vertices, alpha bits, iterations), one health_flags
+    launch a check, no trip; then co_nan at the RES_FAULT_AT-th guard chunk
+    healed at rung 1 (the co-state rebuilt from X @ alpha: the unguarded
+    run to rounding) and beta_nan there healed at rung 2 (the chunk again
+    from the snapshot, K unfused steps on the same kernels) bit for bit the
+    unguarded run, fused also at guard chunk 1, which holds point 0's first
+    S/F refresh (the retried chunk sums it with cuBLAS where K4 sums in its
+    fixed order; on this data the two round alike). Rung 3 never fires;
+    forced (the retry patched to come back NaN), it raises
+    UnrecoverableFaultError on the card, counted as unrecovered, and no
+    plain version runs. Returns the no-fault fused run's launches."""
+    from repro_torch.core import LASSO
+    from repro_torch.core.path import point_seed
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import faults, guards
+
+    t0 = time.perf_counter()
+    n = RES_POINTS
+    deltas = main["deltas"][:n]
+    out = {}
+    for tag, ref, cfg in (("fused", fused, fused["cfg"]), ("unfused", main, main["cfg"])):
+        rec = Recorder(n)
+        res, counters, launches = _guard_path(torch, Xt, y, deltas, cfg, rec)
+        checks = sum(counters["fw_guard_checks"].values())
+        print(f"[guard] {tag} no fault: iterations {[pt.iterations for pt in res.points]}, "
+              f"counters {counters}, health_flags launches {launches['health_flags']}, "
+              f"{res.total_seconds:.3f} s")
+        check(_points_equal(torch, res, ref["res"], n) and _sequences_equal(torch, rec, ref["rec"],
+                                                                           n),
+              f"guard {tag}: the guarded path is not the unguarded one bit for bit")
+        check(launches["health_flags"] == checks > 0,
+              f"guard {tag}: health_flags launches {launches['health_flags']} != checks {checks}")
+        check(not counters["fw_guard_trips"] and not counters["fw_guard_recoveries"],
+              f"guard {tag}: a trip or a recovery without a fault: {counters}")
+        if tag == "fused":
+            out = launches
+        faults_run = [("co_nan", "rebuild_co", RES_FAULT_AT),
+                      ("beta_nan", "retry_chunk", RES_FAULT_AT)]
+        if tag == "fused":
+            # guard chunk 1 holds k = 64..127 of point 0: the S/F refresh at
+            # k = 127 runs in the retried chunk's unfused steps
+            faults_run.append(("beta_nan", "retry_chunk", 1))
+        for kind, rung, at in faults_run:
+            plan = faults.FaultPlan([faults.FaultSpec(kind=kind, at=at)], seed=7)
+            frec = Recorder(n)
+            fres, fcounters, _ = _guard_path(torch, Xt, y, deltas, cfg, frec, plan)
+            reason = "nonfinite_co" if kind == "co_nan" else "nonfinite_beta"
+            print(f"[guard] {tag} {kind} at guard chunk {at}: fired {plan.fired()}, "
+                  f"counters {fcounters}")
+            check(len(plan.fired(kind)) == 1, f"guard {tag}: {kind} did not fire once")
+            check(fcounters["fw_guard_trips"] == {f"backend=kernels,reason={reason}": 1.0}
+                  and fcounters["fw_guard_recoveries"] == {f"backend=kernels,rung={rung}": 1.0},
+                  f"guard {tag} {kind}: healed otherwise than at {rung}: {fcounters}")
+            bits = _points_equal(torch, fres, ref["res"], n) and _sequences_equal(
+                torch, frec, ref["rec"], n)
+            print(f"[guard] {tag} {kind} healed at {rung}; backend_fallback 0; bit for bit the "
+                  f"unguarded path: {bits}")
+            if kind == "beta_nan":
+                check(bits, f"guard {tag} beta_nan at guard chunk {at}: the retried chunk is "
+                            "not the unguarded run bit for bit")
+            elif not bits:
+                # against the unfused path, which recorded every step's
+                # residual: the same trajectory up to a near-tie
+                _compare_paths(torch, Xt, y, deltas, cfg.kappa,
+                               dict(label=f"guarded {tag} {kind}", res=fres, rec=frec),
+                               dict(label="unfused", res=main["res"], rec=main["rec"]),
+                               max_overshoot=FUSE - 1 if tag == "fused" else 0)
+
+    def poisoned_retry(oracle, X, yv, stats, state, c, d, n_turns, sampler, turns=None):
+        out = guards._advance(oracle, X, yv, stats, state, c, d, n_turns, sampler, True, turns)
+        return out._replace(beta=torch.full_like(out.beta, float("nan")))
+
+    reg = obs_metrics.MetricsRegistry()
+    plan = faults.FaultPlan([faults.FaultSpec(kind="beta_nan", at=1)], seed=7)
+    retry, guards._retry_chunk = guards._retry_chunk, poisoned_retry
+    raised = None
+    try:
+        with obs_metrics.use_registry(reg), faults.inject(plan):
+            guards.solve_resilient(LASSO, Xt, y, fused["cfg"],
+                                   TorchSampler(point_seed(0, 0), Xt.device), None,
+                                   float(deltas[0]), device=Xt.device)
+    except guards.UnrecoverableFaultError as err:
+        raised = str(err)
+    finally:
+        guards._retry_chunk = retry
+    recov = reg.get("fw_guard_recoveries")
+    unrec = reg.get("fw_guard_unrecovered")
+    print(f"[guard] rung 3 forced on the card (the retry patched to NaN): raised {raised!r}")
+    check(raised is not None and "backend: kernels" in raised and "nonfinite_beta" in raised,
+          f"guard: a forced rung 3 on the card did not raise naming the backend: {raised!r}")
+    check(unrec is not None and unrec.value(backend="kernels") == 1.0
+          and (recov is None or not recov.series()),
+          "guard: a forced rung 3 was not counted as unrecovered, or something recovered")
+    print(f"[guard] phase 3 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _killed(fn):
+    """Run ``fn`` under its kill plan; it must stop with InjectedKill."""
+    from repro_torch.resilience import faults
+
+    try:
+        fn()
+    except faults.InjectedKill as err:
+        print(f"[ckpt] {err}")
+        return
+    check(False, "the kill plan did not stop the path")
+
+
+def phase3_checkpoints(torch, Xt, y, main, fused, batched):
+    """Kill and resume on the card: ``fw_path`` (fused K = 8) over the first
+    RES_POINTS points killed at point 1, then resumed from its checkpoint:
+    bit for bit the uninterrupted path's points; ``fw_path_batched`` in
+    lanes of 13 over 2 chunks killed at chunk 1 and resumed, f32 (against
+    the batched path's first 26 points) and bf16 (against its own
+    uninterrupted run): bit for bit, saved_iters and totals included."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import fw_path, fw_path_batched
+    from repro_torch.resilience import faults
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="repro_ckpt_"))
+    try:
+        deltas = main["deltas"][:RES_POINTS]
+        cfg = fused["cfg"]
+        ck = str(root / "fw_path")
+
+        def killed_path():
+            plan = faults.FaultPlan([faults.FaultSpec(kind="kill", at=1)], seed=0)
+            with faults.inject(plan):
+                fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, checkpoint_dir=ck)
+
+        _killed(killed_path)
+        res = fw_path(Xt, y, deltas, cfg, seed=0, device=Xt.device, checkpoint_dir=ck,
+                      resume_from=ck)
+        check(_points_equal(torch, res, fused["res"], RES_POINTS),
+              "fw_path resumed after a kill at point 1 is not the uninterrupted path")
+        print(f"[ckpt] fw_path fused K={FUSE}: killed at point 1, resumed; points 0-"
+              f"{RES_POINTS - 1} bit for bit the uninterrupted path "
+              f"({[pt.iterations for pt in res.points]} iterations)")
+
+        bdeltas = main["deltas"][:RES_BATCH_POINTS]
+        bcfg = main["cfg"]
+        for dtype in (torch.float32, torch.bfloat16):
+            X, yv = (Xt, y) if dtype == torch.float32 else (Xt.to(dtype), y.to(dtype))
+            ckb = str(root / f"batched-{dtype}")
+            if dtype == torch.float32:
+                clean = batched["res"]
+            else:
+                clean = fw_path_batched(X, yv, bdeltas, bcfg, seed=0, lane_width=LANE_WIDTH,
+                                        device=X.device)
+
+            def killed_batched():
+                plan = faults.FaultPlan([faults.FaultSpec(kind="kill", at=1)], seed=0)
+                with faults.inject(plan):
+                    fw_path_batched(X, yv, bdeltas, bcfg, seed=0, lane_width=LANE_WIDTH,
+                                    device=X.device, checkpoint_dir=ckb)
+
+            _killed(killed_batched)
+            res = fw_path_batched(X, yv, bdeltas, bcfg, seed=0, lane_width=LANE_WIDTH,
+                                  device=X.device, checkpoint_dir=ckb, resume_from=ckb)
+            check(_points_equal(torch, res, clean, RES_BATCH_POINTS),
+                  f"fw_path_batched {dtype} resumed after a kill at chunk 1 is not the "
+                  "uninterrupted path")
+            if dtype != torch.float32:
+                check((res.saved_iters, res.total_dots, res.total_iters)
+                      == (clean.saved_iters, clean.total_dots, clean.total_iters),
+                      f"fw_path_batched {dtype}: resumed totals differ")
+            print(f"[ckpt] fw_path_batched {dtype} lanes of {LANE_WIDTH}, 2 chunks: killed at "
+                  f"chunk 1, resumed; {RES_BATCH_POINTS} points bit for bit the uninterrupted "
+                  f"run ({res.total_iters} lane-iterations, saved_iters {res.saved_iters})")
+            del X, yv
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[ckpt] phase 3 took {time.perf_counter() - t0:.1f} s")
+
+
+def _digest(torch, *tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _slot_sets(torch, mat):
+    """Each stored nonzero as (feature * m + row, value), sorted by key:
+    the matrix's (row, value) sets column for column, whatever the slot
+    order."""
+    vals = mat.values.reshape(-1)
+    keep = vals != 0
+    feat = torch.arange(mat.p_padded, device=vals.device).repeat_interleave(mat.nnz_max)[keep]
+    key = feat * mat.m + mat.rows.reshape(-1)[keep].long()
+    key, order = torch.sort(key)
+    return key, vals[keep][order]
+
+
+def phase3_shards(torch, mat, y, fused):
+    """The E2006-log1p proxy's triplets (all of them) written as coo-npz-v1
+    shards to a temporary directory, read back through
+    ``load_shards_as_matrix(device='cuda')`` (pass 1 counts on the host,
+    pass 2 fills the block-ELL slots on the card): the loaded matrix holds
+    the proxy's (row, value) sets column for column and the proxy's bits
+    wherever the slot orders agree (digests printed); the first fused
+    point on it is bit for bit the in-memory one's; one shard_corrupt heals
+    through the retry (fw_shard_retries 1). Each pass's seconds and GB/s
+    are printed; the directory is removed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import fw_path
+    from repro_torch.obs import Tracer, use_tracer
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import faults
+    from repro_torch.sparse import io as sio
+
+    t0 = time.perf_counter()
+    dev = mat.device
+    nnz = int(torch.count_nonzero(mat.values))
+    need = nnz * (4 + 8 + 4) + mat.m * 4  # rows int32, cols int64, vals f32, y
+    root = tempfile.mkdtemp(prefix="repro_shards_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= 2 * need, f"the shard phase needs {2 * need:,} bytes free in {root} "
+                                f"(twice the {need:,} bytes of shards), has {free:,}")
+        vals = mat.values.reshape(-1)
+        keep = vals != 0
+        feat = torch.arange(mat.p_padded, device=dev).repeat_interleave(mat.nnz_max)[keep]
+        rows = mat.rows.reshape(-1)[keep].long()
+        order = torch.argsort(rows * mat.p + feat)  # (row, feature) order: unique keys
+        coo = sio.COOData(rows[order].cpu().numpy(), feat[order].cpu().numpy(),
+                          vals[keep][order].cpu().numpy(), y.cpu().numpy(), (mat.m, mat.p))
+        del feat, rows, order, keep
+        t1 = time.perf_counter()
+        sio.write_shards(root, coo)
+        t_write = time.perf_counter() - t1
+        del coo
+        manifest = sio.read_manifest(root)
+        nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in manifest["shards"])
+        print(f"[shards] {nnz:,} triplets of the E2006-log1p proxy in {len(manifest['shards'])} "
+              f"shards of {manifest['rows_per_shard']} rows, {nbytes:,} bytes; extracted in "
+              f"{t1 - t0:.2f} s; written (sha256 included) in {t_write:.2f} s, "
+              f"{nbytes / t_write / 1e9:.3f} GB/s; {free:,} bytes were free")
+        tracer = Tracer("shards")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with use_tracer(tracer):
+            loaded, y2 = sio.load_shards_as_matrix(root, block_size=mat.block_size, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+        spans = tracer.span_table()
+        t_count = spans["sparse_io/count_pass"]["total_s"]
+        t_fill = t_load - t_count
+        print(f"[shards] load_shards_as_matrix(device='cuda'): {t_load:.2f} s; pass 1 (host "
+              f"bincount) {t_count:.2f} s, {nbytes / t_count / 1e9:.3f} GB/s; pass 2 (device "
+              f"fill) {t_fill:.2f} s, {nbytes / t_fill / 1e9:.3f} GB/s; nnz_max "
+              f"{loaded.nnz_max} (proxy {mat.nnz_max})")
+        check((loaded.p, loaded.m, loaded.block_size) == (mat.p, mat.m, mat.block_size),
+              "the loaded matrix's geometry differs")
+        check(_same_bits(torch, y2, y), "the loaded y differs from the proxy's")
+        ka, va = _slot_sets(torch, mat)
+        kb, vb = _slot_sets(torch, loaded)
+        check(torch.equal(ka, kb) and _same_bits(torch, va, vb),
+              "the loaded matrix's (row, value) sets differ from the proxy's")
+        del ka, va, kb, vb
+        same_geom = loaded.nnz_max == mat.nnz_max
+        in_place = same_geom and torch.equal(loaded.rows, mat.rows)
+        if same_geom:
+            agree = loaded.rows == mat.rows
+            check(torch.equal(loaded.values[agree], mat.values[agree]),
+                  "values differ where the slot orders agree")
+            share = float(agree.float().mean())
+            del agree
+        else:
+            share = 0.0
+        print(f"[shards] the loaded matrix holds the proxy's (row, value) sets column for "
+              f"column; slot orders agree on {100 * share:.4f}% of slots (the same arrays: "
+              f"{in_place}); digests values+rows: proxy {_digest(torch, mat.values, mat.rows)}, "
+              f"loaded {_digest(torch, loaded.values, loaded.rows)}")
+        res = fw_path(loaded, y2, fused["deltas"][:1], fused["cfg"], seed=0, device=dev)
+        check(_points_equal(torch, res, fused["res"], 1),
+              "the fused point on the loaded matrix is not the in-memory one")
+        print(f"[shards] fused point 0 on the loaded matrix: bit for bit the in-memory one "
+              f"({res.points[0].iterations} iterations, objective {res.points[0].objective!r})")
+        del loaded
+        first = manifest["shards"][0]
+        clean = next(sio.iter_shards_for_rows(root, 0, 1))[0]
+        reg = obs_metrics.MetricsRegistry()
+        plan = faults.FaultPlan([faults.FaultSpec(kind="shard_corrupt", site=first)], seed=5)
+        with obs_metrics.use_registry(reg), faults.inject(plan):
+            healed = next(sio.iter_shards_for_rows(root, 0, 1))[0]
+        retries = reg.get("fw_shard_retries").value(shard=first)
+        failures = reg.get("fw_shard_checksum_failures").value(shard=first)
+        check(retries == 1.0 and failures == 1.0 and all(
+            np.array_equal(a, b) for a, b in zip(clean[:4], healed[:4])),
+            f"shard_corrupt on {first}: retries {retries}, failures {failures}")
+        print(f"[shards] shard_corrupt on {first}: checksum failures {failures:g}, "
+              f"fw_shard_retries {retries:g}, the healed read equals the clean one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[shards] phase 3 took {time.perf_counter() - t0:.1f} s")
+
+
+def phase5_resilience_timing(torch, Xt, y, main, fused):
+    """``health_flags`` beside its plain version and its byte bound at the
+    dense path's width (CUDA events, queued); the snapshot's copy time;
+    and the dense fused first point unguarded, guarded, and guarded with
+    the check patched to its plain version, alternated three times (wall,
+    synchronized)."""
+    from repro_torch.core import LASSO, engine
+    from repro_torch.core.path import point_seed
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import health
+    from repro_torch.resilience import guards
+
+    t0 = time.perf_counter()
+    p, m = Xt.shape
+    dev = Xt.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(37)
+    beta, scale, co = _health_state(torch, g, p, m, torch.float32)
+    stall = torch.tensor(0, dtype=torch.int32, device=dev)
+    args = (beta, scale, co, stall)
+    ms = min(_time_queued(torch, lambda i: health.health_flags(*args), 400) for _ in range(2))
+    plain_ms = _time_queued(torch, lambda i: health.health_flags_plain(*args), 40)
+    nbytes = p * 4 + 4 + m * 4 + 8 + 4 + 12
+    bound_ms, bound_by = _bound(nbytes, p + m + 3)
+    print(f"[timing] health_flags dense p={p:,} m={m}: {ms:.6f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, "
+          "library null")
+    state = engine.init_state(LASSO, Xt, y, None, fused["cfg"])
+    snap = guards._Snapshot()
+    snap_ms = _time_queued(torch, lambda i: snap.take(state), 200)
+    print(f"[timing] the guard's snapshot of a dense state (beta {p:,} f32, the residual and "
+          f"7 scalars): {snap_ms:.6f} ms a chunk, {2 * (p + m) * 4 / snap_ms / 1e6:.1f} GB/s")
+    del beta, co, state, snap
+    cfg = fused["cfg"]
+    d = float(main["deltas"][0])
+    # "guarded_plain": the guard with its check patched to the plain
+    # version, to weigh the kernel's share of the guard's cost
+    walls = {"unguarded": [], "guarded": [], "guarded_plain": []}
+    kernel_check = health.health_flags
+    for tag in ("unguarded", "guarded", "guarded_plain") * 3:
+        sampler = TorchSampler(point_seed(0, 0), dev)
+        health.health_flags = health.health_flags_plain if tag == "guarded_plain" else kernel_check
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if tag == "unguarded":
+                res = engine.solve(LASSO, Xt, y, cfg, sampler, None, d, device=dev)
+            else:
+                res = guards.solve_resilient(LASSO, Xt, y, cfg, sampler, None, d, device=dev)
+            float(res.objective)
+            torch.cuda.synchronize()
+        finally:
+            health.health_flags = kernel_check
+        walls[tag].append(time.perf_counter() - t1)
+    mean = {tag: sum(v) / len(v) for tag, v in walls.items()}
+    print(f"[timing] dense fused point 0 ({res.iterations} iterations, K={FUSE}), unguarded / "
+          f"guarded / guarded with the plain check, alternated: {walls['unguarded']} / "
+          f"{walls['guarded']} / {walls['guarded_plain']} s, means {mean['unguarded']!r} / "
+          f"{mean['guarded']!r} / {mean['guarded_plain']!r} (guarded/unguarded "
+          f"{mean['guarded'] / mean['unguarded']:.4f}, plain check/unguarded "
+          f"{mean['guarded_plain'] / mean['unguarded']:.4f})")
+    print(f"[timing] resilience phase 5 took {time.perf_counter() - t0:.1f} s")
+    return {"health_flags": dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                                 bound_by=bound_by)}
 
 
 if __name__ == "__main__":

@@ -107,6 +107,7 @@ from repro_torch.kernels.step_tail import apply_coeff_update  # noqa: F401 (step
 from repro_torch.kernels.step_tail import TailRecord
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.resilience.validate import validate_inputs
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -185,34 +186,13 @@ def check_ported(cfg: FWConfig) -> None:
         )
 
 
-def _all_finite(a: torch.Tensor) -> bool:
-    # in 64M-element chunks: isfinite materializes a bool per element
-    flat = a.reshape(-1)
-    if flat.numel() == 0:
-        return True
-    return bool(torch.stack([torch.isfinite(c).all() for c in flat.split(1 << 26)]).all())
-
-
-def validate_inputs(Xt, y: torch.Tensor) -> None:
-    """Raise ``ValueError`` on NaN/Inf in the design (a sparse design's
-    stored values) or the targets: a poisoned matrix otherwise burns a
-    silent max_iters run."""
-    X = Xt.values if isinstance(Xt, SparseBlockMatrix) else Xt
-    for name, a in (("X", X), ("y", y)):
-        if not _all_finite(a):
-            raise ValueError(
-                f"{name} has {int(torch.isnan(a).sum())} NaN and "
-                f"{int(torch.isinf(a).sum())} Inf entries; the solver needs "
-                "finite inputs"
-            )
-
-
 def prepare_inputs(Xt, y, cfg: FWConfig, device):
     """Check the config and the operands once per entry call and place the
     operands on ``device`` (no copy when they are already there). The
     design and y share one dtype, float32 or bfloat16; the solver's state
     lives in it (``init_state``) and each step computes its scalars in
-    float32."""
+    float32. The NaN/Inf check is ``resilience.validate``'s, once per
+    operand object."""
     dev = resolve_device(device)
     check_ported(cfg)
     vertex.check_matrix_backend(Xt, cfg)

@@ -8,6 +8,13 @@ seeded from ``(seed, point index)``, so a point's stream does not depend on
 how many steps the points before it took; ``sampler_fn(point_index)``
 replaces it (the parity tests replay the reference's per-point streams).
 
+Both FW drivers take the reference's ``checkpoint_dir`` /
+``checkpoint_every`` / ``resume_from`` (``resilience.checkpoint``): a
+killed path resumes at its last snapshot and ends bit for bit as the
+uninterrupted one, since each point's (each lane chunk's) stream is a pure
+function of its index; ``fw_path`` also takes the reference's ``solve_fn``
+(the guarded solve's ``resilience.guards.resilient_solve_fn``).
+
 ``cd_path`` and ``fista_path`` are the baselines' paths (the reference's
 ``_penalized_path``): each point warm-started from the previous point's
 solution as it is. Each point draws its own stream: by default a stochastic
@@ -49,6 +56,8 @@ from repro_torch.core.vertex import LaneSampler, TorchSampler
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import monitor as obs_monitor
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience import checkpoint as path_ckpt
+from repro_torch.resilience import faults
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -121,42 +130,75 @@ def point_seed(seed: int, point_index: int) -> int:
     return int(np.random.SeedSequence([seed, point_index]).generate_state(1)[0])
 
 
+def _nnz(alpha: torch.Tensor):
+    """A point's support and values on the host. numpy has no bfloat16, so
+    a bf16 iterate's values are widened to float32 (exactly)."""
+    idx = torch.nonzero(alpha).view(-1)
+    val = alpha[idx]
+    if val.dtype == torch.bfloat16:
+        val = val.float()
+    return idx.cpu().numpy(), val.cpu().numpy()
+
+
 def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
-            device="cuda", sampler_fn=None, on_step=None,
-            checkpoint_dir=None, resume_from=None) -> PathResult:
+            device="cuda", sampler_fn=None, on_step=None, solve_fn=None,
+            checkpoint_dir=None, checkpoint_every: int = 1, resume_from=None) -> PathResult:
     """Stochastic-FW path with the paper's l1-rescaling warm start, on a
     dense ``Xt (p, m)`` or a ``SparseBlockMatrix`` (``backend='sparse'``).
 
     ``on_step(point_index, state)``, when given, sees every engine state.
-    Runs on the card unless ``device`` says otherwise.
+    ``solve_fn(oracle, Xt, y, cfg, sampler, alpha0, delta) -> SolveResult``
+    replaces the engine's solve (``resilience.guards.resilient_solve_fn``
+    runs every point under the watchdog); it takes no ``on_step``.
+
+    Checkpoint/resume (the reference's ``src/repro/core/path.py:166-226``):
+    with ``checkpoint_dir`` set, the loop state (completed points, the
+    sampler seed, the warm start) snapshots atomically every
+    ``checkpoint_every`` grid points and after the last;
+    ``resume_from=<dir>`` restores the newest valid snapshot and runs only
+    the remaining points, bit for bit the uninterrupted run (a point's
+    stream is ``sampler_fn(g)``'s, a pure function of its index, and its
+    warm start a pure function of the carried alpha; the path's seed comes
+    from the snapshot). ``total_dots`` and ``total_iters`` count the
+    restored points too. Runs on the card unless ``device`` says otherwise.
     """
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError(
-            "path checkpoint/resume is not ported yet: ROADMAP.md Queue 1 item 12"
-        )
+    if solve_fn is not None and on_step is not None:
+        raise ValueError("on_step goes to the engine's solve; a solve_fn takes none")
     oracle = fw_lasso.LASSO if oracle is None else oracle
     Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
-    if sampler_fn is None:
-        sampler_fn = lambda g: TorchSampler(point_seed(seed, g), Xt.device)  # noqa: E731
     alpha = None
     points = []
+    start = 0
+    if resume_from is not None:
+        loaded = path_ckpt.load_path_checkpoint(resume_from)
+        if loaded is not None:
+            start, seed, carry, points, _ = loaded
+            alpha = carry.to(device=Xt.device, dtype=Xt.dtype)
+    if sampler_fn is None:
+        sampler_fn = lambda g: TorchSampler(point_seed(seed, g), Xt.device)  # noqa: E731
     tracer = obs_trace.get_tracer()
     reg = obs_metrics.get_registry()
     mon = obs_monitor.StepMonitor()
     t_total = time.perf_counter()
-    with tracer.span("fw_path", cat="path", n_points=len(deltas), backend=base_cfg.backend,
+    n = len(deltas)
+    with tracer.span("fw_path", cat="path", n_points=n, backend=base_cfg.backend,
                      rule=base_cfg.step_rule):
-        for g, d in enumerate(deltas):
+        for g in range(start, n):
+            d = deltas[g]
+            faults.check_kill("path_point", g)
             if alpha is not None:
                 l1 = float(torch.sum(torch.abs(alpha)))
                 if l1 > 1e-12:
                     alpha = alpha * (float(d) / l1)  # paper's rescaling heuristic
-            hook = None if on_step is None else functools.partial(on_step, g)
             mon.begin()
             t0 = time.perf_counter()
             with tracer.span("fw_path/point", cat="path", delta=float(d)):
-                res = engine.solve_prepared(oracle, Xt, y, base_cfg, sampler_fn(g), alpha,
-                                            float(d), hook)
+                if solve_fn is None:
+                    hook = None if on_step is None else functools.partial(on_step, g)
+                    res = engine.solve_prepared(oracle, Xt, y, base_cfg, sampler_fn(g), alpha,
+                                                float(d), hook)
+                else:
+                    res = solve_fn(oracle, Xt, y, base_cfg, sampler_fn(g), alpha, float(d))
                 objective = float(res.objective)  # waits for the solve to finish
             dt = time.perf_counter() - t0
             # EWMA straggler detection (the first point seeds the average)
@@ -165,7 +207,7 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
                                seconds=dt)
             _observe_point(reg, "sequential", base_cfg, dt)
             alpha = res.alpha
-            idx = torch.nonzero(alpha).view(-1)
+            idx, val = _nnz(alpha)
             points.append(
                 PathPoint(
                     reg=float(d),
@@ -175,11 +217,13 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
                     iterations=res.iterations,
                     n_dots=res.n_dots,
                     seconds=dt,
-                    alpha_nnz_idx=idx.cpu().numpy(),
-                    alpha_nnz_val=alpha[idx].cpu().numpy(),
+                    alpha_nnz_idx=idx,
+                    alpha_nnz_val=val,
                     gap=float("nan") if res.gap is None else float(res.gap),
                 )
             )
+            if checkpoint_dir is not None and ((g + 1) % checkpoint_every == 0 or g == n - 1):
+                path_ckpt.save_path_checkpoint(checkpoint_dir, g + 1, seed, alpha, points)
     _finish_path(reg, tracer)
     return PathResult(
         points,
@@ -191,7 +235,8 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
 
 def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width=None,
                     oracle=None, *, device="cuda", lane_sampler_fn=None, solve_batched_fn=None,
-                    checkpoint_dir=None, resume_from=None) -> PathResult:
+                    checkpoint_dir=None, checkpoint_every: int = 1,
+                    resume_from=None) -> PathResult:
     """Stochastic-FW path solved in parallel delta lanes (the reference's
     ``fw_path_batched``, ``src/repro/core/path.py:239-394``).
 
@@ -207,13 +252,15 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
     ``lane_sampler_fn(chunk_index)`` gives a chunk's lane sampler (default:
     a ``LaneSampler`` seeded from ``(seed, chunk_index)``; the parity tests
     replay the reference's lane streams); ``solve_batched_fn`` replaces
-    ``engine.solve_batched_prepared`` (same arguments). Runs on the card
-    unless ``device`` says otherwise.
+    ``engine.solve_batched_prepared`` (same arguments).
+
+    Checkpoint/resume works at lane-chunk granularity: ``checkpoint_every``
+    counts chunks here, and ``resume_from=`` runs only the remaining chunks,
+    bit for bit (a chunk's lanes draw from ``lane_sampler_fn(c)``, a pure
+    function of the chunk's index, and start from the carried densest
+    solution); ``saved_iters`` and the totals count the restored chunks
+    too. Runs on the card unless ``device`` says otherwise.
     """
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError(
-            "path checkpoint/resume is not ported yet: ROADMAP.md Queue 1 item 12"
-        )
     oracle = fw_lasso.LASSO if oracle is None else oracle
     Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
     if solve_batched_fn is None:
@@ -224,19 +271,26 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
         lane_width = max(1, -(-n // 8))  # about 8 batched solves
     n_chunks = -(-n // lane_width)
     padded = np.concatenate([deltas, np.repeat(deltas[-1:], n_chunks * lane_width - n)])
+    carry = torch.zeros(Xt.shape[0], dtype=Xt.dtype, device=Xt.device)  # densest so far
+    points: List[PathPoint] = []
+    start_chunk = 0
+    total_saved = 0
+    if resume_from is not None:
+        loaded = path_ckpt.load_path_checkpoint(resume_from)
+        if loaded is not None:
+            start_chunk, seed, carry, points, total_saved = loaded
+            carry = carry.to(device=Xt.device, dtype=Xt.dtype)
     if lane_sampler_fn is None:
         lane_sampler_fn = lambda c: LaneSampler(point_seed(seed, c), lane_width,  # noqa: E731
                                                 Xt.device)
-    carry = torch.zeros(Xt.shape[0], dtype=Xt.dtype, device=Xt.device)  # densest so far
-    points: List[PathPoint] = []
-    total_saved = 0
     tracer = obs_trace.get_tracer()
     reg = obs_metrics.get_registry()
     lanes_mon = obs_monitor.LaneProgressMonitor(max_iters=base_cfg.max_iters)
     t_total = time.perf_counter()
     with tracer.span("fw_path_batched", cat="path", n_points=n, lane_width=lane_width,
                      n_chunks=n_chunks, backend=base_cfg.backend):
-        for c in range(n_chunks):
+        for c in range(start_chunk, n_chunks):
+            faults.check_kill("path_chunk", c)
             chunk = padded[c * lane_width:(c + 1) * lane_width]
             d_arr = torch.tensor(chunk, dtype=Xt.dtype, device=Xt.device)
             l1 = torch.sum(torch.abs(carry))
@@ -264,8 +318,7 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
             active = res.active.tolist()
             gaps = None if res.gap is None else res.gap.tolist()
             for i in range(real):
-                alpha = res.alpha[i]
-                idx = torch.nonzero(alpha).view(-1)
+                idx, val = _nnz(res.alpha[i])
                 points.append(
                     PathPoint(
                         reg=float(chunk[i]),
@@ -275,11 +328,15 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
                         iterations=res.iterations[i],
                         n_dots=res.n_dots[i],
                         seconds=dt / real,
-                        alpha_nnz_idx=idx.cpu().numpy(),
-                        alpha_nnz_val=alpha[idx].cpu().numpy(),
+                        alpha_nnz_idx=idx,
+                        alpha_nnz_val=val,
                         gap=float("nan") if gaps is None else gaps[i],
                     )
                 )
+            if checkpoint_dir is not None and (
+                    (c + 1) % checkpoint_every == 0 or c == n_chunks - 1):
+                path_ckpt.save_path_checkpoint(checkpoint_dir, c + 1, seed, carry, points,
+                                               saved_iters=total_saved)
     _finish_path(reg, tracer)
     return PathResult(
         points,
@@ -334,7 +391,7 @@ def _penalized_path(solve, Xt, y, regs, stream_fn) -> PathResult:
         objective = float(res.objective)  # waits for the solve to finish
         dt = time.perf_counter() - t0
         alpha = res.alpha
-        idx = torch.nonzero(alpha).view(-1)
+        idx, val = _nnz(alpha)
         points.append(
             PathPoint(
                 reg=float(reg),
@@ -344,8 +401,8 @@ def _penalized_path(solve, Xt, y, regs, stream_fn) -> PathResult:
                 iterations=res.iterations,
                 n_dots=res.n_dots,
                 seconds=dt,
-                alpha_nnz_idx=idx.cpu().numpy(),
-                alpha_nnz_val=alpha[idx].cpu().numpy(),
+                alpha_nnz_idx=idx,
+                alpha_nnz_val=val,
             )
         )
     return PathResult(

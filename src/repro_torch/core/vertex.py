@@ -59,6 +59,14 @@ class TorchSampler:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
+    def position(self) -> torch.Tensor:
+        """The generator's state (a host tensor): ``restore`` of it draws
+        the same sets again (the guarded solve's chunk retry)."""
+        return self.generator.get_state()
+
+    def restore(self, pos: torch.Tensor) -> None:
+        self.generator.set_state(pos)
+
     def uniform(self, kappa: int, p: int) -> torch.Tensor:
         return torch.randint(0, p, (kappa,), generator=self.generator, device=self.device)
 
@@ -89,6 +97,13 @@ class StreamSampler:
         self.draws = draws.long()
         self.t = 0
         self._bound_checked: Optional[int] = None
+
+    def position(self) -> int:
+        """The stream's cursor: ``restore`` of it replays the same rows."""
+        return self.t
+
+    def restore(self, pos: int) -> None:
+        self.t = int(pos)
 
     def _next(self, k: int, bound: int, n_steps: int = 1) -> torch.Tensor:
         if self.t + n_steps > self.draws.shape[0]:
@@ -140,6 +155,12 @@ class LaneSampler:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
+    def position(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def restore(self, pos: torch.Tensor) -> None:
+        self.generator.set_state(pos)
+
     def uniform_lanes(self, kappa: int, p: int, active) -> torch.Tensor:
         return torch.randint(0, p, (self.lanes, kappa), generator=self.generator,
                              device=self.device)
@@ -161,6 +182,13 @@ class LaneStreamSampler:
         self.lanes = [StreamSampler(d) for d in draws]
         if not self.lanes:
             raise ValueError("a lane stream sampler needs one stream a lane")
+
+    def position(self) -> list:
+        return [s.position() for s in self.lanes]
+
+    def restore(self, pos) -> None:
+        for s, t in zip(self.lanes, pos):
+            s.restore(t)
 
     def _rows(self, take, k: int, active) -> torch.Tensor:
         if len(active) != len(self.lanes):

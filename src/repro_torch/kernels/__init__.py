@@ -16,6 +16,9 @@ sparse_grad:      K5, sampled scores over the block-ELL layout
 sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
 cd_sweep:         one sweep of the baselines' coordinate descent in one
                   launch (the port's own: an XLA fori_loop in the reference)
+health:           the guarded solve's NaN/Inf check of beta, scale and the
+                  co-state in one launch (the port's own: XLA in the
+                  reference's watchdog)
 
 K2's scores and argmax, the step's tail and K5 also take L delta lanes in
 one launch (``*_lanes``, the batched engine's), each with a count of its own.
@@ -33,6 +36,7 @@ from repro_torch.kernels import (
     colstats,
     fused_step,
     fw_grad,
+    health,
     residual_update,
     sparse_colstats,
     sparse_grad,
@@ -68,6 +72,7 @@ _WRAPPERS = {
     "step_tail_lanes_tel": step_tail.step_tail_lanes_tel,
     "step_tail_en_lanes_tel": step_tail.step_tail_en_lanes_tel,
     "fused_replay_tel": fused_step.fused_replay_tel,
+    "health_flags": health.health_flags,
 }
 
 

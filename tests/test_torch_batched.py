@@ -262,13 +262,18 @@ def test_lane_kernels_run_plain_on_cpu(prob):
     assert launch_counts() == before
 
 
-def test_unported_lane_options_raise(prob):
+def test_unported_lane_options_raise(prob, tmp_path):
     Xt, y, _ = prob
     cfg = FWConfig(delta=1.0, kappa=KAPPA, max_iters=30)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        path.fw_path_batched(Xt, y, [1.0], cfg, device="cpu", checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        path.fw_path_batched(Xt, y, [1.0], cfg, device="cpu", resume_from="ckpt")
+    # checkpoint/resume is ported now (ROADMAP.md item 12): a snapshot a
+    # chunk, and a resume from a directory without one starts fresh
+    ck = tmp_path / "ckpt"
+    done = path.fw_path_batched(Xt, y, [1.0, 2.0, 3.0], cfg, lane_width=2, device="cpu",
+                                checkpoint_dir=str(ck))
+    assert sorted(d.name for d in ck.iterdir()) == ["step_0000000001", "step_0000000002"]
+    fresh = path.fw_path_batched(Xt, y, [1.0, 2.0, 3.0], cfg, lane_width=2, device="cpu",
+                                 resume_from=str(tmp_path / "empty"))
+    assert [pt.objective for pt in fresh.points] == [pt.objective for pt in done.points]
 
     class OtherOracle:
         needs_stats = True

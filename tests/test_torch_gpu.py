@@ -1365,3 +1365,125 @@ def test_telemetry_on_is_the_off_trajectory_on_the_card(backend, fuse):
         chunk = "sparse_fused_chunk" if backend == "sparse" else "dense_fused_chunk"
         assert launched["fused_replay_tel"] == launched[chunk] > 0
         assert launched["fused_replay"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 37, 4099, 1_000_003])
+def test_health_flags_match_plain_on_the_card(dtype, p):
+    """The one-launch health check against its plain version: a clean state
+    and NaN/+Inf/-Inf at the first, a middle and the last element of beta,
+    of the residual and of each scalar; an unaligned beta view; equal flags
+    twice (the ticket back at 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import health
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(p)
+    base = [torch.randn(p + 1, generator=g, device="cuda").to(dtype)[1:],  # unaligned view
+            torch.tensor(0.5, device="cuda").to(dtype),
+            torch.randn(803, generator=g, device="cuda").to(dtype),
+            torch.tensor(3.0, device="cuda").to(dtype), torch.tensor(1.0, device="cuda").to(dtype)]
+    stall = torch.tensor(5, dtype=torch.int32, device="cuda")
+    cases = [None] + [(t, i, v) for t in range(5) for i in ((0, base[t].numel() // 2, -1)
+                                                            if base[t].dim() else (None,))
+                      for v in (float("nan"), float("inf"), float("-inf"))]
+    before = launch_counts()["health_flags"]
+    for case in cases:
+        ts = [t.clone() for t in base]
+        if case is not None:
+            t, i, v = case
+            if i is None:
+                ts[t].fill_(v)
+            else:
+                ts[t][i] = v
+        args = (ts[0], ts[1], ts[2:], stall)
+        want = health.health_flags_plain(*args)
+        got = [health.health_flags(*args) for _ in range(2)]
+        assert torch.equal(got[0], want) and torch.equal(got[1], want), case
+    assert launch_counts()["health_flags"] - before == 2 * len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,fuse", [("kernels", 8), ("sparse", 8), ("kernels", 1)])
+def test_guarded_solve_is_the_unguarded_one_on_the_card(backend, fuse):
+    """No fault: bit for bit engine.solve, one health_flags launch a check;
+    beta_nan heals at rung 2 with the counters saying so, the unfused
+    retry bit for bit the unguarded run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import engine
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import faults, guards
+
+    mat, y, X = _sparse_problem()
+    design = mat if backend == "sparse" else X
+    cfg = FWConfig(delta=20.0, kappa=100, max_iters=300, tol=0.0, patience=10**9,
+                   backend=backend, fuse_steps=fuse)
+    ref = engine.solve(LASSO, design, y, cfg, TorchSampler(3, "cuda"))
+    before = launch_counts()["health_flags"]
+    res = guards.solve_resilient(LASSO, design, y, cfg, TorchSampler(3, "cuda"))
+    assert _bits_equal(ref.alpha, res.alpha) and ref.iterations == res.iterations
+    chunks = -(-res.iterations // (8 * res.effective_fuse_steps))
+    assert launch_counts()["health_flags"] - before == chunks
+    reg = obs_metrics.MetricsRegistry()
+    plan = faults.FaultPlan([faults.FaultSpec(kind="beta_nan", at=1)], seed=7)
+    with obs_metrics.use_registry(reg), faults.inject(plan):
+        healed = guards.solve_resilient(LASSO, design, y, cfg, TorchSampler(3, "cuda"))
+    assert reg.get("fw_guard_recoveries").series() == [
+        ((("backend", backend), ("rung", "retry_chunk")), 1.0)]
+    assert healed.iterations == ref.iterations and bool(torch.isfinite(healed.alpha).all())
+    if fuse == 1:
+        assert _bits_equal(ref.alpha, healed.alpha) and healed.n_dots == ref.n_dots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_rung_3_raises_on_the_card(backend, monkeypatch):
+    """With rung 2 made to fail (a test-only patch: the retry's beta comes
+    back NaN), the card's ladder ends: UnrecoverableFaultError naming the
+    backend and the reason, counted as unrecovered, no backend_fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.resilience import faults, guards
+
+    def poisoned_retry(oracle, Xt, y, stats, state, cfg, delta, n_turns, sampler, turns=None):
+        out = guards._advance(oracle, Xt, y, stats, state, cfg, delta, n_turns, sampler, True,
+                              turns)
+        return out._replace(beta=torch.full_like(out.beta, float("nan")))
+
+    mat, y, X = _sparse_problem()
+    design = mat if backend == "sparse" else X
+    cfg = FWConfig(delta=20.0, kappa=100, max_iters=300, tol=0.0, patience=10**9,
+                   backend=backend, fuse_steps=8)
+    monkeypatch.setattr(guards, "_retry_chunk", poisoned_retry)
+    reg = obs_metrics.MetricsRegistry()
+    plan = faults.FaultPlan([faults.FaultSpec(kind="beta_nan", at=1)], seed=7)
+    with obs_metrics.use_registry(reg), faults.inject(plan):
+        with pytest.raises(guards.UnrecoverableFaultError,
+                           match=f"nonfinite_beta.*backend: {backend}"):
+            guards.solve_resilient(LASSO, design, y, cfg, TorchSampler(3, "cuda"))
+    assert reg.get("fw_guard_unrecovered").value(backend=backend) == 1.0
+    assert reg.get("fw_guard_recoveries") is None or not reg.get("fw_guard_recoveries").series()
+
+
+@pytest.mark.gpu
+def test_shard_assembly_on_the_card_is_the_cpu_one(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from repro_torch.data.proxies import make_sparse_coo
+    from repro_torch.sparse import io as sio
+
+    rows, cols, vals, y, _ = make_sparse_coo(300, 5000, 0.01, 10, seed=4)
+    sio.write_shards(tmp_path, sio.COOData(rows, cols, vals, y, (300, 5000)), rows_per_shard=64)
+    cpu, y_cpu = sio.load_shards_as_matrix(tmp_path, block_size=128, device="cpu")
+    gpu, y_gpu = sio.load_shards_as_matrix(tmp_path, block_size=128)
+    assert gpu.values.is_cuda and torch.equal(gpu.values.cpu(), cpu.values)
+    assert torch.equal(gpu.rows.cpu(), cpu.rows) and torch.equal(y_gpu.cpu(), y_cpu)
+    assert np.array_equal(y_cpu.numpy(), y)

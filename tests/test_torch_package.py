@@ -7,7 +7,7 @@
     NotImplementedError naming their ROADMAP.md item (a telemetry spec
     that is not a TelemetrySpec raises TypeError); the 'sparse' backend
     runs, on a SparseBlockMatrix only, and the sparse reader/writer
-    (``sparse/io.py``) is still absent;
+    (``sparse/io.py``) is ported;
   * the fused K-step chunk runs, and says so, where the reference's does.
 """
 import ast
@@ -46,6 +46,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 10
     assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
     assert "step_rule.py" in {f.name for f in files if f.parent.name == "core"}
+    assert {"faults.py", "guards.py", "checkpoint.py", "validate.py"} <= {
+        f.name for f in files if f.parent.name == "resilience"}
+    assert "io.py" in {f.name for f in files if f.parent.name == "sparse"}
+    assert "manager.py" in {f.name for f in files if f.parent.name == "checkpoint"}
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 
@@ -114,11 +118,14 @@ def test_telemetry_runs_and_the_obs_modules_are_in_the_import_check():
 
 
 def test_sparse_io_is_not_ported_yet():
+    """The sparse reader/writer is ported now (ROADMAP.md item 12; the test
+    keeps its name): ``sparse.io`` exists, the package exports it, and its
+    docstring names the item."""
     import repro_torch.sparse as sparse
 
-    assert not (ROOT / "src" / "repro_torch" / "sparse" / "io.py").exists()
-    assert not hasattr(sparse, "load_svmlight")
-    assert "item 7a" in sparse.__doc__
+    assert (ROOT / "src" / "repro_torch" / "sparse" / "io.py").exists()
+    assert sparse.load_svmlight is sparse.io.load_svmlight
+    assert "item 12" in sparse.__doc__ and "item 7a" not in sparse.__doc__
 
 
 @pytest.mark.parametrize("sparse_kernel", [None, True, False])

@@ -98,7 +98,15 @@ def test_default_sampler_path_on_cpu(prob):
     assert a.points[-1].objective < a.points[0].objective
 
 
-def test_checkpointing_is_not_ported(prob):
+def test_checkpointing_is_not_ported(prob, tmp_path):
+    """Checkpointing is ported now (ROADMAP.md item 12; the test keeps its
+    name): fw_path takes checkpoint_dir and leaves its last snapshot there,
+    and resuming from it runs nothing more (tests/test_torch_resilience.py
+    holds kill and resume against the uninterrupted run)."""
     Xt, y = prob
-    with pytest.raises(NotImplementedError, match="item 12"):
-        path.fw_path(Xt, y, [1.0], FWConfig(delta=1.0), device="cpu", checkpoint_dir="ckpt")
+    cfg = FWConfig(delta=1.0, kappa=KAPPA, max_iters=50)
+    done = path.fw_path(Xt, y, [1.0, 2.0], cfg, device="cpu", checkpoint_dir=str(tmp_path))
+    assert sorted(d.name for d in tmp_path.iterdir()) == ["step_0000000001", "step_0000000002"]
+    again = path.fw_path(Xt, y, [1.0, 2.0], cfg, device="cpu", resume_from=str(tmp_path))
+    assert [pt.objective for pt in again.points] == [pt.objective for pt in done.points]
+    assert again.total_dots == done.total_dots
