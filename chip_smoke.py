@@ -54,14 +54,19 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    vertices, stall, the buffer and the drop's zero exact, the rest to the
    dots' rounding; two launches bitwise equal), and K2/K5 at width 1 on 32
    and 16 caller indices with -1 slots;
-   the baselines' CD sweep (``cd_sweep``, dense path only) against its
-   plain loop: cyclic and stochastic orders (a row repeated inside the
-   ring's window and back to back), m = 74, 186, 800 (the residual in
-   registers), 20,000 (in shared memory) and 60,000 (past the on-chip
-   cap, in device memory), lam = 0, lam above lam_max (nothing moves: R
-   keeps its bits), a warm start thresholded on the way, a zero column,
-   f32 and bf16; alpha and R within TOL_CD, the support up to named
-   near-ties, two launches bitwise equal;
+   the baselines' CD sweep (dense path only): the screened sweep (the
+   score pass ``cd_score``, then the walker ``cd_walk``) against the
+   unscreened kernel ``cd_sweep_unscreened`` bit for bit (alpha up to a
+   zero's sign, R and max |d| bitwise) and against the plain versions
+   (the screened plain sweep bit for bit the plain loop): cyclic and
+   stochastic orders (a row repeated inside the ring's window and back to
+   back), m = 74, 186, 800 (the residual in registers), 20,000 (in shared
+   memory) and 60,000 (past the on-chip cap, in device memory), lam = 0,
+   lam above lam_max (nothing moves: R keeps its bits), a warm start
+   thresholded on the way, a zero column, near-ties (rows within ulps of
+   lam before and after the moves), f32 and bf16, a re-base after every
+   idle survivor; alpha and R within TOL_CD of the plain versions, the
+   support up to named near-ties, two runs bitwise equal;
    then the reference's converging golden on a small problem, replayed
    from the reference's own index stream (embedded below), on the
    'kernels' backend and on 'sparse' (unfused and fused);
@@ -97,17 +102,23 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      its densest point's certified gap with the oracle's own gradient;
    - the baselines (dense path): constrained FISTA (500 iterations, tol
      1e-3) at the main path's densest delta, whose FW objective minus
-     FISTA's must lie within FW's certified gap; and on Pyrim at its
-     published size (m = 74, p = 201,376, built by ``make_proxy``) the
-     first 10 points of a 100-point lambda grid under cyclic CD (200
-     sweeps, tol 1e-3), the first 3 under stochastic CD, the 10 under
-     penalized FISTA (500 iterations) and the FW path at the CD points'
-     l1 norms (paper §2.1): one ``cd_sweep`` launch a sweep, finite
-     objectives, CD's penalized objective within rtol 1e-3 of FISTA's at
-     every point (the points where FISTA hit max_iters named), and one
-     warm sweep at full p (point 8's alpha at point 9's lam, where
-     coordinates move) through the kernel and the plain loop, held as
-     phase 2 holds its cases;
+     FISTA's must lie within FW's certified gap; cyclic CD at the dense
+     width (200 sweeps, tol 1e-3) down its 100-point lambda grid, 3 to 10
+     points as its budget allows, each certified by its duality gap
+     (within 1e-3), penalized FISTA (300 iterations) within 1e-3 of it and
+     the FW path at CD's l1 norms beside it, and the walker bit for bit
+     the unscreened kernel on the design's first 201,376 rows; and on
+     Pyrim at its published size (m = 74, p = 201,376, built by
+     ``make_proxy``) the first 10 points of a 100-point lambda grid under
+     cyclic CD, the first 3 under stochastic CD, the 10 under penalized
+     FISTA (500 iterations) and the FW path at the CD points' l1 norms
+     (paper §2.1): walker launches = sweeps + re-bases (a score pass each,
+     the unscreened kernel never), finite objectives, CD's penalized
+     objective within rtol 1e-3 of FISTA's at every point (the points
+     where FISTA hit max_iters named), the CD path's first 3 points bit
+     for bit an unscreened run, and one warm sweep at full p (point 8's
+     alpha at point 9's lam, where coordinates move) through the walker
+     and the unscreened kernel, bit for bit;
    - the step rules: the first 3 points of each path's grid under each
      of away, pairwise, PARTAN and lazy, the elastic-net under away and,
      sparse, the logistic's first point under away; five launches a step
@@ -372,6 +383,7 @@ def main(argv=None):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            **({"timed_on": t["timed_on"]} if "timed_on" in t else {}),
         })
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -405,6 +417,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     if not kernels_only:
         main_launches, main_run = phase3_main_path(torch, Xt, y, coef)
         phase3_fista_paper_width(torch, Xt, y, main_run)
+        launches.update(phase3_cd_paper_width(torch, Xt, y))
         fused_launches, fused_run = phase3_fused_path(torch, Xt, y, main_run)
         phase3_full_point(torch, Xt, y, main_run)
         launches.update(main_launches)
@@ -563,10 +576,16 @@ KERNELS = {
                      replaces="src/repro/core/step_rule.py:117"),
     "dir_tail_en": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
                         replaces="src/repro/core/step_rule.py:117"),
-    # one sweep of the baselines' coordinate descent: the port's own kernel
-    # for the reference's XLA fori_loop of coord_update (no pallas_call)
-    "cd_sweep": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
+    # a sweep of the baselines' coordinate descent: the port's own kernels
+    # for the reference's XLA fori_loop of coord_update (no pallas_call): the
+    # screened sweep's score pass and walker (the path's), and the unscreened
+    # one-launch sweep (the card's yardstick, on no path)
+    "cd_walk": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
+                    replaces="src/repro/core/baselines.py:70"),
+    "cd_score": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
                      replaces="src/repro/core/baselines.py:70"),
+    "cd_sweep_unscreened": dict(source="src/repro_torch/kernels/csrc/cd_sweep.cu",
+                                replaces="src/repro/core/baselines.py:70"),
     # the telemetry ring's record written inside the tail and the replay
     # (their TEL instantiations), for the reference's per-step ring writes
     # beside the residual update's kernel and in its replay
@@ -5051,6 +5070,25 @@ def phase5_rule_timing(torch, design, y, layout):
 PYRIM_POINTS, PYRIM_STOCH_POINTS = 10, 3
 # table4_baselines.py's settings
 CD_SWEEPS, BASELINE_TOL, FISTA_ITERS = 200, 1e-3, 500
+# the screened Pyrim path held bit for bit against an unscreened run of its
+# first points; H and its plain loop timed on Pyrim's first rows (the plain
+# loop at full p takes ~32 s)
+CD_BIT_POINTS, CD_PLAIN_ROWS = 3, 2_000
+# CD at the paper's dense width: the first points of lambda_grid(n_points=100)
+# while the CD points' seconds stay under the budget (at least 3, at most
+# 10, as on Pyrim), FISTA and FW on the same points; the walker against H on
+# the design's first rows (Pyrim's p). FISTA's time there (300 iterations a
+# point, ~11 ms an iteration: ~3.3 s a point) sets the phase's ~40 s
+CD_4M_BUDGET_S, CD_4M_MIN_POINTS, CD_4M_MAX_POINTS, CD_4M_SLICE = 25.0, 3, 10, 201_376
+# FISTA there runs a fixed number of iterations (tol 0): at this width its
+# step 1/L is so small that the table's tol 1e-3 on ||alpha_{t+1} -
+# alpha_t||_inf stops it after one iteration, at alpha ~ 0, and 100
+# iterations leave it 1.2e-3 above CD at the fifth point
+CD_4M_FISTA_ITERS = 300
+# the re-base thresholds phase 5 times a sweep at, as multiples of the cost
+# model's (0: never re-base; Pyrim only: at the dense width that sweep takes
+# seconds)
+REBASE_SCAN_FACTORS = (0.125, 0.25, 0.5, 1, 2, 4, 0)
 # a sweep's residual widths: Pyrim's, Triazines', the paper's dense m, one
 # staged in shared memory past the registers and one past the on-chip cap
 # (57,344 floats), where R lives in device memory
@@ -5103,37 +5141,134 @@ def _cd_case(torch, g, dev, m, p, dtype, kind):
     return X, zn2, alpha0, R0, lam, order, float(torch.linalg.vector_norm(y))
 
 
+def _cd_tie_case(torch, g, dev, m, p, dtype, stochastic):
+    """A sweep whose rows tie with lam: |z_j . R| within a few ulps of lam
+    before and after earlier moves. The movers (rows 10-14, |z . y| far
+    above lam) and the general rows lie on the first half of the
+    coordinates, the tie rows (0-9 and every other row from 15 to 61) on
+    the second: exactly orthogonal, so no move of the first half changes a
+    tie row's dot by a bit. f32: each tie row scaled in f64 so z_j . y =
+    +-lam (1 + k 2^-24), k from -64 to 64, then rounded to f32; bf16: the
+    tie rows are +-copies of one row and lam its |z . y| rounded to f32.
+    Returns what ``_cd_case`` returns."""
+    from repro_torch.kernels import colstats as cs
+
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    h = m // 2
+    X = torch.randn((p, m), **f64)
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    ties = torch.tensor(list(range(10)) + list(range(15, min(p, 62), 2)), device=dev)
+    first = torch.ones(p, dtype=torch.bool, device=dev)
+    first[ties] = False
+    X[first, h:] = 0.0
+    X[ties, :h] = 0.0
+    y = 0.1 * torch.randn(m, **f64)
+    y[:h] += 3.0 * X[10:15, :h].sum(0)
+    target = 0.3 * float((X[10:15] @ y).abs().max())
+    if dtype == torch.float32:
+        k = torch.randint(-64, 65, (ties.numel(),), generator=g, device=dev).double()
+        sign = torch.where(torch.rand(ties.numel(), **f64) < 0.5, -1.0, 1.0)
+        X[ties] *= (sign * target * (1 + k * 2.0 ** -24) / (X[ties] @ y))[:, None]
+        lam = float(torch.tensor(target, dtype=torch.float32))
+    else:
+        base = X[ties[0]].to(dtype).double()
+        base *= target / float(base @ y)
+        base = base.to(dtype).double()
+        sign = torch.where(torch.rand(ties.numel(), **f64) < 0.5, -1.0, 1.0)
+        X[ties] = sign[:, None] * base
+        lam = float(torch.tensor(abs(float(base @ y.float().double())), dtype=torch.float32))
+    X = X.to(dtype).contiguous()
+    y = y.float()
+    _, zn2 = cs.colstats(X, y)
+    order = None
+    if stochastic:  # the tie rows again after the movers, a repeat back to back
+        order = torch.randint(0, p, (p,), generator=g, device=dev)
+        order[:15] = torch.arange(15, device=dev)
+        order[15:15 + ties.numel()] = ties
+        order[16] = order[15]
+    return X, zn2, torch.zeros(p, device=dev), y.clone(), lam, order, float(
+        torch.linalg.vector_norm(y))
+
+
+def _walker_equals_unscreened(torch, walk, unscreened):
+    """alpha equal (a zero's sign aside), R and max |d| bit for bit."""
+    (a_w, r_w, md_w), (a_h, r_h, md_h) = walk, unscreened
+    return (torch.equal(a_w, a_h) and _same_bits(torch, r_w, r_h)
+            and _same_bits(torch, md_w, md_h))
+
+
+def check_cd_score(torch, label, X, R, zn2, alpha, lam):
+    """The score pass against ``cd_score_plain`` on the same inputs: NaNs
+    (and the chunks' -inf) at the same places, nz within G of each other,
+    the headroom and the chunks' least within G (rn + |h|) (the dots'
+    rounding in another order, both rounded the safe way). Returns max |h -
+    h_plain| * nz, the difference in the dot's units."""
+    from repro_torch.kernels import cd_sweep as cds
+
+    p, m = X.shape
+    head = torch.empty(p, device=X.device)
+    nz, r0n = torch.empty_like(head), torch.empty((), dtype=torch.float64, device=X.device)
+    cmin = torch.empty(-(-p // cds.CHUNK), device=X.device)
+    cds.cd_score(X, R, zn2, alpha, lam, head, nz, cmin, r0n)
+    h_p, nz_p, rn_p, cmin_p = cds.cd_score_plain(X, R, zn2, alpha, lam)
+    G = cds.screen_gamma(m)
+    nan = torch.isnan(h_p)
+    ok = torch.equal(torch.isnan(head), nan)
+    inf = torch.isinf(cmin_p)
+    ok &= torch.equal(torch.isinf(cmin), inf) and bool(torch.all(
+        (cmin.double() - cmin_p.double()).abs()[~inf]
+        <= G * (rn_p + cmin_p.double().abs()[~inf]) + 1e-30))
+    dh = (head.double() - h_p.double()).abs()[~nan]
+    ok &= bool(torch.all(dh <= G * (rn_p + h_p.double().abs()[~nan]) + 1e-30))
+    ok &= bool(torch.all((nz.double() - nz_p.double()).abs() <= G * nz_p.double()))
+    ok &= abs(float(r0n) - rn_p) <= G * rn_p
+    check(ok, f"{label}: the score pass and its plain version differ past G")
+    return float((dh * nz_p.double()[~nan]).max()) if dh.numel() else 0.0
+
+
 def check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm, nothing_moves=False):
-    """The kernel twice (equal bits) and the plain loop from the same inputs;
-    with ``nothing_moves`` (lam above lam_max from zero) alpha stays 0, R its
-    bits and max |d| 0. Returns the largest |difference| of alpha and R, the
-    plain loop's seconds and the number of coordinates the kernel moved."""
+    """The walker twice (equal bits), against the unscreened kernel H bit for
+    bit (alpha equal up to a zero's sign, R and max |d| bitwise), and the
+    screened plain version (bit for bit the unscreened plain loop, also run)
+    within TOL_CD; with ``nothing_moves`` (lam above lam_max from zero)
+    alpha stays 0, R its bits and max |d| 0. Returns the largest |difference|
+    of alpha and R from the plain versions (H's are the walker's: the same
+    bits)."""
     from repro_torch.kernels import cd_sweep as cds
 
     runs = []
     for _ in range(2):
         a, r = alpha0.clone(), R0.clone()
+        before = cds.STATS.snapshot()
         md = cds.cd_sweep(X, a, r, zn2, lam, order)
         runs.append((a, r, md))
     torch.cuda.synchronize()
-    check(all(_same_bits(torch, u, v) for u, v in zip(*runs)), f"{label}: two sweeps differ")
+    stats = {k: v - before[k] for k, v in cds.STATS.snapshot().items()}
+    check(all(_same_bits(torch, u, v) for u, v in zip(*runs)), f"{label}: two walks differ")
     a_k, r_k, md_k = runs[0]
+    a_h, r_h = alpha0.clone(), R0.clone()
+    md_h = cds.cd_sweep_unscreened(X, a_h, r_h, zn2, lam, order)
+    check(_walker_equals_unscreened(torch, runs[0], (a_h, r_h, md_h)),
+          f"{label}: the walker and the unscreened sweep differ")
+    a_s, r_s = alpha0.clone(), R0.clone()
+    md_s = cds.cd_sweep_screened_plain(X, a_s, r_s, zn2, lam, order)
     a_p, r_p = alpha0.clone(), R0.clone()
-    t0 = time.perf_counter()
     md_p = cds.cd_sweep_plain(X, a_p, r_p, zn2, lam, order)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    check(_walker_equals_unscreened(torch, (a_s, r_s, md_s), (a_p, r_p, md_p)),
+          f"{label}: the screened plain sweep and the plain loop differ")
     moved = int(torch.count_nonzero(a_k != alpha0))
     a_scale = max(float(a_p.abs().max()), float(a_k.abs().max()))
     d_a, d_r = float((a_k - a_p).abs().max()), float((r_k - r_p).abs().max())
     d_md = abs(float(md_k) - float(md_p))
     only = torch.nonzero((a_k != 0) != (a_p != 0)).view(-1)
     ties = [(int(j), float(a_k[j]), float(a_p[j])) for j in only[:8].tolist()]
-    print(f"[cd_sweep] {label}: alpha {d_a:.3g} ({d_a / max(a_scale, 1e-30):.3g} of "
-          f"||alpha||_inf {a_scale:.4g}), R {d_r:.3g} ({d_r / y_norm:.3g} of ||y||), max|d| "
-          f"{float(md_k)!r} vs {float(md_p)!r}, active {int(torch.count_nonzero(a_k))} vs "
-          f"{int(torch.count_nonzero(a_p))}, {moved} coordinates moved, near-ties in one "
-          f"support only: {only.numel()} {ties}; twice: equal bits")
+    print(f"[cd_sweep] {label}: walker = H bit for bit; against plain: alpha {d_a:.3g} "
+          f"({d_a / max(a_scale, 1e-30):.3g} of ||alpha||_inf {a_scale:.4g}), R {d_r:.3g} "
+          f"({d_r / y_norm:.3g} of ||y||), max|d| {float(md_k)!r} vs {float(md_p)!r}, active "
+          f"{int(torch.count_nonzero(a_k))} vs {int(torch.count_nonzero(a_p))}, {moved} moved, "
+          f"near-ties in one support only: {only.numel()} {ties}; survivors "
+          f"{stats['survivors']} of {stats['positions']} ({stats['rebases']} re-bases); twice: "
+          f"equal bits")
     check(d_a <= TOL_CD * a_scale and d_r <= TOL_CD * y_norm and d_md <= TOL_CD * a_scale,
           f"{label}: kernel and plain sweep differ past TOL_CD")
     check(bool(torch.all((a_k[only].abs() <= TOL_CD * a_scale)
@@ -5142,20 +5277,23 @@ def check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm, nothing
     if nothing_moves:
         check(not bool(torch.any(a_k != 0)) and _same_bits(torch, r_k, R0)
               and float(md_k) == 0.0, f"{label}: something moved above lam_max")
-    return max(d_a, d_r), plain_s, moved
+    return max(d_a, d_r)
 
 
 def phase2_cd_sweep(torch, dev):
-    """``cd_sweep`` against ``cd_sweep_plain`` on the card: cyclic and
-    stochastic orders (repeats inside the ring's window and back to back), m
-    = 74, 186, 800, 20,000 (R in shared memory) and 60,000 (past the on-chip
-    cap), lam = 0, lam > lam_max, a warm start, a zero column, f32 and bf16."""
+    """The screened sweep (the score pass and the walker) against the
+    unscreened kernel H (bit for bit) and the plain versions on the card:
+    cyclic and stochastic orders (repeats inside the ring's window and back
+    to back), m = 74, 186, 800, 20,000 (R in shared memory) and 60,000
+    (past the on-chip cap), lam = 0, lam > lam_max, a warm start, a zero
+    column, near-ties (``_cd_tie_case``), f32 and bf16, and one forced
+    re-base after every idle survivor."""
     from repro_torch.kernels import cd_sweep as cds
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(21)
-    err = 0.0
+    err = {"cd_walk": 0.0, "cd_sweep_unscreened": 0.0, "cd_score": 0.0}
     cases = [(m, dt, kind) for m in CD_M_CASES for dt in (torch.float32, torch.bfloat16)
              for kind in ("cyclic", "stochastic")]
     cases += [(800, torch.float32, kind) for kind in ("lam_zero", "above_lam_max", "warm",
@@ -5163,17 +5301,37 @@ def phase2_cd_sweep(torch, dev):
     cases += [(74, torch.bfloat16, "warm"), (CD_M_SMEM, torch.float32, "stochastic"),
               (CD_M_PAST_CAP, torch.float32, "cyclic"), (CD_M_PAST_CAP, torch.bfloat16,
                                                          "stochastic")]
+    cases += [(m, dt, kind) for m in (74, 800) for dt in (torch.float32, torch.bfloat16)
+              for kind in ("tie", "tie_stochastic")]
+    cases += [(CD_M_SMEM, torch.float32, "tie")]
     for m, dt, kind in cases:
         p = 1000 if m <= 800 else 300
-        X, zn2, alpha0, R0, lam, order, y_norm = _cd_case(torch, g, dev, m, p, dt, kind)
-        pl = cds.sweep_plan(m, dt)
+        if kind.startswith("tie"):
+            X, zn2, alpha0, R0, lam, order, y_norm = _cd_tie_case(
+                torch, g, dev, m, p, dt, kind == "tie_stochastic")
+        else:
+            X, zn2, alpha0, R0, lam, order, y_norm = _cd_case(torch, g, dev, m, p, dt, kind)
+        pl = cds.walk_plan(m, dt)
         label = (f"m={m} p={p} {str(dt).replace('torch.', '')} {kind} ({pl.route}, "
-                 f"{pl.threads} threads, {pl.slots} stages, R "
-                 f"{'on chip' if pl.residual_on_chip else 'in device memory'})")
-        err = max(err, check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm,
-                                      nothing_moves=kind == "above_lam_max")[0])
-    print(f"[cd_sweep] phase 2: {len(cases)} cases in {time.perf_counter() - t0:.1f} s")
-    return {"cd_sweep": err}
+                 f"{pl.threads} threads, {pl.chain_threads} in the chain, R "
+                 f"{'on chip' if cds.sweep_plan(m, dt).residual_on_chip else 'in device memory'})")
+        err["cd_score"] = max(err["cd_score"], check_cd_score(torch, label, X, R0, zn2, alpha0,
+                                                              lam))
+        e = check_cd_sweep(torch, label, X, zn2, alpha0, R0, lam, order, y_norm,
+                           nothing_moves=kind == "above_lam_max")
+        err["cd_walk"] = err["cd_sweep_unscreened"] = max(err["cd_walk"], e)
+    # a re-base after every idle survivor: the same bits as one walk
+    X, zn2, alpha0, R0, lam, order, _ = _cd_case(torch, g, dev, 74, 1000, torch.float32,
+                                                 "stochastic")
+    out = []
+    for limit in (1, 0):
+        a, r = alpha0.clone(), R0.clone()
+        before = cds.STATS.rebases
+        out.append((a, r, cds.cd_sweep(X, a, r, zn2, lam / 3, order, rebase_after=limit)))
+        print(f"[cd_sweep] rebase_after={limit}: {cds.STATS.rebases - before} re-bases")
+    check(_walker_equals_unscreened(torch, *out), "a forced re-base changed the sweep's bits")
+    print(f"[cd_sweep] phase 2: {len(cases) + 1} cases in {time.perf_counter() - t0:.1f} s")
+    return err
 
 
 def _penalized(pt):
@@ -5192,20 +5350,164 @@ def _print_baseline_points(tag, res, unit):
           f"{res.mean_active:.1f}")
 
 
+def _stats_since(cds, before):
+    return {k: v - before[k] for k, v in cds.STATS.snapshot().items()}
+
+
+def _check_walks(tag, kernels, cds, st, sweeps):
+    """Walker launches = sweeps + re-bases, a score pass a walk, H never."""
+    n = kernels.launch_counts()
+    check(0 < st["sweeps"] == sweeps and n["cd_walk"] == sweeps + st["rebases"] == st["walks"]
+          and n["cd_score"] == n["cd_walk"] and n["cd_sweep_unscreened"] == 0,
+          f"{tag}: cd_walk {n['cd_walk']} / cd_score {n['cd_score']} launches != sweeps "
+          f"{sweeps} + re-bases {st['rebases']}, or H launched ({n['cd_sweep_unscreened']})")
+    print(f"[{tag}] launches: cd_walk {n['cd_walk']} = {sweeps} sweeps + {st['rebases']} "
+          f"re-bases, cd_score {n['cd_score']}, cd_sweep_unscreened 0; survivors "
+          f"{st['survivors']:,} of {st['positions']:,} positions "
+          f"({100 * st['survivors'] / max(st['positions'], 1):.4f}%), "
+          f"{st['survivors'] / max(sweeps, 1):.1f} a sweep, idle {st['idle']:,}")
+    return n["cd_walk"], n["cd_score"]
+
+
+def _sweep_pair(torch, cds, Xt, zn2, alpha0, R0, lam, order=None):
+    """The screened and the unscreened sweep from the same state: both
+    results and whether they agree (alpha up to a zero's sign, R and max |d|
+    bitwise)."""
+    a_w, r_w = alpha0.clone(), R0.clone()
+    md_w = cds.cd_sweep(Xt, a_w, r_w, zn2, lam, order)
+    a_h, r_h = alpha0.clone(), R0.clone()
+    md_h = cds.cd_sweep_unscreened(Xt, a_h, r_h, zn2, lam, order)
+    torch.cuda.synchronize()
+    return (a_w, r_w, md_w), _walker_equals_unscreened(torch, (a_w, r_w, md_w), (a_h, r_h, md_h))
+
+
+def _time_sweeps(torch, fn, reset, reps, flush):
+    """A sweep's device ms (CUDA events around the call, the host's reads
+    between walks included) and host ms, the state reset and the L2 flushed
+    before each (outside the timed span); the first call untimed."""
+    reset()
+    fn()
+    dev_ms, host_ms = 0.0, 0.0
+    for _ in range(reps):
+        reset()
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host_ms += 1e3 * (time.perf_counter() - t0)
+        dev_ms += start.elapsed_time(end)
+    return dev_ms / reps, host_ms / reps
+
+
+def _walker_ms(torch, cds, Xt, zn2, alpha, resid, lam, reset, flush, reps):
+    """The walker's own device ms a sweep from reset()'s state under the
+    path's re-base rule: each walk's launch between CUDA events, summed over
+    the sweep's walks; the score passes between them run untimed; the L2
+    flushed before each sweep; the first sweep untimed. Returns (ms,
+    survivors, walks) of a sweep."""
+    p, m = Xt.shape
+    dev = Xt.device
+    limit = cds.rebase_threshold(p, m, Xt.dtype)
+    head, nz = torch.empty(p, device=dev), torch.empty(p, device=dev)
+    cmin = torch.empty(-(-p // cds.CHUNK), device=dev)
+    r0n = torch.empty((), dtype=torch.float64, device=dev)
+    io = torch.zeros(3, dtype=torch.int64, device=dev)
+    md = torch.zeros((), device=dev)
+
+    def sweep():
+        io.zero_()
+        md.zero_()
+        total, walks = 0.0, 0
+        while True:
+            cds.cd_score(Xt, resid, zn2, alpha, lam, head, nz, cmin, r0n)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            cds.cd_walk(Xt, alpha, resid, zn2, None, head, nz, cmin, r0n, md, io, lam, limit)
+            end.record()
+            pos, surv, _ = io.tolist()  # the walk's host read, as the path's
+            total += start.elapsed_time(end)
+            walks += 1
+            if pos >= p:
+                return total, surv, walks
+
+    reset()
+    sweep()
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        flush.zero_()
+        torch.cuda.synchronize()
+        ms, surv, walks = sweep()
+        total += ms
+    return total / reps, surv, walks
+
+
+def _plain_walker_ms(torch, cds, Xt, zn2, alpha, resid, lam, reset):
+    """The walker's plain version's ms (host clock) over a sweep from
+    reset()'s state under the path's re-base rule: each plain walk timed,
+    the plain score passes between them untimed."""
+    p, m = Xt.shape
+    limit = cds.rebase_threshold(p, m, Xt.dtype)
+    lam32 = float(torch.tensor(lam, dtype=torch.float32))
+    n2_floor = torch.clamp_min(zn2, 1e-12)
+    md = torch.zeros((), device=Xt.device)
+    reset()
+    pos, total = 0, 0.0
+    while pos < p:
+        head, nz, rn, _ = cds.cd_score_plain(Xt, resid, zn2, alpha, lam32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos, md, _, _ = cds._walk_plain(Xt, alpha, resid, zn2, n2_floor, lam32, None, head, nz,
+                                        rn, pos, limit, md)
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return 1e3 * total
+
+
+def _rebase_scan(torch, cds, tag, Xt, zn2, alpha0, R0, lam, limits, flush, reps=3):
+    """A sweep's device ms from (alpha0, R0) at each re-base threshold
+    (``rebase_after``; 0: never), with its survivors and re-bases."""
+    alpha, resid = alpha0.clone(), R0.clone()
+
+    def reset():
+        alpha.copy_(alpha0)
+        resid.copy_(R0)
+
+    cells = []
+    for limit in limits:
+        before = cds.STATS.snapshot()
+        ms, _ = _time_sweeps(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam,
+                                                         rebase_after=limit), reset, reps, flush)
+        st = _stats_since(cds, before)
+        cells.append(f"{limit}: {ms:.4f} ms ({st['survivors'] / st['sweeps']:.0f} survivors, "
+                     f"{st['rebases'] / st['sweeps']:.1f} re-bases)")
+    print(f"[rebase] {tag}, a sweep's device ms by idle survivors before a re-base (0: never; "
+          f"the cost model's {cds.rebase_threshold(*Xt.shape, Xt.dtype)}): " + "; ".join(cells))
+
+
 def phase3_baselines(torch, dev, launches, errs):
     """The paper's comparison on the card, on Pyrim at its published size:
     cyclic CD on the first PYRIM_POINTS points of a 100-point lambda grid,
-    stochastic CD on the first PYRIM_STOCH_POINTS, penalized FISTA on the
-    same points as cyclic CD, and the FW path at the CD points' l1 norms
-    (paper §2.1); one warm sweep at full p through the kernel and the plain
-    loop; then (phase 5) the sweep's and a FISTA iteration's times. Returns
-    the sweep's timing row; the warm sweep's error joins ``errs``."""
+    stochastic CD on the first PYRIM_STOCH_POINTS, both through the
+    screened sweep (the walker launches = sweeps + re-bases), the cyclic
+    path's first CD_BIT_POINTS points again through the unscreened kernel H
+    (bit for bit), penalized FISTA on the same points as cyclic CD, and the
+    FW path at the CD points' l1 norms (paper §2.1); one warm sweep at full
+    p through the walker and H (bit for bit); then (phase 5) the screened
+    sweep cold and warm, the score pass, H, the chain's floor and a FISTA
+    iteration. Returns the CD kernels' timing rows; the errors join ``errs``."""
     from repro_torch import kernels
     from repro_torch.core import (CDConfig, FISTAConfig, baselines, cd_path, fista_path,
                                   fw_path, lambda_grid)
     from repro_torch.data import PROXY_SPECS, make_proxy
     from repro_torch.kernels import cd_sweep as cds
     from repro_torch.kernels import colstats as cs
+
+    import numpy as np
 
     t_phase = time.perf_counter()
     spec = PROXY_SPECS["pyrim"]
@@ -5218,28 +5520,54 @@ def phase3_baselines(torch, dev, launches, errs):
     print(f"[pyrim] make_proxy('pyrim', scale=1.0): m={m} p={p:,} dense f32 Xt "
           f"{Xt.numel() * 4 / 1e6:.1f} MB, built on the host in {time.perf_counter() - t0:.1f} s")
     lams = lambda_grid(Xt, y, n_points=100)
-    pl = cds.sweep_plan(m, Xt.dtype)
+    wp = cds.walk_plan(m, Xt.dtype)
     print(f"[pyrim] lambda_grid(n_points=100): lam_max {lams[0]:.6g}; points 0-"
-          f"{PYRIM_POINTS - 1} down to {lams[PYRIM_POINTS - 1]:.6g}; cd_sweep route {pl.route}, "
-          f"{pl.threads} threads, {pl.slots} stages")
+          f"{PYRIM_POINTS - 1} down to {lams[PYRIM_POINTS - 1]:.6g}; the walker's route "
+          f"{wp.route}, {wp.threads} threads ({wp.chain_threads} in the chain); a re-base "
+          f"after {cds.rebase_threshold(p, m)} idle survivors")
 
+    cfg = CDConfig(lam=0.0, max_sweeps=CD_SWEEPS, tol=BASELINE_TOL)
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    cd = cd_path(Xt, y, lams[:PYRIM_POINTS], CDConfig(lam=0.0, max_sweeps=CD_SWEEPS,
-                                                       tol=BASELINE_TOL), seed=0)
-    n_cyc = kernels.launch_counts()["cd_sweep"]
+    before = cds.STATS.snapshot()
+    cd = cd_path(Xt, y, lams[:PYRIM_POINTS], cfg, seed=0)
+    st_cd = _stats_since(cds, before)
     _print_baseline_points("cd", cd, "sweeps")
-    check(n_cyc == cd.total_iters, f"cd_sweep launches {n_cyc} != sweeps {cd.total_iters}")
+    n_walk, n_score = _check_walks("cd", kernels, cds, st_cd, cd.total_iters)
     kernels.reset_launch_counts()
-    scd = cd_path(Xt, y, lams[:PYRIM_STOCH_POINTS],
-                  CDConfig(lam=0.0, max_sweeps=CD_SWEEPS, tol=BASELINE_TOL, stochastic=True),
+    before = cds.STATS.snapshot()
+    scd = cd_path(Xt, y, lams[:PYRIM_STOCH_POINTS], dataclasses.replace(cfg, stochastic=True),
                   seed=0)
-    n_sto = kernels.launch_counts()["cd_sweep"]
+    st_scd = _stats_since(cds, before)
     _print_baseline_points("scd", scd, "sweeps")
-    check(n_sto == scd.total_iters, f"cd_sweep launches {n_sto} != sweeps {scd.total_iters}")
-    launches["cd_sweep"] = n_cyc + n_sto
-    print(f"[cd] cd_sweep launches: {n_cyc} cyclic + {n_sto} stochastic = sweeps; CD paths "
-          f"{time.perf_counter() - t0:.1f} s")
+    w, sc = _check_walks("scd", kernels, cds, st_scd, scd.total_iters)
+    for name, n in (("cd_walk", n_walk + w), ("cd_score", n_score + sc),
+                    ("cd_sweep_unscreened", 0)):  # with the dense width's, when it ran
+        launches[name] = launches.get(name, 0) + n
+    print(f"[cd] CD paths {time.perf_counter() - t0:.1f} s")
+
+    # the screened path against an unscreened run of its first points, bit
+    # for bit: the same sweeps, objectives and supports with their values
+    t0 = time.perf_counter()
+    screened_sweep = baselines.cd_sweep
+    baselines.cd_sweep = cds.cd_sweep_unscreened
+    try:
+        kernels.reset_launch_counts()
+        ref = cd_path(Xt, y, lams[:CD_BIT_POINTS], cfg, seed=0)
+        n_h = kernels.launch_counts()["cd_sweep_unscreened"]
+    finally:
+        baselines.cd_sweep = screened_sweep
+    for g, (a, b) in enumerate(zip(cd.points, ref.points)):
+        same = (a.iterations == b.iterations and a.objective == b.objective
+                and np.array_equal(a.alpha_nnz_idx, b.alpha_nnz_idx)
+                and np.array_equal(a.alpha_nnz_val, b.alpha_nnz_val))
+        print(f"[cd-bits] point {g}: screened {a.iterations} sweeps {a.seconds:.4f} s, "
+              f"unscreened {b.iterations} sweeps {b.seconds:.4f} s: "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+        check(same, f"point {g}: the screened and the unscreened path differ")
+    check(n_h == ref.total_iters, "the unscreened path's launches != its sweeps")
+    print(f"[cd-bits] the first {CD_BIT_POINTS} points bit for bit ({n_h} unscreened sweeps, "
+          f"{time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     fi = fista_path(Xt, y, lams[:PYRIM_POINTS], FISTAConfig(max_iters=FISTA_ITERS,
@@ -5260,44 +5588,143 @@ def phase3_baselines(torch, dev, launches, errs):
               f"FW {b.objective!r} (ratio {b.objective / a.objective:.6f}); seconds CD "
               f"{a.seconds:.4f} FW {b.seconds:.4f}; dots CD {a.n_dots:,} FW {b.n_dots:,}")
     print(f"[pyrim] paths: CD {cd.total_seconds:.3f} s ({cd.total_iters} sweeps, "
-          f"{cd.total_dots:,} dots, mean active {cd.mean_active:.1f}); stochastic CD "
-          f"{scd.total_seconds:.3f} s ({scd.total_iters} sweeps, 3 points); FISTA "
-          f"{fi.total_seconds:.3f} s ({fi.total_iters} iterations, {fi.total_dots:,} dots, mean "
-          f"active {fi.mean_active:.1f}); FW {fw.total_seconds:.3f} s ({fw.total_iters} "
-          f"iterations, kappa {fw_cfg.kappa}, {fw.total_dots:,} dots, mean active "
-          f"{fw.mean_active:.1f}); FISTA and FW {time.perf_counter() - t0:.1f} s")
+          f"{1e3 * cd.total_seconds / cd.total_iters:.4f} ms a sweep, {cd.total_dots:,} dots, "
+          f"mean active {cd.mean_active:.1f}); stochastic CD {scd.total_seconds:.3f} s "
+          f"({scd.total_iters} sweeps, 3 points); FISTA {fi.total_seconds:.3f} s "
+          f"({fi.total_iters} iterations, {fi.total_dots:,} dots, mean active "
+          f"{fi.mean_active:.1f}); FW {fw.total_seconds:.3f} s ({fw.total_iters} iterations, "
+          f"kappa {fw_cfg.kappa}, {fw.total_dots:,} dots, mean active {fw.mean_active:.1f}); "
+          f"FISTA and FW {time.perf_counter() - t0:.1f} s")
 
-    # one warm sweep at full p, the kernel against the plain loop on the card:
-    # from the last point but one's alpha and residual at the last point's lam,
-    # where coordinates move (at lams[0] = lam_max none can); the plain loop's
-    # time is the sweep's plain_ms
+    # one warm sweep at full p, the walker against H bit for bit: from the
+    # last point but one's alpha and residual at the last point's lam, where
+    # coordinates move (at lams[0] = lam_max none can)
     _, zn2 = cs.colstats(Xt, y)
     lam = float(lams[PYRIM_POINTS - 1])
     warm = _alpha_from_point(torch, cd.points[-2], p, dev)
-    err, plain_s, moved = check_cd_sweep(
-        torch, f"Pyrim m={m} p={p:,} f32 cyclic, warm from point {PYRIM_POINTS - 2} at point "
-        f"{PYRIM_POINTS - 1}'s lam ({pl.route})", Xt, zn2, warm, y - torch.mv(Xt.t(), warm), lam,
-        None, float(torch.linalg.vector_norm(y)))
-    check(moved > 0, "the warm Pyrim sweep moved no coordinate")
-    errs["cd_sweep"] = max(errs["cd_sweep"], err)
-    plain_ms = 1e3 * plain_s
+    R_warm = y - torch.mv(Xt.t(), warm)
+    before = cds.STATS.snapshot()
+    (a_w, _, _), same = _sweep_pair(torch, cds, Xt, zn2, warm, R_warm, lam)
+    st_w = _stats_since(cds, before)
+    moved = int(torch.count_nonzero(a_w != warm))
+    print(f"[cd] warm sweep at full p (point {PYRIM_POINTS - 2}'s alpha at point "
+          f"{PYRIM_POINTS - 1}'s lam): walker {'= H bit for bit' if same else '!= H'}; {moved} "
+          f"coordinates moved; survivors {st_w['survivors']} of {p:,} "
+          f"({100 * st_w['survivors'] / p:.4f}%), {st_w['rebases']} re-bases")
+    check(same and moved > 0, "the warm Pyrim sweep: the walker differs from H, or nothing moved")
 
-    # phase 5: a sweep's time on Pyrim, L2 flushed; its bound and floor
+    # phase 5: the screened sweep cold (from zero at the last point's lam, as
+    # H is timed) and warm, the score pass, H and its chain's floor, the plain
+    # versions; L2 flushed before each
     flush = torch.empty(64 * 2**20, device=dev)
     alpha, resid = torch.zeros(p, device=dev), y.clone()
-    ms = _time_cold(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam), 5, flush)
+
+    def cold():
+        alpha.zero_()
+        resid.copy_(y)
+
+    def warm_state():
+        alpha.copy_(warm)
+        resid.copy_(R_warm)
+
+    sweep = lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam)  # noqa: E731
+    before = cds.STATS.snapshot()
+    ms_cold, host_cold = _time_sweeps(torch, sweep, cold, 5, flush)
+    st_cold = _stats_since(cds, before)
+    before = cds.STATS.snapshot()
+    ms_warm, host_warm = _time_sweeps(torch, sweep, warm_state, 5, flush)
+    st_warmt = _stats_since(cds, before)
     order = torch.randint(0, p, (p,), device=dev)
-    ms_sto = _time_cold(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam, order), 3, flush)
+    ms_sto, _ = _time_sweeps(torch, lambda: cds.cd_sweep(Xt, alpha, resid, zn2, lam, order), cold,
+                             3, flush)
+    head, nz = torch.empty(p, device=dev), torch.empty(p, device=dev)
+    cmin = torch.empty(-(-p // cds.CHUNK), device=dev)
+    r0n = torch.empty((), dtype=torch.float64, device=dev)
+    score_ms = _time_cold(torch, lambda: cds.cd_score(Xt, resid, zn2, alpha, lam, head, nz, cmin,
+                                                      r0n), 20, flush)
+    # the walker's own launches in a sweep, cold and warm, the path's re-base
+    # rule; its plain version on the cold state
+    walk_cold, surv_cold, walks_cold = _walker_ms(torch, cds, Xt, zn2, alpha, resid, lam, cold,
+                                                  flush, 5)
+    walk_warm, surv_warm, walks_warm = _walker_ms(torch, cds, Xt, zn2, alpha, resid, lam,
+                                                  warm_state, flush, 5)
+    walk_plain_ms = _plain_walker_ms(torch, cds, Xt, zn2, alpha, resid, lam, cold)
+    limits = [max(1, round(f * cds.rebase_threshold(p, m))) if f else 0
+              for f in REBASE_SCAN_FACTORS]
+    _rebase_scan(torch, cds, "Pyrim cold", Xt, zn2, torch.zeros(p, device=dev), y, lam, limits,
+                 flush)
+    _rebase_scan(torch, cds, "Pyrim warm", Xt, zn2, warm, R_warm, lam, limits, flush)
+    ms_h = _time_cold(torch, lambda: cds.cd_sweep_unscreened(Xt, alpha, resid, zn2, lam), 3,
+                      flush)
     floor_ms = _time_cold(torch, lambda: cds.chain_floor(p, dev), 3, flush)
-    nbytes = cds.sweep_bytes(p, m, Xt.dtype, ordered=False)
-    bound_ms, bound_by = _bound(nbytes, 4 * p * m)
-    print(f"[timing] cd_sweep (Pyrim, m={m}, p={p:,}, cyclic, L2 flushed): {ms:.6f} ms a "
-          f"sweep, bound {bound_ms:.6f} ms ({bound_by}, {nbytes:,} bytes, "
-          f"{100 * bound_ms / ms:.2f}% of bound); stochastic {ms_sto:.6f} ms; the chain's "
-          f"floor, {p:,} dependent warp sums: {floor_ms:.6f} ms ({100 * floor_ms / ms:.1f}% of "
-          f"the sweep); plain {plain_ms:.6f} ms (the warm sweep above, one plain sweep of all "
-          f"{p:,} rows on the host's clock); library none; {1e6 * ms / p:.1f} ns a coordinate")
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    # H and its plain loop on the same CD_PLAIN_ROWS rows, cold from zero
+    Xs, zs = Xt[:CD_PLAIN_ROWS], zn2[:CD_PLAIN_ROWS]
+    a_s, r_s = torch.zeros(CD_PLAIN_ROWS, device=dev), y.clone()
+
+    def cold_slice():
+        a_s.zero_()
+        r_s.copy_(y)
+
+    ms_h_slice, _ = _time_sweeps(torch, lambda: cds.cd_sweep_unscreened(Xs, a_s, r_s, zs, lam),
+                                 cold_slice, 5, flush)
+    cold_slice()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cds.cd_sweep_plain(Xs, a_s, r_s, zs, lam)
+    torch.cuda.synchronize()
+    h_plain_ms = 1e3 * (time.perf_counter() - t0)
+    # the screened sweep's plain version warm at full p (host clock), the
+    # score pass's plain version queued
+    warm_state()
+    t0 = time.perf_counter()
+    cds.cd_sweep_screened_plain(Xt, alpha, resid, zn2, lam)
+    torch.cuda.synchronize()
+    sweep_plain_ms = 1e3 * (time.perf_counter() - t0)
+    score_plain_ms = _time_queued(torch, lambda i: cds.cd_score_plain(Xt, resid, zn2, alpha,
+                                                                      lam), 20)
+    score_lib_ms = _time_queued(torch, lambda i: torch.mv(Xt, resid), 200)
+    b_sweep = _bound(cds.screened_bytes(p, m, Xt.dtype, ordered=False), 4 * p * m)
+    b_walk = _bound(cds.walk_bytes(p, m, Xt.dtype, surv_cold, walks_cold, ordered=False),
+                    4 * surv_cold * m)
+    b_h = _bound(cds.sweep_bytes(p, m, Xt.dtype, ordered=False), 4 * p * m)
+    b_h_slice = _bound(cds.sweep_bytes(CD_PLAIN_ROWS, m, Xt.dtype, ordered=False),
+                       4 * CD_PLAIN_ROWS * m)
+    b_score = _bound(cds.score_bytes(p, m, Xt.dtype), 4 * p * m)
+    path_ms = 1e3 * cd.total_seconds / cd.total_iters
+    print(f"[timing] screened CD sweep (Pyrim, m={m}, p={p:,}, cyclic, lam = point "
+          f"{PYRIM_POINTS - 1}'s, L2 flushed): cold from zero {ms_cold:.6f} ms device "
+          f"({host_cold:.6f} ms host; survivors {st_cold['survivors'] / st_cold['sweeps']:.1f} "
+          f"a sweep, {st_cold['rebases'] / st_cold['sweeps']:.2f} re-bases), warm "
+          f"{ms_warm:.6f} ms device ({host_warm:.6f} ms host; survivors "
+          f"{st_warmt['survivors'] / st_warmt['sweeps']:.1f} a sweep, "
+          f"{100 * st_warmt['survivors'] / st_warmt['positions']:.4f}% of p), stochastic cold "
+          f"{ms_sto:.6f} ms; the path's mean {path_ms:.6f} ms a sweep (host clock, "
+          f"{cd.total_iters} sweeps); bound {b_sweep[0]:.6f} ms ({b_sweep[1]}), "
+          f"{100 * b_sweep[0] / ms_cold:.2f}% of bound cold; plain (screened, warm, host) "
+          f"{sweep_plain_ms:.6f} ms")
+    print(f"[timing] the walker's own launches a sweep (the path's re-base rule): cold "
+          f"{walk_cold:.6f} ms ({walks_cold} walks, {surv_cold} survivors; bound "
+          f"{b_walk[0]:.6f} ms by {b_walk[1]}, {100 * b_walk[0] / walk_cold:.2f}%; plain walks "
+          f"on the same state {walk_plain_ms:.6f} ms, host), warm {walk_warm:.6f} ms "
+          f"({walks_warm} walks, {surv_warm} survivors); the score pass {score_ms:.6f} ms (bound "
+          f"{b_score[0]:.6f} ms, {100 * b_score[0] / score_ms:.2f}%; plain {score_plain_ms:.6f} "
+          f"ms; torch.mv of its c alone {score_lib_ms:.6f} ms)")
+    print(f"[timing] cd_sweep_unscreened (H, cold from zero, the state carried across reps): "
+          f"{ms_h:.6f} ms a sweep, bound {b_h[0]:.6f} ms ({100 * b_h[0] / ms_h:.2f}%); the "
+          f"chain's floor, {p:,} dependent warp sums: {floor_ms:.6f} ms; {1e6 * ms_h / p:.1f} ns "
+          f"a coordinate; screened cold / H {ms_cold / ms_h:.5f}, warm / H {ms_warm / ms_h:.5f}; "
+          f"on the first {CD_PLAIN_ROWS:,} rows from zero: H {ms_h_slice:.6f} ms (bound "
+          f"{b_h_slice[0]:.6f} ms), its plain loop {h_plain_ms:.6f} ms (host)")
+    rows = {
+        "cd_walk": dict(ms=walk_cold, plain_ms=walk_plain_ms, library_ms=None,
+                        bound_ms=b_walk[0], bound_by=b_walk[1],
+                        timed_on=f"Pyrim m={m} p={p}, a cold sweep's walks"),
+        "cd_score": dict(ms=score_ms, plain_ms=score_plain_ms, library_ms=None,
+                         bound_ms=b_score[0], bound_by=b_score[1]),
+        "cd_sweep_unscreened": dict(ms=ms_h_slice, plain_ms=h_plain_ms, library_ms=None,
+                                    bound_ms=b_h_slice[0], bound_by=b_h_slice[1],
+                                    timed_on=f"Pyrim's first {CD_PLAIN_ROWS} rows, m={m}"),
+    }
 
     # a FISTA iteration: the difference of two solves that run to their
     # lengths, so the power iteration and the final residual cancel; each
@@ -5319,7 +5746,7 @@ def phase3_baselines(torch, dev, launches, errs):
           f"and {1e3 * walls[n1]:.3f} ms, each run to its length), the two torch.mv calls "
           f"alone {mv_ms:.4f} ms ({100 * mv_ms / wall:.1f}% of the iteration)")
     print(f"[pyrim] baselines phases {time.perf_counter() - t_phase:.1f} s")
-    return {"cd_sweep": row}
+    return rows
 
 
 def phase3_fista_paper_width(torch, Xt, y, main):
@@ -5356,6 +5783,134 @@ def phase3_fista_paper_width(torch, Xt, y, main):
     check(math.isfinite(f_fi) and f_fw - f_fi <= gap + slack,
           "FW's certified gap does not cover FISTA's feasible objective")
     print(f"[fista-4m] phase {time.perf_counter() - t_phase:.1f} s")
+
+def phase3_cd_paper_width(torch, Xt, y):
+    """CD at the paper's dense width (p = 4,272,227, m = 800, the main
+    path's design): cyclic CD (table 4's settings) point by point down
+    lambda_grid(n_points=100), each point warm-started from the one before,
+    while the budget allows; penalized FISTA on the same points, each CD
+    point's penalized objective within 1e-3 of FISTA's; the FW path at CD's
+    l1 norms beside them (paper Table 4 at 4M variables). Then the walker
+    against H bit for bit on the design's first CD_4M_SLICE rows."""
+    from repro_torch import kernels
+    from repro_torch.core import CDConfig, FISTAConfig, baselines, fista_path, fw_path, lambda_grid
+    from repro_torch.kernels import cd_sweep as cds
+    from repro_torch.kernels import colstats as cs
+
+    t_phase = time.perf_counter()
+    p, m = Xt.shape
+    lams = lambda_grid(Xt, y, n_points=100)
+    cfg = CDConfig(lam=0.0, max_sweeps=CD_SWEEPS, tol=BASELINE_TOL)
+    wp = cds.walk_plan(m, Xt.dtype)
+    print(f"[cd-4m] p={p:,} m={m} f32: lam_max {lams[0]:.6g}; the walker's route {wp.route}, "
+          f"{wp.threads} threads ({wp.chain_threads} in the chain); a re-base after "
+          f"{cds.rebase_threshold(p, m)} idle survivors")
+    kernels.reset_launch_counts()
+    before_all = cds.STATS.snapshot()
+    points, alpha, prev, cd_s = [], None, None, 0.0
+    while len(points) < CD_4M_MAX_POINTS and (len(points) < CD_4M_MIN_POINTS
+                                               or cd_s < CD_4M_BUDGET_S):
+        g, lam = len(points), float(lams[len(points)])
+        before = cds.STATS.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = baselines.cd_solve(Xt, y, cfg, None, alpha, lam=lam)
+        objective = float(res.objective)
+        dt = time.perf_counter() - t0
+        cd_s += dt
+        st = _stats_since(cds, before)
+        prev, alpha = alpha, res.alpha
+        l1 = float(alpha.abs().sum())
+        # the penalized lasso's duality gap at the scaled residual
+        r = y - torch.mv(Xt.t(), alpha)
+        theta = r * min(1.0, lam / float(torch.mv(Xt, r).abs().max()))
+        pen = 0.5 * float(r.double() @ r.double()) + lam * l1
+        dual = 0.5 * float(y.double() @ y.double()) - 0.5 * float(
+            (y - theta).double() @ (y - theta).double())
+        points.append(dict(lam=lam, objective=objective, l1=l1, sweeps=res.iterations,
+                           seconds=dt, active=res.active, gap=pen - dual))
+        print(f"[cd-4m] point {g} lam={lam:.6g}: {res.iterations} sweeps, {st['rebases']} "
+              f"re-bases, survivors {st['survivors'] / res.iterations:.1f} a sweep "
+              f"({100 * st['survivors'] / st['positions']:.5f}% of p), {dt:.3f} s "
+              f"({1e3 * dt / res.iterations:.3f} ms a sweep), active {res.active}, l1 {l1:.6g}, "
+              f"objective {objective!r}, penalized {objective + lam * l1!r}, duality gap "
+              f"{pen - dual:.6g} ({(pen - dual) / pen:.3g} of it)")
+        check(math.isfinite(objective) and pen - dual <= 1e-3 * pen,
+              f"CD at the dense width, point {g}: not finite, or its gap past 1e-3")
+    n = len(points)
+    st = _stats_since(cds, before_all)
+    walks = _check_walks("cd-4m", kernels, cds, st, sum(pt["sweeps"] for pt in points))
+
+    # a sweep near lam_max on the device's clock: point 1's lam from zero
+    flush = torch.empty(64 * 2**20, device=Xt.device)
+    a0, r0 = torch.zeros(p, device=Xt.device), y.clone()
+    _, zn2 = cs.colstats(Xt, y)
+
+    def reset():
+        a0.zero_()
+        r0.copy_(y)
+
+    before = cds.STATS.snapshot()
+    sweep_ms, sweep_host = _time_sweeps(torch, lambda: cds.cd_sweep(Xt, a0, r0, zn2, lams[1]),
+                                        reset, 3, flush)
+    st1 = _stats_since(cds, before)
+    head, nz = torch.empty(p, device=Xt.device), torch.empty(p, device=Xt.device)
+    cmin = torch.empty(-(-p // cds.CHUNK), device=Xt.device)
+    r0n = torch.empty((), dtype=torch.float64, device=Xt.device)
+    score_ms = _time_cold(torch, lambda: cds.cd_score(Xt, y, zn2, a0, lams[1], head, nz, cmin,
+                                                      r0n), 3, flush)
+    b_score = _bound(cds.score_bytes(p, m, Xt.dtype), 4 * p * m)
+    walk_ms, surv, walks1 = _walker_ms(torch, cds, Xt, zn2, a0, r0, lams[1], reset, flush, 3)
+    b_walk = _bound(cds.walk_bytes(p, m, Xt.dtype, surv, walks1, ordered=False), 4 * surv * m)
+    print(f"[timing] dense-width sweep from zero at point 1's lam: {sweep_ms:.6f} ms device "
+          f"({sweep_host:.6f} ms host; survivors {st1['survivors'] / st1['sweeps']:.1f} a sweep, "
+          f"{st1['rebases'] / st1['sweeps']:.2f} re-bases); the score pass {score_ms:.6f} ms "
+          f"(bound {b_score[0]:.6f} ms, {100 * b_score[0] / score_ms:.2f}%); the walker's own "
+          f"launches {walk_ms:.6f} ms ({walks1} walks, {surv} survivors; bound "
+          f"{b_walk[0]:.6f} ms, {100 * b_walk[0] / walk_ms:.2f}%)")
+    # the last point's first sweep, warm from the point before, at each
+    # re-base threshold
+    limits = [max(1, round(f * cds.rebase_threshold(p, m))) for f in REBASE_SCAN_FACTORS if f]
+    _rebase_scan(torch, cds, f"dense width, point {len(points) - 1} warm", Xt, zn2, prev,
+                 y - torch.mv(Xt.t(), prev), points[-1]["lam"], limits, flush, reps=2)
+    del a0, r0, head, nz, flush
+
+    t0 = time.perf_counter()
+    fi = fista_path(Xt, y, lams[:n], FISTAConfig(max_iters=CD_4M_FISTA_ITERS, tol=0.0), seed=0)
+    fista_s = time.perf_counter() - t0
+    fw_cfg = main_config(p, "kernels")
+    fw = fw_path(Xt, y, [pt["l1"] for pt in points], fw_cfg, seed=0, device=Xt.device)
+    for g, (a, b, c) in enumerate(zip(points, fi.points, fw.points)):
+        pen_cd = a["objective"] + a["lam"] * a["l1"]
+        rel = abs(pen_cd - _penalized(b)) / abs(_penalized(b))
+        print(f"[cd-4m-vs-fista] point {g}: penalized CD {pen_cd!r} ({a['seconds']:.3f} s, "
+              f"{a['sweeps']} sweeps) FISTA {_penalized(b)!r} ({b.seconds:.3f} s, "
+              f"{b.iterations} iterations) rel {rel:.3g}; FW at CD's l1 {a['l1']:.6g}: objective {c.objective!r} (CD's "
+              f"{a['objective']!r}, ratio {c.objective / a['objective']:.6f}), {c.seconds:.3f} s, "
+              f"{c.iterations} iterations")
+        check(rel <= 1e-3, f"CD at the dense width, point {g}: CD and FISTA apart by {rel:.3g}")
+    print(f"[cd-4m] {n} points: CD {cd_s:.3f} s ({sum(pt['sweeps'] for pt in points)} sweeps), "
+          f"FISTA {fista_s:.3f} s ({fi.total_iters} iterations), FW {fw.total_seconds:.3f} s "
+          f"({fw.total_iters} iterations)")
+
+    # the walker against H on the design's first rows, from zero at a lam
+    # where coordinates of those rows move (half their own lam_max)
+    t0 = time.perf_counter()
+    Xs = Xt[:CD_4M_SLICE]
+    _, zn2 = cs.colstats(Xs, y)
+    lam = float((Xs @ y).abs().max()) / 2
+    before = cds.STATS.snapshot()
+    (a_w, _, _), same = _sweep_pair(torch, cds, Xs, zn2, torch.zeros(CD_4M_SLICE, device=Xt.device),
+                                    y.clone(), lam)
+    st = _stats_since(cds, before)
+    moved = int(torch.count_nonzero(a_w))
+    print(f"[cd-4m] the first {CD_4M_SLICE:,} rows at m={m}, from zero at lam {lam:.6g}: walker "
+          f"{'= H bit for bit' if same else '!= H'}, {moved} moved, {st['survivors']} survivors, "
+          f"{st['rebases']} re-bases ({time.perf_counter() - t0:.1f} s)")
+    check(same and moved > 0, "the dense slice: the walker differs from H, or nothing moved")
+    print(f"[cd-4m] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(zip(("cd_walk", "cd_score"), walks))
+
 
 # --------------------------------------------------------------------------
 # observability: the telemetry ring's kernels (the TEL instantiations of the

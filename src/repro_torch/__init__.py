@@ -5,8 +5,8 @@ takes ``device=`` (default ``'cuda'``) and runs the kernels' plain PyTorch
 versions when given ``device='cpu'``. The paper's baselines
 (``baselines.cd_solve``, ``baselines.fista_solve``, ``cd_path``,
 ``fista_path``) run on the device of the tensors they are given (the card
-for numpy inputs); coordinate descent sweeps through the ``cd_sweep``
-kernel.
+for numpy inputs); coordinate descent sweeps through the screened
+``cd_sweep`` (a score pass and the walker kernel).
 """
 from repro_torch.core import (
     LASSO,

@@ -15,8 +15,9 @@ currency (a length-m predictor dot is one; a dense matvec is p) and stops
 on the paper's ``||alpha_{t+1} - alpha_t||_inf <= eps`` rule, compared in
 float32 as the reference compares.
 
-A CD sweep is one launch of ``kernels/cd_sweep`` (its plain version on
-CPU tensors) and one host read of the sweep's max |d|; a FISTA iteration
+A CD sweep is ``kernels/cd_sweep``'s screened sweep (its plain version on
+CPU tensors): a score pass and a walker launch, once more each a re-base,
+and one host read a walk (the last gives the sweep's max |d|); a FISTA iteration
 is two ``torch.mv`` calls, the prox and the momentum, and one host read of
 its step. The counts are Python ints (``unit_dots``): the reference's are
 int32 and wrap at the paper's size (ROADMAP.md R6).
@@ -163,7 +164,7 @@ def cd_solve(Xt, y, cfg: CDConfig, order: Optional[OrderFn] = None, alpha0=None,
     max_delta, sweeps = float("inf"), 0
     while sweeps < cfg.max_sweeps and max_delta > tol:
         rows = _sweep_order(order, sweeps, p, Xt.device) if cfg.stochastic else None
-        # one launch a sweep, then the stopping rule's one host read
+        # the screened sweep (a walk a launch), then the stopping rule's read
         max_delta = float(cd_sweep(Xt, alpha, resid, zn2, lam, rows))
         sweeps += 1
     return SolveResult(

@@ -14,8 +14,10 @@ fused_step:       K4 and K7, K fused FW iterations per launch on the dense
                   and the one-block replay of their records into beta
 sparse_grad:      K5, sampled scores over the block-ELL layout
 sparse_colstats:  K6, the block-ELL setup pass z^T y and ||z||^2
-cd_sweep:         one sweep of the baselines' coordinate descent in one
-                  launch (the port's own: an XLA fori_loop in the reference)
+cd_sweep:         a sweep of the baselines' coordinate descent (the port's
+                  own: an XLA fori_loop in the reference): the screened
+                  sweep's score pass and walker (``cd_score``, ``cd_walk``)
+                  and the unscreened one-launch sweep (``cd_sweep_unscreened``)
 health:           the guarded solve's NaN/Inf check of beta, scale and the
                   co-state in one launch (the port's own: XLA in the
                   reference's watchdog)
@@ -66,7 +68,9 @@ _WRAPPERS = {
     "sparse_fused_chunk_en": fused_step.sparse_fused_chunk_en,
     "dir_tail": step_tail.dir_tail,
     "dir_tail_en": step_tail.dir_tail_en,
-    "cd_sweep": cd_sweep.cd_sweep,
+    "cd_sweep_unscreened": cd_sweep.cd_sweep_unscreened,
+    "cd_score": cd_sweep.cd_score,
+    "cd_walk": cd_sweep.cd_walk,
     "step_tail_tel": step_tail.step_tail_tel,
     "step_tail_en_tel": step_tail.step_tail_en_tel,
     "step_tail_lanes_tel": step_tail.step_tail_lanes_tel,

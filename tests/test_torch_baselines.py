@@ -208,9 +208,13 @@ def _sweep64(Xt, alpha, resid, lam, order):
     return a, r, md
 
 
-@pytest.mark.parametrize("case", ["repeats", "zero_column", "lam_zero", "above_lam_max",
-                                  "warm_thresholded"])
-def test_cd_sweep_plain_edge_cases(prob, case):
+EDGE_CASES = ["repeats", "zero_column", "lam_zero", "above_lam_max", "warm_thresholded"]
+
+
+def _edge_case(prob, case):
+    """The sweep's edge cases on the problem's first 40 rows: ``(Xt, y,
+    alpha0, lam, order)``, the order None (cyclic) unless the case repeats
+    rows."""
     Xt, y = prob
     Xt = Xt[:40].copy()
     p, m = Xt.shape
@@ -233,6 +237,13 @@ def test_cd_sweep_plain_edge_cases(prob, case):
         alpha0 = rng.standard_normal(p).astype(np.float32)
         alpha0[::3] = 0.0
         lam = _lam(Xt, y, 2)
+    return Xt, y, alpha0, lam, order
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cd_sweep_plain_edge_cases(prob, case):
+    Xt, y, alpha0, lam, order = _edge_case(prob, case)
+    p = Xt.shape[0]
     X, Y = _t(Xt), _t(y)
     _, zn2 = colstats(X, Y)
     alpha = _t(alpha0).clone()
@@ -249,6 +260,41 @@ def test_cd_sweep_plain_edge_cases(prob, case):
         assert int(torch.count_nonzero(alpha)) == p
     elif case == "zero_column":
         assert float(alpha[5]) == 0.0 and float(md) >= 2.5
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order_kind", ["as_case", "stochastic"])
+@pytest.mark.parametrize("rebase_after", [None, 1])
+def test_screened_sweep_matches_plain_on_edge_cases(prob, case, dtype, order_kind,
+                                                    rebase_after):
+    """The screened sweep's plain version (the score pass and the walks;
+    ``cd_sweep`` on CPU tensors) bit for bit the unscreened plain loop on
+    each edge case (alpha equal up to a zero's sign, R and max |d|
+    bitwise), cyclic and stochastic, f32 and bf16, with the cost model's
+    re-bases and with one after every idle survivor."""
+    Xt, y, alpha0, lam, order = _edge_case(prob, case)
+    p = Xt.shape[0]
+    if order_kind == "stochastic" and order is None:
+        order = np.random.default_rng(5).integers(0, p, p)
+    X, Y = _t(Xt).to(dtype), _t(y)
+    _, zn2 = colstats(X, Y)
+    R0 = Y - _t(alpha0) @ X.float()
+    o = None if order is None else _t(order)
+    a1, r1 = _t(alpha0).clone(), R0.clone()
+    md1 = cdk.cd_sweep_plain(X, a1, r1, zn2, lam, o)
+    cdk.STATS.reset()
+    a2, r2 = _t(alpha0).clone(), R0.clone()
+    md2 = cdk.cd_sweep(X, a2, r2, zn2, lam, o, rebase_after=rebase_after)
+    assert torch.equal(a1, a2)
+    assert torch.equal(r1.view(torch.int32), r2.view(torch.int32))
+    assert torch.equal(md1.view(torch.int32), md2.view(torch.int32))
+    st = cdk.STATS.snapshot()
+    assert st["sweeps"] == 1 and st["positions"] == p and st["walks"] == st["rebases"] + 1
+    if case == "above_lam_max":
+        assert st["survivors"] == 0  # nothing can move: the screen skips every position
+    if case == "lam_zero":
+        assert st["survivors"] == p
 
 
 @pytest.mark.parametrize("m,dtype,route,threads,slots", [
@@ -274,12 +320,38 @@ def test_sweep_plan(m, dtype, route, threads, slots):
         assert 2 * pl.slots <= cdk.ORDER_RING
 
 
+@pytest.mark.parametrize("m,dtype", [(74, torch.float32), (186, torch.float32),
+                                     (800, torch.float32), (4095, torch.bfloat16),
+                                     (4096, torch.float32), (4097, torch.float32),
+                                     (16_087, torch.bfloat16), (60_000, torch.float32)])
+def test_walk_plan(m, dtype):
+    """The walker's route is the unscreened sweep's for the same m and dtype,
+    its chain the same threads (a survivor's arithmetic is H's bit for bit),
+    in a block of at least WALK_MIN_THREADS testers on the ring route (the
+    whole block on the direct route). The ring route keeps R in registers
+    and takes no dynamic shared memory; the direct route stages R as H does."""
+    pl, wp = cdk.sweep_plan(m, dtype), cdk.walk_plan(m, dtype)
+    assert wp.route == pl.route and wp.chain_threads == pl.threads
+    assert wp.smem_bytes <= cdk.SMEM_BYTES
+    if wp.route == "ring":
+        assert wp.threads == max(pl.threads, cdk.WALK_MIN_THREADS)
+        assert wp.smem_bytes == 0
+        assert wp.threads * cdk.WINDOW_PER_THREAD <= 32 * 128  # the window's ballot words
+    else:
+        assert (wp.threads, wp.smem_bytes) == (1024, pl.smem_bytes)
+
+
 def test_cd_launches_count_on_the_cpu_only_as_plain(scaled):
-    """On CPU tensors the wrapper takes the plain version and counts no launch."""
+    """On CPU tensors the wrapper takes the plain version (the screened
+    sweep's: one plain walk a sweep or more) and counts no launch."""
     Xt, y = scaled
     reset_launch_counts()
+    cdk.STATS.reset()
     res = baselines.cd_solve(_t(Xt), _t(y), CDConfig(lam=_lam(Xt, y, 10)))
-    assert res.iterations > 0 and launch_counts()["cd_sweep"] == 0
+    assert res.iterations > 0
+    assert {k: launch_counts()[k] for k in ("cd_score", "cd_walk", "cd_sweep_unscreened")} == {
+        "cd_score": 0, "cd_walk": 0, "cd_sweep_unscreened": 0}
+    assert cdk.STATS.sweeps == res.iterations and cdk.STATS.walks >= res.iterations
 
 
 # --------------------------------------------------------------------------

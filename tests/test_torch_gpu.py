@@ -1213,16 +1213,18 @@ def _chip_smoke():
 @pytest.mark.parametrize("m", [74, 186, 800, 20_000, 60_000])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["cyclic", "stochastic", "lam_zero", "above_lam_max", "warm",
-                                  "zero_column"])
+                                  "zero_column", "tie", "tie_stochastic"])
 def test_cd_sweep_matches_plain_on_the_card(m, dtype, kind):
-    """The baselines' CD sweep (``kernels/cd_sweep``) against its plain loop
-    on chip_smoke.py's phase-2 cases: every route of ``sweep_plan`` (the
-    residual in registers at m = 74, 186, 800, in shared memory at 20,000,
-    in device memory at 60,000), a stochastic order with repeats inside the
-    ring's window and back to back, lam = 0 and above lam_max, a warm start,
-    a zero column; alpha and R within TOL_CD of their scales, the support
-    equal up to named near-ties, two launches bitwise equal. Each sweep
-    counts one launch, and only the kernel's."""
+    """The baselines' CD sweep (``kernels/cd_sweep``) on chip_smoke.py's
+    phase-2 cases: every route of ``walk_plan`` (the residual in registers
+    at m = 74, 186, 800, in shared memory at 20,000, in device memory at
+    60,000), a stochastic order with repeats inside the ring's window and
+    back to back, lam = 0 and above lam_max, a warm start, a zero column,
+    near-ties (``_cd_tie_case``). The screened sweep (the score pass, the
+    walker) twice bitwise equal and bit for bit the unscreened kernel H
+    (alpha up to a zero's sign, R and max |d| bitwise); against the plain
+    versions within TOL_CD, the support equal up to named near-ties. Each
+    walk counts one walker and one score launch; H counts its one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build and run only there")
     from repro_torch.kernels import cd_sweep as cds
@@ -1231,45 +1233,70 @@ def test_cd_sweep_matches_plain_on_the_card(m, dtype, kind):
     g = torch.Generator(device="cuda")
     g.manual_seed(m)
     p = 1000 if m <= 800 else 100
-    X, zn2, alpha0, R0, lam, order, y_norm = cs._cd_case(torch, g, torch.device("cuda"), m, p,
-                                                         getattr(torch, dtype), kind)
-    before = cds.cd_sweep.launches
+    dt, dev = getattr(torch, dtype), torch.device("cuda")
+    if kind.startswith("tie"):
+        case = cs._cd_tie_case(torch, g, dev, m, p, dt, kind == "tie_stochastic")
+    else:
+        case = cs._cd_case(torch, g, dev, m, p, dt, kind)
+    X, zn2, alpha0, R0, lam, order, y_norm = case
+    before = launch_counts()
+    cs.check_cd_score(torch, f"m={m} {dtype} {kind}", X, R0, zn2, alpha0, lam)
     cs.check_cd_sweep(torch, f"m={m} {dtype} {kind}", X, zn2, alpha0, R0, lam, order, y_norm,
                       nothing_moves=kind == "above_lam_max")
-    assert cds.cd_sweep.launches == before + 2  # the plain loop counts none
+    after = launch_counts()
+    walks = after["cd_walk"] - before["cd_walk"]  # the two screened sweeps' walks
+    assert walks >= 2 and after["cd_score"] - before["cd_score"] == walks + 1  # + the check's
+    assert after["cd_sweep_unscreened"] - before["cd_sweep_unscreened"] == 1
 
 
 @pytest.mark.gpu
-def test_cd_sweep_never_falls_back_on_the_card():
-    """A CUDA tensor launches the kernel or raises: a float64 alpha, an int32
-    order and a misaligned bf16 design are refused, not run plain."""
+def test_cd_sweep_never_falls_back_on_the_card(monkeypatch):
+    """A CUDA tensor launches the kernels or raises: a float64 alpha, an
+    int32 order and a misaligned bf16 design are refused, not run plain, by
+    the screened and the unscreened sweep alike; and a screened sweep never
+    reaches a plain version (they are patched to raise)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build and run only there")
     from repro_torch.kernels import cd_sweep as cds
 
     X = torch.randn((64, 74), device="cuda")
     zn2, R = (X * X).sum(1), torch.randn(74, device="cuda")
-    before = cds.cd_sweep.launches
-    with pytest.raises(TypeError):
-        cds.cd_sweep(X, torch.zeros(64, dtype=torch.float64, device="cuda"), R, zn2, 1.0)
-    with pytest.raises(ValueError):
-        cds.cd_sweep(X, torch.zeros(64, device="cuda"), R, zn2, 1.0,
-                     torch.zeros(64, dtype=torch.int32, device="cuda"))
+    before = launch_counts()
     Xb = torch.zeros(64 * 75 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(64, 75)
-    with pytest.raises(ValueError, match="aligned"):
-        cds.cd_sweep(Xb, torch.zeros(64, device="cuda"), torch.zeros(75, device="cuda"), zn2, 1.0)
-    with pytest.raises(ValueError):
-        cds.cd_sweep(X, torch.zeros(64), R, zn2, 1.0)  # a CPU alpha beside CUDA tensors
-    assert cds.cd_sweep.launches == before
+    for sweep in (cds.cd_sweep, cds.cd_sweep_unscreened):
+        with pytest.raises(TypeError):
+            sweep(X, torch.zeros(64, dtype=torch.float64, device="cuda"), R, zn2, 1.0)
+        with pytest.raises(ValueError):
+            sweep(X, torch.zeros(64, device="cuda"), R, zn2, 1.0,
+                  torch.zeros(64, dtype=torch.int32, device="cuda"))
+        with pytest.raises(ValueError, match="aligned"):
+            sweep(Xb, torch.zeros(64, device="cuda"), torch.zeros(75, device="cuda"), zn2, 1.0)
+        with pytest.raises(ValueError):
+            sweep(X, torch.zeros(64), R, zn2, 1.0)  # a CPU alpha beside CUDA tensors
+    assert launch_counts() == before
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("cd_sweep_plain", "cd_sweep_screened_plain", "cd_score_plain", "_walk_plain",
+                 "_update_plain"):
+        monkeypatch.setattr(cds, name, refuse)
+    alpha = torch.zeros(64, device="cuda")
+    cds.cd_sweep(X, alpha, R, zn2, float((X @ R).abs().max()) / 3, rebase_after=1)
+    after = launch_counts()
+    assert after["cd_walk"] - before["cd_walk"] >= 1
+    assert after["cd_walk"] - before["cd_walk"] == after["cd_score"] - before["cd_score"]
+    assert int(torch.count_nonzero(alpha)) > 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_cd_solve_on_the_card_matches_the_plain_route(stochastic):
-    """A whole CD solve and a FISTA solve on the card: the sweeps launch the
-    kernel once each, and the plain route on CPU copies of the same inputs
-    (and the same orders) gives the same sweeps, support and objective to
-    rounding."""
+    """A whole CD solve and a FISTA solve on the card: each sweep's walks
+    launch the walker and the score pass once each (walks = sweeps +
+    re-bases), the same solve through the unscreened kernel gives the same
+    bits, and the plain route on CPU copies of the same inputs (and the same
+    orders) gives the same sweeps, support and objective to rounding."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build and run only there")
     from repro_torch.core import CDConfig, FISTAConfig, baselines
@@ -1282,9 +1309,22 @@ def test_cd_solve_on_the_card_matches_the_plain_route(stochastic):
     y = X[:10].sum(0) * 3 + 0.1 * torch.randn(74, generator=g, device="cuda")
     cfg = CDConfig(lam=float((X @ y).abs().max()) / 10, tol=1e-4, stochastic=stochastic)
     orders = [torch.randint(0, 2000, (2000,), generator=g, device="cuda") for _ in range(200)]
-    before = cds.cd_sweep.launches
-    gpu = baselines.cd_solve(X, y, cfg, (lambda s: orders[s]) if stochastic else None)
-    assert cds.cd_sweep.launches - before == gpu.iterations
+    order = (lambda s: orders[s]) if stochastic else None
+    before = launch_counts()
+    cds.STATS.reset()
+    gpu = baselines.cd_solve(X, y, cfg, order)
+    after = launch_counts()
+    assert cds.STATS.sweeps == gpu.iterations
+    assert after["cd_walk"] - before["cd_walk"] == gpu.iterations + cds.STATS.rebases
+    assert after["cd_score"] - before["cd_score"] == after["cd_walk"] - before["cd_walk"]
+    unscreened = baselines.cd_sweep
+    try:
+        baselines.cd_sweep = cds.cd_sweep_unscreened
+        h = baselines.cd_solve(X, y, cfg, order)
+    finally:
+        baselines.cd_sweep = unscreened
+    assert h.iterations == gpu.iterations and torch.equal(h.alpha, gpu.alpha)
+    assert float(h.objective) == float(gpu.objective)
     cpu = baselines.cd_solve(X.cpu(), y.cpu(), cfg,
                              (lambda s: orders[s].cpu()) if stochastic else None)
     assert gpu.iterations == cpu.iterations and gpu.active == cpu.active
