@@ -35,14 +35,20 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    the tail, K5) at L = 1, 3 and 13 at each path's shapes, each running
    lane bitwise its one-lane launch, a frozen lane among active ones and
    every lane frozen (winners (-1, 0), outputs equal to inputs), two
-   argmax launches equal (the tickets back at 0), the renorm in one lane
-   only, bf16 and K5's warp-per-feature route at L = 3;
+   argmax launches equal, the lane argmax's routes (one cluster of 16
+   CTAs a lane, and the grid-wide ticket route) bitwise equal, the
+   renorm in one lane only, bf16 and K5's warp-per-feature route at L = 3;
    the elastic-net's instantiations at each path's shapes: K2's argmax
    with the score shift (n = kappa with f32 and bf16 beta, n = p, a shift
    that turns the winner, raw scores all zero, a padded index whose
    shifted score would win; L = 1, 3, 13, each lane bitwise its one-lane
-   launch), bit for bit; the EN tail in f32 and bf16 (a renorm, lam near
-   1, the same coordinate twice; 13 lanes), bit for bit; K4 or K7 with
+   launch, on the cluster route with no support bitmap, an exact one and a
+   strict superset, each bitmap updated with its winners, on the ticket
+   route with none (a bitmap refused there); at 13 lanes -0.0 raw
+   scores and beta, an infinite and a NaN scale, every index masked,
+   'full' sampling's shared ids and bf16 beta), bit for bit; the EN tail
+   in f32 and bf16 (a renorm, lam near 1, the same coordinate twice; 13
+   lanes), bit for bit; K4 or K7 with
    the alpha ledger against the plain chunk (K = 8 at kappa = 1% of p, and
    a chunk where one coordinate wins in steps 0 and 2, so two ledger slots
    add), two launches bitwise equal;
@@ -90,12 +96,17 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      ``fw_path_batched`` in lanes of 13 over the same 100-point grid on
      each layout, unfused: the lane scores, argmax and tail once a
      batched step, K1 or K6 once a chunk, the fused chunks and the
-     one-lane kernels never;
+     one-lane kernels never; after the timed path, its first chunk solved
+     again bit for bit the path's, and its 13 lanes each bit for bit a
+     sequential solve on the rows it drew (this and the elastic-net's);
    - the extension oracles (paper §6, the reference's family section): the
      elastic-net (``ENOracle(l2=1.0)``) over the same 100-point grid on
      each layout, fused at K = 8 (K4 or K7 with the ledger, once a chunk),
      its first 3 points one step per dispatch (the shifted argmax and the
-     EN tail once a step) and batched in lanes of 13; the logistic oracle
+     EN tail once a step) and batched in lanes of 13 (each batched solve's
+     last state kept, and after the path the lanes' support bitmap checked
+     to cover beta: its set bits printed beside the nonzeros); the logistic
+     oracle
      (labels sign(y) + (y == 0), max_iters 2000, tol 1e-4) over a 10-point
      grid, all 10 points sequential and in lanes of 4 on the sparse layout,
      the first 3 on the dense one; each path's launches, l1 <= delta and
@@ -136,9 +147,11 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    must agree up to the first near-tie (a fused stop may overshoot by at
    most 7 steps) and the objectives to a stated tolerance; and one chunk
    of 4 batched lanes (p = 200,000, m = 800, 400 steps, one lane freezing
-   early) on both layouts, unfused and fused, each lane's alpha bits,
-   iterations, n_dots and vertex sequence equal to a sequential solve
-   replaying the rows it drew; the elastic-net's fused path against its
+   early) on both layouts, the lasso unfused and fused and the
+   elastic-net unfused from warm starts with renorms forced, each lane's
+   alpha and objective bits, iterations, n_dots and vertex sequence equal
+   to a sequential solve replaying the rows it drew, the elastic-net's
+   support bitmap covering beta after every batched step; the elastic-net's fused path against its
    unfused points, and each extension oracle's kernels against the plain
    route on its first 2 points, under the same near-tie rule (on the
    oracle's selected scores, from the state rebuilt by a replay); each
@@ -154,7 +167,9 @@ through phases 2-5; any failed check raises and the script exits non-zero:
    floor (an empty kernel, back to back); and the host's
    share of a step, one step per dispatch and fused at K = 8 and K = 32,
    on each path; the lane kernels at L = 13 and the batched step at 13
-   lanes and at 1 on each path; the elastic-net's instantiations and the
+   lanes and at 1 on each path (the lane argmax on both routes; the
+   shifted one with and without the support bitmap, and the bitmap's
+   build); the elastic-net's instantiations and the
    elastic-net and logistic steps' wall, device time and idle share on
    each path; ``solve_with_history`` on a small problem, its history bit
    for bit the per-step objectives; the direction tail beside its bound
@@ -383,7 +398,7 @@ def main(argv=None):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **({"timed_on": t["timed_on"]} if "timed_on" in t else {}),
+            **{k: t[k] for k in ("timed_on", "bound_ms_all_beta") if k in t},
         })
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2678,14 +2693,18 @@ def _lane_sets(L):
     return sets + [[]]
 
 
+ARGMAX_ROUTES = ("cluster", "ticket")
+
+
 def _lane_scores_check(torch, fw, label, lanes_fn, one_fn, plain_fn, blk, bs, p, L, scale):
     """A lane scores kernel (``lanes_fn(ids)``) and K2's lane argmax on its
     scores, for each set of running lanes: every running lane's scores and
     winner bitwise the one-lane launches' on its own inputs (``one_fn``), a
-    frozen lane's winner (-1, 0), two argmax launches bitwise equal (each
-    lane's ticket back at 0), the winners bitwise the plain argmax's on the
-    same scores, the scores within RTOL_SUM * scale of the plain version's.
-    Returns max |kernel - plain| over the scores."""
+    frozen lane's winner (-1, 0), two argmax launches bitwise equal, each
+    route (the cluster and the ticket route) bitwise the default route's,
+    the winners bitwise the plain argmax's on the same scores, the scores
+    within RTOL_SUM * scale of the plain version's. Returns max |kernel -
+    plain| over the scores."""
     dev = blk.device
     err = 0.0
     for run in _lane_sets(L):
@@ -2695,6 +2714,10 @@ def _lane_scores_check(torch, fw, label, lanes_fn, one_fn, plain_fn, blk, bs, p,
         i2, g2 = fw.vertex_argmax_lanes(got, blk, bs, p, ids)
         check(_same_bits(torch, i1, i2) and _same_bits(torch, g1, g2),
               f"{label} L={L} lanes {run}: two argmax launches differ")
+        for route in ARGMAX_ROUTES:
+            ir, gr = fw.vertex_argmax_lanes(got, blk, bs, p, ids, route=route)
+            check(_same_bits(torch, i1, ir) and _same_bits(torch, g1, gr),
+                  f"{label} L={L} lanes {run}: the {route} route differs")
         if run:
             plain = plain_fn(ids)
             rel, d = _scaled_err(torch, got[run], plain[run], scale)
@@ -2717,8 +2740,8 @@ def _lane_scores_check(torch, fw, label, lanes_fn, one_fn, plain_fn, blk, bs, p,
             check(i_host[lane] == int(io) and _same_bits(torch, g1[lane], go),
                   f"{label} L={L}: lane {lane}'s winner differs from a one-lane launch")
     print(f"[lanes] {label} L={L}: every running lane bitwise its one-lane launch (scores and "
-          f"winner), frozen lanes (-1, 0), two argmax launches equal; max |kernel - plain| "
-          f"{err:.3e}")
+          f"winner), frozen lanes (-1, 0), two argmax launches equal, the argmax's routes "
+          f"(default {fw.lane_route(blk.shape[-1] * bs)}) equal; max |kernel - plain| {err:.3e}")
     return err
 
 
@@ -2905,7 +2928,7 @@ def phase3_batched_path(torch, design, y, coef, layout):
     scores (K2 or K5), the lane argmax and the lane tail; K1 or K6 once a
     chunk; the fused chunks and the one-lane kernels never."""
     from repro_torch import kernels
-    from repro_torch.core import LASSO, delta_grid, engine, fw_path_batched
+    from repro_torch.core import LASSO, delta_grid, fw_path_batched
 
     sparse = layout == "sparse"
     p = design.shape[0]
@@ -2913,21 +2936,17 @@ def phase3_batched_path(torch, design, y, coef, layout):
     delta_max = 0.5 * float(coef.abs().sum())
     deltas = delta_grid(delta_max, n_points=N_POINTS)
     tag = f"batched-{layout}"
+    first = FirstChunk(0, LANE_WIDTH, design.device)
     steps = [0]
-
-    def count(state, active):
-        steps[0] += 1
-
-    def solve_counted(*args):
-        return engine.solve_batched_prepared(*args, on_step=count)
 
     print(f"[{tag}] fw_path_batched backend={cfg.backend} lane_width={LANE_WIDTH} p={p:,} "
           f"kappa={cfg.kappa:,} sampling=uniform max_iters={cfg.max_iters} tol={cfg.tol} "
           f"points={N_POINTS} delta_max={delta_max:.6g}")
     kernels.reset_launch_counts()
     res = fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=LANE_WIDTH,
-                          device=design.device, solve_batched_fn=solve_counted)
+                          device=design.device, solve_batched_fn=first.solve_fn)
     launches = kernels.launch_counts()
+    steps[0] = first.steps
     _print_points(tag, res, cfg)
     n_chunks = -(-N_POINTS // LANE_WIDTH)
     print(f"[{tag}] {res.total_seconds:.3f} s, {res.total_iters} lane-iterations of the "
@@ -2950,6 +2969,7 @@ def phase3_batched_path(torch, design, y, coef, layout):
     print(f"[{tag}] densest point: objective {last.objective!r}, certified duality gap "
           f"{gap!r}")
     check(math.isfinite(gap) and gap >= -1e-4 * abs(last.objective), f"{tag}: certified gap")
+    first.replay(torch, tag, LASSO, design, y, cfg, deltas)
     return launches, dict(res=res, steps=steps[0])
 
 
@@ -2969,18 +2989,121 @@ class LaneRecorder:
         return rows
 
 
+class FirstChunk:
+    """A ``fw_path_batched`` run kept for checks made after it, so that its
+    wall is the path's own: ``solve_fn`` wraps
+    ``engine.solve_batched_prepared``, counts the batched steps of every
+    chunk, keeps the first chunk's arguments and result and, with
+    ``keep_states``, each solve's last state (``states``), and records
+    nothing else. ``replay`` then solves the first chunk again with its
+    draws recorded (the path's own sampler for chunk 0,
+    ``LaneSampler(point_seed(seed, 0), ...)``) and holds each lane against
+    a sequential solve."""
+
+    def __init__(self, seed, lanes, dev, keep_states=False):
+        self.seed, self.lanes, self.dev, self.keep_states = seed, lanes, dev, keep_states
+        self.args, self.res, self.states, self.steps = None, None, [], 0
+
+    def solve_fn(self, *args):
+        from repro_torch.core import engine
+
+        last = {}
+
+        def on_step(state, active):
+            self.steps += 1
+            last["state"] = state
+
+        res, saved = engine.solve_batched_prepared(*args, on_step=on_step)
+        if self.args is None:
+            self.args, self.res = args, res
+        if self.keep_states:
+            self.states.append(last.get("state"))
+        return res, saved
+
+    def replay(self, torch, tag, oracle, design, y, cfg, deltas):
+        """The first chunk solved again with its rows and vertices recorded,
+        bit for bit the path's chunk (iterations, n_dots, alpha, objective);
+        then each lane against a sequential solve replaying its rows from
+        its warm start: iterations, n_dots, the vertex sequence, alpha and
+        the objective, bit for bit."""
+        from repro_torch.core import LaneSampler, StreamSampler, engine
+        from repro_torch.core.path import point_seed
+
+        t0 = time.perf_counter()
+        rec = LaneRecorder(LaneSampler(point_seed(self.seed, 0), self.lanes, self.dev),
+                           self.lanes)
+        trace = []
+        args = list(self.args)
+        args[4] = rec  # (oracle, Xt, y, cfg, sampler, alpha0s, deltas)
+        res, _ = engine.solve_batched_prepared(
+            *args, on_step=lambda st, act: trace.append((st.i_star.clone(), act)))
+        check(res.iterations == self.res.iterations and res.n_dots == self.res.n_dots
+              and _same_bits(torch, res.alpha, self.res.alpha)
+              and _same_bits(torch, res.objective, self.res.objective),
+              f"{tag}: the first chunk solved again differs from the path's")
+        for lane in range(self.lanes):
+            seq = []
+            one = engine.solve(oracle, design, y, cfg, StreamSampler(torch.stack(rec.rows[lane])),
+                               args[5][lane], float(deltas[lane]), device=design.device,
+                               per_step=lambda st: seq.append(st.i_star))
+            lane_seq = torch.stack([i[lane] for i, act in trace if act[lane]]).cpu()
+            check(one.iterations == res.iterations[lane] and one.n_dots == res.n_dots[lane],
+                  f"{tag} lane {lane}: iterations/n_dots differ from its sequential solve")
+            check(torch.equal(torch.stack(seq).cpu(), lane_seq),
+                  f"{tag} lane {lane}: the vertex sequence differs from its sequential solve")
+            check(_same_bits(torch, one.alpha, res.alpha[lane])
+                  and _same_bits(torch, one.objective, res.objective[lane]),
+                  f"{tag} lane {lane}: alpha or objective bits differ from its sequential solve")
+        print(f"[{tag}] the first chunk solved again bit for bit the path's; its "
+              f"{self.lanes} lanes (iterations {list(res.iterations)}) each bit for bit its "
+              f"sequential solve on the rows it drew: iterations, n_dots, vertices, alpha, "
+              f"objective ({time.perf_counter() - t0:.1f} s, after the path)")
+
+
+def support_report(torch, fw, tag, state):
+    """After a batched elastic-net solve on the card: the lanes carry a
+    support bitmap, and every nonzero of each lane's beta has its fine and
+    summary bits; prints the set fine bits beside the nonzeros. Returns
+    (set fine bits, nonzeros)."""
+    sup, beta = state.support, state.beta
+    check(sup is not None, f"{tag}: the elastic-net lanes carry no support bitmap")
+    L, p = beta.shape
+    fine_w = fw.support_fine_words(p)
+
+    def bits(words, n):
+        b = (words.contiguous().view(torch.uint8).view(L, -1, 1)
+             >> torch.arange(8, dtype=torch.uint8, device=words.device)) & 1
+        return b.reshape(L, -1)[:, :n].bool()
+
+    fine = bits(sup[:, :fine_w], p)
+    summary = bits(sup[:, fine_w:], -(-p // fw.SUMMARY_SPAN))
+    nz = beta != 0
+    covered = fine & summary.repeat_interleave(fw.SUMMARY_SPAN, dim=1)[:, :p]
+    check(bool(torch.all(covered | ~nz)), f"{tag}: a nonzero of beta has no bit in the bitmap")
+    n_bits, n_nz = int(fine.sum()), int(nz.sum())
+    del fine, summary, covered, nz
+    return n_bits, n_nz
+
+
 def phase4_lanes_vs_sequential(torch, dev):
     """One chunk of 4 lanes at p = 200,000, m = 800, kappa = 1% of p and 400
-    steps on both layouts, unfused and with fuse_steps = 8, the first lane's
+    steps on both layouts, the lasso unfused and with fuse_steps = 8, the
+    elastic-net unfused from warm starts (lane 0 from zero; a -0.0 among
+    lane 2's) with renorms forced (renorm_threshold 0.5), the first lane's
     delta small enough that it freezes early: each lane's alpha bits,
-    iterations, n_dots and vertex sequence equal a sequential solve
-    replaying the rows that lane drew (with fuse_steps = 8, the sequential
-    chunk of K unfused steps, run_loop's per_step route)."""
-    from repro_torch.core import LASSO, FWConfig, LaneSampler, StreamSampler, engine
+    objective bits, iterations, n_dots and vertex sequence equal a
+    sequential solve replaying the rows that lane drew (with fuse_steps =
+    8, the sequential chunk of K unfused steps, run_loop's per_step route);
+    the elastic-net lanes' support bitmap covers beta after every batched
+    step."""
+    from repro_torch.core import (LASSO, ENOracle, FWConfig, LaneSampler, StreamSampler,
+                                  TorchSampler, engine)
     from repro_torch.core.sampling import kappa_fraction
     from repro_torch.data import make_sparse_wide_problem, make_wide_problem
+    from repro_torch.kernels import fw_grad as fw
 
     kappa = kappa_fraction(P_LANES, 0.01)
+    en = ENOracle(l2=EN_L2)
     for layout in ("dense", "sparse"):
         if layout == "dense":
             X, y, coef = make_wide_problem(P_LANES, M_PAPER, N_REL, seed=1, device=dev)
@@ -2989,31 +3112,55 @@ def phase4_lanes_vs_sequential(torch, dev):
                                                   device=dev, block_size=SPARSE_BLOCK)
         delta_max = 0.5 * float(coef.abs().sum())
         deltas = [delta_max / 1000, delta_max / 30, delta_max / 3, delta_max]
-        for fuse in (1, FUSE):
+        backend = "sparse" if layout == "sparse" else "kernels"
+        # the elastic-net's warm starts: 100 steps at the third delta, rescaled
+        warm_cfg = FWConfig(delta=1.0, kappa=kappa, max_iters=100, tol=0.0, backend=backend)
+        warm = engine.solve(en, X, y, warm_cfg, TorchSampler(9, dev), None, deltas[2],
+                            device=dev).alpha
+        for oracle, fuse in ((LASSO, 1), (LASSO, FUSE), (en, 1)):
+            name = "lasso" if oracle is LASSO else "elastic-net"
             cfg = FWConfig(delta=1.0, kappa=kappa, max_iters=400, tol=1e-3, fuse_steps=fuse,
-                           backend="sparse" if layout == "sparse" else "kernels")
+                           backend=backend, renorm_threshold=0.5 if oracle is en else 1e-6)
+            alpha0s = None
+            if oracle is en:
+                scale = torch.tensor(deltas, device=dev) / warm.abs().sum()
+                alpha0s = warm[None, :] * scale[:, None]
+                alpha0s[0] = 0.0
+                alpha0s[2, torch.nonzero(warm)[:3, 0]] = -0.0
             rec = LaneRecorder(LaneSampler(4, len(deltas), dev), len(deltas))
-            trace = []
-            res, saved = engine.solve_batched(
-                LASSO, X, y, cfg, rec, None, deltas, device=dev,
-                on_step=lambda state, active: trace.append((state.i_star.clone(), active)))
+            trace, covered = [], []
+
+            def on_step(state, active):
+                trace.append((state.i_star.clone(), active))
+                if state.support is not None:
+                    covered.append(support_report(torch, fw, "lanes", state))
+
+            res, saved = engine.solve_batched(oracle, X, y, cfg, rec, alpha0s, deltas,
+                                              device=dev, on_step=on_step)
             iters = res.iterations
-            check(min(iters) < max(iters) and saved > 0,
-                  f"lanes {layout} fuse={fuse}: no lane froze early ({iters})")
+            tag = f"lanes {layout} {name} fuse={fuse}"
+            check(min(iters) < max(iters) and saved > 0, f"{tag}: no lane froze early ({iters})")
+            check(bool(covered) == (oracle is en), f"{tag}: the support bitmap is "
+                                                   f"{'missing' if covered else 'not expected'}")
             for lane, d in enumerate(deltas):
                 seq = []
-                one = engine.solve(LASSO, X, y, cfg, StreamSampler(torch.stack(rec.rows[lane])),
-                                   None, d, device=dev, per_step=lambda s: seq.append(s.i_star))
+                one = engine.solve(oracle, X, y, cfg, StreamSampler(torch.stack(rec.rows[lane])),
+                                   None if alpha0s is None else alpha0s[lane], d, device=dev,
+                                   per_step=lambda s: seq.append(s.i_star))
                 lane_seq = torch.stack([i[lane] for i, act in trace if act[lane]]).cpu()
                 check(one.iterations == iters[lane] and one.n_dots == res.n_dots[lane],
-                      f"lanes {layout} fuse={fuse} lane {lane}: iterations/n_dots")
+                      f"{tag} lane {lane}: iterations/n_dots")
                 check(torch.equal(torch.stack(seq).cpu(), lane_seq),
-                      f"lanes {layout} fuse={fuse} lane {lane}: vertex sequences differ")
-                check(_same_bits(torch, one.alpha, res.alpha[lane]),
-                      f"lanes {layout} fuse={fuse} lane {lane}: alpha bits differ")
-            print(f"[lanes] {layout} fuse_steps={fuse}: 4 lanes, iterations {iters}, saved "
-                  f"{saved}: each lane's alpha bits, iterations, n_dots and vertex sequence "
-                  "equal its sequential replay")
+                      f"{tag} lane {lane}: vertex sequences differ")
+                check(_same_bits(torch, one.alpha, res.alpha[lane])
+                      and _same_bits(torch, one.objective, res.objective[lane]),
+                      f"{tag} lane {lane}: alpha or objective bits differ")
+            bits = f"; the bitmap covered beta after all {len(covered)} batched steps, " \
+                   f"{covered[-1][0]} fine bits set for {covered[-1][1]} nonzeros at the " \
+                   f"end" if covered else ""
+            print(f"[{tag}] 4 lanes, iterations {iters}, saved {saved}: each lane's alpha and "
+                  f"objective bits, iterations, n_dots and vertex sequence equal its sequential "
+                  f"replay{bits}")
         del X, y, coef
         torch.cuda.empty_cache()
 
@@ -3114,11 +3261,15 @@ def phase5_lane_timing(torch, design, y, layout):
         scores = fw.sampled_scores_lanes(design, r, draws[0], 1, ids)
         mat = design
         tail_bytes = L * (4 * m * 4 + 64)
+    ticket_ms = _time_queued(torch, lambda i: fw.vertex_argmax_lanes(
+        scores, draws[0], 1, p, ids, route="ticket"), 400)
     row("vertex_argmax_lanes" if not sparse else "vertex_argmax_lanes_sparse",
         _time_queued(torch, lambda i: fw.vertex_argmax_lanes(scores, draws[0], 1, p, ids), 400),
         _time_queued(torch, lambda i: fw.argmax_lanes_plain(scores, draws[0], 1, p, ids), 5),
         None, L * (kappa * 4 + kappa * 8 + 12), 3 * L * kappa,
-        note=f" [n = kappa = {kappa} a lane; library: none]")
+        note=f" [n = kappa = {kappa} a lane, route {fw.lane_route(kappa)} (clusters of "
+             f"{fw.LANE_CLUSTER}); the ticket route {ticket_ms:.6f} ms in the same run; "
+             "library: none]")
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     beta, args = _lane_tail_state(torch, g, p, m, torch.float32, L)
@@ -3249,20 +3400,62 @@ def shifted_argmax_cases(torch, fw, scores, idx, p, g):
                    fw.ScoreShift(b3, scale, EN_L2))
 
 
+def _bitmap_cases(torch, fw, beta, g):
+    """(label, support) pairs for a lane-stacked beta: none, the exact
+    bitmap, a strict superset (a fifth of the bits set besides)."""
+    exact = fw.pack_support(beta)
+    noise = torch.rand(beta.shape, generator=g, device=beta.device) < 0.2
+    return [("no bitmap", None), ("exact bitmap", exact),
+            ("superset bitmap", exact | fw.pack_support(noise))]
+
+
+def _check_shifted_lanes(torch, fw, label, scores, blk, bs, p, ids, shift, want, g):
+    """The shifted lane argmax on the cluster route with no bitmap, an
+    exact one and a strict superset, and on the ticket route with none:
+    bitwise ``want`` (the plain version's), two launches equal, and each
+    bitmap afterwards its input with the winners' bits set; the ticket
+    route refuses a bitmap."""
+    for blabel, support in _bitmap_cases(torch, fw, shift.beta, g):
+        for route in ARGMAX_ROUTES:
+            sup = None if support is None else support.clone()
+            sh = fw.ScoreShift(shift.beta, shift.scale, shift.l2, sup)
+            if route == "ticket" and sup is not None:
+                try:
+                    fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route=route)
+                except ValueError:
+                    continue
+                check(False, f"{label} {blabel}: the ticket route took a bitmap")
+            got = fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route=route)
+            again = fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route=route)
+            for other, what in ((want, "its plain version"), (again, "a second launch")):
+                check(all(_same_bits(torch, a, b) for a, b in zip(got, other)),
+                      f"{label} {blabel} {route}: differs from {what}")
+            if sup is not None:
+                expect = support.clone()
+                fw.mark_support(expect, got[0], p)
+                check(torch.equal(sup, expect), f"{label} {blabel} {route}: the bitmap after "
+                                                "the launch is not its input with the winners")
+    return got
+
+
 def shifted_lanes_check(torch, fw, label, scores_fn, blk, p, g, L):
-    """K2's lane argmax with the shift, for each set of running lanes:
-    bitwise its plain version, each running lane bitwise its one-lane
+    """K2's lane argmax with the shift, for each set of running lanes: on
+    both routes, the cluster route with and without the support bitmap
+    (``_check_shifted_lanes``),
+    bitwise its plain version; each running lane bitwise its one-lane
     shifted launch, a frozen lane (-1, 0, 0)."""
     dev = blk.device
-    shift = fw.ScoreShift(torch.randn((L, p), generator=g, device=dev),
-                          torch.rand(L, generator=g, device=dev) + 0.5, EN_L2)
+    beta = torch.zeros((L, p), device=dev)
+    beta.scatter_(1, torch.randint(0, p, (L, 2000), generator=g, device=dev),
+                  torch.randn((L, 2000), generator=g, device=dev))
+    beta[:, blk[0, :40]] = 3.0  # shifts at sampled coordinates, some turning winners
+    shift = fw.ScoreShift(beta, torch.rand(L, generator=g, device=dev) + 0.5, EN_L2)
     for run in _lane_sets(L):
         ids = torch.tensor(run, dtype=torch.int32, device=dev)
         scores = scores_fn(ids)
-        got = fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids, shift)
         want = fw.argmax_shifted_lanes_plain(scores, blk, 1, p, ids, shift)
-        check(all(_same_bits(torch, a, b) for a, b in zip(got, want)),
-              f"{label} L={L} lanes {run}: differs from its plain version")
+        got = _check_shifted_lanes(torch, fw, f"{label} L={L} lanes {run}", scores, blk, 1, p,
+                                   ids, shift, want, g)
         for lane in range(L):
             if lane not in run:
                 check(int(got[0][lane]) == -1 and float(got[2][lane]) == 0.0,
@@ -3272,8 +3465,65 @@ def shifted_lanes_check(torch, fw, label, scores_fn, blk, p, g, L):
                                            p, shift.lane(lane))
             check(all(_same_bits(torch, a[lane], b) for a, b in zip(got, one)),
                   f"{label} L={L}: lane {lane} differs from a one-lane launch")
-    print(f"[en] {label} L={L}: bit for bit its plain version and each lane's one-lane launch, "
-          "frozen lanes (-1, 0, 0)")
+    print(f"[en] {label} L={L}: bit for bit its plain version and each lane's one-lane launch on "
+          "both routes, the cluster route with no bitmap, an exact one and a strict superset "
+          "(each updated with its winners), frozen lanes (-1, 0, 0)")
+
+
+def shifted_lanes_edge_cases(torch, fw, p, g, L=LANE_WIDTH):
+    """The shifted lane argmax's edge cases at 13 lanes, p the path's: raw
+    scores -0.0 beside beta's -0.0; a lane of infinite scale and one of NaN
+    scale (their zero shifts NaN, which must win, the bitmap not read);
+    every index masked (blocks past p); 'full' sampling's shared ids (n =
+    p, blocks of 128, the ticket route by default); bf16 beta; each on the
+    cluster route with and without bitmaps and on the ticket route without
+    (``_check_shifted_lanes``) against the plain version and each lane's
+    one-lane launch, all lanes listed."""
+    dev = g.device
+    ids = torch.arange(L, dtype=torch.int32, device=dev)
+    n = 4001
+    for case in ("minus zero", "scale inf nan", "all masked", "full", "bf16 beta"):
+        bs, pv = 1, p
+        if case == "full":
+            bs = 128
+            blk = torch.arange(-(-p // bs), device=dev)
+            n = blk.numel() * bs
+        elif case == "all masked":
+            bs, pv = 64, p - p % 64  # the last whole block's indices all lie past pv
+            blk = torch.full((3,), pv // 64, dtype=torch.int64, device=dev)
+            n = 3 * 64
+        else:
+            n = 4001
+            blk = torch.randint(0, p, (L, n), generator=g, device=dev)
+        scores = torch.empty((L, -(-n // 4) * 4), device=dev)[:, :n]
+        scores.copy_(torch.randn((L, n), generator=g, device=dev))
+        beta = torch.zeros((L, pv), device=dev)
+        beta.scatter_(1, torch.randint(0, pv, (L, 300), generator=g, device=dev),
+                      torch.randn((L, 300), generator=g, device=dev) * 4)
+        scale = torch.rand(L, generator=g, device=dev) + 0.5
+        if case == "minus zero":
+            beta[beta == 0] = -0.0
+            scores[:, ::3] = -0.0
+        if case == "scale inf nan":
+            scale[1], scale[2] = float("inf"), float("nan")
+        if case == "bf16 beta":
+            beta, scale = beta.bfloat16(), scale.bfloat16()
+        shift = fw.ScoreShift(beta, scale, EN_L2)
+        want = fw.argmax_shifted_lanes_plain(scores, blk, bs, pv, ids, shift)
+        got = _check_shifted_lanes(torch, fw, f"shifted lanes {case}", scores, blk, bs, pv, ids,
+                                   shift, want, g)
+        for lane in range(L):
+            one = fw.vertex_argmax_shifted(scores[lane].contiguous(), fw.lane_blk(blk, lane), bs,
+                                           pv, shift.lane(lane))
+            check(all(_same_bits(torch, a[lane], b) for a, b in zip(got, one)),
+                  f"shifted lanes {case}: lane {lane} differs from a one-lane launch")
+        if case == "scale inf nan":
+            check(bool(torch.isnan(got[2][1])) and bool(torch.isnan(got[2][2])),
+                  "shifted lanes: a non-finite scale's NaN did not win")
+        print(f"[en] vertex_argmax_shifted_lanes {case} (n={n:,} a lane, p={pv:,}): bit for bit "
+              f"its plain version and the one-lane launches on both routes, the cluster route "
+              f"with and without bitmaps (default route {fw.lane_route(n)})")
+    del scores, beta
 
 
 def _check_en_tail(torch, st, label, mat, beta, args, en, cfg):
@@ -3475,6 +3725,8 @@ def phase2_en_kernels(torch, design, y, layout):
             scores_fn = lambda ids: fw.sampled_scores_lanes(design, rl, blk, 1, ids)  # noqa: E731
         shifted_lanes_check(torch, fw, f"vertex_argmax_shifted_lanes {layout} kappa={kappa}",
                             scores_fn, blk, p, g, L)
+    if not sparse:  # the argmax reads only scores and ids: one layout's scores do
+        shifted_lanes_edge_cases(torch, fw, p, g)
 
     # ---- the EN tail: the path's layout in f32, a small one in bf16 -------
     win = int(idx[0])
@@ -3550,25 +3802,25 @@ def _check_launches(tag, launches, equal, zero):
         check(launches[name] == 0, f"{tag}: launched {name} {launches[name]} times")
 
 
-def _ext_path(torch, tag, design, y, deltas, cfg, oracle, n_rec, batched=0):
+def _ext_path(torch, tag, design, y, deltas, cfg, oracle, n_rec, batched=0, keep_states=False):
     """One path through ``fw_path`` (or, with ``batched`` lanes,
-    ``fw_path_batched``), its points printed and checked, the launches
-    counted; returns (launches, run). The densest point's certified gap,
-    with the oracle's own gradient, must be finite."""
+    ``fw_path_batched``, its chunks kept by ``FirstChunk``, with
+    ``keep_states`` each solve's last state), its points
+    printed and checked, the launches counted; returns (launches, run).
+    The densest point's certified gap, with the oracle's own gradient, must
+    be finite."""
     from repro_torch import kernels
-    from repro_torch.core import engine, fw_path, fw_path_batched
+    from repro_torch.core import fw_path, fw_path_batched
 
     rec = StarRecorder(n_rec)
     steps = [0]
-
-    def count(state, active):
-        steps[0] += 1
+    first = FirstChunk(0, batched, design.device, keep_states) if batched else None
 
     kernels.reset_launch_counts()
     if batched:
         res = fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=batched, oracle=oracle,
-                              device=design.device, solve_batched_fn=lambda *a: (
-                                  engine.solve_batched_prepared(*a, on_step=count)))
+                              device=design.device, solve_batched_fn=first.solve_fn)
+        steps[0] = first.steps
     else:
         res = fw_path(design, y, deltas, cfg, seed=0, oracle=oracle, device=design.device,
                       on_step=rec)
@@ -3583,7 +3835,7 @@ def _ext_path(torch, tag, design, y, deltas, cfg, oracle, n_rec, batched=0):
     check(math.isfinite(gap) and gap >= -1e-4 * max(abs(res.points[-1].objective), 1.0),
           f"{tag}: certified gap")
     return launches, dict(res=res, rec=rec, cfg=cfg, deltas=deltas, steps=steps[0],
-                          label=tag)
+                          label=tag, first=first)
 
 
 def phase3_en_paths(torch, design, y, coef, layout):
@@ -3628,8 +3880,22 @@ def phase3_en_paths(torch, design, y, coef, layout):
     out["vertex_argmax_shifted"] = l_1["vertex_argmax_shifted"]
     out["step_tail_en"] = l_1["step_tail_en"]
 
-    l_b, batched = _ext_path(torch, f"en-{layout}-batched", design, y, deltas, cfg1, oracle, 0,
-                             batched=LANE_WIDTH)
+    from repro_torch.kernels import fw_grad as fw
+
+    tag_b = f"en-{layout}-batched"
+    l_b, batched = _ext_path(torch, tag_b, design, y, deltas, cfg1, oracle, 0,
+                             batched=LANE_WIDTH, keep_states=True)
+    first = batched["first"]
+    n_bits = n_nz = 0
+    for c, state in enumerate(first.states):  # each batched solve's last state: the invariant
+        bits, nz = support_report(torch, fw, f"{tag_b} chunk {c}", state)
+        print(f"[{tag_b}] chunk {c}: the support bitmap covers beta, {bits} fine bits set for "
+              f"{nz} nonzeros")
+        n_bits, n_nz = n_bits + bits, n_nz + nz
+    print(f"[{tag_b}] after each of its {len(first.states)} batched solves the bitmap covered "
+          f"beta: {n_bits} fine bits set for {n_nz} nonzeros in all (checked after the path)")
+    first.states.clear()
+    first.replay(torch, tag_b, oracle, design, y, cfg1, deltas)
     lane_scores = "sparse_sampled_scores_lanes" if sparse else "sampled_scores_lanes"
     _check_launches(f"en-{layout}-batched", l_b,
                     [((lane_scores, "vertex_argmax_shifted_lanes", "step_tail_en_lanes"),
@@ -3985,6 +4251,25 @@ def _oracle_step_ms(torch, oracle, design, y, stats, cfg, delta, n_steps=200):
     return wall, (total_us / 1e3 / 50 if total_us > 0 else None), top, launches
 
 
+def _bitmap_lane_bytes(torch, fw, blk, support, p, itemsize):
+    """Bytes the shifted lane argmax with the support bitmap moves besides
+    the scores, ids, scale and outputs, at width 1 on ``blk (L, n)``: each
+    lane's summary words (read whole), the distinct fine words under a set
+    summary bit at its sampled indices, beta (``itemsize`` bytes) at the
+    distinct sampled indices whose two bits are set, and the two words it
+    writes."""
+    L, fine_w = blk.shape[0], fw.support_fine_words(p)
+    idx = blk.long()
+    grp = idx >> 6
+    s_set = ((torch.gather(support, 1, fine_w + (grp >> 5)) >> (grp & 31)) & 1).bool()
+    f_set = ((torch.gather(support, 1, idx >> 5) >> (idx & 31)) & 1).bool() & s_set
+    total = L * ((support.shape[1] - fine_w) * 4 + 8)
+    for lane in range(L):
+        total += 4 * torch.unique((idx[lane] >> 5)[s_set[lane]]).numel()
+        total += itemsize * torch.unique(idx[lane][f_set[lane]]).numel()
+    return total
+
+
 def phase5_ext_timing(torch, design, y, layout):
     """The elastic-net's instantiations at the path's shapes (CUDA events,
     queued back to back) beside their bounds and plain versions, and the
@@ -4041,12 +4326,33 @@ def phase5_ext_timing(torch, design, y, layout):
     lshift = fw.ScoreShift(torch.zeros((L, p), device=dev).index_copy_(
         1, nzi, torch.randn((L, nzi.numel()), generator=g, device=dev)),
         torch.full((L,), 0.8, device=dev), EN_L2)
-    row("vertex_argmax_shifted_lanes" + suffix,
-        _time_queued(torch, lambda i: fw.vertex_argmax_shifted_lanes(lscores, blk, 1, p, ids, lshift), 400),
+    lmap = fw.ScoreShift(lshift.beta, lshift.scale, lshift.l2, fw.pack_support(lshift.beta))
+    others = {}
+    for label, sh, route in (("cluster route, no bitmap", lshift, None),
+                             ("ticket route, no bitmap", lshift, "ticket")):
+        others[label] = _time_queued(torch, lambda i, sh=sh, route=route: (
+            fw.vertex_argmax_shifted_lanes(lscores, blk, 1, p, ids, sh, route=route)), 400)
+    name = "vertex_argmax_shifted_lanes" + suffix
+    t_map = _time_queued(torch, lambda i: fw.vertex_argmax_shifted_lanes(lscores, blk, 1, p, ids,
+                                                                         lmap), 400)
+    # the bound of what the bitmap launch must move, counted on the bitmap as
+    # the timed launches saw it (the winners' bits set by the first one)
+    map_bytes = _bitmap_lane_bytes(torch, fw, blk, lmap.support, p, 4)
+    old_ms, _ = _bound(L * (kappa * 16 + 4 + 16), 5 * L * kappa)
+    row(name, t_map,
         _time_queued(torch, lambda i: fw.argmax_shifted_lanes_plain(lscores, blk, 1, p, ids,
                                                                     lshift), 2),
-        L * (kappa * 16 + 4 + 16), 5 * L * kappa, note=f" [{L} lanes, n = kappa a lane]")
-    del lshift
+        L * (kappa * 12 + 4 + 16) + map_bytes, 5 * L * kappa,
+        note=f" [{L} lanes, n = kappa a lane, the cluster route with the support bitmap ("
+             f"{nzi.numel()} nonzeros a lane); bytes: the scores, ids, scale and outputs, and "
+             f"{map_bytes:,} of bitmap words and beta under set bits; the bound reading beta at "
+             f"every score {old_ms:.6f} ms ({100 * old_ms / t_map:.1f}%); in the same run: "
+             + ", ".join(f"{k} {v:.6f} ms" for k, v in others.items()) + "]")
+    out[name]["bound_ms_all_beta"] = old_ms
+    build_ms = _time_queued(torch, lambda i: fw.pack_support(lshift.beta), 20)
+    print(f"[timing] the lanes' support bitmap ({layout}): built in {build_ms:.6f} ms from beta "
+          f"({L}, {p:,}) once a batched solve ({fw.support_words(p) * 4 * L:,} bytes)")
+    del lshift, lmap
 
     tcfg = FWConfig(delta=5.0)
     mat = (design.values, design.rows) if sparse else design

@@ -145,6 +145,12 @@ class EngineState(NamedTuple):
     # the telemetry ring (obs.telemetry.TelemetryRing; lanes: a lane ring);
     # None when cfg.telemetry is None
     tel: Any = None
+    # lanes with a score shift on the card's lane kernels' cluster route: the
+    # support bitmap of beta (vertex.lane_support, kernels.fw_grad.pack_support;
+    # a superset of beta's nonzeros), which the shifted lane argmax reads and
+    # updates in place; a cache derived from beta, never checkpointed. None
+    # elsewhere
+    support: Any = None
 
 
 class SolveResult(NamedTuple):
@@ -676,7 +682,7 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
     frozen lane records nothing)."""
     p = state.beta.shape[1]
     w = oracle.cograd(state.co, y)
-    extra = oracle.score_extra(state.beta, state.scale)  # lane-stacked
+    extra = oracle.score_extra(state.beta, state.scale, state.support)  # lane-stacked
     i_star, g_raw, g_sel, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active,
                                                                 lanes, extra)
     tel, rec = state.tel, None
@@ -700,6 +706,7 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
         k=[k + 1 if a else k for k, a in zip(state.k, active)],
         i_star=i_star,
         tel=tel,
+        support=state.support,
     )
 
 
@@ -783,6 +790,8 @@ def _solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, delt
         init_state(oracle, Xt, y, None if alpha0s is None else alpha0s[lane], cfg)
         for lane in range(L)
     ])
+    states0 = states0._replace(support=vertex.lane_support(
+        Xt, cfg, oracle.score_extra(states0.beta, states0.scale)))
     patience = _patience(cfg)
     final, saved = batched_loop(oracle, Xt, y, stats, states0, cfg, deltas, patience, sampler,
                                 on_step)

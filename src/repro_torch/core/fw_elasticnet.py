@@ -90,10 +90,11 @@ class ENOracle:
     def cograd(self, co: ENCo, y):
         return co.resid
 
-    def score_extra(self, beta, scale):
+    def score_extra(self, beta, scale, support=None):
         """The +l2 * a_i gradient shift at the sampled coordinates (beta and
-        scale lane-stacked for the batched lanes)."""
-        return vertex.ScoreShift(beta, scale, self.l2)
+        scale lane-stacked for the batched lanes, with their support bitmap
+        when the lanes carry one)."""
+        return vertex.ScoreShift(beta, scale, self.l2, support)
 
     def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=None):
         """Steps 3-6 after the vertex: eq. 6's sign from the shifted score,

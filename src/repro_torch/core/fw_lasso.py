@@ -114,7 +114,7 @@ class LassoOracle:
         """Sampled scores are -z_i^T R (method of residuals, eq. 7)."""
         return co.resid
 
-    def score_extra(self, beta, scale):
+    def score_extra(self, beta, scale, support=None):
         return None
 
     def tail(self, Xt, y, stats, state, i_star, g_raw, g_sel, delta, cfg, tel=None):

@@ -98,7 +98,7 @@ class LogisticOracle:
             return torch.stack([y * torch.sigmoid(-y * mg) for mg in co.margin])
         return y * torch.sigmoid(-y * co.margin)
 
-    def score_extra(self, beta, scale):
+    def score_extra(self, beta, scale, support=None):
         return None
 
     def _bisect_interval(self, ny, margin, dm, hi):

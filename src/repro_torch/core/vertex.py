@@ -429,6 +429,11 @@ def _lane_ids(active) -> list:
     return [lane for lane, a in enumerate(active) if a]
 
 
+def _lane_blocks(p: int, block_size: int, cfg: FWConfig) -> int:
+    """'block' sampling's blocks a lane."""
+    return min(max(cfg.kappa // block_size, 1), -(-p // block_size))
+
+
 def _lane_draws(sampler, p: int, block_size: int, cfg: FWConfig, active, device):
     """Every lane's sampled ids, as ``sample_vertex`` draws one lane's:
     'uniform' ``(L, kappa)`` indices (width 1), 'block' ``(L, nb)`` ids of
@@ -438,8 +443,7 @@ def _lane_draws(sampler, p: int, block_size: int, cfg: FWConfig, active, device)
     if cfg.sampling == "uniform":
         return sampler.uniform_lanes(cfg.kappa, p, active), 1
     if cfg.sampling == "block":
-        nb = min(max(cfg.kappa // block_size, 1), n_blocks)
-        return sampler.blocks_lanes(nb, n_blocks, active), block_size
+        return sampler.blocks_lanes(_lane_blocks(p, block_size, cfg), n_blocks, active), block_size
     if cfg.sampling == "full":
         return torch.arange(n_blocks, device=device), block_size
     raise ValueError(f"unknown sampling mode {cfg.sampling!r}")
@@ -455,6 +459,36 @@ def _plain_vertex_lanes(vertex_fn, L: int, active, device, dtype, sel_dtype):
     for lane in _lane_ids(active):
         i_star[lane], g_raw[lane], g_sel[lane] = vertex_fn(lane)
     return i_star, g_raw, g_sel
+
+
+def _lane_kernels(cfg: FWConfig) -> bool:
+    """Whether the lanes' vertex takes the lane kernels (``*_lanes``; their
+    plain versions on CPU tensors): 'kernels', and 'sparse' with its
+    kernels."""
+    return cfg.backend == "kernels" or (cfg.backend == "sparse" and use_sparse_kernel(cfg))
+
+
+def lane_support(Xt, cfg: FWConfig, extra) -> Optional[torch.Tensor]:
+    """The support bitmap (``fw_grad.pack_support``) of the lanes' score
+    shift ``extra``'s beta where ``sample_vertex_lanes`` takes the card's
+    lane kernels on their cluster route (``fw_grad.lane_route`` of the
+    scores a lane), the one route that reads and updates it; None
+    elsewhere (no shift, the CPU, the plain ops, the ticket route)."""
+    if not isinstance(extra, ScoreShift) or extra.beta.device.type != "cuda":
+        return None
+    if not _lane_kernels(cfg):
+        return None
+    if isinstance(Xt, SparseBlockMatrix):
+        p, bs = Xt.p, Xt.block_size
+    else:
+        p, bs = Xt.shape[0], cfg.block_size
+    if cfg.sampling == "uniform":
+        n = cfg.kappa
+    elif cfg.sampling == "block":
+        n = _lane_blocks(p, bs, cfg) * bs
+    else:
+        n = -(-p // bs) * bs
+    return fw_grad.pack_support(extra.beta) if fw_grad.lane_route(n) == "cluster" else None
 
 
 def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, active,
@@ -474,7 +508,7 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
         mat = Xt
         blk, width = _lane_draws(sampler, mat.p, mat.block_size, cfg, active, mat.device)
         n_scored = mat.p if cfg.sampling == "full" else blk.shape[-1] * width
-        if use_sparse_kernel(cfg):
+        if _lane_kernels(cfg):
             scores = sparse_ops.sparse_scores_lanes(mat, w, blk, width, lanes)
             if extra is None:
                 i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, width, mat.p, lanes)
@@ -492,7 +526,7 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
         return i_star, g_raw, g_sel, n_scored
     blk, bs = _lane_draws(sampler, p, cfg.block_size, cfg, active, Xt.device)
     n_scored = p if cfg.sampling == "full" else blk.shape[-1] * bs
-    if cfg.backend == "kernels":
+    if _lane_kernels(cfg):
         scores = fw_grad.sampled_scores_lanes(Xt, w, blk, bs, lanes)
         if extra is None:
             i_star, g = fw_grad.vertex_argmax_lanes(scores, blk, bs, p, lanes)

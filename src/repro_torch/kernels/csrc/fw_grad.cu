@@ -9,8 +9,15 @@
 // elements past lane 0's (a stride of 0 shares an operand among the
 // lanes). A lane's blocks compute exactly what a one-lane launch on that
 // lane's operands computes, so each lane's result has its bits. The
-// one-lane instantiation compiles none of the lane code.
+// one-lane instantiation compiles none of the lane code. The lane argmax
+// has a second route, argmax_lanes_cluster_kernel: one thread-block
+// cluster a lane, its CTAs' winners reduced through distributed shared
+// memory, with no ticket and no partials in device memory.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // scores[j] = -Xt[row_j] . r, row_j = blk[j / bs] * bs + j % bs, one warp per
 // sampled row (warp_row_score: a row outside [0, p) scores 0).
@@ -78,6 +85,48 @@ template <typename BT>
 __device__ __forceinline__ float shifted(float raw, const BT* __restrict__ beta, long long idx,
                                          float scale, float l2) {
   return __fadd_rn(raw, __fmul_rn(l2, __fmul_rn(scale, to_f32(__ldg(beta + idx)))));
+}
+
+// The support bitmap of a lane's beta, a row of two levels: the fine
+// words (bit i % 32 of word i / 32 set wherever beta[i] may be nonzero, a
+// superset), then the summary words (bit g % 32 of word g / 32 set where
+// any of the coefficients [64 g, 64 g + 64) has its fine bit), each level
+// a whole number of 16 bytes. Where a bit is clear, beta[i] is +-0,
+// and with scale and l2 finite |raw + l2 * (scale * +-0)| is |raw| bit for
+// bit, so the shift's gather is skipped. use_map says whether a lane may
+// skip: a bitmap is given and scale and l2 are finite (scale * 0 is NaN
+// for an infinite or NaN scale, and that NaN must win). The summary (8 KB
+// a lane at p = 4,272,227) is staged in shared memory; the fine words
+// (534 KB) are read only under a set summary bit. Only the cluster route
+// reads and updates a bitmap.
+constexpr int SUMMARY_SHIFT = 6;  // coefficients a summary bit covers: 64
+
+__host__ __device__ constexpr long long support_fine_words(long long p) {
+  return (p + 127) / 128 * 4;
+}
+__host__ __device__ constexpr long long support_summary_words(long long p) {
+  return (((p + 63) >> SUMMARY_SHIFT) + 127) / 128 * 4;
+}
+
+// Bit idx of the summary words (in device or shared memory).
+__device__ __forceinline__ bool summary_bit(const unsigned int* summary, long long idx) {
+  const long long g = idx >> SUMMARY_SHIFT;
+  return (summary[g >> 5] >> (g & 31)) & 1u;
+}
+
+__device__ __forceinline__ bool fine_bit(const unsigned int* __restrict__ support,
+                                         long long idx) {
+  return (__ldg(support + (idx >> 5)) >> (idx & 31)) & 1u;
+}
+
+// The winner's bits, fine and summary, set once the lane's scores were all
+// read (a real index only): the tail writes beta[i_star] next.
+__device__ __forceinline__ void mark_support(unsigned int* support, long long idx,
+                                             long long p_valid) {
+  if (support == nullptr || idx >= p_valid) return;
+  const long long g = idx >> SUMMARY_SHIFT;
+  atomicOr(support + (idx >> 5), 1u << (idx & 31));
+  atomicOr(support + support_fine_words(p_valid) + (g >> 5), 1u << (g & 31));
 }
 
 // i_star = the global index of the first max of |scores| (indices >=
@@ -221,6 +270,273 @@ vertex_argmax_kernel(const float* __restrict__ scores, const long long* __restri
   }
 }
 
+// A candidate winner of the cluster route: the compared magnitude, the
+// raw score, the selected score (a real index's: raw + l2 * (scale *
+// beta[idx]) in the reference's op order), the position in the lane's
+// sample order and the global index.
+struct Cand {
+  float mag;
+  float raw;
+  float sel;
+  long long j;
+  long long idx;
+};
+
+__device__ __forceinline__ Cand no_cand() { return Cand{-INFINITY, 0.f, 0.f, LLONG_MAX, 0}; }
+
+// Warp-wide first max of the candidates under `better`; every lane ends
+// with the winner and its payload.
+__device__ __forceinline__ void warp_cand(Cand& c) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    Cand x;
+    x.mag = __shfl_xor_sync(0xffffffffu, c.mag, o);
+    x.raw = __shfl_xor_sync(0xffffffffu, c.raw, o);
+    x.sel = __shfl_xor_sync(0xffffffffu, c.sel, o);
+    x.j = __shfl_xor_sync(0xffffffffu, c.j, o);
+    x.idx = __shfl_xor_sync(0xffffffffu, c.idx, o);
+    if (better(x.mag, x.j, c.mag, c.j)) c = x;
+  }
+}
+
+// CTAs a cluster of the cluster route: 16, past the portable 8 (sm_90
+// schedules up to 16; clusters of 8 measured slower)
+constexpr int LANE_CLUSTER = 16;
+constexpr int CL_QUADS = 1;  // quads of scores a thread has in flight
+// the most summary bytes a CTA stages (the static shared memory beside them
+// stays under the 48 KB a launch gets without an opt-in)
+constexpr size_t CL_STAGE_BYTES = 40 * 1024;
+
+// The halves of the cluster barrier: arrive (release, or relaxed where
+// nothing written need be seen) and wait (acquire). Every thread of every
+// CTA of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// i_star = -1, g_star = 0 (and g_sel = 0) for each of the n_lanes lanes
+// that is not one of the n_run listed (a frozen lane); the block's threads
+// share the lanes.
+template <bool SHIFT>
+__device__ __forceinline__ void write_frozen(const int* __restrict__ lane_ids, int n_run,
+                                             int n_lanes, long long* __restrict__ i_star,
+                                             float* __restrict__ g_star,
+                                             float* __restrict__ g_sel) {
+  for (int l = threadIdx.x; l < n_lanes; l += AM_THREADS) {
+    if (!lane_listed(lane_ids, n_run, l)) {
+      i_star[l] = -1;
+      g_star[l] = 0.f;
+      if constexpr (SHIFT) g_sel[l] = 0.f;
+    }
+  }
+}
+
+// The cluster route of the lane argmax (the LANES instantiation's
+// function, bit for bit): cluster y (C = LANE_CLUSTER CTAs along x) reduces lane
+// lane_ids[y]. CTA `rank` reduces the scores [rank * chunk, (rank + 1) *
+// chunk) (chunk a multiple of 4; a CTA past n holds no candidate), a
+// round of CL_QUADS quads of 4 a thread at a time (the rounds uniform in
+// the CTA), with 16-byte loads of the scores (the rows start on 16 bytes)
+// and, at block width 1 on a 16-byte aligned row, of the int64 ids; a
+// round's loads are all issued before its bitmap words and beta gathers,
+// and those before any comparison. With a bitmap, each CTA copies the
+// lane's summary words into shared memory (cp.async, up to CL_STAGE_BYTES:
+// stage_summary) while its first round's loads are in flight. Each
+// thread keeps its winner's position, magnitude, raw and selected scores
+// and index. A score whose shift the bitmap skips has sel = raw, the bits
+// of raw + (+-0) while raw is neither 0 nor NaN; a raw score of 0 or NaN
+// reads its beta (the sign of a zero shift, the NaN's payload), so every
+// real winner's sel is the reference's; a masked winner (every index past
+// p_valid) takes its sel from beta[p_valid - 1], read by rank 0. The
+// barrier's first phase (arrived at the start, waited on after the CTA's
+// reduction) makes sure every CTA runs before any writes to rank 0's
+// shared memory: then each CTA writes its winner to slot `rank` of rank 0
+// through distributed shared memory, and the second phase (release,
+// acquire) makes them visible to rank 0, which reduces the C slots under
+// `better`, writes the lane's outputs and sets the winner's bits of the
+// lane's bitmap. The frozen lanes' (-1, 0, 0) are written by cluster 0's
+// last CTA between its arrival and its wait; with n_run 0 the grid is one
+// cluster whose first CTA does only that.
+template <typename BT>
+__global__ void __launch_bounds__(AM_THREADS, 2)
+argmax_lanes_cluster_kernel(const float* __restrict__ scores, const long long* __restrict__ blk,
+                            long long n, int bs, long long p_valid, long long chunk,
+                            long long* __restrict__ i_star, float* __restrict__ g_star,
+                            const int* __restrict__ lane_ids, int n_run, int n_lanes,
+                            long long sc_stride, long long blk_stride, const void* beta_v,
+                            long long beta_stride, const float* __restrict__ scale_p, float l2,
+                            float* __restrict__ g_sel, unsigned int* support,
+                            long long sup_stride, int stage_summary) {
+  constexpr bool SHIFT = !std::is_void<BT>::value;
+  using B = typename std::conditional<SHIFT, BT, float>::type;
+  const B* beta = static_cast<const B*>(beta_v);
+  extern __shared__ __align__(16) unsigned int summary_s[];
+  __shared__ Cand warp_win[AM_WARPS];
+  __shared__ Cand slots[LANE_CLUSTER];
+  if ((int)blockIdx.y >= n_run) {  // n_run 0: one cluster, no barrier
+    if (blockIdx.x == 0) write_frozen<SHIFT>(lane_ids, n_run, n_lanes, i_star, g_star, g_sel);
+    return;
+  }
+  cluster_arrive_relaxed();  // phase 1: this CTA runs
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int rank = cluster.block_rank(), C = cluster.num_blocks();
+  const long long ln = lane_ids[blockIdx.y];
+  scores += ln * sc_stride;
+  blk += ln * blk_stride;
+  float scale = 0.f;
+  bool use_map = false, staged = false;
+  const unsigned int* summary = nullptr;
+  if constexpr (SHIFT) {
+    beta += ln * beta_stride;
+    if (support != nullptr) {
+      support += ln * sup_stride;
+      summary = support + support_fine_words(p_valid);
+      if (stage_summary) {
+        const int chunks = (int)(support_summary_words(p_valid) / 4);
+        for (int k = threadIdx.x; k < chunks; k += AM_THREADS)
+          cp_async16(summary_s + 4 * k, summary + 4 * k, true);
+        cp_async_commit();
+        summary = summary_s;
+        staged = true;
+      }
+    }
+    scale = scale_p[ln];
+    use_map = support != nullptr && isfinite(scale) && isfinite(l2);
+  }
+  const long long j0 = (long long)rank * chunk;
+  const long long j1 = j0 + chunk < n ? j0 + chunk : n;
+  const bool vec_ids = bs == 1 && reinterpret_cast<uintptr_t>(blk + j0) % 16 == 0;
+  constexpr long long STRIDE = 4 * AM_THREADS;
+  Cand c = no_cand();
+  for (long long jb = j0; jb < j1; jb += CL_QUADS * STRIDE) {  // the same rounds in the CTA
+    const long long jr = jb + 4 * threadIdx.x;
+    float s[CL_QUADS][4];
+    long long id[CL_QUADS][4];
+#pragma unroll
+    for (int u = 0; u < CL_QUADS; ++u) {
+      const long long j = jr + u * STRIDE;
+      if (j + 4 <= j1) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(scores + j));
+        s[u][0] = v.x; s[u][1] = v.y; s[u][2] = v.z; s[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[u][k] = j + k < j1 ? __ldg(scores + j + k) : 0.f;
+      }
+      if (vec_ids && j + 4 <= j1) {
+        const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(blk + j));
+        const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(blk + j + 2));
+        id[u][0] = a.x; id[u][1] = a.y; id[u][2] = b.x; id[u][3] = b.y;
+      } else if (bs == 1) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) id[u][k] = j + k < j1 ? __ldg(blk + j + k) : 0;
+      } else if (j < j1) {  // block q = j / bs, offset r; n < 2^31 (the launcher's check)
+        unsigned int q = (unsigned int)j / (unsigned int)bs;
+        int r = (int)((unsigned int)j - q * (unsigned int)bs);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (r == bs) {
+            r = 0;
+            ++q;
+          }
+          id[u][k] = j + k < j1 ? __ldg(blk + q) * bs + r : 0;
+          ++r;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) id[u][k] = 0;
+      }
+    }
+    float mag[CL_QUADS][4], sel[CL_QUADS][4];
+    if constexpr (SHIFT) {
+      if (staged && jb == j0) {  // the first round: the summary has landed
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      // whether each score's shift needs beta: the summary bits first, then
+      // the fine words they call for, then the gathers
+      bool need[CL_QUADS][4];
+#pragma unroll
+      for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool real = jr + u * STRIDE + k < j1 && id[u][k] < p_valid;
+          need[u][k] = real && (!use_map || !(fabsf(s[u][k]) > 0.f) ||
+                                summary_bit(summary, id[u][k]));
+        }
+      if (use_map) {
+#pragma unroll
+        for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (need[u][k] && fabsf(s[u][k]) > 0.f) need[u][k] = fine_bit(support, id[u][k]);
+      }
+      float bv[CL_QUADS][4];
+#pragma unroll
+      for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) bv[u][k] = need[u][k] ? to_f32(__ldg(beta + id[u][k])) : 0.f;
+#pragma unroll
+      for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sel[u][k] = need[u][k] ? __fadd_rn(s[u][k], __fmul_rn(l2, __fmul_rn(scale, bv[u][k])))
+                                 : s[u][k];
+          mag[u][k] = id[u][k] >= p_valid ? -1.0f : fabsf(sel[u][k]);
+        }
+    } else {
+#pragma unroll
+      for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sel[u][k] = s[u][k];
+          mag[u][k] = id[u][k] >= p_valid ? -1.0f : fabsf(s[u][k]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < CL_QUADS; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const long long j = jr + u * STRIDE + k;
+        if (j < j1 && better(mag[u][k], j, c.mag, c.j))
+          c = Cand{mag[u][k], s[u][k], sel[u][k], j, id[u][k]};
+      }
+  }
+  if (staged) cp_async_wait<0>();  // a CTA past n: its copy landed before it leaves
+  // the CTA's winner, to warp 0
+  warp_cand(c);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_win[warp] = c;
+  __syncthreads();
+  if (warp == 0) {
+    c = lane < AM_WARPS ? warp_win[lane] : no_cand();
+    warp_cand(c);
+  }
+  cluster_wait();  // phase 1 done: every CTA of the cluster runs
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&slots[rank], 0) = c;
+  cluster_arrive();  // phase 2: this CTA's slot written
+  if (blockIdx.y == 0 && rank == C - 1)
+    write_frozen<SHIFT>(lane_ids, n_run, n_lanes, i_star, g_star, g_sel);
+  cluster_wait();  // phase 2 done: rank 0 sees every slot
+  if (rank == 0 && warp == 0) {
+    c = lane < (int)C ? slots[lane] : no_cand();
+    warp_cand(c);
+    if (lane == 0) {
+      i_star[ln] = c.idx;
+      g_star[ln] = c.raw;
+      if constexpr (SHIFT) {
+        g_sel[ln] = c.idx < p_valid ? c.sel : shifted(c.raw, beta, p_valid - 1, scale, l2);
+        mark_support(support, c.idx, p_valid);
+      }
+    }
+  }
+}
+
 template <typename T>
 static void launch_scores(const void* X, const float* r, const long long* blk, float* scores,
                           long long p, int m, long long n, int bs, int staged,
@@ -281,6 +597,19 @@ static void launch_argmax(dim3 grid, cudaStream_t s, const float* scores, const 
       lane_ids, n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride, scale, l2, g_sel);
 }
 
+// The shift's arguments, shared by both routes: beta (nullptr: no shift)
+// of dtype beta_dtype, scale and g_sel; a support bitmap (the cluster
+// route's) only with a shift, sup_stride >= its words a lane.
+static bool shift_args_ok(const void* beta, int beta_dtype, const float* scale,
+                          const float* g_sel, long long p_valid, const unsigned int* support,
+                          long long sup_stride) {
+  if (beta == nullptr) return support == nullptr;
+  const long long words = support_fine_words(p_valid) + support_summary_words(p_valid);
+  return scale != nullptr && g_sel != nullptr && p_valid >= 1 &&
+         (beta_dtype == DT_F32 || beta_dtype == DT_BF16) &&
+         (support == nullptr || sup_stride >= words);
+}
+
 // scratch: the ticket counters (u32, 0 between launches), one a lane for
 // lane_cap lanes, in whole 16-byte units; then lane_cap * blocks partial
 // positions (int64) and as many partial values (f32). lane_ids ==
@@ -302,8 +631,7 @@ extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, l
   if (n_run < 0 || n_run > lane_cap || n_run > 65535 || (lane_ids == nullptr && n_run != 1) ||
       (lane_ids != nullptr && (n_lanes < n_run || sc_stride % 4 != 0)))
     return (int)cudaErrorInvalidValue;
-  if (beta != nullptr && (scale == nullptr || g_sel == nullptr || p_valid < 1 ||
-                          (beta_dtype != DT_F32 && beta_dtype != DT_BF16)))
+  if (!shift_args_ok(beta, beta_dtype, scale, g_sel, p_valid, nullptr, 0))
     return (int)cudaErrorInvalidValue;
   unsigned int* done = static_cast<unsigned int*>(scratch);
   long long* part_j =
@@ -335,5 +663,87 @@ extern "C" int vertex_argmax_launch(const float* scores, const long long* blk, l
     REPRO_ARGMAX(false, __nv_bfloat16);
   }
 #undef REPRO_ARGMAX
+  return (int)cudaGetLastError();
+}
+
+template <typename BT>
+static cudaError_t launch_cluster(dim3 grid, cudaStream_t s, const float* scores,
+                                  const long long* blk, long long n, int bs, long long p_valid,
+                                  long long chunk, long long* i_star, float* g_star,
+                                  const int* lane_ids, int n_run, int n_lanes,
+                                  long long sc_stride, long long blk_stride, const void* beta,
+                                  long long beta_stride, const float* scale, float l2,
+                                  float* g_sel, unsigned int* support, long long sup_stride,
+                                  int stage_summary, size_t smem) {
+  auto* kernel = argmax_lanes_cluster_kernel<BT>;
+  static bool allowed[64] = {};  // the non-portable cluster size, allowed once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) allowed[dev] = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned int)LANE_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(AM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, scores, blk, n, bs, p_valid, chunk, i_star, g_star,
+                            lane_ids, n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride,
+                            scale, l2, g_sel, support, sup_stride, stage_summary);
+}
+
+// The cluster route of the lane argmax: a grid of (LANE_CLUSTER,
+// max(n_run, 1)) CTAs in clusters of LANE_CLUSTER along x, cluster y
+// reducing lane lane_ids[y] in LANE_CLUSTER ranges of a multiple of 4
+// scores (n < 2^31); scores every sc_stride floats (a multiple of 4, the
+// base on 16 bytes), blk every blk_stride ids (0: shared). The shift,
+// g_sel as vertex_argmax_launch's; support (a shift only; nullptr: none):
+// the lanes' bitmaps, a row every sup_stride words, their summary words
+// staged in shared memory where they fit in CL_STAGE_BYTES and the rows
+// lie on 16 bytes. A refused cluster launch returns its error (no other
+// route is taken).
+extern "C" int vertex_argmax_lanes_cluster_launch(
+    const float* scores, const long long* blk, long long n, int bs, long long p_valid,
+    long long* i_star, float* g_star, const int* lane_ids, int n_run, int n_lanes,
+    long long sc_stride, long long blk_stride, const void* beta, long long beta_stride,
+    int beta_dtype, const float* scale, float l2, float* g_sel, unsigned int* support,
+    long long sup_stride, void* stream) {
+  if (n < 1 || n >= (1LL << 31) || bs < 1) return (int)cudaErrorInvalidValue;
+  if (lane_ids == nullptr || n_run < 0 || n_run > 65535 || n_lanes < n_run ||
+      sc_stride % 4 != 0 || reinterpret_cast<uintptr_t>(scores) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!shift_args_ok(beta, beta_dtype, scale, g_sel, p_valid, support, sup_stride))
+    return (int)cudaErrorInvalidValue;
+  const long long chunk = (n + 4 * LANE_CLUSTER - 1) / (4 * LANE_CLUSTER) * 4;
+  const dim3 grid((unsigned int)LANE_CLUSTER, n_run > 0 ? (unsigned int)n_run : 1u);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t summary_bytes = (size_t)support_summary_words(p_valid) * 4;
+  const int stage = support != nullptr && summary_bytes <= CL_STAGE_BYTES &&
+                    sup_stride % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(support) % 16 == 0;
+  const size_t smem = stage ? summary_bytes : 0;
+#define REPRO_CLUSTER(BT)                                                                   \
+  launch_cluster<BT>(grid, s, scores, blk, n, bs, p_valid, chunk, i_star, g_star, lane_ids, \
+                     n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride, scale, l2,   \
+                     g_sel, support, sup_stride, stage, smem)
+  cudaError_t e;
+  if (beta == nullptr)
+    e = REPRO_CLUSTER(void);
+  else if (beta_dtype == DT_F32)
+    e = REPRO_CLUSTER(float);
+  else
+    e = REPRO_CLUSTER(__nv_bfloat16);
+#undef REPRO_CLUSTER
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -37,12 +37,13 @@ with 16-byte loads, walks the sampled blocks alongside (no division in
 the loop; with width 1 the index is ``blk[j]``), keeps the first max
 under the comparator of ``jnp.argmax`` (NaN largest, then the lower
 position) and writes it to a partial; the last block to finish, by a
-ticket counter, reduces the partials and resets the counter. That comparator is a total order, so
-the result is bit-exact with ``argmax_plain`` whichever block is last.
-The result stays in device memory. The partials and the counter live in
-a scratch buffer allocated once per device and reused by every launch in
-stream order: two streams must not run ``vertex_argmax`` on one device
-at once.
+ticket counter, reduces the partials and resets the counter. That
+comparator is a total order, so the result is bit-exact with
+``argmax_plain`` whichever block is last. The result stays in device
+memory. The partials and the counter live in a scratch buffer allocated
+once per device and reused by every launch in stream order (the one-lane
+launches, and the lanes' ticket route past ``LANE_CLUSTER_MAX_N``): two
+streams must not run them on one device at once.
 
 The elastic-net's shifted argmax (``vertex_argmax_shifted``): the argmax
 of the selected scores ``sel = raw + l2 * (scale * beta[idx])`` (a
@@ -65,16 +66,34 @@ one row of blocks for each lane in ``lanes`` (an int32 list of the lanes
 that step; a frozen lane launches no block). A lane's blocks run exactly
 the one-lane launch on its operands: the scores stage their lane's
 residual and read its sampled ids (``blk (L, nb)``, or one ``(nb,)``
-shared by the lanes, 'full' sampling), the argmax has a ticket and
-partials of its own for each lane in the scratch buffer. So each lane's
-scores and winner have the bits of the one-lane launch. A lane not in
-``lanes`` gets ``i_star = -1`` and ``g_star = 0``; its scores are not
-written. The scores of the lanes are one ``(L, n4)`` buffer, n rounded
-up to 4 so that every lane's row starts on 16 bytes, returned as the
-``(L, n)`` view. Bound: L_active * n * m * itemsize + L * m * 4 + L * n *
-12 bytes for the scores (13 lanes at the paper's size: 1.777 GB, 0.53 ms
-at 3.35 TB/s); L times the one-lane bytes for the argmax. The shifted
-argmax has a lane wrapper of its own, ``vertex_argmax_shifted_lanes``.
+shared by the lanes, 'full' sampling). So each lane's scores have the
+bits of the one-lane launch. A lane not in ``lanes`` gets ``i_star = -1``
+and ``g_star = 0``; its scores are not written. The scores of the lanes
+are one ``(L, n4)`` buffer, n rounded up to 4 so that every lane's row
+starts on 16 bytes, returned as the ``(L, n)`` view. Bound: L_active * n
+* m * itemsize + L * m * 4 + L * n * 12 bytes for the scores (13 lanes at
+the paper's size: 1.777 GB, 0.53 ms at 3.35 TB/s); L times the one-lane
+bytes for the argmax (the shifted one: + n*4 + 4 a lane).
+
+The lane argmax (``vertex_argmax_lanes``, and ``vertex_argmax_shifted_lanes``
+for the elastic-net) has two routes, each bit for bit the plain version
+and each lane's one-lane launch. The cluster route (n up to
+``LANE_CLUSTER_MAX_N`` a lane): one thread-block cluster of
+``LANE_CLUSTER`` CTAs a lane, each CTA a contiguous range of the lane's
+scores with 16-byte loads of the scores and ids; the CTAs' winners meet in
+rank 0's shared memory through distributed shared memory, behind the
+cluster barrier, so no ticket, partials or scratch are needed. Past the
+cap ('full' sampling), the ticket route: a row of the grid-wide launch's
+blocks for each lane, with a ticket and partials of its own in the
+scratch buffer (``_argmax_scratch``); there the clusters' few CTAs a lane
+are slower (``scripts/lane_argmax_ab.py``). On the cluster route, with
+the shift and the lanes' support bitmap (``ScoreShift.support``,
+``pack_support``: a fine bit a coefficient and a summary bit each 64, a
+superset of beta's nonzeros that the batched engine keeps where
+``vertex.lane_support`` builds one), a lane reads ``beta[idx]`` only
+under a set summary bit (staged in shared memory) and a set fine bit, and
+sets the winner's bits in place; an infinite or NaN scale reads beta
+everywhere. The ticket route reads beta everywhere and takes no bitmap.
 
 Each instantiation has its own wrapper, whose ``launches`` attribute
 counts the launches of its kernel.
@@ -82,7 +101,7 @@ counts the launches of its kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -99,10 +118,20 @@ _F32 = ctypes.c_float
 #  stream)
 _ARGMAX_ARGTYPES = ([_PTR, _PTR, _I64, _I32, _I64, _I32, _I64, _PTR, _I32, _PTR, _PTR, _PTR]
                     + [_I32, _I32, _I64, _I64, _PTR, _I64, _I32, _PTR, _F32, _PTR, _PTR])
+# (scores, blk, n, bs, p_valid, i_star, g_star, lane_ids, n_run, n_lanes, sc_stride,
+#  blk_stride, beta, beta_stride, beta_dtype, scale, l2, g_sel, support, sup_stride, stream)
+_CLUSTER_ARGTYPES = ([_PTR, _PTR, _I64, _I32, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64]
+                     + [_PTR, _I64, _I32, _PTR, _F32, _PTR, _PTR, _I64, _PTR])
 _NO_SHIFT = (None, 0, 0, None, 0.0, None)
 ARGMAX_THREADS = 256  # AM_THREADS of csrc/fw_grad.cu
 ARGMAX_PER_THREAD = 8  # scores a thread, below the cap
 ARGMAX_BLOCKS_PER_SM = 2
+# the lane argmax's cluster route: CTAs a lane (LANE_CLUSTER of
+# csrc/fw_grad.cu), and the most scores a lane for which it is taken (past
+# it, the grid-wide ticket route)
+LANE_CLUSTER = 16
+LANE_CLUSTER_MAX_N = 1 << 18
+LANE_ROUTES = ("cluster", "ticket")
 _scratch = {}  # device index -> (the argmax's scratch buffer, SM count, lanes it holds)
 
 
@@ -115,6 +144,12 @@ def argmax_grid(n: int, sms: int):
     blocks = min(ARGMAX_BLOCKS_PER_SM * sms, -(-n // (ARGMAX_THREADS * ARGMAX_PER_THREAD)))
     chunk = -(-n // (4 * blocks)) * 4
     return -(-n // chunk), chunk
+
+
+def lane_route(n: int) -> str:
+    """The lane argmax's route for n scores a lane: one cluster a lane up to
+    ``LANE_CLUSTER_MAX_N``, the grid-wide ticket route past it."""
+    return "cluster" if n <= LANE_CLUSTER_MAX_N else "ticket"
 
 
 def argmax_scratch_bytes(lanes: int, sms: int) -> int:
@@ -144,11 +179,15 @@ class ScoreShift(NamedTuple):
     ``beta (p,)`` and ``scale ()`` in the state's dtype, or ``(L, p)`` and
     ``(L,)`` for lanes. Called with indices (< p) it gives the f32 addend,
     so it serves as the reference's ``extra_fn``; the kernels read its
-    fields."""
+    fields. ``support`` (lanes only; None: none) is the lanes' support
+    bitmap, ``pack_support``'s layout, a superset of beta's nonzeros: the
+    lane kernel reads beta only where a bit is set and sets the winner's
+    bit in place."""
 
     beta: torch.Tensor
     scale: torch.Tensor
     l2: float
+    support: Optional[torch.Tensor] = None
 
     def __call__(self, idx: torch.Tensor) -> torch.Tensor:
         return self.l2 * (self.scale.float() * self.beta.index_select(0, idx).float())
@@ -156,6 +195,67 @@ class ScoreShift(NamedTuple):
     def lane(self, lane: int) -> "ScoreShift":
         """Lane ``lane``'s shift, from a lane-stacked one."""
         return ScoreShift(self.beta[lane], self.scale[lane], self.l2)
+
+
+SUMMARY_SPAN = 64  # coefficients a summary bit of the support bitmap covers
+
+
+def support_fine_words(p: int) -> int:
+    """The fine words of a support bitmap row over p coefficients, a whole
+    number of 16 bytes (csrc/fw_grad.cu's support_fine_words)."""
+    return -(-p // 128) * 4
+
+
+def support_words(p: int) -> int:
+    """32-bit words of a support bitmap row over p coefficients: the fine
+    words, then the summary words, each level a whole number of 16 bytes."""
+    return support_fine_words(p) + -(-(-(-p // SUMMARY_SPAN)) // 128) * 4
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``(L, 32 w)`` uint8 0/1 to ``(L, w)`` int32 words, bit i % 32 of word
+    i // 32 (bits to little-endian bytes to words)."""
+    L = bits.shape[0]
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=bits.device)
+    return (bits.view(L, -1, 8) * weights).sum(-1, dtype=torch.uint8).view(torch.int32)
+
+
+def pack_support(beta: torch.Tensor) -> torch.Tensor:
+    """The support bitmap of ``beta (L, p)``: ``(L, support_words(p))``
+    int32 rows, plain torch. The fine words first: bit i % 32 of word i //
+    32 set where ``beta[:, i] != 0`` (a zero of either sign clears it); then
+    the summary words: bit g % 32 of word g // 32 set where any of the
+    coefficients ``[64 g, 64 g + 64)`` has its fine bit. Each level is
+    padded with zero words to a whole number of 16 bytes."""
+    L, p = beta.shape
+    fine_bits = support_fine_words(p) * 32
+    groups = -(-p // SUMMARY_SPAN)
+    bits = torch.zeros((L, max(fine_bits, groups * SUMMARY_SPAN)), dtype=torch.uint8,
+                       device=beta.device)
+    bits[:, :p] = beta != 0
+    summary = torch.zeros((L, (support_words(p) - support_fine_words(p)) * 32),
+                          dtype=torch.uint8, device=beta.device)
+    summary[:, :groups] = bits[:, :groups * SUMMARY_SPAN].view(L, groups, SUMMARY_SPAN).amax(-1)
+    return torch.cat([_pack_bits(bits[:, :fine_bits]), _pack_bits(summary)], dim=1)
+
+
+def _bit_words(idx: torch.Tensor) -> torch.Tensor:
+    """int32 words with bit ``idx % 32`` set."""
+    bit = torch.bitwise_left_shift(torch.ones_like(idx), idx & 31)
+    return torch.where(bit >= 2**31, bit - 2**32, bit).to(torch.int32)
+
+
+def mark_support(support: torch.Tensor, i_star: torch.Tensor, p_valid: int) -> None:
+    """Set, in place, the fine and summary bits of ``i_star[l]`` in each
+    lane's row of ``support`` where ``0 <= i_star[l] < p_valid`` (the lane
+    kernel's update of its bitmap, for the plain route)."""
+    lanes = torch.nonzero((i_star >= 0) & (i_star < p_valid)).view(-1)
+    idx = i_star.index_select(0, lanes)
+    group = idx // SUMMARY_SPAN
+    for words, bits in ((idx >> 5, _bit_words(idx)),
+                        (support_fine_words(p_valid) + (group >> 5), _bit_words(group))):
+        support[lanes, words] = support[lanes, words] | bits
 
 
 def block_indices(blk: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -409,10 +509,28 @@ def sampled_scores_lanes(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
     return scores[:, :n]
 
 
-def _argmax_lanes_launch(name, scores, blk, block_size: int, p_valid: int, lanes, shift):
+def _support_args(shift: ScoreShift, L: int, p_valid: int, dev):
+    """The bitmap's arguments (pointer, row stride in words) of the lane
+    launches: none without one; else ``(L, support_words(p_valid))`` int32
+    rows on the operands' device."""
+    sup = shift.support
+    if sup is None:
+        return None, 0
+    words = support_words(p_valid)
+    if (sup.dtype != torch.int32 or sup.shape != (L, words) or sup.stride(1) != 1
+            or sup.stride(0) % 4 or sup.data_ptr() % 16 or sup.device != dev):
+        raise ValueError(f"the shift's support must be int32 ({L}, {words}) rows on {dev}, "
+                         "each on 16 bytes, got "
+                         f"{sup.dtype} {tuple(sup.shape)} on {sup.device}")
+    return sup.data_ptr(), sup.stride(0)
+
+
+def _argmax_lanes_launch(name, scores, blk, block_size: int, p_valid: int, lanes, shift,
+                         route=None):
     """Launch the lane argmax (``shift`` None) or its shifted instantiation
-    on CUDA tensors; returns the kernel's outputs ``(i_star, g_star)`` or
-    ``(i_star, g_raw, g_sel)``."""
+    on CUDA tensors on ``route`` (default ``lane_route(n)``); returns the
+    kernel's outputs ``(i_star, g_star)`` or ``(i_star, g_raw, g_sel)``. A
+    support bitmap is taken by the cluster route only."""
     blk = blk.long().contiguous()
     L, n = scores.shape
     if (scores.dtype != torch.float32 or n != blk.shape[-1] * block_size or scores.stride(1) != 1
@@ -422,6 +540,14 @@ def _argmax_lanes_launch(name, scores, blk, block_size: int, p_valid: int, lanes
     dev = _build.require_cuda(blk, lanes)
     if scores.device != dev:
         raise ValueError(f"kernel operands must share one CUDA device, got {scores.device}")
+    if n < 1:
+        raise ValueError("vertex_argmax needs at least one score")
+    route = lane_route(n) if route is None else route
+    if route not in LANE_ROUTES:
+        raise ValueError(f"route must be one of {LANE_ROUTES}, got {route!r}")
+    if route == "ticket" and shift is not None and shift.support is not None:
+        raise ValueError(f"the ticket route ({n} scores a lane) keeps no support bitmap: "
+                         "vertex.lane_support builds one only for the cluster route")
     i_star = torch.empty(L, dtype=torch.int64, device=dev)
     g_star = torch.empty(L, dtype=torch.float32, device=dev)
     shift_args, g_sel = _NO_SHIFT, None
@@ -433,44 +559,61 @@ def _argmax_lanes_launch(name, scores, blk, block_size: int, p_valid: int, lanes
         g_sel = torch.empty(L, dtype=torch.float32, device=dev)
         shift_args = (beta.data_ptr(), beta_stride, beta_code, scale.data_ptr(), l2,
                       g_sel.data_ptr())
-    scratch, sms, cap = _argmax_scratch(dev, max(lanes.numel(), 1))
-    blocks, chunk = argmax_grid(n, sms)
-    fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
     wrapper = vertex_argmax_lanes if shift is None else vertex_argmax_shifted_lanes
-    with torch.cuda.device(dev):
-        err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid, blocks, chunk,
-                 scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(),
-                 *_build.lane_ids_arg(lanes), L, scores.stride(0),
-                 blk.shape[1] if blk.dim() == 2 else 0, *shift_args, _build.stream(dev))
-        wrapper.launches += 1
+    common = (*_build.lane_ids_arg(lanes), L, scores.stride(0),
+              blk.shape[1] if blk.dim() == 2 else 0, *shift_args)
+    if route == "cluster":
+        sup = (None, 0) if shift is None else _support_args(shift, L, p_valid, dev)
+        fn = _build.function("fw_grad", "vertex_argmax_lanes_cluster_launch", _CLUSTER_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid,
+                     i_star.data_ptr(), g_star.data_ptr(), *common, *sup, _build.stream(dev))
+            wrapper.launches += 1
+    else:
+        scratch, sms, cap = _argmax_scratch(dev, max(lanes.numel(), 1))
+        blocks, chunk = argmax_grid(n, sms)
+        fn = _build.function("fw_grad", "vertex_argmax_launch", _ARGMAX_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(scores.data_ptr(), blk.data_ptr(), n, block_size, p_valid, blocks, chunk,
+                     scratch.data_ptr(), cap, i_star.data_ptr(), g_star.data_ptr(), *common,
+                     _build.stream(dev))
+            wrapper.launches += 1
     _build.check("fw_grad", err, name)
     return (i_star, g_star) if shift is None else (i_star, g_star, g_sel)
 
 
 def vertex_argmax_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
-                        p_valid: int, lanes: torch.Tensor):
+                        p_valid: int, lanes: torch.Tensor, route=None):
     """``(i_star (L,), g_star (L,))`` (int64, f32) of each listed lane's
     scores row in one launch; a lane not listed gets ``(-1, 0)``. A CPU
-    tensor takes the plain version."""
+    tensor takes the plain version. ``route`` ('cluster' or 'ticket')
+    overrides ``lane_route`` (the card's tests and timings compare them)."""
     check_lanes(scores, blk, lanes)
     if scores.device.type == "cpu":
         return argmax_lanes_plain(scores, blk, block_size, p_valid, lanes)
     return _argmax_lanes_launch("vertex_argmax_lanes", scores, blk, block_size, p_valid, lanes,
-                                None)
+                                None, route)
 
 
 def vertex_argmax_shifted_lanes(scores: torch.Tensor, blk: torch.Tensor, block_size: int,
-                                p_valid: int, lanes: torch.Tensor, shift: ScoreShift):
+                                p_valid: int, lanes: torch.Tensor, shift: ScoreShift,
+                                route=None):
     """``(i_star, g_raw, g_sel)``, each ``(L,)``: each listed lane's
     ``vertex_argmax_shifted`` on its scores row and its row of the
     lane-stacked ``shift`` (``beta (L, p_valid)``, ``scale (L,)``), in one
     launch of the shifted lane instantiation; a lane not listed gets ``(-1,
-    0, 0)``. A CPU tensor takes the plain version."""
+    0, 0)``. With ``shift.support`` the kernel reads beta only where a bit
+    is set and sets each winner's bit in place (on the CPU, the plain
+    version, which ignores the bitmap, then ``mark_support``); the ticket
+    route takes none. ``route`` as ``vertex_argmax_lanes``'s."""
     check_lanes(scores, blk, lanes)
     if scores.device.type == "cpu":
-        return argmax_shifted_lanes_plain(scores, blk, block_size, p_valid, lanes, shift)
+        out = argmax_shifted_lanes_plain(scores, blk, block_size, p_valid, lanes, shift)
+        if shift.support is not None:
+            mark_support(shift.support, out[0], p_valid)
+        return out
     return _argmax_lanes_launch("vertex_argmax_shifted_lanes", scores, blk, block_size, p_valid,
-                                lanes, shift)
+                                lanes, shift, route)
 
 
 sampled_scores.launches = 0

@@ -898,6 +898,234 @@ def test_shifted_argmax_lanes_equal_one_lane_launches(L):
             assert all(_bits_equal(a[lane], b) for a, b in zip(got, one))
 
 
+LANE_CASES = ["random", "exact support", "superset", "minus zero", "scale inf nan",
+              "all masked", "full", "bf16 beta", "n = 1", "ragged blocks"]
+
+
+def _lane_argmax_case(case, g, L=13, p=5000, n=4001):
+    """(scores (L, n) rows on 16 bytes, blk, bs, p, shift with its support)
+    of a lane argmax case: 'exact support' the bitmap of beta's nonzeros,
+    'superset' a strict superset, the others the exact bitmap too; beta with
+    30 nonzeros a lane ('random' a dense one, bitmap all ones)."""
+    bs = 1
+    if case == "full":
+        bs = 128
+        blk = torch.arange(-(-p // bs), device="cuda")  # shared, the last block past p
+        n = blk.numel() * bs
+    elif case == "all masked":
+        bs, p, n = 64, 4992, 192
+        blk = torch.tensor([78, 78, 78], device="cuda")  # indices 4992..5055, all past p
+    elif case == "ragged blocks":
+        bs = 7
+        blk = torch.randint(0, p // bs, (L, 300), generator=g, device="cuda")
+        n = 300 * bs
+    elif case == "n = 1":
+        n = 1
+        blk = torch.randint(0, p, (L, 1), generator=g, device="cuda")
+    else:
+        blk = torch.randint(0, p, (L, n), generator=g, device="cuda")
+    scores = torch.empty((L, -(-n // 4) * 4), device="cuda")[:, :n]
+    scores.copy_(torch.randn((L, n), generator=g, device="cuda"))
+    if case == "random":
+        beta = torch.randn((L, p), generator=g, device="cuda")
+    else:
+        beta = torch.zeros((L, p), device="cuda")
+        beta.scatter_(1, torch.randint(0, p, (L, 30), generator=g, device="cuda"),
+                      torch.randn((L, 30), generator=g, device="cuda") * 4)
+        # the largest raw scores' coordinates, so that shifts turn winners
+        ids = fw.block_indices(fw.lane_blk(blk, 0).long(), bs)[:n].clamp_max(p - 1)
+        beta[:, ids[scores[0].abs().argsort(descending=True)[:5]]] = 3.0
+    if case == "minus zero":
+        beta[beta == 0] = -0.0
+        scores[:, ::3] = -0.0
+    scale = torch.rand(L, generator=g, device="cuda") + 0.5
+    if case == "scale inf nan":
+        scale[1], scale[2] = float("inf"), float("nan")
+    if case == "bf16 beta":
+        beta, scale = beta.bfloat16(), scale.bfloat16()
+    support = fw.pack_support(beta)
+    if case == "superset":
+        support |= fw.pack_support(torch.rand((L, p), generator=g, device="cuda") < 0.2)
+    return scores, blk, bs, p, fw.ScoreShift(beta, scale, 2.0, support)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LANE_CASES)
+def test_lane_argmax_cluster_route_bit_for_bit(case):
+    """Both lane argmax kernels on the cluster route: bit for bit the
+    ticket route, the plain versions and each lane's one-lane launch, with
+    and without the support bitmap (an exact one and a strict superset);
+    frozen lanes (-1, 0, 0), none listed included; two launches equal; the
+    bitmap afterwards its input with each running lane's winner's bit set
+    (a real index only); the ticket route refuses a bitmap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(LANE_CASES.index(case) + 16)
+    L = 13
+    scores, blk, bs, p, shift = _lane_argmax_case(case, g, L)
+    bare = fw.ScoreShift(shift.beta, shift.scale, shift.l2)
+    for frozen in _frozen_sets(L):
+        ids = _lane_ids(L, frozen)
+        run = [lane for lane in range(L) if lane not in frozen]
+        got = fw.vertex_argmax_lanes(scores, blk, bs, p, ids, route="cluster")
+        again = fw.vertex_argmax_lanes(scores, blk, bs, p, ids, route="cluster")
+        ticket = fw.vertex_argmax_lanes(scores, blk, bs, p, ids, route="ticket")
+        plain = fw.argmax_lanes_plain(scores, blk, bs, p, ids)
+        for other in (again, ticket, plain):
+            assert all(_bits_equal(a, b) for a, b in zip(got, other)), (case, frozen)
+        for lane in run:
+            one = fw.vertex_argmax(scores[lane].contiguous(), fw.lane_blk(blk, lane), bs, p)
+            assert all(_bits_equal(a[lane], b) for a, b in zip(got, one)), (case, lane)
+        want = fw.argmax_shifted_lanes_plain(scores, blk, bs, p, ids, bare)
+        ticket = fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, bare, route="ticket")
+        for sh in (bare, shift):
+            before = None if sh.support is None else sh.support.clone()
+            got = fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route="cluster")
+            again = fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route="cluster")
+            for other in (again, want, ticket):
+                assert all(_bits_equal(a, b) for a, b in zip(got, other)), (case, frozen)
+            if sh.support is not None:
+                expect = before.clone()
+                fw.mark_support(expect, got[0], p)
+                assert torch.equal(sh.support, expect), case
+                sh.support.copy_(before)
+                with pytest.raises(ValueError):
+                    fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route="ticket")
+        for lane in range(L):
+            if lane in frozen:
+                assert int(got[0][lane]) == -1 and float(got[1][lane]) == 0.0
+                assert float(got[2][lane]) == 0.0
+                continue
+            one = fw.vertex_argmax_shifted(scores[lane].contiguous(), fw.lane_blk(blk, lane), bs,
+                                           p, bare.lane(lane))
+            assert all(_bits_equal(a[lane], b) for a, b in zip(got, one)), (case, lane)
+        if case == "scale inf nan" and not frozen:
+            assert torch.isnan(got[2][1]) and torch.isnan(got[2][2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [20_971_520, 20_971_521])
+def test_shifted_lane_argmax_summary_staged_or_not(p):
+    """The cluster route stages the bitmap's summary in shared memory up to
+    40 KB (p = 20,971,520) and reads it from device memory past that; both
+    are bit for bit the ticket route (no bitmap) and the plain version, and
+    set the winners' bits; a bitmap row off 16 bytes is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(p % 97)
+    L, n = 2, 4001
+    scores = torch.empty((L, 4004), device="cuda")[:, :n]
+    scores.copy_(torch.randn((L, n), generator=g, device="cuda"))
+    blk = torch.randint(0, p, (L, n), generator=g, device="cuda")
+    beta = torch.zeros((L, p), device="cuda")
+    beta[:, blk[0, :50]] = 5.0  # shifts that turn winners
+    beta[:, -1] = 1.0
+    scale = torch.full((L,), 0.9, device="cuda")
+    ids = _lane_ids(L, set())
+    want = fw.argmax_shifted_lanes_plain(scores, blk, 1, p, ids, fw.ScoreShift(beta, scale, 1.0))
+    ticket = fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids,
+                                            fw.ScoreShift(beta, scale, 1.0), route="ticket")
+    sh = fw.ScoreShift(beta, scale, 1.0, fw.pack_support(beta))
+    got = fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids, sh, route="cluster")
+    for other in (ticket, want):
+        assert all(_bits_equal(a, b) for a, b in zip(got, other))
+    expect = fw.pack_support(beta)
+    fw.mark_support(expect, got[0], p)
+    assert torch.equal(sh.support, expect)
+    words = fw.support_words(p)
+    off = torch.zeros(L * words + 1, dtype=torch.int32, device="cuda")[1:].view(L, words)
+    with pytest.raises(ValueError):
+        fw.vertex_argmax_shifted_lanes(scores, blk, 1, p, ids,
+                                       fw.ScoreShift(beta, scale, 1.0, off), route="cluster")
+
+
+@pytest.mark.gpu
+def test_lane_argmax_routes_at_full_sampling_width():
+    """At 'full' sampling's n = p = 4,272,256 scores a lane (shared ids in
+    blocks of 128) the default route (the ticket route), the cluster and
+    the ticket routes of both lane kernels give the same bits, the cluster
+    route's with the bitmap too; the engine builds no bitmap there
+    (``vertex.lane_support``), and one for uniform sampling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    L, p, bs = 3, 4_272_227, 128
+    blk = torch.arange(-(-p // bs), device="cuda")
+    scores = torch.randn((L, blk.numel() * bs), generator=g, device="cuda")
+    beta = torch.zeros((L, p), device="cuda")
+    beta[:, ::1000] = torch.randn((L, -(-p // 1000)), generator=g, device="cuda")
+    ids = _lane_ids(L, set())
+    outs = [fw.vertex_argmax_lanes(scores, blk, bs, p, ids, route=r) for r in
+            (None, "cluster", "ticket")]
+    assert all(all(_bits_equal(a, b) for a, b in zip(outs[0], o)) for o in outs[1:])
+    from repro_torch.core import vertex
+
+    scale = torch.full((L,), 0.7, device="cuda")
+    bare, mapped = fw.ScoreShift(beta, scale, 1.0), fw.ScoreShift(beta, scale, 1.0,
+                                                                  fw.pack_support(beta))
+    outs = [fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, sh, route=r)
+            for sh, r in ((bare, None), (bare, "cluster"), (bare, "ticket"), (mapped, "cluster"))]
+    assert all(all(_bits_equal(a, b) for a, b in zip(outs[0], o)) for o in outs[1:])
+    with pytest.raises(ValueError):
+        fw.vertex_argmax_shifted_lanes(scores, blk, bs, p, ids, mapped)
+    Xt = torch.empty((p, 1), device="cuda")
+    full = FWConfig(delta=1.0, kappa=p // 100, sampling="full", block_size=bs, backend="kernels")
+    assert vertex.lane_support(Xt, full, bare) is None
+    uniform = FWConfig(delta=1.0, kappa=p // 100, backend="kernels")
+    assert torch.equal(vertex.lane_support(Xt, uniform, bare), fw.pack_support(beta))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+def test_en_lanes_carry_a_covering_bitmap_on_the_card(backend):
+    """A batched EN solve on the card builds the lanes' support bitmap from
+    their warm starts (-0.0 entries among them), and after every batched
+    step it covers every nonzero of beta (renorms forced by
+    renorm_threshold=0.5); each lane equals its sequential solve bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle, LaneStreamSampler, StreamSampler, engine
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    if backend == "sparse":
+        design, y, _ = _sparse_problem()
+        p = design.p
+    else:
+        p, m = 2000, 120
+        design = torch.randn((p, m), generator=g, device="cuda")
+        y = torch.randn(m, generator=g, device="cuda")
+    cfg = FWConfig(delta=1.0, kappa=50, max_iters=300, tol=1e-4, renorm_threshold=0.5,
+                   backend=backend)
+    alpha0s = torch.zeros((3, p), device="cuda")
+    alpha0s[1, :40:3] = 0.05
+    alpha0s[2, :20] = -0.0
+    draws = [torch.randint(0, p, (300, 50), generator=g, device="cuda") for _ in range(3)]
+    deltas = [2.0, 10.0, 40.0]
+    seen = []
+
+    def on_step(state, active):
+        sup = state.support
+        bits = ((sup.view(torch.uint8).view(3, -1, 1)
+                 >> torch.arange(8, dtype=torch.uint8, device="cuda")) & 1).reshape(3, -1)[:, :p]
+        seen.append(bool(torch.all(bits.bool() | (state.beta == 0))))
+
+    oracle = ENOracle(l2=1.0)
+    res, _ = engine.solve_batched(oracle, design, y, cfg, LaneStreamSampler(draws), alpha0s,
+                                  deltas, device="cuda", on_step=on_step)
+    assert seen and all(seen)
+    for lane, d in enumerate(deltas):
+        one = engine.solve(oracle, design, y, cfg, StreamSampler(draws[lane]), alpha0s[lane], d,
+                           device="cuda")
+        assert (one.iterations, one.n_dots) == (res.iterations[lane], res.n_dots[lane])
+        assert _bits_equal(one.alpha, res.alpha[lane])
+        assert _bits_equal(one.objective, res.objective[lane])
+
+
 def _en_tail_args(layout, dtype, renorm, g, p=1000, m=803, i=5):
     dt = getattr(torch, dtype)
     if layout == "dense":
