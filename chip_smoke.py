@@ -217,6 +217,25 @@ point on it bit for bit, a corrupted read healed by one retry, each
 pass's GB/s); phase 5 times ``health_flags`` beside its plain version and
 bound, the snapshot, and a guarded fused point against an unguarded one.
 
+The distributed backend (``repro_torch.distributed``): phase 2 holds its
+instantiations at each path's shapes (K2's and K5's owned scores on 4
+feature tiles, their lane form, ``owned_column[_lanes]``, the tails with
+the column given and the direction tail with its columns given) bit for
+bit against the single-device kernels and within rounding of their plain
+versions; "mesh, world 1" runs a (1, 1) NCCL mesh in this process on each
+design already on the card (no copy): the grid's first 3 points bit for
+bit the unfused path, on the sparse design an elastic-net and an away
+point bit for bit their single-device points, the 3 points in lanes of 3
+bit for bit the single-device batched path, the certified gap equal, a
+mesh step against the single-device step and each collective timed;
+"mesh, 4 ranks" spawns 4 processes sharing the card over gloo with CUDA
+tensors (they load phase 1's kernels and print nothing) on a sparse proxy
+(p = 262,144, m = 4,096): (1, 4) bit for bit the single-device run, on
+(2, 2) the three oracles and the away rule within 1e-4 of their
+single-device runs, the no-fault guarded solve bit for bit ``solve`` and
+3 batched lanes bit for bit their sequential mesh solves. Runs on several
+cards are not measured (one card in the box).
+
 About 10 to 13 minutes on an H100, the builds included, as fast as the
 host (aim: 600 s, limit 1200 s); the baselines' phases print their
 seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
@@ -387,6 +406,11 @@ def main(argv=None):
     if args.kernels_only:
         print(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return 0
+    if _NCCL["up"]:
+        import torch.distributed as tdist
+
+        tdist.destroy_process_group()
+    phase3_mesh_ranks(torch)
 
     records = []
     for name, info in KERNELS.items():
@@ -400,6 +424,9 @@ def main(argv=None):
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("timed_on", "bound_ms_all_beta") if k in t},
         })
+    mesh_total = sum(MESH_SECONDS.values())
+    print(f"[mesh] the mesh phases: {', '.join(f'{k} {v:.1f} s' for k, v in MESH_SECONDS.items())}"
+          f"; {mesh_total:.1f} s together")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
@@ -427,6 +454,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_cd_sweep(torch, dev))
     errs.update(phase2_tel_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_health(torch, [(P_PAPER, M_PAPER), HEALTH_RAGGED], "dense"))
+    errs.update(phase2_mesh_kernels(torch, Xt, y, "dense"))
     golden_check(torch, dev)
     bf16_solves(torch, dev, "kernels")
     if not kernels_only:
@@ -441,6 +469,9 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         batched_launches, batched_run = phase3_batched_path(torch, Xt, y, coef, "dense")
         for name in ("sampled_scores_lanes", "vertex_argmax_lanes", "step_tail_lanes"):
             launches[name] = batched_launches[name]
+        mesh_launches, mesh_timing = phase3_mesh_world1(torch, Xt, y, main_run, "dense")
+        launches.update(mesh_launches)
+        timing.update(mesh_timing)
         phase4_other_backend(torch, Xt, y, main_run)
         phase4_fused_vs_unfused(torch, Xt, y, main_run, fused_run)
         launches["health_flags"] = phase3_guarded(torch, Xt, y, main_run,
@@ -495,6 +526,7 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_rule_kernels(torch, mat, y, "sparse"))
     errs.update(phase2_tel_kernels(torch, mat, y, "sparse"))
     errs.update(phase2_health(torch, [(mat.p, mat.m)], "sparse"))
+    errs.update(phase2_mesh_kernels(torch, mat, y, "sparse"))
     sparse_golden_check(torch, dev)
     bf16_solves(torch, dev, "sparse")
     if kernels_only:
@@ -514,6 +546,12 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     launches["sparse_sampled_scores_lanes"] = batched_launches["sparse_sampled_scores_lanes"]
     for name in ("vertex_argmax_lanes", "step_tail_lanes"):  # both batched paths
         launches[name] += batched_launches[name]
+    mesh_launches, mesh_timing = phase3_mesh_world1(
+        torch, mat, y, dict(unfused_run, deltas=fused_run["deltas"]), "sparse")
+    for name, n in mesh_launches.items():  # the column and the tails: both paths
+        launches[name] = launches.get(name, 0) + n
+    for name, row in mesh_timing.items():  # the dense path's rows stand for both layouts
+        timing[name if name not in timing else f"{name}_sparse"] = row
     phase4_sparse_routes(torch, mat, y, fused_run, unfused_run)
     phase4_sparse_vs_dense(torch, dev)
     en_launches, en_runs = phase3_en_paths(torch, mat, y, coef, "sparse")
@@ -621,6 +659,52 @@ KERNELS = {
     # for the reference's jitted XLA check between chunks
     "health_flags": dict(source="src/repro_torch/kernels/csrc/health.cu",
                          replaces="src/repro/resilience/guards.py:127"),
+    # the distributed backend's instantiations: K2's and K5's scores on a
+    # rank's tile with +0.0 where it owns no feature (the reference masks
+    # its partial scores in XLA, src/repro/distributed/backend.py:78-130),
+    # the winner's column on its owner (_owned_column, backend.py:177) and
+    # the tails with that column given (dist_column_update, backend.py:197)
+    "sampled_scores_owned": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                 replaces="src/repro/kernels/fw_grad/fw_grad.py:79"),
+    "sparse_sampled_scores_owned": dict(
+        source="src/repro_torch/kernels/csrc/sparse_grad.cu",
+        replaces="src/repro/kernels/sparse_grad/sparse_grad.py:87"),
+    "sampled_scores_lanes_owned": dict(source="src/repro_torch/kernels/csrc/fw_grad.cu",
+                                       replaces="src/repro/kernels/fw_grad/fw_grad.py:79"),
+    "sparse_sampled_scores_lanes_owned": dict(
+        source="src/repro_torch/kernels/csrc/sparse_grad.cu",
+        replaces="src/repro/kernels/sparse_grad/sparse_grad.py:87"),
+    "owned_column": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                         replaces="src/repro/distributed/backend.py:177"),
+    "owned_column_lanes": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                               replaces="src/repro/distributed/backend.py:177"),
+    "step_tail_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                            replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_given": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_lanes_given": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_lanes_given": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_given_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_given_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_lanes_given_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "step_tail_en_lanes_given_tel": dict(
+        source="src/repro_torch/kernels/csrc/step_tail.cu",
+        replaces="src/repro/kernels/residual_update/residual_update.py:45"),
+    "dir_tail_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                           replaces="src/repro/core/step_rule.py:117"),
+    "dir_tail_en_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                              replaces="src/repro/core/step_rule.py:117"),
 }
 
 
@@ -7241,6 +7325,890 @@ def phase5_resilience_timing(torch, Xt, y, main, fused):
     print(f"[timing] resilience phase 5 took {time.perf_counter() - t0:.1f} s")
     return {"health_flags": dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                                  bound_by=bound_by)}
+
+
+# --------------------------------------------------------------------------
+# The distributed backend (repro_torch.distributed): its kernels against their
+# plain versions (phase 2), a (1, 1) mesh over NCCL in this process on each
+# path ("mesh, world 1") and 4 ranks over gloo on one card ("mesh, 4 ranks")
+# --------------------------------------------------------------------------
+
+MESH_TILES = 4  # phase 2 cuts a design's features into 4 tiles, as a (1, 4) mesh
+MESH_LANES = 3  # the mesh's batched path: 3 points in lanes of 3
+MESH_STEPS = 300  # the timed mesh and single-device steps, and the away points'
+MESH_TEL_STEPS = 200  # the steps of each mesh solve with the ring
+MESH_KERNELS = ("sampled_scores_owned", "sparse_sampled_scores_owned",
+                "sampled_scores_lanes_owned", "sparse_sampled_scores_lanes_owned",
+                "owned_column", "owned_column_lanes", "step_tail_given", "step_tail_en_given",
+                "step_tail_lanes_given", "step_tail_en_lanes_given", "step_tail_given_tel",
+                "step_tail_en_given_tel", "step_tail_lanes_given_tel",
+                "step_tail_en_lanes_given_tel", "dir_tail_given", "dir_tail_en_given")
+# the 4 ranks' problem: a sparse proxy whose 1,024 blocks of 256 split into
+# whole blocks on (1, 4) and (2, 2)
+RANKS_P, RANKS_M, RANKS_DENSITY = 262_144, 4_096, 0.002
+RANKS_STEPS, RANKS_LOG_STEPS = 200, 50
+RANKS_TIMEOUT_S = 300
+
+
+def _mesh_tiles(torch, design, n=MESH_TILES):
+    """``n`` tiles of the design's features (views, a rank's tile each):
+    ``(tile, off)``, the block-ELL ones whole blocks."""
+    if _is_sparse(design):
+        nb = -(-design.nblocks // n)
+        return [((design.values[i * nb:(i + 1) * nb], design.rows[i * nb:(i + 1) * nb]),
+                 i * nb * design.block_size) for i in range(n)]
+    pl = -(-design.shape[0] // n)
+    return [(design[i * pl:(i + 1) * pl], i * pl) for i in range(n)]
+
+
+def _tile_len(tile):
+    return tile[0].shape[0] * tile[0].shape[1] if isinstance(tile, tuple) else tile.shape[0]
+
+
+def _owned(torch, tile, r, blk, bs, off, plain=False):
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+
+    if isinstance(tile, tuple):
+        fn = sg.sparse_sampled_scores_owned_plain if plain else sg.sparse_sampled_scores_owned
+        return fn(tile[0], tile[1], r, blk, bs, off)
+    fn = fw.sampled_scores_owned_plain if plain else fw.sampled_scores_owned
+    return fn(tile, r, blk, bs, off)
+
+
+def _owned_case(torch, label, design, tiles, r, blk, bs, p):
+    """The tiles' owned scores of one draw: two launches bitwise equal, an
+    unowned position +0.0 (sign clear), the sum over the tiles bitwise the
+    single-device kernel's scores, each tile within RTOL_SUM of its plain
+    version. Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import fw_grad as fw
+
+    from repro_torch.kernels import sparse_grad as sg
+
+    idx = fw.block_indices(blk.long(), bs)
+    want = (sg.sparse_sampled_scores(design.values, design.rows, r, blk, bs)
+            if _is_sparse(design) else fw.sampled_scores(design, r, blk, bs))
+    total, err = None, 0.0
+    for tile, off in tiles:
+        got = _owned(torch, tile, r, blk, bs, off)
+        check(_same_bits(torch, got, _owned(torch, tile, r, blk, bs, off)),
+              f"owned scores {label}: two launches differ")
+        pl = _tile_len(tile)
+        foreign = (idx < off) | (idx >= off + pl)
+        check(bool((got[foreign] == 0).all()) and not bool(torch.signbit(got[foreign]).any()),
+              f"owned scores {label}: an unowned position is not +0.0")
+        plain = _owned(torch, tile, r, blk, bs, off, plain=True)
+        err = max(err, float((got - plain).abs().max()))
+        total = got.clone() if total is None else total + got
+    real = idx < p
+    check(torch.equal(total[real], want[real]),
+          f"owned scores {label}: the tiles' sum differs from the single-device scores")
+    check(bool((total[~real] == 0).all()), f"owned scores {label}: a padded id scored")
+    return err
+
+
+def phase2_mesh_kernels(torch, design, y, layout):
+    """The distributed backend's instantiations at the path's shapes (the
+    design cut into MESH_TILES feature tiles, views): K2's or K5's owned
+    scores (a uniform draw at width 1, each tile's edge ids, a draw none of
+    tile 0 owns, blocks with ids past p at the block width, bf16 on a part
+    of the design) and their lane form (a frozen lane), each bitwise its
+    single-device scores once summed over the tiles; ``owned_column`` and
+    its lane form bitwise ``dense_columns``; the tails with the column given
+    (``step_tail_given`` and its EN, lane and TEL siblings) bitwise the
+    single-device tail kernels; the direction tail with its columns given
+    bitwise ``dir_tail`` (and its split form with a ``complete`` that adds
+    nothing), both within RTOL_SUM of their plain version."""
+    from repro_torch.core import FWConfig
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+    from repro_torch.kernels.step_tail import TailRecord
+
+    t0 = time.perf_counter()
+    dev = y.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    sparse = _is_sparse(design)
+    p, m = design.shape
+    ell = _ell_of(design)
+    tiles = _mesh_tiles(torch, design)
+    pl = _tile_len(tiles[0][0])
+    errs = {k: 0.0 for k in MESH_KERNELS}
+    sk = "sparse_sampled_scores_owned" if sparse else "sampled_scores_owned"
+    r = torch.randn(m, generator=g, device=dev)
+    kappa = kappa_fraction(p, 0.01)
+    bs = design.block_size if sparse else 128
+    nblocks = -(-p // bs)
+    edges = torch.tensor([off + d for _, off in tiles for d in (0, pl - 1) if off + d < p],
+                         device=dev)
+    draws = {"uniform": (torch.randint(0, p, (kappa,), generator=g, device=dev), 1),
+             "edges": (edges, 1),
+             "foreign to tile 0": (torch.randint(pl, p, (512,), generator=g, device=dev), 1),
+             f"blocks of {bs} with ids past p": (torch.cat([
+                 torch.tensor([nblocks - 1, 0], device=dev),
+                 torch.randperm(nblocks, generator=g, device=dev)[:6]]), bs)}
+    for what, (blk, w) in draws.items():
+        errs[sk] = max(errs[sk], _owned_case(torch, f"{layout} {what}", design, tiles, r, blk,
+                                             w, p))
+    if sparse:
+        nbp = min(80, design.nblocks)
+        part = dataclasses.replace(design, values=design.values[:nbp].to(torch.bfloat16),
+                                   rows=design.rows[:nbp], p=nbp * design.block_size)
+    else:
+        part = design[:20_000].to(torch.bfloat16)
+    pp = part.shape[0]
+    errs[sk] = max(errs[sk], _owned_case(
+        torch, f"{layout} bf16", part, _mesh_tiles(torch, part), r,
+        torch.randint(0, pp, (2048,), generator=g, device=dev), 1, pp))
+    print(f"[mesh-kernels] {sk} ({layout}): {len(draws) + 1} draws over {MESH_TILES} tiles of "
+          f"{pl:,} features: the tiles' sum bitwise the single-device scores, unowned +0.0, "
+          f"two launches equal, max |kernel - plain| {errs[sk]:.3e}")
+
+    lk = "sparse_sampled_scores_lanes_owned" if sparse else "sampled_scores_lanes_owned"
+    R = torch.randn(MESH_LANES, m, generator=g, device=dev)
+    blkL = torch.randint(0, p, (MESH_LANES, kappa), generator=g, device=dev)
+    lanes = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    for tile, off in tiles[:2]:
+        if sparse:
+            got = sg.sparse_sampled_scores_lanes_owned(tile[0], tile[1], R, blkL, 1, lanes, off)
+            plain = sg.sparse_sampled_scores_lanes_owned_plain(tile[0], tile[1], R, blkL, 1,
+                                                               lanes, off)
+        else:
+            got = fw.sampled_scores_lanes_owned(tile, R, blkL, 1, lanes, off)
+            plain = fw.sampled_scores_lanes_owned_plain(tile, R, blkL, 1, lanes, off)
+        for lane in (0, 2):
+            check(_same_bits(torch, got[lane], _owned(torch, tile, R[lane].contiguous(),
+                                                       blkL[lane], 1, off)),
+                  f"{lk}: lane {lane} differs from its one-lane launch")
+            errs[lk] = max(errs[lk], float((got[lane] - plain[lane]).abs().max()))
+    print(f"[mesh-kernels] {lk} ({layout}): L={MESH_LANES}, lane 1 frozen, each running lane "
+          f"bitwise its one-lane launch; max |kernel - plain| {errs[lk]:.3e}")
+
+    ids = torch.cat([edges[:6], torch.tensor([-1, 7, 7, p - 1], device=dev)])
+    want = st.dense_columns(ell, ids.clamp_min(0), m)
+    want[ids < 0] = 0
+    total = None
+    for tile, off in tiles:
+        got = st.owned_column_lanes(tile, ids, off, m)
+        check(_same_bits(torch, got, st.owned_column_plain(tile, ids, off, m)),
+              f"owned_column_lanes ({layout}): differs from its plain version")
+        one = st.owned_column(tile, ids[1], off, m)
+        check(_same_bits(torch, one, got[1]), f"owned_column ({layout}): != its lane form")
+        total = got if total is None else total + got
+    check(torch.equal(total, want), f"owned_column ({layout}): the tiles' sum != the columns")
+    print(f"[mesh-kernels] owned_column / owned_column_lanes ({layout}): {ids.numel()} ids "
+          "(tile edges, -1, a repeat, p - 1), each tile bitwise its plain version, their sum "
+          "bitwise the dense columns")
+
+    cfg = FWConfig(delta=5.0)
+    designs = [(f"{layout} f32", design, torch.float32)]
+    designs.append((f"{layout} bf16", part, torch.bfloat16))
+    for label, mat, dtype in designs:
+        mell, pm = _ell_of(mat), mat.shape[0]
+        for i_star in (0, int(torch.randint(0, pm, (), generator=g, device=dev)), pm - 1):
+            z = st.dense_columns(mell, torch.tensor([i_star], device=dev), m)[0]
+            col = st.GivenCol(z, sparse)
+            for en in (None, st.ENTail(torch.tensor(-6.0, device=dev),
+                                       torch.tensor(0.4, device=dev).to(dtype), EN_L2)):
+                beta, args = _tail_args(torch, g, pm, m, dtype, i_star)
+                if en is None:
+                    want = st.step_tail(mell, beta.clone(), *args, cfg)
+                    got = st.step_tail_given(col, beta.clone(), *args, cfg)
+                    key = "step_tail_given"
+                else:
+                    want = st.step_tail_en(mell, beta.clone(), *args, cfg, en)
+                    got = st.step_tail_en_given(col, beta.clone(), *args, cfg, en)
+                    key = "step_tail_en_given"
+                plain = st.step_tail_plain(col, beta.clone(), *args, cfg, en)
+                check(all(_same_bits(torch, a, b) for a, b in zip(want, got)),
+                      f"{key} {label} i*={i_star}: differs from the single-device tail")
+                check(all(_same_bits(torch, a, b) for a, b in zip(got, plain)),
+                      f"{key} {label} i*={i_star}: differs from its plain version")
+        # the TEL instantiations: the ring's record beside the same outputs
+        beta, args = _tail_args(torch, g, pm, m, dtype, 3)
+        col = st.GivenCol(st.dense_columns(mell, torch.tensor([3], device=dev), m)[0], sparse)
+        yty1 = torch.tensor(2.0, device=dev).to(dtype)
+        for en in (None, st.ENTail(torch.tensor(-6.0, device=dev),
+                                   torch.tensor(0.4, device=dev).to(dtype), EN_L2)):
+            rings = [torch.zeros(10 * 8, dtype=torch.int32, device=dev) for _ in range(3)]
+            recs = [TailRecord(r, 8, 5, 17, 99, True, yty1) for r in rings]
+            if en is None:
+                key = "step_tail_given_tel"
+                want = st.step_tail(mell, beta.clone(), *args, cfg, recs[0])
+                got = st.step_tail_given(col, beta.clone(), *args, cfg, recs[1])
+            else:
+                key = "step_tail_en_given_tel"
+                want = st.step_tail_en(mell, beta.clone(), *args, cfg, en, recs[0])
+                got = st.step_tail_en_given(col, beta.clone(), *args, cfg, en, recs[1])
+            plain = st.step_tail_plain(col, beta.clone(), *args, cfg, en, recs[2])
+            check(all(_same_bits(torch, a, b) for a, b in zip(want, got))
+                  and torch.equal(rings[0], rings[1]),
+                  f"{key} {label}: differs from the single-device TEL tail")
+            check(all(_same_bits(torch, a, b) for a, b in zip(got, plain))
+                  and torch.equal(rings[1], rings[2]), f"{key} {label}: differs from its plain "
+                  "version")
+    print(f"[mesh-kernels] step_tail_given / _en_given / _given_tel / _en_given_tel ({layout}, "
+          "f32 at the path's shapes and bf16): bitwise the single-device tail kernels and their "
+          "plain versions at i* = 0, a random one and p - 1, the rings too")
+
+    L = MESH_LANES
+    beta_l, largs = _lane_tail_state(torch, g, p, m, torch.float32, L)
+    i_l = torch.randint(0, p, (L,), generator=g, device=dev)
+    largs = largs[:10] + (i_l,) + largs[11:]
+    zl = st.GivenCol(st.dense_columns(ell, i_l, m), sparse)
+    lanes = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    en_l = st.ENTail(largs[11] + 0.5, torch.full((L,), 40.0, device=dev), EN_L2)
+    yty = torch.tensor(2.0, device=dev)
+    cursors = [TEL_CAP - 1] + [3 * lane for lane in range(1, L)]
+    for en in (None, en_l):
+        for tel in (False, True):
+            key = "step_tail" + ("_en" if en is not None else "") + "_lanes_given" + (
+                "_tel" if tel else "")
+            outs = []
+            for route in ("single", "given", "plain"):
+                rec, ring = None, None
+                if tel:
+                    (ring,) = _tel_rings(torch, dev, 1, L, cursors)
+                    rec = TailRecord(ring.buf, TEL_CAP, 0, 0, 42_723, True, yty, list(cursors),
+                                     ring.dev_cursor)
+                b = beta_l.clone()
+                if route == "plain":
+                    o = st.step_tail_lanes_plain(zl, b, *largs, lanes, cfg, en, rec)
+                elif en is None:
+                    fn = st.step_tail_lanes if route == "single" else st.step_tail_lanes_given
+                    o = fn(ell if route == "single" else zl, b, *largs, lanes, cfg, tel=rec)
+                else:
+                    fn = st.step_tail_en_lanes if route == "single" else st.step_tail_en_lanes_given
+                    o = fn(ell if route == "single" else zl, b, *largs, lanes, cfg, en, tel=rec)
+                outs.append((o, ring))
+            (so, sr), (go, gr), (po, pr) = outs
+            check(all(_same_bits(torch, a, b) for a, b in zip(so, go)),
+                  f"{key} ({layout}): differs from the single-device lane tail")
+            check(all(_same_bits(torch, a, b) for a, b in zip(go, po)),
+                  f"{key} ({layout}): differs from its plain version")
+            if tel:
+                check(torch.equal(sr.buf, gr.buf) and torch.equal(gr.buf, pr.buf)
+                      and torch.equal(sr.dev_cursor, gr.dev_cursor)
+                      and torch.equal(gr.dev_cursor, pr.dev_cursor),
+                      f"{key} ({layout}): the lane rings or cursors differ")
+    print(f"[mesh-kernels] step_tail_lanes_given / _en_lanes_given and their _tel forms "
+          f"({layout}, L={L}, lane 1 frozen, lane 0 renormalizing and its ring wrapping): "
+          "bitwise the single-device lane tails and their plain versions, rings and cursors "
+          "too")
+
+    n_dir = 0
+    for case in ("away", "pairwise", "drop", "refresh", "empty"):
+        beta, kw, en, want_p = dir_tail_case(torch, design, y, case, g)
+        zc = st.dense_columns(ell, st.dir_column_ids(kw["i_f"], kw["buf"], p), m)
+        want = st.dir_tail(ell, beta.clone(), *_dir_args(kw), _dir_cfg())
+        got = st.dir_tail_given(zc, beta.clone(), *_dir_args(kw), _dir_cfg())
+        check(all(a is None or _same_bits(torch, a, b) for a, b in zip(want, got)),
+              f"dir_tail_given ({layout}, {case}): differs from dir_tail")
+        errs["dir_tail_given"] = max(errs["dir_tail_given"],
+                                     max(abs(float(a) - float(b)) for a, b in
+                                         zip(_dir_floats(got), _dir_floats(want_p))))
+        if not kw["refresh"]:
+            split = st.dir_tail_given(zc, beta.clone(), *_dir_args(kw), _dir_cfg(),
+                                      complete=lambda t: t)
+            check(all(a is None or _same_bits(torch, a, b) for a, b in zip(want, split)),
+                  f"dir_tail_given ({layout}, {case}): its split form differs")
+        n_dir += 1
+    print(f"[mesh-kernels] dir_tail_given ({layout}): {n_dir} cases bitwise dir_tail (its split "
+          "form too, with nothing to add between its launches); max |kernel - plain| "
+          f"{errs['dir_tail_given']:.3e}")
+    n_dir = 0
+    for case in ("away", "pairwise", "refresh"):
+        beta, kw, en, want_p = dir_tail_case(torch, design, y, case, g, en_l2=EN_L2)
+        zc = st.dense_columns(ell, st.dir_column_ids(kw["i_f"], kw["buf"], p), m)
+        want = st.dir_tail_en(ell, beta.clone(), *_dir_args(kw), _dir_cfg(), en)
+        got = st.dir_tail_en_given(zc, beta.clone(), *_dir_args(kw), _dir_cfg(), en)
+        check(all(a is None or _same_bits(torch, a, b) for a, b in zip(want, got)),
+              f"dir_tail_en_given ({layout}, {case}): differs from dir_tail_en")
+        errs["dir_tail_en_given"] = max(errs["dir_tail_en_given"],
+                                        max(abs(float(a) - float(b)) for a, b in
+                                            zip(_dir_floats(got), _dir_floats(want_p))))
+        if not kw["refresh"]:
+            split = st.dir_tail_en_given(zc, beta.clone(), *_dir_args(kw), _dir_cfg(), en,
+                                         complete=lambda t: t)
+            check(all(a is None or _same_bits(torch, a, b) for a, b in zip(want, split)),
+                  f"dir_tail_en_given ({layout}, {case}): its split form differs")
+        n_dir += 1
+    print(f"[mesh-kernels] dir_tail_en_given ({layout}, l2={EN_L2}): {n_dir} cases bitwise "
+          "dir_tail_en (its split form too); max |kernel - plain| "
+          f"{errs['dir_tail_en_given']:.3e}")
+    MESH_SECONDS[f"kernels, {layout}"] = time.perf_counter() - t0
+    print(f"[mesh-kernels] ({layout}) {MESH_SECONDS[f'kernels, {layout}']:.1f} s")
+    return errs if layout == "dense" else {f"{k}_sparse": v for k, v in errs.items()}
+
+
+_NCCL = {"up": False}
+MESH_SECONDS = {}  # each mesh phase's seconds, summed in main's last lines
+
+
+def _nccl_world1(torch):
+    """NCCL's default group of one rank in this process (a free localhost
+    port), made once."""
+    import socket
+
+    import torch.distributed as tdist
+
+    if not _NCCL["up"]:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                 rank=0)
+        _NCCL["up"] = True
+    return tdist
+
+
+def _points_bits(a, b):
+    import numpy as np
+
+    return all(x.iterations == y_.iterations and x.n_dots == y_.n_dots
+               and np.array_equal(x.alpha_nnz_idx, y_.alpha_nnz_idx)
+               and np.array_equal(x.alpha_nnz_val, y_.alpha_nnz_val)
+               and x.objective == y_.objective for x, y_ in zip(a.points, b.points)) \
+        and len(a.points) == len(b.points)
+
+
+def phase3_mesh_world1(torch, design, y, single, layout):
+    """The mesh at world size 1 over NCCL, in this process: a (1, 1) mesh of
+    the design already on the card (no copy), the grid's first 3 points
+    through ``distributed.fw_path`` bit for bit the unfused single-device
+    path (``single``, the same per-point seeds), the launches a step checked
+    (the owned scores, the argmax, the owned column and the GIVEN tail once
+    each, K2/K5 and the tail never); on the sparse path one elastic-net
+    point and one away point bit for bit their single-device solves; the
+    3 points in lanes of 3 through ``distributed.fw_path_batched`` bit for
+    bit the single-device batched path; ``certified_gap`` equal to the
+    single device's. Returns the launches and the mesh's timing rows."""
+    from repro_torch import distributed as D
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, ENOracle, engine, path
+    from repro_torch.core.path import point_seed
+    from repro_torch.core.vertex import LaneSampler, TorchSampler
+    from repro_torch.obs import TelemetrySpec
+
+    t0 = time.perf_counter()
+    tdist = _nccl_world1(torch)
+    mesh = D.fw_mesh(1, 1)
+    sparse = _is_sparse(design)
+    shard = D.shard_sparse if sparse else D.shard_dense
+    op = shard(design, y, mesh, device=y.device)
+    check((op.values if sparse else op.Xt).data_ptr()
+          == (design.values if sparse else design).data_ptr(), "the (1, 1) mesh copied the design")
+    cfg, deltas = single["cfg"], single["deltas"][:N_COMPARE]
+    sk = "sparse_sampled_scores" if sparse else "sampled_scores"
+    launches = {}
+    kernels.reset_launch_counts()
+    res = D.fw_path(op, deltas, cfg, seed=0, report_gap=False)
+    got = kernels.launch_counts()
+    ref = single["res"]._replace(points=single["res"].points[:N_COMPARE])
+    _print_points(f"mesh-{layout}", res, cfg)
+    check(_points_bits(res, ref), f"mesh (1, 1) {layout}: the first {N_COMPARE} points differ "
+          "from the unfused single-device path")
+    it = res.total_iters
+    for name in (f"{sk}_owned", "vertex_argmax", "owned_column", "step_tail_given"):
+        check(got[name] == it, f"mesh {layout}: {name} launches {got[name]} != iterations {it}")
+    check(got[sk] == 0 == got["step_tail"], f"mesh {layout}: a single-device kernel launched")
+    check(got["sparse_colstats" if sparse else "colstats"] == N_COMPARE,
+          f"mesh {layout}: the setup pass's launches != points")
+    for name in (f"{sk}_owned", "owned_column", "step_tail_given"):
+        launches[name] = got[name]
+    print(f"[mesh-{layout}] (1, 1) NCCL mesh: the first {N_COMPARE} points ({it} steps) bit for "
+          f"bit the unfused single-device path; launches {_nonzero(got)}")
+
+    if sparse:
+        d = float(deltas[0])
+        en = ENOracle(EN_L2)
+        kernels.reset_launch_counts()
+        a = D.solve(en, op, cfg, TorchSampler(point_seed(0, 0), y.device), None, d)
+        got = kernels.launch_counts()
+        b = engine.solve(en, design, y, cfg, TorchSampler(point_seed(0, 0), y.device), None, d,
+                         device=y.device)
+        check(torch.equal(a.alpha, b.alpha) and a.iterations == b.iterations,
+              "mesh EN point differs from the single-device point")
+        check(got["step_tail_en_given"] == a.iterations == got["vertex_argmax_shifted"],
+              "mesh EN point: launches")
+        launches["step_tail_en_given"] = got["step_tail_en_given"]
+        print(f"[mesh-{layout}] elastic-net point (l2={EN_L2}, delta={d:.6g}): {a.iterations} "
+              f"steps, objective {float(a.objective)!r}, bit for bit the single-device point")
+        acfg = dataclasses.replace(cfg, step_rule="away", max_iters=MESH_STEPS, tol=0.0,
+                                   patience=10**9)
+        d = float(deltas[-1])
+        kernels.reset_launch_counts()
+        a = D.solve(LASSO, op, acfg, TorchSampler(point_seed(0, 2), y.device), None, d)
+        got = kernels.launch_counts()
+        b = engine.solve(LASSO, design, y, acfg, TorchSampler(point_seed(0, 2), y.device), None,
+                         d, device=y.device)
+        check(torch.equal(a.alpha, b.alpha), "mesh away point differs from the single device")
+        check(got["dir_tail_given"] == MESH_STEPS == got["owned_column_lanes"],
+              "mesh away point: launches")
+        launches["dir_tail_given"] = got["dir_tail_given"]
+        print(f"[mesh-{layout}] away point ({MESH_STEPS} steps, delta={d:.6g}): objective "
+              f"{float(a.objective)!r}, bit for bit the single-device point; the direction "
+              "tail with its columns given once a step")
+        kernels.reset_launch_counts()
+        a = D.solve(en, op, acfg, TorchSampler(point_seed(0, 2), y.device), None, d)
+        got = kernels.launch_counts()
+        b = engine.solve(en, design, y, acfg, TorchSampler(point_seed(0, 2), y.device), None, d,
+                         device=y.device)
+        check(torch.equal(a.alpha, b.alpha), "mesh EN away point differs from the single device")
+        check(got["dir_tail_en_given"] == MESH_STEPS, "mesh EN away point: launches")
+        launches["dir_tail_en_given"] = got["dir_tail_en_given"]
+        print(f"[mesh-{layout}] elastic-net away point ({MESH_STEPS} steps): objective "
+              f"{float(a.objective)!r}, bit for bit the single-device point")
+
+        kernels.reset_launch_counts()
+        bat = D.fw_path_batched(op, deltas, cfg, seed=0, lane_width=MESH_LANES, oracle=en,
+                                report_gap=False)
+        got = kernels.launch_counts()
+        one = path.fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=MESH_LANES,
+                                   oracle=en, device=y.device)
+        check(_points_bits(bat, one), f"mesh {layout}: the EN batched chunk differs from the "
+              "single device's")
+        check(got["step_tail_en_lanes_given"] == got["vertex_argmax_shifted_lanes"] > 0,
+              "mesh EN batched chunk: launches")
+        launches["step_tail_en_lanes_given"] = got["step_tail_en_lanes_given"]
+        print(f"[mesh-{layout}] elastic-net fw_path_batched, {N_COMPARE} points in lanes of "
+              f"{MESH_LANES}: {got['step_tail_en_lanes_given']} batched steps bit for bit the "
+              "single-device batched path")
+
+        # the ring on the mesh: the TEL forms of the GIVEN tails (a solve and
+        # a batched solve of each oracle), rings and all bit for bit the
+        # single device's
+        tcfg = dataclasses.replace(cfg, max_iters=MESH_TEL_STEPS, tol=0.0, patience=10**9,
+                                   telemetry=TelemetrySpec(capacity=TEL_CAP))
+        d = float(deltas[0])
+        kernels.reset_launch_counts()
+        for orc in (LASSO, en):
+            a = D.solve(orc, op, tcfg, TorchSampler(7, y.device), None, d)
+            b = engine.solve(orc, design, y, tcfg, TorchSampler(7, y.device), None, d,
+                             device=y.device)
+            check(torch.equal(a.alpha, b.alpha) and torch.equal(a.telemetry.buf,
+                                                                 b.telemetry.buf),
+                  f"mesh {layout}: a solve with the ring differs from the single device's")
+            a, _ = D.solve_batched(orc, op, tcfg, LaneSampler(8, MESH_LANES, y.device), None,
+                                   deltas)
+            b, _ = engine.solve_batched(orc, design, y, tcfg, LaneSampler(8, MESH_LANES,
+                                                                         y.device), None,
+                                        deltas, device=y.device)
+            check(torch.equal(a.alpha, b.alpha) and torch.equal(a.telemetry.buf,
+                                                                 b.telemetry.buf),
+                  f"mesh {layout}: a batched solve with the rings differs from the single "
+                  "device's")
+        got = kernels.launch_counts()
+        for name in ("step_tail_given_tel", "step_tail_en_given_tel", "step_tail_lanes_given_tel",
+                     "step_tail_en_lanes_given_tel"):
+            check(got[name] > 0, f"mesh {layout}: {name} never launched")
+            launches[name] = got[name]
+        print(f"[mesh-{layout}] the ring on the mesh ({MESH_TEL_STEPS} steps, the lasso and the "
+              f"elastic-net, one lane and {MESH_LANES}): bit for bit the single device's, rings "
+              f"too; TEL launches { {k: v for k, v in got.items() if k.endswith('given_tel')} }")
+
+    kernels.reset_launch_counts()
+    bat = D.fw_path_batched(op, deltas, cfg, seed=0, lane_width=MESH_LANES, report_gap=False)
+    got = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    one = path.fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=MESH_LANES,
+                               device=y.device)
+    base = kernels.launch_counts()
+    check(_points_bits(bat, one), f"mesh {layout}: the batched chunk differs from the single "
+          "device's")
+    steps = base[f"{sk}_lanes"]
+    for name in (f"{sk}_lanes_owned", "owned_column_lanes", "step_tail_lanes_given"):
+        check(got[name] == steps, f"mesh {layout}: {name} launches {got[name]} != {steps}")
+        launches[name] = got[name]
+    print(f"[mesh-{layout}] fw_path_batched, {N_COMPARE} points in lanes of {MESH_LANES}: "
+          f"{steps} batched steps bit for bit the single-device batched path")
+
+    pt = res.points[-1]
+    alpha = _alpha_from_point(torch, pt, design.shape[0], y.device)
+    g_mesh = float(D.certified_gap(LASSO, op, alpha, pt.reg, cfg))
+    g_one = float(LASSO.gap(design, y, alpha, torch.tensor(pt.reg, device=y.device), cfg))
+    check(g_mesh == g_one, f"mesh certified gap {g_mesh!r} != single device {g_one!r}")
+    print(f"[mesh-{layout}] certified_gap at point {N_COMPARE - 1}: {g_mesh!r}, equal to the "
+          "single device's")
+
+    timing = _mesh_timing(torch, tdist, D, op, design, y, cfg, float(deltas[-1]), layout)
+    MESH_SECONDS[f"world 1, {layout}"] = time.perf_counter() - t0
+    print(f"[mesh-{layout}] phase took {MESH_SECONDS[f'world 1, {layout}']:.1f} s")
+    return launches, timing
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _mesh_timing(torch, tdist, D, op, design, y, cfg, delta, layout):
+    """A mesh step against the unfused single-device step (wall per step over
+    MESH_STEPS fixed steps, alternated), each collective of the step alone
+    (NCCL at world size 1), and the mesh kernels' times beside their bounds,
+    plain versions and library calls."""
+    from repro_torch.core import LASSO, engine
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.core.vertex import TorchSampler
+    from repro_torch.kernels import fw_grad as fw
+    from repro_torch.kernels import sparse_grad as sg
+    from repro_torch.kernels import step_tail as st
+    from repro_torch.kernels.step_tail import TailRecord
+
+    dev = y.device
+    p, m = design.shape
+    sparse = _is_sparse(design)
+    scfg = dataclasses.replace(cfg, max_iters=MESH_STEPS, tol=0.0, patience=10**9)
+    walls = {"single": [], "mesh": []}
+    for tag in ("single", "mesh", "mesh", "single"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if tag == "mesh":
+            r = D.solve(LASSO, op, scfg, TorchSampler(5, dev), None, delta)
+        else:
+            r = engine.solve(LASSO, design, y, scfg, TorchSampler(5, dev), None, delta,
+                             device=dev)
+        float(r.objective)
+        torch.cuda.synchronize()
+        walls[tag].append(1e3 * (time.perf_counter() - t1) / MESH_STEPS)
+    print(f"[timing] mesh-{layout} step (1, 1) NCCL vs the unfused single-device step, "
+          f"{MESH_STEPS} steps a solve, alternated (ms/step, setup included): single "
+          f"{walls['single']}, mesh {walls['mesh']}")
+    kappa = kappa_fraction(p, 0.01)
+    mesh = op.mesh
+    for name, axis, n in (("score all_reduce (world)", "world", kappa),
+                          ("column all_reduce (model)", "model", m),
+                          ("refresh pair all_reduce (data)", "data", 2)):
+        buf = torch.randn(n, device=dev)
+        group, _ = mesh.axis(axis)
+        # NCCL at world size 1 moves no byte: the cost is the call's, on the
+        # host, so the host's clock over calls back to back, then a sync;
+        # the port's all_reduce skips an axis of one rank
+        ms = {}
+        for who, call in (("nccl", lambda: tdist.all_reduce(buf, group=group)),
+                          ("port", lambda: D.backend.all_reduce(buf, mesh, axis))):
+            reps = 200
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            ms[who] = 1e3 * (time.perf_counter() - t1) / reps
+        dev_ms = _time_queued(torch, lambda i: tdist.all_reduce(buf, group=group), 50)
+        print(f"[timing] mesh-{layout} {name}, {n} f32: NCCL's all_reduce {ms['nccl']:.6f} ms a "
+              f"call on the host's clock ({dev_ms:.6f} ms of the stream's time queued); the "
+              f"port's backend.all_reduce on this axis of one rank {ms['port']:.6f} ms")
+
+    out = {}
+
+    def row(name, ms, plain_ms, library_ms, nbytes, flops, note=""):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        lib = "null" if library_ms is None else f"{library_ms:.6f} ms"
+        print(f"[timing] {name}: {ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.6f} ms, "
+              f"library {lib}{note}")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    idxs = [torch.randint(0, p, (kappa,), generator=g, device=dev) for _ in range(32)]
+    r = y.clone()
+    tile, off = op.tile, op.off
+    L = MESH_LANES
+    R = torch.randn(L, m, generator=g, device=dev)
+    lanes = torch.arange(L, dtype=torch.int32, device=dev)
+    blkL = [torch.randint(0, p, (L, kappa), generator=g, device=dev) for _ in range(8)]
+    if sparse:
+        vals, rows = tile.values, tile.rows
+        nnz = vals.shape[-1]
+        slots = vals.view(-1, nnz)
+        nz = sum(int(torch.count_nonzero(slots[f])) for f in idxs) / len(idxs)
+        row("sparse_sampled_scores_owned",
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_owned(
+                vals, rows, r, idxs[i % 32], 1, off), 200),
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_owned_plain(
+                vals, rows, r, idxs[i % 32], 1, off), 50),
+            None, kappa * nnz * 4 + nz * 4 + kappa * 4 + kappa * 8 + m * 4, 2 * nz,
+            note=f" [the (1, 1) tile, width 1, kappa={kappa}; library: none]")
+        row("sparse_sampled_scores_lanes_owned",
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_lanes_owned(
+                vals, rows, R, blkL[i % 8], 1, lanes, off), 100),
+            _time_queued(torch, lambda i: sg.sparse_sampled_scores_lanes_owned_plain(
+                vals, rows, R, blkL[i % 8], 1, lanes, off), 10),
+            None, L * (kappa * nnz * 4 + nz * 4 + kappa * 12 + m * 4), 2 * L * nz,
+            note=f" [L={L}; library: none]")
+        mat = (vals, rows)
+        col_bytes = nnz * 8 + m * 4
+        lib_col = None
+    else:
+        row("sampled_scores_owned",
+            _time_queued(torch, lambda i: fw.sampled_scores_owned(tile, r, idxs[i % 32], 1, off),
+                         200),
+            _time_queued(torch, lambda i: fw.sampled_scores_owned_plain(tile, r, idxs[i % 32], 1,
+                                                                        off), 50),
+            _time_queued(torch, lambda i: torch.mv(tile.index_select(0, idxs[i % 32]), r), 50),
+            kappa * m * 4 + m * 4 + kappa * 8 + kappa * 4, 2 * kappa * m,
+            note=f" [the (1, 1) tile, kappa={kappa}, m={m}; library: torch.mv on index_select]")
+        row("sampled_scores_lanes_owned",
+            _time_queued(torch, lambda i: fw.sampled_scores_lanes_owned(
+                tile, R, blkL[i % 8], 1, lanes, off), 100),
+            _time_queued(torch, lambda i: fw.sampled_scores_lanes_owned_plain(
+                tile, R, blkL[i % 8], 1, lanes, off), 10),
+            None, L * (kappa * m * 4 + m * 4 + kappa * 12), 2 * L * kappa * m,
+            note=f" [L={L}; library: none]")
+        mat = tile
+        col_bytes = 2 * m * 4
+        lib_col = lambda ids: tile.index_select(0, ids)  # noqa: E731
+    ids1 = [i[:1] for i in idxs]
+    idsL = [i[:L] for i in idxs]
+    row("owned_column",
+        _time_queued(torch, lambda i: st.owned_column(mat, ids1[i % 32][0], off, m), 400),
+        _time_queued(torch, lambda i: st.owned_column_plain(mat, ids1[i % 32], off, m), 50),
+        None if lib_col is None else _time_queued(torch, lambda i: lib_col(ids1[i % 32]), 400),
+        col_bytes + 8, 0, note=" [library: index_select of the row (dense); none sparse]")
+    row("owned_column_lanes",
+        _time_queued(torch, lambda i: st.owned_column_lanes(mat, idsL[i % 32], off, m), 400),
+        _time_queued(torch, lambda i: st.owned_column_plain(mat, idsL[i % 32], off, m), 50),
+        None if lib_col is None else _time_queued(torch, lambda i: lib_col(idsL[i % 32]), 400),
+        L * (col_bytes + 8), 0, note=f" [{L} ids]")
+    from repro_torch.core import FWConfig
+
+    tcfg = FWConfig(delta=5.0)
+    i_t = int(idxs[0][0])
+    beta_t, targs = _tail_args(torch, g, p, m, torch.float32, i_t)
+    col = st.GivenCol(st.owned_column(mat, targs[9], off, m), sparse)
+    row("step_tail_given",
+        _time_queued(torch, lambda i: st.step_tail_given(col, beta_t, *targs, tcfg), 400),
+        _time_queued(torch, lambda i: st.step_tail_plain(col, beta_t, *targs, tcfg), 10),
+        None, 4 * m * 4 + 64, 5 * m, note=f" [m={m}, the column given; library: none]")
+    en = st.ENTail(torch.tensor(-6.0, device=dev), torch.tensor(0.4, device=dev), EN_L2)
+    row("step_tail_en_given",
+        _time_queued(torch, lambda i: st.step_tail_en_given(col, beta_t, *targs, tcfg, en), 400),
+        _time_queued(torch, lambda i: st.step_tail_plain(col, beta_t, *targs, tcfg, en), 10),
+        None, 4 * m * 4 + 72, 5 * m + 20, note=" [library: none]")
+    beta_l, largs = _lane_tail_state(torch, g, p, m, torch.float32, L)
+    largs = (torch.full((L,), 0.9, device=dev),) + largs[1:]  # no lane renormalizes
+    zl = st.GivenCol(st.owned_column_lanes(mat, largs[10], off, m), sparse)
+    row("step_tail_lanes_given",
+        _time_queued(torch, lambda i: st.step_tail_lanes_given(zl, beta_l, *largs, lanes, tcfg),
+                     400),
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(zl, beta_l, *largs, lanes, tcfg),
+                     4),
+        None, L * (4 * m * 4 + 64), L * 5 * m, note=f" [L={L}; library: none]")
+    en_l = st.ENTail(largs[11] + 0.5, torch.full((L,), 40.0, device=dev), EN_L2)
+    row("step_tail_en_lanes_given",
+        _time_queued(torch, lambda i: st.step_tail_en_lanes_given(zl, beta_l, *largs, lanes, tcfg,
+                                                                  en_l), 400),
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(zl, beta_l, *largs, lanes, tcfg,
+                                                               en_l), 4),
+        None, L * (4 * m * 4 + 72), L * 5 * m, note=f" [L={L}; library: none]")
+    # the TEL forms: the same launches writing a ring record (a lane's each)
+    yty = torch.tensor(2.0, device=dev)
+    (ring,) = _tel_rings(torch, dev, 1)
+    rec = TailRecord(ring.buf, TEL_CAP, 7, 7, 1000, True, yty)
+    row("step_tail_given_tel",
+        _time_queued(torch, lambda i: st.step_tail_given(col, beta_t, *targs, tcfg, rec), 400),
+        _time_queued(torch, lambda i: st.step_tail_plain(col, beta_t, *targs, tcfg, None, rec),
+                     8),
+        None, 4 * m * 4 + 64 + TEL_RECORD_BYTES, 5 * m + 16,
+        note=f" [a {TEL_RECORD_BYTES}-byte record; library: none]")
+    row("step_tail_en_given_tel",
+        _time_queued(torch, lambda i: st.step_tail_en_given(col, beta_t, *targs, tcfg, en, rec),
+                     400),
+        _time_queued(torch, lambda i: st.step_tail_plain(col, beta_t, *targs, tcfg, en, rec), 8),
+        None, 4 * m * 4 + 72 + TEL_RECORD_BYTES, 5 * m + 24, note=" [library: none]")
+    (lring,) = _tel_rings(torch, dev, 1, L)
+    lrec = TailRecord(lring.buf, TEL_CAP, 0, 0, 1000, True, yty, [0] * L, lring.dev_cursor)
+    row("step_tail_lanes_given_tel",
+        _time_queued(torch, lambda i: st.step_tail_lanes_given(zl, beta_l, *largs, lanes, tcfg,
+                                                               lrec), 400),
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(
+            zl, beta_l, *largs, lanes, tcfg, None, lrec._replace(cursors=[0] * L)), 4),
+        None, L * (4 * m * 4 + 64 + TEL_RECORD_BYTES), L * 5 * m, note=f" [L={L}]")
+    row("step_tail_en_lanes_given_tel",
+        _time_queued(torch, lambda i: st.step_tail_en_lanes_given(zl, beta_l, *largs, lanes, tcfg,
+                                                                  en_l, lrec), 400),
+        _time_queued(torch, lambda i: st.step_tail_lanes_plain(
+            zl, beta_l, *largs, lanes, tcfg, en_l, lrec._replace(cursors=[0] * L)), 4),
+        None, L * (4 * m * 4 + 72 + TEL_RECORD_BYTES), L * 5 * m, note=f" [L={L}]")
+    if sparse:
+        ell = _ell_of(design)
+        for key, l2 in (("dir_tail_given", None), ("dir_tail_en_given", EN_L2)):
+            beta, kw, den, _ = dir_tail_case(torch, design, y, "away", g, en_l2=l2)
+            zc = st.dense_columns(mat, st.dir_column_ids(kw["i_f"], kw["buf"], p), m)
+            n_buf = kw["buf"].numel()
+            extra = () if den is None else (den,)
+            given = st.dir_tail_given if den is None else st.dir_tail_en_given
+            single = st.dir_tail if den is None else st.dir_tail_en
+            # each form on its own copy of the state, in turns: a call moves
+            # beta in place, so the copies walk the same states
+            b_given, b_single = beta.clone(), beta.clone()
+            ms = {"given": [], "single": []}
+            for who in ("single", "given", "given", "single"):
+                if who == "given":
+                    ms[who].append(_time_queued(torch, lambda i: given(
+                        zc, b_given, *_dir_args(kw), _dir_cfg(), *extra), 200))
+                else:
+                    ms[who].append(_time_queued(torch, lambda i: single(
+                        ell, b_single, *_dir_args(kw), _dir_cfg(), *extra), 200))
+            last = given(zc, b_given.clone(), *_dir_args(kw), _dir_cfg(), *extra)
+            row(key, min(ms["given"]),
+                _time_queued(torch, lambda i: st.dir_tail_given_plain(
+                    zc, beta, *_dir_args(kw), _dir_cfg(), den), 5),
+                None, 5 * m * 4 + n_buf * 20 + 64 + (8 if den is not None else 0),
+                12 * m + (24 if den is not None else 0),
+                note=f" [m={m}, {n_buf} slots{'' if l2 is None else f', l2={l2}'}; bytes: R, y, "
+                     "z_f, z_a, the new R, the buffer; library: none; in turns with the "
+                     f"single-device {single.__name__} on a copy of the same state: given "
+                     f"{[round(t, 6) for t in ms['given']]}, single "
+                     f"{[round(t, 6) for t in ms['single']]} ms; the state after the calls: "
+                     f"scale {float(last.scale)!r}, renormalized {float(last.scale) == 1.0}]")
+    return out
+
+
+def mesh_rank(rank, workdir, world):
+    """One rank of the "mesh, 4 ranks" phase (a spawned process on the one
+    card; it loads the kernels phase 1 built and prints nothing): gloo over
+    CUDA tensors, the proxy built from the same seed on every rank, and
+    its results (rank 0 also the single-device runs) in a JSON file."""
+    import hashlib
+    import os
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "init"),
+                             world_size=world, rank=rank)
+    from repro_torch import distributed as D
+    from repro_torch import kernels
+    from repro_torch.core import (LASSO, LOGISTIC, ENOracle, FWConfig, LaneStreamSampler,
+                                  StreamSampler, TorchSampler, engine)
+    from repro_torch.core.sampling import kappa_fraction
+    from repro_torch.data import make_sparse_wide_problem
+    from repro_torch.resilience import guards
+
+    dev = torch.device("cuda")
+    out = {"rank": rank, "sec": {}}
+    t0 = time.perf_counter()
+    mat, y, _ = make_sparse_wide_problem(RANKS_M, RANKS_P, RANKS_DENSITY, 30, seed=3, device=dev,
+                                         block_size=SPARSE_BLOCK)
+    labels = torch.where(y >= 0, 1.0, -1.0)
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    out["problem"] = digest(mat.values)
+    kappa = kappa_fraction(RANKS_P, 0.01)
+    cfg = FWConfig(delta=40.0, kappa=kappa, max_iters=RANKS_STEPS, tol=0.0, patience=10**9,
+                   backend="sparse")
+    one = rank == 0  # the single-device runs, on rank 0 only
+    kernels.reset_launch_counts()
+    op14 = D.shard_sparse(mat, y, D.fw_mesh(1, world))
+    a = D.solve(LASSO, op14, cfg, TorchSampler(1, dev))
+    out["14"] = {"digest": digest(a.alpha), "iters": a.iterations, "n_dots": a.n_dots}
+    if one:
+        b = engine.solve(LASSO, mat, y, cfg, TorchSampler(1, dev), device=dev)
+        out["14"]["bits"] = bool(torch.equal(a.alpha, b.alpha)) and a.iterations == b.iterations
+    out["sec"]["14"] = time.perf_counter() - t0
+
+    op22 = D.shard_sparse(mat, y, D.fw_mesh(2, world // 2))
+    fam = {}
+    lcfg = dataclasses.replace(cfg, delta=20.0, max_iters=RANKS_LOG_STEPS)
+    for name, orc, yy, c in (("lasso", LASSO, y, cfg), ("elasticnet", ENOracle(EN_L2), y, cfg),
+                             ("logistic", LOGISTIC, labels, lcfg),
+                             ("away", LASSO, y, dataclasses.replace(cfg, step_rule="away"))):
+        opx = op22 if yy is y else D.shard_sparse(mat, yy, op22.mesh)
+        r = D.solve(orc, opx, c, TorchSampler(2, dev))
+        fam[name] = [float(r.objective), digest(r.alpha)]
+        if one:
+            s = engine.solve(orc, mat, yy, c, TorchSampler(2, dev), device=dev)
+            fam[name].append(float(s.objective))
+        if name == "lasso":
+            res = guards.solve_resilient_sharded(LASSO, op22, c, TorchSampler(2, dev))
+            out["guard_bits"] = bool(torch.equal(res.alpha, r.alpha))
+    out["22"] = fam
+    out["sec"]["22"] = time.perf_counter() - t0
+
+    # lanes against sequential solves on the same rows, each lane's stream its own
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    streams = [torch.randint(0, RANKS_P, (RANKS_STEPS, kappa), generator=g).to(dev)
+               for _ in range(MESH_LANES)]
+    deltas = [10.0, 20.0, 40.0]
+    bcfg = dataclasses.replace(cfg, max_iters=RANKS_STEPS // 2)
+    res, _ = D.solve_batched(LASSO, op22, bcfg, LaneStreamSampler(streams), None, deltas)
+    seq = [D.solve(LASSO, op22, bcfg, StreamSampler(s), None, d)
+           for s, d in zip(streams, deltas)]
+    out["lanes_bits"] = all(torch.equal(res.alpha[i], s.alpha) and res.iterations[i] ==
+                            s.iterations for i, s in enumerate(seq))
+    out["sec"]["lanes"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def phase3_mesh_ranks(torch):
+    """Four processes on the one card over gloo with CUDA tensors (NCCL puts
+    no two ranks on one card), each with the kernels on its tile of a sparse
+    proxy (p = 262,144, m = 4,096, 1,024 blocks of 256): a (1, 4) lasso run
+    bit for bit the single-device run; on (2, 2) the lasso, the elastic-net,
+    the logistic and the away rule within rtol 1e-4 of their single-device
+    runs, every rank holding the same alpha; the guarded solve with no
+    fault bit for bit ``solve``; 3 batched lanes bit for bit 3 sequential
+    mesh solves on the rows each drew. Returns the rank-0 launch counts."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = 4
+    with tempfile.TemporaryDirectory() as work:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, work, world)) for r in range(world)]
+        for pr in procs:
+            pr.start()
+        deadline = time.time() + RANKS_TIMEOUT_S
+        for pr in procs:
+            pr.join(max(1.0, deadline - time.time()))
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        check(not alive, f"mesh ranks: {len(alive)} rank(s) still running after "
+              f"{RANKS_TIMEOUT_S} s")
+        check(all(pr.exitcode == 0 for pr in procs),
+              f"mesh ranks: exit codes {[pr.exitcode for pr in procs]}")
+        outs = [json.loads(Path(work, f"rank{r}.json").read_text()) for r in range(world)]
+    r0 = outs[0]
+    check(all(o["problem"] == r0["problem"] for o in outs), "mesh ranks built different problems")
+    check(r0["14"]["bits"], "mesh ranks (1, 4): differs from the single-device run")
+    check(all(o["14"]["digest"] == r0["14"]["digest"] for o in outs),
+          "mesh ranks (1, 4): the ranks' alphas differ")
+    for name, row in r0["22"].items():
+        obj, dig, single = row
+        check(all(o["22"][name][1] == dig for o in outs), f"mesh ranks (2, 2) {name}: ranks differ")
+        check(abs(obj - single) <= 1e-4 * abs(single),
+              f"mesh ranks (2, 2) {name}: objective {obj!r} vs single device {single!r}")
+        print(f"[mesh-ranks] (2, 2) {name}: objective {obj!r}, single device {single!r} "
+              f"(rel {abs(obj - single) / abs(single):.3e}), every rank's alpha equal")
+    check(r0["guard_bits"], "mesh ranks: the guarded solve differs from solve")
+    check(all(o["lanes_bits"] for o in outs), "mesh ranks: a lane differs from its sequential "
+          "solve")
+    print(f"[mesh-ranks] (1, 4): {r0['14']['iters']} steps bit for bit the single-device run; "
+          "the no-fault guarded solve bit for bit solve; 3 lanes bit for bit their sequential "
+          f"mesh solves; rank 0's seconds {r0['sec']}; rank 0's launches {r0['launches']}")
+    MESH_SECONDS["4 ranks"] = time.perf_counter() - t0
+    print(f"[mesh-ranks] phase took {MESH_SECONDS['4 ranks']:.1f} s")
+    return r0["launches"]
 
 
 if __name__ == "__main__":

@@ -18,13 +18,14 @@ from repro_torch.core.engine import EngineState, resolve_device
 from repro_torch.core.fw_elasticnet import ENCo
 from repro_torch.core.fw_lasso import LassoCo
 from repro_torch.core.fw_logistic import LogisticCo
-from repro_torch.core.solver_config import FWConfig
+from repro_torch.core.solver_config import DistSpec, FWConfig
 from repro_torch.core.vertex import LaneStreamSampler, StreamSampler
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
 # the reference's backend words and their counterparts in the port
-_BACKENDS = {"xla": "torch", "pallas": "kernels", "sparse": "sparse"}
+_BACKENDS = {"xla": "torch", "pallas": "kernels", "sparse": "sparse",
+             "distributed": "distributed"}
 
 
 def problem_from_numpy(Xt, y, device="cuda"):
@@ -51,18 +52,35 @@ def sparse_from_reference(values, rows, p: int, m: int, block_size: int, nnz_max
                              block_size=int(block_size), nnz_max=int(nnz_max))
 
 
+def spec_from_reference(fields) -> DistSpec:
+    """The port's ``DistSpec`` from the reference's (its fields as a dict,
+    for instance ``dataclasses.asdict(spec)``, or the spec itself): the mesh
+    shape and axis names. The process groups come from the port's own mesh
+    (``distributed.fw_mesh``), which the drivers set."""
+    if not isinstance(fields, dict):
+        fields = {f: getattr(fields, f) for f in ("n_data", "n_model", "data_axis",
+                                                  "model_axis")}
+    unknown = set(fields) - {"n_data", "n_model", "data_axis", "model_axis"}
+    if unknown:
+        raise ValueError(f"fields the port's DistSpec does not take: {sorted(unknown)}")
+    return DistSpec(**fields)
+
+
 def config_from_reference(fields: dict) -> FWConfig:
     """An ``FWConfig`` from the reference config's fields (for instance
     ``dataclasses.asdict(cfg)``): 'xla' becomes 'torch', 'pallas' becomes
-    'kernels' and 'sparse' keeps its name; 'distributed' raises."""
+    'kernels', 'sparse' and 'distributed' keep their names, and a ``dist``
+    spec carries across through ``spec_from_reference``."""
     fields = dict(fields)
     backend = fields.get("backend", "xla")
     if backend not in _BACKENDS:
         raise ValueError(
-            f"the 'xla', 'pallas' and 'sparse' configs carry across, got {backend!r} "
-            "('distributed' is ROADMAP.md Queue 1 item 13)"
+            f"the 'xla', 'pallas', 'sparse' and 'distributed' configs carry across, got "
+            f"{backend!r}"
         )
     fields["backend"] = _BACKENDS[backend]
+    if fields.get("dist") is not None:
+        fields["dist"] = spec_from_reference(fields["dist"])
     unknown = set(fields) - {f.name for f in dataclasses.fields(FWConfig)}
     if unknown:
         raise ValueError(f"fields the port's FWConfig does not have: {sorted(unknown)}")

@@ -220,11 +220,20 @@ def prepare_inputs(Xt, y, cfg: FWConfig, device):
     return Xt, y
 
 
-def precompute_colstats(Xt, y: torch.Tensor, cfg: Optional[FWConfig] = None) -> ColStats:
+def precompute_colstats(Xt, y: torch.Tensor, cfg: Optional[FWConfig] = None,
+                        p: Optional[int] = None) -> ColStats:
     """One full pass over X: z_i^T y and ||z_i||^2 for every column (§4.2),
     through K1 on the 'kernels' backend. A ``SparseBlockMatrix`` sweeps its
     stored slots only, through K6 unless ``cfg.sparse_kernel`` is False
-    (without a cfg, the plain ops, as the reference)."""
+    (without a cfg, the plain ops, as the reference). Distributed (``Xt`` a
+    rank's tile): the tile's K1/K6 sums completed over the mesh, replicated
+    at the global ``p``, which the caller gives."""
+    if cfg is not None and cfg.backend == "distributed":
+        if p is None:
+            raise ValueError("the distributed column statistics need the global p")
+        from repro_torch.distributed import backend as dist_backend  # lazy: layered on top
+
+        return ColStats(*dist_backend.dist_colstats(Xt, y, cfg, p))
     if isinstance(Xt, SparseBlockMatrix):
         use_kernel = cfg is not None and vertex.use_sparse_kernel(cfg)
         zty, znorm2 = sparse_ops.sparse_colstats(Xt, y, use_kernel=use_kernel)
@@ -241,11 +250,11 @@ def _patience(cfg: FWConfig) -> int:
     return cfg.patience if cfg.sampling != "full" else 1
 
 
-def init_state(oracle, Xt, y, alpha0=None, cfg=None) -> EngineState:
+def init_state(oracle, Xt, y, alpha0=None, cfg=None, p: Optional[int] = None) -> EngineState:
     """Start from the null solution, or warm-start from ``alpha0`` (copied).
-    ``p``, the dtype and the device are read off the matrix, dense or
-    sparse."""
-    p = Xt.shape[0]
+    ``p`` (the global feature count, given for a rank's tile), the dtype and
+    the device are read off the matrix, dense or sparse."""
+    p = Xt.shape[0] if p is None else p
     dtype, dev = Xt.dtype, Xt.device
     if alpha0 is None:
         beta = torch.zeros(p, dtype=dtype, device=dev)
@@ -546,14 +555,15 @@ def _result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg, delta)
 
 
 def _solve_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None,
-                    on_step=None, per_step=None) -> SolveResult:
+                    on_step=None, per_step=None, p: Optional[int] = None) -> SolveResult:
     """``solve`` on operands that ``prepare_inputs`` already placed and
     checked (the path driver checks once, not per grid point);
-    ``per_step`` as ``run_loop``'s."""
+    ``per_step`` as ``run_loop``'s; ``p`` the global feature count where
+    ``Xt`` is a rank's tile (the distributed driver)."""
     delta = torch.tensor(float(cfg.delta if delta is None else delta),
                          dtype=torch.float32, device=Xt.device)
-    stats = precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
-    state0 = init_state(oracle, Xt, y, alpha0, cfg)
+    stats = precompute_colstats(Xt, y, cfg, p) if oracle.needs_stats else None
+    state0 = init_state(oracle, Xt, y, alpha0, cfg, p)
     patience = _patience(cfg)
     final = run_loop(oracle, Xt, y, stats, state0, cfg, delta, patience, sampler, on_step,
                      per_step)
@@ -599,15 +609,30 @@ def _solve_with_history(oracle, Xt, y, cfg: FWConfig, sampler, n_iters: int, alp
     ``record_objective`` routing), the unfused solve's steps bit for bit.
     ``converged`` is read against the config's own patience, as the
     reference's is; the result carries the ring."""
-    hcfg = dataclasses.replace(cfg, max_iters=int(n_iters),
-                               telemetry=obs_telemetry.history_spec(cfg.telemetry, n_iters))
+    hcfg = history_config(cfg, n_iters)
     Xt, y = prepare_inputs(Xt, y, hcfg, device)
-    delta = torch.tensor(float(cfg.delta), dtype=torch.float32, device=Xt.device)
-    stats = precompute_colstats(Xt, y, hcfg) if oracle.needs_stats else None
-    state0 = init_state(oracle, Xt, y, alpha0, hcfg)
+    return _history_prepared(oracle, Xt, y, hcfg, sampler, n_iters, alpha0, _patience(cfg))
+
+
+def history_config(cfg: FWConfig, n_iters: int) -> FWConfig:
+    """The config a history solve runs: ``n_iters`` steps and a ring of
+    ``n_iters`` records with the objective on (a spec in ``cfg.telemetry``
+    keeps its sink)."""
+    return dataclasses.replace(cfg, max_iters=int(n_iters),
+                               telemetry=obs_telemetry.history_spec(cfg.telemetry, n_iters))
+
+
+def _history_prepared(oracle, Xt, y, hcfg: FWConfig, sampler, n_iters: int, alpha0,
+                      patience: int, p: Optional[int] = None):
+    """``solve_with_history`` on placed operands under ``history_config``'s
+    ``hcfg``; ``patience`` the caller's config's, for ``converged``; ``p``
+    as ``_solve_prepared``'s."""
+    delta = torch.tensor(float(hcfg.delta), dtype=torch.float32, device=y.device)
+    stats = precompute_colstats(Xt, y, hcfg, p) if oracle.needs_stats else None
+    state0 = init_state(oracle, Xt, y, alpha0, hcfg, p)
     final = run_loop(oracle, Xt, y, stats, state0, hcfg, delta, history_patience(n_iters),
                      sampler)
-    res = _result(oracle, Xt, y, stats, final, _patience(cfg), hcfg, delta)
+    res = _result(oracle, Xt, y, stats, final, patience, hcfg, delta)
     return res, res.telemetry.objective[:int(n_iters)].to(Xt.dtype)
 
 
@@ -772,9 +797,10 @@ def batched_result(oracle, Xt, y, stats, final: EngineState, patience: int, cfg:
 
 
 def _solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, deltas,
-                            on_step=None):
+                            on_step=None, p: Optional[int] = None):
     """``solve_batched`` on operands that ``prepare_inputs`` already placed
-    and checked; ``on_step`` as ``batched_loop``'s."""
+    and checked; ``on_step`` as ``batched_loop``'s; ``p`` as
+    ``_solve_prepared``'s."""
     if cfg.step_rule != "classic":
         raise NotImplementedError(
             f"step_rule={cfg.step_rule!r} has no batched lanes yet: ROADMAP.md Queue 1 item 9a"
@@ -782,12 +808,13 @@ def _solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, delt
     _check_lane_oracle(oracle)
     deltas = torch.as_tensor(deltas).to(device=Xt.device, dtype=torch.float32).reshape(-1)
     L = deltas.shape[0]
-    if alpha0s is not None and tuple(alpha0s.shape) != (L, Xt.shape[0]):
-        raise ValueError(f"alpha0s must be (lanes, p) = ({L}, {Xt.shape[0]}), got "
+    p = Xt.shape[0] if p is None else p
+    if alpha0s is not None and tuple(alpha0s.shape) != (L, p):
+        raise ValueError(f"alpha0s must be (lanes, p) = ({L}, {p}), got "
                          f"{tuple(alpha0s.shape)}")
-    stats = precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
+    stats = precompute_colstats(Xt, y, cfg, p) if oracle.needs_stats else None
     states0 = stack_states([
-        init_state(oracle, Xt, y, None if alpha0s is None else alpha0s[lane], cfg)
+        init_state(oracle, Xt, y, None if alpha0s is None else alpha0s[lane], cfg, p)
         for lane in range(L)
     ])
     states0 = states0._replace(support=vertex.lane_support(

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import engine, vertex
+from repro_torch.core.engine import ColStats, EngineState, precompute_colstats  # noqa: F401
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import ls_closed_form, sf_recursion
 from repro_torch.obs.telemetry import write_record
@@ -49,9 +50,21 @@ def sf_refresh(s_quad, f_lin, resid, y, k: int, cfg):
     f_lin)``."""
     if refresh_step(k, cfg):
         v = y - resid
-        s_quad = vertex.mdot(v, v, cfg)
-        f_lin = vertex.mdot(v, y, cfg)
+        s_quad, f_lin = vertex.mdot_pair(v, v, v, y, cfg)
     return s_quad, f_lin
+
+
+def sf_update(stats, s_quad, f_lin, resid, y, i_star, lam, delta_t, g_lin, k: int, cfg):
+    """The S/F scalar recursions (paper, below eq. 8) and the periodic exact
+    O(m) refresh from the residual (the reference's ``sf_update``,
+    ``core/fw_lasso.py:87-105``), as the tail's ``sf_recursion`` and
+    ``sf_refresh`` compute them: the recursions on ``zty``/``znorm2`` at
+    ``i_star`` (a 0-d device index), the refresh a host branch on ``k``.
+    Returns ``(s_quad, f_lin, refresh)``, ``refresh`` a host bool."""
+    s_quad, f_lin = sf_recursion(s_quad, f_lin, g_lin, lam, delta_t,
+                                 vertex.take(stats.zty, i_star), vertex.take(stats.znorm2, i_star))
+    s_quad, f_lin = sf_refresh(s_quad, f_lin, resid, y, k, cfg)
+    return s_quad, f_lin, refresh_step(k, cfg)
 
 
 def amend_refreshed(oracle, tel, y, stats, co, k: int, cfg) -> None:
@@ -104,11 +117,8 @@ class LassoOracle:
         if v is None:
             zero = torch.zeros((), dtype=dtype, device=y.device)
             return LassoCo(resid=y.to(dtype), s_quad=zero, f_lin=zero)
-        return LassoCo(
-            resid=y - v,
-            s_quad=vertex.mdot(v, v, cfg),
-            f_lin=vertex.mdot(v, y, cfg),
-        )
+        s_quad, f_lin = vertex.mdot_pair(v, v, v, y, cfg)
+        return LassoCo(resid=y - v, s_quad=s_quad, f_lin=f_lin)
 
     def cograd(self, co: LassoCo, y):
         """Sampled scores are -z_i^T R (method of residuals, eq. 7)."""
@@ -238,6 +248,9 @@ class LassoOracle:
 
 
 LASSO = LassoOracle()
+
+# the reference's name of the lasso solve's result
+FWResult = engine.SolveResult
 
 
 def fw_solve(Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=None, *,

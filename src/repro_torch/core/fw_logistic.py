@@ -48,12 +48,6 @@ class LogisticCo(NamedTuple):
     margin: torch.Tensor  # (m,), lanes (L, m)
 
 
-def _row_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Each row's dot product of two ``(A, m)`` stacks, the sample-axis
-    reduction of the stacked bisection."""
-    return (a * b).sum(dim=1)
-
-
 # On the CPU the stacked bisection pads the sample axis to a multiple of
 # this many elements. The CPU's vectorized sigmoid rounds otherwise than its
 # scalar remainder loop, so a row of an (A, m) stack whose start is not on
@@ -101,15 +95,17 @@ class LogisticOracle:
     def score_extra(self, beta, scale, support=None):
         return None
 
-    def _bisect_interval(self, ny, margin, dm, hi):
+    def _bisect_interval(self, ny, margin, dm, hi, cfg=None):
         """The bisection of A stacked rays (``margin``, ``dm (A, m)``, ``ny =
         -y``, rows padded on the CPU): the minimizer of the loss along
         ``margin + s dm`` for s in [0, hi] (``hi (A,)``), phi'(s) increasing
-        (convexity), with the endpoint tests. Returns ``(A,)``."""
+        (convexity), with the endpoint tests. Each probe's row dots go
+        through ``vertex.mrowdot`` (completed over a mesh's sample slices).
+        Returns ``(A,)``."""
 
         def phi_prime(s):
             mg = margin + s[:, None] * dm
-            return _row_dots(ny * torch.sigmoid(ny * mg), dm)
+            return vertex.mrowdot(ny * torch.sigmoid(ny * mg), dm, cfg)
 
         zeros = torch.zeros_like(hi)
         a, b = zeros, hi
@@ -138,12 +134,12 @@ class LogisticOracle:
         no_progress)``, each ``(A,)``."""
         ny, margin, dm = self._padded(y, margin, dm)
         ones = torch.ones(margin.shape[0], dtype=torch.float32, device=margin.device)
-        lam = self._bisect_interval(ny, margin, dm, ones)
+        lam = self._bisect_interval(ny, margin, dm, ones, cfg)
         # the sampled FW duality gap alpha^T grad + delta |grad_i*|, with
         # alpha^T grad_alpha = margin^T grad_margin: O(m), and below the
         # fp32 floor of its own terms a stall (gap_rtol)
         grad_m = ny * torch.sigmoid(ny * margin)
-        a_grad = _row_dots(margin, grad_m)
+        a_grad = vertex.mrowdot(margin, grad_m, cfg)
         dg = torch.abs(delta_t * g_sel)
         no_progress = a_grad + dg <= cfg.gap_rtol * (torch.abs(a_grad) + dg)
         return lam, no_progress
@@ -163,7 +159,7 @@ class LogisticOracle:
         co = LogisticCo(margin.view(-1))
         if tel is not None:
             self._record(tel, y, stats, co, ga, i_star, g_sel, delta, lam[0], step_inf32[0],
-                         stall[0])
+                         stall[0], cfg)
         return beta[0], scale[0], maxabs[0], step_inf[0], stall[0], co
 
     def tail_lanes(self, Xt, y, stats, state, i_star, g_raw, g_sel, deltas, cfg, active, lanes,
@@ -192,7 +188,7 @@ class LogisticOracle:
                 for n, lane in enumerate(run):
                     self._record(tel.lane(lane), y, stats, LogisticCo(margin[lane]), gas[n],
                                  i_star[lane], g_sel[lane], deltas[lane], got[6][n], got[7][n],
-                                 stall[lane])
+                                 stall[lane], cfg)
                     tel.dev_cursor[lane] += 1
         return state.beta, scale, maxabs, step_inf, stall, LogisticCo(margin)
 
@@ -203,7 +199,8 @@ class LogisticOracle:
             return None
         return self.grad_dot_alpha(co, stats, y, None, None, cfg)
 
-    def _record(self, tel, y, stats, co, ga, i_star, g_sel, delta, lam, step_inf, stall):
+    def _record(self, tel, y, stats, co, ga, i_star, g_sel, delta, lam, step_inf, stall,
+                cfg=None):
         """The step's plain ring record: the classic record's gap ``<grad,
         alpha> - delta_t g_sel`` and the loss after the step when the
         objective is on, NaN else."""
@@ -211,7 +208,7 @@ class LogisticOracle:
         if tel.objective:
             delta_t = -delta * torch.sign(g_sel.float())
             gap = ga.float() - delta_t * g_sel.float()
-            objective = self.objective(y, stats, co)
+            objective = self.objective(y, stats, co, cfg)
         write_record(tel.buf, tel.capacity, tel.slot, k=tel.k, i_star=i_star, event=EVENT_FW,
                      stall=stall, lam=lam, gap=gap, objective=objective, step_inf=step_inf,
                      n_dots=tel.n_dots)
@@ -225,7 +222,7 @@ class LogisticOracle:
         scalars in the state's dtype but the last two."""
         dtype = margin.dtype
         delta_t = -delta * torch.sign(g_sel.float())  # eq. 6
-        dm = delta_t[:, None] * vertex.columns_dense(Xt, i_star) - margin
+        dm = delta_t[:, None] * vertex.columns_dense(Xt, i_star, cfg) - margin
         lam, no_progress = self._bisect(y, margin, dm, delta_t, g_sel, cfg)
         outs = [[], [], [], [], []]
         for n, beta in enumerate(betas):
@@ -261,7 +258,7 @@ class LogisticOracle:
         ray. Returns a 0-d f32."""
         ny, m0, u = self._padded(y, m0[None], u[None])
         hi = torch.as_tensor(g_max, dtype=torch.float32, device=m0.device).reshape(1)
-        return self._bisect_interval(ny, m0, u, hi).view(())
+        return self._bisect_interval(ny, m0, u, hi, cfg).view(())
 
     def dir_line_search(self, y, stats, co: LogisticCo, ds, u_lin, cfg):
         """The bisection along u = t*m + u_lin on [0, g_max]; ``num`` is the

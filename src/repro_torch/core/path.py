@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -142,7 +142,8 @@ def _nnz(alpha: torch.Tensor):
 
 def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
             device="cuda", sampler_fn=None, on_step=None, solve_fn=None,
-            checkpoint_dir=None, checkpoint_every: int = 1, resume_from=None) -> PathResult:
+            checkpoint_dir=None, checkpoint_every: int = 1, resume_from=None,
+            placed: bool = False) -> PathResult:
     """Stochastic-FW path with the paper's l1-rescaling warm start, on a
     dense ``Xt (p, m)`` or a ``SparseBlockMatrix`` (``backend='sparse'``).
 
@@ -161,11 +162,15 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
     warm start a pure function of the carried alpha; the path's seed comes
     from the snapshot). ``total_dots`` and ``total_iters`` count the
     restored points too. Runs on the card unless ``device`` says otherwise.
+    ``placed=True``: the caller placed and checked ``Xt`` and ``y`` itself
+    (the distributed driver, passing a rank's tile with its own
+    ``solve_fn``), and ``device`` is not read.
     """
     if solve_fn is not None and on_step is not None:
         raise ValueError("on_step goes to the engine's solve; a solve_fn takes none")
     oracle = fw_lasso.LASSO if oracle is None else oracle
-    Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
+    if not placed:
+        Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
     alpha = None
     points = []
     start = 0
@@ -236,7 +241,8 @@ def fw_path(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, oracle=None, *,
 def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width=None,
                     oracle=None, *, device="cuda", lane_sampler_fn=None, solve_batched_fn=None,
                     checkpoint_dir=None, checkpoint_every: int = 1,
-                    resume_from=None) -> PathResult:
+                    resume_from=None, placed: bool = False,
+                    p: Optional[int] = None) -> PathResult:
     """Stochastic-FW path solved in parallel delta lanes (the reference's
     ``fw_path_batched``, ``src/repro/core/path.py:239-394``).
 
@@ -259,10 +265,14 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
     bit for bit (a chunk's lanes draw from ``lane_sampler_fn(c)``, a pure
     function of the chunk's index, and start from the carried densest
     solution); ``saved_iters`` and the totals count the restored chunks
-    too. Runs on the card unless ``device`` says otherwise.
+    too. Runs on the card unless ``device`` says otherwise. ``placed`` as
+    ``fw_path``'s; ``p`` the global feature count where ``Xt`` is a rank's
+    tile (default ``Xt.shape[0]``).
     """
     oracle = fw_lasso.LASSO if oracle is None else oracle
-    Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
+    if not placed:
+        Xt, y = engine.prepare_inputs(Xt, y, base_cfg, device)
+    p = Xt.shape[0] if p is None else p
     if solve_batched_fn is None:
         solve_batched_fn = engine.solve_batched_prepared
     deltas = np.asarray(deltas, dtype=np.float64)
@@ -271,7 +281,7 @@ def fw_path_batched(Xt, y, deltas, base_cfg: FWConfig, seed: int = 0, lane_width
         lane_width = max(1, -(-n // 8))  # about 8 batched solves
     n_chunks = -(-n // lane_width)
     padded = np.concatenate([deltas, np.repeat(deltas[-1:], n_chunks * lane_width - n)])
-    carry = torch.zeros(Xt.shape[0], dtype=Xt.dtype, device=Xt.device)  # densest so far
+    carry = torch.zeros(p, dtype=Xt.dtype, device=Xt.device)  # densest so far
     points: List[PathPoint] = []
     start_chunk = 0
     total_saved = 0

@@ -13,9 +13,10 @@ from repro_torch.obs.telemetry import TelemetrySpec
 
 @dataclass(frozen=True)
 class DistSpec:
-    """Sharding vocabulary of the distributed backend, kept as the type of
-    ``FWConfig.dist``. The distributed backend is not ported yet
-    (ROADMAP.md Queue 1 item 13)."""
+    """Sharding vocabulary of the distributed backend (``FWConfig.dist``):
+    the ``(n_data, n_model)`` mesh shape and its axis names, the
+    reference's fields. The mesh's process groups stay in
+    ``repro_torch.distributed``, bound by its drivers for each dispatch."""
 
     n_data: int = 1
     n_model: int = 1
@@ -40,8 +41,9 @@ class FWConfig:
         kernels of ``repro_torch.kernels`` (their plain versions when the
         tensors lie on the CPU); 'torch' runs plain PyTorch ops; 'sparse'
         runs on a ``repro_torch.sparse.SparseBlockMatrix`` (block-ELL)
-        through the sparse kernels K5-K7. 'distributed' is a valid word
-        that the solver does not run yet (ROADMAP.md Queue 1 item 13).
+        through the sparse kernels K5-K7. 'distributed' runs on a mesh of
+        ranks through ``repro_torch.distributed``'s drivers only, which set
+        ``dist`` from the operand's mesh.
       sparse_kernel: on 'sparse', None (default) and True run the Hopper
         kernels (their plain versions on CPU tensors), False the plain
         PyTorch ops on any device (the reference's XLA-gather path). The

@@ -248,7 +248,7 @@ class DirRule:
         ds, use_alt = dir_choice(sel_f.float(), a_f, i_f, away, delta,
                                  None if self.pairwise else ga, self.pairwise, cfg.eps_den)
         # the direction's image X d = t (X alpha) + u_lin, u_lin = df z_f + da z_a
-        z = vertex.columns_dense(Xt, torch.stack([i_f, ds.i_a])).float()
+        z = vertex.columns_dense(Xt, torch.stack([i_f, ds.i_a]), cfg).float()
         u_lin = ds.df * z[0] + ds.da * z[1]
         g, no_progress, aux = oracle.dir_line_search(y, stats, state.co, ds, u_lin, cfg)
         beta, scale, maxabs, step_inf, stall = apply_dir_update(

@@ -33,6 +33,13 @@ reading it, and the 'torch' backend wraps the tail block modulo p, as the
 reference's 'xla' backend does. The 'sparse' backend runs on a
 ``SparseBlockMatrix`` (block-ELL, padded at construction): its scores go
 through K5 (``kernels/sparse_grad``), at width 1 for 'uniform' sampling.
+
+The fourth backend, 'distributed', routes every primitive to
+``repro_torch.distributed.backend`` (a lazy import: that package sits above
+the core): the engine's step then runs on a rank's tile of a mesh, inside
+``repro_torch.distributed``'s drivers only. Oracles reduce over the sample
+axis only through ``mdot``, ``msum`` and ``mrowdot`` here, which complete
+the sum over the mesh's "data" axis exactly when the samples are split.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels import fused_step, fw_grad
 from repro_torch.kernels import step_tail as _step_tail
+from repro_torch.kernels.residual_update import residual_update as _residual_update_kernel
 from repro_torch.kernels.fw_grad import ScoreShift  # noqa: F401 (the oracles' shift)
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.matrix import SparseBlockMatrix
@@ -210,16 +218,59 @@ def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.view(1)).view(())
 
 
+def _dist():
+    """``repro_torch.distributed.backend`` (a lazy import: it layers on the
+    core)."""
+    from repro_torch.distributed import backend
+
+    return backend
+
+
+def dist_spec(cfg: Optional[FWConfig]):
+    """The active ``DistSpec``, or None outside the distributed backend (the
+    reference's ``core/vertex.py:81-90``)."""
+    if cfg is not None and cfg.backend == "distributed":
+        if cfg.dist is None:
+            raise ValueError("backend='distributed' needs cfg.dist (set by "
+                             "repro_torch.distributed.dist_config from the operand's mesh)")
+        return cfg.dist
+    return None
+
+
 def mdot(a: torch.Tensor, b: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
-    """Sample-axis dot product. Oracles reduce over the m axis only through
-    this and ``msum``, where the distributed backend (ROADMAP.md Queue 1
-    item 13) will complete the sum across shards."""
-    return torch.dot(a, b)
+    """Sample-axis dot product, completed over the mesh's "data" axis when
+    the distributed backend splits the samples (one all_reduce). Oracles
+    reduce over the m axis only through this, ``msum`` and ``mrowdot``, so
+    their recursions stay right on a rank's sample slice."""
+    d = torch.dot(a, b)
+    return _dist().complete_data(d, cfg) if _dist_split(cfg) else d
 
 
 def msum(x: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
     """Sample-axis sum, the ``mdot`` analogue for elementwise losses."""
-    return torch.sum(x)
+    s = torch.sum(x)
+    return _dist().complete_data(s, cfg) if _dist_split(cfg) else s
+
+
+def mdot_pair(a1, b1, a2, b2, cfg: Optional[FWConfig] = None):
+    """``(mdot(a1, b1), mdot(a2, b2))`` with one all_reduce of the pair where
+    the samples are split (the S/F refresh's two dots)."""
+    d1, d2 = torch.dot(a1, b1), torch.dot(a2, b2)
+    if not _dist_split(cfg):
+        return d1, d2
+    return tuple(_dist().complete_data(torch.stack([d1, d2]), cfg).unbind())
+
+
+def mrowdot(a: torch.Tensor, b: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
+    """Each row's sample-axis dot of two ``(A, m)`` stacks, ``(A,)``,
+    completed over "data" as ``mdot``."""
+    d = (a * b).sum(dim=1)
+    return _dist().complete_data(d, cfg) if _dist_split(cfg) else d
+
+
+def _dist_split(cfg: Optional[FWConfig]) -> bool:
+    spec = dist_spec(cfg)
+    return spec is not None and spec.n_data > 1
 
 
 def use_sparse_kernel(cfg: FWConfig) -> bool:
@@ -232,10 +283,13 @@ def use_sparse_kernel(cfg: FWConfig) -> bool:
 
 
 def check_matrix_backend(Xt, cfg: FWConfig) -> None:
-    """The matrix layout and the backend must agree; unported backends raise."""
+    """The matrix layout and the backend must agree. 'distributed' runs only
+    through ``repro_torch.distributed``'s drivers, on a rank's tile."""
     if cfg.backend == "distributed":
-        raise NotImplementedError(
-            "backend='distributed' is not ported yet: ROADMAP.md Queue 1 item 13"
+        raise ValueError(
+            "backend='distributed' only runs inside repro_torch.distributed's drivers (solve / "
+            "solve_batched / fw_path* on a ShardedOperand); the single-device entry points "
+            "cannot place mesh shards"
         )
     is_sparse = isinstance(Xt, SparseBlockMatrix)
     if is_sparse and cfg.backend != "sparse":
@@ -372,6 +426,8 @@ def sample_vertex(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, extra_fn=
     tensor) as 0-d device tensors, and how many length-m dot products were
     consumed, a host int.
     """
+    if cfg.backend == "distributed":
+        return _dist().dist_sample_vertex(Xt, w, sampler, p, cfg, extra_fn)
     if cfg.backend == "sparse":
         return _sparse_vertex(Xt, w, sampler, cfg, extra_fn)
     if cfg.backend == "kernels":
@@ -390,6 +446,8 @@ def score_indices(Xt, w: torch.Tensor, idx: torch.Tensor, p: int, cfg: FWConfig,
     kernels off), the sparse scores cast to the design's dtype as the
     reference's. Returns ``(raw, sel)``, ``sel = raw + extra_fn(safe)`` (the
     same tensor without a shift)."""
+    if cfg.backend == "distributed":
+        return _dist().dist_score_indices(Xt, w, idx, p, cfg, extra_fn)
     safe = idx.clamp(0, p - 1)
     if cfg.backend == "sparse":
         raw = sparse_ops.sparse_gather_scores(Xt, w, safe,
@@ -410,6 +468,9 @@ def dir_tail(Xt, y, beta, scale, maxabs, stall, resid, s_quad, f_lin, buf, raw_b
     (``use_kernels``); its plain version on 'torch' and the plain sparse
     ops. The lasso's, or with ``en`` (a ``DirEN``) the elastic-net's.
     Returns a ``DirTailOut``."""
+    if cfg.backend == "distributed":
+        return _dist().dist_dir_tail(Xt, y, beta, scale, maxabs, stall, resid, s_quad, f_lin,
+                                     buf, raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en)
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     args = (mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f, sel_f,
             delta, refresh, pairwise, cfg)
@@ -503,6 +564,8 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
     launch and one argmax launch for all the lanes (``*_lanes``); on
     'torch' and the plain sparse ops, the one-lane ops once per lane. Lane
     l's winner is ``sample_vertex``'s on the same draw, bit for bit."""
+    if cfg.backend == "distributed":
+        return _dist().dist_sample_vertex_lanes(Xt, w, sampler, p, cfg, active, lanes, extra)
     L = w.shape[0]
     if cfg.backend == "sparse":
         mat = Xt
@@ -563,6 +626,10 @@ def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s
     ``en`` (the elastic-net's ``ENTail``) Q after them. ``tel`` (a lane
     ``kernels.step_tail.TailRecord``) adds each stepping lane's ring
     record."""
+    if cfg.backend == "distributed":
+        return _dist().dist_step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall,
+                                            resid, s_quad, f_lin, i_star, g, deltas, cfg, lanes,
+                                            en, tel)
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     args = (mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, stats.zty,
             stats.znorm2, i_star, g, deltas, lanes, cfg)
@@ -613,10 +680,10 @@ def fused_supported(oracle, cfg: FWConfig) -> bool:
 
 
 def use_kernels(cfg: FWConfig) -> bool:
-    """Whether the backend runs the port's kernels: 'kernels', and 'sparse'
-    with its kernels on ('torch' and the plain sparse ops run eager ops, as
-    the reference's 'xla' path does)."""
-    if cfg.backend == "kernels":
+    """Whether the backend runs the port's kernels: 'kernels', 'distributed'
+    (on either layout), and 'sparse' with its kernels on ('torch' and the
+    plain sparse ops run eager ops, as the reference's 'xla' path does)."""
+    if cfg.backend in ("kernels", "distributed"):
         return True
     return cfg.backend == "sparse" and use_sparse_kernel(cfg)
 
@@ -658,6 +725,9 @@ def step_tail(Xt, y, stats, beta, scale, maxabs, stall, resid, s_quad, f_lin, i_
     path. The lasso's, or with ``en`` (an ``ENTail``) the elastic-net's.
     ``tel`` (a ``kernels.step_tail.TailRecord``) adds the step's ring
     record, inside the same launch on the kernels' backends."""
+    if cfg.backend == "distributed":
+        return _dist().dist_step_tail(Xt, y, stats, beta, scale, maxabs, stall, resid, s_quad,
+                                      f_lin, i_star, g, delta, cfg, en, tel)
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     args = (mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, stats.zty, stats.znorm2,
             i_star, g, delta, cfg)
@@ -692,10 +762,14 @@ def run_fused_kernel(oracle, Xt, y, resid, scal, idx, zty_s, zn2_s, alpha_s, k0:
 # --------------------------------------------------------------------------
 
 
-def columns_dense(Xt, i_stars: torch.Tensor) -> torch.Tensor:
+def columns_dense(Xt, i_stars: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
     """The dense columns ``z_i (A, m)`` of the features ``i_stars (A,)``: rows
     of a dense ``Xt``, or each feature's ELL slots scatter-added into zeros
-    (``sparse_ops.sparse_column_dense``'s adds, row by row)."""
+    (``sparse_ops.sparse_column_dense``'s adds, row by row). Distributed: the
+    rank's sample slice of each column (``owned_column_lanes``, one
+    all_reduce over "model")."""
+    if dist_spec(cfg) is not None:
+        return _dist().dist_columns(Xt, i_stars, cfg)
     mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
     return _step_tail.dense_columns(mat, i_stars, Xt.shape[1])
 
@@ -703,11 +777,38 @@ def columns_dense(Xt, i_stars: torch.Tensor) -> torch.Tensor:
 def column_dense(Xt, i_star: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
     """The dense (m,) column z_i of feature ``i_star`` (a 0-d device index),
     either layout: the logistic oracle's line-search direction."""
+    if dist_spec(cfg) is not None:
+        return _dist().dist_column(Xt, i_star, cfg)
     return columns_dense(Xt, i_star.view(1)).view(-1)
 
 
+def apply_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg: FWConfig) -> torch.Tensor:
+    """v <- (1-lam) v + lam (y_vec - delta_t * z_star) on the backend (the
+    reference's ``core/vertex.py:440-464``): eq. 10 with ``v = R, y_vec =
+    y``; with ``v`` the margin, ``y_vec = 0`` and ``-delta_t`` the
+    logistic's margin recursion. K3 (``kernels/residual_update``) on a dense
+    ``Xt`` on the kernels' backend, the block-ELL sum
+    (``sparse_residual_update``) on a ``SparseBlockMatrix``, the plain ops on
+    'torch', and on 'distributed' the winner's column broadcast first. The
+    engine's steps run this inside their tails; this is the reference's
+    public name for it."""
+    if dist_spec(cfg) is not None:
+        return _dist().dist_column_update(Xt, v, y_vec, i_star, lam, delta_t, cfg)
+    if isinstance(Xt, SparseBlockMatrix):
+        col_vals, col_rows = sparse_ops.sparse_column(Xt, i_star)
+        return sparse_ops.sparse_residual_update(v, y_vec, col_vals, col_rows, lam, delta_t)
+    z_star = Xt.index_select(0, i_star.view(1)).view(-1)
+    if cfg.backend == "kernels":
+        return _residual_update_kernel(v, y_vec, z_star, lam, delta_t)
+    return (1.0 - lam) * v + lam * (y_vec - delta_t * z_star)
+
+
 def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
-    """X @ alpha for warm-start initialization, either matrix layout."""
+    """X @ alpha for warm-start initialization, either matrix layout.
+    Distributed: the rank's sample slice of X alpha (one all_reduce over
+    "model")."""
+    if dist_spec(cfg) is not None:
+        return _dist().dist_matvec(Xt, beta, cfg)
     if isinstance(Xt, SparseBlockMatrix):
         return sparse_ops.sparse_matvec(Xt, beta)
     return beta @ Xt
@@ -715,7 +816,10 @@ def matvec(Xt, beta: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tens
 
 def grad_full(Xt, w: torch.Tensor, cfg: Optional[FWConfig] = None) -> torch.Tensor:
     """Full linear gradient -X^T w over every feature: the O(nnz) / O(p*m)
-    certification pass behind ``gap()``, never the hot loop."""
+    certification pass behind ``gap()``, never the hot loop. Distributed:
+    replicated over the padded feature axis (callers slice [:p])."""
+    if dist_spec(cfg) is not None:
+        return _dist().dist_grad_full(Xt, w, cfg)
     if isinstance(Xt, SparseBlockMatrix):
         use = cfg is None or use_sparse_kernel(cfg)
         return -sparse_ops.sparse_transpose_matvec(Xt, w, use_kernel=use)

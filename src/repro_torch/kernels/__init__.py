@@ -22,6 +22,11 @@ health:           the guarded solve's NaN/Inf check of beta, scale and the
                   co-state in one launch (the port's own: XLA in the
                   reference's watchdog)
 
+The distributed backend's instantiations (``*_owned``: K2's and K5's
+scores on a rank's tile, +0.0 for an unowned id; ``owned_column[_lanes]``:
+the winner's column on the tile; ``*_given``: the tails with that column
+given, completed across the ranks) have wrappers of their own too.
+
 K2's scores and argmax, the step's tail and K5 also take L delta lanes in
 one launch (``*_lanes``, the batched engine's), each with a count of its own.
 The elastic-net's instantiations (the argmax with its score shift, the tail
@@ -77,6 +82,22 @@ _WRAPPERS = {
     "step_tail_en_lanes_tel": step_tail.step_tail_en_lanes_tel,
     "fused_replay_tel": fused_step.fused_replay_tel,
     "health_flags": health.health_flags,
+    "sampled_scores_owned": fw_grad.sampled_scores_owned,
+    "sampled_scores_lanes_owned": fw_grad.sampled_scores_lanes_owned,
+    "sparse_sampled_scores_owned": sparse_grad.sparse_sampled_scores_owned,
+    "sparse_sampled_scores_lanes_owned": sparse_grad.sparse_sampled_scores_lanes_owned,
+    "owned_column": step_tail.owned_column,
+    "owned_column_lanes": step_tail.owned_column_lanes,
+    "step_tail_given": step_tail.step_tail_given,
+    "step_tail_given_tel": step_tail.step_tail_given_tel,
+    "step_tail_en_given": step_tail.step_tail_en_given,
+    "step_tail_en_given_tel": step_tail.step_tail_en_given_tel,
+    "step_tail_lanes_given": step_tail.step_tail_lanes_given,
+    "step_tail_lanes_given_tel": step_tail.step_tail_lanes_given_tel,
+    "step_tail_en_lanes_given": step_tail.step_tail_en_lanes_given,
+    "step_tail_en_lanes_given_tel": step_tail.step_tail_en_lanes_given_tel,
+    "dir_tail_given": step_tail.dir_tail_given,
+    "dir_tail_en_given": step_tail.dir_tail_en_given,
 }
 
 

@@ -21,13 +21,20 @@ namespace cg = cooperative_groups;
 
 // scores[j] = -Xt[row_j] . r, row_j = blk[j / bs] * bs + j % bs, one warp per
 // sampled row (warp_row_score: a row outside [0, p) scores 0).
-template <typename T, bool LANES>
+//
+// OWNED (a rank's tile of a mesh, the distributed backend): X holds the
+// global rows [off, off + p) of the design and the sampled rows are
+// global; an owned row scores against its local row row_j - off, any other
+// writes +0.0, so a sum over the ranks that own the feature axis is each
+// score (the reference's masked partial scores, distributed/backend.py:78-90).
+template <typename T, bool LANES, bool OWNED = false>
 __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __restrict__ r,
                                       const long long* __restrict__ blk,
                                       float* __restrict__ scores, long long p, int m,
                                       long long n, int bs, int staged, int vec,
                                       const int* __restrict__ lane_ids, long long r_stride,
-                                      long long blk_stride, long long sc_stride) {
+                                      long long blk_stride, long long sc_stride,
+                                      long long off) {
   extern __shared__ __align__(16) float rs[];
   if constexpr (LANES) {
     const long long ln = lane_ids[blockIdx.y];
@@ -44,8 +51,18 @@ __global__ void sampled_scores_kernel(const T* __restrict__ X, const float* __re
   const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (j >= n) return;
   const long long row = blk[j / bs] * bs + j % bs;
-  const float score = warp_row_score<T>(X, row, p, m, v, vec, lane);
-  if (lane == 0) scores[j] = score;
+  if constexpr (OWNED) {
+    const long long loc = row - off;
+    if (loc < 0 || loc >= p) {
+      if (lane == 0) scores[j] = 0.f;
+      return;
+    }
+    const float score = warp_row_score<T>(X, loc, p, m, v, vec, lane);
+    if (lane == 0) scores[j] = score;
+  } else {
+    const float score = warp_row_score<T>(X, row, p, m, v, vec, lane);
+    if (lane == 0) scores[j] = score;
+  }
 }
 
 constexpr int AM_THREADS = 256;
@@ -537,20 +554,21 @@ argmax_lanes_cluster_kernel(const float* __restrict__ scores, const long long* _
   }
 }
 
-template <typename T>
+template <typename T, bool OWNED = false>
 static void launch_scores(const void* X, const float* r, const long long* blk, float* scores,
                           long long p, int m, long long n, int bs, int staged,
                           const int* lane_ids, long long r_stride, long long blk_stride,
                           long long sc_stride, dim3 grid, int threads, size_t smem,
-                          cudaStream_t s) {
+                          cudaStream_t s, long long off = 0) {
   const int vec = staged && rows_vectorizable<T>(X, m);
   if (lane_ids == nullptr)
-    sampled_scores_kernel<T, false><<<grid, threads, smem, s>>>(
-        static_cast<const T*>(X), r, blk, scores, p, m, n, bs, staged, vec, nullptr, 0, 0, 0);
+    sampled_scores_kernel<T, false, OWNED><<<grid, threads, smem, s>>>(
+        static_cast<const T*>(X), r, blk, scores, p, m, n, bs, staged, vec, nullptr, 0, 0, 0,
+        off);
   else
-    sampled_scores_kernel<T, true><<<grid, threads, smem, s>>>(
+    sampled_scores_kernel<T, true, OWNED><<<grid, threads, smem, s>>>(
         static_cast<const T*>(X), r, blk, scores, p, m, n, bs, staged, vec, lane_ids, r_stride,
-        blk_stride, sc_stride);
+        blk_stride, sc_stride, off);
 }
 
 // lane_ids == nullptr: one lane (the strides unused); otherwise n_run
@@ -578,6 +596,37 @@ extern "C" int sampled_scores_launch(const void* X, const float* r, const long l
   } else if (dtype == DT_BF16) {
     launch_scores<__nv_bfloat16>(X, r, blk, scores, p, m, n, bs, staged, lane_ids, r_stride,
                                  blk_stride, sc_stride, grid, threads, smem, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The OWNED instantiation of sampled_scores_launch (a rank's tile): X is
+// the tile of p_local rows starting at global row `off`; blk holds global
+// ids; an unowned position scores +0.0.
+extern "C" int sampled_scores_owned_launch(const void* X, const float* r, const long long* blk,
+                                           float* scores, long long p_local, int m, long long n,
+                                           int bs, long long off, const int* lane_ids,
+                                           int n_run, long long r_stride, long long blk_stride,
+                                           long long sc_stride, int dtype, void* stream) {
+  const int threads = 256;
+  const int rows_per_block = threads / 32;
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (n_run < 0 || n_run > 65535 || (lane_ids == nullptr && n_run != 1) || off < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_run == 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)blocks, (unsigned)n_run);
+  const int staged = (size_t)m * sizeof(float) <= STAGE_LIMIT_BYTES;
+  const size_t smem = staged ? (size_t)m * sizeof(float) : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) {
+    launch_scores<float, true>(X, r, blk, scores, p_local, m, n, bs, staged, lane_ids, r_stride,
+                               blk_stride, sc_stride, grid, threads, smem, s, off);
+  } else if (dtype == DT_BF16) {
+    launch_scores<__nv_bfloat16, true>(X, r, blk, scores, p_local, m, n, bs, staged, lane_ids,
+                                       r_stride, blk_stride, sc_stride, grid, threads, smem, s,
+                                       off);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -33,6 +33,16 @@
 // steps; n_dots = (cursor + 1) * the dots a step), writes at cursor % C and
 // advances it; a frozen lane writes nothing. The TEL = false
 // instantiations compile none of it.
+//
+// The column given (the GIVEN instantiations, the distributed backend's
+// tail on a rank's sample slice): X is the winner's dense column itself,
+// (m,) a lane (lane l's at l * m), completed across the ranks that own the
+// feature axis (owned_column below, then an all_reduce), and rows is null.
+// Dense, the new residual is eq. 10 as K3's op order on it. Sparse (the
+// block-ELL tile's column, zero off the feature's rows), every row adds the
+// term (-lam * delta_t) * z[k] to (1 - lam) r + lam y: on the column's rows
+// the single-device tail's sum, elsewhere out + (+-0), which keeps its bits
+// (the reference's dist_column_update, distributed/backend.py:197-210).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -97,9 +107,10 @@ __device__ __forceinline__ float rt(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// Point `a` at lane l's operands.
-template <typename T, bool EN, bool TEL>
+// Point `a` at lane l's operands (GIVEN: its column too).
+template <typename T, bool EN, bool TEL, bool GIVEN = false>
 __device__ __forceinline__ void select_lane(TailArgs<T>& a, int l) {
+  if constexpr (GIVEN) a.X += (long long)l * a.m;
   if constexpr (TEL) {
     a.tel += (long long)l * RING_WORDS * a.tel_cap;
     a.tel_cursor += l;
@@ -152,7 +163,7 @@ struct TailShared {
 // thread 0 computes the same scalars from the inputs; block 0 alone writes
 // the coefficient, the statistics and S, F. Every load a thread needs is
 // issued before the barrier that hands it the scalars.
-template <typename T, bool SPARSE, bool LANES, bool EN, bool TEL>
+template <typename T, bool SPARSE, bool LANES, bool EN, bool TEL, bool GIVEN>
 __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   __shared__ TailShared sh;
   const int tid = threadIdx.x;
@@ -162,7 +173,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     const int l = blockIdx.y;
     bool listed = false;
     for (int k = 0; k < a.n_run; ++k) listed |= a.lane_ids[k] == l;
-    select_lane<T, EN, TEL>(a, l);
+    select_lane<T, EN, TEL, GIVEN>(a, l);
     if (!listed) {
       frozen_lane<T, EN>(a, lo, hi);
       return;
@@ -172,24 +183,26 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
 
   // ---- loads: this thread's rows of the residual and y (and the winner's
   // row), and, sparse, one slot of the winner with its row's inputs --------
+  // the column-given sparse tail reads its column as the dense tail does
+  constexpr bool SLOTS = SPARSE && !GIVEN;
   float rv[ST_PER_THREAD], yv[ST_PER_THREAD], zv[ST_PER_THREAD];
-  const T* z = a.X + i * (long long)a.m;
+  const T* z = GIVEN ? a.X : a.X + i * (long long)a.m;
 #pragma unroll
   for (int e = 0; e < ST_PER_THREAD; ++e) {
     const int k = lo + tid + e * ST_THREADS;
     if (k < hi) {
       rv[e] = to_f32(a.resid[k]);
       yv[e] = to_f32(a.y[k]);
-      if (!SPARSE) zv[e] = to_f32(z[k]);
+      if (!SLOTS) zv[e] = to_f32(z[k]);
     }
   }
   // sparse: the winner's slot tid (the first of this thread's slots) and
   // its row's inputs, where this block owns the row (a feature's rows are
   // distinct; padding holds value 0 at row 0, which block 0 owns)
-  const long long base = SPARSE ? i * a.nnz_max : 0;
+  const long long base = SLOTS ? i * a.nnz_max : 0;
   int srow = -1;
   float sval = 0.f, sr = 0.f, sy = 0.f;
-  if (SPARSE && tid < a.nnz_max) {
+  if (SLOTS && tid < a.nnz_max) {
     const int r = a.rows[base + tid];
     if (r >= lo && r < hi) {
       srow = r;
@@ -230,9 +243,15 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
     const int k = lo + tid + e * ST_THREADS;
     if (k < hi) {
       const float u = __fmul_rn(one_m, rv[e]);
-      const float v = SPARSE ? __fmul_rn(lam, yv[e])
-                             : __fmul_rn(lam, __fsub_rn(yv[e], __fmul_rn(dt, zv[e])));
-      a.r_out[k] = from_f32<T>(__fadd_rn(u, v));
+      if (GIVEN && SPARSE) {
+        const float c = __fmul_rn(-lam, dt);
+        a.r_out[k] = from_f32<T>(
+            __fadd_rn(__fadd_rn(u, __fmul_rn(lam, yv[e])), __fmul_rn(c, zv[e])));
+      } else {
+        const float v = SPARSE ? __fmul_rn(lam, yv[e])
+                               : __fmul_rn(lam, __fsub_rn(yv[e], __fmul_rn(dt, zv[e])));
+        a.r_out[k] = from_f32<T>(__fadd_rn(u, v));
+      }
     }
   }
   // the rare renorm: beta *= new_scale, a contiguous share of it a block,
@@ -253,7 +272,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   // terms are summed in shared memory: of them at most one is nonzero, so
   // their sum and its addition to out[0] give the bits of the plain
   // version's adds in slot order.
-  if (SPARSE) {
+  if (SLOTS) {
     __syncthreads();
     const float c = __fmul_rn(-lam, dt);
     for (int k = tid; k < a.nnz_max; k += ST_THREADS) {
@@ -331,7 +350,7 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
                  n);
     }
   }
-  if (SPARSE && blockIdx.x == 0) {
+  if (SLOTS && blockIdx.x == 0) {
     __syncthreads();  // every row-0 term is in sh.acc0
     if (tid == 0) {
       const float u = __fadd_rn(__fmul_rn(one_m, to_f32(a.resid[0])),
@@ -341,20 +360,20 @@ __global__ void __launch_bounds__(ST_THREADS) step_tail_kernel(TailArgs<T> a) {
   }
 }
 
-template <typename T, bool SPARSE, bool LANES, bool TEL>
+template <typename T, bool SPARSE, bool LANES, bool TEL, bool GIVEN>
 static void launch_tail_tel(const TailArgs<T>& a, dim3 grid, cudaStream_t s) {
   if (a.g_sel != nullptr)
-    step_tail_kernel<T, SPARSE, LANES, true, TEL><<<grid, ST_THREADS, 0, s>>>(a);
+    step_tail_kernel<T, SPARSE, LANES, true, TEL, GIVEN><<<grid, ST_THREADS, 0, s>>>(a);
   else
-    step_tail_kernel<T, SPARSE, LANES, false, TEL><<<grid, ST_THREADS, 0, s>>>(a);
+    step_tail_kernel<T, SPARSE, LANES, false, TEL, GIVEN><<<grid, ST_THREADS, 0, s>>>(a);
 }
 
-template <typename T, bool SPARSE, bool LANES>
+template <typename T, bool SPARSE, bool LANES, bool GIVEN = false>
 static void launch_tail(const TailArgs<T>& a, dim3 grid, cudaStream_t s) {
   if (a.tel != nullptr)
-    launch_tail_tel<T, SPARSE, LANES, true>(a, grid, s);
+    launch_tail_tel<T, SPARSE, LANES, true, GIVEN>(a, grid, s);
   else
-    launch_tail_tel<T, SPARSE, LANES, false>(a, grid, s);
+    launch_tail_tel<T, SPARSE, LANES, false, GIVEN>(a, grid, s);
 }
 
 template <typename T>
@@ -367,7 +386,7 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                   int n_lanes, const void* step_inf, const float* g_sel, const void* q_norm,
                   float l2, int* tel, int tel_cap, long long tel_slot, long long tel_k,
                   long long tel_ndots, long long* tel_cursor, const void* yty, float half_l2,
-                  cudaStream_t s) {
+                  cudaStream_t s, int given = -1) {
   TailArgs<T> a{static_cast<const T*>(X),      rows,
                 nnz_max,                       static_cast<T*>(beta),
                 p,                             static_cast<const T*>(scale),
@@ -398,6 +417,20 @@ static int launch(const void* X, const int* rows, int nnz_max, void* beta, long 
                          (lane_ids == nullptr && (tel_slot < 0 || tel_slot >= tel_cap))))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((m + ST_ROWS - 1) / ST_ROWS, n_lanes);
+  if (given >= 0) {  // the column given: X is it, rows null; given = 1 sparse
+    if (rows != nullptr) return (int)cudaErrorInvalidValue;
+    if (lane_ids == nullptr) {
+      if (given)
+        launch_tail<T, true, false, true>(a, grid, s);
+      else
+        launch_tail<T, false, false, true>(a, grid, s);
+    } else if (given) {
+      launch_tail<T, true, true, true>(a, grid, s);
+    } else {
+      launch_tail<T, false, true, true>(a, grid, s);
+    }
+    return (int)cudaGetLastError();
+  }
   if (lane_ids == nullptr) {
     if (rows != nullptr)
       launch_tail<T, true, false>(a, grid, s);
@@ -445,6 +478,112 @@ extern "C" int step_tail_launch(const void* X, const int* rows, int nnz_max, voi
                                  eps_den, gap_rtol, tol, r_out, s_out, stall_out, lane_ids, n_run,
                                  n_lanes, step_inf, g_sel, q_norm, l2, tel, tel_cap, tel_slot, tel_k,
                                  tel_ndots, tel_cursor, yty, half_l2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The GIVEN instantiations: step_tail_launch's arguments with X the
+// winner's column, (m,) a lane, in place of the matrix (no rows, no
+// nnz_max), and `sparse` the layout whose eq. 10 it replays (see the top of
+// this file).
+extern "C" int step_tail_given_launch(const void* zcol, int sparse, void* beta, long long p,
+                                      const void* scale, const void* maxabs, const int* stall,
+                                      const void* s_quad, const void* f_lin, const void* resid,
+                                      const void* y, const void* zty, const void* zn2,
+                                      const long long* i_star, const float* g,
+                                      const float* delta, int m, float renorm_threshold,
+                                      float eps_den, float gap_rtol, float tol, void* r_out,
+                                      void* s_out, int* stall_out, const int* lane_ids,
+                                      int n_run, int n_lanes, const void* step_inf, int dtype,
+                                      const float* g_sel, const void* q_norm, float l2, int* tel,
+                                      int tel_cap, long long tel_slot, long long tel_k,
+                                      long long tel_ndots, long long* tel_cursor,
+                                      const void* yty, float half_l2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int given = sparse ? 1 : 0;
+  if (dtype == DT_F32)
+    return launch<float>(zcol, nullptr, 0, beta, p, scale, maxabs, stall, s_quad, f_lin, resid,
+                         y, zty, zn2, i_star, g, delta, m, renorm_threshold, eps_den, gap_rtol,
+                         tol, r_out, s_out, stall_out, lane_ids, n_run, n_lanes, step_inf, g_sel,
+                         q_norm, l2, tel, tel_cap, tel_slot, tel_k, tel_ndots, tel_cursor, yty,
+                         half_l2, s, given);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16>(zcol, nullptr, 0, beta, p, scale, maxabs, stall, s_quad, f_lin,
+                                 resid, y, zty, zn2, i_star, g, delta, m, renorm_threshold,
+                                 eps_den, gap_rtol, tol, r_out, s_out, stall_out, lane_ids, n_run,
+                                 n_lanes, step_inf, g_sel, q_norm, l2, tel, tel_cap, tel_slot, tel_k,
+                                 tel_ndots, tel_cursor, yty, half_l2, s, given);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- the winner's column on a rank's tile (the distributed backend) ------
+//
+// out[a, :] for each of the n_ids global feature ids: zeros, then, where
+// this rank's tile (the features [off, off + p_local)) owns the id, its
+// dense row, or its block-ELL slots scattered into the zeros (a feature's
+// rows are distinct but the padding's and a stored row 0's, which add at
+// row 0 in slot order: the plain index_add_'s bits). An all_reduce over the
+// ranks that share the sample slice then completes every column, since
+// each id has one owner and every other rank adds +0.0 (the reference's
+// _owned_column, distributed/backend.py:177-193). One block an id.
+constexpr int OC_THREADS = 1024;
+
+template <typename T, bool SPARSE>
+__global__ void __launch_bounds__(OC_THREADS)
+owned_column_kernel(const T* __restrict__ X, const int* __restrict__ rows, int nnz_max,
+                    long long p_local, int m, long long off, const long long* __restrict__ ids,
+                    T* __restrict__ out) {
+  const long long loc = ids[blockIdx.x] - off;
+  const bool own = loc >= 0 && loc < p_local;
+  T* o = out + (long long)blockIdx.x * m;
+  const int tid = threadIdx.x;
+  if constexpr (!SPARSE) {
+    const T* z = X + (own ? loc : 0) * (long long)m;
+    for (int k = tid; k < m; k += OC_THREADS) o[k] = own ? z[k] : from_f32<T>(0.f);
+  } else {
+    for (int k = tid; k < m; k += OC_THREADS) o[k] = from_f32<T>(0.f);
+    if (!own) return;
+    __syncthreads();
+    const long long base = loc * nnz_max;
+    for (int k = tid; k < nnz_max; k += OC_THREADS) {
+      const int r = rows[base + k];
+      if (r != 0) o[r] = from_f32<T>(__fadd_rn(0.f, to_f32(X[base + k])));
+    }
+    if (tid == 0) {
+      T acc = from_f32<T>(0.f);
+      for (int k = 0; k < nnz_max; ++k)
+        if (rows[base + k] == 0) acc = from_f32<T>(__fadd_rn(to_f32(acc), to_f32(X[base + k])));
+      o[0] = acc;
+    }
+  }
+}
+
+template <typename T>
+static int launch_column(const void* X, const int* rows, int nnz_max, long long p_local, int m,
+                         long long off, const long long* ids, int n_ids, void* out,
+                         cudaStream_t s) {
+  if (rows != nullptr)
+    owned_column_kernel<T, true><<<n_ids, OC_THREADS, 0, s>>>(
+        static_cast<const T*>(X), rows, nnz_max, p_local, m, off, ids, static_cast<T*>(out));
+  else
+    owned_column_kernel<T, false><<<n_ids, OC_THREADS, 0, s>>>(
+        static_cast<const T*>(X), rows, nnz_max, p_local, m, off, ids, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+// rows == nullptr: X is the dense tile (p_local, m); otherwise the block-ELL
+// tile's values and rows, nnz_max slots a feature. out is (n_ids, m) in the
+// tile's dtype.
+extern "C" int owned_column_launch(const void* X, const int* rows, int nnz_max,
+                                   long long p_local, int m, long long off,
+                                   const long long* ids, int n_ids, void* out, int dtype,
+                                   void* stream) {
+  if (m < 1 || n_ids < 1 || p_local < 1 || off < 0 || (rows != nullptr && nnz_max < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) return launch_column<float>(X, rows, nnz_max, p_local, m, off, ids, n_ids,
+                                                   out, s);
+  if (dtype == DT_BF16)
+    return launch_column<__nv_bfloat16>(X, rows, nnz_max, p_local, m, off, ids, n_ids, out, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -508,6 +647,11 @@ struct DirArgs {
   long long* __restrict__ i_out;    // i_star = use_alt ? i_a : i_f, i_a
   float* __restrict__ g_out;
   float* __restrict__ scratch;      // 5 floats a block: the dots' and the refresh's partials
+  // GIVEN: the phase (0: whole; 1: only the three dots <v,u>, <u,u>, <u,y>,
+  // written to dots; 2: the rest, those dots read from dots once completed
+  // across the sample slices) and the dots' buffer
+  int phase;
+  float* __restrict__ dots;
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -522,6 +666,7 @@ struct DirShared {
   float g, gt, one_gt, new_scale;                 // the line search's
   long long i_a;
   int use_alt, renorm;
+  int row_a;  // GIVEN: the away atom's row of the given columns
 };
 
 // Block-wide sums of N values a thread, in a fixed order (warp butterflies,
@@ -556,10 +701,19 @@ __device__ __forceinline__ void grid_sums(const float* scratch, int c0, float (&
   }
 }
 
-template <typename T, bool SPARSE, bool EN>
+// GIVEN (the distributed backend, a rank's sample slice): X holds the
+// columns (n_buf + 2, m), completed across the ranks that own the feature
+// axis: z_f, then feature 0's (the away atom's dummy when no slot is valid),
+// then each slot's (its id clipped to [0, p)); rows is null. The away
+// vertex picks its row, so the kernel's choice and its bits are the
+// single-device tail's. With the samples split across ranks the tail runs
+// in two phases around an all_reduce of the three dots (and the host
+// refreshes S and F).
+template <typename T, bool SPARSE, bool EN, bool GIVEN = false>
 __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
+  constexpr bool SLOTS = SPARSE && !GIVEN;
   __shared__ DirShared sh;
-  __shared__ float zs[SPARSE ? 2 * DT_ROWS : 1];  // sparse: z_f, z_a on this block's rows
+  __shared__ float zs[SLOTS ? 2 * DT_ROWS : 1];  // sparse: z_f, z_a on this block's rows
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int lo = blockIdx.x * DT_ROWS, hi = min(a.m, lo + DT_ROWS);
@@ -574,9 +728,9 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
     if (k < hi) {
       rv[e] = to_f32(a.resid[k]);
       yv[e] = to_f32(a.y[k]);
-      if (!SPARSE) zf[e] = to_f32(a.X[i_f * (long long)a.m + k]);
+      if (!SLOTS) zf[e] = to_f32(a.X[(GIVEN ? 0 : i_f) * (long long)a.m + k]);
     }
-    if (SPARSE) zs[tid + e * DT_THREADS] = zs[DT_ROWS + tid + e * DT_THREADS] = 0.f;
+    if (SLOTS) zs[tid + e * DT_THREADS] = zs[DT_ROWS + tid + e * DT_THREADS] = 0.f;
   }
   const float scale = to_f32(*a.scale);
   for (int s = tid; s < a.n_buf; s += DT_THREADS) {
@@ -600,7 +754,7 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   __syncthreads();
   // sparse: z_f's slots on this block's rows (a feature's rows are distinct;
   // the padding and stored zeros add nothing to the zeros)
-  if (SPARSE) {
+  if (SLOTS) {
     for (int k = tid; k < a.nnz_max; k += DT_THREADS) {
       const long long slot = i_f * a.nnz_max + k;
       const int r = a.rows[slot];
@@ -674,6 +828,7 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
       sh.g_max = g_max;
       sh.use_alt = use_alt;
       sh.ba0 = any_valid ? sh.b0[j] : beta0;  // beta[i_a] before the step
+      sh.row_a = any_valid ? 2 + j : 1;
     }
   }
   __syncthreads();
@@ -681,7 +836,7 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   const float a_f = sh.a_f, a_a = sh.a_a, sel_a = sh.sel_a, g_max = sh.g_max, ba0 = sh.ba0;
   const long long i_a = sh.i_a;
   const bool use_alt = sh.use_alt;
-  if (SPARSE) {
+  if (SLOTS) {
     for (int k = tid; k < a.nnz_max; k += DT_THREADS) {
       const long long slot = i_a * a.nnz_max + k;
       const int r = a.rows[slot];
@@ -697,11 +852,11 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   for (int e = 0; e < DT_PER_THREAD; ++e) {
     const int k = lo + tid + e * DT_THREADS;
     if (k < hi) {
-      if (SPARSE) {
+      if (SLOTS) {
         zf[e] = zs[k - lo];
         za[e] = zs[DT_ROWS + k - lo];
       } else {
-        za[e] = to_f32(a.X[i_a * (long long)a.m + k]);
+        za[e] = to_f32(a.X[(GIVEN ? (long long)sh.row_a : i_a) * a.m + k]);
       }
       const float u = __fadd_rn(__fmul_rn(df, zf[e]), __fmul_rn(da, za[e]));
       zf[e] = u;  // u on this row from here on
@@ -720,9 +875,21 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   // ---- every block: the dots, then the line search -----------------------
   float vu = 0.f, uu = 0.f, uy = 0.f, g = 0.f, scale_new = 0.f;
   bool no_prog = false;
+  if (GIVEN && a.phase == 1) {  // the dots alone, to be completed across the slices
+    if (blockIdx.x == 0 && tid == 0) {
+      float tot[3];
+      grid_sums<3>(a.scratch, 0, tot);
+      for (int c = 0; c < 3; ++c) a.dots[c] = tot[c];
+    }
+    return;
+  }
   if (tid == 0) {
     float tot[3];
-    grid_sums<3>(a.scratch, 0, tot);
+    if (GIVEN && a.phase == 2) {
+      for (int c = 0; c < 3; ++c) tot[c] = a.dots[c];
+    } else {
+      grid_sums<3>(a.scratch, 0, tot);
+    }
     vu = tot[0];
     uu = tot[1];
     uy = tot[2];
@@ -878,11 +1045,11 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
     a.buf_out[s] = (took_fw && !present && s == slot) ? i_f : a.buf[s];
 }
 
-template <typename T, bool SPARSE>
+template <typename T, bool SPARSE, bool GIVEN = false>
 static int launch_dir(DirArgs<T>& a, int blocks, cudaStream_t s) {
   void* args[] = {&a};
-  const void* k = a.q_norm != nullptr ? (const void*)dir_tail_kernel<T, SPARSE, true>
-                                      : (const void*)dir_tail_kernel<T, SPARSE, false>;
+  const void* k = a.q_norm != nullptr ? (const void*)dir_tail_kernel<T, SPARSE, true, GIVEN>
+                                      : (const void*)dir_tail_kernel<T, SPARSE, false, GIVEN>;
   cudaError_t err = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(DT_THREADS), args, 0, s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it again
@@ -900,8 +1067,13 @@ static int launch_dir_t(const void* X, const int* rows, int nnz_max, void* beta,
                         const float* delta, int m, int pairwise, int refresh, float l2,
                         float renorm_threshold, float eps_den, float gap_rtol, float tol,
                         void* r_out, void* s_out, int* stall_out, long long* buf_out,
-                        long long* i_out, float* g_out, float* scratch, cudaStream_t s) {
+                        long long* i_out, float* g_out, float* scratch, cudaStream_t s,
+                        int given = -1, int phase = 0, float* dots = nullptr) {
   if (m < 1 || p < 1 || n_buf < 1 || n_buf > DT_MAX_SLOTS || (rows != nullptr && nnz_max < 1))
+    return (int)cudaErrorInvalidValue;
+  if (given >= 0 ? rows != nullptr || phase < 0 || phase > 2 || (phase != 0 && dots == nullptr) ||
+                       (phase != 0 && refresh)
+                 : phase != 0)
     return (int)cudaErrorInvalidValue;
   DirArgs<T> a{static_cast<const T*>(X), rows, nnz_max, static_cast<T*>(beta), p,
                static_cast<const T*>(scale), static_cast<const T*>(maxabs), stall,
@@ -909,8 +1081,9 @@ static int launch_dir_t(const void* X, const int* rows, int nnz_max, void* beta,
                static_cast<const T*>(q_norm), static_cast<const T*>(resid),
                static_cast<const T*>(y), buf, n_buf, raw_b, i_f, sel_f, delta, m, pairwise,
                refresh, l2, renorm_threshold, eps_den, gap_rtol, tol, static_cast<T*>(r_out),
-               static_cast<T*>(s_out), stall_out, buf_out, i_out, g_out, scratch};
+               static_cast<T*>(s_out), stall_out, buf_out, i_out, g_out, scratch, phase, dots};
   const int blocks = (m + DT_ROWS - 1) / DT_ROWS;
+  if (given >= 0) return launch_dir<T, false, true>(a, blocks, s);
   return rows != nullptr ? launch_dir<T, true>(a, blocks, s) : launch_dir<T, false>(a, blocks, s);
 }
 
@@ -942,5 +1115,36 @@ extern "C" int dir_tail_launch(const void* X, const int* rows, int nnz_max, void
                                        delta, m, pairwise, refresh, l2, renorm_threshold,
                                        eps_den, gap_rtol, tol, r_out, s_out, stall_out, buf_out,
                                        i_out, g_out, scratch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The GIVEN instantiation of dir_tail_launch: X the columns (n_buf + 2, m)
+// (see dir_tail_kernel), no rows; phase 0 runs the whole tail, phase 1
+// writes only the three dots to `dots`, phase 2 runs the rest from the
+// completed dots there (refresh 0: the host refreshes S and F).
+extern "C" int dir_tail_given_launch(const void* zcols, void* beta, long long p,
+                                     const void* scale, const void* maxabs, const int* stall,
+                                     const void* s_quad, const void* f_lin, const void* q_norm,
+                                     const void* resid, const void* y, const long long* buf,
+                                     int n_buf, const float* raw_b, const long long* i_f,
+                                     const float* sel_f, const float* delta, int m, int pairwise,
+                                     int refresh, float l2, float renorm_threshold,
+                                     float eps_den, float gap_rtol, float tol, void* r_out,
+                                     void* s_out, int* stall_out, long long* buf_out,
+                                     long long* i_out, float* g_out, float* scratch, int phase,
+                                     float* dots, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32)
+    return launch_dir_t<float>(zcols, nullptr, 0, beta, p, scale, maxabs, stall, s_quad, f_lin,
+                               q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f, delta, m,
+                               pairwise, refresh, l2, renorm_threshold, eps_den, gap_rtol, tol,
+                               r_out, s_out, stall_out, buf_out, i_out, g_out, scratch, s, 1,
+                               phase, dots);
+  if (dtype == DT_BF16)
+    return launch_dir_t<__nv_bfloat16>(zcols, nullptr, 0, beta, p, scale, maxabs, stall, s_quad,
+                                       f_lin, q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f,
+                                       delta, m, pairwise, refresh, l2, renorm_threshold,
+                                       eps_den, gap_rtol, tol, r_out, s_out, stall_out, buf_out,
+                                       i_out, g_out, scratch, s, 1, phase, dots);
   return (int)cudaErrorInvalidValue;
 }

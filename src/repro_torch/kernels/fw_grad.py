@@ -95,6 +95,17 @@ under a set summary bit (staged in shared memory) and a set fine bit, and
 sets the winner's bits in place; an infinite or NaN scale reads beta
 everywhere. The ticket route reads beta everywhere and takes no bitmap.
 
+The owned scores (``sampled_scores_owned``, ``sampled_scores_lanes_owned``):
+the distributed backend's scores on a rank's tile of the mesh (the
+``OWNED`` instantiation), which replaces the reference's XLA mask of its
+partial scores (``src/repro/distributed/backend.py:78-90``). The tile holds
+the global rows ``[off, off + p_local)``; the sampled ids stay global. A
+position whose row the tile owns is scored against its local row, exactly
+as the one-device kernel scores it; any other writes +0.0. So the
+``all_reduce`` that sums the ranks' buffers completes every score, its
+other terms exact zeros. Bound: the one-device bytes for the owned rows,
+plus n*4 written for the others.
+
 Each instantiation has its own wrapper, whose ``launches`` attribute
 counts the launches of its kernel.
 """
@@ -112,6 +123,10 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (X, r, blk, scores, p, m, n, bs, lane_ids, n_run, r_stride, blk_stride, sc_stride, dtype,
 #  stream)
 _SCORES_ARGTYPES = [_PTR] * 4 + [_I64, _I32, _I64, _I32, _PTR, _I32] + [_I64] * 3 + [_I32, _PTR]
+# (X, r, blk, scores, p_local, m, n, bs, off, lane_ids, n_run, r_stride, blk_stride,
+#  sc_stride, dtype, stream)
+_OWNED_ARGTYPES = ([_PTR] * 4 + [_I64, _I32, _I64, _I32, _I64, _PTR, _I32] + [_I64] * 3
+                   + [_I32, _PTR])
 _F32 = ctypes.c_float
 # (scores, blk, n, bs, p_valid, blocks, chunk, scratch, lane_cap, i_star, g_star, lane_ids,
 #  n_run, n_lanes, sc_stride, blk_stride, beta, beta_stride, beta_dtype, scale, l2, g_sel,
@@ -394,6 +409,50 @@ def vertex_argmax_shifted(scores: torch.Tensor, blk: torch.Tensor, block_size: i
     return i_star, g_raw, g_sel
 
 
+def owned_plain(scores: torch.Tensor, rows: torch.Tensor, off: int, p_local: int):
+    """``scores`` where the global ``rows`` lie in ``[off, off + p_local)``,
+    +0.0 elsewhere."""
+    own = (rows >= off) & (rows < off + p_local)
+    return torch.where(own, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
+
+
+def sampled_scores_owned_plain(Xt, r, blk, block_size: int, off: int):
+    """The plain version of ``sampled_scores_owned``: the plain scores of the
+    owned rows (their local rows, clipped into the tile for the others)
+    masked to +0.0 off the tile."""
+    p_local = Xt.shape[0]
+    idx = block_indices(blk.long(), block_size)
+    loc = (idx - off).clamp(0, p_local - 1)
+    scores = -(Xt.index_select(0, loc).float() @ r.float())
+    return owned_plain(scores, idx, off, p_local)
+
+
+def sampled_scores_owned(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
+                         block_size: int, off: int):
+    """Scores ``(nb * block_size,)`` f32 of the sampled global coordinates on
+    a rank's tile ``Xt (p_local, m)`` of the global rows ``[off, off +
+    p_local)``: an owned coordinate's score, +0.0 for any other. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel's
+    ``OWNED`` instantiation (or raises)."""
+    _check(Xt, r, blk)
+    if Xt.device.type == "cpu":
+        return sampled_scores_owned_plain(Xt, r, blk, block_size, off)
+    rf = r.float().contiguous()
+    blk = blk.long().contiguous()
+    dev = _build.require_cuda(Xt, rf, blk)
+    p_local, m = Xt.shape
+    n = blk.numel() * block_size
+    scores = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _build.function("fw_grad", "sampled_scores_owned_launch", _OWNED_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(Xt.data_ptr(), rf.data_ptr(), blk.data_ptr(), scores.data_ptr(), p_local, m, n,
+                 block_size, int(off), None, 1, 0, 0, 0, _build.dtype_code(Xt),
+                 _build.stream(dev))
+        sampled_scores_owned.launches += 1
+    _build.check("fw_grad", err, "sampled_scores_owned")
+    return scores
+
+
 def fw_vertex(Xt, r, blk, block_size: int = 1, p_valid: int | None = None):
     """The sampled FW vertex ``(i_star, g_star)``; ``p_valid`` defaults to p."""
     p_valid = Xt.shape[0] if p_valid is None else p_valid
@@ -506,6 +565,47 @@ def sampled_scores_lanes(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
                  _build.stream(dev))
         sampled_scores_lanes.launches += 1
     _build.check("fw_grad", err, "sampled_scores_lanes")
+    return scores[:, :n]
+
+
+def sampled_scores_lanes_owned_plain(Xt, r, blk, block_size: int, lanes, off: int):
+    """The plain version: ``sampled_scores_owned_plain`` once per listed lane,
+    on a copy of its residual row. Rows of lanes not listed are zero."""
+    n = blk.shape[-1] * block_size
+    scores = torch.zeros((r.shape[0], n), dtype=torch.float32, device=r.device)
+    for lane in lane_list(lanes):
+        scores[lane] = sampled_scores_owned_plain(Xt, r[lane].clone(), lane_blk(blk, lane),
+                                                  block_size, off)
+    return scores
+
+
+def sampled_scores_lanes_owned(Xt: torch.Tensor, r: torch.Tensor, blk: torch.Tensor,
+                               block_size: int, lanes: torch.Tensor, off: int) -> torch.Tensor:
+    """``sampled_scores_lanes`` on a rank's tile (``sampled_scores_owned``'s
+    rule a lane), in one launch of the lane ``OWNED`` instantiation; rows of
+    lanes not listed are not written. A CPU tensor takes the plain version."""
+    _check(Xt, r[0], lane_blk(blk, 0))
+    check_lanes(r, blk, lanes)
+    if Xt.device.type == "cpu":
+        return sampled_scores_lanes_owned_plain(Xt, r, blk, block_size, lanes, off)
+    rf = r.float().contiguous()
+    blk = blk.long().contiguous()
+    dev = _build.require_cuda(Xt, rf, blk, lanes)
+    L, m = rf.shape
+    p_local = Xt.shape[0]
+    n = blk.shape[-1] * block_size
+    n4 = -(-n // 4) * 4
+    scores = torch.empty((L, n4), dtype=torch.float32, device=dev)
+    if lanes.numel() == 0:
+        return scores[:, :n]
+    fn = _build.function("fw_grad", "sampled_scores_owned_launch", _OWNED_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(Xt.data_ptr(), rf.data_ptr(), blk.data_ptr(), scores.data_ptr(), p_local, m, n,
+                 block_size, int(off), *_build.lane_ids_arg(lanes), m,
+                 blk.shape[1] if blk.dim() == 2 else 0, n4, _build.dtype_code(Xt),
+                 _build.stream(dev))
+        sampled_scores_lanes_owned.launches += 1
+    _build.check("fw_grad", err, "sampled_scores_lanes_owned")
     return scores[:, :n]
 
 
@@ -622,3 +722,5 @@ sampled_scores_lanes.launches = 0
 vertex_argmax_lanes.launches = 0
 vertex_argmax_shifted.launches = 0
 vertex_argmax_shifted_lanes.launches = 0
+sampled_scores_owned.launches = 0
+sampled_scores_lanes_owned.launches = 0

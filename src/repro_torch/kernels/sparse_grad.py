@@ -78,13 +78,19 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fw_grad import check_lanes, block_indices, lane_blk, lane_list
+from repro_torch.kernels.fw_grad import (block_indices, check_lanes, lane_blk, lane_list,
+                                         owned_plain)
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, depth, slots, stride, lane_ids,
 #  n_run, r_stride, blk_stride, sc_stride, dtype, stream)
 _ARGTYPES = ([_PTR] * 5 + [_I64, _I32, _I32, _I64] + [_I32] * 4 + [_PTR, _I32] + [_I64] * 3
              + [_I32, _PTR])
+
+# (values, rows, r, blk, scores, n, bs, nnz_max, n_feat, m, off, depth, slots, stride,
+#  lane_ids, n_run, r_stride, blk_stride, sc_stride, dtype, stream)
+_OWNED_ARGTYPES = ([_PTR] * 5 + [_I64, _I32, _I32, _I64, _I32, _I64] + [_I32] * 3
+                   + [_PTR, _I32] + [_I64] * 3 + [_I32, _PTR])
 
 # The ring of K5 and K7 (csrc/common.cuh, SlotRing), sized by `ring_plan`
 SMEM_BYTES = 224 * 1024  # OPTIN_SMEM_BYTES of csrc/common.cuh: a block's dynamic shared memory
@@ -237,5 +243,101 @@ def sparse_sampled_scores_lanes(values: torch.Tensor, rows: torch.Tensor, r: tor
     return scores[:, :n]
 
 
+# --------------------------------------------------------------------------
+# Owned scores: a rank's tile of the mesh (the distributed backend)
+# --------------------------------------------------------------------------
+
+
+def sparse_sampled_scores_owned_plain(values, rows, r, blk, block_size: int, off: int):
+    """The plain version of ``sparse_sampled_scores_owned``: the plain scores
+    of the owned features (their local features, clipped into the tile for
+    the others) masked to +0.0 off the tile."""
+    n_feat = values.shape[0] * values.shape[1]
+    feat = block_indices(blk.long(), block_size)
+    loc = (feat - off).clamp(0, n_feat - 1)
+    scores = sparse_sampled_scores_plain(values, rows, r, loc, 1)
+    return owned_plain(scores, feat, off, n_feat)
+
+
+def _owned_launch(wrapper, values, rows, rf, blk, block_size, off, lanes, n4):
+    """One launch of K5's ``OWNED`` instantiation (``lanes`` None: one lane)."""
+    dev = _build.require_cuda(values, rows, rf, blk, *(() if lanes is None else (lanes,)))
+    if rows.dtype != torch.int32:
+        raise TypeError(f"the row slots must be int32, got {rows.dtype}")
+    nblocks, bs0, nnz = values.shape
+    m = rf.shape[-1]
+    n = blk.shape[-1] * block_size
+    pl = scores_plan(values.dtype, m, nnz)
+    if pl.depth and (values.data_ptr() % 16 or rows.data_ptr() % 16):
+        raise ValueError(f"{wrapper.__name__} needs values and rows on 16-byte boundaries")
+    if pl.depth and rf.data_ptr() % 16:
+        if lanes is not None:
+            raise ValueError(f"{wrapper.__name__} needs r on 16-byte boundaries")
+        rf = rf.clone()
+    if lanes is None:
+        scores = torch.empty(n, dtype=torch.float32, device=dev)
+        lane_args = (None, 1, 0, 0, 0)
+    else:
+        scores = torch.empty((rf.shape[0], n4), dtype=torch.float32, device=dev)
+        if lanes.numel() == 0:
+            return scores[:, :n]
+        lane_args = (*_build.lane_ids_arg(lanes), m, blk.shape[1] if blk.dim() == 2 else 0, n4)
+    fn = _build.function("sparse_grad", "sparse_sampled_scores_owned_launch", _OWNED_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(values.data_ptr(), rows.data_ptr(), rf.data_ptr(), blk.data_ptr(),
+                 scores.data_ptr(), n, block_size, nnz, nblocks * bs0, m, int(off), pl.depth,
+                 pl.slots, pl.stride, *lane_args, _build.dtype_code(values), _build.stream(dev))
+        wrapper.launches += 1
+    _build.check("sparse_grad", err, wrapper.__name__)
+    return scores if lanes is None else scores[:, :n]
+
+
+def sparse_sampled_scores_owned(values: torch.Tensor, rows: torch.Tensor, r: torch.Tensor,
+                                blk: torch.Tensor, block_size: int, off: int) -> torch.Tensor:
+    """K5 on a rank's tile of the mesh: ``values``/``rows`` hold the local
+    features of the global range ``[off, off + n_feat)`` and ``blk`` global
+    ids; an owned feature's score is the one-device kernel's on its local
+    feature, any other +0.0 (the reference's masked K5 call,
+    ``src/repro/distributed/backend.py:110-130``). A CPU tensor takes the
+    plain version; a CUDA tensor launches K5's ``OWNED`` instantiation, on
+    K5's route (the ring, or the warp-per-feature kernel)."""
+    _check(values, rows, r, blk)
+    if values.device.type == "cpu":
+        return sparse_sampled_scores_owned_plain(values, rows, r, blk, block_size, off)
+    return _owned_launch(sparse_sampled_scores_owned, values, rows, r.float().contiguous(),
+                         blk.long().contiguous(), block_size, off, None, 0)
+
+
+def sparse_sampled_scores_lanes_owned_plain(values, rows, r, blk, block_size: int, lanes,
+                                            off: int):
+    """The plain version: ``sparse_sampled_scores_owned_plain`` once per
+    listed lane, on a copy of its residual row. Rows of lanes not listed are
+    zero."""
+    n = blk.shape[-1] * block_size
+    scores = torch.zeros((r.shape[0], n), dtype=torch.float32, device=r.device)
+    for lane in lane_list(lanes):
+        scores[lane] = sparse_sampled_scores_owned_plain(values, rows, r[lane].clone(),
+                                                         lane_blk(blk, lane), block_size, off)
+    return scores
+
+
+def sparse_sampled_scores_lanes_owned(values: torch.Tensor, rows: torch.Tensor, r: torch.Tensor,
+                                      blk: torch.Tensor, block_size: int, lanes: torch.Tensor,
+                                      off: int) -> torch.Tensor:
+    """``sparse_sampled_scores_lanes`` on a rank's tile
+    (``sparse_sampled_scores_owned``'s rule a lane), one launch of K5's lane
+    ``OWNED`` instantiation; rows of lanes not listed are not written."""
+    _check(values, rows, r[0], lane_blk(blk, 0))
+    check_lanes(r, blk, lanes)
+    if values.device.type == "cpu":
+        return sparse_sampled_scores_lanes_owned_plain(values, rows, r, blk, block_size, lanes,
+                                                       off)
+    n = blk.shape[-1] * block_size
+    return _owned_launch(sparse_sampled_scores_lanes_owned, values, rows, r.float().contiguous(),
+                         blk.long().contiguous(), block_size, off, lanes, -(-n // 4) * 4)
+
+
 sparse_sampled_scores.launches = 0
 sparse_sampled_scores_lanes.launches = 0
+sparse_sampled_scores_owned.launches = 0
+sparse_sampled_scores_lanes_owned.launches = 0

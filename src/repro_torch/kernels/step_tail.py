@@ -131,6 +131,24 @@ records being its steps; n_dots = (cursor + 1) * the dots a step), so a
 batched step copies nothing to the card; a frozen lane records nothing.
 Bound: one record adds 40 bytes written (and the 2-4 scalars read) to the
 tail's bytes.
+
+The distributed backend (``repro_torch.distributed``) runs these tails on a
+rank's sample slice with the winner's column given (a ``GivenCol``, the
+``GIVEN`` instantiations: ``step_tail_given`` and its EN, lane and TEL
+siblings, ``dir_tail_given``, ``dir_tail_en_given``): ``owned_column``
+(and ``owned_column_lanes``, one launch for several ids) writes the
+columns on the rank's tile, zeros where the tile does not own the feature,
+and an ``all_reduce`` over the ranks that split the feature axis completes
+them. A dense column replays eq. 10 as the dense tail; a block-ELL one adds
+``(-lam * delta_t) * z[k]`` at every row, which is the single-device sum on
+the column's rows and ``out + (+-0)`` elsewhere, so a mesh with one sample
+slice keeps the single-device bits. The direction tail reads ``(n_buf + 2,
+m)`` columns (z_f, feature 0's, each slot's), since its away vertex is
+chosen inside the launch; with the samples split across ranks it runs in
+two launches around an ``all_reduce`` of its three dots (``complete``),
+and S and F are refreshed on the host. Bound of ``owned_column``: the
+owned column's bytes (m * itemsize read, or nnz_max * 8) plus m *
+itemsize written an id.
 """
 from __future__ import annotations
 
@@ -152,6 +170,22 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 _ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 12 + [_I32] + [_F32] * 4
              + [_PTR] * 4 + [_I32, _I32, _PTR, _I32, _PTR, _PTR, _F32]
              + [_PTR, _I32, _I64, _I64, _I64, _PTR, _PTR, _F32, _PTR])
+
+
+# (zcol, sparse, beta, p, ...): step_tail_launch's arguments from beta on
+_GIVEN_ARGTYPES = [_PTR, _I32] + _ARGTYPES[3:]
+# (X, rows, nnz_max, p_local, m, off, ids, n_ids, out, dtype, stream)
+_COLUMN_ARGTYPES = [_PTR, _PTR, _I32, _I64, _I32, _I64, _PTR, _I32, _PTR, _I32, _PTR]
+
+
+class GivenCol(NamedTuple):
+    """The winner's column given in place of the matrix (the distributed
+    backend's tail on a rank's sample slice): ``z`` ``(m,)``, or ``(L, m)``
+    for lanes, in the state's dtype; ``sparse`` the layout whose eq. 10 the
+    tail replays."""
+
+    z: torch.Tensor
+    sparse: bool
 
 
 class ENTail(NamedTuple):
@@ -315,6 +349,18 @@ def sparse_residual_update(resid: torch.Tensor, y: torch.Tensor, col_vals: torch
     return out.to(resid.dtype)
 
 
+def given_residual_update(resid, y, col: GivenCol, lam, delta_t):
+    """Eq. 10 with the winner's column given: a dense column as
+    ``residual_update_plain``; a block-ELL tile's column (zero off its
+    rows) as ``(1 - lam) r + lam y + (-lam * delta_t) * z`` in f32, which is
+    ``sparse_residual_update``'s sum on the column's rows and ``out +
+    (+-0)`` elsewhere. Stored in the residual's dtype."""
+    if not col.sparse:
+        return residual_update_plain(resid, y, col.z, lam, delta_t)
+    out = (1.0 - lam) * resid.float() + lam * y.float()
+    return (out + (-lam * delta_t) * col.z.float()).to(resid.dtype)
+
+
 def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
                     i_star, g, delta, cfg, en=None, tel=None):
     """The plain version, the lasso step's eager ops after its argmax in
@@ -341,7 +387,9 @@ def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zt
                                              delta_t, zn2_i, cfg.eps_den, cfg.gap_rtol)
     beta, scale, maxabs, step_inf, stall = apply_coeff_update(
         beta, scale, maxabs, stall, a_star, i_star, lam, delta_t, no_progress, cfg)
-    if isinstance(mat, tuple):
+    if isinstance(mat, GivenCol):
+        resid = given_residual_update(resid, y, mat, lam, delta_t)
+    elif isinstance(mat, tuple):
         values, rows = mat
         nnz = values.shape[-1]
         col_vals = values.reshape(-1, nnz).index_select(0, i_star.view(1)).view(-1)
@@ -365,7 +413,11 @@ def step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zt
 
 
 def _check(mat, beta, resid, y, zty, znorm2):
-    if isinstance(mat, tuple):
+    if isinstance(mat, GivenCol):
+        if mat.z.shape != y.shape or mat.z.dtype != beta.dtype:
+            raise ValueError(f"need the given column (m,) = ({y.shape[0]},) in the state's "
+                             f"dtype, got {tuple(mat.z.shape)} {mat.z.dtype}")
+    elif isinstance(mat, tuple):
         values, rows = mat
         if values.dim() != 3 or rows.shape != values.shape:
             raise ValueError(f"need values and rows (nblocks, bs, nnz_max), got "
@@ -454,8 +506,8 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
     if beta.device.type == "cpu":
         return step_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
                                znorm2, i_star, g, delta, cfg, en, tel)
-    sparse = isinstance(mat, tuple)
-    X, rows = mat if sparse else (mat, None)
+    X, rows, head_fn = _matrix_head(mat)
+    sparse = rows is not None
     dtype = beta.dtype
     q_norm = None if en is None else en.q_norm
     if any(t.dtype != dtype for t in (X, scale, maxabs, s_quad, f_lin, resid, y, zty, znorm2)
@@ -476,10 +528,9 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
     r_out = torch.empty(m, dtype=dtype, device=dev)
     s_out = torch.empty(5 if en is None else 6, dtype=dtype, device=dev)
     stall_out = torch.empty((), dtype=torch.int32, device=dev)
-    fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
+    fn = head_fn()
     with torch.cuda.device(dev):
-        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
-                 X.shape[-1] if sparse else 0, beta.data_ptr(), beta.shape[0],
+        err = fn(*_head_args(mat), beta.data_ptr(), beta.shape[0],
                  scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
                  f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
                  znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
@@ -492,6 +543,27 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
         wrapper.launches += 1
     _build.check("step_tail", err, wrapper.__name__)
     return (beta, *_outs(s_out, stall_out, r_out))
+
+
+def _matrix_head(mat):
+    """``(X, rows, entry)`` of a tail's matrix argument: the dense ``Xt``,
+    the block-ELL ``(values, rows)`` or a ``GivenCol`` (its column as X, no
+    rows), and the C entry point that takes it."""
+    if isinstance(mat, GivenCol):
+        return mat.z, None, lambda: _build.function("step_tail", "step_tail_given_launch",
+                                                    _GIVEN_ARGTYPES)
+    X, rows = mat if isinstance(mat, tuple) else (mat, None)
+    return X, rows, lambda: _build.function("step_tail", "step_tail_launch", _ARGTYPES)
+
+
+def _head_args(mat):
+    """The leading arguments of the entry point ``_matrix_head`` names."""
+    if isinstance(mat, GivenCol):
+        return mat.z.contiguous().data_ptr(), int(mat.sparse)
+    if isinstance(mat, tuple):
+        values, rows = mat
+        return values.data_ptr(), rows.data_ptr(), values.shape[-1]
+    return mat.data_ptr(), None, 0
 
 
 def _tel_tensors(tel):
@@ -539,7 +611,8 @@ def step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_qu
         en_l = None if en is None else ENTail(en.g_sel[lane].clone(), en.q_norm[lane].clone(),
                                               en.l2)
         tel_l = None if tel is None else tel.lane(lane)
-        got = step_tail_plain(mat, beta[lane], scale[lane].clone(), maxabs[lane].clone(),
+        mat_l = GivenCol(mat.z[lane], mat.sparse) if isinstance(mat, GivenCol) else mat
+        got = step_tail_plain(mat_l, beta[lane], scale[lane].clone(), maxabs[lane].clone(),
                               stall[lane].clone(), resid[lane].clone(), s_quad[lane].clone(),
                               f_lin[lane].clone(), y, zty, znorm2, i_star[lane].clone(),
                               g[lane].clone(), delta[lane].clone(), cfg, en_l, tel_l)
@@ -617,12 +690,18 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
         raise ValueError(f"need the lanes' scalars, winners, scores and deltas as ({L},)")
     if lanes.dim() != 1 or lanes.dtype != torch.int32:
         raise ValueError(f"need lanes, the int32 ids of the lanes that step, got {lanes}")
-    _check(mat, beta[0], resid[0], y, zty, znorm2)
+    if isinstance(mat, GivenCol):
+        if mat.z.shape != resid.shape or mat.z.dtype != beta.dtype:
+            raise ValueError(f"need the lanes' given columns {tuple(resid.shape)} in the "
+                             f"state's dtype, got {tuple(mat.z.shape)} {mat.z.dtype}")
+        _check(GivenCol(mat.z[0], mat.sparse), beta[0], resid[0], y, zty, znorm2)
+    else:
+        _check(mat, beta[0], resid[0], y, zty, znorm2)
     if beta.device.type == "cpu":
         return step_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
                                      f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en, tel)
-    sparse = isinstance(mat, tuple)
-    X, rows = mat if sparse else (mat, None)
+    X, rows, head_fn = _matrix_head(mat)
+    sparse = rows is not None
     dtype = beta.dtype
     q_norm = None if en is None else en.q_norm
     if en is not None and (q_norm.shape != (L,) or en.g_sel.shape != (L,)):
@@ -645,10 +724,9 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
     r_out = torch.empty((L, m), dtype=dtype, device=dev)
     s_out = torch.empty((5 if en is None else 6, L), dtype=dtype, device=dev)
     stall_out = torch.empty(L, dtype=torch.int32, device=dev)
-    fn = _build.function("step_tail", "step_tail_launch", _ARGTYPES)
+    fn = head_fn()
     with torch.cuda.device(dev):
-        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
-                 X.shape[-1] if sparse else 0, beta.data_ptr(), beta.shape[1],
+        err = fn(*_head_args(mat), beta.data_ptr(), beta.shape[1],
                  scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
                  f_lin.data_ptr(), resid.data_ptr(), y.data_ptr(), zty.data_ptr(),
                  znorm2.data_ptr(), i_star.data_ptr(), g.data_ptr(), delta.data_ptr(), m,
@@ -663,8 +741,143 @@ def _tail_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_qua
     return (beta, *_outs(s_out, stall_out, r_out))
 
 
+# --------------------------------------------------------------------------
+# The column given (the distributed backend)
+# --------------------------------------------------------------------------
+
+
+def step_tail_given(col: GivenCol, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                    znorm2, i_star, g, delta, cfg, tel=None):
+    """``step_tail`` with the winner's column ``col`` (a ``GivenCol`` of
+    ``(m,)``) in place of the matrix: the tail kernel's ``GIVEN``
+    instantiation (counted on ``step_tail_given``, with ``tel`` on
+    ``step_tail_given_tel``); ``beta``, ``zty`` and ``znorm2`` are the
+    replicated global ones, the residual and ``y`` the rank's sample slice."""
+    return _tail(step_tail_given if tel is None else step_tail_given_tel, col, beta, scale,
+                 maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2, i_star, g, delta, cfg,
+                 None, tel)
+
+
+def step_tail_given_tel(col, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                        i_star, g, delta, cfg, tel):
+    """``step_tail_given`` with the ring record ``tel``."""
+    return step_tail_given(col, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                           i_star, g, delta, cfg, tel)
+
+
+def step_tail_en_given(col: GivenCol, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                       znorm2, i_star, g, delta, cfg, en, tel=None):
+    """``step_tail_en`` with the winner's column given (the EN ``GIVEN``
+    instantiation)."""
+    return _tail(step_tail_en_given if tel is None else step_tail_en_given_tel, col, beta, scale,
+                 maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2, i_star, g, delta, cfg, en,
+                 tel)
+
+
+def step_tail_en_given_tel(col, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
+                           i_star, g, delta, cfg, en, tel):
+    """``step_tail_en_given`` with the ring record ``tel``."""
+    return step_tail_en_given(col, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
+                              znorm2, i_star, g, delta, cfg, en, tel)
+
+
+def step_tail_lanes_given(col: GivenCol, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                          f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, tel=None):
+    """``step_tail_lanes`` with the lanes' columns given (``col.z`` ``(L,
+    m)``; a frozen lane's is unused): the lane ``GIVEN`` instantiation."""
+    return _tail_lanes(step_tail_lanes_given if tel is None else step_tail_lanes_given_tel, col,
+                       beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty,
+                       znorm2, i_star, g, delta, lanes, cfg, None, tel)
+
+
+def step_tail_lanes_given_tel(col, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                              zty, znorm2, i_star, g, delta, lanes, cfg, tel):
+    """``step_tail_lanes_given`` with the lanes' ring records ``tel``."""
+    return step_tail_lanes_given(col, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
+                                 y, zty, znorm2, i_star, g, delta, lanes, cfg, tel)
+
+
+def step_tail_en_lanes_given(col: GivenCol, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                             f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en, tel=None):
+    """``step_tail_en_lanes`` with the lanes' columns given (the EN lane
+    ``GIVEN`` instantiation)."""
+    return _tail_lanes(step_tail_en_lanes_given if tel is None else step_tail_en_lanes_given_tel,
+                       col, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, zty,
+                       znorm2, i_star, g, delta, lanes, cfg, en, tel)
+
+
+def step_tail_en_lanes_given_tel(col, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
+                                 y, zty, znorm2, i_star, g, delta, lanes, cfg, en, tel):
+    """``step_tail_en_lanes_given`` with the lanes' ring records ``tel``."""
+    return step_tail_en_lanes_given(col, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                                    f_lin, y, zty, znorm2, i_star, g, delta, lanes, cfg, en, tel)
+
+
+def owned_column_plain(mat, ids: torch.Tensor, off: int, m: int) -> torch.Tensor:
+    """The plain version of ``owned_column_lanes``: ``dense_columns`` of the
+    local features ``ids - off`` (clipped into the tile), zero rows where
+    the tile does not own the id."""
+    if isinstance(mat, tuple):
+        p_local = mat[0].shape[0] * mat[0].shape[1]
+    else:
+        p_local = mat.shape[0]
+    own = (ids >= off) & (ids < off + p_local)
+    cols = dense_columns(mat, (ids - off).clamp(0, p_local - 1), m)
+    return torch.where(own[:, None], cols, torch.zeros((), dtype=cols.dtype, device=cols.device))
+
+
+def owned_column_lanes(mat, ids: torch.Tensor, off: int, m: int) -> torch.Tensor:
+    """The columns ``(A, m)`` of the global features ``ids`` (int64 ``(A,)``)
+    on a rank's tile ``mat`` (dense ``(p_local, m)`` or the block-ELL
+    ``(values, rows)``) of the global features ``[off, off + p_local)``:
+    an owned id's dense column (its row, or its slots scattered into zeros
+    as ``dense_columns``), zeros for any other (a frozen lane's -1 too), in
+    the tile's dtype. A CPU tensor takes the plain version; a CUDA tensor
+    launches ``owned_column_kernel``, one block an id."""
+    return _owned_column(owned_column_lanes, mat, ids, off, m)
+
+
+def owned_column(mat, i_star: torch.Tensor, off: int, m: int) -> torch.Tensor:
+    """``owned_column_lanes`` of the one id ``i_star`` (0-d): ``(m,)``."""
+    return _owned_column(owned_column, mat, i_star.view(1), off, m).view(-1)
+
+
+def _owned_column(wrapper, mat, ids, off, m):
+    if ids.dim() != 1 or ids.numel() == 0 or ids.dtype != torch.int64:
+        raise ValueError(f"need the ids as int64 (A >= 1,), got {ids.dtype} {tuple(ids.shape)}")
+    X, rows = mat if isinstance(mat, tuple) else (mat, None)
+    if X.device.type == "cpu":
+        return owned_column_plain(mat, ids, off, m)
+    if rows is not None and (rows.dtype != torch.int32 or rows.shape != X.shape):
+        raise TypeError("the row slots must be int32, the values' shape")
+    if rows is None and (X.dim() != 2 or X.shape[1] != m):
+        raise ValueError(f"need the tile (p_local, m = {m}), got {tuple(X.shape)}")
+    ids = ids.contiguous()
+    dev = _build.require_cuda(X, ids, *(() if rows is None else (rows,)))
+    p_local = X.shape[0] * X.shape[1] if rows is not None else X.shape[0]
+    out = torch.empty((ids.numel(), m), dtype=X.dtype, device=dev)
+    fn = _build.function("step_tail", "owned_column_launch", _COLUMN_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
+                 X.shape[-1] if rows is not None else 0, p_local, m, int(off), ids.data_ptr(),
+                 ids.numel(), out.data_ptr(), _build.dtype_code(X), _build.stream(dev))
+        wrapper.launches += 1
+    _build.check("step_tail", err, wrapper.__name__)
+    return out
+
+
 step_tail.launches = 0
 step_tail_en.launches = 0
+step_tail_given.launches = 0
+step_tail_given_tel.launches = 0
+step_tail_en_given.launches = 0
+step_tail_en_given_tel.launches = 0
+step_tail_lanes_given.launches = 0
+step_tail_lanes_given_tel.launches = 0
+step_tail_en_lanes_given.launches = 0
+step_tail_en_lanes_given_tel.launches = 0
+owned_column.launches = 0
+owned_column_lanes.launches = 0
 step_tail_lanes.launches = 0
 step_tail_en_lanes.launches = 0
 step_tail_tel.launches = 0
@@ -944,7 +1157,20 @@ def dir_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf
     tail on 'torch', the plain sparse ops and CPU tensors. Scalars in f32;
     the residual computed in f32 and stored in the state's dtype. Returns a
     ``DirTailOut``."""
-    p, m, dtype = beta.shape[0], y.shape[0], beta.dtype
+    m = y.shape[0]
+    return _dir_tail_plain(
+        lambda ds, away: dense_columns(mat, torch.stack([i_f, ds.i_a]), m), beta, scale, maxabs,
+        stall, resid, s_quad, f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en)
+
+
+def _dir_tail_plain(columns, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b,
+                    i_f, sel_f, delta, refresh: bool, pairwise: bool, cfg, en=None,
+                    complete=None):
+    """``dir_tail_plain`` with the two columns from ``columns(ds, away)``
+    (``away`` the away vertex, ``away_vertex``'s result); ``complete``, when
+    given, sums the three dots (and the refresh's two) across the sample
+    slices of a mesh."""
+    p, dtype = beta.shape[0], beta.dtype
     sel_b = raw_b.float()
     if en is not None:
         sel_b = sel_b + en.l2 * (scale.float() * beta.index_select(0, buf.clamp(0, p - 1)).float())
@@ -954,15 +1180,30 @@ def dir_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf
     ga = None if pairwise else grad_dot_alpha(s_quad, f_lin, en_f)
     a_f = scale.float() * _take(beta, i_f).float()
     ds, use_alt = dir_choice(sel_f, a_f, i_f, away, delta, ga, pairwise, cfg.eps_den)
-    z = dense_columns(mat, torch.stack([i_f, ds.i_a]), m).float()
+    z = columns(ds, away).float()
     u = ds.df * z[0] + ds.da * z[1]
     rf, yf = resid.float(), y.float()
-    g, no_progress, aux = dir_line_search(ds, u, rf, yf, s_quad, f_lin, cfg.eps_den, cfg.gap_rtol,
-                                          en_f)
+    if complete is None:
+        g, no_progress, aux = dir_line_search(ds, u, rf, yf, s_quad, f_lin, cfg.eps_den,
+                                              cfg.gap_rtol, en_f)
+    else:
+        v = yf - rf
+        vu, uu, uy = complete(torch.stack([torch.dot(v, u), torch.dot(u, u),
+                                           torch.dot(u, yf)])).unbind()
+        g, no_progress = dir_ls_closed_form(ds, s_quad, f_lin, vu, uu, cfg.eps_den, cfg.gap_rtol,
+                                            en_f)
     beta, scale, maxabs, step_inf, stall = apply_dir_update(beta, scale, maxabs, stall, ds, g,
                                                             no_progress, cfg)
-    resid, s_quad, f_lin, q_norm = dir_update_co(rf, yf, u, ds, g, s_quad, f_lin, aux, refresh,
-                                                 dtype, None if en_f is None else en_f.q_norm)
+    if complete is None:
+        resid, s_quad, f_lin, q_norm = dir_update_co(rf, yf, u, ds, g, s_quad, f_lin, aux,
+                                                     refresh, dtype,
+                                                     None if en_f is None else en_f.q_norm)
+    else:
+        resid, s_quad, f_lin, q_norm = dir_co_recursion(rf, yf, u, ds, g, s_quad, f_lin, vu, uu,
+                                                        uy, None if en_f is None else en_f.q_norm)
+        resid = resid.to(dtype)
+        if refresh:
+            s_quad, f_lin = _refresh_dots(resid, yf, complete)
     # the FW atom enters the active set whenever it gained weight
     took_fw = (ds.df != 0.0) & (g > 0.0)
     buf = torch.where(took_fw, insert_active(buf, i_f, beta), buf)
@@ -972,11 +1213,46 @@ def dir_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf
                       torch.where(use_alt, ds.i_a, i_f), ds.i_a, g)
 
 
+def _refresh_dots(resid, yf, complete):
+    """S and F exactly from the new residual, ``v.v`` and ``v.y`` (``v = y -
+    R``) summed across the sample slices by ``complete``, in f32."""
+    v = yf - resid.float()
+    return complete(torch.stack([torch.dot(v, v), torch.dot(v, yf)])).unbind()
+
+
+def dir_tail_given_plain(zcols, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b,
+                         i_f, sel_f, delta, refresh: bool, pairwise: bool, cfg,
+                         en: DirEN | None = None, complete=None):
+    """The plain version of ``dir_tail_given``: ``dir_tail_plain`` with the
+    columns read from ``zcols`` (z_f, feature 0's, each slot's: the away
+    vertex's row is that of any slot whose clipped id is its id, all such
+    rows the same column, or feature 0's when no slot is valid) and, with
+    ``complete``, the dots summed across the sample slices."""
+    p = beta.shape[0]
+
+    def columns(ds, away):
+        hit = (buf.clamp(0, p - 1) == ds.i_a).to(torch.int32)
+        row_a = torch.where(away[4], 2 + torch.argmax(hit), 1)
+        return zcols.index_select(0, torch.stack([row_a.new_zeros(()), row_a]))
+
+    return _dir_tail_plain(columns, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
+                           raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en, complete)
+
+
+def dir_column_ids(i_f, buf, p: int) -> torch.Tensor:
+    """The ids whose columns ``dir_tail_given`` reads: ``i_f``, 0, then each
+    slot's id clipped to [0, p)."""
+    return torch.cat([i_f.view(1), i_f.new_zeros(1), buf.clamp(0, p - 1)])
+
+
 # (X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin, q_norm, resid, y, buf, n_buf,
 #  raw_b, i_f, sel_f, delta, m, pairwise, refresh, l2, renorm_threshold, eps_den, gap_rtol, tol,
 #  r_out, s_out, stall_out, buf_out, i_out, g_out, scratch, dtype, stream)
 _DIR_ARGTYPES = ([_PTR, _PTR, _I32, _PTR, _I64] + [_PTR] * 9 + [_I32] + [_PTR] * 4
                  + [_I32, _I32, _I32] + [_F32] * 5 + [_PTR] * 7 + [_I32, _PTR])
+# (zcols, beta, p, ..., scratch, phase, dots, dtype, stream): dir_tail_launch's arguments
+# from beta on, the phase and the dots' buffer before the dtype
+_DIR_GIVEN_ARGTYPES = [_PTR] + _DIR_ARGTYPES[3:-2] + [_I32, _PTR, _I32, _PTR]
 DIR_ROWS = 4096  # DT_ROWS of csrc/step_tail.cu: the residual rows a block owns
 DIR_MAX_SLOTS = 512  # DT_MAX_SLOTS: the largest buffer the kernel takes
 
@@ -1011,17 +1287,49 @@ def dir_tail_en(mat, beta: torch.Tensor, scale: torch.Tensor, maxabs: torch.Tens
                 raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en)
 
 
+def dir_tail_given(zcols, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f,
+                   sel_f, delta, refresh: bool, pairwise: bool, cfg, complete=None):
+    """The lasso's direction tail on a rank's sample slice with the columns
+    given: ``zcols (n_buf + 2, m)`` (``dir_column_ids``' columns, completed
+    across the ranks that split the features), the kernel's ``GIVEN``
+    instantiation. Without ``complete`` one launch; with it (the samples
+    split across ranks) a launch for the three dots, ``complete`` of them,
+    a launch for the rest, and S and F refreshed on the host when asked.
+    A CPU tensor takes ``dir_tail_given_plain``. Returns a ``DirTailOut``."""
+    return _dir(dir_tail_given, zcols, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
+                raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, None, complete)
+
+
+def dir_tail_en_given(zcols, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b,
+                      i_f, sel_f, delta, refresh: bool, pairwise: bool, cfg, en: DirEN,
+                      complete=None):
+    """``dir_tail_given`` for the elastic-net (the EN ``GIVEN``
+    instantiation)."""
+    return _dir(dir_tail_en_given, zcols, beta, scale, maxabs, stall, resid, s_quad, f_lin, y,
+                buf, raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en, complete)
+
+
 def _dir(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f,
-         sel_f, delta, refresh, pairwise, cfg, en):
-    """``dir_tail`` (``en`` None) or ``dir_tail_en``: the plain version on a
-    CPU tensor, else one cooperative launch, counted on ``wrapper``."""
+         sel_f, delta, refresh, pairwise, cfg, en, complete=None):
+    """``dir_tail`` (``en`` None) or ``dir_tail_en``, or their ``GIVEN``
+    forms (``wrapper`` ``dir_tail_given``/``dir_tail_en_given``, ``mat`` the
+    columns): the plain version on a CPU tensor, else one cooperative
+    launch (two with ``complete``), counted on ``wrapper``."""
+    given = wrapper in (dir_tail_given, dir_tail_en_given)
     if beta.dim() != 1 or resid.shape != y.shape or y.dim() != 1:
         raise ValueError(f"need beta (p,), resid and y (m,), got {tuple(beta.shape)}, "
                          f"{tuple(resid.shape)}, {tuple(y.shape)}")
     if buf.dim() != 1 or buf.numel() == 0 or raw_b.shape != buf.shape:
         raise ValueError(f"need a buffer (n >= 1,) and its scores (n,), got {tuple(buf.shape)}, "
                          f"{tuple(raw_b.shape)}")
+    if given and (mat.dim() != 2 or mat.shape != (buf.numel() + 2, y.shape[0])):
+        raise ValueError(f"need the columns ({buf.numel() + 2}, {y.shape[0]}), got "
+                         f"{tuple(mat.shape)}")
     if beta.device.type == "cpu":
+        if given:
+            return dir_tail_given_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y,
+                                        buf, raw_b, i_f, sel_f, delta, refresh, pairwise, cfg,
+                                        en, complete)
         return dir_tail_plain(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
                               raw_b, i_f, sel_f, delta, refresh, pairwise, cfg, en)
     sparse = isinstance(mat, tuple)
@@ -1038,7 +1346,7 @@ def _dir(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
                         "scores and delta float32")
     if sparse and (rows.dtype != torch.int32 or rows.shape != X.shape):
         raise TypeError("the row slots must be int32, the values' shape")
-    if not sparse and (X.dim() != 2 or X.shape != (beta.shape[0], y.shape[0])):
+    if not sparse and not given and (X.dim() != 2 or X.shape != (beta.shape[0], y.shape[0])):
         raise ValueError(f"need Xt (p, m) = ({beta.shape[0]}, {y.shape[0]}), got "
                          f"{tuple(X.shape)}")
     if buf.numel() > DIR_MAX_SLOTS:
@@ -1057,21 +1365,41 @@ def _dir(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
     i_out = torch.empty(2, dtype=torch.int64, device=dev)
     g_out = torch.empty((), dtype=torch.float32, device=dev)
     scratch = torch.empty(5 * blocks, dtype=torch.float32, device=dev)
-    fn = _build.function("step_tail", "dir_tail_launch", _DIR_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
-                 X.shape[-1] if sparse else 0, beta.data_ptr(), beta.shape[0],
-                 scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
-                 f_lin.data_ptr(), None if en is None else q_norm.data_ptr(), resid.data_ptr(),
-                 y.data_ptr(), buf.data_ptr(), buf.numel(), raw_b.data_ptr(), i_f.data_ptr(),
-                 sel_f.data_ptr(), delta.data_ptr(), m, int(pairwise), int(refresh),
-                 0.0 if en is None else _build.f32(en.l2), _build.f32(cfg.renorm_threshold),
-                 _build.f32(cfg.eps_den), _build.f32(cfg.gap_rtol), _build.f32(cfg.tol),
-                 r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(), buf_out.data_ptr(),
-                 i_out.data_ptr(), g_out.data_ptr(), scratch.data_ptr(),
-                 _build.dtype_code(beta), _build.stream(dev))
-        wrapper.launches += 1
-    _build.check("step_tail", err, wrapper.__name__)
+
+    def launch(phase, dots, refresh_):
+        args = (beta.data_ptr(), beta.shape[0],
+                scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
+                f_lin.data_ptr(), None if en is None else q_norm.data_ptr(), resid.data_ptr(),
+                y.data_ptr(), buf.data_ptr(), buf.numel(), raw_b.data_ptr(), i_f.data_ptr(),
+                sel_f.data_ptr(), delta.data_ptr(), m, int(pairwise), int(refresh_),
+                0.0 if en is None else _build.f32(en.l2), _build.f32(cfg.renorm_threshold),
+                _build.f32(cfg.eps_den), _build.f32(cfg.gap_rtol), _build.f32(cfg.tol),
+                r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(), buf_out.data_ptr(),
+                i_out.data_ptr(), g_out.data_ptr(), scratch.data_ptr())
+        with torch.cuda.device(dev):
+            if given:
+                fn = _build.function("step_tail", "dir_tail_given_launch", _DIR_GIVEN_ARGTYPES)
+                err = fn(X.data_ptr(), *args, phase,
+                         None if dots is None else dots.data_ptr(), _build.dtype_code(beta),
+                         _build.stream(dev))
+            else:
+                fn = _build.function("step_tail", "dir_tail_launch", _DIR_ARGTYPES)
+                err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
+                         X.shape[-1] if sparse else 0, *args, _build.dtype_code(beta),
+                         _build.stream(dev))
+            wrapper.launches += 1
+        _build.check("step_tail", err, wrapper.__name__)
+
+    if complete is None:
+        launch(0, None, refresh)
+    else:  # the dots, completed across the sample slices, then the rest
+        dots = torch.empty(3, dtype=torch.float32, device=dev)
+        launch(1, dots, False)
+        dots = complete(dots)
+        launch(2, dots, False)
+        if refresh:
+            s_new, f_new = _refresh_dots(r_out, y.float(), complete)
+            s_out[3], s_out[4] = s_new.to(dtype), f_new.to(dtype)
     new_scale, new_maxabs, step_inf, new_s, new_f, *q = s_out.unbind()
     i_star, i_a = i_out.unbind()
     return DirTailOut(beta, new_scale, new_maxabs, step_inf, stall_out, r_out, new_s, new_f,
@@ -1080,3 +1408,5 @@ def _dir(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, buf,
 
 dir_tail.launches = 0
 dir_tail_en.launches = 0
+dir_tail_given.launches = 0
+dir_tail_en_given.launches = 0

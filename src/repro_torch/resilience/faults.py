@@ -21,7 +21,7 @@ Fault sites and their ``kind``:
   * ``kill``: ``check_kill`` raises :class:`InjectedKill` at a path grid
     point / lane chunk (``core/path.py``), exercising checkpoint/resume;
   * ``delay``: ``maybe_delay`` sleeps inside a distributed dispatch
-    (the distributed driver, ROADMAP.md Queue 1 item 13).
+    (``repro_torch.distributed.driver``'s dispatch timeout).
 
 Matching: every hook call increments a per-``(kind, site)`` occurrence
 counter; a spec fires when its kind matches, its ``site`` filter matches

@@ -45,7 +45,8 @@ Every check, trip and recovery is counted in the metrics registry
 (``fw_guard_checks``, ``fw_guard_trips{reason}``,
 ``fw_guard_recoveries{rung}``, ``fw_guard_unrecovered``); an exhausted
 ladder raises :class:`UnrecoverableFaultError`. The distributed guard
-(``solve_resilient_sharded``) waits for ROADMAP.md Queue 1 item 13.
+(``solve_resilient_sharded``) runs the ladder's rungs 1-2 on every rank of a
+mesh, its health verdict reduced over the mesh (``mesh_health_check``).
 """
 from __future__ import annotations
 
@@ -174,11 +175,6 @@ def health_check(state, cfg: FWConfig):
     return beta_ok, co_ok, stall
 
 
-def _healthy(state, cfg: FWConfig) -> bool:
-    beta_ok, co_ok, _ = health_check(state, cfg)
-    return bool(beta_ok and co_ok)
-
-
 def _advance(oracle, Xt, y, stats, state, cfg: FWConfig, delta, n_turns: int, sampler,
              use_ref: bool, turns: Optional[list] = None):
     """Up to ``n_turns`` turns of ``engine.run_loop``'s body, each after the
@@ -229,6 +225,28 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
                            device=Xt.device)
     stats = engine.precompute_colstats(Xt, y, cfg) if oracle.needs_stats else None
     state = engine.init_state(oracle, Xt, y, alpha0, cfg)
+    state, live_cfg, stats = _watch(oracle, Xt, y, stats, state, cfg, delta_t, sampler, guard,
+                                    on_step=on_step)
+    return engine._result(oracle, Xt, y, stats, state, engine._patience(live_cfg), live_cfg,
+                          delta_t)
+
+
+def _direct(entry: str, fn):
+    return fn()
+
+
+def _watch(oracle, Xt, y, stats, state, cfg: FWConfig, delta_t, sampler, guard: GuardSpec, *,
+           check=health_check, call=_direct, on_step=None):
+    """The watchdog loop and its degradation ladder, shared by both guards:
+    chunks of ``guard.chunk_steps`` turns, ``check(state, cfg) -> (beta_ok,
+    co_ok, stall)`` every ``guard.check_every`` chunks (and the certified
+    gap every ``guard.gap_check_every``), and on a trip rung 1 (the
+    co-state rebuilt), rung 2 (the chunk retried from its snapshot, the
+    sampler put back) and rung 3 (``fallback_config``'s backend, where
+    there is one: CPU operands of 'kernels' or the sparse kernels; never a
+    mesh). ``call(entry, fn)`` runs each chunk and rebuild (the mesh's
+    dispatch policy; by default ``fn()``); ``on_step`` as
+    ``solve_resilient``'s. Returns ``(state, live config, live stats)``."""
     live_cfg = cfg
     trips = 0
     chunk = 0
@@ -244,20 +262,25 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
         for s in turns or ():
             on_step(s)
 
+    def healthy(s, c) -> bool:
+        beta_ok, co_ok, _ = check(s, c)
+        return bool(beta_ok and co_ok)
+
     while not done(state):
         checked_stall = None
         prev.take(state)
         pos = sampler.position()
         turns = None if on_step is None else []
-        state = _advance(oracle, Xt, y, stats, state, live_cfg, delta_t, guard.chunk_steps,
-                         sampler, False, turns)
+        start = state
+        state = call("rchunk", lambda: _advance(oracle, Xt, y, stats, start, live_cfg, delta_t,
+                                                guard.chunk_steps, sampler, False, turns))
         state = faults.maybe_corrupt_state(state, chunk)
         chunk += 1
         if chunk % guard.check_every:
             keep(turns)
             continue
         _observe("fw_guard_checks", live_cfg.backend)
-        beta_ok, co_ok, stall = health_check(state, live_cfg)
+        beta_ok, co_ok, stall = check(state, live_cfg)
         reason = None
         if not (beta_ok and co_ok):
             reason = "nonfinite_beta" if not beta_ok else "nonfinite_co"
@@ -286,8 +309,9 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
         recovered = False
         # rung 1: exact-matvec co rebuild (needs a finite alpha)
         if beta_ok:
-            cand = _rebuild_co(oracle, Xt, y, state, live_cfg)
-            if _healthy(cand, live_cfg):
+            bad = state
+            cand = call("rrebuild", lambda: _rebuild_co(oracle, Xt, y, bad, live_cfg))
+            if healthy(cand, live_cfg):
                 state, recovered = cand, True
                 min_gap = float("inf")
                 _observe("fw_guard_recoveries", live_cfg.backend, rung="rebuild_co")
@@ -296,9 +320,10 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
         if not recovered:
             sampler.restore(pos)
             turns = None if on_step is None else []
-            cand = _retry_chunk(oracle, Xt, y, stats, prev.restore(), live_cfg, delta_t,
-                                guard.chunk_steps, sampler, turns)
-            if _healthy(cand, live_cfg):
+            cand = call("rchunk", lambda: _retry_chunk(oracle, Xt, y, stats, prev.restore(),
+                                                       live_cfg, delta_t, guard.chunk_steps,
+                                                       sampler, turns))
+            if healthy(cand, live_cfg):
                 state, recovered = cand, True
                 min_gap = float("inf")
                 _observe("fw_guard_recoveries", live_cfg.backend, rung="retry_chunk")
@@ -320,7 +345,7 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
                 turns = None if on_step is None else []
                 cand = _advance(oracle, Xt, y, fb_stats, prev.restore(), fb, delta_t,
                                 guard.chunk_steps, sampler, False, turns)
-                if _healthy(cand, fb):
+                if healthy(cand, fb):
                     _observe("fw_guard_recoveries", fb.backend, rung="backend_fallback")
                     state, recovered = cand, True
                     live_cfg, stats = fb, fb_stats
@@ -331,9 +356,7 @@ def solve_resilient(oracle, Xt, y, cfg: FWConfig, sampler, alpha0=None, delta=No
             raise UnrecoverableFaultError(
                 f"degradation ladder exhausted (reason: {reason}, backend: {live_cfg.backend})"
             )
-
-    return engine._result(oracle, Xt, y, stats, state, engine._patience(live_cfg), live_cfg,
-                          delta_t)
+    return state, live_cfg, stats
 
 
 def _retry_chunk(oracle, Xt, y, stats, state, cfg: FWConfig, delta, n_turns: int, sampler,
@@ -353,9 +376,56 @@ def resilient_solve_fn(guard: Optional[GuardSpec] = None):
     return fn
 
 
-def solve_resilient_sharded(oracle, op, cfg: FWConfig, key, alpha0=None, delta=None, *,
-                            guard: Optional[GuardSpec] = None):
-    """The distributed guard: not ported yet."""
-    raise NotImplementedError(
-        "solve_resilient_sharded needs the distributed backend: ROADMAP.md Queue 1 item 13"
-    )
+def mesh_health_check(state, cfg: FWConfig):
+    """``health_check`` on a rank of a mesh: ``health_flags`` (one launch on
+    the card) on the rank's state, whose co-state is its sample slice, and
+    one all_reduce over the mesh of the two flags' failures, so every rank
+    takes the same branch. Returns ``(beta_ok, co_ok, stall)`` as host
+    ints."""
+    from repro_torch.distributed import backend as dbackend  # lazy: layered on top
+
+    leaves = [t for t in state.co if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    flags = health.health_flags(state.beta, state.scale, leaves, state.stall)
+    bad = dbackend.all_reduce((1 - flags[:2]).contiguous(), dbackend.current_mesh(cfg), "world")
+    n_bad_beta, n_bad_co = bad.tolist()
+    return int(n_bad_beta == 0), int(n_bad_co == 0), int(flags[2])
+
+
+def solve_resilient_sharded(oracle, op, cfg: FWConfig, sampler, alpha0=None, delta=None, *,
+                            guard: Optional[GuardSpec] = None) -> engine.SolveResult:
+    """``distributed.solve`` under the watchdog (the reference's
+    ``resilience/guards.py:337-365``), on every rank of ``op``'s mesh with a
+    sampler of the same stream: ``solve_resilient``'s loop and ladder, each
+    chunk a dispatch under the active ``dispatch_policy``, the health check
+    ``mesh_health_check`` (the verdict reduced over the mesh, so every rank
+    trips and heals together). Rungs 1-2 only: there is no backend rung on
+    a mesh, so a trip that rung 2 does not heal raises
+    :class:`UnrecoverableFaultError`, on the card as on the CPU. The classic
+    step rule with telemetry off, as the reference's. Bit for bit
+    ``distributed.solve`` for a run with no fault."""
+    if cfg.step_rule != "classic" or cfg.telemetry is not None:
+        raise ValueError(
+            "solve_resilient_sharded supports the classic step rule with telemetry off "
+            "(rule/ring state is not gathered across chunks)"
+        )
+    from repro_torch.distributed import backend as dbackend  # lazy: layered on top
+    from repro_torch.distributed import driver as ddriver
+
+    guard = GuardSpec() if guard is None else guard
+    dcfg = ddriver._prepare(op, cfg)
+    Xt, y = op.tile, op.y
+    delta_t = torch.tensor(float(cfg.delta if delta is None else delta), dtype=torch.float32,
+                           device=op.device)
+    a0 = ddriver._alpha0(op, alpha0)
+
+    def rinit():
+        stats = engine.precompute_colstats(Xt, y, dcfg, op.p) if oracle.needs_stats else None
+        return stats, engine.init_state(oracle, Xt, y, a0, dcfg, op.p)
+
+    with dbackend.on_mesh(op.mesh):
+        stats, state = ddriver._call_with_policy("rinit", rinit)
+        state, _, _ = _watch(oracle, Xt, y, stats, state, dcfg, delta_t, sampler, guard,
+                             check=mesh_health_check, call=ddriver._call_with_policy)
+        return ddriver._call_with_policy(
+            "rresult", lambda: engine._result(oracle, Xt, y, stats, state,
+                                              engine._patience(dcfg), dcfg, delta_t))

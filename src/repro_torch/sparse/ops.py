@@ -30,6 +30,13 @@ from repro_torch.kernels.sparse_colstats import sparse_colstats_plain
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores as _scores_kernel
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores_lanes
 from repro_torch.kernels.sparse_grad import sparse_sampled_scores_plain
+# the reference's names of the kernel entries this module imports
+# (``repro.sparse.ops``'s imports of K5, its plain twin and K6)
+from repro_torch.kernels.sparse_grad import sparse_sampled_scores  # noqa: F401
+from repro_torch.kernels.sparse_grad import (  # noqa: F401
+    sparse_sampled_scores_plain as sparse_sampled_scores_ref)
+from repro_torch.kernels.sparse_colstats import (  # noqa: F401
+    sparse_colstats as sparse_colstats_fused)
 from repro_torch.kernels.step_tail import sparse_residual_update  # noqa: F401 (eq. 10)
 from repro_torch.sparse.matrix import SparseBlockMatrix
 

@@ -290,7 +290,9 @@ def test_unported_lane_options_raise(prob, tmp_path):
     with pytest.raises(NotImplementedError, match="item 9a"):
         engine.solve_batched(LASSO, Xt, y, FWConfig(delta=1.0, step_rule="away"),
                              LaneSampler(0, 1, "cpu"), None, [1.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # as the reference's: the distributed backend runs only through its drivers,
+    # on a ShardedOperand (tests/test_torch_distributed.py runs them)
+    with pytest.raises(ValueError, match="only runs inside repro_torch.distributed"):
         path.fw_path_batched(Xt, y, [1.0], FWConfig(delta=1.0, backend="distributed"),
                              device="cpu")
 

@@ -1755,3 +1755,247 @@ def test_shard_assembly_on_the_card_is_the_cpu_one(tmp_path):
     assert gpu.values.is_cuda and torch.equal(gpu.values.cpu(), cpu.values)
     assert torch.equal(gpu.rows.cpu(), cpu.rows) and torch.equal(y_gpu.cpu(), y_cpu)
     assert np.array_equal(y_cpu.numpy(), y)
+
+
+# --------------------------------------------------------------------------
+# The distributed backend's instantiations (owned scores, owned columns, the
+# tails with the column given) and a (1, 1) NCCL mesh
+# --------------------------------------------------------------------------
+
+
+def _mesh_design(layout, dtype=torch.float32, p=3001, m=517):
+    from repro_torch.sparse import SparseBlockMatrix
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+    X = torch.randn((p, m), generator=g, device="cuda")
+    X[torch.rand((p, m), generator=g, device="cuda") < 0.8] = 0.0
+    if layout == "dense":
+        return X.to(dtype)
+    return SparseBlockMatrix.from_dense(X.cpu().numpy(), block_size=64).astype(dtype).to("cuda")
+
+
+def _mesh_tiles(design, n=4):
+    if isinstance(design, torch.Tensor):
+        pl = -(-design.shape[0] // n)
+        return [(design[i * pl:(i + 1) * pl], i * pl) for i in range(n)]
+    nb = -(-design.nblocks // n)
+    return [((design.values[i * nb:(i + 1) * nb], design.rows[i * nb:(i + 1) * nb]),
+             i * nb * design.block_size) for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_owned_scores_sum_to_the_scores_on_the_card(layout, dtype):
+    """Each tile's owned scores (K2's or K5's OWNED instantiation) within
+    RTOL_SUM of their plain version, +0.0 off the tile, and their sum over
+    the tiles bitwise the single-device kernel's scores; the lane form
+    bitwise each lane's one-lane launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import sparse_grad as sg
+
+    dt = getattr(torch, dtype)
+    design = _mesh_design(layout, dt)
+    sparse = not isinstance(design, torch.Tensor)
+    p = design.shape[0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(32)
+    r = torch.randn(design.shape[1], generator=g, device="cuda")
+    blk = torch.randint(0, p, (700,), generator=g, device="cuda")
+    tiles = _mesh_tiles(design)
+    if sparse:
+        want = sg.sparse_sampled_scores(design.values, design.rows, r, blk, 1)
+        fn = lambda t, b, o: sg.sparse_sampled_scores_owned(t[0], t[1], r, b, 1, o)  # noqa
+        plain = lambda t, b, o: sg.sparse_sampled_scores_owned_plain(t[0], t[1], r, b, 1, o)  # noqa
+    else:
+        want = fw.sampled_scores(design, r, blk, 1)
+        fn = lambda t, b, o: fw.sampled_scores_owned(t, r, b, 1, o)  # noqa: E731
+        plain = lambda t, b, o: fw.sampled_scores_owned_plain(t, r, b, 1, o)  # noqa: E731
+    total = torch.zeros_like(want)
+    for tile, off in tiles:
+        got = fn(tile, blk, off)
+        assert torch.equal(got, fn(tile, blk, off))
+        scale = float(torch.linalg.vector_norm(r)) * 4.0
+        torch.testing.assert_close(got, plain(tile, blk, off), rtol=0, atol=RTOL_SUM * scale)
+        total += got
+    assert torch.equal(total, want)
+    lanes = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    R = torch.randn(3, design.shape[1], generator=g, device="cuda")
+    blkL = torch.randint(0, p, (3, 200), generator=g, device="cuda")
+    tile, off = tiles[1]
+    if sparse:
+        lo = sg.sparse_sampled_scores_lanes_owned(tile[0], tile[1], R, blkL, 1, lanes, off)
+        one = [sg.sparse_sampled_scores_owned(tile[0], tile[1], R[k].contiguous(), blkL[k], 1,
+                                              off) for k in (0, 2)]
+    else:
+        lo = fw.sampled_scores_lanes_owned(tile, R, blkL, 1, lanes, off)
+        one = [fw.sampled_scores_owned(tile, R[k].contiguous(), blkL[k], 1, off) for k in (0, 2)]
+    assert torch.equal(lo[0], one[0]) and torch.equal(lo[2], one[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_owned_columns_and_given_tails_on_the_card(layout):
+    """``owned_column_lanes`` bitwise its plain version on each tile, the
+    tiles' sum bitwise the dense columns; the tail with the column given
+    (the lasso's and the EN's, one lane and lanes, each with and without
+    the ring's record) and the direction tail with its columns given (the
+    lasso's and the EN's, one launch and split) bitwise the single-device
+    tail kernels and their plain versions, the rings too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.kernels import step_tail as st
+    from repro_torch.obs import telemetry as tl
+
+    design = _mesh_design(layout)
+    sparse = not isinstance(design, torch.Tensor)
+    mat = (design.values, design.rows) if sparse else design
+    p, m = design.shape
+    ids = torch.tensor([0, 750, 751, 1501, p - 1, -1, 9, 9], device="cuda")
+    want = st.dense_columns(mat, ids.clamp_min(0), m)
+    want[ids < 0] = 0
+    total = torch.zeros_like(want)
+    for tile, off in _mesh_tiles(design):
+        got = st.owned_column_lanes(tile, ids, off, m)
+        assert torch.equal(got, st.owned_column_plain(tile, ids, off, m))
+        assert torch.equal(st.owned_column(tile, ids[2], off, m), got[2])
+        total += got
+    assert torch.equal(total, want)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(33)
+    cfg = FWConfig(delta=5.0)
+
+    def state():
+        gg = torch.Generator(device="cuda")
+        gg.manual_seed(34)
+        t = lambda v: torch.tensor(v, device="cuda")  # noqa: E731
+        return (torch.randn(p, generator=gg, device="cuda"),
+                (t(0.7), t(2.0), torch.tensor(3, dtype=torch.int32, device="cuda"),
+                 torch.randn(m, generator=gg, device="cuda"), t(30.0), t(10.0),
+                 torch.randn(m, generator=gg, device="cuda"),
+                 torch.randn(p, generator=gg, device="cuda"),
+                 torch.rand(p, generator=gg, device="cuda") + 0.5, t(7), t(-7.5), t(5.0)))
+
+    col = st.GivenCol(st.dense_columns(mat, torch.tensor([7], device="cuda"), m)[0], sparse)
+    en = st.ENTail(torch.tensor(-6.0, device="cuda"), torch.tensor(0.4, device="cuda"), 1.0)
+    yty = torch.tensor(2.0, device="cuda")
+    for e in (None, en):
+        for tel in (False, True):
+            beta, args = state()
+            rings = [torch.zeros(10 * 8, dtype=torch.int32, device="cuda") for _ in range(3)]
+            recs = [st.TailRecord(r, 8, 5, 17, 99, True, yty) if tel else None for r in rings]
+            a = (st.step_tail(mat, beta.clone(), *args, cfg, recs[0]) if e is None
+                 else st.step_tail_en(mat, beta.clone(), *args, cfg, e, recs[0]))
+            b = (st.step_tail_given(col, beta.clone(), *args, cfg, recs[1]) if e is None
+                 else st.step_tail_en_given(col, beta.clone(), *args, cfg, e, recs[1]))
+            c = st.step_tail_plain(col, beta.clone(), *args, cfg, e, recs[2])
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert all(torch.equal(x, y) for x, y in zip(b, c))
+            assert torch.equal(rings[0], rings[1]) and torch.equal(rings[1], rings[2])
+    L = 3
+    beta, args = state()
+    stack = lambda t: torch.stack([t.clone() for _ in range(L)])  # noqa: E731
+    i_l = torch.tensor([7, 100, 2000], device="cuda")
+    largs = (stack(args[0]), stack(args[1]), stack(args[1]), stack(args[2]), stack(args[3]),
+             stack(args[4]), stack(args[5]), args[6], args[7], args[8], i_l,
+             torch.full((L,), -7.5, device="cuda"), torch.full((L,), 5.0, device="cuda"))
+    lanes = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    zl = st.GivenCol(st.dense_columns(mat, i_l, m), sparse)
+    en_l = st.ENTail(torch.full((L,), -7.0, device="cuda"), torch.full((L,), 40.0, device="cuda"),
+                     1.0)
+    for e in (None, en_l):
+        for tel in (False, True):
+            outs = []
+            for route in ("single", "given", "plain"):
+                ring = tl.init_ring(tl.TelemetrySpec(capacity=8), "cuda", L)
+                rec = (st.TailRecord(ring.buf, 8, 0, 0, 99, True, yty, [0] * L, ring.dev_cursor)
+                       if tel else None)
+                b = stack(beta)
+                if route == "plain":
+                    o = st.step_tail_lanes_plain(zl, b, *largs, lanes, cfg, e, rec)
+                elif e is None:
+                    o = (st.step_tail_lanes(mat, b, *largs, lanes, cfg, tel=rec) if route ==
+                         "single" else st.step_tail_lanes_given(zl, b, *largs, lanes, cfg, rec))
+                else:
+                    o = (st.step_tail_en_lanes(mat, b, *largs, lanes, cfg, e, tel=rec)
+                         if route == "single"
+                         else st.step_tail_en_lanes_given(zl, b, *largs, lanes, cfg, e, rec))
+                outs.append((o, ring))
+            (a, ra), (b, rb), (c, rc) = outs
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert all(torch.equal(x, y) for x, y in zip(b, c))
+            assert torch.equal(ra.buf, rb.buf) and torch.equal(rb.buf, rc.buf)
+            assert torch.equal(ra.dev_cursor, rb.dev_cursor)
+            assert torch.equal(rb.dev_cursor, rc.dev_cursor)
+
+    buf = torch.full((32,), -1, dtype=torch.int64, device="cuda")
+    buf[:3] = torch.tensor([3, 9, 20], device="cuda")
+    raw_b = torch.randn(32, generator=g, device="cuda")
+    for pairwise in (False, True):
+        beta = torch.zeros(p, device="cuda")
+        beta[[3, 9, 20]] = torch.tensor([0.5, -0.25, 0.125], device="cuda")
+        t = lambda v: torch.tensor(v, device="cuda")  # noqa: E731
+        dargs = (t(0.7), t(2.0), torch.tensor(3, dtype=torch.int32, device="cuda"),
+                 torch.randn(m, generator=g, device="cuda"), t(30.0), t(10.0),
+                 torch.randn(m, generator=g, device="cuda"), buf, raw_b, t(30), t(0.9), t(5.0),
+                 False, pairwise, cfg)
+        zc = st.dense_columns(mat, st.dir_column_ids(t(30), buf, p), m)
+        den = st.DirEN(1.0, t(0.4))
+        for e in (None, den):
+            a = (st.dir_tail(mat, beta.clone(), *dargs) if e is None
+                 else st.dir_tail_en(mat, beta.clone(), *dargs, e))
+            for complete in (None, lambda x: x):
+                b = (st.dir_tail_given(zc, beta.clone(), *dargs, complete=complete) if e is None
+                     else st.dir_tail_en_given(zc, beta.clone(), *dargs, e, complete=complete))
+                assert all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_nccl_world_one_mesh_solve_is_the_single_device_solve(layout):
+    """A (1, 1) mesh over NCCL: the distributed solve bit for bit the
+    single-device solve on the same sampler (the kernels' backend dense,
+    'sparse' block-ELL), through the owned scores, the owned column and
+    the tail with the column given."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    import socket
+
+    import torch.distributed as tdist
+
+    from repro_torch import distributed as D
+    from repro_torch.core import TorchSampler, engine
+
+    design = _mesh_design(layout)
+    sparse = not isinstance(design, torch.Tensor)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(35)
+    y = torch.randn(design.shape[1], generator=g, device="cuda")
+    cfg = FWConfig(delta=20.0, kappa=100, max_iters=200, tol=0.0, patience=10**9,
+                   backend="sparse" if sparse else "kernels")
+    made = not tdist.is_initialized()
+    if made:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                 rank=0)
+    try:
+        mesh = D.fw_mesh(1, 1)
+        op = D.shard_sparse(design, y, mesh) if sparse else D.shard_dense(design, y, mesh)
+        before = launch_counts()
+        a = D.solve(LASSO, op, cfg, TorchSampler(3))
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        b = engine.solve(LASSO, design, y, cfg, TorchSampler(3))
+    finally:
+        if made:
+            tdist.destroy_process_group()
+    assert torch.equal(a.alpha, b.alpha) and a.iterations == b.iterations == 200
+    assert a.n_dots == b.n_dots and float(a.objective) == float(b.objective)
+    sk = "sparse_sampled_scores_owned" if sparse else "sampled_scores_owned"
+    for name in (sk, "owned_column", "step_tail_given", "vertex_argmax"):
+        assert launched[name] == 200, (name, launched[name])
+    assert launched["step_tail"] == 0

@@ -91,7 +91,9 @@ def test_entry_points_need_a_card_unless_told_cpu():
     # telemetry is ported (ROADMAP.md item 11): only a spec of another type is
     # refused; the case keeps its id
     pytest.param(dict(telemetry=object()), TypeError, "TelemetrySpec", id="change0-item 11"),
-    pytest.param(dict(backend="distributed"), NotImplementedError, "item 13",
+    # the distributed backend is ported (ROADMAP.md item 13): as the reference's,
+    # a plain tensor with backend='distributed' is refused; the case keeps its id
+    pytest.param(dict(backend="distributed"), ValueError, "only runs inside",
                  id="change1-item 13"),
 ])
 def test_unported_options_raise(change, error, match):
@@ -205,8 +207,12 @@ def test_config_validates_and_defaults_to_the_kernels():
     assert convert.config_from_reference({"delta": 2.0, "backend": "xla"}).backend == "torch"
     assert convert.config_from_reference({"delta": 2.0, "backend": "pallas"}).backend == "kernels"
     assert convert.config_from_reference({"delta": 2.0, "backend": "sparse"}).backend == "sparse"
-    with pytest.raises(ValueError, match="carry across.*item 13"):
-        convert.config_from_reference({"delta": 2.0, "backend": "distributed"})
+    dcfg = convert.config_from_reference(
+        {"delta": 2.0, "backend": "distributed",
+         "dist": {"n_data": 2, "n_model": 2, "data_axis": "data", "model_axis": "model"}})
+    assert dcfg.backend == "distributed" and (dcfg.dist.n_data, dcfg.dist.n_model) == (2, 2)
+    with pytest.raises(ValueError, match="carry across"):
+        convert.config_from_reference({"delta": 2.0, "backend": "tpu"})
 
 
 def test_stream_sampler_checks_its_stream():

@@ -536,8 +536,10 @@ class TestGuardedSolve:
         with pytest.raises(ValueError, match="solve_resilient_sharded"):
             guards.solve_resilient(LASSO, _design(Xd, "torch"), y, _cfg(backend="distributed"),
                                    TorchSampler(0, "cpu"), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            guards.solve_resilient_sharded(LASSO, None, _cfg(), None)
+        # as the reference's, the mesh guard takes the classic rule with
+        # telemetry off (tests/test_torch_distributed.py runs it on a mesh)
+        with pytest.raises(ValueError, match="classic step rule with telemetry off"):
+            guards.solve_resilient_sharded(LASSO, None, _cfg(step_rule="away"), None)
 
     def test_resilient_solve_fn_in_the_path(self, prob):
         """fw_path through the guard is fw_path, bit for bit."""
