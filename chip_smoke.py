@@ -236,6 +236,25 @@ single-device runs, the no-fault guarded solve bit for bit ``solve`` and
 3 batched lanes bit for bit their sequential mesh solves. Runs on several
 cards are not measured (one card in the box).
 
+The rules under lanes: phase 2 holds the lane direction tails
+(``dir_tail[_en]_lanes`` and their GIVEN forms) at 13 lanes at each path's
+shapes and at 3 on a small design in f32 and bf16, away and pairwise: every
+running lane bit for bit a one-lane launch, the GIVEN form (one launch and
+two around an identity completion) bit for bit the matrix form, frozen
+lanes untouched, within rounding of ``dir_tail_lanes_plain``; phase 3 runs
+the grid's first 3 points in one chunk of 3 lanes under away, pairwise,
+PARTAN and lazy and the elastic-net under away, each lane bit for bit a
+sequential solve on the rows it drew, each point within the larger
+certified gap of the sequential rule path's, the walls and the lazy hit
+share printed, and the away chunks again on the (1, 1) NCCL mesh, bit for
+bit; phase 5 times each lane form at 3 and 13 lanes beside its bound and a
+batched rule step's wall and device time. The port's seven examples and
+CI scripts run as child processes on the card (``[entry]`` lines), each
+required to exit 0: the telemetry smoke's five gates first, right after
+the build; last the quickstart, the 4,272,227-variable sparse path batched
+and the dense one at p = 500,000, the solver family, the report with its
+4-rank mesh, the chaos matrix and the profiler capture.
+
 About 10 to 13 minutes on an H100, the builds included, as fast as the
 host (aim: 600 s, limit 1200 s); the baselines' phases print their
 seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
@@ -380,6 +399,24 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+PHASE_SECONDS = []  # (phase function, seconds) in the order they ran
+
+
+def _time_phases():
+    """Wrap each phase function of this module so that its seconds are kept
+    in PHASE_SECONDS (printed at the end: the script's budget by phase)."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("phase") and inspect.isfunction(fn):
+            def timed(*args, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    PHASE_SECONDS.append((_name, time.perf_counter() - t0))
+            g[name] = timed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="phases 1-2 only")
@@ -396,7 +433,10 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
 
     t_start = time.perf_counter()
+    _time_phases()
     card = phase1_device_and_build(torch)
+    if not args.kernels_only:
+        phase_entry_points(torch, ENTRY_GATES)
     dev = torch.device("cuda")
     errs, launches, timing = {}, {}, {}
     for name, path in (("dense", dense_path), ("sparse", sparse_path)):
@@ -411,6 +451,7 @@ def main(argv=None):
 
         tdist.destroy_process_group()
     phase3_mesh_ranks(torch)
+    phase_entry_points(torch)
 
     records = []
     for name, info in KERNELS.items():
@@ -424,6 +465,8 @@ def main(argv=None):
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("timed_on", "bound_ms_all_beta") if k in t},
         })
+    print(f"[entry] {', '.join(f'{k} {v:.1f} s' for k, v in ENTRY_SECONDS.items())}")
+    print(f"[phases] {', '.join(f'{k} {v:.1f}' for k, v in PHASE_SECONDS)} (s)")
     mesh_total = sum(MESH_SECONDS.values())
     print(f"[mesh] the mesh phases: {', '.join(f'{k} {v:.1f} s' for k, v in MESH_SECONDS.items())}"
           f"; {mesh_total:.1f} s together")
@@ -451,6 +494,7 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
     errs.update(phase2_lane_kernels(torch, Xt, y))
     errs.update(phase2_en_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_rule_kernels(torch, Xt, y, "dense"))
+    errs.update(phase2_rule_lane_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_cd_sweep(torch, dev))
     errs.update(phase2_tel_kernels(torch, Xt, y, "dense"))
     errs.update(phase2_health(torch, [(P_PAPER, M_PAPER), HEALTH_RAGGED], "dense"))
@@ -486,12 +530,16 @@ def dense_path(torch, dev, kernels_only, errs, launches, timing):
         timing.update(phase5_timing(torch, Xt, y))
         timing.update(phase5_lane_timing(torch, Xt, y, "dense"))
         timing.update(phase5_ext_timing(torch, Xt, y, "dense"))
-        rule_launches, _ = phase3_rule_paths(torch, Xt, y, coef, "dense")
+        rule_launches, rule_runs = phase3_rule_paths(torch, Xt, y, coef, "dense")
         for name in ("dir_tail", "dir_tail_en"):
             launches[name] = rule_launches[name]
+        lane_launches, lane_runs = phase3_rule_lanes(torch, Xt, y, coef, "dense", rule_runs)
+        launches.update(lane_launches)
+        launches.update(phase3_mesh_rule_lanes(torch, Xt, y, lane_runs, "dense"))
         phase4_rule_routes(torch, Xt, y, coef, "dense")
         phase4_rule_acceptance(torch, dev)
         timing.update(phase5_rule_timing(torch, Xt, y, "dense"))
+        timing.update(phase5_rule_lane_timing(torch, Xt, y, "dense"))
         history_check(torch, dev)
         launches.update(phase3_obs(torch, Xt, y, coef, "dense"))
         timing.update(phase5_tel_timing(torch, Xt, y, "dense"))
@@ -524,6 +572,7 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     errs["sparse_fused_chunk_en"] = en_errs.pop("sparse_fused_chunk_en")
     errs.update({f"{k}_sparse": v for k, v in en_errs.items()})
     errs.update(phase2_rule_kernels(torch, mat, y, "sparse"))
+    errs.update(phase2_rule_lane_kernels(torch, mat, y, "sparse"))
     errs.update(phase2_tel_kernels(torch, mat, y, "sparse"))
     errs.update(phase2_health(torch, [(mat.p, mat.m)], "sparse"))
     errs.update(phase2_mesh_kernels(torch, mat, y, "sparse"))
@@ -562,11 +611,16 @@ def sparse_path(torch, dev, kernels_only, errs, launches, timing):
     timing.update(phase5_sparse_timing(torch, mat, y))
     timing.update(phase5_lane_timing(torch, mat, y, "sparse"))
     timing.update(phase5_ext_timing(torch, mat, y, "sparse"))
-    rule_launches, _ = phase3_rule_paths(torch, mat, y, coef, "sparse")
+    rule_launches, rule_runs = phase3_rule_paths(torch, mat, y, coef, "sparse")
     for name in ("dir_tail", "dir_tail_en"):
         launches[name] += rule_launches[name]
+    lane_launches, lane_runs = phase3_rule_lanes(torch, mat, y, coef, "sparse", rule_runs)
+    lane_launches.update(phase3_mesh_rule_lanes(torch, mat, y, lane_runs, "sparse"))
+    for name, n in lane_launches.items():  # both paths
+        launches[name] = launches.get(name, 0) + n
     phase4_rule_routes(torch, mat, y, coef, "sparse")
     timing.update(phase5_rule_timing(torch, mat, y, "sparse"))
+    timing.update(phase5_rule_lane_timing(torch, mat, y, "sparse"))
     for name, n in phase3_obs(torch, mat, y, coef, "sparse").items():
         launches[name] += n
     phase5_tel_timing(torch, mat, y, "sparse")  # printed beside the dense rows
@@ -705,6 +759,17 @@ KERNELS = {
                            replaces="src/repro/core/step_rule.py:117"),
     "dir_tail_en_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
                               replaces="src/repro/core/step_rule.py:117"),
+    # the rules under lanes: the direction tail with a lane axis, for the
+    # reference's XLA ops of rule_step vmapped over its lanes
+    # (src/repro/core/engine.py:736); the GIVEN forms on the mesh
+    "dir_tail_lanes": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                           replaces="src/repro/core/step_rule.py:117"),
+    "dir_tail_en_lanes": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                              replaces="src/repro/core/step_rule.py:117"),
+    "dir_tail_lanes_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                                 replaces="src/repro/core/step_rule.py:117"),
+    "dir_tail_en_lanes_given": dict(source="src/repro_torch/kernels/csrc/step_tail.cu",
+                                    replaces="src/repro/core/step_rule.py:117"),
 }
 
 
@@ -3249,32 +3314,34 @@ def phase4_lanes_vs_sequential(torch, dev):
         torch.cuda.empty_cache()
 
 
-def _batched_run(torch, design, y, stats, cfg, L, n_steps, seed):
+def _batched_run(torch, design, y, stats, cfg, L, n_steps, seed, oracle=None):
     from repro_torch.core import LASSO, LaneSampler, engine
 
-    states0 = engine.stack_states([engine.init_state(LASSO, design, y, None, cfg)
+    oracle = LASSO if oracle is None else oracle
+    bcfg = dataclasses.replace(cfg, max_iters=n_steps, tol=0.0, patience=10**9)
+    states0 = engine.stack_states([engine.init_state(oracle, design, y, None, bcfg)
                                    for _ in range(L)])
     deltas = torch.full((L,), 50.0, device=design.device)
-    bcfg = dataclasses.replace(cfg, max_iters=n_steps, tol=0.0, patience=10**9)
-    return lambda: engine.batched_loop(LASSO, design, y, stats, states0, bcfg, deltas, 10**9,
+    return lambda: engine.batched_loop(oracle, design, y, stats, states0, bcfg, deltas, 10**9,
                                        LaneSampler(seed, L, design.device))
 
 
-def batched_step_ms(torch, design, y, stats, cfg, L, n_steps=200):
+def batched_step_ms(torch, design, y, stats, cfg, L, n_steps=200, oracle=None):
     """The batched step's host-clock ms (a fixed run of ``n_steps`` batched
     steps of L lanes after a warm-up, each run ending in a device sync) and
-    its device busy ms per step (``torch.profiler`` over 50 more)."""
+    its device busy ms per step (``torch.profiler`` over 50 more), under
+    ``cfg.step_rule`` and ``oracle`` (the lasso by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for seed in (3, 5):
-        run = _batched_run(torch, design, y, stats, cfg, L, n_steps, seed)
+        run = _batched_run(torch, design, y, stats, cfg, L, n_steps, seed, oracle)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    run = _batched_run(torch, design, y, stats, cfg, L, 50, 9)
+    run = _batched_run(torch, design, y, stats, cfg, L, 50, 9, oracle)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -3418,7 +3485,10 @@ EN_L2 = 1.0
 EN_UNFUSED = 3  # the EN path's first points, also one step per dispatch
 LEDGER_K = 72  # phase 2's long EN chunk, a ledger of 72 slots
 LOG_MAX_ITERS, LOG_TOL = 2000, 1e-4
-LOG_POINTS, LOG_LANES, LOG_POINTS_DENSE = 10, 4, 3
+# the logistic grid has 10 points; the sparse path runs its first
+# LOG_POINTS_SPARSE (one chunk of LOG_LANES lanes), the dense its first
+# LOG_POINTS_DENSE: cut from all 10 sparse to keep the script in its time
+LOG_POINTS, LOG_LANES, LOG_POINTS_DENSE, LOG_POINTS_SPARSE = 10, 4, 3, 4
 N_EXT_COMPARE = 2  # points of each extension path held against the plain route
 EN_KERNELS = ("vertex_argmax_shifted", "vertex_argmax_shifted_lanes", "step_tail_en",
               "step_tail_en_lanes", "dense_fused_chunk_en", "sparse_fused_chunk_en")
@@ -3871,6 +3941,17 @@ class StarRecorder:
     sequence = Recorder.sequence
 
 
+def _point_objective(torch, oracle, design, y, pt):
+    """A path point's objective from its alpha (the co-state rebuilt from
+    one matvec), not from the recursions the solve carried."""
+    from repro_torch.core.engine import ColStats
+    from repro_torch.core.vertex import matvec
+
+    alpha = _alpha_from_point(torch, pt, design.shape[0], design.device)
+    co = oracle.init_co(y, matvec(design, alpha), alpha, alpha.dtype)
+    return float(oracle.objective(y, ColStats(zty=None, znorm2=None, yty=torch.dot(y, y)), co))
+
+
 def _ext_gap(torch, oracle, design, y, pt):
     """The certified duality gap of a path point, with the oracle's own
     gradient (``oracle.gap``: one full pass)."""
@@ -4011,7 +4092,7 @@ def phase3_logistic_paths(torch, design, y, coef, layout):
     base = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
     cfg = dataclasses.replace(base, max_iters=LOG_MAX_ITERS, tol=LOG_TOL)
     deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=LOG_POINTS)
-    deltas = deltas if sparse else deltas[:LOG_POINTS_DENSE]
+    deltas = deltas[:LOG_POINTS_SPARSE if sparse else LOG_POINTS_DENSE]
     print(f"[log-{layout}] LOGISTIC p={p:,} kappa={cfg.kappa:,} max_iters={cfg.max_iters} "
           f"tol={cfg.tol} points={len(deltas)} of a {LOG_POINTS}-point grid to "
           f"{float(deltas[-1]):.6g}; labels +1 {int((yl > 0).sum())}, -1 {int((yl < 0).sum())}")
@@ -4677,6 +4758,20 @@ def check_dir_tail(torch, label, mat, beta, kw, en, want=None):
     for a, b in zip(out_k, again):
         if a is not None:
             check(_same_bits(torch, a, b), f"{name} {label}: two launches differ")
+    err, rd = _dir_close(torch, name, label, mat, kw, out_k, out_p)
+    moved = "kept" if torch.equal(out_k.buf, kw["buf"]) else "moved"
+    print(f"[kernels] {name} {label}: i* {int(out_k.i_star)} (i_a {int(out_k.i_a)}), g "
+          f"{float(out_k.g)!r}, stall {int(out_k.stall)}, buffer {moved}: as the plain version "
+          f"(scalars within {err:.2e}, residual {rd:.2e}), two launches equal")
+    return max(err, rd)
+
+
+def _dir_close(torch, name, label, mat, kw, out_k, out_p):
+    """One lane's direction tail ``out_k`` against the plain version's
+    ``out_p`` from the state ``kw``: the vertices, stall, the buffer and a
+    drop's zero exact; beta, the residual and the scalars within RTOL_SUM
+    of their scale (the three dots sum in another order). Returns ``(max
+    |diff| over the scalars, over the residual)``."""
     for f in ("stall", "buf", "i_star", "i_a"):
         check(torch.equal(getattr(out_k, f), getattr(out_p, f)),
               f"{name} {label}: {f} {getattr(out_k, f).tolist()} != plain "
@@ -4707,11 +4802,185 @@ def check_dir_tail(torch, label, mat, beta, kw, en, want=None):
     bd = float((out_k.beta.float() - out_p.beta.float()).abs().max())
     b_tol = RTOL_SUM * (float(out_p.beta.float().abs().max()) + u_scale)
     check(bd <= b_tol, f"{name} {label}: beta max |diff| {bd:.3e} > {b_tol:.3e}")
-    moved = "kept" if torch.equal(out_k.buf, kw["buf"]) else "moved"
-    print(f"[kernels] {name} {label}: i* {int(out_k.i_star)} (i_a {i_a}), g {float(out_k.g)!r}, "
-          f"stall {int(out_k.stall)}, buffer {moved}: as the plain version (scalars within "
-          f"{err:.2e}, residual {rd:.2e}), two launches equal")
-    return max(err, rd)
+    return err, rd
+
+
+# DIR_CASES in the lanes' order: at 3 lanes a refresh, an away step and a renorm
+DIR_LANE_CASES = ("refresh", "away", "renorm", "pairwise", "drop", "same", "empty",
+                  "zero weights", "full")
+DIR_LANE_COUNTS = (3, 13)  # the lane direction tails' lane counts in phases 2 and 5
+DIR_TIMING_CASES = ("away", "refresh", "drop")  # phase 5's lanes: away directions, no renorm
+DIR_LANE_FORMS = ("dir_tail_lanes", "dir_tail_en_lanes", "dir_tail_lanes_given",
+                  "dir_tail_en_lanes_given")
+
+
+def dir_lane_state(torch, mat, y_noise, g, L, en_l2=None, dtype=None, cases=DIR_LANE_CASES):
+    """A lane-stacked state of the direction tail: lane l from the case
+    ``cases[l % len(cases)]`` (``dir_tail_case``), every lane on lane 0's y, its
+    residual, S, F (and Q), its buffer's and its FW vertex's scores
+    recomputed against it, and a step_inf of its own. Returns ``(beta (L,
+    p), the lane-stacked kwargs of dir_tail_lanes, en or None)``, the
+    kwargs' ``refresh`` one bool a lane (the refresh cases')."""
+    from repro_torch.core.vertex import matvec
+    from repro_torch.kernels import step_tail as st
+
+    p = mat.shape[0]
+    states = [dir_tail_case(torch, mat, y_noise, cases[lane % len(cases)], g, en_l2, dtype)
+              for lane in range(L)]
+    y = states[0][1]["y"]
+    dtype = y.dtype
+    yf = y.float()
+    lanes = []
+    for beta, kw, en, _ in states:
+        a = kw["scale"].float() * beta.float()
+        v = matvec(mat, a.to(dtype)).float()
+        resid = (yf - v).to(dtype)
+        sel_f = _plain_scores(torch, mat, kw["i_f"].view(1), resid).view(())
+        if en_l2 is not None:
+            sel_f = sel_f + en_l2 * a[kw["i_f"]]
+        lanes.append(dict(kw, resid=resid, raw_b=_plain_scores(torch, mat, kw["buf"].clamp(
+            0, p - 1), resid), sel_f=sel_f.float(), s_quad=(v @ v).to(dtype),
+            f_lin=(v @ yf).to(dtype), q=(a @ a).to(dtype),
+            step_inf=torch.rand((), generator=g, device=y.device).to(dtype)))
+    kw = {k: torch.stack([lane[k] for lane in lanes]) for k in (
+        "scale", "maxabs", "step_inf", "stall", "resid", "s_quad", "f_lin", "buf", "raw_b", "i_f",
+        "sel_f", "delta")}
+    kw["y"], kw["refresh"] = y, [lane["refresh"] for lane in lanes]
+    en = None if en_l2 is None else st.DirEN(en_l2, torch.stack([lane["q"] for lane in lanes]))
+    return torch.stack([b for b, *_ in states]), kw, en
+
+
+def _dir_lane_args(kw, refresh):
+    return (kw["scale"], kw["maxabs"], kw["step_inf"], kw["stall"], kw["resid"], kw["s_quad"],
+            kw["f_lin"], kw["y"], kw["buf"], kw["raw_b"], kw["i_f"], kw["sel_f"], kw["delta"],
+            refresh)
+
+
+def _dir_lane(out, lane):
+    """Lane ``lane``'s one-lane ``DirTailOut`` of a lane-stacked one."""
+    return type(out)(*(None if t is None else t[lane] for t in out))
+
+
+def _dir_zcols(torch, mat, kw, m):
+    """Each lane's ``dir_column_ids`` columns, ``(L, n_buf + 2, m)``."""
+    from repro_torch.kernels import step_tail as st
+
+    p = mat.shape[0]
+    return torch.stack([st.dense_columns(_ell_of(mat), st.dir_column_ids(i, b, p), m)
+                        for i, b in zip(kw["i_f"], kw["buf"])])
+
+
+def check_dir_tail_lanes(torch, label, mat, beta, kw, en, pairwise):
+    """The lane direction tail (``dir_tail_lanes`` or, with ``en``,
+    ``dir_tail_en_lanes``) and its GIVEN form for each set of running
+    lanes: every running lane bitwise a one-lane launch on its operands
+    (beta's row and every output) and within ``_dir_close``'s tolerance of
+    ``dir_tail_lanes_plain``; the GIVEN form, in one launch and in two
+    around an identity completion (no refresh), bitwise the matrix form;
+    a frozen lane's outputs its inputs, its vertices -1, its beta row
+    untouched; two launches bitwise equal. Returns ``{form: max |kernel -
+    plain|}``."""
+    from repro_torch.kernels import step_tail as st
+
+    cfg = _dir_cfg()
+    L, m = beta.shape[0], kw["y"].shape[0]
+    ell = _ell_of(mat)
+    extra = () if en is None else (en,)
+    fn, one_fn = ((st.dir_tail_lanes, st.dir_tail) if en is None
+                  else (st.dir_tail_en_lanes, st.dir_tail_en))
+    given_fn = st.dir_tail_lanes_given if en is None else st.dir_tail_en_lanes_given
+    zcols = _dir_zcols(torch, mat, kw, m)
+    err = 0.0
+    for run in _lane_sets(L):
+        ids = torch.tensor(run, dtype=torch.int32, device=beta.device)
+        refresh = [r and lane in run for lane, r in enumerate(kw["refresh"])]
+        args = _dir_lane_args(kw, refresh)
+        b_k, b_2, b_p, b_g = beta.clone(), beta.clone(), beta.clone(), beta.clone()
+        got = fn(ell, b_k, *args, ids, pairwise, cfg, *extra)
+        again = fn(ell, b_2, *args, ids, pairwise, cfg, *extra)
+        want = st.dir_tail_lanes_plain(ell, b_p, *args, ids, pairwise, cfg, en)
+        given = given_fn(zcols, b_g, *args, ids, pairwise, cfg, *extra)
+        for name, out in (("two launches", again), ("the GIVEN form", given)):
+            check(all(a is None or _same_bits(torch, a, b) for a, b in zip(got, out)),
+                  f"{fn.__name__} {label} lanes {run}: {name} differ")
+        no_ref = [False] * L
+        b_1, b_s = beta.clone(), beta.clone()
+        one_launch = given_fn(zcols, b_1, *_dir_lane_args(kw, no_ref), ids, pairwise, cfg, *extra)
+        split = given_fn(zcols, b_s, *_dir_lane_args(kw, no_ref), ids, pairwise, cfg, *extra,
+                         complete=lambda t: t)
+        check(all(a is None or _same_bits(torch, a, b) for a, b in zip(one_launch, split)),
+              f"{given_fn.__name__} {label} lanes {run}: the two-launch form differs")
+        for lane in range(L):
+            if lane not in run:
+                check(_same_bits(torch, b_k[lane], beta[lane]), f"{label}: frozen beta moved")
+                for f, inp in (("scale", kw["scale"]), ("maxabs", kw["maxabs"]),
+                               ("step_inf", kw["step_inf"]), ("stall", kw["stall"]),
+                               ("resid", kw["resid"]), ("s_quad", kw["s_quad"]),
+                               ("f_lin", kw["f_lin"]), ("buf", kw["buf"])):
+                    check(_same_bits(torch, getattr(got, f)[lane], inp[lane]),
+                          f"{fn.__name__} {label}: frozen lane {lane}'s {f} changed")
+                check(int(got.i_star[lane]) == int(got.i_a[lane]) == -1,
+                      f"{fn.__name__} {label}: frozen lane {lane}'s vertices")
+                continue
+            b1 = beta[lane].clone()
+            one = one_fn(ell, b1, kw["scale"][lane].clone(), kw["maxabs"][lane].clone(),
+                         kw["stall"][lane].clone(), kw["resid"][lane].clone(),
+                         kw["s_quad"][lane].clone(), kw["f_lin"][lane].clone(), kw["y"],
+                         kw["buf"][lane].clone(), kw["raw_b"][lane].clone(),
+                         kw["i_f"][lane].clone(), kw["sel_f"][lane].clone(),
+                         kw["delta"][lane].clone(), refresh[lane], pairwise, cfg,
+                         *(() if en is None else (type(en)(en.l2, en.q_norm[lane].clone()),)))
+            mine = _dir_lane(got, lane)
+            differ = [f for f in one._fields if getattr(one, f) is not None
+                      and not _same_bits(torch, getattr(mine, f), getattr(one, f))]
+            check(not differ and _same_bits(torch, b_k[lane], b1),
+                  f"{fn.__name__} {label}: lane {lane} differs from a one-lane launch in {differ}")
+            kw_l = {k: (v[lane] if isinstance(v, torch.Tensor) and k != "y" else v)
+                    for k, v in kw.items()}
+            e, rd = _dir_close(torch, fn.__name__, f"{label} lane {lane}", mat, kw_l, mine,
+                               _dir_lane(want, lane))
+            err = max(err, e, rd)
+    print(f"[kernels] {fn.__name__} {label} L={L} {'pairwise' if pairwise else 'away'}: every "
+          f"running lane bitwise its one-lane launch and within {err:.2e} of the plain version, "
+          "the GIVEN form (one launch and two) bitwise the same, frozen lanes untouched, two "
+          "launches equal")
+    return {fn.__name__: err, given_fn.__name__: err}
+
+
+def phase2_rule_lane_kernels(torch, design, y, layout):
+    """The lane direction tails at 13 lanes at the path's shapes in f32, and
+    at 3 lanes on a small design (m = 9,000, three blocks of the grid a
+    lane) in f32 and bf16, away and pairwise, the lasso's and the
+    elastic-net's (``check_dir_tail_lanes``)."""
+    dev = y.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    errs = dict.fromkeys(DIR_LANE_FORMS, 0.0)
+    small_m = 9_000
+    if layout == "sparse":
+        from repro_torch.data import make_sparse_wide_problem
+
+        small, _, _ = make_sparse_wide_problem(small_m, 20_000, 0.01, 50, seed=1, device=dev,
+                                               block_size=SPARSE_BLOCK)
+        small_b = small.astype(torch.bfloat16)
+    else:
+        small = torch.randn((20_000, small_m), generator=g, device=dev)
+        small /= torch.linalg.vector_norm(small, dim=1, keepdim=True)
+        small_b = small.to(torch.bfloat16)
+    ys = torch.randn(small_m, generator=g, device=dev)
+    cases = [(f"{layout} f32 at the path's shapes", design, y, DIR_LANE_COUNTS[-1]),
+             (f"{layout} f32 m={small_m}", small, ys, 3),
+              (f"{layout} bf16 m={small_m}", small_b, ys.to(torch.bfloat16), 3)]
+    for label, mat, yy, L in cases:
+        for en_l2 in (None, EN_L2):
+            beta, kw, en = dir_lane_state(torch, mat, yy, g, L, en_l2, yy.dtype)
+            for pairwise in (False, True):
+                for k, v in check_dir_tail_lanes(torch, label, mat, beta, kw, en,
+                                                 pairwise).items():
+                    errs[k] = max(errs[k], v)
+            del beta, kw
+    torch.cuda.synchronize()
+    return errs if layout == "dense" else {f"{k}_sparse": v for k, v in errs.items()}
 
 
 def phase2_rule_kernels(torch, design, y, layout):
@@ -4838,6 +5107,185 @@ def _rule_path(torch, tag, design, y, deltas, cfg, oracle, n_rec):
     check(math.isfinite(gap), f"{tag}: certified gap")
     return launches, dict(res=res, log=log, cfg=cfg, deltas=deltas, label=tag, seconds=wall,
                           gap=gap, flagged=flagged)
+
+
+RULE_LANES = 3  # the rule lanes' width: the grid's first RULE_POINTS points, one chunk
+
+
+def _lane_streams(torch, trace, seed, L, kappa, p, dev):
+    """Each lane's replay stream of a rule chunk run on ``LaneSampler(seed,
+    L)``, rebuilt from ``trace`` (each batched step's active and hit lanes,
+    host facts the run kept): the sampler's draws made again in order (one
+    ``(L, kappa)`` draw a step on which an active lane missed), a lane's
+    row of each draw it took, a row of zeros each step it hit (which its
+    sequential replay passes over)."""
+    from repro_torch.core import LaneSampler
+
+    sampler = LaneSampler(seed, L, dev)
+    zero = torch.zeros(kappa, dtype=torch.int64, device=dev)
+    rows = [[] for _ in range(L)]
+    for active, hits in trace:
+        drew = [a and not h for a, h in zip(active, hits)]
+        draw = sampler.uniform_lanes(kappa, p, drew) if any(drew) else None
+        for lane, a in enumerate(active):
+            if a:
+                rows[lane].append(zero if hits[lane] else draw[lane])
+    return [torch.stack(r) for r in rows]
+
+
+def phase3_rule_lanes(torch, design, y, coef, layout, seq_runs):
+    """The rules in lanes at the paper's size: the first RULE_POINTS points
+    of the lasso grid in one chunk of RULE_LANES lanes through
+    ``fw_path_batched`` (its default lane sampler) for away, pairwise,
+    PARTAN and lazy, and the elastic-net under away: the launches a batched
+    step checked (away and pairwise the lane scores twice, the argmax and
+    the lane direction tail once; PARTAN the classic lane kernels; lazy the
+    lane tail, the caches' lane scores every turn, the draw's on a miss);
+    each lane bit for bit a sequential solve replaying the rows it drew
+    (``_lane_streams``, a row of zeros a lazy hit); each point's objective
+    within the larger certified gap of it and the sequential rule path's
+    point (``phase3_rule_paths``, whose warm starts differ: the chunk's
+    lanes all start from zero); the batched and sequential walls and the
+    lazy hit share printed. Returns ``(launches, runs)``."""
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, ENOracle, StreamSampler, delta_grid, engine
+    from repro_torch.core import fw_path_batched
+    from repro_torch.core.path import point_seed
+
+    sparse = layout == "sparse"
+    dev = y.device
+    p = design.shape[0]
+    base = sparse_config(p, fuse_steps=1) if sparse else main_config(p, "kernels")
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[:RULE_POINTS]
+    scores = "sparse_sampled_scores_lanes" if sparse else "sampled_scores_lanes"
+    launches, runs = {}, {}
+    cases = [(rule, LASSO) for rule in RULES] + [("away", ENOracle(l2=EN_L2))]
+    for rule, oracle in cases:
+        en = oracle is not LASSO
+        cfg = dataclasses.replace(base, step_rule=rule)
+        tag = f"{rule}-{'en' if en else 'lasso'}-{layout}"
+        calls, trace = [], []
+        hit_dots = cfg.lazy_cache + 1 + oracle.extra_dots
+
+        def solve_batched_fn(oracle_, Xt_, y_, cfg_, sampler, alpha0s, d_arr):
+            calls.append((alpha0s, d_arr))
+            last = [0] * RULE_LANES
+
+            def on_step(state, active):  # host ints only: no read of the card
+                hits = [rule == "lazy" and a and n - b == hit_dots
+                        for a, n, b in zip(active, state.n_dots, last)]
+                trace.append((list(active), hits))
+                last[:] = state.n_dots
+
+            return engine.solve_batched_prepared(oracle_, Xt_, y_, cfg_, sampler, alpha0s, d_arr,
+                                                 on_step)
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fw_path_batched(design, y, deltas, cfg, seed=0, lane_width=RULE_LANES,
+                              oracle=oracle, device=dev, solve_batched_fn=solve_batched_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lc = kernels.launch_counts()
+        check(len(calls) == 1, f"rule lanes {tag}: one chunk expected, {len(calls)} ran")
+        n = len(trace)
+        hits = sum(sum(h) for _, h in trace)
+        argmax = "vertex_argmax_shifted_lanes" if en else "vertex_argmax_lanes"
+        tail = "step_tail_en_lanes" if en else "step_tail_lanes"
+        dtail = "dir_tail_en_lanes" if en else "dir_tail_lanes"
+        quiet = ("dir_tail", "dir_tail_en", "step_tail", "step_tail_en", "sampled_scores",
+                 "sparse_sampled_scores", "vertex_argmax", "vertex_argmax_shifted")
+        if rule in ("away", "pairwise"):
+            _check_launches(tag, lc, [((scores,), 2 * n), ((argmax, dtail), n)], quiet + (tail,))
+        elif rule == "partan":
+            _check_launches(tag, lc, [((scores, argmax, tail), n)], quiet + (dtail,))
+        else:
+            # the caches' peek every turn (the last one's, which finds every
+            # lane stopped, included: one a chunk), the draw's on a miss
+            draws = sum(1 for a, h in trace if any(x and not y_ for x, y_ in zip(a, h)))
+            _check_launches(tag, lc, [((tail,), n), ((argmax,), draws),
+                                      ((scores,), n + draws + len(calls))], quiet + (dtail,))
+        launches[dtail] = launches.get(dtail, 0) + lc[dtail]
+        # each lane bit for bit its sequential replay on the rows it drew
+        alpha0s, d_arr = calls[0]
+        streams = _lane_streams(torch, trace, point_seed(0, 0), RULE_LANES, cfg.kappa, p, dev)
+        for lane in range(RULE_LANES):
+            one = engine.solve(oracle, design, y, cfg, StreamSampler(streams[lane]),
+                               None if alpha0s is None else alpha0s[lane], float(d_arr[lane]),
+                               device=dev)
+            pt = res.points[lane]
+            check(one.iterations == pt.iterations and one.n_dots == pt.n_dots,
+                  f"rule lanes {tag} lane {lane}: iterations/n_dots {one.iterations}/{one.n_dots}"
+                  f" vs the lane's {pt.iterations}/{pt.n_dots}")
+            check(torch.equal(one.alpha, _alpha_from_point(torch, pt, p, dev)),
+                  f"rule lanes {tag} lane {lane}: alpha differs from its sequential replay")
+        del streams
+        # against the sequential rule path: the same problems, other warm
+        # starts; each point's objective from its alpha (the away rules'
+        # recursions may drift from the iterate, ROADMAP.md R5: flagged, as
+        # the sequential path flags them)
+        seq = seq_runs[tag]
+        worst = 0.0
+        for g, (got, want) in enumerate(zip(res.points, seq["res"].points)):
+            gaps = [_ext_gap(torch, oracle, design, y, pt) for pt in (got, want)]
+            objs = [_point_objective(torch, oracle, design, y, pt) for pt in (got, want)]
+            if abs(got.objective - objs[0]) > max(gaps[0], RTOL_OBJ_SAME * abs(objs[0])):
+                print(f"[flag] rule lanes {tag} point {g}: the recursions' objective "
+                      f"{got.objective!r} is off alpha's {objs[0]!r} past its certified gap "
+                      f"{gaps[0]!r} (ROADMAP.md R5)")
+            diff = abs(objs[0] - objs[1])
+            check(diff <= max(max(gaps), RTOL_OBJ_SAME * abs(objs[1])),
+                  f"rule lanes {tag} point {g}: objective {objs[0]!r} (from alpha) vs the "
+                  f"sequential path's {objs[1]!r}, past the larger certified gap {max(gaps)!r}")
+            worst = max(worst, diff / max(max(gaps), 1e-30))
+        share = (f"; lazy hits {hits} of {res.total_iters} lane-steps "
+                 f"({100 * hits / res.total_iters:.1f}%)" if rule == "lazy" else "")
+        print(f"[rule-lanes] {tag}: {RULE_POINTS} points in lanes of {RULE_LANES}, {n} batched "
+              f"steps ({res.total_iters} lane-steps against the sequential path's "
+              f"{seq['res'].total_iters} steps), batched {wall:.3f} s "
+              f"({1e3 * wall / n:.3f} ms a batched step) vs sequential {seq['seconds']:.3f} s; "
+              f"each lane bit for bit its sequential replay; objectives within {worst:.3f} of "
+              f"the larger certified gap of the sequential path's{share}; launches "
+              f"{_nonzero(lc)}")
+        runs[tag] = dict(res=res, cfg=cfg, deltas=deltas, seconds=wall, steps=n)
+    return launches, runs
+
+
+def phase3_mesh_rule_lanes(torch, design, y, lane_runs, layout):
+    """The rule lanes on the (1, 1) NCCL mesh: the away lasso and
+    elastic-net chunks of ``phase3_rule_lanes`` through
+    ``distributed.fw_path_batched`` (the same lane streams), bit for bit
+    the single-device lanes, the lane direction tail's GIVEN form once a
+    batched step (as many as the single device's lane tail) and no
+    single-device lane tail. Returns the launches."""
+    from repro_torch import distributed as D
+    from repro_torch import kernels
+    from repro_torch.core import LASSO, ENOracle
+
+    _nccl_world1(torch)
+    mesh = D.fw_mesh(1, 1)
+    sparse = _is_sparse(design)
+    op = (D.shard_sparse if sparse else D.shard_dense)(design, y, mesh, device=y.device)
+    launches = {}
+    for oracle, tag, given, single in ((LASSO, f"away-lasso-{layout}", "dir_tail_lanes_given",
+                                        "dir_tail_lanes"),
+                                       (ENOracle(l2=EN_L2), f"away-en-{layout}",
+                                        "dir_tail_en_lanes_given", "dir_tail_en_lanes")):
+        run = lane_runs[tag]
+        kernels.reset_launch_counts()
+        res = D.fw_path_batched(op, run["deltas"], run["cfg"], seed=0, lane_width=RULE_LANES,
+                                oracle=oracle, report_gap=False)
+        lc = kernels.launch_counts()
+        check(_points_bits(res, run["res"]), f"mesh rule lanes {tag}: the points differ from the "
+                                             "single-device lanes")
+        check(lc[given] == run["steps"] and lc[single] == 0,
+              f"mesh rule lanes {tag}: {given} {lc[given]} launches for {run['steps']} batched "
+              f"steps, {single} {lc[single]}")
+        launches[given] = lc[given]
+        print(f"[mesh-{layout}] rule lanes {tag}: {RULE_POINTS} points in lanes of {RULE_LANES} "
+              f"bit for bit the single-device lanes; {given} once a batched step "
+              f"({lc[given]})")
+    return launches
 
 
 def _replay_flagged(torch, tag, design, y, run, oracle):
@@ -5284,10 +5732,15 @@ def _rule_routes(torch, tag, design, y, delta, cfg_a, cfg_b, oracle):
               f"{tag}: objectives differ by more than either run's certified gap {gaps}")
 
 
+RULE_ROUTE_STEPS = 100  # phase 4's rule points: their first 100 steps, on both routes
+
+
 def phase4_rule_routes(torch, design, y, coef, layout):
     """Each rule's first grid point on the kernels against the plain route
     ('torch' on the dense layout, the plain sparse ops on the sparse one),
-    from the same sampler seed, up to the plain route's first near-tie."""
+    from the same sampler seed, over its first RULE_ROUTE_STEPS steps (cut
+    from the point's end to keep the script in its time), up to the plain
+    route's first near-tie."""
     from repro_torch.core import LASSO, delta_grid
 
     sparse = layout == "sparse"
@@ -5298,8 +5751,9 @@ def phase4_rule_routes(torch, design, y, coef, layout):
     delta = float(delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[0])
     for rule in RULES:
         _rule_routes(torch, f"{rule}-{layout} kernels vs plain", design, y, delta,
-                     dataclasses.replace(base, step_rule=rule),
-                     dataclasses.replace(plain, step_rule=rule), LASSO)
+                     dataclasses.replace(base, step_rule=rule, max_iters=RULE_ROUTE_STEPS),
+                     dataclasses.replace(plain, step_rule=rule, max_iters=RULE_ROUTE_STEPS),
+                     LASSO)
 
 
 def phase4_rule_acceptance(torch, dev):
@@ -5351,6 +5805,84 @@ def phase4_rule_acceptance(torch, dev):
             for r, (it, c, gp, ob) in out.items()))
         print(f"[acceptance] {backend} bars (a finding, not a check): " + ", ".join(
             f"{k} {'met' if v else 'MISSED'}" for k, v in bars.items()))
+
+
+def phase5_rule_lane_timing(torch, design, y, layout):
+    """The lane direction tails (f32, lasso and EN, the matrix and the
+    GIVEN forms) at DIR_LANE_COUNTS lanes, every lane stepping, at the
+    path's shapes, beside their bound (L times the one-lane direction
+    tail's bytes, ``phase5_rule_timing``'s) and, at RULE_LANES lanes, plain
+    version (L one-lane plain tails), on away steps with the renorm off; no
+    single PyTorch call computes the function. Then a
+    batched rule step's wall and device busy ms at RULE_LANES lanes (each
+    rule on the lasso, away on the elastic-net). Returns the forms' rows at
+    RULE_LANES lanes (the path's width)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import step_tail as st
+
+    sparse = layout == "sparse"
+    dev = y.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    m = design.shape[1]
+    ell = _ell_of(design)
+    # the renorm off: the calls update beta in place, which may send a
+    # lane's scale under the threshold, and a renorm is beta's O(p) pass (a
+    # block's a lane), the rare step the bound leaves out
+    cfg = dataclasses.replace(_dir_cfg(), renorm_threshold=0.0)
+    out = {}
+    # the states of the most lanes, their first L lanes for each lane count
+    states = {l2: dir_lane_state(torch, design, y, g, max(DIR_LANE_COUNTS), l2, torch.float32,
+                                 DIR_TIMING_CASES) for l2 in (None, EN_L2)}
+    for L in DIR_LANE_COUNTS:
+        for l2 in (None, EN_L2):
+            beta13, kw13, en13 = states[l2]
+            beta = beta13[:L].clone()
+            kw = {k: (v if k == "y" else v[:L]) for k, v in kw13.items()}
+            en = None if en13 is None else type(en13)(en13.l2, en13.q_norm[:L])
+            args = _dir_lane_args(kw, [False] * L)
+            ids = torch.arange(L, dtype=torch.int32, device=dev)
+            extra = () if en is None else (en,)
+            zcols = _dir_zcols(torch, design, kw, m)
+            n_buf = kw["buf"].shape[1]
+            one = ((3 * m * 4 + 2 * design.nnz_max * 8 if sparse else 5 * m * 4) + 2 * n_buf * 4
+                   + 64 + (0 if en is None else 8))
+            one_given = 5 * m * 4 + 2 * n_buf * 4 + 64 + (0 if en is None else 8)
+            plain_ms = (_time_queued(torch, lambda i: st.dir_tail_lanes_plain(
+                ell, beta, *args, ids, False, cfg, en), 3) if L == RULE_LANES else None)
+            for fn, mat, nbytes in (
+                    ((st.dir_tail_lanes if en is None else st.dir_tail_en_lanes), ell, one),
+                    ((st.dir_tail_lanes_given if en is None else st.dir_tail_en_lanes_given),
+                     zcols, one_given)):
+                ms = _time_queued(torch, lambda i: fn(mat, beta, *args, ids, False, cfg, *extra),
+                                  100)
+                bound, by = _bound(L * nbytes, L * 10 * m)
+                plain = ("not timed" if plain_ms is None
+                         else f"{plain_ms:.6f} ms (L one-lane plain tails)")
+                print(f"[timing] {fn.__name__} ({layout}, L={L}, m={m:,}): {ms:.6f} ms, bound "
+                      f"{bound:.6f} ms ({by}, {L * nbytes:,} bytes), {100 * bound / ms:.1f}% of "
+                      f"bound, plain {plain}; library: none")
+                if L == RULE_LANES:
+                    out[fn.__name__] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                            library_ms=None)
+            del beta, kw, zcols
+    del states
+    from repro_torch.core import LASSO, ENOracle
+
+    base = (sparse_config(design.shape[0], fuse_steps=1) if sparse
+            else main_config(design.shape[0], "kernels"))
+    stats = engine.precompute_colstats(design, y, base)
+    for rule, oracle in [(r, LASSO) for r in RULES] + [("away", ENOracle(l2=EN_L2))]:
+        cfg_r = dataclasses.replace(base, step_rule=rule)
+        wall, busy, top = batched_step_ms(torch, design, y, stats, cfg_r, RULE_LANES, 100,
+                                          oracle)
+        name = "lasso" if oracle is LASSO else "en"
+        busy_txt = ("device busy not measured (the profiler reported no device time)"
+                    if busy is None else
+                    f"device busy {busy:.4f} ms ({top}), idle {100 * (1 - busy / wall):.1f}%")
+        print(f"[timing] batched {rule} {name} step ({layout}, {RULE_LANES} lanes): wall "
+              f"{wall:.4f} ms; {busy_txt}")
+    return out if not sparse else {f"{k}_sparse": v for k, v in out.items()}
 
 
 def _rule_step_ms(torch, oracle, design, y, stats, cfg, delta, n_steps=200):
@@ -5433,7 +5965,7 @@ def phase5_rule_timing(torch, design, y, layout):
              ("away", LOGISTIC, yl, None)]
     for rule, oracle, yy, sts in cases:
         scfg = dataclasses.replace(cfg, step_rule=rule)
-        n = 60 if oracle is LOGISTIC else 200
+        n = 30 if oracle is LOGISTIC else 100  # cut from 60 and 200 for the script's time
         wall, busy, top, n_launch, split = _rule_step_ms(torch, oracle, design, yy, sts, scfg,
                                                          delta, n)
         name = type(oracle).__name__.replace("Oracle", "").lower()
@@ -5469,7 +6001,7 @@ CD_BIT_POINTS, CD_PLAIN_ROWS = 3, 2_000
 # 10, as on Pyrim), FISTA and FW on the same points; the walker against H on
 # the design's first rows (Pyrim's p). FISTA's time there (300 iterations a
 # point, ~11 ms an iteration: ~3.3 s a point) sets the phase's ~40 s
-CD_4M_BUDGET_S, CD_4M_MIN_POINTS, CD_4M_MAX_POINTS, CD_4M_SLICE = 25.0, 3, 10, 201_376
+CD_4M_BUDGET_S, CD_4M_MIN_POINTS, CD_4M_MAX_POINTS, CD_4M_SLICE = 15.0, 3, 10, 201_376
 # FISTA there runs a fixed number of iterations (tol 0): at this width its
 # step 1/L is so small that the table's tol 1e-3 on ||alpha_{t+1} -
 # alpha_t||_inf stops it after one iteration, at alpha ~ 0, and 100
@@ -8068,6 +8600,83 @@ def _mesh_timing(torch, tdist, D, op, design, y, cfg, delta, layout):
                      f"{[round(t, 6) for t in ms['single']]} ms; the state after the calls: "
                      f"scale {float(last.scale)!r}, renormalized {float(last.scale) == 1.0}]")
     return out
+
+
+# the port's examples and CI scripts, each run as a child process at its
+# reference size (the dense example on the kernels' backend, its paper-size
+# sparse run batched; the solver family at a fifth of its 10,000 steps a
+# solve, whose logistic steps of ~330 launches would take ~160 s alone): the
+# telemetry smoke first and alone, right after the build (its gates time a
+# host-bound hot loop), then at the end the headline example alone and six
+# together (none times a gate; their own seconds then share the card and
+# the host); the outputs' directory is the call's own
+ENTRY_GATES = (  # run first, on a host no other phase has loaded yet
+    (("scripts/torch_telemetry_smoke.py", ["--out-dir", "{out}/telemetry"]),),
+)
+ENTRY_RUNS = (
+    (("examples/torch_lasso_fullpath_4m.py",
+      ["--paper-size", "--backend", "sparse", "--driver", "batched"]),),
+    (("examples/torch_solver_family.py", ["--max-iters", "2000"]),
+     ("examples/torch_lasso_fullpath_4m.py", ["--backend", "kernels"]),
+     ("examples/torch_quickstart.py", []),
+     ("scripts/torch_solver_report.py", ["--out-dir", "{out}/report", "--distributed"]),
+     ("scripts/torch_chaos_smoke.py", ["--out", "{out}/chaos_metrics.json"]),
+     ("scripts/torch_profile_capture.py", ["--out", "{out}/profile"])),
+)
+ENTRY_TIMEOUT_S = 300
+ENTRY_SECONDS = {}  # each entry point's seconds, for the summary
+ENTRY_KEYS = ("PATH DONE", "total iters", "card:", "overhead", "PASS", "FAIL", "obj=",
+              "chaos smoke", "profile_capture", "# wrote", "grid points", "advantage", "densest")
+
+
+def phase_entry_points(torch, runs=ENTRY_RUNS):
+    """The port's examples and CI scripts (``runs``: ENTRY_GATES, then
+    ENTRY_RUNS), each as a child process on the card (the kernels phase 1
+    built, from ``build/``), a turn's children at once: a non-zero exit or
+    a run past ENTRY_TIMEOUT_S fails the script; each run's seconds and the
+    lines that carry its numbers printed."""
+    import os
+    import signal
+    import tempfile
+
+    # a CPU thread a child: the children's host work is launches, and a
+    # turn's children share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        for turn in runs:
+            procs = []
+            for path, args in turn:
+                argv = [a.format(out=out) for a in args]
+                log = open(os.path.join(out, f"{len(ENTRY_SECONDS) + len(procs)}.log"), "w+")
+                procs.append((path, args, log, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, str(ROOT / path), *argv], cwd=str(ROOT), env=env,
+                    stdout=log, stderr=subprocess.STDOUT, text=True, start_new_session=True)))
+            ends = {}
+            while len(ends) < len(procs):  # each child's seconds from its own end
+                for n, (*_, t0, proc) in enumerate(procs):
+                    if n not in ends and proc.poll() is not None:
+                        ends[n] = time.perf_counter() - t0
+                if time.perf_counter() - procs[0][3] > ENTRY_TIMEOUT_S:
+                    for *_, other in procs:  # each child's session: its own children too
+                        if other.poll() is None:
+                            os.killpg(other.pid, signal.SIGKILL)
+                    raise CheckFailed(f"{[p[0] for p in procs]}: past {ENTRY_TIMEOUT_S} s")
+                time.sleep(0.2)
+            for n, (path, args, log, t0, proc) in enumerate(procs):
+                label = f"{path} {' '.join(args)}".strip()
+                rc = proc.returncode
+                ENTRY_SECONDS[label] = sec = ends[n]
+                log.seek(0)
+                text = log.read()
+                log.close()
+                for line in text.splitlines():
+                    if any(k in line for k in ENTRY_KEYS):
+                        print(f"[entry] {Path(path).name}: {line.strip()}")
+                check(rc == 0, f"{label}: exit {rc}\n{text[-4000:]}")
+                print(f"[entry] {label}: exit 0 in {sec:.1f} s")
+    print(f"[entry] {sum(len(t) for t in runs)} entry points: "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def mesh_rank(rank, workdir, world):

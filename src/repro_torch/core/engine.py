@@ -87,8 +87,16 @@ unchanged) and ``core.step_rule``'s rule otherwise ('away', 'pairwise',
 that needs a fact on the host reads it there: PARTAN its drift refresh with
 the stall count in the step's one host read, handing the count to the loop
 (``EngineState.stall_host``), the lazy rule its cache hit before the draw.
-The rules do not fuse (the per-step loop runs, with a warning) and have no
-lanes yet (``solve_batched`` refuses them: ROADMAP.md Queue 1 item 9a).
+The rules do not fuse (the per-step loop runs, with a warning).
+
+The rules under lanes (``batched_step`` hands a non-classic step to the
+rule's ``step_lanes``): the lane-stacked state carries the rule's state
+with a lane axis (``stack_states``), and each lane is the rule's
+sequential solve on its stream, bit for bit. A rule's host facts ride the
+turn's one host read: PARTAN's refresh is read with the stall vector inside
+its step (``EngineState.stall_host``, a list), the lazy rule's hits before
+its draw, beside the stall vector (``batched_loop`` takes the rule's
+``peek_lanes`` first).
 """
 from __future__ import annotations
 
@@ -297,8 +305,9 @@ def tail_record(state: EngineState, stats, n_dots: int, cfg: FWConfig) -> Option
     if tel is None:
         return None
     objective = cfg.telemetry.record_objective
-    return TailRecord(tel.buf, tel.capacity, tel.cursor % tel.capacity, state.k, n_dots,
-                      objective, stats.yty if objective and stats is not None else None)
+    cap = tel.capacity
+    return TailRecord(tel.buf, cap, tel.cursor % cap, state.k, n_dots, objective,
+                      stats.yty if objective and stats is not None else None)
 
 
 def step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, delta, sampler) -> EngineState:
@@ -641,22 +650,22 @@ def _history_prepared(oracle, Xt, y, hcfg: FWConfig, sampler, n_iters: int, alph
 # --------------------------------------------------------------------------
 
 
-class _LaneIds:
-    """The ids of the lanes that step, as the int32 device tensor the lane
-    kernels take; made anew only when the host's list changes (a lane
-    freezing), so a step copies nothing to the device."""
+_lane_id_cache: dict = {}
 
-    def __init__(self, device):
-        self.device = device
-        self.active = None
-        self.ids = None
 
-    def __call__(self, active) -> torch.Tensor:
-        if active != self.active:
-            self.active = list(active)
-            self.ids = torch.tensor([i for i, a in enumerate(active) if a], dtype=torch.int32,
-                                    device=self.device)
-        return self.ids
+def lane_ids(active, device) -> torch.Tensor:
+    """The ids of the lanes that step (``active``, the host's list), as the
+    int32 device tensor the lane kernels take; made once a pattern (a lane
+    freezing, a lazy rule's misses) and device, so a step copies nothing to
+    the device."""
+    key = (device, tuple(bool(a) for a in active))
+    ids = _lane_id_cache.get(key)
+    if ids is None:
+        if len(_lane_id_cache) > 256:
+            _lane_id_cache.clear()
+        ids = _lane_id_cache[key] = torch.tensor([i for i, a in enumerate(key[1]) if a],
+                                                 dtype=torch.int32, device=device)
+    return ids
 
 
 def _check_lane_oracle(oracle) -> None:
@@ -669,9 +678,18 @@ def _check_lane_oracle(oracle) -> None:
 
 
 def stack_states(states) -> EngineState:
-    """One lane-stacked ``EngineState`` from one state a lane."""
+    """One lane-stacked ``EngineState`` from one state a lane, the step
+    rule's state too (its tensors with a leading lane axis: the away and
+    pairwise buffer ``(L, n)``, PARTAN's anchor, its image and odometer,
+    the lazy cache and phi)."""
     def stack(ts):
         return torch.stack(list(ts))
+
+    rule = states[0].rule
+    if isinstance(rule, torch.Tensor):
+        rule = stack(s.rule for s in states)
+    else:
+        rule = tuple(stack(s.rule[i] for s in states) for i in range(len(rule)))
 
     co = type(states[0].co)(*(stack(f) for f in zip(*(s.co for s in states))))
     tel = None
@@ -691,12 +709,40 @@ def stack_states(states) -> EngineState:
         n_dots=[s.n_dots for s in states],
         k=[s.k for s in states],
         i_star=stack(s.i_star for s in states),
+        rule=rule,
         tel=tel,
     )
 
 
+def lane_state(state: EngineState, lane: int) -> EngineState:
+    """Lane ``lane``'s one-lane ``EngineState`` of a lane-stacked one, for
+    the one-lane code a rule runs a lane at a time: its row of ``beta`` (a
+    view, so a step's in-place update lands in the stack) and copies of its
+    co-state, scalars and rule state (operands of their own, as a
+    sequential solve's are: on the CPU a row that does not start on a
+    vector boundary may round otherwise in a vectorized op)."""
+    def own(t):
+        return t[lane].clone()
+
+    rule = state.rule
+    rule = own(rule) if isinstance(rule, torch.Tensor) else tuple(own(t) for t in rule)
+    return EngineState(
+        beta=state.beta[lane],
+        scale=own(state.scale),
+        co=type(state.co)(*(own(f) for f in state.co)),
+        maxabs=own(state.maxabs),
+        step_inf=own(state.step_inf),
+        stall=own(state.stall),
+        n_dots=state.n_dots[lane],
+        k=state.k[lane],
+        i_star=own(state.i_star),
+        rule=rule,
+        tel=None if state.tel is None else state.tel.lane(lane),
+    )
+
+
 def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas, sampler,
-                 active, lanes: torch.Tensor) -> EngineState:
+                 active, lanes: torch.Tensor, pre=None) -> EngineState:
     """One step of every lane in ``active`` (a host list of bools; ``lanes``
     the same as int32 device ids) from the lane-stacked ``state``: one draw,
     one scores launch, one argmax launch and one tail launch for all the
@@ -704,16 +750,40 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
     for bit (the tail copies it; ``k`` and ``n_dots`` stay), and their
     ``i_star`` is -1. With telemetry on each active lane records its step
     in the same tail launch (its slot from its cursor on the device; a
-    frozen lane records nothing)."""
+    frozen lane records nothing). A step rule other than 'classic' runs
+    its ``step_lanes`` (``pre``: what the rule's ``peek_lanes`` took before
+    the turn's host read, and that read's facts)."""
+    if cfg.step_rule != "classic":
+        from repro_torch.core import step_rule  # lazy: the rules layer on top of the engine
+
+        return step_rule.get_rule(cfg).step_lanes(oracle, Xt, y, stats, state, cfg, deltas,
+                                                  sampler, active, lanes, pre)
+    return classic_batched_step(oracle, Xt, y, stats, state, cfg, deltas, sampler, active, lanes)
+
+
+def classic_batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas,
+                         sampler, active, lanes: torch.Tensor) -> EngineState:
+    """``batched_step`` under the classic rule (the rules' inner step too:
+    PARTAN's classic half-step, the lazy rule's tail reads its own)."""
     p = state.beta.shape[1]
     w = oracle.cograd(state.co, y)
     extra = oracle.score_extra(state.beta, state.scale, state.support)  # lane-stacked
     i_star, g_raw, g_sel, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active,
                                                                 lanes, extra)
+    return batched_tail(oracle, Xt, y, stats, state, cfg, deltas, active, lanes, i_star, g_raw,
+                        g_sel, n_scored + oracle.extra_dots)
+
+
+def batched_tail(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas, active,
+                 lanes: torch.Tensor, i_star, g_raw, g_sel, per_step: int) -> EngineState:
+    """The classic lane step after its vertices: the oracle's ``tail_lanes``
+    on the winners ``i_star`` and their scores, each active lane's ring
+    record in it (its n_dots ``per_step`` a step), and the new lane state,
+    ``per_step`` dots added to each active lane's count."""
     tel, rec = state.tel, None
     if tel is not None:
         objective = cfg.telemetry.record_objective
-        rec = TailRecord(tel.buf, tel.capacity, 0, 0, n_scored + oracle.extra_dots, objective,
+        rec = TailRecord(tel.buf, tel.capacity, 0, 0, per_step, objective,
                          stats.yty if objective and stats is not None else None,
                          tel.cursor, tel.dev_cursor)
         tel = obs_telemetry.advance(tel, lanes=active)
@@ -726,8 +796,7 @@ def batched_step(oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas
         maxabs=maxabs,
         step_inf=step_inf,
         stall=stall,
-        n_dots=[n + (n_scored + oracle.extra_dots if a else 0)
-                for n, a in zip(state.n_dots, active)],
+        n_dots=[n + (per_step if a else 0) for n, a in zip(state.n_dots, active)],
         k=[k + 1 if a else k for k, a in zip(state.k, active)],
         i_star=i_star,
         tel=tel,
@@ -744,25 +813,45 @@ def batched_loop(oracle, Xt, y, stats, states0: EngineState, cfg: FWConfig, delt
     ``vertex.fused_supported``) K batched steps, each lane active at the
     turn's start stepping until its max_iters, as the reference's chunk of
     K unfused steps; so a lane's stops land where the sequential fused
-    solve's do. ``on_step(state, active)``, when given, sees the state
-    after every batched step and which lanes took it. Returns ``(final
+    solve's do. A step rule's facts ride the turn's host read: a step that
+    read the stall counts itself (PARTAN's ``stall_host``) hands them on,
+    and the lazy rule's ``peek_lanes`` runs before the read, which reads its
+    hits with the stall vector. ``on_step(state, active)``, when given,
+    sees the state after every batched step and which lanes took it.
+    Returns ``(final
     state, saved)``, ``saved`` the lane-iterations not run: the frozen
     lanes times the turn's length, summed over the turns."""
     chunk_len = cfg.fuse_steps if vertex.fused_supported(oracle, cfg) else 1
     L = len(states0.k)
-    lane_ids = _LaneIds(states0.beta.device)
+    dev = states0.beta.device
+    peek = None
+    if cfg.step_rule != "classic":
+        from repro_torch.core import step_rule  # lazy: the rules layer on top of the engine
+
+        peek = getattr(step_rule.get_rule(cfg), "peek_lanes", None)
+    live = [k < cfg.max_iters for k in states0.k]  # the lanes a peek looks at: last turn's
     state, saved = states0, 0
     while True:
-        stall = state.stall.tolist()  # the one host read a turn
+        pre = None
+        if state.stall_host is not None:  # the step's own host read (PARTAN's)
+            stall = state.stall_host
+        elif peek is not None and any(live):
+            # the rule's facts (the lazy rule's hits) in the turn's one host read
+            look = peek(oracle, Xt, y, stats, state, cfg, deltas, live, lane_ids(live, dev))
+            host = torch.cat([state.stall, look.hit.to(state.stall.dtype)]).tolist()
+            stall, pre = host[:L], (look, [bool(h) for h in host[L:]])
+        else:
+            stall = state.stall.tolist()  # the one host read a turn
         active = [k < cfg.max_iters and s < patience for k, s in zip(state.k, stall)]
         if not any(active):
             return state, saved
+        live = active
         for _ in range(chunk_len):
             act = [a and k < cfg.max_iters for a, k in zip(active, state.k)]
             if not any(act):
                 break
             state = batched_step(oracle, Xt, y, stats, state, cfg, deltas, sampler, act,
-                                 lane_ids(act))
+                                 lane_ids(act, dev), pre)
             if on_step is not None:
                 on_step(state, act)
         saved += (L - sum(active)) * chunk_len
@@ -801,10 +890,6 @@ def _solve_batched_prepared(oracle, Xt, y, cfg: FWConfig, sampler, alpha0s, delt
     """``solve_batched`` on operands that ``prepare_inputs`` already placed
     and checked; ``on_step`` as ``batched_loop``'s; ``p`` as
     ``_solve_prepared``'s."""
-    if cfg.step_rule != "classic":
-        raise NotImplementedError(
-            f"step_rule={cfg.step_rule!r} has no batched lanes yet: ROADMAP.md Queue 1 item 9a"
-        )
     _check_lane_oracle(oracle)
     deltas = torch.as_tensor(deltas).to(device=Xt.device, dtype=torch.float32).reshape(-1)
     L = deltas.shape[0]

@@ -30,8 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import engine, vertex
-from repro_torch.core.fw_lasso import (amend_refreshed, amend_refreshed_lanes, refresh_lanes,
-                                       refresh_step, sf_refresh)
+from repro_torch.core.fw_lasso import (amend_refreshed, amend_refreshed_lanes, refresh_flags,
+                                       refresh_lanes, refresh_step, sf_refresh)
 from repro_torch.core.solver_config import FWConfig
 from repro_torch.kernels.step_tail import (  # noqa: F401 (the EN algebra, re-exported)
     DirEN,
@@ -172,6 +172,25 @@ class ENOracle:
                               refresh_step(state.k, cfg), pairwise, cfg,
                               en=DirEN(self.l2, co.q_norm))
         q_norm = q_refresh(out.q_norm, out.beta, out.scale, state.k, cfg)
+        return out, ENCo(out.resid, out.s_quad, out.f_lin, q_norm)
+
+    def dir_tail_lanes(self, Xt, y, stats, state, buf, raw_b, i_f, sel_f, deltas, pairwise, cfg,
+                       active, lanes):
+        """``dir_tail`` for the batched engine's lanes: ``vertex.dir_tail_lanes``
+        with the EN's terms (one launch on the kernels' backends), then each
+        refreshing lane's exact Q from its own row of beta. Returns ``(out,
+        co)``, lane-stacked."""
+        co = state.co
+        refresh = refresh_flags(state.k, active, cfg)
+        out = vertex.dir_tail_lanes(Xt, y, state.beta, state.scale, state.maxabs, state.step_inf,
+                                    state.stall, co.resid, co.s_quad, co.f_lin, buf, raw_b, i_f,
+                                    sel_f, deltas, refresh, lanes, pairwise, cfg,
+                                    en=DirEN(self.l2, co.q_norm))
+        q_norm = out.q_norm
+        for lane, r in enumerate(refresh):
+            if r:  # a copy of the lane's row, an operand of its own as the one-lane call's
+                q_norm[lane] = engine.q_exact(out.beta[lane].clone(),
+                                              out.scale[lane]).to(q_norm.dtype)
         return out, ENCo(out.resid, out.s_quad, out.f_lin, q_norm)
 
     # ---- fused K-step chunk protocol --------------------------------------

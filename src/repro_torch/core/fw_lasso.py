@@ -87,6 +87,12 @@ def amend_refreshed_lanes(oracle, tel, y, stats, co, lanes_done) -> None:
                      objective=objective[lane])
 
 
+def refresh_flags(ks, active, cfg) -> list:
+    """Whether each lane refreshes this step: an active lane at a refresh
+    step of its own k."""
+    return [bool(a) and refresh_step(k, cfg) for k, a in zip(ks, active)]
+
+
 def refresh_lanes(s_quad, f_lin, resid, y, ks, active, cfg):
     """Each active lane's periodic exact S/F refresh at its own k, from a
     residual row of its own, as ``sf_refresh`` takes it (in place on the
@@ -203,6 +209,18 @@ class LassoOracle:
         out = vertex.dir_tail(Xt, y, state.beta, state.scale, state.maxabs, state.stall,
                               co.resid, co.s_quad, co.f_lin, buf, raw_b, i_f, sel_f, delta,
                               refresh_step(state.k, cfg), pairwise, cfg)
+        return out, LassoCo(out.resid, out.s_quad, out.f_lin)
+
+    def dir_tail_lanes(self, Xt, y, stats, state, buf, raw_b, i_f, sel_f, deltas, pairwise, cfg,
+                       active, lanes):
+        """``dir_tail`` for the batched engine's lanes (``vertex.dir_tail_lanes``:
+        one launch on the kernels' backends), each active lane's refresh at
+        its own k inside it. Returns ``(out, co)``, lane-stacked."""
+        co = state.co
+        out = vertex.dir_tail_lanes(Xt, y, state.beta, state.scale, state.maxabs, state.step_inf,
+                                    state.stall, co.resid, co.s_quad, co.f_lin, buf, raw_b, i_f,
+                                    sel_f, deltas, refresh_flags(state.k, active, cfg), lanes,
+                                    pairwise, cfg)
         return out, LassoCo(out.resid, out.s_quad, out.f_lin)
 
     # ---- fused K-step chunk protocol --------------------------------------

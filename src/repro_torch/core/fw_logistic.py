@@ -248,7 +248,12 @@ class LogisticOracle:
         return co.margin
 
     def grad_dot_alpha(self, co: LogisticCo, stats, y, beta, scale, cfg):
-        """alpha^T grad_alpha = margin^T grad_margin: one O(m) dot."""
+        """alpha^T grad_alpha = margin^T grad_margin: one O(m) dot. Lanes:
+        one a lane, each on a copy of its margin row as the one-lane call
+        computes it."""
+        if co.margin.dim() == 2:
+            return torch.stack([self.grad_dot_alpha(LogisticCo(mg.clone()), stats, y, None, None,
+                                                    cfg) for mg in co.margin])
         grad_m = -y * torch.sigmoid(-y * co.margin)
         return vertex.mdot(co.margin, grad_m, cfg)
 

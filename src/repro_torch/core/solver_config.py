@@ -79,7 +79,7 @@ class FWConfig:
         step extrapolated against the previous iterate) and 'lazy' (a cache
         of recent winners re-scored before a fresh draw). A rule other than
         'classic' runs the per-step loop under ``fuse_steps > 1`` (with a
-        warning) and has no batched lanes yet (ROADMAP.md Queue 1 item 9a).
+        warning); every rule also runs in the batched lanes.
       active_set_size: the 'away'/'pairwise' buffer's capacity (the
         weakest-|beta| slot is evicted when a new FW atom enters a full one).
       lazy_cache: the 'lazy' rule's winner-cache capacity.

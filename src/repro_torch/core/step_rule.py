@@ -55,6 +55,22 @@ the step's one host read (``EngineState.stall_host``), so its matvec runs
 only when it is due, and the lazy rule's hit before the draw, so a hit
 skips the draw's kernels.
 
+Lanes (``step_lanes``, the batched engine's, under the reference's vmap of
+``rule_step``): each rule steps L delta lanes from the lane-stacked state
+(``engine.stack_states`` stacks the rule's state), every lane the
+sequential step on its stream, bit for bit. Away and pairwise on the lasso
+and the elastic-net: the lanes' draw, one lane scores launch on the
+buffers (``vertex.score_indices_lanes``) and one lane direction tail
+(``kernels/step_tail.dir_tail_lanes``); on the logistic the one-lane
+``_protocol_step`` a stepping lane. PARTAN: the classic lane step, then
+its O(p) algebra a lane (plain ops on the lane's rows, its reductions
+summed as the sequential step sums them), the lanes' refresh flags read
+with the stall vector in the step's one host read. Lazy: ``peek_lanes``
+scores every lane's cache (one lane scores launch) before the turn's host
+read, which reads the hits with the stall vector; the misses draw in one
+lane draw, a hit lane's stream skips its row (``skip(lanes)``), and the
+classic lane tail steps every lane.
+
 Telemetry (the reference's ``core/step_rule.py:325-352, 457-470,
 573-587``): an away or pairwise step writes its record with the plain
 ``record`` after its tail (its event, away, pairwise or drop, from the
@@ -138,6 +154,21 @@ class ClassicRule:
     def step(self, oracle, Xt, y, stats, state, cfg, delta, sampler) -> EngineState:
         return engine.step(oracle, Xt, y, stats, state, cfg, delta, sampler)
 
+    def step_lanes(self, oracle, Xt, y, stats, state, cfg, deltas, sampler, active, lanes,
+                   pre=None) -> EngineState:
+        return engine.classic_batched_step(oracle, Xt, y, stats, state, cfg, deltas, sampler,
+                                           active, lanes)
+
+
+def _run(active) -> list:
+    """The ids of the lanes that step."""
+    return [lane for lane, a in enumerate(active) if a]
+
+
+def _lane_co(co, lane: int):
+    """Lane ``lane``'s co-state of a lane-stacked one, as copies."""
+    return type(co)(*(f[lane].clone() for f in co))
+
 
 @dataclasses.dataclass(frozen=True)
 class DirRule:
@@ -167,6 +198,7 @@ class DirRule:
         if hasattr(oracle, "dir_tail"):
             # the lasso and the EN: the buffer's linear scores, then one tail
             raw_b, _ = vertex.score_indices(Xt, w, buf, p, cfg)
+            raw_b = raw_b.float()  # the tail's f32 scores (a bf16 sparse design's cast back)
             choice = None
             if state.tel is not None:
                 sel_b = raw_b if extra_fn is None else raw_b.float() + extra_fn(buf.clamp(0, p - 1))
@@ -183,8 +215,8 @@ class DirRule:
         n_dots = state.n_dots + n_scored + buf.shape[0] + DIR_EXTRA_DOTS + oracle.extra_dots
         tel = state.tel
         if tel is not None:
-            tel = self._record(tel, oracle, y, stats, state, choice, sel_f, delta, co, i_star, g,
-                               step_inf, stall, n_dots, cfg)
+            tel = self._record(tel, oracle, y, stats, state.k, choice, sel_f, delta, co, i_star,
+                               g, step_inf, stall, n_dots, cfg)
         return EngineState(
             beta=beta,
             scale=scale,
@@ -199,6 +231,89 @@ class DirRule:
             tel=tel,
         )
 
+    def step_lanes(self, oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas,
+                   sampler, active, lanes, pre=None) -> EngineState:
+        """``step`` for L lanes: the lanes' draw, then on the lasso and the
+        elastic-net one lane scores launch on the buffers and one lane
+        direction tail (the oracle's ``dir_tail_lanes``), on the logistic
+        ``_protocol_step`` a stepping lane; each stepping lane's plain
+        record. A frozen lane keeps its state, its vertex -1."""
+        p = state.beta.shape[1]
+        buf = state.rule
+        run = _run(active)
+        w = oracle.cograd(state.co, y)
+        extra = oracle.score_extra(state.beta, state.scale, state.support)
+        i_f, _, sel_f, n_scored = vertex.sample_vertex_lanes(Xt, w, sampler, p, cfg, active,
+                                                             lanes, extra)
+        tel = state.tel
+        if hasattr(oracle, "dir_tail_lanes"):
+            raw_b = vertex.score_indices_lanes(Xt, w, buf, p, cfg, active, lanes)[0]
+            raw_b = raw_b.float().contiguous()
+            choices = {}
+            if tel is not None:
+                for lane in run:
+                    ls = engine.lane_state(state, lane)
+                    sel_b = raw_b[lane] if extra is None else raw_b[lane] + extra.lane(lane)(
+                        ls.rule.clamp(0, p - 1))
+                    choices[lane] = self._choice(oracle, y, stats, ls, sel_b, ls.rule, i_f[lane],
+                                                 sel_f[lane], deltas[lane], p, cfg)
+            out, co = oracle.dir_tail_lanes(Xt, y, stats, state, buf, raw_b, i_f, sel_f, deltas,
+                                            self.pairwise, cfg, active, lanes)
+            beta, scale, maxabs, step_inf, stall = out[:5]
+            buf, i_star, g = out.buf, out.i_star, out.g
+        else:
+            beta, scale, maxabs, step_inf, stall, co, buf, i_star, g, choices = (
+                self._protocol_lanes(oracle, Xt, y, stats, state, w, i_f, sel_f, deltas, p, cfg,
+                                     run))
+        per = n_scored + buf.shape[1] + DIR_EXTRA_DOTS + oracle.extra_dots
+        n_dots = [n + per if a else n for n, a in zip(state.n_dots, active)]
+        if tel is not None:
+            for lane in run:
+                tel = self._record(tel, oracle, y, stats, state.k[lane], choices[lane],
+                                   sel_f[lane], deltas[lane], _lane_co(co, lane), i_star[lane],
+                                   g[lane], step_inf[lane], stall[lane], n_dots[lane], cfg,
+                                   lane=lane)
+        return EngineState(
+            beta=beta,
+            scale=scale,
+            co=co,
+            maxabs=maxabs,
+            step_inf=step_inf,
+            stall=stall,
+            n_dots=n_dots,
+            k=[k + 1 if a else k for k, a in zip(state.k, active)],
+            i_star=i_star,
+            rule=buf,
+            tel=tel,
+            support=state.support,
+        )
+
+    def _protocol_lanes(self, oracle, Xt, y, stats, state, w, i_f, sel_f, deltas, p, cfg, run):
+        """``_protocol_step`` once per stepping lane, on its one-lane state
+        (``engine.lane_state``: its row of beta updated in place); a frozen
+        lane keeps its state, its vertex -1 and its g 0. Returns the lanes'
+        state fields, step sizes and choices (a dict by lane)."""
+        dtype = state.beta.dtype
+        scale, maxabs, step_inf, stall = (t.clone() for t in (
+            state.scale, state.maxabs, state.step_inf, state.stall))
+        co = [f.clone() for f in state.co]
+        buf = state.rule.clone()
+        i_star = torch.full_like(i_f, -1)
+        g = torch.zeros(i_f.shape, dtype=torch.float32, device=i_f.device)
+        choices = {}
+        for lane in run:
+            ls = engine.lane_state(state, lane)
+            got = self._protocol_step(oracle, Xt, y, stats, ls, w[lane].clone(),
+                                      i_f[lane].clone(), sel_f[lane].clone(),
+                                      deltas[lane].clone(), p, cfg)
+            _, sc, mx, si, st, co_l, buf_l, i_l, g_l, choices[lane] = got
+            scale[lane], maxabs[lane], step_inf[lane] = (t.to(dtype) for t in (sc, mx, si))
+            stall[lane], buf[lane], i_star[lane], g[lane] = st, buf_l, i_l, g_l
+            for f, v in zip(co, co_l):
+                f[lane] = v
+        return (state.beta, scale, maxabs, step_inf, stall, type(state.co)(*co), buf, i_star, g,
+                choices)
+
     def _choice(self, oracle, y, stats, state, sel_b, buf, i_f, sel_f, delta, p, cfg):
         """The away-or-FW choice from the state before the step, with the
         plain ops (the record's event and gap need it; the direction tail
@@ -211,11 +326,12 @@ class DirRule:
                                  None if self.pairwise else ga, self.pairwise, cfg.eps_den)
         return ds, use_alt, ga
 
-    def _record(self, tel, oracle, y, stats, state, choice, sel_f, delta, co, i_star, g,
-                step_inf, stall, n_dots, cfg):
-        """The step's plain ring record: a drop step (the away atom at g_max)
-        is ``EVENT_DROP``, another away or pairwise direction ``EVENT_AWAY``
-        or ``EVENT_PAIRWISE``, else ``EVENT_FW``; the gap is the classic
+    def _record(self, tel, oracle, y, stats, k, choice, sel_f, delta, co, i_star, g,
+                step_inf, stall, n_dots, cfg, lane=None):
+        """The step's plain ring record (iteration ``k``; of lane ``lane`` of
+        a lane ring): a drop step (the away atom at g_max) is
+        ``EVENT_DROP``, another away or pairwise direction ``EVENT_AWAY`` or
+        ``EVENT_PAIRWISE``, else ``EVENT_FW``; the gap is the classic
         sampled FW gap ``<grad, alpha> - delta_t sel_f``, the rules' common
         yardstick."""
         ds, use_alt, ga = choice
@@ -228,8 +344,8 @@ class DirRule:
             df_fw = -delta * torch.sign(sel_f.float())
             gap = ga - df_fw * sel_f.float()
             objective = oracle.objective(y, stats, co, cfg)
-        return obs_telemetry.record(tel, k=state.k, i_star=i_star, event=event, lam=g, gap=gap,
-                                    objective=objective, step_inf=step_inf, stall=stall,
+        return obs_telemetry.record(tel, lane=lane, k=k, i_star=i_star, event=event, lam=g,
+                                    gap=gap, objective=objective, step_inf=step_inf, stall=stall,
                                     n_dots=n_dots)
 
     def _protocol_step(self, oracle, Xt, y, stats, state, w, i_f, sel_f, delta, p, cfg):
@@ -296,7 +412,97 @@ class PartanRule:
         a_prev = a_prev.clone()
         alpha_old = state.scale * state.beta
         mid = engine.step(oracle, Xt, y, stats, state, cfg, delta, sampler)
-        no_prog_mid = mid.stall > state.stall
+        ext = self._extrapolate(oracle, y, stats, mid, state.stall, a_prev, v_prev, drift,
+                                alpha_old, delta, cfg)
+        # the step's one host read: the stall count and whether to rebuild
+        stall_host, refresh_host = torch.stack([ext.stall, ext.refresh.int()]).tolist()
+        co, drift, v_new, n_dots = self._finish(oracle, Xt, y, ext, refresh_host, mid.n_dots,
+                                                cfg)
+        tel = mid.tel
+        if tel is not None:
+            tel = self._amend(tel, oracle, y, stats, ext, co, n_dots, cfg)
+        return EngineState(
+            beta=ext.a_new,
+            scale=torch.ones((), dtype=ext.a_new.dtype, device=ext.a_new.device),
+            co=co,
+            maxabs=torch.max(torch.abs(ext.a_new)),
+            step_inf=ext.step_inf,
+            stall=ext.stall,
+            n_dots=n_dots,
+            k=mid.k,
+            i_star=mid.i_star,
+            rule=(ext.a_new, v_new, drift),
+            stall_host=stall_host,
+            tel=tel,
+        )
+
+    def step_lanes(self, oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas,
+                   sampler, active, lanes, pre=None) -> EngineState:
+        """``step`` for L lanes: the classic lane step, then each stepping
+        lane's extrapolation with the one-lane ops on its rows, the lanes'
+        stall counts and refresh flags in one host read (handed to the loop
+        as ``stall_host``), each due lane's rebuild, and PARTAN's amend of
+        each lane's record. A frozen lane keeps its state and anchor."""
+        a_prev, v_prev, drift = state.rule
+        run = _run(active)
+        before = {lane: (a_prev[lane].clone(), v_prev[lane].clone(), drift[lane].clone(),
+                         state.scale[lane] * state.beta[lane], state.stall[lane].clone())
+                  for lane in run}
+        mid = engine.classic_batched_step(oracle, Xt, y, stats, state, cfg, deltas, sampler,
+                                          active, lanes)
+        exts = {}
+        for lane in run:
+            a_p, v_p, d_p, alpha_old, stall0 = before[lane]
+            exts[lane] = self._extrapolate(oracle, y, stats, engine.lane_state(mid, lane), stall0,
+                                           a_p, v_p, d_p, alpha_old, deltas[lane], cfg)
+        stall = mid.stall.clone()
+        for lane in run:
+            stall[lane] = exts[lane].stall
+        flags = torch.stack([exts[lane].refresh for lane in run]).to(stall.dtype)
+        host = torch.cat([stall, flags]).tolist()  # the step's one host read
+        L = len(active)
+        stall_host, refresh_host = host[:L], dict(zip(run, host[L:]))
+        fields = [[t[lane] for lane in range(L)] for t in (
+            mid.beta, mid.scale, mid.maxabs, mid.step_inf, v_prev, drift)]
+        co = [[f[lane] for lane in range(L)] for f in mid.co]
+        n_dots, tel = list(mid.n_dots), mid.tel
+        for lane in run:
+            ext = exts[lane]
+            co_l, drift_l, v_new, n_dots[lane] = self._finish(oracle, Xt, y, ext,
+                                                              refresh_host[lane],
+                                                              mid.n_dots[lane], cfg)
+            a_new = ext.a_new
+            for f, v in zip(fields, (a_new, torch.ones((), dtype=a_new.dtype,
+                                                        device=a_new.device),
+                                     torch.max(torch.abs(a_new)), ext.step_inf, v_new, drift_l)):
+                f[lane] = v
+            for f, v in zip(co, co_l):
+                f[lane] = v
+            if tel is not None:
+                tel = self._amend(tel, oracle, y, stats, ext, co_l, n_dots[lane], cfg, lane)
+        beta, scale, maxabs, step_inf, v_new, drift = (torch.stack(f) for f in fields)
+        return EngineState(
+            beta=beta,
+            scale=scale,
+            co=type(mid.co)(*(torch.stack(f) for f in co)),
+            maxabs=maxabs,
+            step_inf=step_inf,
+            stall=stall,
+            n_dots=n_dots,
+            k=mid.k,
+            i_star=mid.i_star,
+            rule=(beta, v_new, drift),
+            stall_host=stall_host,
+            tel=tel,
+            support=mid.support,
+        )
+
+    def _extrapolate(self, oracle, y, stats, mid, stall0, a_prev, v_prev, drift, alpha_old, delta,
+                     cfg) -> "PartanExt":
+        """The extrapolation from the classic half-step's state ``mid`` (the
+        state before it had stall ``stall0`` and alpha ``alpha_old``), before
+        the refresh decision is read on the host."""
+        no_prog_mid = mid.stall > stall0
 
         a_mid = mid.scale * mid.beta
         v_mid = oracle.co_linpred(mid.co, y)
@@ -317,40 +523,48 @@ class PartanRule:
         refresh = drift > PARTAN_DRIFT_LIMIT
         # exact stopping statistics: PARTAN is O(p) anyway
         step_inf = torch.max(torch.abs(a_new - alpha_old))
-        stall = torch.where((step_inf <= cfg.tol) | no_prog_mid, state.stall + 1, 0)
-        # the step's one host read: the stall count and whether to rebuild
-        stall_host, refresh_host = torch.stack([stall, refresh.int()]).tolist()
+        stall = torch.where((step_inf <= cfg.tol) | no_prog_mid, stall0 + 1, 0)
+        return PartanExt(a_new, co, drift, refresh, step_inf, stall)
+
+    @staticmethod
+    def _finish(oracle, Xt, y, ext: "PartanExt", refresh_host, n_dots_mid: int, cfg):
+        """After the host read: the co-state rebuilt from an exact matvec when
+        the odometer asked (``refresh_host``), the anchor's image, and the
+        dot count. Returns ``(co, drift, v_new, n_dots)``."""
+        co, drift, a_new = ext.co, ext.drift, ext.a_new
         if refresh_host:
             co = oracle.init_co(y, vertex.matvec(Xt, a_new, cfg), a_new, a_new.dtype, cfg)
             drift = torch.zeros_like(drift)
         # the outer iterate anchors the next step, its image read through the
         # (rebuilt) co-state
         v_new = oracle.co_linpred(co, y)
-        n_dots = mid.n_dots + PARTAN_EXTRA_DOTS + (a_new.shape[0] if refresh_host else 0)
-        tel = mid.tel
-        if tel is not None:
-            # the classic half-step recorded this iteration; amend that record
-            # in place with the extrapolated step's statistics (one record an
-            # iteration); the gap stays the half-step's sampled FW gap
-            fields = dict(event=obs_telemetry.EVENT_PARTAN, step_inf=step_inf, stall=stall,
-                          n_dots=n_dots)
-            if cfg.telemetry.record_objective:
-                fields["objective"] = oracle.objective(y, stats, co, cfg)
-            tel = obs_telemetry.amend_last(tel, **fields)
-        return EngineState(
-            beta=a_new,
-            scale=torch.ones((), dtype=a_new.dtype, device=a_new.device),
-            co=co,
-            maxabs=torch.max(torch.abs(a_new)),
-            step_inf=step_inf,
-            stall=stall,
-            n_dots=n_dots,
-            k=mid.k,
-            i_star=mid.i_star,
-            rule=(a_new, v_new, drift),
-            stall_host=stall_host,
-            tel=tel,
-        )
+        n_dots = n_dots_mid + PARTAN_EXTRA_DOTS + (a_new.shape[0] if refresh_host else 0)
+        return co, drift, v_new, n_dots
+
+    @staticmethod
+    def _amend(tel, oracle, y, stats, ext: "PartanExt", co, n_dots: int, cfg, lane=None):
+        """The classic half-step recorded this iteration; amend that record
+        in place with the extrapolated step's statistics (one record an
+        iteration; of lane ``lane`` of a lane ring); the gap stays the
+        half-step's sampled FW gap."""
+        fields = dict(event=obs_telemetry.EVENT_PARTAN, step_inf=ext.step_inf, stall=ext.stall,
+                      n_dots=n_dots)
+        if cfg.telemetry.record_objective:
+            fields["objective"] = oracle.objective(y, stats, co, cfg)
+        return obs_telemetry.amend_last(tel, lane=lane, **fields)
+
+
+class PartanExt(NamedTuple):
+    """PARTAN's extrapolated step before its refresh decision is read: the
+    new iterate, its co-state, the odometer, whether it asks for a rebuild
+    (a 0-d device bool), the exact step_inf and the stall count."""
+
+    a_new: torch.Tensor
+    co: Any
+    drift: torch.Tensor
+    refresh: torch.Tensor
+    step_inf: torch.Tensor
+    stall: torch.Tensor
 
 
 class LazyPeek(NamedTuple):
@@ -449,6 +663,75 @@ class LazyRule:
             rule=(cache_new, phi_new),
             tel=tel,
         )
+
+    def peek_lanes(self, oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas, active,
+                   lanes) -> LazyPeek:
+        """``_peek`` for L lanes, taken before the turn's host read (which
+        reads its hits with the stall vector): the lanes' co-gradients,
+        <grad, alpha> a lane, one lane scores launch on the caches of the
+        lanes in ``active`` (``lanes`` their int32 device ids), the gaps and
+        the threshold test as plain ops on ``(L, cache)``. Returns a
+        lane-stacked ``LazyPeek`` (``j`` and ``hit`` ``(L,)``)."""
+        p = state.beta.shape[1]
+        cache, phi = state.rule
+        w = oracle.cograd(state.co, y)
+        extra = oracle.score_extra(state.beta, state.scale)
+        ga = oracle.grad_dot_alpha(state.co, stats, y, state.beta, state.scale, cfg)
+        raw_c, sel_c = vertex.score_indices_lanes(Xt, w, cache, p, cfg, active, lanes, extra)
+        gap_c = torch.where(cache >= 0,
+                            ga.float()[:, None] + deltas[:, None] * torch.abs(sel_c.float()),
+                            float("-inf"))
+        j = torch.argmax(gap_c, dim=1)
+        hit = gap_c.gather(1, j[:, None]).view(-1) >= phi
+        return LazyPeek(w, ga, raw_c, sel_c, j, hit)
+
+    def step_lanes(self, oracle, Xt, y, stats, state: EngineState, cfg: FWConfig, deltas,
+                   sampler, active, lanes, pre=None) -> EngineState:
+        """``step`` for L lanes from ``pre``, the turn's ``peek_lanes`` and
+        its hits as the host read them: a hit lane takes its cached winner
+        and skips its stream's row, the misses draw in one lane draw (their
+        threshold and cache updated a lane), and the classic lane tail steps
+        every lane, each record amended with the lazy gap, its dot count and
+        a hit's event. A frozen lane keeps its state, its vertex -1."""
+        peek, hits = pre
+        L, p = state.beta.shape
+        dev = state.beta.device
+        cache, phi = state.rule
+        cap = cache.shape[1]
+        hit = [a and h for a, h in zip(active, hits)]
+        miss = [a and not h for a, h in zip(active, hits)]
+        sampler.skip(hit)
+        ns = 0
+        i_d = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        g_raw_d = g_sel_d = torch.zeros(L, dtype=torch.float32, device=dev)
+        if any(miss):
+            extra = oracle.score_extra(state.beta, state.scale, state.support)
+            i_d, g_raw_d, g_sel_d, ns = vertex.sample_vertex_lanes(
+                Xt, peek.w, sampler, p, cfg, miss, engine.lane_ids(miss, dev), extra)
+        j = peek.j[:, None]
+        i_star = torch.where(peek.hit, cache.clamp(0, p - 1).gather(1, j).view(-1), i_d)
+        g_raw = torch.where(peek.hit, peek.raw_c.gather(1, j).view(-1).float(), g_raw_d.float())
+        g_sel = torch.where(peek.hit, peek.sel_c.gather(1, j).view(-1).float(), g_sel_d.float())
+        gap = peek.ga.float() + deltas * torch.abs(g_sel)
+        phi_miss = self.phi_update(phi, gap)
+        phi_new, cache_new = phi.clone(), cache.clone()
+        for lane in _run(miss):
+            phi_new[lane] = phi_miss[lane]
+            cache_new[lane, state.k[lane] % cap] = i_star[lane]
+        out = engine.batched_tail(oracle, Xt, y, stats, state, cfg, deltas, active, lanes, i_star,
+                                  g_raw, g_sel, cap + 1 + oracle.extra_dots)
+        n_dots = [n + (ns if m else 0) for n, m in zip(out.n_dots, miss)]
+        tel = out.tel
+        if tel is not None:
+            # the lazy rule's gap, its dot count and a hit's event in each record
+            for lane in _run(active):
+                fields = dict(gap=gap[lane], n_dots=n_dots[lane])
+                if hit[lane]:
+                    fields["event"] = obs_telemetry.EVENT_LAZY_HIT
+                tel = obs_telemetry.amend_last(tel, lane=lane, **fields)
+        frozen = torch.ones(L, dtype=torch.bool, device=dev).index_fill_(0, lanes.long(), False)
+        return out._replace(n_dots=n_dots, i_star=i_star.masked_fill(frozen, -1),
+                            rule=(cache_new, phi_new), tel=tel)
 
 
 _RULES = {

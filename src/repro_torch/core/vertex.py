@@ -179,6 +179,11 @@ class LaneSampler:
             for _ in range(self.lanes)
         ])
 
+    def skip(self, lanes) -> None:
+        """The lanes in ``lanes`` (host bools) draw no set this step (lazy
+        cache hits): nothing to do, a draw being every lane's at once (the
+        hits' rows discarded) and this stream the port's own."""
+
 
 class LaneStreamSampler:
     """Replays one ``(n_steps, k)`` stream a lane (a ``StreamSampler``
@@ -211,6 +216,16 @@ class LaneStreamSampler:
 
     def blocks_lanes(self, nb: int, nblocks: int, active) -> torch.Tensor:
         return self._rows(lambda s: s.blocks(nb, nblocks), nb, active)
+
+    def skip(self, lanes) -> None:
+        """Pass each lane in ``lanes`` (host bools) over its next row unused
+        (a lazy cache hit in that lane), as ``StreamSampler.skip``: the
+        other lanes' cursors stay."""
+        if len(lanes) != len(self.lanes):
+            raise ValueError(f"{len(lanes)} lanes asked, {len(self.lanes)} streams")
+        for s, h in zip(self.lanes, lanes):
+            if h:
+                s.skip()
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -613,6 +628,60 @@ def sample_vertex_lanes(Xt, w: torch.Tensor, sampler, p: int, cfg: FWConfig, act
     i_star, g_raw, g_sel = _plain_vertex_lanes(torch_vertex, L, active, Xt.device, Xt.dtype,
                                                Xt.dtype if extra is None else torch.float32)
     return i_star, g_raw, g_sel, n_scored
+
+
+def score_indices_lanes(Xt, w: torch.Tensor, idx: torch.Tensor, p: int, cfg: FWConfig,
+                        active, lanes: torch.Tensor, extra=None):
+    """``score_indices`` for L lanes: each lane's linear scores at its own
+    caller-chosen ids, ``idx (L, n)`` (the away rules' buffers, the lazy
+    rule's caches), against its co-gradient ``w (L, m)``, for the lanes in
+    ``active`` (``lanes`` the same as int32 device ids). On the kernels'
+    backends one launch of the lane scores at width 1 (K2's, or K5's cast
+    to the design's dtype as the one-lane call casts), each lane's row
+    bitwise the one-lane launch's; on 'torch' and the plain sparse ops the
+    one-lane ops once per active lane. ``extra`` is the lanes' score shift
+    (a lane-stacked ``ScoreShift``, or None). A frozen lane's row is
+    unused. Returns ``(raw (L, n), sel (L, n))``."""
+    if cfg.backend == "distributed":
+        return _dist().dist_score_indices_lanes(Xt, w, idx, p, cfg, lanes, extra)
+    safe = idx.clamp(0, p - 1)
+    if _lane_kernels(cfg):
+        if cfg.backend == "sparse":
+            raw = sparse_ops.sparse_scores_lanes(Xt, w, safe, 1, lanes).to(Xt.dtype)
+        else:
+            raw = fw_grad.sampled_scores_lanes(Xt, w, safe, 1, lanes)
+    else:
+        dtype = Xt.dtype
+        raw = torch.zeros(safe.shape, dtype=dtype, device=w.device)
+        for lane in _lane_ids(active):
+            raw[lane] = score_indices(Xt, w[lane].clone(), safe[lane], p, cfg)[0]
+    sel = raw if extra is None else raw.float() + extra.l2 * (
+        extra.scale[:, None].float() * extra.beta.gather(1, safe).float())
+    return raw, sel
+
+
+def dir_tail_lanes(Xt, y, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, buf, raw_b,
+                   i_f, sel_f, deltas, refresh, lanes: torch.Tensor, pairwise: bool,
+                   cfg: FWConfig, en=None):
+    """``dir_tail`` for L lanes (``beta (L, p)`` in place, ``resid (L, m)``,
+    ``(L,)`` scalars, FW vertices, scores and deltas, the buffers and their
+    scores ``(L, n)``, ``refresh`` one host bool a lane): one launch of
+    ``kernels/step_tail``'s lane direction tail where the backend runs the
+    kernels, its plain version (the one-lane plain tail once per lane)
+    otherwise. Lanes not in ``lanes`` keep their state. Returns a
+    ``DirTailOut`` of lane-stacked fields."""
+    if cfg.backend == "distributed":
+        return _dist().dist_dir_tail_lanes(Xt, y, beta, scale, maxabs, step_inf, stall, resid,
+                                           s_quad, f_lin, buf, raw_b, i_f, sel_f, deltas,
+                                           refresh, lanes, pairwise, cfg, en)
+    mat = (Xt.values, Xt.rows) if isinstance(Xt, SparseBlockMatrix) else Xt
+    args = (mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, buf, raw_b, i_f,
+            sel_f, deltas, refresh, lanes, pairwise, cfg)
+    if not use_kernels(cfg):
+        return _step_tail.dir_tail_lanes_plain(*args, en)
+    if en is None:
+        return _step_tail.dir_tail_lanes(*args)
+    return _step_tail.dir_tail_en_lanes(*args, en)
 
 
 def step_tail_lanes(Xt, y, stats, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,

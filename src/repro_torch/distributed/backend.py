@@ -207,6 +207,29 @@ def dist_score_indices(Xt_l, w_l, idx, p: int, cfg: FWConfig, extra_fn=None):
     return raw, sel
 
 
+def dist_score_indices_lanes(Xt_l, w_l, idx, p: int, cfg: FWConfig, lanes, extra=None):
+    """The distributed ``vertex.score_indices_lanes``: the owned lane scores
+    at width 1 of each lane's ids ``idx (L, n)`` (one launch for the lanes
+    in ``lanes``) and one all_reduce over both axes. Returns ``(raw (L, n),
+    sel (L, n))``, replicated."""
+    safe = idx.clamp(0, p - 1)
+    off, _ = feature_range(Xt_l, cfg)
+    sparse = isinstance(Xt_l, SparseBlockMatrix)
+    if sparse:
+        raw = sparse_grad.sparse_sampled_scores_lanes_owned(Xt_l.values, Xt_l.rows, w_l, safe, 1,
+                                                            lanes, off)
+    else:
+        raw = fw_grad.sampled_scores_lanes_owned(Xt_l, w_l, safe, 1, lanes, off)
+    _count("rescore_psum")
+    all_reduce(raw.as_strided((raw.shape[0], raw.stride(0)), (raw.stride(0), 1)),
+               current_mesh(cfg), "world")
+    if sparse:
+        raw = raw.to(Xt_l.dtype)
+    sel = raw if extra is None else raw.float() + extra.l2 * (
+        extra.scale[:, None].float() * extra.beta.gather(1, safe).float())
+    return raw, sel
+
+
 def dist_sample_vertex_lanes(Xt_l, w_l, sampler, p: int, cfg: FWConfig, active, lanes,
                              extra=None):
     """The distributed ``vertex.sample_vertex_lanes``: one owned lane scores
@@ -308,6 +331,26 @@ def dist_dir_tail(Xt_l, y_l, beta, scale, maxabs, stall, resid, s_quad, f_lin, b
     if en is None:
         return _step_tail.dir_tail_given(*args, complete=complete)
     return _step_tail.dir_tail_en_given(*args, en, complete=complete)
+
+
+def dist_dir_tail_lanes(Xt_l, y_l, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
+                        buf, raw_b, i_f, sel_f, deltas, refresh, lanes, pairwise: bool,
+                        cfg: FWConfig, en=None):
+    """``dist_dir_tail`` for L lanes: every lane's ``dir_column_ids`` columns
+    (a frozen lane's -1 gives zeros) in one ``owned_column_lanes`` launch and
+    one all_reduce, then the lane direction tail's ``GIVEN``
+    instantiation; with the samples split, the lanes' dots complete over
+    "data" between its two launches."""
+    L, n = buf.shape
+    p = beta.shape[1]
+    ids = torch.cat([i_f[:, None], torch.zeros_like(i_f)[:, None], buf.clamp(0, p - 1)], dim=1)
+    zcols = dist_columns(Xt_l, ids.reshape(-1), cfg).view(L, n + 2, -1)
+    complete = (lambda t: complete_data(t, cfg)) if cfg.dist.n_data > 1 else None
+    args = (zcols, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y_l, buf, raw_b,
+            i_f, sel_f, deltas, refresh, lanes, pairwise, cfg)
+    if en is None:
+        return _step_tail.dir_tail_lanes_given(*args, complete=complete)
+    return _step_tail.dir_tail_en_lanes_given(*args, en, complete=complete)
 
 
 def dist_column_update(Xt_l, v_l, y_l, i_star, lam, delta_t, cfg: FWConfig):

@@ -27,8 +27,9 @@ scores on a rank's tile, +0.0 for an unowned id; ``owned_column[_lanes]``:
 the winner's column on the tile; ``*_given``: the tails with that column
 given, completed across the ranks) have wrappers of their own too.
 
-K2's scores and argmax, the step's tail and K5 also take L delta lanes in
-one launch (``*_lanes``, the batched engine's), each with a count of its own.
+K2's scores and argmax, the step's tail, the direction tail and K5 also
+take L delta lanes in one launch (``*_lanes``, the batched engine's), each
+with a count of its own.
 The elastic-net's instantiations (the argmax with its score shift, the tail
 with its line search and Q, K4 and K7 with the alpha ledger) have wrappers
 of their own (``*_shifted``, ``*_en``), and so have the instantiations that
@@ -98,6 +99,10 @@ _WRAPPERS = {
     "step_tail_en_lanes_given_tel": step_tail.step_tail_en_lanes_given_tel,
     "dir_tail_given": step_tail.dir_tail_given,
     "dir_tail_en_given": step_tail.dir_tail_en_given,
+    "dir_tail_lanes": step_tail.dir_tail_lanes,
+    "dir_tail_en_lanes": step_tail.dir_tail_en_lanes,
+    "dir_tail_lanes_given": step_tail.dir_tail_lanes_given,
+    "dir_tail_en_lanes_given": step_tail.dir_tail_en_lanes_given,
 }
 
 

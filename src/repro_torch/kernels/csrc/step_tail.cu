@@ -652,6 +652,19 @@ struct DirArgs {
   // across the sample slices) and the dots' buffer
   int phase;
   float* __restrict__ dots;
+  // lanes (the LANES instantiations): null for one lane; else the n_run
+  // lanes that step, a row of blocks a lane (blockIdx.y). Lane l's beta,
+  // resid and r_out start l * p, l * m and l * m elements in, its buffer,
+  // scores and buf_out l * n_buf, its given columns l * (n_buf + 2) * m, its
+  // scalars, i_f, sel_f and delta are entry l of (L,) arrays, its outputs
+  // s_out[f * L + l] (field f), stall_out[l], g_out[l] and i_out[2l..2l+1],
+  // its dots 3l, its scratch 5 * gridDim.x * l. refresh is then whether any
+  // lane refreshes (every block takes the refresh's grid sync) and
+  // refresh_l[l] whether lane l does.
+  const int* __restrict__ lane_ids;
+  int n_run;
+  const int* __restrict__ refresh_l;
+  const T* __restrict__ step_inf;  // (L,) a frozen lane's step_inf, copied out
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -701,6 +714,58 @@ __device__ __forceinline__ void grid_sums(const float* scratch, int c0, float (&
   }
 }
 
+// Point `a` at lane l's operands (see DirArgs).
+template <typename T, bool EN, bool GIVEN>
+__device__ __forceinline__ void select_dir_lane(DirArgs<T>& a, int l) {
+  const long long nb = a.n_buf;
+  if constexpr (GIVEN) {
+    a.X += (long long)l * (nb + 2) * a.m;
+    if (a.dots != nullptr) a.dots += 3 * l;
+  }
+  if constexpr (EN) a.q_norm += l;
+  a.beta += (long long)l * a.p;
+  a.scale += l;
+  a.maxabs += l;
+  a.stall += l;
+  a.s_quad += l;
+  a.f_lin += l;
+  a.step_inf += l;
+  a.resid += (long long)l * a.m;
+  a.buf += l * nb;
+  a.raw_b += l * nb;
+  a.i_f += l;
+  a.sel_f += l;
+  a.delta += l;
+  a.r_out += (long long)l * a.m;
+  a.s_out += l;
+  a.stall_out += l;
+  a.buf_out += l * nb;
+  a.i_out += 2 * l;
+  a.g_out += l;
+  a.scratch += 5LL * l * gridDim.x;
+}
+
+// A frozen lane: its residual rows of this block and (block 0) its buffer
+// and scalars copied to the outputs unchanged, its vertices -1 and g 0;
+// beta is left alone.
+template <typename T, bool EN>
+__device__ void frozen_dir_lane(const DirArgs<T>& a, int lo, int hi, int L) {
+  for (int k = lo + threadIdx.x; k < hi; k += DT_THREADS) a.r_out[k] = a.resid[k];
+  if (blockIdx.x != 0) return;
+  for (int s = threadIdx.x; s < a.n_buf; s += DT_THREADS) a.buf_out[s] = a.buf[s];
+  if (threadIdx.x == 0) {
+    a.s_out[0] = *a.scale;
+    a.s_out[L] = *a.maxabs;
+    a.s_out[2 * L] = *a.step_inf;
+    a.s_out[3 * L] = *a.s_quad;
+    a.s_out[4 * L] = *a.f_lin;
+    if constexpr (EN) a.s_out[5 * L] = *a.q_norm;
+    *a.stall_out = *a.stall;
+    *a.g_out = 0.f;
+    a.i_out[0] = a.i_out[1] = -1;
+  }
+}
+
 // GIVEN (the distributed backend, a rank's sample slice): X holds the
 // columns (n_buf + 2, m), completed across the ranks that own the feature
 // axis: z_f, then feature 0's (the away atom's dummy when no slot is valid),
@@ -709,7 +774,13 @@ __device__ __forceinline__ void grid_sums(const float* scratch, int c0, float (&
 // single-device tail's. With the samples split across ranks the tail runs
 // in two phases around an all_reduce of the three dots (and the host
 // refreshes S and F).
-template <typename T, bool SPARSE, bool EN, bool GIVEN = false>
+//
+// LANES: a row of blocks a lane (blockIdx.y), each listed lane running
+// exactly the one-lane tail on its operands (its partials in its own
+// scratch, summed over its own row of blocks); a frozen lane copies its
+// state to the outputs (frozen_dir_lane) and takes the grid syncs with the
+// others, as a cooperative launch asks of every block.
+template <typename T, bool SPARSE, bool EN, bool GIVEN = false, bool LANES = false>
 __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   constexpr bool SLOTS = SPARSE && !GIVEN;
   __shared__ DirShared sh;
@@ -717,6 +788,21 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int lo = blockIdx.x * DT_ROWS, hi = min(a.m, lo + DT_ROWS);
+  const int L = LANES ? gridDim.y : 1;  // s_out's field stride
+  bool refresh = a.refresh;             // this lane's; a.refresh: any lane's
+  if constexpr (LANES) {
+    const int l = blockIdx.y;
+    bool listed = false;
+    for (int k = 0; k < a.n_run; ++k) listed |= a.lane_ids[k] == l;
+    refresh = a.refresh_l[l] != 0;
+    select_dir_lane<T, EN, GIVEN>(a, l);
+    if (!listed) {
+      if (a.phase != 1) frozen_dir_lane<T, EN>(a, lo, hi, L);
+      grid.sync();
+      if (a.phase != 1 && a.refresh) grid.sync();
+      return;
+    }
+  }
   const long long i_f = *a.i_f, p = a.p;
 
   // ---- loads: this thread's rows of R, y (and, dense, z_f); the slots ----
@@ -952,10 +1038,12 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
       if (q != i_f && q != i_a) a.beta[q] = from_f32<T>(__fmul_rn(to_f32(a.beta[q]), f));
   }
   if (a.refresh) {
-    block_sums<2>(fresh, sh.red);
-    if (tid == 0) {
-      a.scratch[5 * blockIdx.x + 3] = fresh[0];
-      a.scratch[5 * blockIdx.x + 4] = fresh[1];
+    if (refresh) {
+      block_sums<2>(fresh, sh.red);
+      if (tid == 0) {
+        a.scratch[5 * blockIdx.x + 3] = fresh[0];
+        a.scratch[5 * blockIdx.x + 4] = fresh[1];
+      }
     }
     grid.sync();
   }
@@ -990,7 +1078,7 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
   // S, F (and Q): the recursions, or the exact refresh of S and F
   const float two_og = __fmul_rn(2.f, one_gt);
   const float og2 = __fmul_rn(one_gt, one_gt), g2 = __fmul_rn(g, g);
-  if (a.refresh) {
+  if (refresh) {
     float tot[2];
     grid_sums<2>(a.scratch, 3, tot);
     S = tot[0];
@@ -1001,15 +1089,15 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
     F = __fadd_rn(__fmul_rn(one_gt, F), __fmul_rn(g, uy));
   }
   a.s_out[0] = from_f32<T>(sc);
-  a.s_out[1] = from_f32<T>(maxabs);
-  a.s_out[2] = from_f32<T>(step_inf);
-  a.s_out[3] = from_f32<T>(S);
-  a.s_out[4] = from_f32<T>(F);
+  a.s_out[L] = from_f32<T>(maxabs);
+  a.s_out[2 * L] = from_f32<T>(step_inf);
+  a.s_out[3 * L] = from_f32<T>(S);
+  a.s_out[4 * L] = from_f32<T>(F);
   if constexpr (EN) {
     const float atom2 = __fadd_rn(__fadd_rn(__fmul_rn(df, df), __fmul_rn(da, da)),
                                   __fmul_rn(__fmul_rn(__fmul_rn(2.f, df), da), fsame));
     const float cross = __fadd_rn(__fmul_rn(df, a_f), __fmul_rn(da, a_a));
-    a.s_out[5] = from_f32<T>(__fadd_rn(__fadd_rn(__fmul_rn(og2, Q),
+    a.s_out[5 * L] = from_f32<T>(__fadd_rn(__fadd_rn(__fmul_rn(og2, Q),
                                                  __fmul_rn(__fmul_rn(two_og, g), cross)),
                                        __fmul_rn(g2, atom2)));
   }
@@ -1046,11 +1134,16 @@ __global__ void __launch_bounds__(DT_THREADS) dir_tail_kernel(DirArgs<T> a) {
 }
 
 template <typename T, bool SPARSE, bool GIVEN = false>
-static int launch_dir(DirArgs<T>& a, int blocks, cudaStream_t s) {
+static int launch_dir(DirArgs<T>& a, int blocks, int n_lanes, cudaStream_t s) {
   void* args[] = {&a};
-  const void* k = a.q_norm != nullptr ? (const void*)dir_tail_kernel<T, SPARSE, true, GIVEN>
-                                      : (const void*)dir_tail_kernel<T, SPARSE, false, GIVEN>;
-  cudaError_t err = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(DT_THREADS), args, 0, s);
+  const bool en = a.q_norm != nullptr, lanes = a.lane_ids != nullptr;
+  const void* k =
+      lanes ? (en ? (const void*)dir_tail_kernel<T, SPARSE, true, GIVEN, true>
+                  : (const void*)dir_tail_kernel<T, SPARSE, false, GIVEN, true>)
+            : (en ? (const void*)dir_tail_kernel<T, SPARSE, true, GIVEN>
+                  : (const void*)dir_tail_kernel<T, SPARSE, false, GIVEN>);
+  cudaError_t err =
+      cudaLaunchCooperativeKernel(k, dim3(blocks, n_lanes), dim3(DT_THREADS), args, 0, s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it again
     return (int)err;
@@ -1068,12 +1161,18 @@ static int launch_dir_t(const void* X, const int* rows, int nnz_max, void* beta,
                         float renorm_threshold, float eps_den, float gap_rtol, float tol,
                         void* r_out, void* s_out, int* stall_out, long long* buf_out,
                         long long* i_out, float* g_out, float* scratch, cudaStream_t s,
-                        int given = -1, int phase = 0, float* dots = nullptr) {
+                        int given = -1, int phase = 0, float* dots = nullptr,
+                        const int* lane_ids = nullptr, int n_run = 0, int n_lanes = 1,
+                        const int* refresh_l = nullptr, const void* step_inf = nullptr) {
   if (m < 1 || p < 1 || n_buf < 1 || n_buf > DT_MAX_SLOTS || (rows != nullptr && nnz_max < 1))
     return (int)cudaErrorInvalidValue;
   if (given >= 0 ? rows != nullptr || phase < 0 || phase > 2 || (phase != 0 && dots == nullptr) ||
                        (phase != 0 && refresh)
                  : phase != 0)
+    return (int)cudaErrorInvalidValue;
+  if (lane_ids == nullptr ? n_lanes != 1
+                          : n_lanes < 1 || n_lanes > 65535 || n_run < 0 || n_run > n_lanes ||
+                                refresh_l == nullptr || step_inf == nullptr)
     return (int)cudaErrorInvalidValue;
   DirArgs<T> a{static_cast<const T*>(X), rows, nnz_max, static_cast<T*>(beta), p,
                static_cast<const T*>(scale), static_cast<const T*>(maxabs), stall,
@@ -1081,10 +1180,12 @@ static int launch_dir_t(const void* X, const int* rows, int nnz_max, void* beta,
                static_cast<const T*>(q_norm), static_cast<const T*>(resid),
                static_cast<const T*>(y), buf, n_buf, raw_b, i_f, sel_f, delta, m, pairwise,
                refresh, l2, renorm_threshold, eps_den, gap_rtol, tol, static_cast<T*>(r_out),
-               static_cast<T*>(s_out), stall_out, buf_out, i_out, g_out, scratch, phase, dots};
+               static_cast<T*>(s_out), stall_out, buf_out, i_out, g_out, scratch, phase, dots,
+               lane_ids, n_run, refresh_l, static_cast<const T*>(step_inf)};
   const int blocks = (m + DT_ROWS - 1) / DT_ROWS;
-  if (given >= 0) return launch_dir<T, false, true>(a, blocks, s);
-  return rows != nullptr ? launch_dir<T, true>(a, blocks, s) : launch_dir<T, false>(a, blocks, s);
+  if (given >= 0) return launch_dir<T, false, true>(a, blocks, n_lanes, s);
+  return rows != nullptr ? launch_dir<T, true>(a, blocks, n_lanes, s)
+                         : launch_dir<T, false>(a, blocks, n_lanes, s);
 }
 
 // rows == nullptr: the dense layout (X is Xt (p, m)); otherwise X and rows
@@ -1146,5 +1247,79 @@ extern "C" int dir_tail_given_launch(const void* zcols, void* beta, long long p,
                                        delta, m, pairwise, refresh, l2, renorm_threshold,
                                        eps_den, gap_rtol, tol, r_out, s_out, stall_out, buf_out,
                                        i_out, g_out, scratch, s, 1, phase, dots);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lanes of dir_tail_launch (the LANES instantiations, see DirArgs):
+// every per-lane operand lane-stacked, y shared; lane_ids the n_run lanes
+// that step of n_lanes, refresh_l (n_lanes,) int32 each lane's refresh
+// (refresh: whether any lane's is set), step_inf the lanes' (a frozen
+// lane's copied out); i_out (n_lanes, 2); scratch 5 floats for each of the
+// ceil(m / DT_ROWS) * n_lanes blocks, which must all be resident at once.
+extern "C" int dir_tail_lanes_launch(const void* X, const int* rows, int nnz_max, void* beta,
+                                     long long p, const void* scale, const void* maxabs,
+                                     const int* stall, const void* s_quad, const void* f_lin,
+                                     const void* q_norm, const void* resid, const void* y,
+                                     const long long* buf, int n_buf, const float* raw_b,
+                                     const long long* i_f, const float* sel_f,
+                                     const float* delta, int m, int pairwise, int refresh,
+                                     float l2, float renorm_threshold, float eps_den,
+                                     float gap_rtol, float tol, void* r_out, void* s_out,
+                                     int* stall_out, long long* buf_out, long long* i_out,
+                                     float* g_out, float* scratch, const int* lane_ids,
+                                     int n_run, int n_lanes, const int* refresh_l,
+                                     const void* step_inf, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_ids == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == DT_F32)
+    return launch_dir_t<float>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad, f_lin,
+                               q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f, delta, m,
+                               pairwise, refresh, l2, renorm_threshold, eps_den, gap_rtol, tol,
+                               r_out, s_out, stall_out, buf_out, i_out, g_out, scratch, s, -1, 0,
+                               nullptr, lane_ids, n_run, n_lanes, refresh_l, step_inf);
+  if (dtype == DT_BF16)
+    return launch_dir_t<__nv_bfloat16>(X, rows, nnz_max, beta, p, scale, maxabs, stall, s_quad,
+                                       f_lin, q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f,
+                                       delta, m, pairwise, refresh, l2, renorm_threshold,
+                                       eps_den, gap_rtol, tol, r_out, s_out, stall_out, buf_out,
+                                       i_out, g_out, scratch, s, -1, 0, nullptr, lane_ids, n_run,
+                                       n_lanes, refresh_l, step_inf);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lanes of dir_tail_given_launch: zcols (n_lanes, n_buf + 2, m), the
+// phases as there (phase 1 writes each stepping lane's three dots to
+// dots[3l..3l+2], phase 2 reads them back), the lanes as
+// dir_tail_lanes_launch's.
+extern "C" int dir_tail_lanes_given_launch(const void* zcols, void* beta, long long p,
+                                           const void* scale, const void* maxabs,
+                                           const int* stall, const void* s_quad,
+                                           const void* f_lin, const void* q_norm,
+                                           const void* resid, const void* y, const long long* buf,
+                                           int n_buf, const float* raw_b, const long long* i_f,
+                                           const float* sel_f, const float* delta, int m,
+                                           int pairwise, int refresh, float l2,
+                                           float renorm_threshold, float eps_den, float gap_rtol,
+                                           float tol, void* r_out, void* s_out, int* stall_out,
+                                           long long* buf_out, long long* i_out, float* g_out,
+                                           float* scratch, int phase, float* dots,
+                                           const int* lane_ids, int n_run, int n_lanes,
+                                           const int* refresh_l, const void* step_inf, int dtype,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lane_ids == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == DT_F32)
+    return launch_dir_t<float>(zcols, nullptr, 0, beta, p, scale, maxabs, stall, s_quad, f_lin,
+                               q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f, delta, m,
+                               pairwise, refresh, l2, renorm_threshold, eps_den, gap_rtol, tol,
+                               r_out, s_out, stall_out, buf_out, i_out, g_out, scratch, s, 1,
+                               phase, dots, lane_ids, n_run, n_lanes, refresh_l, step_inf);
+  if (dtype == DT_BF16)
+    return launch_dir_t<__nv_bfloat16>(zcols, nullptr, 0, beta, p, scale, maxabs, stall, s_quad,
+                                       f_lin, q_norm, resid, y, buf, n_buf, raw_b, i_f, sel_f,
+                                       delta, m, pairwise, refresh, l2, renorm_threshold,
+                                       eps_den, gap_rtol, tol, r_out, s_out, stall_out, buf_out,
+                                       i_out, g_out, scratch, s, 1, phase, dots, lane_ids, n_run,
+                                       n_lanes, refresh_l, step_inf);
   return (int)cudaErrorInvalidValue;
 }

@@ -114,6 +114,20 @@ the outputs and leaves ``beta`` alone, so that the engine's swap of the
 buffers keeps its state bit for bit. Bound: L times the one-lane bytes
 (the copies of the frozen lanes included).
 
+The direction tail's lanes (``dir_tail_lanes``, ``dir_tail_en_lanes`` and
+their GIVEN forms ``dir_tail[_en]_lanes_given``; the LANES instantiations of
+the same kernel): the batched engine's away and pairwise rules, a row of
+blocks a lane in one cooperative launch. A listed lane runs exactly the
+one-lane tail on its operands (its own buffer, scores, refresh flag, its
+partial dots in its own scratch, summed over its own row of blocks, the
+same ``_rn`` scalar functions), so it keeps the one-lane launch's bits; a
+frozen lane copies its residual, buffer and scalars to the outputs, leaves
+``beta`` alone and takes the grid syncs with the others (one, and a
+second when any lane refreshes). The host passes the lanes' refresh flags
+as an int32 vector made once a pattern. Bound: L times the one-lane bytes.
+Its plain version ``dir_tail_lanes_plain`` is the one-lane plain tail once
+a listed lane.
+
 The telemetry ring's record (``step_tail_tel`` and its EN and lane
 counterparts, each an instantiation of its own, ``TEL``; a ``TailRecord``
 names the ring): the tail's block 0 thread 0, which holds the step's
@@ -481,21 +495,43 @@ def step_tail_en_tel(mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, z
                         i_star, g, delta, cfg, en, tel)
 
 
-def _tel_args(tel, lanes: bool, en, dtype):
+# the one-lane ring last checked by ``_tel_args``: (its storage, y.y, (objective,
+# dtype, capacity), (the storage's and y.y's pointers)); a solve writes a record
+# every step into one ring, so its checks and pointers are taken once
+_ring_checked = [None]
+
+
+def _ring_seen(tel, dtype):
+    """The pointers of a one-lane ring ``_tel_args`` has checked (None: not
+    this ring)."""
+    seen = _ring_checked[0]
+    if (seen is not None and seen[0] is tel.buf and seen[1] is tel.yty
+            and seen[2] == (tel.objective, dtype, tel.capacity)):
+        return seen[3]
+    return None
+
+
+def _tel_args(tel, lanes: bool, en, dtype, ptrs=None):
     """The ring's trailing arguments of ``step_tail_launch`` (null pointers:
-    no record)."""
+    no record); ``ptrs`` those ``_ring_seen`` found for a one-lane ring it
+    has checked."""
     if tel is None:
         return None, 0, 0, 0, 0, None, None, 0.0
+    half_l2 = 0.0 if en is None else _build.f32(0.5 * en.l2)
+    if ptrs is not None:
+        return (ptrs[0], tel.capacity, tel.slot, tel.k, tel.n_dots, None, ptrs[1], half_l2)
     if tel.buf.dtype != torch.int32 or tel.buf.shape[-1] != 10 * tel.capacity:
         raise ValueError("the ring's storage is int32, RING_WORDS * capacity words a lane")
     if tel.objective and (tel.yty is None or tel.yty.dtype != dtype):
         raise TypeError("a record with the objective needs y.y in the state's dtype")
     if lanes and (tel.dev_cursor is None or tel.dev_cursor.dtype != torch.int64):
         raise ValueError("a lane record needs the lanes' int64 cursors on the device")
-    half_l2 = 0.0 if en is None else _build.f32(0.5 * en.l2)
+    yty_ptr = tel.yty.data_ptr() if tel.objective else None
+    if not lanes:
+        _ring_checked[0] = (tel.buf, tel.yty, (tel.objective, dtype, tel.capacity),
+                            (tel.buf.data_ptr(), yty_ptr))
     return (tel.buf.data_ptr(), tel.capacity, 0 if lanes else tel.slot, 0 if lanes else tel.k,
-            tel.n_dots, tel.dev_cursor.data_ptr() if lanes else None,
-            tel.yty.data_ptr() if tel.objective else None, half_l2)
+            tel.n_dots, tel.dev_cursor.data_ptr() if lanes else None, yty_ptr, half_l2)
 
 
 def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty, znorm2,
@@ -520,10 +556,11 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
         raise TypeError(f"the row slots must be int32, got {rows.dtype}")
     g = g.float()
     g_sel = None if en is None else en.g_sel.float()
+    ptrs = None if tel is None else _ring_seen(tel, dtype)
     dev = _build.require_cuda(X, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty,
                               znorm2, i_star, g, delta, *(() if rows is None else (rows,)),
                               *(() if en is None else (g_sel, q_norm)),
-                              *_tel_tensors(tel))
+                              *(() if ptrs is not None else _tel_tensors(tel)))
     m = y.shape[0]
     r_out = torch.empty(m, dtype=dtype, device=dev)
     s_out = torch.empty(5 if en is None else 6, dtype=dtype, device=dev)
@@ -538,7 +575,7 @@ def _tail(wrapper, mat, beta, scale, maxabs, stall, resid, s_quad, f_lin, y, zty
                  _build.f32(cfg.gap_rtol), _build.f32(cfg.tol), r_out.data_ptr(), s_out.data_ptr(),
                  stall_out.data_ptr(),
                  None, 1, 1, None, _build.dtype_code(beta),
-                 *_en_args(en, g_sel, q_norm), *_tel_args(tel, False, en, dtype),
+                 *_en_args(en, g_sel, q_norm), *_tel_args(tel, False, en, dtype, ptrs),
                  _build.stream(dev))
         wrapper.launches += 1
     _build.check("step_tail", err, wrapper.__name__)
@@ -567,11 +604,13 @@ def _head_args(mat):
 
 
 def _tel_tensors(tel):
-    """The ring's tensors, for the device check."""
+    """The ring's tensors, for the device check (the caller skips a
+    one-lane ring ``_tel_args`` has checked, whose device its first launch
+    checked)."""
     if tel is None:
         return ()
-    return tuple(t for t in (tel.buf, tel.yty if tel.objective else None, tel.dev_cursor)
-                 if t is not None)
+    out = (tel.buf, tel.yty) if tel.objective else (tel.buf,)
+    return out if tel.dev_cursor is None else out + (tel.dev_cursor,)
 
 
 def _en_args(en, g_sel, q_norm):
@@ -1410,3 +1449,240 @@ dir_tail.launches = 0
 dir_tail_en.launches = 0
 dir_tail_given.launches = 0
 dir_tail_en_given.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The direction tail of L lanes (the batched engine's away and pairwise rules)
+# --------------------------------------------------------------------------
+
+
+def dir_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, buf,
+                         raw_b, i_f, sel_f, delta, refresh, lanes, pairwise: bool, cfg,
+                         en: DirEN | None = None, complete=None, given: bool = False):
+    """The plain version of the lane direction tails: the one-lane plain tail
+    (``dir_tail_plain``, or with ``given`` ``dir_tail_given_plain`` on the
+    lane's ``(n_buf + 2, m)`` columns of ``mat``) once per listed lane, on
+    its row of ``beta`` (in place) and copies of its residual, buffer,
+    scores and scalars, with its own ``refresh``; a lane not listed keeps
+    its residual, buffer and scalars, and its vertices are -1 and its g 0.
+    Arguments and returns are ``dir_tail_lanes``'."""
+    L = beta.shape[0]
+    dev = beta.device
+    fields = [scale, maxabs, step_inf, stall, resid, s_quad, f_lin]
+    fields.append(en.q_norm if en is not None else s_quad)
+    outs = [[t.clone() for t in f.unbind(0)] for f in fields]
+    bufs = [b.clone() for b in buf.unbind(0)]
+    i_star = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    i_a = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    g = torch.zeros(L, dtype=torch.float32, device=dev)
+    run = set(lanes.tolist() if isinstance(lanes, torch.Tensor) else lanes)
+    for lane in sorted(run):
+        en_l = None if en is None else DirEN(en.l2, en.q_norm[lane].clone())
+        args = (beta[lane], scale[lane].clone(), maxabs[lane].clone(), stall[lane].clone(),
+                resid[lane].clone(), s_quad[lane].clone(), f_lin[lane].clone(), y,
+                buf[lane].clone(), raw_b[lane].clone(), i_f[lane].clone(), sel_f[lane].clone(),
+                delta[lane].clone(), bool(refresh[lane]), pairwise, cfg, en_l)
+        if given:
+            out = dir_tail_given_plain(mat[lane], *args, complete)
+        else:
+            out = dir_tail_plain(mat, *args)
+        got = (out.scale, out.maxabs, out.step_inf, out.stall, out.resid, out.s_quad, out.f_lin,
+               out.q_norm if en is not None else out.s_quad)
+        for ts, t in zip(outs, got):
+            ts[lane] = t
+        bufs[lane] = out.buf
+        i_star[lane], i_a[lane], g[lane] = out.i_star, out.i_a, out.g
+    scale, maxabs, step_inf, stall, resid, s_quad, f_lin, q_norm = (torch.stack(ts)
+                                                                     for ts in outs)
+    return DirTailOut(beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin,
+                      q_norm if en is not None else None, torch.stack(bufs), i_star, i_a, g)
+
+
+def dir_tail_lanes(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, buf,
+                   raw_b, i_f, sel_f, delta, refresh, lanes, pairwise: bool, cfg):
+    """The lasso's direction tail for L lanes in one cooperative launch, a
+    row of blocks a lane: ``beta (L, p)`` (updated in place), ``resid (L,
+    m)``, the scalars ``scale``, ``maxabs``, ``step_inf``, ``stall``,
+    ``s_quad``, ``f_lin``, the FW vertices ``i_f`` and their scores
+    ``sel_f`` and the deltas ``delta``, each ``(L,)``, the buffers ``buf``
+    and their linear scores ``raw_b`` ``(L, n_buf)``; ``mat`` and ``y`` are
+    shared and the dtypes are ``dir_tail``'s. ``refresh`` (a host sequence,
+    one bool a lane, False for a frozen lane) asks for each lane's exact S/F
+    refresh; ``lanes`` (int32) lists the lanes that step, the others frozen
+    (their outputs their inputs, vertices -1, g 0). A listed lane's outputs
+    are the one-lane ``dir_tail``'s on its operands, bit for bit. A CPU
+    tensor takes ``dir_tail_lanes_plain``; a CUDA tensor launches the
+    kernel's LANES instantiation (or raises). Returns a ``DirTailOut`` of
+    lane-stacked fields."""
+    return _dir_lanes(dir_tail_lanes, mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                      f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise, cfg, None)
+
+
+def dir_tail_en_lanes(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, buf,
+                      raw_b, i_f, sel_f, delta, refresh, lanes, pairwise: bool, cfg, en: DirEN):
+    """The elastic-net's direction tail for L lanes (the EN LANES
+    instantiation): ``dir_tail_lanes``' arguments and ``en`` (``DirEN`` of
+    the lanes' ``(L,)`` Q). Returns a ``DirTailOut`` with the lanes' Q."""
+    return _dir_lanes(dir_tail_en_lanes, mat, beta, scale, maxabs, step_inf, stall, resid,
+                      s_quad, f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise,
+                      cfg, en)
+
+
+def dir_tail_lanes_given(zcols, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                         buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise: bool, cfg,
+                         complete=None):
+    """``dir_tail_lanes`` on a rank's sample slice with each lane's columns
+    given, ``zcols (L, n_buf + 2, m)`` (``dir_column_ids``' columns of each
+    lane): the lane ``GIVEN`` instantiation. Without ``complete`` one
+    launch; with it (the samples split across ranks) a launch for the
+    lanes' three dots, ``complete`` of the ``(L, 3)`` dots, a launch for the
+    rest, and each refreshing lane's S and F refreshed on the host."""
+    return _dir_lanes(dir_tail_lanes_given, zcols, beta, scale, maxabs, step_inf, stall, resid,
+                      s_quad, f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise,
+                      cfg, None, complete)
+
+
+def dir_tail_en_lanes_given(zcols, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                            buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise: bool, cfg,
+                            en: DirEN, complete=None):
+    """``dir_tail_lanes_given`` for the elastic-net (the EN lane ``GIVEN``
+    instantiation)."""
+    return _dir_lanes(dir_tail_en_lanes_given, zcols, beta, scale, maxabs, step_inf, stall, resid,
+                      s_quad, f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, lanes, pairwise,
+                      cfg, en, complete)
+
+
+# (..., scratch, lane_ids, n_run, n_lanes, refresh_l, step_inf, dtype, stream): dir_tail_launch's
+# arguments with the lanes' before the dtype
+_DIR_LANES_ARGTYPES = _DIR_ARGTYPES[:-2] + [_PTR, _I32, _I32, _PTR, _PTR, _I32, _PTR]
+# dir_tail_given_launch's arguments with the lanes' between the dots and the dtype
+_DIR_LANES_GIVEN_ARGTYPES = _DIR_GIVEN_ARGTYPES[:-2] + [_PTR, _I32, _I32, _PTR, _PTR, _I32, _PTR]
+_refresh_flags: dict = {}  # (device, flags) -> the (L,) int32 flags on the device
+
+
+def _refresh_arg(refresh, dev) -> torch.Tensor:
+    """The lanes' refresh flags as the int32 device tensor the kernel reads,
+    made once a pattern (a lane's refresh falls every refresh_every steps,
+    so a path sees a handful), so a step copies nothing to the card."""
+    key = (dev, tuple(bool(r) for r in refresh))
+    t = _refresh_flags.get(key)
+    if t is None:
+        if len(_refresh_flags) > 256:
+            _refresh_flags.clear()
+        t = _refresh_flags[key] = torch.tensor(key[1], dtype=torch.int32, device=dev)
+    return t
+
+
+def _dir_lanes(wrapper, mat, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y, buf,
+               raw_b, i_f, sel_f, delta, refresh, lanes, pairwise, cfg, en, complete=None):
+    """The four lane direction tails: the plain version on a CPU tensor,
+    else one cooperative launch (two with ``complete``), counted on
+    ``wrapper``."""
+    given = wrapper in (dir_tail_lanes_given, dir_tail_en_lanes_given)
+    if beta.dim() != 2 or resid.dim() != 2 or resid.shape[0] != beta.shape[0] or y.dim() != 1:
+        raise ValueError(f"need beta (L, p), resid (L, m) and y (m,), got {tuple(beta.shape)}, "
+                         f"{tuple(resid.shape)}, {tuple(y.shape)}")
+    L, m = beta.shape[0], y.shape[0]
+    if resid.shape[1] != m:
+        raise ValueError(f"need resid (L, {m}), got {tuple(resid.shape)}")
+    if any(t.shape != (L,) for t in (scale, maxabs, step_inf, stall, s_quad, f_lin, i_f, sel_f,
+                                     delta) + (() if en is None else (en.q_norm,))):
+        raise ValueError(f"need the lanes' scalars, FW vertices, scores and deltas as ({L},)")
+    if buf.dim() != 2 or buf.shape[0] != L or buf.shape[1] == 0 or raw_b.shape != buf.shape:
+        raise ValueError(f"need the buffers (L, n >= 1) and their scores, got "
+                         f"{tuple(buf.shape)}, {tuple(raw_b.shape)}")
+    if len(refresh) != L:
+        raise ValueError(f"need one refresh flag a lane, got {len(refresh)} for {L} lanes")
+    if lanes.dim() != 1 or lanes.dtype != torch.int32:
+        raise ValueError(f"need lanes, the int32 ids of the lanes that step, got {lanes}")
+    n_buf = buf.shape[1]
+    if given and (mat.dim() != 3 or mat.shape != (L, n_buf + 2, m)):
+        raise ValueError(f"need the columns ({L}, {n_buf + 2}, {m}), got {tuple(mat.shape)}")
+    if beta.device.type == "cpu":
+        return dir_tail_lanes_plain(mat, beta, scale, maxabs, step_inf, stall, resid, s_quad,
+                                    f_lin, y, buf, raw_b, i_f, sel_f, delta, refresh, lanes,
+                                    pairwise, cfg, en, complete, given)
+    sparse = isinstance(mat, tuple)
+    X, rows = mat if sparse else (mat, None)
+    dtype = beta.dtype
+    q_norm = None if en is None else en.q_norm
+    if any(t.dtype != dtype for t in (X, scale, maxabs, step_inf, s_quad, f_lin, resid, y)
+           + (() if en is None else (q_norm,))):
+        raise TypeError(f"{wrapper.__name__} needs the matrix, beta, its scalars, the residual "
+                        "and y in one dtype")
+    if (stall.dtype != torch.int32 or buf.dtype != torch.int64 or i_f.dtype != torch.int64
+            or raw_b.dtype != torch.float32 or delta.dtype != torch.float32):
+        raise TypeError(f"{wrapper.__name__} needs stall int32, the buffers and i_f int64, their "
+                        "scores and delta float32")
+    if sparse and (rows.dtype != torch.int32 or rows.shape != X.shape):
+        raise TypeError("the row slots must be int32, the values' shape")
+    if not sparse and not given and (X.dim() != 2 or X.shape != (beta.shape[1], m)):
+        raise ValueError(f"need Xt (p, m) = ({beta.shape[1]}, {m}), got {tuple(X.shape)}")
+    if n_buf > DIR_MAX_SLOTS:
+        raise ValueError(f"{wrapper.__name__} takes a buffer of at most {DIR_MAX_SLOTS} slots, "
+                         f"got {n_buf}")
+    sel_f = sel_f.float()
+    dev = _build.require_cuda(X, beta, scale, maxabs, step_inf, stall, resid, s_quad, f_lin, y,
+                              buf, raw_b, i_f, sel_f, delta, lanes,
+                              *(() if rows is None else (rows,)),
+                              *(() if en is None else (q_norm,)))
+    blocks = -(-m // DIR_ROWS)
+    r_out = torch.empty((L, m), dtype=dtype, device=dev)
+    s_out = torch.empty((5 if en is None else 6, L), dtype=dtype, device=dev)
+    stall_out = torch.empty(L, dtype=torch.int32, device=dev)
+    buf_out = torch.empty_like(buf)
+    i_out = torch.empty((L, 2), dtype=torch.int64, device=dev)
+    g_out = torch.empty(L, dtype=torch.float32, device=dev)
+    scratch = torch.empty(5 * blocks * L, dtype=torch.float32, device=dev)
+    flags = _refresh_arg(refresh, dev)
+    any_refresh = any(bool(r) for r in refresh)
+
+    def launch(phase, dots, refresh_):
+        args = (beta.data_ptr(), beta.shape[1],
+                scale.data_ptr(), maxabs.data_ptr(), stall.data_ptr(), s_quad.data_ptr(),
+                f_lin.data_ptr(), None if en is None else q_norm.data_ptr(), resid.data_ptr(),
+                y.data_ptr(), buf.data_ptr(), n_buf, raw_b.data_ptr(), i_f.data_ptr(),
+                sel_f.data_ptr(), delta.data_ptr(), m, int(pairwise), int(refresh_),
+                0.0 if en is None else _build.f32(en.l2), _build.f32(cfg.renorm_threshold),
+                _build.f32(cfg.eps_den), _build.f32(cfg.gap_rtol), _build.f32(cfg.tol),
+                r_out.data_ptr(), s_out.data_ptr(), stall_out.data_ptr(), buf_out.data_ptr(),
+                i_out.data_ptr(), g_out.data_ptr(), scratch.data_ptr())
+        lane_args = (*_build.lane_ids_arg(lanes), L,
+                     (flags if refresh_ else _refresh_arg([False] * L, dev)).data_ptr(),
+                     step_inf.data_ptr())
+        with torch.cuda.device(dev):
+            if given:
+                fn = _build.function("step_tail", "dir_tail_lanes_given_launch",
+                                     _DIR_LANES_GIVEN_ARGTYPES)
+                err = fn(X.data_ptr(), *args, phase, None if dots is None else dots.data_ptr(),
+                         *lane_args, _build.dtype_code(beta), _build.stream(dev))
+            else:
+                fn = _build.function("step_tail", "dir_tail_lanes_launch", _DIR_LANES_ARGTYPES)
+                err = fn(X.data_ptr(), None if rows is None else rows.data_ptr(),
+                         X.shape[-1] if sparse else 0, *args, *lane_args,
+                         _build.dtype_code(beta), _build.stream(dev))
+            wrapper.launches += 1
+        _build.check("step_tail", err, wrapper.__name__)
+
+    if complete is None:
+        launch(0, None, any_refresh)
+    else:  # the lanes' dots, completed across the sample slices, then the rest
+        dots = torch.zeros((L, 3), dtype=torch.float32, device=dev)
+        launch(1, dots, False)
+        dots = complete(dots)
+        launch(2, dots, False)
+        yf = y.float()
+        for lane, r in enumerate(refresh):
+            if r:
+                s_new, f_new = _refresh_dots(r_out[lane], yf, complete)
+                s_out[3, lane], s_out[4, lane] = s_new.to(dtype), f_new.to(dtype)
+    new_scale, new_maxabs, new_step_inf, new_s, new_f, *q = s_out.unbind()
+    i_star, i_a = i_out.unbind(1)
+    return DirTailOut(beta, new_scale, new_maxabs, new_step_inf, stall_out, r_out, new_s, new_f,
+                      q[0] if q else None, buf_out, i_star, i_a, g_out)
+
+
+dir_tail_lanes.launches = 0
+dir_tail_en_lanes.launches = 0
+dir_tail_lanes_given.launches = 0
+dir_tail_en_lanes_given.launches = 0

@@ -207,21 +207,25 @@ def record(ring: TelemetryRing, lane: Optional[int] = None, **fields) -> Telemet
     return ring._replace(cursor=cursor)
 
 
-def amend_last(ring: TelemetryRing, **fields) -> TelemetryRing:
+def amend_last(ring: TelemetryRing, lane: Optional[int] = None, **fields) -> TelemetryRing:
     """Overwrite fields of the most recent record in place (the cursor does
-    NOT advance): used where a step's final statistics supersede what its
-    inner classic step recorded (PARTAN), and for the objective of a step
-    whose co-state was refreshed after its tail recorded."""
+    NOT advance), of lane ``lane`` for a lane ring: used where a step's
+    final statistics supersede what its inner classic step recorded
+    (PARTAN), and for the objective of a step whose co-state was refreshed
+    after its tail recorded."""
     c = ring.capacity
-    write_record(ring.buf, c, (ring.cursor - 1) % c, **fields)
+    if lane is None:
+        write_record(ring.buf, c, (ring.cursor - 1) % c, **fields)
+    else:
+        write_record(ring.buf[lane], c, (ring.cursor[lane] - 1) % c, **fields)
     return ring
 
 
 def advance(ring: TelemetryRing, n: int = 1, lanes=None) -> TelemetryRing:
     """The host cursor after a kernel wrote ``n`` records (one lane), or
     after one record of each lane in ``lanes`` (a host list of bools)."""
-    if lanes is None:
-        return ring._replace(cursor=ring.cursor + n)
+    if lanes is None:  # once a step with the ring on: built directly, not by _replace
+        return TelemetryRing(ring.cursor + n, ring.flushed, ring.buf, ring.dev_cursor)
     return ring._replace(cursor=[c + 1 if a else c for c, a in zip(ring.cursor, lanes)])
 
 

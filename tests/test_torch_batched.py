@@ -287,9 +287,12 @@ def test_unported_lane_options_raise(prob, tmp_path):
         res, _ = engine.solve_batched(oracle, Xt, y, cfg, LaneSampler(0, 1, "cpu"), None, [1.0],
                                       device="cpu")
         assert res.iterations[0] > 0
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        engine.solve_batched(LASSO, Xt, y, FWConfig(delta=1.0, step_rule="away"),
-                             LaneSampler(0, 1, "cpu"), None, [1.0], device="cpu")
+    # the step rules have lanes now (ROADMAP.md item 9a,
+    # tests/test_torch_rule_lanes.py holds them)
+    res, _ = engine.solve_batched(LASSO, Xt, y, FWConfig(delta=1.0, step_rule="away",
+                                                         max_iters=30),
+                                  LaneSampler(0, 1, "cpu"), None, [1.0], device="cpu")
+    assert res.iterations[0] > 0
     # as the reference's: the distributed backend runs only through its drivers,
     # on a ShardedOperand (tests/test_torch_distributed.py runs them)
     with pytest.raises(ValueError, match="only runs inside repro_torch.distributed"):

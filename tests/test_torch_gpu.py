@@ -1438,6 +1438,77 @@ def _chip_smoke():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oracle", ["lasso", "en"])
+def test_dir_tail_lanes_equal_one_lane_launches_on_the_card(layout, dtype, oracle):
+    """The lane direction tails (``dir_tail[_en]_lanes`` and their GIVEN
+    forms) at 3 lanes on three blocks of the grid a lane (m = 9,000), away
+    and pairwise (chip_smoke.py's phase-2 check): every running lane
+    bitwise a one-lane launch, the GIVEN form bitwise the matrix form,
+    frozen lanes untouched, within rounding of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    chip_smoke = _chip_smoke()
+    from repro_torch.data import make_sparse_wide_problem
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    m = 9_000
+    if layout == "sparse":
+        mat, _, _ = make_sparse_wide_problem(m, 20_000, 0.01, 50, seed=1, device="cuda",
+                                             block_size=256)
+    else:
+        mat = torch.randn((20_000, m), generator=g, device="cuda")
+        mat /= torch.linalg.vector_norm(mat, dim=1, keepdim=True)
+    dt = getattr(torch, dtype)
+    if dt == torch.bfloat16:
+        mat = mat.astype(dt) if layout == "sparse" else mat.to(dt)
+    y = torch.randn(m, generator=g, device="cuda").to(dt)
+    beta, kw, en = chip_smoke.dir_lane_state(torch, mat, y, g, 3,
+                                             None if oracle == "lasso" else 1.0, dt)
+    for pairwise in (False, True):
+        chip_smoke.check_dir_tail_lanes(torch, f"{layout} {dtype}", mat, beta, kw, en, pairwise)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["kernels", "sparse"])
+@pytest.mark.parametrize("rule", ["away", "pairwise", "partan", "lazy"])
+@pytest.mark.parametrize("oracle", ["lasso", "en"])
+def test_rule_lanes_equal_sequential_solves_on_the_card(backend, rule, oracle):
+    """solve_batched under a rule on the card: each lane bitwise the
+    sequential solve replaying its stream (alpha, iterations, n_dots), the
+    lanes stopping at their own steps; away and pairwise one lane direction
+    tail a batched step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from repro_torch.core import ENOracle, LaneStreamSampler, StreamSampler, engine
+
+    mat, y, X = _sparse_problem()
+    design = mat if backend == "sparse" else X
+    orc = LASSO if oracle == "lasso" else ENOracle(1.0)
+    cfg = FWConfig(delta=1.0, kappa=100, max_iters=150, tol=1e-3, patience=5, backend=backend,
+                   step_rule=rule)
+    deltas = [1.0, 5.0, 20.0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    draws = [torch.randint(0, mat.p, (150, 100), generator=g, device="cuda") for _ in deltas]
+    before = launch_counts()
+    res, _ = engine.solve_batched(orc, design, y, cfg, LaneStreamSampler(draws), None, deltas,
+                                  device="cuda")
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    if rule in ("away", "pairwise"):
+        tail = "dir_tail_lanes" if oracle == "lasso" else "dir_tail_en_lanes"
+        assert launched[tail] == max(res.iterations)
+        assert launched["dir_tail"] == launched["dir_tail_en"] == 0
+    for lane, d in enumerate(deltas):
+        one = engine.solve(orc, design, y, cfg, StreamSampler(draws[lane]), None, d,
+                           device="cuda")
+        assert one.iterations == res.iterations[lane] and one.n_dots == res.n_dots[lane]
+        assert _bits_equal(one.alpha, res.alpha[lane])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m", [74, 186, 800, 20_000, 60_000])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["cyclic", "stochastic", "lam_zero", "above_lam_max", "warm",

@@ -1,6 +1,7 @@
 """The reference's public names against the port's (ROADMAP.md Queue 3 F4):
 ``repro.core.__all__``, ``repro.distributed.__all__``, and the public names
-of ``repro.sparse.ops``, ``repro.core.fw_lasso`` and ``repro.core.vertex``,
+of ``repro.sparse.ops`` and of ``repro.core``'s ``fw_lasso``, ``vertex``,
+``step_rule``, ``engine``, ``path``, ``fw_elasticnet`` and ``fw_logistic``,
 each found in its port module, less the names recorded as having no port
 (``NO_PORT``, with the reason; ROADMAP.md's "Reference pieces that get no
 port" records the same). Typing helpers and imported modules are not names
@@ -12,13 +13,23 @@ import typing
 import pytest
 
 import repro.core
+import repro.core.engine
+import repro.core.fw_elasticnet
 import repro.core.fw_lasso
+import repro.core.fw_logistic
+import repro.core.path
+import repro.core.step_rule
 import repro.core.vertex
 import repro.distributed
 import repro.sparse.ops
 
 import repro_torch.core
+import repro_torch.core.engine
+import repro_torch.core.fw_elasticnet
 import repro_torch.core.fw_lasso
+import repro_torch.core.fw_logistic
+import repro_torch.core.path
+import repro_torch.core.step_rule
 import repro_torch.core.vertex
 import repro_torch.distributed
 import repro_torch.sparse.ops
@@ -29,6 +40,14 @@ NO_PORT = {
         "pad_backend_matrix": "the port never copies Xt: its kernels score a row past p as 0",
         "resolve_gather_mode": "gather_mode is a TPU lowering knob, read by nothing in the port",
         "use_interpret": "interpret is Pallas' CPU mode; the port's CPU path is the plain twin",
+    },
+    "repro.core.engine": {
+        "dot_dtype": "the n_dots counter's JAX dtype; the port counts dots in Python ints (R6)",
+    },
+    "repro.core.path": {
+        "batched_solver_cache_size": "the reference caches its jitted batched solvers; the port "
+                                     "compiles none",
+        "clear_batched_solver_cache": "the same cache",
     },
 }
 
@@ -67,6 +86,11 @@ def test_all_lists_carry_across(ref, port):
     (repro.sparse.ops, repro_torch.sparse.ops),
     (repro.core.fw_lasso, repro_torch.core.fw_lasso),
     (repro.core.vertex, repro_torch.core.vertex),
+    (repro.core.step_rule, repro_torch.core.step_rule),
+    (repro.core.engine, repro_torch.core.engine),
+    (repro.core.path, repro_torch.core.path),
+    (repro.core.fw_elasticnet, repro_torch.core.fw_elasticnet),
+    (repro.core.fw_logistic, repro_torch.core.fw_logistic),
 ])
 def test_module_names_carry_across(ref, port):
     recorded = NO_PORT.get(ref.__name__, {})

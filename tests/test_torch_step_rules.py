@@ -503,13 +503,16 @@ class TestFusedFallback:
 
 
 def test_rule_lanes_are_refused_naming_item_9a(corr):
+    """Item 9a is done: the batched entry points take the rules, no longer
+    refusing them (``tests/test_torch_rule_lanes.py`` holds each lane to its
+    sequential solve and to the reference's lanes)."""
     Xt, y = corr
     cfg = FWConfig(delta=1.0, step_rule="lazy", max_iters=5)
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        engine.solve_batched(LASSO, torch.from_numpy(Xt), torch.from_numpy(y), cfg,
-                             LaneSampler(0, 2, "cpu"), None, [1.0, 2.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        path.fw_path_batched(Xt, y, [1.0, 2.0], cfg, device="cpu")
+    res, _ = engine.solve_batched(LASSO, torch.from_numpy(Xt), torch.from_numpy(y), cfg,
+                                  LaneSampler(0, 2, "cpu"), None, [1.0, 2.0], device="cpu")
+    assert res.iterations == [5, 5]
+    res = path.fw_path_batched(Xt, y, [1.0, 2.0], cfg, device="cpu")
+    assert [pt.iterations for pt in res.points] == [5, 5]
 
 
 def test_lazy_hit_passes_over_its_row(corr):
