@@ -100,8 +100,8 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      again bit for bit the path's, and its 13 lanes each bit for bit a
      sequential solve on the rows it drew (this and the elastic-net's);
    - the extension oracles (paper §6, the reference's family section): the
-     elastic-net (``ENOracle(l2=1.0)``) over the same 100-point grid on
-     each layout, fused at K = 8 (K4 or K7 with the ledger, once a chunk),
+     elastic-net (``ENOracle(l2=1.0)``) over the first 50 points of the
+     same grid on each layout, fused at K = 8 (K4 or K7 with the ledger, once a chunk),
      its first 3 points one step per dispatch (the shifted argmax and the
      EN tail once a step) and batched in lanes of 13 (each batched solve's
      last state kept, and after the path the lanes' support bitmap checked
@@ -255,8 +255,27 @@ the build; last the quickstart, the 4,272,227-variable sparse path batched
 and the dense one at p = 500,000, the solver family, the report with its
 4-rank mesh, the chaos matrix and the profiler capture.
 
-About 10 to 13 minutes on an H100, the builds included, as fast as the
-host (aim: 600 s, limit 1200 s); the baselines' phases print their
+LM serving (``repro_torch.models``, ``configs``, ``training``,
+``launch.serve``; no kernel of its own): every architecture at its
+published widths (deepseek-7b, mamba2, hymba and seamless at their full
+depth, the rest cut to 1-2 layers, ``SERVE_DEPTH``), each in bf16 and in
+f32, prefilling 4 prompts of 128 tokens and decoding 3 more against
+``forward`` over all 131 (f32 at rtol 2e-2, atol 2e-3; bf16 within
+``SERVE_BF16_ATOL`` of the logits' scale, ``SERVE_DTYPES`` says why, and
+past it with RoPE's table planted in bf16 in the decode steps,
+``SERVE_FAULTS``; a decoded token that the forward routed past an
+expert's capacity, and its row's later tokens, left out and counted),
+then two greedy decodes of 16 tokens from one prefill bit for bit equal;
+deepseek-7b's bf16 prefill, decode step, tok/s, the profiler's busy share
+and launches a step beside their bounds, and the head's three f32-logit
+routes (``[serve-time]`` lines); the ten reduced configs in f32 and bf16,
+the card against the CPU (``[serve-cpu]``, bf16 within
+``SERVE_CPU_BF16_ATOL`` and past it with the planted fault); the serve
+launcher at deepseek-7b's full config and the serving example join the
+last turn of entry points.
+
+About 13 minutes on an H100, the builds included, and up to 20 on a
+slow host (aim: 600 s, limit 1200 s); the baselines' phases print their
 seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
 each path after its phase 2 (and prints no JSON lines).
 
@@ -266,6 +285,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -451,6 +471,8 @@ def main(argv=None):
 
         tdist.destroy_process_group()
     phase3_mesh_ranks(torch)
+    phase_serve(torch)
+    phase_serve_card_vs_cpu(torch)
     phase_entry_points(torch)
 
     records = []
@@ -470,6 +492,7 @@ def main(argv=None):
     mesh_total = sum(MESH_SECONDS.values())
     print(f"[mesh] the mesh phases: {', '.join(f'{k} {v:.1f} s' for k, v in MESH_SECONDS.items())}"
           f"; {mesh_total:.1f} s together")
+    print(f"[serve] the serving runs: {', '.join(f'{k} {v:.1f} s' for k, v in SERVE_SECONDS.items())}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
@@ -3483,6 +3506,11 @@ def history_check(torch, dev):
 # = 10 points, sequential and in lanes of 4
 EN_L2 = 1.0
 EN_UNFUSED = 3  # the EN path's first points, also one step per dispatch
+# the EN paths run the lasso grid's first EN_POINTS points, cut from all
+# N_POINTS for the script's time: the grid's last 50 points took 85% of the
+# fused paths' seconds on an H100 (24.3 of 28.8 s dense, 15.7 of 16.5
+# sparse)
+EN_POINTS = 50
 LEDGER_K = 72  # phase 2's long EN chunk, a ledger of 72 slots
 LOG_MAX_ITERS, LOG_TOL = 2000, 1e-4
 # the logistic grid has 10 points; the sparse path runs its first
@@ -4004,11 +4032,11 @@ def _ext_path(torch, tag, design, y, deltas, cfg, oracle, n_rec, batched=0, keep
 
 
 def phase3_en_paths(torch, design, y, coef, layout):
-    """The elastic-net path (ENOracle(l2=1.0)) at full width over the lasso
-    path's 100-point grid: fused at K = 8 (K4 or K7 with the ledger and the
-    replay once a chunk; K1 or K6 once a point), its first 3 points one step
-    per dispatch (the scores, the shifted argmax and the EN tail once a
-    step), and through ``fw_path_batched`` in lanes of 13 (the lane scores,
+    """The elastic-net path (ENOracle(l2=1.0)) at full width over the first
+    EN_POINTS points of the lasso path's 100-point grid: fused at K = 8 (K4
+    or K7 with the ledger and the replay once a chunk; K1 or K6 once a
+    point), its first 3 points one step per dispatch (the scores, the
+    shifted argmax and the EN tail once a step), and through ``fw_path_batched`` in lanes of 13 (the lane scores,
     the shifted lane argmax and the EN lane tail once a batched step)."""
     from repro_torch.core import ENOracle, delta_grid
 
@@ -4017,10 +4045,10 @@ def phase3_en_paths(torch, design, y, coef, layout):
     oracle = ENOracle(l2=EN_L2)
     fused_cfg = sparse_config(p) if sparse else main_config(p, "kernels", FUSE)
     cfg1 = dataclasses.replace(fused_cfg, fuse_steps=1)
-    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)
+    deltas = delta_grid(0.5 * float(coef.abs().sum()), n_points=N_POINTS)[:EN_POINTS]
     print(f"[en-{layout}] ENOracle(l2={EN_L2}) p={p:,} kappa={fused_cfg.kappa:,} "
-          f"max_iters={fused_cfg.max_iters} tol={fused_cfg.tol} points={N_POINTS} "
-          f"delta_max={deltas[-1]:.6g}")
+          f"max_iters={fused_cfg.max_iters} tol={fused_cfg.tol} points={len(deltas)} of a "
+          f"{N_POINTS}-point grid to {float(deltas[-1]):.6g}")
     colstats = "sparse_colstats" if sparse else "colstats"
     scores = "sparse_sampled_scores" if sparse else "sampled_scores"
     chunk = "sparse_fused_chunk_en" if sparse else "dense_fused_chunk_en"
@@ -4032,7 +4060,7 @@ def phase3_en_paths(torch, design, y, coef, layout):
                            EN_UNFUSED)
     chunks = sum(-(-pt.iterations // FUSE) for pt in fused["res"].points)
     _check_launches(f"en-{layout}-fused", l_f, [((chunk, "fused_replay"), chunks),
-                                               ((colstats,), N_POINTS)],
+                                               ((colstats,), len(deltas))],
                     lasso_only + (scores, "vertex_argmax_shifted", "step_tail_en"))
     out[chunk] = l_f[chunk]
 
@@ -4064,7 +4092,7 @@ def phase3_en_paths(torch, design, y, coef, layout):
     lane_scores = "sparse_sampled_scores_lanes" if sparse else "sampled_scores_lanes"
     _check_launches(f"en-{layout}-batched", l_b,
                     [((lane_scores, "vertex_argmax_shifted_lanes", "step_tail_en_lanes"),
-                      batched["steps"]), ((colstats,), -(-N_POINTS // LANE_WIDTH))],
+                      batched["steps"]), ((colstats,), -(-len(deltas) // LANE_WIDTH))],
                     lasso_only + (chunk, scores, "vertex_argmax_shifted", "step_tail_en"))
     out["vertex_argmax_shifted_lanes"] = l_b["vertex_argmax_shifted_lanes"]
     out["step_tail_en_lanes"] = l_b["step_tail_en_lanes"]
@@ -8602,14 +8630,546 @@ def _mesh_timing(torch, tdist, D, op, design, y, cfg, delta, layout):
     return out
 
 
+# --------------------------------------------------------------------------
+# LM serving (repro_torch.models, configs, training, launch.serve): no
+# kernel of its own, cuBLAS and torch's ops on the card
+# --------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_EXTRA, SERVE_DECODE = 4, 128, 3, 16
+SERVE_TIMED_PREFILLS, SERVE_PROFILED_STEPS = 3, 4
+# architecture -> the layers it runs on the card (None: its full config);
+# the widths are always the config's own
+SERVE_DEPTH = {
+    "deepseek_7b": None, "mamba2_130m": None, "hymba_1_5b": None, "seamless_m4t_medium": None,
+    "gemma2_9b": 2, "internlm2_20b": 2, "qwen2_72b": 2, "internvl2_76b": 2,
+    "kimi_k2_1t_a32b": 2,  # its dense first layer + 1 MoE layer
+    "arctic_480b": 1,
+}
+# the dtypes each architecture runs in: bf16 (its config's) for the
+# timing, the determinism check and the incremental check at
+# SERVE_BF16_ATOL; f32 for the incremental check at the reference's
+# tolerance. In bf16 the gap is rounding amplified: a decode step's GEMMs
+# (M = 4 rows) and the forward's (M = 524) take other cuBLAS kernels, so
+# other summation orders and other bf16 roundings, which these
+# random-weight stacks amplify over their depth (deepseek-7b on an H100:
+# an f32 gap of 9.4e-4, a bf16 gap of 1.0 on logits of 11.4), past the
+# reference's rtol 2e-2 / atol 2e-3
+SERVE_DTYPES = ("bfloat16", "float32")
+# the bf16 checks' limits, each architecture's own: max |diff| over max(1,
+# max |logit|) (an atol in units of the logits' scale), the incremental decode
+# against the forward at full widths and the card against the CPU at the
+# reduced configs. The runs are deterministic, and the gaps grow with
+# depth, so each limit lies between that architecture's own sound gap and
+# its gap with RoPE's table planted in bf16 as read on an H100 (their
+# geometric mean, two digits; PERF.md §6). mamba2 has no attention: 2x
+# its sound gap against the forward; against the CPU, where its sound gap
+# read 0, 0.003
+SERVE_BF16_ATOL = {
+    "deepseek_7b": 0.24, "mamba2_130m": 0.065, "internlm2_20b": 0.034, "gemma2_9b": 0.014,
+    "qwen2_72b": 0.026, "internvl2_76b": 0.048, "arctic_480b": 0.032, "kimi_k2_1t_a32b": 0.041,
+    "hymba_1_5b": 0.099, "seamless_m4t_medium": 0.13,
+}
+SERVE_CPU_BF16_ATOL = {
+    "deepseek_7b": 0.018, "mamba2_130m": 0.003, "internlm2_20b": 0.017, "gemma2_9b": 0.0096,
+    "qwen2_72b": 0.017, "internvl2_76b": 0.016, "arctic_480b": 0.04, "kimi_k2_1t_a32b": 0.025,
+    "hymba_1_5b": 0.013, "seamless_m4t_medium": 0.043,
+}
+# bf16-only faults planted in the port (``_planted``) to show what the bf16
+# checks catch: the decode steps only against the forward, the card's run
+# only against the CPU. A fault that SERVE_FAULTS_CAUGHT names must read
+# past the limit wherever its code runs; the others, about one bf16
+# rounding each, are printed (the limits catch them in some runs only)
+SERVE_FAULTS = {
+    "rope_table_bf16": "RoPE's frequencies rounded to bf16 (the table kept in the activation dtype)",
+    "probs_f32": "the attention's probabilities left in f32 (not cast to the activation dtype)",
+    "norm_bf16": "RMSNorm's statistics taken in bf16",
+    "ssm_state_bf16": "the SSM's recurrent state rounded to bf16 at each decode step",
+}
+SERVE_FAULTS_CAUGHT = ("rope_table_bf16",)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
+SERVE_SECONDS = {}
+
+
+def _serve_cfg(arch, dtype=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if SERVE_DEPTH[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _clone_cache(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _forward_drops(torch, model, cfg, batch):
+    """``forward`` with each MoE layer's routing recorded: (logits, a (B, S)
+    bool of the tokens with an assignment past capacity in some layer).
+    The record swaps ``moe_lib.apply_moe`` for a wrapper, which takes
+    effect only because ``model._ffn`` calls it through the module
+    (``moe_lib.apply_moe``); every MoE layer must have been recorded."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+
+    if not cfg.n_experts:
+        return M.forward(model, batch, cfg), None
+    n_moe = sum(b.moe is not None for blocks, _ in model.stacks() for b in blocks)
+    dropped = []
+    apply_moe = moe_lib.apply_moe
+
+    def recording(params, x, cfg_):
+        _, idx, _ = moe_lib._route(params, x, cfg_)
+        past = moe_lib._positions(idx, cfg_.n_experts) >= moe_lib._capacity(x.shape[1], cfg_)
+        dropped.append(past.any(-1))
+        return apply_moe(params, x, cfg_)
+
+    moe_lib.apply_moe = recording
+    try:
+        full = M.forward(model, batch, cfg)
+    finally:
+        moe_lib.apply_moe = apply_moe
+    check(len(dropped) == n_moe, f"{cfg.name}: {len(dropped)} MoE layers recorded of {n_moe} "
+          "(forward no longer calls moe_lib.apply_moe through the module?)")
+    return full, torch.stack(dropped).any(0)
+
+
+@contextlib.contextmanager
+def _planted(torch, fault, calls):
+    """Plant ``fault`` (a SERVE_FAULTS key; None plants nothing) in the port
+    for the ``with`` body, by swapping a module attribute for a faulty
+    version of it; ``calls[0]`` counts the faulty version's calls (0: the
+    fault's code did not run)."""
+    from repro_torch.models import attention, layers, ssm
+    from repro_torch.models import model as M
+
+    if fault is None:
+        yield
+        return
+    if fault == "rope_table_bf16":
+        mod, name = layers, "_rope_frequencies_on"
+        orig = mod._rope_frequencies_on
+
+        def faulty(hd, theta, dev):
+            return orig(hd, theta, dev).to(torch.bfloat16).float()
+    elif fault == "probs_f32":
+        mod, name = attention, "_sdpa"
+        orig = mod._sdpa
+
+        def faulty(q, k, v, mask, cfg, decode=False):
+            return orig(q.float(), k.float(), v.float(), mask, cfg, decode=decode).to(q.dtype)
+    elif fault == "norm_bf16":
+        mod, name = M, "rmsnorm"
+        orig = mod.rmsnorm
+
+        def faulty(params, x, eps):
+            return (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+                    * (1.0 + params.scale)).to(x.dtype)
+    elif fault == "ssm_state_bf16":
+        mod, name = ssm, "decode_ssm"
+        orig = mod.decode_ssm
+
+        def faulty(params, x, cache, cfg):
+            out, c = orig(params, x, cache, cfg)
+            return out, ssm.SSMCache(conv=c.conv, state=c.state.to(torch.bfloat16).float())
+    else:
+        raise KeyError(fault)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return faulty(*args, **kw)
+
+    setattr(mod, name, counted)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def _gaps(torch, pairs, scale):
+    """(got, want) logits pairs: the worst ratio of |diff| to rtol 2e-2 +
+    atol 2e-3, max |diff|, that over max(1, ``scale``), all finite."""
+    ratio = max(float(((a - b).abs() / (2e-3 + 2e-2 * b.abs())).max()) for a, b in pairs)
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+    return dict(ratio=ratio, diff=diff, gap=diff / max(1.0, scale), finite=finite)
+
+
+def _incremental_vs_full(torch, model, cfg, batch, nxt, max_seq, faults=()):
+    """Prefill SERVE_PROMPT tokens, decode SERVE_EXTRA more; each position's
+    logits against ``forward`` over all of them (``_gaps``: the reference's
+    own tolerance for this check, ``tests/test_serve.py``: rtol 2e-2, atol
+    2e-3, and the gap in units of the logits' scale). With MoE layers a
+    decoded token that ``forward`` routed past capacity (a drop, which a
+    one-token decode never makes) and the row's later tokens are left out,
+    and counted; the prompt's own capacity must be the forward's, so the
+    prefill's drops are the forward's. Each of ``faults`` is planted in the
+    decode steps of a run of its own from the same prefill. Returns
+    (prefill logits, the prefill's cache, max |logit|, rows left out, and
+    ``_gaps`` a run, keyed by its fault, None the sound run; a planted run
+    whose fault's code did not run is left out)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+
+    P = SERVE_PROMPT
+    full, dropped = _forward_drops(
+        torch, model, cfg, dict(batch, tokens=torch.cat([batch["tokens"], nxt], 1)))
+    keep = torch.ones((SERVE_BATCH, SERVE_EXTRA), dtype=torch.bool, device=full.device)
+    if dropped is not None:
+        S0 = cfg.n_prefix_embeds + P
+        check(moe_lib._capacity(S0, cfg) == moe_lib._capacity(S0 + SERVE_EXTRA, cfg),
+              f"{cfg.name}: the prompt's capacity differs from the forward's")
+        keep = torch.cumsum(dropped[:, S0:S0 + SERVE_EXTRA].int(), 1) == 0
+    logits, cache = M.prefill(model, batch, cfg, max_seq=max_seq)
+    base = _clone_cache(cache)
+    scale = float(full.abs().max())
+    gaps = {}
+    for fault in (None, *faults):
+        c = cache if fault is None else _clone_cache(base)
+        pairs, calls = [(logits[:, 0], full[:, P - 1])], [0]
+        with _planted(torch, fault, calls):
+            for t in range(SERVE_EXTRA):
+                lg, c = M.decode_step(model, nxt[:, t:t + 1], c, cfg)
+                pairs.append((lg[:, 0][keep[:, t]], full[:, P + t][keep[:, t]]))
+        if fault is None or calls[0]:
+            gaps[fault] = _gaps(torch, [(a, b) for a, b in pairs if a.numel()], scale)
+        del c, pairs
+    del full, cache
+    return logits, base, scale, int((~keep).sum()), gaps
+
+
+def _two_decodes(torch, model, cfg, logits, cache, timed=False):
+    """Two greedy decodes of SERVE_DECODE tokens from one prefill (the cache
+    cloned): (tokens, logits) of each and, timed, each step's seconds."""
+    from repro_torch.training import make_serve_step
+
+    serve = make_serve_step(cfg)
+    runs, secs = [], []
+    for _ in range(2):
+        c = _clone_cache(cache)
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        toks, lgs = [], []
+        for _ in range(SERVE_DECODE):
+            t0 = time.perf_counter()
+            tok, lg, c = serve(model, tok, c)
+            if timed:
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            toks.append(tok)
+            lgs.append(lg)
+        runs.append((torch.cat(toks, 1), torch.cat(lgs, 1)))
+        del c
+    return runs, secs
+
+
+def _param_bytes(model, skip=()):
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if not n.startswith(skip))
+
+
+def _serve_bounds(torch, model, cfg, cache_len):
+    """(decode bound ms, its bytes; prefill bound ms, its bytes, its FLOPs):
+    a decode step reads every weight once but the embedding table (B rows
+    of it), and the K/V of the cache's valid prefix; the prefill does
+    2 FLOPs a weight a token (the head at the last position only) and the
+    attention's two score-square products, and reads every weight once."""
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
+    emb = model.embed.tok
+    head = emb if cfg.tie_embeddings else model.lm_head.w
+    kv_bytes = 2 * L * B * cache_len * cfg.n_kv_heads * hd * emb.element_size()
+    dec_bytes = (_param_bytes(model, ("embed.",)) + B * cfg.d_model * emb.element_size()
+                 + (head.numel() * head.element_size() if cfg.tie_embeddings else 0)
+                 + kv_bytes)
+    body = sum(p.numel() for n, p in model.named_parameters()
+               if not n.startswith(("embed.", "lm_head.")))
+    flops = (2 * B * P * body + 2 * B * head.numel()
+             + L * 2 * 2 * B * cfg.n_heads * P * P * hd)
+    pre_bytes = _param_bytes(model)
+    return (dec_bytes / HBM_BYTES_PER_S * 1e3, dec_bytes,
+            max(pre_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, pre_bytes, flops)
+
+
+def _decode_profile(torch, model, cfg, logits, cache):
+    """Device busy share and launches a decode step (``torch.profiler`` over
+    SERVE_PROFILED_STEPS steps after one warm step); None where the
+    profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import make_serve_step
+
+    serve = make_serve_step(cfg)
+    c = _clone_cache(cache)
+    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    tok, _, c = serve(model, tok, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILED_STEPS):
+            tok, _, c = serve(model, tok, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us <= 0:
+        return None
+    n = SERVE_PROFILED_STEPS
+    top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.4f} ms"
+                    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6])
+    return dict(busy_ms=busy_us / 1e3 / n, wall_ms=wall * 1e3 / n,
+                launches=sum(e.count for e in rows) / n, top=top)
+
+
+def phase_serve(torch):
+    """The LM serving path at full widths on the card (SERVE_DEPTH): each
+    architecture in bf16 (finite logits, two decodes of SERVE_DECODE tokens
+    bit for bit equal, incremental decoding against ``forward`` within
+    SERVE_BF16_ATOL[arch] of the logits' scale, and past it under each planted
+    fault of SERVE_FAULTS_CAUGHT whose code runs) and in f32 (incremental
+    decoding against ``forward`` at rtol 2e-2, atol 2e-3, and the two
+    decodes); deepseek-7b at its full config in bf16 also timed
+    (prefill, decode steps, the profiler's busy share and launches a step,
+    the head's routes) beside its bounds. Each model is freed before the
+    next."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+
+    set_matmul_precision()
+    dev = torch.device("cuda")
+    failures, out = [], {}
+    order = ["deepseek_7b"] + [a for a in ARCH_IDS if a != "deepseek_7b"]
+    for arch in order:
+        for dtype in SERVE_DTYPES:
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = _serve_cfg(arch, dtype)
+            model = M.init_params(0, cfg, dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen)
+            nxt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_EXTRA), generator=gen,
+                                device=dev)
+            max_seq = cfg.n_prefix_embeds + SERVE_PROMPT + SERVE_DECODE + 8
+            n_params = sum(p.numel() for p in model.parameters())
+            bf16 = dtype == "bfloat16"
+            logits, cache, scale, left_out, gaps = _incremental_vs_full(
+                torch, model, cfg, batch, nxt, max_seq, tuple(SERVE_FAULTS) if bf16 else ())
+            sound = gaps.pop(None)
+            timed = arch == "deepseek_7b" and bf16
+            runs, secs = _two_decodes(torch, model, cfg, logits, cache, timed=timed)
+            same = bool(torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]))
+            label = f"{arch} {dtype} ({cfg.n_layers} layers{'' if SERVE_DEPTH[arch] is None else ', depth cut'})"
+            if not sound["finite"]:
+                failures.append(f"{label}: non-finite logits")
+            if not bf16 and sound["ratio"] > 1.0:
+                failures.append(f"{label}: incremental vs forward {sound['ratio']:.3f}x the tolerance")
+            limit = SERVE_BF16_ATOL[arch]
+            if bf16 and sound["gap"] > limit:
+                failures.append(f"{label}: incremental vs forward {sound['gap']:.4f} of the scale, "
+                                f"past {limit}")
+            for fault, g in gaps.items():
+                if fault in SERVE_FAULTS_CAUGHT and g["gap"] <= limit:
+                    failures.append(f"{label}: the planted {fault} reads {g['gap']:.4f} of the "
+                                    f"scale, within {limit}")
+            if not same:
+                failures.append(f"{label}: two decodes differ")
+            if timed:
+                out["deepseek"] = _serve_timing(torch, model, cfg, batch, logits, cache, secs,
+                                                max_seq, n_params)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            SERVE_SECONDS[f"{arch} {dtype}"] = sec
+            if bf16:
+                checked = (f"{sound['gap']:.6f} of the scale (limit {limit}; "
+                           f"{sound['ratio']:.4f}x rtol 2e-2 atol 2e-3); planted in the decode: "
+                           + ", ".join(f"{f} {g['gap']:.6f}" for f, g in gaps.items()))
+            else:
+                checked = f"{sound['ratio']:.4f}x the tolerance rtol 2e-2 atol 2e-3"
+            print(f"[serve] {label}: {n_params:,} parameters; prefill {SERVE_BATCH}x"
+                  f"{SERVE_PROMPT + cfg.n_prefix_embeds} + decode {SERVE_EXTRA} against forward "
+                  f"over {SERVE_PROMPT + SERVE_EXTRA}: max |diff| {sound['diff']:.6g} (max |logit| "
+                  f"{scale:.4g}), {checked}"
+                  f"{f'; {left_out} decoded rows after a forward drop left out' if left_out else ''}"
+                  f"; two decodes of "
+                  f"{SERVE_DECODE} tokens bitwise equal: {same}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {sec:.1f} s")
+            del model, cache, logits, runs, batch
+    torch.cuda.empty_cache()
+    check(not failures, "serving: " + "; ".join(failures))
+    print(f"[serve] phase: {sum(SERVE_SECONDS.values()):.1f} s over {len(SERVE_SECONDS)} runs")
+    return out
+
+
+def _serve_timing(torch, model, cfg, batch, logits, cache, secs, max_seq, n_params):
+    """deepseek-7b's numbers: prefill seconds (median of
+    SERVE_TIMED_PREFILLS after the checks' warm one), a decode step (median
+    of the two decodes' steps past each first), tok/s at the batch, the
+    profiler's busy share and launches a step, and the bounds."""
+    from repro_torch.models import model as M
+
+    pre = []
+    for _ in range(SERVE_TIMED_PREFILLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c = M.prefill(model, batch, cfg, max_seq=max_seq)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+        del lg, c
+    steps = secs[1:SERVE_DECODE] + secs[SERVE_DECODE + 1:]
+    step_ms = sorted(steps)[len(steps) // 2] * 1e3
+    prof = _decode_profile(torch, model, cfg, logits, cache)
+    dec_ms, dec_bytes, pre_bound_ms, pre_bytes, flops = _serve_bounds(
+        torch, model, cfg, SERVE_PROMPT + 2)
+    pre_s = sorted(pre)[len(pre) // 2]
+    head = _head_routes(torch, model, cfg)
+    print(f"[serve-time] deepseek-7b bf16, {n_params:,} parameters ({_param_bytes(model):,} "
+          f"bytes), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}; card {card_line()}")
+    print(f"[serve-time] prefill {SERVE_BATCH}x{SERVE_PROMPT}: {pre_s:.6f} s (median of "
+          f"{SERVE_TIMED_PREFILLS}: {[round(p, 6) for p in pre]}); bound {pre_bound_ms:.4f} ms "
+          f"(max of {pre_bytes:,} bytes at 3.35 TB/s and {flops:,} FLOPs at 989 TFLOP/s bf16)")
+    print(f"[serve-time] decode step {step_ms:.4f} ms (median of {len(steps)}; min "
+          f"{min(steps) * 1e3:.4f}, max {max(steps) * 1e3:.4f}), {SERVE_BATCH / step_ms * 1e3:.1f} "
+          f"tok/s at batch {SERVE_BATCH}; bound {dec_ms:.4f} ms ({dec_bytes:,} bytes: the weights "
+          f"but the embedding table, and the K/V at length {SERVE_PROMPT + 2})")
+    if prof is None:
+        print("[serve-time] device busy share: not measured (the profiler reported no device "
+              "time)")
+    else:
+        print(f"[serve-time] profiled decode step: wall {prof['wall_ms']:.4f} ms, device busy "
+              f"{prof['busy_ms']:.4f} ms ({prof['busy_ms'] / prof['wall_ms'] * 100:.1f}% of the "
+              f"profiled wall, {prof['busy_ms'] / step_ms * 100:.1f}% of the unprofiled median "
+              f"step), {prof['launches']:.1f} kernels and copies a step; top: {prof['top']}")
+    print(f"[serve-time] the head's f32 logits at batch {SERVE_BATCH} (CUDA events, 50 "
+          f"calls): bf16 product with an f32 output {head['out_dtype']:.6f} ms (the port's), "
+          f"an f32 copy of the head {head['f32_copy']:.6f} ms, upcast each call "
+          f"{head['upcast']:.6f} ms; max |diff| out_dtype vs f32 copy {head['diff']:.3g}")
+    return dict(prefill_s=pre_s, step_ms=step_ms, prof=prof, dec_bound_ms=dec_ms,
+                pre_bound_ms=pre_bound_ms, head=head)
+
+
+def _head_routes(torch, model, cfg):
+    """The three ways to the reference's f32 logits from bf16 operands at
+    deepseek-7b's head, timed: ``layers._matmul_f32`` (a bf16 product with
+    an f32 output), an f32 copy of the head kept beside it, and the head
+    upcast at every call."""
+    from repro_torch.models.layers import _matmul_f32
+
+    w = model.lm_head.w
+    x = torch.randn((SERVE_BATCH, cfg.d_model), device=w.device).to(w.dtype)
+    w32 = w.float()
+    routes = {"out_dtype": lambda: _matmul_f32(x, w), "f32_copy": lambda: x.float() @ w32,
+              "upcast": lambda: x.float() @ w.float()}
+    out = {}
+    for name, fn in routes.items():
+        for _ in range(3):
+            fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(50):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out[name] = a.elapsed_time(b) / 50
+    out["diff"] = float((routes["out_dtype"]() - routes["f32_copy"]()).abs().max())
+    del w32
+    return out
+
+
+def phase_serve_card_vs_cpu(torch):
+    """Each of the ten architectures at ``reduced(ssm_chunk=8)`` with TF32
+    off: the port's forward, prefill and 3 serve steps on the card against
+    its own CPU run on the same weights and inputs; in f32 at the CPU
+    parity tests' tolerance (rtol 1e-4, atol 1e-5 in units of the logits'
+    scale, ``tests/_torch_lm.py``), in bf16 within SERVE_CPU_BF16_ATOL[arch] of
+    the logits' scale (the card's and the CPU's bf16 products sum in other
+    orders, and each rounding the other does not make moves these stacks'
+    logits), and past it with each fault of SERVE_FAULTS_CAUGHT planted in
+    the card's run where its code runs (the others printed)."""
+    import copy
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.training import make_serve_step
+
+    def outputs(model, cfg, batch, nxt, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        res = [M.forward(model, dict(b, tokens=torch.cat([b["tokens"], nxt.to(dev)], 1)), cfg)]
+        logits, cache = M.prefill(model, b, cfg, max_seq=24 + 3 + 8)
+        res.append(logits)
+        serve = make_serve_step(cfg)
+        for t in range(3):
+            _, lg, cache = serve(model, nxt[:, t:t + 1].to(dev), cache)
+            res.append(lg)
+        return [r.cpu().float() for r in res]
+
+    set_matmul_precision()
+    worst, failures = {}, []
+    for arch, dtype in ((a, d) for d in ("float32", "bfloat16") for a in ARCH_IDS):
+        cfg = get_config(arch).reduced(ssm_chunk=8, dtype=dtype)
+        cpu = M.init_params(0, cfg, "cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        batch = synthetic_batch(cfg, 2, 24, torch.Generator().manual_seed(1), n_frames=16)
+        nxt = torch.randint(0, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(2))
+        want = outputs(cpu, cfg, batch, nxt, "cpu")
+        for fault in (None, *(SERVE_FAULTS if dtype == "bfloat16" else ())):
+            calls = [0]
+            with _planted(torch, fault, calls):
+                got = outputs(card, cfg, batch, nxt, "cuda")
+            if fault is not None and not calls[0]:
+                continue
+            if dtype == "float32":
+                r = max(float(((g - w).abs() / (1e-5 * max(1.0, float(w.abs().max()))
+                                                 + 1e-4 * w.abs())).max())
+                        for g, w in zip(got, want))
+            else:
+                r = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                        for g, w in zip(got, want))
+            worst[(arch, dtype, fault)] = r
+        r, limit = worst[(arch, dtype, None)], SERVE_CPU_BF16_ATOL[arch]
+        if dtype == "float32" and r > 1.0:
+            failures.append(f"{arch} {dtype} at {r:.3f}x the tolerance")
+        if dtype == "bfloat16" and r > limit:
+            failures.append(f"{arch} {dtype} at {r:.4f} of the scale, past {limit}")
+        for fault in SERVE_FAULTS_CAUGHT:
+            g = worst.get((arch, dtype, fault))
+            if g is not None and g <= limit:
+                failures.append(f"{arch} {dtype}: the planted {fault} reads {g:.4f} of the scale, "
+                                f"within {limit}")
+        del cpu, card
+    print("[serve-cpu] reduced float32, the card against the CPU (forward, prefill, 3 decode "
+          "steps), worst |diff| as a share of rtol 1e-4 + atol 1e-5 x scale: "
+          + ", ".join(f"{a} {r:.4f}" for (a, d, f), r in worst.items() if d == "float32"))
+    print("[serve-cpu] reduced bfloat16, the card against the CPU, max |diff| over the scale "
+          "(limit): " + ", ".join(f"{a} {r:.6g} ({SERVE_CPU_BF16_ATOL[a]})"
+                                  for (a, d, f), r in worst.items()
+                                  if d == "bfloat16" and f is None))
+    for fault in SERVE_FAULTS:
+        print(f"[serve-cpu] reduced bfloat16, {fault} planted in the card's run"
+              f"{' (must be caught)' if fault in SERVE_FAULTS_CAUGHT else ''}: "
+              + (", ".join(f"{a} {r:.6g}" for (a, d, f), r in worst.items() if f == fault)
+                 or "its code runs in none"))
+    check(not failures, "serving, card against CPU: " + "; ".join(failures))
+
+
 # the port's examples and CI scripts, each run as a child process at its
 # reference size (the dense example on the kernels' backend, its paper-size
 # sparse run batched; the solver family at a fifth of its 10,000 steps a
-# solve, whose logistic steps of ~330 launches would take ~160 s alone): the
+# solve, whose logistic steps of ~330 launches would take ~160 s alone, and
+# the quickstart at a fifth of its 50,000, which took ~100 s of the last
+# turn's ~120 on an H100): the
 # telemetry smoke first and alone, right after the build (its gates time a
-# host-bound hot loop), then at the end the headline example alone and six
-# together (none times a gate; their own seconds then share the card and
-# the host); the outputs' directory is the call's own
+# host-bound hot loop), then at the end the headline example alone and
+# eight together, the serve launcher and the serving example among them
+# (none times a gate; their own seconds then share the card and the host);
+# the outputs' directory is the call's own
+# the serve launcher at deepseek-7b's full config (``python -m
+# repro_torch.launch.serve``, as a script path)
+SERVE_ENTRY = ("src/repro_torch/launch/serve.py",
+               ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "128", "--tokens", "32"])
 ENTRY_GATES = (  # run first, on a host no other phase has loaded yet
     (("scripts/torch_telemetry_smoke.py", ["--out-dir", "{out}/telemetry"]),),
 )
@@ -8618,15 +9178,17 @@ ENTRY_RUNS = (
       ["--paper-size", "--backend", "sparse", "--driver", "batched"]),),
     (("examples/torch_solver_family.py", ["--max-iters", "2000"]),
      ("examples/torch_lasso_fullpath_4m.py", ["--backend", "kernels"]),
-     ("examples/torch_quickstart.py", []),
+     ("examples/torch_quickstart.py", ["--max-iters", "10000"]),
      ("scripts/torch_solver_report.py", ["--out-dir", "{out}/report", "--distributed"]),
      ("scripts/torch_chaos_smoke.py", ["--out", "{out}/chaos_metrics.json"]),
-     ("scripts/torch_profile_capture.py", ["--out", "{out}/profile"])),
+     ("scripts/torch_profile_capture.py", ["--out", "{out}/profile"]),
+     SERVE_ENTRY, ("examples/torch_serve_lm.py", [])),
 )
 ENTRY_TIMEOUT_S = 300
 ENTRY_SECONDS = {}  # each entry point's seconds, for the summary
 ENTRY_KEYS = ("PATH DONE", "total iters", "card:", "overhead", "PASS", "FAIL", "obj=",
-              "chaos smoke", "profile_capture", "# wrote", "grid points", "advantage", "densest")
+              "chaos smoke", "profile_capture", "# wrote", "grid points", "advantage", "densest",
+              "[serve]")
 
 
 def phase_entry_points(torch, runs=ENTRY_RUNS):

@@ -1,10 +1,12 @@
 """Carry the JAX reference's problem, config, state and index stream into
 the port.
 
-The system has no weights: what a caller carries across is the problem,
-the config, a warm start or a mid-run state (a baseline's result among
-them), a telemetry ring, and the sampled index stream. Everything arrives as numpy arrays or plain dicts, so this module
-imports nothing of the reference.
+The FW system has no weights: what a caller carries across is the
+problem, the config, a warm start or a mid-run state (a baseline's result
+among them), a telemetry ring, and the sampled index stream. The LM stack
+has weights and a decode cache (``lm_params_from_reference``,
+``lm_cache_from_reference``). Everything arrives as numpy arrays or plain
+dicts, so this module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +22,11 @@ from repro_torch.core.fw_lasso import LassoCo
 from repro_torch.core.fw_logistic import LogisticCo
 from repro_torch.core.solver_config import DistSpec, FWConfig
 from repro_torch.core.vertex import LaneStreamSampler, StreamSampler
+from repro_torch.models import attention as lm_attention
+from repro_torch.models import layers as lm_layers
+from repro_torch.models import model as lm_model
+from repro_torch.models import moe as lm_moe
+from repro_torch.models import ssm as lm_ssm
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
@@ -193,3 +200,80 @@ def telemetry_from_reference(arrays: dict, device="cuda") -> obs_telemetry.Telem
     return ring._replace(cursor=[int(c) for c in cursor],
                          flushed=[int(f) for f in np.asarray(arrays["flushed"])],
                          dev_cursor=torch.tensor(cursor.astype(np.int64), device=dev))
+
+
+def _lm_tensor(a, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor of its dtype on ``dev`` (a bfloat16 leaf,
+    numpy's ``ml_dtypes`` type, through its 16 bits)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params_from_reference(tree: dict, cfg, device="cuda"):
+    """The port's ``models.model.LM`` from the reference's ``init_params``
+    tree with numpy leaves (``jax.tree.map(np.asarray, params)``): the
+    layer stacks (``prefix_layers``, ``layers``, ``encoder.layers``;
+    stacked on axis 0) are unstacked into blocks, every weight keeps the
+    reference's (in, out) layout and dtype."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return _lm_tensor(a, dev)
+
+    def rms(d):
+        return lm_layers.RMSNorm(t(d["scale"]))
+
+    def mlp(d):
+        return lm_layers.MLP(t(d["w_gate"]), t(d["w_up"]), t(d["w_down"]))
+
+    def attn(d):
+        return lm_attention.Attention(*(t(d[k]) for k in ("wq", "wk", "wv", "wo")),
+                                      *(t(d[k]) if k in d else None for k in ("bq", "bk", "bv")))
+
+    def ssm(d):
+        return lm_ssm.SSM(t(d["in_proj"]), t(d["conv_w"]), t(d["conv_b"]), t(d["A_log"]),
+                          t(d["D"]), t(d["dt_bias"]), rms(d["norm"]), t(d["out_proj"]))
+
+    def moe(d):
+        return lm_moe.MoE(t(d["router"]), t(d["w_gate"]), t(d["w_up"]), t(d["w_down"]),
+                          mlp(d["shared"]) if "shared" in d else None,
+                          mlp(d["dense"]) if "dense" in d else None)
+
+    parts = {"ln1": rms, "ln_cross": rms, "ln2": rms, "ln1_post": rms, "ln2_post": rms,
+             "attn": attn, "cross": attn, "ssm": ssm, "moe": moe, "mlp": mlp}
+
+    def layer(tree_i, i):
+        if isinstance(tree_i, dict):
+            return {k: layer(v, i) for k, v in tree_i.items()}
+        return np.asarray(tree_i)[i]
+
+    def blocks(stacked):
+        unknown = set(stacked) - set(parts)
+        if unknown:
+            raise ValueError(f"block parts the port does not have: {sorted(unknown)}")
+        n = int(np.asarray(stacked["ln1"]["scale"]).shape[0])
+        return [lm_model.Block(**{k: parts[k](v) for k, v in layer(stacked, i).items()})
+                for i in range(n)]
+
+    prefix = blocks(tree["prefix_layers"]) if "prefix_layers" in tree else None
+    encoder = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = lm_model.Encoder(t(enc["frontend"]), blocks(enc["layers"]), rms(enc["norm"]))
+    head = tree["lm_head"]
+    with torch.no_grad():
+        return lm_model.LM(cfg, lm_layers.Embedding(t(tree["embed"]["tok"])), prefix,
+                           blocks(tree["layers"]), encoder,
+                           t(tree["patch_proj"]) if "patch_proj" in tree else None,
+                           rms(tree["final_norm"]),
+                           lm_layers.LMHead(t(head["w"]) if "w" in head else None))
+
+
+def lm_cache_from_reference(cache: dict, device="cuda") -> dict:
+    """A decode cache from the reference's (``prefill``'s or
+    ``decode_step``'s, numpy leaves): 'len', 'k', 'v', 'conv', 'ssm' and
+    an encoder's 'memory', each with its dtype and layout."""
+    dev = resolve_device(device)
+    return {k: _lm_tensor(v, dev) for k, v in cache.items()}

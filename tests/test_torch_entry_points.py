@@ -47,6 +47,8 @@ FILES = {
     "chaos": REPO / "scripts" / "torch_chaos_smoke.py",
     "profile": REPO / "scripts" / "torch_profile_capture.py",
     "split": REPO / "scripts" / "torch_telemetry_split.py",
+    "serve_lm": REPO / "examples" / "torch_serve_lm.py",
+    "serve": REPO / "src" / "repro_torch" / "launch" / "serve.py",
 }
 QS_P, QS_INF, QS_ITERS = 300, 10, 150
 
@@ -76,12 +78,13 @@ def test_imports_neither_jax_nor_the_reference(name):
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal is for a machine without a card")
 @pytest.mark.parametrize("name", ["quickstart", "fullpath", "family", "chaos", "profile",
-                                  "report"])
+                                  "report", "serve_lm", "serve"])
 def test_asks_for_the_card_by_default(name, tmp_path):
     """No silent CPU fallback: without ``--device`` each asks for the card."""
     argv = {"report": ["--out-dir", str(tmp_path), "--backends", "torch"],
             "chaos": ["--out", str(tmp_path / "c.json")],
-            "profile": ["--out", str(tmp_path)]}.get(name, [])
+            "profile": ["--out", str(tmp_path)],
+            "serve": ["--arch", "deepseek_7b", "--reduced"]}.get(name, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load(name).main(argv)
 
@@ -229,3 +232,107 @@ def test_profile_capture_on_cpu(tmp_path):
     summary = json.loads((tmp_path / "profile_summary.json").read_text())
     assert "profile/solve" in summary["span_table"]
     assert (tmp_path / "chrome_trace.json").exists()
+
+
+@pytest.mark.parametrize("part", ["models", "configs", "training", "launch"])
+def test_lm_packages_import_neither_jax_nor_the_reference(part):
+    """The LM serving slice's packages, and ``chip_smoke.py`` that drives
+    them on the card."""
+    files = sorted((REPO / "src" / "repro_torch" / part).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 1
+    for f in files:
+        tree = ast.parse(f.read_text())
+        roots = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                roots.add(node.module.split(".")[0])
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+
+
+def test_serve_example_runs_on_cpu():
+    """``examples/torch_serve_lm.py`` at its defaults (deepseek-7b reduced,
+    4 prompts of 32, 24 tokens): its greedy tokens are the port's own
+    prefill and serve steps on the same weights and prompts (seeds 0 and
+    1, as ``launch.serve.run`` draws them)."""
+    from repro_torch.launch.serve import synthetic_batch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import make_serve_step
+
+    rc, out = _load("serve_lm").main(["--device", "cpu"])
+    assert rc == 0 and out["card"] == "cpu" and out["tokens"].shape == (4, 24)
+    cfg = get_config("deepseek_7b").reduced()
+    params = M.init_params(0, cfg, "cpu")
+    batch = synthetic_batch(cfg, 4, 32, torch.Generator().manual_seed(1))
+    logits, cache = M.prefill(params, batch, cfg, max_seq=32 + 24 + 8)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    toks = []
+    serve = make_serve_step(cfg)
+    for _ in range(24):
+        tok, _, cache = serve(params, tok, cache)
+        toks.append(tok)
+    assert torch.equal(torch.cat(toks, 1), out["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek_7b", "mamba2_130m", "hymba_1_5b", "kimi_k2_1t_a32b",
+                                  "seamless_m4t_medium", "internvl2_76b"])
+def test_serve_launcher_runs_on_cpu(arch):
+    """``python -m repro_torch.launch.serve --arch <a> --reduced --device
+    cpu``: prefill, then greedy decode; its numbers and tokens."""
+    from repro_torch.launch import serve
+
+    rc, out = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "12", "--tokens", "5"])
+    assert rc == 0 and out["card"] == "cpu" and out["tokens"].shape == (2, 5)
+    cfg = serve.get_config(arch).reduced()
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < cfg.vocab_size
+    assert out["prefill_s"] > 0 and out["step_ms"] > 0 and out["params"] > 0
+
+
+@pytest.mark.parametrize("fault", ["rope_table_bf16", "probs_f32", "norm_bf16", "ssm_state_bf16"])
+def test_chip_smoke_planted_fault_runs_and_is_undone(fault):
+    """``chip_smoke._planted``, the bf16-only faults that the card's serving
+    checks plant to show what their limits catch: inside the ``with`` the
+    port runs the faulty code (counted) and its bf16 logits move; after it
+    the port's own functions are back, and its logits are the sound run's
+    bit for bit (hymba at ``reduced()``: attention, SSM and norms)."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_batch
+    from repro_torch.models import attention, layers, ssm
+    from repro_torch.models import model as M
+
+    from repro_torch.configs import ARCH_IDS
+
+    assert fault in chip_smoke.SERVE_FAULTS
+    assert set(chip_smoke.SERVE_FAULTS_CAUGHT) <= set(chip_smoke.SERVE_FAULTS)
+    assert set(chip_smoke.SERVE_BF16_ATOL) == set(chip_smoke.SERVE_CPU_BF16_ATOL) == set(ARCH_IDS)
+    cfg = get_config("hymba_1_5b").reduced(dtype="bfloat16")
+    params = M.init_params(0, cfg, "cpu")
+    batch = synthetic_batch(cfg, 2, 12, torch.Generator().manual_seed(1))
+    nxt = torch.randint(0, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(2))
+
+    def decode():
+        _, cache = M.prefill(params, batch, cfg, max_seq=24)
+        out = []
+        for t in range(3):
+            lg, cache = M.decode_step(params, nxt[:, t:t + 1], cache, cfg)
+            out.append(lg)
+        return torch.cat(out, 1)
+
+    def own():
+        return (layers._rope_frequencies_on, attention._sdpa, M.rmsnorm, ssm.decode_ssm)
+
+    originals = own()
+    sound = decode()
+    calls = [0]
+    with chip_smoke._planted(torch, fault, calls):
+        planted = decode()
+    assert calls[0] > 0
+    assert not torch.equal(planted, sound)
+    assert all(a is b for a, b in zip(own(), originals))
+    assert torch.equal(decode(), sound)

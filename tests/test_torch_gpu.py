@@ -2070,3 +2070,115 @@ def test_nccl_world_one_mesh_solve_is_the_single_device_solve(layout):
     for name in (sk, "owned_column", "step_tail_given", "vertex_argmax"):
         assert launched[name] == 200, (name, launched[name])
     assert launched["step_tail"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (no kernel of its own: cuBLAS and torch's ops)
+# ---------------------------------------------------------------------------
+
+
+def _lm_close(got, want, dtype, msg):
+    """The CPU tests' logit tolerance: f32 rtol 1e-4, atol 1e-5; bf16 rtol
+    2e-2, atol 2e-3; the atol in units of the logits' scale
+    (tests/_torch_lm.py says why)."""
+    rtol, atol = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 2e-3)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=rtol, atol=atol * scale, msg=msg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_7b", "gemma2_9b", "mamba2_130m", "hymba_1_5b",
+                                  "kimi_k2_1t_a32b", "seamless_m4t_medium", "internvl2_76b"])
+def test_lm_card_matches_the_cpu(arch):
+    """One reduced architecture a family in f32 with TF32 off: prefill, 3
+    serve steps and forward on the card against the CPU on the same
+    weights and inputs. (In bf16 the card's and the CPU's products sum in
+    other orders, and the roundings that differ move these stacks' logits
+    past the bf16 tolerance; ``chip_smoke.py`` holds that gap to limits
+    read on the card, ``SERVE_CPU_BF16_ATOL``.)"""
+    dtype = "float32"
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.training import make_serve_step
+
+    set_matmul_precision()
+    cfg = get_config(arch).reduced(ssm_chunk=8, dtype=dtype)
+    cpu = M.init_params(0, cfg, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = synthetic_batch(cfg, 2, 24, torch.Generator().manual_seed(1), n_frames=16)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 3), generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        full = M.forward(model, dict(b, tokens=torch.cat([b["tokens"], nxt.to(dev)], 1)), cfg)
+        logits, cache = M.prefill(model, b, cfg, max_seq=24 + 3 + 8)
+        steps = []
+        serve = make_serve_step(cfg)
+        for t in range(3):
+            _, lg, cache = serve(model, nxt[:, t:t + 1].to(dev), cache)
+            steps.append(lg)
+        outs[dev] = (full, logits, steps)
+    _lm_close(outs["cuda"][0], outs["cpu"][0], dtype, f"{arch} forward")
+    _lm_close(outs["cuda"][1], outs["cpu"][1], dtype, f"{arch} prefill")
+    for t in range(3):
+        _lm_close(outs["cuda"][2][t], outs["cpu"][2][t], dtype, f"{arch} decode step {t}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tied", [False, True])
+def test_lm_head_f32_logits_from_bf16_on_the_card(tied):
+    """The head's card-only route (a bf16 product with an f32 output, the
+    tied table read transposed) against the f32 product of the upcast
+    operands on the CPU: the same function, sums in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.models.layers import _matmul_f32
+
+    set_matmul_precision()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 1, 512), generator=g).to(torch.bfloat16)
+    w = (torch.randn((3000, 512) if tied else (512, 3000), generator=g) * 0.05).to(torch.bfloat16)
+    w = w.t() if tied else w
+    got = _matmul_f32(x.cuda(), w.cuda())
+    want = x.float() @ w.float()
+    assert got.dtype == torch.float32
+    scale = float((x.float().abs() @ w.float().abs()).max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_two_decodes_are_bitwise_equal(dtype):
+    """Two greedy decodes of 16 tokens from one prefill (the cache cloned)
+    give the same tokens and logits bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.training import make_serve_step
+
+    set_matmul_precision()
+    cfg = get_config("deepseek_7b").reduced(dtype=dtype)
+    model = M.init_params(0, cfg, "cuda")
+    batch = synthetic_batch(cfg, 4, 32, torch.Generator(device="cuda").manual_seed(1))
+    logits, cache = M.prefill(model, batch, cfg, max_seq=32 + 16 + 8)
+    serve = make_serve_step(cfg)
+    runs = []
+    for _ in range(2):
+        c = {k: v.clone() for k, v in cache.items()}
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks, lgs = [], []
+        for _ in range(16):
+            tok, lg, c = serve(model, tok, c)
+            toks.append(tok)
+            lgs.append(lg)
+        runs.append((torch.cat(toks, 1), torch.cat(lgs, 1)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -4,8 +4,12 @@ of ``repro.sparse.ops`` and of ``repro.core``'s ``fw_lasso``, ``vertex``,
 ``step_rule``, ``engine``, ``path``, ``fw_elasticnet`` and ``fw_logistic``,
 each found in its port module, less the names recorded as having no port
 (``NO_PORT``, with the reason; ROADMAP.md's "Reference pieces that get no
-port" records the same). Typing helpers and imported modules are not names
-of the API and are left out on both sides.
+port" records the same). The LM stack's: ``repro.models.__all__``,
+``repro.training.__all__`` and the public names of ``repro.configs`` and
+``repro.models``' ``model``, ``attention``, ``layers``, ``ssm`` and ``moe``,
+less the names that wait for the training slice (``WAITS_FOR_TRAINING``;
+ROADMAP.md item 15b). Typing helpers and imported modules are not names of
+the API and are left out on both sides.
 """
 import types
 import typing
@@ -22,7 +26,23 @@ import repro.core.step_rule
 import repro.core.vertex
 import repro.distributed
 import repro.sparse.ops
+import repro.configs
+import repro.models
+import repro.models.attention
+import repro.models.layers
+import repro.models.model
+import repro.models.moe
+import repro.models.ssm
+import repro.training
 
+import repro_torch.configs
+import repro_torch.models
+import repro_torch.models.attention
+import repro_torch.models.layers
+import repro_torch.models.model
+import repro_torch.models.moe
+import repro_torch.models.ssm
+import repro_torch.training
 import repro_torch.core
 import repro_torch.core.engine
 import repro_torch.core.fw_elasticnet
@@ -48,6 +68,20 @@ NO_PORT = {
         "batched_solver_cache_size": "the reference caches its jitted batched solvers; the port "
                                      "compiles none",
         "clear_batched_solver_cache": "the same cache",
+    },
+}
+
+# name -> what it waits for: the LM training slice (ROADMAP.md item 15b)
+WAITS_FOR_TRAINING = {
+    "repro.models": {
+        "sharding": "the logical-axis rules of a JAX mesh; on one card its constraints are "
+                    "no-ops",
+    },
+    "repro.models.model": {"loss_fn": "the training objective"},
+    "repro.training": {
+        "optimizers": "AdamW and Adafactor",
+        "init_train_state": "parameters and optimizer state",
+        "make_train_step": "the train step",
     },
 }
 
@@ -98,6 +132,36 @@ def test_module_names_carry_across(ref, port):
     assert not missing, f"{port.__name__} lacks {sorted(missing)}"
     for name in recorded:
         assert not hasattr(port, name), f"{name} is recorded as having no port but exists"
+
+
+@pytest.mark.parametrize("ref,port", [
+    (repro.models, repro_torch.models),
+    (repro.training, repro_torch.training),
+])
+def test_lm_all_lists_carry_across(ref, port):
+    waits = WAITS_FOR_TRAINING.get(ref.__name__, {})
+    missing = set(ref.__all__) - set(port.__all__) - set(waits)
+    assert not missing, f"{port.__name__}.__all__ lacks {sorted(missing)}"
+    for name in port.__all__:
+        assert hasattr(port, name), name
+    for name in waits:
+        assert not hasattr(port, name), f"{name} is recorded as waiting but exists"
+
+
+@pytest.mark.parametrize("ref,port", [
+    (repro.configs, repro_torch.configs),
+    (repro.models.model, repro_torch.models.model),
+    (repro.models.attention, repro_torch.models.attention),
+    (repro.models.layers, repro_torch.models.layers),
+    (repro.models.ssm, repro_torch.models.ssm),
+    (repro.models.moe, repro_torch.models.moe),
+])
+def test_lm_module_names_carry_across(ref, port):
+    waits = WAITS_FOR_TRAINING.get(ref.__name__, {})
+    missing = _public(ref) - _public(port) - set(waits)
+    assert not missing, f"{port.__name__} lacks {sorted(missing)}"
+    for name in waits:
+        assert not hasattr(port, name), f"{name} is recorded as waiting but exists"
 
 
 def test_aliases_are_their_kernels_counterparts():
