@@ -108,8 +108,8 @@ through phases 2-5; any failed check raises and the script exits non-zero:
      to cover beta: its set bits printed beside the nonzeros); the logistic
      oracle
      (labels sign(y) + (y == 0), max_iters 2000, tol 1e-4) over a 10-point
-     grid, all 10 points sequential and in lanes of 4 on the sparse layout,
-     the first 3 on the dense one; each path's launches, l1 <= delta and
+     grid, its first 2 points sequential and in one chunk of 2 lanes on the
+     sparse layout, the first 3 on the dense one; each path's launches, l1 <= delta and
      its densest point's certified gap with the oracle's own gradient;
    - the baselines (dense path): constrained FISTA (500 iterations, tol
      1e-3) at the main path's densest delta, whose FW objective minus
@@ -274,10 +274,26 @@ the card against the CPU (``[serve-cpu]``, bf16 within
 launcher at deepseek-7b's full config and the serving example join the
 last turn of entry points.
 
-About 13 minutes on an H100, the builds included, and up to 20 on a
-slow host (aim: 600 s, limit 1200 s); the baselines' phases print their
-seconds and take about 110, the plain warm sweep 60 of them. ``--kernels-only`` stops
-each path after its phase 2 (and prints no JSON lines).
+LM training (``repro_torch.training``, ``runtime``, ``data.lm_pipeline``;
+no kernel of its own, the products are cuBLAS's): deepseek-7b at its
+published widths in its recipe (bf16, AdamW with the f32 master, remat),
+cut to ``TRAIN_DEPTH`` layers, and mamba2-130m whole, each at the
+reference's train_4k shape (16 x 4,096 tokens in its microbatches): 3
+steps on one batch, finite and falling losses, the step's seconds,
+tokens/s, model FLOPs and their share of 989 TFLOP/s, the peak memory and,
+under the profiler, launches and the busy share a step (``[train-time]``);
+the ten reduced configs in f32 and bf16, a 2-microbatch step on the card
+against the CPU within ``TRAIN_CPU_LIMITS`` (``[train-cpu]``); a child with
+deterministic kernels that crashes mamba2-130m's training at step 4 and
+resumes it, bit for bit the uninterrupted run (``[train-resume]``); the
+train launcher, the training, feature-selection (its K1, K2, argmax and
+tail launches) and compressed data-parallel examples join the last turn.
+
+About 15 minutes on an H100, the builds included, and up to 19 on a
+slow host (aim: 900 s, limit 1200 s); the training phases take about
+150 s of it, the baselines' about 110 (the plain warm sweep 60 of them).
+``--kernels-only`` stops each path after its phase 2 (and prints no JSON
+lines).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -290,6 +306,7 @@ import dataclasses
 import inspect
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -440,6 +457,8 @@ def _time_phases():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="phases 1-2 only")
+    ap.add_argument("--train-resume-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--train-child", nargs=2, metavar=("ARCH", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -451,6 +470,12 @@ def main(argv=None):
         print("chip_smoke: run from a checkout that holds src/repro_torch", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.train_resume_child:
+        train_resume_child(args.train_resume_child)
+        return 0
+    if args.train_child:
+        train_child(*args.train_child)
+        return 0
 
     t_start = time.perf_counter()
     _time_phases()
@@ -473,7 +498,13 @@ def main(argv=None):
     phase3_mesh_ranks(torch)
     phase_serve(torch)
     phase_serve_card_vs_cpu(torch)
-    phase_entry_points(torch)
+    phase_train(torch)
+    phase_train_card_vs_cpu(torch)
+    resume = train_resume_start()
+    try:
+        phase_entry_points(torch)
+    finally:
+        phase_train_resume(torch, resume)
 
     records = []
     for name, info in KERNELS.items():
@@ -493,6 +524,9 @@ def main(argv=None):
     print(f"[mesh] the mesh phases: {', '.join(f'{k} {v:.1f} s' for k, v in MESH_SECONDS.items())}"
           f"; {mesh_total:.1f} s together")
     print(f"[serve] the serving runs: {', '.join(f'{k} {v:.1f} s' for k, v in SERVE_SECONDS.items())}")
+    print(f"[train] the training phases: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in TRAIN_SECONDS.items())}; "
+          f"{sum(TRAIN_SECONDS.values()):.1f} s together")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
@@ -3502,8 +3536,7 @@ def history_check(torch, dev):
 # the reference's family section (benchmarks/table5_fw.py:174-230):
 # ENOracle(l2=1.0) and the logistic labels sign(y) + (y == 0) on the same
 # data, kappa = 1% of p, the lasso path's delta_max; the logistic solves
-# with max_iters 2000 and tol 1e-4, and its sparse path runs max(4, 40 // 4)
-# = 10 points, sequential and in lanes of 4
+# with max_iters 2000 and tol 1e-4 (LOG_POINTS_SPARSE, LOG_LANES below)
 EN_L2 = 1.0
 EN_UNFUSED = 3  # the EN path's first points, also one step per dispatch
 # the EN paths run the lasso grid's first EN_POINTS points, cut from all
@@ -3515,8 +3548,10 @@ LEDGER_K = 72  # phase 2's long EN chunk, a ledger of 72 slots
 LOG_MAX_ITERS, LOG_TOL = 2000, 1e-4
 # the logistic grid has 10 points; the sparse path runs its first
 # LOG_POINTS_SPARSE (one chunk of LOG_LANES lanes), the dense its first
-# LOG_POINTS_DENSE: cut from all 10 sparse to keep the script in its time
-LOG_POINTS, LOG_LANES, LOG_POINTS_DENSE, LOG_POINTS_SPARSE = 10, 4, 3, 4
+# LOG_POINTS_DENSE: cut from all 10 sparse (to 2: a third point's 2,000
+# steps take ~10 s on an H100, and ~13 s more in lanes) to keep the script
+# in its time
+LOG_POINTS, LOG_LANES, LOG_POINTS_DENSE, LOG_POINTS_SPARSE = 10, 2, 3, 2
 N_EXT_COMPARE = 2  # points of each extension path held against the plain route
 EN_KERNELS = ("vertex_argmax_shifted", "vertex_argmax_shifted_lanes", "step_tail_en",
               "step_tail_en_lanes", "dense_fused_chunk_en", "sparse_fused_chunk_en")
@@ -4107,9 +4142,9 @@ def phase3_en_paths(torch, design, y, coef, layout):
 def phase3_logistic_paths(torch, design, y, coef, layout):
     """The logistic path (labels sign(y) + (y == 0), max_iters 2000, tol
     1e-4) at full width over a 10-point grid to the lasso's delta_max: on
-    the sparse layout all 10 points, sequential and in lanes of 4 (the
-    reference family's batched logistic path); on the dense one its first
-    3. Per step the scores (K2 or K5) and the lasso's argmax on the card,
+    the sparse layout its first LOG_POINTS_SPARSE, sequential and in one
+    chunk of LOG_LANES lanes (the reference family's batched logistic path);
+    on the dense one its first LOG_POINTS_DENSE. Per step the scores (K2 or K5) and the lasso's argmax on the card,
     the bisection tail in plain PyTorch (no tail kernel, no column
     statistics)."""
     from repro_torch.core import LOGISTIC, delta_grid
@@ -5760,7 +5795,9 @@ def _rule_routes(torch, tag, design, y, delta, cfg_a, cfg_b, oracle):
               f"{tag}: objectives differ by more than either run's certified gap {gaps}")
 
 
-RULE_ROUTE_STEPS = 100  # phase 4's rule points: their first 100 steps, on both routes
+# phase 4's rule points: their first 50 steps, on both routes (cut from 100
+# for the script's time)
+RULE_ROUTE_STEPS = 50
 
 
 def phase4_rule_routes(torch, design, y, coef, layout):
@@ -5993,7 +6030,7 @@ def phase5_rule_timing(torch, design, y, layout):
              ("away", LOGISTIC, yl, None)]
     for rule, oracle, yy, sts in cases:
         scfg = dataclasses.replace(cfg, step_rule=rule)
-        n = 30 if oracle is LOGISTIC else 100  # cut from 60 and 200 for the script's time
+        n = 20 if oracle is LOGISTIC else 50  # cut from 60 and 200 for the script's time
         wall, busy, top, n_launch, split = _rule_step_ms(torch, oracle, design, yy, sts, scfg,
                                                          delta, n)
         name = type(oracle).__name__.replace("Oracle", "").lower()
@@ -6026,10 +6063,11 @@ CD_SWEEPS, BASELINE_TOL, FISTA_ITERS = 200, 1e-3, 500
 CD_BIT_POINTS, CD_PLAIN_ROWS = 3, 2_000
 # CD at the paper's dense width: the first points of lambda_grid(n_points=100)
 # while the CD points' seconds stay under the budget (at least 3, at most
-# 10, as on Pyrim), FISTA and FW on the same points; the walker against H on
-# the design's first rows (Pyrim's p). FISTA's time there (300 iterations a
-# point, ~11 ms an iteration: ~3.3 s a point) sets the phase's ~40 s
-CD_4M_BUDGET_S, CD_4M_MIN_POINTS, CD_4M_MAX_POINTS, CD_4M_SLICE = 15.0, 3, 10, 201_376
+# 4, cut from 10 for the script's time), FISTA and FW on the same
+# points; the walker against H on the design's first rows (Pyrim's p).
+# FISTA's time there (300 iterations a point, ~11 ms an iteration: ~3.3 s a
+# point) sets the phase's time
+CD_4M_BUDGET_S, CD_4M_MIN_POINTS, CD_4M_MAX_POINTS, CD_4M_SLICE = 15.0, 3, 4, 201_376
 # FISTA there runs a fixed number of iterations (tol 0): at this width its
 # step 1/L is so small that the table's tol 1e-3 on ||alpha_{t+1} -
 # alpha_t||_inf stops it after one iteration, at alpha ~ 0, and 100
@@ -9155,6 +9193,383 @@ def phase_serve_card_vs_cpu(torch):
     check(not failures, "serving, card against CPU: " + "; ".join(failures))
 
 
+# --------------------------------------------------------------------------
+# LM training (the port's models, training, runtime and data packages; no
+# kernel of their own: the products are cuBLAS's through torch.matmul)
+# --------------------------------------------------------------------------
+
+# the reference's train_4k shape (launch/cells.py): sequence 4,096, one data
+# shard's 16 rows of the global 256, in its TRAIN_MICROBATCHES microbatches
+TRAIN_SEQ, TRAIN_BATCH = 4096, 16
+TRAIN_MICROBATCHES = {"deepseek_7b": 8, "mamba2_130m": 1}
+# architecture -> the layers it trains on the card (None: its full config).
+# deepseek-7b's 30 layers need ~138 GB of AdamW state (bf16 weights and
+# grads, f32 m, v, master and accumulator): the deepest whole count whose
+# measured peak leaves 10% of the card free (PERF.md §4,
+# scripts/torch_train_depth_probe.py)
+TRAIN_DEPTH = {"deepseek_7b": 9, "mamba2_130m": None}
+# the rate reached at step 1 (warmup 1): the reference's base lr for
+# mamba2-130m; deepseek-7b overshoots it (AdamW's first step moves every
+# weight by the rate: its loss 13.59 -> 47.88 at 3e-4), so the rate of
+# scripts/torch_train_depth_probe.py's scan (1e-6, 1e-5, 3e-5, 1e-4 at 9
+# layers) whose third loss is lowest (PERF.md §6)
+TRAIN_LR = {"deepseek_7b": 1e-5, "mamba2_130m": 3e-4}
+TRAIN_TIMEOUT_S = 300
+TRAIN_STEPS = 3  # on one batch: the loss falls (tests/test_archs.py's criterion)
+TRAIN_FREE_SHARE = 0.10  # of the card's memory the peak must leave free
+# the card against the CPU at the reduced configs, one make_train_step(
+# microbatches=2) step from the same weights and batch (the default
+# schedule: lr 3e-6 at step 1): loss and grad_norm as a relative gap,
+# the updated parameters as max |diff| over max(1, max |p|); each limit
+# read from the runs on an H100 (PERF.md §6)
+TRAIN_CPU_LIMITS = {  # about 3-10x the largest gap read over the ten (PERF.md §6)
+    "float32": {"loss": 1e-6, "grad_norm": 1e-5, "params": 1e-5},
+    "bfloat16": {"loss": 1e-3, "grad_norm": 1e-2, "params": 1e-4},
+}
+RESUME_ARCH, RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = (
+    "mamba2_130m", 4, 512, 6, 3, 4)
+RESUME_TIMEOUT_S = 300
+TRAIN_SECONDS = {}
+
+
+def _train_cfg(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if TRAIN_DEPTH[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH[arch])
+    return cfg
+
+
+def _train_flops(model, cfg, tokens, rows, seq):
+    """(model FLOPs of a step, remat's extra forward): 6 FLOPs a weight a
+    token for every matmul weight (the blocks and the head; a tied head is
+    the embedding table read as one), plus the attention's two S x S
+    products a layer (the full square, as the port computes it; forward
+    and twice that backward); remat runs each block's forward again."""
+    params = dict(model.named_parameters())
+    blocks = sum(p.numel() for n, p in params.items() if n.startswith(("layers.", "prefix_")))
+    head = model.embed.tok.numel() if cfg.tie_embeddings else model.lm_head.w.numel()
+    other = sum(p.numel() for n, p in params.items()
+                if not n.startswith(("layers.", "prefix_", "embed.", "lm_head.")))
+    attn_fwd = 0
+    if cfg.family != "ssm":
+        attn_fwd = cfg.n_layers * 2 * 2 * rows * seq * seq * cfg.q_dim
+    model_flops = 6 * (blocks + head + other) * tokens + 3 * attn_fwd
+    return model_flops, 2 * blocks * tokens + attn_fwd
+
+
+def _profile_train_step(torch, fn):
+    """Device busy share and kernel launches of one train step
+    (``torch.profiler``); None where the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us <= 0:
+        return None
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+                    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:5])
+    return dict(busy_s=busy_us / 1e6, wall_s=wall, launches=sum(e.count for e in rows), top=top)
+
+
+def _train_run(torch, arch):
+    """TRAIN_STEPS steps of ``arch`` (``_train_cfg``) on one batch at
+    TRAIN_LR[arch], the last under the profiler: the losses, each step's
+    seconds, the profile, the FLOPs and the peak memory."""
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.training import init_train_state, make_train_step
+
+    set_matmul_precision()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = _train_cfg(arch)
+    params, state = init_train_state(0, cfg, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(
+        cfg, 0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0).items()}
+    step = make_train_step(cfg, microbatches=TRAIN_MICROBATCHES[arch], base_lr=TRAIN_LR[arch],
+                           warmup=1)
+    losses, secs, res = [], [], {}
+
+    def one():  # a step's wall: the profiler's reading of its events is not in it
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        res["out"] = step(params, state, batch)
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - ts
+
+    prof = None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            prof = _profile_train_step(torch, one)
+        else:
+            one()
+        _, _, metrics = res["out"]
+        losses.append(float(metrics["loss"]))
+        secs.append(res["wall"])
+    flops, remat = _train_flops(params, cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ)
+    out = dict(arch=arch, n_layers=cfg.n_layers, optimizer=cfg.optimizer, remat=cfg.remat,
+               params=sum(p.numel() for p in params.parameters()), losses=losses, secs=secs,
+               grad_norm=float(metrics["grad_norm"]), prof=prof, flops=flops, remat_flops=remat,
+               peak=torch.cuda.max_memory_allocated(),
+               total=torch.cuda.get_device_properties(0).total_memory)
+    del params, state, batch, step, res, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_child(arch, work):
+    """``_train_run`` in a child process (``--train-child ARCH DIR``), its
+    numbers in DIR/train_ARCH.json: a fresh CUDA context and allocator, as
+    ``scripts/torch_train_depth_probe.py`` measured TRAIN_DEPTH in."""
+    import torch
+
+    Path(work, f"train_{arch}.json").write_text(json.dumps(_train_run(torch, arch)))
+
+
+def phase_train(torch):
+    """LM training at published widths on the card: deepseek-7b (its
+    recipe: bf16, AdamW with the f32 master, remat) cut to TRAIN_DEPTH
+    layers, and mamba2-130m whole, each at the reference's train_4k shape
+    (16 rows of 4,096 tokens in TRAIN_MICROBATCHES microbatches), a cut
+    model in a child process (``train_child``, the allocator's state the
+    depth was measured in), the whole one here. TRAIN_STEPS steps on one
+    batch at TRAIN_LR[arch], the last under the profiler (its launches and
+    the device's busy share): every loss finite and the last below the
+    first; the step's seconds (median of the steps after the first, the
+    profiled one among them), tokens/s, the model FLOPs and their share of
+    989 TFLOP/s, and the peak memory, which must leave TRAIN_FREE_SHARE of
+    the card free."""
+    import os
+    import tempfile
+
+    failures, out = [], {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch in ("deepseek_7b", "mamba2_130m"):
+        t0 = time.perf_counter()
+        if TRAIN_DEPTH[arch] is None:  # the whole model, with room to spare: in this process
+            r = _train_run(torch, arch)
+        else:
+            with tempfile.TemporaryDirectory() as work:
+                proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--train-child", arch, work], env=env,
+                                      capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S)
+                check(proc.returncode == 0, f"train child {arch}: exit {proc.returncode}\n"
+                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+                r = json.loads(Path(work, f"train_{arch}.json").read_text())
+        TRAIN_SECONDS[arch] = time.perf_counter() - t0
+        losses, secs, prof, peak, total = r["losses"], r["secs"], r["prof"], r["peak"], r["total"]
+        step_s = statistics.median(secs[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        label = (f"{arch} bf16 ({r['n_layers']} layers"
+                 f"{', depth cut' if TRAIN_DEPTH[arch] is not None else ''})")
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"{label}: non-finite losses {losses}")
+        elif not losses[-1] < losses[0]:
+            failures.append(f"{label}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        if peak > (1 - TRAIN_FREE_SHARE) * total:
+            failures.append(f"{label}: peak {peak / 1e9:.2f} GB leaves under "
+                            f"{TRAIN_FREE_SHARE:.0%} of {total / 1e9:.2f} GB free")
+        print(f"[train] {label}: {r['params']:,} parameters, {r['optimizer']}, remat "
+              f"{r['remat']}; {TRAIN_STEPS} steps on one batch of {TRAIN_BATCH}x{TRAIN_SEQ} in "
+              f"{TRAIN_MICROBATCHES[arch]} microbatches at lr {TRAIN_LR[arch]} (warmup 1): "
+              f"losses {[round(x, 6) for x in losses]}, grad_norm {r['grad_norm']:.6g}")
+        print(f"[train-time] {label}: card {card_line()}; step {step_s:.6f} s (median of the "
+              f"{len(secs) - 1} steps after the first, the last profiled; all "
+              f"{[round(x, 4) for x in secs]}), "
+              f"{tokens / step_s:,.1f} tokens/s; model FLOPs a step {r['flops']:.4e} (6 x "
+              f"weights x tokens + attention), "
+              f"{r['flops'] / step_s / BF16_FLOPS_PER_S * 100:.2f}% of 989 TFLOP/s; remat's "
+              f"extra forward {r['remat_flops']:.4e} FLOPs apart; peak device memory "
+              f"{peak / 1e9:.3f} GB of {total / 1e9:.2f} GB ({peak / total * 100:.1f}%); "
+              f"{TRAIN_SECONDS[arch]:.1f} s")
+        if prof is None:
+            print(f"[train-time] {label}: device busy share not measured (the profiler "
+                  "reported no device time)")
+        else:
+            print(f"[train-time] {label}: profiled step {TRAIN_STEPS}: wall {prof['wall_s']:.4f} s, device "
+                  f"busy {prof['busy_s']:.4f} s ({prof['busy_s'] / prof['wall_s'] * 100:.1f}% "
+                  f"of the profiled wall), {prof['launches']:,} kernels and copies a step; "
+                  f"top: {prof['top']}")
+        out[arch] = dict(losses=losses, step_s=step_s, peak=peak, flops=r["flops"], prof=prof)
+    check(not failures, "training: " + "; ".join(failures))
+    return out
+
+
+def phase_train_card_vs_cpu(torch):
+    """The ten architectures at ``reduced(ssm_chunk=8)`` in f32 and bf16 with
+    TF32 off: one ``make_train_step(microbatches=2)`` step (its default
+    schedule) on the card against the port on the CPU from the same weights
+    and batch (4 rows of 32): loss and grad_norm as a relative gap, the
+    updated parameters as max |diff| over max(1, max |p|), each within
+    TRAIN_CPU_LIMITS[dtype]."""
+    import copy
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training import optimizers as opt
+
+    set_matmul_precision()
+    t0 = time.perf_counter()
+    worst, failures = {}, []
+    for dtype in ("float32", "bfloat16"):
+        for arch in ARCH_IDS:
+            cfg = get_config(arch).reduced(ssm_chunk=8, dtype=dtype)
+            cpu, _ = init_train_state(0, cfg, "cpu")
+            card = copy.deepcopy(cpu).to("cuda")
+            batch = {k: torch.from_numpy(v)
+                     for k, v in batch_at_step(cfg, 0, batch=4, seq_len=32).items()}
+            step = make_train_step(cfg, microbatches=2)
+            res = {}
+            for dev, model in (("cpu", cpu), ("cuda", card)):
+                state = opt.init_optimizer(cfg.optimizer, model)
+                model, state, metrics = step(model, state, {k: v.to(dev) for k, v in batch.items()})
+                res[dev] = ({n: p.detach().float().cpu() for n, p in model.named_parameters()},
+                            {k: float(metrics[k]) for k in ("loss", "grad_norm")})
+            gaps = {k: abs(res["cuda"][1][k] - res["cpu"][1][k]) / abs(res["cpu"][1][k])
+                    for k in ("loss", "grad_norm")}
+            gaps["params"] = max(float((res["cuda"][0][n] - w).abs().max())
+                                 / max(1.0, float(w.abs().max()))
+                                 for n, w in res["cpu"][0].items())
+            finite = all(math.isfinite(res["cuda"][1][k]) for k in ("loss", "grad_norm"))
+            worst[(arch, dtype)] = gaps
+            for k, limit in TRAIN_CPU_LIMITS[dtype].items():
+                if not finite or not gaps[k] <= limit:
+                    failures.append(f"{arch} {dtype} {k}: {gaps[k]:.3g} past {limit}")
+            del cpu, card, res
+    for dtype in ("float32", "bfloat16"):
+        print(f"[train-cpu] reduced {dtype}, one step with 2 microbatches, the card against the "
+              f"CPU (loss gap, grad_norm gap, params max |diff| over scale; limits "
+              f"{TRAIN_CPU_LIMITS[dtype]}): "
+              + ", ".join(f"{a} {g['loss']:.3g}/{g['grad_norm']:.3g}/{g['params']:.3g}"
+                          for (a, d), g in worst.items() if d == dtype))
+    TRAIN_SECONDS["card vs cpu"] = time.perf_counter() - t0
+    check(not failures, "training, card against CPU: " + "; ".join(failures))
+
+
+def train_resume_child(work):
+    """The resume check's child (``--train-resume-child DIR``): deterministic
+    kernels on (its parent set CUBLAS_WORKSPACE_CONFIG before CUDA
+    started); RESUME_ARCH whole trained RESUME_STEPS steps straight, and
+    again crashed at step RESUME_CRASH and resumed from its step
+    RESUME_EVERY checkpoint; its result in DIR/resume.json."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    torch.use_deterministic_algorithms(True)
+    set_matmul_precision()
+    cfg = get_config(RESUME_ARCH)
+
+    def data_fn(step):
+        return batch_at_step(cfg, step, batch=RESUME_BATCH, seq_len=RESUME_SEQ, seed=0)
+
+    def trainer(d):
+        return Trainer(cfg, TrainerConfig(total_steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+                                          checkpoint_dir=str(Path(work) / d), keep_checkpoints=1),
+                       data_fn, device="cuda")
+
+    t0 = time.perf_counter()
+    a = trainer("straight")
+    pa, oa, _ = a.run()
+    t_straight = time.perf_counter() - t0
+    b = trainer("crashed")
+    try:
+        b.run(crash_at=RESUME_CRASH)
+        raise CheckFailed("the crashed run did not crash")
+    except RuntimeError as err:
+        if "simulated crash" not in str(err):
+            raise
+    c = trainer("crashed")
+    pc, oc, step = c.run()
+    same = all(torch.equal(x, y) for x, y in zip(pa.parameters(), pc.parameters()))
+    same_opt = int(oa.step) == int(oc.step) and all(
+        torch.equal(x, y) for path in oa.inner for x, y in zip(oa.inner[path], oc.inner[path]))
+    differ = [n for (n, x), (_, y) in zip(pa.named_parameters(), pc.named_parameters())
+              if not torch.equal(x, y)]
+    out = dict(params_bits=same, opt_bits=same_opt, step=step, differ=differ[:5],
+               history=a.history, resumed=c.history, crashed=b.history,
+               straight_s=t_straight, total_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in pa.parameters()))
+    Path(work, "resume.json").write_text(json.dumps(out))
+
+
+def train_resume_start():
+    """Start the resume check's child (``--train-resume-child``) in the
+    background, its checkpoints (~2 GB each, the bits under test, not the
+    disk) in memory where the host has a tmpfs; it runs beside the entry
+    points' last turn, which times no gate. Returns (process, directory,
+    start time)."""
+    import os
+    import tempfile
+
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK) else None
+    d = tempfile.mkdtemp(prefix="repro_resume_", dir=shm)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    log = open(Path(d, "child.log"), "w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--train-resume-child",
+                             d], env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return proc, d, time.perf_counter(), log
+
+
+def phase_train_resume(torch, started):
+    """Crash-equivalent resume on the card: the child (deterministic
+    kernels, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, ``train_resume_start``)
+    trains RESUME_ARCH whole at RESUME_BATCH x RESUME_SEQ for RESUME_STEPS
+    steps with a checkpoint every RESUME_EVERY, crashes at step
+    RESUME_CRASH and resumes; its final parameters and optimizer state must
+    equal the uninterrupted run's bit for bit. A failure in the child (an
+    op without a deterministic CUDA form raises there, naming itself)
+    fails the phase with its text."""
+    import os
+    import shutil
+    import signal
+
+    proc, work, t0, log = started
+    try:
+        try:
+            proc.wait(timeout=max(1.0, RESUME_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise CheckFailed(f"train resume child: past {RESUME_TIMEOUT_S} s")
+        log.seek(0)
+        text = log.read()
+        check(proc.returncode == 0, f"train resume child: exit {proc.returncode}\n{text[-5000:]}")
+        out = json.loads(Path(work, "resume.json").read_text())
+    finally:
+        log.close()
+        shutil.rmtree(work, ignore_errors=True)
+    check(out["params_bits"] and out["opt_bits"] and out["step"] == RESUME_STEPS,
+          f"train resume: the resumed run differs from the straight one (parameters "
+          f"{out['params_bits']}, optimizer state {out['opt_bits']}, step {out['step']}; "
+          f"first differing {out['differ']})")
+    TRAIN_SECONDS["resume"] = time.perf_counter() - t0
+    print(f"[train-resume] {RESUME_ARCH} whole ({out['params']:,} parameters), "
+          f"{RESUME_BATCH}x{RESUME_SEQ}, {RESUME_STEPS} steps, a checkpoint every {RESUME_EVERY}, "
+          f"deterministic kernels: crashed at step {RESUME_CRASH} and resumed, the final "
+          f"parameters and optimizer state bit for bit the straight run's; losses "
+          f"{[round(x, 6) for x in out['history']]} (resumed {[round(x, 6) for x in out['resumed']]}); "
+          f"the straight run {out['straight_s']:.1f} s, the child {out['total_s']:.1f} s, "
+          f"{TRAIN_SECONDS['resume']:.1f} s from its start (beside the entry points' last turn)")
+
+
 # the port's examples and CI scripts, each run as a child process at its
 # reference size (the dense example on the kernels' backend, its paper-size
 # sparse run batched; the solver family at a fifth of its 10,000 steps a
@@ -9163,13 +9578,18 @@ def phase_serve_card_vs_cpu(torch):
 # turn's ~120 on an H100): the
 # telemetry smoke first and alone, right after the build (its gates time a
 # host-bound hot loop), then at the end the headline example alone and
-# eight together, the serve launcher and the serving example among them
+# twelve together, the serve and train launchers and the serving, training,
+# feature-selection and compressed data-parallel examples among them
 # (none times a gate; their own seconds then share the card and the host);
 # the outputs' directory is the call's own
 # the serve launcher at deepseek-7b's full config (``python -m
 # repro_torch.launch.serve``, as a script path)
 SERVE_ENTRY = ("src/repro_torch/launch/serve.py",
                ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "128", "--tokens", "32"])
+# the train launcher at mamba2-130m's full config (``python -m
+# repro_torch.launch.train``, as a script path)
+TRAIN_ENTRY = ("src/repro_torch/launch/train.py",
+               ["--arch", "mamba2_130m", "--steps", "5", "--ckpt-dir", "{out}/train"])
 ENTRY_GATES = (  # run first, on a host no other phase has loaded yet
     (("scripts/torch_telemetry_smoke.py", ["--out-dir", "{out}/telemetry"]),),
 )
@@ -9182,13 +9602,15 @@ ENTRY_RUNS = (
      ("scripts/torch_solver_report.py", ["--out-dir", "{out}/report", "--distributed"]),
      ("scripts/torch_chaos_smoke.py", ["--out", "{out}/chaos_metrics.json"]),
      ("scripts/torch_profile_capture.py", ["--out", "{out}/profile"]),
-     SERVE_ENTRY, ("examples/torch_serve_lm.py", [])),
+     SERVE_ENTRY, ("examples/torch_serve_lm.py", []), TRAIN_ENTRY,
+     ("examples/torch_train_lm.py", ["--ckpt-dir", "{out}/train_lm"]),
+     ("examples/torch_fw_feature_selection.py", []), ("examples/torch_compressed_dp.py", [])),
 )
 ENTRY_TIMEOUT_S = 300
 ENTRY_SECONDS = {}  # each entry point's seconds, for the summary
 ENTRY_KEYS = ("PATH DONE", "total iters", "card:", "overhead", "PASS", "FAIL", "obj=",
               "chaos smoke", "profile_capture", "# wrote", "grid points", "advantage", "densest",
-              "[serve]")
+              "[serve]", "[train]", "[train_lm]", "[probe]", "[compressed_dp]")
 
 
 def phase_entry_points(torch, runs=ENTRY_RUNS):

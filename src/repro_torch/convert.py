@@ -28,6 +28,7 @@ from repro_torch.models import model as lm_model
 from repro_torch.models import moe as lm_moe
 from repro_torch.models import ssm as lm_ssm
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.training import optimizers as opt_lib
 from repro_torch.sparse.matrix import SparseBlockMatrix
 
 # the reference's backend words and their counterparts in the port
@@ -277,3 +278,43 @@ def lm_cache_from_reference(cache: dict, device="cuda") -> dict:
     an encoder's 'memory', each with its dtype and layout."""
     dev = resolve_device(device)
     return {k: _lm_tensor(v, dev) for k, v in cache.items()}
+
+
+def opt_state_from_reference(opt_state, params, device="cuda"):
+    """The port's ``training.optimizers.OptState`` from the reference's
+    (``jax.tree.map(np.asarray, opt_state)``: its ``step`` and its ``inner``
+    tree of ``AdamLeaf`` or ``FactorLeaf`` tuples, matched by their field
+    names), for ``params`` (the port's model, for instance
+    ``lm_params_from_reference``'s). The layouts are the same: a leaf of
+    the port's state is the reference's, keyed by its ``/``-joined path,
+    a layer stack's leaves stacked on their leading axis."""
+    dev = resolve_device(device)
+    step = getattr(opt_state, "step", None)
+    inner = getattr(opt_state, "inner", None)
+    if step is None or inner is None:
+        step, inner = opt_state["step"], opt_state["inner"]
+    kinds = {("m", "v", "master"): opt_lib.AdamLeaf,
+             ("v_row", "v_col", "v_full"): opt_lib.FactorLeaf}
+    leaves = {}
+
+    def walk(tree, prefix):
+        fields = getattr(tree, "_fields", None)
+        if fields is not None:
+            kind = kinds.get(tuple(fields))
+            if kind is None:
+                raise ValueError(f"an optimizer leaf with fields {fields} at {'/'.join(prefix)}")
+            leaves["/".join(prefix)] = kind(*(_lm_tensor(getattr(tree, f), dev) for f in fields))
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, prefix + (str(k),))
+        else:
+            raise ValueError(f"not an optimizer leaf at {'/'.join(prefix)}: {type(tree).__name__}")
+
+    walk(inner, ())
+    groups = opt_lib.leaf_groups(params)
+    if set(groups) != set(leaves):
+        raise ValueError(f"the state's leaves {sorted(set(leaves) ^ set(groups))} are not the "
+                         "model's")
+    return opt_lib.OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                              device=dev),
+                            inner={path: leaves[path] for path in groups})

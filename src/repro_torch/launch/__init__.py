@@ -1,1 +1,2 @@
-"""Launchers: ``serve`` (the training launchers come with the training slice)."""
+"""Launchers: ``serve`` and ``train`` (the reference's ``cells``, ``dryrun`` and
+``mesh`` are ROADMAP.md item 15c)."""

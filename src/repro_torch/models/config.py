@@ -76,9 +76,11 @@ class ModelConfig:
     act: str = "silu"
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation/param dtype
-    # remat, scan_layers and optimizer are the reference's JAX and training
-    # knobs: kept so that configs compare field for field, read by nothing on
-    # the port's serving path (its layers run as a Python loop, eagerly)
+    # training: remat recomputes each block in the backward
+    # (torch.utils.checkpoint, models/model.py) and optimizer picks the
+    # train step's update; scan_layers is the reference's lax.scan knob, kept
+    # so that configs compare field for field and read by nothing (the
+    # port's layers run as a Python loop, eagerly)
     remat: bool = True
     scan_layers: bool = True
     optimizer: str = "adamw"  # adamw | adafactor (framework default per arch)

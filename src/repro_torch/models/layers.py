@@ -65,9 +65,35 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MatmulF32.apply(x, w)
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's bf16 product with an f32 output, differentiable (``torch.mm``
+    with ``out_dtype`` has no derivative): the backward is the upcast
+    route's, the f32 cotangent times the upcast operands, each gradient cast
+    to its operand's dtype (the reference's dot transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ w.float().t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).float().t() @ g2).to(w.dtype)
+        return gx, gw
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,15 @@ Entry points:
   init_cache(cfg, batch, max_seq, dtype)    -> decode cache dict
   prefill(params, batch, cfg, max_seq)      -> (logits_last, cache)
   decode_step(params, tokens, cache, cfg)   -> (logits, cache)
+  loss_fn(params, batch, cfg)               -> (loss, metrics)
 
+With gradients on and ``cfg.remat``, each block runs under
+``torch.utils.checkpoint`` (non-reentrant): only the block's input is
+kept, and the backward recomputes the block, as the reference's
+``jax.checkpoint(..., nothing_saveable)`` does. The parameters carry no
+gradient by default (serving); ``training.init_train_state`` turns it on.
 The reference's sharding constraints are no-ops on one card and are left
-out; ``loss_fn`` comes with the training slice.
+out.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -245,13 +253,19 @@ def _scan_stack(
     causal: bool = True,
     memory: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    remat = cfg.remat and torch.is_grad_enabled()
     for block, is_local in zip(blocks, local_flags):
-        x = _apply_block(block, x, positions, bool(is_local), cfg, causal=causal, memory=memory)
+        if remat:
+            x = checkpoint(_apply_block, block, x, positions, bool(is_local), cfg, causal=causal,
+                           memory=memory, use_reentrant=False)
+        else:
+            x = _apply_block(block, x, positions, bool(is_local), cfg, causal=causal,
+                             memory=memory)
     return x
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forward / loss
 # ---------------------------------------------------------------------------
 
 
@@ -291,6 +305,20 @@ def forward(params: LM, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
     if prefix_len:
         x = x[:, prefix_len:]
     return lm_logits(params.lm_head, params.embed, x, cfg)
+
+
+def loss_fn(params: LM, batch: Dict, cfg: ModelConfig):
+    """Next-token cross entropy in f32. batch['tokens'] has S+1 positions."""
+    tokens = batch["tokens"]
+    inputs = dict(batch)
+    inputs["tokens"] = tokens[:, :-1]
+    labels = tokens[:, 1:].long()
+    # the logits are not kept: log_softmax's backward reads its output
+    logp = torch.log_softmax(forward(params, inputs, cfg), dim=-1)  # (B, S, V) f32
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = -torch.mean(ll)
+    metrics = {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

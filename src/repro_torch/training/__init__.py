@@ -1,6 +1,17 @@
-"""The serve and prefill step builders (the port of ``repro.training``'s
-serving half; the train step, ``init_train_state`` and the optimizers come
-with the training slice)."""
-from repro_torch.training.train_step import make_prefill_step, make_serve_step
+"""The train, serve and prefill steps and the optimizers (the port of
+``repro.training``)."""
+from repro_torch.training import optimizers
+from repro_torch.training.train_step import (
+    init_train_state,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = [
+    "optimizers",
+    "init_train_state",
+    "make_prefill_step",
+    "make_serve_step",
+    "make_train_step",
+]

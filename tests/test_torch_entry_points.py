@@ -49,6 +49,10 @@ FILES = {
     "split": REPO / "scripts" / "torch_telemetry_split.py",
     "serve_lm": REPO / "examples" / "torch_serve_lm.py",
     "serve": REPO / "src" / "repro_torch" / "launch" / "serve.py",
+    "train_lm": REPO / "examples" / "torch_train_lm.py",
+    "fw_probe": REPO / "examples" / "torch_fw_feature_selection.py",
+    "compressed_dp": REPO / "examples" / "torch_compressed_dp.py",
+    "train": REPO / "src" / "repro_torch" / "launch" / "train.py",
 }
 QS_P, QS_INF, QS_ITERS = 300, 10, 150
 
@@ -78,13 +82,16 @@ def test_imports_neither_jax_nor_the_reference(name):
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal is for a machine without a card")
 @pytest.mark.parametrize("name", ["quickstart", "fullpath", "family", "chaos", "profile",
-                                  "report", "serve_lm", "serve"])
+                                  "report", "serve_lm", "serve", "train_lm", "fw_probe",
+                                  "compressed_dp", "train"])
 def test_asks_for_the_card_by_default(name, tmp_path):
     """No silent CPU fallback: without ``--device`` each asks for the card."""
     argv = {"report": ["--out-dir", str(tmp_path), "--backends", "torch"],
             "chaos": ["--out", str(tmp_path / "c.json")],
             "profile": ["--out", str(tmp_path)],
-            "serve": ["--arch", "deepseek_7b", "--reduced"]}.get(name, [])
+            "serve": ["--arch", "deepseek_7b", "--reduced"],
+            "train": ["--arch", "deepseek_7b", "--reduced", "--ckpt-dir", str(tmp_path)],
+            "train_lm": ["--ckpt-dir", str(tmp_path)]}.get(name, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load(name).main(argv)
 
@@ -234,7 +241,8 @@ def test_profile_capture_on_cpu(tmp_path):
     assert (tmp_path / "chrome_trace.json").exists()
 
 
-@pytest.mark.parametrize("part", ["models", "configs", "training", "launch"])
+@pytest.mark.parametrize("part", ["models", "configs", "training", "launch", "runtime",
+                                  "compression", "parallel", "utils", "data"])
 def test_lm_packages_import_neither_jax_nor_the_reference(part):
     """The LM serving slice's packages, and ``chip_smoke.py`` that drives
     them on the card."""
@@ -336,3 +344,4 @@ def test_chip_smoke_planted_fault_runs_and_is_undone(fault):
     assert not torch.equal(planted, sound)
     assert all(a is b for a, b in zip(own(), originals))
     assert torch.equal(decode(), sound)
+

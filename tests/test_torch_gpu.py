@@ -2182,3 +2182,68 @@ def test_lm_two_decodes_are_bitwise_equal(dtype):
         runs.append((torch.cat(toks, 1), torch.cat(lgs, 1)))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_7b", "mamba2_130m", "internvl2_76b"])
+def test_lm_train_step_card_matches_the_cpu(arch):
+    """One ``make_train_step(microbatches=2)`` step (remat, the f32
+    accumulator, clip, AdamW or Adafactor) at ``reduced(ssm_chunk=8)`` in
+    f32 with TF32 off, on the card against the CPU from the same weights
+    and batch: loss and grad_norm at rtol 1e-4, the updated parameters at
+    rtol 1e-4 and atol 1e-5 of each tensor's scale (the default schedule's
+    first lr, 3e-7, keeps AdamW's sign-like first step on gradients near 0
+    within that atol)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training import optimizers as opt
+
+    set_matmul_precision()
+    cfg = get_config(arch).reduced(ssm_chunk=8)
+    cpu, _ = init_train_state(0, cfg, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = {k: torch.from_numpy(v) for k, v in batch_at_step(cfg, 0, batch=4, seq_len=32).items()}
+    step = make_train_step(cfg, microbatches=2)
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        state = opt.init_optimizer(cfg.optimizer, model)
+        model, state, metrics = step(model, state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({n: p.detach().cpu() for n, p in model.named_parameters()},
+                    {k: float(v) for k, v in metrics.items()})
+    for k in ("loss", "grad_norm"):
+        assert out["cuda"][1][k] == pytest.approx(out["cpu"][1][k], rel=1e-4)
+    for n, want in out["cpu"][0].items():
+        got = out["cuda"][0][n]
+        scale = max(1.0, float(want.abs().max()))
+        assert float(((got - want).abs() - 1e-4 * want.abs()).max()) <= 1e-5 * scale, n
+
+
+@pytest.mark.gpu
+def test_lm_loss_falls_over_three_steps_on_the_card():
+    """deepseek-7b reduced in bf16 (its recipe: AdamW with the f32 master,
+    remat) on the card: three steps on one batch at lr 5e-3, warmup 1,
+    finite and falling losses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.serve import set_matmul_precision
+    from repro_torch.training import init_train_state, make_train_step
+
+    set_matmul_precision()
+    cfg = get_config("deepseek_7b").reduced(dtype="bfloat16")
+    params, state = init_train_state(2, cfg, "cuda")
+    step = make_train_step(cfg, base_lr=5e-3, warmup=1)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_at_step(cfg, 2, batch=2, seq_len=64, seed=2).items()}
+    losses = []
+    for _ in range(3):
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], losses

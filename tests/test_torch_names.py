@@ -7,8 +7,10 @@ each found in its port module, less the names recorded as having no port
 port" records the same). The LM stack's: ``repro.models.__all__``,
 ``repro.training.__all__`` and the public names of ``repro.configs`` and
 ``repro.models``' ``model``, ``attention``, ``layers``, ``ssm`` and ``moe``,
-less the names that wait for the training slice (``WAITS_FOR_TRAINING``;
-ROADMAP.md item 15b). Typing helpers and imported modules are not names of
+and the training slice's: ``repro.training.optimizers``, ``repro.runtime``,
+``repro.compression``, ``repro.parallel``, ``repro.utils`` and
+``repro.data.lm_pipeline``, less the names that wait for the last LM slice
+(``WAITS_FOR_15C``; ROADMAP.md item 15c). Typing helpers and imported modules are not names of
 the API and are left out on both sides.
 """
 import types
@@ -34,8 +36,22 @@ import repro.models.model
 import repro.models.moe
 import repro.models.ssm
 import repro.training
+import repro.training.optimizers
+import repro.runtime
+import repro.compression
+import repro.compression.topk
+import repro.parallel
+import repro.utils
+import repro.data.lm_pipeline
 
 import repro_torch.configs
+import repro_torch.training.optimizers
+import repro_torch.runtime
+import repro_torch.compression
+import repro_torch.compression.topk
+import repro_torch.parallel
+import repro_torch.utils
+import repro_torch.data.lm_pipeline
 import repro_torch.models
 import repro_torch.models.attention
 import repro_torch.models.layers
@@ -71,17 +87,11 @@ NO_PORT = {
     },
 }
 
-# name -> what it waits for: the LM training slice (ROADMAP.md item 15b)
-WAITS_FOR_TRAINING = {
+# name -> what it waits for: the last LM slice (ROADMAP.md item 15c)
+WAITS_FOR_15C = {
     "repro.models": {
         "sharding": "the logical-axis rules of a JAX mesh; on one card its constraints are "
                     "no-ops",
-    },
-    "repro.models.model": {"loss_fn": "the training objective"},
-    "repro.training": {
-        "optimizers": "AdamW and Adafactor",
-        "init_train_state": "parameters and optimizer state",
-        "make_train_step": "the train step",
     },
 }
 
@@ -137,9 +147,13 @@ def test_module_names_carry_across(ref, port):
 @pytest.mark.parametrize("ref,port", [
     (repro.models, repro_torch.models),
     (repro.training, repro_torch.training),
+    (repro.runtime, repro_torch.runtime),
+    (repro.compression, repro_torch.compression),
+    (repro.parallel, repro_torch.parallel),
+    (repro.utils, repro_torch.utils),
 ])
 def test_lm_all_lists_carry_across(ref, port):
-    waits = WAITS_FOR_TRAINING.get(ref.__name__, {})
+    waits = WAITS_FOR_15C.get(ref.__name__, {})
     missing = set(ref.__all__) - set(port.__all__) - set(waits)
     assert not missing, f"{port.__name__}.__all__ lacks {sorted(missing)}"
     for name in port.__all__:
@@ -155,9 +169,12 @@ def test_lm_all_lists_carry_across(ref, port):
     (repro.models.layers, repro_torch.models.layers),
     (repro.models.ssm, repro_torch.models.ssm),
     (repro.models.moe, repro_torch.models.moe),
+    (repro.training.optimizers, repro_torch.training.optimizers),
+    (repro.compression.topk, repro_torch.compression.topk),
+    (repro.data.lm_pipeline, repro_torch.data.lm_pipeline),
 ])
 def test_lm_module_names_carry_across(ref, port):
-    waits = WAITS_FOR_TRAINING.get(ref.__name__, {})
+    waits = WAITS_FOR_15C.get(ref.__name__, {})
     missing = _public(ref) - _public(port) - set(waits)
     assert not missing, f"{port.__name__} lacks {sorted(missing)}"
     for name in waits:
