@@ -459,6 +459,8 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true", help="phases 1-2 only")
     ap.add_argument("--train-resume-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--train-child", nargs=2, metavar=("ARCH", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-lm-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -475,6 +477,12 @@ def main(argv=None):
         return 0
     if args.train_child:
         train_child(*args.train_child)
+        return 0
+    if args.mesh_lm_child:
+        mesh_lm_child(args.mesh_lm_child)
+        return 0
+    if args.dryrun_child:
+        dryrun_child(args.dryrun_child)
         return 0
 
     t_start = time.perf_counter()
@@ -496,15 +504,23 @@ def main(argv=None):
 
         tdist.destroy_process_group()
     phase3_mesh_ranks(torch)
-    phase_serve(torch)
+    serve_out = phase_serve(torch)
     phase_serve_card_vs_cpu(torch)
-    phase_train(torch)
+    train_out = phase_train(torch)
     phase_train_card_vs_cpu(torch)
-    resume = train_resume_start()
+    # the dry run's CPU work beside the mesh child and the entry points' last
+    # turn, which time no gate
+    dry = dryrun_start()
     try:
-        phase_entry_points(torch)
+        phase_mesh_lm(torch)
+        resume = train_resume_start()
+        try:
+            phase_entry_points(torch)
+        finally:
+            phase_train_resume(torch, resume)
+        phase_dryrun(dry, train_out, serve_out)
     finally:
-        phase_train_resume(torch, resume)
+        _child_stop(dry)
 
     records = []
     for name, info in KERNELS.items():
@@ -9400,7 +9416,8 @@ def phase_train(torch):
                   f"busy {prof['busy_s']:.4f} s ({prof['busy_s'] / prof['wall_s'] * 100:.1f}% "
                   f"of the profiled wall), {prof['launches']:,} kernels and copies a step; "
                   f"top: {prof['top']}")
-        out[arch] = dict(losses=losses, step_s=step_s, peak=peak, flops=r["flops"], prof=prof)
+        out[arch] = dict(losses=losses, step_s=step_s, peak=peak, flops=r["flops"], prof=prof,
+                         remat=r["remat_flops"])
     check(not failures, "training: " + "; ".join(failures))
     return out
 
@@ -9511,21 +9528,14 @@ def train_resume_child(work):
 
 def train_resume_start():
     """Start the resume check's child (``--train-resume-child``) in the
-    background, its checkpoints (~2 GB each, the bits under test, not the
-    disk) in memory where the host has a tmpfs; it runs beside the entry
-    points' last turn, which times no gate. Returns (process, directory,
-    start time)."""
+    background (``_child_start``), its checkpoints (~2 GB each, the bits
+    under test, not the disk) in memory where the host has a tmpfs; it runs
+    beside the entry points' last turn, which times no gate."""
     import os
-    import tempfile
 
     shm = "/dev/shm" if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK) else None
-    d = tempfile.mkdtemp(prefix="repro_resume_", dir=shm)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    log = open(Path(d, "child.log"), "w+")
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--train-resume-child",
-                             d], env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    return proc, d, time.perf_counter(), log
+    return _child_start("--train-resume-child", RESUME_TIMEOUT_S,
+                        {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, tmp_dir=shm)
 
 
 def phase_train_resume(torch, started):
@@ -9537,30 +9547,12 @@ def phase_train_resume(torch, started):
     equal the uninterrupted run's bit for bit. A failure in the child (an
     op without a deterministic CUDA form raises there, naming itself)
     fails the phase with its text."""
-    import os
-    import shutil
-    import signal
-
-    proc, work, t0, log = started
-    try:
-        try:
-            proc.wait(timeout=max(1.0, RESUME_TIMEOUT_S - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            raise CheckFailed(f"train resume child: past {RESUME_TIMEOUT_S} s")
-        log.seek(0)
-        text = log.read()
-        check(proc.returncode == 0, f"train resume child: exit {proc.returncode}\n{text[-5000:]}")
-        out = json.loads(Path(work, "resume.json").read_text())
-    finally:
-        log.close()
-        shutil.rmtree(work, ignore_errors=True)
+    out, _ = _child_result(started, "resume.json")
     check(out["params_bits"] and out["opt_bits"] and out["step"] == RESUME_STEPS,
           f"train resume: the resumed run differs from the straight one (parameters "
           f"{out['params_bits']}, optimizer state {out['opt_bits']}, step {out['step']}; "
           f"first differing {out['differ']})")
-    TRAIN_SECONDS["resume"] = time.perf_counter() - t0
+    TRAIN_SECONDS["resume"] = time.perf_counter() - started[2]
     print(f"[train-resume] {RESUME_ARCH} whole ({out['params']:,} parameters), "
           f"{RESUME_BATCH}x{RESUME_SEQ}, {RESUME_STEPS} steps, a checkpoint every {RESUME_EVERY}, "
           f"deterministic kernels: crashed at step {RESUME_CRASH} and resumed, the final "
@@ -9568,6 +9560,412 @@ def phase_train_resume(torch, started):
           f"{[round(x, 6) for x in out['history']]} (resumed {[round(x, 6) for x in out['resumed']]}); "
           f"the straight run {out['straight_s']:.1f} s, the child {out['total_s']:.1f} s, "
           f"{TRAIN_SECONDS['resume']:.1f} s from its start (beside the entry points' last turn)")
+
+
+# ---------------------------------------------------------------------------
+# The LM stack on a mesh (ROADMAP item 15c): the sharding rules on a (1, 1)
+# DeviceMesh over NCCL, and the dry run's cells in a child
+# ---------------------------------------------------------------------------
+
+MESH_LM_TIMEOUT_S = 300
+MESH_LM_DECODE = 3  # decode steps after the 4 x 128 prefill (phase_serve's shape)
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_DEVICE = "cuda"  # the fake tensors' device (fake: no memory on the card)
+# the production cells on (16, 16): (arch, shape)
+DRYRUN_CELLS = (("deepseek_7b", "train_4k"), ("deepseek_7b", "decode_32k"),
+                ("mamba2_130m", "long_500k"), ("deepseek_7b", "prefill_32k"))
+DRYRUN_CROSS_TOL = 0.10  # the (1, 1) count against phase_train's model FLOPs + remat's forward
+CARD_GB = 80.0  # an H100 SXM's device memory
+MESH_LM_SECONDS = {}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _first_divergence(torch, run_a, run_b):
+    """The first op whose result differs between two runs of the same step
+    (each op's result summed in f64 on the card, below DTensor's layer;
+    the global-shape runs of DTensor's propagation are fake and skipped):
+    (index, op a, op b) or None."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sums(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if (isinstance(out, torch.Tensor) and out.is_floating_point() and not is_fake(out)
+                    and "_c10d" not in str(func)):
+                self.rows.append((str(func), tuple(out.shape),
+                                  float(out.detach().double().sum())))
+            return out
+
+    logs = []
+    for fn in (run_a, run_b):
+        with Sums() as m:
+            fn()
+        logs.append([r for r in m.rows if "copy" not in r[0] and "view" not in r[0]])
+    for i, (a, b) in enumerate(zip(*logs)):
+        if a[1:] != b[1:] and not (a[2] != a[2] and b[2] != b[2]):
+            return i, a, b
+    return None
+
+
+def mesh_lm_child(work):
+    """The mesh checks' child (``--mesh-lm-child DIR``): deterministic
+    kernels (its parent set CUBLAS_WORKSPACE_CONFIG before CUDA started),
+    NCCL at world size 1 and ``make_host_mesh()`` (1, 1) on the card.
+    deepseek-7b at its full config in bf16: a 4 x 128 prefill and
+    MESH_LM_DECODE greedy decode steps, plain and with its parameters,
+    batch and cache as DTensors under ``activation_mesh``; mamba2-130m whole:
+    one train step at 16 x 4,096 plain and on the mesh from the same
+    weights. Its numbers in DIR/mesh_lm.json."""
+    import copy
+
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import batch_at_step
+    from repro_torch.launch.dryrun import distribute_opt_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import init_train_state, make_serve_step, make_train_step
+
+    torch.use_deterministic_algorithms(True)
+    set_matmul_precision()
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                             world_size=1, device_id=torch.device("cuda", 0))
+    out = {"backend": tdist.get_backend()}
+    try:
+        mesh = make_host_mesh(device="cuda")
+        out["mesh"] = [str(mesh.device_type), list(mesh.shape), list(mesh.mesh_dim_names)]
+
+        def on_mesh(tensors):
+            specs = sh.batch_specs(tensors, mesh)
+            return {k: distribute_tensor(v, mesh, sh.placements(specs[k], mesh))
+                    for k, v in tensors.items()}
+
+        # deepseek-7b serving
+        t0 = time.perf_counter()
+        cfg = get_config("deepseek_7b")
+        model = M.init_params(0, cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen)
+        max_seq = SERVE_PROMPT + MESH_LM_DECODE + 8
+        serve = make_serve_step(cfg)
+
+        def decode(params, prompt):
+            logits, cache = M.prefill(params, prompt, cfg, max_seq)
+            tok = sh.argmax_last(logits[:, -1, :]).to(torch.int32)[:, None]
+            toks, lgs = [_whole(tok)], [_whole(logits)]
+            for _ in range(MESH_LM_DECODE):
+                tok, lg, cache = serve(params, tok, cache)
+                toks.append(_whole(tok))
+                lgs.append(_whole(lg))
+            kinds = sorted({type(v).__name__ for k, v in cache.items() if k != "len"})
+            return torch.cat(toks, 1), lgs, kinds
+
+        plain_toks, plain_lgs, _ = decode(model, batch)
+        sh.distribute_params(model, mesh)
+        with sh.activation_mesh(mesh), implicit_replication():
+            mesh_toks, mesh_lgs, kinds = decode(model, on_mesh(batch))
+        out["serve"] = dict(
+            tokens_equal=bool(torch.equal(plain_toks, mesh_toks)),
+            tokens=plain_toks.tolist(),
+            max_abs_diff=max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(plain_lgs, mesh_lgs)),
+            logit_scale=max(float(a.float().abs().max()) for a in plain_lgs),
+            param_kind=type(next(model.parameters())).__name__, cache_kinds=kinds,
+            seconds=time.perf_counter() - t0)
+        del model, plain_lgs, mesh_lgs
+        torch.cuda.empty_cache()
+
+        # mamba2-130m training
+        t0 = time.perf_counter()
+        cfg = get_config("mamba2_130m")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(
+            cfg, 0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0).items()}
+        step = make_train_step(cfg, microbatches=TRAIN_MICROBATCHES["mamba2_130m"],
+                               base_lr=TRAIN_LR["mamba2_130m"], warmup=1)
+
+        def plain_state():
+            return init_train_state(0, cfg, dev)
+
+        def mesh_state():
+            params, state = init_train_state(0, cfg, dev)
+            state = distribute_opt_state(state, params, mesh)
+            return sh.distribute_params(params, mesh, fsdp=True), state
+
+        def leaves(metrics, params, state):
+            """The step's results by name, whole: its loss and gradient
+            norm, the updated parameters, the optimizer's state."""
+            out = {k: _whole(metrics[k]) for k in ("loss", "grad_norm")}
+            out.update({f"param {n}": _whole(p).detach() for n, p in params.named_parameters()})
+            out["state step"] = _whole(state.step)
+            for path, leaf in state.inner.items():
+                for field, t in zip(leaf._fields, leaf):
+                    out[f"state {path}/{field}"] = _whole(t)
+            return out
+
+        def run_plain():
+            params, state = plain_state()
+            params, state, metrics = step(params, state, batch)
+            return leaves(metrics, params, state)
+
+        def run_mesh():
+            params, state = mesh_state()
+            with sh.activation_mesh(mesh), implicit_replication():
+                params, state, metrics = step(params, state, on_mesh(batch))
+            return leaves(metrics, params, state)
+
+        def same_bits(x, y):
+            return x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+                x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+        a, b = run_plain(), run_mesh()
+        differ = [k for k in a if not same_bits(a[k], b[k])]
+        out["train"] = dict(loss=(float(a["loss"]), float(b["loss"])),
+                            grad_norm=(float(a["grad_norm"]), float(b["grad_norm"])),
+                            leaves=len(a), bits_equal=not differ,
+                            first_leaf=differ[0] if differ else None,
+                            seconds=time.perf_counter() - t0)
+        del a, b
+        if differ:
+            out["train"]["first_divergence"] = _first_divergence(torch, run_plain, run_mesh)
+    finally:
+        tdist.destroy_process_group()
+    Path(work, "mesh_lm.json").write_text(json.dumps(out))
+
+
+def dryrun_child(work):
+    """The dry run's child (``--dryrun-child DIR``): its fake process groups
+    live here, away from the script's NCCL groups. The (1, 1) cells of the
+    card's own runs (phase_train's deepseek-7b cut: TRAIN_DEPTH layers,
+    TRAIN_BATCH x TRAIN_SEQ in 8 microbatches; phase_serve's 4 x 128
+    prefill and a decode step at its cache length) on a fake group of one
+    rank, then DRYRUN_CELLS on (16, 16) over 256 fake ranks
+    (``launch.dryrun.run_cell``); the records in DIR/dryrun.json."""
+    import torch  # noqa: F401  (the child's own CUDA build, no device touched)
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+
+    recs = {}
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(device=DRYRUN_DEVICE)
+        deep = get_config("deepseek_7b")
+        cut = dataclasses.replace(deep, n_layers=TRAIN_DEPTH["deepseek_7b"])
+        recs["train_cut_1x1"] = dryrun.run_cell(
+            "deepseek_7b", "train", False, device=DRYRUN_DEVICE, mesh=mesh, cfg_override=cut,
+            shape=ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+            microbatches=TRAIN_MICROBATCHES["deepseek_7b"])
+        recs["prefill_1x1"] = dryrun.run_cell(
+            "deepseek_7b", "prefill", False, device=DRYRUN_DEVICE, mesh=mesh, cfg_override=deep,
+            shape=ShapeSpec("prefill", "prefill", SERVE_PROMPT, SERVE_BATCH))
+        recs["decode_1x1"] = dryrun.run_cell(
+            "deepseek_7b", "decode", False, device=DRYRUN_DEVICE, mesh=mesh, cfg_override=deep,
+            shape=ShapeSpec("decode", "decode", SERVE_PROMPT + SERVE_DECODE + 8, SERVE_BATCH))
+    for arch, shape in DRYRUN_CELLS:
+        recs[f"{arch} {shape}"] = dryrun.run_cell(arch, shape, False, device=DRYRUN_DEVICE)
+    recs["seconds"] = time.perf_counter() - t0
+    Path(work, "dryrun.json").write_text(json.dumps(recs, default=str))
+
+
+def _child_start(flag, timeout_s, env_extra=None, tmp_dir=None):
+    """Start ``chip_smoke.py FLAG DIR`` in the background (its own session,
+    its log and numbers in DIR, a new directory under ``tmp_dir``, the
+    system's temporary directory by default): (process, DIR, start time,
+    log, timeout)."""
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="repro_child_", dir=tmp_dir)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
+    log = open(Path(d, "child.log"), "w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, d], env=env,
+                            stdout=log, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return proc, d, time.perf_counter(), log, timeout_s
+
+
+def _child_result(started, name):
+    """Wait for a ``_child_start`` child and read its DIR/NAME (the child's
+    log in the failure's text); the directory is removed."""
+    import os
+    import shutil
+    import signal
+
+    proc, work, t0, log, timeout_s = started
+    try:
+        try:
+            proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise CheckFailed(f"{name} child: past {timeout_s} s")
+        log.seek(0)
+        text = log.read()
+        check(proc.returncode == 0, f"{name} child: exit {proc.returncode}\n{text[-5000:]}")
+        return json.loads(Path(work, name).read_text()), time.perf_counter() - t0
+    finally:
+        log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _child_stop(started):
+    """Kill a ``_child_start`` child that is still running (a phase before
+    its reading failed) and remove its directory."""
+    import os
+    import shutil
+    import signal
+
+    proc, work, _, log, _ = started
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    log.close()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def dryrun_start():
+    return _child_start("--dryrun-child", DRYRUN_TIMEOUT_S)
+
+
+def _roofline_line(rec):
+    r = rec["roofline"]
+    return (f"compute {r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, collective "
+            f"{r['collective_s']:.6g} s, dominant {r['dominant']}; FLOPs a rank "
+            f"{r['flops_per_device']:.4e}, bytes a rank {r['bytes_per_device']:.4e}, wire bytes "
+            f"{r['wire_bytes_per_device']:.4e}")
+
+
+def _tally_line(rec):
+    t = rec["roofline"]["collectives"]
+    return ", ".join(f"{k} {int(v['count'])} ({v['wire_bytes']:.4e} B)" for k, v in t.items()
+                     if v["count"])
+
+
+def phase_mesh_lm(torch):
+    """The LM stack on the (1, 1) NCCL mesh on the card (a child,
+    ``mesh_lm_child``): deepseek-7b's decoded tokens under
+    ``activation_mesh`` must equal the plain run's (the logits' largest
+    difference printed); mamba2-130m's train step on it must give the plain
+    step's loss, gradient norm, updated parameters and optimizer state bit
+    for bit, else the first leaf and the first op whose bits differ are
+    named and the phase fails."""
+    failures = []
+    t0 = time.perf_counter()
+    res, _ = _child_result(_child_start("--mesh-lm-child", MESH_LM_TIMEOUT_S,
+                                        {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}), "mesh_lm.json")
+    MESH_LM_SECONDS["mesh child"] = time.perf_counter() - t0
+    s, t = res["serve"], res["train"]
+    print(f"[mesh-lm] mesh {res['mesh']} over {res['backend']} at world size 1; card "
+          f"{card_line()}")
+    print(f"[mesh-lm] deepseek-7b bf16 (full config) {SERVE_BATCH}x{SERVE_PROMPT} prefill + "
+          f"{MESH_LM_DECODE} greedy decode steps, parameters {s['param_kind']}, cache "
+          f"{s['cache_kinds']}: tokens equal the plain run's: {s['tokens_equal']}; logits' max "
+          f"|diff| {s['max_abs_diff']:.6g} (max |logit| {s['logit_scale']:.4g}); "
+          f"{s['seconds']:.1f} s")
+    if not s["tokens_equal"]:
+        failures.append("deepseek-7b on the mesh decoded other tokens than the plain run")
+    print(f"[mesh-lm] mamba2-130m train step at {TRAIN_BATCH}x{TRAIN_SEQ}: loss plain/mesh "
+          f"{t['loss'][0]!r}/{t['loss'][1]!r}, grad_norm {t['grad_norm'][0]!r}/"
+          f"{t['grad_norm'][1]!r}; the loss, gradient norm, updated parameters and optimizer "
+          f"state ({t['leaves']} tensors) bit for bit equal: {t['bits_equal']}; "
+          f"{t['seconds']:.1f} s")
+    if not t["bits_equal"]:
+        failures.append(f"mamba2-130m's step on the mesh differs from the plain step in its "
+                        f"bits: the first differing leaf {t['first_leaf']}; the first differing "
+                        f"op (index, plain, mesh): {t.get('first_divergence')}")
+    check(not failures, "mesh LM: " + "; ".join(failures))
+
+
+def phase_dryrun(dryrun_started, train_out, serve_out):
+    """The dry run (its child, ``dryrun_child``, started after the training
+    phases): the (1, 1) count of phase_train's deepseek-7b cut must land
+    within DRYRUN_CROSS_TOL of that step's model FLOPs plus remat's
+    forward, its roofline bound printed beside the measured step, and the
+    serving cells' beside phase_serve's times; DRYRUN_CELLS on (16, 16)
+    must come out ok, each with its three terms in H100 figures, its
+    tallies and its GB a rank against the card's 80 GB."""
+    failures = []
+    t1 = time.perf_counter()
+    recs, child_s = _child_result(dryrun_started, "dryrun.json")
+    MESH_LM_SECONDS["dry-run child (waited)"] = time.perf_counter() - t1
+    bad = [k for k, r in recs.items() if k != "seconds" and r["status"] != "ok"]
+    for k in bad:
+        failures.append(f"dry run {k}: {recs[k]['status']} {recs[k].get('error', '')[:300]}")
+    print(f"[dryrun] the dry run's child: {recs['seconds']:.1f} s of cells, "
+          f"{child_s:.1f} s from its start; fake tensors on '{DRYRUN_DEVICE}'; H100 figures "
+          f"989 TFLOP/s bf16, 3.35 TB/s, 50 GB/s a link (card {card_line()})")
+    if "train_cut_1x1" not in bad and "deepseek_7b" in train_out:
+        rec, tr = recs["train_cut_1x1"], train_out["deepseek_7b"]
+        want = tr["flops"] + tr["remat"]
+        got = rec["roofline"]["flops_per_device"]
+        gap = got / want - 1.0
+        print(f"[dryrun] (1, 1) phase_train's deepseek-7b cut ({TRAIN_DEPTH['deepseek_7b']} "
+              f"layers, {TRAIN_BATCH}x{TRAIN_SEQ}, {rec['microbatches']} microbatches): counted "
+              f"FLOPs {got:.4e} against phase_train's model FLOPs + remat's forward "
+              f"{tr['flops']:.4e} + {tr['remat']:.4e} = {want:.4e} ({gap * 100:+.2f}%, limit "
+              f"{DRYRUN_CROSS_TOL:.0%}); {_roofline_line(rec)}; roofline bound "
+              f"{rec['roofline'][rec['roofline']['dominant'] + '_s']:.4f} s against the measured "
+              f"step {tr['step_s']:.4f} s; {rec['hbm_per_device_gb']:.2f} GB (arguments + "
+              f"temporaries)")
+        if abs(gap) > DRYRUN_CROSS_TOL:
+            failures.append(f"the (1, 1) FLOP count of phase_train's cut is {gap * 100:+.1f}% "
+                            f"off its model FLOPs + remat")
+    deep = serve_out.get("deepseek") or {}
+    for key, measured in (("prefill_1x1", deep.get("prefill_s")),
+                          ("decode_1x1", (deep.get("step_ms") or 0) / 1e3 or None)):
+        if key in bad:
+            continue
+        rec = recs[key]
+        bound = rec["roofline"][rec["roofline"]["dominant"] + "_s"]
+        print(f"[dryrun] (1, 1) deepseek-7b {key.split('_')[0]} at phase_serve's shape: "
+              f"{_roofline_line(rec)}; roofline bound {bound:.6f} s against the measured "
+              f"{'not measured' if measured is None else f'{measured:.6f} s'}")
+    for arch, shape in DRYRUN_CELLS:
+        key = f"{arch} {shape}"
+        if key in bad:
+            continue
+        rec = recs[key]
+        gb = rec["hbm_per_device_gb"]
+        print(f"[dryrun] {key} (16, 16), {rec['probe_s']} s: {_roofline_line(rec)}; tallies "
+              f"{_tally_line(rec) or 'none'}; {gb:.2f} GB a rank of the card's {CARD_GB:.0f} GB "
+              f"({'fits' if gb <= CARD_GB else 'does not fit'}: arguments "
+              f"{rec['memory']['argument_size'] / 1e9:.2f} GB + temporaries "
+              f"{rec['memory']['temp_size'] / 1e9:.2f} GB); useful FLOPs ratio "
+              f"{rec['useful_flops_ratio']:.3f}")
+    print(f"[mesh-lm] the mesh phases: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in MESH_LM_SECONDS.items())}")
+    check(not failures, "dry run: " + "; ".join(failures))
 
 
 # the port's examples and CI scripts, each run as a child process at its

@@ -19,7 +19,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, _param, apply_rope, dense_init, softcap
 
@@ -56,20 +59,16 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) 
 
 
 def _project_qkv(params: Attention, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
     hd = cfg.resolved_head_dim
-    q = xq @ params.wq
-    k = xkv @ params.wk
-    v = xkv @ params.wv
+    q = sh_lib.linear(xq, params.wq)
+    k = sh_lib.linear(xkv, params.wk)
+    v = sh_lib.linear(xkv, params.wv)
     if cfg.qkv_bias:
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
-    q = q.reshape(B, Sq, cfg.n_heads, hd)
-    k = k.reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = v.reshape(B, Skv, cfg.n_kv_heads, hd)
-    return q, k, v
+    return (sh_lib.split_heads(q, cfg.n_heads, hd), sh_lib.split_heads(k, cfg.n_kv_heads, hd),
+            sh_lib.split_heads(v, cfg.n_kv_heads, hd))
 
 
 def _sqrt_f32(n: int) -> torch.Tensor:
@@ -89,8 +88,19 @@ def _sdpa(
 ) -> torch.Tensor:
     """SDPA with GQA, fp32 softmax. Head h reads KV head h // (H // KV), as
     the reference's ``jnp.repeat`` of the KV heads gives it; the heads are
-    grouped in the products instead of repeated in memory. ``decode`` is
-    the reference's sharding hint, which one card does not need."""
+    grouped in the products instead of repeated in memory. Outside
+    ``decode`` the operands take the reference's constraints; a decode
+    step keeps the cache's layout. DTensor operands go to
+    ``_sdpa_on_mesh``."""
+    if not decode:
+        q = sh_lib.constrain(q, "batch", "seq", "heads", None)
+    if sh_lib.is_dtensor(q):
+        return _sdpa_on_mesh(q, k, v, mask, cfg, decode)
+    return _weighted(torch.softmax(_scores(q, k, mask, cfg), dim=-1).to(q.dtype), v)
+
+
+def _scores(q, k, mask, cfg: ModelConfig) -> torch.Tensor:
+    """The masked f32 scores (B, H, Sq, Skv), the KV heads grouped."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -102,9 +112,77 @@ def _sdpa(
         scores = softcap(scores, cfg.attn_softcap)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, KV, G, Sq, Skv)
-    out = probs @ v.permute(0, 2, 1, 3).unsqueeze(2)  # (B, KV, G, Sq, hd)
+    return scores
+
+
+def _weighted(probs, v) -> torch.Tensor:
+    """``probs`` (B, H, Sq, Skv) times the values (B, Skv, KV, hd), the KV
+    heads grouped: (B, Sq, H, hd)."""
+    B, H, Sq, Skv = probs.shape
+    KV, hd = v.shape[2], v.shape[3]
+    out = probs.reshape(B, KV, H // KV, Sq, Skv) @ v.permute(0, 2, 1, 3).unsqueeze(2)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def _sdpa_on_mesh(q, k, v, mask, cfg: ModelConfig, decode: bool) -> torch.Tensor:
+    """``_sdpa`` of DTensors, each rank on its own rows and heads by an
+    explicit rule (``local_map``): the batch and the heads may be cut (the
+    KV heads with the query heads, repeated as the reference repeats them
+    where a cut of the query heads does not divide them), and the keys'
+    positions (a decode step's cache cut over its sequence, when its KV
+    heads do not divide the "model" axis). A cut of the positions is the
+    reference's flash-decode: each rank's scores over its positions, their
+    max and sum of exps reduced over the cut (``Partial``), and the
+    weighted values summed; the query heads are whole on those axes."""
+    mesh = q.device_mesh
+    seq = {i for i, p in enumerate(k.placements) if isinstance(p, Shard) and p.dim == 1}
+    qp = [p if isinstance(p, Shard) and p.dim in (0, 2) and i not in seq else Replicate()
+          for i, p in enumerate(q.placements)]
+    q = q.redistribute(mesh, qp)
+    H, KV = q.shape[2], k.shape[2]
+    if KV % sh_lib.shard_ways(q, 2):
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    if not decode:
+        kv_axis = "heads" if k.shape[2] == H else "kv_heads"
+        k = sh_lib.constrain(k, "batch", "kv_seq", kv_axis, None)
+        v = sh_lib.constrain(v, "batch", "kv_seq", kv_axis, None)
+    kp = [Shard(1) if i in seq else p for i, p in enumerate(qp)]
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    if mask is not None:
+        if not sh_lib.is_dtensor(mask):
+            mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        mask = mask.redistribute(mesh, [
+            Shard(3) if i in seq else
+            Shard(0) if p == Shard(0) and mask.shape[0] > 1 else Replicate()
+            for i, p in enumerate(qp)])
+    mp = mask.placements if mask is not None else None
+    if not seq:
+        return local_map(lambda q_, k_, v_, m_: _weighted(
+            torch.softmax(_scores(q_, k_, m_, cfg), dim=-1).to(q_.dtype), v_),
+            out_placements=qp, in_placements=(qp, kp, kp, mp), device_mesh=mesh)(q, k, v, mask)
+
+    # (B, H, Sq, Skv) scores: the query heads' cut is dim 1 there, the positions' dim 3
+    sp = [Shard(3) if i in seq else Shard(1) if p == Shard(2) else p for i, p in enumerate(qp)]
+    scores = local_map(lambda q_, k_, m_: _scores(q_, k_, m_, cfg), out_placements=sp,
+                       in_placements=(qp, kp, mp), device_mesh=mesh)(q, k, mask)
+    top = local_map(lambda s_: torch.amax(s_, dim=-1),
+                    out_placements=[Partial("max") if i in seq else p for i, p in enumerate(sp)],
+                    in_placements=(sp,), device_mesh=mesh)(scores.detach())
+    whole = [Replicate() if i in seq else p for i, p in enumerate(sp)]  # (B, H, Sq) rows
+    summed = [Partial() if i in seq else p for i, p in enumerate(sp)]
+    top = top.redistribute(mesh, whole)
+
+    def partials(s_, t_, v_):
+        e = torch.exp(s_ - t_[..., None])
+        return torch.sum(e, dim=-1), _weighted(e.to(q.dtype), v_)
+
+    total, acc = local_map(partials, out_placements=(summed, [Partial() if i in seq else p
+                                                              for i, p in enumerate(qp)]),
+                           in_placements=(sp, whole, kp), device_mesh=mesh)(scores, top, v)
+    total = total.redistribute(mesh, whole)
+    acc = acc.redistribute(mesh, qp)
+    return (acc.float() / total.permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
 def _streaming_sdpa(
@@ -206,7 +284,7 @@ def attend_with_kv(
     is_local: bool = False,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _project_qkv(params, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -214,14 +292,17 @@ def attend_with_kv(
         G = cfg.n_heads // k.shape[2]
         kf = k.repeat_interleave(G, dim=2) if G != 1 else k
         vf = v.repeat_interleave(G, dim=2) if G != 1 else v
-        out = _streaming_sdpa(q, kf, vf, cfg, is_local)
+        qs = sh_lib.constrain(q, "batch", "seq", "heads", None)
+        kf = sh_lib.constrain(kf, "batch", "kv_seq", "heads", None)
+        vf = sh_lib.constrain(vf, "batch", "kv_seq", "heads", None)
+        out = _streaming_sdpa(qs, kf, vf, cfg, is_local)
     else:
         mask = None  # non-causal: every key, the reference's all-true mask
         if causal:
             window = cfg.sliding_window if (cfg.sliding_window and is_local) else 0
             mask = causal_mask(S, S, window=window, device=x.device)
         out = _sdpa(q, k, v, mask, cfg)
-    out = out.reshape(B, S, cfg.q_dim) @ params.wo
+    out = sh_lib.linear(sh_lib.merge_heads(out), params.wo)
     return out, KVCache(k=k, v=v)
 
 
@@ -232,10 +313,9 @@ def cross_attend(
     cfg: ModelConfig,
 ) -> torch.Tensor:
     """Encoder-decoder cross attention (no RoPE on cross keys, full mask)."""
-    B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, memory, cfg)
     out = _sdpa(q, k, v, None, cfg)
-    return out.reshape(B, S, cfg.q_dim) @ params.wo
+    return sh_lib.linear(sh_lib.merge_heads(out), params.wo)
 
 
 def cache_slots(cache_len: torch.Tensor, max_seq: int):
@@ -248,6 +328,26 @@ def cache_slots(cache_len: torch.Tensor, max_seq: int):
     base = torch.arange(B, device=cache_len.device) * max_seq
     idx = base + torch.clamp(cache_len, max=max_seq - 1)
     return idx, (cache_len < max_seq)[:, None]
+
+
+def _write_kv_sharded(cache: KVCache, k: torch.Tensor, v: torch.Tensor, cache_len: torch.Tensor,
+                      ragged: bool) -> None:
+    """A decode step's K/V written into a sharded cache (DTensors) as the
+    reference writes them, by a one-hot over the cache's positions, an
+    elementwise op that each rank runs on its own rows, heads and positions
+    of the cache: ``ragged`` adds each row's K/V at its own length (nothing
+    at a full row's), else every row takes row 0's length, clamped into the
+    cache, and is overwritten there."""
+    max_seq = cache.k.shape[1]
+    kpos = torch.arange(max_seq, device=cache_len.device)[None, :]
+    if ragged:
+        hit = (kpos == cache_len[:, None]).to(cache.k.dtype)[:, :, None, None]  # (B, S, 1, 1)
+        cache.k.add_(k.to(cache.k.dtype) * hit)
+        cache.v.add_(v.to(cache.v.dtype) * hit)
+    else:
+        hit = (kpos == torch.clamp(cache_len[:1], max=max_seq - 1)[:, None])[:, :, None, None]
+        cache.k.copy_(torch.where(hit, k.to(cache.k.dtype), cache.k))
+        cache.v.copy_(torch.where(hit, v.to(cache.v.dtype), cache.v))
 
 
 def decode_attend(
@@ -276,7 +376,9 @@ def decode_attend(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cfg.ragged_decode:
+    if sh_lib.is_dtensor(cache.k):
+        _write_kv_sharded(cache, k, v, cache_len, cfg.ragged_decode)
+    elif cfg.ragged_decode:
         idx, keep = slots if slots is not None else cache_slots(cache_len, max_seq)
         row = k.shape[2] * k.shape[3]
         keep = keep.to(k.dtype)
@@ -294,5 +396,5 @@ def decode_attend(
     mask = valid[:, None, None, :]  # (B, 1, 1(Sq), max_seq)
 
     out = _sdpa(q, cache.k, cache.v, mask, cfg, decode=True)
-    out = out.reshape(B, 1, cfg.q_dim) @ params.wo
+    out = sh_lib.linear(sh_lib.merge_heads(out), params.wo)
     return out, cache

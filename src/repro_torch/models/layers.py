@@ -16,9 +16,10 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models.config import ModelConfig
 
 _DRAW_CHUNK = 1 << 27  # f32 elements a draw holds at once (512 MB)
@@ -42,7 +43,8 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     stack's f32 draw never sits whole beside its cast."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     flat = out.view(shape[0], -1)
-    rows = max(1, _DRAW_CHUNK // max(1, flat.shape[1]))
+    # a fake tensor (the dry run's stand-ins) holds no memory: one draw
+    rows = flat.shape[0] if is_fake(out) else max(1, _DRAW_CHUNK // max(1, flat.shape[1]))
     for i in range(0, flat.shape[0], rows):
         blk = flat[i:i + rows]
         blk.copy_(torch.randn(blk.shape, generator=gen, device=gen.device,
@@ -139,7 +141,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: (B, S, H, hd); positions: (B, S) integers. Rotates split halves
     (not interleaved pairs) in f32."""
     hd = x.shape[-1]
-    freqs = _rope_frequencies_on(hd, float(theta), x.device)
+    # a fake tensor's table is made anew: the cache outlives its fake mode
+    freqs = (rope_frequencies(hd, float(theta), x.device) if is_fake(x)
+             else _rope_frequencies_on(hd, float(theta), x.device))
     angles = positions[..., None].float() * freqs  # (B, S, hd/2)
     sin = torch.sin(angles)[:, :, None, :]
     cos = torch.cos(angles)[:, :, None, :]
@@ -190,8 +194,8 @@ def _activation(name: str):
 
 def apply_mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = _activation(cfg.act)
-    h = act(x @ params.w_gate) * (x @ params.w_up)
-    return h @ params.w_down
+    h = act(sh_lib.linear(x, params.w_gate)) * sh_lib.linear(x, params.w_up)
+    return sh_lib.linear(h, params.w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +216,7 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Embedding:
 
 
 def embed_tokens(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = F.embedding(tokens, params.tok)
+    x = sh_lib.embedding(tokens, params.tok)
     if cfg.tie_embeddings:
         # gemma-style sqrt(d) scaling when the table doubles as the LM head:
         # the f32 square root rounded to the activation dtype first
@@ -237,7 +241,7 @@ def init_lm_head(gen: torch.Generator, cfg: ModelConfig) -> LMHead:
 def lm_logits(head: LMHead, embed: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final projection, f32 output, optional logit softcapping (gemma2)."""
     w = embed.tok.t() if cfg.tie_embeddings else head.w
-    logits = _matmul_f32(x, w)
+    logits = sh_lib.linear(x, w, _matmul_f32)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -21,8 +21,9 @@ With gradients on and ``cfg.remat``, each block runs under
 kept, and the backward recomputes the block, as the reference's
 ``jax.checkpoint(..., nothing_saveable)`` does. The parameters carry no
 gradient by default (serving); ``training.init_train_state`` turns it on.
-The reference's sharding constraints are no-ops on one card and are left
-out.
+The reference's sharding constraints (``sharding.constrain``) sit where
+the reference has them: without ``sharding.activation_mesh`` each returns
+its input.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
@@ -199,6 +201,15 @@ def init_params(key, cfg: ModelConfig, device="cuda") -> LM:
 # ---------------------------------------------------------------------------
 
 
+def _residual_layout(y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output in the residual stream's layout: the layout that
+    GSPMD propagates from the reference's constraint on the stream
+    (``constrain(x, "batch", "seq", "act_embed")``); DTensor propagates
+    none, and would carry the output projection's partial sums on. Without
+    ``sharding.activation_mesh``, ``y`` itself."""
+    return sh_lib.constrain(y, "batch", "seq", "act_embed")
+
+
 def _ffn(block: Block, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The block's second half: cross attention is the caller's; this is
     the FFN residual (MLP or MoE, sandwich-normed)."""
@@ -207,6 +218,7 @@ def _ffn(block: Block, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h2 = rmsnorm(block.ln2, out, cfg.norm_eps)
     ff = moe_lib.apply_moe(block.moe, h2, cfg) if block.moe is not None else apply_mlp(
         block.mlp, h2, cfg)
+    ff = _residual_layout(ff)
     if cfg.sandwich_norm:
         ff = rmsnorm(block.ln2_post, ff, cfg.norm_eps)
     return out + ff
@@ -216,7 +228,7 @@ def _cross(block: Block, out: torch.Tensor, memory, cfg: ModelConfig) -> torch.T
     if memory is None or block.cross is None:
         return out
     hc = rmsnorm(block.ln_cross, out, cfg.norm_eps)
-    return out + attn_lib.cross_attend(block.cross, hc, memory, cfg)
+    return out + _residual_layout(attn_lib.cross_attend(block.cross, hc, memory, cfg))
 
 
 def _apply_block(
@@ -232,9 +244,10 @@ def _apply_block(
     h = rmsnorm(block.ln1, x, cfg.norm_eps)
     mix = 0.0
     if block.attn is not None:
-        mix = attn_lib.attend(block.attn, h, positions, cfg, is_local=is_local, causal=causal)
+        mix = _residual_layout(attn_lib.attend(block.attn, h, positions, cfg,
+                                               is_local=is_local, causal=causal))
     if block.ssm is not None:
-        s = ssm_lib.apply_ssm(block.ssm, h, cfg)
+        s = _residual_layout(ssm_lib.apply_ssm(block.ssm, h, cfg))
         mix = 0.5 * (mix + s) if block.attn is not None else s
     if cfg.sandwich_norm:
         mix = rmsnorm(block.ln1_post, mix, cfg.norm_eps)
@@ -276,7 +289,8 @@ def _arange_positions(B: int, S: int, device) -> torch.Tensor:
 def _encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Encoder over stub frame embeddings (B, S_enc, D)."""
     enc = params.encoder
-    x = frames.to(_dtype(cfg)) @ enc.frontend
+    x = sh_lib.linear(frames.to(_dtype(cfg)), enc.frontend)
+    x = sh_lib.constrain(x, "batch", "seq", "act_embed")
     positions = _arange_positions(x.shape[0], x.shape[1], x.device)
     x = _scan_stack(enc.layers, x, positions, [False] * cfg.n_enc_layers, cfg, causal=False)
     return rmsnorm(enc.norm, x, cfg.norm_eps)
@@ -287,10 +301,11 @@ def _decoder_inputs(params: LM, batch: Dict, cfg: ModelConfig):
     x = embed_tokens(params.embed, batch["tokens"], cfg)
     prefix_len = 0
     if cfg.n_prefix_embeds and "patches" in batch:
-        patches = batch["patches"].to(x.dtype) @ params.patch_proj
+        patches = sh_lib.linear(batch["patches"].to(x.dtype), params.patch_proj)
         x = torch.cat([patches, x], dim=1)
         prefix_len = patches.shape[1]
     B, S = x.shape[:2]
+    x = sh_lib.constrain(x, "batch", "seq", "act_embed")
     return x, _arange_positions(B, S, x.device), prefix_len
 
 
@@ -314,8 +329,8 @@ def loss_fn(params: LM, batch: Dict, cfg: ModelConfig):
     inputs["tokens"] = tokens[:, :-1]
     labels = tokens[:, 1:].long()
     # the logits are not kept: log_softmax's backward reads its output
-    logp = torch.log_softmax(forward(params, inputs, cfg), dim=-1)  # (B, S, V) f32
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    logp = sh_lib.log_softmax_last(forward(params, inputs, cfg))  # (B, S, V) f32
+    ll = sh_lib.take_last(logp, labels)
     loss = -torch.mean(ll)
     metrics = {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
     return loss, metrics
@@ -326,25 +341,27 @@ def loss_fn(params: LM, batch: Dict, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda") -> Dict:
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda",
+               mesh=None) -> Dict:
     """The decode cache, each part stacked over the layers: ``k``/``v``
     (L, B, max_seq, KV, hd), ``conv`` (L, B, W-1, conv_dim), ``ssm``
-    (L, B, H, P, N) f32, ``len`` (B,) int32."""
+    (L, B, H, P, N) f32, ``len`` (B,) int32. With a ``mesh``, DTensors laid
+    out by ``sharding.cache_specs`` (each rank allocates its shard)."""
     dt = dtype if isinstance(dtype, torch.dtype) else (
         getattr(torch, dtype) if dtype else _dtype(cfg))
     hd = cfg.resolved_head_dim
     L = cfg.n_layers
-    cache: Dict = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    parts = {"len": ((batch,), torch.int32)}
     if _has_attn(cfg):
-        cache["k"] = torch.zeros((L, batch, max_seq, cfg.n_kv_heads, hd), dtype=dt, device=device)
-        cache["v"] = torch.zeros((L, batch, max_seq, cfg.n_kv_heads, hd), dtype=dt, device=device)
+        parts["k"] = ((L, batch, max_seq, cfg.n_kv_heads, hd), dt)
+        parts["v"] = ((L, batch, max_seq, cfg.n_kv_heads, hd), dt)
     if _has_ssm(cfg):
-        cache["conv"] = torch.zeros(
-            (L, batch, cfg.ssm_conv_width - 1, ssm_lib.conv_dim(cfg)), dtype=dt, device=device)
-        cache["ssm"] = torch.zeros(
-            (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
-            device=device)
-    return cache
+        parts["conv"] = ((L, batch, cfg.ssm_conv_width - 1, ssm_lib.conv_dim(cfg)), dt)
+        parts["ssm"] = ((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+    if mesh is None:
+        return {k: torch.zeros(shape, dtype=d, device=device) for k, (shape, d) in parts.items()}
+    return {k: sh_lib.zeros(shape, d, device, mesh, sh_lib.cache_spec(k, shape, mesh))
+            for k, (shape, d) in parts.items()}
 
 
 @torch.no_grad()
@@ -358,7 +375,8 @@ def prefill(params: LM, batch: Dict, cfg: ModelConfig, max_seq: int):
     memory = _encode(params, batch["frames"], cfg) if cfg.n_enc_layers else None
     x, positions, prefix_len = _decoder_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    cache = init_cache(cfg, B, max(max_seq, S), device=x.device)
+    mesh = x.device_mesh if sh_lib.is_dtensor(x) else None
+    cache = init_cache(cfg, B, max(max_seq, S), device=x.device, mesh=mesh)
     flags = local_layer_flags(cfg, cfg.n_layers)
 
     for blocks, off in params.stacks():
@@ -369,10 +387,12 @@ def prefill(params: LM, batch: Dict, cfg: ModelConfig, max_seq: int):
             if block.attn is not None:
                 mix, kv = attn_lib.attend_with_kv(block.attn, h, positions, cfg,
                                                   is_local=bool(flags[li]))
-                cache["k"][li, :, :S] = kv.k
-                cache["v"][li, :, :S] = kv.v
+                mix = _residual_layout(mix)
+                sh_lib.write_prefix(cache["k"], li, kv.k)
+                sh_lib.write_prefix(cache["v"], li, kv.v)
             if block.ssm is not None:
                 s, state, xbc = ssm_lib._apply_ssm(block.ssm, h, cfg)
+                s = _residual_layout(s)
                 mix = 0.5 * (mix + s) if block.attn is not None else s
                 cache["ssm"][li] = state
                 # conv cache: the prompt's last W-1 conv inputs, from row 0
@@ -399,6 +419,7 @@ def decode_step(params: LM, tokens: torch.Tensor, cache: Dict, cfg: ModelConfig)
     The cache's K/V, conv and SSM tensors are updated in place (clone them
     first to decode twice from one state); ``len`` is a new tensor."""
     x = embed_tokens(params.embed, tokens, cfg)
+    x = sh_lib.constrain(x, "batch", "seq", "act_embed")
     memory = cache.get("memory")
     flags = local_layer_flags(cfg, cfg.n_layers)
     cache_len = cache["len"]
@@ -415,9 +436,11 @@ def decode_step(params: LM, tokens: torch.Tensor, cache: Dict, cfg: ModelConfig)
                 kv = KVCache(k=cache["k"][li], v=cache["v"][li])
                 mix, _ = attn_lib.decode_attend(block.attn, h, kv, cache_len, cfg,
                                                 is_local=bool(flags[li]), slots=slots)
+                mix = _residual_layout(mix)
             if block.ssm is not None:
                 sc = ssm_lib.SSMCache(conv=cache["conv"][li], state=cache["ssm"][li])
                 s, sc = ssm_lib.decode_ssm(block.ssm, h, sc, cfg)
+                s = _residual_layout(s)
                 mix = 0.5 * (mix + s) if block.attn is not None else s
                 cache["conv"][li] = sc.conv
                 cache["ssm"][li] = sc.state

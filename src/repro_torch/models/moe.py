@@ -21,11 +21,15 @@ floor (cfg.min_capacity) so collisions do not drop tokens in practice.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, _activation, _dtype, _normal, _param, apply_mlp,
                                        dense_init, init_mlp)
@@ -66,8 +70,12 @@ def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
 def _route(params: MoE, x: torch.Tensor, cfg: ModelConfig):
     """The routing: (gates (B, S, K) renormalized, expert ids (B, S, K),
     router logits (B, S, E))."""
+    return _route_by(params.router, x, cfg)
+
+
+def _route_by(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     K = cfg.experts_per_token
-    logits = x.float() @ params.router  # (B, S, E)
+    logits = x.float() @ router  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = vals[..., :K], idx[..., :K]
@@ -93,15 +101,16 @@ def _positions(expert_idx: torch.Tensor, E: int) -> torch.Tensor:
     return pos.reshape(Bsz, S, K)
 
 
-def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D). Groups = batch entries."""
+def _dispatch(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """Routing, positions and the dispatch, group by group: (expert_in (B, E,
+    C, D), dest (B, T), keep (B, S, K), gates (B, S, K))."""
     Bsz, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     C = _capacity(S, cfg)
     dev = x.device
 
     # ---- routing (fp32) ----------------------------------------------------
-    gate_vals, expert_idx, _ = _route(params, x, cfg)
+    gate_vals, expert_idx, _ = _route_by(router, x, cfg)
 
     # ---- position-in-expert; past capacity -> the overflow slot -------------
     pos = _positions(expert_idx, E)
@@ -116,20 +125,68 @@ def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     buf = torch.zeros((Bsz * slots, D), dtype=x.dtype, device=dev)
     buf.index_copy_(0, row, src)  # kept rows unique; the overflow slot is never read
     expert_in = buf.view(Bsz, slots, D)[:, :E * C].reshape(Bsz, E, C, D)
+    return expert_in, dest.reshape(Bsz, T), keep, gate_vals
+
+
+def _combine(expert_out: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+             gate_vals: torch.Tensor) -> torch.Tensor:
+    """Gather each assignment's expert output back and weight it by its
+    gate: (B, S, D)."""
+    Bsz, E, C, D = expert_out.shape
+    S, K = keep.shape[1], keep.shape[2]
+    T = S * K
+    flat_out = torch.cat([expert_out.reshape(Bsz, E * C, D),
+                          torch.zeros((Bsz, 1, D), dtype=expert_out.dtype,
+                                      device=expert_out.device)], dim=1)
+    gathered = torch.gather(flat_out, 1, dest.reshape(Bsz, T, 1).expand(Bsz, T, D))
+    gathered = gathered.reshape(Bsz, S, K, D)
+    w = torch.where(keep, gate_vals, 0.0).to(expert_out.dtype)
+    return (w[..., None, :] @ gathered)[..., 0, :]  # sum over k, accumulated as a product
+
+
+def _by_group(x: torch.Tensor, cfg: ModelConfig):
+    """``(_dispatch, _combine)``, each run on every rank's own groups where
+    ``x`` is a DTensor: the routing's sorts, counts and scatters have no
+    sharding rule of DTensor's, and a group (a batch entry) routes alone, so
+    each rank runs them on its batch rows (the reference's constraint puts
+    the batch over the data axes) with the router whole. The router's
+    gradient is then a sum over those axes (``Partial``)."""
+    if not isinstance(x, DTensor):
+        return functools.partial(_dispatch, cfg=cfg), _combine
+    mesh = x.device_mesh
+    rows = sh_lib.act_placements(tuple(x.shape), ("batch", None, None), mesh)
+    whole = [Replicate()] * mesh.ndim
+    summed = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    dispatch = local_map(functools.partial(_dispatch, cfg=cfg),
+                         out_placements=(rows, rows, rows, rows), in_placements=(whole, rows),
+                         in_grad_placements=(summed, rows), device_mesh=mesh,
+                         redistribute_inputs=True)
+    combine = local_map(_combine, out_placements=rows, in_placements=(rows, rows, rows, rows),
+                        device_mesh=mesh, redistribute_inputs=True)
+    return dispatch, combine
+
+
+def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, D). Groups = batch entries."""
+    Bsz, S, D = x.shape
+    E = cfg.n_experts
+    C = _capacity(S, cfg)
+    dispatch, combine = _by_group(x, cfg)
+    expert_in, dest, keep, gate_vals = dispatch(params.router, x)
 
     # ---- expert computation: batched over the experts -----------------------
+    # under weight-stationary rules the constraint shards the dispatch
+    # buffer's expert dim over 'model' (the EP all-to-all) so expert weights
+    # never move; baseline rules make it a no-op
+    expert_in = sh_lib.constrain(expert_in, "batch", "experts_act", None, None)
     act = _activation(cfg.act)
     ein = expert_in.permute(1, 0, 2, 3).reshape(E, Bsz * C, D)
     h = act(torch.bmm(ein, params.w_gate)) * torch.bmm(ein, params.w_up)
     expert_out = torch.bmm(h, params.w_down).reshape(E, Bsz, C, D).permute(1, 0, 2, 3)
+    expert_out = sh_lib.constrain(expert_out, "batch", "experts_act", None, None)
 
     # ---- combine: gather back + weight by gates ------------------------------
-    flat_out = torch.cat([expert_out.reshape(Bsz, E * C, D),
-                          torch.zeros((Bsz, 1, D), dtype=x.dtype, device=dev)], dim=1)
-    gathered = torch.gather(flat_out, 1, dest.reshape(Bsz, T, 1).expand(Bsz, T, D))
-    gathered = gathered.reshape(Bsz, S, K, D)
-    w = torch.where(keep, gate_vals, 0.0).to(x.dtype)
-    y = (w[..., None, :] @ gathered)[..., 0, :]  # sum over k, accumulated as a product
+    y = combine(expert_out, dest, keep, gate_vals)
 
     # ---- always-on branches --------------------------------------------------
     if cfg.n_shared_experts:

@@ -17,7 +17,10 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (RMSNorm, _dtype, _normal, _param, dense_init,
                                        init_rmsnorm, rmsnorm, silu)
@@ -144,6 +147,21 @@ def ssd_scan(
     return y, state
 
 
+def _ssd_scan_on_mesh(x, dA, Bmat, Cmat, chunk: int):
+    """``ssd_scan`` of DTensors, each rank on its own rows and heads by an
+    explicit rule (``local_map``): the scan runs along the sequence, which
+    stays whole; x's and dA's cut of the heads is kept, B and C are whole
+    over it."""
+    import functools
+
+    xp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in x.placements]
+    bp = [p if p == Shard(0) else Replicate() for p in xp]
+    statep = [Shard(1) if p == Shard(2) else p for p in xp]  # (B, H, P, N)
+    return local_map(functools.partial(ssd_scan, chunk=chunk), out_placements=(xp, statep),
+                     in_placements=(xp, xp, bp, bp), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dA, Bmat, Cmat)
+
+
 def apply_ssm(params: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y, _ = apply_ssm_with_state(params, x, cfg)
     return y
@@ -158,17 +176,17 @@ def _apply_ssm(params: SSM, x: torch.Tensor, cfg: ModelConfig):
     """``apply_ssm_with_state`` that also returns the pre-conv ``xbc`` (the
     prompt's conv cache is its last W-1 rows; the reference recomputes the
     projection for it, which gives the same values)."""
-    Bsz, S, _ = x.shape
+    S = x.shape[1]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
 
-    zxbcdt = x @ params.in_proj
+    zxbcdt = sh_lib.linear(x, params.in_proj)
     z, xbc_in, dt = _split_in_proj(zxbcdt, cfg)
     xbc = silu(_causal_conv(xbc_in, params.conv_w, params.conv_b))
     xs, Bmat, Cmat = torch.split(xbc, [cfg.d_inner, N, N], dim=-1)
 
     dt = F.softplus(dt.float() + params.dt_bias)  # (B,S,H)
     A = -torch.exp(params.A_log)  # (H,)
-    xs_h = xs.reshape(Bsz, S, H, P)
+    xs_h = sh_lib.split_heads(xs, H, P)
     x_dt = xs_h * dt[..., None].to(xs.dtype)
     dA = dt * A  # (B, S, H) fp32
 
@@ -182,14 +200,15 @@ def _apply_ssm(params: SSM, x: torch.Tensor, cfg: ModelConfig):
         Bmat = F.pad(Bmat, (0, 0, 0, pad))
         Cmat = F.pad(Cmat, (0, 0, 0, pad))
 
-    y, final_state = ssd_scan(x_dt, dA, Bmat, Cmat, cfg.ssm_chunk)
+    scan = _ssd_scan_on_mesh if sh_lib.is_dtensor(x_dt) else ssd_scan
+    y, final_state = scan(x_dt, dA, Bmat, Cmat, cfg.ssm_chunk)
     if S_pad != S:
         y = y[:, :S]
     y = y + params.D.to(y.dtype)[None, None, :, None] * xs_h
-    y = y.reshape(Bsz, S, cfg.d_inner)
+    y = sh_lib.merge_heads(y)
     y = y * silu(z)
     y = rmsnorm(params.norm, y, cfg.norm_eps)
-    return y @ params.out_proj, final_state, xbc_in
+    return sh_lib.linear(y, params.out_proj), final_state, xbc_in
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device="cuda") -> SSMCache:
@@ -212,7 +231,7 @@ def decode_ssm(
     Bsz = x.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
 
-    zxbcdt = x[:, 0] @ params.in_proj  # (B, proj)
+    zxbcdt = sh_lib.linear(x[:, 0], params.in_proj)  # (B, proj)
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
 
     # conv over the cached window + current input
@@ -226,7 +245,7 @@ def decode_ssm(
     A = -torch.exp(params.A_log)  # (H,)
     dA = torch.exp(dt * A)  # (B, H)
 
-    xs_h = xs.reshape(Bsz, H, P).float()
+    xs_h = sh_lib.split_heads(xs, H, P).float()
     dBx = torch.einsum("bh,bn,bhp->bhpn", dt, Bmat.float(), xs_h)
     state = cache.state * dA[..., None, None] + dBx  # (B, H, P, N)
     y = torch.einsum("bhpn,bn->bhp", state, Cmat.float())
@@ -234,5 +253,5 @@ def decode_ssm(
     y = y.reshape(Bsz, cfg.d_inner).to(x.dtype)
     y = y * silu(z)
     y = rmsnorm(params.norm, y, cfg.norm_eps)
-    out = (y @ params.out_proj)[:, None, :]  # (B, 1, D)
+    out = sh_lib.linear(y, params.out_proj)[:, None, :]  # (B, 1, D)
     return out, SSMCache(conv=new_conv, state=state)

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.utils.trees import tree_map
 
@@ -97,9 +98,25 @@ def _slices(x: torch.Tensor, stacked: bool) -> List[torch.Tensor]:
     return list(x.unbind(0)) if stacked else [x]
 
 
+def _empty_f32(tensors: List[torch.Tensor], stacked: bool) -> torch.Tensor:
+    """An f32 tensor of the leaf's shape; for DTensors, laid out as they are
+    (behind the stack's leading axis), each rank allocating its shard."""
+    from repro_torch.models.sharding import contiguous_stride
+
+    shape = _full_shape(tensors, stacked)
+    t = tensors[0]
+    if not isinstance(t, DTensor):
+        return torch.empty(shape, dtype=torch.float32, device=t.device)
+    plc = [Shard(p.dim + 1) if stacked and isinstance(p, Shard) else p for p in t.placements]
+    loc = t.to_local()
+    local = ((len(tensors),) if stacked else ()) + tuple(loc.shape)
+    return DTensor.from_local(torch.empty(local, dtype=torch.float32, device=loc.device),
+                              t.device_mesh, plc, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def _stack_f32(tensors: List[torch.Tensor], stacked: bool) -> torch.Tensor:
-    out = torch.empty(_full_shape(tensors, stacked), dtype=torch.float32,
-                      device=tensors[0].device)
+    out = _empty_f32(tensors, stacked)
     for dst, t in zip(_slices(out, stacked), tensors):
         dst.copy_(t.detach())
     return out
@@ -153,8 +170,10 @@ def _adamw_piece(g, m, v, master, p, lr, bc1, bc2, b1, b2, eps, weight_decay):
 
 
 def _pieces(t: torch.Tensor) -> List[torch.Tensor]:
-    """Row blocks of ``t`` of at most _CHUNK elements (views)."""
-    if t.dim() == 0 or t.numel() <= _CHUNK:
+    """Row blocks of ``t`` of at most _CHUNK elements (views); a DTensor
+    whole (its rank's shard bounds the temporaries, and a split of a
+    sharded dim would gather it)."""
+    if t.dim() == 0 or t.numel() <= _CHUNK or isinstance(t, DTensor):
         return [t]
     rows = max(1, _CHUNK // max(1, t[0].numel()))
     return list(torch.split(t, rows, dim=0))

@@ -15,14 +15,41 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models import model as model_lib
+from repro_torch.models import sharding as sh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import optimizers as opt_lib
 
 
 def _split_microbatches(batch: Dict, n: int):
-    """(B, ...) -> n dicts of (B//n, ...), in order."""
-    return [{k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
-            for i in range(n)]
+    """(B, ...) -> n dicts of (B//n, ...), in order. A DTensor (its rows
+    sharded over the data axes, as the reference's constraint on the split
+    keeps them) is split on each rank's own rows: microbatch i is every
+    rank's i-th block of its rows, with no collective (the step sums the
+    same rows' gradients, grouped otherwise than the plain split's)."""
+    def split(v, i):
+        if sh_lib.is_dtensor(v):
+            loc = v.to_local()
+            part = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))[i]
+            return sh_lib.wrap_local(part, v.device_mesh, v.placements,
+                                     (v.shape[0] // n,) + tuple(v.shape[1:]))
+        return v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
+
+    return [{k: split(v, i) for k, v in batch.items()} for i in range(n)]
+
+
+def _reduce_grads(params, grads: Dict) -> Dict:
+    """Each DTensor gradient laid out as its parameter (the gradient
+    reductions: a ``Partial`` sum over the ranks that shared the
+    parameter's work becomes an all-reduce or a reduce-scatter); plain
+    tensors as they are."""
+    out = {}
+    for n, g in grads.items():
+        if sh_lib.is_dtensor(g):
+            p = params.get_parameter(n)
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+        out[n] = g
+    return out
 
 
 @torch.no_grad()
@@ -58,11 +85,13 @@ def make_train_step(
 
     Each microbatch's gradient is added into an ``accum_dtype`` sum in
     order, then divided by the count (the grads then have that dtype);
-    with one microbatch they keep the parameters' dtype. ``dp_axes`` is
-    the reference's mesh constraint for the microbatch split, which one
-    card does not need (read by nothing). ``weight_decay`` is taken and,
-    as in the reference, not passed on: each optimizer keeps its own
-    default."""
+    with one microbatch they keep the parameters' dtype. ``dp_axes`` names
+    the mesh axes that carry the batch (the reference's constraint for the
+    microbatch split): DTensor batches are split on each rank's rows
+    whatever it names, so it is read by nothing. On a mesh (DTensor
+    parameters) each microbatch's gradients are reduced to their
+    parameters' layouts. ``weight_decay`` is taken and, as in the
+    reference, not passed on: each optimizer keeps its own default."""
     del dp_axes, weight_decay
 
     def loss_and_grad(params, mb):
@@ -70,7 +99,8 @@ def make_train_step(
         with torch.enable_grad():
             loss, metrics = model_lib.loss_fn(params, mb, cfg)
             grads = torch.autograd.grad(loss, plist)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
+        grads = _reduce_grads(params, dict(zip(names, grads)))
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state: opt_lib.OptState, batch: Dict):
         if microbatches > 1:
@@ -78,7 +108,8 @@ def make_train_step(
             for mb in _split_microbatches(batch, microbatches):
                 loss, _, grads = loss_and_grad(params, mb)
                 if gsum is None:
-                    gsum = {n: torch.zeros(g.shape, dtype=accum_dtype, device=g.device)
+                    gsum = {n: torch.zeros_like(g, dtype=accum_dtype) if sh_lib.is_dtensor(g)
+                            else torch.zeros(g.shape, dtype=accum_dtype, device=g.device)
                             for n, g in grads.items()}
                 for n, g in grads.items():
                     gsum[n].add_(g.to(accum_dtype))
@@ -108,7 +139,7 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, tokens, cache):
         logits, cache = model_lib.decode_step(params, tokens, cache, cfg)
         # the first maximum on ties, as jnp.argmax takes it
-        next_tokens = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        next_tokens = sh_lib.argmax_last(logits[:, -1, :]).to(torch.int32)
         return next_tokens[:, None], logits, cache
 
     return serve_step

@@ -1,0 +1,15 @@
+"""The dry run on 8 fake ranks, (2, 4) ("data", "model"), for the reduced
+VLM and encoder-decoder configs (a batch with patches, with frames): train
+(2 microbatches), prefill and decode come out ``ok`` with the reference's
+record keys (``tests/_torch_dryrun.py``)."""
+import pytest
+
+from _torch_dryrun import check_record, small_records
+
+
+@pytest.mark.parametrize("arch", ["internvl2_76b", "seamless_m4t_medium"])
+def test_small_cells_run(arch):
+    recs = small_records([arch])
+    assert [r["shape"] for r in recs] == ["train", "prefill", "decode"]
+    for rec in recs:
+        check_record(rec)

@@ -53,6 +53,8 @@ FILES = {
     "fw_probe": REPO / "examples" / "torch_fw_feature_selection.py",
     "compressed_dp": REPO / "examples" / "torch_compressed_dp.py",
     "train": REPO / "src" / "repro_torch" / "launch" / "train.py",
+    "dryrun": REPO / "src" / "repro_torch" / "launch" / "dryrun.py",
+    "dryrun_small": REPO / "scripts" / "torch_debug_dryrun_small.py",
 }
 QS_P, QS_INF, QS_ITERS = 300, 10, 150
 
@@ -345,3 +347,29 @@ def test_chip_smoke_planted_fault_runs_and_is_undone(fault):
     assert all(a is b for a, b in zip(own(), originals))
     assert torch.equal(decode(), sound)
 
+
+
+def test_dryrun_cli_on_cpu(tmp_path):
+    """``python -m repro_torch.launch.dryrun --arch mamba2_130m --shape
+    long_500k --device cpu --out DIR``: one production cell on 256 fake
+    ranks (no card: the fake tensors' device is the CPU), its record in
+    DIR under the reference's name, and ``--all`` without ``--arch`` or
+    ``--shape`` refused."""
+    rc = _load("dryrun").main(["--arch", "mamba2_130m", "--shape", "long_500k", "--device", "cpu",
+                               "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "mamba2_130m_long_500k_16x16.json").read_text())
+    assert rc == 0 and rec["status"] == "ok", rec.get("traceback")
+    assert rec["mesh"] == "16x16" and rec["device"] == "cpu"
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert 0 < rec["hbm_per_device_gb"] < 80
+    with pytest.raises(SystemExit):
+        _load("dryrun").main(["--device", "cpu", "--out", str(tmp_path)])
+
+
+def test_dryrun_small_script_on_cpu(capsys):
+    """``scripts/torch_debug_dryrun_small.py --device cpu`` at one config
+    and kind: 8 fake ranks on (2, 4), exit 0, one OK line."""
+    rc = _load("dryrun_small").main(["--device", "cpu", "--arch", "deepseek_7b",
+                                     "--kinds", "decode"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "OK   deepseek_7b" in out and "0 failures" in out

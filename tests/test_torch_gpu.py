@@ -2247,3 +2247,71 @@ def test_lm_loss_falls_over_three_steps_on_the_card():
         params, state, metrics = step(params, state, batch)
         losses.append(float(metrics["loss"]))
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], losses
+
+
+# ---------------------------------------------------------------------------
+# the LM stack on a (1, 1) mesh (no kernel of its own)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_lm_serving_on_the_one_card_mesh_is_the_plain_run():
+    """deepseek-7b reduced in bf16 on a (1, 1) NCCL mesh
+    (``launch.mesh.make_host_mesh``): its parameters, prompt and cache as
+    DTensors under ``sharding.activation_mesh``, a prefill and 3 greedy
+    serve steps decode the plain run's tokens, with its logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+    import socket
+
+    import torch.distributed as tdist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import set_matmul_precision, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import make_serve_step
+
+    set_matmul_precision()
+    cfg = get_config("deepseek_7b").reduced(dtype="bfloat16")
+    params = M.init_params(0, cfg, "cuda")
+    batch = synthetic_batch(cfg, 2, 16, torch.Generator(device="cuda").manual_seed(1))
+    serve = make_serve_step(cfg)
+
+    def decode(p, prompt):
+        logits, cache = M.prefill(p, prompt, cfg, 32)
+        tok = sh.argmax_last(logits[:, -1, :]).to(torch.int32)[:, None]
+        toks, lgs = [tok], [logits]
+        for _ in range(3):
+            tok, lg, cache = serve(p, tok, cache)
+            toks.append(tok)
+            lgs.append(lg)
+        whole = [t.full_tensor() if sh.is_dtensor(t) else t for t in toks + lgs]
+        return torch.cat(whole[:4], 1), whole[4:]
+
+    want_toks, want_lgs = decode(params, batch)
+    made = not tdist.is_initialized()
+    if made:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                 rank=0)
+    try:
+        mesh = make_host_mesh(device="cuda")
+        dparams = sh.distribute_params(copy.deepcopy(params), mesh)
+        specs = sh.batch_specs(batch, mesh)
+        dbatch = {k: distribute_tensor(v, mesh, sh.placements(specs[k], mesh))
+                  for k, v in batch.items()}
+        with sh.activation_mesh(mesh), implicit_replication():
+            got_toks, got_lgs = decode(dparams, dbatch)
+    finally:
+        if made:
+            tdist.destroy_process_group()
+    assert torch.equal(got_toks, want_toks)
+    for got, want in zip(got_lgs, want_lgs):
+        assert torch.equal(got, want)

@@ -9,9 +9,11 @@ port" records the same). The LM stack's: ``repro.models.__all__``,
 ``repro.models``' ``model``, ``attention``, ``layers``, ``ssm`` and ``moe``,
 and the training slice's: ``repro.training.optimizers``, ``repro.runtime``,
 ``repro.compression``, ``repro.parallel``, ``repro.utils`` and
-``repro.data.lm_pipeline``, less the names that wait for the last LM slice
-(``WAITS_FOR_15C``; ROADMAP.md item 15c). Typing helpers and imported modules are not names of
-the API and are left out on both sides.
+``repro.data.lm_pipeline``, and the last LM slice's (item 15c):
+``repro.models.sharding``, ``repro.launch`` (``cells``, ``mesh``, and
+``dryrun`` read from its source, since importing it sets ``XLA_FLAGS``),
+``repro.analysis`` and its ``roofline``. Typing helpers and imported
+modules are not names of the API and are left out on both sides.
 """
 import types
 import typing
@@ -43,6 +45,12 @@ import repro.compression.topk
 import repro.parallel
 import repro.utils
 import repro.data.lm_pipeline
+import repro.analysis
+import repro.analysis.roofline
+import repro.launch
+import repro.launch.cells
+import repro.launch.mesh
+import repro.models.sharding
 
 import repro_torch.configs
 import repro_torch.training.optimizers
@@ -52,6 +60,13 @@ import repro_torch.compression.topk
 import repro_torch.parallel
 import repro_torch.utils
 import repro_torch.data.lm_pipeline
+import repro_torch.analysis
+import repro_torch.analysis.roofline
+import repro_torch.launch
+import repro_torch.launch.cells
+import repro_torch.launch.dryrun
+import repro_torch.launch.mesh
+import repro_torch.models.sharding
 import repro_torch.models
 import repro_torch.models.attention
 import repro_torch.models.layers
@@ -80,6 +95,17 @@ NO_PORT = {
     "repro.core.engine": {
         "dot_dtype": "the n_dots counter's JAX dtype; the port counts dots in Python ints (R6)",
     },
+    "repro.analysis.roofline": {
+        "V5E": "a TPU's figures; the port's roofline takes the H100's (H100)",
+    },
+    "repro.analysis": {
+        "V5E": "a TPU's figures; the port's roofline takes the H100's (H100)",
+    },
+    "repro.models.sharding": {
+        "Mesh": "jax's mesh type; the port's mesh is a torch DeviceMesh",
+        "NamedSharding": "jax's sharding type; the port's sharding is a DTensor placement list",
+        "P": "jax's PartitionSpec; the port's spec is a plain tuple of the same content",
+    },
     "repro.core.path": {
         "batched_solver_cache_size": "the reference caches its jitted batched solvers; the port "
                                      "compiles none",
@@ -87,18 +113,9 @@ NO_PORT = {
     },
 }
 
-# name -> what it waits for: the last LM slice (ROADMAP.md item 15c)
-WAITS_FOR_15C = {
-    "repro.models": {
-        "sharding": "the logical-axis rules of a JAX mesh; on one card its constraints are "
-                    "no-ops",
-    },
-}
-
-
 def _public(mod) -> set:
     """A module's public names: not underscored, not an imported module,
-    not a typing construct."""
+    not a typing or dataclasses construct."""
     out = set()
     for name in dir(mod):
         if name.startswith("_") or name == "annotations":
@@ -106,7 +123,7 @@ def _public(mod) -> set:
         obj = getattr(mod, name)
         if isinstance(obj, types.ModuleType):
             continue
-        if getattr(obj, "__module__", None) == "typing" or obj in (typing.Callable,
+        if getattr(obj, "__module__", None) in ("typing", "dataclasses") or obj in (typing.Callable,
                                                                    typing.Optional):
             continue
         if name[0].isupper() and getattr(obj, "__origin__", None) is not None:
@@ -151,15 +168,17 @@ def test_module_names_carry_across(ref, port):
     (repro.compression, repro_torch.compression),
     (repro.parallel, repro_torch.parallel),
     (repro.utils, repro_torch.utils),
+    (repro.launch, repro_torch.launch),
+    (repro.analysis, repro_torch.analysis),
 ])
 def test_lm_all_lists_carry_across(ref, port):
-    waits = WAITS_FOR_15C.get(ref.__name__, {})
-    missing = set(ref.__all__) - set(port.__all__) - set(waits)
+    recorded = NO_PORT.get(ref.__name__, {})
+    missing = set(ref.__all__) - set(port.__all__) - set(recorded)
     assert not missing, f"{port.__name__}.__all__ lacks {sorted(missing)}"
     for name in port.__all__:
         assert hasattr(port, name), name
-    for name in waits:
-        assert not hasattr(port, name), f"{name} is recorded as waiting but exists"
+    for name in recorded:
+        assert not hasattr(port, name), f"{name} is recorded as having no port but exists"
 
 
 @pytest.mark.parametrize("ref,port", [
@@ -172,13 +191,37 @@ def test_lm_all_lists_carry_across(ref, port):
     (repro.training.optimizers, repro_torch.training.optimizers),
     (repro.compression.topk, repro_torch.compression.topk),
     (repro.data.lm_pipeline, repro_torch.data.lm_pipeline),
+    (repro.models.sharding, repro_torch.models.sharding),
+    (repro.launch.cells, repro_torch.launch.cells),
+    (repro.launch.mesh, repro_torch.launch.mesh),
+    (repro.analysis.roofline, repro_torch.analysis.roofline),
 ])
 def test_lm_module_names_carry_across(ref, port):
-    waits = WAITS_FOR_15C.get(ref.__name__, {})
-    missing = _public(ref) - _public(port) - set(waits)
+    recorded = NO_PORT.get(ref.__name__, {})
+    missing = _public(ref) - _public(port) - set(recorded)
     assert not missing, f"{port.__name__} lacks {sorted(missing)}"
-    for name in waits:
-        assert not hasattr(port, name), f"{name} is recorded as waiting but exists"
+    for name in recorded:
+        assert not hasattr(port, name), f"{name} is recorded as having no port but exists"
+
+
+def test_the_dry_runs_names_carry_across():
+    """``repro.launch.dryrun``'s top-level functions and constants (read from
+    its source: importing it sets ``XLA_FLAGS`` for the whole process) are
+    the port's, its underscored helpers too."""
+    import ast
+    from pathlib import Path
+
+    src = Path(repro.launch.__file__).with_name("dryrun.py").read_text()
+    names = set()
+    for node in ast.parse(src).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    assert {"_opt_shardings", "_serve_rules", "_dp_axes", "lower_cell", "_probe_costs",
+            "run_cell", "main", "OUT_DIR"} <= names
+    missing = {n for n in names if not hasattr(repro_torch.launch.dryrun, n)}
+    assert not missing, f"repro_torch.launch.dryrun lacks {sorted(missing)}"
 
 
 def test_aliases_are_their_kernels_counterparts():

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         ROOT / "scripts" / "port_kernel_ab.py", ROOT / "scripts" / "rule_step_ab.py",
         ROOT / "scripts" / "cd_sweep_breakdown.py", ROOT / "scripts" / "s1_partan_replay.py",
         ROOT / "examples" / "torch_train_lm.py", ROOT / "examples" / "torch_fw_feature_selection.py",
-        ROOT / "examples" / "torch_compressed_dp.py"]
+        ROOT / "examples" / "torch_compressed_dp.py", ROOT / "scripts" / "torch_debug_dryrun_small.py",
+        ROOT / "scripts" / "serve_decode_ab.py", ROOT / "tests" / "_torch_mesh_ranks.py"]
     assert len(files) > 10
     assert {"matrix.py", "ops.py"} <= {f.name for f in files if f.parent.name == "sparse"}
     assert "step_rule.py" in {f.name for f in files if f.parent.name == "core"}
@@ -54,6 +55,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert "manager.py" in {f.name for f in files if f.parent.name == "checkpoint"}
     assert {"optimizers.py", "trainer.py", "topk.py", "pipeline.py", "trees.py", "lm_pipeline.py",
             "train.py"} <= {f.name for f in files}
+    assert {"sharding.py", "cells.py", "dryrun.py", "mesh.py", "roofline.py",
+            "torch_debug_dryrun_small.py"} <= {f.name for f in files}
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 
